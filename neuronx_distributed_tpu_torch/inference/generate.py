@@ -25,7 +25,7 @@ import torch
 
 from neuronx_distributed_tpu_torch.inference.utils import unwrap_logits
 from neuronx_distributed_tpu_torch.modules.attention import cache_cursor
-from neuronx_distributed_tpu_torch.utils.sampling import greedy, sample, sample_per_row
+from neuronx_distributed_tpu_torch.utils.sampling import sample, sample_per_row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,15 +85,13 @@ def chunked_decode_step(decode_model, chunk_size: int, max_seq_len: int):
 
     Returned callable::
 
-        fn(cache, state, any_sampled, any_filtered) -> (toks, counts)
+        fn(cache, state) -> (toks, counts, executed)
 
     ``state`` holds per-slot device tensors — ``tok`` pending input tokens,
     ``seed`` request seeds, ``ntok`` tokens emitted so far (the sampling
     index), ``active``, ``remaining`` tokens left, ``temp``/``topk``/
     ``topp`` sampling sentinels, ``eos`` (-1 = none) — and is updated in
-    place. ``any_sampled``/``any_filtered`` are host facts about the slots'
-    configs that let an all-greedy or filter-free chunk skip the noise or the
-    sort (results are the same either way).
+    place.
 
     Semantics mirror the JAX chunk step by step: decode with the write mask
     hiding finished rows' K/V, per-row sample, EOS/budget freezing of
@@ -104,12 +102,13 @@ def chunked_decode_step(decode_model, chunk_size: int, max_seq_len: int):
     ``start + max(counts)`` after its one read — the cursor lands exactly
     where the JAX chunk leaves it.
 
-    ``toks`` is the (chunk_size, B) token block and ``counts`` (B,) how many
-    of each slot's tokens are real (a prefix: freezing is monotone)."""
+    ``toks`` is the (chunk_size, B) token block, ``counts`` (B,) how many
+    of each slot's tokens are real (a prefix: freezing is monotone) and
+    ``executed`` the host count of model steps that ran, no-ops included."""
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
 
-    def chunk_fn(cache, state, any_sampled: bool = True, any_filtered: bool = True):
+    def chunk_fn(cache, state):
         allowed = max(0, min(max_seq_len - cache_cursor(cache), chunk_size))
         tok, ntok, remaining = state["tok"], state["ntok"], state["remaining"]
         done = torch.logical_not(state["active"])
@@ -122,14 +121,8 @@ def chunked_decode_step(decode_model, chunk_size: int, max_seq_len: int):
                 tok[:, None], cache=cache, padding_mask=decode_write_mask(done),
                 last_only=True,
             ))[:, -1]
-            if any_sampled:
-                nxt = sample_per_row(
-                    logits, state["seed"], ntok, state["temp"],
-                    state["topk"] if any_filtered else None,
-                    state["topp"] if any_filtered else None,
-                )
-            else:
-                nxt = greedy(logits)
+            nxt = sample_per_row(logits, state["seed"], ntok, state["temp"],
+                                 state["topk"], state["topp"])
             emit = torch.logical_not(done)
             remaining = remaining - emit.to(remaining.dtype)
             finished = emit & (((eos >= 0) & (nxt == eos)) | (remaining <= 0))
@@ -140,7 +133,7 @@ def chunked_decode_step(decode_model, chunk_size: int, max_seq_len: int):
             emits[i] = emit
         state.update(tok=tok, ntok=ntok, remaining=remaining,
                      active=torch.logical_not(done))
-        return toks, emits.sum(0)
+        return toks, emits.sum(0), allowed
 
     return chunk_fn
 

@@ -109,6 +109,7 @@ class ServingEngine:
     ):
         if admission not in ("conservative", "eager"):
             raise ValueError(f"unknown admission policy {admission!r}")
+        # kept to match the JAX signature; this port has one policy
         if scheduling != "fifo":
             raise ValueError(f"unknown scheduling policy {scheduling!r} (this port has 'fifo')")
         if decode_chunk_size < 1:
@@ -293,26 +294,12 @@ class ServingEngine:
 
     # --- decode -------------------------------------------------------------
 
-    def _sampling_flags(self):
-        """Host facts about the active slots' configs: does any sample, and
-        does any sampled slot filter (top-k / top-p)."""
-        sampled = filtered = False
-        for req in self._slot_req:
-            if req is None:
-                continue
-            temp, topk, topp = _config_sentinels(req.config)
-            if temp != 0.0:
-                sampled = True
-                filtered = filtered or topk > 0 or topp < 1.0
-        return sampled, filtered
-
     def _decode_plain(self) -> None:
         """One fused decode chunk, then ONE host read of the token block."""
         active_at_dispatch = int(self._active.sum())
         start = self.cache.cursor
         t0 = time.monotonic()
-        toks, counts = self._decode_chunk(self.cache.cache, self._state,
-                                          *self._sampling_flags())
+        toks, counts, executed = self._decode_chunk(self.cache.cache, self._state)
         t1 = time.monotonic()
         block = self._host_read(torch.cat([toks, counts[None]], dim=0))
         t2 = time.monotonic()
@@ -331,7 +318,7 @@ class ServingEngine:
                 self._maybe_finish(req, now)
                 if req.finished:
                     break  # EOS or budget: the rest of its block is discarded
-        self.metrics.record_decode_chunk(delivered, used, self.cache.cursor,
+        self.metrics.record_decode_chunk(delivered, used, executed, self.cache.cursor,
                                          active_at_dispatch, dispatch_s=t1 - t0,
                                          readback_s=t2 - t1)
 

@@ -24,7 +24,7 @@ class ServingMetrics:
     def __init__(self, num_slots: int = 0):
         self.num_slots = num_slots
         self._requests: Dict[int, dict] = {}
-        self.steps = self.chunks = self.decode_tokens = 0
+        self.steps = self.executed_steps = self.chunks = self.decode_tokens = 0
         self.occupied_slot_steps = 0
         self.prefills = self.completed = self.cancelled = 0
         self.preemptions = self.rejects = 0
@@ -76,14 +76,17 @@ class ServingMetrics:
     def record_reject(self) -> None:
         self.rejects += 1
 
-    def record_decode_chunk(self, tokens: int, steps: int, cursor: int,
+    def record_decode_chunk(self, tokens: int, steps: int, executed: int, cursor: int,
                             active_slots: int, dispatch_s: float = 0.0,
                             readback_s: float = 0.0) -> None:
-        """One decode chunk: ``tokens`` delivered across ``steps`` executed
-        steps by ``active_slots`` slots held at dispatch; ``dispatch_s``/
+        """One decode chunk: ``tokens`` delivered across ``steps`` used
+        steps (those with a live slot, the JAX count) by ``active_slots``
+        slots held at dispatch; ``executed`` counts the model steps that ran,
+        the masked no-ops after every slot froze included; ``dispatch_s``/
         ``readback_s`` split its wall time around the one host read."""
         self.chunks += 1
         self.steps += steps
+        self.executed_steps += executed
         self.decode_tokens += tokens
         self.occupied_slot_steps += active_slots * steps
         self.cursor_high_water = max(self.cursor_high_water, cursor)
@@ -103,6 +106,7 @@ class ServingMetrics:
         return {
             "num_slots": self.num_slots,
             "steps": self.steps,
+            "executed_steps": self.executed_steps,
             "chunks": self.chunks,
             "decode_dispatch_s": self.decode_dispatch_s,
             "decode_readback_s": self.decode_readback_s,

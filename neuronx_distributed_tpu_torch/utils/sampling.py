@@ -107,16 +107,15 @@ def sample(
 #
 # The serving engine runs ONE decode step over all slots, so the sampling
 # config is per-row tensor data. Sentinels as in the JAX module: top_k <= 0
-# and top_p >= 1.0 disable a filter, temperature == 0.0 is greedy. ``top_k``/
-# ``top_p`` may be None when no row uses the filter — that skips the sort.
+# and top_p >= 1.0 disable a filter, temperature == 0.0 is greedy.
 
 def sample_per_row(
     logits: torch.Tensor,
     seeds: torch.Tensor,
     index: Union[int, torch.Tensor],
     temperature: torch.Tensor,
-    top_k: Optional[torch.Tensor] = None,
-    top_p: Optional[torch.Tensor] = None,
+    top_k: torch.Tensor,
+    top_p: torch.Tensor,
 ) -> torch.Tensor:
     """Per-row tokens for logits (B, V) with per-row (B,) config tensors —
     the vectorized ``sample_row`` of the JAX module, with the same filter
@@ -125,25 +124,20 @@ def sample_per_row(
     greedy_tok = greedy(logits)
     temp = temperature.to(torch.float32)
     x = logits.to(torch.float32) / torch.where(temp == 0.0, 1.0, temp)[:, None]
-    if top_k is not None or top_p is not None:
-        desc = torch.sort(x, dim=-1, descending=True).values
-        if top_k is not None:
-            k = top_k.to(torch.int64)
-            kth = desc.gather(-1, (k.clamp(1, v) - 1)[:, None])
-            cut_k = (k > 0)[:, None]
-            x = torch.where(cut_k & (x < kth), float("-inf"), x)
-            # the filter maps a down-set to -inf, so the filtered x sorted
-            # descending is the filter applied to `desc` elementwise
-            desc = torch.where(cut_k & (desc < kth), float("-inf"), desc)
-        if top_p is not None:
-            p = top_p.to(torch.float32)[:, None]
-            probs = torch.softmax(desc, dim=-1)
-            cum = torch.cumsum(probs, dim=-1)
-            cutoff_mask = cum - probs < p
-            thresh = torch.where(cutoff_mask, desc, float("inf")).amin(
-                -1, keepdim=True
-            )
-            x = torch.where((p < 1.0) & (x < thresh), float("-inf"), x)
+    desc = torch.sort(x, dim=-1, descending=True).values
+    k = top_k.to(torch.int64)
+    kth = desc.gather(-1, (k.clamp(1, v) - 1)[:, None])
+    cut_k = (k > 0)[:, None]
+    x = torch.where(cut_k & (x < kth), float("-inf"), x)
+    # the filter maps a down-set to -inf, so the filtered x sorted
+    # descending is the filter applied to `desc` elementwise
+    desc = torch.where(cut_k & (desc < kth), float("-inf"), desc)
+    p = top_p.to(torch.float32)[:, None]
+    probs = torch.softmax(desc, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    cutoff_mask = cum - probs < p
+    thresh = torch.where(cutoff_mask, desc, float("inf")).amin(-1, keepdim=True)
+    x = torch.where((p < 1.0) & (x < thresh), float("-inf"), x)
     tok = torch.argmax(x + gumbel_noise(seeds, index, v), dim=-1)
     return torch.where(temp == 0.0, greedy_tok, tok)
 
@@ -158,14 +152,12 @@ def sample_row(
 ) -> torch.Tensor:
     """One row's token from ``logits`` (V,) with sentinel config — the
     engine's first-token sampler. Same tokens as :func:`sample_per_row`."""
-    if temperature == 0.0:
-        return greedy(logits)
     dev = logits.device
     return sample_per_row(
         logits[None],
         torch.tensor([seed], dtype=torch.int64, device=dev),
         index,
         torch.tensor([temperature], dtype=torch.float32, device=dev),
-        torch.tensor([top_k], dtype=torch.int64, device=dev) if top_k > 0 else None,
-        torch.tensor([top_p], dtype=torch.float32, device=dev) if top_p < 1.0 else None,
+        torch.tensor([top_k], dtype=torch.int64, device=dev),
+        torch.tensor([top_p], dtype=torch.float32, device=dev),
     )[0]

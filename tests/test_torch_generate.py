@@ -113,7 +113,7 @@ def test_sample_and_sample_per_row_agree():
         a = sampling.sample(logits, seeds, 4, temp, k, p)
         b = sampling.sample_per_row(
             logits, seeds, 4, torch.full((4,), temp),
-            torch.full((4,), k) if k else None, torch.full((4,), p) if p else None)
+            torch.full((4,), k or 0), torch.full((4,), p or 1.0))
         torch.testing.assert_close(a, b, rtol=0, atol=0)
         for r in range(4):
             c = sampling.sample_row(logits[r], int(seeds[r]), 4, temp, k or 0, p or 1.0)

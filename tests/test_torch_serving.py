@@ -95,6 +95,10 @@ def test_greedy_streams_match_solo_generate_and_jax_engine(pair, jax_greedy_stre
     assert len(reqs[2].tokens) == 6  # EOS fired
     snap = engine.metrics.snapshot()
     assert snap["completed"] == len(prompts) and snap["decode_tokens"] > 0
+    # executed steps include the masked no-ops after every slot froze; a
+    # one-step chunk runs only while a slot is live, so it has none
+    assert snap["executed_steps"] >= snap["steps"]
+    assert chunk > 1 or snap["executed_steps"] == snap["steps"]
     assert engine.cache.free_slots == 3
 
 
