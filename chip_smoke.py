@@ -5,11 +5,13 @@
 Phases (any failure exits non-zero; nothing here catches its own failure):
 
 1. the card's name and power limit, and the build of every CUDA kernel of
-   the serving path from ``neuronx_distributed_tpu_torch/csrc`` (one
-   ``nvcc`` per source, started together);
-2. each kernel against its plain PyTorch version at the serving path's
-   shapes, bf16, with its time, the plain version's, the least time the card
-   could take (``bound_ms``) and one PyTorch library call's (SDPA) time;
+   the serving and training paths from ``neuronx_distributed_tpu_torch/csrc``
+   (one ``nvcc`` per source, started together);
+2. each kernel against its plain PyTorch version at its path's shapes,
+   bf16, with its time, the plain version's, the least time the card could
+   take (``bound_ms``) and one PyTorch library call's (SDPA) time: K1 and K4
+   at the serving shapes, K2 and K3 at the training shapes (unpacked,
+   packed and ragged), each also bitwise reproducible;
 3. outputs: the full-width model's logits through the kernels against the
    same model with the plain versions swapped in, on a short prompt;
 4. serving: ``ServingEngine`` over Llama-3-8B at full width (all 32 layers,
@@ -17,7 +19,13 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    launch count is zeroed just before and read just after;
 5. the same workload under ``torch.profiler``: device time by kernel
    family and the device's idle share;
-6. a ``{"kernels": [...]}`` line, then the last line
+6. training, kernel path against plain path: one step's loss and gradients
+   of a 2-layer Llama-3-8B-width model at S=1024;
+7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
+   layers (fp32 masters, AdamW, remat) on one packed 2 x 4096 batch, launch
+   counts zeroed just before and read just after, then one step under the
+   profiler;
+8. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA device: without one it exits non-zero before printing any
@@ -28,6 +36,8 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -45,6 +55,13 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 K1_PV = 2.0 ** -8
 K4_PV = 2.0 ** -12
 LSE_TOL = 5e-4  # f32 on both sides; exp-sums of <= 8192 terms in another order (n * 2^-24)
+# Backward limits, elementwise, the same form: |g - ref| <= 2^-7 |ref| +
+# c * M + 1e-5, with M the sum of the magnitudes of the terms of g: P|dO|
+# for dV, |dS||Q| for dK, |dS||K| for dQ (dS = P (dP - delta) scale). K2 and K3 round P
+# and dS to bf16 (2^-9 relative per term) as the A operands of those
+# products, where the plain version keeps f32; dS itself, S and dP are f32
+# sums of exact bf16 products on both sides. c = 2^-8, twice that bound.
+K2K3_C = 2.0 ** -8
 
 
 def log(*a):
@@ -184,6 +201,138 @@ def check_k4(gen):
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
 
 
+def packed_segments(rng, b: int, s: int, lo: int = 200, hi: int = 3000):
+    """(B, S) int32 segment ids of documents of lo..hi tokens packed end to
+    end (a document cut by the window edge keeps its id)."""
+    import numpy as np
+
+    seg = np.zeros((b, s), np.int32)
+    for i in range(b):
+        pos, doc = 0, 0
+        while pos < s:
+            n = int(rng.integers(lo, hi + 1))
+            seg[i, pos:pos + n] = doc
+            pos, doc = pos + n, doc + 1
+    return seg
+
+
+def live_pairs(seg, b: int, s: int, dev) -> int:
+    """Live (query, key) pairs of one head over a batch of ``b`` rows:
+    causal, equal segment ids (no segments: every row its causal prefix)."""
+    rows = torch.arange(s, device=dev)
+    causal = rows[:, None] >= rows[None, :]
+    if seg is None:
+        return b * int(causal.sum())
+    return sum(int((causal & (r[:, None] == r[None, :])).sum()) for r in seg)
+
+
+def bwd_magnitudes(q, k, v, do, lse, delta, seg, kv_seg):
+    """The sums of term magnitudes each backward output is limited by:
+    (dK: |dS||Q|, dV: P|dO|, dQ: |dS||K|), f32; dS = P (dP - delta) scale."""
+    from neuronx_distributed_tpu_torch.kernels.flash_attention import backward_scores
+
+    b, s, h, d = q.shape
+    hkv = k.shape[2]
+    p, ds = backward_scores(q, k, v, do, lse, delta, True, seg, kv_seg)
+    dog = do.float().abs().reshape(b, s, hkv, h // hkv, d)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    del p
+    ds = ds.abs_()
+    qg = q.float().abs().reshape(b, s, hkv, h // hkv, d)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float().abs()).reshape(b, s, h, d)
+    return dk, dv, dq
+
+
+def check_k2k3(gen, s: int, packed: bool, timed: bool):
+    """K2 and K3 at training shapes: B=2, H=32, Hkv=8, D=128, bf16, causal,
+    optionally packed segment ids. LSE from K1, delta = rowsum(dO * O)."""
+    import numpy as np
+    from torch.nn import functional as F
+
+    from neuronx_distributed_tpu_torch.kernels.flash_attention import (
+        flash_attention_dkdv,
+        flash_attention_dkdv_plain,
+        flash_attention_dq,
+        flash_attention_dq_plain,
+        flash_attention_fwd,
+    )
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    b, h, hkv, d = 2, 32, 8, 128
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(bf)
+    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(bf)
+    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(bf)
+    do = torch.randn(b, s, h, d, generator=gen, device=dev).to(bf)
+    seg = (torch.from_numpy(packed_segments(np.random.default_rng(s), b, s)).to(dev)
+           if packed else None)
+    out, lse = flash_attention_fwd(q, k, v, True, seg)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta, True, seg)
+    dk, dv = flash_attention_dkdv(*args)
+    dq = flash_attention_dq(*args)
+    dk2, dv2 = flash_attention_dkdv(*args)
+    dq2 = flash_attention_dq(*args)
+    torch.cuda.synchronize()
+    same_bits = all(torch.equal(a, b_) for a, b_ in ((dk, dk2), (dv, dv2), (dq, dq2)))
+    del dk2, dv2, dq2
+    rk, rv = flash_attention_dkdv_plain(*args)
+    rq = flash_attention_dq_plain(*args)
+    mk, mv, mq = bwd_magnitudes(q, k, v, do, lse, delta, seg, seg)
+    ratios = {name: tol_ratio(got, ref, mag, K2K3_C)
+              for name, got, ref, mag in (("dk", dk, rk, mk), ("dv", dv, rv, mv), ("dq", dq, rq, mq))}
+    errs = {"dk": max_err(dk, rk), "dv": max_err(dv, rv), "dq": max_err(dq, rq)}
+    # deliberately wrong kernels: K2 without the last key tile (those keys'
+    # dK/dV come out 0), K3 without the first (rows 0..63 see only it)
+    kv_seg = seg.clone() if seg is not None else torch.zeros(b, s, dtype=torch.int32, device=dev)
+    q_seg = seg if seg is not None else torch.zeros_like(kv_seg)
+    last, first = kv_seg.clone(), kv_seg.clone()
+    last[:, (s - 1) // 64 * 64:] = -2
+    first[:, :64] = -2
+    fk, fv = flash_attention_dkdv_plain(q, k, v, do, lse, delta, True, q_seg, last)
+    fq = flash_attention_dq_plain(q, k, v, do, lse, delta, True, q_seg, first)
+    fault = {"dk": tol_ratio(fk, rk, mk, K2K3_C), "dv": tol_ratio(fv, rv, mv, K2K3_C),
+             "dq": tol_ratio(fq, rq, mq, K2K3_C)}
+    del rk, rv, rq, mk, mv, mq, fk, fv, fq
+    torch.cuda.synchronize()
+    tag = f"S={s} {'packed' if packed else 'unpacked'}"
+    if not same_bits:
+        raise AssertionError(f"K2/K3 {tag}: two runs differ in their bits")
+    if max(ratios.values()) > 1.0:
+        raise AssertionError(f"K2/K3 {tag}: outside the limit: {ratios} (max errs {errs})")
+    if min(fault.values()) <= 1.0:
+        raise AssertionError(f"K2/K3 {tag}: the limit passes a dropped key tile: {fault}")
+    res = dict(err=errs, ratio=ratios, fault=fault)
+    if not timed:
+        return res
+    pairs = live_pairs(seg, b, s, dev) * h
+    seg_bytes = 0 if seg is None else 2 * 4 * seg.numel()
+    io = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * (lse.numel() + delta.numel())
+    work = {  # name: (FLOPs: 2*D per live pair per product, bytes read once + written once)
+        "dkdv": (4 * 2.0 * d * pairs, io + seg_bytes + 2 * (k.numel() + v.numel())),
+        "dq": (3 * 2.0 * d * pairs, io + seg_bytes + 2 * q.numel()),
+    }
+    for name, fn, plain in (
+            ("dkdv", lambda: flash_attention_dkdv(*args), lambda: flash_attention_dkdv_plain(*args)),
+            ("dq", lambda: flash_attention_dq(*args), lambda: flash_attention_dq_plain(*args))):
+        flops, nbytes = work[name]
+        res[name] = dict(
+            ms=cuda_ms(fn, 10), plain_ms=cuda_ms(plain, 2, warmup=1),
+            bound_ms=max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
+            bound_by="operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes")
+    # yardstick: SDPA's backward (dQ, dK and dV together) = fwd+bwd - fwd
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    g = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    fwd_ms = cuda_ms(sdpa, 10)
+    both_ms = cuda_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), g), 10)
+    res["library_ms"] = both_ms - fwd_ms
+    return res
+
+
 # --- phase 3: outputs against the plain path -----------------------------------
 
 @contextlib.contextmanager
@@ -302,17 +451,160 @@ def profile_serving(model, workload) -> dict:
             engine.submit(p, c, seed=i)
         engine.run()
         torch.cuda.synchronize()
-    fams = {"flash_attention": 0.0, "flash_decode": 0.0, "gemm": 0.0, "other": 0.0}
+    return device_time_by_family(prof, {"flash_attention": "flash_fwd_kernel",
+                                        "flash_decode": "flash_decode_kernel"})
+
+
+def device_time_by_family(prof, kernels: dict) -> dict:
+    """Device ms of a profile by family: each of ``kernels`` (family: a
+    substring of its CUDA kernel's name), GEMMs, and everything else."""
+    fams = {**{fam: 0.0 for fam in kernels}, "gemm": 0.0, "other": 0.0}
     for e in prof.events():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
             continue
         name = e.name
-        fam = ("flash_attention" if "flash_fwd_kernel" in name
-               else "flash_decode" if "flash_decode_kernel" in name
-               else "gemm" if any(t in name for t in ("nvjet", "gemm", "cutlass", "xmma"))
-               else "other")
+        fam = next((f for f, key in kernels.items() if key in name), None)
+        if fam is None:
+            fam = ("gemm" if any(t in name for t in ("nvjet", "gemm", "cutlass", "xmma"))
+                   else "other")
         fams[fam] += e.device_time / 1e3  # us -> ms
     return fams
+
+
+# --- phases 6-7: training ------------------------------------------------------
+
+EOS_ID = 128001  # Llama-3's <|end_of_text|>
+
+
+def packed_batch(vocab: int, b: int, s: int, seed: int = 0) -> dict:
+    """``b`` windows of ``s`` tokens from ``pack_documents`` over random
+    documents of 200..3000 tokens with an EOS separator: ids, labels,
+    segment ids and the boundary loss mask (as ``PackedCorpus`` emits)."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.trainer.data import pack_documents
+
+    rng = np.random.default_rng(seed)
+    docs, n = [], 0
+    while n < b * (s + 1):
+        docs.append(rng.integers(1, vocab - 1, size=int(rng.integers(200, 3001))))
+        n += len(docs[-1]) + 1
+    windows, segs = pack_documents(docs, s, EOS_ID, return_segments=True)
+    w, g = windows[:b], segs[:b]
+    return {"input_ids": w[:, :-1], "labels": w[:, 1:], "segment_ids": g[:, :-1],
+            "loss_mask": (g[:, :-1] == g[:, 1:]).astype(np.float32)}
+
+
+def kernel_counters():
+    from neuronx_distributed_tpu_torch.kernels.flash_attention import (
+        flash_attention_dkdv,
+        flash_attention_dq,
+        flash_attention_fwd,
+    )
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import flash_decode_fwd
+
+    return {"flash_attention": flash_attention_fwd, "flash_attention_dkdv": flash_attention_dkdv,
+            "flash_attention_dq": flash_attention_dq, "flash_decode": flash_decode_fwd}
+
+
+def train_vs_plain() -> dict:
+    """One step's loss and gradients of a 2-layer llama3_8b-width model at
+    S=1024 through the kernels, and with the plain versions swapped in."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params, llama3_8b
+    from neuronx_distributed_tpu_torch.parallel.grads import global_grad_norm
+    from neuronx_distributed_tpu_torch.trainer.trainer import _to_device, default_loss_fn
+
+    model = init_params(LlamaForCausalLM(llama3_8b(num_layers=2), trainable=True), seed=1)
+    batch = _to_device(packed_batch(model.config.vocab_size, 2, 1024, seed=1), model.device)
+    watched = [n for n, _ in model.named_parameters() if ".attn.qkv." in n]
+    runs = []
+    for plain in (False, True):
+        model.zero_grad(set_to_none=True)
+        with plain_attention() if plain else contextlib.nullcontext():
+            loss = default_loss_fn(model, batch)
+            loss.backward()
+        grads = dict(model.named_parameters())
+        runs.append((float(loss.detach()), float(global_grad_norm([p.grad for p in model.parameters()])),
+                     {n: grads[n].grad.clone() for n in watched}))
+    (lk, nk, gk), (lp, np_, gp) = runs
+    rel = {n: float((gk[n] - gp[n]).norm() / gp[n].norm()) for n in watched}
+    out = dict(loss=lk, loss_rel=abs(lk - lp) / abs(lp), gnorm_rel=abs(nk - np_) / np_,
+               qkv_grad_rel=max(rel.values()), qkv_grad_worst=max(rel, key=rel.get))
+    del model, runs, gk, gp
+    torch.cuda.empty_cache()
+    # bf16 model: K1 rounds P, K2/K3 round P and dS to bf16 where the plain
+    # path keeps f32 (~2^-9 relative per term); the q/k/v projection
+    # gradients are the ones that attention's backward alone produces
+    if not (out["loss_rel"] <= 1e-3 and out["gnorm_rel"] <= 1e-2 and out["qkv_grad_rel"] <= 2e-2):
+        raise AssertionError(f"training: kernel path vs plain path: {out}")
+    return out
+
+
+def train_phase(steps: int = 6) -> dict:
+    """Llama-3-8B width at 8 layers, fp32 masters, AdamW (lr 1e-3, weight
+    decay 0.1, clip 1.0), remat on: ``steps`` steps on one packed batch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, llama3_8b
+    from neuronx_distributed_tpu_torch.trainer import (
+        OptimizerConfig,
+        build_train_step,
+        create_train_state,
+        make_optimizer,
+    )
+
+    cfg = llama3_8b(num_layers=8)
+    b, s = 2, 4096
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(cfg, trainable=True)
+    opt_cfg = OptimizerConfig(learning_rate=1e-3, weight_decay=0.1, max_grad_norm=1.0)
+    optimizer = make_optimizer(opt_cfg)
+    state = create_train_state(model, optimizer, seed=0)
+    step = build_train_step(model, optimizer, max_grad_norm=opt_cfg.max_grad_norm)
+    batch = packed_batch(cfg.vocab_size, b, s)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.reset_peak_memory_stats()
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    losses, walls = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention": 2 * cfg.num_layers * steps, "flash_attention_dkdv":
+            cfg.num_layers * steps, "flash_attention_dq": cfg.num_layers * steps, "flash_decode": 0}
+    if launches != want:
+        raise AssertionError(f"training launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses not finite and falling: {losses}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    fams = device_time_by_family(prof, {"flash_attention": "flash_fwd_kernel",
+                                        "flash_attention_dkdv": "flash_dkdv_kernel",
+                                        "flash_attention_dq": "flash_dq_kernel"})
+    seg = torch.from_numpy(batch["segment_ids"]).cuda()
+    pairs = live_pairs(seg, b, s, seg.device)
+    d, h = cfg.head_dim_, cfg.num_heads
+    embed = model.model.embed.weight.numel()
+    # model FLOPs: 6 per matmul parameter per token (fwd + bwd; the embedding
+    # lookup has none) and attention's two products, 4*D*H per live pair
+    # forward, 3x that with the backward; the remat recompute is not counted
+    flops = 6.0 * (n_params - embed) * b * s + 12.0 * d * h * pairs * cfg.num_layers
+    wall = statistics.median(walls[1:])
+    del state, step, model, optimizer
+    torch.cuda.empty_cache()
+    return dict(losses=losses, walls=walls, wall=wall, tokens_per_s=b * s / wall,
+                flops=flops, mfu=flops / wall / PEAK_BF16_FLOPS, peak_gib=peak / 2**30,
+                launches=launches, fams=fams, n_params=n_params, init_s=init_s,
+                pairs=pairs, docs=int(seg.max()) + 1)
 
 
 def main() -> int:
@@ -330,8 +622,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     t0 = time.perf_counter()
-    _build.build(["flash_attention", "flash_decode"])
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, both kernels in parallel)")
+    _build.build(["flash_attention", "flash_attention_bwd", "flash_decode"])
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the three sources in parallel)")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = {s: check_k1(gen, s, pad) for s, pad in ((512, 77), (4096, 1001))}
@@ -345,6 +637,21 @@ def main() -> int:
         f"({k4['ratio']:.3g}x its limit; a dropped partial tile reads {k4['fault_ratio']:.3g}x) "
         f"kernel_ms {k4['ms']:.4f} plain_ms {k4['plain_ms']:.4f} bound_ms {k4['bound_ms']:.4f} "
         f"({k4['bound_by']}) library_ms {k4['library_ms']:.4f} (SDPA, bool mask, GQA)")
+    k23 = {(s, packed): check_k2k3(gen, s, packed, timed=(s, packed) == (4096, False))
+           for s, packed in ((4096, False), (4096, True), (1000, False))}
+    for (s, packed), r in k23.items():
+        log(f"K2/K3 flash_attention_dkdv/dq B=2 S={s} H=32 Hkv=8 D=128 causal "
+            f"{'packed' if packed else 'unpacked'}: max_err "
+            + ", ".join(f"{n} {r['err'][n]:.3g} ({r['ratio'][n]:.3g}x its limit; a dropped key "
+                        f"tile reads {r['fault'][n]:.3g}x)" for n in ("dk", "dv", "dq"))
+            + "; two runs bitwise equal")
+    k23_main = k23[(4096, False)]
+    for n in ("dkdv", "dq"):
+        r = k23_main[n]
+        log(f"K{2 if n == 'dkdv' else 3} flash_attention_{n} S=4096 unpacked: kernel_ms {r['ms']:.4f} "
+            f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+    log(f"SDPA backward (dQ, dK, dV together; fwd+bwd - fwd, is_causal, GQA) S=4096: "
+        f"library_ms {k23_main['library_ms']:.4f}")
     torch.cuda.empty_cache()
 
     cfg = llama3_8b()
@@ -379,19 +686,61 @@ def main() -> int:
         + f"; busy {busy:.2f} of the unprofiled wall {1e3 * srv['wall_s']:.2f} "
         f"(idle share {1 - busy / (1e3 * srv['wall_s']):.3f})")
 
+    del model
+    torch.cuda.empty_cache()
+
+    tvp = train_vs_plain()
+    log(f"training, kernel path vs plain path (2 layers, 2 x 1024 packed, one step): loss "
+        f"{tvp['loss']:.5f} rel_err {tvp['loss_rel']:.3g}, grad norm rel_err {tvp['gnorm_rel']:.3g}, "
+        f"q/k/v projection grads rel_err <= {tvp['qkv_grad_rel']:.3g} ({tvp['qkv_grad_worst']})")
+    tr = train_phase()
+    log(f"training: llama3_8b width, 8 layers (depth cut: fp32 masters + grads + 2 AdamW moments "
+        f"= 16 B/param), {tr['n_params'] / 1e9:.3f} B params, init {tr['init_s']:.1f} s; batch 2 x "
+        f"4096 packed ({tr['docs']} documents, {tr['pairs']} live attention pairs per head), "
+        f"remat on, AdamW lr 1e-3 wd 0.1 clip 1.0")
+    log("training losses: " + ", ".join(f"{x:.5f}" for x in tr["losses"])
+        + "; step walls (s): " + ", ".join(f"{x:.4f}" for x in tr["walls"]))
+    log(f"training: step wall {tr['wall']:.4f} s (median of steps 2-6), {tr['tokens_per_s']:.1f} "
+        f"tokens/s, model {tr['flops'] / tr['wall'] / 1e12:.1f} TFLOP/s, mfu {tr['mfu']:.4f} "
+        f"(of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s), peak mem {tr['peak_gib']:.2f} GiB")
+    log(f"launches on the training path (6 steps): {tr['launches']}")
+    busy = sum(tr["fams"].values())
+    log("device time of one training step (profiler, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in tr["fams"].items())
+        + f"; busy {busy:.2f} of the unprofiled step wall {1e3 * tr['wall']:.2f} "
+        f"(idle share {1 - busy / (1e3 * tr['wall']):.3f})")
+
     k1_main = k1[4096]
+    launches = {name: srv["launches"].get(name, 0) + tr["launches"][name]
+                for name in tr["launches"]}
+    log(f"launches on the main paths (serving + training): {launches}")
+    k23_err = {n: max(r["err"][n] for r in k23.values()) for n in ("dk", "dv", "dq")}
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="neuronx_distributed_tpu_torch/csrc/flash_attention.cu",
              replaces="neuronx_distributed_tpu/kernels/flash_attention.py:199",
-             launches=srv["launches"]["flash_attention"],
+             launches=launches["flash_attention"],
              max_abs_err=max(r["err"] for r in k1.values()), ms=k1_main["ms"],
              plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
              bound_by=k1_main["bound_by"], library_ms=k1_main["library_ms"]),
+        dict(name="flash_attention_dkdv", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="neuronx_distributed_tpu/kernels/flash_attention.py:389",
+             launches=launches["flash_attention_dkdv"],
+             max_abs_err=max(k23_err["dk"], k23_err["dv"]), ms=k23_main["dkdv"]["ms"],
+             plain_ms=k23_main["dkdv"]["plain_ms"], bound_ms=k23_main["dkdv"]["bound_ms"],
+             bound_by=k23_main["dkdv"]["bound_by"], library_ms=k23_main["library_ms"]),
+        dict(name="flash_attention_dq", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/flash_attention_bwd.cu",
+             replaces="neuronx_distributed_tpu/kernels/flash_attention.py:448",
+             launches=launches["flash_attention_dq"], max_abs_err=k23_err["dq"],
+             ms=k23_main["dq"]["ms"], plain_ms=k23_main["dq"]["plain_ms"],
+             bound_ms=k23_main["dq"]["bound_ms"], bound_by=k23_main["dq"]["bound_by"],
+             library_ms=k23_main["library_ms"]),
         dict(name="flash_decode", route="cuda",
              source="neuronx_distributed_tpu_torch/csrc/flash_decode.cu",
              replaces="neuronx_distributed_tpu/kernels/flash_decode.py:301",
-             launches=srv["launches"]["flash_decode"], max_abs_err=k4["err"], ms=k4["ms"],
+             launches=launches["flash_decode"], max_abs_err=k4["err"], ms=k4["ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],
              library_ms=k4["library_ms"]),
     ]

@@ -33,21 +33,17 @@
 //  * rows that have seen no live key keep m = -1e30 and use 0 as the exp
 //    reference, exactly the TPU kernel's guard, so l stays 0, O = 0 and
 //    LSE ~ -1e30.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <climits>
-#include <stdint.h>
 
-typedef __nv_bfloat16 bf16;
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int D = 128;       // head dim (every Llama preset)
+using namespace nxd_flash;
+
 constexpr int BQ = 64;       // query rows per block
 constexpr int BK = 64;       // keys per tile
 constexpr int NTHREADS = 128;
-constexpr int LD = D + 8;    // bf16 row pitch of Q/K/V tiles: conflict-free fragment loads
-constexpr float NEG_INF = -1e30f;
 
 constexpr size_t TILE = (size_t)BK * LD * sizeof(bf16);
 constexpr size_t Q_OFF = 0;
@@ -64,39 +60,6 @@ struct Params {
   long long qsegb, ksegb;
   float scale;
 };
-
-__device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ unsigned lds32(const bf16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // Issue the copies of K/V rows [k0, k0 + BK) (zero rows past Sk, so P·V
 // never multiplies garbage) and stage the tile's key segment ids.

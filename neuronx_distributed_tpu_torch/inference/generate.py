@@ -104,10 +104,12 @@ def chunked_decode_step(decode_model, chunk_size: int, max_seq_len: int):
 
     ``toks`` is the (chunk_size, B) token block, ``counts`` (B,) how many
     of each slot's tokens are real (a prefix: freezing is monotone) and
-    ``executed`` the host count of model steps that ran, no-ops included."""
+    ``executed`` the host count of model steps that ran, no-ops included.
+    The chunk runs under ``no_grad``, as ``generate`` does."""
     if chunk_size < 1:
         raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
 
+    @torch.no_grad()
     def chunk_fn(cache, state):
         allowed = max(0, min(max_seq_len - cache_cursor(cache), chunk_size))
         tok, ntok, remaining = state["tok"], state["ntok"], state["remaining"]

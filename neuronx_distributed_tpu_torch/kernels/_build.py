@@ -4,9 +4,10 @@ compiles inside ``jit``).
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into a shared library that ``ctypes`` loads — no
 PyTorch headers, so a build takes seconds. Libraries land in ``build/kernels``
-at the repository root (git-ignored), named by a hash of the source, so an
-edited kernel is rebuilt and a built one is reused. Every pointer and the
-stream cross as ``c_void_p``; each C entry point returns
+at the repository root (git-ignored), named by a hash of the source and the
+shared headers (``csrc/*.cuh``), so an edited kernel is rebuilt and a built
+one is reused. Every pointer and the stream cross as ``c_void_p`` (a strides
+array as a pointer to ``c_longlong``); each C entry point returns
 ``cudaGetLastError()`` and :func:`check` raises when it is not 0.
 """
 
@@ -43,9 +44,14 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:12]}.so")
+    """The library's path, named by a hash of its source, the shared headers
+    of ``csrc/`` (which every source may include) and the flags."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _start_build(name: str):

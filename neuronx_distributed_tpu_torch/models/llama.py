@@ -4,10 +4,14 @@ ParallelEmbedding → N × (RMSNorm → GQA attention → RMSNorm → SwiGLU MLP
 RMSNorm → LM head, at tp=1. ``mode`` is a call argument instead of a flax
 module attribute: ``"train"`` (no cache), ``"prefill"`` (causal attention
 that also writes the prompt K/V into a :class:`KVCache`), ``"decode"``
-(append the step's K/V at the cursor and attend the cache). Weights are
-stored in the dtypes the JAX layers cast to before use (linears and the
-embedding in ``dtype``, norms in fp32); RMSNorm and RoPE compute in f32 and
-attention inside the kernels in f32, as in JAX.
+(append the step's K/V at the cursor and attend the cache). A model built
+for serving stores its linears and embedding in the compute ``dtype`` the
+JAX layers cast to, frozen; a model built with ``trainable=True`` keeps fp32
+masters (``param_dtype``) that it casts before each product, as JAX does
+(``parallel/layers.py``). Norms are fp32 either way; RMSNorm and RoPE
+compute in f32 and attention inside the kernels in f32, as in JAX. With
+``remat`` each decoder layer of a differentiated train-mode forward runs
+under activation checkpointing (JAX ``nn.remat``, policy ``None``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from neuronx_distributed_tpu_torch.modules.attention import (
     KVCache,
@@ -30,6 +35,7 @@ from neuronx_distributed_tpu_torch.modules.attention import (
 )
 from neuronx_distributed_tpu_torch.modules.qkv_linear import GQAQKVColumnParallelLinear
 from neuronx_distributed_tpu_torch.modules.rms_norm import RMSNorm
+from neuronx_distributed_tpu_torch.parallel.losses import parallel_cross_entropy
 from neuronx_distributed_tpu_torch.parallel.layers import (
     ColumnParallelLinear,
     ParallelEmbedding,
@@ -54,6 +60,7 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    remat: bool = True  # activation checkpointing per decoder layer (training)
 
     @property
     def head_dim_(self) -> int:
@@ -87,23 +94,25 @@ def tiny_llama(**over) -> LlamaConfig:
     return LlamaConfig(**{**dict(
         vocab_size=256, hidden_size=64, intermediate_size=128,
         num_layers=4, num_heads=8, num_kv_heads=4, max_seq_len=128,
-        dtype=torch.float32,
+        dtype=torch.float32, remat=False,
     ), **over})
 
 
+def _weights(cfg: LlamaConfig, device, trainable: bool) -> dict:
+    """Storage options every weight of the model shares."""
+    return dict(dtype=cfg.dtype, param_dtype=cfg.param_dtype, device=device,
+                trainable=trainable)
+
+
 class LlamaAttention(nn.Module):
-    def __init__(self, config: LlamaConfig, device):
+    def __init__(self, config: LlamaConfig, device, trainable: bool = False):
         super().__init__()
         cfg = self.config = config
         d = cfg.head_dim_
+        w = _weights(cfg, device, trainable)
         self.qkv = GQAQKVColumnParallelLinear(
-            cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, d,
-            dtype=cfg.dtype, device=device,
-        )
-        self.o_proj = RowParallelLinear(
-            cfg.num_heads * d, cfg.hidden_size, use_bias=False,
-            dtype=cfg.dtype, device=device,
-        )
+            cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, d, **w)
+        self.o_proj = RowParallelLinear(cfg.num_heads * d, cfg.hidden_size, use_bias=False, **w)
 
     def forward(self, x, freqs, positions, mode: str, cache: Optional[KVCache],
                 layer: int, q_pos=None, segment_ids=None, padding_mask=None):
@@ -133,10 +142,10 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, config: LlamaConfig, device):
+    def __init__(self, config: LlamaConfig, device, trainable: bool = False):
         super().__init__()
         cfg = config
-        common = dict(use_bias=False, dtype=cfg.dtype, device=device)
+        common = dict(use_bias=False, **_weights(cfg, device, trainable))
         self.gate_proj = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size, **common)
         self.up_proj = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size, **common)
         self.down_proj = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size, **common)
@@ -146,15 +155,14 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, device):
+    def __init__(self, config: LlamaConfig, device, trainable: bool = False):
         super().__init__()
         cfg = config
-        norm = dict(eps=cfg.rms_eps, dtype=cfg.dtype, param_dtype=cfg.param_dtype,
-                    device=device)
+        norm = dict(eps=cfg.rms_eps, **_weights(cfg, device, trainable))
         self.input_norm = RMSNorm(cfg.hidden_size, **norm)
-        self.attn = LlamaAttention(cfg, device)
+        self.attn = LlamaAttention(cfg, device, trainable)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, **norm)
-        self.mlp = LlamaMLP(cfg, device)
+        self.mlp = LlamaMLP(cfg, device, trainable)
 
     def forward(self, x, freqs, positions, mode, cache, layer, q_pos=None,
                 segment_ids=None, padding_mask=None):
@@ -166,16 +174,15 @@ class LlamaDecoderLayer(nn.Module):
 class LlamaModel(nn.Module):
     """Backbone without the LM head."""
 
-    def __init__(self, config: LlamaConfig, device):
+    def __init__(self, config: LlamaConfig, device, trainable: bool = False):
         super().__init__()
         cfg = self.config = config
-        self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
-                                       dtype=cfg.dtype, device=device)
+        w = _weights(cfg, device, trainable)
+        self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size, **w)
         self.layers = nn.ModuleList(
-            LlamaDecoderLayer(cfg, device) for _ in range(cfg.num_layers)
+            LlamaDecoderLayer(cfg, device, trainable) for _ in range(cfg.num_layers)
         )
-        self.final_norm = RMSNorm(cfg.hidden_size, eps=cfg.rms_eps, dtype=cfg.dtype,
-                                  param_dtype=cfg.param_dtype, device=device)
+        self.final_norm = RMSNorm(cfg.hidden_size, eps=cfg.rms_eps, **w)
         self.register_buffer(
             "freqs",
             rope_frequencies(cfg.head_dim_, cfg.max_seq_len, cfg.rope_theta, device),
@@ -201,9 +208,10 @@ class LlamaModel(nn.Module):
             q_pos, positions = cache.decode_positions(s)
             cache.decode_valid(padding_mask, s)
             padding_mask = None  # persisted in the cache; attention reads kv_valid
+        remat = self.config.remat and mode == "train" and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, self.freqs, positions, mode, cache, i, q_pos,
-                      segment_ids, padding_mask)
+            args = (x, self.freqs, positions, mode, cache, i, q_pos, segment_ids, padding_mask)
+            x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
         if mode == "decode":
             cache.index += s
         return self.final_norm(x)
@@ -212,16 +220,19 @@ class LlamaModel(nn.Module):
 class LlamaForCausalLM(nn.Module):
     """The causal LM. Construction places every weight on ``device`` (CUDA
     unless ``device="cpu"``); :func:`init_params` or ``load_state_dict``
-    (see ``models/convert.py``) fills them."""
+    (see ``models/convert.py``) fills them. ``trainable=True`` builds fp32
+    master weights that train (``trainer/``); the default builds frozen
+    weights in the compute dtype for serving."""
 
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, device=None, trainable: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.config = config
-        self.model = LlamaModel(config, device)
+        self.trainable = trainable
+        self.model = LlamaModel(config, device, trainable)
         self.lm_head = ColumnParallelLinear(config.hidden_size, config.vocab_size,
-                                            use_bias=False, dtype=config.dtype,
-                                            device=device)
+                                            use_bias=False,
+                                            **_weights(config, device, trainable))
 
     @property
     def device(self) -> torch.device:
@@ -242,6 +253,11 @@ class LlamaForCausalLM(nn.Module):
         if last_only:
             x = x[:, -1:]
         return self.lm_head(x)
+
+    def loss(self, input_ids, labels):
+        """Mean next-token cross entropy of ``labels`` (JAX ``loss``,
+        ``llama.py:420``)."""
+        return parallel_cross_entropy(self(input_ids), labels).mean()
 
 
 @torch.no_grad()

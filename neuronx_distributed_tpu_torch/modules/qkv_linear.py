@@ -17,9 +17,11 @@ class GQAQKVColumnParallelLinear(nn.Module):
 
     def __init__(self, hidden_size: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, use_bias: bool = False,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 dtype: torch.dtype = torch.float32, device=None,
+                 param_dtype: torch.dtype = torch.float32, trainable: bool = False):
         super().__init__()
-        common = dict(use_bias=use_bias, dtype=dtype, device=device)
+        common = dict(use_bias=use_bias, dtype=dtype, device=device, param_dtype=param_dtype,
+                      trainable=trainable)
         self.q_proj = ColumnParallelLinear(hidden_size, num_heads * head_dim, **common)
         self.k_proj = ColumnParallelLinear(hidden_size, num_kv_heads * head_dim, **common)
         self.v_proj = ColumnParallelLinear(hidden_size, num_kv_heads * head_dim, **common)

@@ -1,1 +1,2 @@
-"""Parallel layers at tp=1 (the port has no mesh yet)."""
+"""Parallel layers, losses and gradient clipping at tp=1 (the port has no
+mesh yet)."""

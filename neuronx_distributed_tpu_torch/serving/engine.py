@@ -202,10 +202,13 @@ class ServingEngine:
     def has_work(self) -> bool:
         return self.scheduler.queued > 0 or bool(self._active.any())
 
+    @torch.no_grad()
     def step(self) -> bool:
         """One iteration: reap cancellations → preempt/rewind if the cursor
         is out of room → admit+prefill → one decode chunk → retire finished
-        slots. Returns whether work remains."""
+        slots. Returns whether work remains. Runs under ``no_grad``: serving
+        never differentiates (as the JAX engine), so a trainable model
+        records no autograd graph here."""
         now = time.monotonic()
         self._reap_cancelled(now)
         if self._active.any() and self.cache.cursor + 1 > self.max_seq_len:

@@ -1,0 +1,241 @@
+"""Offline-tokenized corpus → packed fixed-length training batches: a copy
+of ``neuronx_distributed_tpu/trainer/data.py`` (numpy only; the port imports
+nothing of the JAX package, so it carries its own).
+
+* **packing** — documents are concatenated (optionally separated by an EOS
+  token) and chopped into ``seq_len + 1`` windows; window ``w`` yields
+  ``input_ids = w[:-1]``, ``labels = w[1:]`` (concat-and-chunk with the
+  remainder dropped at the corpus end), and optionally per-token document
+  ids that become ``segment_ids`` and a ``loss_mask``;
+* **deterministic shuffle** — window order is a seeded permutation,
+  re-drawn per epoch from ``(seed, epoch)`` — resume-stable;
+* **memory-mapped input** — ``.npy`` token streams load lazily; only the
+  windows of the current batch are materialized.
+
+Accepted inputs: ``.npy`` 1-D token stream, ``.npy`` 2-D pre-packed
+``(N, seq_len+1)`` windows, or ``.npz`` with ``tokens`` (+ optional
+``offsets`` document boundaries, used to insert EOS separators). Batches
+are numpy arrays; the train step moves them to the model's device.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional
+
+import numpy as np
+
+# --- exact-resume protocol ----------------------------------------------------
+# A checkpointable data source exposes ``state() -> dict`` (a small
+# JSON-able cursor) and ``restore(state)``: a training loop persists the
+# cursor with its checkpoint and restores it on resume, so the batch STREAM
+# comes back exactly. Both iterators here hold ONE cursor on the source
+# object (one consumer); ``iter()`` continues from the cursor rather than
+# restarting.
+
+
+def pack_documents(
+    docs, seq_len: int, eos_token_id: Optional[int] = None,
+    return_segments: bool = False,
+):
+    """Concatenate ``docs`` (list of 1-D int arrays), optionally separated by
+    ``eos_token_id``, and chop into ``(N, seq_len + 1)`` windows (the
+    reference's chunk(); the tail remainder shorter than a window is
+    dropped).
+
+    With ``return_segments`` also returns a parallel ``(N, seq_len + 1)``
+    int32 array of per-token document ids (the EOS separator belongs to the
+    document it ends). Fed to the model as ``segment_ids``, these make packed
+    training attend WITHIN documents only — the flash kernel's equal-segment
+    block mask — instead of leaking across every document boundary."""
+    parts, seg_parts = [], []
+    for i, d in enumerate(docs):
+        arr = np.asarray(d, np.int32).reshape(-1)
+        n_tok = len(arr) + (1 if eos_token_id is not None else 0)
+        parts.append(arr)
+        if eos_token_id is not None:
+            parts.append(np.asarray([eos_token_id], np.int32))
+        seg_parts.append(np.full((n_tok,), i, np.int32))
+    stream = np.concatenate(parts) if parts else np.zeros((0,), np.int32)
+    segs = np.concatenate(seg_parts) if seg_parts else np.zeros((0,), np.int32)
+    w = seq_len + 1
+    n = len(stream) // w
+    if n == 0:
+        raise ValueError(
+            f"corpus has {len(stream)} tokens — not enough for one "
+            f"{w}-token window"
+        )
+    windows = stream[: n * w].reshape(n, w)
+    if not return_segments:
+        return windows
+    return windows, segs[: n * w].reshape(n, w)
+
+
+class PackedCorpus:
+    """Iterable over packed ``{"input_ids", "labels"}`` batches with a
+    deterministic per-epoch shuffle.
+
+    ``path``: ``.npy`` / ``.npz`` per the module docstring. The iterator is
+    infinite (epochs chain); ``num_batches_per_epoch`` tells the caller what one pass covers."""
+
+    def __init__(
+        self,
+        path: str,
+        seq_len: int,
+        batch_size: int,
+        seed: int = 0,
+        shuffle: bool = True,
+        eos_token_id: Optional[int] = None,
+        emit_segments: bool = True,
+    ) -> None:
+        self.seq_len = int(seq_len)
+        self.batch_size = int(batch_size)
+        self.seed = int(seed)
+        self.shuffle = shuffle
+        w = self.seq_len + 1
+        # per-window document ids, emitted as segment_ids + loss_mask when
+        # document boundaries are known (npz offsets) — without them packed
+        # windows attend across documents and train on boundary labels
+        self.segments = None
+
+        if path.endswith(".npz"):
+            archive = np.load(path)
+            if "tokens" in archive.files:
+                tokens = archive["tokens"]
+                if "offsets" in archive.files:
+                    off = archive["offsets"]
+                    docs = [tokens[off[i] : off[i + 1]] for i in range(len(off) - 1)]
+                    if emit_segments:
+                        self.windows, self.segments = pack_documents(
+                            docs, seq_len, eos_token_id, return_segments=True
+                        )
+                    else:
+                        self.windows = pack_documents(docs, seq_len, eos_token_id)
+                else:
+                    self.windows = pack_documents([tokens], seq_len, None)
+            else:
+                self.windows = pack_documents(
+                    [archive[archive.files[0]].reshape(-1)], seq_len, None
+                )
+        else:
+            arr = np.load(path, mmap_mode="r")
+            if arr.ndim == 2:
+                if arr.shape[1] != w:
+                    raise ValueError(
+                        f"pre-packed corpus windows are {arr.shape[1]} wide; "
+                        f"need seq_len+1 = {w}"
+                    )
+                self.windows = arr  # stays memory-mapped
+            else:
+                n = arr.shape[0] // w
+                if n == 0:
+                    raise ValueError(
+                        f"corpus has {arr.shape[0]} tokens — not enough for "
+                        f"one {w}-token window"
+                    )
+                # a reshaped view of the memmap — windows stay lazy
+                self.windows = arr[: n * w].reshape(n, w)
+
+        if len(self.windows) < self.batch_size:
+            raise ValueError(
+                f"corpus has {len(self.windows)} windows < batch_size "
+                f"{self.batch_size}"
+            )
+        self.num_batches_per_epoch = len(self.windows) // self.batch_size
+        # exact-resume cursor (see the protocol note above): epoch + index
+        # of the NEXT batch within it; the permutation is re-derivable from
+        # (seed, epoch), so this tiny pair IS the full stream position
+        self._epoch = 0
+        self._cursor = 0
+        self._order_cache: Optional[tuple] = None
+
+    def state(self) -> dict:
+        """JSON-able stream cursor (position of the NEXT batch)."""
+        return {"epoch": int(self._epoch), "batch": int(self._cursor)}
+
+    def restore(self, state: dict) -> None:
+        """Reposition the stream; takes effect on the next ``next()`` even
+        for iterators created before the restore."""
+        self._epoch = int(state["epoch"])
+        self._cursor = int(state["batch"])
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        if not self.shuffle:
+            return np.arange(len(self.windows))
+        return np.random.default_rng(
+            np.random.SeedSequence([self.seed, epoch])
+        ).permutation(len(self.windows))
+
+    def _order_for(self, epoch: int) -> np.ndarray:
+        if self._order_cache is None or self._order_cache[0] != epoch:
+            self._order_cache = (epoch, self._epoch_order(epoch))
+        return self._order_cache[1]
+
+    def __iter__(self) -> Iterator[dict]:
+        while True:
+            if self._cursor >= self.num_batches_per_epoch:
+                self._epoch += 1
+                self._cursor = 0
+            order = self._order_for(self._epoch)
+            b = self._cursor
+            self._cursor += 1
+            idx = order[b * self.batch_size : (b + 1) * self.batch_size]
+            # fancy-index materializes just this batch from the memmap;
+            # sorted first (memmap reads in file order), then restored
+            sort = np.argsort(idx)
+            rows = np.asarray(self.windows[idx[sort]], np.int32)
+            rows = rows[np.argsort(sort)]
+            batch = {"input_ids": rows[:, :-1], "labels": rows[:, 1:]}
+            if self.segments is not None:
+                seg = np.asarray(self.segments[idx[sort]], np.int32)
+                seg = seg[np.argsort(sort)]
+                batch["segment_ids"] = seg[:, :-1]
+                # a label drawn from the NEXT document (the token after a
+                # boundary) is noise — mask it from the loss
+                batch["loss_mask"] = (
+                    seg[:, :-1] == seg[:, 1:]
+                ).astype(np.float32)
+            yield batch
+
+
+class SyntheticTokens:
+    """Seeded infinite random-token batches with the ``state()/restore()``
+    exact-resume protocol (O(1) restore: batch ``i`` is drawn from
+    ``SeedSequence([seed, i])``, so the cursor is just ``i``). The hermetic
+    stand-in for a tokenized corpus in examples, bench children, and chaos
+    tests.
+
+    ``emit_mask`` attaches an all-ones ``loss_mask`` — numerically the
+    plain mean loss, but its presence lets a fault injector corrupt it
+    without changing the batch's structure."""
+
+    def __init__(self, vocab_size: int, batch_size: int, seq_len: int,
+                 seed: int = 0, emit_mask: bool = True):
+        self.vocab_size = int(vocab_size)
+        self.batch_size = int(batch_size)
+        self.seq_len = int(seq_len)
+        self.seed = int(seed)
+        self.emit_mask = emit_mask
+        self._i = 0
+
+    def state(self) -> dict:
+        return {"batch": int(self._i)}
+
+    def restore(self, state: dict) -> None:
+        self._i = int(state["batch"])
+
+    def __iter__(self) -> Iterator[dict]:
+        while True:
+            rng = np.random.default_rng(
+                np.random.SeedSequence([self.seed, self._i])
+            )
+            ids = rng.integers(
+                0, self.vocab_size,
+                (self.batch_size, self.seq_len + 1), dtype=np.int32,
+            )
+            self._i += 1
+            batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+            if self.emit_mask:
+                batch["loss_mask"] = np.ones(
+                    (self.batch_size, self.seq_len), np.float32
+                )
+            yield batch

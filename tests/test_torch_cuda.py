@@ -10,7 +10,11 @@ Tolerances (bf16 on both sides). Outputs, elementwise: |out - ref| <=
 sides round O last) and P|V| is the plain version on |V|, which bounds any
 difference in a row's P·V sum: K1 rounds P to bf16 for that product (2^-9
 per term), so c = 2^-8; K4 keeps P in f32, so c = 2^-12. LSE 5e-4 — f32 on
-both sides, exp-sums in a different order."""
+both sides, exp-sums in a different order. Backward (K2, K3), the same
+form with the sum of term magnitudes in place of P|V| (P|dO| for dV,
+|dS||Q| for dK, |dS||K| for dQ, dS = P (dP - delta) scale): they round P
+and dS to bf16
+for their products (2^-9 per term), so c = 2^-8."""
 
 import numpy as np
 import pytest
@@ -118,3 +122,108 @@ def test_engine_on_card_goes_through_both_kernels(cuda):
     assert all(len(r.tokens) == 12 and all(0 <= t < 1000 for t in r.tokens) for r in reqs)
     assert tfa.flash_attention_fwd.launches - n1 == 3 * cfg.num_layers
     assert tfd.flash_decode_fwd.launches > n4
+
+
+def _bwd_case(gen, b, s, h, hkv, seg, causal):
+    q, k, v, do = (_rnd(gen, b, s, h, 128), _rnd(gen, b, s, hkv, 128),
+                   _rnd(gen, b, s, hkv, 128), _rnd(gen, b, s, h, 128))
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal, seg)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def _bwd_limit_ratio(got, want, mag):
+    want = want.float()
+    limit = 2.0 ** -7 * want.abs() + 2.0 ** -8 * mag + 1e-5
+    return float(((got.float() - want).abs() / limit).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,segments,causal", [
+    (200, None, True), (256, "packed", True), (130, "padding", True), (200, None, False),
+])
+def test_flash_attention_backward_kernels_match_plain(cuda, s, segments, causal):
+    """K2 and K3 against their plain versions: GQA, causal or not, ragged
+    S, packed documents and left padding; two runs give the same bits."""
+    b, h, hkv = 2, 8, 2
+    seg = None
+    if segments is not None:
+        seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+        if segments == "packed":
+            seg[:, 70:] = 1
+            seg[1, 150:] = 2
+        else:
+            seg[1, :37] = -1
+    q, k, v, do, lse, delta = _bwd_case(cuda, b, s, h, hkv, seg, causal)
+    args = (q, k, v, do, lse, delta, causal, seg)
+    n2, n3 = tfa.flash_attention_dkdv.launches, tfa.flash_attention_dq.launches
+    dk, dv = tfa.flash_attention_dkdv(*args)
+    dq = tfa.flash_attention_dq(*args)
+    assert (tfa.flash_attention_dkdv.launches, tfa.flash_attention_dq.launches) == (n2 + 1, n3 + 1)
+    rk, rv = tfa.flash_attention_dkdv_plain(*args)
+    rq = tfa.flash_attention_dq_plain(*args)
+    p, ds = tfa.backward_scores(*args, seg)
+    g = h // hkv
+    ds = ds.abs()  # dS carries the softmax scale already
+    mag_v = torch.einsum("bhgqk,bqhgd->bkhd", p, do.float().abs().reshape(b, s, hkv, g, 128))
+    mag_k = torch.einsum("bhgqk,bqhgd->bkhd", ds, q.float().abs().reshape(b, s, hkv, g, 128))
+    mag_q = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float().abs()).reshape(b, s, h, 128)
+    for name, got, want, mag in (("dk", dk, rk, mag_k), ("dv", dv, rv, mag_v), ("dq", dq, rq, mag_q)):
+        ratio = _bwd_limit_ratio(got, want, mag)
+        assert ratio <= 1.0, f"{name} at {ratio:.3g}x its limit"
+    dk2, dv2 = tfa.flash_attention_dkdv(*args)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert torch.equal(dq, tfa.flash_attention_dq(*args))
+
+
+@pytest.mark.cuda
+def test_flash_attention_function_on_card(cuda):
+    """The autograd Function's gradients on the card against autograd
+    through the plain forward (bf16 inputs): within 2% in norm per input
+    (P and dS rounded to bf16 in the kernels, O to bf16 before delta)."""
+    q, k, v = (_rnd(cuda, 2, 192, 8, 128).requires_grad_(), _rnd(cuda, 2, 192, 2, 128).requires_grad_(),
+               _rnd(cuda, 2, 192, 2, 128).requires_grad_())
+    g = _rnd(cuda, 2, 192, 8, 128)
+    n = [f.launches for f in (tfa.flash_attention_fwd, tfa.flash_attention_dkdv,
+                              tfa.flash_attention_dq)]
+    got = torch.autograd.grad(tfa.flash_attention(q, k, v), (q, k, v), g)
+    assert [f.launches for f in (tfa.flash_attention_fwd, tfa.flash_attention_dkdv,
+                                 tfa.flash_attention_dq)] == [x + 1 for x in n]
+    want = torch.autograd.grad(tfa.flash_attention_plain(q, k, v)[0], (q, k, v), g)
+    for a, w in zip(got, want):
+        assert float((a.float() - w.float()).norm() / w.float().norm()) < 2e-2
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_goes_through_the_kernels(cuda):
+    """A small bf16 Llama with head_dim 128 trains 3 steps on one packed
+    batch: finite, falling loss; K1 twice per layer per step (forward and
+    the remat recompute), K2 and K3 once."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.trainer import (
+        OptimizerConfig,
+        build_train_step,
+        create_train_state,
+        make_optimizer,
+    )
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512)
+    model = LlamaForCausalLM(cfg, trainable=True)
+    opt = make_optimizer(OptimizerConfig(learning_rate=1e-3))
+    state = create_train_state(model, opt, seed=0)
+    step = build_train_step(model, opt)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(1, 1000, size=(2, 257))
+    seg = np.zeros((2, 256), np.int32)
+    seg[:, 100:] = 1
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:], "segment_ids": seg,
+             "loss_mask": np.ones((2, 256), np.float32)}
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_dkdv, tfa.flash_attention_dq)
+    before = [f.launches for f in counters]
+    losses = []
+    for _ in range(3):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    assert [f.launches - n for f, n in zip(counters, before)] == [12, 6, 6]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses

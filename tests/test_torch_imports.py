@@ -112,10 +112,15 @@ def test_entry_points_raise_without_a_device(monkeypatch):
 def test_wrappers_take_plain_path_only_for_cpu_tensors():
     q = torch.randn(1, 4, 2, 8)
     k = torch.randn(1, 4, 1, 8)
-    n1, n4 = tfa.flash_attention_fwd.launches, tfd.flash_decode_fwd.launches
-    tfa.flash_attention_fwd(q, k, k)
+    counters = (tfa.flash_attention_fwd, tfa.flash_attention_dkdv, tfa.flash_attention_dq,
+                tfd.flash_decode_fwd)
+    before = [f.launches for f in counters]
+    out, lse = tfa.flash_attention_fwd(q, k, k)
+    delta = (out * q).sum(-1).transpose(1, 2)
+    tfa.flash_attention_dkdv(q, k, k, q, lse, delta)
+    tfa.flash_attention_dq(q, k, k, q, lse, delta)
     tfd.flash_decode_fwd(q[:, :1], k, k, torch.tensor([3]))
-    assert (tfa.flash_attention_fwd.launches, tfd.flash_decode_fwd.launches) == (n1, n4)
+    assert [f.launches for f in counters] == before
     # the plain versions are called from their own wrappers and nowhere else
     # in the package (chip_smoke.py calls them only to check the kernels)
     for path in _sources():
@@ -123,7 +128,9 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
             continue
         with open(path) as f:
             src = f.read()
-        assert "flash_attention_plain" not in src and "flash_decode_plain" not in src, path
+        for plain in ("flash_attention_plain", "flash_attention_dkdv_plain",
+                      "flash_attention_dq_plain", "flash_decode_plain"):
+            assert plain not in src, (path, plain)
     # and no fallback: the kernel wrappers hold no try/except
     for mod in (tfa, tfd):
         tree = ast.parse(open(mod.__file__).read())

@@ -5,6 +5,8 @@ run in interpret mode, as the JAX package's own tests run them. Inputs are
 fp32, made with numpy from a seed. Tolerance 1e-5 absolute: both sides
 compute the same f32 softmax, in different summation orders (online and
 blockwise in Pallas, one pass here) — ~1e-7 relative per sum, values O(1).
+The backward (dK, dV, dQ) sums up to 16 keys or queries of O(10) terms
+each: 5e-5 absolute.
 
 The CUDA kernels themselves run only on the card: ``test_torch_cuda.py``
 holds them against the plain versions there."""
@@ -144,3 +146,86 @@ def test_flash_decode_plain_matches_pallas(s, h, hkv, L, q0):
     np.testing.assert_allclose(
         tattn.decode_attention(_t(q), _t(kc), _t(vc), _t(pos), _t(valid)).numpy(),
         np.asarray(want), atol=ATOL, rtol=0)
+
+
+BWD_ATOL = 5e-5
+
+
+def _bwd_inputs(seed, b, s, h, hkv, d, causal, q_seg, k_seg):
+    """Numpy q/k/v/dO and the Pallas forward's LSE plus delta = rowsum(dO * O)
+    (as ``_flash_bwd`` forms it), in the JAX (B, H, S, D) layout."""
+    rng = np.random.default_rng(seed)
+    q, k, v = _qkv(rng, b, s, h, hkv, d)
+    do = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    qt, kt, vt, dot = (jnp.swapaxes(jnp.asarray(x), 1, 2) for x in (q, k, v, do))
+    jq = None if q_seg is None else jnp.asarray(q_seg)
+    jk = None if k_seg is None else jnp.asarray(k_seg)
+    out, lse = jfa._flash_fwd(qt, kt, vt, causal, 8, 8, True, q_seg=jq, k_seg=jk)
+    delta = jnp.sum(dot * out, axis=-1, keepdims=True)
+    return (q, k, v, do), (qt, kt, vt, dot, lse, delta, jq, jk)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("segments", ["none", "packed", "padding", "masked_row"])
+def test_flash_attention_backward_plain_matches_pallas(causal, segments):
+    """K2/K3's plain versions against ``_flash_dkdv``/``_flash_dq`` in
+    interpret mode: GQA (H=4, Hkv=2); packed documents; left padding as
+    segment -1; a query row whose segment matches no key (LSE ~ -1e30, its
+    P must be exactly 0)."""
+    b, s, h, hkv, d = 2, 16, 4, 2, 16
+    q_seg = k_seg = None
+    if segments == "packed":
+        q_seg = k_seg = np.array([[0] * 5 + [1] * 7 + [2] * 4, [3] * 16], np.int32)
+    elif segments == "padding":
+        q_seg = k_seg = _left_pad_segments([16, 11], s)
+    elif segments == "masked_row":
+        q_seg = np.zeros((b, s), np.int32)
+        q_seg[0, 5] = q_seg[1, 0] = 9
+        k_seg = np.zeros((b, s), np.int32)
+    (q, k, v, do), (qt, kt, vt, dot, lse, delta, jq, jk) = _bwd_inputs(
+        s + hkv + causal, b, s, h, hkv, d, causal, q_seg, k_seg)
+    want_dk, want_dv = jfa._flash_dkdv(qt, kt, vt, dot, lse, delta, causal, 8, 8, True,
+                                       q_seg=jq, k_seg=jk)
+    want_dq = jfa._flash_dq(qt, kt, vt, dot, lse, delta, causal, 8, 8, True, q_seg=jq, k_seg=jk)
+    args = (_t(q), _t(k), _t(v), _t(do), _t(np.array(lse)[..., 0]),
+            _t(np.array(delta)[..., 0]), causal,
+            None if q_seg is None else _t(q_seg), None if k_seg is None else _t(k_seg))
+    n2, n3 = tfa.flash_attention_dkdv.launches, tfa.flash_attention_dq.launches
+    dk, dv = tfa.flash_attention_dkdv(*args)
+    dq = tfa.flash_attention_dq(*args)
+    assert (tfa.flash_attention_dkdv.launches, tfa.flash_attention_dq.launches) == (n2, n3)
+    for got, want in ((dk, want_dk), (dv, want_dv), (dq, want_dq)):
+        np.testing.assert_allclose(got.numpy(), np.swapaxes(np.asarray(want), 1, 2),
+                                   atol=BWD_ATOL, rtol=0)
+    if segments == "masked_row":
+        assert np.all(np.asarray(lse)[0, :, 5] < -1e29)
+        assert np.all(dq.numpy()[0, 5] == 0) and np.all(np.isfinite(dk.numpy()))
+
+
+@pytest.mark.parametrize("segments", [False, True])
+def test_flash_attention_function_gradients_equal_autograd_of_plain(segments):
+    """The autograd Function (K1 forward, K2/K3 backward; their plain
+    versions on CPU tensors) gives the gradients torch.autograd takes
+    through ``flash_attention_plain``."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.tensor(x, requires_grad=True) for x in _qkv(rng, 2, 13, 4, 2, 16))
+    seg = _t(np.array([[0] * 6 + [1] * 7, [-1] * 4 + [0] * 9], np.int32)) if segments else None
+    g = _t(rng.normal(size=(2, 13, 4, 16)).astype(np.float32))
+    out = tfa.flash_attention(q, k, v, causal=True, segment_ids=seg)
+    assert out.grad_fn is not None and "FlashAttentionFunction" in type(out.grad_fn).__name__
+    got = torch.autograd.grad(out, (q, k, v), g)
+    ref = tfa.flash_attention_plain(q, k, v, True, seg)[0]
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    np.testing.assert_allclose(out.detach().numpy(), ref.detach().numpy(), atol=ATOL, rtol=0)
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), w.numpy(), atol=BWD_ATOL, rtol=0)
+
+
+def test_flash_attention_without_grad_runs_the_bare_forward():
+    """Serving (no input requires grad, or under no_grad) calls K1's wrapper
+    directly: no autograd node is recorded."""
+    rng = np.random.default_rng(8)
+    q, k, v = (_t(x) for x in _qkv(rng, 1, 8, 2, 1, 16))
+    assert tfa.flash_attention(q, k, v).grad_fn is None
+    with torch.no_grad():
+        assert tfa.flash_attention(q.requires_grad_(), k, v).grad_fn is None

@@ -189,3 +189,24 @@ def test_token_budget_queues_without_changing_streams(pair):
         assert req.tokens == _solo(tmodel, prompts[i], gcfg, i), i
     with pytest.raises(ValueError):
         engine.submit(np.arange(1, 40), gcfg)  # footprint 47 > 36: never placeable
+
+
+def test_trainable_model_serves_without_autograd(pair):
+    """A model built trainable (fp32 masters that require grad) serves
+    under no_grad: no forward of the engine records an autograd graph, and
+    its streams equal the frozen model's solo ``generate``."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM
+
+    _, _, tmodel = pair
+    train = LlamaForCausalLM(tmodel.config, device="cpu", trainable=True)
+    train.load_state_dict(tmodel.state_dict())
+    assert all(p.requires_grad for p in train.parameters())
+    grad_fns = []
+    train.register_forward_hook(lambda mod, args, out: grad_fns.append(out.grad_fn))
+    prompts, gcfgs = _workload(tmodel)
+    engine = ServingEngine(train, num_slots=3, decode_chunk_size=3)
+    reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, gcfgs))]
+    engine.run()
+    assert grad_fns and all(g is None for g in grad_fns)
+    for i, r in enumerate(reqs):
+        assert r.tokens == _solo(tmodel, prompts[i], gcfgs[i], i), i
