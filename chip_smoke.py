@@ -10,15 +10,24 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
 2. each kernel against its plain PyTorch version at its path's shapes,
    bf16, with its time, the plain version's, the least time the card could
    take (``bound_ms``) and one PyTorch library call's (SDPA) time: K1 and K4
-   at the serving shapes, K2 and K3 at the training shapes (unpacked,
-   packed and ragged), each also bitwise reproducible;
-3. outputs: the full-width model's logits through the kernels against the
+   at the serving shapes, K5 through a scrambled block table at K4's shapes
+   and at the paged serving phase's geometry (also bitwise equal to K4 on
+   the gathered view and blind to the null page), K2 and K3 at the
+   training shapes (unpacked, packed and ragged), each also bitwise
+   reproducible;
+3. outputs: the full-width model's logits through the kernels, with a row
+   cache and with a paged cache behind a scrambled block table, against the
    same model with the plain versions swapped in, on a short prompt;
 4. serving: ``ServingEngine`` over Llama-3-8B at full width (all 32 layers,
    random bf16 weights from a seed) answering six requests; every kernel's
    launch count is zeroed just before and read just after;
 5. the same workload under ``torch.profiler``: device time by kernel
    family and the device's idle share;
+5b. paged serving: the same model behind a paged engine (16 slots, a pool
+   of four row slots' bytes) answering 15 mixed-length requests, once with
+   K5 attending the pool and once with K4 on the gathered view patched in,
+   with identical token streams; then the K5 run once more under the
+   profiler;
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -201,6 +210,131 @@ def check_k4(gen):
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
 
 
+def k5_shapes(name: str):
+    """(slots, pool pages, live bound, per-slot valid column runs) of K5's
+    two checks, page_size 16, L=8192. ``"k4"``: K4's shapes, 8 slots over
+    the row-equivalent pool plus the null page, slot i valid from column
+    400 i to the bound (gaps are added later). ``"serving"``: the paged
+    serving phase's geometry, 16 slots over a 2049-page pool, the bound at
+    3109 (mid tile): 12 chats of 100-400 columns and 3 documents of
+    2000-3000 in the workload's order, each context from a page-aligned
+    start right-aligned under the bound, then a gap, then the last 8 decode
+    columns; slot 15 idle (no valid column, no page)."""
+    import numpy as np
+
+    if name == "k4":
+        return 8, 8 * 512 + 1, 4100, [[(400 * i, 4100)] for i in range(8)]
+    rng = np.random.default_rng(3)
+    chats = [int(n) for n in rng.integers(100, 401, size=12)]
+    docs = [int(n) for n in rng.integers(2000, 3001, size=3)]
+    lens = []
+    for i, n in enumerate(chats):
+        lens.append(n)
+        if i % 4 == 3:
+            lens.append(docs[i // 4])
+    bound = 3109
+    runs = []
+    for n in lens:
+        lo = (bound - 8 - n) // 16 * 16
+        runs.append([(lo, lo + n), (bound - 8, bound)])
+    return 16, 2049, bound, runs + [[]]
+
+
+def check_k5(gen, shapes: str, timed: bool):
+    """K5 at ``k5_shapes(shapes)``, s=1: each slot's logical pages from its
+    first valid column's page through the bound's map to a numpy-seeded
+    random permutation of pool pages; its unmapped pages (left padding,
+    past the bound, an idle slot's) to page 0, which holds random garbage.
+    At K4's shapes ``kv_valid`` also has random gaps, as in ``check_k4``."""
+    import numpy as np
+    from torch.nn import functional as F
+
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+        flash_decode_fwd,
+        paged_flash_decode_fwd,
+        paged_flash_decode_plain,
+        paged_gather_leaf,
+    )
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    b, n_pages, bound_cols, runs = k5_shapes(shapes)
+    s, h, hkv, d, L, ps = 1, 32, 8, 128, 8192, 16
+    n_log = L // ps
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(bf)
+    kp = torch.randn(n_pages, ps, hkv, d, generator=gen, device=dev).to(bf)
+    vp = torch.randn(n_pages, ps, hkv, d, generator=gen, device=dev).to(bf)
+    kp[0].mul_(64.0)
+    vp[0].mul_(64.0)
+    pos = torch.tensor([bound_cols - 1], dtype=torch.int32, device=dev)
+    valid = torch.zeros(b, L, dtype=torch.bool, device=dev)
+    perm = iter(np.random.default_rng(5).permutation(np.arange(1, n_pages)).tolist())
+    table = np.zeros((b, n_log), np.int32)
+    for i, slot_runs in enumerate(runs):
+        for lo, hi in slot_runs:
+            valid[i, lo:hi] = True
+        if slot_runs:
+            for j in range(slot_runs[0][0] // ps, -(-bound_cols // ps)):
+                table[i, j] = next(perm)
+    if shapes == "k4":
+        valid &= torch.rand(b, L, generator=gen, device=dev) > 0.1  # gap columns
+    bt = torch.from_numpy(table).to(dev)
+    out, lse = paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
+    again, again_lse = paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
+    kg, vg = paged_gather_leaf(kp, bt, ps), paged_gather_leaf(vp, bt, ps)
+    row, row_lse = flash_decode_fwd(q, kg, vg, pos, valid)
+    kp0, vp0 = kp[0].clone(), vp[0].clone()
+    kp[0].normal_(generator=gen).mul_(-300.0)
+    vp[0].normal_(generator=gen).mul_(300.0)
+    other, other_lse = paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
+    kp[0], vp[0] = kp0, vp0
+    ref, ref_lse = paged_flash_decode_plain(q, kp, vp, bt, pos, valid, ps)
+    pv = paged_flash_decode_plain(q, kp, vp.abs(), bt, pos, valid, ps)[0]
+    # what a kernel that skipped the last, partial 128-column tile would
+    # return: the limit must fail it
+    cut = valid.clone()
+    cut[:, (bound_cols - 1) // 128 * 128:bound_cols] = False
+    fault = paged_flash_decode_plain(q, kp, vp, bt, pos, cut, ps)[0]
+    torch.cuda.synchronize()
+    err, lerr = max_err(out, ref), max_err(lse, ref_lse)
+    ratio, fault_ratio = tol_ratio(out, ref, pv, K4_PV), tol_ratio(fault, ref, pv, K4_PV)
+    tag = f"K5 ({shapes} shapes)"
+    if not (ratio <= 1.0 and lerr <= LSE_TOL):
+        raise AssertionError(f"{tag}: max |out err| {err} at {ratio:.3g}x its limit, "
+                             f"|lse err| {lerr} (tol {LSE_TOL})")
+    if fault_ratio <= 1.0:
+        raise AssertionError(f"{tag}: the output limit passes a dropped tile ({fault_ratio:.3g}x)")
+    if not (torch.equal(out, row) and torch.equal(lse, row_lse)):
+        raise AssertionError(f"{tag} differs from K4 on the gathered view (must be bitwise equal)")
+    if not (torch.equal(out, other) and torch.equal(lse, other_lse)):
+        raise AssertionError(f"{tag}: the output depends on the null page's content")
+    if not (torch.equal(out, again) and torch.equal(lse, again_lse)):
+        raise AssertionError(f"{tag}: two runs differ in their bits")
+    # least bytes: q, the LIVE K/V columns, the table entries up to the
+    # bound, the validity bytes up to the bound, out and lse
+    live_cols = int(valid[:, :bound_cols].sum())
+    nbytes = (2 * q.numel() + 2 * 2 * live_cols * hkv * d + 4 * b * -(-bound_cols // ps)
+              + b * bound_cols + 2 * out.numel() + 4 * lse.numel())
+    flops = 4.0 * live_cols * h * d
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    res = dict(err=max(err, lerr), ratio=ratio, fault_ratio=fault_ratio, bound_ms=bound,
+               bound_by=bound_by, slots=b, pages=n_pages, bound_cols=bound_cols,
+               mapped=int((table != 0).sum()), live_cols=live_cols)
+    res["ms"] = cuda_ms(lambda: paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps), 50)
+    if not timed:
+        return res
+    res["plain_ms"] = cuda_ms(lambda: paged_flash_decode_plain(q, kp, vp, bt, pos, valid, ps), 5,
+                              warmup=1)
+    res["gather_ms"] = cuda_ms(lambda: (paged_gather_leaf(kp, bt, ps),
+                                        paged_gather_leaf(vp, bt, ps)), 20)
+    cols = torch.arange(L, device=dev)
+    mask = (valid & (cols <= pos[-1]))[:, None, None, :]  # (B, 1, 1, L)
+    qt, kt, vt = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    res["library_ms"] = cuda_ms(lib, 50)
+    return res
+
+
 def packed_segments(rng, b: int, s: int, lo: int = 200, hi: int = 3000):
     """(B, S) int32 segment ids of documents of lo..hi tokens packed end to
     end (a document cut by the window edge keeps its id)."""
@@ -340,22 +474,69 @@ def plain_attention():
     """Route the model's attention through the plain versions (reference
     runs only; the port itself has no such switch)."""
     from neuronx_distributed_tpu_torch.kernels.flash_attention import flash_attention_plain
-    from neuronx_distributed_tpu_torch.kernels.flash_decode import flash_decode_plain
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+        flash_decode_plain,
+        paged_flash_decode_plain,
+    )
     from neuronx_distributed_tpu_torch.modules import attention
 
-    saved = attention.flash_attention, attention.flash_decode_attention
+    saved = (attention.flash_attention, attention.flash_decode_attention,
+             attention.paged_flash_decode_attention)
     attention.flash_attention = lambda *a, **kw: flash_attention_plain(*a, **kw)[0]
     attention.flash_decode_attention = lambda *a, **kw: flash_decode_plain(*a, **kw)[0]
+    attention.paged_flash_decode_attention = lambda *a, **kw: paged_flash_decode_plain(*a, **kw)[0]
     try:
         yield
     finally:
-        attention.flash_attention, attention.flash_decode_attention = saved
+        (attention.flash_attention, attention.flash_decode_attention,
+         attention.paged_flash_decode_attention) = saved
 
 
-def teacher_logits(model, ids, steps: int, feed=None):
-    """Prefill ``ids`` then ``steps`` decode steps; feeds ``feed`` tokens
-    (or the greedy choice) and returns (logits (steps+1, V) f32, tokens)."""
-    cache = model.new_cache(1)
+@contextlib.contextmanager
+def gathered_paged_attention():
+    """Attend a paged cache by gathering its logical view and running K4 on
+    it, in place of K5 (the witness K5's serving run is held to; the port
+    itself has no such switch)."""
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+        flash_decode_attention,
+        paged_gather_leaf,
+    )
+    from neuronx_distributed_tpu_torch.modules import attention
+
+    def gathered(q, k_pool, v_pool, block_table, q_pos, kv_valid=None, page_size=16):
+        return flash_decode_attention(q, paged_gather_leaf(k_pool, block_table, page_size),
+                                      paged_gather_leaf(v_pool, block_table, page_size),
+                                      q_pos, kv_valid)
+
+    saved, attention.paged_flash_decode_attention = attention.paged_flash_decode_attention, gathered
+    try:
+        yield
+    finally:
+        attention.paged_flash_decode_attention = saved
+
+
+def scrambled_paged_cache(model, seed: int = 0):
+    """A batch-1 paged cache (page_size 16, K5 attending) whose logical
+    pages 0..7 map to a numpy-seeded random choice of pool pages and whose
+    other entries point at page 0, filled with random garbage."""
+    import numpy as np
+
+    n_log = model.config.max_seq_len // 16
+    cache = model.new_paged_cache(1, num_pages=n_log + 1, page_size=16)
+    table = np.zeros((1, n_log), np.int32)
+    table[0, :8] = np.random.default_rng(seed).permutation(np.arange(1, n_log + 1))[:8]
+    cache.upload_table(table)
+    g = torch.Generator(device=cache.k.device).manual_seed(seed)
+    for pool in (cache.k, cache.v):
+        pool[:, 0].normal_(generator=g)
+    return cache
+
+
+def teacher_logits(model, ids, steps: int, feed=None, cache=None):
+    """Prefill ``ids`` then ``steps`` decode steps through ``cache`` (a fresh
+    row cache by default); feeds ``feed`` tokens (or the greedy choice) and
+    returns (logits (steps+1, V) f32, tokens)."""
+    cache = model.new_cache(1) if cache is None else cache
     logits = [model(ids, mode="prefill", cache=cache, last_only=True)[0, -1].float()]
     toks = []
     for t in range(steps):
@@ -367,32 +548,35 @@ def teacher_logits(model, ids, steps: int, feed=None):
 
 
 def check_outputs(model, gen) -> dict:
+    """The kernels' logits against the plain path's, through a row cache
+    (K1, K4) and through a paged cache behind a scrambled table (K1, K5)."""
     ids = torch.randint(1, model.config.vocab_size, (1, 64), generator=gen, device="cuda")
     with plain_attention():
         ref, toks = teacher_logits(model, ids, 8)
-    got, _ = teacher_logits(model, ids, 8, feed=toks)
-    if not torch.isfinite(got).all():
-        raise AssertionError("non-finite logits through the kernels")
-    scale = float(ref.abs().max())
-    rel = max_err(got, ref) / scale
-    agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
-    in_top5 = bool((got.topk(5, dim=-1).indices == ref.argmax(-1)[:, None]).any(-1).all())
-    # bf16 model with random weights: K1 rounds P to bf16 where the plain
-    # path keeps f32 (~2^-9 relative per attention output), and 32 random
-    # layers amplify it; near-ties among 128256 logits may swap the top-1,
-    # so the plain path's choice must stay within the kernels' top 5
-    if rel > 5e-2 or not in_top5:
-        raise AssertionError(f"logits disagree with the plain path: rel {rel}, "
-                             f"argmax {agree}/{ref.shape[0]}, plain top-1 in top-5: {in_top5}")
-    return dict(rel_err=rel, argmax_agree=f"{agree}/{ref.shape[0]}", logit_scale=scale)
+    res = {}
+    for name, cache in (("row", None), ("paged", scrambled_paged_cache(model))):
+        got, _ = teacher_logits(model, ids, 8, feed=toks, cache=cache)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"non-finite logits through the kernels ({name} cache)")
+        scale = float(ref.abs().max())
+        rel = max_err(got, ref) / scale
+        agree = int((got.argmax(-1) == ref.argmax(-1)).sum())
+        in_top5 = bool((got.topk(5, dim=-1).indices == ref.argmax(-1)[:, None]).any(-1).all())
+        # bf16 model with random weights: K1 rounds P to bf16 where the plain
+        # path keeps f32 (~2^-9 relative per attention output), and 32 random
+        # layers amplify it; near-ties among 128256 logits may swap the top-1,
+        # so the plain path's choice must stay within the kernels' top 5
+        if rel > 5e-2 or not in_top5:
+            raise AssertionError(f"logits ({name} cache) disagree with the plain path: rel {rel}, "
+                                 f"argmax {agree}/{ref.shape[0]}, plain top-1 in top-5: {in_top5}")
+        res[name] = dict(rel_err=rel, argmax_agree=f"{agree}/{ref.shape[0]}", logit_scale=scale)
+    return res
 
 
 # --- phase 4: serving ---------------------------------------------------------
 
 def serve(model, gen):
     from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
-    from neuronx_distributed_tpu_torch.kernels.flash_attention import flash_attention_fwd
-    from neuronx_distributed_tpu_torch.kernels.flash_decode import flash_decode_fwd
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
     from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
 
@@ -403,9 +587,10 @@ def serve(model, gen):
     cfgs = [GenerationConfig(max_new_tokens=new, temperature=0.0) for _ in lengths]
     cfgs[2] = GenerationConfig(max_new_tokens=new, temperature=0.8, top_k=50)
     engine = ServingEngine(model, num_slots=8, decode_chunk_size=8)
+    counters = kernel_counters()
     torch.cuda.synchronize()
-    flash_attention_fwd.launches = 0
-    flash_decode_fwd.launches = 0
+    for c in counters.values():
+        c.launches = 0
     t0 = time.perf_counter()
     reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
     engine.step()  # admits all six (8 slots): six prefills, then one decode chunk
@@ -415,15 +600,16 @@ def serve(model, gen):
     engine.run()  # decode-only steps
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches = {"flash_attention": flash_attention_fwd.launches,
-                "flash_decode": flash_decode_fwd.launches}
+    launches = {name: c.launches for name, c in counters.items()}
     for r in reqs:
         if r.state is not RequestState.DONE or len(r.tokens) != new:
             raise AssertionError(f"request {r.rid}: {r.state} with {len(r.tokens)} tokens")
         if not all(0 <= t < model.config.vocab_size for t in r.tokens):
             raise AssertionError(f"request {r.rid}: token outside the vocabulary")
-    if min(launches.values()) < 1:
+    if min(launches["flash_attention"], launches["flash_decode"]) < 1:
         raise AssertionError(f"a kernel of the serving path never launched: {launches}")
+    if launches["paged_flash_decode"] or launches["flash_attention_dkdv"] or launches["flash_attention_dq"]:
+        raise AssertionError(f"row serving launched a kernel of another path: {launches}")
     snap = engine.metrics.snapshot()
     # executed steps each ran the whole model (and one K4 per layer); used
     # steps had a live slot — the rest were masked no-ops
@@ -455,9 +641,107 @@ def profile_serving(model, workload) -> dict:
                                         "flash_decode": "flash_decode_kernel"})
 
 
+def paged_workload(vocab: int):
+    """12 chat turns of 100-400 tokens and 3 documents of 2000-3000 tokens,
+    a document after every fourth chat (the JAX bench's paged leg,
+    ``bench.py:1049-1087``, at Llama-3-8B scale); 32 new tokens each,
+    temperature 0.8 with top_k 20 except two greedy requests."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+
+    rng = np.random.default_rng(3)
+    chats = [rng.integers(1, vocab, size=int(rng.integers(100, 401))) for _ in range(12)]
+    docs = [rng.integers(1, vocab, size=int(rng.integers(2000, 3001))) for _ in range(3)]
+    prompts = []
+    for i, p in enumerate(chats):
+        prompts.append(p)
+        if i % 4 == 3:
+            prompts.append(docs[i // 4])
+    cfgs = [GenerationConfig(max_new_tokens=32, temperature=0.8, top_k=20) for _ in prompts]
+    for i in (1, 9):
+        cfgs[i] = GenerationConfig(max_new_tokens=32, temperature=0.0)
+    return prompts, cfgs
+
+
+PAGED_SLOTS, PAGE, ROW_SLOTS = 16, 16, 4
+
+
+def serve_paged(model, workload, attention: str, profiled: bool = False) -> dict:
+    """The paged engine (16 slots, page_size 16, chunk 8, conservative,
+    FIFO) over a pool of ROW_SLOTS row slots' bytes plus the null page,
+    answering ``workload``; every kernel's launch count is zeroed just
+    before and read just after. ``attention`` is ``"fused"`` (the engine as
+    it serves, K5) or ``"gather"`` (K4 on the gathered view patched in, the
+    witness). ``profiled`` runs it under the profiler and adds the device
+    time by family (its walls are the profiler's, not the engine's)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
+
+    cfg = model.config
+    engine = ServingEngine(model, num_slots=PAGED_SLOTS, decode_chunk_size=8, kv_page_size=PAGE,
+                           kv_num_pages=ROW_SLOTS * cfg.max_seq_len // PAGE + 1)
+    prompts, cfgs = workload
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+           else contextlib.nullcontext())
+    route = gathered_paged_attention() if attention == "gather" else contextlib.nullcontext()
+    decode_s, decode_executed = 0.0, 0
+    with route, ctx as prof:
+        t0 = time.perf_counter()
+        reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
+        while engine.has_work:
+            prefills, executed = engine.metrics.prefills, engine.metrics.executed_steps
+            t1 = time.perf_counter()
+            engine.step()
+            torch.cuda.synchronize()
+            if engine.metrics.prefills == prefills:  # a decode-only step
+                decode_s += time.perf_counter() - t1
+                decode_executed += engine.metrics.executed_steps - executed
+        wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    engine.cache.check()
+    for r in reqs:
+        if r.state is not RequestState.DONE or len(r.tokens) != 32:
+            raise AssertionError(f"paged request {r.rid}: {r.state} with {len(r.tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"paged request {r.rid}: token outside the vocabulary")
+    snap = engine.metrics.snapshot()
+    want = {"paged_flash_decode": 0, "flash_decode": 0}
+    want["paged_flash_decode" if attention == "fused" else "flash_decode"] = (
+        snap["executed_steps"] * cfg.num_layers)
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"paged ({attention}) decode launches {got} != {want}")
+    if launches["flash_attention"] != snap["prefills"] * cfg.num_layers:
+        raise AssertionError(f"paged ({attention}) K1 launches {launches['flash_attention']} != "
+                             f"{snap['prefills']} prefills x {cfg.num_layers} layers")
+    if snap["peak_occupancy"] <= ROW_SLOTS:
+        raise AssertionError(f"paged: at most {snap['peak_occupancy']} requests decoded at once, "
+                             f"no more than the {ROW_SLOTS} row slots of the same bytes")
+    res = dict(tokens=[list(r.tokens) for r in reqs], launches=launches, snap=snap, wall_s=wall,
+               decode_s=decode_s, decode_executed=decode_executed,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               pool_gib=engine.cache.nbytes / 2**30)
+    if profiled:
+        res["fams"] = device_time_by_family(prof, {
+            "paged_flash_decode": "paged_flash_decode_kernel",
+            "flash_attention": "flash_fwd_kernel", "flash_decode": "flash_decode_kernel"})
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
 def device_time_by_family(prof, kernels: dict) -> dict:
     """Device ms of a profile by family: each of ``kernels`` (family: a
-    substring of its CUDA kernel's name), GEMMs, and everything else."""
+    substring of its CUDA kernel's name; the first that matches wins), GEMMs,
+    and everything else."""
     fams = {**{fam: 0.0 for fam in kernels}, "gemm": 0.0, "other": 0.0}
     for e in prof.events():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -501,10 +785,14 @@ def kernel_counters():
         flash_attention_dq,
         flash_attention_fwd,
     )
-    from neuronx_distributed_tpu_torch.kernels.flash_decode import flash_decode_fwd
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+        flash_decode_fwd,
+        paged_flash_decode_fwd,
+    )
 
     return {"flash_attention": flash_attention_fwd, "flash_attention_dkdv": flash_attention_dkdv,
-            "flash_attention_dq": flash_attention_dq, "flash_decode": flash_decode_fwd}
+            "flash_attention_dq": flash_attention_dq, "flash_decode": flash_decode_fwd,
+            "paged_flash_decode": paged_flash_decode_fwd}
 
 
 def train_vs_plain() -> dict:
@@ -579,7 +867,8 @@ def train_phase(steps: int = 6) -> dict:
     launches = {name: c.launches for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention": 2 * cfg.num_layers * steps, "flash_attention_dkdv":
-            cfg.num_layers * steps, "flash_attention_dq": cfg.num_layers * steps, "flash_decode": 0}
+            cfg.num_layers * steps, "flash_attention_dq": cfg.num_layers * steps, "flash_decode": 0,
+            "paged_flash_decode": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches} != {want}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -637,6 +926,19 @@ def main() -> int:
         f"({k4['ratio']:.3g}x its limit; a dropped partial tile reads {k4['fault_ratio']:.3g}x) "
         f"kernel_ms {k4['ms']:.4f} plain_ms {k4['plain_ms']:.4f} bound_ms {k4['bound_ms']:.4f} "
         f"({k4['bound_by']}) library_ms {k4['library_ms']:.4f} (SDPA, bool mask, GQA)")
+    k5 = check_k5(gen, "k4", timed=True)
+    k5s = check_k5(gen, "serving", timed=False)
+    for name, r in (("K4's shapes", k5), ("the paged serving geometry", k5s)):
+        log(f"K5 paged_flash_decode at {name}: B={r['slots']} s=1 H=32 Hkv=8 D=128 L=8192 "
+            f"bound {r['bound_cols']} page_size 16, pool {r['pages']} pages ({r['mapped']} mapped "
+            f"through a scrambled table), garbage null page, {r['live_cols']} live columns: "
+            f"max_err {r['err']:.3g} ({r['ratio']:.3g}x its limit; a dropped partial tile reads "
+            f"{r['fault_ratio']:.3g}x); bitwise equal to K4 on the gathered view, blind to the "
+            f"null page, two runs bitwise equal; kernel_ms {r['ms']:.4f} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    log(f"K5 at K4's shapes: plain_ms {k5['plain_ms']:.4f} library_ms {k5['library_ms']:.4f} "
+        f"(SDPA on the gathered view, bool mask, GQA) + gather_ms {k5['gather_ms']:.4f} "
+        f"(K and V views)")
     k23 = {(s, packed): check_k2k3(gen, s, packed, timed=(s, packed) == (4096, False))
            for s, packed in ((4096, False), (4096, True), (1000, False))}
     for (s, packed), r in k23.items():
@@ -661,9 +963,10 @@ def main() -> int:
     log(f"model: llama3_8b, {cfg.num_layers} layers (no depth cut), "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params bf16, "
         f"init {time.perf_counter() - t0:.1f} s")
-    out = check_outputs(model, gen)
-    log(f"outputs vs plain path (64-token prompt, 8 decode steps): rel_err {out['rel_err']:.3g} "
-        f"argmax {out['argmax_agree']} logit_scale {out['logit_scale']:.3g}")
+    for name, out in check_outputs(model, gen).items():
+        log(f"outputs vs plain path ({name} cache{', scrambled table, K5' if name == 'paged' else ''}"
+            f"; 64-token prompt, 8 decode steps): rel_err {out['rel_err']:.3g} argmax "
+            f"{out['argmax_agree']} logit_scale {out['logit_scale']:.3g}")
 
     srv = serve(model, gen)
     snap = srv["snap"]
@@ -685,6 +988,40 @@ def main() -> int:
         + ", ".join(f"{k} {v:.2f}" for k, v in fams.items())
         + f"; busy {busy:.2f} of the unprofiled wall {1e3 * srv['wall_s']:.2f} "
         f"(idle share {1 - busy / (1e3 * srv['wall_s']):.3f})")
+
+    torch.cuda.empty_cache()
+    workload = paged_workload(cfg.vocab_size)
+    fused = serve_paged(model, workload, "fused")
+    gather = serve_paged(model, workload, "gather")
+    if fused["tokens"] != gather["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(fused["tokens"], gather["tokens"])) if a != b]
+        raise AssertionError(f"paged token streams differ between fused and gather: requests {diff}")
+    prof = serve_paged(model, workload, "fused", profiled=True)
+    if prof["tokens"] != fused["tokens"]:
+        raise AssertionError("paged token streams differ between the fused run and its profiled rerun")
+    chats = [len(p) for p in workload[0] if len(p) < 1000]
+    docs = [len(p) for p in workload[0] if len(p) >= 1000]
+    log(f"paged serving: 15 requests (12 chats of {min(chats)}..{max(chats)} tokens, 3 documents "
+        f"of {min(docs)}..{max(docs)}; 32 new tokens, 2 greedy), "
+        f"{PAGED_SLOTS} slots, page_size {PAGE}, pool {fused['pool_gib']:.3f} GiB "
+        f"(= {ROW_SLOTS} row slots + the null page), chunk 8, conservative; fused and gather "
+        f"token streams identical")
+    for name, r in (("fused (K5)", fused), ("gather (K4)", gather)):
+        sn = r["snap"]
+        log(f"paged serving {name}: wall {r['wall_s']:.3f} s, prefills {sn['prefills']}, decode "
+            f"steps {sn['executed_steps']} executed ({sn['executed_steps'] - sn['steps']} masked "
+            f"no-ops), TTFT mean {sn['mean_ttft']:.4f} s max {sn['max_ttft']:.4f} s, decode "
+            f"{sn['chunk_tokens_per_sec']:.1f} tok/s (chunk wall), {r['decode_executed']} "
+            f"decode-only steps executed {r['decode_s']:.4f} s "
+            f"({1e3 * r['decode_s'] / max(r['decode_executed'], 1):.2f} ms per executed step), "
+            f"mean occupancy {sn['mean_occupancy']:.2f}, peak occupancy {sn['peak_occupancy']}, "
+            f"peak pages mapped {sn['peak_pages_mapped']}, peak mem {r['peak_gib']:.1f} GiB")
+        log(f"launches on the paged serving path ({name}): {r['launches']}")
+    busy = sum(prof["fams"].values())
+    log("device time of the paged serving workload, fused (profiler, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in prof["fams"].items())
+        + f"; busy {busy:.2f} of the unprofiled wall {1e3 * fused['wall_s']:.2f} "
+        f"(idle share {1 - busy / (1e3 * fused['wall_s']):.3f})")
 
     del model
     torch.cuda.empty_cache()
@@ -711,9 +1048,9 @@ def main() -> int:
         f"(idle share {1 - busy / (1e3 * tr['wall']):.3f})")
 
     k1_main = k1[4096]
-    launches = {name: srv["launches"].get(name, 0) + tr["launches"][name]
+    launches = {name: srv["launches"][name] + fused["launches"][name] + tr["launches"][name]
                 for name in tr["launches"]}
-    log(f"launches on the main paths (serving + training): {launches}")
+    log(f"launches on the main paths (serving, paged serving with K5, training): {launches}")
     k23_err = {n: max(r["err"][n] for r in k23.values()) for n in ("dk", "dv", "dq")}
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -743,6 +1080,12 @@ def main() -> int:
              launches=launches["flash_decode"], max_abs_err=k4["err"], ms=k4["ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"], bound_by=k4["bound_by"],
              library_ms=k4["library_ms"]),
+        dict(name="paged_flash_decode", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/flash_decode.cu",
+             replaces="neuronx_distributed_tpu/kernels/flash_decode.py:617",
+             launches=launches["paged_flash_decode"], max_abs_err=k5["err"], ms=k5["ms"],
+             plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
+             library_ms=k5["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,38 @@
-// Decode attention against the row-per-slot KV cache for Hopper (sm_90a).
+// Decode attention against the KV cache for Hopper (sm_90a): the row-per-slot
+// layout (K4) and the paged layout (K5), one tile loop for both.
 //
-// Replaces the TPU kernel `_decode_kernel` / `_flash_decode_call`
+// K4 replaces the TPU kernel `_decode_kernel` / `_flash_decode_call`
 // (neuronx_distributed_tpu/kernels/flash_decode.py:233,285): the R = group*s
 // query rows of one kv-head attend the cache (B, L, Hkv, D) in one pass with
 // an online softmax; each row sees slots <= its position minus the slots
 // `kv_valid` marks invalid; columns past max(pos) are never read. Emits O and
 // LSE (-1e30 where a row saw no live slot).
 //
-// What bounds it on an H100: bytes. Every cache column read (K and V, 2*D
+// K5 replaces `_paged_decode_kernel` / `paged_flash_decode_attention`
+// (neuronx_distributed_tpu/kernels/flash_decode.py:481,532,617): the same
+// math with K/V read straight from a page pool (P, page_size, Hkv, D)
+// through a block table (B, n_log) int32 — logical column c of slot b is row
+// c % page_size of pool page bt[b, c / page_size]. Page 0 is the null page:
+// unmapped logical pages point at it and `kv_valid` masks their columns. The
+// TPU kernel streams one page per sequential grid step with the table in
+// scalar-prefetch SMEM; here K5 is K4 with its column address computed
+// through the table: the same 128-column tiles in the same order, the same
+// live bound and masking, so it equals K4 run on the gathered logical view
+// bit for bit (the reference's contract, flash_decode.py:548-552). There is
+// no scalar prefetch on Hopper: each thread reads the table entry of every
+// column it copies (L1-resident, 16 threads share one) before issuing the
+// copy. One column's D bf16 values of one kv-head are 256 contiguous bytes in
+// either layout, so the 16-byte copies carry over; page_size must divide the
+// 128-column tile (a power of two).
+//
+// What bounds both on an H100: bytes. Every cache column read (K and V, 2*D
 // bf16 per kv-head) feeds only 4*R*D FLOPs — R = 4 for Llama-3-8B at s = 1,
 // about 4 FLOP per byte against the card's ~295 — so the floor is the K/V
-// bytes up to the bound over 3.35 TB/s. The design streams each K/V byte
-// from device memory once, with many bytes in flight, keeps scores and the
-// softmax state on chip, and stops at the live bound instead of at L.
+// bytes up to the bound over 3.35 TB/s (plus, for K5, the table's 4 bytes per
+// page). The design streams each K/V byte from device memory once, with many
+// bytes in flight, keeps scores and the softmax state on chip, and stops at
+// the live bound instead of at L. K5 adds no pass: it reads the pool in
+// place, where the gather route first copies the whole logical view.
 //
 // Design (right and simple first):
 //  * one block of 256 threads per (kv-head, batch row); the cache length is
@@ -44,12 +64,42 @@ constexpr int CHUNKS = D / 8;           // 16-byte chunks per cache row
 constexpr float NEG_INF = -1e30f;
 constexpr size_t STAGE_BYTES = (size_t)TL * (KP + D) * sizeof(bf16);
 
+// K5 reads skb/svb as the pool's page stride and skl/svl as the stride of a
+// row inside a page; bt/sbt/ps_shift are K5's alone.
 struct Params {
   const bf16* q; const bf16* k; const bf16* v; bf16* o; float* lse;
-  const int* q_pos; const uint8_t* kv_valid;
-  int s, H, Hkv, L;
-  long long sqb, sqs, sqh, skb, skl, skh, svb, svl, svh, sob, sos, soh, validb;
+  const int* q_pos; const uint8_t* kv_valid; const int* bt;
+  int s, H, Hkv, L, ps_shift;
+  long long sqb, sqs, sqh, skb, skl, skh, svb, svl, svh, sob, sos, soh, validb, sbt;
   float scale;
+};
+
+// K4: column c of slot b's cache row.
+struct RowCols {
+  const bf16* k; const bf16* v; long long skl, svl;
+  __device__ RowCols(const Params& p, int b, int hk)
+      : k(p.k + b * p.skb + hk * p.skh), v(p.v + b * p.svb + hk * p.svh),
+        skl(p.skl), svl(p.svl) {}
+  __device__ __forceinline__ void at(int c, const bf16*& kc, const bf16*& vc) const {
+    kc = k + (long long)c * skl;
+    vc = v + (long long)c * svl;
+  }
+};
+
+// K5: logical column c of slot b through its block-table row.
+struct PagedCols {
+  const bf16* k; const bf16* v; const int* bt; int shift, mask;
+  long long skp, skr, svp, svr;
+  __device__ PagedCols(const Params& p, int b, int hk)
+      : k(p.k + hk * p.skh), v(p.v + hk * p.svh), bt(p.bt + b * p.sbt),
+        shift(p.ps_shift), mask((1 << p.ps_shift) - 1),
+        skp(p.skb), skr(p.skl), svp(p.svb), svr(p.svl) {}
+  __device__ __forceinline__ void at(int c, const bf16*& kc, const bf16*& vc) const {
+    const long long page = __ldg(bt + (c >> shift));
+    const int row = c & mask;
+    kc = k + page * skp + row * skr;
+    vc = v + page * svp + row * svr;
+  }
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
@@ -61,23 +111,25 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
 // Issue the copies of columns [c0, min(c0 + TL, bound)) of K and V.
-__device__ __forceinline__ void load_tile(unsigned char* stage, const bf16* kbase,
-                                          const bf16* vbase, long long skl, long long svl,
+template <class Cols>
+__device__ __forceinline__ void load_tile(unsigned char* stage, const Cols& cols,
                                           int c0, int bound, int tid) {
   bf16* Ks = reinterpret_cast<bf16*>(stage);
   bf16* Vs = Ks + TL * KP;
   for (int i = tid; i < TL * CHUNKS; i += NTHREADS) {
     const int c = i / CHUNKS, ch = (i % CHUNKS) * 8;
     if (c0 + c < bound) {
-      cp_async16(Ks + c * KP + ch, kbase + (long long)(c0 + c) * skl + ch);
-      cp_async16(Vs + c * D + ch, vbase + (long long)(c0 + c) * svl + ch);
+      const bf16 *kc, *vc;
+      cols.at(c0 + c, kc, vc);
+      cp_async16(Ks + c * KP + ch, kc + ch);
+      cp_async16(Vs + c * D + ch, vc + ch);
     }
   }
 }
 
-template <int RMAX>
-__global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char dsm[];
+// The tile loop K4 and K5 share; `Cols` is the only difference.
+template <int RMAX, class Cols>
+__device__ __forceinline__ void decode_tiles(const Params& p, unsigned char* dsm) {
   unsigned char* stages = dsm;                                        // 2 x [K | V]
   float* q_s = reinterpret_cast<float*>(dsm + 2 * STAGE_BYTES);       // [RMAX][D]
   float* S_s = q_s + RMAX * D;                                        // [RMAX][TL]
@@ -110,8 +162,7 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(Params p) {
   const int bound = *bound_s;
   const int n_tiles = (bound + TL - 1) / TL;
 
-  const bf16* kbase = p.k + b * p.skb + hk * p.skh;
-  const bf16* vbase = p.v + b * p.svb + hk * p.svh;
+  const Cols cols(p, b, hk);
   const uint8_t* valid = p.kv_valid ? p.kv_valid + b * p.validb : nullptr;
 
   const int dp = (tid % (D / 2)) * 2;  // phase 3: this thread's two head-dim lanes
@@ -121,14 +172,13 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(Params p) {
 #pragma unroll
   for (int k = 0; k < RPT; ++k) acc[k][0] = acc[k][1] = 0.f;
 
-  if (n_tiles > 0) load_tile(stages, kbase, vbase, p.skl, p.svl, 0, bound, tid);
+  if (n_tiles > 0) load_tile(stages, cols, 0, bound, tid);
   cp_async_commit();
 
   for (int tile = 0; tile < n_tiles; ++tile) {
     const int c0 = tile * TL;
     if (tile + 1 < n_tiles) {
-      load_tile(stages + ((tile + 1) & 1) * STAGE_BYTES, kbase, vbase, p.skl, p.svl,
-                c0 + TL, bound, tid);
+      load_tile(stages + ((tile + 1) & 1) * STAGE_BYTES, cols, c0 + TL, bound, tid);
       cp_async_commit();
       cp_async_wait<1>();  // this tile landed; the next stays in flight
     } else {
@@ -250,14 +300,56 @@ __global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(Params p) {
 }
 
 template <int RMAX>
-int launch(const Params& p, int B, cudaStream_t stream) {
+__global__ void __launch_bounds__(NTHREADS) flash_decode_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  decode_tiles<RMAX, RowCols>(p, dsm);
+}
+
+template <int RMAX>
+__global__ void __launch_bounds__(NTHREADS) paged_flash_decode_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  decode_tiles<RMAX, PagedCols>(p, dsm);
+}
+
+template <int RMAX>
+int launch(const Params& p, int B, bool paged, cudaStream_t stream) {
+  void (*kernel)(Params) = paged ? &paged_flash_decode_kernel<RMAX> : &flash_decode_kernel<RMAX>;
   const size_t smem = 2 * STAGE_BYTES + (size_t)RMAX * (D + TL) * sizeof(float) +
                       3 * RMAX * sizeof(float) + (RMAX + 1) * sizeof(int);
-  cudaFuncSetAttribute(flash_decode_kernel<RMAX>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid(p.Hkv, B);
-  flash_decode_kernel<RMAX><<<grid, NTHREADS, smem, stream>>>(p);
+  kernel<<<grid, NTHREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+int dispatch(const Params& p, int B, bool paged, void* stream) {
+  const int R = (p.H / p.Hkv) * p.s;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R <= 4) return launch<4>(p, B, paged, st);
+  if (R <= 8) return launch<8>(p, B, paged, st);
+  if (R <= 16) return launch<16>(p, B, paged, st);
+  if (R <= 32) return launch<32>(p, B, paged, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+Params common(const void* q, const void* k, const void* v, void* o, void* lse,
+              const void* q_pos, const void* kv_valid, int s, int H, int Hkv, int L,
+              long long sqb, long long sqs, long long sqh, long long sob, long long sos,
+              long long soh, long long validb, float scale) {
+  Params p = {};
+  p.q = static_cast<const bf16*>(q);
+  p.k = static_cast<const bf16*>(k);
+  p.v = static_cast<const bf16*>(v);
+  p.o = static_cast<bf16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.q_pos = static_cast<const int*>(q_pos);
+  p.kv_valid = static_cast<const uint8_t*>(kv_valid);
+  p.s = s; p.H = H; p.Hkv = Hkv; p.L = L;
+  p.sqb = sqb; p.sqs = sqs; p.sqh = sqh;
+  p.sob = sob; p.sos = sos; p.soh = soh;
+  p.validb = validb;
+  p.scale = scale;
+  return p;
 }
 
 }  // namespace
@@ -271,28 +363,32 @@ extern "C" int nxd_flash_decode_fwd(
     long long svb, long long svl, long long svh,
     long long sob, long long sos, long long soh,
     long long validb, float scale, void* stream) {
-  Params p;
-  p.q = static_cast<const bf16*>(q);
-  p.k = static_cast<const bf16*>(k);
-  p.v = static_cast<const bf16*>(v);
-  p.o = static_cast<bf16*>(o);
-  p.lse = static_cast<float*>(lse);
-  p.q_pos = static_cast<const int*>(q_pos);
-  p.kv_valid = static_cast<const uint8_t*>(kv_valid);
-  p.s = s; p.H = H; p.Hkv = Hkv; p.L = L;
-  p.sqb = sqb; p.sqs = sqs; p.sqh = sqh;
+  Params p = common(q, k, v, o, lse, q_pos, kv_valid, s, H, Hkv, L, sqb, sqs, sqh,
+                    sob, sos, soh, validb, scale);
   p.skb = skb; p.skl = skl; p.skh = skh;
   p.svb = svb; p.svl = svl; p.svh = svh;
-  p.sob = sob; p.sos = sos; p.soh = soh;
-  p.validb = validb;
-  p.scale = scale;
-  const int R = (H / Hkv) * s;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R <= 4) return launch<4>(p, B, st);
-  if (R <= 8) return launch<8>(p, B, st);
-  if (R <= 16) return launch<16>(p, B, st);
-  if (R <= 32) return launch<32>(p, B, st);
-  return (int)cudaErrorInvalidValue;
+  return dispatch(p, B, false, stream);
+}
+
+// K5: k/v are pools (P, page_size, Hkv, D) with strides (skp, skr, skh);
+// bt is the (B, n_log) block table, row stride sbt; page_size = 1 << ps_shift.
+extern "C" int nxd_paged_flash_decode_fwd(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    const void* q_pos, const void* kv_valid, const void* bt,
+    int B, int s, int H, int Hkv, int n_log, int ps_shift,
+    long long sqb, long long sqs, long long sqh,
+    long long skp, long long skr, long long skh,
+    long long svp, long long svr, long long svh,
+    long long sob, long long sos, long long soh,
+    long long validb, long long sbt, float scale, void* stream) {
+  Params p = common(q, k, v, o, lse, q_pos, kv_valid, s, H, Hkv, n_log << ps_shift, sqb,
+                    sqs, sqh, sob, sos, soh, validb, scale);
+  p.bt = static_cast<const int*>(bt);
+  p.sbt = sbt;
+  p.ps_shift = ps_shift;
+  p.skb = skp; p.skl = skr; p.skh = skh;
+  p.svb = svp; p.svl = svr; p.svh = svh;
+  return dispatch(p, B, true, stream);
 }
 
 extern "C" int nxd_flash_decode_max_rows() { return 32; }

@@ -4,7 +4,8 @@ ParallelEmbedding → N × (RMSNorm → GQA attention → RMSNorm → SwiGLU MLP
 RMSNorm → LM head, at tp=1. ``mode`` is a call argument instead of a flax
 module attribute: ``"train"`` (no cache), ``"prefill"`` (causal attention
 that also writes the prompt K/V into a :class:`KVCache`), ``"decode"``
-(append the step's K/V at the cursor and attend the cache). A model built
+(append the step's K/V at the cursor and attend the cache through its own
+``attend``: K4 on a row cache, K5 on a :class:`PagedKVCache`). A model built
 for serving stores its linears and embedding in the compute ``dtype`` the
 JAX layers cast to, frozen; a model built with ``trainable=True`` keeps fp32
 masters (``param_dtype``) that it casts before each product, as JAX does
@@ -27,9 +28,9 @@ from torch.utils.checkpoint import checkpoint
 
 from neuronx_distributed_tpu_torch.modules.attention import (
     KVCache,
+    PagedKVCache,
     apply_rope,
     attention_op,
-    decode_attention,
     prefill_positions,
     rope_frequencies,
 )
@@ -129,9 +130,7 @@ class LlamaAttention(nn.Module):
         k = apply_rope(k, freqs, positions)
         if mode == "decode":
             cache.decode_write(layer, k, v)
-            out = decode_attention(
-                q, cache.k[layer], cache.v[layer], q_pos, kv_valid=cache.valid
-            )
+            out = cache.attend(layer, q, q_pos)
         else:
             if mode == "prefill":
                 cache.prefill_write(layer, k, v)
@@ -243,6 +242,15 @@ class LlamaForCausalLM(nn.Module):
         cfg = self.config
         return KVCache.allocate(cfg.num_layers, batch, cfg.max_seq_len,
                                 cfg.num_kv_heads, cfg.head_dim_, cfg.dtype, self.device)
+
+    def new_paged_cache(self, batch: int, num_pages: int, page_size: int) -> PagedKVCache:
+        """A zeroed paged cache for this model on its device: a pool of
+        ``num_pages`` pages of ``page_size`` columns per layer and a
+        ``(batch, max_seq_len // page_size)`` block table of null pages."""
+        cfg = self.config
+        return PagedKVCache.allocate(cfg.num_layers, batch, cfg.max_seq_len,
+                                     cfg.num_kv_heads, cfg.head_dim_, cfg.dtype, self.device,
+                                     num_pages=num_pages, page_size=page_size)
 
     def forward(self, input_ids, mode: str = "train", cache: Optional[KVCache] = None,
                 positions=None, segment_ids=None, padding_mask=None,

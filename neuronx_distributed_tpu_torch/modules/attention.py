@@ -1,12 +1,15 @@
-"""RoPE, the attention dispatcher, the KV cache and decode attention
+"""RoPE, the attention dispatcher, the KV caches and decode attention
 (counterpart of ``neuronx_distributed_tpu/modules/attention.py``, the subset
-the serving path runs: cp = 1, no paging, no prefix store).
+the serving path runs: cp = 1, row and paged caches, no prefix store).
 
 The JAX cache is a flax ``cache`` collection that each program returns
 updated (the engine donates it so XLA updates it in place). Here the cache is
-a :class:`KVCache` of explicit tensors that the model updates IN PLACE — the
+a :class:`KVCache` (row per slot) or a :class:`PagedKVCache` (page pool and
+block table) of explicit tensors that the model updates IN PLACE — the
 PyTorch counterpart of donation — and its write cursor is a host ``int``
-(the JAX engine mirrors the device cursor on the host anyway).
+(the JAX engine mirrors the device cursor on the host anyway). The model's
+attention layer calls the cache's own :meth:`KVCache.attend`, so one model
+serves both layouts.
 """
 
 from __future__ import annotations
@@ -16,7 +19,11 @@ from typing import Optional, Tuple
 import torch
 
 from neuronx_distributed_tpu_torch.kernels.flash_attention import flash_attention
-from neuronx_distributed_tpu_torch.kernels.flash_decode import flash_decode_attention
+from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+    flash_decode_attention,
+    paged_flash_decode_attention,
+    paged_gather_leaf,
+)
 
 NEG_INF = -1e30
 
@@ -201,6 +208,110 @@ class KVCache:
         cur, s = self.index, k.shape[1]
         self.k[layer, :, cur:cur + s] = k
         self.v[layer, :, cur:cur + s] = v
+
+    def attend(self, layer: int, q: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
+        """Decode attention of q (B, s, H, D) at cache columns ``q_pos``
+        against this layer's rows: K4's wrapper."""
+        return decode_attention(q, self.k[layer], self.v[layer], q_pos, kv_valid=self.valid)
+
+
+class PagedKVCache(KVCache):
+    """A paged cache, updated in place by the model: ``k``/``v`` are page
+    POOLS (num_layers, num_pages, page_size, Hkv, D), zero-initialised;
+    ``block_table`` (B, n_log) int32 on the device maps logical page j of
+    row b to a pool page (0 = the reserved null page, never attendable);
+    ``valid`` (B, n_log * page_size) and ``index`` stay LOGICAL, exactly as
+    in :class:`KVCache` (the JAX paged collection keeps ``kv_valid`` and
+    ``index`` logical too, ``modules/attention.py:502-518``). The host owns
+    the table (``serving/paging.py``) and uploads it with
+    :meth:`upload_table`.
+
+    Writes land IN PLACE in the pool page under each logical column,
+    through the table. The JAX chunk instead gathers the logical view,
+    writes it and scatters the write window back (``gather_cache_pages`` /
+    ``scatter_cache_window``, ``inference/generate.py:165-186``) because its
+    arrays are immutable; here nothing needs a round trip. Columns whose page
+    is unmapped (left padding, masked no-op steps, idle rows) land in page 0.
+
+    Decode attends straight from the pool through the table (K5). ``col0``
+    is the logical column this object's column 0 maps to (a slot's prefill
+    view, :meth:`view`)."""
+
+    def __init__(self, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
+                 block_table: torch.Tensor, page_size: int, index: int = 0, col0: int = 0):
+        super().__init__(k, v, valid, index)
+        self.block_table, self.page_size, self.col0 = block_table, page_size, col0
+        self._dst = None  # (pages, rows) of this step's writes, set once per forward
+
+    @classmethod
+    def allocate(cls, num_layers: int, b: int, max_seq_len: int, hkv: int, d: int,
+                 dtype: torch.dtype, device, num_pages: int,
+                 page_size: int = 16) -> "PagedKVCache":
+        if page_size < 1 or max_seq_len % page_size:
+            raise ValueError(f"max_seq_len ({max_seq_len}) must be a multiple of "
+                             f"page_size ({page_size})")
+        if num_pages < 2:
+            raise ValueError(f"num_pages must be >= 2 (page 0 is reserved), got {num_pages}")
+        # zeros, as KVCache: masked columns still enter P·V with weight 0
+        shape = (num_layers, num_pages, page_size, hkv, d)
+        return cls(
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros((b, max_seq_len), dtype=torch.bool, device=device),
+            torch.zeros((b, max_seq_len // page_size), dtype=torch.int32, device=device),
+            page_size,
+        )
+
+    def upload_table(self, tables) -> None:
+        """Copy the host's block tables (B, n_log) into the device table, in
+        place (views of it stay current): a host→device copy, no read."""
+        self.block_table.copy_(torch.as_tensor(tables, dtype=torch.int32))
+
+    def view(self, rows: slice, start: int) -> "PagedKVCache":
+        """The cache of batch ``rows`` whose column 0 is logical column
+        ``start``; writes through it land in this cache's pool and validity."""
+        return PagedKVCache(self.k, self.v, self.valid[rows, start:], self.block_table[rows],
+                            self.page_size, col0=self.col0 + start)
+
+    def _address(self, first: int, s: int) -> None:
+        """Physical (page, row) of logical columns [first, first + s) of
+        every row, for the writes of the forward about to run."""
+        cols = torch.arange(self.col0 + first, self.col0 + first + s,
+                            device=self.block_table.device)
+        self._dst = (self.block_table[:, cols // self.page_size].long(), cols % self.page_size)
+
+    def prefill_valid(self, padding_mask: Optional[torch.Tensor], s: int) -> None:
+        super().prefill_valid(padding_mask, s)
+        self._address(0, s)
+
+    def decode_positions(self, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        pos, rope_pos = super().decode_positions(s)
+        self._address(self.index, s)
+        return pos, rope_pos
+
+    def decode_write(self, layer: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write one layer's K/V (B, s, Hkv, D) at the columns the forward
+        addressed (:meth:`prefill_valid` or :meth:`decode_positions`)."""
+        pages, rows = self._dst
+        self.k[layer][pages, rows] = k
+        self.v[layer][pages, rows] = v
+
+    prefill_write = decode_write
+
+    def attend(self, layer: int, q: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
+        """Decode attention of q (B, s, H, D) at logical columns ``q_pos``
+        straight from this layer's pools: K5's wrapper."""
+        return paged_flash_decode_attention(q, self.k[layer], self.v[layer], self.block_table,
+                                            q_pos, self.valid, self.page_size)
+
+
+def gather_cache_pages(cache: PagedKVCache, layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The logical (B, L, Hkv, D) K and V views of one layer of a paged
+    cache (JAX ``gather_cache_pages``, ``modules/attention.py:502``):
+    unmapped logical pages surface null-page content in columns ``valid``
+    masks. A copy, for the tests and the on-card checks."""
+    return (paged_gather_leaf(cache.k[layer], cache.block_table, cache.page_size),
+            paged_gather_leaf(cache.v[layer], cache.block_table, cache.page_size))
 
 
 # --- slot helpers (serving) ---------------------------------------------------

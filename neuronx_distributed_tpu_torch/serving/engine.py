@@ -1,6 +1,6 @@
 """Continuous-batching serving engine (counterpart of
-``neuronx_distributed_tpu/serving/engine.py``, its core: row-per-slot cache,
-FIFO scheduling, conservative or eager admission).
+``neuronx_distributed_tpu/serving/engine.py``, its core: row-per-slot or
+paged cache, FIFO scheduling, conservative or eager admission).
 
 A host loop interleaves prefill of admitted requests with fused decode
 chunks over all ``num_slots`` slots:
@@ -10,7 +10,11 @@ chunks over all ``num_slots`` slots:
   ``self._state`` and is updated in place; the host writes a slot's row only
   at admission and release.
 * The KV cache is one :class:`KVCache` of ``(num_slots, max_seq_len)`` rows,
-  updated in place (the JAX engine donates it to the same effect).
+  updated in place (the JAX engine donates it to the same effect), or with
+  ``kv_page_size=`` a :class:`PagedKVCache`: a pool of ``kv_num_pages``
+  pages behind per-slot block tables (``serving/paging.py``), which packs
+  device memory under mixed-length traffic; decode attends straight from
+  the pool pages (K5).
 * ``decode_chunk_size`` decode steps run between two host reads
   (:func:`~neuronx_distributed_tpu_torch.inference.generate.
   chunked_decode_step`): EOS/budget freezing happens on the device and the
@@ -29,11 +33,15 @@ that advances each decode step while any slot is active.
 ``admission="conservative"`` admits a request only when its whole remaining
 generation fits under the cursor; ``"eager"`` admits whenever the prefill
 fits and, at the wall, preempts every active request (keeping its tokens),
-rewinds the cache and resumes them by re-prefilling their context.
+rewinds the cache and resumes them by re-prefilling their context. A paged
+engine also counts pages: conservative admission charges every in-flight
+context's worst-case page span, eager admission this round's context pages
+plus every slot's first decode window, and a pool that cannot back the next
+window is a wall like the cursor's (preempt and rewind).
 
-Left out of this slice (not accepted, not silently ignored): paging, the
-prefix cache, speculation, quantization, tp/mesh, fault injection, SLO
-scheduling, ledgers and profiling.
+Left out of this slice (not accepted, not silently ignored): the host page
+tier, the prefix cache, speculation, quantization, tp/mesh, fault injection,
+SLO scheduling, ledgers and profiling.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ from neuronx_distributed_tpu_torch.inference.generate import (
 from neuronx_distributed_tpu_torch.inference.utils import unwrap_logits
 from neuronx_distributed_tpu_torch.serving.cache_manager import SlotCacheManager
 from neuronx_distributed_tpu_torch.serving.metrics import ServingMetrics
+from neuronx_distributed_tpu_torch.serving.paging import PagedCacheManager, PageExhausted
 from neuronx_distributed_tpu_torch.serving.scheduler import (
     Request,
     RequestState,
@@ -106,9 +115,13 @@ class ServingEngine:
         scheduling: str = "fifo",
         decode_chunk_size: int = 8,
         max_queue: Optional[int] = None,
+        kv_page_size: Optional[int] = None,
+        kv_num_pages: Optional[int] = None,
     ):
         if admission not in ("conservative", "eager"):
             raise ValueError(f"unknown admission policy {admission!r}")
+        if kv_page_size is None and kv_num_pages is not None:
+            raise ValueError("kv_num_pages needs kv_page_size")
         # kept to match the JAX signature; this port has one policy
         if scheduling != "fifo":
             raise ValueError(f"unknown scheduling policy {scheduling!r} (this port has 'fifo')")
@@ -123,7 +136,12 @@ class ServingEngine:
         self.max_queue = max_queue
         self._prefill_model, self._decode_model = serving_clones(model)
         self.scheduler = Scheduler(max_tokens_in_flight)
-        self.cache = SlotCacheManager(num_slots, model.new_cache(num_slots))
+        self._page_size = kv_page_size
+        if kv_page_size is None:
+            self.cache = SlotCacheManager(num_slots, model.new_cache(num_slots))
+        else:
+            self.cache = PagedCacheManager.for_model(model, num_slots, kv_page_size,
+                                                     kv_num_pages)
         self.metrics = ServingMetrics(num_slots)
         self._active = np.zeros((num_slots,), bool)
         self._slot_req: List[Optional[Request]] = [None] * num_slots
@@ -172,6 +190,18 @@ class ServingEngine:
                 f"request footprint ({prompt.size + config.max_new_tokens}) "
                 f"exceeds max_tokens_in_flight ({budget}); it could never be admitted"
             )
+        if self._page_size is not None:
+            # the request's worst-case page footprint ALONE (empty engine,
+            # cursor rewound) must fit the pool, or no admission round could
+            # ever select it: fail at the door, not livelocked at the head
+            rem = config.max_new_tokens
+            _, t0 = self._paged_layout(prompt.size, rem, 0)
+            span0 = self.cache.page_span(t0 - prompt.size, min(self.max_seq_len, t0 + rem))
+            if span0 > self.cache.alloc.capacity:
+                raise ValueError(
+                    f"request needs {span0} KV pages even alone; the pool holds "
+                    f"{self.cache.alloc.capacity} usable pages — it could never be placed"
+                )
         depth = self.scheduler.queued
         if self.max_queue is not None and depth >= self.max_queue:
             self.metrics.record_reject()
@@ -217,7 +247,7 @@ class ServingEngine:
             self.cache.reset()  # drained: the next wave starts at column 0
         self._admit(now)
         if self._active.any():
-            self._decode_plain()
+            self._decode()
         return self.has_work
 
     def run(self, max_steps: int = 1_000_000) -> Dict[int, Request]:
@@ -255,16 +285,98 @@ class ServingEngine:
             maxrem = max(maxrem, req.remaining_new_tokens)
             return True
 
+        if self._page_size is not None:
+            fits = self._paged_fits(maxrem)
         for req in self.scheduler.select(self.cache.free_slots,
                                          self._in_flight_tokens(), fits):
             self._prefill_into_slot(req, self.cache.acquire(), now)
 
+    def _paged_fits(self, maxrem: int):
+        """The paged admission predicate for one round (JAX ``fits``,
+        ``engine.py:2385-2494``, with the round laid out as admission will
+        lay it out). ``select`` hands the round back longest-first and each
+        admission page-aligns the cursor, so the round's final cursor
+        depends on that order; the JAX projection walks the queue in
+        arrival order instead and can fall short of it. Conservative: every
+        in-flight and selected context's pages through the final cursor plus
+        the longest remaining generation fit the pool (no wall is ever hit).
+        Eager: this round's context pages plus the first decode window at
+        the final cursor, for every selected and in-flight slot, at the
+        width :meth:`_ensure_decode_pages` will ask for, fit the free pages.
+        The JAX engine charges each request's window at its own target and
+        leaves the in-flight slots out, which can re-admit the same
+        over-committed wave after every page-pressure preemption and
+        livelock; this count backs the next chunk, so every round makes
+        progress."""
+        cache, L = self.cache, self.max_seq_len
+        cursor0, starts = cache.cursor, cache.active_spans()
+        in_flight = np.flatnonzero(self._active)
+        selected = []  # (context length, remaining tokens), queue order
+
+        def layout(reqs):
+            cur, ctx = cursor0, []
+            for p, rem in sorted(reqs, key=lambda r: r[0], reverse=True):
+                target = self._paged_layout(p, rem, cur)[1]
+                ctx.append((target - p, p))
+                cur = target
+            return ctx, cur
+
+        def fits(req: Request) -> bool:
+            nonlocal maxrem
+            p, rem = len(req.context_ids), req.remaining_new_tokens
+            ctx, target = layout(selected + [(p, rem)])
+            most = max(maxrem, rem)
+            if self.admission == "conservative":
+                t_end = target + most
+                if t_end > L or (sum(cache.page_span(s, t_end) for s in starts)
+                                 + sum(cache.page_span(st, t_end) for st, _ in ctx)
+                                 > cache.alloc.capacity):
+                    return False
+            else:
+                if target + 1 > L:
+                    return False
+                hi = min(L, target + min(self.decode_chunk_size, max(most, 1)))
+                need = (sum(cache.unmapped_pages(int(s), target, hi) for s in in_flight)
+                        + sum(cache.context_pages(st, n, target, hi) for st, n in ctx))
+                if need > cache.available_pages():
+                    return False
+            selected.append((p, rem))
+            maxrem = most
+            return True
+
+        return fits
+
+    def _paged_layout(self, p: int, rem: int, proj: int):
+        """(padded, cursor target) for a paged admission at projected cursor
+        ``proj``: the padded bucket as ever, with the target bumped (fewer
+        than page_size gap columns) so the context START lands on a page
+        boundary. When the bump would push the request past the row end that
+        the exact-length bucket avoids, fall back to ``padded = p``."""
+        padded = _bucket(p, self.max_seq_len, rem)
+        target = self.cache.aligned_target(max(proj, padded), p)
+        if padded > p and target + rem > self.max_seq_len:
+            padded = p
+            target = self.cache.aligned_target(max(proj, p), p)
+        return padded, target
+
     def _prefill_into_slot(self, req: Request, slot: int, now: float) -> None:
         ctx = req.context_ids
-        padded = _bucket(len(ctx), self.max_seq_len, req.remaining_new_tokens)
-        ids, mask = pack_padded_prompt(ctx, padded)
         t0 = time.monotonic()
-        row = self.cache.admit(slot, padded)
+        if self._page_size is None:
+            padded = _bucket(len(ctx), self.max_seq_len, req.remaining_new_tokens)
+            row = self.cache.admit(slot, padded)
+        else:
+            padded, target = self._paged_layout(len(ctx), req.remaining_new_tokens,
+                                                self.cache.cursor)
+            try:
+                row = self.cache.admit(slot, padded, cursor=target, p=len(ctx))
+            except PageExhausted:
+                # page pressure between fits() and the admission: nothing is
+                # mapped — return the slot and requeue the untouched request
+                self.cache.free(slot)
+                self.scheduler.requeue_front([req])
+                return
+        ids, mask = pack_padded_prompt(ctx, padded)
         out = self._prefill_model(
             torch.from_numpy(ids).to(self.device, torch.int64), cache=row,
             padding_mask=torch.from_numpy(mask).to(self.device), last_only=True,
@@ -296,6 +408,33 @@ class ServingEngine:
         self._maybe_finish(req, now)
 
     # --- decode -------------------------------------------------------------
+
+    def _chunk_width_cols(self, active) -> int:
+        """Columns the next chunk can actually WRITE: a slot freezes when
+        its budget runs out, so no more than the largest remaining
+        generation among active slots ever executes. Clamping the page
+        demand to it keeps the window consistent with the admission and
+        door accounting, which size requests by their remaining tokens."""
+        max_rem = max((self._slot_req[s].remaining_new_tokens for s in active
+                       if self._slot_req[s] is not None), default=self.decode_chunk_size)
+        return min(self.decode_chunk_size, max(max_rem, 1))
+
+    def _ensure_decode_pages(self) -> bool:
+        """Map pool pages under every active slot's next write window.
+        False = the page-pressure wall."""
+        active = np.flatnonzero(self._active)
+        return self.cache.ensure_decode_window(active, self._chunk_width_cols(active))
+
+    def _decode(self) -> None:
+        if self._page_size is not None and not self._ensure_decode_pages():
+            # page-pressure wall: the pool cannot back every active slot's
+            # next write window — preempt and rewind, the cursor wall's
+            # remedy (frees every mapping; re-admission repacks from column 0)
+            self._preempt_all()
+            return
+        if self._page_size is not None:
+            self.metrics.record_pages_mapped(self.cache.pages_mapped)
+        self._decode_plain()
 
     def _decode_plain(self) -> None:
         """One fused decode chunk, then ONE host read of the token block."""

@@ -1,9 +1,10 @@
 """Serving metrics (counterpart of
 ``neuronx_distributed_tpu/serving/metrics.py``, the subset the engine's core
-records): TTFT, queue wait, decode tokens/s, chunk counts and slot
-occupancy, as plain host numbers in ``snapshot()`` (same key names as the
-JAX snapshot). Recording costs no device read: every sample is a host scalar
-the engine already holds."""
+records): TTFT, queue wait, decode tokens/s, chunk counts, slot
+occupancy (mean and peak) and, for a paged engine, the peak of pages
+mapped, as plain host numbers in ``snapshot()`` (the JAX snapshot's key
+names, plus ``peak_occupancy`` and ``peak_pages_mapped``). Recording costs
+no device read: every sample is a host scalar the engine already holds."""
 
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ class ServingMetrics:
         self.num_slots = num_slots
         self._requests: Dict[int, dict] = {}
         self.steps = self.executed_steps = self.chunks = self.decode_tokens = 0
-        self.occupied_slot_steps = 0
+        self.occupied_slot_steps = self.peak_occupancy = self.peak_pages_mapped = 0
         self.prefills = self.completed = self.cancelled = 0
         self.preemptions = self.rejects = 0
         self.cursor_high_water = 0
@@ -89,9 +90,14 @@ class ServingMetrics:
         self.executed_steps += executed
         self.decode_tokens += tokens
         self.occupied_slot_steps += active_slots * steps
+        self.peak_occupancy = max(self.peak_occupancy, active_slots)
         self.cursor_high_water = max(self.cursor_high_water, cursor)
         self.decode_dispatch_s += dispatch_s
         self.decode_readback_s += readback_s
+
+    def record_pages_mapped(self, pages: int) -> None:
+        """Pool pages mapped at a paged chunk's dispatch."""
+        self.peak_pages_mapped = max(self.peak_pages_mapped, pages)
 
     @property
     def mean_occupancy(self) -> float:
@@ -122,6 +128,8 @@ class ServingMetrics:
             "prefill_mean_s": _mean(self.prefill_walls),
             "cursor_high_water": self.cursor_high_water,
             "mean_occupancy": self.mean_occupancy,
+            "peak_occupancy": self.peak_occupancy,
+            "peak_pages_mapped": self.peak_pages_mapped,
             "mean_ttft": _mean(ttfts),
             "max_ttft": max(ttfts) if ttfts else 0.0,
             "ttft_p50_s": _pct(ttfts, 50),

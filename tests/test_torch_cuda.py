@@ -9,8 +9,9 @@ Tolerances (bf16 on both sides). Outputs, elementwise: |out - ref| <=
 2^-7 |ref| + c * (P|V|) + 1e-5, where 2^-7 |ref| is one bf16 ulp of O (both
 sides round O last) and P|V| is the plain version on |V|, which bounds any
 difference in a row's P·V sum: K1 rounds P to bf16 for that product (2^-9
-per term), so c = 2^-8; K4 keeps P in f32, so c = 2^-12. LSE 5e-4 — f32 on
-both sides, exp-sums in a different order. Backward (K2, K3), the same
+per term), so c = 2^-8; K4 and K5 keep P in f32, so c = 2^-12. LSE 5e-4 —
+f32 on both sides, exp-sums in a different order. K5 must equal K4 on the
+gathered view bit for bit (the same tiles in the same order). Backward (K2, K3), the same
 form with the sum of term magnitudes in place of P|V| (P|dO| for dV,
 |dS||Q| for dK, |dS||K| for dQ, dS = P (dP - delta) scale): they round P
 and dS to bf16
@@ -92,6 +93,57 @@ def test_flash_decode_kernel_matches_plain(cuda, s, bound, h):
     assert float(got[2].abs().max()) == 0.0
 
 
+def _paged_case(gen, s, ps, h=8, hkv=2, b=3, L=384, bound=341):
+    """q, pools, a numpy-seeded scrambled block table (unmapped pages -> the
+    null page, filled with large garbage), positions and kv_valid with left
+    padding and gaps that stops at each slot's mapped columns."""
+    n_log = L // ps
+    n_pages = b * n_log + 1
+    q = _rnd(gen, b, s, h, 128)
+    kp, vp = _rnd(gen, n_pages, ps, hkv, 128), _rnd(gen, n_pages, ps, hkv, 128)
+    kp[0].mul_(50.0)
+    vp[0].mul_(50.0)
+    rng = np.random.default_rng(ps + s)
+    perm = rng.permutation(np.arange(1, n_pages))
+    table = np.zeros((b, n_log), np.int32)
+    valid = torch.rand(b, n_log * ps, generator=gen, device="cuda") > 0.2
+    for i in range(b):
+        lo, hi = 5 * i, -(-bound // ps) - 2 * i
+        table[i, lo:hi] = perm[i * n_log:i * n_log + hi - lo]
+        valid[i, :lo * ps + 3] = False
+        valid[i, hi * ps:] = False
+    pos = torch.arange(bound - s, bound, dtype=torch.int32, device="cuda")
+    return q, kp, vp, torch.from_numpy(table).cuda(), pos, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("s", [1, 2])
+def test_paged_flash_decode_kernel_matches_plain(cuda, s, ps):
+    q, kp, vp, bt, pos, valid = _paged_case(cuda, s, ps)
+    n = tfd.paged_flash_decode_fwd.launches
+    got, lse = tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
+    assert tfd.paged_flash_decode_fwd.launches == n + 1
+    want, wlse = tfd.paged_flash_decode_plain(q, kp, vp, bt, pos, valid, ps)
+    pv = tfd.paged_flash_decode_plain(q, kp, vp.abs(), bt, pos, valid, ps)[0]
+    _assert_out_close(got, want, pv, 2.0 ** -12)
+    torch.testing.assert_close(lse, wlse, atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [8, 16])
+def test_paged_kernel_equals_k4_on_gathered_view_and_ignores_null_page(cuda, ps):
+    q, kp, vp, bt, pos, valid = _paged_case(cuda, 2, ps)
+    got, lse = tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
+    row, row_lse = tfd.flash_decode_fwd(q, tfd.paged_gather_leaf(kp, bt, ps),
+                                        tfd.paged_gather_leaf(vp, bt, ps), pos, valid)
+    assert torch.equal(got, row) and torch.equal(lse, row_lse)
+    kp[0].normal_(generator=cuda)
+    vp[0].normal_(generator=cuda).mul_(-1e3)
+    again, again_lse = tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
+    assert torch.equal(got, again) and torch.equal(lse, again_lse)
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q32 = torch.randn(1, 16, 4, 128, device="cuda")
@@ -100,6 +152,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q64 = _rnd(cuda, 1, 16, 4, 64)
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(q64, q64[:, :, :2], q64[:, :, :2])
+    q, kp, vp, bt, pos, valid = _paged_case(cuda, 1, 16)
+    n = tfd.paged_flash_decode_fwd.launches
+    with pytest.raises(TypeError):  # f32 pools
+        tfd.paged_flash_decode_fwd(q, kp.float(), vp.float(), bt, pos, valid, 16)
+    with pytest.raises(ValueError):  # a page size that does not divide the 128-column tile
+        pool = _rnd(cuda, 4, 12, 2, 128)
+        tfd.paged_flash_decode_fwd(q, pool, pool, bt[:, :2], pos, valid[:, :24], 12)
+    with pytest.raises(ValueError):  # an int64 table
+        tfd.paged_flash_decode_fwd(q, kp, vp, bt.long(), pos, valid, 16)
+    with pytest.raises(ValueError):  # head_dim 64
+        pool = _rnd(cuda, 4, 16, 2, 64)
+        tfd.paged_flash_decode_fwd(_rnd(cuda, 3, 1, 8, 64), pool, pool, bt, pos, valid, 16)
+    assert tfd.paged_flash_decode_fwd.launches == n  # nothing refused was counted
 
 
 @pytest.mark.cuda
@@ -122,6 +187,46 @@ def test_engine_on_card_goes_through_both_kernels(cuda):
     assert all(len(r.tokens) == 12 and all(0 <= t < 1000 for t in r.tokens) for r in reqs)
     assert tfa.flash_attention_fwd.launches - n1 == 3 * cfg.num_layers
     assert tfd.flash_decode_fwd.launches > n4
+
+
+@pytest.mark.cuda
+def test_paged_engine_on_card_goes_through_k5(cuda, monkeypatch):
+    """A small bf16 Llama with head_dim 128 behind a paged engine on the
+    card: K5 runs once per layer per executed decode step, K4 never; with
+    K4 on the gathered view patched in for K5, the tokens are the same."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.modules import attention as tattn
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    def gathered(q, k_pool, v_pool, block_table, q_pos, kv_valid=None, page_size=16):
+        return tfd.flash_decode_attention(q, tfd.paged_gather_leaf(k_pool, block_table, page_size),
+                                          tfd.paged_gather_leaf(v_pool, block_table, page_size),
+                                          q_pos, kv_valid)
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512)
+    model = init_params(LlamaForCausalLM(cfg), seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, 1000, size=n) for n in (5, 40, 130, 17)]
+    streams = []
+    for attention in ("fused", "gather"):
+        engine = ServingEngine(model, num_slots=3, decode_chunk_size=4, kv_page_size=16,
+                               kv_num_pages=40)
+        n4, n5 = tfd.flash_decode_fwd.launches, tfd.paged_flash_decode_fwd.launches
+        reqs = [engine.submit(p, GenerationConfig(12, temperature=0.0)) for p in prompts]
+        if attention == "gather":
+            monkeypatch.setattr(tattn, "paged_flash_decode_attention", gathered)
+        engine.run()
+        executed = engine.metrics.executed_steps * cfg.num_layers
+        if attention == "fused":
+            assert (tfd.paged_flash_decode_fwd.launches - n5, tfd.flash_decode_fwd.launches - n4) == (executed, 0)
+        else:
+            assert (tfd.paged_flash_decode_fwd.launches - n5, tfd.flash_decode_fwd.launches - n4) == (0, executed)
+        assert all(len(r.tokens) == 12 and all(0 <= t < 1000 for t in r.tokens) for r in reqs)
+        engine.cache.check()
+        streams.append([r.tokens for r in reqs])
+    assert streams[0] == streams[1]
 
 
 def _bwd_case(gen, b, s, h, hkv, seg, causal):

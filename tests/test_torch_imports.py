@@ -88,6 +88,12 @@ def test_every_module_imports_and_runs_with_jax_blocked():
         req = engine.submit([3, 4, 5], cfg)
         engine.run()
         assert req.tokens == solo, (req.tokens, solo)
+        paged = ServingEngine(model, num_slots=2, decode_chunk_size=2, kv_page_size=8,
+                              kv_num_pages=5)
+        req = paged.submit([3, 4, 5], cfg)
+        paged.run()
+        paged.cache.check()
+        assert req.tokens == solo, (req.tokens, solo)
         assert not any(k.split(".")[0] in {FORBIDDEN!r} and sys.modules[k] is not None
                        for k in sys.modules)
         print("ok")
@@ -113,13 +119,16 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     q = torch.randn(1, 4, 2, 8)
     k = torch.randn(1, 4, 1, 8)
     counters = (tfa.flash_attention_fwd, tfa.flash_attention_dkdv, tfa.flash_attention_dq,
-                tfd.flash_decode_fwd)
+                tfd.flash_decode_fwd, tfd.paged_flash_decode_fwd)
     before = [f.launches for f in counters]
     out, lse = tfa.flash_attention_fwd(q, k, k)
     delta = (out * q).sum(-1).transpose(1, 2)
     tfa.flash_attention_dkdv(q, k, k, q, lse, delta)
     tfa.flash_attention_dq(q, k, k, q, lse, delta)
     tfd.flash_decode_fwd(q[:, :1], k, k, torch.tensor([3]))
+    tfd.paged_flash_decode_fwd(q[:, :1], k.reshape(2, 2, 1, 8), k.reshape(2, 2, 1, 8),
+                               torch.tensor([[1, 0]], dtype=torch.int32), torch.tensor([1]),
+                               page_size=2)
     assert [f.launches for f in counters] == before
     # the plain versions are called from their own wrappers and nowhere else
     # in the package (chip_smoke.py calls them only to check the kernels)
@@ -129,7 +138,8 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
         with open(path) as f:
             src = f.read()
         for plain in ("flash_attention_plain", "flash_attention_dkdv_plain",
-                      "flash_attention_dq_plain", "flash_decode_plain"):
+                      "flash_attention_dq_plain", "flash_decode_plain",
+                      "paged_flash_decode_plain"):
             assert plain not in src, (path, plain)
     # and no fallback: the kernel wrappers hold no try/except
     for mod in (tfa, tfd):
