@@ -450,10 +450,15 @@ def check_k2k3(gen, s: int, packed: bool, timed: bool):
             ("dkdv", lambda: flash_attention_dkdv(*args), lambda: flash_attention_dkdv_plain(*args)),
             ("dq", lambda: flash_attention_dq(*args), lambda: flash_attention_dq_plain(*args))):
         flops, nbytes = work[name]
+        ms = cuda_ms(fn, 10)
+        bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
         res[name] = dict(
-            ms=cuda_ms(fn, 10), plain_ms=cuda_ms(plain, 2, warmup=1),
-            bound_ms=max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3,
-            bound_by="operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes")
+            ms=ms, plain_ms=cuda_ms(plain, 2, warmup=1), bound_ms=bound,
+            bound_by="operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes",
+            tflops=flops / ms / 1e9, over_bound=ms / bound)
+    if packed:  # SDPA has no segment mask short of a dense one: no yardstick here
+        res["library_ms"] = None
+        return res
     # yardstick: SDPA's backward (dQ, dK and dV together) = fwd+bwd - fwd
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     g = do.transpose(1, 2).contiguous()
@@ -896,6 +901,31 @@ def train_phase(steps: int = 6) -> dict:
                 pairs=pairs, docs=int(seg.max()) + 1)
 
 
+def bwd_resources() -> list:
+    """K2's and K3's resources as built: dynamic shared memory, registers a
+    thread at entry, spill bytes and blocks per SM from the runtime, and the
+    ``ptxas -v`` lines of each kernel."""
+    import ctypes
+
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_attention_bwd")
+    report = _build.resource_report("flash_attention_bwd").splitlines()
+    out = []
+    for which, sym in ((0, "flash_dkdv_kernel"), (1, "flash_dq_kernel")):
+        vals = (ctypes.c_int * 4)()
+        _build.check(lib.nxd_flash_attention_bwd_resources(which, vals), sym)
+        at = next(i for i, line in enumerate(report) if "entry function" in line and sym in line)
+        ptxas = []
+        for line in report[at + 1:]:
+            if "entry function" in line:
+                break
+            ptxas.append(line.split(":", 1)[-1].strip())
+        out.append(dict(kernel=sym, smem=vals[0], regs=vals[1], local=vals[2], blocks_per_sm=vals[3],
+                        ptxas="; ".join(ptxas)))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -913,6 +943,10 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(["flash_attention", "flash_attention_bwd", "flash_decode"])
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the three sources in parallel)")
+    for r in bwd_resources():
+        log(f"{r['kernel']}: {r['smem']} B dynamic shared memory a block, {r['regs']} registers a "
+            f"thread at entry, {r['local']} B local a thread, {r['blocks_per_sm']} block(s) per SM; "
+            f"ptxas: {r['ptxas']}")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = {s: check_k1(gen, s, pad) for s, pad in ((512, 77), (4096, 1001))}
@@ -939,7 +973,7 @@ def main() -> int:
     log(f"K5 at K4's shapes: plain_ms {k5['plain_ms']:.4f} library_ms {k5['library_ms']:.4f} "
         f"(SDPA on the gathered view, bool mask, GQA) + gather_ms {k5['gather_ms']:.4f} "
         f"(K and V views)")
-    k23 = {(s, packed): check_k2k3(gen, s, packed, timed=(s, packed) == (4096, False))
+    k23 = {(s, packed): check_k2k3(gen, s, packed, timed=s == 4096)
            for s, packed in ((4096, False), (4096, True), (1000, False))}
     for (s, packed), r in k23.items():
         log(f"K2/K3 flash_attention_dkdv/dq B=2 S={s} H=32 Hkv=8 D=128 causal "
@@ -948,10 +982,13 @@ def main() -> int:
                         f"tile reads {r['fault'][n]:.3g}x)" for n in ("dk", "dv", "dq"))
             + "; two runs bitwise equal")
     k23_main = k23[(4096, False)]
-    for n in ("dkdv", "dq"):
-        r = k23_main[n]
-        log(f"K{2 if n == 'dkdv' else 3} flash_attention_{n} S=4096 unpacked: kernel_ms {r['ms']:.4f} "
-            f"plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+    for packed in (False, True):
+        for n in ("dkdv", "dq"):
+            r = k23[(4096, packed)][n]
+            log(f"K{2 if n == 'dkdv' else 3} flash_attention_{n} S=4096 "
+                f"{'packed' if packed else 'unpacked'}: kernel_ms {r['ms']:.4f} plain_ms "
+                f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}); "
+                f"{r['tflops']:.1f} TFLOP/s, {r['over_bound']:.2f}x its bound")
     log(f"SDPA backward (dQ, dK, dV together; fwd+bwd - fwd, is_causal, GQA) S=4096: "
         f"library_ms {k23_main['library_ms']:.4f}")
     torch.cuda.empty_cache()

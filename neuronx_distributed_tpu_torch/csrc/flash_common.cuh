@@ -1,7 +1,8 @@
-// Fragment and copy helpers shared by the flash-attention kernels
-// (flash_attention.cu: K1, the forward; flash_attention_bwd.cu: K2 and K3,
-// the backward). Every product runs on `mma.sync.m16n8k16` with bf16 inputs
-// and f32 accumulators.
+// Fragment and copy helpers of the flash-attention forward (K1,
+// flash_attention.cu), whose products run on `mma.sync.m16n8k16` with bf16
+// inputs and f32 accumulators; the backward (K2 and K3,
+// flash_attention_bwd.cu) takes only D and bf16 from here and builds its
+// `wgmma` products on hopper.cuh.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //  * A (16 x 16, row major): a0 = (row g, cols 2t..2t+1), a1 = (row g+8,

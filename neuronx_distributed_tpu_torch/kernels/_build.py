@@ -6,9 +6,13 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 PyTorch headers, so a build takes seconds. Libraries land in ``build/kernels``
 at the repository root (git-ignored), named by a hash of the source and the
 shared headers (``csrc/*.cuh``), so an edited kernel is rebuilt and a built
-one is reused. Every pointer and the stream cross as ``c_void_p`` (a strides
-array as a pointer to ``c_longlong``); each C entry point returns
-``cudaGetLastError()`` and :func:`check` raises when it is not 0.
+one is reused. ``nvcc`` runs with ``-Xptxas -v``; its report (registers,
+shared memory and spills of every kernel) is kept beside each library and
+read with :func:`resource_report`. Every pointer and the stream cross as
+``c_void_p`` (a strides array as a pointer to ``c_longlong``); each C entry
+point returns ``cudaGetLastError()`` (or one of ``hopper.cuh``'s codes of
+900 and up when a TMA tensor map cannot be made) and :func:`check` raises
+when it is not 0.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _lock = threading.Lock()
@@ -77,6 +81,8 @@ def build(names: Iterable[str]) -> None:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {out}:\n{log.decode(errors='replace')}")
         else:
+            with open(out + ".ptxas.txt", "wb") as f:
+                f.write(log)
             os.replace(tmp, out)  # atomic: a reader never sees half a library
     if errors:
         raise RuntimeError("\n".join(errors))
@@ -93,7 +99,16 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+def resource_report(name: str) -> str:
+    """``ptxas -v``'s report for ``csrc/<name>.cu`` (built on first use)."""
+    build([name])
+    with open(_lib_path(name) + ".ptxas.txt", encoding="utf-8", errors="replace") as f:
+        return f.read()
+
+
 def check(err: int, what: str) -> None:
+    if err >= 900:  # hopper.cuh's codes: no tensor-map encoder, or a map refused
+        raise RuntimeError(f"{what}: could not make a TMA tensor map (code {err})")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 

@@ -85,7 +85,8 @@ def flash_attention_plain(q, k, v, causal: bool = True,
 
 def _check_operands(**tensors) -> None:
     """What the CUDA kernels take: bf16 with a unit-stride, 16-byte aligned
-    head dim."""
+    head dim and 16-byte multiples for every other stride (K2 and K3 read
+    their operands through TMA tensor maps, which require both)."""
     for name, t in tensors.items():
         if t.dtype != torch.bfloat16:
             raise TypeError(f"flash attention kernel takes bf16 {name}, got {t.dtype}")

@@ -17,6 +17,8 @@ form with the sum of term magnitudes in place of P|V| (P|dO| for dV,
 and dS to bf16
 for their products (2^-9 per term), so c = 2^-8."""
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -229,9 +231,12 @@ def test_paged_engine_on_card_goes_through_k5(cuda, monkeypatch):
     assert streams[0] == streams[1]
 
 
-def _bwd_case(gen, b, s, h, hkv, seg, causal):
-    q, k, v, do = (_rnd(gen, b, s, h, 128), _rnd(gen, b, s, hkv, 128),
-                   _rnd(gen, b, s, hkv, 128), _rnd(gen, b, s, h, 128))
+def _bwd_case(gen, b, s, h, hkv, seg, causal, strided=False):
+    """Inputs of K2/K3; ``strided`` makes q and dout slices of a wider
+    (B, S, H + 2, D) tensor, so their row stride is not H * D."""
+    wide = 2 if strided else 0
+    q, do = (_rnd(gen, b, s, h + wide, 128)[:, :, wide // 2:wide // 2 + h] for _ in range(2))
+    k, v = _rnd(gen, b, s, hkv, 128), _rnd(gen, b, s, hkv, 128)
     out, lse = tfa.flash_attention_fwd(q, k, v, causal, seg)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     return q, k, v, do, lse, delta
@@ -244,22 +249,35 @@ def _bwd_limit_ratio(got, want, mag):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,segments,causal", [
-    (200, None, True), (256, "packed", True), (130, "padding", True), (200, None, False),
+@pytest.mark.parametrize("s,h,hkv,segments,causal,strided", [
+    (64, 8, 2, None, True, False),          # one tile, below K3's 128 rows
+    (200, 8, 2, None, True, False),         # ragged, between tiles
+    (256, 8, 2, "packed", True, False),
+    (130, 8, 2, "padding", True, False),
+    (200, 8, 2, None, False, False),
+    (384, 4, 4, None, True, False),         # group 1 (Hkv = H)
+    (384, 32, 4, "packed", True, False),    # group 8
+    (1000, 8, 2, "padding", False, False),  # not a multiple of 64 or 128
+    (1000, 32, 4, "packed", True, False),
+    (64, 4, 4, "packed", False, False),
+    (200, 8, 2, None, True, True),          # q/dout row stride (H + 2) * D
+    (384, 8, 2, "padding", True, True),
 ])
-def test_flash_attention_backward_kernels_match_plain(cuda, s, segments, causal):
-    """K2 and K3 against their plain versions: GQA, causal or not, ragged
-    S, packed documents and left padding; two runs give the same bits."""
-    b, h, hkv = 2, 8, 2
+def test_flash_attention_backward_kernels_match_plain(cuda, s, h, hkv, segments, causal, strided):
+    """K2 and K3 against their plain versions at the edges of their tiles
+    (64-row K2 stages, 128-row K3 blocks, 128-key tiles): GQA groups 1, 4
+    and 8, causal or not, ragged S, packed documents and left padding,
+    strided q/dout; two runs give the same bits."""
+    b = 2
     seg = None
     if segments is not None:
         seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
         if segments == "packed":
-            seg[:, 70:] = 1
-            seg[1, 150:] = 2
+            seg[:, s * 7 // 20:] = 1
+            seg[1, s * 3 // 4:] = 2
         else:
             seg[1, :37] = -1
-    q, k, v, do, lse, delta = _bwd_case(cuda, b, s, h, hkv, seg, causal)
+    q, k, v, do, lse, delta = _bwd_case(cuda, b, s, h, hkv, seg, causal, strided)
     args = (q, k, v, do, lse, delta, causal, seg)
     n2, n3 = tfa.flash_attention_dkdv.launches, tfa.flash_attention_dq.launches
     dk, dv = tfa.flash_attention_dkdv(*args)
@@ -279,6 +297,71 @@ def test_flash_attention_backward_kernels_match_plain(cuda, s, segments, causal)
     dk2, dv2 = tfa.flash_attention_dkdv(*args)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
     assert torch.equal(dq, tfa.flash_attention_dq(*args))
+
+
+def _selftest_lib():
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    return _build.load("hopper_selftest"), _build
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,row", [(64, 0), (128, 37), (128, 150)])
+def test_tma_tile_lands_through_the_swizzle(cuda, rows, row):
+    """hopper.cuh's tensor map, TMA load and 128-byte swizzle: a tile of a
+    strided (B, S, H, 128) view (three heads of a five-head tensor) read
+    back through the swizzle formula equals torch's slice, and rows past S
+    arrive as zeros."""
+    lib, build = _selftest_lib()
+    x = _rnd(cuda, 2, 200, 5, 128)[:, :, 1:4]
+    out = torch.full((rows, 128), 7.0, dtype=torch.bfloat16, device="cuda")
+    fn = lib.nxd_selftest_tma_tile
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    st = (ctypes.c_longlong * 3)(*x.stride()[:3])
+    build.check(fn(x.data_ptr(), 2, 200, 3, st, rows, row, 2, 1, out.data_ptr(),
+                   build.stream_ptr(x.device)), "selftest_tma_tile")
+    n = min(rows, 200 - row)
+    want = torch.zeros_like(out)
+    want[:n] = x[1, row:row + n, 2]
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 128])
+@pytest.mark.parametrize("integers", [False, True])
+def test_wgmma_products_match_matmul(cuda, n, integers):
+    """hopper.cuh's products against torch.matmul in f32 on the same bf16
+    tiles: S = A B1^T (SS, both K-major, the descriptors walking both
+    64-column halves), then C = bf16(S) B2 with bf16(S) handed from the
+    accumulators to the A registers and B2 read MN-major (RS, transposed
+    B). Normal tiles within f32 summation order (S) and one bf16 rounding
+    of S (C); integer tiles, whose every sum is exact, bit for bit."""
+    lib, build = _selftest_lib()
+    if integers:
+        a, b1 = (torch.randint(-1, 2, shape, generator=cuda, device="cuda").to(torch.bfloat16)
+                 for shape in ((64, 128), (n, 128)))
+        b2 = torch.randint(-2, 3, (n, 128), generator=cuda, device="cuda").to(torch.bfloat16)
+    else:
+        a, b1, b2 = _rnd(cuda, 64, 128), _rnd(cuda, n, 128), _rnd(cuda, n, 128)
+    s = torch.empty(64, n, device="cuda")
+    c = torch.empty(64, 128, device="cuda")
+    fn = lib.nxd_selftest_wgmma
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+    build.check(fn(a.data_ptr(), b1.data_ptr(), b2.data_ptr(), n, s.data_ptr(), c.data_ptr(),
+                   build.stream_ptr(a.device)), "selftest_wgmma")
+    ref_s = torch.matmul(a.float(), b1.float().T)
+    ref_c = torch.matmul(ref_s.to(torch.bfloat16).float(), b2.float())
+    if integers:
+        assert torch.equal(s, ref_s) and torch.equal(c, ref_c)
+    else:
+        # f32 sums of 128 terms in another order; C: S may round to the
+        # neighbouring bf16 (at most 2^-7 relative) where the two S differ
+        torch.testing.assert_close(s, ref_s, rtol=1e-5, atol=1e-4)
+        mag = torch.matmul(ref_s.abs(), b2.float().abs())
+        assert float(((c - ref_c).abs() - 2.0 ** -7 * mag).max()) <= 1e-4
 
 
 @pytest.mark.cuda

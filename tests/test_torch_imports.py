@@ -1,7 +1,7 @@
 """The port stands alone: no module of ``neuronx_distributed_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, flax or the JAX package; its entry points
-never drift to the CPU; and only the kernel wrappers choose the plain
-versions, on CPU tensors alone."""
+``chip_smoke.py`` or ``chip_bwd_ab.py``) imports JAX, flax or the JAX
+package; its entry points never drift to the CPU; and only the kernel
+wrappers choose the plain versions, on CPU tensors alone."""
 
 import ast
 import os
@@ -33,7 +33,7 @@ def _port_modules():
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "chip_bwd_ab.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return out
