@@ -6,7 +6,8 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
 
 1. the card's name and power limit, and the build of every CUDA kernel of
    the serving and training paths from ``neuronx_distributed_tpu_torch/csrc``
-   (one ``nvcc`` per source, started together);
+   (one ``nvcc`` per source, started together); K2's, K3's, K4's and K5's
+   resources as built (no decode kernel may spill);
 2. each kernel against its plain PyTorch version at its path's shapes,
    bf16, with its time, the plain version's, the least time the card could
    take (``bound_ms``) and one PyTorch library call's (SDPA) time: K1 and K4
@@ -14,7 +15,11 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    and at the paged serving phase's geometry (also bitwise equal to K4 on
    the gathered view and blind to the null page), K2 and K3 at the
    training shapes (unpacked, packed and ragged), each also bitwise
-   reproducible;
+   reproducible. K4, K5 and their SDPA yardstick take less device time
+   than the host needs to issue them: their times are CUDA-graph replays
+   (``graph_ms``), with the back-to-back time printed beside; K4's and
+   K5's split plans (blocks, live tiles, bytes moved against the bound's)
+   are printed;
 3. outputs: the full-width model's logits through the kernels, with a row
    cache and with a paged cache behind a scrambled block table, against the
    same model with the plain versions swapped in, on a short prompt;
@@ -97,6 +102,64 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Mean device time of ``fn`` with the host taken out: ``iters`` calls
+    captured in one CUDA graph, replayed ``replays`` times between CUDA
+    events. K4, K5 and SDPA at decode shapes take less device time than the
+    host needs to issue them, so back-to-back launches (``cuda_ms``) time
+    the host there; both numbers are printed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return ms
+
+
+def decode_plan(valid, bound_cols: int, hkv: int, rows: int, page_size: int = 0) -> dict:
+    """What K4/K5 launch and move for one call, from the inputs and the
+    kernels' split plan (``split_cols`` columns a block, ``tile_cols`` a
+    tile): blocks in the grid, ranges of a slot that start before the bound
+    (their blocks run), working blocks (a range with a live tile), live
+    tiles, and the bytes the plan moves: the live K/V columns, the table
+    entries of live pages (K5), q for every block that runs, the kv_valid
+    bytes of every block, the partial O and LSE written and merged, out and
+    lse."""
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_decode")
+    split, tile = lib.nxd_flash_decode_split_cols(), lib.nxd_flash_decode_tile_cols()
+    b, L = valid.shape
+    d = 128
+    n_splits, ranges = -(-L // split), -(-bound_cols // split)
+    live = torch.nn.functional.pad(valid[:, :bound_cols], (0, ranges * split - bound_cols))
+    live_tiles = int(live.reshape(b, -1, tile).any(-1).sum()) * hkv
+    working = int(live.reshape(b, ranges, split).any(-1).sum()) * hkv
+    grid, in_bound = hkv * b * n_splits, hkv * b * ranges
+    moved = (2 * 2 * d * int(live.sum()) * hkv                          # live K and V
+             + in_bound * 2 * rows * d + grid * split                   # q, kv_valid
+             + 4 * rows * (2 * in_bound + working * d + in_bound * d)   # partials: written, merged
+             + 2 * b * hkv * rows * d + 4 * b * hkv * rows)             # out, lse
+    if page_size:
+        moved += 4 * int(live.reshape(b, -1, page_size).any(-1).sum()) * hkv
+    return dict(grid=grid, splits=n_splits, ranges=ranges, in_bound=in_bound, working=working,
+                live_tiles=live_tiles, read_bytes=moved)
+
+
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -155,16 +218,10 @@ def check_k1(gen, s: int, pad: int):
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
 
 
-def check_k4(gen):
-    """K4 at decode shapes: 8 slots, s=1, L=8192, a 4100-column bound,
-    kv_valid with gaps (left padding and invalid columns)."""
-    from torch.nn import functional as F
-
-    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
-        flash_decode_fwd,
-        flash_decode_plain,
-    )
-
+def k4_inputs(gen):
+    """``check_k4``'s inputs: q (8, 1, 32, 128), a row cache (8, 8192, 8,
+    128), the position 4099, kv_valid with left padding (slot i from column
+    400 i) and 10% gap columns."""
     dev, bf = torch.device("cuda"), torch.bfloat16
     b, s, h, hkv, d, L, bound_cols = 8, 1, 32, 8, 128, 8192, 4100
     q = torch.randn(b, s, h, d, generator=gen, device=dev).to(bf)
@@ -175,6 +232,22 @@ def check_k4(gen):
     for i in range(b):  # slot i's prompt starts further right: left padding
         valid[i, 400 * i: bound_cols] = True
     valid &= torch.rand(b, L, generator=gen, device=dev) > 0.1  # gap columns
+    return q, kc, vc, pos, valid
+
+
+def check_k4(gen):
+    """K4 at decode shapes: 8 slots, s=1, L=8192, a 4100-column bound,
+    kv_valid with gaps (left padding and invalid columns)."""
+    from torch.nn import functional as F
+
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+        flash_decode_fwd,
+        flash_decode_plain,
+    )
+
+    b, h, hkv, d, L, bound_cols = 8, 32, 8, 128, 8192, 4100
+    q, kc, vc, pos, valid = k4_inputs(gen)
+    dev = q.device
     out, lse = flash_decode_fwd(q, kc, vc, pos, valid)
     ref, ref_lse = flash_decode_plain(q, kc, vc, pos, valid)
     pv = flash_decode_plain(q, kc, vc.abs(), pos, valid)[0]
@@ -199,15 +272,18 @@ def check_k4(gen):
     flops = 4.0 * live_cols * h * d
     bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
     bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-    ms = cuda_ms(lambda: flash_decode_fwd(q, kc, vc, pos, valid), 50)
+    ms = graph_ms(lambda: flash_decode_fwd(q, kc, vc, pos, valid), 20)
+    eager_ms = cuda_ms(lambda: flash_decode_fwd(q, kc, vc, pos, valid), 50)
     plain_ms = cuda_ms(lambda: flash_decode_plain(q, kc, vc, pos, valid), 5, warmup=1)
     cols = torch.arange(L, device=dev)
     mask = (valid & (cols <= pos[-1]))[:, None, None, :]  # (B, 1, 1, L)
     qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
-    lib_ms = cuda_ms(lib, 50)
-    return dict(err=max(err, lerr), ratio=ratio, fault_ratio=fault_ratio, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+    lib_ms = graph_ms(lib, 20)
+    return dict(err=max(err, lerr), ratio=ratio, fault_ratio=fault_ratio, ms=ms, eager_ms=eager_ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
+                library_eager_ms=cuda_ms(lib, 50),
+                plan=dict(decode_plan(valid, bound_cols, hkv, 4), bound_bytes=nbytes))
 
 
 def k5_shapes(name: str):
@@ -240,21 +316,10 @@ def k5_shapes(name: str):
     return 16, 2049, bound, runs + [[]]
 
 
-def check_k5(gen, shapes: str, timed: bool):
-    """K5 at ``k5_shapes(shapes)``, s=1: each slot's logical pages from its
-    first valid column's page through the bound's map to a numpy-seeded
-    random permutation of pool pages; its unmapped pages (left padding,
-    past the bound, an idle slot's) to page 0, which holds random garbage.
-    At K4's shapes ``kv_valid`` also has random gaps, as in ``check_k4``."""
+def k5_inputs(gen, shapes: str):
+    """``check_k5``'s inputs at ``k5_shapes(shapes)``: q, the pools (page 0
+    scaled by 64), the block table, the position and kv_valid."""
     import numpy as np
-    from torch.nn import functional as F
-
-    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
-        flash_decode_fwd,
-        paged_flash_decode_fwd,
-        paged_flash_decode_plain,
-        paged_gather_leaf,
-    )
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     b, n_pages, bound_cols, runs = k5_shapes(shapes)
@@ -277,7 +342,29 @@ def check_k5(gen, shapes: str, timed: bool):
                 table[i, j] = next(perm)
     if shapes == "k4":
         valid &= torch.rand(b, L, generator=gen, device=dev) > 0.1  # gap columns
-    bt = torch.from_numpy(table).to(dev)
+    return q, kp, vp, torch.from_numpy(table).to(dev), pos, valid
+
+
+def check_k5(gen, shapes: str, timed: bool):
+    """K5 at ``k5_shapes(shapes)``, s=1: each slot's logical pages from its
+    first valid column's page through the bound's map to a numpy-seeded
+    random permutation of pool pages; its unmapped pages (left padding,
+    past the bound, an idle slot's) to page 0, which holds random garbage.
+    At K4's shapes ``kv_valid`` also has random gaps, as in ``check_k4``."""
+    from torch.nn import functional as F
+
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+        flash_decode_fwd,
+        paged_flash_decode_fwd,
+        paged_flash_decode_plain,
+        paged_gather_leaf,
+    )
+
+    dev = torch.device("cuda")
+    b, n_pages, bound_cols, _ = k5_shapes(shapes)
+    h, hkv, d, L, ps = 32, 8, 128, 8192, 16
+    q, kp, vp, bt, pos, valid = k5_inputs(gen, shapes)
+    table = bt.cpu().numpy()
     out, lse = paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
     again, again_lse = paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
     kg, vg = paged_gather_leaf(kp, bt, ps), paged_gather_leaf(vp, bt, ps)
@@ -320,7 +407,9 @@ def check_k5(gen, shapes: str, timed: bool):
     res = dict(err=max(err, lerr), ratio=ratio, fault_ratio=fault_ratio, bound_ms=bound,
                bound_by=bound_by, slots=b, pages=n_pages, bound_cols=bound_cols,
                mapped=int((table != 0).sum()), live_cols=live_cols)
-    res["ms"] = cuda_ms(lambda: paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps), 50)
+    res["ms"] = graph_ms(lambda: paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps), 20)
+    res["eager_ms"] = cuda_ms(lambda: paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps), 50)
+    res["plan"] = dict(decode_plan(valid, bound_cols, hkv, 4, ps), bound_bytes=nbytes)
     if not timed:
         return res
     res["plain_ms"] = cuda_ms(lambda: paged_flash_decode_plain(q, kp, vp, bt, pos, valid, ps), 5,
@@ -331,7 +420,7 @@ def check_k5(gen, shapes: str, timed: bool):
     mask = (valid & (cols <= pos[-1]))[:, None, None, :]  # (B, 1, 1, L)
     qt, kt, vt = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
-    res["library_ms"] = cuda_ms(lib, 50)
+    res["library_ms"] = graph_ms(lib, 20)
     return res
 
 
@@ -926,6 +1015,31 @@ def bwd_resources() -> list:
     return out
 
 
+def decode_resources() -> tuple:
+    """K4's and K5's resources as built, at R <= 4 (Llama-3-8B's group of 4
+    at s = 1) and R <= 32: dynamic shared memory, registers a thread, local
+    bytes and blocks per SM from the runtime; and ``ptxas -v``'s spill line
+    of every decode kernel and merge, which must show no spill. Returns
+    (the resources, the number of kernels ``ptxas`` reported)."""
+    import ctypes
+
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_decode")
+    out = []
+    for paged in (0, 1):
+        for rmax in (4, 32):
+            vals = (ctypes.c_int * 4)()
+            _build.check(lib.nxd_flash_decode_resources(paged, rmax, vals), "flash_decode")
+            out.append(dict(kernel=f"{'paged_' if paged else ''}flash_decode_kernel<{rmax}>",
+                            smem=vals[0], regs=vals[1], local=vals[2], blocks_per_sm=vals[3]))
+    report = _build.resource_report("flash_decode").splitlines()
+    spills = [line.strip() for line in report if "spill" in line]
+    if any("0 bytes spill stores, 0 bytes spill loads" not in line for line in spills):
+        raise AssertionError("a decode kernel spills:\n" + "\n".join(spills))
+    return out, len(spills)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -947,6 +1061,11 @@ def main() -> int:
         log(f"{r['kernel']}: {r['smem']} B dynamic shared memory a block, {r['regs']} registers a "
             f"thread at entry, {r['local']} B local a thread, {r['blocks_per_sm']} block(s) per SM; "
             f"ptxas: {r['ptxas']}")
+    dres, n_spill_lines = decode_resources()
+    for r in dres:
+        log(f"{r['kernel']}: {r['smem']} B dynamic shared memory a block, {r['regs']} registers a "
+            f"thread, {r['local']} B local a thread, {r['blocks_per_sm']} block(s) per SM")
+    log(f"ptxas -v, csrc/flash_decode.cu: {n_spill_lines} kernels, none spills")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = {s: check_k1(gen, s, pad) for s, pad in ((512, 77), (4096, 1001))}
@@ -958,8 +1077,10 @@ def main() -> int:
     k4 = check_k4(gen)
     log(f"K4 flash_decode B=8 s=1 H=32 Hkv=8 D=128 L=8192 bound 4100: max_err {k4['err']:.3g} "
         f"({k4['ratio']:.3g}x its limit; a dropped partial tile reads {k4['fault_ratio']:.3g}x) "
-        f"kernel_ms {k4['ms']:.4f} plain_ms {k4['plain_ms']:.4f} bound_ms {k4['bound_ms']:.4f} "
-        f"({k4['bound_by']}) library_ms {k4['library_ms']:.4f} (SDPA, bool mask, GQA)")
+        f"kernel_ms {k4['ms']:.4f} (graph replay; back to back {k4['eager_ms']:.4f}) plain_ms "
+        f"{k4['plain_ms']:.4f} bound_ms {k4['bound_ms']:.4f} ({k4['bound_by']}) library_ms "
+        f"{k4['library_ms']:.4f} (SDPA, bool mask, GQA; graph replay; back to back "
+        f"{k4['library_eager_ms']:.4f})")
     k5 = check_k5(gen, "k4", timed=True)
     k5s = check_k5(gen, "serving", timed=False)
     for name, r in (("K4's shapes", k5), ("the paged serving geometry", k5s)):
@@ -968,10 +1089,17 @@ def main() -> int:
             f"through a scrambled table), garbage null page, {r['live_cols']} live columns: "
             f"max_err {r['err']:.3g} ({r['ratio']:.3g}x its limit; a dropped partial tile reads "
             f"{r['fault_ratio']:.3g}x); bitwise equal to K4 on the gathered view, blind to the "
-            f"null page, two runs bitwise equal; kernel_ms {r['ms']:.4f} bound_ms "
-            f"{r['bound_ms']:.4f} ({r['bound_by']})")
+            f"null page, two runs bitwise equal; kernel_ms {r['ms']:.4f} (graph replay; back to "
+            f"back {r['eager_ms']:.4f}) bound_ms {r['bound_ms']:.4f} ({r['bound_by']})")
+    for name, r in (("K4", k4), ("K5 at K4's shapes", k5), ("K5 at the paged serving geometry", k5s)):
+        pl = r["plan"]
+        log(f"{name} split plan: grid {pl['grid']} blocks ({pl['splits']} ranges of a slot and "
+            f"kv-head, {pl['ranges']} before the bound: {pl['in_bound']} blocks run, "
+            f"{pl['working']} with a live tile, {pl['live_tiles']} live 64-column tiles); "
+            f"bytes the plan moves {pl['read_bytes']} against the bound's {pl['bound_bytes']} "
+            f"({pl['read_bytes'] / pl['bound_bytes']:.3f}x)")
     log(f"K5 at K4's shapes: plain_ms {k5['plain_ms']:.4f} library_ms {k5['library_ms']:.4f} "
-        f"(SDPA on the gathered view, bool mask, GQA) + gather_ms {k5['gather_ms']:.4f} "
+        f"(SDPA on the gathered view, bool mask, GQA; graph replay) + gather_ms {k5['gather_ms']:.4f} "
         f"(K and V views)")
     k23 = {(s, packed): check_k2k3(gen, s, packed, timed=s == 4096)
            for s, packed in ((4096, False), (4096, True), (1000, False))}

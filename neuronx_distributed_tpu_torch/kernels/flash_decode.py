@@ -8,7 +8,11 @@ slice).
 ``_flash_decode_call``, ``flash_decode.py:233,285``) for CUDA tensors and
 runs :func:`flash_decode_plain` for CPU tensors. On the card every decode
 step launches it, at any cache length: the JAX package's 1024-column
-threshold was a TPU trade against XLA's einsum.
+threshold was a TPU trade against XLA's einsum. K4 splits the cache length
+into ranges, one block each, and merges their partial results by LSE in a
+second kernel: :func:`flash_decode_split_plain` and
+:func:`merge_decode_partials` are that arithmetic in plain PyTorch, for the
+tests.
 
 ``paged_flash_decode_fwd`` launches K5 of the same source (it replaces
 ``_paged_decode_kernel``/``paged_flash_decode_attention``,
@@ -21,7 +25,9 @@ For CPU tensors it runs :func:`paged_flash_decode_plain`, the gather
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import torch
@@ -59,24 +65,85 @@ def flash_decode_plain(q, k_cache, v_cache, q_pos, kv_valid=None
     return out, lse.reshape(b, hkv, g * s)
 
 
+def merge_decode_partials(outs, lses) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge decode results over disjoint column ranges by their LSE: the
+    JAX length split's rule (``per_rank``, ``flash_decode.py:442-453``).
+    ``outs`` are (B, s, H, D) outputs and ``lses`` (B, Hkv, R) f32, one of
+    each per range, in range order: ``m = max lse``, ``w = exp(lse - m)``
+    (0 where ``lse <= NEG_INF / 2``), ``out = sum w o / max(sum w, 1e-30)``
+    and ``lse = m + log(sum w)``, -1e30 where no range was live. Returns
+    ``(out in outs[0].dtype, lse f32)``. The kernels' merge (K4, K5) is this
+    rule in f32; the port calls it only in tests."""
+    b, s, h, d = outs[0].shape
+    hkv, r = lses[0].shape[1:]
+    lse = torch.stack([x.to(torch.float32) for x in lses])       # (n, B, Hkv, R)
+    m = lse.amax(0)
+    safe = torch.where(m > NEG_INF / 2, m, 0.0)
+    w = torch.where(lse > NEG_INF / 2, torch.exp(lse - safe), 0.0)
+    den = w.sum(0)
+    # (n, B, Hkv, G, s) -> (n, B, s, H): row r = g * s + t is q-head hk * G + g, token t
+    wq = w.reshape(-1, b, hkv, r // s, s).permute(0, 1, 4, 2, 3).reshape(-1, b, s, h, 1)
+    num = (torch.stack([o.to(torch.float32) for o in outs]) * wq).sum(0)
+    denq = den.reshape(b, hkv, r // s, s).permute(0, 3, 1, 2).reshape(b, s, h, 1)
+    out = num / denq.clamp_min(1e-30)
+    lse_out = torch.where(den > 0, safe + torch.log(den.clamp_min(1e-30)), NEG_INF)
+    return out.to(outs[0].dtype), lse_out
+
+
+def flash_decode_split_plain(q, k_cache, v_cache, q_pos, kv_valid=None, split_cols: int = 256
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' split-length arithmetic in plain PyTorch: K4's function
+    computed as :func:`flash_decode_plain` (f32) over each range of
+    ``split_cols`` cache columns, merged by :func:`merge_decode_partials`.
+    Equal to :func:`flash_decode_plain` up to f32 rounding; the port calls
+    it only in tests."""
+    L = k_cache.shape[1]
+    q_pos = q_pos.reshape(-1)
+    outs, lses = [], []
+    for c0 in range(0, L, split_cols):
+        c1 = min(c0 + split_cols, L)
+        o, lse = flash_decode_plain(
+            q.to(torch.float32), k_cache[:, c0:c1], v_cache[:, c0:c1], q_pos - c0,
+            None if kv_valid is None else kv_valid[:, c0:c1])
+        outs.append(o)
+        lses.append(lse)
+    out, lse = merge_decode_partials(outs, lses)
+    return out.to(q.dtype), lse
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_lib() -> SimpleNamespace:
+    """``csrc/flash_decode.cu`` loaded once: its two entry points with their
+    argument types, and the constants the wrappers check and size with."""
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_decode")
+    i, ll, vp = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+    k4, k5 = lib.nxd_flash_decode_fwd, lib.nxd_paged_flash_decode_fwd
+    k4.restype = k5.restype = i
+    k4.argtypes = [vp] * 9 + [i] * 5 + [ll] * 13 + [ctypes.c_float, vp]
+    k5.argtypes = [vp] * 10 + [i] * 6 + [ll] * 14 + [ctypes.c_float, vp]
+    return SimpleNamespace(k4=k4, k5=k5, head_dim=lib.nxd_flash_decode_head_dim(),
+                           max_rows=lib.nxd_flash_decode_max_rows(),
+                           split_cols=lib.nxd_flash_decode_split_cols())
+
+
 def _checked(what, q, k, v, q_pos, kv_valid, L):
     """The argument checks K4 and K5 share: bf16 with unit-stride, 16-byte
     aligned head dims, head_dim 128, at most 32 rows per kv-head, one
     position per query token, a row-contiguous (B, L) validity mask.
     Returns (library, rows per kv-head, q_pos int32, kv_valid bool)."""
-    from neuronx_distributed_tpu_torch.kernels import _build
-
     b, s, h, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{what} takes bf16 {name}, got {t.dtype}")
         if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) or t.data_ptr() % 16:
             raise ValueError(f"{name} must have a unit-stride, 16-byte aligned head dim")
-    lib = _build.load("flash_decode")
-    if d != lib.nxd_flash_decode_head_dim():
+    lib = _decode_lib()
+    if d != lib.head_dim:
         raise ValueError(f"{what} is built for head_dim 128, got {d}")
     r = (h // k.shape[2]) * s
-    if r > lib.nxd_flash_decode_max_rows():
+    if r > lib.max_rows:
         raise ValueError(f"{what} folds at most 32 rows per kv-head, got {r}")
     q_pos = q_pos.reshape(-1).to(torch.int32).contiguous()
     if q_pos.device != q.device or q_pos.numel() != s:
@@ -88,6 +155,20 @@ def _checked(what, q, k, v, q_pos, kv_valid, L):
     return lib, r, q_pos, kv_valid
 
 
+def _workspace(lib, b, hkv, r, L, device):
+    """The kernels' per-range partials in one f32 allocation: O (n, B, Hkv,
+    R, D), then LSE (n, B, Hkv, R), one range per ``split_cols`` columns of
+    L (the host knows L, never the live bound), then the (B, Hkv, R) LSE the
+    call returns. Uninitialised: the ranges write every entry the merge
+    reads. Returns that LSE (a view, which keeps the allocation alive) and
+    the pointers to the partial O and LSE."""
+    n = -(-L // lib.split_cols) * b * hkv * r
+    work = torch.empty(n * (lib.head_dim + 1) + b * hkv * r, dtype=torch.float32,
+                       device=device)
+    lse = work[n * (lib.head_dim + 1):].view(b, hkv, r)
+    return lse, work.data_ptr(), work.data_ptr() + 4 * n * lib.head_dim
+
+
 def _kernel_call(q, k_cache, v_cache, q_pos, kv_valid):
     from neuronx_distributed_tpu_torch.kernels import _build
 
@@ -96,15 +177,11 @@ def _kernel_call(q, k_cache, v_cache, q_pos, kv_valid):
     lib, r, q_pos, kv_valid = _checked("flash decode kernel", q, k_cache, v_cache, q_pos,
                                        kv_valid, L)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, hkv, r), dtype=torch.float32, device=q.device)
-    ll, vp = ctypes.c_longlong, ctypes.c_void_p
-    fn = lib.nxd_flash_decode_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ctypes.c_int] * 5 + [ll] * 13 + [ctypes.c_float, vp]
-    err = fn(
+    lse, work_o, work_lse = _workspace(lib, b, hkv, r, L, q.device)
+    err = lib.k4(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(),
         lse.data_ptr(), q_pos.data_ptr(),
-        kv_valid.data_ptr() if kv_valid is not None else None,
+        kv_valid.data_ptr() if kv_valid is not None else None, work_o, work_lse,
         b, s, h, hkv, L,
         *q.stride()[:3], *k_cache.stride()[:3], *v_cache.stride()[:3],
         *out.stride()[:3], kv_valid.stride(0) if kv_valid is not None else 0,
@@ -120,7 +197,8 @@ def flash_decode_fwd(q, k_cache, v_cache, q_pos, kv_valid=None
     cache positions ``q_pos`` (s,) against the cache (B, L, Hkv, D); each row
     attends slots ``<=`` its position, minus slots where ``kv_valid`` (B, L)
     is False. CUDA tensors launch the kernel (bf16, head_dim 128) or raise;
-    CPU tensors run the plain version. ``launches`` counts kernel launches."""
+    CPU tensors run the plain version. ``launches`` counts the calls that
+    launched K4 (its range grid and its merge: one launch each call)."""
     if q.shape[2] % k_cache.shape[2] != 0:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads {k_cache.shape[2]}")
     if q.device.type == "cpu":
@@ -183,15 +261,12 @@ def _paged_kernel_call(q, k_pool, v_pool, block_table, q_pos, kv_valid, page_siz
     lib, r, q_pos, kv_valid = _checked("paged flash decode kernel", q, k_pool, v_pool, q_pos,
                                        kv_valid, n_log * page_size)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, hkv, r), dtype=torch.float32, device=q.device)
-    ll, vp = ctypes.c_longlong, ctypes.c_void_p
-    fn = lib.nxd_paged_flash_decode_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [vp] * 8 + [ctypes.c_int] * 6 + [ll] * 14 + [ctypes.c_float, vp]
-    err = fn(
+    lse, work_o, work_lse = _workspace(lib, b, hkv, r, n_log * page_size, q.device)
+    err = lib.k5(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), out.data_ptr(),
         lse.data_ptr(), q_pos.data_ptr(),
         kv_valid.data_ptr() if kv_valid is not None else None, block_table.data_ptr(),
+        work_o, work_lse,
         b, s, h, hkv, n_log, page_size.bit_length() - 1,
         *q.stride()[:3], *k_pool.stride()[:3], *v_pool.stride()[:3],
         *out.stride()[:3], kv_valid.stride(0) if kv_valid is not None else 0,
@@ -211,7 +286,8 @@ def paged_flash_decode_fwd(q, k_pool, v_pool, block_table, q_pos, kv_valid=None,
     (the page manager hands out nothing else); page 0's columns must be
     masked. CUDA tensors launch K5 (bf16, head_dim 128, page_size dividing
     128) or raise; CPU tensors run the plain version. ``launches`` counts
-    kernel launches."""
+    the calls that launched K5 (its range grid and its merge: one launch
+    each call)."""
     if q.shape[2] % k_pool.shape[2] != 0:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads {k_pool.shape[2]}")
     if k_pool.dim() != 4 or k_pool.shape[1] != page_size or v_pool.shape != k_pool.shape:

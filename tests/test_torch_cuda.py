@@ -146,6 +146,130 @@ def test_paged_kernel_equals_k4_on_gathered_view_and_ignores_null_page(cuda, ps)
     assert torch.equal(got, again) and torch.equal(lse, again_lse)
 
 
+def _split_case(gen, s, L, bound, b=4, h=8, hkv=2, gaps=True):
+    """q and a row cache of ``L`` columns with positions ending at
+    ``bound - 1``; slot 0 live everywhere up to the bound (gaps aside),
+    slot 1 left-padded over its first 600 columns (whole 256-column ranges
+    and 64-column tiles dead), slot 2 idle (no live column: O = 0, LSE =
+    -1e30), slot 3 live only in its last 40 columns before the bound."""
+    q = _rnd(gen, b, s, h, 128)
+    kc, vc = _rnd(gen, b, L, hkv, 128), _rnd(gen, b, L, hkv, 128)
+    pos = torch.arange(bound - s, bound, dtype=torch.int32, device="cuda")
+    valid = (torch.rand(b, L, generator=gen, device="cuda") > 0.15 if gaps
+             else torch.ones(b, L, dtype=torch.bool, device="cuda"))
+    valid[1, :600] = False
+    valid[2] = False
+    valid[3, :max(bound - 40, 0)] = False
+    return q, kc, vc, pos, valid
+
+
+def _paged_view(gen, kc, vc, valid, ps=16):
+    """Pools, a numpy-seeded scrambled table and the same kv_valid for a row
+    cache: logical pages holding a valid column map to pool pages with
+    their columns; the rest point at the null page, filled with garbage."""
+    b, L, hkv, d = kc.shape
+    n_log = L // ps
+    kp, vp = _rnd(gen, b * n_log + 1, ps, hkv, d).mul_(50.0), _rnd(gen, b * n_log + 1, ps, hkv, d).mul_(50.0)
+    mapped = valid.reshape(b, n_log, ps).any(-1).cpu().numpy()
+    perm = iter(np.random.default_rng(L + b).permutation(np.arange(1, b * n_log + 1)).tolist())
+    table = np.zeros((b, n_log), np.int32)
+    for i in range(b):
+        for j in np.flatnonzero(mapped[i]):
+            table[i, j] = page = next(perm)
+            kp[page] = kc[i, j * ps:(j + 1) * ps]
+            vp[page] = vc[i, j * ps:(j + 1) * ps]
+    return kp, vp, torch.from_numpy(table).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,bound", [
+    (300, 251),    # two ranges, the bound inside the first tile of the second
+    (300, 300),    # the bound at L: a ragged last range
+    (4352, 4100),  # 17 ranges, the bound mid-tile
+    (4352, 2048),  # the bound on a range edge: ranges 8.. exit at once
+    (4352, 2049),  # one column past it
+])
+@pytest.mark.parametrize("s", [1, 2, 8])
+def test_flash_decode_kernels_split_the_length(cuda, s, L, bound):
+    """K4 and K5 at one range and many, R = 4, 8 and 32 (group 4): against
+    their plain versions; two runs bitwise equal; K5 through a scrambled
+    table bitwise equal to K4 on the gathered view; one launch per call."""
+    q, kc, vc, pos, valid = _split_case(cuda, s, L, bound)
+    n4, n5 = tfd.flash_decode_fwd.launches, tfd.paged_flash_decode_fwd.launches
+    got, lse = tfd.flash_decode_fwd(q, kc, vc, pos, valid)
+    again, again_lse = tfd.flash_decode_fwd(q, kc, vc, pos, valid)
+    assert tfd.flash_decode_fwd.launches == n4 + 2
+    assert torch.equal(got, again) and torch.equal(lse, again_lse)
+    want, wlse = tfd.flash_decode_plain(q, kc, vc, pos, valid)
+    pv = tfd.flash_decode_plain(q, kc, vc.abs(), pos, valid)[0]
+    _assert_out_close(got, want, pv, 2.0 ** -12)
+    torch.testing.assert_close(lse, wlse, atol=5e-4, rtol=1e-4)
+    assert float(got[2].abs().max()) == 0.0 and bool((lse[2] == tfd.NEG_INF).all())
+    ps = 16
+    Lp = -(-L // ps) * ps
+    if Lp != L:  # the paged cache holds whole pages: pad the row view with dead columns
+        pad = Lp - L
+        kc, vc = (torch.cat([x, _rnd(cuda, x.shape[0], pad, *x.shape[2:])], 1) for x in (kc, vc))
+        valid = torch.cat([valid, torch.zeros(valid.shape[0], pad, dtype=torch.bool, device="cuda")], 1)
+    kp, vp, bt = _paged_view(cuda, kc, vc, valid, ps)
+    paged, paged_lse = tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
+    paged2, paged2_lse = tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
+    assert tfd.paged_flash_decode_fwd.launches == n5 + 2
+    assert torch.equal(paged, paged2) and torch.equal(paged_lse, paged2_lse)
+    row, row_lse = tfd.flash_decode_fwd(q, tfd.paged_gather_leaf(kp, bt, ps),
+                                        tfd.paged_gather_leaf(vp, bt, ps), pos, valid)
+    assert torch.equal(paged, row) and torch.equal(paged_lse, row_lse)
+    pwant, pwlse = tfd.paged_flash_decode_plain(q, kp, vp, bt, pos, valid, ps)
+    ppv = tfd.paged_flash_decode_plain(q, kp, vp.abs(), bt, pos, valid, ps)[0]
+    _assert_out_close(paged, pwant, ppv, 2.0 ** -12)
+    torch.testing.assert_close(paged_lse, pwlse, atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["left_padding", "unmapped_pages", "idle_slots"])
+def test_flash_decode_kernels_with_dead_ranges(cuda, case):
+    """Whole 256-column ranges dead: left padding over the first 1100
+    columns of every slot; pages unmapped in the middle of every slot (the
+    null page, garbage, under them); every slot but one idle. K4 and K5
+    against their plain versions, K5 = K4 on the gathered view, and the
+    output blind to what the dead columns hold."""
+    L, bound, s = 4096, 3001, 1
+    q, kc, vc, pos, valid = _split_case(cuda, s, L, bound, gaps=False)
+    if case == "left_padding":
+        valid[:, :1100] = False
+    elif case == "unmapped_pages":
+        valid[:, 512:2304] = False
+    else:
+        valid[1:] = False
+    got, lse = tfd.flash_decode_fwd(q, kc, vc, pos, valid)
+    want, wlse = tfd.flash_decode_plain(q, kc, vc, pos, valid)
+    pv = tfd.flash_decode_plain(q, kc, vc.abs(), pos, valid)[0]
+    _assert_out_close(got, want, pv, 2.0 ** -12)
+    torch.testing.assert_close(lse, wlse, atol=5e-4, rtol=1e-4)
+    dead = ~valid[:, :, None, None]
+    kc2 = torch.where(dead, _rnd(cuda, *kc.shape) * -300.0, kc)
+    vc2 = torch.where(dead, _rnd(cuda, *vc.shape) * 300.0, vc)
+    other, other_lse = tfd.flash_decode_fwd(q, kc2, vc2, pos, valid)
+    assert torch.equal(got, other) and torch.equal(lse, other_lse)
+    kp, vp, bt = _paged_view(cuda, kc, vc, valid)
+    paged, paged_lse = tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, 16)
+    assert torch.equal(paged, got) and torch.equal(paged_lse, lse)
+
+
+@pytest.mark.cuda
+def test_flash_decode_kernels_do_not_spill(cuda):
+    """``ptxas -v`` for csrc/flash_decode.cu: no decode kernel or merge
+    spills to local memory."""
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    report = _build.resource_report("flash_decode")
+    entries = [line for line in report.splitlines() if "Compiling entry function" in line]
+    assert len(entries) == 10, report  # K4 and K5 at R <= 4, 8, 16, 32, and their merges
+    spills = [line for line in report.splitlines() if "spill" in line]
+    assert len(spills) >= len(entries), report
+    assert all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills), report
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q32 = torch.randn(1, 16, 4, 128, device="cuda")

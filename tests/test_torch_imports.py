@@ -33,7 +33,8 @@ def _port_modules():
 
 
 def _sources():
-    out = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "chip_bwd_ab.py")]
+    out = [os.path.join(ROOT, name) for name in ("chip_smoke.py", "chip_bwd_ab.py",
+                                                 "chip_decode_ab.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return out
