@@ -6,14 +6,19 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
 
 1. the card's name and power limit, and the build of every CUDA kernel of
    the serving and training paths from ``neuronx_distributed_tpu_torch/csrc``
-   (one ``nvcc`` per source, started together); K2's, K3's, K4's and K5's
-   resources as built (no decode kernel may spill);
+   (one ``nvcc`` per source, started together); K1's, K2's, K3's, K4's and
+   K5's resources as built (neither K1 nor a decode kernel may spill, nor
+   may ptxas serialize K1's ``wgmma`` products);
 2. each kernel against its plain PyTorch version at its path's shapes,
    bf16, with its time, the plain version's, the least time the card could
-   take (``bound_ms``) and one PyTorch library call's (SDPA) time: K1 and K4
-   at the serving shapes, K5 through a scrambled block table at K4's shapes
-   and at the paged serving phase's geometry (also bitwise equal to K4 on
-   the gathered view and blind to the null page), K2 and K3 at the
+   take (``bound_ms``) and one PyTorch library call's (SDPA) time: K1 at the
+   serving prefills (S=512 and 4096, left padding) and at the training batch
+   (B=2, S=4096, unpacked and packed), bitwise reproducible, timed as a
+   CUDA-graph replay (back to back beside), with its tile plan (visited,
+   masked and live tile pairs); K4 at the serving shapes, K5 through a
+   scrambled block table at K4's shapes and at the paged serving phase's
+   geometry (also bitwise equal to K4 on the gathered view and blind to
+   the null page), K2 and K3 at the
    training shapes (unpacked, packed and ragged), each also bitwise
    reproducible. K4, K5 and their SDPA yardstick take less device time
    than the host needs to issue them: their times are CUDA-graph replays
@@ -166,9 +171,68 @@ def max_err(a, b) -> float:
 
 # --- phase 2: kernels against their plain versions ----------------------------
 
-def check_k1(gen, s: int, pad: int):
-    """K1 at prefill shapes: B=1, H=32, Hkv=8, D=128, ``pad`` left-padding
-    rows as segment -1."""
+K1_SHAPES = (  # (name, B, S, segments): the serving prefills, then the training batch
+    ("serving", 1, 512, 77), ("serving", 1, 4096, 1001),
+    ("training", 2, 4096, None), ("training", 2, 4096, "packed"))
+
+
+def k1_inputs(gen, b: int, s: int, segments):
+    """``check_k1``'s inputs: q (B, S, 32, 128), k and v (B, S, 8, 128) and
+    the segment ids: ``pad`` (an int) left-padding rows as segment -1, the
+    training batch's packed documents (``"packed"``), or none."""
+    import numpy as np
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    h, hkv, d = 32, 8, 128
+    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(bf)
+    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(bf)
+    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(bf)
+    seg = None
+    if segments == "packed":
+        seg = torch.from_numpy(packed_segments(np.random.default_rng(s), b, s)).to(dev)
+    elif segments is not None:
+        seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
+        seg[:, :segments] = -1
+    return q, k, v, seg
+
+
+def k1_plan(q, k, seg) -> dict:
+    """K1's tile plan for one call (``flash_fwd_tile_plan``, the kernel's
+    own predicate): (query tile, key tile, head, batch) pairs in the grid,
+    visited, masked, and live (holding a live pair of the plain mask); and
+    the FLOPs of the visited tiles over the live pairs' (the bound's)."""
+    from neuronx_distributed_tpu_torch.kernels.flash_attention import (
+        FWD_K_TILE,
+        FWD_Q_TILE,
+        _live,
+        _seg_tile_ranges,
+        flash_fwd_tile_plan,
+    )
+
+    b, s, h, _ = q.shape
+    sk = k.shape[1]
+    ranges = {}
+    if seg is not None:
+        ranges = dict(q_ranges=_seg_tile_ranges(seg, FWD_Q_TILE),
+                      k_ranges=_seg_tile_ranges(seg, FWD_K_TILE))
+    plan = flash_fwd_tile_plan(s, sk, True, h=h, b=b, **ranges)
+    live = _live(q, k, True, seg, seg)[:, 0, 0]
+    nq, nk = plan["visited"].shape[1:]
+    live = torch.nn.functional.pad(live, (0, nk * FWD_K_TILE - sk, 0, nq * FWD_Q_TILE - s))
+    live_tiles = live.reshape(b, nq, FWD_Q_TILE, nk, FWD_K_TILE).any(4).any(2).cpu()
+    visited = int(plan["visited"].sum()) * h
+    pairs = int(live.sum()) * h
+    return dict(grid=b * nq * nk * h, visited=visited, masked=int(plan["masked"].sum()) * h,
+                live=int(live_tiles.sum()) * h, blocks=int(plan["order"].shape[0]),
+                work_over_bound=visited * FWD_Q_TILE * FWD_K_TILE / pairs)
+
+
+def check_k1(gen, b: int, s: int, segments):
+    """K1 at one of ``K1_SHAPES``: B, S, H=32, Hkv=8, D=128, causal, bf16;
+    against the plain version, twice for the same bits, timed (a CUDA-graph
+    replay of the wrapper's call, device time only, and back to back)
+    beside its bound and SDPA: a boolean mask where there are segments,
+    ``is_causal`` (a fused causal kernel) where there are none."""
     from torch.nn import functional as F
 
     from neuronx_distributed_tpu_torch.kernels.flash_attention import (
@@ -176,46 +240,55 @@ def check_k1(gen, s: int, pad: int):
         flash_attention_plain,
     )
 
-    dev, bf = torch.device("cuda"), torch.bfloat16
-    b, h, hkv, d = 1, 32, 8, 128
-    q = torch.randn(b, s, h, d, generator=gen, device=dev).to(bf)
-    k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(bf)
-    v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(bf)
-    seg = torch.zeros(b, s, dtype=torch.int32, device=dev)
-    seg[:, :pad] = -1
+    dev = torch.device("cuda")
+    q, k, v, seg = k1_inputs(gen, b, s, segments)
     out, lse = flash_attention_fwd(q, k, v, True, seg)
+    again, again_lse = flash_attention_fwd(q, k, v, True, seg)
     ref, ref_lse = flash_attention_plain(q, k, v, True, seg)
     pv = flash_attention_plain(q, k, v.abs(), True, seg)[0]
-    # what a kernel that skipped the last K tile (keys S-64..S-1, the
-    # diagonal tile of the last query tile) would return: the limit must fail it
-    kv_seg = seg.clone()
+    # what a kernel that skipped the keys S-64..S-1 (part of the diagonal
+    # tile of the last query tile) would return: the limit must fail it
+    q_seg = seg if seg is not None else torch.zeros(b, s, dtype=torch.int32, device=dev)
+    kv_seg = q_seg.clone()
     kv_seg[:, s - 64:] = -2
-    fault = flash_attention_plain(q, k, v, True, seg, kv_seg)[0]
+    fault = flash_attention_plain(q, k, v, True, q_seg, kv_seg)[0]
     torch.cuda.synchronize()
     err, lerr = max_err(out, ref), max_err(lse, ref_lse)
     ratio, fault_ratio = tol_ratio(out, ref, pv, K1_PV), tol_ratio(fault, ref, pv, K1_PV)
+    del ref, pv, fault
+    tag = f"K1 B={b} S={s} {segments if segments is not None else 'unsegmented'}"
     if not (ratio <= 1.0 and lerr <= LSE_TOL):
-        raise AssertionError(f"K1 S={s}: max |out err| {err} at {ratio:.3g}x its limit, "
+        raise AssertionError(f"{tag}: max |out err| {err} at {ratio:.3g}x its limit, "
                              f"|lse err| {lerr} (tol {LSE_TOL})")
     if fault_ratio <= 1.0:
-        raise AssertionError(f"K1 S={s}: the output limit passes a dropped K tile ({fault_ratio:.3g}x)")
+        raise AssertionError(f"{tag}: the output limit passes a dropped K tile ({fault_ratio:.3g}x)")
+    if not (torch.equal(out, again) and torch.equal(lse, again_lse)):
+        raise AssertionError(f"{tag}: two runs differ in their bits")
     # the work this input needs: live (query, key) pairs of the causal,
     # segment-masked score matrix, 4*D FLOPs each (QK^T and PV)
-    rows = torch.arange(s, device=dev)
-    live = (rows[:, None] >= rows[None, :]) & (seg[0][:, None] == seg[0][None, :])
-    pairs = int(live.sum()) * b * h
+    h, d = q.shape[2], q.shape[3]
+    pairs = live_pairs(seg, b, s, dev) * h
     flops = 4.0 * d * pairs
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * (lse.numel() + 2 * s)
+    seg_bytes = 0 if seg is None else 2 * 4 * seg.numel()
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + out.numel()) + 4 * lse.numel() + seg_bytes
     bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
     bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
-    ms = cuda_ms(lambda: flash_attention_fwd(q, k, v, True, seg), 20)
+    call = lambda: flash_attention_fwd(q, k, v, True, seg)  # noqa: E731
+    ms, eager_ms = graph_ms(call, 10), cuda_ms(call, 20)
     plain_ms = cuda_ms(lambda: flash_attention_plain(q, k, v, True, seg), 3, warmup=1)
-    mask = live[None, None]  # (1, 1, S, S) boolean, True = attend
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
-    lib_ms = cuda_ms(lib, 20)
-    return dict(err=max(err, lerr), ratio=ratio, fault_ratio=fault_ratio, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms)
+    if seg is None:
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)  # noqa: E731
+    else:
+        rows = torch.arange(s, device=dev)
+        mask = (rows[:, None] >= rows[None, :]) & (seg[:, :, None] == seg[:, None, :])
+        mask = mask[:, None]  # (B, 1, S, S) boolean, True = attend
+        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    lib_ms = graph_ms(lib, 10)
+    return dict(b=b, s=s, segments=segments, err=max(err, lerr), ratio=ratio, fault_ratio=fault_ratio,
+                ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                library_ms=lib_ms, library_eager_ms=cuda_ms(lib, 20), tflops=flops / ms / 1e9,
+                plan=k1_plan(q, k, seg))
 
 
 def k4_inputs(gen):
@@ -990,6 +1063,39 @@ def train_phase(steps: int = 6) -> dict:
                 pairs=pairs, docs=int(seg.max()) + 1)
 
 
+def ptxas_lines(report: list, sym: str) -> list:
+    """The ``ptxas -v`` lines of kernel ``sym`` in a library's report."""
+    at = next(i for i, line in enumerate(report) if "entry function" in line and sym in line)
+    out = []
+    for line in report[at + 1:]:
+        if "entry function" in line:
+            break
+        out.append(line.split(":", 1)[-1].strip())
+    return out
+
+
+def fwd_resources() -> dict:
+    """K1's resources as built, as ``bwd_resources``; K1 must not spill, and
+    ptxas must not have serialized its ``wgmma`` products (C7514/C7515)."""
+    import ctypes
+
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    lib = _build.load("flash_attention")
+    text = _build.resource_report("flash_attention")
+    vals = (ctypes.c_int * 4)()
+    _build.check(lib.nxd_flash_attention_fwd_resources(vals), "flash_fwd_kernel")
+    ptxas = ptxas_lines(text.splitlines(), "flash_fwd_kernel")
+    spills = [line for line in ptxas if "spill" in line]
+    if vals[2] or not spills or any("0 bytes spill stores, 0 bytes spill loads" not in line
+                                    for line in spills):
+        raise AssertionError(f"K1 spills: {vals[2]} B local a thread; ptxas: {ptxas}")
+    if "C7514" in text or "C7515" in text:
+        raise AssertionError(f"ptxas serialized K1's wgmma products:\n{text}")
+    return dict(kernel="flash_fwd_kernel", smem=vals[0], regs=vals[1], local=vals[2],
+                blocks_per_sm=vals[3], ptxas="; ".join(ptxas))
+
+
 def bwd_resources() -> list:
     """K2's and K3's resources as built: dynamic shared memory, registers a
     thread at entry, spill bytes and blocks per SM from the runtime, and the
@@ -1004,14 +1110,8 @@ def bwd_resources() -> list:
     for which, sym in ((0, "flash_dkdv_kernel"), (1, "flash_dq_kernel")):
         vals = (ctypes.c_int * 4)()
         _build.check(lib.nxd_flash_attention_bwd_resources(which, vals), sym)
-        at = next(i for i, line in enumerate(report) if "entry function" in line and sym in line)
-        ptxas = []
-        for line in report[at + 1:]:
-            if "entry function" in line:
-                break
-            ptxas.append(line.split(":", 1)[-1].strip())
         out.append(dict(kernel=sym, smem=vals[0], regs=vals[1], local=vals[2], blocks_per_sm=vals[3],
-                        ptxas="; ".join(ptxas)))
+                        ptxas="; ".join(ptxas_lines(report, sym))))
     return out
 
 
@@ -1057,7 +1157,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build(["flash_attention", "flash_attention_bwd", "flash_decode"])
     log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the three sources in parallel)")
-    for r in bwd_resources():
+    for r in [fwd_resources(), *bwd_resources()]:
         log(f"{r['kernel']}: {r['smem']} B dynamic shared memory a block, {r['regs']} registers a "
             f"thread at entry, {r['local']} B local a thread, {r['blocks_per_sm']} block(s) per SM; "
             f"ptxas: {r['ptxas']}")
@@ -1068,12 +1168,22 @@ def main() -> int:
     log(f"ptxas -v, csrc/flash_decode.cu: {n_spill_lines} kernels, none spills")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    k1 = {s: check_k1(gen, s, pad) for s, pad in ((512, 77), (4096, 1001))}
-    for s, r in k1.items():
-        log(f"K1 flash_attention B=1 S={s} H=32 Hkv=8 D=128: max_err {r['err']:.3g} "
-            f"({r['ratio']:.3g}x its limit; a dropped K tile reads {r['fault_ratio']:.3g}x) "
-            f"kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} "
-            f"({r['bound_by']}) library_ms {r['library_ms']:.4f} (SDPA, bool mask, GQA)")
+    k1 = [check_k1(gen, b, s, segments) for _, b, s, segments in K1_SHAPES]
+    for (path, *_), r in zip(K1_SHAPES, k1):
+        seg = ("unsegmented" if r["segments"] is None else "packed" if r["segments"] == "packed"
+               else f"pad {r['segments']}")
+        tag = f"K1 flash_attention B={r['b']} S={r['s']} H=32 Hkv=8 D=128 causal {seg} ({path})"
+        log(f"{tag}: max_err {r['err']:.3g} ({r['ratio']:.3g}x its limit; a dropped K tile reads "
+            f"{r['fault_ratio']:.3g}x); two runs bitwise equal; kernel_ms {r['ms']:.4f} (graph "
+            f"replay; back to back {r['eager_ms']:.4f}) plain_ms {r['plain_ms']:.4f} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}; {r['ms'] / r['bound_ms']:.2f}x, "
+            f"{r['tflops']:.1f} TFLOP/s) library_ms {r['library_ms']:.4f} (SDPA, "
+            f"{'is_causal' if r['segments'] is None else 'bool mask'}, GQA; graph replay; back to "
+            f"back {r['library_eager_ms']:.4f})")
+        pl = r["plan"]
+        log(f"{tag} tile plan: {pl['blocks']} blocks, {pl['grid']} (query tile, key tile) pairs "
+            f"over the heads, {pl['visited']} visited, {pl['masked']} of them masked, {pl['live']} "
+            f"hold a live pair; the visited tiles hold {pl['work_over_bound']:.3f}x the live pairs")
     k4 = check_k4(gen)
     log(f"K4 flash_decode B=8 s=1 H=32 Hkv=8 D=128 L=8192 bound 4100: max_err {k4['err']:.3g} "
         f"({k4['ratio']:.3g}x its limit; a dropped partial tile reads {k4['fault_ratio']:.3g}x) "
@@ -1212,7 +1322,7 @@ def main() -> int:
         + f"; busy {busy:.2f} of the unprofiled step wall {1e3 * tr['wall']:.2f} "
         f"(idle share {1 - busy / (1e3 * tr['wall']):.3f})")
 
-    k1_main = k1[4096]
+    k1_main = k1[1]  # the serving prefill at S=4096
     launches = {name: srv["launches"][name] + fused["launches"][name] + tr["launches"][name]
                 for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, training): {launches}")
@@ -1222,7 +1332,7 @@ def main() -> int:
              source="neuronx_distributed_tpu_torch/csrc/flash_attention.cu",
              replaces="neuronx_distributed_tpu/kernels/flash_attention.py:199",
              launches=launches["flash_attention"],
-             max_abs_err=max(r["err"] for r in k1.values()), ms=k1_main["ms"],
+             max_abs_err=max(r["err"] for r in k1), ms=k1_main["ms"],
              plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
              bound_by=k1_main["bound_by"], library_ms=k1_main["library_ms"]),
         dict(name="flash_attention_dkdv", route="cuda",

@@ -1,8 +1,9 @@
-// Fragment and copy helpers of the flash-attention forward (K1,
-// flash_attention.cu), whose products run on `mma.sync.m16n8k16` with bf16
-// inputs and f32 accumulators; the backward (K2 and K3,
-// flash_attention_bwd.cu) takes only D and bf16 from here and builds its
-// `wgmma` products on hopper.cuh.
+// Fragment and copy helpers of the decode kernels (K4 and K5,
+// flash_decode.cu), whose products run on `mma.sync.m16n8k16` with bf16
+// inputs and f32 accumulators; the flash-attention forward and backward
+// (K1, flash_attention.cu; K2 and K3, flash_attention_bwd.cu) take only D,
+// bf16 and NEG_INF from here and build their `wgmma` products on
+// hopper.cuh.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //  * A (16 x 16, row major): a0 = (row g, cols 2t..2t+1), a1 = (row g+8,
@@ -37,15 +38,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsign
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Four 8x8 b16 matrices, transposed, from shared memory: the B operands of
-// a product whose k dimension runs down the rows of a row-major tile.
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned r[4], const bf16* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
 __device__ __forceinline__ unsigned lds32(const bf16* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
@@ -61,33 +53,8 @@ __device__ __forceinline__ void load_a(unsigned a[4], const bf16* tile, int row0
   a[3] = lds32(base + 8 * LD + 8);
 }
 
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
-  return *reinterpret_cast<unsigned*>(&v);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
-
-// Stage rows [r0, r0 + rows) of a (.., D) bf16 matrix with row stride
-// `stride` into a pitch-LD tile by 16-byte `cp.async`; rows at or past
-// `n_valid` are zero-filled directly, so no product ever reads garbage.
-template <int ROWS, int NTHREADS>
-__device__ __forceinline__ void stage_rows(bf16* tile, const bf16* src, long long stride, int r0,
-                                           int n_valid, int tid) {
-  constexpr int VPR = D / 8;
-  for (int i = tid; i < ROWS * VPR; i += NTHREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    if (r0 + r < n_valid)
-      cp_async16(tile + r * LD + c, src + (long long)(r0 + r) * stride + c);
-    else
-      *reinterpret_cast<int4*>(tile + r * LD + c) = make_int4(0, 0, 0, 0);
-  }
-}
 
 }  // namespace nxd_flash

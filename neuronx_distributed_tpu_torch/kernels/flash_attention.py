@@ -83,9 +83,62 @@ def flash_attention_plain(q, k, v, causal: bool = True,
     return out.reshape(b, s, h, d).to(q.dtype), lse
 
 
+def _seg_tile_ranges(seg: torch.Tensor, tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-tile (min, max) of segment ids, (B, ceil(S / tile)) int32 each
+    (``_seg_block_ranges``, ``flash_attention.py:66``). A ragged last tile
+    is padded with its last id: the padded rows are masked in-kernel."""
+    b, s = seg.shape
+    n = -(-s // tile)
+    if n * tile != s:
+        seg = torch.cat([seg, seg[:, -1:].expand(b, n * tile - s)], dim=1)
+    lo, hi = torch.aminmax(seg.reshape(b, n, tile), dim=-1)
+    return lo.to(torch.int32).contiguous(), hi.to(torch.int32).contiguous()
+
+
+# K1's tiles (``csrc/flash_attention.cu`` BQ, BK): the wrapper checks the
+# library's values against these.
+FWD_Q_TILE = 128
+FWD_K_TILE = 128
+
+
+def flash_fwd_tile_plan(s: int, sk: int, causal: bool, h: int = 1, b: int = 1,
+                        q_ranges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                        k_ranges: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> dict:
+    """What K1 does for S query rows and Sk keys, by the kernel's own
+    predicate: ``visited`` and ``masked`` (B, nQ, nK) bool over (query tile
+    of 128 rows, key tile of 128 keys) pairs, and ``order`` (grid, 3) int64,
+    the (query tile, head, batch) of each block in launch order.
+
+    A pair is visited when its key tile starts at or below the query tile's
+    last row (causal) and, with segments, when the per-tile ranges
+    (``_seg_tile_ranges`` of the q / kv segment ids: ``q_ranges``,
+    ``k_ranges``) can meet. A visited pair is masked when it cuts the
+    diagonal, the ragged key edge or a segment boundary (its ranges are not
+    all one id); an unmasked pair is live for every valid row and key.
+    Blocks run heaviest first: the highest query tiles lead, across every
+    (head, batch)."""
+    nq, nk = -(-s // FWD_Q_TILE), -(-sk // FWD_K_TILE)
+    q0 = torch.arange(nq)[:, None] * FWD_Q_TILE
+    k0 = torch.arange(nk)[None, :] * FWD_K_TILE
+    visited = torch.ones(nq, nk, dtype=torch.bool)
+    masked = k0 + FWD_K_TILE > sk
+    if causal:
+        visited = visited & (k0 <= q0 + FWD_Q_TILE - 1)
+        masked = masked | (k0 + FWD_K_TILE - 1 > q0)
+    visited, masked = visited.expand(b, nq, nk), masked.expand(b, nq, nk)
+    if q_ranges is not None:
+        (qmn, qmx), (kmn, kmx) = ((r.cpu() for r in rs) for rs in (q_ranges, k_ranges))
+        qmn, qmx, kmn, kmx = qmn[:, :, None], qmx[:, :, None], kmn[:, None, :], kmx[:, None, :]
+        visited = visited & (qmx >= kmn) & (qmn <= kmx)
+        masked = masked | ~((qmn == qmx) & (kmn == qmn) & (kmx == qmn))
+    idx = torch.arange(nq * h * b)
+    order = torch.stack([nq - 1 - idx // (h * b), idx % (h * b) // b, idx % b], dim=1)
+    return dict(visited=visited.contiguous(), masked=(masked & visited).contiguous(), order=order)
+
+
 def _check_operands(**tensors) -> None:
     """What the CUDA kernels take: bf16 with a unit-stride, 16-byte aligned
-    head dim and 16-byte multiples for every other stride (K2 and K3 read
+    head dim and 16-byte multiples for every other stride (K1, K2 and K3 read
     their operands through TMA tensor maps, which require both)."""
     for name, t in tensors.items():
         if t.dtype != torch.bfloat16:
@@ -103,24 +156,35 @@ def _kernel_call(q, k, v, causal, q_seg, k_seg):
     lib = _build.load("flash_attention")
     if d != lib.nxd_flash_attention_head_dim():
         raise ValueError(f"flash attention kernel is built for head_dim 128, got {d}")
+    tiles = (lib.nxd_flash_attention_fwd_q_tile(), lib.nxd_flash_attention_fwd_k_tile())
+    if tiles != (FWD_Q_TILE, FWD_K_TILE):
+        raise RuntimeError(f"flash_attention library tiles {tiles} != the plan's "
+                           f"{(FWD_Q_TILE, FWD_K_TILE)}")
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    segs = (None,) * 6
     if q_seg is not None:
+        same = k_seg is q_seg and FWD_Q_TILE == FWD_K_TILE  # self-attention: one pass
         q_seg = q_seg.to(torch.int32).contiguous()
-        k_seg = k_seg.to(torch.int32).contiguous()
-    ll, vp = ctypes.c_longlong, ctypes.c_void_p
-    fn = lib.nxd_flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [vp] * 7 + [ctypes.c_int] * 6 + [ll] * 14 + [ctypes.c_float, vp]
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        q_seg.data_ptr() if q_seg is not None else None,
-        k_seg.data_ptr() if k_seg is not None else None,
-        b, s, sk, h, hkv, int(causal),
+        k_seg = q_seg if same else k_seg.to(torch.int32).contiguous()
+        q_ranges = _seg_tile_ranges(q_seg, FWD_Q_TILE)
+        k_ranges = q_ranges if same else _seg_tile_ranges(k_seg, FWD_K_TILE)
+        segs = (q_seg, k_seg, *q_ranges, *k_ranges)
+    strides = (ctypes.c_longlong * 14)(
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         q_seg.stride(0) if q_seg is not None else 0,
         k_seg.stride(0) if k_seg is not None else 0,
-        1.0 / math.sqrt(d), _build.stream_ptr(q.device),
+    )
+    vp = ctypes.c_void_p
+    fn = lib.nxd_flash_attention_fwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([vp] * 11 + [ctypes.c_int] * 6
+                   + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, vp])
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+        *(t.data_ptr() if t is not None else None for t in segs),
+        b, s, sk, h, hkv, int(causal), strides, 1.0 / math.sqrt(d),
+        _build.stream_ptr(q.device),
     )
     _build.check(err, "flash_attention_fwd")
     return out, lse
@@ -212,19 +276,6 @@ def flash_attention_dq_plain(q, k, v, dout, lse, delta, causal: bool = True,
     _, ds = backward_scores(q, k, v, dout, lse, delta, causal, segment_ids, kv_segment_ids)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.to(torch.float32))
     return dq.reshape(b, s, h, d).to(q.dtype)
-
-
-def _seg_tile_ranges(seg: torch.Tensor, tile: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-tile (min, max) of segment ids, (B, ceil(S / tile)) int32 each
-    (``_seg_block_ranges``, ``flash_attention.py:156``). A ragged last tile
-    is padded with its last id: the padded rows are masked in-kernel."""
-    b, s = seg.shape
-    n = -(-s // tile)
-    if n * tile != s:
-        seg = torch.cat([seg, seg[:, -1:].expand(b, n * tile - s)], dim=1)
-    tiles = seg.reshape(b, n, tile)
-    return (tiles.amin(-1).to(torch.int32).contiguous(),
-            tiles.amax(-1).to(torch.int32).contiguous())
 
 
 def _check_bwd_args(q, k, v, dout, lse, delta, segment_ids, kv_segment_ids):

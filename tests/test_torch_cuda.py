@@ -49,31 +49,108 @@ def _assert_out_close(got, want, pv, c):
     assert ratio <= 1.0, f"output error at {ratio:.3g}x its limit"
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("causal,pad", [(True, 37), (True, 0), (False, 0)])
-def test_flash_attention_kernel_matches_plain(cuda, causal, pad):
-    q, k, v = _rnd(cuda, 2, 200, 8, 128), _rnd(cuda, 2, 200, 2, 128), _rnd(cuda, 2, 200, 2, 128)
-    seg = torch.zeros(2, 200, dtype=torch.int32, device="cuda")
-    seg[1, :pad] = -1
+def _k1_segments(kind, b, s):
+    """K1's segment cases on (B, S): none; left padding (row 1 from 30% of
+    S on, padding = -1); or packed documents (K2/K3's packing)."""
+    if kind is None:
+        return None
+    seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    if kind == "padding":
+        seg[1, :s * 3 // 10] = -1
+    else:
+        seg[:, s * 7 // 20:] = 1
+        seg[1, s * 3 // 4:] = 2
+    return seg
+
+
+def _k1_check(q, k, v, causal, seg, kv_seg=None):
+    """K1 on the card against its plain version, and once more for the
+    same bits; returns (out, lse)."""
     n = tfa.flash_attention_fwd.launches
-    got, lse = tfa.flash_attention_fwd(q, k, v, causal, seg)
+    got, lse = tfa.flash_attention_fwd(q, k, v, causal, seg, kv_seg)
     assert tfa.flash_attention_fwd.launches == n + 1
-    want, wlse = tfa.flash_attention_plain(q, k, v, causal, seg)
-    pv = tfa.flash_attention_plain(q, k, v.abs(), causal, seg)[0]
+    want, wlse = tfa.flash_attention_plain(q, k, v, causal, seg, kv_seg)
+    pv = tfa.flash_attention_plain(q, k, v.abs(), causal, seg, kv_seg)[0]
     _assert_out_close(got, want, pv, 2.0 ** -8)
     torch.testing.assert_close(lse, wlse, atol=5e-4, rtol=1e-4)
+    again, again_lse = tfa.flash_attention_fwd(q, k, v, causal, seg, kv_seg)
+    assert torch.equal(got, again) and torch.equal(lse, again_lse)
+    return got, lse
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_kernel_cross_length(cuda, causal):
+@pytest.mark.parametrize("segments", [None, "padding", "packed"])
+@pytest.mark.parametrize("h,hkv", [(32, 8), (8, 8), (4, 1)])
+@pytest.mark.parametrize("s", [1, 8, 33, 200, 1000])
+def test_flash_attention_kernel_matches_plain(cuda, s, h, hkv, segments, causal):
+    """K1 against its plain version across its 128-row query and 128-key
+    tiles (S below one tile, ragged, several tiles): GQA groups 4, 1 and
+    4 with one kv-head, no segments, left padding and packed documents,
+    causal or not; two runs give the same bits."""
+    b = 2
+    q, k, v = _rnd(cuda, b, s, h, 128), _rnd(cuda, b, s, hkv, 128), _rnd(cuda, b, s, hkv, 128)
+    _k1_check(q, k, v, causal, _k1_segments(segments, b, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,segments", [(33, None), (200, "padding"), (1000, "packed")])
+def test_flash_attention_kernel_reads_strided_operands(cuda, s, segments, causal):
+    """q a view of (B, S, H + 2, D), k and v views of one (B, S, 2 Hkv + 1,
+    D) tensor: row strides that are not H * D, read in place by TMA."""
+    b, h, hkv = 2, 8, 2
+    q = _rnd(cuda, b, s, h + 2, 128)[:, :, 1:h + 1]
+    kv = _rnd(cuda, b, s, 2 * hkv + 1, 128)
+    k, v = kv[:, :, :hkv], kv[:, :, hkv + 1:]
+    _k1_check(q, k, v, causal, _k1_segments(segments, b, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,sk", [(130, 300), (300, 130), (8, 200), (1000, 33)])
+def test_flash_attention_kernel_cross_length(cuda, s, sk, causal):
     """Sk != S (causal is top-left aligned, as in the TPU kernel)."""
-    q, k, v = _rnd(cuda, 1, 130, 4, 128), _rnd(cuda, 1, 300, 1, 128), _rnd(cuda, 1, 300, 1, 128)
-    got, lse = tfa.flash_attention_fwd(q, k, v, causal)
-    want, wlse = tfa.flash_attention_plain(q, k, v, causal)
-    pv = tfa.flash_attention_plain(q, k, v.abs(), causal)[0]
-    _assert_out_close(got, want, pv, 2.0 ** -8)
-    torch.testing.assert_close(lse, wlse, atol=5e-4, rtol=1e-4)
+    q, k, v = _rnd(cuda, 1, s, 4, 128), _rnd(cuda, 1, sk, 1, 128), _rnd(cuda, 1, sk, 1, 128)
+    _k1_check(q, k, v, causal, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_fully_masked_rows(cuda, causal):
+    """Rows with no live key give O = 0 and LSE ~ -1e30: single rows (query
+    ids no key has) and a whole 128-row query tile whose segment range meets
+    no key tile's, so its block visits no tile at all."""
+    b, s, h, hkv = 2, 300, 8, 2
+    q, k, v = _rnd(cuda, b, s, h, 128), _rnd(cuda, b, s, hkv, 128), _rnd(cuda, b, s, hkv, 128)
+    seg = torch.zeros(b, s, dtype=torch.int32, device="cuda")
+    kv_seg = seg.clone()
+    seg[0, 5] = seg[1, 290] = 7
+    seg[1, 128:256] = 9
+    kv_seg[1, 128:] = 3
+    got, lse = _k1_check(q, k, v, causal, seg, kv_seg)
+    for bi, rows in ((0, [5]), (1, [290, *range(128, 256)])):
+        assert float(got[bi, rows].abs().max()) == 0.0
+        assert float(lse[bi, :, rows].max()) <= -1e29
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_does_not_spill(cuda):
+    """``ptxas -v`` for csrc/flash_attention.cu: K1 keeps everything in
+    registers (no spill, nothing local at run time) and ptxas left its
+    `wgmma` products asynchronous (no C7514/C7515 serialization warning)."""
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    report = _build.resource_report("flash_attention")
+    lines = report.splitlines()
+    assert sum("Compiling entry function" in line for line in lines) == 1, report
+    spills = [line for line in lines if "spill" in line]
+    assert spills and all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills), report
+    assert "C7514" not in report and "C7515" not in report, report
+    vals = (ctypes.c_int * 4)()
+    lib = _build.load("flash_attention")
+    _build.check(lib.nxd_flash_attention_fwd_resources(vals), "flash_attention")
+    assert vals[2] == 0 and vals[3] >= 1, list(vals)
 
 
 @pytest.mark.cuda
@@ -272,12 +349,27 @@ def test_flash_decode_kernels_do_not_spill(cuda):
 
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    n1 = tfa.flash_attention_fwd.launches
     q32 = torch.randn(1, 16, 4, 128, device="cuda")
     with pytest.raises(TypeError):
         tfa.flash_attention_fwd(q32, q32[:, :, :2], q32[:, :, :2])
     q64 = _rnd(cuda, 1, 16, 4, 64)
     with pytest.raises(ValueError):
         tfa.flash_attention_fwd(q64, q64[:, :, :2], q64[:, :, :2])
+    q = _rnd(cuda, 1, 16, 4, 128)
+    kv = _rnd(cuda, 1, 16, 2, 128)
+    with pytest.raises(ValueError):  # a head dim that is not unit-stride
+        tfa.flash_attention_fwd(q.transpose(1, 3).contiguous().transpose(1, 3), kv, kv)
+    with pytest.raises(ValueError):  # a row stride that is not a 16-byte multiple (TMA)
+        tfa.flash_attention_fwd(_rnd(cuda, 1, 16, 4, 129)[..., :128], kv, kv)
+    with pytest.raises(ValueError):  # a base that is not 16-byte aligned (TMA)
+        tfa.flash_attention_fwd(_rnd(cuda, 1, 16, 4, 129)[..., 1:], kv, kv)
+    with pytest.raises(ValueError):  # q heads not a multiple of kv heads
+        tfa.flash_attention_fwd(_rnd(cuda, 1, 16, 5, 128), kv, kv)
+    with pytest.raises(ValueError):  # kv segment ids without the query side
+        tfa.flash_attention_fwd(q, kv, kv, True, None, torch.zeros(1, 16, dtype=torch.int32,
+                                                                    device="cuda"))
+    assert tfa.flash_attention_fwd.launches == n1  # nothing refused was counted
     q, kp, vp, bt, pos, valid = _paged_case(cuda, 1, 16)
     n = tfd.paged_flash_decode_fwd.launches
     with pytest.raises(TypeError):  # f32 pools
