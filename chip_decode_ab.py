@@ -16,8 +16,13 @@ Llama-3-8B (all 32 layers, random bf16 weights from seed 0) serves
 ``chip_smoke.serve``'s six requests and the paged engine
 ``chip_smoke.paged_workload``'s fifteen, each once more under the profiler
 for device time by kernel family (and, for the paged run, the caching
-allocator's device allocations). It prints one JSON line. To compare two
-checkouts on one card, run them back to back as old, new, new, old.
+allocator's device allocations). Where the checkout's engine captures its
+decode step in a CUDA graph, the capture's wall is reported apart and taken
+out of the wall the idle share is read against, and the profiled runs
+capture before the profiler opens. It prints one JSON line: per serving
+path, ms per decode-only step, decode tokens/s, TTFT mean and max, and the
+idle share. To compare two checkouts on one card, run them back to back as
+old, new, new, old.
 """
 
 from __future__ import annotations
@@ -65,23 +70,30 @@ def main() -> int:
 
     model = init_params(LlamaForCausalLM(llama3_8b()), seed=0)
     srv = cs.serve(model, gen)
-    fams = cs.profile_serving(model, srv["workload"])
+    prof = cs.profile_serving(model, srv["workload"])
     workload = cs.paged_workload(model.config.vocab_size)
     allocs = torch.cuda.memory_stats().get("num_device_alloc", 0)
     paged = cs.serve_paged(model, workload, "fused")
     allocs = torch.cuda.memory_stats().get("num_device_alloc", 0) - allocs
     paged_prof = cs.serve_paged(model, workload, "fused", profiled=True)
     snap, psnap = srv["snap"], paged["snap"]
-    serving = dict(wall_s=srv["wall_s"], ttft_mean_s=snap["mean_ttft"], ttft_max_s=snap["max_ttft"],
-                   decode_tok_s=snap["chunk_tokens_per_sec"],
+    # a capture (once per engine, at the first chunk) is no serving work:
+    # the idle share is taken over the wall without it
+    capture_s = snap.get("capture_s", 0.0)
+    serving = dict(wall_s=srv["wall_s"], capture_s=capture_s, ttft_mean_s=snap["mean_ttft"],
+                   ttft_max_s=snap["max_ttft"], decode_tok_s=snap["chunk_tokens_per_sec"],
                    ms_per_decode_step=1e3 * srv["decode_s"] / max(srv["decode_only_executed"], 1),
-                   device_ms=fams, idle_share=1 - sum(fams.values()) / (1e3 * srv["wall_s"]))
+                   decode_compilations=srv["compilations"], device_ms=prof["fams"],
+                   k4_records=prof["records"],
+                   idle_share=1 - sum(prof["fams"].values()) / (1e3 * (srv["wall_s"] - capture_s)))
+    capture_s = paged["capture_s"]
     paged_serving = dict(
-        wall_s=paged["wall_s"], ttft_mean_s=psnap["mean_ttft"], ttft_max_s=psnap["max_ttft"],
-        decode_tok_s=psnap["chunk_tokens_per_sec"],
+        wall_s=paged["wall_s"], capture_s=capture_s, ttft_mean_s=psnap["mean_ttft"],
+        ttft_max_s=psnap["max_ttft"], decode_tok_s=psnap["chunk_tokens_per_sec"],
         ms_per_decode_step=1e3 * paged["decode_s"] / max(paged["decode_executed"], 1),
-        device_ms=paged_prof["fams"],
-        idle_share=1 - sum(paged_prof["fams"].values()) / (1e3 * paged["wall_s"]),
+        decode_compilations=paged["compilations"], device_ms=paged_prof["fams"],
+        k5_records=paged_prof["records"],
+        idle_share=1 - sum(paged_prof["fams"].values()) / (1e3 * (paged["wall_s"] - capture_s)),
         tokens_equal_profiled_rerun=paged_prof["tokens"] == paged["tokens"],
         device_mallocs=allocs)
     print(json.dumps(dict(tree=tree, card=card, kernels=times, serving=serving,

@@ -29,15 +29,22 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    cache and with a paged cache behind a scrambled block table, against the
    same model with the plain versions swapped in, on a short prompt;
 4. serving: ``ServingEngine`` over Llama-3-8B at full width (all 32 layers,
-   random bf16 weights from a seed) answering six requests; every kernel's
-   launch count is zeroed just before and read just after;
-5. the same workload under ``torch.profiler``: device time by kernel
-   family and the device's idle share;
+   random bf16 weights from a seed) answering six requests, its decode step
+   one CUDA graph captured at the first chunk and replayed; every kernel's
+   launch count is zeroed just before and read just after (a replay calls
+   no wrapper: replays x launches per replay count for it); then a witness
+   run with the eager step patched in, whose token streams must be
+   identical;
+5. the same workload under ``torch.profiler`` (the decode program captured
+   before it opens): device time by kernel family, the device's idle share,
+   and the profiler's K4 kernel records, two (range, merge) per executed
+   step and layer;
 5b. paged serving: the same model behind a paged engine (16 slots, a pool
-   of four row slots' bytes) answering 15 mixed-length requests, once with
-   K5 attending the pool and once with K4 on the gathered view patched in,
-   with identical token streams; then the K5 run once more under the
-   profiler;
+   of four row slots' bytes) answering 15 mixed-length requests, with K5
+   attending the pool, with K4 on the gathered view patched in (before the
+   first chunk, so the graph captures it) and with the eager step patched
+   in, all with identical token streams; then the K5 run once more under
+   the profiler (K5 records counted as in 5);
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -742,34 +749,109 @@ def check_outputs(model, gen) -> dict:
 
 # --- phase 4: serving ---------------------------------------------------------
 
-def serve(model, gen):
-    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
-    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
-    from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
+@contextlib.contextmanager
+def eager_decode_step():
+    """Run the engine's decode step eagerly in place of its captured graph
+    (the witness the graph engine's streams are held to; the engine itself
+    has no such switch)."""
+    from neuronx_distributed_tpu_torch.inference.graphs import DecodeProgram
 
+    saved = DecodeProgram.__call__
+    DecodeProgram.__call__ = lambda self: self.step()
+    try:
+        yield
+    finally:
+        DecodeProgram.__call__ = saved
+
+
+def decode_program(engine):
+    """The engine's decode program, or None (not made yet, or a checkout
+    whose engine launches every decode op from Python)."""
+    return getattr(engine, "decode_program", None)
+
+
+def engine_launches(engine, counts: dict):
+    """(kernel launches of a run by wrapper, those of them the capture's
+    warm-up made). A replay calls no wrapper, so the launches of the
+    replays, ``replays x launches per replay``, are added to the wrappers'
+    counts ``counts``; the warm-up (one masked no-op step before capture)
+    launched through the wrappers what one replay launches, and is no
+    decode step."""
+    out, warm = dict(counts), dict.fromkeys(counts, 0)
+    prog = decode_program(engine)
+    if prog is not None:
+        for name, n in prog.launches_per_replay.items():
+            out[name] += prog.replays * n
+            warm[name] = prog.captures * n
+    return out, warm
+
+
+def check_program(engine, what: str, eager: bool) -> None:
+    """One captured decode program whose replays are the executed steps
+    (none and eager steps for the witness)."""
+    prog, snap = decode_program(engine), engine.metrics.snapshot()
+    if prog is None:
+        return
+    want = (0, 0) if eager else (1, snap["executed_steps"])
+    if (engine.decode_compilations, prog.replays) != want:
+        raise AssertionError(f"{what}: decode_compilations {engine.decode_compilations}, replays "
+                             f"{prog.replays}; want {want}")
+
+
+def decode_records(prof, paged: bool) -> int:
+    """The profiler's CUDA kernel records of K4 (``paged``: K5): the range
+    kernel and the merge, two per call."""
+    n = 0
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        if "flash_decode_kernel" in e.name and ("paged_" in e.name) == paged:
+            n += 1
+    return n
+
+
+def serve(model, gen):
+    """Phase 4's workload through the engine as it serves (its decode
+    program captured at the first chunk)."""
     lengths = [30, 250, 700, 1500, 2200, 3000]
     new = 32
     prompts = [torch.randint(1, model.config.vocab_size, (n,), generator=gen, device="cuda")
                .cpu().numpy() for n in lengths]
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+
     cfgs = [GenerationConfig(max_new_tokens=new, temperature=0.0) for _ in lengths]
     cfgs[2] = GenerationConfig(max_new_tokens=new, temperature=0.8, top_k=50)
+    return serve_workload(model, (prompts, cfgs))
+
+
+def serve_workload(model, workload, eager: bool = False) -> dict:
+    """Six requests into 8 slots, chunk 8: all admitted in the first step
+    (six prefills, then one decode chunk), then decode-only steps. Every
+    kernel's launch count is zeroed just before and read just after.
+    ``eager`` runs the decode step eagerly (the witness)."""
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
+
+    prompts, cfgs = workload
+    layers = model.config.num_layers
     engine = ServingEngine(model, num_slots=8, decode_chunk_size=8)
     counters = kernel_counters()
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
-    t0 = time.perf_counter()
-    reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
-    engine.step()  # admits all six (8 slots): six prefills, then one decode chunk
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    steps0, executed0 = engine.metrics.steps, engine.metrics.executed_steps
-    engine.run()  # decode-only steps
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches = {name: c.launches for name, c in counters.items()}
+    with eager_decode_step() if eager else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
+        engine.step()  # admits all six (8 slots): six prefills, then one decode chunk
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        steps0, executed0 = engine.metrics.steps, engine.metrics.executed_steps
+        engine.run()  # decode-only steps
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches, warm = engine_launches(engine, {name: c.launches for name, c in counters.items()})
     for r in reqs:
-        if r.state is not RequestState.DONE or len(r.tokens) != new:
+        if r.state is not RequestState.DONE or len(r.tokens) != r.config.max_new_tokens:
             raise AssertionError(f"request {r.rid}: {r.state} with {len(r.tokens)} tokens")
         if not all(0 <= t < model.config.vocab_size for t in r.tokens):
             raise AssertionError(f"request {r.rid}: token outside the vocabulary")
@@ -780,32 +862,54 @@ def serve(model, gen):
     snap = engine.metrics.snapshot()
     # executed steps each ran the whole model (and one K4 per layer); used
     # steps had a live slot — the rest were masked no-ops
-    if launches["flash_decode"] != snap["executed_steps"] * model.config.num_layers:
-        raise AssertionError(f"K4 launches {launches['flash_decode']} != executed steps "
-                             f"{snap['executed_steps']} x {model.config.num_layers} layers")
+    if launches["flash_decode"] - warm["flash_decode"] != snap["executed_steps"] * layers:
+        raise AssertionError(f"K4 launches {launches['flash_decode']} (warm-up "
+                             f"{warm['flash_decode']}) != executed steps "
+                             f"{snap['executed_steps']} x {layers} layers")
+    check_program(engine, "serving", eager)
+    prog = decode_program(engine)
     return dict(wall_s=t2 - t0, admit_s=t1 - t0, decode_s=t2 - t1,
                 decode_only_executed=snap["executed_steps"] - executed0,
                 decode_only_used=snap["steps"] - steps0, launches=launches, snap=snap,
-                prefills=snap["prefills"], workload=(prompts, cfgs))
+                prefills=snap["prefills"], workload=workload,
+                tokens=[list(r.tokens) for r in reqs],
+                compilations=getattr(engine, "decode_compilations", None),
+                replays=prog.replays if prog is not None else None,
+                per_replay=dict(prog.launches_per_replay) if prog is not None else None)
+
+
+def prewarm(engine) -> float:
+    """Capture the engine's decode program before the profiler opens (0 for
+    a checkout without one)."""
+    return engine.prewarm() if hasattr(engine, "prewarm") else 0.0
 
 
 def profile_serving(model, workload) -> dict:
     """The serving workload once more under ``torch.profiler``: device time
-    by kernel family. The profiler slows the host several-fold, so only its
-    device times are used (against the unprofiled run's wall)."""
+    by kernel family, and the profiler's count of K4 kernel records against
+    the executed steps. The decode program is captured before the profiler
+    opens. The profiler slows the host several-fold, so only its device
+    times are used (against the unprofiled run's wall)."""
     from torch.profiler import ProfilerActivity, profile
 
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
 
     prompts, cfgs = workload
     engine = ServingEngine(model, num_slots=8, decode_chunk_size=8)
+    capture_s = prewarm(engine)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i, (p, c) in enumerate(zip(prompts, cfgs)):
             engine.submit(p, c, seed=i)
         engine.run()
         torch.cuda.synchronize()
-    return device_time_by_family(prof, {"flash_attention": "flash_fwd_kernel",
+    executed = engine.metrics.executed_steps
+    records = decode_records(prof, paged=False)
+    if records != 2 * executed * model.config.num_layers:
+        raise AssertionError(f"profiled serving: {records} K4 kernel records != 2 x {executed} "
+                             f"executed steps x {model.config.num_layers} layers")
+    fams = device_time_by_family(prof, {"flash_attention": "flash_fwd_kernel",
                                         "flash_decode": "flash_decode_kernel"})
+    return dict(fams=fams, records=records, executed=executed, capture_s=capture_s)
 
 
 def paged_workload(vocab: int):
@@ -834,14 +938,18 @@ def paged_workload(vocab: int):
 PAGED_SLOTS, PAGE, ROW_SLOTS = 16, 16, 4
 
 
-def serve_paged(model, workload, attention: str, profiled: bool = False) -> dict:
+def serve_paged(model, workload, attention: str, profiled: bool = False,
+                eager: bool = False) -> dict:
     """The paged engine (16 slots, page_size 16, chunk 8, conservative,
     FIFO) over a pool of ROW_SLOTS row slots' bytes plus the null page,
     answering ``workload``; every kernel's launch count is zeroed just
     before and read just after. ``attention`` is ``"fused"`` (the engine as
     it serves, K5) or ``"gather"`` (K4 on the gathered view patched in, the
-    witness). ``profiled`` runs it under the profiler and adds the device
-    time by family (its walls are the profiler's, not the engine's)."""
+    witness: patched before the first chunk, so the graph captures it).
+    ``eager`` runs the decode step eagerly (the graph's witness).
+    ``profiled`` captures the decode program first, then runs under the
+    profiler and adds the device time by family and the profiler's count
+    of K5 records (its walls are the profiler's, not the engine's)."""
     from torch.profiler import ProfilerActivity, profile
 
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
@@ -856,11 +964,12 @@ def serve_paged(model, workload, attention: str, profiled: bool = False) -> dict
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
+    capture_s = prewarm(engine) if profiled else 0.0
     ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
            else contextlib.nullcontext())
     route = gathered_paged_attention() if attention == "gather" else contextlib.nullcontext()
     decode_s, decode_executed = 0.0, 0
-    with route, ctx as prof:
+    with route, eager_decode_step() if eager else contextlib.nullcontext(), ctx as prof:
         t0 = time.perf_counter()
         reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
         while engine.has_work:
@@ -872,7 +981,7 @@ def serve_paged(model, workload, attention: str, profiled: bool = False) -> dict
                 decode_s += time.perf_counter() - t1
                 decode_executed += engine.metrics.executed_steps - executed
         wall = time.perf_counter() - t0
-    launches = {name: c.launches for name, c in counters.items()}
+    launches, warm = engine_launches(engine, {name: c.launches for name, c in counters.items()})
     engine.cache.check()
     for r in reqs:
         if r.state is not RequestState.DONE or len(r.tokens) != 32:
@@ -883,7 +992,7 @@ def serve_paged(model, workload, attention: str, profiled: bool = False) -> dict
     want = {"paged_flash_decode": 0, "flash_decode": 0}
     want["paged_flash_decode" if attention == "fused" else "flash_decode"] = (
         snap["executed_steps"] * cfg.num_layers)
-    got = {k: launches[k] for k in want}
+    got = {k: launches[k] - warm[k] for k in want}
     if got != want:
         raise AssertionError(f"paged ({attention}) decode launches {got} != {want}")
     if launches["flash_attention"] != snap["prefills"] * cfg.num_layers:
@@ -892,11 +1001,21 @@ def serve_paged(model, workload, attention: str, profiled: bool = False) -> dict
     if snap["peak_occupancy"] <= ROW_SLOTS:
         raise AssertionError(f"paged: at most {snap['peak_occupancy']} requests decoded at once, "
                              f"no more than the {ROW_SLOTS} row slots of the same bytes")
+    check_program(engine, f"paged serving ({attention})", eager)
+    prog = decode_program(engine)
     res = dict(tokens=[list(r.tokens) for r in reqs], launches=launches, snap=snap, wall_s=wall,
                decode_s=decode_s, decode_executed=decode_executed,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               pool_gib=engine.cache.nbytes / 2**30)
+               pool_gib=engine.cache.nbytes / 2**30,
+               compilations=getattr(engine, "decode_compilations", None),
+               capture_s=capture_s or snap.get("capture_s", 0.0),
+               replays=prog.replays if prog is not None else None)
     if profiled:
+        res["records"] = decode_records(prof, paged=attention == "fused")
+        if res["records"] != 2 * snap["executed_steps"] * cfg.num_layers:
+            raise AssertionError(f"profiled paged serving: {res['records']} K5 kernel records != "
+                                 f"2 x {snap['executed_steps']} executed steps x "
+                                 f"{cfg.num_layers} layers")
         res["fams"] = device_time_by_family(prof, {
             "paged_flash_decode": "paged_flash_decode_kernel",
             "flash_attention": "flash_fwd_kernel", "flash_decode": "flash_decode_kernel"})
@@ -1245,32 +1364,52 @@ def main() -> int:
 
     srv = serve(model, gen)
     snap = srv["snap"]
+    wit = serve_workload(model, srv["workload"], eager=True)
+    if wit["tokens"] != srv["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(srv["tokens"], wit["tokens"])) if a != b]
+        raise AssertionError(f"serving token streams differ between the decode graph and the "
+                             f"eager step: requests {diff}")
     log(f"serving: 6 requests (prompts 30..3000, 32 new tokens, 1 sampled), 8 slots, chunk 8: "
-        f"wall {srv['wall_s']:.3f} s, prefills {srv['prefills']}, decode steps "
+        f"wall {srv['wall_s']:.3f} s (capture {snap['capture_s']:.4f} s of it), prefills "
+        f"{srv['prefills']}, decode steps "
         f"{snap['executed_steps']} executed ({snap['executed_steps'] - snap['steps']} masked no-ops), "
         f"TTFT mean {snap['mean_ttft']:.4f} s max {snap['max_ttft']:.4f} s, "
         f"decode {snap['chunk_tokens_per_sec']:.1f} tok/s (chunk wall), "
         f"prefill wall {snap['prefill_wall_s']:.4f} s, cursor {snap['cursor_high_water']}, "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    log(f"serving breakdown: admission step (6 prefills + 1 chunk) {srv['admit_s']:.4f} s, "
-        f"{srv['decode_only_executed']} decode-only steps executed ({srv['decode_only_used']} "
-        f"with a live slot) {srv['decode_s']:.4f} s "
-        f"({1e3 * srv['decode_s'] / max(srv['decode_only_executed'], 1):.2f} ms per executed step, 8 slots)")
-    log(f"launches on the serving path: {srv['launches']}")
-    fams = profile_serving(model, srv["workload"])
+    for name, r in (("decode graph", srv), ("eager step (witness)", wit)):
+        log(f"serving breakdown, {name}: admission step (6 prefills + 1 chunk"
+            f"{', its capture included' if r is srv else ''}) {r['admit_s']:.4f} s, "
+            f"{r['decode_only_executed']} decode-only steps executed ({r['decode_only_used']} "
+            f"with a live slot) {r['decode_s']:.4f} s "
+            f"({1e3 * r['decode_s'] / max(r['decode_only_executed'], 1):.2f} ms per executed "
+            f"step, 8 slots), TTFT mean {r['snap']['mean_ttft']:.4f} s")
+    log(f"serving decode program: decode_compilations {srv['compilations']}, captured at the "
+        f"first chunk in {snap['capture_s']:.4f} s (warm-up included), {srv['replays']} replays "
+        f"= executed steps, launches per replay {srv['per_replay']}; the eager step's token "
+        f"streams are identical")
+    log(f"launches on the serving path: {srv['launches']} (replays x launches per replay, plus "
+        f"the wrappers' own: prefills and the capture's warm-up)")
+    prof_row = profile_serving(model, srv["workload"])
+    fams = prof_row["fams"]
     busy = sum(fams.values())
-    log("device time of the serving workload (profiler, ms): "
-        + ", ".join(f"{k} {v:.2f}" for k, v in fams.items())
-        + f"; busy {busy:.2f} of the unprofiled wall {1e3 * srv['wall_s']:.2f} "
-        f"(idle share {1 - busy / (1e3 * srv['wall_s']):.3f})")
+    wall_ms = 1e3 * (srv["wall_s"] - snap["capture_s"])
+    log("device time of the serving workload (profiler, ms; decode program captured before the "
+        "profiler opened): " + ", ".join(f"{k} {v:.2f}" for k, v in fams.items())
+        + f"; busy {busy:.2f} of the unprofiled wall less its capture {wall_ms:.2f} "
+        f"(idle share {1 - busy / wall_ms:.3f}); K4 kernel records {prof_row['records']} = 2 x "
+        f"{prof_row['executed']} executed steps x {cfg.num_layers} layers (range + merge)")
 
     torch.cuda.empty_cache()
     workload = paged_workload(cfg.vocab_size)
     fused = serve_paged(model, workload, "fused")
     gather = serve_paged(model, workload, "gather")
-    if fused["tokens"] != gather["tokens"]:
-        diff = [i for i, (a, b) in enumerate(zip(fused["tokens"], gather["tokens"])) if a != b]
-        raise AssertionError(f"paged token streams differ between fused and gather: requests {diff}")
+    eager = serve_paged(model, workload, "fused", eager=True)
+    for name, r in (("gather", gather), ("eager step", eager)):
+        if fused["tokens"] != r["tokens"]:
+            diff = [i for i, (a, b) in enumerate(zip(fused["tokens"], r["tokens"])) if a != b]
+            raise AssertionError(f"paged token streams differ between fused and {name}: "
+                                 f"requests {diff}")
     prof = serve_paged(model, workload, "fused", profiled=True)
     if prof["tokens"] != fused["tokens"]:
         raise AssertionError("paged token streams differ between the fused run and its profiled rerun")
@@ -1279,11 +1418,13 @@ def main() -> int:
     log(f"paged serving: 15 requests (12 chats of {min(chats)}..{max(chats)} tokens, 3 documents "
         f"of {min(docs)}..{max(docs)}; 32 new tokens, 2 greedy), "
         f"{PAGED_SLOTS} slots, page_size {PAGE}, pool {fused['pool_gib']:.3f} GiB "
-        f"(= {ROW_SLOTS} row slots + the null page), chunk 8, conservative; fused and gather "
-        f"token streams identical")
-    for name, r in (("fused (K5)", fused), ("gather (K4)", gather)):
+        f"(= {ROW_SLOTS} row slots + the null page), chunk 8, conservative; fused, gather "
+        f"(captured with the patch in force) and eager-step token streams identical")
+    for name, r in (("fused (K5)", fused), ("gather (K4)", gather), ("fused, eager step", eager)):
         sn = r["snap"]
-        log(f"paged serving {name}: wall {r['wall_s']:.3f} s, prefills {sn['prefills']}, decode "
+        log(f"paged serving {name}: wall {r['wall_s']:.3f} s (capture {sn['capture_s']:.4f} s of "
+            f"it), decode_compilations {r['compilations']}, replays {r['replays']}, prefills "
+            f"{sn['prefills']}, decode "
             f"steps {sn['executed_steps']} executed ({sn['executed_steps'] - sn['steps']} masked "
             f"no-ops), TTFT mean {sn['mean_ttft']:.4f} s max {sn['max_ttft']:.4f} s, decode "
             f"{sn['chunk_tokens_per_sec']:.1f} tok/s (chunk wall), {r['decode_executed']} "
@@ -1293,10 +1434,13 @@ def main() -> int:
             f"peak pages mapped {sn['peak_pages_mapped']}, peak mem {r['peak_gib']:.1f} GiB")
         log(f"launches on the paged serving path ({name}): {r['launches']}")
     busy = sum(prof["fams"].values())
-    log("device time of the paged serving workload, fused (profiler, ms): "
+    wall_ms = 1e3 * (fused["wall_s"] - fused["capture_s"])
+    log(f"device time of the paged serving workload, fused (profiler, ms; decode program "
+        f"captured before the profiler opened, in {prof['capture_s']:.4f} s): "
         + ", ".join(f"{k} {v:.2f}" for k, v in prof["fams"].items())
-        + f"; busy {busy:.2f} of the unprofiled wall {1e3 * fused['wall_s']:.2f} "
-        f"(idle share {1 - busy / (1e3 * fused['wall_s']):.3f})")
+        + f"; busy {busy:.2f} of the unprofiled wall less its capture {wall_ms:.2f} "
+        f"(idle share {1 - busy / wall_ms:.3f}); K5 kernel records {prof['records']} = 2 x "
+        f"{prof['snap']['executed_steps']} executed steps x {cfg.num_layers} layers")
 
     del model
     torch.cuda.empty_cache()

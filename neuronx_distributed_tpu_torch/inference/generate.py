@@ -11,8 +11,10 @@ the caller reads the result. Sampling is counter-based
 serving engine with seed ``s`` reproduces ``generate(..., seed=s)``.
 
 The building blocks (mode views, validation, the decode write mask, the
-fused multi-token chunk :func:`chunked_decode_step`) are shared with the
-continuous-batching engine in ``serving/``.
+decode step on fixed buffers :func:`decode_step` and the chunk loop that
+runs it, :class:`ChunkedDecode`) are shared with the continuous-batching engine in
+``serving/``. ``generate`` itself runs eagerly: it is the oracle the
+engine's captured step is held to.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from neuronx_distributed_tpu_torch.inference.graphs import DecodeProgram
 from neuronx_distributed_tpu_torch.inference.utils import unwrap_logits
-from neuronx_distributed_tpu_torch.modules.attention import cache_cursor
 from neuronx_distributed_tpu_torch.utils.sampling import sample, sample_per_row
 
 
@@ -79,65 +81,114 @@ def decode_write_mask(done: torch.Tensor) -> torch.Tensor:
     return torch.logical_not(done)[:, None]
 
 
-def chunked_decode_step(decode_model, chunk_size: int, max_seq_len: int):
-    """Build the fused multi-token decode step of the serving engine: up to
-    ``chunk_size`` decode steps over every slot between two host reads.
+def decode_step(decode_model, cache, state, toks: torch.Tensor, emits: torch.Tensor,
+                step: torch.Tensor):
+    """One decode step of every slot on fixed buffers: the body of the JAX
+    chunk's ``lax.scan`` (``inference/generate.py:226-229``). Returns a
+    callable of no arguments.
 
-    Returned callable::
+    Its inputs and outputs are tensors that live as long as the engine:
+    the slot ``state`` leaves (``tok`` pending input tokens, ``seed``
+    request seeds, ``ntok`` tokens emitted so far — the sampling index —,
+    ``active``, ``remaining`` tokens left, ``temp``/``topk``/``topp``
+    sampling sentinels, ``eos`` (-1 = none)), the ``cache`` and its device
+    cursor, the device step index ``step`` (1,) int64 and the ``toks``/
+    ``emits`` (chunk, B) blocks. Every result lands in place and nothing
+    reads the device, so the step can be captured once and replayed.
 
-        fn(cache, state) -> (toks, counts, executed)
-
-    ``state`` holds per-slot device tensors — ``tok`` pending input tokens,
-    ``seed`` request seeds, ``ntok`` tokens emitted so far (the sampling
-    index), ``active``, ``remaining`` tokens left, ``temp``/``topk``/
-    ``topp`` sampling sentinels, ``eos`` (-1 = none) — and is updated in
-    place.
-
-    Semantics mirror the JAX chunk step by step: decode with the write mask
-    hiding finished rows' K/V, per-row sample, EOS/budget freezing of
-    ``tok``/``ntok``/``remaining``. Steps stop at ``max_seq_len``. JAX also
-    skips the model once every slot is frozen (``lax.cond``); that needs the
-    device's answer, so here such steps run as masked no-ops (every write
-    invalid, no state change) and the caller rewinds the cursor to
-    ``start + max(counts)`` after its one read — the cursor lands exactly
-    where the JAX chunk leaves it.
-
-    ``toks`` is the (chunk_size, B) token block, ``counts`` (B,) how many
-    of each slot's tokens are real (a prefix: freezing is monotone) and
-    ``executed`` the host count of model steps that ran, no-ops included.
-    The chunk runs under ``no_grad``, as ``generate`` does."""
-    if chunk_size < 1:
-        raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+    Semantics of one JAX chunk step: decode with the write mask hiding
+    finished rows' K/V, per-row sample at ``ntok``, EOS/budget freezing of
+    ``tok``/``ntok``/``remaining``/``active``; row ``step`` of ``toks``
+    takes the sampled tokens and of ``emits`` the rows that emitted. Once
+    every slot has frozen the step is a masked no-op (every write invalid,
+    no state change) — JAX skips the model there (``lax.cond``), which
+    needs the device's answer."""
+    tok, ntok, remaining, active, eos = (state[n] for n in ("tok", "ntok", "remaining",
+                                                             "active", "eos"))
 
     @torch.no_grad()
-    def chunk_fn(cache, state):
-        allowed = max(0, min(max_seq_len - cache_cursor(cache), chunk_size))
-        tok, ntok, remaining = state["tok"], state["ntok"], state["remaining"]
-        done = torch.logical_not(state["active"])
-        eos = state["eos"]
-        b = tok.shape[0]
-        toks = torch.zeros((chunk_size, b), dtype=torch.int64, device=tok.device)
-        emits = torch.zeros((chunk_size, b), dtype=torch.bool, device=tok.device)
-        for i in range(allowed):
-            logits = unwrap_logits(decode_model(
-                tok[:, None], cache=cache, padding_mask=decode_write_mask(done),
-                last_only=True,
-            ))[:, -1]
-            nxt = sample_per_row(logits, state["seed"], ntok, state["temp"],
-                                 state["topk"], state["topp"])
-            emit = torch.logical_not(done)
-            remaining = remaining - emit.to(remaining.dtype)
-            finished = emit & (((eos >= 0) & (nxt == eos)) | (remaining <= 0))
-            tok = torch.where(emit, nxt, tok)
-            ntok = ntok + emit.to(ntok.dtype)
-            done = done | finished
-            toks[i] = nxt
-            emits[i] = emit
-        state.update(tok=tok, ntok=ntok, remaining=remaining,
-                     active=torch.logical_not(done))
-        return toks, emits.sum(0), allowed
+    def run() -> None:
+        logits = unwrap_logits(decode_model(
+            tok[:, None], cache=cache, padding_mask=active[:, None], last_only=True,
+        ))[:, -1]
+        nxt = sample_per_row(logits, state["seed"], ntok, state["temp"], state["topk"],
+                             state["topp"])
+        emit = active.clone()
+        remaining.sub_(emit.to(remaining.dtype))
+        finished = emit & (((eos >= 0) & (nxt == eos)) | (remaining <= 0))
+        tok.copy_(torch.where(emit, nxt, tok))
+        ntok.add_(emit.to(ntok.dtype))
+        active.logical_and_(torch.logical_not(finished))
+        toks.index_copy_(0, step, nxt[None])
+        emits.index_copy_(0, step, emit[None])
+        step.add_(1)
 
-    return chunk_fn
+    return run
+
+
+def masked_step(run, cache, state, step: torch.Tensor):
+    """``run`` (a :func:`decode_step`) once with every slot masked, leaving
+    no trace: the warm-up before capture. A masked step changes no slot
+    state; its K/V and validity writes land at the cursor column, which
+    holds no valid entry (columns at and past the cursor never do), and so
+    does its ``emits`` row (False); its ``toks`` row is rewritten by the
+    step that follows. The device cursor and the step index are moved
+    back. Returns a callable of no arguments."""
+    def warmup() -> None:
+        active = state["active"].clone()
+        state["active"].zero_()
+        run()
+        state["active"].copy_(active)
+        cache.cursor.sub_(1)
+        step.sub_(1)
+
+    return warmup
+
+
+class ChunkedDecode:
+    """The serving engine's fused decode chunk (the JAX
+    ``chunked_decode_step``): up to ``chunk_size`` decode steps over every
+    slot between two host reads. It owns the step's token blocks and step
+    index, and runs :func:`decode_step` on ``cache`` and ``state`` as one
+    :class:`~neuronx_distributed_tpu_torch.inference.graphs.DecodeProgram`
+    (a CUDA graph on the card), so those two must live as long as it does.
+
+    Call::
+
+        chunk() -> (toks, counts, executed)
+
+    The chunk computes the steps the cache has room for on the host, from
+    the cursor's mirror, and runs the step that many times: step ``i``
+    writes column ``start + i``, masked no-ops included, and the chunk
+    moves the mirror to ``start + executed`` after them. The caller rewinds
+    the cursor to ``start + max(counts)`` after its one read, which lands
+    it exactly where the JAX chunk leaves it.
+
+    ``toks`` is the (chunk_size, B) token block (rows past ``executed``
+    hold earlier chunks' tokens), ``counts`` (B,) how many of each slot's
+    tokens are real (a prefix: freezing is monotone) and ``executed`` the
+    host count of steps that ran. The steps run under ``no_grad``."""
+
+    def __init__(self, decode_model, chunk_size: int, max_seq_len: int, cache, state):
+        if chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
+        self.chunk_size, self.max_seq_len = chunk_size, max_seq_len
+        self.cache, self.state = cache, state
+        b, dev = state["tok"].shape[0], state["tok"].device
+        self.toks = torch.zeros((chunk_size, b), dtype=torch.int64, device=dev)
+        self.emits = torch.zeros((chunk_size, b), dtype=torch.bool, device=dev)
+        self.step = torch.zeros((1,), dtype=torch.int64, device=dev)
+        run = decode_step(decode_model, cache, state, self.toks, self.emits, self.step)
+        self.program = DecodeProgram(run, masked_step(run, cache, state, self.step), dev)
+
+    def __call__(self):
+        allowed = max(0, min(self.max_seq_len - self.cache.index, self.chunk_size))
+        self.emits.zero_()
+        self.step.zero_()
+        for _ in range(allowed):
+            self.program()
+        self.cache.advance_mirror(allowed)
+        return self.toks, self.emits.sum(0), allowed
 
 
 def validate_generate_args(model, prompt_ids, max_new_tokens, attention_mask):
@@ -198,6 +249,7 @@ def generate(model, prompt_ids, config: GenerationConfig = GenerationConfig(),
             logits = unwrap_logits(decode(tok[:, None], cache=cache,
                                           padding_mask=decode_write_mask(done),
                                           last_only=True))[:, -1]
+            cache.advance_mirror(1)
             nxt = _sample(logits, t)
             if eos is not None:
                 nxt = torch.where(done, eos, nxt)

@@ -4,8 +4,9 @@ ParallelEmbedding → N × (RMSNorm → GQA attention → RMSNorm → SwiGLU MLP
 RMSNorm → LM head, at tp=1. ``mode`` is a call argument instead of a flax
 module attribute: ``"train"`` (no cache), ``"prefill"`` (causal attention
 that also writes the prompt K/V into a :class:`KVCache`), ``"decode"``
-(append the step's K/V at the cursor and attend the cache through its own
-``attend``: K4 on a row cache, K5 on a :class:`PagedKVCache`). A model built
+(append the step's K/V at the cache's device cursor, advance it in place,
+and attend the cache through its own ``attend``: K4 on a row cache, K5 on a
+:class:`PagedKVCache`). A model built
 for serving stores its linears and embedding in the compute ``dtype`` the
 JAX layers cast to, frozen; a model built with ``trainable=True`` keeps fp32
 masters (``param_dtype``) that it casts before each product, as JAX does
@@ -212,7 +213,9 @@ class LlamaModel(nn.Module):
             args = (x, self.freqs, positions, mode, cache, i, q_pos, segment_ids, padding_mask)
             x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
         if mode == "decode":
-            cache.index += s
+            # on the device, in place: a decode forward changes no host
+            # state, so a captured step replays it at every column
+            cache.advance(s)
         return self.final_norm(x)
 
 

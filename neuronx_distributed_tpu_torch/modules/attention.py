@@ -6,10 +6,12 @@ The JAX cache is a flax ``cache`` collection that each program returns
 updated (the engine donates it so XLA updates it in place). Here the cache is
 a :class:`KVCache` (row per slot) or a :class:`PagedKVCache` (page pool and
 block table) of explicit tensors that the model updates IN PLACE — the
-PyTorch counterpart of donation — and its write cursor is a host ``int``
-(the JAX engine mirrors the device cursor on the host anyway). The model's
-attention layer calls the cache's own :meth:`KVCache.attend`, so one model
-serves both layouts.
+PyTorch counterpart of donation. Its write cursor lives on the device (a
+0-d int64 tensor, as the JAX collection's ``index``) with a host mirror
+beside it: a decode step reads and advances only the device cursor, so a
+step captured once in a CUDA graph writes the right columns at every
+replay. The model's attention layer calls the cache's own
+:meth:`KVCache.attend`, so one model serves both layouts.
 """
 
 from __future__ import annotations
@@ -122,10 +124,12 @@ def prefill_positions(padding_mask: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.cumsum(padding_mask.to(torch.int64), dim=1) - 1, min=0)
 
 
-def valid_count_below(kv_valid: torch.Tensor, cur: int) -> torch.Tensor:
+def valid_count_below(kv_valid: torch.Tensor, cur) -> torch.Tensor:
     """Per-row count of valid cache slots strictly below write index ``cur``
-    — each row's true sequence length."""
-    return kv_valid[:, :cur].sum(dim=1, dtype=torch.int64)
+    (a host int or a device tensor, which is never read) — each row's true
+    sequence length."""
+    cols = torch.arange(kv_valid.shape[1], device=kv_valid.device)
+    return (kv_valid & (cols < cur)).sum(dim=1, dtype=torch.int64)
 
 
 class KVCache:
@@ -133,13 +137,41 @@ class KVCache:
 
     ``k``/``v`` (num_layers, B, L, Hkv, D); ``valid`` (B, L) bool —
     prefill records the padding mask, decode appends per-step validity;
-    ``index`` the shared write cursor (host int). The JAX collection holds a
-    ``kv_valid`` and an ``index`` per layer, always equal; here the model
-    writes the one shared copy once per step, before its layers."""
+    ``cursor`` the shared write cursor, a 0-d int64 device tensor, and
+    ``index`` its host mirror. The JAX collection holds a ``kv_valid`` and
+    an ``index`` per layer, always equal; here the model writes the one
+    shared copy once per step, before its layers.
+
+    A decode step reads and advances only ``cursor`` (index ops on the
+    device, no slice at a host int), so it is the same device program at
+    every column. Setting ``index`` writes the mirror and then the device
+    cursor (a host→device write, never a read): admission, rewinds and
+    resets go through it. Whatever runs decode steps keeps the mirror with
+    :meth:`advance_mirror`, since the steps never touch host state."""
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
                  index: int = 0):
-        self.k, self.v, self.valid, self.index = k, v, valid, index
+        self.k, self.v, self.valid = k, v, valid
+        self.cursor = torch.zeros((), dtype=torch.int64, device=valid.device)
+        # column ids 0..L-1, made once: the decode step's index arithmetic
+        self._cols = torch.arange(valid.shape[1], device=valid.device)
+        self._step_cols = None  # (s,) columns of this step's writes, set once per forward
+        self.index = index
+
+    @property
+    def index(self) -> int:
+        """The host mirror of the write cursor."""
+        return self._index
+
+    @index.setter
+    def index(self, n: int) -> None:
+        self._index = int(n)
+        self.cursor.fill_(self._index)
+
+    def advance_mirror(self, n: int) -> None:
+        """Move the host mirror ``n`` columns after decode steps that moved
+        the device cursor themselves (no device write)."""
+        self._index += n
 
     @classmethod
     def allocate(cls, num_layers: int, b: int, max_seq_len: int, hkv: int,
@@ -160,7 +192,8 @@ class KVCache:
     def view(self, rows: slice, start: int) -> "KVCache":
         """A cache whose column 0 is column ``start`` of batch ``rows`` of
         this one — writes through it land in this cache (the engine's
-        prefill writes a slot's prompt straight into its columns)."""
+        prefill writes a slot's prompt straight into its columns). It has a
+        cursor of its own."""
         return KVCache(self.k[:, rows, start:], self.v[:, rows, start:],
                        self.valid[rows, start:])
 
@@ -179,35 +212,39 @@ class KVCache:
 
     def decode_positions(self, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """(slot positions (s,) int32, rope positions (B, s)): slots continue
-        at the write cursor, RoPE continues each row's true sequence."""
-        cur = self.index
-        if cur + s > self.max_seq_len:
-            raise ValueError(f"decode step of {s} past the cache end ({cur} + {s} > {self.max_seq_len})")
-        dev = self.valid.device
-        pos = torch.arange(cur, cur + s, dtype=torch.int32, device=dev)
-        steps = torch.arange(s, dtype=torch.int64, device=dev)
-        rope_pos = valid_count_below(self.valid, cur)[:, None] + steps[None]
-        return pos, rope_pos
+        at the device cursor, RoPE continues each row's true sequence. The
+        bound is checked against the host mirror, which the caller keeps."""
+        if self.index + s > self.max_seq_len:
+            raise ValueError(f"decode step of {s} past the cache end ({self.index} + {s} > "
+                             f"{self.max_seq_len})")
+        steps = self._cols[:s]
+        self._step_cols = self.cursor + steps
+        rope_pos = valid_count_below(self.valid, self.cursor)[:, None] + steps[None]
+        return self._step_cols.to(torch.int32), rope_pos
 
     def decode_valid(self, padding_mask: Optional[torch.Tensor], s: int) -> None:
         """Validity (B, s) of the INCOMING tokens at the cursor; finished
         rows pass False so their filler K/V never becomes attendable."""
-        b, cur = self.valid.shape[0], self.index
+        b = self.valid.shape[0]
         if padding_mask is not None and tuple(padding_mask.shape) != (b, s):
             raise ValueError(
                 f"decode padding_mask must cover the incoming step tokens "
                 f"(shape {(b, s)}), got {tuple(padding_mask.shape)}"
             )
-        self.valid[:, cur:cur + s] = (
-            padding_mask.to(torch.bool) if padding_mask is not None else True
-        )
+        mask = (padding_mask.to(torch.bool) if padding_mask is not None
+                else torch.ones((b, s), dtype=torch.bool, device=self.valid.device))
+        self.valid.index_copy_(1, self._step_cols, mask)
 
     def decode_write(self, layer: int, k: torch.Tensor, v: torch.Tensor) -> None:
         """Append one layer's decode K/V at the cursor (the model advances
         the cursor once, after its last layer)."""
-        cur, s = self.index, k.shape[1]
-        self.k[layer, :, cur:cur + s] = k
-        self.v[layer, :, cur:cur + s] = v
+        self.k[layer].index_copy_(1, self._step_cols, k)
+        self.v[layer].index_copy_(1, self._step_cols, v)
+
+    def advance(self, s: int) -> None:
+        """Move the device cursor ``s`` columns, in place (the end of a
+        decode forward)."""
+        self.cursor.add_(s)
 
     def attend(self, layer: int, q: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
         """Decode attention of q (B, s, H, D) at cache columns ``q_pos``
@@ -220,7 +257,7 @@ class PagedKVCache(KVCache):
     POOLS (num_layers, num_pages, page_size, Hkv, D), zero-initialised;
     ``block_table`` (B, n_log) int32 on the device maps logical page j of
     row b to a pool page (0 = the reserved null page, never attendable);
-    ``valid`` (B, n_log * page_size) and ``index`` stay LOGICAL, exactly as
+    ``valid`` (B, n_log * page_size) and the cursor stay LOGICAL, exactly as
     in :class:`KVCache` (the JAX paged collection keeps ``kv_valid`` and
     ``index`` logical too, ``modules/attention.py:502-518``). The host owns
     the table (``serving/paging.py``) and uploads it with
@@ -273,20 +310,19 @@ class PagedKVCache(KVCache):
         return PagedKVCache(self.k, self.v, self.valid[rows, start:], self.block_table[rows],
                             self.page_size, col0=self.col0 + start)
 
-    def _address(self, first: int, s: int) -> None:
-        """Physical (page, row) of logical columns [first, first + s) of
-        every row, for the writes of the forward about to run."""
-        cols = torch.arange(self.col0 + first, self.col0 + first + s,
-                            device=self.block_table.device)
+    def _address(self, cols: torch.Tensor) -> None:
+        """Physical (page, row) of this object's columns ``cols`` (a device
+        tensor) in every row, for the writes of the forward about to run."""
+        cols = cols + self.col0
         self._dst = (self.block_table[:, cols // self.page_size].long(), cols % self.page_size)
 
     def prefill_valid(self, padding_mask: Optional[torch.Tensor], s: int) -> None:
         super().prefill_valid(padding_mask, s)
-        self._address(0, s)
+        self._address(self._cols[:s])
 
     def decode_positions(self, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
         pos, rope_pos = super().decode_positions(s)
-        self._address(self.index, s)
+        self._address(self._step_cols)
         return pos, rope_pos
 
     def decode_write(self, layer: int, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -322,13 +358,9 @@ def reset_cache_slot(cache: KVCache, slot: int) -> None:
     cache.valid[slot] = False
 
 
-def cache_cursor(cache: KVCache) -> int:
-    """The shared write cursor."""
-    return cache.index
-
-
 def reset_cache(cache: KVCache) -> None:
-    """Clear every slot's validity and rewind the cursor (drain/preempt)."""
+    """Clear every slot's validity and rewind the cursor, mirror and device
+    (drain/preempt)."""
     cache.valid.zero_()
     cache.index = 0
 

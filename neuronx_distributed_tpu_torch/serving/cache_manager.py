@@ -6,7 +6,11 @@ The engine owns ONE :class:`KVCache` shaped ``(num_slots, max_seq_len)`` per
 layer, allocated once and updated in place. Batch rows are request slots;
 the column layout is the shared-cursor scheme:
 
-* ``index`` is a single write cursor shared by every slot;
+* ``index`` is a single write cursor shared by every slot, kept on the
+  device (``cursor``, which the decode steps read and advance) with a host
+  mirror; the host is the authority between chunks: admission, the rewind
+  after a chunk and reset set the mirror, which writes the device cursor
+  (a host→device write, never a read);
 * a newly admitted prompt, padded to ``padded_len``, is placed so its last
   token sits at column ``cursor - 1`` — the JAX engine rolls a prefill row
   right by ``cursor - padded_len`` (``_admit_row``); here the prefill writes
@@ -31,8 +35,9 @@ from neuronx_distributed_tpu_torch.modules.attention import (
 def _admit_row(cache: KVCache, slot: int, padded_len: int, cursor: int) -> KVCache:
     """Prepare ``slot`` for a prompt padded to ``padded_len`` whose last
     token lands at column ``cursor - 1``: clear the slot's validity, set the
-    shared cursor, and return the view whose column 0 is column
-    ``cursor - padded_len`` of the slot (the prefill writes through it)."""
+    shared cursor (mirror and device), and return the view whose column 0
+    is column ``cursor - padded_len`` of the slot (the prefill writes
+    through it)."""
     reset_cache_slot(cache, slot)
     cache.index = cursor
     return cache.view(slice(slot, slot + 1), cursor - padded_len)
@@ -81,8 +86,8 @@ class SlotCacheManager:
         self._free = list(range(self.num_slots))
 
     def update_after_decode(self, start: int, steps: int) -> None:
-        """Set the cursor after a decode chunk that began at ``start`` and
-        consumed ``steps`` columns."""
+        """Set the cursor (mirror and device) after a decode chunk that
+        began at ``start`` and consumed ``steps`` columns."""
         self.cache.index = start + steps
 
     def reset(self) -> None:

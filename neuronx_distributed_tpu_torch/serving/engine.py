@@ -16,12 +16,19 @@ chunks over all ``num_slots`` slots:
   device memory under mixed-length traffic; decode attends straight from
   the pool pages (K5).
 * ``decode_chunk_size`` decode steps run between two host reads
-  (:func:`~neuronx_distributed_tpu_torch.inference.generate.
-  chunked_decode_step`): EOS/budget freezing happens on the device and the
+  (:class:`~neuronx_distributed_tpu_torch.inference.generate.
+  ChunkedDecode`): EOS/budget freezing happens on the device and the
   host pays ONE read per steady chunk — the (chunk, slots) token block with
   the per-slot counts. Every device→host read goes through
   :meth:`ServingEngine._host_read`, which counts them (``host_reads``):
   one per admitted fresh request (its first token), one per chunk.
+* On the card the decode step is ONE CUDA graph per engine
+  (``inference/graphs.py``), the counterpart of the JAX engine's one jitted
+  decode program: captured at the engine's first decode chunk (or by
+  :meth:`ServingEngine.prewarm`) and replayed for every step after, on
+  buffers that live as long as the engine — the slot state, the cache and
+  its device write cursor, the token blocks. So the engine updates them in
+  place and never rebinds them. On the CPU the same step runs eagerly.
 
 Token-stream fidelity: a request served here yields exactly the tokens of a
 solo ``generate(prompt, seed=...)`` — the same prefill math (left padding),
@@ -53,8 +60,8 @@ import numpy as np
 import torch
 
 from neuronx_distributed_tpu_torch.inference.generate import (
+    ChunkedDecode,
     GenerationConfig,
-    chunked_decode_step,
     pack_padded_prompt,
     serving_clones,
     validate_generate_args,
@@ -88,6 +95,15 @@ def _config_sentinels(cfg: GenerationConfig):
         int(cfg.top_k if cfg.top_k is not None else 0),
         float(cfg.top_p if cfg.top_p is not None else 1.0),
     )
+
+
+# per-slot decode state: dtype and the value of a free slot
+_SLOT_DEFAULTS = {
+    "tok": (torch.int64, 0), "seed": (torch.int64, 0), "ntok": (torch.int64, 0),
+    "active": (torch.bool, False), "remaining": (torch.int64, 0),
+    "temp": (torch.float32, 1.0), "topk": (torch.int64, 0),
+    "topp": (torch.float32, 1.0), "eos": (torch.int64, -1),
+}
 
 
 def _bucket(p: int, max_seq_len: int, remaining: int, floor: int = 8) -> int:
@@ -146,21 +162,45 @@ class ServingEngine:
         self._active = np.zeros((num_slots,), bool)
         self._slot_req: List[Optional[Request]] = [None] * num_slots
         self._next_rid = 0
-        self._state = self._fresh_slot_state()
-        self._decode_chunk = chunked_decode_step(
-            self._decode_model, decode_chunk_size, self.max_seq_len
-        )
+        self._state = {name: torch.full((num_slots,), v, dtype=dt, device=self.device)
+                       for name, (dt, v) in _SLOT_DEFAULTS.items()}
+        self._decode_chunk = ChunkedDecode(self._decode_model, decode_chunk_size,
+                                           self.max_seq_len, self.cache.cache, self._state)
         self.host_reads = 0
 
-    def _fresh_slot_state(self):
-        b, dev = self.num_slots, self.device
-        z = lambda dt, v=0: torch.full((b,), v, dtype=dt, device=dev)  # noqa: E731
-        return {
-            "tok": z(torch.int64), "seed": z(torch.int64), "ntok": z(torch.int64),
-            "active": z(torch.bool, False), "remaining": z(torch.int64),
-            "temp": z(torch.float32, 1.0), "topk": z(torch.int64),
-            "topp": z(torch.float32, 1.0), "eos": z(torch.int64, -1),
-        }
+    def _reset_slot_state(self) -> None:
+        """Every slot's device state back to its defaults, IN PLACE: the
+        captured decode step reads these very buffers."""
+        for name, (_, v) in _SLOT_DEFAULTS.items():
+            self._state[name].fill_(v)
+
+    @property
+    def decode_program(self):
+        """The engine's decode program (``inference/graphs.DecodeProgram``)."""
+        return self._decode_chunk.program
+
+    @property
+    def decode_compilations(self) -> int:
+        """Decode programs captured: 1 on the card from the first decode
+        chunk on, whatever the churn, preemption or cancellation (the JAX
+        engine's ``decode_compilations``, one jitted chunk per engine); 0
+        on the CPU, where the step runs eagerly and nothing is captured."""
+        return self._decode_chunk.program.captures
+
+    def prewarm(self) -> float:
+        """Capture the decode program now, on an idle engine, so that no
+        request waits for it (the counterpart of ``aot.prewarm_programs``):
+        the capture's warm-up runs one masked no-op step at the rewound
+        cursor and leaves no trace. Returns the capture's wall seconds (0 on
+        the CPU or when already captured), also recorded in the metrics."""
+        if self._active.any():
+            raise ValueError("prewarm captures on an idle engine; slots are active")
+        if self.cache.cursor > 0:
+            self.cache.reset()
+        seconds = self._decode_chunk.program.capture()
+        if seconds:
+            self.metrics.record_capture(seconds)
+        return seconds
 
     def _host_read(self, t: torch.Tensor) -> np.ndarray:
         """THE device→host read of the engine (the ``jax.device_get`` of the
@@ -437,12 +477,19 @@ class ServingEngine:
         self._decode_plain()
 
     def _decode_plain(self) -> None:
-        """One fused decode chunk, then ONE host read of the token block."""
+        """One fused decode chunk through the decode program (captured at
+        the first chunk on the card), then ONE host read of the token
+        block. A capture's wall is recorded apart from the dispatch wall."""
         active_at_dispatch = int(self._active.sum())
         start = self.cache.cursor
+        prog = self._decode_chunk.program
+        captured, replays = prog.captures, prog.replays
         t0 = time.monotonic()
-        toks, counts, executed = self._decode_chunk(self.cache.cache, self._state)
+        toks, counts, executed = self._decode_chunk()
         t1 = time.monotonic()
+        capture_s = prog.capture_s if prog.captures > captured else 0.0
+        if capture_s:
+            self.metrics.record_capture(capture_s)
         block = self._host_read(torch.cat([toks, counts[None]], dim=0))
         t2 = time.monotonic()
         toks, counts = block[:-1], block[-1]
@@ -461,8 +508,9 @@ class ServingEngine:
                 if req.finished:
                     break  # EOS or budget: the rest of its block is discarded
         self.metrics.record_decode_chunk(delivered, used, executed, self.cache.cursor,
-                                         active_at_dispatch, dispatch_s=t1 - t0,
-                                         readback_s=t2 - t1)
+                                         active_at_dispatch, dispatch_s=t1 - t0 - capture_s,
+                                         readback_s=t2 - t1,
+                                         replays=prog.replays - replays)
 
     # --- lifecycle ----------------------------------------------------------
 
@@ -511,4 +559,4 @@ class ServingEngine:
         self.scheduler.requeue_front(preempted)
         self.cache.release_all_slots()
         self.cache.reset()
-        self._state = self._fresh_slot_state()
+        self._reset_slot_state()

@@ -1,9 +1,11 @@
 """Serving metrics (counterpart of
 ``neuronx_distributed_tpu/serving/metrics.py``, the subset the engine's core
 records): TTFT, queue wait, decode tokens/s, chunk counts, slot
-occupancy (mean and peak) and, for a paged engine, the peak of pages
-mapped, as plain host numbers in ``snapshot()`` (the JAX snapshot's key
-names, plus ``peak_occupancy`` and ``peak_pages_mapped``). Recording costs
+occupancy (mean and peak), for a paged engine the peak of pages mapped, and
+the decode program's captures, capture wall and graph replays, as plain
+host numbers in ``snapshot()`` (the JAX snapshot's key names, plus
+``peak_occupancy``, ``peak_pages_mapped``, ``decode_captures``,
+``capture_s`` and ``graph_replays``). Recording costs
 no device read: every sample is a host scalar the engine already holds."""
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ class ServingMetrics:
         self.preemptions = self.rejects = 0
         self.cursor_high_water = 0
         self.decode_dispatch_s = self.decode_readback_s = 0.0
+        self.graph_replays = self.decode_captures = 0
+        self.capture_s = 0.0
         self.prefill_walls: List[float] = []
 
     def record_submit(self, req, now: float) -> None:
@@ -79,12 +83,14 @@ class ServingMetrics:
 
     def record_decode_chunk(self, tokens: int, steps: int, executed: int, cursor: int,
                             active_slots: int, dispatch_s: float = 0.0,
-                            readback_s: float = 0.0) -> None:
+                            readback_s: float = 0.0, replays: int = 0) -> None:
         """One decode chunk: ``tokens`` delivered across ``steps`` used
         steps (those with a live slot, the JAX count) by ``active_slots``
         slots held at dispatch; ``executed`` counts the model steps that ran,
         the masked no-ops after every slot froze included; ``dispatch_s``/
-        ``readback_s`` split its wall time around the one host read."""
+        ``readback_s`` split its wall time around the one host read (a
+        capture's wall is recorded apart, :meth:`record_capture`);
+        ``replays`` counts the decode-program replays among its steps."""
         self.chunks += 1
         self.steps += steps
         self.executed_steps += executed
@@ -94,6 +100,13 @@ class ServingMetrics:
         self.cursor_high_water = max(self.cursor_high_water, cursor)
         self.decode_dispatch_s += dispatch_s
         self.decode_readback_s += readback_s
+        self.graph_replays += replays
+
+    def record_capture(self, seconds: float) -> None:
+        """A decode-program capture and its wall (warm-up included), kept
+        out of the chunk walls."""
+        self.decode_captures += 1
+        self.capture_s += seconds
 
     def record_pages_mapped(self, pages: int) -> None:
         """Pool pages mapped at a paged chunk's dispatch."""
@@ -116,6 +129,9 @@ class ServingMetrics:
             "chunks": self.chunks,
             "decode_dispatch_s": self.decode_dispatch_s,
             "decode_readback_s": self.decode_readback_s,
+            "decode_captures": self.decode_captures,
+            "capture_s": self.capture_s,
+            "graph_replays": self.graph_replays,
             "chunk_tokens_per_sec": self.decode_tokens / wall if wall > 0 else 0.0,
             "prefills": self.prefills,
             "decode_tokens": self.decode_tokens,

@@ -21,7 +21,10 @@ full ``max_seq_len`` row of device memory whatever its request uses. Here:
   copy, never a read, so a steady decode chunk still costs one host read.
   The model writes K/V in place through the device table and attends
   straight from the pool (K5); validity and the shared cursor stay
-  logical, so token streams equal the row engine's.
+  logical, so token streams equal the row engine's. As in the row manager,
+  the host sets the cursor's mirror (admission, the rewind after a chunk,
+  reset), which writes the device cursor; the table copy and the cursor
+  write happen between chunks, outside the captured decode step.
 * Every admission page-aligns its context START (the cursor target is
   bumped by fewer than ``page_size`` columns; gap columns stay invalid):
   the alignment the prefix-cache slice shares whole pages on. The left
@@ -285,8 +288,8 @@ class PagedCacheManager:
         self._free = list(range(self.num_slots))
 
     def update_after_decode(self, start: int, steps: int) -> None:
-        """Set the cursor after a decode chunk that began at ``start`` and
-        consumed ``steps`` columns."""
+        """Set the cursor (mirror and device) after a decode chunk that
+        began at ``start`` and consumed ``steps`` columns."""
         self.cache.index = start + steps
 
     def reset(self) -> None:

@@ -404,7 +404,12 @@ def test_engine_on_card_goes_through_both_kernels(cuda):
     engine.run()
     assert all(len(r.tokens) == 12 and all(0 <= t < 1000 for t in r.tokens) for r in reqs)
     assert tfa.flash_attention_fwd.launches - n1 == 3 * cfg.num_layers
-    assert tfd.flash_decode_fwd.launches > n4
+    # the decode steps are graph replays: the wrapper ran for the capture's
+    # warm-up, and each replay launches what the capture recorded
+    prog = engine.decode_program
+    assert tfd.flash_decode_fwd.launches - n4 == cfg.num_layers
+    assert (prog.replays * prog.launches_per_replay["flash_decode"]
+            == engine.metrics.executed_steps * cfg.num_layers)
 
 
 @pytest.mark.cuda
@@ -437,11 +442,100 @@ def test_paged_engine_on_card_goes_through_k5(cuda, monkeypatch):
             monkeypatch.setattr(tattn, "paged_flash_decode_attention", gathered)
         engine.run()
         executed = engine.metrics.executed_steps * cfg.num_layers
+        # every executed step is a replay of the graph captured (with the
+        # patch in force, for the witness) at the first chunk; the wrappers
+        # ran only for the capture's warm-up
+        prog = engine.decode_program
+        replayed = {name: prog.replays * n for name, n in prog.launches_per_replay.items()}
+        warmup = (tfd.paged_flash_decode_fwd.launches - n5, tfd.flash_decode_fwd.launches - n4)
         if attention == "fused":
-            assert (tfd.paged_flash_decode_fwd.launches - n5, tfd.flash_decode_fwd.launches - n4) == (executed, 0)
+            assert (replayed.get("paged_flash_decode", 0), replayed.get("flash_decode", 0)) == (executed, 0)
+            assert warmup == (cfg.num_layers, 0)
         else:
-            assert (tfd.paged_flash_decode_fwd.launches - n5, tfd.flash_decode_fwd.launches - n4) == (0, executed)
+            assert (replayed.get("paged_flash_decode", 0), replayed.get("flash_decode", 0)) == (0, executed)
+            assert warmup == (0, cfg.num_layers)
         assert all(len(r.tokens) == 12 and all(0 <= t < 1000 for t in r.tokens) for r in reqs)
+        engine.cache.check()
+        streams.append([r.tokens for r in reqs])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_engine_decodes_through_one_captured_graph(cuda, monkeypatch, paged):
+    """The engine's decode step is one CUDA graph, captured at the first
+    chunk and replayed for every executed step, across an eager
+    preemption; one replay launches one decode kernel per layer; the token
+    streams equal the same engine's with the eager step patched in."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.inference.graphs import DecodeProgram
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512)
+    model = init_params(LlamaForCausalLM(cfg), seed=0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 1000, size=n) for n in (120, 40, 160)]
+    news = (360, 40, 120)
+    kw = dict(kv_page_size=16) if paged else {}
+    wrapper = tfd.paged_flash_decode_fwd if paged else tfd.flash_decode_fwd
+    name = "paged_flash_decode" if paged else "flash_decode"
+    streams = []
+    for eager in (False, True):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(DecodeProgram, "__call__", lambda self: self.step())
+            engine = ServingEngine(model, num_slots=2, decode_chunk_size=8, admission="eager",
+                                   **kw)
+            reqs = [engine.submit(p, GenerationConfig(n, temperature=0.0), seed=i)
+                    for i, (p, n) in enumerate(zip(prompts, news))]
+            n0 = wrapper.launches
+            engine.run()
+        snap = engine.metrics.snapshot()
+        assert snap["preemptions"] > 0
+        assert [len(r.tokens) for r in reqs] == list(news)
+        prog = engine.decode_program
+        if eager:
+            assert engine.decode_compilations == 0 and prog.replays == 0
+            assert wrapper.launches - n0 == snap["executed_steps"] * cfg.num_layers
+        else:
+            assert engine.decode_compilations == 1 == snap["decode_captures"]
+            assert prog.replays == snap["executed_steps"] == snap["graph_replays"]
+            assert prog.launches_per_replay == {name: cfg.num_layers}
+            assert wrapper.launches - n0 == cfg.num_layers  # the capture's warm-up
+            assert snap["capture_s"] > 0
+        if paged:
+            engine.cache.check()
+        streams.append([r.tokens for r in reqs])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+def test_prewarm_captures_on_an_idle_engine(cuda):
+    """``prewarm`` captures before any request (no trace: the streams equal
+    an engine that captures at its first chunk), and a second engine of
+    the same model captures its own graph."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512)
+    model = init_params(LlamaForCausalLM(cfg), seed=0)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 1000, size=n) for n in (9, 70, 33)]
+    streams = []
+    for prewarm in (True, False):
+        engine = ServingEngine(model, num_slots=3, decode_chunk_size=4, kv_page_size=16)
+        if prewarm:
+            assert engine.prewarm() > 0 and engine.decode_compilations == 1
+            assert engine.cache.cursor == 0 and int(engine.cache.cache.cursor) == 0
+            assert engine.prewarm() == 0.0  # captured once
+        reqs = [engine.submit(p, GenerationConfig(10, temperature=0.0), seed=i)
+                for i, p in enumerate(prompts)]
+        engine.run()
+        assert engine.decode_compilations == 1
         engine.cache.check()
         streams.append([r.tokens for r in reqs])
     assert streams[0] == streams[1]
