@@ -24,7 +24,8 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    than the host needs to issue them: their times are CUDA-graph replays
    (``graph_ms``), with the back-to-back time printed beside; K4's and
    K5's split plans (blocks, live tiles, bytes moved against the bound's)
-   are printed;
+   are printed; K4 and K5 on their multi-row path at phase 5c's geometry
+   (R = 64, 1024 and 2048), K5 bitwise equal to K4 on the gathered view;
 3. outputs: the full-width model's logits through the kernels, with a row
    cache and with a paged cache behind a scrambled block table, against the
    same model with the plain versions swapped in, on a short prompt;
@@ -45,6 +46,17 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    first chunk, so the graph captures it) and with the eager step patched
    in, all with identical token streams; then the K5 run once more under
    the profiler (K5 records counted as in 5);
+5c. prefix-cache serving: 12 requests sharing a 1600-token system prompt
+   (4 short tails, 7 chat turns of 100-400 tokens, a duplicate) through the
+   row engine and the paged engine, each with the prefix cache and without,
+   after a warm-up wave on another system prompt and the store cleared:
+   11 hits and 1 miss, hits prefilling their tails through K4/K5 (the
+   multi-row path above 32 rows per kv-head) and never K1, the decode
+   program captured once; paged: zero KV bytes copied, 100 pages shared a
+   hit, pinned pages bitwise unchanged, ``check()`` after every step, every
+   page free after the store is cleared; three hits' suffix-prefill logits
+   against full prefills of the same contexts (phase 3's limits); the
+   earlier serving phases run with ``prefix_cache=None``;
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -504,6 +516,117 @@ def check_k5(gen, shapes: str, timed: bool):
     return res
 
 
+ROWS_PREFIX, ROWS_PADDED = 1600, 2048  # phase 5c's shared prompt and its prefill bucket
+
+
+def rows_inputs(gen, chunk: int):
+    """``check_decode_rows``'s inputs at phase 5c's geometry: one slot of a
+    row cache (1, 8192, 8, 128) whose context of p tokens ends at column
+    2048 (left padding before it): a live 1600-column prefix, then a suffix
+    chunk of ``chunk`` tokens at the prefix's end, s = min(chunk - 3, 400)
+    of them real (the longest chat turn is 400 tokens) and the rest a pad
+    tail (invalid columns), so R = 4 x chunk rows per kv-head; q (1, chunk,
+    32, 128)."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    h, hkv, d, L = 32, 8, 128, 8192
+    s = min(chunk - 3, 400)
+    c0 = ROWS_PADDED - ROWS_PREFIX - s  # the context's first column
+    assert c0 >= 0, "the context must fit the prefill bucket"
+    q = torch.randn(1, chunk, h, d, generator=gen, device=dev).to(bf)
+    kc = torch.randn(1, L, hkv, d, generator=gen, device=dev).to(bf)
+    vc = torch.randn(1, L, hkv, d, generator=gen, device=dev).to(bf)
+    pos = torch.arange(c0 + ROWS_PREFIX, c0 + ROWS_PREFIX + chunk, dtype=torch.int32, device=dev)
+    valid = torch.zeros(1, L, dtype=torch.bool, device=dev)
+    valid[0, c0:c0 + ROWS_PREFIX + s] = True
+    return q, kc, vc, pos, valid
+
+
+def scrambled_pages(kc, vc, valid, ps: int = 16, seed: int = 7):
+    """Pools, a numpy-seeded scrambled block table and its page count for a
+    batch-1 row cache: logical pages with a valid column map to random pool
+    pages holding their columns, the rest to page 0, filled with garbage."""
+    import numpy as np
+
+    _, L, hkv, d = kc.shape
+    n_log = L // ps
+    mapped = np.flatnonzero(valid[0].reshape(n_log, ps).any(-1).cpu().numpy())
+    perm = np.random.default_rng(seed).permutation(np.arange(1, len(mapped) + 1))
+    kp = torch.randn(len(mapped) + 1, ps, hkv, d, device=kc.device).to(kc.dtype).mul_(64.0)
+    vp = torch.randn(len(mapped) + 1, ps, hkv, d, device=kc.device).to(kc.dtype).mul_(64.0)
+    table = np.zeros((1, n_log), np.int32)
+    table[0, mapped] = perm
+    idx = torch.from_numpy(perm).long().to(kc.device)
+    cols = torch.from_numpy(mapped).long().to(kc.device)
+    kp[idx] = kc[0].reshape(n_log, ps, hkv, d)[cols]
+    vp[idx] = vc[0].reshape(n_log, ps, hkv, d)[cols]
+    return kp, vp, torch.from_numpy(table).to(kc.device)
+
+
+def check_decode_rows(gen, chunk: int) -> dict:
+    """K4's and K5's multi-row path at phase 5c's geometry with R = 4 x
+    ``chunk`` rows: against the plain versions (K4's limit), bitwise
+    reproducible, K5 through a scrambled table bitwise equal to K4 on the
+    gathered view; a kernel that dropped one 32-row tile (its 8 tokens' rows
+    zero) must read above the limit. Times as CUDA-graph replays, beside the
+    plain version's and SDPA's (boolean mask, GQA, on the row view)."""
+    from torch.nn import functional as F
+
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+        flash_decode_fwd,
+        flash_decode_plain,
+        paged_flash_decode_fwd,
+        paged_gather_leaf,
+    )
+
+    h, hkv, d, ps = 32, 8, 128, 16
+    q, kc, vc, pos, valid = rows_inputs(gen, chunk)
+    out, lse = flash_decode_fwd(q, kc, vc, pos, valid)
+    again, again_lse = flash_decode_fwd(q, kc, vc, pos, valid)
+    kp, vp, bt = scrambled_pages(kc, vc, valid, ps)
+    paged, paged_lse = paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
+    row, row_lse = flash_decode_fwd(q, paged_gather_leaf(kp, bt, ps), paged_gather_leaf(vp, bt, ps),
+                                    pos, valid)
+    ref, ref_lse = flash_decode_plain(q, kc, vc, pos, valid)
+    pv = flash_decode_plain(q, kc, vc.abs(), pos, valid)[0]
+    fault = ref.clone()
+    fault[:, chunk // 2:chunk // 2 + 8] = 0  # one row tile: 8 tokens of every head of a group
+    torch.cuda.synchronize()
+    err, lerr = max_err(out, ref), max_err(lse, ref_lse)
+    ratio, fault_ratio = tol_ratio(out, ref, pv, K4_PV), tol_ratio(fault, ref, pv, K4_PV)
+    tag = f"K4/K5 multi-row (R={4 * chunk})"
+    if not (ratio <= 1.0 and lerr <= LSE_TOL):
+        raise AssertionError(f"{tag}: max |out err| {err} at {ratio:.3g}x its limit, "
+                             f"|lse err| {lerr} (tol {LSE_TOL})")
+    if fault_ratio <= 1.0:
+        raise AssertionError(f"{tag}: the output limit passes a dropped row tile ({fault_ratio:.3g}x)")
+    if not (torch.equal(out, again) and torch.equal(lse, again_lse)):
+        raise AssertionError(f"{tag}: two runs differ in their bits")
+    if not (torch.equal(paged, row) and torch.equal(paged_lse, row_lse)):
+        raise AssertionError(f"{tag}: K5 differs from K4 on the gathered view (must be bitwise equal)")
+    # least work: every row's live pairs (valid columns at or before its
+    # position), 4 D FLOPs each per q-head; least bytes: q, the K/V columns
+    # live for some row, the validity bytes up to the bound, out and lse
+    cols = torch.arange(kc.shape[1], device=q.device)
+    live = valid[0][None, :] & (cols[None, :] <= pos[:, None].long())  # (chunk, L)
+    pairs = int(live.sum())
+    live_cols = int(live.any(0).sum())
+    bound_cols = int(pos.max()) + 1
+    flops = 4.0 * d * h * pairs
+    nbytes = (2 * q.numel() + 2 * 2 * live_cols * hkv * d + bound_cols + 2 * out.numel()
+              + 4 * lse.numel())
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    mask = live[None, None]  # (1, 1, chunk, L)
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    return dict(rows=4 * chunk, err=max(err, lerr, max_err(paged, ref)), ratio=ratio,
+                fault_ratio=fault_ratio, pairs=pairs, bound_ms=bound, bound_by=bound_by,
+                ms=graph_ms(lambda: flash_decode_fwd(q, kc, vc, pos, valid), 5),
+                paged_ms=graph_ms(lambda: paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps), 5),
+                plain_ms=cuda_ms(lambda: flash_decode_plain(q, kc, vc, pos, valid), 3, warmup=1),
+                library_ms=graph_ms(lib, 5), gflop=flops / 1e9)
+
+
 def packed_segments(rng, b: int, s: int, lo: int = 200, hi: int = 3000):
     """(B, S) int32 segment ids of documents of lo..hi tokens packed end to
     end (a document cut by the window edge keeps its id)."""
@@ -834,7 +957,7 @@ def serve_workload(model, workload, eager: bool = False) -> dict:
 
     prompts, cfgs = workload
     layers = model.config.num_layers
-    engine = ServingEngine(model, num_slots=8, decode_chunk_size=8)
+    engine = ServingEngine(model, num_slots=8, decode_chunk_size=8, prefix_cache=None)
     counters = kernel_counters()
     torch.cuda.synchronize()
     for c in counters.values():
@@ -895,7 +1018,7 @@ def profile_serving(model, workload) -> dict:
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
 
     prompts, cfgs = workload
-    engine = ServingEngine(model, num_slots=8, decode_chunk_size=8)
+    engine = ServingEngine(model, num_slots=8, decode_chunk_size=8, prefix_cache=None)
     capture_s = prewarm(engine)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i, (p, c) in enumerate(zip(prompts, cfgs)):
@@ -957,7 +1080,8 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
 
     cfg = model.config
     engine = ServingEngine(model, num_slots=PAGED_SLOTS, decode_chunk_size=8, kv_page_size=PAGE,
-                           kv_num_pages=ROW_SLOTS * cfg.max_seq_len // PAGE + 1)
+                           kv_num_pages=ROW_SLOTS * cfg.max_seq_len // PAGE + 1,
+                           prefix_cache=None)
     prompts, cfgs = workload
     counters = kernel_counters()
     torch.cuda.synchronize()
@@ -1022,6 +1146,291 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
     del engine
     torch.cuda.empty_cache()
     return res
+
+
+# --- phase 5c: prefix-cache serving ----------------------------------------------
+
+def prefix_workload(vocab: int, seed: int = 5):
+    """The JAX bench's prefix leg (``bench.py:860-1011``) at Llama-3-8B
+    scale: a shared system prompt of 1600 tokens (numpy seed ``seed``) and 12
+    requests, each the system prompt plus a unique tail: 4 tails of 4-8
+    tokens (the bench's own; suffix chunk <= 8, R <= 32), 7 chat turns of
+    100-400 tokens (chunks 128-512, R = 512-2048) and an exact duplicate of
+    the first request (reuse capped at p - 1); 32 new tokens each, half
+    greedy, half at temperature 0.8 with top_k 20."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+
+    rng = np.random.default_rng(seed)
+    system = rng.integers(1, vocab, size=ROWS_PREFIX)
+    tails = [rng.integers(1, vocab, size=int(rng.integers(4, 9))) for _ in range(4)]
+    tails += [rng.integers(1, vocab, size=int(rng.integers(100, 401))) for _ in range(7)]
+    prompts = [np.concatenate([system, t]).astype(np.int32) for t in tails]
+    prompts.append(prompts[0].copy())
+    cfgs = [GenerationConfig(max_new_tokens=32, temperature=0.0) if i % 2 == 0 else
+            GenerationConfig(max_new_tokens=32, temperature=0.8, top_k=20) for i in range(12)]
+    return prompts, cfgs
+
+
+def prefix_warmup(vocab: int):
+    """The warm-up wave: the same shapes on a different system prompt (seed
+    6), 4 new tokens each, so the decode program is captured and the suffix
+    chunks' shapes have run before the measured wave."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+
+    prompts, _ = prefix_workload(vocab, seed=6)
+    return prompts[:5] + prompts[-2:-1], [GenerationConfig(max_new_tokens=4, temperature=0.0)] * 6
+
+
+def serve_prefix(model, workload, paged: bool, prefix) -> dict:
+    """Phase 5c's workload through the row engine (8 slots, chunk 8,
+    conservative) or the paged engine (16 slots, page 16, 2049 pages), with
+    ``prefix`` as its ``prefix_cache``: the warm-up wave, the store cleared,
+    every kernel's launch count zeroed, then the measured wave, each request
+    submitted at once. Paged: ``check()`` after every step, each entry's
+    pages cloned when pinned and compared at the end, and after
+    ``prefix.clear()`` every page but the null page free."""
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
+
+    cfg = model.config
+    kw = (dict(num_slots=PAGED_SLOTS, kv_page_size=PAGE,
+               kv_num_pages=ROW_SLOTS * cfg.max_seq_len // PAGE + 1) if paged
+          else dict(num_slots=8))
+    engine = ServingEngine(model, decode_chunk_size=8, prefix_cache=prefix, **kw)
+    warm = prefix_warmup(cfg.vocab_size)
+    for i, (p, c) in enumerate(zip(*warm)):
+        engine.submit(p, c, seed=1000 + i)
+    engine.run()
+    if engine.prefix is not None:
+        engine.prefix.clear()  # the measured wave starts with a cold store
+    pinned = {}  # page: its K and V as the prefill left them, while an entry pins it
+    if paged:
+        pin, unpin = engine.cache.pin_pages, engine.cache.unpin_pages
+
+        def cloning(ids):
+            for pid in ids:
+                pinned.setdefault(int(pid), (engine.cache.cache.k[:, pid].clone(),
+                                             engine.cache.cache.v[:, pid].clone()))
+            pin(ids)
+
+        def dropping(ids):
+            unpin(ids)
+            for pid in ids:
+                if not engine.cache._pins.get(int(pid)):
+                    pinned.pop(int(pid), None)
+
+        engine.cache.pin_pages, engine.cache.unpin_pages = cloning, dropping
+    base = engine.metrics.snapshot()
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+        if hasattr(c, "multi_row_launches"):
+            c.multi_row_launches = 0
+    prog = decode_program(engine)
+    replays0 = prog.replays
+    t0 = time.perf_counter()
+    prompts, cfgs = workload
+    reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
+    while engine.has_work:
+        engine.step()
+        if paged:
+            engine.cache.check()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        if r.state is not RequestState.DONE or len(r.tokens) != 32:
+            raise AssertionError(f"prefix request {r.rid}: {r.state} with {len(r.tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"prefix request {r.rid}: token outside the vocabulary")
+    snap = engine.metrics.snapshot()
+    delta = {k: snap[k] - base[k] for k in (
+        "prefix_hits", "prefix_misses", "prefix_tokens_reused", "prefix_evictions",
+        "prefix_validation_failures", "prefix_pages_shared", "prefill_full_wall_s",
+        "prefill_suffix_wall_s", "prefill_full_count", "prefill_suffix_count", "prefills",
+        "executed_steps")}
+    launches = {name: c.launches for name, c in counters.items()}
+    rows = {name: c.multi_row_launches for name, c in counters.items() if name.endswith("decode")}
+    decode = "paged_flash_decode" if paged else "flash_decode"
+    per_replay = prog.launches_per_replay.get(decode, 0) if prog is not None else 0
+    # every executed decode step is a replay of the program the warm-up wave
+    # captured; the wrappers' own decode launches are the suffix prefills'
+    replays = prog.replays - replays0
+    if prog.captures and replays != delta["executed_steps"]:
+        raise AssertionError(f"prefix serving: {replays} replays != {delta['executed_steps']} "
+                             f"executed steps")
+    if (launches[decode] + replays * per_replay
+            != (delta["prefill_suffix_count"] + delta["executed_steps"]) * cfg.num_layers):
+        raise AssertionError(f"prefix serving: {decode} launches {launches[decode]} + "
+                             f"{replays} x {per_replay} in replays != ({delta['prefill_suffix_count']} "
+                             f"suffix prefills + {delta['executed_steps']} steps) x {cfg.num_layers}")
+    if launches["flash_attention"] != delta["prefill_full_count"] * cfg.num_layers:
+        raise AssertionError(f"prefix serving: K1 launches {launches['flash_attention']} != "
+                             f"{delta['prefill_full_count']} full prefills x {cfg.num_layers}")
+    if engine.decode_compilations != 1:
+        raise AssertionError(f"prefix serving: decode_compilations {engine.decode_compilations}")
+    res = dict(tokens=[list(r.tokens) for r in reqs], snap=snap, delta=delta, wall_s=wall,
+               launches=launches, multi_row=rows, replayed=replays * per_replay,
+               ttft=[r.first_token_time - r.submit_time for r in reqs], engine=engine)
+    if paged:
+        res["copy_bytes"] = engine.cache.alloc.copy_bytes
+        res["pages_shared_total"] = engine.cache.prefix_pages_shared_total
+        k, v = engine.cache.cache.k, engine.cache.cache.v
+        res["pinned_pages"] = len(pinned)
+        changed = [pid for pid, (pk, pv) in pinned.items()
+                   if not (torch.equal(k[:, pid], pk) and torch.equal(v[:, pid], pv))]
+        if changed:
+            raise AssertionError(f"paged prefix serving: pinned pages written: {changed[:8]}")
+        engine.cache.pin_pages, engine.cache.unpin_pages = pin, unpin
+        pinned.clear()
+    else:
+        res["entry_bytes"] = engine.prefix.nbytes if engine.prefix is not None else 0
+    return res
+
+
+def drain_prefix_store(res: dict) -> None:
+    """After the run: clear the store and check that every page but the
+    null page is free (paged), then free the engine."""
+    engine = res.pop("engine")
+    if engine.prefix is not None:
+        engine.prefix.clear()
+    if hasattr(engine.cache, "check"):
+        engine.cache.check()
+        if engine.cache.alloc.free_pages != engine.cache.alloc.capacity:
+            raise AssertionError(f"paged prefix serving: {engine.cache.alloc.free_pages} free "
+                                 f"pages of {engine.cache.alloc.capacity} after clear and drain")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def check_hit_logits(model, engine, workload) -> list:
+    """For a short tail, a long tail and the duplicate: the suffix-prefill
+    logits of a hit on the engine's stored entry (K4, on a fresh batch-1
+    cache seeded from it) against the full-prefill logits of the same
+    context (K1), phase 3's limits."""
+    from neuronx_distributed_tpu_torch.inference.generate import (
+        pack_padded_prompt,
+        serving_clones,
+        suffix_prefill_step,
+    )
+    from neuronx_distributed_tpu_torch.modules.attention import seed_cache_prefix
+    from neuronx_distributed_tpu_torch.serving.engine import _bucket, _suffix_bucket
+
+    prompts, cfgs = workload
+    _, decode = serving_clones(model)
+    L = model.config.max_seq_len
+    out = []
+    with torch.no_grad():
+        for name, i in (("short tail", 1), ("long tail", 6), ("duplicate", 11)):
+            ctx = prompts[i]
+            p = len(ctx)
+            entry, m_use = engine.prefix.peek(ctx)
+            if name != "duplicate":  # the reuse the tails got at admission: the system prompt
+                m_use = ROWS_PREFIX
+            padded = _bucket(p, L, cfgs[i].max_new_tokens)
+            ids, mask = pack_padded_prompt(ctx, padded)
+            cache = model.new_cache(1)
+            full = model(torch.from_numpy(ids).long().cuda(), mode="prefill", cache=cache,
+                         padding_mask=torch.from_numpy(mask).cuda(), last_only=True)[0, -1].float()
+            chunk = _suffix_bucket(p - m_use, padded, L)
+            seed_cache_prefix(cache, entry.tree, m_use, padded - p)
+            sfx, _ = pack_padded_prompt(ctx[m_use:], chunk, pad_side="right")
+            hit = suffix_prefill_step(decode, cache, torch.from_numpy(sfx).long().cuda(),
+                                      p - m_use).float()
+            del cache
+            if not torch.isfinite(hit).all():
+                raise AssertionError(f"non-finite suffix-prefill logits ({name})")
+            scale = float(full.abs().max())
+            rel = max_err(hit, full) / scale
+            in_top5 = bool((hit.topk(5).indices == full.argmax()).any())
+            if rel > 5e-2 or not in_top5:
+                raise AssertionError(f"hit logits ({name}) disagree with the full prefill: rel "
+                                     f"{rel}, full top-1 in the hit's top-5: {in_top5}")
+            out.append(dict(name=name, p=p, m=m_use, chunk=chunk, rows=4 * chunk, rel_err=rel,
+                            argmax_equal=bool(hit.argmax() == full.argmax()), logit_scale=scale))
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefix_phase(model) -> dict:
+    """Phase 5c: the prefix workload through the row and the paged engine,
+    each with the prefix cache (``"auto"``) and without, checked and
+    printed; the hit logits against full prefills on the row engine's
+    store. Returns the prefix-on runs' launches by wrapper (replays
+    included) and multi-row launches."""
+    from neuronx_distributed_tpu_torch.serving.cache_manager import PrefixCache
+
+    cfg = model.config
+    workload = prefix_workload(cfg.vocab_size)
+    out = {"launches": dict.fromkeys(kernel_counters(), 0), "multi_row": {}}
+    for paged in (False, True):
+        name = "paged" if paged else "row"
+        on = serve_prefix(model, workload, paged, PrefixCache())
+        if not paged:
+            hits = check_hit_logits(model, on["engine"], workload)
+        drain_prefix_store(on)
+        off = serve_prefix(model, workload, paged, None)
+        drain_prefix_store(off)
+        d = on["delta"]
+        # JAX counts 11 hits and 1 miss on this traffic (tests/test_torch_prefix.py)
+        if (d["prefix_hits"], d["prefix_misses"], d["prefix_validation_failures"]) != (11, 1, 0):
+            raise AssertionError(f"{name} prefix serving: hits {d['prefix_hits']}, misses "
+                                 f"{d['prefix_misses']}, validation failures "
+                                 f"{d['prefix_validation_failures']}; want 11, 1, 0")
+        if on["multi_row"]["paged_flash_decode" if paged else "flash_decode"] < 1:
+            raise AssertionError(f"{name} prefix serving never took the multi-row path")
+        if paged and (on["copy_bytes"] != 0
+                      or d["prefix_pages_shared"] < ROWS_PREFIX // PAGE * d["prefix_hits"]):
+            raise AssertionError(f"paged prefix serving: copy_bytes {on['copy_bytes']}, pages "
+                                 f"shared {d['prefix_pages_shared']} for {d['prefix_hits']} hits")
+        same = sum(a == b for a, b in zip(on["tokens"], off["tokens"]))
+        ttft_on, ttft_off = on["ttft"], off["ttft"]
+        ds = {k: off["delta"][k] for k in ("prefill_full_wall_s", "prefill_full_count")}
+        log(f"prefix serving ({name} engine, "
+            + (f"{PAGED_SLOTS} slots, page_size {PAGE}, {ROW_SLOTS * cfg.max_seq_len // PAGE + 1} "
+               "pages" if paged else "8 slots") + f", chunk 8, conservative): 12 requests, a "
+            f"{ROWS_PREFIX}-token system prompt + tails of 4-8 (4), 100-400 (7) and a duplicate, "
+            f"32 new tokens, half greedy; prefix on: hits {d['prefix_hits']}, misses "
+            f"{d['prefix_misses']}, hit rate {d['prefix_hits'] / (d['prefix_hits'] + d['prefix_misses']):.3f}, tokens reused "
+            f"{d['prefix_tokens_reused']}, evictions {d['prefix_evictions']}, validation failures "
+            f"{d['prefix_validation_failures']}; wall {on['wall_s']:.3f} s (off {off['wall_s']:.3f})")
+        log(f"prefix serving ({name}): prefill wall full {d['prefill_full_wall_s']:.4f} s over "
+            f"{d['prefill_full_count']} (mean {d['prefill_full_wall_s'] / max(d['prefill_full_count'], 1):.4f}), "
+            f"suffix {d['prefill_suffix_wall_s']:.4f} s over {d['prefill_suffix_count']} (mean "
+            f"{d['prefill_suffix_wall_s'] / max(d['prefill_suffix_count'], 1):.4f}); prefix off: "
+            f"full {ds['prefill_full_wall_s']:.4f} s over {ds['prefill_full_count']} (mean "
+            f"{ds['prefill_full_wall_s'] / max(ds['prefill_full_count'], 1):.4f}); TTFT mean "
+            f"{statistics.mean(ttft_on):.4f} s max {max(ttft_on):.4f} s on, mean "
+            f"{statistics.mean(ttft_off):.4f} s max {max(ttft_off):.4f} s off")
+        dec = "paged_flash_decode" if paged else "flash_decode"
+        log(f"prefix serving ({name}) launches, prefix on: K1 {on['launches']['flash_attention']} "
+            f"(full prefills), {dec} {on['launches'][dec] + on['replayed']} ("
+            f"{on['launches'][dec] - on['multi_row'][dec]} suffix prefills at R <= 32, "
+            f"{on['multi_row'][dec]} at R > 32 on the multi-row path, {on['replayed']} in decode "
+            f"replays); prefix off: K1 {off['launches']['flash_attention']}, {dec} "
+            f"{off['launches'][dec] + off['replayed']} ({off['replayed']} in replays); streams "
+            f"identical on and off: {same} of 12 (reported, not gated: K1 and K4/K5 round "
+            f"bf16 differently)")
+        if paged:
+            log(f"prefix serving (paged): copy_bytes {on['copy_bytes']}, prefix_pages_shared "
+                f"{d['prefix_pages_shared']} (warm-up wave included {on['pages_shared_total']}), pinned pages "
+                f"bitwise unchanged from pin to the end: {on['pinned_pages']}, peak pages mapped "
+                f"{on['snap']['peak_pages_mapped']} (off {off['snap']['peak_pages_mapped']}); "
+                f"check() clean after every step; after clear and drain every page but the null "
+                f"page is free")
+        else:
+            log(f"prefix serving (row): entries hold {on['entry_bytes'] / 2**30:.3f} GiB of K/V "
+                f"copies at the end of the wave")
+            for h in hits:
+                log(f"hit logits vs full prefill ({h['name']}: p={h['p']}, reused {h['m']}, "
+                    f"suffix chunk {h['chunk']}, R={h['rows']}): rel_err {h['rel_err']:.3g}, "
+                    f"argmax equal {h['argmax_equal']}, logit_scale {h['logit_scale']:.3g}")
+        for k in out["launches"]:
+            out["launches"][k] += on["launches"][k] + (on["replayed"] if k == dec else 0)
+        out["multi_row"][dec] = on["multi_row"][dec]
+    return out
 
 
 def device_time_by_family(prof, kernels: dict) -> dict:
@@ -1236,7 +1645,7 @@ def bwd_resources() -> list:
 
 def decode_resources() -> tuple:
     """K4's and K5's resources as built, at R <= 4 (Llama-3-8B's group of 4
-    at s = 1) and R <= 32: dynamic shared memory, registers a thread, local
+    at s = 1), R <= 32 and on the multi-row path: dynamic shared memory, registers a thread, local
     bytes and blocks per SM from the runtime; and ``ptxas -v``'s spill line
     of every decode kernel and merge, which must show no spill. Returns
     (the resources, the number of kernels ``ptxas`` reported)."""
@@ -1247,10 +1656,11 @@ def decode_resources() -> tuple:
     lib = _build.load("flash_decode")
     out = []
     for paged in (0, 1):
-        for rmax in (4, 32):
+        for rmax in (4, 32, 0):  # 0: the multi-row kernel
             vals = (ctypes.c_int * 4)()
             _build.check(lib.nxd_flash_decode_resources(paged, rmax, vals), "flash_decode")
-            out.append(dict(kernel=f"{'paged_' if paged else ''}flash_decode_kernel<{rmax}>",
+            kernel = "flash_decode_kernel" + (f"<{rmax}>" if rmax else "_rows")
+            out.append(dict(kernel=("paged_" if paged else "") + kernel,
                             smem=vals[0], regs=vals[1], local=vals[2], blocks_per_sm=vals[3]))
     report = _build.resource_report("flash_decode").splitlines()
     spills = [line.strip() for line in report if "spill" in line]
@@ -1330,6 +1740,17 @@ def main() -> int:
     log(f"K5 at K4's shapes: plain_ms {k5['plain_ms']:.4f} library_ms {k5['library_ms']:.4f} "
         f"(SDPA on the gathered view, bool mask, GQA; graph replay) + gather_ms {k5['gather_ms']:.4f} "
         f"(K and V views)")
+    rows = {chunk: check_decode_rows(gen, chunk) for chunk in (16, 256, 512)}
+    for chunk, r in rows.items():
+        log(f"K4/K5 multi-row B=1 s={chunk} (R={r['rows']}) H=32 Hkv=8 D=128 L=8192, a "
+            f"{ROWS_PREFIX}-column live prefix, pad tail {chunk - min(chunk - 3, 400)}: max_err {r['err']:.3g} "
+            f"({r['ratio']:.3g}x its limit; a dropped 32-row tile reads {r['fault_ratio']:.3g}x); "
+            f"two runs bitwise equal, K5 through a scrambled table bitwise equal to K4 on the "
+            f"gathered view; K4 kernel_ms {r['ms']:.4f} K5 kernel_ms {r['paged_ms']:.4f} (graph "
+            f"replays) plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} ({r['bound_by']}; "
+            f"{r['pairs']} live pairs a head, {r['ms'] / r['bound_ms']:.1f}x, "
+            f"{r['gflop'] / r['ms']:.1f} TFLOP/s) library_ms {r['library_ms']:.4f} (SDPA, bool "
+            f"mask, GQA; graph replay)")
     k23 = {(s, packed): check_k2k3(gen, s, packed, timed=s == 4096)
            for s, packed in ((4096, False), (4096, True), (1000, False))}
     for (s, packed), r in k23.items():
@@ -1442,6 +1863,8 @@ def main() -> int:
         f"(idle share {1 - busy / wall_ms:.3f}); K5 kernel records {prof['records']} = 2 x "
         f"{prof['snap']['executed_steps']} executed steps x {cfg.num_layers} layers")
 
+    pre = prefix_phase(model)
+
     del model
     torch.cuda.empty_cache()
 
@@ -1467,9 +1890,11 @@ def main() -> int:
         f"(idle share {1 - busy / (1e3 * tr['wall']):.3f})")
 
     k1_main = k1[1]  # the serving prefill at S=4096
-    launches = {name: srv["launches"][name] + fused["launches"][name] + tr["launches"][name]
-                for name in tr["launches"]}
-    log(f"launches on the main paths (serving, paged serving with K5, training): {launches}")
+    launches = {name: srv["launches"][name] + fused["launches"][name] + pre["launches"][name]
+                + tr["launches"][name] for name in tr["launches"]}
+    log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
+        f"training): {launches}; on the multi-row path (prefix-cache serving): {pre['multi_row']}")
+    rows_main = rows[256]  # R = 1024: phase 5c's chat turns
     k23_err = {n: max(r["err"][n] for r in k23.values()) for n in ("dk", "dv", "dq")}
     kernels = [
         dict(name="flash_attention", route="cuda",
@@ -1505,6 +1930,20 @@ def main() -> int:
              launches=launches["paged_flash_decode"], max_abs_err=k5["err"], ms=k5["ms"],
              plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
              library_ms=k5["library_ms"]),
+        dict(name="flash_decode_multi_row", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/flash_decode.cu",
+             replaces="neuronx_distributed_tpu/kernels/flash_decode.py:301",
+             launches=pre["multi_row"]["flash_decode"],
+             max_abs_err=max(r["err"] for r in rows.values()), ms=rows_main["ms"],
+             plain_ms=rows_main["plain_ms"], bound_ms=rows_main["bound_ms"],
+             bound_by=rows_main["bound_by"], library_ms=rows_main["library_ms"]),
+        dict(name="paged_flash_decode_multi_row", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/flash_decode.cu",
+             replaces="neuronx_distributed_tpu/kernels/flash_decode.py:617",
+             launches=pre["multi_row"]["paged_flash_decode"],
+             max_abs_err=max(r["err"] for r in rows.values()), ms=rows_main["paged_ms"],
+             plain_ms=rows_main["plain_ms"], bound_ms=rows_main["bound_ms"],
+             bound_by=rows_main["bound_by"], library_ms=rows_main["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -68,6 +68,22 @@
 //    exp(lse - m) (0 where lse <= -1e30/2), O = sum w o / max(sum w, 1e-30),
 //    LSE = m + log(sum w). No atomics: K4 and K5 are bitwise reproducible
 //    run to run.
+//
+// More than 32 rows (R = group * s for a suffix prefill of s tokens behind a
+// reused prefix, the Pallas kernel's one block of R rows): the split path's
+// partials would be (n_splits, B, Hkv, R, D) f32, over a GB at R = 8192 and
+// L = 8192, and the rows alone give parallelism enough. So the multi-row
+// path runs one block per (32-row tile, kv-head, slot), which walks its
+// rows' whole live length range by range through the same tile loop, with
+// its softmax state in registers, and writes O and LSE itself: no
+// workspace, no merge, one launch. A row tile takes 32 / G suffix tokens of
+// every head of the group (rows fold as r = g * s + t) and reads columns up
+// to its own largest position only. What bounds it at a 1600-column prefix
+// and a 200-token suffix is operations (~4 D R per live column, ~800 FLOP a
+// byte); this path is right and simple first: `mma.sync` for Q K^T, P V on
+// the CUDA cores, K/V re-read by every row tile, and at the 32-row plan's
+// ~120 KB of shared memory one block an SM (the `wgmma` redesign is later
+// work). R <= 32 keeps the split plan above, bit for bit.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -94,7 +110,8 @@ constexpr int STAGES = 3;
 constexpr int KP = nxd_flash::LD;        // K and Q row pitch (D + 8): conflict-free fragments
 constexpr int CHUNKS = D / 8;            // 16-byte chunks per cache row
 constexpr int STAGE_BYTES = TL * (KP + D) * (int)sizeof(bf16);
-constexpr int RMAX_ALL = 32;
+constexpr int RMAX_ALL = 32;             // rows of the split path; more take the multi-row path
+constexpr int ROW_TILE = RMAX_ALL;       // rows a block of the multi-row path holds: the largest plan
 constexpr int MERGE_CHUNK = 32;          // ranges whose loads the merge issues together
 static_assert(TL == 8 * NWARPS, "each warp scores one 8-column slice of a tile");
 static_assert(SPLIT == NTHREADS && TL % 32 == 0, "a thread per column; a warp's vote in one tile");
@@ -204,13 +221,30 @@ __device__ __forceinline__ void load_tile(unsigned char* stage, const Cols& cols
   }
 }
 
-// The tile loop of one range that holds a live tile (`tiles`, a bit per
-// tile), then the range's O (f32, normalised) and LSE into the workspace at
-// row `part`. `Cols` is the only difference between K4 and K5.
+// The softmax state of a block's rows that one thread carries: P V
+// accumulators of head-dim lanes [8 dg, 8 dg + 8) of rows [4 rg, 4 rg + 4),
+// those rows' running maxima, and its share of one row's exp-sum.
+struct RowState {
+  float acc[4][8];
+  float m[4];
+  float lp;
+  __device__ __forceinline__ RowState() : lp(0.f) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      m[k] = NEG_INF;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc[k][e] = 0.f;
+    }
+  }
+};
+
+// The tile loop over the live tiles (`tiles`, a bit per tile) of the range
+// starting at c_begin, folded into `st`. It leaves copies in flight: the
+// caller waits before it reuses the stages. `Cols` is the only difference
+// between K4 and K5.
 template <int RMAX, class Cols>
-__device__ __forceinline__ void range_tiles(const Params& p, const Smem<RMAX>& sm,
-                                            const Cols& cols, unsigned tiles, int c_begin,
-                                            int R, long long part) {
+__device__ __forceinline__ void tile_loop(const Params& p, const Smem<RMAX>& sm, const Cols& cols,
+                                          unsigned tiles, int c_begin, RowState& st) {
   constexpr int MT = Smem<RMAX>::MT;
   constexpr int NRG = Smem<RMAX>::NRG;
   constexpr int NCG = Smem<RMAX>::NCG;
@@ -224,14 +258,6 @@ __device__ __forceinline__ void range_tiles(const Params& p, const Smem<RMAX>& s
   // over the tile's columns cg, cg + NCG, ...; p entries of row 4 rg + kk
   const int dg = lane & 15, grp = tid >> 4;
   const int cg = grp % NCG, rg = grp / NCG, kk = dg & 3;
-  float acc[4][8];
-  float m[4], lp = 0.f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    m[k] = NEG_INF;
-#pragma unroll
-    for (int e = 0; e < 8; ++e) acc[k][e] = 0.f;
-  }
 
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
@@ -294,10 +320,10 @@ __device__ __forceinline__ void range_tiles(const Params& p, const Smem<RMAX>& s
       float tmax = NEG_INF;
 #pragma unroll
       for (int x = 0; x < NWARPS; ++x) tmax = fmaxf(tmax, w[x]);
-      const float m_new = fmaxf(m[k], tmax);
+      const float m_new = fmaxf(st.m[k], tmax);
       const float ref = m_new > NEG_INF * 0.5f ? m_new : 0.f;
-      alpha[k] = expf(m[k] - ref);
-      m[k] = m_new;
+      alpha[k] = expf(st.m[k] - ref);
+      st.m[k] = m_new;
       if (k == kk) {
         ref_own = ref;
         alpha_own = alpha[k];
@@ -311,14 +337,14 @@ __device__ __forceinline__ void range_tiles(const Params& p, const Smem<RMAX>& s
       *sp = pv;
       psum += pv;
     }
-    lp = lp * alpha_own + psum;
+    st.lp = st.lp * alpha_own + psum;
     __syncwarp();  // a half-warp reads exactly the p entries it formed
 
     // acc = acc * alpha + P V over this thread's columns
 #pragma unroll
     for (int k = 0; k < 4; ++k)
 #pragma unroll
-      for (int e = 0; e < 8; ++e) acc[k][e] *= alpha[k];
+      for (int e = 0; e < 8; ++e) st.acc[k][e] *= alpha[k];
 #pragma unroll 4
     for (int j = 0; j < CPG; ++j) {
       const int c = cg + NCG * j;
@@ -336,37 +362,68 @@ __device__ __forceinline__ void range_tiles(const Params& p, const Smem<RMAX>& s
 #pragma unroll
       for (int k = 0; k < 4; ++k)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[k][e] += pk[k] * vf[e];
+        for (int e = 0; e < 8; ++e) st.acc[k][e] += pk[k] * vf[e];
     }
   }
+}
 
-  // reduce the column groups in a fixed order; write this range's O and LSE
+// Reduce the column groups' partial sums of `st` in a fixed order. After it
+// the stages hold acc per (column group, row), [NCG][RMAX][D] f32 (the
+// returned pointer), sm.lred the exp-sums and sm.m the row maxima.
+template <int RMAX>
+__device__ __forceinline__ const float* reduce_rows(const Smem<RMAX>& sm, const RowState& st) {
+  constexpr int NCG = Smem<RMAX>::NCG;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int dg = lane & 15, grp = tid >> 4;
+  const int cg = grp % NCG, rg = grp / NCG;
   cp_async_wait<0>();
   __syncthreads();  // the stages are free: they hold the partial sums now
-  float* red = reinterpret_cast<float*>(sm.stages);  // [NCG][RMAX][D]
+  float* red = reinterpret_cast<float*>(sm.stages);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     float* dst = red + (cg * RMAX + 4 * rg + k) * D + 8 * dg;
-    *reinterpret_cast<float4*>(dst) = make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
-    *reinterpret_cast<float4*>(dst + 4) = make_float4(acc[k][4], acc[k][5], acc[k][6], acc[k][7]);
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(st.acc[k][0], st.acc[k][1], st.acc[k][2], st.acc[k][3]);
+    *reinterpret_cast<float4*>(dst + 4) =
+        make_float4(st.acc[k][4], st.acc[k][5], st.acc[k][6], st.acc[k][7]);
   }
+  float lp = st.lp;
   lp += __shfl_xor_sync(0xffffffffu, lp, 4);
   lp += __shfl_xor_sync(0xffffffffu, lp, 8);
   if (dg < 4) sm.lred[cg * RMAX + 4 * rg + dg] = lp;
   if (cg == 0 && dg == 0)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) sm.m[4 * rg + k] = m[k];
+    for (int k = 0; k < 4; ++k) sm.m[4 * rg + k] = st.m[k];
   __syncthreads();
-  for (int i = tid; i < R * D; i += NTHREADS) {
-    const int r = i / D, d = i % D;
-    float a = 0.f, l = 0.f;
+  return red;
+}
+
+// Row r's (O numerator, exp-sum) at head-dim lane d after reduce_rows.
+template <int RMAX>
+__device__ __forceinline__ float2 row_sums(const Smem<RMAX>& sm, const float* red, int r, int d) {
+  float a = 0.f, l = 0.f;
 #pragma unroll
-    for (int x = 0; x < NCG; ++x) {
-      a += red[(x * RMAX + r) * D + d];
-      l += sm.lred[x * RMAX + r];
-    }
-    p.wo[(part * R + r) * D + d] = l > 0.f ? a / l : 0.f;
-    if (d == 0) p.wl[part * R + r] = l > 0.f ? sm.m[r] + logf(l) : NEG_INF;
+  for (int x = 0; x < Smem<RMAX>::NCG; ++x) {
+    a += red[(x * RMAX + r) * D + d];
+    l += sm.lred[x * RMAX + r];
+  }
+  return make_float2(a, l);
+}
+
+// The tile loop of one range that holds a live tile, then the range's O
+// (f32, normalised) and LSE into the workspace at row `part`.
+template <int RMAX, class Cols>
+__device__ __forceinline__ void range_tiles(const Params& p, const Smem<RMAX>& sm,
+                                            const Cols& cols, unsigned tiles, int c_begin,
+                                            int R, long long part) {
+  RowState st;
+  tile_loop<RMAX>(p, sm, cols, tiles, c_begin, st);
+  const float* red = reduce_rows<RMAX>(sm, st);
+  for (int i = threadIdx.x; i < R * D; i += NTHREADS) {
+    const int r = i / D, d = i % D;
+    const float2 al = row_sums<RMAX>(sm, red, r, d);
+    p.wo[(part * R + r) * D + d] = al.y > 0.f ? al.x / al.y : 0.f;
+    if (d == 0) p.wl[part * R + r] = al.y > 0.f ? sm.m[r] + logf(al.y) : NEG_INF;
   }
 }
 
@@ -469,6 +526,74 @@ __device__ __forceinline__ void decode_range(const Params& p, unsigned char* dsm
   range_tiles<RMAX>(p, sm, Cols(p, b, hk), tiles, c_begin, R, part);
 }
 
+// One block of the multi-row path (R > RMAX_ALL, a suffix prefill): one
+// tile of ROW_TILE rows of one (slot, kv-head), walking the whole live
+// length of its rows with the softmax state in registers, so no workspace
+// and no merge. Rows fold as r = g * s + t, so a tile takes T = ROW_TILE / G
+// suffix tokens t0 .. t0 + T - 1 of every head g of the group: local row
+// g * T + j is token t0 + j of q-head hk * G + g. The tile reads columns up
+// to its own largest position only (causal over the suffix, plus the live
+// prefix); dead tiles and columns are skipped as in a range. Tiles are
+// numbered heaviest (latest tokens) first.
+template <class Cols>
+__device__ __forceinline__ void decode_rows(const Params& p, unsigned char* dsm) {
+  constexpr int RMAX = ROW_TILE;
+  constexpr int MT = Smem<RMAX>::MT;
+  const Smem<RMAX> sm(dsm);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int G = p.H / p.Hkv, T = ROW_TILE / G;
+  const int t0 = (gridDim.z - 1 - blockIdx.z) * T;
+  const int nt = min(T, p.s - t0);  // tokens of this tile
+  int bound = -1;
+  for (int j = 0; j < nt; ++j) bound = max(bound, __ldg(p.q_pos + t0 + j));
+  bound = min(bound + 1, p.L);
+
+  if (tid < 16 * MT) {
+    const int g = tid / T, j = tid % T;
+    sm.pos[tid] = g < G && j < nt ? __ldg(p.q_pos + t0 + j) : -1;
+  }
+  for (int i = tid; i < 16 * MT * CHUNKS; i += NTHREADS) {
+    const int r = i / CHUNKS, ch = (i % CHUNKS) * 8, g = r / T, j = r % T;
+    const bool row = g < G && j < nt;
+    const bf16* src = p.q;
+    if (row) src = p.q + b * p.sqb + (t0 + j) * p.sqs + (hk * G + g) * p.sqh + ch;
+    cp_async16_zfill(sm.q + r * KP + ch, src, row ? 16 : 0);
+  }
+  cp_async_commit();
+
+  const Cols cols(p, b, hk);
+  RowState st;
+  for (int c_begin = 0; c_begin < bound; c_begin += SPLIT) {
+    const int col = c_begin + tid;
+    const bool live =
+        col < bound && (p.kv_valid == nullptr || p.kv_valid[b * p.validb + col] != 0);
+    sm.live[tid] = live;
+    const int warp_live = __any_sync(0xffffffffu, live);
+    if (lane == 0) sm.wlive[warp] = warp_live;
+    __syncthreads();
+    unsigned tiles = 0;
+#pragma unroll
+    for (int w = 0; w < NWARPS; ++w)
+      if (sm.wlive[w]) tiles |= 1u << (w * 32 / TL);
+    if (tiles) tile_loop<RMAX>(p, sm, cols, tiles, c_begin, st);
+    cp_async_wait<0>();
+    __syncthreads();  // the range's tiles are done with the stages and sm.live
+  }
+
+  const float* red = reduce_rows<RMAX>(sm, st);
+  const long long lse_row = ((long long)b * p.Hkv + hk) * G * p.s;
+  for (int i = tid; i < RMAX * D; i += NTHREADS) {
+    const int r = i / D, d = i % D, g = r / T, j = r % T;
+    if (g >= G || j >= nt) continue;
+    const float2 al = row_sums<RMAX>(sm, red, r, d);
+    const int t = t0 + j;
+    p.o[b * p.sob + t * p.sos + (hk * G + g) * p.soh + d] =
+        __float2bfloat16(al.y > 0.f ? al.x / al.y : 0.f);
+    if (d == 0) p.lse[lse_row + g * p.s + t] = al.y > 0.f ? sm.m[r] + logf(al.y) : NEG_INF;
+  }
+}
+
 template <int RMAX>
 __global__ void __launch_bounds__(NTHREADS, 2) flash_decode_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char dsm[];
@@ -486,6 +611,20 @@ __global__ void __launch_bounds__(NTHREADS, 2) paged_flash_decode_kernel(Params 
 __global__ void __launch_bounds__(D) flash_decode_kernel_merge(Params p) { merge_row(p); }
 __global__ void __launch_bounds__(D) paged_flash_decode_kernel_merge(Params p) { merge_row(p); }
 
+__global__ void __launch_bounds__(NTHREADS, 2) flash_decode_kernel_rows(Params p) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  decode_rows<RowCols>(p, dsm);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 2) paged_flash_decode_kernel_rows(Params p) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  decode_rows<PagedCols>(p, dsm);
+}
+
+void (*rows_kernel_of(bool paged))(Params) {
+  return paged ? &paged_flash_decode_kernel_rows : &flash_decode_kernel_rows;
+}
+
 template <int RMAX>
 void (*kernel_of(bool paged))(Params) {
   return paged ? &paged_flash_decode_kernel<RMAX> : &flash_decode_kernel<RMAX>;
@@ -493,11 +632,9 @@ void (*kernel_of(bool paged))(Params) {
 
 // Let the kernel take its shared memory, and the SM give shared memory all
 // it can.
-template <int RMAX>
-int configure(bool paged) {
-  void (*kernel)(Params) = kernel_of<RMAX>(paged);
+int configure(void (*kernel)(Params), size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)Smem<RMAX>::bytes());
+                                         (int)smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
@@ -506,7 +643,7 @@ int configure(bool paged) {
 
 template <int RMAX>
 int launch(const Params& p, bool paged, cudaStream_t stream) {
-  const int code = configure<RMAX>(paged);
+  const int code = configure(kernel_of<RMAX>(paged), Smem<RMAX>::bytes());
   if (code) return code;
   kernel_of<RMAX>(paged)<<<dim3(p.Hkv, p.B, p.n_splits), NTHREADS, Smem<RMAX>::bytes(),
                            stream>>>(p);
@@ -514,6 +651,16 @@ int launch(const Params& p, bool paged, cudaStream_t stream) {
   if (err != cudaSuccess) return (int)err;
   (paged ? paged_flash_decode_kernel_merge
          : flash_decode_kernel_merge)<<<dim3(p.Hkv, p.B, (p.H / p.Hkv) * p.s), D, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The multi-row path: one launch, no merge.
+int launch_rows(const Params& p, bool paged, cudaStream_t stream) {
+  const int code = configure(rows_kernel_of(paged), Smem<ROW_TILE>::bytes());
+  if (code) return code;
+  const int T = ROW_TILE / (p.H / p.Hkv);
+  rows_kernel_of(paged)<<<dim3(p.Hkv, p.B, (p.s + T - 1) / T), NTHREADS,
+                          Smem<ROW_TILE>::bytes(), stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -525,7 +672,8 @@ int dispatch(Params p, bool paged, void* stream) {
   if (R <= 8) return launch<8>(p, paged, st);
   if (R <= 16) return launch<16>(p, paged, st);
   if (R <= 32) return launch<32>(p, paged, st);
-  return (int)cudaErrorInvalidValue;
+  if (p.H / p.Hkv > ROW_TILE) return (int)cudaErrorInvalidValue;
+  return launch_rows(p, paged, st);
 }
 
 Params common(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -592,20 +740,21 @@ extern "C" int nxd_paged_flash_decode_fwd(
   return dispatch(p, true, stream);
 }
 
-// Resources of K4 (paged 0) or K5 (paged 1) at R <= rmax (4, 8, 16 or 32):
-// dynamic shared memory a block, registers a thread, local bytes a thread
-// and blocks an SM.
+// Resources of K4 (paged 0) or K5 (paged 1) at R <= rmax (4, 8, 16 or 32;
+// 0: the multi-row kernel, R > 32): dynamic shared memory a block,
+// registers a thread, local bytes a thread and blocks an SM.
 extern "C" int nxd_flash_decode_resources(int paged, int rmax, int* out) {
   void (*kernel)(Params) = nullptr;
   size_t smem = 0;
-  int code = 0;
   switch (rmax) {
-    case 4: kernel = kernel_of<4>(paged); smem = Smem<4>::bytes(); code = configure<4>(paged); break;
-    case 8: kernel = kernel_of<8>(paged); smem = Smem<8>::bytes(); code = configure<8>(paged); break;
-    case 16: kernel = kernel_of<16>(paged); smem = Smem<16>::bytes(); code = configure<16>(paged); break;
-    case 32: kernel = kernel_of<32>(paged); smem = Smem<32>::bytes(); code = configure<32>(paged); break;
+    case 0: kernel = rows_kernel_of(paged); smem = Smem<ROW_TILE>::bytes(); break;
+    case 4: kernel = kernel_of<4>(paged); smem = Smem<4>::bytes(); break;
+    case 8: kernel = kernel_of<8>(paged); smem = Smem<8>::bytes(); break;
+    case 16: kernel = kernel_of<16>(paged); smem = Smem<16>::bytes(); break;
+    case 32: kernel = kernel_of<32>(paged); smem = Smem<32>::bytes(); break;
     default: return (int)cudaErrorInvalidValue;
   }
+  const int code = configure(kernel, smem);
   if (code) return code;
   cudaFuncAttributes a;
   int blocks = 0;

@@ -191,6 +191,30 @@ class ChunkedDecode:
         return self.toks, self.emits.sum(0), allowed
 
 
+def suffix_prefill_step(decode_model, cache, ids: torch.Tensor, valid_len: int) -> torch.Tensor:
+    """The prefix cache's SUFFIX prefill (JAX ``suffix_prefill_step``,
+    ``generate.py:242-285``): ``cache`` (batch 1) already holds a reused
+    prefix with its cursor at the prefix end (``seed_cache_prefix``); the
+    uncached tail runs through the decode-mode model in one multi-token
+    step. Its K/V land at the cursor, RoPE continues at the prefix's valid
+    count (``decode_positions``) and each suffix token attends the prefix
+    plus the suffix up to itself, through the decode kernels (K4 on a row
+    cache, K5 on a paged one, with group x chunk rows per kv-head).
+
+    ``ids`` is a (1, chunk) RIGHT-padded suffix (:func:`pack_padded_prompt`
+    ``pad_side="right"``), ``valid_len`` its real length: the pad tail's K/V
+    are written invalid (``decode_valid``). Returns the (V,) logits at
+    ``valid_len - 1``, the next-token logits a full prefill reads at its
+    last position; the head runs on that position alone. The cache updates
+    in place, its device cursor included; its host mirror moves by the
+    chunk here."""
+    chunk = ids.shape[1]
+    mask = torch.arange(chunk, device=ids.device)[None] < valid_len
+    logits = decode_model(ids, cache=cache, padding_mask=mask, head_at=valid_len - 1)
+    cache.advance_mirror(chunk)
+    return unwrap_logits(logits)[0, -1]
+
+
 def validate_generate_args(model, prompt_ids, max_new_tokens, attention_mask):
     """Host-side checks shared by `generate` and the engine's admission:
     capacity (prompt + new tokens within the cache) and the LEFT-padding

@@ -12,7 +12,10 @@ threshold was a TPU trade against XLA's einsum. K4 splits the cache length
 into ranges, one block each, and merges their partial results by LSE in a
 second kernel: :func:`flash_decode_split_plain` and
 :func:`merge_decode_partials` are that arithmetic in plain PyTorch, for the
-tests.
+tests. Above 32 rows per kv-head (R = group x s: a prefix-cache hit's suffix
+prefill, s tokens at once) the same source runs its multi-row path: one
+block per 32-row tile walks its rows' whole live length, no split and no
+merge; :func:`flash_decode_plain` is its plain version too.
 
 ``paged_flash_decode_fwd`` launches K5 of the same source (it replaces
 ``_paged_decode_kernel``/``paged_flash_decode_attention``,
@@ -130,8 +133,9 @@ def _decode_lib() -> SimpleNamespace:
 
 def _checked(what, q, k, v, q_pos, kv_valid, L):
     """The argument checks K4 and K5 share: bf16 with unit-stride, 16-byte
-    aligned head dims, head_dim 128, at most 32 rows per kv-head, one
-    position per query token, a row-contiguous (B, L) validity mask.
+    aligned head dims, head_dim 128, a group of at most 32 q-heads per
+    kv-head (the multi-row path's 32-row tile holds every head of a group),
+    one position per query token, a row-contiguous (B, L) validity mask.
     Returns (library, rows per kv-head, q_pos int32, kv_valid bool)."""
     b, s, h, d = q.shape
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -142,9 +146,9 @@ def _checked(what, q, k, v, q_pos, kv_valid, L):
     lib = _decode_lib()
     if d != lib.head_dim:
         raise ValueError(f"{what} is built for head_dim 128, got {d}")
-    r = (h // k.shape[2]) * s
-    if r > lib.max_rows:
-        raise ValueError(f"{what} folds at most 32 rows per kv-head, got {r}")
+    g = h // k.shape[2]
+    if g > lib.max_rows:
+        raise ValueError(f"{what} takes at most {lib.max_rows} q-heads per kv-head, got {g}")
     q_pos = q_pos.reshape(-1).to(torch.int32).contiguous()
     if q_pos.device != q.device or q_pos.numel() != s:
         raise ValueError("q_pos must hold one position per query token, on q's device")
@@ -152,7 +156,7 @@ def _checked(what, q, k, v, q_pos, kv_valid, L):
         if kv_valid.shape != (b, L) or kv_valid.stride(1) != 1:
             raise ValueError(f"kv_valid must be a row-contiguous ({b}, {L}) mask")
         kv_valid = kv_valid.to(torch.bool)
-    return lib, r, q_pos, kv_valid
+    return lib, g * s, q_pos, kv_valid
 
 
 def _workspace(lib, b, hkv, r, L, device):
@@ -160,9 +164,10 @@ def _workspace(lib, b, hkv, r, L, device):
     R, D), then LSE (n, B, Hkv, R), one range per ``split_cols`` columns of
     L (the host knows L, never the live bound), then the (B, Hkv, R) LSE the
     call returns. Uninitialised: the ranges write every entry the merge
-    reads. Returns that LSE (a view, which keeps the allocation alive) and
-    the pointers to the partial O and LSE."""
-    n = -(-L // lib.split_cols) * b * hkv * r
+    reads. The multi-row path (R > ``max_rows``) keeps no partials: the
+    allocation is that LSE alone. Returns that LSE (a view, which keeps the
+    allocation alive) and the pointers to the partial O and LSE."""
+    n = -(-L // lib.split_cols) * b * hkv * r if r <= lib.max_rows else 0
     work = torch.empty(n * (lib.head_dim + 1) + b * hkv * r, dtype=torch.float32,
                        device=device)
     lse = work[n * (lib.head_dim + 1):].view(b, hkv, r)
@@ -198,17 +203,25 @@ def flash_decode_fwd(q, k_cache, v_cache, q_pos, kv_valid=None
     attends slots ``<=`` its position, minus slots where ``kv_valid`` (B, L)
     is False. CUDA tensors launch the kernel (bf16, head_dim 128) or raise;
     CPU tensors run the plain version. ``launches`` counts the calls that
-    launched K4 (its range grid and its merge: one launch each call)."""
+    launched K4 (its range grid and its merge, or its multi-row kernel: one
+    launch each call), ``multi_row_launches`` those of them that took the
+    multi-row path (more than 32 rows per kv-head)."""
     if q.shape[2] % k_cache.shape[2] != 0:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads {k_cache.shape[2]}")
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, q_pos, kv_valid)
     out = _kernel_call(q, k_cache, v_cache, q_pos, kv_valid)
     flash_decode_fwd.launches += 1
+    flash_decode_fwd.multi_row_launches += _multi_row(q, k_cache)
     return out
 
 
-flash_decode_fwd.launches = 0
+flash_decode_fwd.launches = flash_decode_fwd.multi_row_launches = 0
+
+
+def _multi_row(q, cache) -> bool:
+    """Whether a call with these shapes takes the kernels' multi-row path."""
+    return q.shape[1] * (q.shape[2] // cache.shape[2]) > _decode_lib().max_rows
 
 
 def flash_decode_attention(q, k_cache, v_cache, q_pos: torch.Tensor,
@@ -286,8 +299,9 @@ def paged_flash_decode_fwd(q, k_pool, v_pool, block_table, q_pos, kv_valid=None,
     (the page manager hands out nothing else); page 0's columns must be
     masked. CUDA tensors launch K5 (bf16, head_dim 128, page_size dividing
     128) or raise; CPU tensors run the plain version. ``launches`` counts
-    the calls that launched K5 (its range grid and its merge: one launch
-    each call)."""
+    the calls that launched K5 (its range grid and its merge, or its
+    multi-row kernel: one launch each call), ``multi_row_launches`` those
+    of them that took the multi-row path."""
     if q.shape[2] % k_pool.shape[2] != 0:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads {k_pool.shape[2]}")
     if k_pool.dim() != 4 or k_pool.shape[1] != page_size or v_pool.shape != k_pool.shape:
@@ -298,10 +312,11 @@ def paged_flash_decode_fwd(q, k_pool, v_pool, block_table, q_pos, kv_valid=None,
                                         page_size)
     out = _paged_kernel_call(q, k_pool, v_pool, block_table, q_pos, kv_valid, page_size)
     paged_flash_decode_fwd.launches += 1
+    paged_flash_decode_fwd.multi_row_launches += _multi_row(q, k_pool)
     return out
 
 
-paged_flash_decode_fwd.launches = 0
+paged_flash_decode_fwd.launches = paged_flash_decode_fwd.multi_row_launches = 0
 
 
 def paged_flash_decode_attention(q, k_pool, v_pool, block_table, q_pos: torch.Tensor,

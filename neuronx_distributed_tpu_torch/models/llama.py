@@ -257,12 +257,16 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, mode: str = "train", cache: Optional[KVCache] = None,
                 positions=None, segment_ids=None, padding_mask=None,
-                last_only: bool = False):
+                last_only: bool = False, head_at: Optional[int] = None):
         """Logits (B, S, V); ``last_only`` computes the head on the last
-        position alone (B, 1, V) — all a prefill's next token needs."""
+        position alone (B, 1, V) — all a prefill's next token needs — and
+        ``head_at`` on position ``head_at`` alone (a right-padded suffix
+        prefill's last real token)."""
         x = self.model(input_ids, mode, cache, positions, segment_ids, padding_mask)
         if last_only:
             x = x[:, -1:]
+        elif head_at is not None:
+            x = x[:, head_at:head_at + 1]
         return self.lm_head(x)
 
     def loss(self, input_ids, labels):

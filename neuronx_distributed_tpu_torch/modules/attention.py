@@ -1,6 +1,7 @@
 """RoPE, the attention dispatcher, the KV caches and decode attention
 (counterpart of ``neuronx_distributed_tpu/modules/attention.py``, the subset
-the serving path runs: cp = 1, row and paged caches, no prefix store).
+the serving path runs: cp = 1, row and paged caches, and the prefix cache's
+extract and seed).
 
 The JAX cache is a flax ``cache`` collection that each program returns
 updated (the engine donates it so XLA updates it in place). Here the cache is
@@ -271,13 +272,17 @@ class PagedKVCache(KVCache):
     is unmapped (left padding, masked no-op steps, idle rows) land in page 0.
 
     Decode attends straight from the pool through the table (K5). ``col0``
-    is the logical column this object's column 0 maps to (a slot's prefill
-    view, :meth:`view`)."""
+    is the logical column this object's column 0 maps to (a slot's view,
+    :meth:`view`, which prefills and suffix prefills write through), and
+    ``row_valid`` the validity of the whole logical rows, which K5 reads
+    beside the table."""
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
-                 block_table: torch.Tensor, page_size: int, index: int = 0, col0: int = 0):
+                 block_table: torch.Tensor, page_size: int, index: int = 0, col0: int = 0,
+                 row_valid: Optional[torch.Tensor] = None):
         super().__init__(k, v, valid, index)
         self.block_table, self.page_size, self.col0 = block_table, page_size, col0
+        self.row_valid = valid if row_valid is None else row_valid
         self._dst = None  # (pages, rows) of this step's writes, set once per forward
 
     @classmethod
@@ -308,7 +313,8 @@ class PagedKVCache(KVCache):
         """The cache of batch ``rows`` whose column 0 is logical column
         ``start``; writes through it land in this cache's pool and validity."""
         return PagedKVCache(self.k, self.v, self.valid[rows, start:], self.block_table[rows],
-                            self.page_size, col0=self.col0 + start)
+                            self.page_size, col0=self.col0 + start,
+                            row_valid=self.row_valid[rows])
 
     def _address(self, cols: torch.Tensor) -> None:
         """Physical (page, row) of this object's columns ``cols`` (a device
@@ -335,10 +341,13 @@ class PagedKVCache(KVCache):
     prefill_write = decode_write
 
     def attend(self, layer: int, q: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
-        """Decode attention of q (B, s, H, D) at logical columns ``q_pos``
-        straight from this layer's pools: K5's wrapper."""
+        """Decode attention of q (B, s, H, D) at this object's columns
+        ``q_pos`` straight from this layer's pools, over the whole logical
+        rows: K5's wrapper."""
+        if self.col0:
+            q_pos = q_pos + self.col0
         return paged_flash_decode_attention(q, self.k[layer], self.v[layer], self.block_table,
-                                            q_pos, self.valid, self.page_size)
+                                            q_pos, self.row_valid, self.page_size)
 
 
 def gather_cache_pages(cache: PagedKVCache, layer: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -363,6 +372,50 @@ def reset_cache(cache: KVCache) -> None:
     (drain/preempt)."""
     cache.valid.zero_()
     cache.index = 0
+
+
+def extract_cache_prefix(cache: KVCache, start: int, m: int, bucket: int) -> KVCache:
+    """Copy the ``m`` columns starting at ``start`` of a (batch-1) cache into
+    a COMPACT prefix block of ``bucket`` columns (JAX
+    ``extract_cache_prefix``, ``attention.py:348``): token 0 of the prefix
+    at column 0, K/V zero and validity False past ``m``, its cursor at
+    ``m`` (the block's token count, which the fingerprint reads). A fresh
+    copy, never a view of the cache, so identical prefixes give identical
+    blocks whatever bucket their donor prefill used."""
+    if start < 0 or start + m > cache.max_seq_len or m > bucket:
+        raise ValueError(f"columns [{start}, {start + m}) do not fit a {cache.max_seq_len}-"
+                         f"column cache and a {bucket}-column block")
+    n_layers, b, _, hkv, d = cache.k.shape
+    block = KVCache.allocate(n_layers, b, bucket, hkv, d, cache.k.dtype, cache.k.device)
+    block.k[:, :, :m] = cache.k[:, :, start:start + m]
+    block.v[:, :, :m] = cache.v[:, :, start:start + m]
+    block.valid[:, :m] = cache.valid[:, start:start + m]
+    block.index = m
+    return block
+
+
+def seed_cache_prefix(cache: KVCache, prefix: Optional[KVCache], m: int, start: int) -> None:
+    """Seed ``cache`` (the admitted slot's view) with the first ``m`` tokens
+    of a stored prefix at columns ``[start, start + m)`` (JAX
+    ``seed_cache_prefix``, ``attention.py:379``): every other column of the
+    view invalid, its cursor at ``start + m``, where a suffix prefill's
+    writes continue and whose RoPE positions continue at the prefix's valid
+    count. The JAX program builds a fresh row and the engine rolls it into
+    the slot; the port's prefills write in place, so ``prefix``, a stored
+    block, is copied straight into the slot (read, never aliased). With
+    ``prefix=None`` the cache is a paged view whose block table already maps
+    the stored pages under those columns (a copy-on-write hit, JAX
+    ``seed_row``): no K/V moves, and the prefix's columns are valid."""
+    if start < 0 or start + m > cache.max_seq_len:
+        raise ValueError(f"{m} prefix columns at {start} do not fit the cache")
+    cache.valid.zero_()
+    if prefix is None:
+        cache.valid[:, start:start + m] = True
+    else:
+        cache.k[:, :, start:start + m] = prefix.k[:, :, :m]
+        cache.v[:, :, start:start + m] = prefix.v[:, :, :m]
+        cache.valid[:, start:start + m] = prefix.valid[:, :m]
+    cache.index = start + m
 
 
 def decode_attention(q, k_cache, v_cache, q_pos, kv_valid=None) -> torch.Tensor:

@@ -1,6 +1,9 @@
-"""Slot-level KV-cache management (counterpart of
-``neuronx_distributed_tpu/serving/cache_manager.py``, ``SlotCacheManager``
-only; the prefix store belongs to a later slice).
+"""Slot-level KV-cache management and the prefix store (counterpart of
+``neuronx_distributed_tpu/serving/cache_manager.py``: ``SlotCacheManager``,
+and ``PrefixEntry``/``PrefixCache``, host code copied from
+``cache_manager.py:284-571`` without the host tier's fields, the page
+content fingerprints and the tier attribution, which belong to later
+slices).
 
 The engine owns ONE :class:`KVCache` shaped ``(num_slots, max_seq_len)`` per
 layer, allocated once and updated in place. Batch rows are request slots;
@@ -23,7 +26,9 @@ the column layout is the shared-cursor scheme:
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from collections import OrderedDict
+from typing import Any, Dict, Optional, Tuple
 
 from neuronx_distributed_tpu_torch.modules.attention import (
     KVCache,
@@ -93,3 +98,254 @@ class SlotCacheManager:
     def reset(self) -> None:
         """Rewind the cursor and invalidate every slot (drain/preemption)."""
         reset_cache(self.cache)
+
+
+# --- host-managed prefix KV cache ---------------------------------------------
+
+
+def prefix_leaves(tree) -> tuple:
+    """The tensors of a stored prefix block (a :class:`KVCache` from
+    ``extract_cache_prefix``), or none for a paged entry."""
+    return () if tree is None else (tree.k, tree.v, tree.valid)
+
+
+@dataclasses.dataclass(eq=False)  # identity: entries are compared as objects
+class PrefixEntry:
+    """One stored prompt prefix: ``tokens`` (the full token path, length
+    ``m``), its compact device KV block ``tree`` (``bucket`` columns, token
+    0 at column 0: a COPY made at insert time, never a view of the engine's
+    cache), the integrity ``fingerprint`` (a device scalar, read only at
+    reuse) and leaf ``shapes`` recorded at insert, and ``refs``, the pin
+    count that protects an entry backing an in-flight suffix prefill from
+    eviction. A PAGED entry holds no copy (``tree`` is None): ``page_ids``
+    are the ref-counted pool pages its tokens live in, mapped
+    copy-on-write into a hitting slot's block table."""
+
+    tokens: Tuple[int, ...]
+    tree: Any
+    bucket: int
+    fingerprint: Any
+    shapes: Tuple[Tuple[int, ...], ...]
+    refs: int = 0
+    page_ids: Optional[Tuple[int, ...]] = None
+
+    @property
+    def m(self) -> int:
+        return len(self.tokens)
+
+
+class _TrieNode:
+    __slots__ = ("children", "entry")
+
+    def __init__(self):
+        self.children: Dict[int, "_TrieNode"] = {}
+        self.entry: Optional[PrefixEntry] = None
+
+
+class PrefixCache:
+    """Host-managed, ref-counted, LRU-evicted store of prompt-prefix KV
+    blocks, keyed by a token trie.
+
+    The serving engine consults it at admission: the longest stored prefix
+    of the incoming context (capped at ``context - 1``: at least one token
+    must run so the admission has next-token logits to sample from) is
+    seeded into the slot and only the uncached tail is prefilled. A stored
+    entry's first ``d`` columns serve ANY context sharing its first ``d``
+    tokens, so one long entry covers every shorter shared prefix: lookup
+    walks the trie to the deepest reachable node and uses any entry beneath
+    it.
+
+    Matches shorter than ``min_match`` tokens are misses, and contexts
+    shorter than ``min_match`` are never stored. ``max_entries=0`` disables
+    the cache entirely (the engine then runs the full-prefill path).
+
+    Eviction is LRU over entries (hits, covers and inserts refresh recency)
+    and NEVER frees a pinned entry (``refs > 0``); if every entry is pinned
+    the store temporarily overflows rather than corrupt an in-flight
+    admission. The engine owns the counters; this class reports what each
+    call did."""
+
+    def __init__(self, max_entries: int = 32, min_match: int = 8):
+        if min_match < 1:
+            raise ValueError(f"min_match must be >= 1, got {min_match}")
+        self.max_entries = max_entries
+        self.min_match = min_match
+        self._root = _TrieNode()
+        self._lru: "OrderedDict[Tuple[int, ...], PrefixEntry]" = OrderedDict()
+        # called with each entry as it leaves the store (LRU eviction,
+        # forced eviction, clear): the paged engine releases the entry's
+        # pool page refs here, so a dropped entry never leaks pages
+        self.on_evict: Optional[Any] = None
+
+    # --- introspection ------------------------------------------------------
+
+    @property
+    def enabled(self) -> bool:
+        return self.max_entries > 0
+
+    def __len__(self) -> int:
+        return len(self._lru)
+
+    @property
+    def entries(self):
+        """Stored entries, least-recently-used first."""
+        return list(self._lru.values())
+
+    @property
+    def tokens_stored(self) -> int:
+        return sum(e.m for e in self._lru.values())
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of stored entry copies (paged entries hold page ids,
+        whose bytes the pool accounts for)."""
+        return sum(t.numel() * t.element_size()
+                   for e in self._lru.values() for t in prefix_leaves(e.tree))
+
+    def _walk(self, tokens) -> Tuple[_TrieNode, int]:
+        """Deepest trie node reachable along ``tokens`` and its depth. Every
+        live node has an entry in its subtree (eviction prunes entry-less
+        childless chains), so reaching depth ``d`` means some stored entry
+        shares the first ``d`` tokens."""
+        node, depth = self._root, 0
+        for t in tokens:
+            nxt = node.children.get(int(t))
+            if nxt is None:
+                break
+            node, depth = nxt, depth + 1
+        return node, depth
+
+    @staticmethod
+    def _subtree_entry(node: _TrieNode) -> Optional[PrefixEntry]:
+        stack = [node]
+        while stack:
+            n = stack.pop()
+            if n.entry is not None:
+                return n.entry
+            stack.extend(n.children.values())
+        return None
+
+    def match_len(self, tokens) -> int:
+        """Read-only longest USABLE match length for ``tokens`` (0 below
+        ``min_match``): the scheduler's effective-prefill-cost peek; no LRU
+        state moves."""
+        if not self.enabled:
+            return 0
+        _, depth = self._walk(tokens)
+        use = min(depth, len(tokens) - 1)
+        return use if use >= self.min_match else 0
+
+    # --- lookup / insert ----------------------------------------------------
+
+    def peek(self, tokens) -> Optional[Tuple[PrefixEntry, int]]:
+        """``(entry, m_use)``, the entry whose first ``m_use`` columns are the
+        reusable prefix KV, or ``None`` on a miss (no match, or a match
+        shorter than ``min_match``); no LRU motion."""
+        if not self.enabled:
+            return None
+        node, depth = self._walk(tokens)
+        m_use = min(depth, len(tokens) - 1)
+        if m_use < self.min_match:
+            return None
+        entry = self._subtree_entry(node)
+        if entry is None:  # unreachable for a live trie
+            return None
+        return entry, m_use
+
+    def lookup(self, tokens) -> Optional[Tuple[PrefixEntry, int]]:
+        """:meth:`peek` that refreshes the matched entry's recency; the
+        caller pins it (:meth:`pin`) for the duration of the suffix
+        prefill."""
+        hit = self.peek(tokens)
+        if hit is not None:
+            self._lru.move_to_end(hit[0].tokens)
+        return hit
+
+    def covers(self, tokens) -> bool:
+        """Whether some stored entry already extends (or equals) ``tokens``:
+        inserting them again would add nothing. Refreshes the covering entry
+        so the hot prefix stays resident."""
+        if not self.enabled:
+            return False
+        node, depth = self._walk(tokens)
+        if depth < len(tokens):
+            return False
+        entry = self._subtree_entry(node)
+        if entry is not None:
+            self._lru.move_to_end(entry.tokens)
+        return entry is not None
+
+    def insert(self, tokens, tree, fingerprint,
+               bucket: int) -> Tuple[Optional[PrefixEntry], int]:
+        """Store a prefix block. Returns ``(entry, n_evicted)``; the entry is
+        ``None`` when the insert was skipped (disabled, too short, or
+        already covered). Evicts least-recently-used UNPINNED entries until
+        the store fits ``max_entries``."""
+        key = tuple(int(t) for t in tokens)
+        if not self.enabled or len(key) < self.min_match:
+            return None, 0
+        if self.covers(key):
+            return None, 0
+        entry = PrefixEntry(tokens=key, tree=tree, bucket=bucket, fingerprint=fingerprint,
+                            shapes=tuple(tuple(t.shape) for t in prefix_leaves(tree)))
+        node = self._root
+        for t in key:
+            node = node.children.setdefault(t, _TrieNode())
+        node.entry = entry
+        self._lru[key] = entry
+        evicted = 0
+        while len(self._lru) > self.max_entries:
+            victim = next((e for e in self._lru.values() if e.refs == 0 and e is not entry),
+                          None)
+            if victim is None:  # everything pinned: overflow, never corrupt
+                break
+            self.evict_entry(victim)
+            evicted += 1
+        return entry, evicted
+
+    # --- pins / eviction ----------------------------------------------------
+
+    def pin(self, entry: PrefixEntry) -> None:
+        entry.refs += 1
+
+    def release(self, entry: PrefixEntry) -> None:
+        entry.refs = max(0, entry.refs - 1)
+
+    def release_all(self) -> None:
+        """Drop every pin: no suffix prefill survives a preemption or a
+        reset, so no pin may either (a leaked ref would block eviction
+        forever)."""
+        for e in self._lru.values():
+            e.refs = 0
+
+    def evict_entry(self, entry: PrefixEntry) -> bool:
+        """Remove one entry (LRU eviction, or forced: validation failure),
+        pruning the trie chain it leaves behind."""
+        if self._lru.pop(entry.tokens, None) is None:
+            return False
+        if self.on_evict is not None:
+            self.on_evict(entry)
+        path = [self._root]
+        for t in entry.tokens:
+            nxt = path[-1].children.get(t)
+            if nxt is None:
+                return True  # trie already pruned past here
+            path.append(nxt)
+        path[-1].entry = None
+        for depth in range(len(path) - 1, 0, -1):
+            node = path[depth]
+            if node.entry is None and not node.children:
+                del path[depth - 1].children[entry.tokens[depth - 1]]
+            else:
+                break
+        return True
+
+    def clear(self) -> int:
+        """Drop everything; returns how many entries were dropped."""
+        n = len(self._lru)
+        if self.on_evict is not None:
+            for e in self._lru.values():
+                self.on_evict(e)
+        self._root = _TrieNode()
+        self._lru = OrderedDict()
+        return n

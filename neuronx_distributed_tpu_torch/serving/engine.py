@@ -1,6 +1,7 @@
 """Continuous-batching serving engine (counterpart of
 ``neuronx_distributed_tpu/serving/engine.py``, its core: row-per-slot or
-paged cache, FIFO scheduling, conservative or eager admission).
+paged cache, FIFO scheduling, conservative or eager admission, the prefix
+cache).
 
 A host loop interleaves prefill of admitted requests with fused decode
 chunks over all ``num_slots`` slots:
@@ -46,9 +47,25 @@ context's worst-case page span, eager admission this round's context pages
 plus every slot's first decode window, and a pool that cannot back the next
 window is a wall like the cursor's (preempt and rewind).
 
+Prefix cache (``prefix_cache="auto"``, the default, as in JAX): at
+admission the longest stored prefix of the context (a :class:`PrefixCache`
+trie lookup, capped at ``context - 1``) is reused and only the uncached
+tail is prefilled, through the decode-mode model in one multi-token step
+(``suffix_prefill_step``: K4 or K5 with group x chunk rows per kv-head, not
+K1). Row engine: each miss stores a compact COPY of its context's K/V
+(``extract_cache_prefix``) and a hit seeds the slot from it
+(``seed_cache_prefix``), after validating the copy's shapes and
+fingerprint (one host read). Paged engine: an entry PINS the whole context
+pages of the slot that inserted it and a hit maps them copy-on-write into
+its own block table (zero KV bytes move; the match floors to whole pages);
+under page pressure the LRU unpinned entry is evicted. Admission orders a
+round by the EFFECTIVE prefill (context less its reusable prefix).
+Streams equal the cache-off engine's.
+
 Left out of this slice (not accepted, not silently ignored): the host page
-tier, the prefix cache, speculation, quantization, tp/mesh, fault injection,
-SLO scheduling, ledgers and profiling.
+tier (spill and prefetch of prefix entries), page content fingerprints,
+speculation, quantization, tp/mesh, fault injection, SLO scheduling,
+ledgers, tracing and profiling.
 """
 
 from __future__ import annotations
@@ -64,10 +81,20 @@ from neuronx_distributed_tpu_torch.inference.generate import (
     GenerationConfig,
     pack_padded_prompt,
     serving_clones,
+    suffix_prefill_step,
     validate_generate_args,
 )
 from neuronx_distributed_tpu_torch.inference.utils import unwrap_logits
-from neuronx_distributed_tpu_torch.serving.cache_manager import SlotCacheManager
+from neuronx_distributed_tpu_torch.modules.attention import (
+    extract_cache_prefix,
+    seed_cache_prefix,
+)
+from neuronx_distributed_tpu_torch.serving.cache_manager import (
+    PrefixCache,
+    PrefixEntry,
+    SlotCacheManager,
+    prefix_leaves,
+)
 from neuronx_distributed_tpu_torch.serving.metrics import ServingMetrics
 from neuronx_distributed_tpu_torch.serving.paging import PagedCacheManager, PageExhausted
 from neuronx_distributed_tpu_torch.serving.scheduler import (
@@ -75,6 +102,7 @@ from neuronx_distributed_tpu_torch.serving.scheduler import (
     RequestState,
     Scheduler,
 )
+from neuronx_distributed_tpu_torch.utils.fingerprint import cache_fingerprint
 from neuronx_distributed_tpu_torch.utils.sampling import sample_row
 
 
@@ -117,6 +145,27 @@ def _bucket(p: int, max_seq_len: int, remaining: int, floor: int = 8) -> int:
     return b
 
 
+def _suffix_bucket(s: int, end: int, max_seq_len: int) -> int:
+    """Padded chunk length of an s-token suffix prefill (JAX
+    ``_suffix_bucket``, ``engine.py:329``): the next power of two, or the
+    exact length where the padded chunk's writes, which start at the reused
+    prefix's end ``end - s``, would run past the cache row. The JAX chunk
+    writes a fresh row that the admission rolls into the slot, so its bound
+    is the padded length; the port's writes land in the slot itself, so
+    ``end`` is the context's end column there (the cursor, >= padded)."""
+    b = max(1, 1 << max(s - 1, 0).bit_length())
+    if end - s + b > max_seq_len:
+        b = s
+    return b
+
+
+def _prefix_bucket(p: int, max_seq_len: int) -> int:
+    """Storage bucket of a p-token prefix entry (JAX ``_prefix_bucket``,
+    ``engine.py:344``): the next power of two, clamped to the cache
+    length."""
+    return min(max(1, 1 << max(p - 1, 0).bit_length()), max_seq_len)
+
+
 class ServingEngine:
     """Slot-based continuous batching over a causal LM whose weights live on
     its device (``model.device``); every tensor the engine makes lives there
@@ -133,6 +182,7 @@ class ServingEngine:
         max_queue: Optional[int] = None,
         kv_page_size: Optional[int] = None,
         kv_num_pages: Optional[int] = None,
+        prefix_cache="auto",
     ):
         if admission not in ("conservative", "eager"):
             raise ValueError(f"unknown admission policy {admission!r}")
@@ -159,6 +209,25 @@ class ServingEngine:
             self.cache = PagedCacheManager.for_model(model, num_slots, kv_page_size,
                                                      kv_num_pages)
         self.metrics = ServingMetrics(num_slots)
+        # prefix cache: "auto" builds the standard store, an int sizes it (0
+        # disables), None or a disabled store keeps the full-prefill path
+        if isinstance(prefix_cache, str):
+            if prefix_cache != "auto":
+                raise ValueError(f"unknown prefix_cache {prefix_cache!r}")
+            prefix_cache = PrefixCache()
+        elif isinstance(prefix_cache, int):
+            prefix_cache = PrefixCache(max_entries=prefix_cache) if prefix_cache > 0 else None
+        elif prefix_cache is not None and not isinstance(prefix_cache, PrefixCache):
+            raise TypeError(f"prefix_cache takes 'auto', None, an int or a PrefixCache, "
+                            f"got {type(prefix_cache).__name__}")
+        if prefix_cache is not None and not prefix_cache.enabled:
+            prefix_cache = None
+        self.prefix = prefix_cache
+        if prefix_cache is not None:
+            # paged entries hold pool pages: whatever drops one releases them
+            prefix_cache.on_evict = self._on_prefix_evict
+            if kv_page_size is not None:
+                self.cache.reclaim = self._reclaim_prefix_entry
         self._active = np.zeros((num_slots,), bool)
         self._slot_req: List[Optional[Request]] = [None] * num_slots
         self._next_rid = 0
@@ -327,8 +396,15 @@ class ServingEngine:
 
         if self._page_size is not None:
             fits = self._paged_fits(maxrem)
-        for req in self.scheduler.select(self.cache.free_slots,
-                                         self._in_flight_tokens(), fits):
+        cost = None
+        if self.prefix is not None:
+            # longest EFFECTIVE prefill first: a long shared context whose
+            # prefix is stored is a cheap suffix (a read-only peek)
+            def cost(req: Request) -> int:
+                return len(req.context_ids) - self.prefix.match_len(req.context_ids)
+
+        for req in self.scheduler.select(self.cache.free_slots, self._in_flight_tokens(),
+                                         fits, prefill_cost=cost):
             self._prefill_into_slot(req, self.cache.acquire(), now)
 
     def _paged_fits(self, maxrem: int):
@@ -400,29 +476,182 @@ class ServingEngine:
         return padded, target
 
     def _prefill_into_slot(self, req: Request, slot: int, now: float) -> None:
+        """Admit ``req`` into ``slot``: a full prefill of its context, or on
+        a prefix hit the stored prefix seeded into the slot and a suffix
+        prefill of the rest; then store the context's prefix (a miss, or a
+        hit whose tail is long enough) and sample the first token."""
         ctx = req.context_ids
+        p = len(ctx)
         t0 = time.monotonic()
         if self._page_size is None:
-            padded = _bucket(len(ctx), self.max_seq_len, req.remaining_new_tokens)
-            row = self.cache.admit(slot, padded)
+            padded = _bucket(p, self.max_seq_len, req.remaining_new_tokens)
+            target = max(self.cache.cursor, padded)
         else:
-            padded, target = self._paged_layout(len(ctx), req.remaining_new_tokens,
-                                                self.cache.cursor)
-            try:
-                row = self.cache.admit(slot, padded, cursor=target, p=len(ctx))
-            except PageExhausted:
-                # page pressure between fits() and the admission: nothing is
-                # mapped — return the slot and requeue the untouched request
-                self.cache.free(slot)
-                self.scheduler.requeue_front([req])
-                return
-        ids, mask = pack_padded_prompt(ctx, padded)
-        out = self._prefill_model(
-            torch.from_numpy(ids).to(self.device, torch.int64), cache=row,
-            padding_mask=torch.from_numpy(mask).to(self.device), last_only=True,
-        )
-        self.metrics.record_prefill_wall(time.monotonic() - t0)
-        self._bind_slot(req, slot, unwrap_logits(out)[0, -1], now)
+            padded, target = self._paged_layout(p, req.remaining_new_tokens, self.cache.cursor)
+        plan = self._plan_prefix_reuse(ctx, p, target)
+        try:
+            if self._page_size is None:
+                row = self.cache.admit(slot, padded, cursor=target)
+                m_shared = 0
+            else:
+                m_shared = plan[1] if plan is not None else 0
+                shared = plan[0].page_ids[:m_shared // self._page_size] if plan else ()
+                try:
+                    row = self.cache.admit(slot, padded, cursor=target, p=p,
+                                           shared_ids=shared, m_shared=m_shared)
+                except PageExhausted:
+                    # page pressure between fits() and the admission: nothing
+                    # is mapped — return the slot, requeue the untouched request
+                    self.cache.free(slot)
+                    self.scheduler.requeue_front([req])
+                    return
+            if plan is None:
+                ids, mask = pack_padded_prompt(ctx, padded)
+                logits = unwrap_logits(self._prefill_model(
+                    torch.from_numpy(ids).to(self.device, torch.int64), cache=row,
+                    padding_mask=torch.from_numpy(mask).to(self.device), last_only=True,
+                ))[0, -1]
+            else:
+                entry, m_use, chunk = plan
+                start = padded - p  # the context's first column in the view
+                seed_cache_prefix(row, entry.tree, m_use, start)
+                if self._page_size is not None:
+                    # the suffix chunk writes past the shared pages, never on one
+                    c0 = target - p + m_use
+                    self.cache.assert_writable([slot], c0, c0 + chunk)
+                ids, _ = pack_padded_prompt(ctx[m_use:], chunk, pad_side="right")
+                logits = suffix_prefill_step(
+                    self._decode_model, row, torch.from_numpy(ids).to(self.device, torch.int64),
+                    p - m_use)
+        finally:
+            if plan is not None:
+                self.prefix.release(plan[0])
+        self.metrics.record_prefill_wall(time.monotonic() - t0,
+                                         kind="full" if plan is None else "suffix")
+        matched = plan[1] if plan is not None else 0
+        if self._page_size is None:
+            self._remember_prefix(ctx, p, padded, row, matched)
+        else:
+            if m_shared:
+                self.metrics.record_prefix_pages_shared(m_shared // self._page_size)
+            self._remember_prefix_paged(ctx, p, slot, m_shared)
+        self._bind_slot(req, slot, logits, now)
+
+    # --- prefix reuse -------------------------------------------------------
+
+    def _plan_prefix_reuse(self, ctx, p: int, end: int):
+        """Admission-time prefix lookup (JAX ``_plan_prefix_reuse``,
+        ``engine.py:2879-2982``): ``(entry, m_use, chunk)`` for a validated
+        hit, the entry PINNED (the caller releases it when the suffix
+        prefill settles, success or failure), or None for a miss, a match
+        below ``min_match`` or an entry that failed its reuse-time
+        validation (evicted on the spot: the admission falls back to a full
+        prefill, so bad KV never reaches a slot). A paged match floors to
+        whole pages. ``end`` is the context's end column in the slot."""
+        if self.prefix is None:
+            return None
+        hit = self.prefix.lookup(ctx)
+        if hit is not None and self._page_size is not None:
+            # copy-on-write reuse is page-granular: the unaligned tail of
+            # the match re-prefills as part of the suffix
+            ps = self._page_size
+            entry, m_use = hit
+            m_use = min(m_use // ps, len(entry.page_ids or ())) * ps
+            hit = (entry, m_use) if m_use >= self.prefix.min_match else None
+        if hit is None:
+            self.metrics.record_prefix_miss()
+            return None
+        entry, m_use = hit
+        if self._page_size is not None:
+            valid = self.cache.pages_live(entry.page_ids[:m_use // self._page_size])
+        else:
+            valid = self._validate_prefix(entry)
+        if not valid:
+            self.prefix.evict_entry(entry)
+            self.metrics.record_prefix_validation_failure()
+            self.metrics.record_prefix_eviction()
+            self.metrics.record_prefix_miss()
+            return None
+        self.prefix.pin(entry)
+        self.metrics.record_prefix_hit(m_use)
+        return entry, m_use, _suffix_bucket(p - m_use, end, self.max_seq_len)
+
+    def _validate_prefix(self, entry: PrefixEntry) -> bool:
+        """Reuse-time check of a stored copy (JAX ``_validate_prefix``,
+        ``engine.py:2984``): leaf shapes against the insert-time record, then
+        the fingerprint recomputed and compared with the stored one bit for
+        bit. Both scalars ride one host read."""
+        if tuple(tuple(t.shape) for t in prefix_leaves(entry.tree)) != entry.shapes:
+            return False
+        now, stored = self._host_read(torch.stack([cache_fingerprint(entry.tree),
+                                                   entry.fingerprint]))
+        return bool(now == stored)
+
+    def _remember_prefix(self, ctx, p: int, padded: int, row, matched: int) -> None:
+        """Insert-on-miss (JAX ``_remember_prefix``, ``engine.py:3057``):
+        copy the admitted context's K/V columns out of the slot into a
+        compact block keyed by its tokens. Skipped for contexts too short to
+        reuse, contexts a stored entry already covers, and hits whose tail
+        adds fewer than ``min_match`` tokens. The fingerprint stays on the
+        device: the first reuse reads it."""
+        if self.prefix is None or p < self.prefix.min_match:
+            return
+        if matched and p - matched < self.prefix.min_match:
+            return
+        key = tuple(int(t) for t in ctx)
+        if self.prefix.covers(key):
+            return
+        bucket = _prefix_bucket(p, self.max_seq_len)
+        tree = extract_cache_prefix(row, padded - p, p, bucket)
+        _, evicted = self.prefix.insert(key, tree, cache_fingerprint(tree), bucket)
+        if evicted:
+            self.metrics.record_prefix_eviction(evicted)
+
+    def _remember_prefix_paged(self, ctx, p: int, slot: int, matched: int) -> None:
+        """Paged insert-on-miss (JAX ``_remember_prefix_paged``,
+        ``engine.py:3096-3135``): PIN the slot's whole context pages instead
+        of copying, zero device work. Decode writes land past the aligned
+        context, so a still-decoding donor never touches them. Same skip
+        rules as the copy path, on the page-floored length."""
+        if self.prefix is None:
+            return
+        ps = self._page_size
+        m_ins = (p // ps) * ps
+        if m_ins < self.prefix.min_match or (matched and m_ins - matched < self.prefix.min_match):
+            return
+        key = tuple(int(t) for t in ctx[:m_ins])
+        if self.prefix.covers(key):
+            return
+        ids = self.cache.slot_context_pages(slot, m_ins // ps)
+        self.cache.pin_pages(ids)
+        entry, evicted = self.prefix.insert(key, None, None, bucket=m_ins)
+        if entry is None:
+            self.cache.unpin_pages(ids)
+        else:
+            entry.page_ids = tuple(ids)
+        if evicted:
+            self.metrics.record_prefix_eviction(evicted)
+
+    def _on_prefix_evict(self, entry: PrefixEntry) -> None:
+        """The store's eviction hook (JAX ``_on_prefix_evict``,
+        ``engine.py:1071``): a paged entry leaving the store releases its
+        page pins; pages a decoding slot still maps survive through its own
+        references."""
+        if entry.page_ids:
+            self.cache.unpin_pages(entry.page_ids)
+            entry.page_ids = None
+
+    def _reclaim_prefix_entry(self) -> bool:
+        """The page-pressure valve (JAX ``_reclaim_prefix_entry``,
+        ``engine.py:1091``): evict the least-recently-used unpinned paged
+        entry so its pages can serve an admission. Never frees a page a slot
+        still maps: eviction only drops the entry's references."""
+        for e in self.prefix.entries:  # LRU first
+            if e.refs == 0 and e.page_ids:
+                self.prefix.evict_entry(e)
+                self.metrics.record_prefix_eviction()
+                return True
+        return False
 
     def _bind_slot(self, req: Request, slot: int, logits: torch.Tensor, now: float) -> None:
         """Record the admission, sample a fresh request's first token (one
@@ -560,3 +789,8 @@ class ServingEngine:
         self.cache.release_all_slots()
         self.cache.reset()
         self._reset_slot_state()
+        if self.prefix is not None:
+            # no suffix prefill survives a preemption, so no pin may either;
+            # the entries stay valid (row copies, or pinned pages whose
+            # content the reset keeps)
+            self.prefix.release_all()

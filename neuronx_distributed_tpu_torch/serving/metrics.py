@@ -1,12 +1,14 @@
 """Serving metrics (counterpart of
 ``neuronx_distributed_tpu/serving/metrics.py``, the subset the engine's core
 records): TTFT, queue wait, decode tokens/s, chunk counts, slot
-occupancy (mean and peak), for a paged engine the peak of pages mapped, and
-the decode program's captures, capture wall and graph replays, as plain
-host numbers in ``snapshot()`` (the JAX snapshot's key names, plus
-``peak_occupancy``, ``peak_pages_mapped``, ``decode_captures``,
-``capture_s`` and ``graph_replays``). Recording costs
-no device read: every sample is a host scalar the engine already holds."""
+occupancy (mean and peak), for a paged engine the peak of pages mapped, the
+decode program's captures, capture wall and graph replays, the prefix
+cache's counters (JAX ``metrics.py:85-93``, ``:494-524``) and the prefill
+wall by kind (``"full"`` or ``"suffix"``), as plain host numbers in
+``snapshot()`` (the JAX snapshot's key names, plus ``peak_occupancy``,
+``peak_pages_mapped``, ``decode_captures``, ``capture_s`` and
+``graph_replays``). Recording costs no device read: every sample is a host
+scalar the engine already holds."""
 
 from __future__ import annotations
 
@@ -36,6 +38,9 @@ class ServingMetrics:
         self.graph_replays = self.decode_captures = 0
         self.capture_s = 0.0
         self.prefill_walls: List[float] = []
+        self.prefill_walls_by_kind: Dict[str, List[float]] = {"full": [], "suffix": []}
+        self.prefix_hits = self.prefix_misses = self.prefix_tokens_reused = 0
+        self.prefix_evictions = self.prefix_validation_failures = self.prefix_pages_shared = 0
 
     def record_submit(self, req, now: float) -> None:
         self._requests[req.rid] = {
@@ -50,8 +55,35 @@ class ServingMetrics:
             r["queue_wait"] = now - r["submit_time"]
         self.prefills += 1
 
-    def record_prefill_wall(self, seconds: float) -> None:
+    def record_prefill_wall(self, seconds: float, kind: str = "full") -> None:
+        """Wall time of one prefill, ``kind`` ``"full"`` or ``"suffix"`` (a
+        prefix hit's)."""
         self.prefill_walls.append(seconds)
+        self.prefill_walls_by_kind[kind].append(seconds)
+
+    # --- prefix cache -------------------------------------------------------
+
+    def record_prefix_hit(self, matched: int) -> None:
+        """An admission reused ``matched`` stored prefix tokens (only the
+        tail was prefilled)."""
+        self.prefix_hits += 1
+        self.prefix_tokens_reused += matched
+
+    def record_prefix_miss(self) -> None:
+        self.prefix_misses += 1
+
+    def record_prefix_eviction(self, n: int = 1) -> None:
+        self.prefix_evictions += n
+
+    def record_prefix_validation_failure(self) -> None:
+        """A stored entry failed its reuse-time validation: it was evicted
+        and the admission fell back to a full prefill."""
+        self.prefix_validation_failures += 1
+
+    def record_prefix_pages_shared(self, n: int) -> None:
+        """A paged hit mapped ``n`` pool pages copy-on-write into the
+        admitted slot's block table (zero KV bytes copied)."""
+        self.prefix_pages_shared += n
 
     def record_first_token(self, req, now: float) -> None:
         r = self._requests[req.rid]
@@ -142,6 +174,18 @@ class ServingMetrics:
             "prefill_count": len(self.prefill_walls),
             "prefill_wall_s": float(sum(self.prefill_walls)),
             "prefill_mean_s": _mean(self.prefill_walls),
+            "prefill_full_wall_s": float(sum(self.prefill_walls_by_kind["full"])),
+            "prefill_suffix_wall_s": float(sum(self.prefill_walls_by_kind["suffix"])),
+            "prefill_full_count": len(self.prefill_walls_by_kind["full"]),
+            "prefill_suffix_count": len(self.prefill_walls_by_kind["suffix"]),
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+            "prefix_hit_rate": (self.prefix_hits / (self.prefix_hits + self.prefix_misses)
+                                if self.prefix_hits + self.prefix_misses else 0.0),
+            "prefix_tokens_reused": self.prefix_tokens_reused,
+            "prefix_evictions": self.prefix_evictions,
+            "prefix_validation_failures": self.prefix_validation_failures,
+            "prefix_pages_shared": self.prefix_pages_shared,
             "cursor_high_water": self.cursor_high_water,
             "mean_occupancy": self.mean_occupancy,
             "peak_occupancy": self.peak_occupancy,

@@ -1,10 +1,10 @@
 """Paged KV cache for the serving engine: block-table slots over a
 ref-counted page pool (counterpart of
 ``neuronx_distributed_tpu/serving/paging.py``, what the engine calls:
-``PageAllocator`` without page sharing or quarantine, ``PagedCacheManager``
-without prefix pins, staged contexts, export/import, spill/prefetch,
-``seed_row``, slot quarantine or ``kv_quant``, which belong to later slices
-together with their callers).
+``PageAllocator`` with page sharing and without quarantine,
+``PagedCacheManager`` with prefix pins and copy-on-write admission, and
+without staged contexts, export/import, spill/prefetch, slot quarantine or
+``kv_quant``, which belong to later slices together with their callers).
 
 The row-per-slot manager (``serving/cache_manager.py``) charges every slot a
 full ``max_seq_len`` row of device memory whatever its request uses. Here:
@@ -26,14 +26,23 @@ full ``max_seq_len`` row of device memory whatever its request uses. Here:
   reset), which writes the device cursor; the table copy and the cursor
   write happen between chunks, outside the captured decode step.
 * Every admission page-aligns its context START (the cursor target is
-  bumped by fewer than ``page_size`` columns; gap columns stay invalid):
-  the alignment the prefix-cache slice shares whole pages on. The left
-  padding of a prefill bucket falls into unmapped pages, i.e. page 0.
+  bumped by fewer than ``page_size`` columns; gap columns stay invalid), so
+  whole context pages are shareable. The left padding of a prefill bucket
+  falls into unmapped pages, i.e. page 0.
+* Prefix sharing is copy-on-write by construction: a prefix entry PINS the
+  whole context pages of the slot that inserted it (a reference each); a
+  hit maps them under its first context columns with their refcounts up,
+  and allocates its own pages for the rest. The port writes K/V in place
+  through the table, and every write lands past the shared pages: the
+  suffix and the decode steps write at or past the page-floored match.
+  :meth:`PagedCacheManager.assert_writable` checks it before every write
+  window (a pinned page under one raises). ``PageAllocator.copy_bytes``
+  counts KV bytes duplicated on reuse: sharing never adds to it.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -54,8 +63,10 @@ class PageAllocator:
     """Host-side owner of the physical page pool: free list + ref counts.
 
     A page is exactly one of: RESERVED (page 0, the null page), FREE (on the
-    free list, refcount absent) or REFERENCED (mapped by a block table; the
-    refcount is the number of holders, 1 while nothing shares pages)."""
+    free list, refcount absent) or REFERENCED (mapped by >= 1 block table
+    and/or pinned by >= 1 prefix entry; the refcount is the sum).
+    ``copy_bytes`` counts KV bytes physically duplicated on prefix reuse:
+    the zero-copy contract is that it STAYS 0."""
 
     def __init__(self, num_pages: int):
         if num_pages < 2:
@@ -63,6 +74,7 @@ class PageAllocator:
         self.num_pages = num_pages
         self._free: List[int] = list(range(1, num_pages))
         self._refs: Dict[int, int] = {}
+        self.copy_bytes = 0  # never incremented by sharing
 
     @property
     def free_pages(self) -> int:
@@ -88,6 +100,12 @@ class PageAllocator:
         for pid in ids:
             self._refs[pid] = 1
         return ids
+
+    def ref(self, pid: int) -> None:
+        """One more holder of an already-live page (a share or a pin)."""
+        if pid not in self._refs:
+            raise ValueError(f"page {pid} is not live (cannot ref)")
+        self._refs[pid] += 1
 
     def deref(self, pid: int) -> None:
         """Drop one holder; the last drop returns the page to the free list."""
@@ -131,6 +149,11 @@ class PagedCacheManager:
         self._free = list(range(num_slots))
         self._tables = np.zeros((num_slots, self.pages_per_row), np.int32)
         self._slot_start: List[Optional[int]] = [None] * num_slots
+        self._pins: Dict[int, int] = {}  # page -> prefix entries pinning it
+        # page-pressure valve: evicts one unpinned prefix entry, True when it
+        # freed something (the engine installs it)
+        self.reclaim: Optional[Callable[[], bool]] = None
+        self.prefix_pages_shared_total = 0
 
     @classmethod
     def for_model(cls, model, num_slots: int, page_size: int,
@@ -200,14 +223,78 @@ class PagedCacheManager:
         hi = min(self.pages_per_row, -(-hi_col // ps))
         return own_end - start // ps + max(0, hi - lo)
 
+    def reclaimable_pages(self) -> int:
+        """Pages an eviction could free now: pinned by prefix entries and
+        mapped by no slot."""
+        return sum(1 for pid, pins in self._pins.items()
+                   if pins > 0 and self.alloc.refcount(pid) == pins)
+
     def available_pages(self) -> int:
-        """Pages an admission can claim now: the free list (nothing is
-        reclaimable without a prefix store)."""
-        return self.alloc.free_pages
+        """Pages an admission can claim now: the free list plus what evicting
+        every unpinned-by-flight prefix entry could reclaim."""
+        return self.alloc.free_pages + self.reclaimable_pages()
+
+    def _alloc_pages(self, n: int) -> List[int]:
+        """``n`` fresh pages, pulling the reclaim valve (evicting unpinned
+        prefix entries) while the free list is short."""
+        while self.alloc.free_pages < n and self.reclaim is not None:
+            if not self.reclaim():
+                break
+        return self.alloc.alloc(n)
 
     def slot_pages(self, slot: int) -> List[int]:
         row = self._tables[slot]
         return [int(p) for p in row[row != 0]]
+
+    # --- prefix pins (copy-on-write) ----------------------------------------
+
+    def pin_pages(self, ids: Sequence[int]) -> None:
+        """A prefix entry takes a reference on each page: the slot's own
+        context pages become shared storage, zero copies."""
+        for pid in ids:
+            self.alloc.ref(int(pid))
+            self._pins[int(pid)] = self._pins.get(int(pid), 0) + 1
+
+    def unpin_pages(self, ids: Sequence[int]) -> None:
+        for pid in ids:
+            pid = int(pid)
+            pins = self._pins.get(pid, 0)
+            if pins <= 1:
+                self._pins.pop(pid, None)
+            else:
+                self._pins[pid] = pins - 1
+            self.alloc.deref(pid)
+
+    def pages_live(self, ids: Sequence[int]) -> bool:
+        """Reuse-time validation of a paged prefix entry: every page still
+        allocated and pinned (host accounting; the content never left the
+        pool)."""
+        return all(self.alloc.refcount(int(pid)) > 0 and self._pins.get(int(pid), 0) > 0
+                   for pid in ids)
+
+    def slot_context_pages(self, slot: int, n: int) -> List[int]:
+        """The first ``n`` context pages of a slot (insert-on-miss pins
+        exactly these)."""
+        start = self._slot_start[slot]
+        if start is None:
+            raise ValueError(f"slot {slot} holds no context")
+        lo = start // self.page_size
+        ids = [int(p) for p in self._tables[slot, lo:lo + n]]
+        if any(p == 0 for p in ids):
+            raise ValueError(f"slot {slot} pages {ids} include unmapped entries")
+        return ids
+
+    def assert_writable(self, slots: Sequence[int], lo_col: int, hi_col: int) -> None:
+        """No pinned page lies under columns [lo_col, hi_col) of ``slots``:
+        a write there would change a prefix entry's content. Raises
+        AssertionError naming the page."""
+        ps = self.page_size
+        lo, hi = lo_col // ps, min(self.pages_per_row, -(-hi_col // ps))
+        for s in slots:
+            for pid in self._tables[int(s), lo:hi]:
+                if self._pins.get(int(pid), 0):
+                    raise AssertionError(f"slot {int(s)} would write pinned page {int(pid)} "
+                                         f"(columns [{lo_col}, {hi_col}))")
 
     # --- state transitions --------------------------------------------------
 
@@ -216,14 +303,18 @@ class PagedCacheManager:
             self.cache.upload_table(self._tables)
 
     def admit(self, slot: int, padded_len: int, cursor: Optional[int] = None,
-              p: Optional[int] = None) -> PagedKVCache:
+              p: Optional[int] = None, shared_ids: Sequence[int] = (),
+              m_shared: int = 0) -> PagedKVCache:
         """Place a prefill of ``padded_len`` columns, ``p`` of them real
-        context (default all), into ``slot``: allocate and map pages for the
-        context columns [cursor - p, cursor), clear the slot's validity, set
-        the shared cursor (default: keep, but at least ``padded_len``,
-        page-aligned) and return the view the prefill writes through. Its
-        left padding lands in unmapped pages, i.e. page 0. Raises
-        :class:`PageExhausted` before changing anything."""
+        context (default all), into ``slot``: map ``shared_ids`` (a
+        copy-on-write prefix hit's pages, refcounts up, zero KV bytes moved)
+        under the first ``m_shared`` context columns, allocate and map own
+        pages for the rest of the context columns [cursor - p, cursor),
+        clear the slot's validity, set the shared cursor (default: keep, but
+        at least ``padded_len``, page-aligned) and return the view the
+        prefill writes through. Its left padding lands in unmapped pages,
+        i.e. page 0. Raises :class:`PageExhausted` before changing
+        anything."""
         p = padded_len if p is None else p
         ps = self.page_size
         target = (self.aligned_target(max(self.cursor, padded_len), p)
@@ -235,10 +326,20 @@ class PagedCacheManager:
         if start % ps != 0:
             raise ValueError(f"context start {start} not page-aligned (page_size {ps}) — "
                              "use aligned_target for the cursor")
+        if m_shared % ps != 0 or m_shared > p:
+            raise ValueError(f"m_shared ({m_shared}) must be a page multiple <= p ({p})")
+        n_sh = m_shared // ps
+        if len(shared_ids) < n_sh:
+            raise ValueError(f"{n_sh} shared pages needed, got {len(shared_ids)}")
         if (self._tables[slot] != 0).any():
             raise ValueError(f"slot {slot} still maps pages (not freed?)")
-        own = self.alloc.alloc(-(-p // ps))
-        self._tables[slot, start // ps:start // ps + len(own)] = own
+        own = self._alloc_pages(-(-(p - m_shared) // ps))
+        s0 = start // ps
+        for j in range(n_sh):
+            self.alloc.ref(int(shared_ids[j]))
+            self._tables[slot, s0 + j] = int(shared_ids[j])
+        self.prefix_pages_shared_total += n_sh
+        self._tables[slot, s0 + n_sh:s0 + n_sh + len(own)] = own
         self._slot_start[slot] = start
         self._upload_tables()
         reset_cache_slot(self.cache, slot)
@@ -257,15 +358,15 @@ class PagedCacheManager:
         hi = min(self.pages_per_row, -(-(self.cursor + width) // ps))
         need = [(int(s), j) for s in active_slots for j in range(lo, hi)
                 if self._tables[int(s), j] == 0]
-        if not need:
-            return True
-        try:
-            ids = self.alloc.alloc(len(need))
-        except PageExhausted:
-            return False
-        for (s, j), pid in zip(need, ids):
-            self._tables[s, j] = pid
-        self._upload_tables()
+        if need:
+            try:
+                ids = self._alloc_pages(len(need))
+            except PageExhausted:
+                return False
+            for (s, j), pid in zip(need, ids):
+                self._tables[s, j] = pid
+            self._upload_tables()
+        self.assert_writable(active_slots, self.cursor, self.cursor + width)
         return True
 
     def free(self, slot: int) -> None:
@@ -294,7 +395,9 @@ class PagedCacheManager:
 
     def reset(self) -> None:
         """Rewind the cursor, invalidate every slot and release every
-        block-table mapping (drain / preemption)."""
+        block-table mapping (drain / preemption): pages flow back to the
+        free list unless a prefix pin keeps them, and pinned pages keep
+        their content, so the entries stay servable."""
         for slot in range(self.num_slots):
             for pid in self.slot_pages(slot):
                 self.alloc.deref(pid)
@@ -308,13 +411,15 @@ class PagedCacheManager:
 
     def check(self) -> None:
         """The page-leak/ref-count invariant: every page is exactly one of
-        free / table-mapped / reserved, ref counts reconcile with the
-        mappers, no slot double-maps a page, and the free list is
-        duplicate-free. AssertionError naming the offending page."""
+        free / table-mapped / prefix-pinned / reserved, ref counts reconcile
+        with the mappers plus the pins, no slot double-maps a page, and the
+        free list is duplicate-free. AssertionError naming the offending
+        page."""
         a = self.alloc
         free = set(a._free)
         assert len(free) == len(a._free), "free list has duplicates"
-        assert 0 not in free and 0 not in a._refs, "reserved null page 0 entered circulation"
+        assert 0 not in free and 0 not in a._refs and 0 not in self._pins, (
+            "reserved null page 0 entered circulation")
         mapped: Dict[int, int] = {}
         for s in range(self.num_slots):
             row = [int(p) for p in self._tables[s] if p != 0]
@@ -322,9 +427,10 @@ class PagedCacheManager:
             for pid in row:
                 mapped[pid] = mapped.get(pid, 0) + 1
         for pid in range(1, a.num_pages):
-            expect = mapped.get(pid, 0)
+            expect = mapped.get(pid, 0) + self._pins.get(pid, 0)
             have = a.refcount(pid)
-            assert have == expect, f"page {pid}: refcount {have} != mapped({expect})"
+            assert have == expect, (f"page {pid}: refcount {have} != mapped({mapped.get(pid, 0)})"
+                                    f" + pinned({self._pins.get(pid, 0)})")
             assert (pid in free) != (expect > 0), (
                 f"page {pid} is not exactly one of free/referenced: "
                 f"free={pid in free} refs={have}"

@@ -105,11 +105,16 @@ class Scheduler:
         return True
 
     def select(self, free_slots: int, in_flight_tokens: int,
-               fits: Optional[Callable[[Request], bool]] = None) -> List[Request]:
+               fits: Optional[Callable[[Request], bool]] = None,
+               prefill_cost: Optional[Callable[[Request], int]] = None) -> List[Request]:
         """Pick the queue-order prefix that fits ``free_slots``, the token
         budget and the engine's capacity predicate ``fits`` (checked in
         queue order, so it may accumulate a projected cursor). Selected
-        requests leave the queue in state PREFILL, longest prefill first."""
+        requests leave the queue in state PREFILL, longest prefill first;
+        ``prefill_cost`` replaces the context length as the ordering key
+        with the EFFECTIVE prefill work (the prefix-cache engine passes the
+        context less its reusable prefix; JAX ``order_round``). Ordering
+        only: selection and ``fits`` follow queue order."""
         selected: List[Request] = []
         budget = in_flight_tokens
         while self._queue and len(selected) < free_slots:
@@ -126,7 +131,7 @@ class Scheduler:
             req.state = RequestState.PREFILL
             budget += req.token_footprint
             selected.append(req)
-        selected.sort(key=lambda r: len(r.context_ids), reverse=True)
+        selected.sort(key=prefill_cost or (lambda r: len(r.context_ids)), reverse=True)
         return selected
 
     @property

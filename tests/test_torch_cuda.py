@@ -333,6 +333,51 @@ def test_flash_decode_kernels_with_dead_ranges(cuda, case):
     assert torch.equal(paged, got) and torch.equal(paged_lse, lse)
 
 
+def _suffix_case(gen, s, h, hkv, b=2, L=2048, prefix=1500):
+    """A suffix prefill's decode call: q of ``s`` tokens at columns
+    [prefix, prefix + s) behind a live prefix; slot 1 left-padded over its
+    first 300 columns, a gap of dead columns in both prefixes, and the last
+    3 suffix tokens a pad tail (invalid columns, rows still computed)."""
+    q = _rnd(gen, b, s, h, 128)
+    kc, vc = _rnd(gen, b, L, hkv, 128), _rnd(gen, b, L, hkv, 128)
+    pos = torch.arange(prefix, prefix + s, dtype=torch.int32, device="cuda")
+    valid = torch.zeros(b, L, dtype=torch.bool, device="cuda")
+    valid[:, :prefix + s - 3] = True
+    valid[1, :300] = False
+    valid[:, 700:760] = False
+    return q, kc, vc, pos, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,hkv", [(16, 8, 2), (64, 8, 2), (256, 8, 2), (40, 16, 2), (50, 6, 2)])
+def test_flash_decode_kernels_take_many_rows(cuda, s, h, hkv):
+    """K4 and K5 above 32 rows per kv-head (R = 64, 256 and 1024 at group 4;
+    group 8, and group 3, whose 32-row tiles hold 30 rows): the multi-row
+    path against the plain versions, with a live prefix, left padding, a gap
+    and a pad tail; two runs bitwise equal; K5 through a scrambled table
+    bitwise equal to K4 on the gathered view; one counted launch a call."""
+    q, kc, vc, pos, valid = _suffix_case(cuda, s, h, hkv)
+    n4, n5 = tfd.flash_decode_fwd.launches, tfd.paged_flash_decode_fwd.launches
+    got, lse = tfd.flash_decode_fwd(q, kc, vc, pos, valid)
+    again, again_lse = tfd.flash_decode_fwd(q, kc, vc, pos, valid)
+    assert tfd.flash_decode_fwd.launches == n4 + 2
+    assert torch.equal(got, again) and torch.equal(lse, again_lse)
+    want, wlse = tfd.flash_decode_plain(q, kc, vc, pos, valid)
+    pv = tfd.flash_decode_plain(q, kc, vc.abs(), pos, valid)[0]
+    _assert_out_close(got, want, pv, 2.0 ** -12)
+    torch.testing.assert_close(lse, wlse, atol=5e-4, rtol=1e-4)
+    kp, vp, bt = _paged_view(cuda, kc, vc, valid)
+    paged, paged_lse = tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, 16)
+    assert tfd.paged_flash_decode_fwd.launches == n5 + 1
+    row, row_lse = tfd.flash_decode_fwd(q, tfd.paged_gather_leaf(kp, bt, 16),
+                                        tfd.paged_gather_leaf(vp, bt, 16), pos, valid)
+    assert torch.equal(paged, row) and torch.equal(paged_lse, row_lse)
+    pwant, pwlse = tfd.paged_flash_decode_plain(q, kp, vp, bt, pos, valid, 16)
+    ppv = tfd.paged_flash_decode_plain(q, kp, vp.abs(), bt, pos, valid, 16)[0]
+    _assert_out_close(paged, pwant, ppv, 2.0 ** -12)
+    torch.testing.assert_close(paged_lse, pwlse, atol=5e-4, rtol=1e-4)
+
+
 @pytest.mark.cuda
 def test_flash_decode_kernels_do_not_spill(cuda):
     """``ptxas -v`` for csrc/flash_decode.cu: no decode kernel or merge
@@ -341,7 +386,8 @@ def test_flash_decode_kernels_do_not_spill(cuda):
 
     report = _build.resource_report("flash_decode")
     entries = [line for line in report.splitlines() if "Compiling entry function" in line]
-    assert len(entries) == 10, report  # K4 and K5 at R <= 4, 8, 16, 32, and their merges
+    # K4 and K5 at R <= 4, 8, 16, 32, their merges, and their multi-row kernels
+    assert len(entries) == 12, report
     spills = [line for line in report.splitlines() if "spill" in line]
     assert len(spills) >= len(entries), report
     assert all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills), report
@@ -382,6 +428,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # head_dim 64
         pool = _rnd(cuda, 4, 16, 2, 64)
         tfd.paged_flash_decode_fwd(_rnd(cuda, 3, 1, 8, 64), pool, pool, bt, pos, valid, 16)
+    with pytest.raises(ValueError):  # a group of 64 q-heads: more than a row tile holds
+        tfd.paged_flash_decode_fwd(_rnd(cuda, 3, 1, 128, 128), kp, vp, bt, pos, valid, 16)
     assert tfd.paged_flash_decode_fwd.launches == n  # nothing refused was counted
 
 
@@ -496,17 +544,86 @@ def test_engine_decodes_through_one_captured_graph(cuda, monkeypatch, paged):
         assert snap["preemptions"] > 0
         assert [len(r.tokens) for r in reqs] == list(news)
         prog = engine.decode_program
+        # resumes hit the prefix cache: each suffix prefill launches the
+        # decode kernel once a layer, eagerly, outside the graph
+        suffix = snap["prefill_suffix_count"] * cfg.num_layers
         if eager:
             assert engine.decode_compilations == 0 and prog.replays == 0
-            assert wrapper.launches - n0 == snap["executed_steps"] * cfg.num_layers
+            assert wrapper.launches - n0 == snap["executed_steps"] * cfg.num_layers + suffix
         else:
             assert engine.decode_compilations == 1 == snap["decode_captures"]
             assert prog.replays == snap["executed_steps"] == snap["graph_replays"]
             assert prog.launches_per_replay == {name: cfg.num_layers}
-            assert wrapper.launches - n0 == cfg.num_layers  # the capture's warm-up
+            # the capture's warm-up, and the suffix prefills
+            assert wrapper.launches - n0 == cfg.num_layers + suffix
             assert snap["capture_s"] > 0
         if paged:
             engine.cache.check()
+        streams.append([r.tokens for r in reqs])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_engine_prefix_hits_on_card_run_the_decode_kernels(cuda, monkeypatch, paged):
+    """Shared-prompt traffic on the card (group 4, head_dim 128): one miss
+    (K1) seeds the store, every hit prefills its tail through K4 (row) or
+    K5 (paged) with R = 4 x chunk rows, 32 and above 32 (chunks 8, 64 and
+    256), never through K1 or a plain version; a hit admitted between
+    chunks leaves the decode program at one capture, and the streams equal
+    the same engine's with the eager step patched in."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.inference.graphs import DecodeProgram
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=1024, intermediate_size=1024, num_layers=2,
+                      num_heads=8, num_kv_heads=2, max_seq_len=1024)
+    model = init_params(LlamaForCausalLM(cfg), seed=0)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(1, 1000, size=200)
+    prompts = [np.concatenate([shared, rng.integers(1, 1000, size=n)]) for n in (20, 5, 60, 150)]
+    kw = dict(kv_page_size=16) if paged else {}
+    wrapper = tfd.paged_flash_decode_fwd if paged else tfd.flash_decode_fwd
+    kernel = "_paged_kernel_call" if paged else "_kernel_call"
+    for plain in ("flash_decode_plain", "paged_flash_decode_plain", "flash_attention_plain"):
+        mod = tfa if plain == "flash_attention_plain" else tfd
+        monkeypatch.setattr(mod, plain, lambda *a, **k: pytest.fail("a plain version ran"))
+    streams = []
+    for eager in (False, True):
+        rows = []
+        real = getattr(tfd, kernel)
+
+        def recording(q, *a, **k):
+            rows.append(q.shape[1] * q.shape[2] // a[0].shape[2])  # R = s x group
+            return real(q, *a, **k)
+
+        with monkeypatch.context() as m:
+            m.setattr(tfd, kernel, recording)
+            if eager:
+                m.setattr(DecodeProgram, "__call__", lambda self: self.step())
+            engine = ServingEngine(model, num_slots=3, decode_chunk_size=4, **kw)
+            n1, nd = tfa.flash_attention_fwd.launches, wrapper.launches
+            first = engine.submit(prompts[0], GenerationConfig(24, temperature=0.0), seed=0)
+            engine.step()  # the miss: K1, then the first chunk (captured)
+            reqs = [first] + [engine.submit(p, GenerationConfig(12, temperature=0.0), seed=i)
+                              for i, p in enumerate(prompts[1:], 1)]
+            engine.run()  # three hits between chunks
+        snap = engine.metrics.snapshot()
+        assert (snap["prefix_hits"], snap["prefix_misses"]) == (3, 1)
+        assert snap["prefix_validation_failures"] == 0
+        assert tfa.flash_attention_fwd.launches - n1 == cfg.num_layers  # the miss alone
+        # s = 1 decode steps have R = 4; a paged match floors to 12 pages
+        hits_r = sorted(set(r for r in rows if r != 4))
+        assert hits_r == ([64, 512, 1024] if paged else [32, 256, 1024]), rows
+        assert engine.decode_compilations == (0 if eager else 1)
+        # the suffix prefills, and every step (eager) or the capture's warm-up
+        decode = snap["executed_steps"] if eager else 1
+        assert wrapper.launches - nd == (3 + decode) * cfg.num_layers
+        if paged:
+            assert engine.cache.alloc.copy_bytes == 0 and snap["prefix_pages_shared"] > 0
+            engine.cache.check()
+        assert all(len(r.tokens) == r.config.max_new_tokens for r in reqs)
         streams.append([r.tokens for r in reqs])
     assert streams[0] == streams[1]
 

@@ -117,6 +117,8 @@ def test_flash_attention_fully_masked_row_is_zero():
     (1, 8, 2, 64, 63),    # GQA, full length
     (4, 8, 2, 48, 20),    # speculative-width window, bound 24 < L
     (4, 4, 1, 32, 3),     # rows before any valid slot: fully masked
+    (16, 8, 2, 64, 30),   # a suffix prefill: R = 64 rows per kv-head
+    (64, 8, 2, 96, 20),   # R = 256
 ])
 def test_flash_decode_plain_matches_pallas(s, h, hkv, L, q0):
     rng = np.random.default_rng(L + s + h)
