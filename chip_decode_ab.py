@@ -11,18 +11,26 @@ first, so no build falls inside a timed phase. K4 at
 ``chip_smoke.check_k4``'s shapes and K5 at both of ``check_k5``'s
 geometries, each timed two ways: 20 calls captured in one CUDA graph and
 replayed (device time, the host taken out) and 50 calls back to back (CUDA
-events; the host's issue time where it exceeds the device's). Then
-Llama-3-8B (all 32 layers, random bf16 weights from seed 0) serves
-``chip_smoke.serve``'s six requests and the paged engine
-``chip_smoke.paged_workload``'s fifteen, each once more under the profiler
-for device time by kernel family (and, for the paged run, the caching
-allocator's device allocations). Where the checkout's engine captures its
+events; the host's issue time where it exceeds the device's); and their
+multi-row path (R = 64, 1024 and 2048 rows a kv-head) at
+``chip_smoke.check_decode_rows``'s inputs, K5 through its scrambled table,
+as CUDA-graph replays. Then Llama-3-8B (all 32 layers, random bf16 weights
+from seed 0) serves ``chip_smoke.serve``'s six requests and the paged
+engine ``chip_smoke.paged_workload``'s fifteen, each once more under the
+profiler for device time by kernel family (and, for the paged run, the
+caching allocator's device allocations); then phase 5c's prefix-cache
+traffic (``chip_smoke.serve_prefix``) on the row and the paged engine,
+prefix cache on and off, with the prefill wall by kind, and the row
+engine's prefix-on wave once more under the profiler
+(``chip_smoke.profile_prefix``: device time by family, the multi-row K4
+among them, and the device time inside the suffix prefills). Where the checkout's engine captures its
 decode step in a CUDA graph, the capture's wall is reported apart and taken
 out of the wall the idle share is read against, and the profiled runs
 capture before the profiler opens. It prints one JSON line: per serving
 path, ms per decode-only step, decode tokens/s, TTFT mean and max, and the
-idle share. To compare two checkouts on one card, run them back to back as
-old, new, new, old.
+idle share; per prefix engine, the prefill wall by kind, TTFT and the
+wall, prefix on and off. To compare two checkouts on one card, run them
+back to back as old, new, new, old.
 """
 
 from __future__ import annotations
@@ -32,6 +40,32 @@ import json
 import os
 import subprocess
 import sys
+
+
+def prefix_serving(cs, model) -> dict:
+    """Phase 5c's traffic on the row and the paged engine, prefix cache on
+    and off: the prefill wall by kind (full, suffix: sum, count, mean), TTFT
+    and the wall; then the row engine's prefix-on wave under the profiler."""
+    from neuronx_distributed_tpu_torch.serving.cache_manager import PrefixCache
+
+    workload = cs.prefix_workload(model.config.vocab_size)
+    out = {}
+    for paged in (False, True):
+        for on in (True, False):
+            r = cs.serve_prefix(model, workload, paged, PrefixCache() if on else None)
+            cs.drain_prefix_store(r)
+            d = r["delta"]
+            out[f"{'paged' if paged else 'row'}_{'on' if on else 'off'}"] = dict(
+                wall_s=r["wall_s"], ttft_mean_s=sum(r["ttft"]) / len(r["ttft"]),
+                ttft_max_s=max(r["ttft"]), hits=d["prefix_hits"], misses=d["prefix_misses"],
+                **{f"prefill_{k}_{x}": d[f"prefill_{k}_{x}"] for k in ("full", "suffix")
+                   for x in ("wall_s", "count")},
+                **{f"prefill_{k}_mean_s": d[f"prefill_{k}_wall_s"] / max(d[f"prefill_{k}_count"], 1)
+                   for k in ("full", "suffix")})
+    row = out["row_on"]
+    out["row_on_profile"] = cs.profile_prefix(model, workload, row["wall_s"],
+                                              row["prefill_suffix_wall_s"])
+    return out
 
 
 def main() -> int:
@@ -66,6 +100,13 @@ def main() -> int:
         k5 = lambda: tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, 16)  # noqa: E731
         times[f"k5_{shapes}"] = dict(graph_ms=cs.graph_ms(k5, 20), eager_ms=cs.cuda_ms(k5, 50))
         del q, kp, vp, bt, pos, valid
+    for chunk in (16, 256, 512):  # R = 4 x chunk: the multi-row path
+        q, kc, vc, pos, valid = cs.rows_inputs(gen, chunk)
+        kp, vp, bt = cs.scrambled_pages(kc, vc, valid)
+        times[f"rows_{4 * chunk}"] = dict(
+            k4_graph_ms=cs.graph_ms(lambda: tfd.flash_decode_fwd(q, kc, vc, pos, valid), 5),
+            k5_graph_ms=cs.graph_ms(lambda: tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, 16), 5))
+        del q, kc, vc, pos, valid, kp, vp, bt
     torch.cuda.empty_cache()
 
     model = init_params(LlamaForCausalLM(llama3_8b()), seed=0)
@@ -96,8 +137,9 @@ def main() -> int:
         idle_share=1 - sum(paged_prof["fams"].values()) / (1e3 * (paged["wall_s"] - capture_s)),
         tokens_equal_profiled_rerun=paged_prof["tokens"] == paged["tokens"],
         device_mallocs=allocs)
+    prefix = prefix_serving(cs, model)
     print(json.dumps(dict(tree=tree, card=card, kernels=times, serving=serving,
-                          paged_serving=paged_serving)), flush=True)
+                          paged_serving=paged_serving, prefix_serving=prefix)), flush=True)
     return 0
 
 

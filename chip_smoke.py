@@ -72,6 +72,7 @@ result.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import json
 import math
@@ -566,11 +567,15 @@ def check_decode_rows(gen, chunk: int) -> dict:
     """K4's and K5's multi-row path at phase 5c's geometry with R = 4 x
     ``chunk`` rows: against the plain versions (K4's limit), bitwise
     reproducible, K5 through a scrambled table bitwise equal to K4 on the
-    gathered view; a kernel that dropped one 32-row tile (its 8 tokens' rows
-    zero) must read above the limit. Times as CUDA-graph replays, beside the
-    plain version's and SDPA's (boolean mask, GQA, on the row view)."""
+    gathered view; a kernel that dropped one row tile (the 64 // 4 tokens of
+    one tile, every head of the group, zero) must read above the limit. Its
+    tile plan (``flash_decode_rows_plan``: blocks, visited and masked
+    column tiles, the pairs they hold over the live pairs). Times as
+    CUDA-graph replays, beside the plain version's and SDPA's (boolean
+    mask, GQA, on the row view)."""
     from torch.nn import functional as F
 
+    from neuronx_distributed_tpu_torch.kernels import flash_decode as tfd
     from neuronx_distributed_tpu_torch.kernels.flash_decode import (
         flash_decode_fwd,
         flash_decode_plain,
@@ -578,6 +583,10 @@ def check_decode_rows(gen, chunk: int) -> dict:
         paged_gather_leaf,
     )
 
+    lib = tfd._decode_lib()
+    if (lib.row_tile, lib.row_tile_cols) != (tfd.ROWS_TILE, tfd.ROWS_TILE_COLS):
+        raise AssertionError(f"the kernel's row tile {lib.row_tile} x {lib.row_tile_cols} is not "
+                             f"flash_decode_rows_plan's {tfd.ROWS_TILE} x {tfd.ROWS_TILE_COLS}")
     h, hkv, d, ps = 32, 8, 128, 16
     q, kc, vc, pos, valid = rows_inputs(gen, chunk)
     out, lse = flash_decode_fwd(q, kc, vc, pos, valid)
@@ -588,8 +597,10 @@ def check_decode_rows(gen, chunk: int) -> dict:
                                     pos, valid)
     ref, ref_lse = flash_decode_plain(q, kc, vc, pos, valid)
     pv = flash_decode_plain(q, kc, vc.abs(), pos, valid)[0]
+    tokens = lib.row_tile // (h // hkv)  # a row tile: these tokens of every head of a group
+    t = chunk // 2 // tokens * tokens
     fault = ref.clone()
-    fault[:, chunk // 2:chunk // 2 + 8] = 0  # one row tile: 8 tokens of every head of a group
+    fault[:, t:t + tokens] = 0
     torch.cuda.synchronize()
     err, lerr = max_err(out, ref), max_err(lse, ref_lse)
     ratio, fault_ratio = tol_ratio(out, ref, pv, K4_PV), tol_ratio(fault, ref, pv, K4_PV)
@@ -618,13 +629,20 @@ def check_decode_rows(gen, chunk: int) -> dict:
     bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
     mask = live[None, None]  # (1, 1, chunk, L)
     qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    plan = tfd.flash_decode_rows_plan(pos.cpu(), valid.cpu(), kc.shape[1], h // hkv, b=1, hkv=hkv)
+    visited, masked = plan["visited"], plan["visited"] & plan["masked"]
+    # (row, column) pairs in visited tiles, a head, against the live pairs
+    tile_pairs = int((visited.sum(-1) * plan["tokens"]).sum()) * tfd.ROWS_TILE_COLS
+    plan = dict(blocks=len(plan["order"]), visited=int(visited.sum()) * hkv,
+                masked=int(masked.sum()) * hkv, work_over_live=tile_pairs / pairs)
     return dict(rows=4 * chunk, err=max(err, lerr, max_err(paged, ref)), ratio=ratio,
                 fault_ratio=fault_ratio, pairs=pairs, bound_ms=bound, bound_by=bound_by,
+                tokens=tokens, plan=plan,
                 ms=graph_ms(lambda: flash_decode_fwd(q, kc, vc, pos, valid), 5),
                 paged_ms=graph_ms(lambda: paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps), 5),
                 plain_ms=cuda_ms(lambda: flash_decode_plain(q, kc, vc, pos, valid), 3, warmup=1),
-                library_ms=graph_ms(lib, 5), gflop=flops / 1e9)
+                library_ms=graph_ms(sdpa, 5), gflop=flops / 1e9)
 
 
 def packed_segments(rng, b: int, s: int, lo: int = 200, hi: int = 3000):
@@ -1183,14 +1201,16 @@ def prefix_warmup(vocab: int):
     return prompts[:5] + prompts[-2:-1], [GenerationConfig(max_new_tokens=4, temperature=0.0)] * 6
 
 
-def serve_prefix(model, workload, paged: bool, prefix) -> dict:
+def serve_prefix(model, workload, paged: bool, prefix, profiled: bool = False) -> dict:
     """Phase 5c's workload through the row engine (8 slots, chunk 8,
     conservative) or the paged engine (16 slots, page 16, 2049 pages), with
     ``prefix`` as its ``prefix_cache``: the warm-up wave, the store cleared,
     every kernel's launch count zeroed, then the measured wave, each request
     submitted at once. Paged: ``check()`` after every step, each entry's
     pages cloned when pinned and compared at the end, and after
-    ``prefix.clear()`` every page but the null page free."""
+    ``prefix.clear()`` every page but the null page free. ``profiled``: the
+    measured wave runs under ``torch.profiler`` with each suffix prefill in
+    a ``SUFFIX_RANGE`` range (the profile is returned as ``prof``)."""
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
     from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
 
@@ -1231,15 +1251,17 @@ def serve_prefix(model, workload, paged: bool, prefix) -> dict:
             c.multi_row_launches = 0
     prog = decode_program(engine)
     replays0 = prog.replays
-    t0 = time.perf_counter()
-    prompts, cfgs = workload
-    reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
-    while engine.has_work:
-        engine.step()
-        if paged:
-            engine.cache.check()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with contextlib.ExitStack() as stack:
+        prof = stack.enter_context(profiled_suffix_prefills()) if profiled else None
+        t0 = time.perf_counter()
+        prompts, cfgs = workload
+        reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
+        while engine.has_work:
+            engine.step()
+            if paged:
+                engine.cache.check()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     for r in reqs:
         if r.state is not RequestState.DONE or len(r.tokens) != 32:
             raise AssertionError(f"prefix request {r.rid}: {r.state} with {len(r.tokens)} tokens")
@@ -1273,7 +1295,7 @@ def serve_prefix(model, workload, paged: bool, prefix) -> dict:
         raise AssertionError(f"prefix serving: decode_compilations {engine.decode_compilations}")
     res = dict(tokens=[list(r.tokens) for r in reqs], snap=snap, delta=delta, wall_s=wall,
                launches=launches, multi_row=rows, replayed=replays * per_replay,
-               ttft=[r.first_token_time - r.submit_time for r in reqs], engine=engine)
+               ttft=[r.first_token_time - r.submit_time for r in reqs], engine=engine, prof=prof)
     if paged:
         res["copy_bytes"] = engine.cache.alloc.copy_bytes
         res["pages_shared_total"] = engine.cache.prefix_pages_shared_total
@@ -1288,6 +1310,78 @@ def serve_prefix(model, workload, paged: bool, prefix) -> dict:
     else:
         res["entry_bytes"] = engine.prefix.nbytes if engine.prefix is not None else 0
     return res
+
+
+SUFFIX_RANGE = "suffix_prefill"  # the profiler range around each suffix prefill
+
+
+@contextlib.contextmanager
+def profiled_suffix_prefills():
+    """``torch.profiler`` (CPU and CUDA activity) with the serving engine's
+    ``suffix_prefill_step`` wrapped in a ``SUFFIX_RANGE`` range; yields the
+    profile."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from neuronx_distributed_tpu_torch.serving import engine as engine_mod
+
+    step = engine_mod.suffix_prefill_step
+
+    def ranged(*a, **kw):
+        with record_function(SUFFIX_RANGE):
+            return step(*a, **kw)
+
+    engine_mod.suffix_prefill_step = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            yield prof
+    finally:
+        engine_mod.suffix_prefill_step = step
+
+
+def range_device_ms(prof, name: str):
+    """Device ms of the kernels that ran inside the device-side spans of the
+    ``name`` ranges (the profiler's GPU user annotations), or None where
+    the profile holds no such span."""
+    spans, kernels = [], []
+    for e in prof.events():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        (spans if e.name == name else kernels).append(e)
+    if not spans:
+        return None
+    spans = sorted((e.time_range.start, e.time_range.end) for e in spans)
+    starts = [a for a, _ in spans]
+    total = 0.0
+    for k in kernels:
+        i = bisect.bisect_right(starts, k.time_range.start) - 1
+        if i >= 0 and k.time_range.start < spans[i][1]:
+            total += k.device_time
+    return total / 1e3
+
+
+def profile_prefix(model, workload, wall_s: float, suffix_wall_s: float) -> dict:
+    """Phase 5c's row engine with the prefix cache on, once more under the
+    profiler (its measured wave): device ms by family (K1, K4 on the split
+    path, K4 on the multi-row path, GEMMs, other), busy against the
+    unprofiled run's wall (``wall_s``), and the device ms inside the suffix
+    prefills against their unprofiled wall (``suffix_wall_s``), whose rest
+    is host issue. The profiler slows the host, so only device times are
+    read from it."""
+    from neuronx_distributed_tpu_torch.serving.cache_manager import PrefixCache
+
+    run = serve_prefix(model, workload, False, PrefixCache(), profiled=True)
+    prof = run.pop("prof")
+    drain_prefix_store(run)
+    fams = device_time_by_family(prof, {"flash_attention": "flash_fwd_kernel",
+                                        "flash_decode_multi_row": "flash_decode_kernel_rows",
+                                        "flash_decode": "flash_decode_kernel"},
+                                 skip=(SUFFIX_RANGE,))
+    busy = sum(fams.values())
+    suffix_ms = range_device_ms(prof, SUFFIX_RANGE)
+    return dict(fams=fams, busy_ms=busy, idle_share=1 - busy / (1e3 * wall_s),
+                suffix_device_ms=suffix_ms, suffix_wall_ms=1e3 * suffix_wall_s,
+                suffix_host_share=None if suffix_ms is None else 1 - suffix_ms / (1e3 * suffix_wall_s),
+                hits=run["delta"]["prefix_hits"])
 
 
 def drain_prefix_store(res: dict) -> None:
@@ -1427,19 +1521,31 @@ def prefix_phase(model) -> dict:
                 log(f"hit logits vs full prefill ({h['name']}: p={h['p']}, reused {h['m']}, "
                     f"suffix chunk {h['chunk']}, R={h['rows']}): rel_err {h['rel_err']:.3g}, "
                     f"argmax equal {h['argmax_equal']}, logit_scale {h['logit_scale']:.3g}")
+            prof = profile_prefix(model, workload, on["wall_s"], d["prefill_suffix_wall_s"])
+            suffix = ("not measured (no device-side range in the profile)"
+                      if prof["suffix_device_ms"] is None else
+                      f"{prof['suffix_device_ms']:.2f} of their unprofiled wall "
+                      f"{prof['suffix_wall_ms']:.2f} (host issue share {prof['suffix_host_share']:.3f})")
+            log("device time of prefix serving (row engine, prefix on, the measured wave once more "
+                "under the profiler, ms): " + ", ".join(f"{k} {v:.2f}" for k, v in prof["fams"].items())
+                + f"; busy {prof['busy_ms']:.2f} of the unprofiled wall {1e3 * on['wall_s']:.2f} "
+                f"(idle share {prof['idle_share']:.3f}); device ms inside the {prof['hits']} hits' "
+                f"suffix prefills: {suffix}")
+            out["profile"] = prof
         for k in out["launches"]:
             out["launches"][k] += on["launches"][k] + (on["replayed"] if k == dec else 0)
         out["multi_row"][dec] = on["multi_row"][dec]
     return out
 
 
-def device_time_by_family(prof, kernels: dict) -> dict:
+def device_time_by_family(prof, kernels: dict, skip=()) -> dict:
     """Device ms of a profile by family: each of ``kernels`` (family: a
     substring of its CUDA kernel's name; the first that matches wins), GEMMs,
-    and everything else."""
+    and everything else; device events named in ``skip`` (the device-side
+    spans of profiler ranges) are no kernels."""
     fams = {**{fam: 0.0 for fam in kernels}, "gemm": 0.0, "other": 0.0}
     for e in prof.events():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") or e.name in skip:
             continue
         name = e.name
         fam = next((f for f, key in kernels.items() if key in name), None)
@@ -1744,13 +1850,18 @@ def main() -> int:
     for chunk, r in rows.items():
         log(f"K4/K5 multi-row B=1 s={chunk} (R={r['rows']}) H=32 Hkv=8 D=128 L=8192, a "
             f"{ROWS_PREFIX}-column live prefix, pad tail {chunk - min(chunk - 3, 400)}: max_err {r['err']:.3g} "
-            f"({r['ratio']:.3g}x its limit; a dropped 32-row tile reads {r['fault_ratio']:.3g}x); "
+            f"({r['ratio']:.3g}x its limit; a dropped {4 * r['tokens']}-row tile reads "
+            f"{r['fault_ratio']:.3g}x); "
             f"two runs bitwise equal, K5 through a scrambled table bitwise equal to K4 on the "
             f"gathered view; K4 kernel_ms {r['ms']:.4f} K5 kernel_ms {r['paged_ms']:.4f} (graph "
             f"replays) plain_ms {r['plain_ms']:.4f} bound_ms {r['bound_ms']:.5f} ({r['bound_by']}; "
             f"{r['pairs']} live pairs a head, {r['ms'] / r['bound_ms']:.1f}x, "
             f"{r['gflop'] / r['ms']:.1f} TFLOP/s) library_ms {r['library_ms']:.4f} (SDPA, bool "
             f"mask, GQA; graph replay)")
+        pl = r["plan"]
+        log(f"K4/K5 multi-row (R={r['rows']}) tile plan: {pl['blocks']} blocks (64-row tiles x 8 "
+            f"kv-heads), {pl['visited']} visited 64-column tiles, {pl['masked']} of them masked; "
+            f"the visited tiles hold {pl['work_over_live']:.3f}x the live pairs")
     k23 = {(s, packed): check_k2k3(gen, s, packed, timed=s == 4096)
            for s, packed in ((4096, False), (4096, True), (1000, False))}
     for (s, packed), r in k23.items():

@@ -1,9 +1,9 @@
-// Fragment and copy helpers of the decode kernels (K4 and K5,
-// flash_decode.cu), whose products run on `mma.sync.m16n8k16` with bf16
-// inputs and f32 accumulators; the flash-attention forward and backward
-// (K1, flash_attention.cu; K2 and K3, flash_attention_bwd.cu) take only D,
-// bf16 and NEG_INF from here and build their `wgmma` products on
-// hopper.cuh.
+// Fragment and copy helpers of the decode kernels' split path (K4 and K5
+// at R <= 32, flash_decode.cu), whose products run on `mma.sync.m16n8k16`
+// with bf16 inputs and f32 accumulators; the flash-attention forward and
+// backward (K1, flash_attention.cu; K2 and K3, flash_attention_bwd.cu) and
+// the multi-row decode path take only D, bf16 and NEG_INF from here and
+// build their `wgmma` products on hopper.cuh.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //  * A (16 x 16, row major): a0 = (row g, cols 2t..2t+1), a1 = (row g+8,

@@ -70,28 +70,65 @@
 //    run to run.
 //
 // More than 32 rows (R = group * s for a suffix prefill of s tokens behind a
-// reused prefix, the Pallas kernel's one block of R rows): the split path's
-// partials would be (n_splits, B, Hkv, R, D) f32, over a GB at R = 8192 and
-// L = 8192, and the rows alone give parallelism enough. So the multi-row
-// path runs one block per (32-row tile, kv-head, slot), which walks its
-// rows' whole live length range by range through the same tile loop, with
-// its softmax state in registers, and writes O and LSE itself: no
-// workspace, no merge, one launch. A row tile takes 32 / G suffix tokens of
-// every head of the group (rows fold as r = g * s + t) and reads columns up
-// to its own largest position only. What bounds it at a 1600-column prefix
-// and a 200-token suffix is operations (~4 D R per live column, ~800 FLOP a
-// byte); this path is right and simple first: `mma.sync` for Q K^T, P V on
-// the CUDA cores, K/V re-read by every row tile, and at the 32-row plan's
-// ~120 KB of shared memory one block an SM (the `wgmma` redesign is later
-// work). R <= 32 keeps the split plan above, bit for bit.
+// reused prefix, the Pallas kernel's one block of R rows): the multi-row
+// path (`decode_rows`, one launch, no workspace, no merge kernel).
+//
+// What bounds it on an H100: operations. Every live (row, column) pair
+// costs 4 D FLOPs of tensor work (S = Q K^T and P V), ~800 FLOP a byte of
+// K/V at a 1600-column prefix and 256 suffix tokens; at phase 5c's
+// geometry the bound is 0.0073 ms at R = 1024 (7.25 GFLOP).
+//
+// What the design does about it (K1's shape, flash_attention.cu, on
+// hopper.cuh):
+//  * One block per (64-row tile, kv-head, slot), numbered latest tokens
+//    first. A row tile is T = 64 / G whole tokens of every head of the group
+//    (local row g * T + j), so Q is one TMA box a half (64 columns x T
+//    tokens x G heads of q's 4-D map; tokens past s arrive as zeros) and
+//    every K/V tile that lands feeds all G heads. The grid, the order and
+//    the split of the work come from B, Hkv, R and L alone.
+//  * Three consumer warpgroups a block share Q, each walking every third
+//    visited 64-column tile through its own 2-stage ring (its warp 0 the
+//    loader, K1's pattern), and merge (m, l, O) through shared memory at
+//    the end in warpgroup order; ~215 KB of shared memory at L = 8192, one
+//    block an SM. K4 loads a tile as one box a half of the row cache's map;
+//    K5 as one box a page (page_size rows) a half of the pool's map, the
+//    lanes issuing the pages, each table entry read one fill ahead; a page
+//    past the table is read past the pool's end, as zeros. The bytes that
+//    land, and so every sum, are K4's on the gathered view: K5 = K4 bit for
+//    bit.
+//  * Both products on `wgmma`: S from shared memory (`ss_product_n64`), O +=
+//    P V with P in registers (`rs_product`). P keeps f32 accuracy as the
+//    Pallas kernel's f32 P does (flash_decode.py:252-270): P = P_hi + P_lo,
+//    both bf16, two register-A products into one accumulator, exact to
+//    ~2^-17 of P; l is summed from the unrounded P. Online softmax in exp2
+//    on the special-function unit (K1's).
+//  * The tile plan (`flash_decode_rows_plan` in kernels/flash_decode.py):
+//    the block reads kv_valid up to its largest position + 1 into a bit
+//    per column; a column tile with no live bit is neither loaded nor
+//    scored (exact, as argued above for the split path); the mask runs only
+//    on tiles with a dead column or past the tile's smallest position.
+//    Dead columns inside a visited tile are read: their P is 0, so any
+//    finite value they hold changes no bit.
+// Tried and dropped, each in a same-call A/B on the card (PERF.md): the
+// first multi-row kernel (one block per 32-row tile of 256 threads,
+// `mma.sync` for S and P V on the CUDA cores, 120 KB, K/V re-read by every
+// 32-row tile; 36x its bound); one warpgroup a block at 2, 3, 4 and 6 stages (no gain from
+// depth: issue-bound, not load-bound); two warpgroups a block. One
+// warpgroup at two blocks an SM is 10% faster at R = 2048 and 20% slower at
+// R <= 1024. What holds it at 4x its bound is tensor throughput an SM: the
+// lo product costs a quarter of the time, the exp a fifteenth.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
+
+#include <math.h>
 
 namespace {
 
+using namespace nxd_hopper;
 using nxd_flash::bf16;
 using nxd_flash::D;
 using nxd_flash::NEG_INF;
@@ -111,19 +148,18 @@ constexpr int KP = nxd_flash::LD;        // K and Q row pitch (D + 8): conflict-
 constexpr int CHUNKS = D / 8;            // 16-byte chunks per cache row
 constexpr int STAGE_BYTES = TL * (KP + D) * (int)sizeof(bf16);
 constexpr int RMAX_ALL = 32;             // rows of the split path; more take the multi-row path
-constexpr int ROW_TILE = RMAX_ALL;       // rows a block of the multi-row path holds: the largest plan
 constexpr int MERGE_CHUNK = 32;          // ranges whose loads the merge issues together
 static_assert(TL == 8 * NWARPS, "each warp scores one 8-column slice of a tile");
 static_assert(SPLIT == NTHREADS && TL % 32 == 0, "a thread per column; a warp's vote in one tile");
 static_assert(SPLIT_TILES <= 32, "live tiles are a bit mask");
 
 // K5 reads skb/svb as the pool's page stride and skl/svl as the stride of a
-// row inside a page; bt/sbt/ps_shift are K5's alone.
+// row inside a page; bt/sbt/ps_shift/n_pages are K5's alone.
 struct Params {
   const bf16* q; const bf16* k; const bf16* v; bf16* o; float* lse;
   const int* q_pos; const uint8_t* kv_valid; const int* bt;
   float* wo; float* wl;  // workspace: O (f32) and LSE of every range
-  int B, s, H, Hkv, L, ps_shift, n_splits;
+  int B, s, H, Hkv, L, ps_shift, n_splits, n_pages;
   long long sqb, sqs, sqh, skb, skl, skh, svb, svl, svh, sob, sos, soh, validb, sbt;
   float scale;
 };
@@ -526,71 +562,396 @@ __device__ __forceinline__ void decode_range(const Params& p, unsigned char* dsm
   range_tiles<RMAX>(p, sm, Cols(p, b, hk), tiles, c_begin, R, part);
 }
 
-// One block of the multi-row path (R > RMAX_ALL, a suffix prefill): one
-// tile of ROW_TILE rows of one (slot, kv-head), walking the whole live
-// length of its rows with the softmax state in registers, so no workspace
-// and no merge. Rows fold as r = g * s + t, so a tile takes T = ROW_TILE / G
-// suffix tokens t0 .. t0 + T - 1 of every head g of the group: local row
-// g * T + j is token t0 + j of q-head hk * G + g. The tile reads columns up
-// to its own largest position only (causal over the suffix, plus the live
-// prefix); dead tiles and columns are skipped as in a range. Tiles are
-// numbered heaviest (latest tokens) first.
-template <class Cols>
-__device__ __forceinline__ void decode_rows(const Params& p, unsigned char* dsm) {
-  constexpr int RMAX = ROW_TILE;
-  constexpr int MT = Smem<RMAX>::MT;
-  const Smem<RMAX> sm(dsm);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int G = p.H / p.Hkv, T = ROW_TILE / G;
-  const int t0 = (gridDim.z - 1 - blockIdx.z) * T;
-  const int nt = min(T, p.s - t0);  // tokens of this tile
-  int bound = -1;
-  for (int j = 0; j < nt; ++j) bound = max(bound, __ldg(p.q_pos + t0 + j));
-  bound = min(bound + 1, p.L);
+// ------------------------------------------------------------ multi-row path
+//
+// One block per (64-row tile, kv-head, slot). A row tile holds T = 64 / G
+// whole tokens of every head of the group: local row g * T + j is token
+// t0 + j of q-head hk * G + g, so Q is one TMA box (64 columns x T tokens x
+// G heads) a half. RWGS warpgroups share it, each walking every RWGS-th
+// visited column tile with its own ring (its warp 0 the loader), and merge
+// at the end.
 
-  if (tid < 16 * MT) {
-    const int g = tid / T, j = tid % T;
-    sm.pos[tid] = g < G && j < nt ? __ldg(p.q_pos + t0 + j) : -1;
-  }
-  for (int i = tid; i < 16 * MT * CHUNKS; i += NTHREADS) {
-    const int r = i / CHUNKS, ch = (i % CHUNKS) * 8, g = r / T, j = r % T;
-    const bool row = g < G && j < nt;
-    const bf16* src = p.q;
-    if (row) src = p.q + b * p.sqb + (t0 + j) * p.sqs + (hk * G + g) * p.sqh + ch;
-    cp_async16_zfill(sm.q + r * KP + ch, src, row ? 16 : 0);
-  }
-  cp_async_commit();
+constexpr int RBM = 64;        // rows a block
+constexpr int RBN = 64;        // cache columns a tile
+constexpr int RWGS = 3;        // consumer warpgroups a block
+constexpr int RSTAGES = 2;     // K/V ring stages of a warpgroup
+constexpr int RRING = RWGS * RSTAGES;  // warpgroup w's stage i is w * RSTAGES + i
+constexpr int RTHREADS = 128 * RWGS;
+constexpr int RTILE = RBN * D * 2;  // bytes of one K or V tile, and of the Q tile
+static_assert(RBM * D * 2 == RTILE, "the Q tile is a K/V tile's size");
+static_assert(RSTAGES * RTILE >= 64 * 128 * 4, "a warpgroup's K stages hold its O for the merge");
+constexpr int RSM_Q = 0;
+constexpr int RSM_K = RSM_Q + RTILE;                  // RRING tiles
+constexpr int RSM_V = RSM_K + RRING * RTILE;          // RRING tiles
+constexpr int RSM_META = RSM_V + RRING * RTILE;       // per stage: column tile (-1: done), masked
+constexpr int RSM_BAR = RSM_META + 2 * RRING * 4;     // full[], empty[], q
+constexpr int RSM_POS = RSM_BAR + (2 * RRING + 1) * 8;  // RBM row positions (-1: no row)
+constexpr int RSM_BITS = RSM_POS + RBM * 4;           // 2 words a column tile
+static_assert(RSM_BAR % 8 == 0, "mbarriers are 8-byte aligned");
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-  const Cols cols(p, b, hk);
-  RowState st;
-  for (int c_begin = 0; c_begin < bound; c_begin += SPLIT) {
-    const int col = c_begin + tid;
-    const bool live =
-        col < bound && (p.kv_valid == nullptr || p.kv_valid[b * p.validb + col] != 0);
-    sm.live[tid] = live;
-    const int warp_live = __any_sync(0xffffffffu, live);
-    if (lane == 0) sm.wlive[warp] = warp_live;
-    __syncthreads();
-    unsigned tiles = 0;
+// Dynamic shared memory of a multi-row block over L cache columns (1024
+// bytes of slack for align1024).
+constexpr size_t rows_smem(int L) { return RSM_BITS + 8 * (size_t)((L + RBN - 1) / RBN) + 1024; }
+
+// 2^x on the special-function unit, subnormal results flushed to 0 (K1's)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One block of the multi-row path. `PAGED` reads K/V tiles page by page
+// through the block table (K5) instead of one box a half (K4); the bytes
+// that land, and so everything after, are the same.
+template <bool PAGED>
+__device__ __forceinline__ void decode_rows(unsigned char* dsm, const CUtensorMap* tm_q,
+                                            const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                            const Params& p) {
+  unsigned char* sm = align1024(dsm);
+  unsigned char* Qs = sm + RSM_Q;
+  int* meta = reinterpret_cast<int*>(sm + RSM_META);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + RSM_BAR);
+  uint64_t* empty = full + RRING;
+  uint64_t* q_bar = empty + RRING;
+  int* spos = reinterpret_cast<int*>(sm + RSM_POS);
+  uint32_t* bits = reinterpret_cast<uint32_t*>(sm + RSM_BITS);
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);  // uniform, as wgmma requires
+  const int wg = warp >> 2, wtid = tid & 127, sb = wg * RSTAGES;  // sb: its first stage
+  const int G = p.H / p.Hkv, T = RBM / G;
+  const int per = p.Hkv * p.B;
+  const int rt = gridDim.x / per - 1 - blockIdx.x / per;  // heaviest first: the latest tokens lead
+  const int hk = blockIdx.x % per / p.B, b = blockIdx.x % p.B;
+  const int t0 = rt * T, nt = min(T, p.s - t0);
+
+  if (tid == 0) {
+    for (int i = 0; i < RRING; ++i) {
+      mbar_init(&full[i], 1);  // the loader lane's arrival with the stage's transactions
+      mbar_init(&empty[i], 128);  // the warpgroup's threads
+    }
+    mbar_init(q_bar, 1);
+    mbar_init_fence();
+    // Q: T tokens x G heads a half; tokens past s arrive as zeros
+    mbar_arrive_expect_tx(q_bar, 2 * T * G * 128);
+    tma_load_4d(Qs, tm_q, q_bar, 0, t0, hk * G, b);
+    tma_load_4d(Qs + RBM * 128, tm_q, q_bar, 64, t0, hk * G, b);
+  }
+
+  // The tile plan (flash_decode_rows_plan in kernels/flash_decode.py).
+  // Every warp reduces the tile's positions itself: the bound (largest + 1)
+  // and the smallest. Column tile j is visited when it holds a column below
+  // the bound that kv_valid marks live, masked when one of its columns is
+  // dead or lies past the smallest position.
+  int mx = -1, mn = 0x7fffffff;
+  for (int j = lane; j < nt; j += 32) {
+    const int q = __ldg(p.q_pos + t0 + j);
+    mx = max(mx, q);
+    mn = min(mn, q);
+  }
 #pragma unroll
-    for (int w = 0; w < NWARPS; ++w)
-      if (sm.wlive[w]) tiles |= 1u << (w * 32 / TL);
-    if (tiles) tile_loop<RMAX>(p, sm, cols, tiles, c_begin, st);
-    cp_async_wait<0>();
-    __syncthreads();  // the range's tiles are done with the stages and sm.live
+  for (int x = 16; x; x >>= 1) {
+    mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, x));
+    mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, x));
+  }
+  const int bound = min(mx + 1, p.L), pmin = mn;
+  const int n_ct = (max(bound, 0) + RBN - 1) / RBN;  // column tiles before the bound
+  if (tid < RBM) {
+    const int g = tid / T, j = tid % T;
+    spos[tid] = g < G && j < nt ? __ldg(p.q_pos + t0 + j) : -1;
+  }
+  // bit c % 32 of word c / 32: column c lies below the bound and is valid;
+  // 16 columns a thread, their bytes loaded together
+  const uint8_t* valid = p.kv_valid ? p.kv_valid + b * p.validb : nullptr;
+  for (int base = 0; base < 4 * n_ct; base += RTHREADS) {
+    const int ci = base + tid;
+    uint32_t m16 = 0;
+    if (ci < 4 * n_ct) {
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const int c = 16 * ci + e;
+        if (c < bound && (valid == nullptr || valid[c] != 0)) m16 |= 1u << e;
+      }
+    }
+    const uint32_t hi = __shfl_down_sync(0xffffffffu, m16, 1);
+    if (!(lane & 1) && ci < 4 * n_ct) bits[ci >> 1] = m16 | hi << 16;
+  }
+  __syncthreads();
+  auto visited = [&](int j) { return (bits[2 * j] | bits[2 * j + 1]) != 0u; };
+  auto masked = [&](int j) {
+    return (bits[2 * j] & bits[2 * j + 1]) != 0xffffffffu || j * RBN + RBN - 1 > pmin;
+  };
+  auto next_live = [&](int j) {
+    while (j < n_ct && !visited(j)) ++j;
+    return j;
+  };
+  auto next_mine = [&](int j) {  // this warpgroup's visited tile after tile j
+    for (int w = 0; w < RWGS; ++w) j = next_live(j + 1);
+    return j;
+  };
+
+  // The loader (warp 0 of the warpgroup) fills its ring in the order it is
+  // consumed: stage fill_st gets the warpgroup's next visited column tile
+  // fill_j (K and V by TMA) or, past the last, the end mark, as soon as the
+  // warpgroup has released the stage.
+  // K5: one box a page (page_size rows, or 64 rows of a larger page) a
+  // half, issued by the lanes, each page's table entry read one fill ahead.
+  const bool loader = (warp & 3) == 0;
+  const int psz = 1 << p.ps_shift, n_log = p.L >> p.ps_shift;
+  const int npg = PAGED ? max(RBN >> p.ps_shift, 1) : 0, prows = min(psz, RBN);
+  const int* bt = PAGED ? p.bt + b * p.sbt : nullptr;
+  int pg[2] = {0, 0};
+  auto table = [&](int j) {  // pool pages of tile j; past the table the pool's end (zeros)
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = lane + 32 * k, lp = ((j * RBN) >> p.ps_shift) + i;
+      if (i < npg) pg[k] = lp < n_log ? __ldg(bt + lp) : p.n_pages;
+    }
+  };
+  int fill_j = 0, fill_st = 0;
+  bool filled_all = false;
+  auto fill = [&]() {
+    const int st = sb + fill_st;
+    if (++fill_st == RSTAGES) fill_st = 0;
+    if (fill_j >= n_ct) {
+      filled_all = true;
+      if (lane == 0) {
+        meta[2 * st] = -1;
+        mbar_arrive(&full[st]);
+      }
+      return;
+    }
+    unsigned char* kt = sm + RSM_K + st * RTILE;
+    unsigned char* vt = sm + RSM_V + st * RTILE;
+    const int c0 = fill_j * RBN;
+    if (lane == 0) {
+      meta[2 * st] = fill_j;
+      meta[2 * st + 1] = masked(fill_j);
+      mbar_arrive_expect_tx(&full[st], 2 * RTILE);
+      if (!PAGED) {
+        tma_load_tile<RBN>(kt, tm_k, &full[st], c0, hk, b);
+        tma_load_tile<RBN>(vt, tm_v, &full[st], c0, hk, b);
+      }
+    }
+    if constexpr (PAGED) {
+      __syncwarp();  // the transactions are expected before any page lands
+      const int row0 = c0 & (psz - 1);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int i = lane + 32 * k;
+        if (i < npg) {
+          const int off = i * prows * 128;
+          tma_load_4d(kt + off, tm_k, &full[st], 0, row0, hk, pg[k]);
+          tma_load_4d(kt + RBN * 128 + off, tm_k, &full[st], 64, row0, hk, pg[k]);
+          tma_load_4d(vt + off, tm_v, &full[st], 0, row0, hk, pg[k]);
+          tma_load_4d(vt + RBN * 128 + off, tm_v, &full[st], 64, row0, hk, pg[k]);
+        }
+      }
+    }
+    fill_j = next_mine(fill_j);
+    if (PAGED && fill_j < n_ct) table(fill_j);
+  };
+  if (loader) {
+    fill_j = next_live(0);
+    for (int w = 0; w < wg; ++w) fill_j = next_live(fill_j + 1);
+    if (PAGED && fill_j < n_ct) table(fill_j);
+    for (int i = 0; i < RSTAGES && !filled_all; ++i) fill();
   }
 
-  const float* red = reduce_rows<RMAX>(sm, st);
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = 16 * (warp & 3) + g, r1 = r0 + 8;  // this thread's rows
+  const int pos0 = spos[r0], pos1 = spos[r1];
+  const float sl2 = p.scale * LOG2E;
+
+  // O (64 x 128 f32), cleared before any product is issued; m in log2
+  // units of the scaled score, l per thread (16 columns of each row a
+  // tile), summed over the row's 4 lanes at the end
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
+  mbar_wait(q_bar, 0);
+  const uint64_t q_desc = desc_kmajor(Qs, 0);
+
+  // K1's loop (flash_attention.cu) on each warpgroup and 64-column tiles:
+  // per stage, wait for S, form P, issue O += P V, then the next stage's S
+  // before P V is waited for. P stays f32 in effect: P = P_hi + P_lo, both
+  // bf16, two register-A products into one accumulator.
+  auto issue_s = [&](float (&acc)[32], int stage) {
+    wgmma_fence();
+    ss_product_n64<RBM, RBN>(acc, q_desc, desc_kmajor(sm + RSM_K + stage * RTILE, 0));
+    wgmma_commit();
+  };
+  float s[32];
+  uint32_t ph[RBN / 16][4], pl[RBN / 16][4];
+  int st = sb;
+  uint32_t par = 0;
+  mbar_wait(&full[st], par);
+  int j = meta[2 * st];
+  if (j >= 0) issue_s(s, st);
+  while (j >= 0) {
+    const bool msk = meta[2 * st + 1] != 0;
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(o);
+
+    // thread columns 8 n + 2 t4 (+1) of the tile; dead or past a row's
+    // position -> -inf
+    if (msk) {
+      const uint32_t w0 = bits[2 * j], w1 = bits[2 * j + 1];
+      const int c0 = j * RBN;
+#pragma unroll
+      for (int n = 0; n < RBN / 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * n + 2 * t4 + (e & 1);
+          const uint32_t w = n < 4 ? w0 : w1;
+          const bool ok = ((w >> (c & 31)) & 1u) && c0 + c <= (e < 2 ? pos0 : pos1);
+          if (!ok) s[4 * n + e] = -INFINITY;
+        }
+      }
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < RBN / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
+    }
+#pragma unroll
+    for (int x = 1; x <= 2; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    // a row with no live column so far keeps m = -1e30 and the reference 0
+    const float mn0 = fmaxf(m0, mx0 * sl2), mn1 = fmaxf(m1, mx1 * sl2);
+    const float ref0 = mn0 > NEG_INF * 0.5f ? mn0 : 0.f;
+    const float ref1 = mn1 > NEG_INF * 0.5f ? mn1 : 0.f;
+    const float alpha0 = ex2(m0 - ref0), alpha1 = ex2(m1 - ref1);
+    m0 = mn0;
+    m1 = mn1;
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int n = 0; n < RBN / 8; ++n) {
+      s[4 * n] = ex2(fmaf(s[4 * n], sl2, -ref0));
+      s[4 * n + 1] = ex2(fmaf(s[4 * n + 1], sl2, -ref0));
+      s[4 * n + 2] = ex2(fmaf(s[4 * n + 2], sl2, -ref1));
+      s[4 * n + 3] = ex2(fmaf(s[4 * n + 3], sl2, -ref1));
+      sum0 += s[4 * n] + s[4 * n + 1];
+      sum1 += s[4 * n + 2] + s[4 * n + 3];
+    }
+    l0 = l0 * alpha0 + sum0;  // from the unrounded P
+    l1 = l1 * alpha1 + sum1;
+    // P_hi = bf16(P), P_lo = bf16(P - P_hi): P_hi + P_lo is P to ~2^-17
+#pragma unroll
+    for (int kk = 0; kk < RBN / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float a = s[8 * kk + 2 * r], c = s[8 * kk + 2 * r + 1];
+        const __nv_bfloat162 h = __floats2bfloat162_rn(a, c);
+        const float2 hf = __bfloat1622float2(h);
+        ph[kk][r] = *reinterpret_cast<const uint32_t*>(&h);
+        pl[kk][r] = pack_bf16x2(a - hf.x, c - hf.y);
+      }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[4 * n] *= alpha0;
+      o[4 * n + 1] *= alpha0;
+      o[4 * n + 2] *= alpha1;
+      o[4 * n + 3] *= alpha1;
+    }
+
+    // O += P_hi V + P_lo V: the V stage read MN-major
+    const uint64_t v_desc = desc_mnmajor<RBN>(sm + RSM_V + st * RTILE);
+    wgmma_fence();
+    rs_product(o, ph, v_desc, 1);
+    rs_product(o, pl, v_desc, 1);
+    wgmma_commit();
+    const int nst = st + 1 == sb + RSTAGES ? sb : st + 1;
+    const uint32_t npar = nst == sb ? par ^ 1 : par;
+    mbar_wait(&full[nst], npar);
+    const int nj = meta[2 * nst];
+    if (nj >= 0) {
+      issue_s(s, nst);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(o);
+    fence_regs(ph);
+    fence_regs(pl);
+    mbar_arrive(&empty[st]);
+    if (loader && !filled_all) {
+      mbar_wait(&empty[st], par);  // the warpgroup is done with the stage
+      fill();
+    }
+    st = nst, par = npar, j = nj;
+  }
+  // nothing is in flight, but ptxas cannot tell (see flash_attention.cu)
+  wgmma_wait<0>();
+  fence_regs(o);
+
+  // Merge in warpgroup order: each later warpgroup leaves O, m and l (per
+  // thread, the same fragment layout) in its own K and V stages; the first
+  // folds them in and writes the rows.
+  if (RWGS > 1) {
+    if (wg > 0) {
+      float* red = reinterpret_cast<float*>(sm + RSM_K + sb * RTILE);
+      float* ml = reinterpret_cast<float*>(sm + RSM_V + sb * RTILE);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) red[i * 128 + wtid] = o[i];
+      ml[wtid] = m0;
+      ml[128 + wtid] = m1;
+      ml[256 + wtid] = l0;
+      ml[384 + wtid] = l1;
+    }
+    __syncthreads();
+    if (wg > 0) return;
+#pragma unroll 1
+    for (int w = 1; w < RWGS; ++w) {
+      const float* red = reinterpret_cast<const float*>(sm + RSM_K + w * RSTAGES * RTILE);
+      const float* ml = reinterpret_cast<const float*>(sm + RSM_V + w * RSTAGES * RTILE);
+      const float mb0 = ml[wtid], mb1 = ml[128 + wtid];
+      const float mn0 = fmaxf(m0, mb0), mn1 = fmaxf(m1, mb1);
+      const float ref0 = mn0 > NEG_INF * 0.5f ? mn0 : 0.f;
+      const float ref1 = mn1 > NEG_INF * 0.5f ? mn1 : 0.f;
+      const float a0 = ex2(m0 - ref0), b0 = ex2(mb0 - ref0);
+      const float a1 = ex2(m1 - ref1), b1 = ex2(mb1 - ref1);
+      l0 = l0 * a0 + ml[256 + wtid] * b0;
+      l1 = l1 * a1 + ml[384 + wtid] * b1;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[4 * n] = o[4 * n] * a0 + red[(4 * n) * 128 + wtid] * b0;
+        o[4 * n + 1] = o[4 * n + 1] * a0 + red[(4 * n + 1) * 128 + wtid] * b0;
+        o[4 * n + 2] = o[4 * n + 2] * a1 + red[(4 * n + 2) * 128 + wtid] * b1;
+        o[4 * n + 3] = o[4 * n + 3] * a1 + red[(4 * n + 3) * 128 + wtid] * b1;
+      }
+      m0 = mn0;
+      m1 = mn1;
+    }
+  }
+
+#pragma unroll
+  for (int x = 1; x <= 2; x <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, x);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, x);
+  }
   const long long lse_row = ((long long)b * p.Hkv + hk) * G * p.s;
-  for (int i = tid; i < RMAX * D; i += NTHREADS) {
-    const int r = i / D, d = i % D, g = r / T, j = r % T;
-    if (g >= G || j >= nt) continue;
-    const float2 al = row_sums<RMAX>(sm, red, r, d);
-    const int t = t0 + j;
-    p.o[b * p.sob + t * p.sos + (hk * G + g) * p.soh + d] =
-        __float2bfloat16(al.y > 0.f ? al.x / al.y : 0.f);
-    if (d == 0) p.lse[lse_row + g * p.s + t] = al.y > 0.f ? sm.m[r] + logf(al.y) : NEG_INF;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = h ? r1 : r0, gq = r / T, jt = r % T;
+    if (gq >= G || jt >= nt) continue;
+    const float l = h ? l1 : l0, m = h ? m1 : m0;
+    const float inv = l > 0.f ? 1.f / l : 0.f;
+    const int t = t0 + jt;
+    bf16* orow = p.o + b * p.sob + t * p.sos + (hk * G + gq) * p.soh;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t4) =
+          __floats2bfloat162_rn(o[4 * n + 2 * h] * inv, o[4 * n + 2 * h + 1] * inv);
+    // natural log; a row that saw no live column: -1e30
+    if (t4 == 0) p.lse[lse_row + gq * p.s + t] = l > 0.f ? m * LN2 + logf(l) : NEG_INF;
   }
 }
 
@@ -611,17 +972,27 @@ __global__ void __launch_bounds__(NTHREADS, 2) paged_flash_decode_kernel(Params 
 __global__ void __launch_bounds__(D) flash_decode_kernel_merge(Params p) { merge_row(p); }
 __global__ void __launch_bounds__(D) paged_flash_decode_kernel_merge(Params p) { merge_row(p); }
 
-__global__ void __launch_bounds__(NTHREADS, 2) flash_decode_kernel_rows(Params p) {
-  extern __shared__ __align__(128) unsigned char dsm[];
-  decode_rows<RowCols>(p, dsm);
+__global__ void __launch_bounds__(RTHREADS, RWGS == 1 ? 2 : 1)
+    flash_decode_kernel_rows(const __grid_constant__ CUtensorMap tm_q,
+                             const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v,
+                             const __grid_constant__ Params p) {
+  extern __shared__ unsigned char rsm[];
+  decode_rows<false>(rsm, &tm_q, &tm_k, &tm_v, p);
 }
 
-__global__ void __launch_bounds__(NTHREADS, 2) paged_flash_decode_kernel_rows(Params p) {
-  extern __shared__ __align__(128) unsigned char dsm[];
-  decode_rows<PagedCols>(p, dsm);
+__global__ void __launch_bounds__(RTHREADS, RWGS == 1 ? 2 : 1)
+    paged_flash_decode_kernel_rows(const __grid_constant__ CUtensorMap tm_q,
+                                   const __grid_constant__ CUtensorMap tm_k,
+                                   const __grid_constant__ CUtensorMap tm_v,
+                                   const __grid_constant__ Params p) {
+  extern __shared__ unsigned char rsm[];
+  decode_rows<true>(rsm, &tm_q, &tm_k, &tm_v, p);
 }
 
-void (*rows_kernel_of(bool paged))(Params) {
+typedef void (*RowsKernel)(CUtensorMap, CUtensorMap, CUtensorMap, Params);
+
+RowsKernel rows_kernel_of(bool paged) {
   return paged ? &paged_flash_decode_kernel_rows : &flash_decode_kernel_rows;
 }
 
@@ -632,7 +1003,8 @@ void (*kernel_of(bool paged))(Params) {
 
 // Let the kernel take its shared memory, and the SM give shared memory all
 // it can.
-int configure(void (*kernel)(Params), size_t smem) {
+template <class Kernel>
+int configure(Kernel kernel, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err == cudaSuccess)
@@ -654,13 +1026,22 @@ int launch(const Params& p, bool paged, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// The multi-row path: one launch, no merge.
+// The multi-row path: one launch, no merge, the grid (row tiles x Hkv x B)
+// from the shapes alone. Q's map has a box of T tokens x G heads; K/V's
+// the row cache's 64-row tiles (K4) or the pool's pages (K5).
 int launch_rows(const Params& p, bool paged, cudaStream_t stream) {
-  const int code = configure(rows_kernel_of(paged), Smem<ROW_TILE>::bytes());
-  if (code) return code;
-  const int T = ROW_TILE / (p.H / p.Hkv);
-  rows_kernel_of(paged)<<<dim3(p.Hkv, p.B, (p.s + T - 1) / T), NTHREADS,
-                          Smem<ROW_TILE>::bytes(), stream>>>(p);
+  const int G = p.H / p.Hkv, T = RBM / G;
+  const int kb = paged ? p.n_pages : p.B, kl = paged ? 1 << p.ps_shift : p.L;
+  const int rows = paged && (1 << p.ps_shift) < RBN ? 1 << p.ps_shift : RBN;
+  CUtensorMap m[3];
+  int err;
+  if ((err = encode_bshd(&m[0], p.q, p.B, p.s, p.H, p.sqb, p.sqs, p.sqh, T, G))) return err;
+  if ((err = encode_bshd(&m[1], p.k, kb, kl, p.Hkv, p.skb, p.skl, p.skh, rows))) return err;
+  if ((err = encode_bshd(&m[2], p.v, kb, kl, p.Hkv, p.svb, p.svl, p.svh, rows))) return err;
+  const size_t smem = rows_smem(p.L);
+  if ((err = configure(rows_kernel_of(paged), smem))) return err;
+  const int grid = (p.s + T - 1) / T * p.Hkv * p.B;
+  rows_kernel_of(paged)<<<grid, RTHREADS, smem, stream>>>(m[0], m[1], m[2], p);
   return (int)cudaGetLastError();
 }
 
@@ -672,7 +1053,7 @@ int dispatch(Params p, bool paged, void* stream) {
   if (R <= 8) return launch<8>(p, paged, st);
   if (R <= 16) return launch<16>(p, paged, st);
   if (R <= 32) return launch<32>(p, paged, st);
-  if (p.H / p.Hkv > ROW_TILE) return (int)cudaErrorInvalidValue;
+  if (p.H / p.Hkv > RMAX_ALL) return (int)cudaErrorInvalidValue;
   return launch_rows(p, paged, st);
 }
 
@@ -699,6 +1080,23 @@ Params common(const void* q, const void* k, const void* v, void* o, void* lse,
   return p;
 }
 
+// Dynamic shared memory a block, registers a thread, local bytes a thread
+// and blocks an SM of one kernel as launched.
+template <class Kernel>
+int resources(Kernel kernel, size_t smem, int threads, int* out) {
+  const int code = configure(kernel, smem);
+  if (code) return code;
+  cudaFuncAttributes a;
+  int blocks = 0;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem);
+  out[0] = (int)smem;
+  out[1] = a.numRegs;
+  out[2] = (int)a.localSizeBytes;
+  out[3] = blocks;
+  return (int)e;
+}
+
 }  // namespace
 
 // work_o is (ceil(L / split_cols), B, Hkv, R, D) f32 and work_lse
@@ -719,12 +1117,14 @@ extern "C" int nxd_flash_decode_fwd(
   return dispatch(p, false, stream);
 }
 
-// K5: k/v are pools (P, page_size, Hkv, D) with strides (skp, skr, skh);
-// bt is the (B, n_log) block table, row stride sbt; page_size = 1 << ps_shift.
+// K5: k/v are pools (n_pages, page_size, Hkv, D) with strides (skp, skr,
+// skh); bt is the (B, n_log) block table, row stride sbt; page_size = 1 <<
+// ps_shift. Returns a CUDA error, or a code from hopper.cuh when a tensor
+// map of the multi-row path cannot be made (K4 too).
 extern "C" int nxd_paged_flash_decode_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse,
     const void* q_pos, const void* kv_valid, const void* bt, void* work_o, void* work_lse,
-    int B, int s, int H, int Hkv, int n_log, int ps_shift,
+    int B, int s, int H, int Hkv, int n_log, int ps_shift, int n_pages,
     long long sqb, long long sqs, long long sqh,
     long long skp, long long skr, long long skh,
     long long svp, long long svr, long long svh,
@@ -735,40 +1135,30 @@ extern "C" int nxd_paged_flash_decode_fwd(
   p.bt = static_cast<const int*>(bt);
   p.sbt = sbt;
   p.ps_shift = ps_shift;
+  p.n_pages = n_pages;
   p.skb = skp; p.skl = skr; p.skh = skh;
   p.svb = svp; p.svl = svr; p.svh = svh;
   return dispatch(p, true, stream);
 }
 
 // Resources of K4 (paged 0) or K5 (paged 1) at R <= rmax (4, 8, 16 or 32;
-// 0: the multi-row kernel, R > 32): dynamic shared memory a block,
-// registers a thread, local bytes a thread and blocks an SM.
+// 0: the multi-row kernel, R > 32, at L = 8192), into out[4].
 extern "C" int nxd_flash_decode_resources(int paged, int rmax, int* out) {
-  void (*kernel)(Params) = nullptr;
-  size_t smem = 0;
   switch (rmax) {
-    case 0: kernel = rows_kernel_of(paged); smem = Smem<ROW_TILE>::bytes(); break;
-    case 4: kernel = kernel_of<4>(paged); smem = Smem<4>::bytes(); break;
-    case 8: kernel = kernel_of<8>(paged); smem = Smem<8>::bytes(); break;
-    case 16: kernel = kernel_of<16>(paged); smem = Smem<16>::bytes(); break;
-    case 32: kernel = kernel_of<32>(paged); smem = Smem<32>::bytes(); break;
+    case 0: return resources(rows_kernel_of(paged), rows_smem(8192), RTHREADS, out);
+    case 4: return resources(kernel_of<4>(paged), Smem<4>::bytes(), NTHREADS, out);
+    case 8: return resources(kernel_of<8>(paged), Smem<8>::bytes(), NTHREADS, out);
+    case 16: return resources(kernel_of<16>(paged), Smem<16>::bytes(), NTHREADS, out);
+    case 32: return resources(kernel_of<32>(paged), Smem<32>::bytes(), NTHREADS, out);
     default: return (int)cudaErrorInvalidValue;
   }
-  const int code = configure(kernel, smem);
-  if (code) return code;
-  cudaFuncAttributes a;
-  int blocks = 0;
-  cudaError_t e = cudaFuncGetAttributes(&a, reinterpret_cast<const void*>(kernel));
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, NTHREADS, smem);
-  out[0] = (int)smem;
-  out[1] = a.numRegs;
-  out[2] = (int)a.localSizeBytes;
-  out[3] = blocks;
-  return (int)e;
 }
 
 extern "C" int nxd_flash_decode_max_rows() { return RMAX_ALL; }
 extern "C" int nxd_flash_decode_head_dim() { return D; }
 extern "C" int nxd_flash_decode_split_cols() { return SPLIT; }
 extern "C" int nxd_flash_decode_tile_cols() { return TL; }
+// The multi-row path's tile: rows a block (whole tokens of every head of a
+// group) and cache columns a tile.
+extern "C" int nxd_flash_decode_row_tile() { return RBM; }
+extern "C" int nxd_flash_decode_row_tile_cols() { return RBN; }

@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of the backward kernels K2 and K3
-// (flash_attention_bwd.cu): mbarriers, TMA tile loads through tensor maps,
-// `wgmma` products and the shared-memory descriptors they read.
+// Hopper (sm_90a) building blocks of the attention kernels K1
+// (flash_attention.cu), K2 and K3 (flash_attention_bwd.cu) and the
+// multi-row decode path (flash_decode.cu): mbarriers, TMA tile loads
+// through tensor maps, `wgmma` products and the shared-memory descriptors
+// they read.
 //
 // Tile convention. A tile is R rows x 128 bf16 columns (the head dim), kept
 // as two halves of R x 64 columns, half h at byte offset h * R * 128: TMA's
@@ -304,14 +306,15 @@ constexpr int ERR_ENCODE = 1000;
 
 // The map of a (B, S, H, 128) bf16 tensor with element strides (sb, ss, sh)
 // and a unit-stride head dim: dims innermost first (128, S, H, B), a box of
-// 64 columns x `rows` rows, 128-byte swizzle, zeros past the edges.
+// 64 columns x `rows` rows x `heads` heads (row j of head i lands as row
+// i * rows + j), 128-byte swizzle, zeros past the edges.
 inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S, int H, long long sb,
-                       long long ss, long long sh, int rows) {
+                       long long ss, long long sh, int rows, int heads = 1) {
   const TensorMapEncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
   const cuuint64_t dims[4] = {128, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, (cuuint32_t)rows, 1, 1};
+  const cuuint32_t box[4] = {64, (cuuint32_t)rows, (cuuint32_t)heads, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -14,8 +14,10 @@ second kernel: :func:`flash_decode_split_plain` and
 :func:`merge_decode_partials` are that arithmetic in plain PyTorch, for the
 tests. Above 32 rows per kv-head (R = group x s: a prefix-cache hit's suffix
 prefill, s tokens at once) the same source runs its multi-row path: one
-block per 32-row tile walks its rows' whole live length, no split and no
-merge; :func:`flash_decode_plain` is its plain version too.
+block per 64-row tile (whole tokens of every head of the group) walks its
+rows' live length in 64-column tiles, both products on ``wgmma``, no split
+and no merge; :func:`flash_decode_rows_plan` states its tile plan and
+:func:`flash_decode_plain` is its plain version too.
 
 ``paged_flash_decode_fwd`` launches K5 of the same source (it replaces
 ``_paged_decode_kernel``/``paged_flash_decode_attention``,
@@ -125,16 +127,18 @@ def _decode_lib() -> SimpleNamespace:
     k4, k5 = lib.nxd_flash_decode_fwd, lib.nxd_paged_flash_decode_fwd
     k4.restype = k5.restype = i
     k4.argtypes = [vp] * 9 + [i] * 5 + [ll] * 13 + [ctypes.c_float, vp]
-    k5.argtypes = [vp] * 10 + [i] * 6 + [ll] * 14 + [ctypes.c_float, vp]
+    k5.argtypes = [vp] * 10 + [i] * 7 + [ll] * 14 + [ctypes.c_float, vp]
     return SimpleNamespace(k4=k4, k5=k5, head_dim=lib.nxd_flash_decode_head_dim(),
                            max_rows=lib.nxd_flash_decode_max_rows(),
-                           split_cols=lib.nxd_flash_decode_split_cols())
+                           split_cols=lib.nxd_flash_decode_split_cols(),
+                           row_tile=lib.nxd_flash_decode_row_tile(),
+                           row_tile_cols=lib.nxd_flash_decode_row_tile_cols())
 
 
 def _checked(what, q, k, v, q_pos, kv_valid, L):
     """The argument checks K4 and K5 share: bf16 with unit-stride, 16-byte
     aligned head dims, head_dim 128, a group of at most 32 q-heads per
-    kv-head (the multi-row path's 32-row tile holds every head of a group),
+    kv-head (the split path's 32 rows hold every head of a group at s = 1),
     one position per query token, a row-contiguous (B, L) validity mask.
     Returns (library, rows per kv-head, q_pos int32, kv_valid bool)."""
     b, s, h, d = q.shape
@@ -224,6 +228,49 @@ def _multi_row(q, cache) -> bool:
     return q.shape[1] * (q.shape[2] // cache.shape[2]) > _decode_lib().max_rows
 
 
+ROWS_TILE = 64       # rows a block of the multi-row path: T = 64 // group whole tokens
+ROWS_TILE_COLS = 64  # cache columns a tile of the multi-row path
+
+
+def flash_decode_rows_plan(q_pos, kv_valid, L: int, group: int, b: int = 1, hkv: int = 1
+                           ) -> dict:
+    """The multi-row path's plan (R = group x s > 32), as
+    ``csrc/flash_decode.cu`` ``decode_rows`` makes it, in plain PyTorch.
+
+    A block takes one row tile of ``T = ROWS_TILE // group`` tokens of every
+    head of a group (local row ``g * T + j`` is token ``t0 + j`` of q-head
+    ``hk * group + g``) of one (kv-head, slot). The blocks run in ``order``
+    (row tile, kv-head, slot), the latest row tiles first; the grid and the
+    order come from the shapes alone. There is no length split. A tile's
+    bound is its largest position + 1 (capped at L); column tile ``j``
+    (``ROWS_TILE_COLS`` columns) is visited when it holds a column below the
+    bound that ``kv_valid`` (B, L) marks live, and masked when one of its
+    columns is dead (invalid, at or past the bound or past L) or lies past
+    the tile's smallest position. Returns ``tokens`` (T), ``order`` (n, 3)
+    int64, ``bound`` (B, n_rt), ``visited`` and ``masked`` (B, n_rt, n_ct)
+    bool with ``n_ct = ceil(L / ROWS_TILE_COLS)``."""
+    q_pos = torch.as_tensor(q_pos).reshape(-1).long()
+    s = q_pos.numel()
+    tokens = ROWS_TILE // group
+    n_rt, n_ct = -(-s // tokens), -(-L // ROWS_TILE_COLS)
+    x = torch.arange(n_rt * hkv * b)
+    order = torch.stack([n_rt - 1 - x // (hkv * b), x % (hkv * b) // b, x % b], 1)
+    real = (torch.arange(n_rt * tokens) < s).reshape(n_rt, tokens)   # past s: no token
+    tile_pos = torch.nn.functional.pad(q_pos, (0, n_rt * tokens - s)).reshape(n_rt, tokens)
+    bound = torch.where(real, tile_pos, -1).amax(1).add(1).clamp(max=L)   # (n_rt,)
+    pmin = torch.where(real, tile_pos, torch.iinfo(torch.long).max).amin(1)
+    cols = torch.arange(n_ct * ROWS_TILE_COLS)
+    valid = (torch.ones(b, L, dtype=torch.bool) if kv_valid is None
+             else torch.as_tensor(kv_valid).to(torch.bool).cpu())
+    valid = torch.nn.functional.pad(valid, (0, n_ct * ROWS_TILE_COLS - L))
+    live = valid[:, None, :] & (cols[None, None, :] < bound[None, :, None])  # (B, n_rt, cols)
+    live = live.reshape(b, n_rt, n_ct, ROWS_TILE_COLS)
+    last = torch.arange(n_ct) * ROWS_TILE_COLS + ROWS_TILE_COLS - 1
+    masked = ~live.all(-1) | (last[None, None, :] > pmin[None, :, None])
+    return dict(tokens=tokens, order=order, bound=bound.expand(b, n_rt),
+                visited=live.any(-1), masked=masked)
+
+
 def flash_decode_attention(q, k_cache, v_cache, q_pos: torch.Tensor,
                            kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Cached decode attention output (B, s, H, D) — the JAX public API."""
@@ -280,7 +327,7 @@ def _paged_kernel_call(q, k_pool, v_pool, block_table, q_pos, kv_valid, page_siz
         lse.data_ptr(), q_pos.data_ptr(),
         kv_valid.data_ptr() if kv_valid is not None else None, block_table.data_ptr(),
         work_o, work_lse,
-        b, s, h, hkv, n_log, page_size.bit_length() - 1,
+        b, s, h, hkv, n_log, page_size.bit_length() - 1, k_pool.shape[0],
         *q.stride()[:3], *k_pool.stride()[:3], *v_pool.stride()[:3],
         *out.stride()[:3], kv_valid.stride(0) if kv_valid is not None else 0,
         block_table.stride(0), 1.0 / math.sqrt(d), _build.stream_ptr(q.device),

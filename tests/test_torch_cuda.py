@@ -349,14 +349,26 @@ def _suffix_case(gen, s, h, hkv, b=2, L=2048, prefix=1500):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,h,hkv", [(16, 8, 2), (64, 8, 2), (256, 8, 2), (40, 16, 2), (50, 6, 2)])
-def test_flash_decode_kernels_take_many_rows(cuda, s, h, hkv):
-    """K4 and K5 above 32 rows per kv-head (R = 64, 256 and 1024 at group 4;
-    group 8, and group 3, whose 32-row tiles hold 30 rows): the multi-row
-    path against the plain versions, with a live prefix, left padding, a gap
-    and a pad tail; two runs bitwise equal; K5 through a scrambled table
-    bitwise equal to K4 on the gathered view; one counted launch a call."""
-    q, kc, vc, pos, valid = _suffix_case(cuda, s, h, hkv)
+@pytest.mark.parametrize("s,h,hkv,L,prefix,ps", [
+    (16, 8, 2, 2048, 1500, 16),   # R = 64: one 64-row tile
+    (64, 8, 2, 2048, 1500, 16),   # R = 256
+    (256, 8, 2, 2048, 1500, 16),  # R = 1024: 16 row tiles; the suffix crosses 128-column tiles
+    (300, 8, 2, 2048, 1500, 16),  # R = 1200: 19 row tiles, the last of 12 tokens
+    (40, 16, 2, 2048, 1500, 16),  # group 8: 8 tokens a tile
+    (50, 6, 2, 2048, 1500, 16),   # group 3: 21 tokens a tile, 63 rows
+    (40, 2, 2, 2048, 1500, 16),   # group 1: 64 tokens a tile
+    (64, 8, 2, 2000, 1900, 16),   # L not a multiple of 64: the last tile runs past the cache
+    (64, 8, 2, 2048, 1500, 8),    # K5: eight pages a 64-column tile
+    (64, 8, 2, 2048, 1500, 128),  # K5: half a page a tile
+])
+def test_flash_decode_kernels_take_many_rows(cuda, s, h, hkv, L, prefix, ps):
+    """K4 and K5 above 32 rows per kv-head (group 4 at R = 64 to 1200; group
+    8, 3 and 1; a cache whose last 64-column tile runs past L; K5 at page
+    sizes 8, 16 and 128): the multi-row path against the plain versions,
+    with a live prefix, left padding, a gap and a pad tail; two runs bitwise
+    equal; K5 through a scrambled table bitwise equal to K4 on the gathered
+    view; one counted launch a call."""
+    q, kc, vc, pos, valid = _suffix_case(cuda, s, h, hkv, L=L, prefix=prefix)
     n4, n5 = tfd.flash_decode_fwd.launches, tfd.paged_flash_decode_fwd.launches
     got, lse = tfd.flash_decode_fwd(q, kc, vc, pos, valid)
     again, again_lse = tfd.flash_decode_fwd(q, kc, vc, pos, valid)
@@ -366,14 +378,14 @@ def test_flash_decode_kernels_take_many_rows(cuda, s, h, hkv):
     pv = tfd.flash_decode_plain(q, kc, vc.abs(), pos, valid)[0]
     _assert_out_close(got, want, pv, 2.0 ** -12)
     torch.testing.assert_close(lse, wlse, atol=5e-4, rtol=1e-4)
-    kp, vp, bt = _paged_view(cuda, kc, vc, valid)
-    paged, paged_lse = tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, 16)
+    kp, vp, bt = _paged_view(cuda, kc, vc, valid, ps)
+    paged, paged_lse = tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
     assert tfd.paged_flash_decode_fwd.launches == n5 + 1
-    row, row_lse = tfd.flash_decode_fwd(q, tfd.paged_gather_leaf(kp, bt, 16),
-                                        tfd.paged_gather_leaf(vp, bt, 16), pos, valid)
+    row, row_lse = tfd.flash_decode_fwd(q, tfd.paged_gather_leaf(kp, bt, ps),
+                                        tfd.paged_gather_leaf(vp, bt, ps), pos, valid)
     assert torch.equal(paged, row) and torch.equal(paged_lse, row_lse)
-    pwant, pwlse = tfd.paged_flash_decode_plain(q, kp, vp, bt, pos, valid, 16)
-    ppv = tfd.paged_flash_decode_plain(q, kp, vp.abs(), bt, pos, valid, 16)[0]
+    pwant, pwlse = tfd.paged_flash_decode_plain(q, kp, vp, bt, pos, valid, ps)
+    ppv = tfd.paged_flash_decode_plain(q, kp, vp.abs(), bt, pos, valid, ps)[0]
     _assert_out_close(paged, pwant, ppv, 2.0 ** -12)
     torch.testing.assert_close(paged_lse, pwlse, atol=5e-4, rtol=1e-4)
 
@@ -386,7 +398,8 @@ def test_flash_decode_kernels_do_not_spill(cuda):
 
     report = _build.resource_report("flash_decode")
     entries = [line for line in report.splitlines() if "Compiling entry function" in line]
-    # K4 and K5 at R <= 4, 8, 16, 32, their merges, and their multi-row kernels
+    # K4 and K5 at R <= 4, 8, 16, 32, their merges, and their multi-row
+    # kernels (flash_decode_kernel_rows, paged_flash_decode_kernel_rows)
     assert len(entries) == 12, report
     spills = [line for line in report.splitlines() if "spill" in line]
     assert len(spills) >= len(entries), report
@@ -428,7 +441,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):  # head_dim 64
         pool = _rnd(cuda, 4, 16, 2, 64)
         tfd.paged_flash_decode_fwd(_rnd(cuda, 3, 1, 8, 64), pool, pool, bt, pos, valid, 16)
-    with pytest.raises(ValueError):  # a group of 64 q-heads: more than a row tile holds
+    with pytest.raises(ValueError):  # a group of 64 q-heads: more than the kernels take
         tfd.paged_flash_decode_fwd(_rnd(cuda, 3, 1, 128, 128), kp, vp, bt, pos, valid, 16)
     assert tfd.paged_flash_decode_fwd.launches == n  # nothing refused was counted
 
