@@ -24,7 +24,10 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    than the host needs to issue them: their times are CUDA-graph replays
    (``graph_ms``), with the back-to-back time printed beside; K4's and
    K5's split plans (blocks, live tiles, bytes moved against the bound's)
-   are printed; K4 and K5 on their multi-row path at phase 5c's geometry
+   are printed; K4 and K5 at phase 5d's verify window (s = gamma = 4, 16
+   rows a kv-head, the gap columns rejected drafts leave), K4 at the row
+   serving shapes, K5 through a scrambled table at the paged serving
+   geometry; K4 and K5 on their multi-row path at phase 5c's geometry
    (R = 64, 1024 and 2048), K5 bitwise equal to K4 on the gathered view;
 3. outputs: the full-width model's logits through the kernels, with a row
    cache and with a paged cache behind a scrambled block table, against the
@@ -57,6 +60,18 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    page free after the store is cleared; three hits' suffix-prefill logits
    against full prefills of the same contexts (phase 3's limits); the
    earlier serving phases run with ``prefix_cache=None``;
+5d. speculative serving: phase 4's six requests through the model and its
+   early-exit draft (layer 0 alone, sharing the target's tensors; the
+   later layers' residual weights scaled by eps), gamma 4, 8 slots, chunk
+   8 rounds, each engine's draft-verify round one CUDA graph: eps 0 spec
+   on (the greedy slots must accept at least 0.9 of their drafts); eps
+   0.3 spec on, spec off, spec on with the eager round patched in (the
+   captured round's streams must equal it bit for bit), the paged engine
+   (K5 for both caches, both pools ``check()`` clean) and a profiled
+   rerun (device time by family, idle share); every executed round
+   launches 4 + 32 decode kernels and no multi-row one, every admission
+   K1 33 times, and every emitted greedy token lies within phase 3's
+   limit of its row's maximum logit in a teacher-forced target pass;
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -311,26 +326,77 @@ def check_k1(gen, b: int, s: int, segments):
                 plan=k1_plan(q, k, seg))
 
 
-def k4_inputs(gen):
-    """``check_k4``'s inputs: q (8, 1, 32, 128), a row cache (8, 8192, 8,
-    128), the position 4099, kv_valid with left padding (slot i from column
-    400 i) and 10% gap columns."""
+VERIFY_DECODE_START = 3076  # check_k4 at s > 1: where decoding began (256 rounds of 4)
+
+
+def rejected_gaps(gen, dec_start, L: int, bound_cols: int, s: int):
+    """(B, L) bool: the gap columns a speculative engine's rounds leave in
+    the columns ``[dec_start[b], bound_cols - s)`` of each slot: rounds of
+    ``s`` columns aligned to end at the bound, each keeping a random 1..s
+    of its columns (``invalidate_cache_window``: the accepted drafts and
+    the correction) and clearing the rest. The last round, the verify
+    window at ``[bound_cols - s, bound_cols)``, is whole."""
+    dev = dec_start.device
+    cols = torch.arange(L, device=dev)
+    rnd = torch.div(bound_cols - 1 - cols, s, rounding_mode="floor")  # 0: the verify window
+    off = cols - (bound_cols - s * (rnd + 1))  # column of its round
+    n_rounds = -(-bound_cols // s)
+    keep = torch.randint(1, s + 1, (dec_start.shape[0], n_rounds), generator=gen, device=dev)
+    kept = keep.gather(1, rnd.clamp(0, n_rounds - 1)[None].expand(dec_start.shape[0], -1))
+    return ((off[None] >= kept) & (rnd[None] >= 1) & (cols[None] < bound_cols)
+            & (cols[None] >= dec_start[:, None]))
+
+
+def k4_inputs(gen, s: int = 1):
+    """``check_k4``'s inputs: q (8, s, 32, 128), a row cache (8, 8192, 8,
+    128), the positions ``4100 - s .. 4099``, kv_valid with left padding
+    (slot i from column 400 i) and gap columns: at s = 1 10% of the columns
+    at random; at s > 1 (a speculative verify window) those rejected drafts
+    leave (``rejected_gaps``) from column ``VERIFY_DECODE_START``, where
+    every slot's prompt ends (the row cache's cursor is shared)."""
     dev, bf = torch.device("cuda"), torch.bfloat16
-    b, s, h, hkv, d, L, bound_cols = 8, 1, 32, 8, 128, 8192, 4100
+    b, h, hkv, d, L, bound_cols = 8, 32, 8, 128, 8192, 4100
     q = torch.randn(b, s, h, d, generator=gen, device=dev).to(bf)
     kc = torch.randn(b, L, hkv, d, generator=gen, device=dev).to(bf)
     vc = torch.randn(b, L, hkv, d, generator=gen, device=dev).to(bf)
-    pos = torch.tensor([bound_cols - 1], dtype=torch.int32, device=dev)
+    pos = torch.arange(bound_cols - s, bound_cols, dtype=torch.int32, device=dev)
     valid = torch.zeros(b, L, dtype=torch.bool, device=dev)
     for i in range(b):  # slot i's prompt starts further right: left padding
         valid[i, 400 * i: bound_cols] = True
-    valid &= torch.rand(b, L, generator=gen, device=dev) > 0.1  # gap columns
+    if s == 1:
+        valid &= torch.rand(b, L, generator=gen, device=dev) > 0.1  # gap columns
+    else:
+        start = torch.full((b,), VERIFY_DECODE_START, device=dev)
+        valid &= ~rejected_gaps(gen, start, L, bound_cols, s)
     return q, kc, vc, pos, valid
 
 
-def check_k4(gen):
-    """K4 at decode shapes: 8 slots, s=1, L=8192, a 4100-column bound,
-    kv_valid with gaps (left padding and invalid columns)."""
+def decode_bound(q, valid, pos, bound_cols: int, hkv: int, extra_bytes: int = 0):
+    """(bound_ms, bound_by, bytes) of K4/K5 on these inputs: every row's
+    live pairs (valid columns at or before its position), 4 D FLOPs each
+    per q-head; the bytes of q, the K/V columns live for some row, the
+    validity bytes up to the bound, out and lse, plus ``extra_bytes``
+    (K5's table entries)."""
+    b, s, h, d = q.shape
+    cols = torch.arange(bound_cols, device=q.device)
+    live = valid[:, None, :bound_cols] & (cols[None, None] <= pos[None, :, None].long())
+    flops = 4.0 * d * h * int(live.sum())
+    nbytes = (2 * q.numel() + 2 * 2 * int(valid[:, :bound_cols].sum()) * hkv * d
+              + b * bound_cols + 2 * q.numel() + 4 * b * s * h + extra_bytes)
+    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
+    return bound, "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes", nbytes
+
+
+def row_masks(valid, pos):
+    """SDPA's boolean mask (B, 1, s, L) for K4/K5's inputs."""
+    cols = torch.arange(valid.shape[1], device=valid.device)
+    return valid[:, None, None, :] & (cols[None, :] <= pos[:, None].long())[None, None]
+
+
+def check_k4(gen, s: int = 1):
+    """K4 at decode shapes: 8 slots, L=8192, a 4100-column bound, kv_valid
+    with gaps (left padding and invalid columns); s = 1 the plain decode
+    step, s = 4 a speculative round's verify window (16 rows a kv-head)."""
     from torch.nn import functional as F
 
     from neuronx_distributed_tpu_torch.kernels.flash_decode import (
@@ -338,9 +404,8 @@ def check_k4(gen):
         flash_decode_plain,
     )
 
-    b, h, hkv, d, L, bound_cols = 8, 32, 8, 128, 8192, 4100
-    q, kc, vc, pos, valid = k4_inputs(gen)
-    dev = q.device
+    hkv, bound_cols = 8, 4100
+    q, kc, vc, pos, valid = k4_inputs(gen, s)
     out, lse = flash_decode_fwd(q, kc, vc, pos, valid)
     ref, ref_lse = flash_decode_plain(q, kc, vc, pos, valid)
     pv = flash_decode_plain(q, kc, vc.abs(), pos, valid)[0]
@@ -352,31 +417,24 @@ def check_k4(gen):
     torch.cuda.synchronize()
     err, lerr = max_err(out, ref), max_err(lse, ref_lse)
     ratio, fault_ratio = tol_ratio(out, ref, pv, K4_PV), tol_ratio(fault, ref, pv, K4_PV)
+    tag = "K4" if s == 1 else f"K4 (verify window, s={s})"
     if not (ratio <= 1.0 and lerr <= LSE_TOL):
-        raise AssertionError(f"K4: max |out err| {err} at {ratio:.3g}x its limit, "
+        raise AssertionError(f"{tag}: max |out err| {err} at {ratio:.3g}x its limit, "
                              f"|lse err| {lerr} (tol {LSE_TOL})")
     if fault_ratio <= 1.0:
-        raise AssertionError(f"K4: the output limit passes a dropped tile ({fault_ratio:.3g}x)")
-    # least bytes: q, the LIVE K/V columns, the validity bytes up to the
-    # bound, out and lse
-    live_cols = int(valid[:, :bound_cols].sum())
-    nbytes = (2 * q.numel() + 2 * 2 * live_cols * hkv * d + b * bound_cols
-              + 2 * out.numel() + 4 * lse.numel())
-    flops = 4.0 * live_cols * h * d
-    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+        raise AssertionError(f"{tag}: the output limit passes a dropped tile ({fault_ratio:.3g}x)")
+    bound, bound_by, nbytes = decode_bound(q, valid, pos, bound_cols, hkv)
     ms = graph_ms(lambda: flash_decode_fwd(q, kc, vc, pos, valid), 20)
     eager_ms = cuda_ms(lambda: flash_decode_fwd(q, kc, vc, pos, valid), 50)
     plain_ms = cuda_ms(lambda: flash_decode_plain(q, kc, vc, pos, valid), 5, warmup=1)
-    cols = torch.arange(L, device=dev)
-    mask = (valid & (cols <= pos[-1]))[:, None, None, :]  # (B, 1, 1, L)
+    mask = row_masks(valid, pos)
     qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
     lib_ms = graph_ms(lib, 20)
     return dict(err=max(err, lerr), ratio=ratio, fault_ratio=fault_ratio, ms=ms, eager_ms=eager_ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by, library_ms=lib_ms,
-                library_eager_ms=cuda_ms(lib, 50),
-                plan=dict(decode_plan(valid, bound_cols, hkv, 4), bound_bytes=nbytes))
+                library_eager_ms=cuda_ms(lib, 50), live_cols=int(valid[:, :bound_cols].sum()),
+                plan=dict(decode_plan(valid, bound_cols, hkv, 4 * s), bound_bytes=nbytes))
 
 
 def k5_shapes(name: str):
@@ -409,22 +467,27 @@ def k5_shapes(name: str):
     return 16, 2049, bound, runs + [[]]
 
 
-def k5_inputs(gen, shapes: str):
+def k5_inputs(gen, shapes: str, s: int = 1):
     """``check_k5``'s inputs at ``k5_shapes(shapes)``: q, the pools (page 0
-    scaled by 64), the block table, the position and kv_valid."""
+    scaled by 64), the block table, the positions ``bound - s .. bound - 1``
+    and kv_valid. At s > 1 (a speculative verify window, serving shapes) a
+    slot's columns from its context's end to the bound are its decode
+    columns, with the gaps rejected drafts leave (``rejected_gaps``)."""
     import numpy as np
 
     dev, bf = torch.device("cuda"), torch.bfloat16
     b, n_pages, bound_cols, runs = k5_shapes(shapes)
-    s, h, hkv, d, L, ps = 1, 32, 8, 128, 8192, 16
+    h, hkv, d, L, ps = 32, 8, 128, 8192, 16
     n_log = L // ps
     q = torch.randn(b, s, h, d, generator=gen, device=dev).to(bf)
     kp = torch.randn(n_pages, ps, hkv, d, generator=gen, device=dev).to(bf)
     vp = torch.randn(n_pages, ps, hkv, d, generator=gen, device=dev).to(bf)
     kp[0].mul_(64.0)
     vp[0].mul_(64.0)
-    pos = torch.tensor([bound_cols - 1], dtype=torch.int32, device=dev)
+    pos = torch.arange(bound_cols - s, bound_cols, dtype=torch.int32, device=dev)
     valid = torch.zeros(b, L, dtype=torch.bool, device=dev)
+    if s > 1:  # each context runs on into its decode columns, up to the bound
+        runs = [[(r[0][0], bound_cols)] if r else [] for r in runs]
     perm = iter(np.random.default_rng(5).permutation(np.arange(1, n_pages)).tolist())
     table = np.zeros((b, n_log), np.int32)
     for i, slot_runs in enumerate(runs):
@@ -433,17 +496,22 @@ def k5_inputs(gen, shapes: str):
         if slot_runs:
             for j in range(slot_runs[0][0] // ps, -(-bound_cols // ps)):
                 table[i, j] = next(perm)
-    if shapes == "k4":
+    if s > 1:
+        ends = [r[0][1] if r else bound_cols for r in k5_shapes(shapes)[3]]
+        valid &= ~rejected_gaps(gen, torch.tensor(ends, device=dev), L, bound_cols, s)
+    elif shapes == "k4":
         valid &= torch.rand(b, L, generator=gen, device=dev) > 0.1  # gap columns
     return q, kp, vp, torch.from_numpy(table).to(dev), pos, valid
 
 
-def check_k5(gen, shapes: str, timed: bool):
-    """K5 at ``k5_shapes(shapes)``, s=1: each slot's logical pages from its
+def check_k5(gen, shapes: str, timed: bool, s: int = 1):
+    """K5 at ``k5_shapes(shapes)`` with ``s`` query tokens (4: a
+    speculative round's verify window): each slot's logical pages from its
     first valid column's page through the bound's map to a numpy-seeded
     random permutation of pool pages; its unmapped pages (left padding,
     past the bound, an idle slot's) to page 0, which holds random garbage.
-    At K4's shapes ``kv_valid`` also has random gaps, as in ``check_k4``."""
+    At K4's shapes ``kv_valid`` also has random gaps, as in ``check_k4``;
+    at s > 1 the gaps of rejected drafts."""
     from torch.nn import functional as F
 
     from neuronx_distributed_tpu_torch.kernels.flash_decode import (
@@ -453,10 +521,9 @@ def check_k5(gen, shapes: str, timed: bool):
         paged_gather_leaf,
     )
 
-    dev = torch.device("cuda")
     b, n_pages, bound_cols, _ = k5_shapes(shapes)
-    h, hkv, d, L, ps = 32, 8, 128, 8192, 16
-    q, kp, vp, bt, pos, valid = k5_inputs(gen, shapes)
+    hkv, ps = 8, 16
+    q, kp, vp, bt, pos, valid = k5_inputs(gen, shapes, s)
     table = bt.cpu().numpy()
     out, lse = paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
     again, again_lse = paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
@@ -477,7 +544,7 @@ def check_k5(gen, shapes: str, timed: bool):
     torch.cuda.synchronize()
     err, lerr = max_err(out, ref), max_err(lse, ref_lse)
     ratio, fault_ratio = tol_ratio(out, ref, pv, K4_PV), tol_ratio(fault, ref, pv, K4_PV)
-    tag = f"K5 ({shapes} shapes)"
+    tag = f"K5 ({shapes} shapes{'' if s == 1 else f', verify window, s={s}'})"
     if not (ratio <= 1.0 and lerr <= LSE_TOL):
         raise AssertionError(f"{tag}: max |out err| {err} at {ratio:.3g}x its limit, "
                              f"|lse err| {lerr} (tol {LSE_TOL})")
@@ -489,28 +556,22 @@ def check_k5(gen, shapes: str, timed: bool):
         raise AssertionError(f"{tag}: the output depends on the null page's content")
     if not (torch.equal(out, again) and torch.equal(lse, again_lse)):
         raise AssertionError(f"{tag}: two runs differ in their bits")
-    # least bytes: q, the LIVE K/V columns, the table entries up to the
-    # bound, the validity bytes up to the bound, out and lse
-    live_cols = int(valid[:, :bound_cols].sum())
-    nbytes = (2 * q.numel() + 2 * 2 * live_cols * hkv * d + 4 * b * -(-bound_cols // ps)
-              + b * bound_cols + 2 * out.numel() + 4 * lse.numel())
-    flops = 4.0 * live_cols * h * d
-    bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
-    bound_by = "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes"
+    # the table entries up to the bound besides what K4 must move
+    bound, bound_by, nbytes = decode_bound(q, valid, pos, bound_cols, hkv,
+                                           extra_bytes=4 * b * -(-bound_cols // ps))
     res = dict(err=max(err, lerr), ratio=ratio, fault_ratio=fault_ratio, bound_ms=bound,
                bound_by=bound_by, slots=b, pages=n_pages, bound_cols=bound_cols,
-               mapped=int((table != 0).sum()), live_cols=live_cols)
+               mapped=int((table != 0).sum()), live_cols=int(valid[:, :bound_cols].sum()))
     res["ms"] = graph_ms(lambda: paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps), 20)
     res["eager_ms"] = cuda_ms(lambda: paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps), 50)
-    res["plan"] = dict(decode_plan(valid, bound_cols, hkv, 4, ps), bound_bytes=nbytes)
+    res["plan"] = dict(decode_plan(valid, bound_cols, hkv, 4 * s, ps), bound_bytes=nbytes)
     if not timed:
         return res
     res["plain_ms"] = cuda_ms(lambda: paged_flash_decode_plain(q, kp, vp, bt, pos, valid, ps), 5,
                               warmup=1)
     res["gather_ms"] = cuda_ms(lambda: (paged_gather_leaf(kp, bt, ps),
                                         paged_gather_leaf(vp, bt, ps)), 20)
-    cols = torch.arange(L, device=dev)
-    mask = (valid & (cols <= pos[-1]))[:, None, None, :]  # (B, 1, 1, L)
+    mask = row_masks(valid, pos)
     qt, kt, vt = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
     res["library_ms"] = graph_ms(lib, 20)
@@ -1538,6 +1599,218 @@ def prefix_phase(model) -> dict:
     return out
 
 
+# --- phase 5d: speculative serving ---------------------------------------------
+
+SPEC_GAMMA, SPEC_DRAFT_LAYERS = 4, 1  # bench.py's serving_spec leg: an early-exit draft
+
+
+def teacher_ratio(model, workload, tokens) -> float:
+    """The emitted greedy tokens against a teacher-forced target pass: one
+    forward of prompt + emitted tokens (K1, no cache) whose logits at each
+    emitted position must put the emitted token within phase 3's limit of
+    the row's maximum logit, 5e-2 of the logit scale. Returns the largest
+    gap over its limit (above 1 fails)."""
+    import numpy as np
+
+    prompts, cfgs = workload
+    worst = 0.0
+    with torch.no_grad():
+        for p, toks, c in zip(prompts, tokens, cfgs):
+            if c.temperature != 0.0:
+                continue
+            ids = torch.tensor(np.concatenate([p, toks[:-1]])[None], device=model.device)
+            x = model.model(ids, mode="train")
+            logits = model.lm_head(x[:, len(p) - 1:]).float()[0]  # row j predicts toks[j]
+            emitted = torch.tensor(toks, device=model.device)[:, None]
+            gap = logits.max(-1).values - logits.gather(-1, emitted)[:, 0]
+            worst = max(worst, float((gap / (5e-2 * logits.abs().max())).max()))
+    return worst
+
+
+def serve_spec(target, draft, workload, paged: bool = False, eager: bool = False,
+               profiled: bool = False) -> dict:
+    """Phase 4's six requests through an engine with the speculative round
+    (``draft`` None: the same engine without it): 8 slots, chunk 8
+    (rounds), conservative, ``prefix_cache=None``; ``paged`` over a pool of
+    ROW_SLOTS row slots' bytes of 16-column pages, the draft's of the same
+    geometry; ``eager`` runs the round eagerly (the graph's witness);
+    ``profiled`` captures first and runs under the profiler. Every kernel's
+    launch count is zeroed just before and read just after; each executed
+    round launches the draft's draft_layers x gamma decode kernels and the
+    target's one a layer, K5 on the paged engine and K4 on the row one, and
+    never the multi-row path; each admission K1 once a layer of both
+    models."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+        flash_decode_fwd,
+        paged_flash_decode_fwd,
+    )
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
+
+    prompts, cfgs = workload
+    cfg = target.config
+    layers = cfg.num_layers
+    kw = dict(kv_page_size=PAGE, kv_num_pages=ROW_SLOTS * cfg.max_seq_len // PAGE + 1) if paged else {}
+    spec = dict(draft_model=draft, gamma=SPEC_GAMMA) if draft is not None else {}
+    engine = ServingEngine(target, num_slots=8, decode_chunk_size=8, prefix_cache=None, **kw,
+                           **spec)
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    flash_decode_fwd.multi_row_launches = paged_flash_decode_fwd.multi_row_launches = 0
+    capture_s = prewarm(engine) if profiled else 0.0
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled
+           else contextlib.nullcontext())
+    with eager_decode_step() if eager else contextlib.nullcontext(), ctx as prof:
+        t0 = time.perf_counter()
+        reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
+        engine.step()  # admits all six: twelve prefills (target, draft), then one chunk
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        executed0 = engine.metrics.executed_steps
+        engine.run()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches, warm = engine_launches(engine, {name: c.launches for name, c in counters.items()})
+    multi = flash_decode_fwd.multi_row_launches + paged_flash_decode_fwd.multi_row_launches
+    what = (f"speculative {'paged' if paged else 'row'} serving" if draft is not None
+            else "spec-off serving") + (" (eager round)" if eager else "")
+    for r in reqs:
+        if r.state is not RequestState.DONE or len(r.tokens) != r.config.max_new_tokens:
+            raise AssertionError(f"{what}: request {r.rid}: {r.state} with {len(r.tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"{what}: request {r.rid}: token outside the vocabulary")
+    snap = engine.metrics.snapshot()
+    d_layers = draft.config.num_layers if draft is not None else 0
+    per_round = d_layers * SPEC_GAMMA + layers
+    dec, other = (("paged_flash_decode", "flash_decode") if paged
+                  else ("flash_decode", "paged_flash_decode"))
+    got = (launches[dec] - warm[dec], launches[other], multi, launches["flash_attention"])
+    want = (snap["executed_steps"] * per_round, 0, 0, snap["prefills"] * (layers + d_layers))
+    if got != want:
+        raise AssertionError(f"{what}: launches ({dec} less the warm-up, {other}, multi-row, K1) "
+                             f"{got} != {want} ({snap['executed_steps']} executed rounds x "
+                             f"{per_round}, {snap['prefills']} admissions x {layers + d_layers})")
+    check_program(engine, what, eager)
+    prog = decode_program(engine)
+    if not eager and prog.launches_per_replay != {dec: per_round}:
+        raise AssertionError(f"{what}: launches per replay {prog.launches_per_replay}, want "
+                             f"{{{dec!r}: {per_round}}}")
+    if paged:
+        engine.cache.check()
+        if engine.draft_cache is not None:
+            engine.draft_cache.check()
+    res = dict(tokens=[list(r.tokens) for r in reqs], launches=launches, snap=snap,
+               wall_s=t2 - t0, decode_s=t2 - t1,
+               decode_executed=snap["executed_steps"] - executed0, per_round=per_round,
+               compilations=engine.decode_compilations, replays=prog.replays,
+               capture_s=capture_s or snap["capture_s"],
+               sampled_rounds=sum(len(r.tokens) - 1 for r in reqs if r.config.temperature > 0),
+               # of the decode launches, the target's verify windows: a layer
+               # each round that went through the wrapper (the capture's
+               # warm-up, the eager rounds) or was replayed
+               verify=(launches[dec] // per_round) * layers)
+    if profiled:
+        res["records"] = decode_records(prof, paged=paged)
+        if res["records"] != 2 * snap["executed_steps"] * per_round:
+            raise AssertionError(f"{what}, profiled: {res['records']} decode kernel records != 2 "
+                                 f"x {snap['executed_steps']} executed rounds x {per_round}")
+        res["fams"] = device_time_by_family(prof, {"flash_attention": "flash_fwd_kernel",
+                                                   "flash_decode": "flash_decode_kernel"})
+    del engine
+    torch.cuda.empty_cache()
+    return res
+
+
+def greedy_accept_rate(res: dict) -> float:
+    """The acceptance rate of the greedy slots: a sampled slot accepts
+    nothing by construction and emits one token a round, so its rounds
+    (its tokens after the first) are taken out of the drafted count."""
+    sn = res["snap"]
+    drafted = sn["spec_draft_tokens"] - SPEC_GAMMA * res["sampled_rounds"]
+    return sn["spec_accepted_tokens"] / drafted if drafted else 0.0
+
+
+def spec_phase(model, workload, smi: str) -> dict:
+    """Phase 5d: phase 4's workload through the early-exit pair of ``model``
+    (the target's first layer as the draft, gamma 4): eps 0 spec on; eps
+    0.3 spec on, spec off, and spec on with the eager round patched in;
+    the paged engine at eps 0.3; the eps 0.3 row run once more under the
+    profiler. Checked and printed; returns the eps 0.3 row and paged runs'
+    launches by wrapper (replays included) and those of them that were the
+    target's verify windows (K4 in the row run, K5 in the paged)."""
+    from neuronx_distributed_tpu_torch.models.llama import early_exit_draft
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for eps in (0.0, 0.3):
+        target, draft = early_exit_draft(model, SPEC_DRAFT_LAYERS, eps)
+        names = ("on",) if eps == 0.0 else ("on", "off", "eager", "paged", "profiled")
+        for name in names:
+            r = serve_spec(target, None if name == "off" else draft, workload,
+                           paged=name == "paged", eager=name == "eager",
+                           profiled=name == "profiled")
+            r["teacher"] = teacher_ratio(target, workload, r["tokens"])
+            runs[(eps, name)] = r
+        del target, draft
+        torch.cuda.empty_cache()
+    on, off, wit = runs[(0.3, "on")], runs[(0.3, "off")], runs[(0.3, "eager")]
+    if wit["tokens"] != on["tokens"] or runs[(0.3, "profiled")]["tokens"] != on["tokens"]:
+        raise AssertionError("speculative serving: the captured round's streams differ from the "
+                             "eager round's or the profiled rerun's")
+    rate0 = greedy_accept_rate(runs[(0.0, "on")])
+    if rate0 < 0.9:
+        raise AssertionError(f"speculative serving at eps 0: the greedy slots accept {rate0:.3f} of "
+                             "their drafts (draft and target are the same function up to GEMM "
+                             "shape)")
+    for key, r in runs.items():
+        if r["teacher"] > 1.0:
+            raise AssertionError(f"speculative serving {key}: an emitted greedy token lies "
+                                 f"{r['teacher']:.3g}x phase 3's limit below its row's maximum "
+                                 "logit in the teacher-forced pass")
+    for (eps, name), r in runs.items():
+        sn = r["snap"]
+        acc = ("" if name == "off" else
+               f"; acceptance: rate {sn['spec_accept_rate']:.4f} (greedy slots "
+               f"{greedy_accept_rate(r):.4f}), rounds {sn['spec_rounds']}, drafted "
+               f"{sn['spec_draft_tokens']}, accepted {sn['spec_accepted_tokens']}, wasted "
+               f"{sn['draft_tokens_wasted']}, accept_len p50 {sn['spec_accept_len_p50']} p95 "
+               f"{sn['spec_accept_len_p95']}")
+        log(f"speculative serving eps {eps} {name} ({smi}): wall {r['wall_s']:.3f} s (capture "
+            f"{r['capture_s']:.4f} s), TTFT mean {sn['mean_ttft']:.4f} s max {sn['max_ttft']:.4f} s, "
+            f"decode {sn['chunk_tokens_per_sec']:.1f} tok/s (chunk wall), "
+            f"{r['decode_executed']} decode-only {'steps' if name == 'off' else 'rounds'} executed "
+            f"in {r['decode_s']:.4f} s ({1e3 * r['decode_s'] / max(r['decode_executed'], 1):.2f} "
+            f"ms each), executed {sn['executed_steps']} (live {sn['steps']}), replays "
+            f"{r['replays']}, decode_compilations {r['compilations']}, launches {r['launches']} "
+            f"({r['per_round']} decode kernels a replay), teacher-forced gap "
+            f"{r['teacher']:.3g}x its limit{acc}")
+    same = sum(a == b for a, b in zip(on["tokens"], off["tokens"]))
+    agree = sum(x == y for a, b in zip(on["tokens"], off["tokens"]) for x, y in zip(a, b))
+    paged_same = sum(a == b for a, b in zip(runs[(0.3, "paged")]["tokens"], on["tokens"]))
+    log(f"speculative serving eps 0.3: streams identical to the eager round's and the profiled "
+        f"rerun's (6 of 6); to the spec-off engine's {same} of 6 ({agree} of "
+        f"{sum(len(a) for a in on['tokens'])} tokens agree; reported, not gated: the verify "
+        f"forward's GEMMs have M = gamma x slots); the paged engine's to the row engine's "
+        f"{paged_same} of 6; both paged pools check() clean")
+    prof = runs[(0.3, "profiled")]
+    busy = sum(prof["fams"].values())
+    wall_ms = 1e3 * (on["wall_s"] - on["capture_s"])
+    log(f"device time of speculative serving, eps 0.3, row (profiler, ms; round captured before "
+        f"the profiler opened): " + ", ".join(f"{k} {v:.2f}" for k, v in prof["fams"].items())
+        + f"; busy {busy:.2f} of the unprofiled wall less its capture {wall_ms:.2f} (idle share "
+        f"{1 - busy / wall_ms:.3f}); K4 kernel records {prof['records']} = 2 x "
+        f"{prof['snap']['executed_steps']} executed rounds x {prof['per_round']}")
+    log(f"phase 5d wall: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches={k: on["launches"][k] + runs[(0.3, "paged")]["launches"][k]
+                          for k in on["launches"]},
+                verify={"flash_decode": on["verify"],
+                        "paged_flash_decode": runs[(0.3, "paged")]["verify"]})
+
+
 def device_time_by_family(prof, kernels: dict, skip=()) -> dict:
     """Device ms of a profile by family: each of ``kernels`` (family: a
     substring of its CUDA kernel's name; the first that matches wins), GEMMs,
@@ -1846,6 +2119,37 @@ def main() -> int:
     log(f"K5 at K4's shapes: plain_ms {k5['plain_ms']:.4f} library_ms {k5['library_ms']:.4f} "
         f"(SDPA on the gathered view, bool mask, GQA; graph replay) + gather_ms {k5['gather_ms']:.4f} "
         f"(K and V views)")
+    # the verify window of phase 5d's rounds (s = gamma): its own generator,
+    # so the other checks keep their inputs
+    vgen = torch.Generator(device="cuda").manual_seed(SPEC_GAMMA)
+    k4v = check_k4(vgen, SPEC_GAMMA)
+    k5v = check_k5(vgen, "serving", timed=True, s=SPEC_GAMMA)
+    log(f"K4 flash_decode, verify window: B=8 s={SPEC_GAMMA} (R={4 * SPEC_GAMMA}) H=32 Hkv=8 "
+        f"D=128 L=8192 bound 4100, left padding, the gap columns of rejected drafts from column "
+        f"{VERIFY_DECODE_START} ({k4v['live_cols']} live columns): max_err {k4v['err']:.3g} "
+        f"({k4v['ratio']:.3g}x its limit; a dropped partial tile reads {k4v['fault_ratio']:.3g}x) "
+        f"kernel_ms {k4v['ms']:.4f} (graph replay; back to back {k4v['eager_ms']:.4f}) plain_ms "
+        f"{k4v['plain_ms']:.4f} bound_ms {k4v['bound_ms']:.4f} ({k4v['bound_by']}) library_ms "
+        f"{k4v['library_ms']:.4f} (SDPA, bool mask, GQA; graph replay; back to back "
+        f"{k4v['library_eager_ms']:.4f})")
+    log(f"K5 paged_flash_decode, verify window at the paged serving geometry: B={k5v['slots']} "
+        f"s={SPEC_GAMMA} (R={4 * SPEC_GAMMA}) H=32 Hkv=8 D=128 L=8192 bound {k5v['bound_cols']} "
+        f"page_size 16, pool {k5v['pages']} pages ({k5v['mapped']} mapped through a scrambled "
+        f"table), garbage null page, the gap columns of rejected drafts after each context "
+        f"({k5v['live_cols']} live columns): max_err {k5v['err']:.3g} ({k5v['ratio']:.3g}x its "
+        f"limit; a dropped partial tile reads {k5v['fault_ratio']:.3g}x); bitwise equal to K4 on "
+        f"the gathered view, blind to the null page, two runs bitwise equal; kernel_ms "
+        f"{k5v['ms']:.4f} (graph replay; back to back {k5v['eager_ms']:.4f}) plain_ms "
+        f"{k5v['plain_ms']:.4f} bound_ms {k5v['bound_ms']:.4f} ({k5v['bound_by']}) library_ms "
+        f"{k5v['library_ms']:.4f} (SDPA on the gathered view, bool mask, GQA; graph replay) + "
+        f"gather_ms {k5v['gather_ms']:.4f}")
+    for name, r in (("K4, verify window", k4v), ("K5, verify window", k5v)):
+        pl = r["plan"]
+        log(f"{name} split plan: grid {pl['grid']} blocks ({pl['splits']} ranges of a slot and "
+            f"kv-head, {pl['ranges']} before the bound: {pl['in_bound']} blocks run, "
+            f"{pl['working']} with a live tile, {pl['live_tiles']} live 64-column tiles); "
+            f"bytes the plan moves {pl['read_bytes']} against the bound's {pl['bound_bytes']} "
+            f"({pl['read_bytes'] / pl['bound_bytes']:.3f}x)")
     rows = {chunk: check_decode_rows(gen, chunk) for chunk in (16, 256, 512)}
     for chunk, r in rows.items():
         log(f"K4/K5 multi-row B=1 s={chunk} (R={r['rows']}) H=32 Hkv=8 D=128 L=8192, a "
@@ -1975,6 +2279,7 @@ def main() -> int:
         f"{prof['snap']['executed_steps']} executed steps x {cfg.num_layers} layers")
 
     pre = prefix_phase(model)
+    spec = spec_phase(model, srv["workload"], smi)
 
     del model
     torch.cuda.empty_cache()
@@ -2002,9 +2307,11 @@ def main() -> int:
 
     k1_main = k1[1]  # the serving prefill at S=4096
     launches = {name: srv["launches"][name] + fused["launches"][name] + pre["launches"][name]
-                + tr["launches"][name] for name in tr["launches"]}
+                + spec["launches"][name] + tr["launches"][name] for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
-        f"training): {launches}; on the multi-row path (prefix-cache serving): {pre['multi_row']}")
+        f"speculative serving row and paged, training): {launches}; on the multi-row path "
+        f"(prefix-cache serving): {pre['multi_row']}; the speculative rounds' verify windows "
+        f"(s = {SPEC_GAMMA}): {spec['verify']}")
     rows_main = rows[256]  # R = 1024: phase 5c's chat turns
     k23_err = {n: max(r["err"][n] for r in k23.values()) for n in ("dk", "dv", "dq")}
     kernels = [
@@ -2041,6 +2348,18 @@ def main() -> int:
              launches=launches["paged_flash_decode"], max_abs_err=k5["err"], ms=k5["ms"],
              plain_ms=k5["plain_ms"], bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
              library_ms=k5["library_ms"]),
+        dict(name="flash_decode_verify", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/flash_decode.cu",
+             replaces="neuronx_distributed_tpu/kernels/flash_decode.py:301",
+             launches=spec["verify"]["flash_decode"], max_abs_err=k4v["err"], ms=k4v["ms"],
+             plain_ms=k4v["plain_ms"], bound_ms=k4v["bound_ms"], bound_by=k4v["bound_by"],
+             library_ms=k4v["library_ms"]),
+        dict(name="paged_flash_decode_verify", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/flash_decode.cu",
+             replaces="neuronx_distributed_tpu/kernels/flash_decode.py:617",
+             launches=spec["verify"]["paged_flash_decode"], max_abs_err=k5v["err"],
+             ms=k5v["ms"], plain_ms=k5v["plain_ms"], bound_ms=k5v["bound_ms"],
+             bound_by=k5v["bound_by"], library_ms=k5v["library_ms"]),
         dict(name="flash_decode_multi_row", route="cuda",
              source="neuronx_distributed_tpu_torch/csrc/flash_decode.cu",
              replaces="neuronx_distributed_tpu/kernels/flash_decode.py:301",

@@ -126,20 +126,22 @@ def decode_step(decode_model, cache, state, toks: torch.Tensor, emits: torch.Ten
     return run
 
 
-def masked_step(run, cache, state, step: torch.Tensor):
-    """``run`` (a :func:`decode_step`) once with every slot masked, leaving
-    no trace: the warm-up before capture. A masked step changes no slot
-    state; its K/V and validity writes land at the cursor column, which
-    holds no valid entry (columns at and past the cursor never do), and so
-    does its ``emits`` row (False); its ``toks`` row is rewritten by the
-    step that follows. The device cursor and the step index are moved
-    back. Returns a callable of no arguments."""
+def masked_step(run, caches, state, step: torch.Tensor, cols: int = 1):
+    """``run`` (a :func:`decode_step`, or a speculative round) once with
+    every slot masked, leaving no trace: the warm-up before capture. A
+    masked iteration changes no slot state; its K/V and validity writes land
+    in the ``cols`` columns at each cache's cursor, which hold no valid
+    entry (columns at and past a cursor never do), and its emission row is
+    zero; its other rows are rewritten by the iteration that follows. Every
+    device cursor of ``caches`` moves back ``cols`` columns, the step index
+    one. Returns a callable of no arguments."""
     def warmup() -> None:
         active = state["active"].clone()
         state["active"].zero_()
         run()
         state["active"].copy_(active)
-        cache.cursor.sub_(1)
+        for cache in caches:
+            cache.cursor.sub_(cols)
         step.sub_(1)
 
     return warmup
@@ -147,48 +149,81 @@ def masked_step(run, cache, state, step: torch.Tensor):
 
 class ChunkedDecode:
     """The serving engine's fused decode chunk (the JAX
-    ``chunked_decode_step``): up to ``chunk_size`` decode steps over every
-    slot between two host reads. It owns the step's token blocks and step
-    index, and runs :func:`decode_step` on ``cache`` and ``state`` as one
+    ``chunked_decode_step``, or with a draft model
+    ``speculative_decode_chunk``): up to ``chunk_size`` iterations of one
+    body over every slot between two host reads, as one
     :class:`~neuronx_distributed_tpu_torch.inference.graphs.DecodeProgram`
-    (a CUDA graph on the card), so those two must live as long as it does.
+    (a CUDA graph on the card). An iteration is a plain decode step
+    (:func:`decode_chunk`, 1 column) or a speculative round
+    (``spec_decode.speculative_chunk``, ``gamma`` columns in each of the
+    target's and the draft's cache). ``caches`` and ``state`` must live as
+    long as the chunk does.
+
+    ``body(step)`` builds the iteration on the chunk's device step index
+    (1,) int64 and the blocks ``(toks, counts, accepts)``: ``toks``
+    (chunk_size, B[, cols]) the tokens, ``counts`` (chunk_size, B) what
+    each slot emitted each iteration (a plain step's bool emissions, or a
+    round's token counts; zeroed at every call) and ``accepts``
+    (chunk_size, B) a round's accepted draft lengths (None for a plain
+    step).
 
     Call::
 
-        chunk() -> (toks, counts, executed)
+        chunk() -> executed
 
-    The chunk computes the steps the cache has room for on the host, from
-    the cursor's mirror, and runs the step that many times: step ``i``
-    writes column ``start + i``, masked no-ops included, and the chunk
-    moves the mirror to ``start + executed`` after them. The caller rewinds
-    the cursor to ``start + max(counts)`` after its one read, which lands
-    it exactly where the JAX chunk leaves it.
+    The chunk computes on the host, from the cursors' mirrors, the
+    iterations every cache has room for, and runs that many: iteration
+    ``i`` writes columns ``[start + i*cols, start + (i+1)*cols)``, masked
+    no-ops included; the mirrors move ``executed * cols`` after them.
+    After its one read (:meth:`readout`) the caller rewinds every cursor to
+    ``start + used * cols``, ``used`` the iterations in which any slot
+    emitted (a prefix: freezing is monotone), which lands them exactly
+    where the JAX chunk leaves them. The iterations run under ``no_grad``."""
 
-    ``toks`` is the (chunk_size, B) token block (rows past ``executed``
-    hold earlier chunks' tokens), ``counts`` (B,) how many of each slot's
-    tokens are real (a prefix: freezing is monotone) and ``executed`` the
-    host count of steps that ran. The steps run under ``no_grad``."""
-
-    def __init__(self, decode_model, chunk_size: int, max_seq_len: int, cache, state):
-        if chunk_size < 1:
-            raise ValueError(f"chunk_size must be >= 1, got {chunk_size}")
-        self.chunk_size, self.max_seq_len = chunk_size, max_seq_len
-        self.cache, self.state = cache, state
-        b, dev = state["tok"].shape[0], state["tok"].device
-        self.toks = torch.zeros((chunk_size, b), dtype=torch.int64, device=dev)
-        self.emits = torch.zeros((chunk_size, b), dtype=torch.bool, device=dev)
+    def __init__(self, body, blocks, max_seq_len: int, caches, state, cols: int = 1):
+        self.toks, self.counts, self.accepts = blocks
+        self.chunk_size = self.toks.shape[0]
+        if self.chunk_size < 1:
+            raise ValueError(f"chunk_size must be >= 1, got {self.chunk_size}")
+        if cols < 1:
+            raise ValueError(f"an iteration's columns must be >= 1, got {cols}")
+        self.max_seq_len, self.cols = max_seq_len, cols
+        self.caches, self.state = tuple(caches), state
+        dev = state["tok"].device
         self.step = torch.zeros((1,), dtype=torch.int64, device=dev)
-        run = decode_step(decode_model, cache, state, self.toks, self.emits, self.step)
-        self.program = DecodeProgram(run, masked_step(run, cache, state, self.step), dev)
+        run = body(self.step)
+        self.program = DecodeProgram(run, masked_step(run, self.caches, state, self.step, cols),
+                                     dev)
 
-    def __call__(self):
-        allowed = max(0, min(self.max_seq_len - self.cache.index, self.chunk_size))
-        self.emits.zero_()
+    def __call__(self) -> int:
+        room = min(self.max_seq_len - cache.index for cache in self.caches)
+        allowed = max(0, min(room // self.cols, self.chunk_size))
+        self.counts.zero_()
         self.step.zero_()
         for _ in range(allowed):
             self.program()
-        self.cache.advance_mirror(allowed)
-        return self.toks, self.emits.sum(0), allowed
+        for cache in self.caches:
+            cache.advance_mirror(allowed * self.cols)
+        return allowed
+
+    def readout(self) -> torch.Tensor:
+        """The blocks as ONE (chunk_size, B, cols + 1, + 1 with accepts)
+        int64 tensor, for the caller's one host read: each iteration's
+        tokens, then its emitted count, then its accepted draft length."""
+        parts = [self.toks.view(self.chunk_size, -1, self.cols), self.counts[..., None]]
+        if self.accepts is not None:
+            parts.append(self.accepts[..., None])
+        return torch.cat(parts, dim=2)
+
+
+def decode_chunk(decode_model, chunk_size: int, max_seq_len: int, cache, state) -> ChunkedDecode:
+    """The plain decode chunk: :func:`decode_step` on (chunk_size, B) token
+    and emission blocks, one cache column a step."""
+    b, dev = state["tok"].shape[0], state["tok"].device
+    toks = torch.zeros((chunk_size, b), dtype=torch.int64, device=dev)
+    emits = torch.zeros((chunk_size, b), dtype=torch.bool, device=dev)
+    return ChunkedDecode(lambda step: decode_step(decode_model, cache, state, toks, emits, step),
+                         (toks, emits, None), max_seq_len, (cache,), state)
 
 
 def suffix_prefill_step(decode_model, cache, ids: torch.Tensor, valid_len: int) -> torch.Tensor:

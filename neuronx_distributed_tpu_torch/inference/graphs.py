@@ -7,6 +7,10 @@ for every chunk after. The PyTorch counterpart is a ``torch.cuda.CUDAGraph``:
 :class:`DecodeProgram` captures one decode step, whose inputs and outputs
 are buffers that live as long as the engine, and replays it for every step
 after. A replay launches the step's hundreds of kernels with one host call.
+A speculative engine's program is its draft-verify ROUND
+(``inference/spec_decode.py``, the JAX ``spec_decode_chunk``): one capture
+holds the draft's ``gamma`` decode steps and the target's verify forward,
+over both caches.
 
 On the card the first call warms the step up on a side stream (one masked
 no-op step that leaves no trace, so that cuBLAS handles, the kernels'
@@ -20,7 +24,9 @@ wrappers' ``launches`` counters see no replay. The program records how
 many launches of each wrapper the capture recorded
 (``launches_per_replay``) and leaves the counters as they were before the
 capture, which recorded launches and made none; ``replays`` times
-``launches_per_replay`` is then the launch count of the replays. The JAX
+``launches_per_replay`` is then the launch count of the replays (a
+speculative round's K4 or K5 count is the draft's ``draft_layers x gamma``
+plus the target's ``num_layers``: both models call the same wrapper). The JAX
 persistent compile cache and serialized executables (``aot.py:94-530``)
 have no counterpart for a CUDA graph: a graph is captured in the process
 that replays it.

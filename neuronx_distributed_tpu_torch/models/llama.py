@@ -275,6 +275,71 @@ class LlamaForCausalLM(nn.Module):
         return parallel_cross_entropy(self(input_ids), labels).mean()
 
 
+_EARLY_EXIT_SCALED = ("attn.o_proj.", "mlp.down_proj.")
+
+
+@torch.no_grad()
+def early_exit_draft_params(state_dict, num_layers: int, draft_layers: int, eps: float):
+    """The EARLY-EXIT draft pair on state dicts (JAX ``early_exit_draft_params``,
+    ``llama.py:104``): ``(target, draft)`` where ``target`` is ``state_dict``
+    with the residual contributions of layers ``draft_layers..num_layers-1``
+    (their ``o_proj``/``down_proj`` weights) scaled by ``eps``, and
+    ``draft`` the first ``draft_layers`` layers with the embedding, final
+    norm and head shared. At ``eps=0`` draft and target are the same
+    function; a larger ``eps`` degrades their agreement smoothly.
+
+    The scaled weights are NEW tensors (``w * eps``): nothing is scaled in
+    place, so the caller's tensors keep their bits (bf16 scaling does not
+    round-trip). Every other entry is the caller's own tensor, in both
+    dicts."""
+    if not 0 < draft_layers < num_layers:
+        raise ValueError(f"draft_layers must be in [1, {num_layers - 1}], got {draft_layers}")
+    target, draft = {}, {}
+    for name, t in state_dict.items():
+        layer = int(name.split(".")[2]) if name.startswith("model.layers.") else None
+        rest = name.split(".", 3)[3] if layer is not None else ""
+        if layer is not None and layer >= draft_layers and rest.startswith(_EARLY_EXIT_SCALED):
+            t = t * eps
+        target[name] = t
+        if layer is None or layer < draft_layers:
+            draft[name] = state_dict[name]
+    return target, draft
+
+
+def _bind(model: nn.Module, tensors: dict) -> nn.Module:
+    """Put ``tensors`` (a state dict of parameters, plus ``model.freqs``) in
+    ``model`` as its own, by reference: no copy."""
+    for name, t in tensors.items():
+        owner, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        if leaf in mod._parameters:
+            mod._parameters[leaf] = t if isinstance(t, nn.Parameter) else nn.Parameter(
+                t, requires_grad=False)
+        else:
+            mod._buffers[leaf] = t
+    return model
+
+
+def early_exit_draft(model: LlamaForCausalLM, draft_layers: int, eps: float):
+    """The early-exit pair as models: ``(target, draft)``, two new
+    :class:`LlamaForCausalLM` whose tensors ARE ``model``'s (no copy), but
+    for the target's scaled ``o_proj``/``down_proj`` weights of layers
+    ``draft_layers..`` (new tensors, :func:`early_exit_draft_params`); the
+    draft runs the first ``draft_layers`` layers. ``model`` is left as it
+    was. The pair is built on the ``meta`` device and bound to ``model``'s
+    tensors, so it costs the scaled weights' memory alone."""
+    cfg = model.config
+    sd = model.state_dict(keep_vars=True)
+    t_sd, d_sd = early_exit_draft_params(sd, cfg.num_layers, draft_layers, eps)
+    freqs = {"model.freqs": model.model.freqs}
+    target = _bind(LlamaForCausalLM(cfg, device="meta", trainable=model.trainable),
+                   {**t_sd, **freqs})
+    d_cfg = dataclasses.replace(cfg, num_layers=draft_layers)
+    draft = _bind(LlamaForCausalLM(d_cfg, device="meta", trainable=model.trainable),
+                  {**d_sd, **freqs})
+    return target, draft
+
+
 @torch.no_grad()
 def init_params(model: LlamaForCausalLM, seed: int = 0) -> LlamaForCausalLM:
     """Random weights from ``seed`` on the model's own device: linears

@@ -374,6 +374,30 @@ def reset_cache(cache: KVCache) -> None:
     cache.index = 0
 
 
+def invalidate_cache_window(cache: KVCache, start, keep: torch.Tensor) -> None:
+    """Per-row invalidation of a just-written column window, in place (JAX
+    ``invalidate_cache_window``, ``attention.py:410``): the speculative
+    round's acceptance primitive. For every row ``b`` clear validity at
+    columns ``[start + keep[b], ∞)`` of ``cache``, ANDed, so it only ever
+    narrows: the rejected draft columns become permanent invalid gap
+    columns, which attention masks and RoPE positions skip (both run off
+    validity counts). K/V stay as they are.
+
+    ``start`` is the round's first column (the device cursor's value before
+    the round, a 0-d tensor, or a host int) and ``keep`` a (B,) device
+    tensor; nothing is read on the host, so a captured round replays it at
+    every cursor. On a :class:`PagedKVCache` the clear lands in
+    ``row_valid``, the whole logical rows K5 reads, at the object's columns
+    shifted by ``col0`` (a slot view's ``valid`` is a window of them)."""
+    if isinstance(cache, PagedKVCache):
+        valid, start = cache.row_valid, start + cache.col0
+    else:
+        valid = cache.valid
+    cols = torch.arange(valid.shape[1], device=valid.device)[None]
+    cut = (cols >= start + keep.to(torch.int64)[:, None]) & (cols >= start)
+    valid.logical_and_(torch.logical_not(cut))
+
+
 def extract_cache_prefix(cache: KVCache, start: int, m: int, bucket: int) -> KVCache:
     """Copy the ``m`` columns starting at ``start`` of a (batch-1) cache into
     a COMPACT prefix block of ``bucket`` columns (JAX

@@ -19,8 +19,8 @@ chunks over all ``num_slots`` slots:
 * ``decode_chunk_size`` decode steps run between two host reads
   (:class:`~neuronx_distributed_tpu_torch.inference.generate.
   ChunkedDecode`): EOS/budget freezing happens on the device and the
-  host pays ONE read per steady chunk — the (chunk, slots) token block with
-  the per-slot counts. Every device→host read goes through
+  host pays ONE read per steady chunk — the (chunk, slots, columns) token
+  block with each step's emitted counts. Every device→host read goes through
   :meth:`ServingEngine._host_read`, which counts them (``host_reads``):
   one per admitted fresh request (its first token), one per chunk.
 * On the card the decode step is ONE CUDA graph per engine
@@ -62,10 +62,24 @@ under page pressure the LRU unpinned entry is evicted. Admission orders a
 round by the EFFECTIVE prefill (context less its reusable prefix).
 Streams equal the cache-off engine's.
 
+Speculative decoding (``draft_model=``, ``gamma=``; JAX ``engine.py:628-661``):
+each decode chunk runs ``decode_chunk_size`` draft-verify ROUNDS
+(``inference/spec_decode.py``), one captured program on the card, each
+emitting 1..gamma tokens a slot, still ONE host read a chunk. A second cache
+(a ``SlotCacheManager``, or a ``PagedCacheManager`` of the same geometry
+with its own pool) mirrors the target's slot lifecycle one for one; the draft
+always full-prefills (prefix entries hold target KV only). A round costs
+``gamma`` columns, so every cursor and page computation counts in
+``self.gamma`` columns an iteration (JAX ``_round_cols``; 1 without a
+draft). Greedy streams equal the spec-off engine's; sampled slots emit one
+token a round, the plain step's draw. ``draft_model=None`` is the engine
+without speculation, unchanged.
+
 Left out of this slice (not accepted, not silently ignored): the host page
 tier (spill and prefetch of prefix entries), page content fingerprints,
-speculation, quantization, tp/mesh, fault injection, SLO scheduling,
-ledgers, tracing and profiling.
+quantization, tp/mesh, fault injection (and with it the speculative
+dispatch's fallback to a plain chunk: a failed capture or replay raises),
+SLO scheduling, ledgers, tracing and profiling.
 """
 
 from __future__ import annotations
@@ -77,13 +91,15 @@ import numpy as np
 import torch
 
 from neuronx_distributed_tpu_torch.inference.generate import (
-    ChunkedDecode,
     GenerationConfig,
+    decode_chunk,
     pack_padded_prompt,
     serving_clones,
     suffix_prefill_step,
     validate_generate_args,
 )
+from neuronx_distributed_tpu_torch.inference.spec_decode import speculative_chunk
+from neuronx_distributed_tpu_torch.inference.speculative import validate_spec_room
 from neuronx_distributed_tpu_torch.inference.utils import unwrap_logits
 from neuronx_distributed_tpu_torch.modules.attention import (
     extract_cache_prefix,
@@ -169,7 +185,12 @@ def _prefix_bucket(p: int, max_seq_len: int) -> int:
 class ServingEngine:
     """Slot-based continuous batching over a causal LM whose weights live on
     its device (``model.device``); every tensor the engine makes lives there
-    too."""
+    too. ``draft_model`` (a causal LM on the same device, with the target's
+    vocabulary and ``max_seq_len``) turns decode into speculative rounds of
+    ``gamma`` draft tokens; the port's modules carry their own weights, so
+    there is no ``draft_params`` (the draft of
+    :func:`~neuronx_distributed_tpu_torch.models.llama.early_exit_draft`
+    shares the target's tensors)."""
 
     def __init__(
         self,
@@ -183,6 +204,8 @@ class ServingEngine:
         kv_page_size: Optional[int] = None,
         kv_num_pages: Optional[int] = None,
         prefix_cache="auto",
+        draft_model=None,
+        gamma: int = 4,
     ):
         if admission not in ("conservative", "eager"):
             raise ValueError(f"unknown admission policy {admission!r}")
@@ -193,10 +216,29 @@ class ServingEngine:
             raise ValueError(f"unknown scheduling policy {scheduling!r} (this port has 'fifo')")
         if decode_chunk_size < 1:
             raise ValueError(f"decode_chunk_size must be >= 1, got {decode_chunk_size}")
+        if draft_model is not None:
+            if gamma < 1:
+                raise ValueError(f"gamma must be >= 1, got {gamma}")
+            d_cfg, t_cfg = draft_model.config, model.config
+            if d_cfg.max_seq_len != t_cfg.max_seq_len:
+                raise ValueError(f"draft_model.config.max_seq_len ({d_cfg.max_seq_len}) must equal "
+                                 f"the target's ({t_cfg.max_seq_len}): both caches share the "
+                                 "slot row length")
+            if d_cfg.vocab_size != t_cfg.vocab_size:
+                raise ValueError(f"draft and target models must share a vocabulary "
+                                 f"({d_cfg.vocab_size} != {t_cfg.vocab_size})")
+            if draft_model.device != model.device:
+                raise ValueError(f"draft_model lives on {draft_model.device}, the target on "
+                                 f"{model.device}")
         self.model = model
         self.device = model.device
         self.num_slots = num_slots
         self.max_seq_len = model.config.max_seq_len
+        self.draft_model = draft_model
+        # columns one decode iteration consumes (JAX ``_round_cols``): gamma
+        # a speculative round, 1 a plain step; the unit of every cursor and
+        # page computation
+        self.gamma = gamma if draft_model is not None else 1
         self.admission = admission
         self.decode_chunk_size = decode_chunk_size
         self.max_queue = max_queue
@@ -233,9 +275,35 @@ class ServingEngine:
         self._next_rid = 0
         self._state = {name: torch.full((num_slots,), v, dtype=dt, device=self.device)
                        for name, (dt, v) in _SLOT_DEFAULTS.items()}
-        self._decode_chunk = ChunkedDecode(self._decode_model, decode_chunk_size,
-                                           self.max_seq_len, self.cache.cache, self._state)
+        # the draft twin: its own cache, slot for slot the target's
+        self.draft_cache = None
+        if draft_model is None:
+            self._chunk = decode_chunk(self._decode_model, decode_chunk_size, self.max_seq_len,
+                                       self.cache.cache, self._state)
+        else:
+            self._draft_prefill_model, draft_decode = serving_clones(draft_model)
+            if kv_page_size is None:
+                self.draft_cache = SlotCacheManager(num_slots, draft_model.new_cache(num_slots))
+            else:
+                self.draft_cache = PagedCacheManager.for_model(draft_model, num_slots,
+                                                               kv_page_size, kv_num_pages)
+            self._chunk = speculative_chunk(
+                self._decode_model, draft_decode, decode_chunk_size, self.gamma,
+                self.max_seq_len, self.cache.cache, self.draft_cache.cache, self._state)
         self.host_reads = 0
+
+    def _reset_caches(self) -> None:
+        """Rewind the cache and the draft twin in lockstep: every slot free,
+        every validity row clear, cursors at column 0."""
+        for mgr in self._managers:
+            mgr.release_all_slots()
+            mgr.reset()
+
+    @property
+    def _managers(self):
+        """The cache managers, the target's first: with a draft model its
+        twin too, admitted, freed, reset and rewound slot for slot."""
+        return (self.cache,) if self.draft_cache is None else (self.cache, self.draft_cache)
 
     def _reset_slot_state(self) -> None:
         """Every slot's device state back to its defaults, IN PLACE: the
@@ -245,16 +313,18 @@ class ServingEngine:
 
     @property
     def decode_program(self):
-        """The engine's decode program (``inference/graphs.DecodeProgram``)."""
-        return self._decode_chunk.program
+        """The engine's decode program (``inference/graphs.DecodeProgram``):
+        the plain step, or with a draft model the speculative round."""
+        return self._chunk.program
 
     @property
     def decode_compilations(self) -> int:
         """Decode programs captured: 1 on the card from the first decode
         chunk on, whatever the churn, preemption or cancellation (the JAX
-        engine's ``decode_compilations``, one jitted chunk per engine); 0
-        on the CPU, where the step runs eagerly and nothing is captured."""
-        return self._decode_chunk.program.captures
+        engine's ``decode_compilations``, one jitted chunk per engine, the
+        ``spec_decode_chunk`` with a draft model); 0 on the CPU, where the
+        step runs eagerly and nothing is captured."""
+        return self.decode_program.captures
 
     def prewarm(self) -> float:
         """Capture the decode program now, on an idle engine, so that no
@@ -265,8 +335,8 @@ class ServingEngine:
         if self._active.any():
             raise ValueError("prewarm captures on an idle engine; slots are active")
         if self.cache.cursor > 0:
-            self.cache.reset()
-        seconds = self._decode_chunk.program.capture()
+            self._reset_caches()
+        seconds = self.decode_program.capture()
         if seconds:
             self.metrics.record_capture(seconds)
         return seconds
@@ -293,6 +363,11 @@ class ServingEngine:
         if config.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         validate_generate_args(self.model, prompt[None], config.max_new_tokens, None)
+        if self.draft_model is not None:
+            # the last round's gamma-token verify window must fit the row even
+            # at context prompt + max_new - 1, or the final token could never
+            # be emitted (preempt and re-admit would livelock)
+            validate_spec_room((self.model,), prompt.size, config.max_new_tokens, self.gamma)
         budget = self.scheduler.max_tokens_in_flight
         if budget is not None and prompt.size + config.max_new_tokens > budget:
             raise ValueError(
@@ -303,7 +378,7 @@ class ServingEngine:
             # the request's worst-case page footprint ALONE (empty engine,
             # cursor rewound) must fit the pool, or no admission round could
             # ever select it: fail at the door, not livelocked at the head
-            rem = config.max_new_tokens
+            rem = config.max_new_tokens + self.gamma - 1
             _, t0 = self._paged_layout(prompt.size, rem, 0)
             span0 = self.cache.page_span(t0 - prompt.size, min(self.max_seq_len, t0 + rem))
             if span0 > self.cache.alloc.capacity:
@@ -350,10 +425,13 @@ class ServingEngine:
         records no autograd graph here."""
         now = time.monotonic()
         self._reap_cancelled(now)
-        if self._active.any() and self.cache.cursor + 1 > self.max_seq_len:
+        # one more decode iteration needs gamma columns; speculation
+        # spends columns faster than tokens (rejected drafts leave gaps), so
+        # its wall can come before the token-based admission projected it
+        if self._active.any() and self.cache.cursor + self.gamma > self.max_seq_len:
             self._preempt_all()
         if not self._active.any() and self.cache.cursor > 0:
-            self.cache.reset()  # drained: the next wave starts at column 0
+            self._reset_caches()  # drained: the next wave starts at column 0
         self._admit(now)
         if self._active.any():
             self._decode()
@@ -379,17 +457,21 @@ class ServingEngine:
         maxrem = max((r.remaining_new_tokens for r in self._slot_req if r is not None),
                      default=0)
 
+        extra = self.gamma - 1  # the last round's window past its token
+
         def fits(req: Request) -> bool:
             nonlocal proj, maxrem
             p = len(req.context_ids)
-            target = max(proj, _bucket(p, self.max_seq_len, req.remaining_new_tokens))
+            target = max(proj, _bucket(p, self.max_seq_len, req.remaining_new_tokens + extra))
             if self.admission == "conservative":
                 # every slot steps together: the cursor ends at the admission
                 # cursor plus the LONGEST remaining generation in flight
-                if target + max(maxrem, req.remaining_new_tokens) > self.max_seq_len:
+                # (speculation is token-optimistic here: a column costs a
+                # token only when accepted, and the wall recovers the rest)
+                if target + max(maxrem, req.remaining_new_tokens) + extra > self.max_seq_len:
                     return False
-            elif target + 1 > self.max_seq_len:
-                return False  # eager: the prefill plus one decode step
+            elif target + self.gamma > self.max_seq_len:
+                return False  # eager: the prefill plus one decode iteration
             proj = target
             maxrem = max(maxrem, req.remaining_new_tokens)
             return True
@@ -405,7 +487,13 @@ class ServingEngine:
 
         for req in self.scheduler.select(self.cache.free_slots, self._in_flight_tokens(),
                                          fits, prefill_cost=cost):
-            self._prefill_into_slot(req, self.cache.acquire(), now)
+            slot = self.cache.acquire()
+            if self.draft_cache is not None and self.draft_cache.acquire() != slot:
+                # the twin's free list mirrors the target's: a divergence would
+                # land one request's draft KV under another slot's bookkeeping
+                raise RuntimeError(f"the draft cache's free slots diverged from the target's "
+                                   f"(slot {slot})")
+            self._prefill_into_slot(req, slot, now)
 
     def _paged_fits(self, maxrem: int):
         """The paged admission predicate for one round (JAX ``fits``,
@@ -424,15 +512,18 @@ class ServingEngine:
         over-committed wave after every page-pressure preemption and
         livelock; this count backs the next chunk, so every round makes
         progress."""
-        cache, L = self.cache, self.max_seq_len
+        cache, L, extra = self.cache, self.max_seq_len, self.gamma - 1
         cursor0, starts = cache.cursor, cache.active_spans()
         in_flight = np.flatnonzero(self._active)
         selected = []  # (context length, remaining tokens), queue order
+        # the draft twin's pool maps the same columns without sharing prefix
+        # pages: eager admission must fit both pools
+        pools = self._managers
 
         def layout(reqs):
             cur, ctx = cursor0, []
             for p, rem in sorted(reqs, key=lambda r: r[0], reverse=True):
-                target = self._paged_layout(p, rem, cur)[1]
+                target = self._paged_layout(p, rem + extra, cur)[1]
                 ctx.append((target - p, p))
                 cur = target
             return ctx, cur
@@ -443,19 +534,22 @@ class ServingEngine:
             ctx, target = layout(selected + [(p, rem)])
             most = max(maxrem, rem)
             if self.admission == "conservative":
-                t_end = target + most
+                # shared pages counted once a slot: this bounds the draft's
+                # unshared pool too
+                t_end = target + most + extra
                 if t_end > L or (sum(cache.page_span(s, t_end) for s in starts)
                                  + sum(cache.page_span(st, t_end) for st, _ in ctx)
                                  > cache.alloc.capacity):
                     return False
             else:
-                if target + 1 > L:
+                if target + self.gamma > L:
                     return False
-                hi = min(L, target + min(self.decode_chunk_size, max(most, 1)))
-                need = (sum(cache.unmapped_pages(int(s), target, hi) for s in in_flight)
-                        + sum(cache.context_pages(st, n, target, hi) for st, n in ctx))
-                if need > cache.available_pages():
-                    return False
+                hi = min(L, target + min(self.decode_chunk_size, max(most, 1)) * self.gamma)
+                for pool in pools:
+                    need = (sum(pool.unmapped_pages(int(s), target, hi) for s in in_flight)
+                            + sum(pool.context_pages(st, n, target, hi) for st, n in ctx))
+                    if need > pool.available_pages():
+                        return False
             selected.append((p, rem))
             maxrem = most
             return True
@@ -483,15 +577,18 @@ class ServingEngine:
         ctx = req.context_ids
         p = len(ctx)
         t0 = time.monotonic()
+        rem = req.remaining_new_tokens + self.gamma - 1
         if self._page_size is None:
-            padded = _bucket(p, self.max_seq_len, req.remaining_new_tokens)
+            padded = _bucket(p, self.max_seq_len, rem)
             target = max(self.cache.cursor, padded)
         else:
-            padded, target = self._paged_layout(p, req.remaining_new_tokens, self.cache.cursor)
+            padded, target = self._paged_layout(p, rem, self.cache.cursor)
         plan = self._plan_prefix_reuse(ctx, p, target)
         try:
             if self._page_size is None:
                 row = self.cache.admit(slot, padded, cursor=target)
+                if self.draft_cache is not None:
+                    d_row = self.draft_cache.admit(slot, padded, cursor=target)
                 m_shared = 0
             else:
                 m_shared = plan[1] if plan is not None else 0
@@ -499,10 +596,15 @@ class ServingEngine:
                 try:
                     row = self.cache.admit(slot, padded, cursor=target, p=p,
                                            shared_ids=shared, m_shared=m_shared)
+                    if self.draft_cache is not None:
+                        # the draft maps its own pages under the same columns
+                        d_row = self.draft_cache.admit(slot, padded, cursor=target, p=p)
                 except PageExhausted:
                     # page pressure between fits() and the admission: nothing
-                    # is mapped — return the slot, requeue the untouched request
+                    # stays mapped — return the slot, requeue the untouched request
                     self.cache.free(slot)
+                    if self.draft_cache is not None:
+                        self.draft_cache.free(slot)
                     self.scheduler.requeue_front([req])
                     return
             if plan is None:
@@ -523,6 +625,13 @@ class ServingEngine:
                 logits = suffix_prefill_step(
                     self._decode_model, row, torch.from_numpy(ids).to(self.device, torch.int64),
                     p - m_use)
+            if self.draft_cache is not None:
+                # the draft context always full-prefills, on a prefix hit too:
+                # prefix entries hold target KV only
+                ids, mask = pack_padded_prompt(ctx, padded)
+                self._draft_prefill_model(
+                    torch.from_numpy(ids).to(self.device, torch.int64), cache=d_row,
+                    padding_mask=torch.from_numpy(mask).to(self.device), last_only=True)
         finally:
             if plan is not None:
                 self.prefix.release(plan[0])
@@ -681,18 +790,22 @@ class ServingEngine:
     def _chunk_width_cols(self, active) -> int:
         """Columns the next chunk can actually WRITE: a slot freezes when
         its budget runs out, so no more than the largest remaining
-        generation among active slots ever executes. Clamping the page
-        demand to it keeps the window consistent with the admission and
-        door accounting, which size requests by their remaining tokens."""
+        generation among active slots ever executes (steps, or rounds of
+        gamma columns). Clamping the page demand to it keeps the window
+        consistent with the admission and door accounting, which size
+        requests by their remaining tokens."""
         max_rem = max((self._slot_req[s].remaining_new_tokens for s in active
                        if self._slot_req[s] is not None), default=self.decode_chunk_size)
-        return min(self.decode_chunk_size, max(max_rem, 1))
+        return min(self.decode_chunk_size, max(max_rem, 1)) * self.gamma
 
     def _ensure_decode_pages(self) -> bool:
-        """Map pool pages under every active slot's next write window.
-        False = the page-pressure wall."""
+        """Map pool pages under every active slot's next write window, in
+        both caches of a speculative engine (each round's whole
+        gamma-column window is mapped before the chunk). False = the
+        page-pressure wall."""
         active = np.flatnonzero(self._active)
-        return self.cache.ensure_decode_window(active, self._chunk_width_cols(active))
+        width = self._chunk_width_cols(active)
+        return all(mgr.ensure_decode_window(active, width) for mgr in self._managers)
 
     def _decode(self) -> None:
         if self._page_size is not None and not self._ensure_decode_pages():
@@ -703,43 +816,54 @@ class ServingEngine:
             return
         if self._page_size is not None:
             self.metrics.record_pages_mapped(self.cache.pages_mapped)
-        self._decode_plain()
-
-    def _decode_plain(self) -> None:
-        """One fused decode chunk through the decode program (captured at
-        the first chunk on the card), then ONE host read of the token
-        block. A capture's wall is recorded apart from the dispatch wall."""
+        # one fused chunk (JAX ``_decode_plain``, or with a draft model
+        # ``_decode_spec``, ``engine.py:3204``): ``decode_chunk_size``
+        # iterations of the decode program (captured at the first chunk on
+        # the card), plain steps or draft-verify rounds, then ONE host read of
+        # the token block with each iteration's emitted counts (and a round's
+        # accepted lengths); a capture's wall is recorded apart
+        chunk, g = self._chunk, self.gamma
         active_at_dispatch = int(self._active.sum())
         start = self.cache.cursor
-        prog = self._decode_chunk.program
+        prog = chunk.program
         captured, replays = prog.captures, prog.replays
         t0 = time.monotonic()
-        toks, counts, executed = self._decode_chunk()
+        executed = chunk()
         t1 = time.monotonic()
         capture_s = prog.capture_s if prog.captures > captured else 0.0
         if capture_s:
             self.metrics.record_capture(capture_s)
-        block = self._host_read(torch.cat([toks, counts[None]], dim=0))
+        block = self._host_read(chunk.readout())
         t2 = time.monotonic()
-        toks, counts = block[:-1], block[-1]
-        # steps that ran with at least one live slot; the rest were no-ops,
-        # so the cursor lands where the JAX chunk's lax.cond leaves it
-        used = int(counts.max())
-        self.cache.update_after_decode(start, used)
+        toks, counts = block[..., :g], block[..., g]
+        accepts = block[..., g + 1] if chunk.accepts is not None else None
+        # iterations that ran with at least one live slot; the rest were
+        # no-ops, so the cursors land where the JAX chunk's lax.cond leaves them
+        used = int((counts.sum(1) > 0).sum())
+        for mgr in self._managers:
+            mgr.update_after_decode(start, used * g)
         now = time.monotonic()
-        delivered = 0
+        delivered, spec_accepts = 0, None if accepts is None else []
         for slot in np.flatnonzero(self._active):
             req = self._slot_req[slot]
-            for tok in toks[: int(counts[slot]), slot]:
-                self._emit_token(req, int(tok), now)
-                delivered += 1
-                self._maybe_finish(req, now)
+            # the slot's live iterations: those in which it emitted (a live
+            # slot emits at least one token each)
+            live = np.flatnonzero(counts[:, slot])
+            if accepts is not None:
+                spec_accepts.extend(int(a) for a in accepts[live, slot])
+            for r in live:
+                for tok in toks[r, slot, :counts[r, slot]]:
+                    self._emit_token(req, int(tok), now)
+                    delivered += 1
+                    self._maybe_finish(req, now)
+                    if req.finished:
+                        break  # EOS or budget: the rest of its block is discarded
                 if req.finished:
-                    break  # EOS or budget: the rest of its block is discarded
+                    break
         self.metrics.record_decode_chunk(delivered, used, executed, self.cache.cursor,
                                          active_at_dispatch, dispatch_s=t1 - t0 - capture_s,
-                                         readback_s=t2 - t1,
-                                         replays=prog.replays - replays)
+                                         readback_s=t2 - t1, replays=prog.replays - replays,
+                                         spec_accepts=spec_accepts, gamma=g)
 
     # --- lifecycle ----------------------------------------------------------
 
@@ -766,7 +890,8 @@ class ServingEngine:
         self._slot_req[slot] = None
         self._active[slot] = False
         self._state["active"][slot] = False
-        self.cache.free(slot)
+        for mgr in self._managers:
+            mgr.free(slot)
 
     def _reap_cancelled(self, now: float) -> None:
         for req in self._slot_req:
@@ -786,8 +911,7 @@ class ServingEngine:
             self.metrics.record_preemption()
         self._active[:] = False
         self.scheduler.requeue_front(preempted)
-        self.cache.release_all_slots()
-        self.cache.reset()
+        self._reset_caches()
         self._reset_slot_state()
         if self.prefix is not None:
             # no suffix prefill survives a preemption, so no pin may either;

@@ -3,9 +3,11 @@
 records): TTFT, queue wait, decode tokens/s, chunk counts, slot
 occupancy (mean and peak), for a paged engine the peak of pages mapped, the
 decode program's captures, capture wall and graph replays, the prefix
-cache's counters (JAX ``metrics.py:85-93``, ``:494-524``) and the prefill
-wall by kind (``"full"`` or ``"suffix"``), as plain host numbers in
-``snapshot()`` (the JAX snapshot's key names, plus ``peak_occupancy``,
+cache's counters (JAX ``metrics.py:85-93``, ``:494-524``), the prefill
+wall by kind (``"full"`` or ``"suffix"``) and the speculative acceptance
+statistics (``observability/spec_stats.py``, JAX ``metrics.py:590-622``,
+all zero without a draft model), as plain host numbers in ``snapshot()``
+(the JAX snapshot's key names, plus ``peak_occupancy``,
 ``peak_pages_mapped``, ``decode_captures``, ``capture_s`` and
 ``graph_replays``). Recording costs no device read: every sample is a host
 scalar the engine already holds."""
@@ -15,6 +17,8 @@ from __future__ import annotations
 from typing import Dict, List
 
 import numpy as np
+
+from neuronx_distributed_tpu_torch.observability.spec_stats import SpecStats
 
 
 def _mean(xs: List[float]) -> float:
@@ -41,6 +45,7 @@ class ServingMetrics:
         self.prefill_walls_by_kind: Dict[str, List[float]] = {"full": [], "suffix": []}
         self.prefix_hits = self.prefix_misses = self.prefix_tokens_reused = 0
         self.prefix_evictions = self.prefix_validation_failures = self.prefix_pages_shared = 0
+        self.spec = SpecStats()
 
     def record_submit(self, req, now: float) -> None:
         self._requests[req.rid] = {
@@ -115,14 +120,18 @@ class ServingMetrics:
 
     def record_decode_chunk(self, tokens: int, steps: int, executed: int, cursor: int,
                             active_slots: int, dispatch_s: float = 0.0,
-                            readback_s: float = 0.0, replays: int = 0) -> None:
+                            readback_s: float = 0.0, replays: int = 0,
+                            spec_accepts=None, gamma: int = 0) -> None:
         """One decode chunk: ``tokens`` delivered across ``steps`` used
         steps (those with a live slot, the JAX count) by ``active_slots``
         slots held at dispatch; ``executed`` counts the model steps that ran,
         the masked no-ops after every slot froze included; ``dispatch_s``/
         ``readback_s`` split its wall time around the one host read (a
         capture's wall is recorded apart, :meth:`record_capture`);
-        ``replays`` counts the decode-program replays among its steps."""
+        ``replays`` counts the decode-program replays among its steps.
+        A speculative chunk (``steps``/``executed`` count ROUNDS) also passes
+        ``spec_accepts``, one accepted draft length per (live round, slot),
+        and ``gamma``: they feed :attr:`spec`."""
         self.chunks += 1
         self.steps += steps
         self.executed_steps += executed
@@ -133,6 +142,8 @@ class ServingMetrics:
         self.decode_dispatch_s += dispatch_s
         self.decode_readback_s += readback_s
         self.graph_replays += replays
+        for a in spec_accepts or ():
+            self.spec.record_round(a, gamma)
 
     def record_capture(self, seconds: float) -> None:
         """A decode-program capture and its wall (warm-up included), kept
@@ -197,4 +208,5 @@ class ServingMetrics:
             "mean_queue_wait": _mean(waits),
             "mean_latency": _mean([r["latency"] for r in done]),
             "mean_decode_tokens_per_sec": _mean([r["decode_tokens_per_sec"] for r in done]),
+            **self.spec.snapshot(),
         }

@@ -15,6 +15,9 @@ seed and token index only — never on its slot, its batch or the chunking —
 which keeps the JAX invariant that a request served through the engine
 samples exactly the stream of its solo ``generate()`` (on the same device:
 the float ``log`` of the last step may round differently on CPU and GPU).
+The solo speculative-sampling rule (:func:`speculative_accept`) draws its
+proposals, acceptance uniforms and resamples from the same hash, each a
+stream of its own draw kind.
 """
 
 from __future__ import annotations
@@ -42,22 +45,45 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def gumbel_noise(seeds: torch.Tensor, index: Union[int, torch.Tensor],
-                 vocab: int) -> torch.Tensor:
-    """Standard Gumbel noise ``(B, vocab)`` float32 for rows with request
-    ``seeds`` (B,) at token ``index`` (int or (B,)). Integer hashing only,
-    so every device computes the same bits up to the final ``log``."""
+# draw kinds: the token sampler's own Gumbel noise (kind 0, the plain
+# stream) and the speculative-sampling draws, each an independent stream of
+# the same (seed, token index)
+DRAW_TOKEN, DRAW_DRAFT, DRAW_ACCEPT, DRAW_RESIDUAL = 0, 1, 2, 3
+
+
+def _row_hash(seeds: torch.Tensor, index: Union[int, torch.Tensor], kind: int) -> torch.Tensor:
+    """(B,) uint32 hash of each row's ``(seed, index, kind)``; kind 0 adds
+    nothing, so the token sampler's bits predate the other kinds."""
     seeds = seeds.to(torch.int64)
     index = torch.as_tensor(index, dtype=torch.int64, device=seeds.device)
     index = index.expand_as(seeds)
     h = _mix32((seeds & _M32) ^ 0x9E3779B9)
     h = _mix32(h ^ ((seeds >> 32) & _M32))
     h = _mix32(h ^ (index & _M32))
-    cols = torch.arange(vocab, dtype=torch.int64, device=seeds.device)
+    return _mix32(h ^ (0x85EBCA77 * kind & _M32)) if kind else h
+
+
+def _unit(x: torch.Tensor) -> torch.Tensor:
+    """24 random bits of uint32 ``x`` → u in (0, 1), exclusive at both ends."""
+    return ((x >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def gumbel_noise(seeds: torch.Tensor, index: Union[int, torch.Tensor],
+                 vocab: int, kind: int = DRAW_TOKEN) -> torch.Tensor:
+    """Standard Gumbel noise ``(B, vocab)`` float32 for rows with request
+    ``seeds`` (B,) at token ``index`` (int or (B,)), of draw ``kind``.
+    Integer hashing only, so every device computes the same bits up to the
+    final ``log``."""
+    h = _row_hash(seeds, index, kind)
+    cols = torch.arange(vocab, dtype=torch.int64, device=h.device)
     x = _mix32(_mix32(h[:, None] ^ cols[None, :]) ^ 0x6A09E667)
-    # 24 random bits → u in (0, 1), exclusive at both ends
-    u = ((x >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
+    return -torch.log(-torch.log(_unit(x)))
+
+
+def uniform(seeds: torch.Tensor, index: Union[int, torch.Tensor], kind: int) -> torch.Tensor:
+    """One uniform draw in (0, 1) per row (B,) float32 of ``(seeds, index,
+    kind)``: the counter-based twin of ``jax.random.uniform``."""
+    return _unit(_mix32(_row_hash(seeds, index, kind) ^ 0x6A09E667))
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
@@ -161,3 +187,49 @@ def sample_row(
         torch.tensor([top_k], dtype=torch.int64, device=dev),
         torch.tensor([top_p], dtype=torch.float32, device=dev),
     )[0]
+
+
+# --- speculative sampling (solo speculative_generate) -------------------------
+
+def sample_categorical(logits: torch.Tensor, seeds: torch.Tensor,
+                       index: Union[int, torch.Tensor], kind: int) -> torch.Tensor:
+    """One token per row from ``softmax(logits)`` (B, V), Gumbel-max on the
+    draws of ``(seeds, index, kind)`` (``jax.random.categorical``)."""
+    x = logits.to(torch.float32)
+    return torch.argmax(x + gumbel_noise(seeds, index, x.shape[-1], kind), dim=-1)
+
+
+def speculative_accept(t_logits: torch.Tensor, d_logits: torch.Tensor, draft: torch.Tensor,
+                       temperature: float, seeds: torch.Tensor, index: torch.Tensor):
+    """Exact speculative sampling per row (Leviathan et al.; JAX
+    ``speculative.py:170-195``): window position ``j`` accepts draft token
+    ``x = draft[:, j]`` with probability ``min(1, p_t(x) / p_d(x))``, and
+    the first rejection resamples from ``norm(max(0, p_t - p_d))`` there (the
+    target's own distribution where that is empty), so every emitted token is
+    distributed as the target's.
+
+    ``t_logits``/``d_logits`` (B, g, V) are the target's and the draft's
+    logits at the window's positions, ``draft`` (B, g) the proposals, and
+    ``index`` (B,) the stream index of position 0: position ``j`` draws its
+    acceptance uniform at ``index + j`` and the resample at the rejected
+    position's index, each of its own kind. Returns ``(n_acc (B,), corrected
+    (B,))``: the accepted prefix length (g when all are) and the resampled
+    token at position ``min(n_acc, g - 1)``."""
+    b, g, v = t_logits.shape
+    t_probs = torch.softmax(t_logits.to(torch.float32) / temperature, dim=-1)
+    d_probs = torch.softmax(d_logits.to(torch.float32) / temperature, dim=-1)
+    p_t = t_probs.gather(-1, draft[..., None])[..., 0]
+    p_d = d_probs.gather(-1, draft[..., None])[..., 0]
+    pos = index[:, None] + torch.arange(g, device=index.device)[None]
+    u = uniform(seeds[:, None].expand(b, g).reshape(-1), pos.reshape(-1),
+                DRAW_ACCEPT).reshape(b, g)
+    accepted = u < torch.clamp(p_t / torch.clamp(p_d, min=1e-20), max=1.0)
+    n_acc = accepted.to(torch.int64).cumprod(dim=1).sum(dim=1)
+    rej = torch.clamp(n_acc, max=g - 1)
+    at = rej[:, None, None].expand(b, 1, v)
+    t_rej, d_rej = t_probs.gather(1, at)[:, 0], d_probs.gather(1, at)[:, 0]
+    residual = torch.clamp(t_rej - d_rej, min=0.0)
+    residual = torch.where(residual.sum(-1, keepdim=True) > 0, residual, t_rej)
+    corrected = sample_categorical(torch.log(residual + 1e-30), seeds, index + rej,
+                                   DRAW_RESIDUAL)
+    return n_acc, corrected

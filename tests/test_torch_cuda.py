@@ -671,6 +671,71 @@ def test_prewarm_captures_on_an_idle_engine(cuda):
     assert streams[0] == streams[1]
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_spec_engine_rounds_through_one_captured_graph(cuda, monkeypatch, paged):
+    """A speculative engine (an early-exit draft of the target's first
+    layer, gamma 4) decodes through one CUDA graph of its draft-verify
+    round, captured at the first chunk and replayed for every executed
+    round across an eager preemption: one replay launches the draft's 1 x 4
+    and the target's 2 decode kernels (K4, or K5 on the paged engine, and
+    never the other); its streams equal the same engine's with the eager
+    round patched in. (Not the spec-off engine's: the verify forward's
+    GEMMs have another M than the plain step's, and cuBLAS may round them
+    otherwise; the CPU tests hold that identity.)"""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.inference.graphs import DecodeProgram
+    from neuronx_distributed_tpu_torch.models.llama import (
+        LlamaConfig,
+        LlamaForCausalLM,
+        early_exit_draft,
+        init_params,
+    )
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512)
+    target, draft = early_exit_draft(init_params(LlamaForCausalLM(cfg), seed=0), 1, 0.3)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 1000, size=n) for n in (120, 40, 160)]
+    gcfgs = [GenerationConfig(300, temperature=0.0), GenerationConfig(40, temperature=0.8,
+                                                                      top_k=20),
+             GenerationConfig(100, temperature=0.0)]
+    kw = dict(kv_page_size=16) if paged else {}
+    wrapper = tfd.paged_flash_decode_fwd if paged else tfd.flash_decode_fwd
+    other = tfd.flash_decode_fwd if paged else tfd.paged_flash_decode_fwd
+    name = "paged_flash_decode" if paged else "flash_decode"
+    streams = []
+    for eager in (False, True):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(DecodeProgram, "__call__", lambda self: self.step())
+            engine = ServingEngine(target, num_slots=2, decode_chunk_size=8, admission="eager",
+                                   prefix_cache=None, draft_model=draft, gamma=4, **kw)
+            reqs = [engine.submit(p, g, seed=i) for i, (p, g) in enumerate(zip(prompts, gcfgs))]
+            n0, o0, mr0 = wrapper.launches, other.launches, wrapper.multi_row_launches
+            engine.run()
+        snap = engine.metrics.snapshot()
+        assert snap["preemptions"] > 0 and all(r.state.name == "DONE" for r in reqs)
+        assert [len(r.tokens) for r in reqs] == [g.max_new_tokens for g in gcfgs]
+        assert other.launches == o0 and wrapper.multi_row_launches == mr0
+        prog = engine.decode_program
+        if eager:
+            assert engine.decode_compilations == 0 and prog.replays == 0
+            assert wrapper.launches - n0 == snap["executed_steps"] * (4 + 2)
+        else:
+            assert engine.decode_compilations == 1 == snap["decode_captures"]
+            assert prog.replays == snap["executed_steps"] == snap["graph_replays"]
+            assert prog.launches_per_replay == {name: 1 * 4 + 2}
+            assert wrapper.launches - n0 == 4 + 2  # the capture's warm-up
+            assert snap["spec_rounds"] > 0 and 0.0 < snap["spec_accept_rate"] < 1.0
+        if paged:
+            engine.cache.check()
+            engine.draft_cache.check()
+        streams.append([r.tokens for r in reqs])
+    assert streams[0] == streams[1]
+
+
 def _bwd_case(gen, b, s, h, hkv, seg, causal, strided=False):
     """Inputs of K2/K3; ``strided`` makes q and dout slices of a wider
     (B, S, H + 2, D) tensor, so their row stride is not H * D."""

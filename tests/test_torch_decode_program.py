@@ -109,11 +109,11 @@ def test_device_cursor_equals_host_mirror_after_every_step(pair, layout):
 
 def _step_buffers(engine):
     """data_ptr of every tensor the decode step reads or writes."""
-    cache, chunk = engine.cache.cache, engine._decode_chunk
+    cache, chunk = engine.cache.cache, engine._chunk
     ptrs = {f"state.{n}": t.data_ptr() for n, t in engine._state.items()}
     ptrs.update(k=cache.k.data_ptr(), v=cache.v.data_ptr(), valid=cache.valid.data_ptr(),
                 cursor=cache.cursor.data_ptr(), step=chunk.step.data_ptr(),
-                toks=chunk.toks.data_ptr(), emits=chunk.emits.data_ptr())
+                toks=chunk.toks.data_ptr(), emits=chunk.counts.data_ptr())
     if hasattr(cache, "block_table"):
         ptrs["block_table"] = cache.block_table.data_ptr()
     return ptrs
@@ -179,7 +179,7 @@ def test_decode_chunk_reads_nothing_from_the_device(pair, layout, monkeypatch):
     def guarded(self):
         with no_host_reads():
             out = real(self)
-        chunks.append(out[2])
+        chunks.append(out)
         return out
 
     monkeypatch.setattr(ChunkedDecode, "__call__", guarded)
@@ -229,7 +229,7 @@ def test_streams_at_the_cache_end_match_jax_engine_and_solo_generate(
 
     def counting(self):
         out = real(self)
-        executed.append((self.cache.index, out[2]))
+        executed.append((self.caches[0].index, out))
         return out
 
     monkeypatch.setattr(ChunkedDecode, "__call__", counting)
@@ -255,14 +255,14 @@ def test_capture_warmup_leaves_no_trace(pair, layout, monkeypatch):
     runs = []
 
     def warm_then_step(self):
-        chunk = engine._decode_chunk
-        cache, state = chunk.cache, chunk.state
+        chunk = engine._chunk
+        (cache,), state = chunk.caches, chunk.state
         before = ({n: t.clone() for n, t in state.items()}, cache.index, int(cache.cursor),
-                  cache.valid.clone(), int(chunk.step), chunk.emits.clone())
+                  cache.valid.clone(), int(chunk.step), chunk.counts.clone())
         self._warmup()
         assert all(torch.equal(t, before[0][n]) for n, t in state.items())
         assert (cache.index, int(cache.cursor), int(chunk.step)) == (before[1], before[2], before[4])
-        assert torch.equal(cache.valid, before[3]) and torch.equal(chunk.emits, before[5])
+        assert torch.equal(cache.valid, before[3]) and torch.equal(chunk.counts, before[5])
         runs.append(1)
         real(self)
 
