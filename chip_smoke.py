@@ -72,6 +72,23 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    launches 4 + 32 decode kernels and no multi-row one, every admission
    K1 33 times, and every emitted greedy token lies within phase 3's
    limit of its row's maximum logit in a teacher-forced target pass;
+5e. Medusa tree decoding: phase 4's base (shared, not copied) with four
+   bf16 Medusa heads from a seed, the default tree (8 nodes, depth 3), top_k
+   10: ``medusa_generate`` with random heads at B = 1 (a 256-token prompt,
+   128 new tokens); the base's greedy ``generate`` of 256 tokens after that
+   prompt; 30 steps of head training on those 512 tokens (fp32 master
+   heads, the backbone frozen, AdamW at weight decay 0, peak memory under
+   72 GiB); the trained heads at B = 1 (the same prompt) and B = 4 (four
+   prompts, the trained one first, 64 new tokens); the B = 1 trained run
+   again with the eager round patched in (tokens and accepted lengths bit
+   for bit) and its first 32 tokens under the profiler (opened after the
+   capture: device time by family, idle share, the heaviest kernels); a
+   round's parts timed as graph replays at B = 1 and 4. Each call
+   captures its round once and replays it every round, each replay K4
+   once a layer and nothing else, the prefill K1 once a layer; at least
+   one trained round at B = 1 emits two tokens or more; every emitted
+   token lies within phase 3's limit of its row's maximum logit in a
+   teacher-forced base pass;
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -1811,6 +1828,308 @@ def spec_phase(model, workload, smi: str) -> dict:
                         "paged_flash_decode": runs[(0.3, "paged")]["verify"]})
 
 
+# --- phase 5e: Medusa tree decoding ----------------------------------------------
+
+MEDUSA_HEADS, MEDUSA_PROMPT, MEDUSA_TRAIN_STEPS, MEDUSA_LR = 4, 256, 30, 1e-3
+
+
+@contextlib.contextmanager
+def profile_after_capture():
+    """A ``torch.profiler`` run that opens right after the Medusa round's
+    capture (the warm-up and the capture stay outside it; the first
+    replay and every later one are inside). Yields the profiler, stopped
+    on exit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuronx_distributed_tpu_torch.inference.graphs import DecodeProgram
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    saved = DecodeProgram.capture
+
+    def capture(self):
+        took = saved(self)
+        prof.start()
+        return took
+
+    DecodeProgram.capture = capture
+    try:
+        yield prof
+    finally:
+        DecodeProgram.capture = saved
+        prof.stop()
+
+
+def medusa_run(model, prompts, new: int, eager: bool = False, profiled: bool = False) -> dict:
+    """One ``medusa_generate`` call of ``model`` (a MedusaForCausalLM over
+    the full-width base) on ``prompts`` (B, S) int64 for ``new`` tokens,
+    with every kernel's launch count zeroed just before and read just
+    after: the round one CUDA graph (``eager``: the eager round patched in,
+    the witness), captured once and replayed every round, each replay K4
+    once a layer and nothing else; the prefill K1 once a layer; no
+    multi-row launch. ``profiled`` opens the profiler after the capture.
+    The round walls are the host clock between two rounds' reads (each
+    read waits for its round), from the second round on."""
+    from neuronx_distributed_tpu_torch.inference.medusa import MedusaStats, medusa_generate
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import flash_decode_fwd
+
+    layers = model.config.num_layers
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    flash_decode_fwd.multi_row_launches = 0
+    stats = MedusaStats()
+    with contextlib.ExitStack() as stack:
+        if eager:
+            stack.enter_context(eager_decode_step())
+        prof = stack.enter_context(profile_after_capture()) if profiled else None
+        t0 = time.perf_counter()
+        toks, acc = medusa_generate(model, prompts, new, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prog, rounds = stats.program, len(stats.emitted)
+    launches = {name: c.launches for name, c in counters.items()}
+    what = f"medusa B={prompts.shape[0]}{' (eager round)' if eager else ''}"
+    want = (0, 0, {}) if eager else (1, rounds, {"flash_decode": layers})
+    if (prog.captures, prog.replays, prog.launches_per_replay) != want:
+        raise AssertionError(f"{what}: captures {prog.captures}, replays {prog.replays}, launches "
+                             f"per replay {prog.launches_per_replay}; want {want} ({rounds} rounds)")
+    k4 = rounds * layers if eager else layers  # eager rounds, or the capture's warm-up
+    got = (launches["flash_attention"], launches["flash_decode"],
+           flash_decode_fwd.multi_row_launches,
+           sum(n for k, n in launches.items() if k not in ("flash_attention", "flash_decode")))
+    if got != (layers, k4, 0, 0):
+        raise AssertionError(f"{what}: launches (K1, K4 through the wrapper, multi-row, other) "
+                             f"{got} != {(layers, k4, 0, 0)}")
+    launches["flash_decode"] += prog.replays * layers
+    if tuple(toks.shape) != (prompts.shape[0], new) or int(toks.min()) < 0 or \
+            int(toks.max()) >= model.config.vocab_size:
+        raise AssertionError(f"{what}: tokens of shape {tuple(toks.shape)} or outside the vocabulary")
+    gaps = [b - a for a, b in zip(stats.round_end_s, stats.round_end_s[1:])]
+    res = dict(tokens=toks.cpu().numpy(), acc=acc, stats=stats, wall_s=wall, rounds=rounds,
+               launches=launches, capture_s=prog.capture_s,
+               round_ms=1e3 * statistics.median(gaps),
+               per_round=statistics.mean(stats.emitted))
+    res["tok_s"] = prompts.shape[0] * res["per_round"] / (res["round_ms"] / 1e3)
+    if profiled:
+        res["fams"] = device_time_by_family(prof, {"flash_attention": "flash_fwd_kernel",
+                                                   "flash_decode": "flash_decode_kernel"})
+        res["records"] = decode_records(prof, paged=False)
+        res["top"] = top_kernels(prof)
+    return res
+
+
+def train_medusa_heads(model, serve, seq) -> dict:
+    """Head training by self-distillation on ``seq`` (1, S): fp32 master
+    heads over ``model``'s frozen bf16 base (shared), from the seed the
+    serving heads ``serve`` were drawn from, MEDUSA_TRAIN_STEPS steps of
+    the port's AdamW at weight decay 0 (optax's adam); the backbone runs
+    under no_grad, the loss head by head. The trained heads are then cast
+    into ``serve``. Returns the loss curve, step walls and peak memory."""
+    from neuronx_distributed_tpu_torch.models.medusa import (
+        MedusaForCausalLM,
+        init_medusa_heads,
+        medusa_head_loss,
+    )
+    from neuronx_distributed_tpu_torch.trainer.trainer import AdamW
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    train = init_medusa_heads(MedusaForCausalLM(model.config, MEDUSA_HEADS, base=model,
+                                                trainable=True), seed=1)
+    heads = train.head_parameters()
+    opt = AdamW(MEDUSA_LR, weight_decay=0.0)
+    state = opt.init(heads)
+    labels = torch.roll(seq, -1, dims=1)
+    losses, walls = [], []
+    for _ in range(MEDUSA_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        loss = medusa_head_loss(train, seq, labels)
+        opt.update(heads, torch.autograd.grad(loss, heads), state)
+        losses.append(float(loss))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    serve.load_state_dict({k: v for k, v in train.state_dict().items() if k.startswith("medusa")},
+                          strict=False)
+    n_params = sum(p.numel() for p in heads)
+    del train, heads, opt, state
+    torch.cuda.empty_cache()
+    return dict(losses=losses, walls=walls, peak_gib=peak, n_params=n_params)
+
+
+def medusa_round_parts(serve, prompts) -> dict:
+    """Device ms of a Medusa round's parts at its shapes after ``prompts``
+    (B, S), each a CUDA-graph replay (``graph_ms``): the W-token window
+    step (32 layers, K4), the LM head and the four heads at one position,
+    the tree verify with its LM head, and the verify's masked attention
+    alone (32 layers). Its launches count nowhere."""
+    from neuronx_distributed_tpu_torch.inference.medusa import DEFAULT_CHOICES, tree_attention_mask
+    from neuronx_distributed_tpu_torch.modules.attention import tree_decode_attention
+    from neuronx_distributed_tpu_torch.utils.medusa import generate_medusa_buffers, medusa_buffers_on
+
+    cfg, b = serve.config, prompts.shape[0]
+    bufs = medusa_buffers_on(generate_medusa_buffers(DEFAULT_CHOICES), "cuda")
+    cache = serve.new_cache(b)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    with torch.no_grad():
+        serve.model(prompts, "prefill", cache)
+        start = cache.cursor.clone()
+        cur = start + 1
+        mask = tree_attention_mask(cur, bufs["attn_mask"],
+                                   torch.arange(cfg.max_seq_len, device="cuda"))
+        h1 = torch.randn(b, 1, cfg.hidden_size, generator=gen, device="cuda").to(cfg.dtype)
+        q = torch.randn(b, 8, cfg.num_heads, cfg.head_dim_, generator=gen,
+                        device="cuda").to(cfg.dtype)
+
+        def step():
+            cache.cursor.copy_(start)
+            serve.model(prompts[:, :4], "decode", cache)
+
+        def heads():
+            serve.lm_head(h1)
+            serve.medusa_logits(h1)
+
+        def verify():
+            cache.cursor.copy_(cur)
+            serve.lm_head(serve.model(prompts[:, :8], "decode", cache,
+                                      positions=cur + bufs["position_ids"], attn_mask=mask))
+
+        def tree_attention():
+            for layer in range(cfg.num_layers):
+                tree_decode_attention(q, cache.k[layer], cache.v[layer], mask, cache.valid)
+
+        parts = {name: graph_ms(fn, 1, replays=10) for name, fn in (
+            ("window step", step), ("heads", heads), ("verify", verify),
+            ("tree attention", tree_attention))}
+    del cache
+    torch.cuda.empty_cache()
+    return parts
+
+
+def medusa_phase(model, smi: str) -> dict:
+    """Phase 5e: Medusa over phase 4's base (shared, not copied) with 4
+    bf16 heads from a seed, DEFAULT_CHOICES, top_k 10: random heads at B =
+    1 (256-token prompt, 128 new tokens); the base's greedy ``generate``
+    of 256 tokens after that prompt; 30 steps of head training on the 512
+    tokens; the trained heads at B = 1 (the same prompt, 128 new) and B =
+    4 (four 256-token prompts, the trained one first, 64 new); the B = 1
+    trained run again with the eager round (bit for bit) and, its first 32
+    tokens, under the profiler. Checked and printed; returns the main runs' launches by
+    wrapper (replays included: random, generate, training, trained B = 1
+    and B = 4)."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig, generate
+    from neuronx_distributed_tpu_torch.models.medusa import MedusaForCausalLM, init_medusa_heads
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    prompts = torch.randint(1, cfg.vocab_size, (4, MEDUSA_PROMPT), generator=gen, device="cuda")
+    serve = init_medusa_heads(MedusaForCausalLM(cfg, MEDUSA_HEADS, base=model), seed=1)
+    runs = {"random": medusa_run(serve, prompts[:1], 128)}
+
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    cont = generate(model, prompts[:1], GenerationConfig(256, temperature=0.0))
+    torch.cuda.synchronize()
+    gen_ms = 1e3 * (time.perf_counter() - t0) / 256
+    seq = torch.cat([prompts[:1], cont], dim=1)
+    tr = train_medusa_heads(model, serve, seq)
+    train_launches = {name: c.launches for name, c in counters.items()}
+    if tr["peak_gib"] >= 72.0:
+        raise AssertionError(f"medusa head training: peak memory {tr['peak_gib']:.2f} GiB >= 72")
+    if not all(math.isfinite(x) for x in tr["losses"]) or tr["losses"][-1] >= tr["losses"][0]:
+        raise AssertionError(f"medusa head training: the loss did not fall: {tr['losses']}")
+
+    runs["trained"] = medusa_run(serve, prompts[:1], 128)
+    runs["trained B=4"] = medusa_run(serve, prompts, 64)
+    wit = medusa_run(serve, prompts[:1], 128, eager=True)
+    # the profiled rerun is the trained run's first 32 tokens (a shorter run
+    # takes the same rounds, fewer of them): the profiler's records of 128
+    # tokens' rounds take a minute to process
+    prof = medusa_run(serve, prompts[:1], 32, profiled=True)
+    main = runs["trained"]
+    for name, r in (("eager round", wit), ("profiled rerun", prof)):
+        n, k = r["tokens"].shape[1], len(r["stats"].accept_lens)
+        if (not np.array_equal(r["tokens"], main["tokens"][:, :n])
+                or r["stats"].accept_lens != main["stats"].accept_lens[:k]):
+            raise AssertionError(f"medusa: the {name}'s tokens or accepted lengths differ from the "
+                                 "captured run's")
+    if max(main["stats"].emitted) < 2:
+        raise AssertionError("medusa with trained heads at B = 1: no round emitted 2 tokens or more")
+    for name, r in runs.items():
+        rows = list(prompts[:len(r["tokens"])].cpu().numpy())
+        cfgs = [GenerationConfig(r["tokens"].shape[1], temperature=0.0)] * len(rows)
+        r["teacher"] = teacher_ratio(model, (rows, cfgs), list(r["tokens"]))
+        if r["teacher"] > 1.0:
+            raise AssertionError(f"medusa {name}: an emitted token lies {r['teacher']:.3g}x phase "
+                                 "3's limit below its row's maximum logit in the teacher-forced "
+                                 "pass")
+    agree = {name: int((torch.as_tensor(runs[name]["tokens"][0]) == cont[0, :128].cpu()).sum())
+             for name in ("random", "trained")}
+
+    log(f"medusa head training ({smi}): {MEDUSA_HEADS} heads, {tr['n_params'] / 1e9:.3f} B "
+        f"params fp32 over the frozen bf16 base, self-distillation on the base's greedy "
+        f"continuation ({MEDUSA_PROMPT} + 256 tokens), AdamW lr {MEDUSA_LR} wd 0, {MEDUSA_TRAIN_STEPS} steps: "
+        f"step wall {statistics.median(tr['walls'][1:]):.4f} s (median), peak mem "
+        f"{tr['peak_gib']:.2f} GiB; losses " + ", ".join(f"{x:.4f}" for x in tr["losses"]))
+    log(f"plain greedy generate ({smi}): 256 tokens at B = 1 after a {MEDUSA_PROMPT}-token "
+        f"prompt, {gen_ms:.2f} ms a token (eager steps, prefill included)")
+    for name, r in (*runs.items(), ("trained, eager round", wit)):
+        sn = r["stats"]
+        log(f"medusa {name} ({smi}): B={len(sn.accept_lens[0])} {r['tokens'].shape[1]} new "
+            f"tokens, {r['rounds']} rounds, {r['round_ms']:.3f} ms a round (median, rounds 2-; "
+            f"{'eager' if r is wit else 'graph replays'}), {r['per_round']:.3f} tokens a round "
+            f"realised, {r['tok_s']:.1f} tokens/s, mean_accepted {r['acc']:.4f}, emitted a round "
+            f"max {max(sn.emitted)}, wall {r['wall_s']:.3f} s (capture {r['capture_s']:.4f} s of "
+            f"it), launches {r['launches']}"
+            + (f", teacher-forced gap {r['teacher']:.3g}x its limit" if "teacher" in r else ""))
+    busy = sum(prof["fams"].values())
+    per_round = busy / prof["rounds"]
+    log(f"device time of medusa trained B=1 (profiler opened after the capture, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in prof["fams"].items())
+        + f"; {per_round:.3f} busy a round against {main['round_ms']:.3f} ms a round unprofiled "
+        f"(idle share {1 - per_round / main['round_ms']:.3f}); K4 kernel records "
+        f"{prof['records']} = 2 x {prof['rounds']} rounds x {cfg.num_layers}")
+    log("heaviest kernels of those rounds (ms a round, launches a round): " + "; ".join(
+        f"{name[:70]} {ms / prof['rounds']:.3f} ({k / prof['rounds']:.0f})"
+        for name, ms, k in prof["top"]))
+    if prof["records"] != 2 * prof["rounds"] * cfg.num_layers:
+        raise AssertionError(f"medusa profiled: {prof['records']} K4 records != 2 x "
+                             f"{prof['rounds']} rounds x {cfg.num_layers}")
+    for p in (prompts[:1], prompts):
+        parts = medusa_round_parts(serve, p)
+        log(f"medusa round parts at B={p.shape[0]} (graph replays, ms): window step "
+            f"{parts['window step']:.3f} (W = 4, K4), LM head + 4 heads at one position "
+            f"{parts['heads']:.3f}, tree verify + LM head {parts['verify']:.3f}, of which the "
+            f"masked attention {parts['tree attention']:.3f} ({cfg.num_layers} layers, 8 nodes x "
+            f"{cfg.max_seq_len} columns)")
+    log(f"medusa: captured and eager rounds bit for bit equal (tokens and accepted lengths), "
+        f"profiled rerun too; B=1 tokens agree with the base's greedy generate (the training "
+        f"text) in {agree['random']} of 128 with random heads, {agree['trained']} with trained "
+        f"ones (reported, not gated: the window step's GEMMs have another M); "
+        f"phase 5e wall {time.perf_counter() - t_phase:.1f} s")
+    del serve
+    torch.cuda.empty_cache()
+    return dict(launches={k: sum(r["launches"][k] for r in runs.values()) + train_launches[k]
+                          for k in train_launches})
+
+
+def top_kernels(prof, n: int = 10) -> list:
+    """The ``n`` CUDA kernels of a profile with the most device time:
+    (name, ms, launches), heaviest first."""
+    agg = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            ms, k = agg.get(e.name, (0.0, 0))
+            agg[e.name] = (ms + e.device_time / 1e3, k + 1)
+    return sorted(((name, ms, k) for name, (ms, k) in agg.items()), key=lambda t: -t[1])[:n]
+
+
 def device_time_by_family(prof, kernels: dict, skip=()) -> dict:
     """Device ms of a profile by family: each of ``kernels`` (family: a
     substring of its CUDA kernel's name; the first that matches wins), GEMMs,
@@ -2280,6 +2599,7 @@ def main() -> int:
 
     pre = prefix_phase(model)
     spec = spec_phase(model, srv["workload"], smi)
+    med = medusa_phase(model, smi)
 
     del model
     torch.cuda.empty_cache()
@@ -2307,9 +2627,10 @@ def main() -> int:
 
     k1_main = k1[1]  # the serving prefill at S=4096
     launches = {name: srv["launches"][name] + fused["launches"][name] + pre["launches"][name]
-                + spec["launches"][name] + tr["launches"][name] for name in tr["launches"]}
+                + spec["launches"][name] + med["launches"][name] + tr["launches"][name]
+                for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
-        f"speculative serving row and paged, training): {launches}; on the multi-row path "
+        f"speculative serving row and paged, Medusa, training): {launches}; on the multi-row path "
         f"(prefix-cache serving): {pre['multi_row']}; the speculative rounds' verify windows "
         f"(s = {SPEC_GAMMA}): {spec['verify']}")
     rows_main = rows[256]  # R = 1024: phase 5c's chat turns

@@ -1,5 +1,5 @@
-"""Carry JAX Llama weights across (no JAX counterpart): the flax param tree,
-as nested dicts of numpy arrays, becomes the port's state dict.
+"""Carry JAX Llama and Medusa weights across (no JAX counterpart): the flax
+param tree, as nested dicts of numpy arrays, becomes the port's state dict.
 
 Flax ``kernel`` leaves are ``(in, out)``; torch ``weight`` is ``(out, in)``.
 Both layer layouts of the JAX model are read: unscanned ``layers_<i>`` and
@@ -61,4 +61,22 @@ def flax_to_torch(params_np, config: LlamaConfig) -> Dict[str, torch.Tensor]:
             else:
                 arr = _leaf(mdl, (f"layers_{i}",) + path)
             sd[f"model.layers.{i}.{name}"] = _tensor(arr, path[-1] == "kernel")
+    return sd
+
+
+def medusa_flax_to_torch(params_np, config: LlamaConfig,
+                         num_medusa_heads: int) -> Dict[str, torch.Tensor]:
+    """State dict for ``MedusaForCausalLM(config, num_medusa_heads)`` from
+    the JAX ``MedusaForCausalLM`` params: the base tree under ``model`` and
+    ``lm_head`` (either layer layout, :func:`flax_to_torch`), then each
+    head's ``medusa_{i}/proj/{kernel,bias}`` and ``medusa_head_{i}/kernel``."""
+    tree = params_np.get("params", params_np)
+    sd = flax_to_torch(tree, config)
+    for i in range(num_medusa_heads):
+        sd[f"medusa_{i}.proj.weight"] = _tensor(_leaf(tree, (f"medusa_{i}", "proj", "kernel")),
+                                                True)
+        sd[f"medusa_{i}.proj.bias"] = _tensor(_leaf(tree, (f"medusa_{i}", "proj", "bias")),
+                                              False)
+        sd[f"medusa_head_{i}.weight"] = _tensor(_leaf(tree, (f"medusa_head_{i}", "kernel")),
+                                                True)
     return sd

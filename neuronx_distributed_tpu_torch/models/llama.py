@@ -117,9 +117,10 @@ class LlamaAttention(nn.Module):
         self.o_proj = RowParallelLinear(cfg.num_heads * d, cfg.hidden_size, use_bias=False, **w)
 
     def forward(self, x, freqs, positions, mode: str, cache: Optional[KVCache],
-                layer: int, q_pos=None, segment_ids=None, padding_mask=None):
+                layer: int, q_pos=None, segment_ids=None, padding_mask=None, attn_mask=None):
         """``positions`` are the RoPE positions; ``q_pos`` (s,) the decode
-        rows' cache columns (decode only)."""
+        rows' query positions and ``attn_mask`` (s, L) a tree mask that
+        replaces their positional one (decode only)."""
         cfg = self.config
         d = cfg.head_dim_
         q, k, v = self.qkv(x)
@@ -131,7 +132,7 @@ class LlamaAttention(nn.Module):
         k = apply_rope(k, freqs, positions)
         if mode == "decode":
             cache.decode_write(layer, k, v)
-            out = cache.attend(layer, q, q_pos)
+            out = cache.attend(layer, q, q_pos, attn_mask)
         else:
             if mode == "prefill":
                 cache.prefill_write(layer, k, v)
@@ -165,14 +166,20 @@ class LlamaDecoderLayer(nn.Module):
         self.mlp = LlamaMLP(cfg, device, trainable)
 
     def forward(self, x, freqs, positions, mode, cache, layer, q_pos=None,
-                segment_ids=None, padding_mask=None):
+                segment_ids=None, padding_mask=None, attn_mask=None):
         x = x + self.attn(self.input_norm(x), freqs, positions, mode, cache,
-                          layer, q_pos, segment_ids, padding_mask)
+                          layer, q_pos, segment_ids, padding_mask, attn_mask)
         return x + self.mlp(self.post_attn_norm(x))
 
 
 class LlamaModel(nn.Module):
-    """Backbone without the LM head."""
+    """Backbone without the LM head; returns the final-normed hidden states
+    (B, S, hidden), which the heads read (the LM head, Medusa's heads).
+
+    In decode mode, explicit ``positions`` (s,) and an ``attn_mask`` (s, L)
+    make a Medusa tree step (JAX ``llama.py:274-287``): RoPE and the query
+    positions follow ``positions``, the mask replaces the positional one,
+    and the K/V still land at the cursor, which advances by s."""
 
     def __init__(self, config: LlamaConfig, device, trainable: bool = False):
         super().__init__()
@@ -190,7 +197,7 @@ class LlamaModel(nn.Module):
         )
 
     def forward(self, input_ids, mode: str = "train", cache: Optional[KVCache] = None,
-                positions=None, segment_ids=None, padding_mask=None):
+                positions=None, segment_ids=None, padding_mask=None, attn_mask=None):
         if mode not in MODES:
             raise ValueError(f"unknown attention mode {mode!r}")
         if mode != "train" and cache is None:
@@ -205,12 +212,13 @@ class LlamaModel(nn.Module):
                 positions = prefill_positions(padding_mask)
             cache.prefill_valid(padding_mask, s)
         elif mode == "decode":
-            q_pos, positions = cache.decode_positions(s)
+            q_pos, positions = cache.decode_positions(s, positions)
             cache.decode_valid(padding_mask, s)
             padding_mask = None  # persisted in the cache; attention reads kv_valid
         remat = self.config.remat and mode == "train" and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            args = (x, self.freqs, positions, mode, cache, i, q_pos, segment_ids, padding_mask)
+            args = (x, self.freqs, positions, mode, cache, i, q_pos, segment_ids, padding_mask,
+                    attn_mask)
             x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
         if mode == "decode":
             # on the device, in place: a decode forward changes no host
@@ -257,12 +265,13 @@ class LlamaForCausalLM(nn.Module):
 
     def forward(self, input_ids, mode: str = "train", cache: Optional[KVCache] = None,
                 positions=None, segment_ids=None, padding_mask=None,
-                last_only: bool = False, head_at: Optional[int] = None):
+                last_only: bool = False, head_at: Optional[int] = None, attn_mask=None):
         """Logits (B, S, V); ``last_only`` computes the head on the last
         position alone (B, 1, V) — all a prefill's next token needs — and
         ``head_at`` on position ``head_at`` alone (a right-padded suffix
-        prefill's last real token)."""
-        x = self.model(input_ids, mode, cache, positions, segment_ids, padding_mask)
+        prefill's last real token). ``attn_mask``: a tree step's mask
+        (:class:`LlamaModel`)."""
+        x = self.model(input_ids, mode, cache, positions, segment_ids, padding_mask, attn_mask)
         if last_only:
             x = x[:, -1:]
         elif head_at is not None:

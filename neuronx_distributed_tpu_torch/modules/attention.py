@@ -211,15 +211,22 @@ class KVCache:
         self.k[layer, :, :s] = k
         self.v[layer, :, :s] = v
 
-    def decode_positions(self, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(slot positions (s,) int32, rope positions (B, s)): slots continue
-        at the device cursor, RoPE continues each row's true sequence. The
-        bound is checked against the host mirror, which the caller keeps."""
+    def decode_positions(self, s: int, positions: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(query positions (s,) int32, rope positions (B, s)): slots continue
+        at the device cursor, RoPE continues each row's true sequence. With
+        explicit ``positions`` (s,) (a Medusa tree step) both follow the
+        caller, as in JAX (``attention.py:234-243``); the writes still land
+        at the cursor. The bound is checked against the host mirror, which
+        the caller keeps."""
         if self.index + s > self.max_seq_len:
             raise ValueError(f"decode step of {s} past the cache end ({self.index} + {s} > "
                              f"{self.max_seq_len})")
         steps = self._cols[:s]
         self._step_cols = self.cursor + steps
+        if positions is not None:
+            pos = positions.reshape(-1)
+            return pos.to(torch.int32), pos.to(torch.int64)[None].expand(self.valid.shape[0], s)
         rope_pos = valid_count_below(self.valid, self.cursor)[:, None] + steps[None]
         return self._step_cols.to(torch.int32), rope_pos
 
@@ -247,10 +254,13 @@ class KVCache:
         decode forward)."""
         self.cursor.add_(s)
 
-    def attend(self, layer: int, q: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
+    def attend(self, layer: int, q: torch.Tensor, q_pos: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Decode attention of q (B, s, H, D) at cache columns ``q_pos``
-        against this layer's rows: K4's wrapper."""
-        return decode_attention(q, self.k[layer], self.v[layer], q_pos, kv_valid=self.valid)
+        against this layer's rows: K4's wrapper, or with a tree ``mask``
+        (s, L) the masked torch-op path (:func:`decode_attention`)."""
+        return decode_attention(q, self.k[layer], self.v[layer], q_pos, kv_valid=self.valid,
+                                mask=mask)
 
 
 class PagedKVCache(KVCache):
@@ -326,8 +336,9 @@ class PagedKVCache(KVCache):
         super().prefill_valid(padding_mask, s)
         self._address(self._cols[:s])
 
-    def decode_positions(self, s: int) -> Tuple[torch.Tensor, torch.Tensor]:
-        pos, rope_pos = super().decode_positions(s)
+    def decode_positions(self, s: int, positions: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        pos, rope_pos = super().decode_positions(s, positions)
         self._address(self._step_cols)
         return pos, rope_pos
 
@@ -340,10 +351,14 @@ class PagedKVCache(KVCache):
 
     prefill_write = decode_write
 
-    def attend(self, layer: int, q: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
+    def attend(self, layer: int, q: torch.Tensor, q_pos: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Decode attention of q (B, s, H, D) at this object's columns
         ``q_pos`` straight from this layer's pools, over the whole logical
-        rows: K5's wrapper."""
+        rows: K5's wrapper. A tree ``mask`` needs a row cache (Medusa
+        decodes solo, on a row cache, in JAX as here)."""
+        if mask is not None:
+            raise ValueError("tree attention (a decode mask) runs on a row KVCache")
         if self.col0:
             q_pos = q_pos + self.col0
         return paged_flash_decode_attention(q, self.k[layer], self.v[layer], self.block_table,
@@ -442,8 +457,57 @@ def seed_cache_prefix(cache: KVCache, prefix: Optional[KVCache], m: int, start: 
     cache.index = start + m
 
 
-def decode_attention(q, k_cache, v_cache, q_pos, kv_valid=None) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, q_pos, kv_valid=None,
+                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Attention of q (B, s, H, D) rows at positions ``q_pos`` (s,) against
     the cache (B, L, Hkv, D), each row masked at its own position and by
-    ``kv_valid`` (B, L). Always the flash-decode kernel's wrapper."""
+    ``kv_valid`` (B, L): the flash-decode kernel's wrapper. ``mask`` (s, L)
+    REPLACES the positional mask (a Medusa tree step: each node attends the
+    prefix and its ancestors) and runs :func:`tree_decode_attention`, as
+    JAX keeps its einsum for tree steps (``modules/attention.py:738``)."""
+    if mask is not None:
+        return tree_decode_attention(q, k_cache, v_cache, mask, kv_valid)
     return flash_decode_attention(q, k_cache, v_cache, q_pos, kv_valid)
+
+
+def _f32_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` summed in f32. bf16 operands on the card multiply
+    on the tensor cores with an f32 result (each product of two bf16 values
+    is exact in f32, so this is the f32 product); anything else in f32."""
+    if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float32), b.to(torch.float32))
+
+
+def tree_decode_attention(q, k_cache, v_cache, mask: torch.Tensor,
+                          kv_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked decode attention in torch ops, f32 inside (the counterpart of
+    the einsum JAX runs for tree steps, ``kernels/ring_attention.py:59
+    _block_attn`` at one block): q (B, s, H, D) against the whole cache (B,
+    L, Hkv, D); ``mask`` (s, L) True where a row may attend, ANDed with
+    ``kv_valid`` (B, L). A row with nothing to attend gives 0.
+
+    Every score of a layer is built at once, (B·Hkv, group·s, L), with the
+    cache read in place at B = 1 (a copy of the (B, Hkv, L, D) layout
+    above). Scores are f32 sums of the q·k products; P stays f32 and, for a
+    bf16 cache, enters P·V as bf16 hi + lo (``P - hi`` rounded again: P to
+    about 2^-17 relative), so both products run on bf16 operands with f32
+    sums (``_f32_bmm``), as the multi-row K4 path does."""
+    b, s, h, d = q.shape
+    length, hkv = k_cache.shape[1], k_cache.shape[2]
+    g = h // hkv
+    qt = q.reshape(b, s, hkv, g, d).permute(0, 2, 3, 1, 4).reshape(b * hkv, g * s, d)
+    kt = k_cache.transpose(1, 2).reshape(b * hkv, length, d)
+    vt = v_cache.transpose(1, 2).reshape(b * hkv, length, d)
+    scores = (_f32_bmm(qt, kt.transpose(1, 2)) / (d ** 0.5)).view(b, hkv, g, s, length)
+    ok = mask[None] if kv_valid is None else mask[None] & kv_valid[:, None]  # (B|1, s, L)
+    scores.masked_fill_(torch.logical_not(ok)[:, None, None], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    p.masked_fill_(torch.logical_not(ok.any(dim=-1))[:, None, None, :, None], 0.0)
+    p = p.view(b * hkv, g * s, length)
+    if vt.dtype == torch.bfloat16:
+        hi = p.to(torch.bfloat16)
+        num = _f32_bmm(hi, vt) + _f32_bmm((p - hi.to(torch.float32)).to(torch.bfloat16), vt)
+    else:
+        num = _f32_bmm(p, vt)
+    return num.view(b, hkv, g, s, d).permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)

@@ -920,3 +920,80 @@ def test_train_step_on_card_goes_through_the_kernels(cuda):
         losses.append(float(m["loss"]))
     assert [f.launches - n for f, n in zip(counters, before)] == [12, 6, 6]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 3])
+def test_tree_decode_attention_on_card(cuda, b):
+    """The Medusa verify's masked attention (torch ops: bf16 products with
+    f32 sums, P as bf16 hi + lo) at the round's shapes (8 nodes, group 4,
+    head_dim 128) against float64 on the same values, at K4's limits."""
+    from neuronx_distributed_tpu_torch.modules.attention import tree_decode_attention
+
+    s, L = 8, 2048
+    q, k, v = _rnd(cuda, b, s, 32, 128), _rnd(cuda, b, L, 8, 128), _rnd(cuda, b, L, 8, 128)
+    mask = torch.rand(s, L, generator=cuda, device="cuda") < 0.7
+    valid = torch.rand(b, L, generator=cuda, device="cuda") < 0.9
+    got = tree_decode_attention(q, k, v, mask, valid)
+    ok = (mask[None] & valid[:, None])[:, None, None]
+    scores = torch.einsum("bshgd,blhd->bhgsl", q.double().reshape(b, s, 8, 4, 128),
+                          k.double()) / 128 ** 0.5
+    p = torch.softmax(scores.masked_fill(~ok, -1e300), dim=-1)
+    want = torch.einsum("bhgsl,blhd->bshgd", p, v.double()).reshape(b, s, 32, 128)
+    pv = torch.einsum("bhgsl,blhd->bshgd", p, v.double().abs()).reshape(b, s, 32, 128)
+    _assert_out_close(got, want, pv, 2.0 ** -12)
+
+
+@pytest.mark.cuda
+def test_medusa_round_is_one_captured_graph(cuda, monkeypatch):
+    """Medusa tree decoding on the card at a small width (head_dim 128,
+    4 heads trained a few steps on the base's own greedy text, so rounds
+    accept chains): the round is captured once and replayed every round,
+    one replay launches K4 once a layer (the tree verify is masked torch
+    ops) and the prefill K1 once a layer; tokens and accepted lengths
+    equal the eager round's bit for bit."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig, generate
+    from neuronx_distributed_tpu_torch.inference.graphs import DecodeProgram
+    from neuronx_distributed_tpu_torch.inference.medusa import MedusaStats, medusa_generate
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.models.medusa import (
+        MedusaForCausalLM,
+        init_medusa_heads,
+        medusa_head_loss,
+    )
+    from neuronx_distributed_tpu_torch.trainer.trainer import AdamW
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512)
+    base = init_params(LlamaForCausalLM(cfg), seed=0)
+    model = init_medusa_heads(MedusaForCausalLM(cfg, 4, base=base, trainable=True), seed=1)
+    ids = np.random.default_rng(2).integers(1, 1000, size=(2, 40))
+    seq = torch.cat([torch.as_tensor(ids, device="cuda"),
+                     generate(base, ids, GenerationConfig(80, temperature=0.0))], dim=1)
+    heads = model.head_parameters()
+    opt = AdamW(1e-3, weight_decay=0.0)
+    state = opt.init(heads)
+    for _ in range(20):
+        loss = medusa_head_loss(model, seq, torch.roll(seq, -1, dims=1))
+        opt.update(heads, torch.autograd.grad(loss, heads), state)
+    runs = []
+    for eager in (False, True):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(DecodeProgram, "__call__", lambda self: self.step())
+            stats = MedusaStats()
+            n1, n4 = tfa.flash_attention_fwd.launches, tfd.flash_decode_fwd.launches
+            toks, acc = medusa_generate(model, ids, 64, stats=stats)
+        prog, rounds = stats.program, len(stats.emitted)
+        assert tfa.flash_attention_fwd.launches - n1 == cfg.num_layers
+        if eager:
+            assert prog.captures == prog.replays == 0
+            assert tfd.flash_decode_fwd.launches - n4 == rounds * cfg.num_layers
+        else:
+            assert prog.captures == 1 and prog.replays == rounds
+            assert prog.launches_per_replay == {"flash_decode": cfg.num_layers}
+            assert tfd.flash_decode_fwd.launches - n4 == cfg.num_layers  # the warm-up
+        assert toks.shape == (2, 64) and 0 <= int(toks.min()) and int(toks.max()) < 1000
+        runs.append((toks.cpu(), stats.accept_lens, acc))
+    assert torch.equal(runs[0][0], runs[1][0]) and runs[0][1:] == runs[1][1:]
+    assert max(max(a) for a in runs[0][1]) >= 1, runs[0][1]

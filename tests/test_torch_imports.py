@@ -68,8 +68,8 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 def test_every_module_imports_and_runs_with_jax_blocked():
     """A fresh interpreter where importing JAX, flax or the JAX package
-    fails: every port module imports, and a tiny CPU model generates and
-    serves."""
+    fails: every port module (the Medusa modules among them) imports, and a
+    tiny CPU model generates, serves and decodes with Medusa heads."""
     script = textwrap.dedent(f"""
         import importlib, sys
         for name in {FORBIDDEN!r}:
@@ -95,6 +95,12 @@ def test_every_module_imports_and_runs_with_jax_blocked():
         paged.run()
         paged.cache.check()
         assert req.tokens == solo, (req.tokens, solo)
+        from neuronx_distributed_tpu_torch.inference.medusa import medusa_generate
+        from neuronx_distributed_tpu_torch.models.medusa import (
+            MedusaForCausalLM, init_medusa_heads)
+        medusa = init_medusa_heads(MedusaForCausalLM(tiny_llama(), 3, base=model), seed=1)
+        toks, _ = medusa_generate(medusa, np.array([[3, 4, 5]]), 5)
+        assert toks[0].tolist() == solo, (toks, solo)
         assert not any(k.split(".")[0] in {FORBIDDEN!r} and sys.modules[k] is not None
                        for k in sys.modules)
         print("ok")
@@ -103,6 +109,8 @@ def test_every_module_imports_and_runs_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
+    assert {"neuronx_distributed_tpu_torch.models.medusa", "neuronx_distributed_tpu_torch.utils.medusa",
+            "neuronx_distributed_tpu_torch.inference.medusa"} <= set(_port_modules())
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):
