@@ -29,6 +29,12 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    serving shapes, K5 through a scrambled table at the paged serving
    geometry; K4 and K5 on their multi-row path at phase 5c's geometry
    (R = 64, 1024 and 2048), K5 bitwise equal to K4 on the gathered view;
+   K5q (int8 pages, a bf16 scale per page and kv-head) at K5's two
+   geometries against its plain version and bitwise equal to K4 on the
+   dequantized gathered view (a dropped tile must fail the limit), timed
+   beside SDPA on that view and the gather-dequantize; DQ (the one-pass
+   weight dequantize) at lm_head's shape, int8 and fp8, bitwise equal to
+   its plain version, timed against its 3-bytes-a-weight bound;
 3. outputs: the full-width model's logits through the kernels, with a row
    cache and with a paged cache behind a scrambled block table, against the
    same model with the plain versions swapped in, on a short prompt;
@@ -89,6 +95,18 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    one trained round at B = 1 emits two tokens or more; every emitted
    token lies within phase 3's limit of its row's maximum logit in a
    teacher-forced base pass;
+5f. quantized serving, at full width and depth: (a) int8 weights behind
+   the row engine, phase 4's requests: weight bytes against bf16, one
+   capture with K4 32 and DQ 225 a replay, the eager-step witness's streams
+   identical, ms a decode-only step, and a 64-token prompt's 16 teacher-
+   forced steps against the bf16 model (max KL at most 5e-3; top-1
+   agreement printed); (b) fp8 weights, the same, KL printed; (c) int8
+   weights and an int8 page pool of phase 5b's bytes behind the paged
+   engine, phase 5b's traffic: K5q 32 a replay and K5 0, the eager-step
+   witness identical, ``check()`` clean, peak occupancy; (d) phase 5c's
+   paged prefix leg on that pool: 11 hits and 1 miss, ``copy_bytes`` 0,
+   pinned pages' codes and scales bitwise unchanged, each hit's suffix
+   prefilled on K4 (multi-row) over a dequantized float row;
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -388,17 +406,19 @@ def k4_inputs(gen, s: int = 1):
     return q, kc, vc, pos, valid
 
 
-def decode_bound(q, valid, pos, bound_cols: int, hkv: int, extra_bytes: int = 0):
+def decode_bound(q, valid, pos, bound_cols: int, hkv: int, extra_bytes: int = 0,
+                 kv_bytes: int = 2):
     """(bound_ms, bound_by, bytes) of K4/K5 on these inputs: every row's
     live pairs (valid columns at or before its position), 4 D FLOPs each
-    per q-head; the bytes of q, the K/V columns live for some row, the
-    validity bytes up to the bound, out and lse, plus ``extra_bytes``
-    (K5's table entries)."""
+    per q-head; the bytes of q, the K/V columns live for some row
+    (``kv_bytes`` an element: 1 for K5q's int8 pages), the validity bytes
+    up to the bound, out and lse, plus ``extra_bytes`` (K5's table
+    entries; K5q's scales)."""
     b, s, h, d = q.shape
     cols = torch.arange(bound_cols, device=q.device)
     live = valid[:, None, :bound_cols] & (cols[None, None] <= pos[None, :, None].long())
     flops = 4.0 * d * h * int(live.sum())
-    nbytes = (2 * q.numel() + 2 * 2 * int(valid[:, :bound_cols].sum()) * hkv * d
+    nbytes = (2 * q.numel() + 2 * kv_bytes * int(valid[:, :bound_cols].sum()) * hkv * d
               + b * bound_cols + 2 * q.numel() + 4 * b * s * h + extra_bytes)
     bound = max(flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES) * 1e3
     return bound, "operations" if flops / PEAK_BF16_FLOPS >= nbytes / PEAK_BYTES else "bytes", nbytes
@@ -592,6 +612,113 @@ def check_k5(gen, shapes: str, timed: bool, s: int = 1):
     qt, kt, vt = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
     res["library_ms"] = graph_ms(lib, 20)
+    return res
+
+
+def check_k5q(gen, shapes: str) -> dict:
+    """K5q at ``k5_shapes(shapes)``: ``k5_inputs``' pools quantized to int8
+    pages with a bf16 scale per (page, kv-head) (``quantize_page_block``;
+    the null page's codes and scales garbage too), against its plain
+    version within K5's limits (a dropped tile must fail them), bitwise
+    equal to K4 on the dequantized gathered view, blind to the null page,
+    the same bits twice; its time (graph replay) beside SDPA on the
+    dequantized gathered view and the gather-dequantize's own time, and its
+    bytes bound (int8 K/V, the table and the scales of live pages)."""
+    from torch.nn import functional as F
+
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+        flash_decode_fwd,
+        paged_flash_decode_fwd,
+        paged_flash_decode_plain_q,
+        paged_gather_leaf_dequant,
+        quantize_page_block,
+    )
+
+    b, n_pages, bound_cols, _ = k5_shapes(shapes)
+    hkv, ps = 8, 16
+    q, kp, vp, bt, pos, valid = k5_inputs(gen, shapes)
+    (kq, ks), (vq, vs) = quantize_page_block(kp), quantize_page_block(vp)
+    del kp, vp
+    run = lambda: paged_flash_decode_fwd(q, kq, vq, bt, pos, valid, ps, ks, vs)  # noqa: E731
+    out, lse = run()
+    again, again_lse = run()
+    kg, vg = paged_gather_leaf_dequant(kq, ks, bt, ps), paged_gather_leaf_dequant(vq, vs, bt, ps)
+    row, row_lse = flash_decode_fwd(q, kg, vg, pos, valid)
+    saved = [t[0].clone() for t in (kq, vq, ks, vs)]
+    kq[0].random_(-127, 128, generator=gen)
+    vq[0].random_(-127, 128, generator=gen)
+    ks[0].normal_(generator=gen).mul_(300.0)
+    vs[0].normal_(generator=gen).mul_(-300.0)
+    other, other_lse = run()
+    for t, x in zip((kq, vq, ks, vs), saved):
+        t[0] = x
+    ref, ref_lse = paged_flash_decode_plain_q(q, kq, vq, ks, vs, bt, pos, valid, ps)
+    pv = paged_flash_decode_plain_q(q, kq, vq.abs(), ks, vs, bt, pos, valid, ps)[0]
+    cut = valid.clone()
+    cut[:, (bound_cols - 1) // 128 * 128:bound_cols] = False
+    fault = paged_flash_decode_plain_q(q, kq, vq, ks, vs, bt, pos, cut, ps)[0]
+    torch.cuda.synchronize()
+    err, lerr = max_err(out, ref), max_err(lse, ref_lse)
+    ratio, fault_ratio = tol_ratio(out, ref, pv, K4_PV), tol_ratio(fault, ref, pv, K4_PV)
+    tag = f"K5q ({shapes} shapes)"
+    if not (ratio <= 1.0 and lerr <= LSE_TOL):
+        raise AssertionError(f"{tag}: max |out err| {err} at {ratio:.3g}x its limit, "
+                             f"|lse err| {lerr} (tol {LSE_TOL})")
+    if fault_ratio <= 1.0:
+        raise AssertionError(f"{tag}: the output limit passes a dropped tile ({fault_ratio:.3g}x)")
+    if not (torch.equal(out, row) and torch.equal(lse, row_lse)):
+        raise AssertionError(f"{tag} differs from K4 on the dequantized gathered view (must be "
+                             "bitwise equal)")
+    if not (torch.equal(out, other) and torch.equal(lse, other_lse)):
+        raise AssertionError(f"{tag}: the output depends on the null page's content")
+    if not (torch.equal(out, again) and torch.equal(lse, again_lse)):
+        raise AssertionError(f"{tag}: two runs differ in their bits")
+    pages_live = int(torch.nn.functional.pad(valid[:, :bound_cols], (0, -bound_cols % ps))
+                     .reshape(b, -1, ps).any(-1).sum())
+    bound, bound_by, nbytes = decode_bound(
+        q, valid, pos, bound_cols, hkv, kv_bytes=1,
+        extra_bytes=4 * b * -(-bound_cols // ps) + 2 * 2 * hkv * pages_live)
+    mask = row_masks(valid, pos)
+    qt, kt, vt = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
+    lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
+    return dict(err=max(err, lerr), ratio=ratio, fault_ratio=fault_ratio, bound_ms=bound,
+                bound_by=bound_by, bytes=nbytes, slots=b, pages=n_pages, bound_cols=bound_cols,
+                ms=graph_ms(run, 20), eager_ms=cuda_ms(run, 50),
+                plain_ms=cuda_ms(lambda: paged_flash_decode_plain_q(
+                    q, kq, vq, ks, vs, bt, pos, valid, ps), 5, warmup=1),
+                gather_ms=cuda_ms(lambda: (paged_gather_leaf_dequant(kq, ks, bt, ps),
+                                           paged_gather_leaf_dequant(vq, vs, bt, ps)), 20),
+                library_ms=graph_ms(lib, 20), live_cols=int(valid[:, :bound_cols].sum()))
+
+
+def check_dq(gen) -> dict:
+    """DQ at lm_head's shape (128256 x 4096): a bf16 weight from ``gen``
+    quantized per output channel to int8 and to fp8 e4m3
+    (``quantize_state_dict``'s rule), DQ bitwise equal to its plain version
+    on both; its time (graph replay) against its bound, 3 bytes a weight
+    (1 read, 2 written), and the plain version's."""
+    from neuronx_distributed_tpu_torch.kernels.dequantize import dequantize_fwd, dequantize_plain
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    from neuronx_distributed_tpu_torch.quantization.utils import direct_cast_quantize
+
+    w = (torch.randn(128256, 4096, generator=gen, device="cuda") * 0.02).to(torch.bfloat16)
+    res = {}
+    for kind in ("int8", "fp8"):
+        q, scale = direct_cast_quantize(w, QuantConfig(weights=kind).weight_qconfig())
+        scale = scale.reshape(-1)
+        got = dequantize_fwd(q, scale, torch.bfloat16)
+        if not torch.equal(got, dequantize_plain(q, scale, torch.bfloat16)):
+            raise AssertionError(f"DQ ({kind}) differs from its plain version (must be bitwise equal)")
+        del got
+        res[kind] = dict(ms=graph_ms(lambda: dequantize_fwd(q, scale, torch.bfloat16), 10),
+                         plain_ms=cuda_ms(lambda: dequantize_plain(q, scale, torch.bfloat16), 5,
+                                          warmup=1),
+                         err=0.0)
+        del q
+        torch.cuda.empty_cache()
+    nbytes = 3 * w.numel() + 4 * w.shape[0]
+    res.update(bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes", bytes=nbytes,
+               shape=tuple(w.shape))
     return res
 
 
@@ -1043,17 +1170,19 @@ def serve(model, gen):
     return serve_workload(model, (prompts, cfgs))
 
 
-def serve_workload(model, workload, eager: bool = False) -> dict:
+def serve_workload(model, workload, eager: bool = False, quantize=None) -> dict:
     """Six requests into 8 slots, chunk 8: all admitted in the first step
     (six prefills, then one decode chunk), then decode-only steps. Every
     kernel's launch count is zeroed just before and read just after.
-    ``eager`` runs the decode step eagerly (the witness)."""
+    ``eager`` runs the decode step eagerly (the witness); ``quantize`` is
+    the engine's (phase 5f: DQ once a linear, 7 x 32 + 1, a forward)."""
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
     from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
 
     prompts, cfgs = workload
     layers = model.config.num_layers
-    engine = ServingEngine(model, num_slots=8, decode_chunk_size=8, prefix_cache=None)
+    engine = ServingEngine(model, num_slots=8, decode_chunk_size=8, prefix_cache=None,
+                           quantize=quantize)
     counters = kernel_counters()
     torch.cuda.synchronize()
     for c in counters.values():
@@ -1076,7 +1205,8 @@ def serve_workload(model, workload, eager: bool = False) -> dict:
             raise AssertionError(f"request {r.rid}: token outside the vocabulary")
     if min(launches["flash_attention"], launches["flash_decode"]) < 1:
         raise AssertionError(f"a kernel of the serving path never launched: {launches}")
-    if launches["paged_flash_decode"] or launches["flash_attention_dkdv"] or launches["flash_attention_dq"]:
+    if (launches["paged_flash_decode"] or launches["flash_attention_dkdv"]
+            or launches["flash_attention_dq"] or launches["qpaged_flash_decode"]):
         raise AssertionError(f"row serving launched a kernel of another path: {launches}")
     snap = engine.metrics.snapshot()
     # executed steps each ran the whole model (and one K4 per layer); used
@@ -1085,9 +1215,17 @@ def serve_workload(model, workload, eager: bool = False) -> dict:
         raise AssertionError(f"K4 launches {launches['flash_decode']} (warm-up "
                              f"{warm['flash_decode']}) != executed steps "
                              f"{snap['executed_steps']} x {layers} layers")
+    # DQ once a linear of every forward: the prefills' and the steps'
+    linears = 7 * layers + 1 if quantize is not None and quantize.weights else 0
+    if (launches["dequantize"] - warm["dequantize"]
+            != (snap["executed_steps"] + snap["prefills"]) * linears):
+        raise AssertionError(f"DQ launches {launches['dequantize']} (warm-up {warm['dequantize']}) "
+                             f"!= (executed steps {snap['executed_steps']} + prefills "
+                             f"{snap['prefills']}) x {linears} linears")
     check_program(engine, "serving", eager)
     prog = decode_program(engine)
-    return dict(wall_s=t2 - t0, admit_s=t1 - t0, decode_s=t2 - t1,
+    weight_bytes = sum(t.numel() * t.element_size() for t in engine.model.state_dict().values())
+    return dict(wall_s=t2 - t0, admit_s=t1 - t0, decode_s=t2 - t1, weight_bytes=weight_bytes,
                 decode_only_executed=snap["executed_steps"] - executed0,
                 decode_only_used=snap["steps"] - steps0, launches=launches, snap=snap,
                 prefills=snap["prefills"], workload=workload,
@@ -1158,7 +1296,7 @@ PAGED_SLOTS, PAGE, ROW_SLOTS = 16, 16, 4
 
 
 def serve_paged(model, workload, attention: str, profiled: bool = False,
-                eager: bool = False) -> dict:
+                eager: bool = False, quantize=None, num_pages=None) -> dict:
     """The paged engine (16 slots, page_size 16, chunk 8, conservative,
     FIFO) over a pool of ROW_SLOTS row slots' bytes plus the null page,
     answering ``workload``; every kernel's launch count is zeroed just
@@ -1168,7 +1306,9 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
     ``eager`` runs the decode step eagerly (the graph's witness).
     ``profiled`` captures the decode program first, then runs under the
     profiler and adds the device time by family and the profiler's count
-    of K5 records (its walls are the profiler's, not the engine's)."""
+    of K5 records (its walls are the profiler's, not the engine's).
+    ``quantize`` and ``num_pages`` are phase 5f's: an int8 pool attends
+    through K5q."""
     from torch.profiler import ProfilerActivity, profile
 
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
@@ -1176,8 +1316,8 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
 
     cfg = model.config
     engine = ServingEngine(model, num_slots=PAGED_SLOTS, decode_chunk_size=8, kv_page_size=PAGE,
-                           kv_num_pages=ROW_SLOTS * cfg.max_seq_len // PAGE + 1,
-                           prefix_cache=None)
+                           kv_num_pages=num_pages or ROW_SLOTS * cfg.max_seq_len // PAGE + 1,
+                           prefix_cache=None, quantize=quantize)
     prompts, cfgs = workload
     counters = kernel_counters()
     torch.cuda.synchronize()
@@ -1209,9 +1349,10 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
         if not all(0 <= t < cfg.vocab_size for t in r.tokens):
             raise AssertionError(f"paged request {r.rid}: token outside the vocabulary")
     snap = engine.metrics.snapshot()
-    want = {"paged_flash_decode": 0, "flash_decode": 0}
-    want["paged_flash_decode" if attention == "fused" else "flash_decode"] = (
-        snap["executed_steps"] * cfg.num_layers)
+    attended = ("flash_decode" if attention == "gather" else "qpaged_flash_decode"
+                if quantize is not None and quantize.kv else "paged_flash_decode")
+    want = {"paged_flash_decode": 0, "flash_decode": 0, "qpaged_flash_decode": 0}
+    want[attended] = snap["executed_steps"] * cfg.num_layers
     got = {k: launches[k] - warm[k] for k in want}
     if got != want:
         raise AssertionError(f"paged ({attention}) decode launches {got} != {want}")
@@ -1226,7 +1367,8 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
     res = dict(tokens=[list(r.tokens) for r in reqs], launches=launches, snap=snap, wall_s=wall,
                decode_s=decode_s, decode_executed=decode_executed,
                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-               pool_gib=engine.cache.nbytes / 2**30,
+               pool_gib=engine.cache.nbytes / 2**30, pool_pages=engine.cache.alloc.num_pages,
+               per_replay=dict(prog.launches_per_replay) if prog is not None else None,
                compilations=getattr(engine, "decode_compilations", None),
                capture_s=capture_s or snap.get("capture_s", 0.0),
                replays=prog.replays if prog is not None else None)
@@ -1237,6 +1379,7 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
                                  f"2 x {snap['executed_steps']} executed steps x "
                                  f"{cfg.num_layers} layers")
         res["fams"] = device_time_by_family(prof, {
+            "qpaged_flash_decode": "qpaged_flash_decode_kernel", "dequantize": "dequantize_kernel",
             "paged_flash_decode": "paged_flash_decode_kernel",
             "flash_attention": "flash_fwd_kernel", "flash_decode": "flash_decode_kernel"})
     del engine
@@ -1279,7 +1422,8 @@ def prefix_warmup(vocab: int):
     return prompts[:5] + prompts[-2:-1], [GenerationConfig(max_new_tokens=4, temperature=0.0)] * 6
 
 
-def serve_prefix(model, workload, paged: bool, prefix, profiled: bool = False) -> dict:
+def serve_prefix(model, workload, paged: bool, prefix, profiled: bool = False,
+                 quantize=None, num_pages=None) -> dict:
     """Phase 5c's workload through the row engine (8 slots, chunk 8,
     conservative) or the paged engine (16 slots, page 16, 2049 pages), with
     ``prefix`` as its ``prefix_cache``: the warm-up wave, the store cleared,
@@ -1288,29 +1432,35 @@ def serve_prefix(model, workload, paged: bool, prefix, profiled: bool = False) -
     pages cloned when pinned and compared at the end, and after
     ``prefix.clear()`` every page but the null page free. ``profiled``: the
     measured wave runs under ``torch.profiler`` with each suffix prefill in
-    a ``SUFFIX_RANGE`` range (the profile is returned as ``prof``)."""
+    a ``SUFFIX_RANGE`` range (the profile is returned as ``prof``).
+    ``quantize`` and ``num_pages`` are phase 5f's: on an int8 pool the
+    steps attend through K5q, a hit's suffix prefill runs on K4 over a
+    dequantized float row, and a pinned page's scales are part of it."""
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
     from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
 
     cfg = model.config
     kw = (dict(num_slots=PAGED_SLOTS, kv_page_size=PAGE,
-               kv_num_pages=ROW_SLOTS * cfg.max_seq_len // PAGE + 1) if paged
+               kv_num_pages=num_pages or ROW_SLOTS * cfg.max_seq_len // PAGE + 1) if paged
           else dict(num_slots=8))
-    engine = ServingEngine(model, decode_chunk_size=8, prefix_cache=prefix, **kw)
+    engine = ServingEngine(model, decode_chunk_size=8, prefix_cache=prefix, quantize=quantize,
+                           **kw)
+    qkv = quantize is not None and quantize.kv is not None
     warm = prefix_warmup(cfg.vocab_size)
     for i, (p, c) in enumerate(zip(*warm)):
         engine.submit(p, c, seed=1000 + i)
     engine.run()
     if engine.prefix is not None:
         engine.prefix.clear()  # the measured wave starts with a cold store
-    pinned = {}  # page: its K and V as the prefill left them, while an entry pins it
+    pinned = {}  # page: its K and V (and scales) as the prefill left them, while pinned
     if paged:
         pin, unpin = engine.cache.pin_pages, engine.cache.unpin_pages
+        c = engine.cache.cache
+        page_leaves = (c.k, c.v) + ((c.k_scale, c.v_scale) if qkv else ())
 
         def cloning(ids):
             for pid in ids:
-                pinned.setdefault(int(pid), (engine.cache.cache.k[:, pid].clone(),
-                                             engine.cache.cache.v[:, pid].clone()))
+                pinned.setdefault(int(pid), tuple(t[:, pid].clone() for t in page_leaves))
             pin(ids)
 
         def dropping(ids):
@@ -1352,8 +1502,12 @@ def serve_prefix(model, workload, paged: bool, prefix, profiled: bool = False) -
         "prefill_suffix_wall_s", "prefill_full_count", "prefill_suffix_count", "prefills",
         "executed_steps")}
     launches = {name: c.launches for name, c in counters.items()}
-    rows = {name: c.multi_row_launches for name, c in counters.items() if name.endswith("decode")}
-    decode = "paged_flash_decode" if paged else "flash_decode"
+    rows = {name: c.multi_row_launches for name, c in counters.items()
+            if hasattr(c, "multi_row_launches")}
+    # the steps' decode kernel, and the suffix prefills' (an int8 pool's hit
+    # prefills its suffix over a float row: K4)
+    decode = "qpaged_flash_decode" if qkv else "paged_flash_decode" if paged else "flash_decode"
+    suffix = "flash_decode" if qkv else decode
     per_replay = prog.launches_per_replay.get(decode, 0) if prog is not None else 0
     # every executed decode step is a replay of the program the warm-up wave
     # captured; the wrappers' own decode launches are the suffix prefills'
@@ -1361,26 +1515,28 @@ def serve_prefix(model, workload, paged: bool, prefix, profiled: bool = False) -
     if prog.captures and replays != delta["executed_steps"]:
         raise AssertionError(f"prefix serving: {replays} replays != {delta['executed_steps']} "
                              f"executed steps")
-    if (launches[decode] + replays * per_replay
-            != (delta["prefill_suffix_count"] + delta["executed_steps"]) * cfg.num_layers):
-        raise AssertionError(f"prefix serving: {decode} launches {launches[decode]} + "
-                             f"{replays} x {per_replay} in replays != ({delta['prefill_suffix_count']} "
-                             f"suffix prefills + {delta['executed_steps']} steps) x {cfg.num_layers}")
+    want = {decode: delta["executed_steps"] * cfg.num_layers}
+    want[suffix] = want.get(suffix, 0) + delta["prefill_suffix_count"] * cfg.num_layers
+    got = {k: launches[k] + (replays * per_replay if k == decode else 0) for k in want}
+    if got != want:
+        raise AssertionError(f"prefix serving: decode launches {got} (replays x {per_replay} "
+                             f"included) != {want} ({delta['prefill_suffix_count']} suffix "
+                             f"prefills, {delta['executed_steps']} steps, x {cfg.num_layers})")
     if launches["flash_attention"] != delta["prefill_full_count"] * cfg.num_layers:
         raise AssertionError(f"prefix serving: K1 launches {launches['flash_attention']} != "
                              f"{delta['prefill_full_count']} full prefills x {cfg.num_layers}")
     if engine.decode_compilations != 1:
         raise AssertionError(f"prefix serving: decode_compilations {engine.decode_compilations}")
     res = dict(tokens=[list(r.tokens) for r in reqs], snap=snap, delta=delta, wall_s=wall,
-               launches=launches, multi_row=rows, replayed=replays * per_replay,
+               launches=launches, multi_row=rows, replayed=replays * per_replay, decode=decode,
+               per_replay=dict(prog.launches_per_replay),
                ttft=[r.first_token_time - r.submit_time for r in reqs], engine=engine, prof=prof)
     if paged:
         res["copy_bytes"] = engine.cache.alloc.copy_bytes
         res["pages_shared_total"] = engine.cache.prefix_pages_shared_total
-        k, v = engine.cache.cache.k, engine.cache.cache.v
         res["pinned_pages"] = len(pinned)
-        changed = [pid for pid, (pk, pv) in pinned.items()
-                   if not (torch.equal(k[:, pid], pk) and torch.equal(v[:, pid], pv))]
+        changed = [pid for pid, kept in pinned.items()
+                   if not all(torch.equal(t[:, pid], x) for t, x in zip(page_leaves, kept))]
         if changed:
             raise AssertionError(f"paged prefix serving: pinned pages written: {changed[:8]}")
         engine.cache.pin_pages, engine.cache.unpin_pages = pin, unpin
@@ -2148,6 +2304,155 @@ def device_time_by_family(prof, kernels: dict, skip=()) -> dict:
     return fams
 
 
+# --- phase 5f: quantized serving -----------------------------------------------
+
+QUANT_KL_BUDGET = 5e-3  # the JAX package's (tests/serving/test_quantized_engine.py)
+
+
+def quant_kl(model, qcfg, gen) -> dict:
+    """A 64-token prompt (from ``gen``) and 16 greedy steps of the bf16
+    model, teacher-forced through its ``qcfg`` quantized copy
+    (``quantize_model``): per-step KL of the quantized next-token
+    distribution from the bf16 one (max, mean), and top-1 agreement."""
+    from neuronx_distributed_tpu_torch.models.llama import quantize_model
+
+    ids = torch.randint(1, model.config.vocab_size, (1, 64), generator=gen, device=model.device)
+    ref, toks = teacher_logits(model, ids, 16)
+    qm = quantize_model(model, qcfg)
+    got, _ = teacher_logits(qm, ids, 16, feed=toks)
+    del qm
+    torch.cuda.empty_cache()
+    lp = torch.log_softmax(ref.double(), -1)
+    kl = (lp.exp() * (lp - torch.log_softmax(got.double(), -1))).sum(-1)
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite logits through the quantized model")
+    return dict(max_kl=float(kl.max()), mean_kl=float(kl.mean()),
+                top1=float((got.argmax(-1) == ref.argmax(-1)).double().mean()))
+
+
+def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
+    """Phase 5f: quantized serving of ``model`` at full width and depth.
+    (a) int8 and (b) fp8 weights behind the row engine on phase 4's
+    requests (``srv``), each with its eager-step witness; (c) int8 weights
+    and an int8 pool of phase 5b's bytes (``paged``: its pool) behind the
+    paged engine on phase 5b's traffic, with its witness; (d) phase 5c's
+    paged prefix leg on that pool. Returns the launches by wrapper of the
+    runs that are no witness (replays included)."""
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    from neuronx_distributed_tpu_torch.serving.cache_manager import PrefixCache
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    layers, linears = cfg.num_layers, 7 * cfg.num_layers + 1
+    out = {"launches": dict.fromkeys(kernel_counters(), 0)}
+    float_bytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    for kind in ("int8", "fp8"):
+        qc = QuantConfig(weights=kind)
+        torch.cuda.reset_peak_memory_stats()
+        r = serve_workload(model, srv["workload"], quantize=qc)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        wit = serve_workload(model, srv["workload"], eager=True, quantize=qc)
+        if wit["tokens"] != r["tokens"]:
+            raise AssertionError(f"{kind} serving: the decode graph's streams differ from the "
+                                 "eager step's")
+        if r["per_replay"] != {"flash_decode": layers, "dequantize": linears}:
+            raise AssertionError(f"{kind} serving: launches per replay {r['per_replay']}")
+        kl = quant_kl(model, qc.weight_qconfig(), gen)
+        if kind == "int8" and kl["max_kl"] > QUANT_KL_BUDGET:
+            raise AssertionError(f"int8 weights: max KL {kl['max_kl']} against the bf16 model "
+                                 f"over the budget {QUANT_KL_BUDGET}")
+        same = sum(a == b for a, b in zip(r["tokens"], srv["tokens"]))
+        sn = r["snap"]
+        log(f"quantized serving ({kind} weights, row engine, phase 4's 6 requests): weights "
+            f"{r['weight_bytes'] / 1e9:.3f} GB against bf16 {float_bytes / 1e9:.3f} GB "
+            f"({r['weight_bytes'] / float_bytes:.3f}x); wall {r['wall_s']:.3f} s (capture "
+            f"{sn['capture_s']:.4f} s of it), decode_compilations {r['compilations']}, replays "
+            f"{r['replays']} = executed steps, launches per replay {r['per_replay']}; "
+            f"{r['decode_only_executed']} decode-only steps {r['decode_s']:.4f} s "
+            f"({1e3 * r['decode_s'] / max(r['decode_only_executed'], 1):.2f} ms per executed step; "
+            f"eager witness {1e3 * wit['decode_s'] / max(wit['decode_only_executed'], 1):.2f}), "
+            f"decode {sn['chunk_tokens_per_sec']:.1f} tok/s (chunk wall), TTFT mean "
+            f"{sn['mean_ttft']:.4f} s, peak mem {peak:.1f} GiB (the bf16 model's 15.0 "
+            f"included); eager-step streams identical; streams equal to bf16 phase 4's: {same} "
+            f"of 6 (reported, not gated)")
+        log(f"quantized serving ({kind} weights): 64-token prompt, 16 steps teacher-forced "
+            f"against the bf16 model: max KL {kl['max_kl']:.3g}, mean KL {kl['mean_kl']:.3g} "
+            + (f"(gated at {QUANT_KL_BUDGET})" if kind == "int8" else "(printed, not gated)")
+            + f", top-1 agreement {kl['top1']:.4f} (printed, not gated: near-ties of a random "
+            f"bf16 base)")
+        out[kind] = dict(r, kl=kl, witness_decode_s=wit["decode_s"])
+        for k in out["launches"]:
+            out["launches"][k] += r["launches"][k]
+    # (c) int8 weights and an int8 pool of phase 5b's bytes
+    qc = QuantConfig(weights="int8", kv="int8")
+    d, hkv, ps = cfg.head_dim_, cfg.num_kv_heads, PAGE
+    bf16_page = 2 * layers * ps * hkv * d * 2
+    int8_page = 2 * layers * (ps * hkv * d + hkv * 2)
+    n_pages = paged["pool_pages"] * bf16_page // int8_page
+    workload = paged_workload(cfg.vocab_size)
+    c = serve_paged(model, workload, "fused", quantize=qc, num_pages=n_pages)
+    cw = serve_paged(model, workload, "fused", eager=True, quantize=qc, num_pages=n_pages)
+    cp = serve_paged(model, workload, "fused", profiled=True, quantize=qc, num_pages=n_pages)
+    if cw["tokens"] != c["tokens"] or cp["tokens"] != c["tokens"]:
+        raise AssertionError("int8 pool serving: the decode graph's streams differ from the "
+                             "eager step's or the profiled rerun's")
+    if c["per_replay"] != {"qpaged_flash_decode": layers, "dequantize": linears}:
+        raise AssertionError(f"int8 pool serving: launches per replay {c['per_replay']}")
+    sn = c["snap"]
+    log(f"quantized serving (int8 weights + int8 KV pool, paged engine, phase 5b's 15 requests, "
+        f"{PAGED_SLOTS} slots, page_size {PAGE}): pool {n_pages} pages, {c['pool_gib']:.3f} GiB "
+        f"(phase 5b: {paged['pool_pages']} pages, {paged['pool_gib']:.3f} GiB); all 15 DONE, "
+        f"check() clean, eager-step streams identical; wall {c['wall_s']:.3f} s, replays "
+        f"{c['replays']}, launches per replay {c['per_replay']}, K5q launches "
+        f"{c['launches']['qpaged_flash_decode']} = executed steps {sn['executed_steps']} x "
+        f"{layers} + the warm-up's {layers}, K5 {c['launches']['paged_flash_decode']}; "
+        f"{c['decode_executed']} decode-only steps {c['decode_s']:.4f} s "
+        f"({1e3 * c['decode_s'] / max(c['decode_executed'], 1):.2f} ms per executed step; eager "
+        f"witness {1e3 * cw['decode_s'] / max(cw['decode_executed'], 1):.2f}), decode "
+        f"{sn['chunk_tokens_per_sec']:.1f} tok/s (chunk wall), mean occupancy "
+        f"{sn['mean_occupancy']:.2f}, peak occupancy {sn['peak_occupancy']} (phase 5b: "
+        f"{paged['snap']['peak_occupancy']}), peak pages mapped {sn['peak_pages_mapped']}, peak "
+        f"mem {c['peak_gib']:.1f} GiB")
+    busy = sum(cp["fams"].values())
+    wall_ms = 1e3 * (c["wall_s"] - c["capture_s"])
+    log(f"device time of the int8 pool serving workload (profiler, ms; decode program captured "
+        f"before the profiler opened): " + ", ".join(f"{k} {v:.2f}" for k, v in cp["fams"].items())
+        + f"; busy {busy:.2f} of the unprofiled wall less its capture {wall_ms:.2f} (idle share "
+        f"{1 - busy / wall_ms:.3f}); K5q kernel records {cp['records']} = 2 x "
+        f"{cp['snap']['executed_steps']} executed steps x {layers} layers")
+    out["paged"] = dict(c, fams=cp["fams"])
+    for k in out["launches"]:
+        out["launches"][k] += c["launches"][k]
+    # (d) phase 5c's paged prefix leg on the int8 pool
+    pre = serve_prefix(model, prefix_workload(cfg.vocab_size), True, PrefixCache(), quantize=qc,
+                       num_pages=n_pages)
+    drain_prefix_store(pre)
+    dd = pre["delta"]
+    if (dd["prefix_hits"], dd["prefix_misses"], dd["prefix_validation_failures"]) != (11, 1, 0):
+        raise AssertionError(f"int8 pool prefix serving: hits {dd['prefix_hits']}, misses "
+                             f"{dd['prefix_misses']}; want 11, 1")
+    if pre["copy_bytes"] != 0 or pre["multi_row"]["flash_decode"] < 1 or not pre["pinned_pages"]:
+        raise AssertionError(f"int8 pool prefix serving: copy_bytes {pre['copy_bytes']}, K4 "
+                             f"multi-row launches {pre['multi_row']['flash_decode']}, pinned "
+                             f"pages {pre['pinned_pages']}")
+    log(f"quantized serving (int8 weights + int8 KV pool, phase 5c's paged prefix leg): hits "
+        f"{dd['prefix_hits']}, misses {dd['prefix_misses']}, copy_bytes {pre['copy_bytes']}, "
+        f"pages shared {dd['prefix_pages_shared']}, pinned pages' codes and scales bitwise "
+        f"unchanged from pin to the end: {pre['pinned_pages']}; suffix prefills "
+        f"{dd['prefill_suffix_count']} on K4 over a dequantized float row "
+        f"({pre['launches']['flash_decode']} launches, {pre['multi_row']['flash_decode']} "
+        f"multi-row), K5q {pre['launches']['qpaged_flash_decode'] + pre['replayed']} (decode "
+        f"replays), K5 {pre['launches']['paged_flash_decode']}; wall {pre['wall_s']:.3f} s, suffix "
+        f"prefill mean {dd['prefill_suffix_wall_s'] / max(dd['prefill_suffix_count'], 1):.4f} s")
+    out["prefix"] = pre
+    for k in out["launches"]:
+        out["launches"][k] += pre["launches"][k] + (pre["replayed"] if k == pre["decode"] else 0)
+    out["launches"]["dequantize"] += (pre["per_replay"].get("dequantize", 0)
+                                      * pre["delta"]["executed_steps"])
+    log(f"phase 5f wall: {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 # --- phases 6-7: training ------------------------------------------------------
 
 EOS_ID = 128001  # Llama-3's <|end_of_text|>
@@ -2178,14 +2483,17 @@ def kernel_counters():
         flash_attention_dq,
         flash_attention_fwd,
     )
+    from neuronx_distributed_tpu_torch.kernels.dequantize import dequantize_fwd
     from neuronx_distributed_tpu_torch.kernels.flash_decode import (
         flash_decode_fwd,
         paged_flash_decode_fwd,
+        qpaged_flash_decode_fwd,
     )
 
     return {"flash_attention": flash_attention_fwd, "flash_attention_dkdv": flash_attention_dkdv,
             "flash_attention_dq": flash_attention_dq, "flash_decode": flash_decode_fwd,
-            "paged_flash_decode": paged_flash_decode_fwd}
+            "paged_flash_decode": paged_flash_decode_fwd,
+            "qpaged_flash_decode": qpaged_flash_decode_fwd, "dequantize": dequantize_fwd}
 
 
 def train_vs_plain() -> dict:
@@ -2261,7 +2569,7 @@ def train_phase(steps: int = 6) -> dict:
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention": 2 * cfg.num_layers * steps, "flash_attention_dkdv":
             cfg.num_layers * steps, "flash_attention_dq": cfg.num_layers * steps, "flash_decode": 0,
-            "paged_flash_decode": 0}
+            "paged_flash_decode": 0, "qpaged_flash_decode": 0, "dequantize": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches} != {want}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -2342,7 +2650,7 @@ def bwd_resources() -> list:
 
 
 def decode_resources() -> tuple:
-    """K4's and K5's resources as built, at R <= 4 (Llama-3-8B's group of 4
+    """K4's, K5's and K5q's resources as built, at R <= 4 (Llama-3-8B's group of 4
     at s = 1), R <= 32 and on the multi-row path: dynamic shared memory, registers a thread, local
     bytes and blocks per SM from the runtime; and ``ptxas -v``'s spill line
     of every decode kernel and merge, which must show no spill. Returns
@@ -2353,12 +2661,12 @@ def decode_resources() -> tuple:
 
     lib = _build.load("flash_decode")
     out = []
-    for paged in (0, 1):
-        for rmax in (4, 32, 0):  # 0: the multi-row kernel
+    for kind, prefix in ((0, ""), (1, "paged_"), (2, "qpaged_")):  # K4, K5, K5q
+        for rmax in (4, 32, 0) if kind < 2 else (4, 32):  # 0: the multi-row kernel
             vals = (ctypes.c_int * 4)()
-            _build.check(lib.nxd_flash_decode_resources(paged, rmax, vals), "flash_decode")
+            _build.check(lib.nxd_flash_decode_resources(kind, rmax, vals), "flash_decode")
             kernel = "flash_decode_kernel" + (f"<{rmax}>" if rmax else "_rows")
-            out.append(dict(kernel=("paged_" if paged else "") + kernel,
+            out.append(dict(kernel=prefix + kernel,
                             smem=vals[0], regs=vals[1], local=vals[2], blocks_per_sm=vals[3]))
     report = _build.resource_report("flash_decode").splitlines()
     spills = [line.strip() for line in report if "spill" in line]
@@ -2382,8 +2690,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     t0 = time.perf_counter()
-    _build.build(["flash_attention", "flash_attention_bwd", "flash_decode"])
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the three sources in parallel)")
+    _build.build(["flash_attention", "flash_attention_bwd", "flash_decode", "dequantize"])
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the four sources in parallel)")
     for r in [fwd_resources(), *bwd_resources()]:
         log(f"{r['kernel']}: {r['smem']} B dynamic shared memory a block, {r['regs']} registers a "
             f"thread at entry, {r['local']} B local a thread, {r['blocks_per_sm']} block(s) per SM; "
@@ -2469,6 +2777,31 @@ def main() -> int:
             f"{pl['working']} with a live tile, {pl['live_tiles']} live 64-column tiles); "
             f"bytes the plan moves {pl['read_bytes']} against the bound's {pl['bound_bytes']} "
             f"({pl['read_bytes'] / pl['bound_bytes']:.3f}x)")
+    # K5q and DQ: their own generator, so the other checks keep their inputs
+    qgen = torch.Generator(device="cuda").manual_seed(12)
+    k5q = {shapes: check_k5q(qgen, shapes) for shapes in ("k4", "serving")}
+    k5_ms = {"k4": k5["ms"], "serving": k5s["ms"]}
+    for shapes, r in k5q.items():
+        log(f"K5q qpaged_flash_decode at {'K4' if shapes == 'k4' else 'the paged serving'}'s "
+            f"geometry: B={r['slots']} s=1 H=32 Hkv=8 D=128 L=8192 bound {r['bound_cols']} "
+            f"page_size 16, pool {r['pages']} int8 pages with a bf16 scale a (page, kv-head), "
+            f"garbage null page, {r['live_cols']} live columns: max_err {r['err']:.3g} "
+            f"({r['ratio']:.3g}x its limit; a dropped partial tile reads {r['fault_ratio']:.3g}x); "
+            f"bitwise equal to K4 on the dequantized gathered view, blind to the null page, two "
+            f"runs bitwise equal; kernel_ms {r['ms']:.4f} (graph replay; back to back "
+            f"{r['eager_ms']:.4f}; K5 on the bf16 pool {k5_ms[shapes]:.4f}) plain_ms "
+            f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}, {r['bytes']} B) "
+            f"library_ms {r['library_ms']:.4f} (SDPA on the dequantized gathered view, bool mask, "
+            f"GQA; graph replay) + gather_ms {r['gather_ms']:.4f} (the gather-dequantize of K "
+            f"and V)")
+    dq = check_dq(qgen)
+    for kind in ("int8", "fp8"):
+        log(f"DQ dequantize {kind} at lm_head's shape {dq['shape'][0]} x {dq['shape'][1]} (bf16 "
+            f"out, a scale per row): bitwise equal to its plain version; kernel_ms "
+            f"{dq[kind]['ms']:.4f} (graph replay) plain_ms {dq[kind]['plain_ms']:.4f} bound_ms "
+            f"{dq['bound_ms']:.4f} ({dq['bound_by']}, 3 B a weight; {dq['bound_ms'] / dq[kind]['ms']:.3f} "
+            f"of it); library_ms null (no one PyTorch call computes it)")
+    torch.cuda.empty_cache()
     rows = {chunk: check_decode_rows(gen, chunk) for chunk in (16, 256, 512)}
     for chunk, r in rows.items():
         log(f"K4/K5 multi-row B=1 s={chunk} (R={r['rows']}) H=32 Hkv=8 D=128 L=8192, a "
@@ -2600,6 +2933,7 @@ def main() -> int:
     pre = prefix_phase(model)
     spec = spec_phase(model, srv["workload"], smi)
     med = medusa_phase(model, smi)
+    quant = quant_phase(model, srv, fused, gen)
 
     del model
     torch.cuda.empty_cache()
@@ -2627,12 +2961,12 @@ def main() -> int:
 
     k1_main = k1[1]  # the serving prefill at S=4096
     launches = {name: srv["launches"][name] + fused["launches"][name] + pre["launches"][name]
-                + spec["launches"][name] + med["launches"][name] + tr["launches"][name]
-                for name in tr["launches"]}
+                + spec["launches"][name] + med["launches"][name] + quant["launches"][name]
+                + tr["launches"][name] for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
-        f"speculative serving row and paged, Medusa, training): {launches}; on the multi-row path "
-        f"(prefix-cache serving): {pre['multi_row']}; the speculative rounds' verify windows "
-        f"(s = {SPEC_GAMMA}): {spec['verify']}")
+        f"speculative serving row and paged, Medusa, quantized serving, training): {launches}; "
+        f"on the multi-row path (prefix-cache serving): {pre['multi_row']}; the speculative "
+        f"rounds' verify windows (s = {SPEC_GAMMA}): {spec['verify']}")
     rows_main = rows[256]  # R = 1024: phase 5c's chat turns
     k23_err = {n: max(r["err"][n] for r in k23.values()) for n in ("dk", "dv", "dq")}
     kernels = [
@@ -2695,6 +3029,22 @@ def main() -> int:
              max_abs_err=max(r["err"] for r in rows.values()), ms=rows_main["paged_ms"],
              plain_ms=rows_main["plain_ms"], bound_ms=rows_main["bound_ms"],
              bound_by=rows_main["bound_by"], library_ms=rows_main["library_ms"]),
+        # K5q computes what the JAX engine runs for an int8 pool: the
+        # gather-dequantize (flash_decode.py:201) and K4's pallas_call
+        dict(name="qpaged_flash_decode", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/flash_decode.cu",
+             replaces="neuronx_distributed_tpu/kernels/flash_decode.py:301",
+             launches=launches["qpaged_flash_decode"],
+             max_abs_err=max(r["err"] for r in k5q.values()), ms=k5q["k4"]["ms"],
+             plain_ms=k5q["k4"]["plain_ms"], bound_ms=k5q["k4"]["bound_ms"],
+             bound_by=k5q["k4"]["bound_by"], library_ms=k5q["k4"]["library_ms"]),
+        # DQ computes what XLA fuses into the quantized matmul's load
+        dict(name="dequantize", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/dequantize.cu",
+             replaces="neuronx_distributed_tpu/quantization/layers.py:33",
+             launches=launches["dequantize"], max_abs_err=0.0, ms=dq["int8"]["ms"],
+             plain_ms=dq["int8"]["plain_ms"], bound_ms=dq["bound_ms"], bound_by=dq["bound_by"],
+             library_ms=None),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -69,6 +69,23 @@
 //    LSE = m + log(sum w). No atomics: K4 and K5 are bitwise reproducible
 //    run to run.
 //
+// K5q is K5 over an int8 pool (ServingEngine(quantize=QuantConfig(kv=
+// "int8"))): pages (P, page_size, Hkv, D) int8 with a bf16 scale per (page,
+// kv-head), (P, 1, Hkv, 1). It computes what the JAX engine runs for such a
+// pool, the dequantized gathered view (`paged_gather_leaf_dequant`,
+// flash_decode.py:201) and K4 over it, without writing that view: its tile
+// ring holds int8 pages (64 columns: K 8 KB + V 8 KB, and each column's two
+// scale words, by 16- and 4-byte `cp.async`), and after a tile lands one
+// pass turns it into the bf16 tile the split path reads, each element
+// bf16_rn(float(q) * float(scale)) (`__fmul_rn`: one rounding, as the plain
+// version's f32 product), dead columns zero as K4's zero-fill. Everything
+// after is K5's split path (`QPagedCols` for `PagedCols`, one more block
+// barrier a tile), so K5q through a table equals K4 on the dequantized
+// gathered view bit for bit. Bound: bytes, about half of K5's (128 B of K
+// and of V a column, plus the scales). K5q has the split path only (R <=
+// 32): a quantized pool's multi-row suffix prefill attends a float row
+// (serving/engine.py), as the JAX engine's does.
+//
 // More than 32 rows (R = group * s for a suffix prefill of s tokens behind a
 // reused prefix, the Pallas kernel's one block of R rows): the multi-row
 // path (`decode_rows`, one launch, no workspace, no merge kernel).
@@ -154,18 +171,25 @@ static_assert(SPLIT == NTHREADS && TL % 32 == 0, "a thread per column; a warp's 
 static_assert(SPLIT_TILES <= 32, "live tiles are a bit mask");
 
 // K5 reads skb/svb as the pool's page stride and skl/svl as the stride of a
-// row inside a page; bt/sbt/ps_shift/n_pages are K5's alone.
+// row inside a page; bt/sbt/ps_shift/n_pages are K5's alone. K5q's k/v are
+// int8 pools (the pointers are reinterpreted), ks/vs their bf16 scales with
+// page and kv-head strides sksp/sksh and svsp/svsh.
 struct Params {
   const bf16* q; const bf16* k; const bf16* v; bf16* o; float* lse;
   const int* q_pos; const uint8_t* kv_valid; const int* bt;
+  const bf16* ks; const bf16* vs;
   float* wo; float* wl;  // workspace: O (f32) and LSE of every range
   int B, s, H, Hkv, L, ps_shift, n_splits, n_pages;
   long long sqb, sqs, sqh, skb, skl, skh, svb, svl, svh, sob, sos, soh, validb, sbt;
+  long long sksp, sksh, svsp, svsh;
   float scale;
 };
 
+enum Kind { ROW = 0, PAGED = 1, QPAGED = 2 };
+
 // K4: column c of slot b's cache row.
 struct RowCols {
+  static constexpr bool QUANT = false;
   const bf16* k; const bf16* v; long long skl, svl;
   __device__ RowCols(const Params& p, int b, int hk)
       : k(p.k + b * p.skb + hk * p.skh), v(p.v + b * p.svb + hk * p.svh),
@@ -178,6 +202,7 @@ struct RowCols {
 
 // K5: logical column c of slot b through its block-table row.
 struct PagedCols {
+  static constexpr bool QUANT = false;
   const bf16* k; const bf16* v; const int* bt; int shift, mask;
   long long skp, skr, svp, svr;
   __device__ PagedCols(const Params& p, int b, int hk)
@@ -191,6 +216,34 @@ struct PagedCols {
     vc = v + page * svp + row * svr;
   }
 };
+
+// K5q: slot b's block-table row, kv-head hk's int8 pools and scales
+// (load_tile reads a column's page and row through them).
+struct QPagedCols {
+  static constexpr bool QUANT = true;
+  const int8_t* k; const int8_t* v; const bf16* ks; const bf16* vs; const int* bt;
+  int shift, mask;
+  long long skp, skr, svp, svr, sksp, svsp;
+  __device__ QPagedCols(const Params& p, int b, int hk)
+      : k(reinterpret_cast<const int8_t*>(p.k) + hk * p.skh),
+        v(reinterpret_cast<const int8_t*>(p.v) + hk * p.svh),
+        ks(p.ks + hk * p.sksh), vs(p.vs + hk * p.svsh), bt(p.bt + b * p.sbt),
+        shift(p.ps_shift), mask((1 << p.ps_shift) - 1),
+        skp(p.skb), skr(p.skl), svp(p.svb), svr(p.svl), sksp(p.sksp), svsp(p.svsp) {}
+};
+
+// K5q's stage: K and V codes (TL x D int8 each), then a 4-byte scale word of
+// each column for K and for V (the aligned word that holds its bf16 scale),
+// then which half of the word holds it (a byte each). The bf16 tile the
+// split path reads sits after the STAGES stages.
+constexpr int QSTAGE_BYTES = 2 * TL * D + 2 * TL * 4 + 2 * TL;
+constexpr int QTILE_OFFSET = STAGES * QSTAGE_BYTES;
+static_assert(QSTAGE_BYTES % 16 == 0, "stages keep 16-byte alignment");
+static_assert(QTILE_OFFSET + STAGE_BYTES <= STAGES * STAGE_BYTES,
+              "K5q's ring and its bf16 tile fit in K5's stages");
+
+template <class Cols>
+__host__ __device__ constexpr int stage_bytes() { return Cols::QUANT ? QSTAGE_BYTES : STAGE_BYTES; }
 
 // Shared memory of one block at R <= RMAX.
 template <int RMAX>
@@ -231,6 +284,12 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n));
 }
 
+// 4-byte copy that reads `n` (0 or 4) bytes of src and zero-fills the rest.
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int n) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+
 // The position of the (n+1)-th set bit of mask (n >= 0).
 __device__ __forceinline__ int nth_bit(unsigned mask, int n) {
   for (int k = 0; k < n; ++k) mask &= mask - 1;
@@ -255,6 +314,96 @@ __device__ __forceinline__ void load_tile(unsigned char* stage, const Cols& cols
     cp_async16_zfill(Ks + c * KP + ch, kc + ch, live ? 16 : 0);
     cp_async16_zfill(Vs + c * D + ch, vc + ch, live ? 16 : 0);
   }
+}
+
+// The bf16 K and V tiles of a landed stage (K4, K5: the stage itself).
+template <class Cols>
+__device__ __forceinline__ const bf16* land_tile(unsigned char* stages, int stage, const Cols&,
+                                                 const uint8_t*, int, int) {
+  return reinterpret_cast<const bf16*>(stages + stage * STAGE_BYTES);
+}
+
+// K5q: issue the copies of tile `tile` as load_tile does, of int8 codes: a
+// column's K and V are 8 chunks of 16 bytes each, and the thread of its
+// first chunk also copies the column's two scale words and records which
+// half holds each scale.
+__device__ __forceinline__ void load_tile(unsigned char* stage, const QPagedCols& cols,
+                                          const uint8_t* live_s, int c_begin, int tile, int tid) {
+  constexpr int QCHUNKS = D / 16;
+  int8_t* Kq = reinterpret_cast<int8_t*>(stage);
+  int8_t* Vq = Kq + TL * D;
+  uint32_t* kw = reinterpret_cast<uint32_t*>(Vq + TL * D);
+  uint32_t* vw = kw + TL;
+  uint8_t* half = reinterpret_cast<uint8_t*>(vw + TL);
+#pragma unroll
+  for (int j = 0; j < TL * QCHUNKS / NTHREADS; ++j) {
+    const int i = tid + j * NTHREADS;
+    const int c = i / QCHUNKS, ch = (i % QCHUNKS) * 16;
+    const int cs = tile * TL + c;
+    const bool live = live_s[cs] != 0;
+    const int8_t *kc = cols.k, *vc = cols.v;
+    const bf16 *ksc = cols.ks, *vsc = cols.vs;
+    if (live) {
+      const int lc = c_begin + cs;
+      const long long page = __ldg(cols.bt + (lc >> cols.shift));
+      const int row = lc & cols.mask;
+      kc = cols.k + page * cols.skp + row * cols.skr;
+      vc = cols.v + page * cols.svp + row * cols.svr;
+      ksc = cols.ks + page * cols.sksp;
+      vsc = cols.vs + page * cols.svsp;
+    }
+    cp_async16_zfill(Kq + c * D + ch, kc + ch, live ? 16 : 0);
+    cp_async16_zfill(Vq + c * D + ch, vc + ch, live ? 16 : 0);
+    if (ch == 0) {  // each scale's aligned 4-byte word, and the half that holds it
+      const uintptr_t ka = reinterpret_cast<uintptr_t>(ksc), va = reinterpret_cast<uintptr_t>(vsc);
+      cp_async4_zfill(kw + c, reinterpret_cast<const void*>(ka & ~uintptr_t(3)), live ? 4 : 0);
+      cp_async4_zfill(vw + c, reinterpret_cast<const void*>(va & ~uintptr_t(3)), live ? 4 : 0);
+      half[c] = (uint8_t)((ka >> 1) & 1);
+      half[TL + c] = (uint8_t)((va >> 1) & 1);
+    }
+  }
+}
+
+// K5q: turn the landed int8 stage into the bf16 tile the split path reads
+// (K at pitch KP, V at pitch D): bf16_rn(q * scale) a live column, 0 a dead
+// one. One block barrier after: every thread reads every column.
+__device__ __forceinline__ const bf16* land_tile(unsigned char* stages, int stage,
+                                                 const QPagedCols&, const uint8_t* live_s,
+                                                 int tile, int tid) {
+  constexpr int QCHUNKS = D / 16;
+  const unsigned char* st = stages + stage * QSTAGE_BYTES;
+  const int8_t* Kq = reinterpret_cast<const int8_t*>(st);
+  const int8_t* Vq = Kq + TL * D;
+  const uint32_t* kw = reinterpret_cast<const uint32_t*>(Vq + TL * D);
+  const uint32_t* vw = kw + TL;
+  const uint8_t* half = reinterpret_cast<const uint8_t*>(vw + TL);
+  bf16* Ks = reinterpret_cast<bf16*>(stages + QTILE_OFFSET);
+  bf16* Vs = Ks + TL * KP;
+#pragma unroll
+  for (int j = 0; j < 2 * TL * QCHUNKS / NTHREADS; ++j) {
+    const int i = tid + j * NTHREADS;
+    const int c = i / (2 * QCHUNKS), part = i % (2 * QCHUNKS);
+    const bool is_v = part >= QCHUNKS;
+    const int ch = (part % QCHUNKS) * 16;
+    uint4 o[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
+    if (live_s[tile * TL + c]) {
+      const uint32_t w = is_v ? vw[c] : kw[c];
+      const unsigned short bits = (unsigned short)(w >> (16 * half[(is_v ? TL : 0) + c]));
+      const float sc = __bfloat162float(__ushort_as_bfloat16(bits));
+      const uint4 raw = *reinterpret_cast<const uint4*>((is_v ? Vq : Kq) + c * D + ch);
+      const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+      __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(o);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        o2[e] = __halves2bfloat162(__float2bfloat16_rn(__fmul_rn((float)b[2 * e], sc)),
+                                   __float2bfloat16_rn(__fmul_rn((float)b[2 * e + 1], sc)));
+    }
+    bf16* dst = is_v ? Vs + c * D + ch : Ks + c * KP + ch;
+    reinterpret_cast<uint4*>(dst)[0] = o[0];
+    reinterpret_cast<uint4*>(dst)[1] = o[1];
+  }
+  __syncthreads();
+  return Ks;
 }
 
 // The softmax state of a block's rows that one thread carries: P V
@@ -295,10 +444,11 @@ __device__ __forceinline__ void tile_loop(const Params& p, const Smem<RMAX>& sm,
   const int dg = lane & 15, grp = tid >> 4;
   const int cg = grp % NCG, rg = grp / NCG, kk = dg & 3;
 
+  constexpr int SB = stage_bytes<Cols>();
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
     if (i < n_tiles)
-      load_tile(sm.stages + i * STAGE_BYTES, cols, sm.live, c_begin, nth_bit(tiles, i), tid);
+      load_tile(sm.stages + i * SB, cols, sm.live, c_begin, nth_bit(tiles, i), tid);
     cp_async_commit();
   }
 
@@ -306,11 +456,11 @@ __device__ __forceinline__ void tile_loop(const Params& p, const Smem<RMAX>& sm,
     cp_async_wait<STAGES - 2>();  // tile i (and q) landed
     __syncthreads();              // ... for every thread; tile i-1 is done with
     if (i + STAGES - 1 < n_tiles)
-      load_tile(sm.stages + ((i + STAGES - 1) % STAGES) * STAGE_BYTES, cols, sm.live, c_begin,
+      load_tile(sm.stages + ((i + STAGES - 1) % STAGES) * SB, cols, sm.live, c_begin,
                 nth_bit(tiles, i + STAGES - 1), tid);
     cp_async_commit();
     const int tile = nth_bit(tiles, i);
-    const bf16* Ks = reinterpret_cast<const bf16*>(sm.stages + (i % STAGES) * STAGE_BYTES);
+    const bf16* Ks = land_tile(sm.stages, i % STAGES, cols, sm.live, tile, tid);
     const bf16* Vs = Ks + TL * KP;
 
     // S = Q K^T for this warp's 8 columns; masked, scaled; row maxima
@@ -967,10 +1117,17 @@ __global__ void __launch_bounds__(NTHREADS, 2) paged_flash_decode_kernel(Params 
   decode_range<RMAX, PagedCols>(p, dsm);
 }
 
-// The merges of K4 and K5 are one function under two names, so a profile
-// files each under its own kernel's family.
+template <int RMAX>
+__global__ void __launch_bounds__(NTHREADS, 2) qpaged_flash_decode_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  decode_range<RMAX, QPagedCols>(p, dsm);
+}
+
+// The merges of K4, K5 and K5q are one function under three names, so a
+// profile files each under its own kernel's family.
 __global__ void __launch_bounds__(D) flash_decode_kernel_merge(Params p) { merge_row(p); }
 __global__ void __launch_bounds__(D) paged_flash_decode_kernel_merge(Params p) { merge_row(p); }
+__global__ void __launch_bounds__(D) qpaged_flash_decode_kernel_merge(Params p) { merge_row(p); }
 
 __global__ void __launch_bounds__(RTHREADS, RWGS == 1 ? 2 : 1)
     flash_decode_kernel_rows(const __grid_constant__ CUtensorMap tm_q,
@@ -997,8 +1154,14 @@ RowsKernel rows_kernel_of(bool paged) {
 }
 
 template <int RMAX>
-void (*kernel_of(bool paged))(Params) {
-  return paged ? &paged_flash_decode_kernel<RMAX> : &flash_decode_kernel<RMAX>;
+void (*kernel_of(int kind))(Params) {
+  return kind == QPAGED ? &qpaged_flash_decode_kernel<RMAX>
+         : kind == PAGED ? &paged_flash_decode_kernel<RMAX> : &flash_decode_kernel<RMAX>;
+}
+
+void (*merge_of(int kind))(Params) {
+  return kind == QPAGED ? &qpaged_flash_decode_kernel_merge
+         : kind == PAGED ? &paged_flash_decode_kernel_merge : &flash_decode_kernel_merge;
 }
 
 // Let the kernel take its shared memory, and the SM give shared memory all
@@ -1014,15 +1177,14 @@ int configure(Kernel kernel, size_t smem) {
 }
 
 template <int RMAX>
-int launch(const Params& p, bool paged, cudaStream_t stream) {
-  const int code = configure(kernel_of<RMAX>(paged), Smem<RMAX>::bytes());
+int launch(const Params& p, int kind, cudaStream_t stream) {
+  const int code = configure(kernel_of<RMAX>(kind), Smem<RMAX>::bytes());
   if (code) return code;
-  kernel_of<RMAX>(paged)<<<dim3(p.Hkv, p.B, p.n_splits), NTHREADS, Smem<RMAX>::bytes(),
-                           stream>>>(p);
+  kernel_of<RMAX>(kind)<<<dim3(p.Hkv, p.B, p.n_splits), NTHREADS, Smem<RMAX>::bytes(),
+                          stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  (paged ? paged_flash_decode_kernel_merge
-         : flash_decode_kernel_merge)<<<dim3(p.Hkv, p.B, (p.H / p.Hkv) * p.s), D, 0, stream>>>(p);
+  merge_of(kind)<<<dim3(p.Hkv, p.B, (p.H / p.Hkv) * p.s), D, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1045,16 +1207,16 @@ int launch_rows(const Params& p, bool paged, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-int dispatch(Params p, bool paged, void* stream) {
+int dispatch(Params p, int kind, void* stream) {
   const int R = (p.H / p.Hkv) * p.s;
   p.n_splits = (p.L + SPLIT - 1) / SPLIT;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R <= 4) return launch<4>(p, paged, st);
-  if (R <= 8) return launch<8>(p, paged, st);
-  if (R <= 16) return launch<16>(p, paged, st);
-  if (R <= 32) return launch<32>(p, paged, st);
-  if (p.H / p.Hkv > RMAX_ALL) return (int)cudaErrorInvalidValue;
-  return launch_rows(p, paged, st);
+  if (R <= 4) return launch<4>(p, kind, st);
+  if (R <= 8) return launch<8>(p, kind, st);
+  if (R <= 16) return launch<16>(p, kind, st);
+  if (R <= 32) return launch<32>(p, kind, st);
+  if (p.H / p.Hkv > RMAX_ALL || kind == QPAGED) return (int)cudaErrorInvalidValue;
+  return launch_rows(p, kind == PAGED, st);
 }
 
 Params common(const void* q, const void* k, const void* v, void* o, void* lse,
@@ -1114,7 +1276,7 @@ extern "C" int nxd_flash_decode_fwd(
   Params p = common(q, k, v, o, lse, q_pos, kv_valid, work_o, work_lse, B, s, H, Hkv, L, sqb, sqs, sqh, sob, sos, soh, validb, scale);
   p.skb = skb; p.skl = skl; p.skh = skh;
   p.svb = svb; p.svl = svl; p.svh = svh;
-  return dispatch(p, false, stream);
+  return dispatch(p, ROW, stream);
 }
 
 // K5: k/v are pools (n_pages, page_size, Hkv, D) with strides (skp, skr,
@@ -1138,14 +1300,46 @@ extern "C" int nxd_paged_flash_decode_fwd(
   p.n_pages = n_pages;
   p.skb = skp; p.skl = skr; p.skh = skh;
   p.svb = svp; p.svl = svr; p.svh = svh;
-  return dispatch(p, true, stream);
+  return dispatch(p, PAGED, stream);
 }
 
-// Resources of K4 (paged 0) or K5 (paged 1) at R <= rmax (4, 8, 16 or 32;
-// 0: the multi-row kernel, R > 32, at L = 8192), into out[4].
+// K5q: k/v are int8 pools (n_pages, page_size, Hkv, D) with strides (skp,
+// skr, skh) in bytes; ks/vs their bf16 scales (n_pages, 1, Hkv, 1) with
+// page and kv-head strides (sksp, sksh), (svsp, svsh); otherwise as K5. R = group * s must be at most 32.
+extern "C" int nxd_qpaged_flash_decode_fwd(
+    const void* q, const void* k, const void* v, const void* ks, const void* vs, void* o,
+    void* lse, const void* q_pos, const void* kv_valid, const void* bt, void* work_o,
+    void* work_lse,
+    int B, int s, int H, int Hkv, int n_log, int ps_shift, int n_pages,
+    long long sqb, long long sqs, long long sqh,
+    long long skp, long long skr, long long skh,
+    long long svp, long long svr, long long svh,
+    long long sksp, long long sksh, long long svsp, long long svsh,
+    long long sob, long long sos, long long soh,
+    long long validb, long long sbt, float scale, void* stream) {
+  Params p = common(q, k, v, o, lse, q_pos, kv_valid, work_o, work_lse, B, s, H, Hkv,
+                    n_log << ps_shift, sqb, sqs, sqh, sob, sos, soh, validb, scale);
+  p.bt = static_cast<const int*>(bt);
+  p.sbt = sbt;
+  p.ps_shift = ps_shift;
+  p.n_pages = n_pages;
+  p.skb = skp; p.skl = skr; p.skh = skh;
+  p.svb = svp; p.svl = svr; p.svh = svh;
+  p.ks = static_cast<const bf16*>(ks);
+  p.vs = static_cast<const bf16*>(vs);
+  p.sksp = sksp; p.sksh = sksh; p.svsp = svsp; p.svsh = svsh;
+  if ((H / Hkv) * s > RMAX_ALL) return (int)cudaErrorInvalidValue;
+  return dispatch(p, QPAGED, stream);
+}
+
+// Resources of K4 (kind 0), K5 (1) or K5q (2) at R <= rmax (4, 8, 16 or 32;
+// 0: the multi-row kernel, R > 32, at L = 8192, K4's and K5's alone), into
+// out[4].
 extern "C" int nxd_flash_decode_resources(int paged, int rmax, int* out) {
   switch (rmax) {
-    case 0: return resources(rows_kernel_of(paged), rows_smem(8192), RTHREADS, out);
+    case 0:
+      if (paged == QPAGED) return (int)cudaErrorInvalidValue;
+      return resources(rows_kernel_of(paged == PAGED), rows_smem(8192), RTHREADS, out);
     case 4: return resources(kernel_of<4>(paged), Smem<4>::bytes(), NTHREADS, out);
     case 8: return resources(kernel_of<8>(paged), Smem<8>::bytes(), NTHREADS, out);
     case 16: return resources(kernel_of<16>(paged), Smem<16>::bytes(), NTHREADS, out);

@@ -47,14 +47,17 @@ def kernel_wrappers() -> Dict[str, Callable]:
         flash_attention_dq,
         flash_attention_fwd,
     )
+    from neuronx_distributed_tpu_torch.kernels.dequantize import dequantize_fwd
     from neuronx_distributed_tpu_torch.kernels.flash_decode import (
         flash_decode_fwd,
         paged_flash_decode_fwd,
+        qpaged_flash_decode_fwd,
     )
 
     return {"flash_attention": flash_attention_fwd, "flash_attention_dkdv": flash_attention_dkdv,
             "flash_attention_dq": flash_attention_dq, "flash_decode": flash_decode_fwd,
-            "paged_flash_decode": paged_flash_decode_fwd}
+            "paged_flash_decode": paged_flash_decode_fwd,
+            "qpaged_flash_decode": qpaged_flash_decode_fwd, "dequantize": dequantize_fwd}
 
 
 class DecodeProgram:

@@ -1,7 +1,6 @@
 """Flash decode: cached attention for serving (counterpart of
 ``neuronx_distributed_tpu/kernels/flash_decode.py``: the row layout, the
-paged transport and the paged kernel; the quantized pages belong to a later
-slice).
+paged transport, the paged kernel and the quantized pages).
 
 ``flash_decode_fwd`` launches the hand-written CUDA kernel K4 of
 ``csrc/flash_decode.cu`` (it replaces the Pallas ``_decode_kernel``/
@@ -25,6 +24,16 @@ and no merge; :func:`flash_decode_rows_plan` states its tile plan and
 pool through a block table, equal bit for bit to K4 on the gathered view.
 For CPU tensors it runs :func:`paged_flash_decode_plain`, the gather
 (:func:`paged_gather_leaf`) followed by :func:`flash_decode_plain`.
+
+An int8 pool (``ServingEngine(quantize=QuantConfig(kv="int8"))``) holds int8
+pages with a scale per (page, kv-head) in the compute dtype
+(:func:`quantize_page_block`). ``paged_flash_decode_fwd(..., k_scale=,
+v_scale=)`` attends it through K5q of the same source, K5's split path
+(R <= 32) dequantizing each landed element as ``bf16(q * scale)``: the
+function of JAX's gather-dequantize (:func:`paged_gather_leaf_dequant`)
+and K4, which the JAX engine runs for a quantized pool. Its plain version
+is :func:`paged_flash_decode_plain_q`, and K5q through a table equals K4 on
+the dequantized gathered view bit for bit.
 """
 
 from __future__ import annotations
@@ -125,27 +134,31 @@ def _decode_lib() -> SimpleNamespace:
     lib = _build.load("flash_decode")
     i, ll, vp = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     k4, k5 = lib.nxd_flash_decode_fwd, lib.nxd_paged_flash_decode_fwd
-    k4.restype = k5.restype = i
+    k5q = lib.nxd_qpaged_flash_decode_fwd
+    k4.restype = k5.restype = k5q.restype = i
     k4.argtypes = [vp] * 9 + [i] * 5 + [ll] * 13 + [ctypes.c_float, vp]
     k5.argtypes = [vp] * 10 + [i] * 7 + [ll] * 14 + [ctypes.c_float, vp]
-    return SimpleNamespace(k4=k4, k5=k5, head_dim=lib.nxd_flash_decode_head_dim(),
+    k5q.argtypes = [vp] * 12 + [i] * 7 + [ll] * 18 + [ctypes.c_float, vp]
+    return SimpleNamespace(k4=k4, k5=k5, k5q=k5q, head_dim=lib.nxd_flash_decode_head_dim(),
                            max_rows=lib.nxd_flash_decode_max_rows(),
                            split_cols=lib.nxd_flash_decode_split_cols(),
                            row_tile=lib.nxd_flash_decode_row_tile(),
                            row_tile_cols=lib.nxd_flash_decode_row_tile_cols())
 
 
-def _checked(what, q, k, v, q_pos, kv_valid, L):
-    """The argument checks K4 and K5 share: bf16 with unit-stride, 16-byte
-    aligned head dims, head_dim 128, a group of at most 32 q-heads per
-    kv-head (the split path's 32 rows hold every head of a group at s = 1),
-    one position per query token, a row-contiguous (B, L) validity mask.
-    Returns (library, rows per kv-head, q_pos int32, kv_valid bool)."""
+def _checked(what, q, k, v, q_pos, kv_valid, L, kv_dtype=torch.bfloat16):
+    """The argument checks K4, K5 and K5q share: bf16 q and ``kv_dtype``
+    k/v (int8 for K5q) on q's device with unit-stride, 16-byte aligned
+    head dims, head_dim 128, a group of at most 32 q-heads per kv-head (the
+    split path's 32 rows hold every head of a group at s = 1), one position
+    per query token, a row-contiguous (B, L) validity mask. Returns
+    (library, rows per kv-head, q_pos int32, kv_valid bool)."""
     b, s, h, d = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what} takes bf16 {name}, got {t.dtype}")
-        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) or t.data_ptr() % 16:
+    for name, t, dt in (("q", q, torch.bfloat16), ("k", k, kv_dtype), ("v", v, kv_dtype)):
+        if t.dtype != dt or t.device != q.device:
+            raise TypeError(f"{what} takes {dt} {name} on q's device, got {t.dtype} on {t.device}")
+        if (t.stride(-1) != 1 or any(st * t.element_size() % 16 for st in t.stride()[:-1])
+                or t.data_ptr() % 16):
             raise ValueError(f"{name} must have a unit-stride, 16-byte aligned head dim")
     lib = _decode_lib()
     if d != lib.head_dim:
@@ -337,7 +350,8 @@ def _paged_kernel_call(q, k_pool, v_pool, block_table, q_pos, kv_valid, page_siz
 
 
 def paged_flash_decode_fwd(q, k_pool, v_pool, block_table, q_pos, kv_valid=None,
-                           page_size: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+                           page_size: int = 16, k_scale=None, v_scale=None
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of paged cached decode attention: q (B, s, H, D) rows
     at logical positions ``q_pos`` (s,) attend each slot's cache read
     straight from the single-layer pools ``k_pool``/``v_pool`` (P,
@@ -348,12 +362,17 @@ def paged_flash_decode_fwd(q, k_pool, v_pool, block_table, q_pos, kv_valid=None,
     128) or raise; CPU tensors run the plain version. ``launches`` counts
     the calls that launched K5 (its range grid and its merge, or its
     multi-row kernel: one launch each call), ``multi_row_launches`` those
-    of them that took the multi-row path."""
+    of them that took the multi-row path. With ``k_scale``/``v_scale`` (P,
+    1, Hkv, 1) the pools are int8 and the call goes to
+    :func:`qpaged_flash_decode_fwd` (K5q), which counts its own launches."""
     if q.shape[2] % k_pool.shape[2] != 0:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads {k_pool.shape[2]}")
     if k_pool.dim() != 4 or k_pool.shape[1] != page_size or v_pool.shape != k_pool.shape:
         raise ValueError(f"pools must be (P, {page_size}, Hkv, D) and alike, got "
                          f"{tuple(k_pool.shape)} and {tuple(v_pool.shape)}")
+    if k_scale is not None or v_scale is not None:
+        return qpaged_flash_decode_fwd(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos,
+                                       kv_valid, page_size)
     if q.device.type == "cpu":
         return paged_flash_decode_plain(q, k_pool, v_pool, block_table, q_pos, kv_valid,
                                         page_size)
@@ -368,8 +387,141 @@ paged_flash_decode_fwd.launches = paged_flash_decode_fwd.multi_row_launches = 0
 
 def paged_flash_decode_attention(q, k_pool, v_pool, block_table, q_pos: torch.Tensor,
                                  kv_valid: Optional[torch.Tensor] = None,
-                                 page_size: int = 16) -> torch.Tensor:
+                                 page_size: int = 16, k_scale=None, v_scale=None
+                                 ) -> torch.Tensor:
     """Paged cached decode attention output (B, s, H, D) — the JAX public
-    API (``paged_flash_decode_attention``, ``flash_decode.py:532``)."""
+    API (``paged_flash_decode_attention``, ``flash_decode.py:532``); with
+    ``k_scale``/``v_scale``, over an int8 pool (K5q)."""
     return paged_flash_decode_fwd(q, k_pool, v_pool, block_table, q_pos, kv_valid,
-                                  page_size)[0]
+                                  page_size, k_scale, v_scale)[0]
+
+
+# --- quantized KV pages: the helpers and K5q ---------------------------------
+#
+# An int8 pool leaf (..., P, page_size, Hkv, D) has a scale leaf (..., P, 1,
+# Hkv, 1) in the compute dtype beside it (JAX ``paging.py:723-760``): a
+# page's kv-head h holds ``bf16(q * scale)``.
+
+KV_QMAX = 127.0  # int8 symmetric clamp bound
+
+
+def quantize_page_block(pages: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Float page blocks (..., n, page_size, Hkv, D) as int8 with a
+    symmetric scale per (page, kv-head), (..., n, 1, Hkv, 1) in the
+    blocks' dtype (JAX ``quantize_page_block``, ``flash_decode.py:187``).
+    The scale is computed in f32 and CAST to the blocks' dtype before the
+    pages are quantized, so a dequantize-requantize round trip with an
+    unchanged absmax gives the same codes."""
+    pf = pages.to(torch.float32)
+    amax = pf.abs().amax(dim=(-3, -1), keepdim=True)
+    scale = (amax.clamp_min(1e-12) / KV_QMAX).to(pages.dtype)
+    q = torch.round(pf / scale.to(torch.float32)).clamp(-KV_QMAX, KV_QMAX).to(torch.int8)
+    return q, scale
+
+
+def dequantize_pages(pool_q: torch.Tensor, pool_scale: torch.Tensor) -> torch.Tensor:
+    """Page blocks (..., n, page_size, Hkv, D) from their int8 codes and
+    scales (..., n, 1, Hkv, 1), in the scales' dtype."""
+    return (pool_q.to(torch.float32) * pool_scale.to(torch.float32)).to(pool_scale.dtype)
+
+
+def paged_read_pages_leaf(pool: torch.Tensor, page_ids: torch.Tensor) -> torch.Tensor:
+    """``n`` physical pages of one pool leaf as one contiguous block (...,
+    n * page_size, Hkv, D) (JAX ``paged_read_pages_leaf``,
+    ``flash_decode.py:160``). A copy."""
+    pax = pool.dim() - 4
+    out = pool.index_select(pax, page_ids.reshape(-1).to(torch.long))
+    return out.reshape(*pool.shape[:pax], -1, *pool.shape[pax + 2:])
+
+
+def paged_gather_leaf_dequant(pool_q: torch.Tensor, pool_scale: torch.Tensor,
+                              block_table: torch.Tensor, page_size: int) -> torch.Tensor:
+    """The DEQUANTIZED logical view (..., B, n_log * page_size, Hkv, D) of
+    an int8 pool leaf, in the scale leaf's dtype (JAX
+    ``paged_gather_leaf_dequant``, ``flash_decode.py:201``)."""
+    col = pool_q.dim() - 4 + 1
+    q = paged_gather_leaf(pool_q, block_table, page_size)
+    s = paged_gather_leaf(pool_scale, block_table, 1).repeat_interleave(page_size, dim=col)
+    return dequantize_pages(q, s)
+
+
+def paged_read_pages_leaf_dequant(pool_q: torch.Tensor, pool_scale: torch.Tensor,
+                                  page_ids: torch.Tensor, page_size: int) -> torch.Tensor:
+    """``n`` physical pages of an int8 pool leaf as one contiguous
+    DEQUANTIZED block (..., n * page_size, Hkv, D) in the scale leaf's
+    dtype (JAX ``paged_read_pages_leaf_dequant``, ``flash_decode.py:218``):
+    a copy-on-write prefix hit's view of its shared pages."""
+    pax = pool_q.dim() - 4
+    q = paged_read_pages_leaf(pool_q, page_ids)
+    s = paged_read_pages_leaf(pool_scale, page_ids).repeat_interleave(page_size, dim=pax)
+    return dequantize_pages(q, s)
+
+
+def paged_flash_decode_plain_q(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos,
+                               kv_valid=None, page_size: int = 16
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5q's arithmetic in plain PyTorch: the dequantized logical view
+    (:func:`paged_gather_leaf_dequant`), then :func:`flash_decode_plain`."""
+    k = paged_gather_leaf_dequant(k_pool, k_scale, block_table, page_size)
+    v = paged_gather_leaf_dequant(v_pool, v_scale, block_table, page_size)
+    return flash_decode_plain(q, k, v, q_pos, kv_valid)
+
+
+def _qpaged_kernel_call(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos, kv_valid,
+                        page_size):
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    b, s, h, d = q.shape
+    hkv, n_log = k_pool.shape[2], block_table.shape[1]
+    if page_size < 1 or 128 % page_size:
+        raise ValueError(f"K5q takes a page_size dividing 128, got {page_size}")
+    if (block_table.dtype != torch.int32 or block_table.device != q.device
+            or block_table.shape[0] != b or block_table.stride(1) != 1):
+        raise ValueError(f"block_table must be a row-contiguous ({b}, n_log) int32 tensor on q's device")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (t is None or t.dtype != torch.bfloat16 or t.device != q.device
+                or tuple(t.shape) != (k_pool.shape[0], 1, hkv, 1)):
+            raise ValueError(f"{name} must be a bf16 ({k_pool.shape[0]}, 1, {hkv}, 1) tensor on "
+                             "q's device")
+    L = n_log * page_size
+    lib, r, q_pos, kv_valid = _checked("K5q", q, k_pool, v_pool, q_pos, kv_valid, L,
+                                       kv_dtype=torch.int8)
+    if r > lib.max_rows:
+        raise ValueError(f"K5q takes at most {lib.max_rows} rows per kv-head (group x s), got {r}")
+    out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    lse, work_o, work_lse = _workspace(lib, b, hkv, r, L, q.device)
+    err = lib.k5q(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
+        v_scale.data_ptr(), out.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
+        kv_valid.data_ptr() if kv_valid is not None else None, block_table.data_ptr(),
+        work_o, work_lse,
+        b, s, h, hkv, n_log, page_size.bit_length() - 1, k_pool.shape[0],
+        *q.stride()[:3], *k_pool.stride()[:3], *v_pool.stride()[:3],
+        k_scale.stride(0), k_scale.stride(2), v_scale.stride(0), v_scale.stride(2),
+        *out.stride()[:3], kv_valid.stride(0) if kv_valid is not None else 0,
+        block_table.stride(0), 1.0 / math.sqrt(d), _build.stream_ptr(q.device),
+    )
+    _build.check(err, "qpaged_flash_decode_fwd")
+    return out, lse
+
+
+def qpaged_flash_decode_fwd(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos,
+                            kv_valid=None, page_size: int = 16
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(out, lse)`` of paged decode attention over int8 pools ``k_pool``/
+    ``v_pool`` (P, page_size, Hkv, D) with their scales (P, 1, Hkv, 1) in
+    the compute dtype; otherwise as :func:`paged_flash_decode_fwd`. CUDA
+    tensors launch K5q (bf16 q and scales, head_dim 128, at most 32 rows
+    per kv-head) or raise; CPU tensors run :func:`paged_flash_decode_plain_q`.
+    ``launches`` counts the calls that launched K5q (its range grid and its
+    merge)."""
+    if q.device.type == "cpu":
+        return paged_flash_decode_plain_q(q, k_pool, v_pool, k_scale, v_scale, block_table,
+                                          q_pos, kv_valid, page_size)
+    out = _qpaged_kernel_call(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos,
+                              kv_valid, page_size)
+    qpaged_flash_decode_fwd.launches += 1
+    return out
+
+
+qpaged_flash_decode_fwd.launches = 0

@@ -4,7 +4,11 @@ param tree, as nested dicts of numpy arrays, becomes the port's state dict.
 Flax ``kernel`` leaves are ``(in, out)``; torch ``weight`` is ``(out, in)``.
 Both layer layouts of the JAX model are read: unscanned ``layers_<i>`` and
 ``scan_layers=True``'s ``layers/layer/...`` with a leading layer axis
-(``llama.py:373-383``).
+(``llama.py:373-383``). A quantized tree (``quantize_param_tree``'s output:
+an int8/fp8 ``kernel`` with a ``scale`` beside it) keeps its codes, bit for
+bit, as the weight of a model built with the same ``quantization`` config;
+its ``(1, out)`` scale becomes ``(out,)`` (a per-tensor scale stays a
+scalar).
 """
 
 from __future__ import annotations
@@ -41,26 +45,58 @@ def _tensor(arr: np.ndarray, kernel: bool) -> torch.Tensor:
     return torch.from_numpy(np.array(arr.T if kernel else arr, order="C"))
 
 
+def _codes(arr: np.ndarray) -> torch.Tensor:
+    """An int8 or fp8 e4m3 kernel (in, out) as the port's (out, in) codes,
+    bit for bit (numpy has no fp8: its bytes cross as uint8)."""
+    arr = np.ascontiguousarray(np.asarray(arr).T)
+    if arr.dtype == np.int8:
+        return torch.from_numpy(arr)
+    if arr.dtype.name != "float8_e4m3fn":
+        raise TypeError(f"quantized kernel of dtype {arr.dtype}")
+    return torch.from_numpy(arr.view(np.uint8)).view(torch.float8_e4m3fn)
+
+
+def _linear_entries(node, name: str, index=None) -> Dict[str, torch.Tensor]:
+    """The port's entries of one flax linear ``node`` (``{"kernel"}``, or
+    ``{"kernel", "scale"}`` when quantized) under ``name`` (``...weight``);
+    ``index`` picks a layer of a scanned stack."""
+    def leaf(key):
+        arr = np.asarray(node[key])
+        return arr if index is None else arr[index]
+
+    if "scale" not in node:
+        return {name: _tensor(leaf("kernel"), True)}
+    scale = np.asarray(leaf("scale"), dtype=np.float32)
+    return {name: _codes(leaf("kernel")),
+            name[: -len("weight")] + "scale": torch.from_numpy(
+                np.array(scale.reshape(-1) if scale.ndim else scale))}
+
+
 def flax_to_torch(params_np, config: LlamaConfig) -> Dict[str, torch.Tensor]:
-    """State dict (fp32 CPU tensors) for ``LlamaForCausalLM(config)`` from
-    the JAX ``LlamaForCausalLM`` params (``{"params": ...}`` or the inner
-    tree). ``load_state_dict`` then casts each weight to its stored dtype —
+    """State dict (fp32 CPU tensors, quantized codes and f32 scales for a
+    quantized tree) for ``LlamaForCausalLM(config)`` from the JAX
+    ``LlamaForCausalLM`` params (``{"params": ...}`` or the inner tree). ``load_state_dict`` then casts each weight to its stored dtype —
     the same rounding as the JAX ``astype`` before use."""
     tree = params_np.get("params", params_np)
     mdl = tree["model"]
     sd = {
         "model.embed.weight": _tensor(_leaf(mdl, ("embed", "embedding")), False),
         "model.final_norm.weight": _tensor(_leaf(mdl, ("final_norm", "weight")), False),
-        "lm_head.weight": _tensor(_leaf(tree, ("lm_head", "kernel")), True),
+        **_linear_entries(tree["lm_head"], "lm_head.weight"),
     }
     scanned = "layers" in mdl
     for i in range(config.num_layers):
+        layer = mdl["layers"]["layer"] if scanned else mdl[f"layers_{i}"]
+        index = i if scanned else None
         for path, name in _LAYER_LEAVES.items():
-            if scanned:
-                arr = _leaf(mdl, ("layers", "layer") + path)[i]
+            if path[-1] == "kernel":
+                node = layer
+                for key in path[:-1]:
+                    node = node[key]
+                sd.update(_linear_entries(node, f"model.layers.{i}.{name}", index))
             else:
-                arr = _leaf(mdl, (f"layers_{i}",) + path)
-            sd[f"model.layers.{i}.{name}"] = _tensor(arr, path[-1] == "kernel")
+                arr = _leaf(layer, path)
+                sd[f"model.layers.{i}.{name}"] = _tensor(arr if index is None else arr[i], False)
     return sd
 
 

@@ -12,6 +12,11 @@ JAX layers cast to, frozen; a model built with ``trainable=True`` keeps fp32
 masters (``param_dtype``) that it casts before each product, as JAX does
 (``parallel/layers.py``). Norms are fp32 either way; RMSNorm and RoPE
 compute in f32 and attention inside the kernels in f32, as in JAX. With
+``config.quantization`` (a ``QuantizationConfig``) every linear, lm_head
+included, holds int8/fp8 weights with f32 scales and dequantizes them for
+each product (JAX ``llama.py:61``); the embedding stays in the compute
+dtype. Such a model serves only (``ServingEngine(quantize=)`` builds one
+from a float model). With
 ``remat`` each decoder layer of a differentiated train-mode forward runs
 under activation checkpointing (JAX ``nn.remat``, policy ``None``).
 """
@@ -43,6 +48,7 @@ from neuronx_distributed_tpu_torch.parallel.layers import (
     ParallelEmbedding,
     RowParallelLinear,
 )
+from neuronx_distributed_tpu_torch.quantization.config import QuantizationConfig
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
 MODES = ("train", "prefill", "decode")
@@ -63,6 +69,8 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     remat: bool = True  # activation checkpointing per decoder layer (training)
+    # weight-only serving quantization of every linear (not the embedding)
+    quantization: Optional[QuantizationConfig] = None
 
     @property
     def head_dim_(self) -> int:
@@ -106,12 +114,18 @@ def _weights(cfg: LlamaConfig, device, trainable: bool) -> dict:
                 trainable=trainable)
 
 
+def _linear(cfg: LlamaConfig, device, trainable: bool) -> dict:
+    """Storage options of the linears: the weights' plus the quantization
+    config."""
+    return dict(_weights(cfg, device, trainable), quantization_config=cfg.quantization)
+
+
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, device, trainable: bool = False):
         super().__init__()
         cfg = self.config = config
         d = cfg.head_dim_
-        w = _weights(cfg, device, trainable)
+        w = _linear(cfg, device, trainable)
         self.qkv = GQAQKVColumnParallelLinear(
             cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, d, **w)
         self.o_proj = RowParallelLinear(cfg.num_heads * d, cfg.hidden_size, use_bias=False, **w)
@@ -146,7 +160,7 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device, trainable: bool = False):
         super().__init__()
         cfg = config
-        common = dict(use_bias=False, **_weights(cfg, device, trainable))
+        common = dict(use_bias=False, **_linear(cfg, device, trainable))
         self.gate_proj = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size, **common)
         self.up_proj = ColumnParallelLinear(cfg.hidden_size, cfg.intermediate_size, **common)
         self.down_proj = RowParallelLinear(cfg.intermediate_size, cfg.hidden_size, **common)
@@ -242,7 +256,7 @@ class LlamaForCausalLM(nn.Module):
         self.model = LlamaModel(config, device, trainable)
         self.lm_head = ColumnParallelLinear(config.hidden_size, config.vocab_size,
                                             use_bias=False,
-                                            **_weights(config, device, trainable))
+                                            **_linear(config, device, trainable))
 
     @property
     def device(self) -> torch.device:
@@ -254,14 +268,17 @@ class LlamaForCausalLM(nn.Module):
         return KVCache.allocate(cfg.num_layers, batch, cfg.max_seq_len,
                                 cfg.num_kv_heads, cfg.head_dim_, cfg.dtype, self.device)
 
-    def new_paged_cache(self, batch: int, num_pages: int, page_size: int) -> PagedKVCache:
+    def new_paged_cache(self, batch: int, num_pages: int, page_size: int,
+                        kv_quant: Optional[str] = None) -> PagedKVCache:
         """A zeroed paged cache for this model on its device: a pool of
         ``num_pages`` pages of ``page_size`` columns per layer and a
-        ``(batch, max_seq_len // page_size)`` block table of null pages."""
+        ``(batch, max_seq_len // page_size)`` block table of null pages;
+        ``kv_quant="int8"`` makes the pool int8 with scales."""
         cfg = self.config
         return PagedKVCache.allocate(cfg.num_layers, batch, cfg.max_seq_len,
                                      cfg.num_kv_heads, cfg.head_dim_, cfg.dtype, self.device,
-                                     num_pages=num_pages, page_size=page_size)
+                                     num_pages=num_pages, page_size=page_size,
+                                     kv_quant=kv_quant)
 
     def forward(self, input_ids, mode: str = "train", cache: Optional[KVCache] = None,
                 positions=None, segment_ids=None, padding_mask=None,
@@ -347,6 +364,22 @@ def early_exit_draft(model: LlamaForCausalLM, draft_layers: int, eps: float):
     draft = _bind(LlamaForCausalLM(d_cfg, device="meta", trainable=model.trainable),
                   {**d_sd, **freqs})
     return target, draft
+
+
+def quantize_model(model: LlamaForCausalLM, qcfg: QuantizationConfig) -> LlamaForCausalLM:
+    """A serving :class:`LlamaForCausalLM` with ``qcfg`` quantized weights
+    made from the float ``model`` (the JAX engine's quantized clone and
+    ``quantize_param_tree``, ``serving/engine.py:536-557``): every linear's
+    codes and scales are new tensors (``quantize_state_dict``); the
+    embedding, the norms and the RoPE table are ``model``'s own, by
+    reference. ``model`` is left as it was."""
+    from neuronx_distributed_tpu_torch.quantization.utils import quantize_state_dict
+
+    if model.config.quantization is not None:
+        raise ValueError("model already carries a quantization config")
+    sd = quantize_state_dict(model.state_dict(keep_vars=True), qcfg)
+    cfg = dataclasses.replace(model.config, quantization=qcfg)
+    return _bind(LlamaForCausalLM(cfg, device="meta"), {**sd, "model.freqs": model.model.freqs})
 
 
 @torch.no_grad()

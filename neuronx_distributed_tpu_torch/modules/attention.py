@@ -23,9 +23,12 @@ import torch
 
 from neuronx_distributed_tpu_torch.kernels.flash_attention import flash_attention
 from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+    dequantize_pages,
     flash_decode_attention,
     paged_flash_decode_attention,
     paged_gather_leaf,
+    paged_read_pages_leaf_dequant,
+    quantize_page_block,
 )
 
 NEG_INF = -1e30
@@ -285,33 +288,63 @@ class PagedKVCache(KVCache):
     is the logical column this object's column 0 maps to (a slot's view,
     :meth:`view`, which prefills and suffix prefills write through), and
     ``row_valid`` the validity of the whole logical rows, which K5 reads
-    beside the table."""
+    beside the table.
+
+    An int8 pool (``kv_quant="int8"``; JAX ``PagedCacheManager(kv_quant=)``,
+    ``paging.py:723-760``) holds int8 ``k``/``v`` and the scale pools
+    ``k_scale``/``v_scale`` (num_layers, num_pages, 1, Hkv, 1) in the
+    compute dtype, one scale a (page, kv-head). A write re-quantizes every
+    page it touches, by JAX's ``scatter_cache_window`` rule
+    (``modules/attention.py:544-593``): the page dequantized, the new rows
+    put in, the page quantized again (:func:`quantize_page_block`); pages
+    outside the write keep their bits. JAX re-quantizes a decode chunk's
+    window once, at the chunk's end, and attends the chunk's own tokens in
+    float; here each step's write quantizes, since K5q reads the pool, so
+    the stream does not depend on the chunk size. The page manager zeroes a
+    page when it maps it (:meth:`clear_pages`), so a page's scale sees the
+    rows JAX's page would hold and no earlier request's. Decode attends the
+    pool through K5q."""
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
                  block_table: torch.Tensor, page_size: int, index: int = 0, col0: int = 0,
-                 row_valid: Optional[torch.Tensor] = None):
+                 row_valid: Optional[torch.Tensor] = None,
+                 k_scale: Optional[torch.Tensor] = None, v_scale: Optional[torch.Tensor] = None):
         super().__init__(k, v, valid, index)
         self.block_table, self.page_size, self.col0 = block_table, page_size, col0
         self.row_valid = valid if row_valid is None else row_valid
+        self.k_scale, self.v_scale = k_scale, v_scale
         self._dst = None  # (pages, rows) of this step's writes, set once per forward
+        self._win = None  # an int8 pool's write window: (pages, columns), set with _dst
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @classmethod
     def allocate(cls, num_layers: int, b: int, max_seq_len: int, hkv: int, d: int,
                  dtype: torch.dtype, device, num_pages: int,
-                 page_size: int = 16) -> "PagedKVCache":
+                 page_size: int = 16, kv_quant: Optional[str] = None) -> "PagedKVCache":
         if page_size < 1 or max_seq_len % page_size:
             raise ValueError(f"max_seq_len ({max_seq_len}) must be a multiple of "
                              f"page_size ({page_size})")
         if num_pages < 2:
             raise ValueError(f"num_pages must be >= 2 (page 0 is reserved), got {num_pages}")
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"unknown KV quantization {kv_quant!r} (expected 'int8' or None)")
         # zeros, as KVCache: masked columns still enter P·V with weight 0
         shape = (num_layers, num_pages, page_size, hkv, d)
+        pool = torch.int8 if kv_quant else dtype
+        scales = {}
+        if kv_quant:
+            sshape = (num_layers, num_pages, 1, hkv, 1)
+            scales = dict(k_scale=torch.zeros(sshape, dtype=dtype, device=device),
+                          v_scale=torch.zeros(sshape, dtype=dtype, device=device))
         return cls(
-            torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=pool, device=device),
+            torch.zeros(shape, dtype=pool, device=device),
             torch.zeros((b, max_seq_len), dtype=torch.bool, device=device),
             torch.zeros((b, max_seq_len // page_size), dtype=torch.int32, device=device),
-            page_size,
+            page_size, **scales,
         )
 
     def upload_table(self, tables) -> None:
@@ -324,13 +357,27 @@ class PagedKVCache(KVCache):
         ``start``; writes through it land in this cache's pool and validity."""
         return PagedKVCache(self.k, self.v, self.valid[rows, start:], self.block_table[rows],
                             self.page_size, col0=self.col0 + start,
-                            row_valid=self.row_valid[rows])
+                            row_valid=self.row_valid[rows], k_scale=self.k_scale,
+                            v_scale=self.v_scale)
 
     def _address(self, cols: torch.Tensor) -> None:
         """Physical (page, row) of this object's columns ``cols`` (a device
-        tensor) in every row, for the writes of the forward about to run."""
+        tensor) in every row, for the writes of the forward about to run.
+        An int8 pool also gets its write window: the physical pages of the
+        logical pages the columns can touch (one for a single column; else,
+        wherever they start, ``(s - 1) // page_size + 2``; past the table's
+        end: the null page) and the columns' places in it. Device tensors
+        only, from the table and the cursor: a captured step replays it."""
         cols = cols + self.col0
-        self._dst = (self.block_table[:, cols // self.page_size].long(), cols % self.page_size)
+        ps = self.page_size
+        self._dst = (self.block_table[:, cols // ps].long(), cols % ps)
+        if self.quantized:
+            n_log = self.block_table.shape[1]
+            n_win = 1 if cols.numel() == 1 else (cols.numel() - 1) // ps + 2
+            first = cols[:1] // ps
+            lp = first + torch.arange(n_win, device=cols.device)
+            pages = self.block_table[:, lp.clamp(max=n_log - 1)].long()
+            self._win = (torch.where(lp < n_log, pages, 0), cols - first * ps)
 
     def prefill_valid(self, padding_mask: Optional[torch.Tensor], s: int) -> None:
         super().prefill_valid(padding_mask, s)
@@ -344,25 +391,69 @@ class PagedKVCache(KVCache):
 
     def decode_write(self, layer: int, k: torch.Tensor, v: torch.Tensor) -> None:
         """Write one layer's K/V (B, s, Hkv, D) at the columns the forward
-        addressed (:meth:`prefill_valid` or :meth:`decode_positions`)."""
+        addressed (:meth:`prefill_valid` or :meth:`decode_positions`); on an
+        int8 pool, re-quantize the pages of the write window."""
+        if self.quantized:
+            self._write_quantized(self.k[layer], self.k_scale[layer], k)
+            self._write_quantized(self.v[layer], self.v_scale[layer], v)
+            return
         pages, rows = self._dst
         self.k[layer][pages, rows] = k
         self.v[layer][pages, rows] = v
 
     prefill_write = decode_write
 
+    def _write_quantized(self, pool: torch.Tensor, scale: torch.Tensor, x: torch.Tensor) -> None:
+        """One int8 pool leaf's write of ``x`` (B, s, Hkv, D): the window's
+        pages dequantized (B, n_win * page_size, Hkv, D), ``x`` put in at
+        its columns, the pages quantized and written back. Rows that share
+        the null page write it in any order; nothing reads it."""
+        pages, cols = self._win
+        b, n_win = pages.shape
+        block = dequantize_pages(pool[pages], scale[pages])
+        block.view(b, n_win * self.page_size, *block.shape[3:]).index_copy_(1, cols, x)
+        q, s = quantize_page_block(block)
+        pool[pages] = q
+        scale[pages] = s
+
+    def clear_pages(self, ids) -> None:
+        """Zero pages ``ids`` of an int8 pool, codes and scales, in every
+        layer (the page manager maps them next)."""
+        if not self.quantized or len(ids) == 0:
+            return
+        idx = torch.as_tensor(ids, dtype=torch.long, device=self.k.device)
+        for t in (self.k, self.v, self.k_scale, self.v_scale):
+            t[:, idx] = 0
+
     def attend(self, layer: int, q: torch.Tensor, q_pos: torch.Tensor,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Decode attention of q (B, s, H, D) at this object's columns
         ``q_pos`` straight from this layer's pools, over the whole logical
-        rows: K5's wrapper. A tree ``mask`` needs a row cache (Medusa
-        decodes solo, on a row cache, in JAX as here)."""
+        rows: K5's wrapper (K5q on an int8 pool). A tree ``mask`` needs a
+        row cache (Medusa decodes solo, on a row cache, in JAX as here)."""
         if mask is not None:
             raise ValueError("tree attention (a decode mask) runs on a row KVCache")
         if self.col0:
             q_pos = q_pos + self.col0
+        scales = (dict(k_scale=self.k_scale[layer], v_scale=self.v_scale[layer])
+                  if self.quantized else {})
         return paged_flash_decode_attention(q, self.k[layer], self.v[layer], self.block_table,
-                                            q_pos, self.row_valid, self.page_size)
+                                            q_pos, self.row_valid, self.page_size, **scales)
+
+    def dequantized_row(self, page_ids, m: int, length: int) -> KVCache:
+        """A batch-1 float row cache of ``length`` columns whose first ``m``
+        hold the first ``m`` tokens of int8 pool pages ``page_ids``,
+        dequantized (JAX ``_seed_from_pages``, ``paging.py:324-369``): valid
+        there, invalid after, its cursor at ``m``. A copy; the pool is only
+        read."""
+        n_layers, _, _, hkv, d = self.k.shape
+        row = KVCache.allocate(n_layers, 1, length, hkv, d, self.k_scale.dtype, self.k.device)
+        ids = torch.as_tensor(page_ids, dtype=torch.long, device=self.k.device)
+        for dst, pool, scale in ((row.k, self.k, self.k_scale), (row.v, self.v, self.v_scale)):
+            dst[:, 0, :m] = paged_read_pages_leaf_dequant(pool, scale, ids, self.page_size)[:, :m]
+        row.valid[:, :m] = True
+        row.index = m
+        return row
 
 
 def gather_cache_pages(cache: PagedKVCache, layer: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -4,12 +4,13 @@
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from neuronx_distributed_tpu_torch.parallel.layers import ColumnParallelLinear
+from neuronx_distributed_tpu_torch.quantization.config import QuantizationConfig
 
 
 class GQAQKVColumnParallelLinear(nn.Module):
@@ -18,10 +19,11 @@ class GQAQKVColumnParallelLinear(nn.Module):
     def __init__(self, hidden_size: int, num_heads: int, num_kv_heads: int,
                  head_dim: int, use_bias: bool = False,
                  dtype: torch.dtype = torch.float32, device=None,
-                 param_dtype: torch.dtype = torch.float32, trainable: bool = False):
+                 param_dtype: torch.dtype = torch.float32, trainable: bool = False,
+                 quantization_config: Optional[QuantizationConfig] = None):
         super().__init__()
         common = dict(use_bias=use_bias, dtype=dtype, device=device, param_dtype=param_dtype,
-                      trainable=trainable)
+                      trainable=trainable, quantization_config=quantization_config)
         self.q_proj = ColumnParallelLinear(hidden_size, num_heads * head_dim, **common)
         self.k_proj = ColumnParallelLinear(hidden_size, num_kv_heads * head_dim, **common)
         self.v_proj = ColumnParallelLinear(hidden_size, num_kv_heads * head_dim, **common)

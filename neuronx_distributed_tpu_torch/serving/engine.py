@@ -75,9 +75,25 @@ draft). Greedy streams equal the spec-off engine's; sampled slots emit one
 token a round, the plain step's draw. ``draft_model=None`` is the engine
 without speculation, unchanged.
 
+Quantized serving (``quantize=QuantConfig(weights=, kv=)``; JAX
+``engine.py:514-557``): ``weights="int8"``/``"fp8"`` serves a quantized
+copy of the model, made once at construction (``quantize_model``: every
+linear's weight as codes and per-channel scales; the embedding and norms
+shared with the caller's model), whose products dequantize their weight
+(DQ) before the GEMM; ``kv="int8"`` (needs ``kv_page_size=``) makes the page
+pool int8 with a scale per (page, kv-head), attended by K5q. A prefix hit
+on an int8 pool reads its shared pages into a float batch-1 row, prefills
+the suffix there (K4) and quantizes only the suffix's own pages into the
+slot's pages (JAX ``_seed_from_pages``): shared pages, codes and scales,
+are never written. The correctness contract is the JAX package's logit
+budget against the float model, not bit identity with it; within the port
+the quantized engines' streams equal solo ``generate`` on the quantized
+model. ``draft_model=`` with ``quantize=`` raises: the early-exit draft
+shares the target's tensors, which quantization replaces.
+
 Left out of this slice (not accepted, not silently ignored): the host page
 tier (spill and prefetch of prefix entries), page content fingerprints,
-quantization, tp/mesh, fault injection (and with it the speculative
+a weight swap, tp/mesh, fault injection (and with it the speculative
 dispatch's fallback to a plain chunk: a failed capture or replay raises),
 SLO scheduling, ledgers, tracing and profiling.
 """
@@ -101,6 +117,7 @@ from neuronx_distributed_tpu_torch.inference.generate import (
 from neuronx_distributed_tpu_torch.inference.spec_decode import speculative_chunk
 from neuronx_distributed_tpu_torch.inference.speculative import validate_spec_room
 from neuronx_distributed_tpu_torch.inference.utils import unwrap_logits
+from neuronx_distributed_tpu_torch.models.llama import quantize_model
 from neuronx_distributed_tpu_torch.modules.attention import (
     extract_cache_prefix,
     seed_cache_prefix,
@@ -206,6 +223,7 @@ class ServingEngine:
         prefix_cache="auto",
         draft_model=None,
         gamma: int = 4,
+        quantize=None,
     ):
         if admission not in ("conservative", "eager"):
             raise ValueError(f"unknown admission policy {admission!r}")
@@ -230,6 +248,8 @@ class ServingEngine:
             if draft_model.device != model.device:
                 raise ValueError(f"draft_model lives on {draft_model.device}, the target on "
                                  f"{model.device}")
+        if quantize is not None:
+            model = self._quantized(model, quantize, kv_page_size, draft_model)
         self.model = model
         self.device = model.device
         self.num_slots = num_slots
@@ -248,8 +268,9 @@ class ServingEngine:
         if kv_page_size is None:
             self.cache = SlotCacheManager(num_slots, model.new_cache(num_slots))
         else:
-            self.cache = PagedCacheManager.for_model(model, num_slots, kv_page_size,
-                                                     kv_num_pages)
+            self.cache = PagedCacheManager.for_model(
+                model, num_slots, kv_page_size, kv_num_pages,
+                kv_quant=quantize.kv if quantize is not None else None)
         self.metrics = ServingMetrics(num_slots)
         # prefix cache: "auto" builds the standard store, an int sizes it (0
         # disables), None or a disabled store keeps the full-prefill path
@@ -291,6 +312,29 @@ class ServingEngine:
                 self._decode_model, draft_decode, decode_chunk_size, self.gamma,
                 self.max_seq_len, self.cache.cache, self.draft_cache.cache, self._state)
         self.host_reads = 0
+
+    @staticmethod
+    def _quantized(model, quantize, kv_page_size, draft_model):
+        """The model the engine serves under ``quantize`` (JAX
+        ``engine.py:528-557``, with its validation): ``model`` itself for
+        KV-only quantization, else its quantized copy."""
+        if quantize.kv is not None and kv_page_size is None:
+            raise ValueError("quantize.kv needs kv_page_size= (quantized KV is page-granular "
+                             "— the row layout stays float)")
+        if draft_model is not None:
+            raise ValueError("quantize= with draft_model= is not served yet: the early-exit "
+                             "draft shares the target's tensors, which quantization replaces")
+        qcfg = quantize.weight_qconfig()
+        if qcfg is None:
+            return model
+        cfg = getattr(model, "config", None)
+        if not hasattr(cfg, "quantization"):
+            raise ValueError("quantize.weights needs a model whose config carries a "
+                             f"'quantization' field (Llama); got {type(cfg).__name__}")
+        if cfg.quantization is not None:
+            raise ValueError("model already carries a quantization config — pass the float "
+                             "model (the engine quantizes) or drop quantize=")
+        return quantize_model(model, qcfg)
 
     def _reset_caches(self) -> None:
         """Rewind the cache and the draft twin in lockstep: every slot free,
@@ -622,9 +666,12 @@ class ServingEngine:
                     c0 = target - p + m_use
                     self.cache.assert_writable([slot], c0, c0 + chunk)
                 ids, _ = pack_padded_prompt(ctx[m_use:], chunk, pad_side="right")
-                logits = suffix_prefill_step(
-                    self._decode_model, row, torch.from_numpy(ids).to(self.device, torch.int64),
-                    p - m_use)
+                ids = torch.from_numpy(ids).to(self.device, torch.int64)
+                if self._page_size is not None and self.cache.cache.quantized:
+                    logits = self._suffix_prefill_dequantized(row, entry, m_use, chunk, ids,
+                                                              p, start)
+                else:
+                    logits = suffix_prefill_step(self._decode_model, row, ids, p - m_use)
             if self.draft_cache is not None:
                 # the draft context always full-prefills, on a prefix hit too:
                 # prefix entries hold target KV only
@@ -645,6 +692,28 @@ class ServingEngine:
                 self.metrics.record_prefix_pages_shared(m_shared // self._page_size)
             self._remember_prefix_paged(ctx, p, slot, m_shared)
         self._bind_slot(req, slot, logits, now)
+
+    def _suffix_prefill_dequantized(self, row, entry, m_use: int, chunk: int, ids, p: int,
+                                    start: int) -> torch.Tensor:
+        """A prefix hit's suffix prefill on an int8 pool (JAX
+        ``_seed_from_pages`` and the admission roll-in,
+        ``paging.py:277-369``): the hit's shared pages dequantized into a
+        float batch-1 row of ``m_use + chunk`` columns, the suffix prefilled
+        there (the decode kernels over a row: K4, multi-row above 32 rows),
+        then its ``p - m_use`` real columns written through the slot's view
+        ``row`` at ``start + m_use``, which quantizes the slot's own pages
+        alone. Returns the next-token logits."""
+        ps = self._page_size
+        frow = self.cache.cache.dequantized_row(entry.page_ids[:m_use // ps], m_use,
+                                                m_use + chunk)
+        logits = suffix_prefill_step(self._decode_model, frow, ids, p - m_use)
+        n = p - m_use
+        tail = row.view(slice(None), start + m_use)
+        tail._address(tail._cols[:n])
+        for layer in range(frow.k.shape[0]):
+            tail.decode_write(layer, frow.k[layer, :, m_use:p], frow.v[layer, :, m_use:p])
+        row.valid[:, start + m_use:start + p] = True
+        return logits
 
     # --- prefix reuse -------------------------------------------------------
 

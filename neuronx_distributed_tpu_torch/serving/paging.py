@@ -2,9 +2,10 @@
 ref-counted page pool (counterpart of
 ``neuronx_distributed_tpu/serving/paging.py``, what the engine calls:
 ``PageAllocator`` with page sharing and without quarantine,
-``PagedCacheManager`` with prefix pins and copy-on-write admission, and
-without staged contexts, export/import, spill/prefetch, slot quarantine or
-``kv_quant``, which belong to later slices together with their callers).
+``PagedCacheManager`` with prefix pins, copy-on-write admission and
+``kv_quant``, and without staged contexts, export/import, spill/prefetch
+or slot quarantine, which belong to later slices together with their
+callers).
 
 The row-per-slot manager (``serving/cache_manager.py``) charges every slot a
 full ``max_seq_len`` row of device memory whatever its request uses. Here:
@@ -38,6 +39,10 @@ full ``max_seq_len`` row of device memory whatever its request uses. Here:
   :meth:`PagedCacheManager.assert_writable` checks it before every write
   window (a pinned page under one raises). ``PageAllocator.copy_bytes``
   counts KV bytes duplicated on reuse: sharing never adds to it.
+* ``kv_quant="int8"`` allocates an int8 pool with a scale per (page,
+  kv-head) (``PagedKVCache``); every page the manager hands out is zeroed
+  first (codes and scales), so a recycled page's old rows never enter its
+  scale. Host accounting (tables, refs, pins) is the float pool's.
 """
 
 from __future__ import annotations
@@ -129,7 +134,7 @@ class PagedCacheManager:
     without one the manager keeps the books alone (the allocator tests)."""
 
     def __init__(self, num_slots: int, max_seq_len: int, page_size: int,
-                 num_pages: Optional[int] = None):
+                 num_pages: Optional[int] = None, kv_quant: Optional[str] = None):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if max_seq_len % page_size != 0:
@@ -145,6 +150,7 @@ class PagedCacheManager:
             # buy the packing
             num_pages = num_slots * self.pages_per_row + 1
         self.alloc = PageAllocator(num_pages)
+        self.kv_quant = kv_quant
         self.cache: Optional[PagedKVCache] = None
         self._free = list(range(num_slots))
         self._tables = np.zeros((num_slots, self.pages_per_row), np.int32)
@@ -157,10 +163,12 @@ class PagedCacheManager:
 
     @classmethod
     def for_model(cls, model, num_slots: int, page_size: int,
-                  num_pages: Optional[int] = None) -> "PagedCacheManager":
-        """A manager with a zeroed paged cache for ``model`` on its device."""
-        mgr = cls(num_slots, model.config.max_seq_len, page_size, num_pages)
-        mgr.cache = model.new_paged_cache(num_slots, mgr.alloc.num_pages, page_size)
+                  num_pages: Optional[int] = None,
+                  kv_quant: Optional[str] = None) -> "PagedCacheManager":
+        """A manager with a zeroed paged cache for ``model`` on its device
+        (an int8 pool with ``kv_quant="int8"``)."""
+        mgr = cls(num_slots, model.config.max_seq_len, page_size, num_pages, kv_quant)
+        mgr.cache = model.new_paged_cache(num_slots, mgr.alloc.num_pages, page_size, kv_quant)
         return mgr
 
     # --- accounting ---------------------------------------------------------
@@ -171,11 +179,23 @@ class PagedCacheManager:
 
     @property
     def nbytes(self) -> int:
-        """Device bytes of the pools and the block table (0 without a cache)."""
+        """Device bytes of the pools, an int8 pool's scales and the block
+        table (0 without a cache)."""
         if self.cache is None:
             return 0
         c = self.cache
-        return sum(t.numel() * t.element_size() for t in (c.k, c.v, c.block_table))
+        return sum(t.numel() * t.element_size()
+                   for t in (c.k, c.v, c.k_scale, c.v_scale, c.block_table) if t is not None)
+
+    @property
+    def page_nbytes(self) -> int:
+        """Device bytes of one page across layers: K and V, and an int8
+        pool's two scales (0 without a cache)."""
+        if self.cache is None:
+            return 0
+        c = self.cache
+        return sum(t[:, 0].numel() * t.element_size()
+                   for t in (c.k, c.v, c.k_scale, c.v_scale) if t is not None)
 
     @property
     def free_slots(self) -> int:
@@ -240,7 +260,10 @@ class PagedCacheManager:
         while self.alloc.free_pages < n and self.reclaim is not None:
             if not self.reclaim():
                 break
-        return self.alloc.alloc(n)
+        ids = self.alloc.alloc(n)
+        if self.cache is not None:
+            self.cache.clear_pages(ids)
+        return ids
 
     def slot_pages(self, slot: int) -> List[int]:
         row = self._tables[slot]

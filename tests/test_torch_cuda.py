@@ -11,7 +11,9 @@ sides round O last) and P|V| is the plain version on |V|, which bounds any
 difference in a row's P·V sum: K1 rounds P to bf16 for that product (2^-9
 per term), so c = 2^-8; K4 and K5 keep P in f32, so c = 2^-12. LSE 5e-4 —
 f32 on both sides, exp-sums in a different order. K5 must equal K4 on the
-gathered view bit for bit (the same tiles in the same order). Backward (K2, K3), the same
+gathered view bit for bit (the same tiles in the same order), and K5q
+(int8 pages) K4 on the dequantized gathered view; DQ equals its plain
+version bit for bit (one rounding of the same f32 product). Backward (K2, K3), the same
 form with the sum of term magnitudes in place of P|V| (P|dO| for dV,
 |dS||Q| for dK, |dS||K| for dQ, dS = P (dP - delta) scale): they round P
 and dS to bf16
@@ -398,9 +400,9 @@ def test_flash_decode_kernels_do_not_spill(cuda):
 
     report = _build.resource_report("flash_decode")
     entries = [line for line in report.splitlines() if "Compiling entry function" in line]
-    # K4 and K5 at R <= 4, 8, 16, 32, their merges, and their multi-row
-    # kernels (flash_decode_kernel_rows, paged_flash_decode_kernel_rows)
-    assert len(entries) == 12, report
+    # K4, K5 and K5q at R <= 4, 8, 16, 32, their merges, and the multi-row
+    # kernels of K4 and K5 (flash_decode_kernel_rows, paged_flash_decode_kernel_rows)
+    assert len(entries) == 17, report
     spills = [line for line in report.splitlines() if "spill" in line]
     assert len(spills) >= len(entries), report
     assert all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills), report
@@ -997,3 +999,131 @@ def test_medusa_round_is_one_captured_graph(cuda, monkeypatch):
         runs.append((toks.cpu(), stats.accept_lens, acc))
     assert torch.equal(runs[0][0], runs[1][0]) and runs[0][1:] == runs[1][1:]
     assert max(max(a) for a in runs[0][1]) >= 1, runs[0][1]
+
+
+def _qpaged_case(gen, s, ps):
+    """``_paged_case`` with its pools quantized to int8 pages and bf16
+    scales a (page, kv-head) (``quantize_page_block``): the null page's
+    codes and scales are garbage too."""
+    q, kp, vp, bt, pos, valid = _paged_case(gen, s, ps)
+    kq, ks = tfd.quantize_page_block(kp)
+    vq, vs = tfd.quantize_page_block(vp)
+    return q, kq, vq, ks, vs, bt, pos, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [8, 16])
+@pytest.mark.parametrize("s", [1, 2, 8])
+def test_qpaged_kernel_equals_k4_on_the_dequantized_view(cuda, s, ps):
+    """K5q (int8 pages, bf16 scales) through a scrambled table: within K5's
+    limits of its plain version (a dropped 128-column tile is not), equal
+    bit for bit to K4 on the dequantized gathered view, blind to the null
+    page, the same bits twice; one launch counted."""
+    q, kq, vq, ks, vs, bt, pos, valid = _qpaged_case(cuda, s, ps)
+    n, n5 = tfd.qpaged_flash_decode_fwd.launches, tfd.paged_flash_decode_fwd.launches
+    got, lse = tfd.paged_flash_decode_fwd(q, kq, vq, bt, pos, valid, ps, ks, vs)
+    assert tfd.qpaged_flash_decode_fwd.launches == n + 1
+    assert tfd.paged_flash_decode_fwd.launches == n5  # K5's counter is K5's alone
+    want, wlse = tfd.paged_flash_decode_plain_q(q, kq, vq, ks, vs, bt, pos, valid, ps)
+    pv = tfd.paged_flash_decode_plain_q(q, kq, vq.abs(), ks, vs, bt, pos, valid, ps)[0]
+    _assert_out_close(got, want, pv, 2.0 ** -12)
+    torch.testing.assert_close(lse, wlse, atol=5e-4, rtol=1e-4)
+    cut = valid.clone()
+    bound = int(pos.max()) + 1
+    cut[:, (bound - 1) // 128 * 128:bound] = False
+    fault = tfd.paged_flash_decode_plain_q(q, kq, vq, ks, vs, bt, pos, cut, ps)[0]
+    with pytest.raises(AssertionError):
+        _assert_out_close(fault, want, pv, 2.0 ** -12)
+    kg = tfd.paged_gather_leaf_dequant(kq, ks, bt, ps)
+    vg = tfd.paged_gather_leaf_dequant(vq, vs, bt, ps)
+    row, row_lse = tfd.flash_decode_fwd(q, kg, vg, pos, valid)
+    assert torch.equal(got, row) and torch.equal(lse, row_lse)
+    kq[0].random_(-127, 128, generator=cuda)
+    ks[0].normal_(generator=cuda)
+    vs[0].fill_(-1e4)
+    again, again_lse = tfd.paged_flash_decode_fwd(q, kq, vq, bt, pos, valid, ps, ks, vs)
+    assert torch.equal(got, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.cuda
+def test_qpaged_wrapper_refuses_what_k5q_does_not_take(cuda):
+    q, kq, vq, ks, vs, bt, pos, valid = _qpaged_case(cuda, 1, 16)
+    n = tfd.qpaged_flash_decode_fwd.launches
+    with pytest.raises(ValueError):  # f32 scales
+        tfd.paged_flash_decode_fwd(q, kq, vq, bt, pos, valid, 16, ks.float(), vs.float())
+    with pytest.raises(TypeError):  # bf16 pools with scales
+        tfd.paged_flash_decode_fwd(q, kq.bfloat16(), vq.bfloat16(), bt, pos, valid, 16, ks, vs)
+    with pytest.raises(ValueError):  # 64 rows a kv-head: no multi-row K5q
+        tfd.paged_flash_decode_fwd(_rnd(cuda, 3, 16, 8, 128), kq, vq, bt,
+                                   torch.arange(300, 316, dtype=torch.int32, device="cuda"),
+                                   valid, 16, ks, vs)
+    assert tfd.qpaged_flash_decode_fwd.launches == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fp8", [False, True])
+@pytest.mark.parametrize("per_tensor", [False, True])
+def test_dequantize_kernel_equals_plain(cuda, fp8, per_tensor):
+    """DQ turns int8 / fp8 e4m3 codes and f32 scales into the bf16 weight
+    bit for bit as ``(q.float() * scale).to(bf16)``; one launch counted."""
+    from neuronx_distributed_tpu_torch.kernels import dequantize as tdq
+
+    w = torch.randn(1000, 4096, generator=cuda, device="cuda") * 0.05
+    qdt = torch.float8_e4m3fn if fp8 else torch.int8
+    bound = 448.0 if fp8 else 127.0
+    scale = (w.abs().amax() if per_tensor else w.abs().amax(1)) / bound
+    scaled = (w / (scale if per_tensor else scale[:, None])).clamp(-bound, bound)
+    q = scaled.to(qdt) if fp8 else scaled.round().to(qdt)
+    n = tdq.dequantize_fwd.launches
+    got = tdq.dequantize_fwd(q, scale, torch.bfloat16)
+    assert tdq.dequantize_fwd.launches == n + 1
+    assert torch.equal(got, tdq.dequantize_plain(q, scale, torch.bfloat16))
+    with pytest.raises(TypeError):
+        tdq.dequantize_fwd(q, scale, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_quantized_engine_decodes_through_one_captured_graph(cuda, monkeypatch, kv):
+    """A small bf16 Llama (head_dim 128) behind a quantized engine: int8
+    weights on the row engine, int8 weights and an int8 pool (K5q) on the
+    paged one. One capture, replays = executed steps, one replay launches
+    the decode kernel once a layer and DQ once a linear; the streams equal
+    the same engine's with the eager step patched in, and every request
+    finishes (an eager preemption on the way)."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.inference.graphs import DecodeProgram
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512)
+    model = init_params(LlamaForCausalLM(cfg), seed=0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 1000, size=n) for n in (120, 40, 160)]
+    news = (360, 40, 120)
+    kw = dict(kv_page_size=16) if kv else {}
+    name = "qpaged_flash_decode" if kv else "flash_decode"
+    streams = []
+    for eager in (False, True):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(DecodeProgram, "__call__", lambda self: self.step())
+            engine = ServingEngine(model, num_slots=2, decode_chunk_size=8, admission="eager",
+                                   quantize=QuantConfig(weights="int8", kv=kv), **kw)
+            reqs = [engine.submit(p, GenerationConfig(n, temperature=0.0), seed=i)
+                    for i, (p, n) in enumerate(zip(prompts, news))]
+            engine.run()
+        snap = engine.metrics.snapshot()
+        assert snap["preemptions"] > 0
+        assert [len(r.tokens) for r in reqs] == list(news)
+        prog = engine.decode_program
+        if not eager:
+            assert engine.decode_compilations == 1 and prog.replays == snap["executed_steps"]
+            assert prog.launches_per_replay == {name: cfg.num_layers,
+                                                "dequantize": 7 * cfg.num_layers + 1}
+        if kv:
+            engine.cache.check()
+        streams.append([r.tokens for r in reqs])
+    assert streams[0] == streams[1]

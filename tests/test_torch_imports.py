@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import neuronx_distributed_tpu_torch as port
+from neuronx_distributed_tpu_torch.kernels import dequantize as tdq
 from neuronx_distributed_tpu_torch.kernels import flash_attention as tfa
 from neuronx_distributed_tpu_torch.kernels import flash_decode as tfd
 from neuronx_distributed_tpu_torch.models import llama as tllama
@@ -128,7 +129,8 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     q = torch.randn(1, 4, 2, 8)
     k = torch.randn(1, 4, 1, 8)
     counters = (tfa.flash_attention_fwd, tfa.flash_attention_dkdv, tfa.flash_attention_dq,
-                tfd.flash_decode_fwd, tfd.paged_flash_decode_fwd)
+                tfd.flash_decode_fwd, tfd.paged_flash_decode_fwd, tfd.qpaged_flash_decode_fwd,
+                tdq.dequantize_fwd)
     before = [f.launches for f in counters]
     out, lse = tfa.flash_attention_fwd(q, k, k)
     delta = (out * q).sum(-1).transpose(1, 2)
@@ -138,19 +140,25 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     tfd.paged_flash_decode_fwd(q[:, :1], k.reshape(2, 2, 1, 8), k.reshape(2, 2, 1, 8),
                                torch.tensor([[1, 0]], dtype=torch.int32), torch.tensor([1]),
                                page_size=2)
+    kq, ks = tfd.quantize_page_block(k.reshape(2, 2, 1, 8))
+    tfd.paged_flash_decode_fwd(q[:, :1], kq, kq, torch.tensor([[1, 0]], dtype=torch.int32),
+                               torch.tensor([1]), page_size=2, k_scale=ks, v_scale=ks)
+    tdq.dequantize_fwd(torch.ones(4, 16, dtype=torch.int8), torch.ones(4), torch.float32)
     assert [f.launches for f in counters] == before
     # the plain versions are called from their own wrappers and nowhere else
     # in the package (chip_smoke.py calls them only to check the kernels)
     for path in _sources():
-        if os.path.basename(path) in ("chip_smoke.py", "flash_attention.py", "flash_decode.py"):
+        if os.path.basename(path) in ("chip_smoke.py", "flash_attention.py", "flash_decode.py",
+                                      "dequantize.py"):
             continue
         with open(path) as f:
             src = f.read()
         for plain in ("flash_attention_plain", "flash_attention_dkdv_plain",
                       "flash_attention_dq_plain", "flash_decode_plain",
-                      "paged_flash_decode_plain"):
+                      "paged_flash_decode_plain", "paged_flash_decode_plain_q",
+                      "dequantize_plain"):
             assert plain not in src, (path, plain)
     # and no fallback: the kernel wrappers hold no try/except
-    for mod in (tfa, tfd):
+    for mod in (tfa, tfd, tdq):
         tree = ast.parse(open(mod.__file__).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod.__file__

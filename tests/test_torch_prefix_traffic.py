@@ -46,3 +46,24 @@ def test_chip_prefix_traffic_counts_match_jax():
         assert (snap["prefix_hits"], snap["prefix_misses"]) == (11, 1), kw
         for i in _greedy(cfgs):
             assert reqs[i].tokens == list(jreqs[i].tokens), (kw, i)
+
+
+def test_chip_prefix_traffic_on_an_int8_pool():
+    """``chip_smoke.py`` phase 5f(d): phase 5c's traffic through the paged
+    engine with int8 weights and an int8 page pool (16 slots, page 16, the
+    pool of phase 5c's bytes): 11 hits and 1 miss, as on the float pool;
+    zero KV bytes copied, ``check()`` clean after every step, and each
+    request's stream of its full length."""
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+
+    _, _, tmodel = build_pair(seed=21, max_seq_len=8192)
+    prompts, cfgs = chip_smoke.prefix_workload(tmodel.config.vocab_size)
+    eng = ServingEngine(tmodel, decode_chunk_size=8, num_slots=16, kv_page_size=16,
+                        kv_num_pages=2 * (4 * 8192 // 16 + 1),
+                        quantize=QuantConfig(weights="int8", kv="int8"))
+    reqs = _serve(eng, [prompts], cfgs, lambda e, p, g, i: e.submit(p, g, seed=i),
+                  lambda e: e.cache.check())
+    snap = eng.metrics.snapshot()
+    assert (snap["prefix_hits"], snap["prefix_misses"]) == (11, 1)
+    assert eng.cache.alloc.copy_bytes == 0
+    assert all(len(r.tokens) == c.max_new_tokens for r, c in zip(reqs, cfgs))
