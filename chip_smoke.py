@@ -696,7 +696,9 @@ def check_dq(gen) -> dict:
     quantized per output channel to int8 and to fp8 e4m3
     (``quantize_state_dict``'s rule), DQ bitwise equal to its plain version
     on both; its time (graph replay) against its bound, 3 bytes a weight
-    (1 read, 2 written), and the plain version's."""
+    (1 read, 2 written), the plain version's, and for int8 that of one
+    ``torch.mul(q, scale[:, None], out=bf16)``, held bitwise to the plain
+    version too."""
     from neuronx_distributed_tpu_torch.kernels.dequantize import dequantize_fwd, dequantize_plain
     from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
     from neuronx_distributed_tpu_torch.quantization.utils import direct_cast_quantize
@@ -707,13 +709,25 @@ def check_dq(gen) -> dict:
         q, scale = direct_cast_quantize(w, QuantConfig(weights=kind).weight_qconfig())
         scale = scale.reshape(-1)
         got = dequantize_fwd(q, scale, torch.bfloat16)
-        if not torch.equal(got, dequantize_plain(q, scale, torch.bfloat16)):
+        if not torch.equal(got, dequantize_plain(q, scale[:, None], torch.bfloat16)):
             raise AssertionError(f"DQ ({kind}) differs from its plain version (must be bitwise equal)")
         del got
         res[kind] = dict(ms=graph_ms(lambda: dequantize_fwd(q, scale, torch.bfloat16), 10),
-                         plain_ms=cuda_ms(lambda: dequantize_plain(q, scale, torch.bfloat16), 5,
-                                          warmup=1),
-                         err=0.0)
+                         plain_ms=cuda_ms(lambda: dequantize_plain(q, scale[:, None],
+                                                                   torch.bfloat16), 5, warmup=1),
+                         err=0.0, library_ms=None)
+        if kind == "int8":
+            # one TensorIterator call: int8 x f32 promotes to f32 and casts
+            # to the bf16 out inside the kernel; torch refuses to promote
+            # fp8 with f32, so the fp8 row has no such call
+            buf = torch.empty_like(q, dtype=torch.bfloat16)
+            lib = lambda: torch.mul(q, scale[:, None], out=buf)  # noqa: E731
+            lib()
+            if not torch.equal(buf, dequantize_plain(q, scale[:, None], torch.bfloat16)):
+                raise AssertionError("torch.mul(int8, f32, out=bf16) differs from DQ's plain "
+                                     "version (expected bitwise equal)")
+            res[kind]["library_ms"] = graph_ms(lib, 10)
+            del buf
         del q
         torch.cuda.empty_cache()
     nbytes = 3 * w.numel() + 4 * w.shape[0]
@@ -2800,7 +2814,9 @@ def main() -> int:
             f"out, a scale per row): bitwise equal to its plain version; kernel_ms "
             f"{dq[kind]['ms']:.4f} (graph replay) plain_ms {dq[kind]['plain_ms']:.4f} bound_ms "
             f"{dq['bound_ms']:.4f} ({dq['bound_by']}, 3 B a weight; {dq['bound_ms'] / dq[kind]['ms']:.3f} "
-            f"of it); library_ms null (no one PyTorch call computes it)")
+            f"of it); " + (f"library_ms {dq[kind]['library_ms']:.4f} (torch.mul(q, scale, "
+                           f"out=bf16), bitwise equal; graph replay)" if kind == "int8" else
+                           "library_ms null (torch.mul refuses to promote fp8 e4m3 with f32)"))
     torch.cuda.empty_cache()
     rows = {chunk: check_decode_rows(gen, chunk) for chunk in (16, 256, 512)}
     for chunk, r in rows.items():
@@ -3044,7 +3060,7 @@ def main() -> int:
              replaces="neuronx_distributed_tpu/quantization/layers.py:33",
              launches=launches["dequantize"], max_abs_err=0.0, ms=dq["int8"]["ms"],
              plain_ms=dq["int8"]["plain_ms"], bound_ms=dq["bound_ms"], bound_by=dq["bound_by"],
-             library_ms=None),
+             library_ms=dq["int8"]["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

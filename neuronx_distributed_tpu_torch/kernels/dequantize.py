@@ -6,6 +6,9 @@ dtype (no Pallas counterpart: XLA fuses JAX's dequantize,
 (bf16 out, one pass: 1 byte read and 2 written a weight) and runs
 :func:`dequantize_plain` for CPU tensors: ``(q.float() * scale).to(dtype)``,
 the arithmetic of JAX's ``quantized_matmul`` and of DQ bit for bit.
+:func:`dequantize_plain` is also the port's JAX ``dequantize``
+(``quantization/utils.py:120``) and the int8 KV pages' dequantize
+(``kernels/flash_decode.py``).
 """
 
 from __future__ import annotations
@@ -17,11 +20,11 @@ from types import SimpleNamespace
 import torch
 
 
-def dequantize_plain(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``(q * scale)`` in f32, cast to ``dtype``: ``q`` (out, in) codes,
-    ``scale`` (out,) per row or () per tensor."""
-    s = scale.reshape(-1, 1) if scale.dim() else scale
-    return (q.to(torch.float32) * s).to(dtype)
+def dequantize_plain(q: torch.Tensor, scale: torch.Tensor,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``(q * scale)`` in f32, cast to ``dtype``; ``scale`` broadcasts
+    against the codes ``q``."""
+    return (q.to(torch.float32) * scale.to(torch.float32)).to(dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,7 +68,7 @@ def dequantize_fwd(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> 
     a fresh tensor: in a captured step the caching allocator hands the
     next linear's call the block this one's product freed."""
     if q.device.type == "cpu":
-        return dequantize_plain(q, scale, dtype)
+        return dequantize_plain(q, scale.reshape(-1, 1) if scale.dim() else scale, dtype)
     if dtype != torch.bfloat16:
         raise TypeError(f"dequantize kernel writes bf16, got {dtype}")
     out = _kernel_call(q, scale, dtype)

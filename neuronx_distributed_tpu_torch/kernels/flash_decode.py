@@ -46,6 +46,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from neuronx_distributed_tpu_torch.kernels.dequantize import dequantize_plain
+
 NEG_INF = -1e30
 
 
@@ -419,12 +421,6 @@ def quantize_page_block(pages: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     return q, scale
 
 
-def dequantize_pages(pool_q: torch.Tensor, pool_scale: torch.Tensor) -> torch.Tensor:
-    """Page blocks (..., n, page_size, Hkv, D) from their int8 codes and
-    scales (..., n, 1, Hkv, 1), in the scales' dtype."""
-    return (pool_q.to(torch.float32) * pool_scale.to(torch.float32)).to(pool_scale.dtype)
-
-
 def paged_read_pages_leaf(pool: torch.Tensor, page_ids: torch.Tensor) -> torch.Tensor:
     """``n`` physical pages of one pool leaf as one contiguous block (...,
     n * page_size, Hkv, D) (JAX ``paged_read_pages_leaf``,
@@ -442,7 +438,7 @@ def paged_gather_leaf_dequant(pool_q: torch.Tensor, pool_scale: torch.Tensor,
     col = pool_q.dim() - 4 + 1
     q = paged_gather_leaf(pool_q, block_table, page_size)
     s = paged_gather_leaf(pool_scale, block_table, 1).repeat_interleave(page_size, dim=col)
-    return dequantize_pages(q, s)
+    return dequantize_plain(q, s, s.dtype)
 
 
 def paged_read_pages_leaf_dequant(pool_q: torch.Tensor, pool_scale: torch.Tensor,
@@ -454,7 +450,7 @@ def paged_read_pages_leaf_dequant(pool_q: torch.Tensor, pool_scale: torch.Tensor
     pax = pool_q.dim() - 4
     q = paged_read_pages_leaf(pool_q, page_ids)
     s = paged_read_pages_leaf(pool_scale, page_ids).repeat_interleave(page_size, dim=pax)
-    return dequantize_pages(q, s)
+    return dequantize_plain(q, s, s.dtype)
 
 
 def paged_flash_decode_plain_q(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos,

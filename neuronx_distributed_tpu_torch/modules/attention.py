@@ -23,7 +23,6 @@ import torch
 
 from neuronx_distributed_tpu_torch.kernels.flash_attention import flash_attention
 from neuronx_distributed_tpu_torch.kernels.flash_decode import (
-    dequantize_pages,
     flash_decode_attention,
     paged_flash_decode_attention,
     paged_gather_leaf,
@@ -410,8 +409,9 @@ class PagedKVCache(KVCache):
         the null page write it in any order; nothing reads it."""
         pages, cols = self._win
         b, n_win = pages.shape
-        block = dequantize_pages(pool[pages], scale[pages])
-        block.view(b, n_win * self.page_size, *block.shape[3:]).index_copy_(1, cols, x)
+        block = paged_read_pages_leaf_dequant(pool, scale, pages, self.page_size)
+        block = block.view(b, n_win, self.page_size, *pool.shape[2:])
+        block.view(b, n_win * self.page_size, *pool.shape[2:]).index_copy_(1, cols, x)
         q, s = quantize_page_block(block)
         pool[pages] = q
         scale[pages] = s

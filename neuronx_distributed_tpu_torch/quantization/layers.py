@@ -19,16 +19,11 @@ import torch.nn.functional as F
 from neuronx_distributed_tpu_torch.kernels.dequantize import dequantize_fwd
 
 
-def dequantize_weight(w_q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """The weight ``w_q`` (out, in) int8/fp8 with ``scale`` (out,) or ()
-    f32, as ``(w_q.float() * scale).to(dtype)``: DQ for CUDA tensors, the
-    plain version for CPU tensors."""
-    return dequantize_fwd(w_q, scale, dtype)
-
-
 def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                      out_dtype: torch.dtype, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x W^T (+ bias)`` with ``W`` dequantized to ``out_dtype`` (JAX
     ``quantized_matmul``, ``layers.py:33``, in torch's ``(out, in)``
-    layout)."""
-    return F.linear(x.to(out_dtype), dequantize_weight(w_q, scale, out_dtype), bias)
+    layout). ``w_q`` (out, in) int8/fp8 with ``scale`` (out,) or () f32
+    is dequantized by DQ for CUDA tensors, by the plain version for CPU
+    tensors."""
+    return F.linear(x.to(out_dtype), dequantize_fwd(w_q, scale, out_dtype), bias)

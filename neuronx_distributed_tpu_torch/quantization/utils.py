@@ -5,12 +5,14 @@ The port's weights are torch's ``(out, in)``, flax's kernels ``(in, out)``:
 a per-channel scale reduces the contraction dim either way, so it has one
 entry per output channel. ``jnp.round`` and ``torch.round`` both round half
 to even, and both frameworks cast f32 to fp8 e4m3 to nearest even, so the
-codes here equal ``quantize_param_tree``'s bit for bit.
+codes here equal ``quantize_param_tree``'s bit for bit. JAX's
+``dequantize`` (``utils.py:120``) is ``kernels/dequantize.py``'s plain
+version.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -47,13 +49,6 @@ def direct_cast_quantize(w: torch.Tensor, cfg: QuantizationConfig,
     return q, scale
 
 
-def dequantize(q: torch.Tensor, scale: torch.Tensor,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``(q * scale)`` in f32, cast to ``dtype`` (JAX ``dequantize``,
-    ``utils.py:120``); ``scale`` broadcasts against ``q``."""
-    return (q.to(torch.float32) * scale).to(dtype)
-
-
 def _scale_name(weight_name: str) -> str:
     return weight_name[: -len("weight")] + "scale"
 
@@ -66,24 +61,23 @@ def is_quantized_state_dict(state_dict: Dict[str, torch.Tensor]) -> bool:
                for name in state_dict)
 
 
-def default_select(name: str, t: torch.Tensor) -> bool:
+def _selected(name: str, t: torch.Tensor) -> bool:
     """Every 2-D linear weight, lm_head included; never the embedding."""
     return name.endswith(".weight") and t.dim() == 2 and not name.endswith("embed.weight")
 
 
 @torch.no_grad()
-def quantize_state_dict(state_dict: Dict[str, torch.Tensor], cfg: QuantizationConfig,
-                        select: Callable[[str, torch.Tensor], bool] = default_select
+def quantize_state_dict(state_dict: Dict[str, torch.Tensor], cfg: QuantizationConfig
                         ) -> Dict[str, torch.Tensor]:
-    """A new state dict where every weight ``select`` takes becomes its
-    codes (``cfg``'s dtype, ``(out, in)``) with a ``scale`` entry beside it
+    """A new state dict where every 2-D linear weight, lm_head included
+    and the embedding never, becomes its codes (``cfg``'s dtype, ``(out, in)``) with a ``scale`` entry beside it
     (f32, ``(out,)`` per channel or ``()`` per tensor); every other entry is
     the caller's own tensor. The port's ``quantize_param_tree``
     (``utils.py:124``). A dict that already holds the scale of a selected
     weight raises, as JAX does for a quantized tree (``utils.py:176-185``)."""
     out = {}
     for name, t in state_dict.items():
-        if not select(name, t):
+        if not _selected(name, t):
             out.setdefault(name, t)
             continue
         scale_name = _scale_name(name)

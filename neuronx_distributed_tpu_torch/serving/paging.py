@@ -134,7 +134,7 @@ class PagedCacheManager:
     without one the manager keeps the books alone (the allocator tests)."""
 
     def __init__(self, num_slots: int, max_seq_len: int, page_size: int,
-                 num_pages: Optional[int] = None, kv_quant: Optional[str] = None):
+                 num_pages: Optional[int] = None):
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if max_seq_len % page_size != 0:
@@ -150,7 +150,6 @@ class PagedCacheManager:
             # buy the packing
             num_pages = num_slots * self.pages_per_row + 1
         self.alloc = PageAllocator(num_pages)
-        self.kv_quant = kv_quant
         self.cache: Optional[PagedKVCache] = None
         self._free = list(range(num_slots))
         self._tables = np.zeros((num_slots, self.pages_per_row), np.int32)
@@ -167,7 +166,7 @@ class PagedCacheManager:
                   kv_quant: Optional[str] = None) -> "PagedCacheManager":
         """A manager with a zeroed paged cache for ``model`` on its device
         (an int8 pool with ``kv_quant="int8"``)."""
-        mgr = cls(num_slots, model.config.max_seq_len, page_size, num_pages, kv_quant)
+        mgr = cls(num_slots, model.config.max_seq_len, page_size, num_pages)
         mgr.cache = model.new_paged_cache(num_slots, mgr.alloc.num_pages, page_size, kv_quant)
         return mgr
 

@@ -1077,7 +1077,8 @@ def test_dequantize_kernel_equals_plain(cuda, fp8, per_tensor):
     n = tdq.dequantize_fwd.launches
     got = tdq.dequantize_fwd(q, scale, torch.bfloat16)
     assert tdq.dequantize_fwd.launches == n + 1
-    assert torch.equal(got, tdq.dequantize_plain(q, scale, torch.bfloat16))
+    assert torch.equal(got, tdq.dequantize_plain(q, scale if per_tensor else scale[:, None],
+                                                 torch.bfloat16))
     with pytest.raises(TypeError):
         tdq.dequantize_fwd(q, scale, torch.float32)
 

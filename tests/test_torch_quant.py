@@ -24,6 +24,7 @@ from neuronx_distributed_tpu.models import llama as jllama
 from neuronx_distributed_tpu.quantization import config as jqc
 from neuronx_distributed_tpu.quantization import layers as jql
 from neuronx_distributed_tpu.quantization import utils as jqu
+from neuronx_distributed_tpu_torch.kernels import dequantize as tdq
 from neuronx_distributed_tpu_torch.kernels import flash_decode as tfd
 from neuronx_distributed_tpu_torch.models import llama as tllama
 from neuronx_distributed_tpu_torch.models.convert import flax_to_torch
@@ -143,7 +144,7 @@ def test_direct_cast_quantize_and_dequantize_equal_jax(kind):
     np.testing.assert_array_equal(ts.numpy().reshape(-1), np.asarray(js).reshape(-1))
     np.testing.assert_array_equal(_codes(tqw).T, np.asarray(jqw).view(np.uint8)
                                   if kind == "fp8" else np.asarray(jqw))
-    np.testing.assert_array_equal(tqu.dequantize(tqw, ts).numpy().T,
+    np.testing.assert_array_equal(tdq.dequantize_plain(tqw, ts).numpy().T,
                                   np.asarray(jqu.dequantize(jqw, js)))
 
 
@@ -162,7 +163,7 @@ def test_quantized_matmul_equals_jax_within_gemm_tolerance():
     want = jql.quantized_matmul(jnp.asarray(x), jnp.asarray(q.numpy().T),
                                 jnp.asarray(s.numpy()[None]), jnp.float32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
-    np.testing.assert_array_equal(tql.dequantize_weight(q, s, torch.float32).numpy(),
+    np.testing.assert_array_equal(tdq.dequantize_fwd(q, s, torch.float32).numpy(),
                                   (q.float() * s[:, None]).numpy())
     lin = ColumnParallelLinear(32, 48, use_bias=False, device="cpu", quantization_config=cfg)
     lin.load_state_dict({"weight": q, "scale": s})
