@@ -1,7 +1,7 @@
 """Times the decode kernels K4 (row cache) and K5 (paged cache) and the
 serving paths of one checkout of this repository on one NVIDIA GPU.
 
-    python3 chip_decode_ab.py <checkout>
+    python3 chip_decode_ab.py [--int8-only] <checkout>
 
 It imports ``neuronx_distributed_tpu_torch`` from ``<checkout>`` (so the
 kernels built are that checkout's) and the input builders and serving
@@ -14,7 +14,9 @@ replayed (device time, the host taken out) and 50 calls back to back (CUDA
 events; the host's issue time where it exceeds the device's); and their
 multi-row path (R = 64, 1024 and 2048 rows a kv-head) at
 ``chip_smoke.check_decode_rows``'s inputs, K5 through its scrambled table,
-as CUDA-graph replays. Then Llama-3-8B (all 32 layers, random bf16 weights
+as CUDA-graph replays; K5q (the int8 pool's decode attention) at both of
+``check_k5``'s geometries over ``quantize_page_block``'s int8 pages, the
+same two ways. Then Llama-3-8B (all 32 layers, random bf16 weights
 from seed 0) serves ``chip_smoke.serve``'s six requests and the paged
 engine ``chip_smoke.paged_workload``'s fifteen, each once more under the
 profiler for device time by kernel family (and, for the paged run, the
@@ -23,14 +25,20 @@ traffic (``chip_smoke.serve_prefix``) on the row and the paged engine,
 prefix cache on and off, with the prefill wall by kind, and the row
 engine's prefix-on wave once more under the profiler
 (``chip_smoke.profile_prefix``: device time by family, the multi-row K4
-among them, and the device time inside the suffix prefills). Where the checkout's engine captures its
+among them, and the device time inside the suffix prefills); then
+``chip_smoke.quant_phase``'s int8-pool leg, 5f(c): int8 weights and an
+int8 page pool of phase 5b's bytes on the fifteen paged requests, its ms a
+decode-only step, tokens/s and, once more under the profiler, its device
+time by family. Where the checkout's engine captures its
 decode step in a CUDA graph, the capture's wall is reported apart and taken
 out of the wall the idle share is read against, and the profiled runs
 capture before the profiler opens. It prints one JSON line: per serving
 path, ms per decode-only step, decode tokens/s, TTFT mean and max, and the
 idle share; per prefix engine, the prefill wall by kind, TTFT and the
-wall, prefix on and off. To compare two checkouts on one card, run them
-back to back as old, new, new, old.
+wall, prefix on and off; for the int8 pool the same as per serving path. To compare two checkouts on one card, run them
+back to back as old, new, new, old. ``--int8-only`` runs the int8 pool's
+parts alone: K5q at both geometries (also with its pages read from device
+memory, ``chip_smoke.k5q_cold_ms``) and 5f(c).
 """
 
 from __future__ import annotations
@@ -68,8 +76,32 @@ def prefix_serving(cs, model) -> dict:
     return out
 
 
+def int8_pool_serving(cs, model, workload) -> dict:
+    """Phase 5f(c): int8 weights and an int8 pool of phase 5b's bytes behind
+    the paged engine on ``workload``; then once more under the profiler."""
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+
+    cfg = model.config
+    layers, d, hkv, ps = cfg.num_layers, cfg.head_dim_, cfg.num_kv_heads, cs.PAGE
+    bf16_pages = cs.ROW_SLOTS * cfg.max_seq_len // ps + 1
+    n_pages = bf16_pages * (2 * layers * ps * hkv * d * 2) // (2 * layers * (ps * hkv * d + hkv * 2))
+    qc = QuantConfig(weights="int8", kv="int8")
+    r = cs.serve_paged(model, workload, "fused", quantize=qc, num_pages=n_pages, strict=False)
+    prof = cs.serve_paged(model, workload, "fused", profiled=True, quantize=qc, num_pages=n_pages,
+                          strict=False)
+    sn = r["snap"]
+    return dict(
+        wall_s=r["wall_s"], capture_s=r["capture_s"], pool_pages=n_pages,
+        ttft_mean_s=sn["mean_ttft"], decode_tok_s=sn["chunk_tokens_per_sec"],
+        ms_per_decode_step=1e3 * r["decode_s"] / max(r["decode_executed"], 1),
+        per_replay=r["per_replay"], device_ms=prof["fams"], k5q_records=prof["records"],
+        idle_share=1 - sum(prof["fams"].values()) / (1e3 * (r["wall_s"] - r["capture_s"])),
+        tokens_equal_profiled_rerun=prof["tokens"] == r["tokens"])
+
+
 def main() -> int:
-    tree = os.path.abspath(sys.argv[1])
+    int8_only = sys.argv[1] == "--int8-only"
+    tree = os.path.abspath(sys.argv[-1])
     sys.path.insert(0, tree)
     import torch
 
@@ -88,9 +120,26 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    _build.build(["flash_attention", "flash_attention_bwd", "flash_decode"])
+    _build.build([n for n in ("flash_attention", "flash_attention_bwd", "flash_decode",
+                              "dequantize", "kv_quant")
+                  if os.path.exists(os.path.join(_build.CSRC, n + ".cu"))])
     gen = torch.Generator(device="cuda").manual_seed(0)
     times = {}
+    if int8_only:
+        for shapes in ("k4", "serving"):
+            q, kp, vp, bt, pos, valid = cs.k5_inputs(gen, shapes)
+            (kq, ks), (vq, vs) = tfd.quantize_page_block(kp), tfd.quantize_page_block(vp)
+            del kp, vp
+            k5q = lambda: tfd.paged_flash_decode_fwd(q, kq, vq, bt, pos, valid, 16, ks, vs)  # noqa: E731
+            times[f"k5q_{shapes}"] = dict(graph_ms=cs.graph_ms(k5q, 20), eager_ms=cs.cuda_ms(k5q, 50),
+                                          cold_ms=cs.k5q_cold_ms(q, kq, vq, ks, vs, bt, pos, valid, 16))
+            del q, kq, vq, ks, vs, bt, pos, valid
+        torch.cuda.empty_cache()
+        model = init_params(LlamaForCausalLM(llama3_8b()), seed=0)
+        int8_pool = int8_pool_serving(cs, model, cs.paged_workload(model.config.vocab_size))
+        print(json.dumps(dict(tree=tree, card=card, kernels=times, int8_pool_serving=int8_pool)),
+              flush=True)
+        return 0
     q, kc, vc, pos, valid = cs.k4_inputs(gen)
     k4 = lambda: tfd.flash_decode_fwd(q, kc, vc, pos, valid)  # noqa: E731
     times["k4"] = dict(graph_ms=cs.graph_ms(k4, 20), eager_ms=cs.cuda_ms(k4, 50))
@@ -99,7 +148,11 @@ def main() -> int:
         q, kp, vp, bt, pos, valid = cs.k5_inputs(gen, shapes)
         k5 = lambda: tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, 16)  # noqa: E731
         times[f"k5_{shapes}"] = dict(graph_ms=cs.graph_ms(k5, 20), eager_ms=cs.cuda_ms(k5, 50))
-        del q, kp, vp, bt, pos, valid
+        (kq, ks), (vq, vs) = tfd.quantize_page_block(kp), tfd.quantize_page_block(vp)
+        del kp, vp
+        k5q = lambda: tfd.paged_flash_decode_fwd(q, kq, vq, bt, pos, valid, 16, ks, vs)  # noqa: E731
+        times[f"k5q_{shapes}"] = dict(graph_ms=cs.graph_ms(k5q, 20), eager_ms=cs.cuda_ms(k5q, 50))
+        del q, kq, vq, ks, vs, bt, pos, valid
     for chunk in (16, 256, 512):  # R = 4 x chunk: the multi-row path
         q, kc, vc, pos, valid = cs.rows_inputs(gen, chunk)
         kp, vp, bt = cs.scrambled_pages(kc, vc, valid)
@@ -138,8 +191,10 @@ def main() -> int:
         tokens_equal_profiled_rerun=paged_prof["tokens"] == paged["tokens"],
         device_mallocs=allocs)
     prefix = prefix_serving(cs, model)
+    int8_pool = int8_pool_serving(cs, model, workload)
     print(json.dumps(dict(tree=tree, card=card, kernels=times, serving=serving,
-                          paged_serving=paged_serving, prefix_serving=prefix)), flush=True)
+                          paged_serving=paged_serving, prefix_serving=prefix,
+                          int8_pool_serving=int8_pool)), flush=True)
     return 0
 
 

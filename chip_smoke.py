@@ -29,12 +29,20 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    serving shapes, K5 through a scrambled table at the paged serving
    geometry; K4 and K5 on their multi-row path at phase 5c's geometry
    (R = 64, 1024 and 2048), K5 bitwise equal to K4 on the gathered view;
-   K5q (int8 pages, a bf16 scale per page and kv-head) at K5's two
-   geometries against its plain version and bitwise equal to K4 on the
-   dequantized gathered view (a dropped tile must fail the limit), timed
-   beside SDPA on that view and the gather-dequantize; DQ (the one-pass
-   weight dequantize) at lm_head's shape, int8 and fp8, bitwise equal to
-   its plain version, timed against its 3-bytes-a-weight bound;
+   K5q (int8 pages, a bf16 scale per page and kv-head, converted where
+   the products read them) at K5's two geometries against
+   its plain version and bitwise equal to K4 on the dequantized gathered
+   view (a dropped tile must fail the limit), at 64 slots of the serving
+   pages (more items than the card holds blocks at once) and with a slot
+   that has no live column, three CUDA-graph replays in a row equal bit
+   for bit,
+   timed beside SDPA on that view and the gather-dequantize; QW (the int8
+   pool's window re-quantize, K and V in one launch) bitwise equal to its
+   plain version on every page but the null page at a decode step and at
+   a 300-token prefill window from mid-page, one page's absmax rising and
+   one's falling, timed against its bytes bound; DQ (the one-pass weight
+   dequantize) at lm_head's shape, int8 and fp8, bitwise equal to its
+   plain version, timed against its 3-bytes-a-weight bound;
 3. outputs: the full-width model's logits through the kernels, with a row
    cache and with a paged cache behind a scrambled block table, against the
    same model with the plain versions swapped in, on a short prompt;
@@ -102,8 +110,9 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    forced steps against the bf16 model (max KL at most 5e-3; top-1
    agreement printed); (b) fp8 weights, the same, KL printed; (c) int8
    weights and an int8 page pool of phase 5b's bytes behind the paged
-   engine, phase 5b's traffic: K5q 32 a replay and K5 0, the eager-step
-   witness identical, ``check()`` clean, peak occupancy; (d) phase 5c's
+   engine, phase 5b's traffic: K5q 32, QW 32 and DQ 225 a replay and K5
+   0, the eager-step witness identical, ``check()`` clean, peak occupancy,
+   the ms a step and the profile by family; (d) phase 5c's
    paged prefix leg on that pool: 11 hits and 1 miss, ``copy_bytes`` 0,
    pinned pages' codes and scales bitwise unchanged, each hit's suffix
    prefilled on K4 (multi-row) over a dequantized float row;
@@ -203,6 +212,28 @@ def graph_ms(fn, iters: int, replays: int = 5) -> float:
     ms = start.elapsed_time(end) / (iters * replays)
     del graph
     return ms
+
+
+def graph_replays(fn, n: int) -> list:
+    """``fn`` (returning tensors) captured once in a CUDA graph and replayed
+    ``n`` times in a row: a copy of its outputs after each replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    got = []
+    for _ in range(n):
+        for t in outs:
+            t.zero_()
+        graph.replay()
+        got.append([t.clone() for t in outs])
+    torch.cuda.synchronize()
+    del graph
+    return got
 
 
 def decode_plan(valid, bound_cols: int, hkv: int, rows: int, page_size: int = 0) -> dict:
@@ -483,11 +514,15 @@ def k5_shapes(name: str):
     3109 (mid tile): 12 chats of 100-400 columns and 3 documents of
     2000-3000 in the workload's order, each context from a page-aligned
     start right-aligned under the bound, then a gap, then the last 8 decode
-    columns; slot 15 idle (no valid column, no page)."""
+    columns; slot 15 idle (no valid column, no page). ``"serving64"``: those
+    16 slots four times over (64 slots, 8193 pages)."""
     import numpy as np
 
     if name == "k4":
         return 8, 8 * 512 + 1, 4100, [[(400 * i, 4100)] for i in range(8)]
+    if name == "serving64":  # the serving geometry's 16 slots four times over
+        b, n_pages, bound, runs = k5_shapes("serving")
+        return 4 * b, 4 * (n_pages - 1) + 1, bound, runs * 4
     rng = np.random.default_rng(3)
     chats = [int(n) for n in rng.integers(100, 401, size=12)]
     docs = [int(n) for n in rng.integers(2000, 3001, size=3)]
@@ -621,9 +656,14 @@ def check_k5q(gen, shapes: str) -> dict:
     the null page's codes and scales garbage too), against its plain
     version within K5's limits (a dropped tile must fail them), bitwise
     equal to K4 on the dequantized gathered view, blind to the null page,
-    the same bits twice; its time (graph replay) beside SDPA on the
-    dequantized gathered view and the gather-dequantize's own time, and its
-    bytes bound (int8 K/V, the table and the scales of live pages)."""
+    the same bits twice and over three CUDA-graph replays in a row, O = 0
+    and LSE -1e30 for a slot with no
+    live column; its time (graph replay: the pages stay in L2) and its
+    ``cold_ms`` (graph replays cycling over ``K5Q_COLD_COPIES`` copies of the
+    pools, more bytes than L2 holds, as a serving step's 32 layers read
+    theirs), beside SDPA on the dequantized gathered view and the
+    gather-dequantize's own time, and its bytes bound (int8 K/V, the table
+    and the scales of live pages)."""
     from torch.nn import functional as F
 
     from neuronx_distributed_tpu_torch.kernels.flash_decode import (
@@ -634,7 +674,7 @@ def check_k5q(gen, shapes: str) -> dict:
         quantize_page_block,
     )
 
-    b, n_pages, bound_cols, _ = k5_shapes(shapes)
+    b, n_pages, bound_cols, runs = k5_shapes(shapes)
     hkv, ps = 8, 16
     q, kp, vp, bt, pos, valid = k5_inputs(gen, shapes)
     (kq, ks), (vq, vs) = quantize_page_block(kp), quantize_page_block(vp)
@@ -673,6 +713,12 @@ def check_k5q(gen, shapes: str) -> dict:
         raise AssertionError(f"{tag}: the output depends on the null page's content")
     if not (torch.equal(out, again) and torch.equal(lse, again_lse)):
         raise AssertionError(f"{tag}: two runs differ in their bits")
+    replays = graph_replays(run, 3)
+    if not all(torch.equal(o, out) and torch.equal(x, lse) for o, x in replays):
+        raise AssertionError(f"{tag}: three graph replays differ from the eager call's bits")
+    dead = [i for i, r in enumerate(runs) if not r]  # slots with no live column
+    if dead and (out[dead].any() or not bool((lse[dead] == -1e30).all())):
+        raise AssertionError(f"{tag}: a slot with no live column has O != 0 or LSE != -1e30")
     pages_live = int(torch.nn.functional.pad(valid[:, :bound_cols], (0, -bound_cols % ps))
                      .reshape(b, -1, ps).any(-1).sum())
     bound, bound_by, nbytes = decode_bound(
@@ -683,12 +729,134 @@ def check_k5q(gen, shapes: str) -> dict:
     lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)  # noqa: E731
     return dict(err=max(err, lerr), ratio=ratio, fault_ratio=fault_ratio, bound_ms=bound,
                 bound_by=bound_by, bytes=nbytes, slots=b, pages=n_pages, bound_cols=bound_cols,
-                ms=graph_ms(run, 20), eager_ms=cuda_ms(run, 50),
+                dead=len(dead), ms=graph_ms(run, 20), eager_ms=cuda_ms(run, 50),
+                cold_ms=k5q_cold_ms(q, kq, vq, ks, vs, bt, pos, valid, ps),
                 plain_ms=cuda_ms(lambda: paged_flash_decode_plain_q(
                     q, kq, vq, ks, vs, bt, pos, valid, ps), 5, warmup=1),
                 gather_ms=cuda_ms(lambda: (paged_gather_leaf_dequant(kq, ks, bt, ps),
                                            paged_gather_leaf_dequant(vq, vs, bt, ps)), 20),
                 library_ms=graph_ms(lib, 20), live_cols=int(valid[:, :bound_cols].sum()))
+
+
+QW_COL = 3109  # a decode step's column: the paged serving geometry's bound, mid-page
+
+
+def qw_case(gen, rows: slice, s: int, col: int, b: int, used: int = 200):
+    """QW's inputs at phase 5f(c)'s pool geometry: an int8 pool (bf16 scales,
+    8 kv-heads, page_size 16, L = 8192) of ``b`` slots x ``used`` pages
+    behind a numpy-seeded scrambled table (the rest of each row unmapped),
+    random pages; the view of slots ``rows`` at column ``col`` with ``s``
+    columns addressed, and new rows k, v: the first row's 50x (its page's
+    absmax rises); the pool rows under the second row's columns 50x before
+    they are quantized (its page's absmax falls). Returns (cache, view,
+    table, k, v)."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import quantize_page_block
+    from neuronx_distributed_tpu_torch.modules.attention import PagedKVCache
+
+    hkv, d, ps, L = 8, 128, PAGE, 8192
+    n_pages = b * used + 1
+    cache = PagedKVCache.allocate(1, b, L, hkv, d, torch.bfloat16, "cuda", n_pages, ps,
+                                  kv_quant="int8")
+    table = np.zeros((b, L // ps), np.int32)
+    table[:, :used] = np.random.default_rng(col).permutation(np.arange(1, n_pages)).reshape(b, used)
+    first = rows.start or 0
+    for pool, scale in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
+        x = torch.randn(n_pages, ps, hkv, d, generator=gen, device="cuda")
+        if rows.stop is None or rows.stop - first > 1:
+            for c in range(col, col + s):
+                x[int(table[first + 1, c // ps]), c % ps] *= 50.0
+        q, sc = quantize_page_block(x.to(torch.bfloat16))
+        pool[0].copy_(q)
+        scale[0].copy_(sc)
+    cache.upload_table(table)
+    view = cache.view(rows, col)
+    view._address(view._cols[:s])
+    nb = len(range(b)[rows])
+    k = torch.randn(nb, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(nb, s, hkv, d, generator=gen, device="cuda").to(torch.bfloat16)
+    k[0].mul_(50.0)
+    v[0].mul_(50.0)
+    return cache, view, table, k, v
+
+
+def check_qw(gen) -> dict:
+    """QW at phase 5f(c)'s geometry: a decode step's write (16 slots, s = 1,
+    column ``QW_COL``) and a 300-token prefill window from mid-page (one
+    slot's view at column 45), each bitwise equal to its plain version on
+    every page but the null page, with one page's absmax rising and one's
+    falling; the decode write's time (graph replay, K and V of one layer)
+    against its bound (each window page's codes and scale read and written
+    once, the rows read once), and the plain version's. No single PyTorch
+    call computes it."""
+    from neuronx_distributed_tpu_torch.kernels.kv_quant import (
+        window_requantize_fwd,
+        window_requantize_plain,
+    )
+
+    res = {}
+    for name, rows, s, col in (("decode", slice(None), 1, QW_COL),
+                               ("prefill", slice(0, 1), 300, 45)):
+        cache, view, table, k, v = qw_case(gen, rows, s, col, PAGED_SLOTS)
+        pages, w0 = view._win
+        leaves = (cache.k[0], cache.v[0], cache.k_scale[0], cache.v_scale[0])
+        want = [t.clone() for t in leaves]
+        before = [t.clone() for t in leaves]
+        window_requantize_plain(*want, pages, w0, k, v)
+        n = window_requantize_fwd.launches
+        view.decode_write(0, k, v)
+        torch.cuda.synchronize()
+        if window_requantize_fwd.launches != n + 1:
+            raise AssertionError(f"QW ({name}): {window_requantize_fwd.launches - n} launches a write")
+        if not all(torch.equal(t[1:], w[1:]) for t, w in zip(leaves, want)):
+            raise AssertionError(f"QW ({name}) differs from its plain version (must be bitwise "
+                                 "equal on every page but the null page)")
+        first = rows.start or 0
+        ks, ks0 = leaves[2].float(), before[2].float()
+        rise = int(table[first, col // PAGE])
+        if not bool((ks[rise] > 2 * ks0[rise]).all()):
+            raise AssertionError(f"QW ({name}): page {rise}'s scale did not rise")
+        if name == "decode":
+            fall = int(table[1, col // PAGE])
+            if not bool((ks[fall] < 0.5 * ks0[fall]).all()):
+                raise AssertionError(f"QW ({name}): page {fall}'s scale did not fall")
+        b, n_win = pages.shape
+        hkv, d = k.shape[2], k.shape[3]
+        # each leaf: a window page's codes written and its scale read and
+        # written, its old codes read only in the rows x does not replace
+        # ((w0 % PAGE + s) columns from the window's first page column);
+        # the rows x, the pages and w0 read once
+        kept = n_win * PAGE - s
+        nbytes = (2 * b * hkv * (n_win * (PAGE * d + 2 * 2) + kept * d)
+                  + 2 * k.numel() * 2 + 8 * pages.numel() + 8)
+        res[name] = dict(slots=b, s=s, col=col, n_win=n_win, bytes=nbytes,
+                         bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes")
+        if name == "decode":
+            res[name]["ms"] = graph_ms(lambda: view.decode_write(0, k, v), 20)
+            res[name]["plain_ms"] = cuda_ms(lambda: window_requantize_plain(*want, pages, w0, k, v),
+                                            5, warmup=1)
+        del cache, view
+        torch.cuda.empty_cache()
+    return res
+
+
+K5Q_COLD_COPIES = 6  # pools K5q's cold time cycles over: 6 x 21 MB live at the serving geometry
+
+
+def k5q_cold_ms(q, kq, vq, ks, vs, bt, pos, valid, ps) -> float:
+    """K5q's time a call with its pages read from device memory: one graph
+    of 4 rounds over ``K5Q_COLD_COPIES`` copies of the pools and scales
+    (the same table), replayed, over the calls."""
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import paged_flash_decode_fwd
+
+    copies = [tuple(t.clone() for t in (kq, vq, ks, vs)) for _ in range(K5Q_COLD_COPIES - 1)]
+    copies.append((kq, vq, ks, vs))
+    ms = graph_ms(lambda: [paged_flash_decode_fwd(q, k, v, bt, pos, valid, ps, a, c)
+                           for k, v, a, c in copies], 4) / len(copies)
+    del copies
+    torch.cuda.empty_cache()
+    return ms
 
 
 def check_dq(gen) -> dict:
@@ -1220,7 +1388,8 @@ def serve_workload(model, workload, eager: bool = False, quantize=None) -> dict:
     if min(launches["flash_attention"], launches["flash_decode"]) < 1:
         raise AssertionError(f"a kernel of the serving path never launched: {launches}")
     if (launches["paged_flash_decode"] or launches["flash_attention_dkdv"]
-            or launches["flash_attention_dq"] or launches["qpaged_flash_decode"]):
+            or launches["flash_attention_dq"] or launches["qpaged_flash_decode"]
+            or launches.get("window_requantize", 0)):
         raise AssertionError(f"row serving launched a kernel of another path: {launches}")
     snap = engine.metrics.snapshot()
     # executed steps each ran the whole model (and one K4 per layer); used
@@ -1310,7 +1479,7 @@ PAGED_SLOTS, PAGE, ROW_SLOTS = 16, 16, 4
 
 
 def serve_paged(model, workload, attention: str, profiled: bool = False,
-                eager: bool = False, quantize=None, num_pages=None) -> dict:
+                eager: bool = False, quantize=None, num_pages=None, strict=True) -> dict:
     """The paged engine (16 slots, page_size 16, chunk 8, conservative,
     FIFO) over a pool of ROW_SLOTS row slots' bytes plus the null page,
     answering ``workload``; every kernel's launch count is zeroed just
@@ -1322,7 +1491,10 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
     profiler and adds the device time by family and the profiler's count
     of K5 records (its walls are the profiler's, not the engine's).
     ``quantize`` and ``num_pages`` are phase 5f's: an int8 pool attends
-    through K5q."""
+    through K5q and writes through QW. ``strict=False``
+    (``chip_decode_ab.py``, which may drive an older checkout) reports
+    QW's launches and the profiler's decode records without holding them
+    to this checkout's counts."""
     from torch.profiler import ProfilerActivity, profile
 
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
@@ -1365,8 +1537,12 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
     snap = engine.metrics.snapshot()
     attended = ("flash_decode" if attention == "gather" else "qpaged_flash_decode"
                 if quantize is not None and quantize.kv else "paged_flash_decode")
+    qkv = quantize is not None and quantize.kv is not None
     want = {"paged_flash_decode": 0, "flash_decode": 0, "qpaged_flash_decode": 0}
     want[attended] = snap["executed_steps"] * cfg.num_layers
+    if strict:  # an int8 pool's writes: QW once a layer a forward
+        want["window_requantize"] = ((snap["executed_steps"] + snap["prefills"]) * cfg.num_layers
+                                     * qkv)
     got = {k: launches[k] - warm[k] for k in want}
     if got != want:
         raise AssertionError(f"paged ({attention}) decode launches {got} != {want}")
@@ -1387,13 +1563,15 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
                capture_s=capture_s or snap.get("capture_s", 0.0),
                replays=prog.replays if prog is not None else None)
     if profiled:
+        # K5 and K5q: a range kernel and its merge a call
         res["records"] = decode_records(prof, paged=attention == "fused")
-        if res["records"] != 2 * snap["executed_steps"] * cfg.num_layers:
+        if strict and res["records"] != 2 * snap["executed_steps"] * cfg.num_layers:
             raise AssertionError(f"profiled paged serving: {res['records']} K5 kernel records != "
                                  f"2 x {snap['executed_steps']} executed steps x "
                                  f"{cfg.num_layers} layers")
         res["fams"] = device_time_by_family(prof, {
             "qpaged_flash_decode": "qpaged_flash_decode_kernel", "dequantize": "dequantize_kernel",
+            "window_requantize": "window_requantize_kernel",
             "paged_flash_decode": "paged_flash_decode_kernel",
             "flash_attention": "flash_fwd_kernel", "flash_decode": "flash_decode_kernel"})
     del engine
@@ -2410,7 +2588,8 @@ def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
     if cw["tokens"] != c["tokens"] or cp["tokens"] != c["tokens"]:
         raise AssertionError("int8 pool serving: the decode graph's streams differ from the "
                              "eager step's or the profiled rerun's")
-    if c["per_replay"] != {"qpaged_flash_decode": layers, "dequantize": linears}:
+    if c["per_replay"] != {"qpaged_flash_decode": layers, "window_requantize": layers,
+                           "dequantize": linears}:
         raise AssertionError(f"int8 pool serving: launches per replay {c['per_replay']}")
     sn = c["snap"]
     log(f"quantized serving (int8 weights + int8 KV pool, paged engine, phase 5b's 15 requests, "
@@ -2419,7 +2598,8 @@ def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
         f"check() clean, eager-step streams identical; wall {c['wall_s']:.3f} s, replays "
         f"{c['replays']}, launches per replay {c['per_replay']}, K5q launches "
         f"{c['launches']['qpaged_flash_decode']} = executed steps {sn['executed_steps']} x "
-        f"{layers} + the warm-up's {layers}, K5 {c['launches']['paged_flash_decode']}; "
+        f"{layers} + the warm-up's {layers}, QW {c['launches']['window_requantize']} (the steps', "
+        f"the prefills' and the warm-up's), K5 {c['launches']['paged_flash_decode']}; "
         f"{c['decode_executed']} decode-only steps {c['decode_s']:.4f} s "
         f"({1e3 * c['decode_s'] / max(c['decode_executed'], 1):.2f} ms per executed step; eager "
         f"witness {1e3 * cw['decode_s'] / max(cw['decode_executed'], 1):.2f}), decode "
@@ -2433,7 +2613,7 @@ def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
         f"before the profiler opened): " + ", ".join(f"{k} {v:.2f}" for k, v in cp["fams"].items())
         + f"; busy {busy:.2f} of the unprofiled wall less its capture {wall_ms:.2f} (idle share "
         f"{1 - busy / wall_ms:.3f}); K5q kernel records {cp['records']} = 2 x "
-        f"{cp['snap']['executed_steps']} executed steps x {layers} layers")
+        f"{cp['snap']['executed_steps']} executed steps x {layers} layers (range and merge)")
     out["paged"] = dict(c, fams=cp["fams"])
     for k in out["launches"]:
         out["launches"][k] += c["launches"][k]
@@ -2445,6 +2625,12 @@ def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
     if (dd["prefix_hits"], dd["prefix_misses"], dd["prefix_validation_failures"]) != (11, 1, 0):
         raise AssertionError(f"int8 pool prefix serving: hits {dd['prefix_hits']}, misses "
                              f"{dd['prefix_misses']}; want 11, 1")
+    qw_pre = (pre["delta"]["prefill_full_count"] + pre["delta"]["prefill_suffix_count"]) * layers
+    if (pre["per_replay"].get("window_requantize") != layers
+            or pre["launches"]["window_requantize"] != qw_pre):
+        raise AssertionError(f"int8 pool prefix serving: QW {pre['per_replay']} a replay, "
+                             f"{pre['launches']['window_requantize']} outside replays; want "
+                             f"{layers} and {qw_pre} (a full or suffix prefill's write x {layers})")
     if pre["copy_bytes"] != 0 or pre["multi_row"]["flash_decode"] < 1 or not pre["pinned_pages"]:
         raise AssertionError(f"int8 pool prefix serving: copy_bytes {pre['copy_bytes']}, K4 "
                              f"multi-row launches {pre['multi_row']['flash_decode']}, pinned "
@@ -2461,8 +2647,8 @@ def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
     out["prefix"] = pre
     for k in out["launches"]:
         out["launches"][k] += pre["launches"][k] + (pre["replayed"] if k == pre["decode"] else 0)
-    out["launches"]["dequantize"] += (pre["per_replay"].get("dequantize", 0)
-                                      * pre["delta"]["executed_steps"])
+    for k in ("dequantize", "window_requantize"):
+        out["launches"][k] += pre["per_replay"].get(k, 0) * pre["delta"]["executed_steps"]
     log(f"phase 5f wall: {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -2492,22 +2678,12 @@ def packed_batch(vocab: int, b: int, s: int, seed: int = 0) -> dict:
 
 
 def kernel_counters():
-    from neuronx_distributed_tpu_torch.kernels.flash_attention import (
-        flash_attention_dkdv,
-        flash_attention_dq,
-        flash_attention_fwd,
-    )
-    from neuronx_distributed_tpu_torch.kernels.dequantize import dequantize_fwd
-    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
-        flash_decode_fwd,
-        paged_flash_decode_fwd,
-        qpaged_flash_decode_fwd,
-    )
+    """The kernel wrappers that count their launches, by name: the
+    checkout's own list (``inference/graphs.py kernel_wrappers``), so
+    ``chip_decode_ab.py`` can drive an older checkout through this file."""
+    from neuronx_distributed_tpu_torch.inference.graphs import kernel_wrappers
 
-    return {"flash_attention": flash_attention_fwd, "flash_attention_dkdv": flash_attention_dkdv,
-            "flash_attention_dq": flash_attention_dq, "flash_decode": flash_decode_fwd,
-            "paged_flash_decode": paged_flash_decode_fwd,
-            "qpaged_flash_decode": qpaged_flash_decode_fwd, "dequantize": dequantize_fwd}
+    return kernel_wrappers()
 
 
 def train_vs_plain() -> dict:
@@ -2583,7 +2759,8 @@ def train_phase(steps: int = 6) -> dict:
     peak = torch.cuda.max_memory_allocated()
     want = {"flash_attention": 2 * cfg.num_layers * steps, "flash_attention_dkdv":
             cfg.num_layers * steps, "flash_attention_dq": cfg.num_layers * steps, "flash_decode": 0,
-            "paged_flash_decode": 0, "qpaged_flash_decode": 0, "dequantize": 0}
+            "paged_flash_decode": 0, "qpaged_flash_decode": 0, "dequantize": 0,
+            "window_requantize": 0}
     if launches != want:
         raise AssertionError(f"training launches {launches} != {want}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -2704,8 +2881,9 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     t0 = time.perf_counter()
-    _build.build(["flash_attention", "flash_attention_bwd", "flash_decode", "dequantize"])
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the four sources in parallel)")
+    _build.build(["flash_attention", "flash_attention_bwd", "flash_decode", "dequantize",
+                  "kv_quant"])
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the five sources in parallel)")
     for r in [fwd_resources(), *bwd_resources()]:
         log(f"{r['kernel']}: {r['smem']} B dynamic shared memory a block, {r['regs']} registers a "
             f"thread at entry, {r['local']} B local a thread, {r['blocks_per_sm']} block(s) per SM; "
@@ -2715,6 +2893,12 @@ def main() -> int:
         log(f"{r['kernel']}: {r['smem']} B dynamic shared memory a block, {r['regs']} registers a "
             f"thread, {r['local']} B local a thread, {r['blocks_per_sm']} block(s) per SM")
     log(f"ptxas -v, csrc/flash_decode.cu: {n_spill_lines} kernels, none spills")
+    qw_spills = [line.strip() for line in _build.resource_report("kv_quant").splitlines()
+                 if "spill" in line]
+    if not qw_spills or any("0 bytes spill stores, 0 bytes spill loads" not in line
+                            for line in qw_spills):
+        raise AssertionError("QW spills or was not reported:\n" + "\n".join(qw_spills))
+    log(f"ptxas -v, csrc/kv_quant.cu: {len(qw_spills)} kernel, no spill")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = [check_k1(gen, b, s, segments) for _, b, s, segments in K1_SHAPES]
@@ -2793,21 +2977,34 @@ def main() -> int:
             f"({pl['read_bytes'] / pl['bound_bytes']:.3f}x)")
     # K5q and DQ: their own generator, so the other checks keep their inputs
     qgen = torch.Generator(device="cuda").manual_seed(12)
-    k5q = {shapes: check_k5q(qgen, shapes) for shapes in ("k4", "serving")}
-    k5_ms = {"k4": k5["ms"], "serving": k5s["ms"]}
+    k5q = {shapes: check_k5q(qgen, shapes) for shapes in ("k4", "serving", "serving64")}
+    k5_ms = {"k4": f"{k5['ms']:.4f}", "serving": f"{k5s['ms']:.4f}", "serving64": "not run"}
+    geometry = {"k4": "K4's geometry", "serving": "the paged serving geometry",
+                "serving64": "the paged serving geometry four times over"}
     for shapes, r in k5q.items():
-        log(f"K5q qpaged_flash_decode at {'K4' if shapes == 'k4' else 'the paged serving'}'s "
-            f"geometry: B={r['slots']} s=1 H=32 Hkv=8 D=128 L=8192 bound {r['bound_cols']} "
+        log(f"K5q qpaged_flash_decode at {geometry[shapes]}: B={r['slots']} s=1 H=32 Hkv=8 "
+            f"D=128 L=8192 bound {r['bound_cols']} "
             f"page_size 16, pool {r['pages']} int8 pages with a bf16 scale a (page, kv-head), "
-            f"garbage null page, {r['live_cols']} live columns: max_err {r['err']:.3g} "
+            f"garbage null page, {r['live_cols']} live columns, {r['dead']} slot(s) with none: "
+            f"max_err {r['err']:.3g} "
             f"({r['ratio']:.3g}x its limit; a dropped partial tile reads {r['fault_ratio']:.3g}x); "
             f"bitwise equal to K4 on the dequantized gathered view, blind to the null page, two "
-            f"runs bitwise equal; kernel_ms {r['ms']:.4f} (graph replay; back to back "
-            f"{r['eager_ms']:.4f}; K5 on the bf16 pool {k5_ms[shapes]:.4f}) plain_ms "
+            f"runs and three graph replays bitwise equal; kernel_ms {r['ms']:.4f} (graph replay; back to back "
+            f"{r['eager_ms']:.4f}; pages from device memory {r['cold_ms']:.4f}; K5 on the bf16 "
+            f"pool {k5_ms[shapes]}) plain_ms "
             f"{r['plain_ms']:.4f} bound_ms {r['bound_ms']:.4f} ({r['bound_by']}, {r['bytes']} B) "
             f"library_ms {r['library_ms']:.4f} (SDPA on the dequantized gathered view, bool mask, "
             f"GQA; graph replay) + gather_ms {r['gather_ms']:.4f} (the gather-dequantize of K "
             f"and V)")
+    qw = check_qw(qgen)
+    for name, r in qw.items():
+        log(f"QW window_requantize ({name}: B={r['slots']} s={r['s']} at column {r['col']}, "
+            f"{r['n_win']} window page(s) a row, Hkv=8 D=128 page_size 16, int8 pool, bf16 scales, "
+            f"K and V in one launch): bitwise equal to its plain version on every page but the "
+            f"null page, one page's scale risen and one's fallen"
+            + (f"; kernel_ms {r['ms']:.4f} (graph replay) plain_ms {r['plain_ms']:.4f} bound_ms "
+               f"{r['bound_ms']:.5f} ({r['bound_by']}, {r['bytes']} B) library_ms null (no single "
+               f"PyTorch call re-quantizes a page window)" if "ms" in r else ""))
     dq = check_dq(qgen)
     for kind in ("int8", "fp8"):
         log(f"DQ dequantize {kind} at lm_head's shape {dq['shape'][0]} x {dq['shape'][1]} (bf16 "
@@ -3053,7 +3250,18 @@ def main() -> int:
              launches=launches["qpaged_flash_decode"],
              max_abs_err=max(r["err"] for r in k5q.values()), ms=k5q["k4"]["ms"],
              plain_ms=k5q["k4"]["plain_ms"], bound_ms=k5q["k4"]["bound_ms"],
-             bound_by=k5q["k4"]["bound_by"], library_ms=k5q["k4"]["library_ms"]),
+             bound_by=k5q["k4"]["bound_by"], library_ms=k5q["k4"]["library_ms"],
+             cold_ms=k5q["k4"]["cold_ms"], serving_ms=k5q["serving"]["ms"],
+             serving_cold_ms=k5q["serving"]["cold_ms"],
+             serving_bound_ms=k5q["serving"]["bound_ms"],
+             design="redesigned: int8 converted where the products read it, no bf16 tile"),
+        # QW computes the window re-quantize XLA fuses into JAX's decode chunk
+        dict(name="window_requantize", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/kv_quant.cu",
+             replaces="neuronx_distributed_tpu/modules/attention.py:544",
+             launches=launches["window_requantize"], max_abs_err=0.0, ms=qw["decode"]["ms"],
+             plain_ms=qw["decode"]["plain_ms"], bound_ms=qw["decode"]["bound_ms"],
+             bound_by=qw["decode"]["bound_by"], library_ms=None),
         # DQ computes what XLA fuses into the quantized matmul's load
         dict(name="dequantize", route="cuda",
              source="neuronx_distributed_tpu_torch/csrc/dequantize.cu",

@@ -73,19 +73,39 @@
 // "int8"))): pages (P, page_size, Hkv, D) int8 with a bf16 scale per (page,
 // kv-head), (P, 1, Hkv, 1). It computes what the JAX engine runs for such a
 // pool, the dequantized gathered view (`paged_gather_leaf_dequant`,
-// flash_decode.py:201) and K4 over it, without writing that view: its tile
-// ring holds int8 pages (64 columns: K 8 KB + V 8 KB, and each column's two
-// scale words, by 16- and 4-byte `cp.async`), and after a tile lands one
-// pass turns it into the bf16 tile the split path reads, each element
-// bf16_rn(float(q) * float(scale)) (`__fmul_rn`: one rounding, as the plain
-// version's f32 product), dead columns zero as K4's zero-fill. Everything
-// after is K5's split path (`QPagedCols` for `PagedCols`, one more block
-// barrier a tile), so K5q through a table equals K4 on the dequantized
-// gathered view bit for bit. Bound: bytes, about half of K5's (128 B of K
-// and of V a column, plus the scales). K5q has the split path only (R <=
-// 32): a quantized pool's multi-row suffix prefill attends a float row
-// (serving/engine.py), as the JAX engine's does.
-//
+// flash_decode.py:201) and K4 over it, without writing that view. Bound:
+// bytes, about half of K5's (128 B of K and of V a live column, plus a
+// scale a page). The design:
+//  * K5's plan: a block a (range, slot, kv-head), the range index slowest;
+//    a range past the live bound returns at once, one with no live tile
+//    writes LSE -1e30; then K5's merge kernel under K5q's name.
+//  * Loads a page at a time. A range with a live tile reads its table
+//    entries once, after its vote (most blocks of a serving step hold no
+//    live tile, and return without that read); a tile's int8 K and V (64
+//    columns, 8 KB each) go through K5's 3-stage `cp.async` ring, 16 bytes
+//    a copy, and a page's two scales are copied once a tile (the 4-byte
+//    word that holds each).
+//  * Conversion where the products read. S = Q K^T takes its B fragments as
+//    int8 pairs from shared memory and turns them into bf16 pairs in
+//    registers; P V reads V as 8 int8 a lane. Both use the plain version's
+//    bf16_rn(__fmul_rn(float(q), scale)), so every product sees K4's bits on
+//    the dequantized view; a dead column is zero-filled and converts to 0.
+//    No bf16 tile and no barrier of its own: ~18 KB a stage, ~54 KB a block
+//    (two blocks an SM, by registers). At R <= 4 each element converts once;
+//    at R = 16/32 P V converts each V element R/4 times (no int8-pool path
+//    runs R > 4 yet).
+// The per-range sums and the merge are K5's, so K5q through a table equals
+// K4 on the dequantized gathered view bit for bit. It has the split path
+// only (R <= 32): a quantized pool's multi-row suffix prefill attends a
+// float row (serving/engine.py), as the JAX engine's does. Tried and
+// dropped, each timed by chip_decode_variants.py and chip_k5q_real.py
+// (PERF.md): the merge inside the range launch (an arrival counter a
+// (slot, kv-head), the last block to arrive merging; its merge tail cost
+// more than this merge launch), a persistent grid of the blocks the card
+// holds striding the items (a block's fixed share makes the tail), a TMA
+// box a page through an mbarrier ring in place of the `cp.async` ring (no
+// faster), and the table read by every block before its bound check.
+
 // More than 32 rows (R = group * s for a suffix prefill of s tokens behind a
 // reused prefix, the Pallas kernel's one block of R rows): the multi-row
 // path (`decode_rows`, one launch, no workspace, no merge kernel).
@@ -217,41 +237,45 @@ struct PagedCols {
   }
 };
 
-// K5q: slot b's block-table row, kv-head hk's int8 pools and scales
-// (load_tile reads a column's page and row through them).
+// K5q: kv-head hk of the int8 pools and scales, and slot b's pages of the
+// range (`pg`, read once a range into shared memory; 0 past the table). It
+// keeps no copy of a stride or a pointer of `p`: they are read from the
+// kernel's parameters where used, which keeps K5q within K5's registers.
+// A page's first column in a tile copies its scales: one copy each for K
+// and V a page, or a tile where a page spans several (`sshift`).
 struct QPagedCols {
   static constexpr bool QUANT = true;
-  const int8_t* k; const int8_t* v; const bf16* ks; const bf16* vs; const int* bt;
-  int shift, mask;
-  long long skp, skr, svp, svr, sksp, svsp;
-  __device__ QPagedCols(const Params& p, int b, int hk)
-      : k(reinterpret_cast<const int8_t*>(p.k) + hk * p.skh),
-        v(reinterpret_cast<const int8_t*>(p.v) + hk * p.svh),
-        ks(p.ks + hk * p.sksh), vs(p.vs + hk * p.svsh), bt(p.bt + b * p.sbt),
-        shift(p.ps_shift), mask((1 << p.ps_shift) - 1),
-        skp(p.skb), skr(p.skl), svp(p.svb), svr(p.svl), sksp(p.sksp), svsp(p.svsp) {}
+  const Params& p; const int* pg; int hk;
+  __device__ QPagedCols(const Params& p_, int hk_, const int* pg_) : p(p_), pg(pg_), hk(hk_) {}
+  __device__ __forceinline__ int sshift() const { return min(p.ps_shift, 6); }
+  __device__ __forceinline__ const int8_t* codes(const bf16* pool, long long page, int row,
+                                                 long long sp, long long sr, long long sh) const {
+    return reinterpret_cast<const int8_t*>(pool) + page * sp + row * sr + hk * sh;
+  }
 };
 
-// K5q's stage: K and V codes (TL x D int8 each), then a 4-byte scale word of
-// each column for K and for V (the aligned word that holds its bf16 scale),
-// then which half of the word holds it (a byte each). The bf16 tile the
-// split path reads sits after the STAGES stages.
-constexpr int QSTAGE_BYTES = 2 * TL * D + 2 * TL * 4 + 2 * TL;
-constexpr int QTILE_OFFSET = STAGES * QSTAGE_BYTES;
+// K5q's stage: K codes (TL x QKP bytes: the pitch keeps S's fragment reads
+// conflict-free), V codes (TL x D), then the 4-byte word that holds each
+// page slot's bf16 scale, K's and V's (TL slots: page_size 1), then which
+// half of the word holds it (a byte each).
+constexpr int QKP = D + 16;
+constexpr int QSTAGE_BYTES = TL * QKP + TL * D + 2 * TL * 4 + 2 * TL;
 static_assert(QSTAGE_BYTES % 16 == 0, "stages keep 16-byte alignment");
-static_assert(QTILE_OFFSET + STAGE_BYTES <= STAGES * STAGE_BYTES,
-              "K5q's ring and its bf16 tile fit in K5's stages");
+static_assert(STAGES * QSTAGE_BYTES >= 64 * D * (int)sizeof(float),
+              "K5q's stages hold reduce_rows' partial sums ([NCG][RMAX][D], NCG x RMAX = 64)");
+static_assert(TL == 64, "sshift caps a scale slot at one tile");
 
 template <class Cols>
 __host__ __device__ constexpr int stage_bytes() { return Cols::QUANT ? QSTAGE_BYTES : STAGE_BYTES; }
 
-// Shared memory of one block at R <= RMAX.
+// Shared memory of one block at R <= RMAX, for stages of `sb` bytes; K5q
+// (`quant`) also keeps its range's pages.
 template <int RMAX>
 struct Smem {
   static constexpr int MT = (RMAX + 15) / 16;  // 16-row m-tiles of S = Q K^T
   static constexpr int NRG = RMAX / 4;         // row groups of 4 in P V
   static constexpr int NCG = 16 / NRG;         // column groups in P V
-  unsigned char* stages;  // STAGES x [K (TL x KP) | V (TL x D)] bf16; later the reductions
+  unsigned char* stages;  // STAGES x [K | V] tiles; later the reductions
   bf16* q;                // [16 MT][KP]
   float* S;               // [TL][RMAX]: scores, then p
   float* wmax;            // [RMAX][NWARPS]
@@ -260,14 +284,16 @@ struct Smem {
   int* pos;               // [16 MT]
   int* wlive;             // [NWARPS]: whether each warp read a live column
   uint8_t* live;          // [SPLIT]
-  static constexpr size_t bytes() {
-    return (size_t)STAGES * STAGE_BYTES + 16 * MT * KP * sizeof(bf16) +
+  int* pg;                // K5q: [SPLIT] pool pages of the range's pages
+  static constexpr size_t bytes(int sb = STAGE_BYTES, bool quant = false) {
+    return (size_t)STAGES * sb + 16 * MT * KP * sizeof(bf16) +
            ((size_t)TL * RMAX + RMAX * NWARPS + NCG * RMAX + RMAX) * sizeof(float) +
-           (16 * MT + NWARPS) * sizeof(int) + SPLIT;
+           (16 * MT + NWARPS) * sizeof(int) + SPLIT +
+           (quant ? SPLIT * sizeof(int) : 0);
   }
-  __device__ explicit Smem(unsigned char* dsm) {
+  __device__ Smem(unsigned char* dsm, int sb) {
     stages = dsm;
-    q = reinterpret_cast<bf16*>(dsm + STAGES * STAGE_BYTES);
+    q = reinterpret_cast<bf16*>(dsm + STAGES * sb);
     S = reinterpret_cast<float*>(q + 16 * MT * KP);
     wmax = S + TL * RMAX;
     lred = wmax + RMAX * NWARPS;
@@ -275,6 +301,7 @@ struct Smem {
     pos = reinterpret_cast<int*>(m + RMAX);
     wlive = pos + 16 * MT;
     live = reinterpret_cast<uint8_t*>(wlive + NWARPS);
+    pg = reinterpret_cast<int*>(live + SPLIT);
   }
 };
 
@@ -316,94 +343,109 @@ __device__ __forceinline__ void load_tile(unsigned char* stage, const Cols& cols
   }
 }
 
-// The bf16 K and V tiles of a landed stage (K4, K5: the stage itself).
-template <class Cols>
-__device__ __forceinline__ const bf16* land_tile(unsigned char* stages, int stage, const Cols&,
-                                                 const uint8_t*, int, int) {
-  return reinterpret_cast<const bf16*>(stages + stage * STAGE_BYTES);
-}
-
 // K5q: issue the copies of tile `tile` as load_tile does, of int8 codes: a
-// column's K and V are 8 chunks of 16 bytes each, and the thread of its
-// first chunk also copies the column's two scale words and records which
-// half holds each scale.
+// column's K and V are 8 chunks of 16 bytes each, addressed through the
+// range's pages; the thread of a page's first chunk in the tile also copies
+// the page's two scale words (zeros for the null page, whose columns are
+// all dead) and records which half holds each scale.
 __device__ __forceinline__ void load_tile(unsigned char* stage, const QPagedCols& cols,
                                           const uint8_t* live_s, int c_begin, int tile, int tid) {
   constexpr int QCHUNKS = D / 16;
+  const Params& p = cols.p;
   int8_t* Kq = reinterpret_cast<int8_t*>(stage);
-  int8_t* Vq = Kq + TL * D;
+  int8_t* Vq = Kq + TL * QKP;
   uint32_t* kw = reinterpret_cast<uint32_t*>(Vq + TL * D);
   uint32_t* vw = kw + TL;
   uint8_t* half = reinterpret_cast<uint8_t*>(vw + TL);
+  const int sshift = cols.sshift();
 #pragma unroll
   for (int j = 0; j < TL * QCHUNKS / NTHREADS; ++j) {
     const int i = tid + j * NTHREADS;
     const int c = i / QCHUNKS, ch = (i % QCHUNKS) * 16;
     const int cs = tile * TL + c;
     const bool live = live_s[cs] != 0;
-    const int8_t *kc = cols.k, *vc = cols.v;
-    const bf16 *ksc = cols.ks, *vsc = cols.vs;
-    if (live) {
-      const int lc = c_begin + cs;
-      const long long page = __ldg(cols.bt + (lc >> cols.shift));
-      const int row = lc & cols.mask;
-      kc = cols.k + page * cols.skp + row * cols.skr;
-      vc = cols.v + page * cols.svp + row * cols.svr;
-      ksc = cols.ks + page * cols.sksp;
-      vsc = cols.vs + page * cols.svsp;
-    }
-    cp_async16_zfill(Kq + c * D + ch, kc + ch, live ? 16 : 0);
-    cp_async16_zfill(Vq + c * D + ch, vc + ch, live ? 16 : 0);
-    if (ch == 0) {  // each scale's aligned 4-byte word, and the half that holds it
-      const uintptr_t ka = reinterpret_cast<uintptr_t>(ksc), va = reinterpret_cast<uintptr_t>(vsc);
-      cp_async4_zfill(kw + c, reinterpret_cast<const void*>(ka & ~uintptr_t(3)), live ? 4 : 0);
-      cp_async4_zfill(vw + c, reinterpret_cast<const void*>(va & ~uintptr_t(3)), live ? 4 : 0);
-      half[c] = (uint8_t)((ka >> 1) & 1);
-      half[TL + c] = (uint8_t)((va >> 1) & 1);
+    const long long page = live ? cols.pg[cs >> p.ps_shift] : 0;
+    const int row = (c_begin + cs) & ((1 << p.ps_shift) - 1);
+    cp_async16_zfill(Kq + c * QKP + ch, cols.codes(p.k, page, row, p.skb, p.skl, p.skh) + ch,
+                     live ? 16 : 0);
+    cp_async16_zfill(Vq + c * D + ch, cols.codes(p.v, page, row, p.svb, p.svl, p.svh) + ch,
+                     live ? 16 : 0);
+    if (ch == 0 && (c & ((1 << sshift) - 1)) == 0) {  // the page's scale words, and the halves
+      const int slot = c >> sshift;
+      const long long pid = cols.pg[cs >> p.ps_shift];
+      const uintptr_t ka = reinterpret_cast<uintptr_t>(p.ks + pid * p.sksp + cols.hk * p.sksh);
+      const uintptr_t va = reinterpret_cast<uintptr_t>(p.vs + pid * p.svsp + cols.hk * p.svsh);
+      cp_async4_zfill(kw + slot, reinterpret_cast<const void*>(ka & ~uintptr_t(3)), pid ? 4 : 0);
+      cp_async4_zfill(vw + slot, reinterpret_cast<const void*>(va & ~uintptr_t(3)), pid ? 4 : 0);
+      half[slot] = (uint8_t)((ka >> 1) & 1);
+      half[TL + slot] = (uint8_t)((va >> 1) & 1);
     }
   }
 }
 
-// K5q: turn the landed int8 stage into the bf16 tile the split path reads
-// (K at pitch KP, V at pitch D): bf16_rn(q * scale) a live column, 0 a dead
-// one. One block barrier after: every thread reads every column.
-__device__ __forceinline__ const bf16* land_tile(unsigned char* stages, int stage,
-                                                 const QPagedCols&, const uint8_t* live_s,
-                                                 int tile, int tid) {
-  constexpr int QCHUNKS = D / 16;
-  const unsigned char* st = stages + stage * QSTAGE_BYTES;
-  const int8_t* Kq = reinterpret_cast<const int8_t*>(st);
-  const int8_t* Vq = Kq + TL * D;
-  const uint32_t* kw = reinterpret_cast<const uint32_t*>(Vq + TL * D);
-  const uint32_t* vw = kw + TL;
-  const uint8_t* half = reinterpret_cast<const uint8_t*>(vw + TL);
-  bf16* Ks = reinterpret_cast<bf16*>(stages + QTILE_OFFSET);
-  bf16* Vs = Ks + TL * KP;
-#pragma unroll
-  for (int j = 0; j < 2 * TL * QCHUNKS / NTHREADS; ++j) {
-    const int i = tid + j * NTHREADS;
-    const int c = i / (2 * QCHUNKS), part = i % (2 * QCHUNKS);
-    const bool is_v = part >= QCHUNKS;
-    const int ch = (part % QCHUNKS) * 16;
-    uint4 o[2] = {make_uint4(0, 0, 0, 0), make_uint4(0, 0, 0, 0)};
-    if (live_s[tile * TL + c]) {
-      const uint32_t w = is_v ? vw[c] : kw[c];
-      const unsigned short bits = (unsigned short)(w >> (16 * half[(is_v ? TL : 0) + c]));
-      const float sc = __bfloat162float(__ushort_as_bfloat16(bits));
-      const uint4 raw = *reinterpret_cast<const uint4*>((is_v ? Vq : Kq) + c * D + ch);
-      const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-      __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(o);
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        o2[e] = __halves2bfloat162(__float2bfloat16_rn(__fmul_rn((float)b[2 * e], sc)),
-                                   __float2bfloat16_rn(__fmul_rn((float)b[2 * e + 1], sc)));
-    }
-    bf16* dst = is_v ? Vs + c * D + ch : Ks + c * KP + ch;
-    reinterpret_cast<uint4*>(dst)[0] = o[0];
-    reinterpret_cast<uint4*>(dst)[1] = o[1];
+// K5q: the f32 value of the bf16 scale of tile column c's page (V's when
+// `is_v`) in a landed stage.
+__device__ __forceinline__ float stage_scale(const unsigned char* st, const QPagedCols& cols,
+                                             int c, bool is_v) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(st + TL * QKP + TL * D) + (is_v ? TL : 0);
+  const uint8_t* half = reinterpret_cast<const uint8_t*>(st + TL * QKP + TL * D + 2 * TL * 4);
+  const int slot = c >> cols.sshift();
+  return __uint_as_float(((w[slot] >> (16 * half[(is_v ? TL : 0) + slot])) & 0xffffu) << 16);
+}
+
+// Two int8 codes (the low 16 bits of `two`) as the bf16 pair of their
+// dequantized values, bf16_rn(float(q) * scale) each: the plain version's
+// product, one rounding (`__fmul_rn` is never fused), then its cast.
+__device__ __forceinline__ unsigned dq_pair(unsigned two, float sc) {
+  const float lo = (float)(int8_t)(two & 0xffu), hi = (float)(int8_t)((two >> 8) & 0xffu);
+  const __nv_bfloat162 r = __halves2bfloat162(__float2bfloat16_rn(__fmul_rn(lo, sc)),
+                                              __float2bfloat16_rn(__fmul_rn(hi, sc)));
+  return *reinterpret_cast<const unsigned*>(&r);
+}
+
+// S's B fragment of tile column `col` at head-dim lanes k, k + 1 and k + 8,
+// k + 9 (b0, b1): K4/K5 read the bf16 tile, K5q converts the int8 codes
+// with their page's scale `ks`.
+template <class Cols>
+__device__ __forceinline__ void k_frag(const unsigned char* st, int col, int k, float ks,
+                                       unsigned& b0, unsigned& b1) {
+  if constexpr (Cols::QUANT) {
+    const unsigned char* kq = st + col * QKP + k;
+    b0 = dq_pair(*reinterpret_cast<const uint16_t*>(kq), ks);
+    b1 = dq_pair(*reinterpret_cast<const uint16_t*>(kq + 8), ks);
+  } else {
+    const bf16* kp = reinterpret_cast<const bf16*>(st) + col * KP + k;
+    b0 = lds32(kp);
+    b1 = lds32(kp + 8);
   }
-  __syncthreads();
-  return Ks;
+}
+
+// V's head-dim lanes [d0, d0 + 8) of tile column c as f32: K4/K5 from the
+// bf16 tile, K5q from 8 int8 codes with their page's scale `vs`.
+template <class Cols>
+__device__ __forceinline__ void v_row(const unsigned char* st, int c, int d0, float vs,
+                                      float (&vf)[8]) {
+  if constexpr (Cols::QUANT) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(st + TL * QKP + c * D + d0);
+    const unsigned w[2] = {raw.x, raw.y};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const unsigned two = dq_pair(w[e >> 1] >> (16 * (e & 1)), vs);
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&two));
+      vf[2 * e] = f.x;
+      vf[2 * e + 1] = f.y;
+    }
+  } else {
+    const bf16* Vs = reinterpret_cast<const bf16*>(st) + TL * KP;
+    const int4 raw = *reinterpret_cast<const int4*>(Vs + c * D + d0);
+    const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(v2[e]);
+      vf[2 * e] = f.x;
+      vf[2 * e + 1] = f.y;
+    }
+  }
 }
 
 // The softmax state of a block's rows that one thread carries: P V
@@ -460,23 +502,24 @@ __device__ __forceinline__ void tile_loop(const Params& p, const Smem<RMAX>& sm,
                 nth_bit(tiles, i + STAGES - 1), tid);
     cp_async_commit();
     const int tile = nth_bit(tiles, i);
-    const bf16* Ks = land_tile(sm.stages, i % STAGES, cols, sm.live, tile, tid);
-    const bf16* Vs = Ks + TL * KP;
+    const unsigned char* stage = sm.stages + (i % STAGES) * SB;
 
     // S = Q K^T for this warp's 8 columns; masked, scaled; row maxima
     {
       const int g = lane >> 2, tig = lane & 3;
       const int c = warp * 8 + 2 * tig;  // this lane's two columns in the tile
       const int cs = tile * TL + c;      // ... in the range
+      float ks = 0.f;                    // K5q: the scale of column warp * 8 + g's page
+      if constexpr (Cols::QUANT) ks = stage_scale(stage, cols, warp * 8 + g, false);
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         float sc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
         for (int k16 = 0; k16 < D / 16; ++k16) {
-          unsigned a[4];
+          unsigned a[4], b0, b1;
           load_a(a, sm.q, mt * 16, k16 * 16, lane);
-          const bf16* kp = Ks + (warp * 8 + g) * KP + k16 * 16 + tig * 2;
-          mma_bf16(sc, a, lds32(kp), lds32(kp + 8));
+          k_frag<Cols>(stage, warp * 8 + g, k16 * 16 + tig * 2, ks, b0, b1);
+          mma_bf16(sc, a, b0, b1);
         }
 #pragma unroll
         for (int h = 0; h < 2; ++h) {  // rows g and g + 8 of the m-tile
@@ -535,15 +578,10 @@ __device__ __forceinline__ void tile_loop(const Params& p, const Smem<RMAX>& sm,
     for (int j = 0; j < CPG; ++j) {
       const int c = cg + NCG * j;
       const float4 pr = *reinterpret_cast<const float4*>(sm.S + c * RMAX + 4 * rg);
-      const int4 raw = *reinterpret_cast<const int4*>(Vs + c * D + 8 * dg);
-      const __nv_bfloat162* v2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      float vs = 0.f;  // K5q: the scale of column c's page
+      if constexpr (Cols::QUANT) vs = stage_scale(stage, cols, c, true);
       float vf[8];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(v2[e]);
-        vf[2 * e] = f.x;
-        vf[2 * e + 1] = f.y;
-      }
+      v_row<Cols>(stage, c, 8 * dg, vs, vf);
       const float pk[4] = {pr.x, pr.y, pr.z, pr.w};
 #pragma unroll
       for (int k = 0; k < 4; ++k)
@@ -665,13 +703,13 @@ __device__ __forceinline__ void merge_row(const Params& p) {
   if (d == 0) p.lse[slot * R + r] = den > 0.f ? safe + logf(den) : NEG_INF;
 }
 
-// One block: one range of one (slot, kv-head).
+// One range `split` of one (slot b, kv-head hk): a block of K4, K5 and K5q.
 template <int RMAX, class Cols>
-__device__ __forceinline__ void decode_range(const Params& p, unsigned char* dsm) {
+__device__ __forceinline__ void decode_range(const Params& p, unsigned char* dsm, int b, int hk,
+                                             int split) {
   constexpr int MT = Smem<RMAX>::MT;
-  const Smem<RMAX> sm(dsm);
+  const Smem<RMAX> sm(dsm, stage_bytes<Cols>());
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int hk = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
   const int c_begin = split * SPLIT;
   const int G = p.H / p.Hkv;
   const int R = G * p.s;  // row r = g * s + t  ->  q-head hk*G + g, token t
@@ -709,7 +747,16 @@ __device__ __forceinline__ void decode_range(const Params& p, unsigned char* dsm
     cp_async16_zfill(sm.q + r * KP + ch, src, r < R ? 16 : 0);
   }
   cp_async_commit();
-  range_tiles<RMAX>(p, sm, Cols(p, b, hk), tiles, c_begin, R, part);
+  if constexpr (Cols::QUANT) {
+    // K5q: the range's pages, each read once (0 past the table), by a
+    // range with a live tile only: a dead block returns without a read
+    if ((tid & ((1 << p.ps_shift) - 1)) == 0)
+      sm.pg[tid >> p.ps_shift] = col < p.L ? __ldg(p.bt + b * p.sbt + (col >> p.ps_shift)) : 0;
+    __syncthreads();
+    range_tiles<RMAX>(p, sm, Cols(p, hk, sm.pg), tiles, c_begin, R, part);
+  } else {
+    range_tiles<RMAX>(p, sm, Cols(p, b, hk), tiles, c_begin, R, part);
+  }
 }
 
 // ------------------------------------------------------------ multi-row path
@@ -1108,19 +1155,19 @@ __device__ __forceinline__ void decode_rows(unsigned char* dsm, const CUtensorMa
 template <int RMAX>
 __global__ void __launch_bounds__(NTHREADS, 2) flash_decode_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char dsm[];
-  decode_range<RMAX, RowCols>(p, dsm);
+  decode_range<RMAX, RowCols>(p, dsm, blockIdx.y, blockIdx.x, blockIdx.z);
 }
 
 template <int RMAX>
 __global__ void __launch_bounds__(NTHREADS, 2) paged_flash_decode_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char dsm[];
-  decode_range<RMAX, PagedCols>(p, dsm);
+  decode_range<RMAX, PagedCols>(p, dsm, blockIdx.y, blockIdx.x, blockIdx.z);
 }
 
 template <int RMAX>
 __global__ void __launch_bounds__(NTHREADS, 2) qpaged_flash_decode_kernel(Params p) {
   extern __shared__ __align__(128) unsigned char dsm[];
-  decode_range<RMAX, QPagedCols>(p, dsm);
+  decode_range<RMAX, QPagedCols>(p, dsm, blockIdx.y, blockIdx.x, blockIdx.z);
 }
 
 // The merges of K4, K5 and K5q are one function under three names, so a
@@ -1164,6 +1211,12 @@ void (*merge_of(int kind))(Params) {
          : kind == PAGED ? &paged_flash_decode_kernel_merge : &flash_decode_kernel_merge;
 }
 
+// Dynamic shared memory of a block of K4/K5 (kind 0, 1) or K5q (2).
+template <int RMAX>
+size_t smem_of(int kind) {
+  return kind == QPAGED ? Smem<RMAX>::bytes(QSTAGE_BYTES, true) : Smem<RMAX>::bytes();
+}
+
 // Let the kernel take its shared memory, and the SM give shared memory all
 // it can.
 template <class Kernel>
@@ -1178,10 +1231,10 @@ int configure(Kernel kernel, size_t smem) {
 
 template <int RMAX>
 int launch(const Params& p, int kind, cudaStream_t stream) {
-  const int code = configure(kernel_of<RMAX>(kind), Smem<RMAX>::bytes());
+  const size_t smem = smem_of<RMAX>(kind);
+  const int code = configure(kernel_of<RMAX>(kind), smem);
   if (code) return code;
-  kernel_of<RMAX>(kind)<<<dim3(p.Hkv, p.B, p.n_splits), NTHREADS, Smem<RMAX>::bytes(),
-                          stream>>>(p);
+  kernel_of<RMAX>(kind)<<<dim3(p.Hkv, p.B, p.n_splits), NTHREADS, smem, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   merge_of(kind)<<<dim3(p.Hkv, p.B, (p.H / p.Hkv) * p.s), D, 0, stream>>>(p);
@@ -1305,7 +1358,8 @@ extern "C" int nxd_paged_flash_decode_fwd(
 
 // K5q: k/v are int8 pools (n_pages, page_size, Hkv, D) with strides (skp,
 // skr, skh) in bytes; ks/vs their bf16 scales (n_pages, 1, Hkv, 1) with
-// page and kv-head strides (sksp, sksh), (svsp, svsh); otherwise as K5. R = group * s must be at most 32.
+// page and kv-head strides (sksp, sksh), (svsp, svsh); otherwise as K5.
+// R = group * s must be at most 32.
 extern "C" int nxd_qpaged_flash_decode_fwd(
     const void* q, const void* k, const void* v, const void* ks, const void* vs, void* o,
     void* lse, const void* q_pos, const void* kv_valid, const void* bt, void* work_o,
@@ -1328,22 +1382,21 @@ extern "C" int nxd_qpaged_flash_decode_fwd(
   p.ks = static_cast<const bf16*>(ks);
   p.vs = static_cast<const bf16*>(vs);
   p.sksp = sksp; p.sksh = sksh; p.svsp = svsp; p.svsh = svsh;
-  if ((H / Hkv) * s > RMAX_ALL) return (int)cudaErrorInvalidValue;
   return dispatch(p, QPAGED, stream);
 }
 
 // Resources of K4 (kind 0), K5 (1) or K5q (2) at R <= rmax (4, 8, 16 or 32;
-// 0: the multi-row kernel, R > 32, at L = 8192, K4's and K5's alone), into
+// 0: the multi-row kernel, R > 32, K4's and K5's alone), at L = 8192, into
 // out[4].
 extern "C" int nxd_flash_decode_resources(int paged, int rmax, int* out) {
   switch (rmax) {
     case 0:
       if (paged == QPAGED) return (int)cudaErrorInvalidValue;
       return resources(rows_kernel_of(paged == PAGED), rows_smem(8192), RTHREADS, out);
-    case 4: return resources(kernel_of<4>(paged), Smem<4>::bytes(), NTHREADS, out);
-    case 8: return resources(kernel_of<8>(paged), Smem<8>::bytes(), NTHREADS, out);
-    case 16: return resources(kernel_of<16>(paged), Smem<16>::bytes(), NTHREADS, out);
-    case 32: return resources(kernel_of<32>(paged), Smem<32>::bytes(), NTHREADS, out);
+    case 4: return resources(kernel_of<4>(paged), smem_of<4>(paged), NTHREADS, out);
+    case 8: return resources(kernel_of<8>(paged), smem_of<8>(paged), NTHREADS, out);
+    case 16: return resources(kernel_of<16>(paged), smem_of<16>(paged), NTHREADS, out);
+    case 32: return resources(kernel_of<32>(paged), smem_of<32>(paged), NTHREADS, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -28,9 +28,10 @@ For CPU tensors it runs :func:`paged_flash_decode_plain`, the gather
 An int8 pool (``ServingEngine(quantize=QuantConfig(kv="int8"))``) holds int8
 pages with a scale per (page, kv-head) in the compute dtype
 (:func:`quantize_page_block`). ``paged_flash_decode_fwd(..., k_scale=,
-v_scale=)`` attends it through K5q of the same source, K5's split path
-(R <= 32) dequantizing each landed element as ``bf16(q * scale)``: the
-function of JAX's gather-dequantize (:func:`paged_gather_leaf_dequant`)
+v_scale=)`` attends it through K5q of the same source: K5's ranges and
+merge (R <= 32), turning each int8 element into ``bf16(q * scale)`` where
+the products read it. It computes JAX's gather-dequantize
+(:func:`paged_gather_leaf_dequant`)
 and K4, which the JAX engine runs for a quantized pool. Its plain version
 is :func:`paged_flash_decode_plain_q`, and K5q through a table equals K4 on
 the dequantized gathered view bit for bit.
@@ -413,10 +414,13 @@ def quantize_page_block(pages: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     blocks' dtype (JAX ``quantize_page_block``, ``flash_decode.py:187``).
     The scale is computed in f32 and CAST to the blocks' dtype before the
     pages are quantized, so a dequantize-requantize round trip with an
-    unchanged absmax gives the same codes."""
+    unchanged absmax gives the same codes. Both divisions are correctly
+    rounded on every device: the bound is a tensor, since PyTorch's CUDA
+    division by a host scalar multiplies by its reciprocal instead."""
     pf = pages.to(torch.float32)
     amax = pf.abs().amax(dim=(-3, -1), keepdim=True)
-    scale = (amax.clamp_min(1e-12) / KV_QMAX).to(pages.dtype)
+    qmax = torch.full((), KV_QMAX, dtype=torch.float32, device=pf.device)
+    scale = (amax.clamp_min(1e-12) / qmax).to(pages.dtype)
     q = torch.round(pf / scale.to(torch.float32)).clamp(-KV_QMAX, KV_QMAX).to(torch.int8)
     return q, scale
 

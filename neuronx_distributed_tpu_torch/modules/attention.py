@@ -27,8 +27,8 @@ from neuronx_distributed_tpu_torch.kernels.flash_decode import (
     paged_flash_decode_attention,
     paged_gather_leaf,
     paged_read_pages_leaf_dequant,
-    quantize_page_block,
 )
+from neuronx_distributed_tpu_torch.kernels.kv_quant import window_requantize_fwd
 
 NEG_INF = -1e30
 
@@ -295,8 +295,9 @@ class PagedKVCache(KVCache):
     compute dtype, one scale a (page, kv-head). A write re-quantizes every
     page it touches, by JAX's ``scatter_cache_window`` rule
     (``modules/attention.py:544-593``): the page dequantized, the new rows
-    put in, the page quantized again (:func:`quantize_page_block`); pages
-    outside the write keep their bits. JAX re-quantizes a decode chunk's
+    put in, the page quantized again (``quantize_page_block``; one QW launch
+    a layer on the card, :func:`window_requantize_fwd`); pages outside the
+    write keep their bits. JAX re-quantizes a decode chunk's
     window once, at the chunk's end, and attends the chunk's own tokens in
     float; here each step's write quantizes, since K5q reads the pool, so
     the stream does not depend on the chunk size. The page manager zeroes a
@@ -313,7 +314,7 @@ class PagedKVCache(KVCache):
         self.row_valid = valid if row_valid is None else row_valid
         self.k_scale, self.v_scale = k_scale, v_scale
         self._dst = None  # (pages, rows) of this step's writes, set once per forward
-        self._win = None  # an int8 pool's write window: (pages, columns), set with _dst
+        self._win = None  # an int8 pool's write window: (pages, first column), set with _dst
 
     @property
     def quantized(self) -> bool:
@@ -365,8 +366,9 @@ class PagedKVCache(KVCache):
         An int8 pool also gets its write window: the physical pages of the
         logical pages the columns can touch (one for a single column; else,
         wherever they start, ``(s - 1) // page_size + 2``; past the table's
-        end: the null page) and the columns' places in it. Device tensors
-        only, from the table and the cursor: a captured step replays it."""
+        end: the null page) and the first column's place in it (the columns
+        are consecutive). Device tensors only, from the table and the
+        cursor: a captured step replays it."""
         cols = cols + self.col0
         ps = self.page_size
         self._dst = (self.block_table[:, cols // ps].long(), cols % ps)
@@ -376,7 +378,7 @@ class PagedKVCache(KVCache):
             first = cols[:1] // ps
             lp = first + torch.arange(n_win, device=cols.device)
             pages = self.block_table[:, lp.clamp(max=n_log - 1)].long()
-            self._win = (torch.where(lp < n_log, pages, 0), cols - first * ps)
+            self._win = (torch.where(lp < n_log, pages, 0), cols[:1] - first * ps)
 
     def prefill_valid(self, padding_mask: Optional[torch.Tensor], s: int) -> None:
         super().prefill_valid(padding_mask, s)
@@ -391,30 +393,19 @@ class PagedKVCache(KVCache):
     def decode_write(self, layer: int, k: torch.Tensor, v: torch.Tensor) -> None:
         """Write one layer's K/V (B, s, Hkv, D) at the columns the forward
         addressed (:meth:`prefill_valid` or :meth:`decode_positions`); on an
-        int8 pool, re-quantize the pages of the write window."""
+        int8 pool, re-quantize the pages of the write window, K and V in one
+        call (:func:`window_requantize_fwd`, QW on the card). Rows that
+        share the null page write it in any order; nothing reads it."""
         if self.quantized:
-            self._write_quantized(self.k[layer], self.k_scale[layer], k)
-            self._write_quantized(self.v[layer], self.v_scale[layer], v)
+            pages, w0 = self._win
+            window_requantize_fwd(self.k[layer], self.v[layer], self.k_scale[layer],
+                                  self.v_scale[layer], pages, w0, k, v)
             return
         pages, rows = self._dst
         self.k[layer][pages, rows] = k
         self.v[layer][pages, rows] = v
 
     prefill_write = decode_write
-
-    def _write_quantized(self, pool: torch.Tensor, scale: torch.Tensor, x: torch.Tensor) -> None:
-        """One int8 pool leaf's write of ``x`` (B, s, Hkv, D): the window's
-        pages dequantized (B, n_win * page_size, Hkv, D), ``x`` put in at
-        its columns, the pages quantized and written back. Rows that share
-        the null page write it in any order; nothing reads it."""
-        pages, cols = self._win
-        b, n_win = pages.shape
-        block = paged_read_pages_leaf_dequant(pool, scale, pages, self.page_size)
-        block = block.view(b, n_win, self.page_size, *pool.shape[2:])
-        block.view(b, n_win * self.page_size, *pool.shape[2:]).index_copy_(1, cols, x)
-        q, s = quantize_page_block(block)
-        pool[pages] = q
-        scale[pages] = s
 
     def clear_pages(self, ids) -> None:
         """Zero pages ``ids`` of an int8 pool, codes and scales, in every

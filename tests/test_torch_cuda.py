@@ -1061,6 +1061,108 @@ def test_qpaged_wrapper_refuses_what_k5q_does_not_take(cuda):
 
 
 @pytest.mark.cuda
+def test_qpaged_kernel_over_more_items_than_blocks_and_a_dead_slot(cuda):
+    """K5q at 64 slots (L = 8192, bound 3109: 13 ranges x 64 slots x 8
+    kv-heads, more blocks than the card holds at once) with slot 5 holding
+    no live column: equal bit for bit to K4 on the dequantized gathered
+    view (slot 5's rows O = 0, LSE -1e30); captured in a CUDA graph and
+    replayed three times in a row, the same bits each time."""
+    b, h, hkv, ps, L, bound = 64, 32, 8, 16, 8192, 3109
+    n_log, used = L // ps, -(-bound // ps)
+    n_pages = b * used + 1
+    rng = np.random.default_rng(64)
+    table = np.zeros((b, n_log), np.int32)
+    table[:, :used] = rng.permutation(np.arange(1, n_pages)).reshape(b, used)
+    kq, ks = tfd.quantize_page_block(_rnd(cuda, n_pages, ps, hkv, 128))
+    vq, vs = tfd.quantize_page_block(_rnd(cuda, n_pages, ps, hkv, 128))
+    bt = torch.from_numpy(table).cuda()
+    q = _rnd(cuda, b, 1, h, 128)
+    pos = torch.tensor([bound - 1], dtype=torch.int32, device="cuda")
+    valid = torch.rand(b, L, generator=cuda, device="cuda") > 0.1
+    valid[:, bound:] = False
+    valid[5] = False
+    run = lambda: tfd.paged_flash_decode_fwd(q, kq, vq, bt, pos, valid, ps, ks, vs)  # noqa: E731
+    n = tfd.qpaged_flash_decode_fwd.launches
+    got, lse = run()
+    assert tfd.qpaged_flash_decode_fwd.launches == n + 1
+    row, row_lse = tfd.flash_decode_fwd(q, tfd.paged_gather_leaf_dequant(kq, ks, bt, ps),
+                                        tfd.paged_gather_leaf_dequant(vq, vs, bt, ps), pos, valid)
+    assert torch.equal(got, row) and torch.equal(lse, row_lse)
+    assert not got[5].any() and bool((lse[5] == -1e30).all())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_out, g_lse = run()
+    for _ in range(3):
+        g_out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(g_out, got) and torch.equal(g_lse, lse)
+
+
+def _qw_case(gen, s, col, b=4, hkv=8, n_log=32, ps=16):
+    """An int8 pool (bf16 scales) behind a scrambled table whose row 3 maps
+    only its first 20 logical pages, the slots' view at column ``col`` with
+    ``s`` columns addressed, and new rows k, v: row 0's 50x (its page's
+    absmax rises); the pool rows under row 1's columns 50x before they are
+    quantized (its page's absmax falls)."""
+    from neuronx_distributed_tpu_torch.modules.attention import PagedKVCache
+
+    n_pages = b * n_log + 1
+    cache = PagedKVCache.allocate(1, b, n_log * ps, hkv, 128, torch.bfloat16, "cuda", n_pages,
+                                  ps, kv_quant="int8")
+    table = np.random.default_rng(s + col).permutation(np.arange(1, n_pages)).reshape(b, n_log)
+    table = table.astype(np.int32)
+    table[3, 20:] = 0
+    for pool, scale in ((cache.k, cache.k_scale), (cache.v, cache.v_scale)):
+        x = torch.randn(n_pages, ps, hkv, 128, generator=gen, device="cuda")
+        for c in range(col, col + s):
+            x[table[1, c // ps], c % ps] *= 50.0
+        q, sc = tfd.quantize_page_block(x.to(torch.bfloat16))
+        pool[0].copy_(q)
+        scale[0].copy_(sc)
+    cache.upload_table(table)
+    view = cache.view(slice(None), col)
+    view._address(view._cols[:s])
+    k, v = _rnd(gen, b, s, hkv, 128), _rnd(gen, b, s, hkv, 128)
+    k[0].mul_(50.0)
+    v[0].mul_(50.0)
+    return cache, view, table, k, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,col", [(1, 37), (300, 45), (17, 495)])
+def test_window_requantize_kernel_equals_plain(cuda, s, col):
+    """QW writes an int8 pool's window (a decode step mid-page, a 300-token
+    prefill window from mid-page, a window past the table's end) equal bit
+    for bit to its plain version on every page but the null page, K and V
+    in one launch; row 0's page scale rises and row 1's falls."""
+    from neuronx_distributed_tpu_torch.kernels import kv_quant as tkq
+
+    cache, view, table, k, v = _qw_case(cuda, s, col)
+    pages, w0 = view._win
+    want = [t[0].clone() for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)]
+    before = [t.clone() for t in want]
+    tkq.window_requantize_plain(*want, pages, w0, k, v)
+    n = tkq.window_requantize_fwd.launches
+    view.decode_write(0, k, v)
+    assert tkq.window_requantize_fwd.launches == n + 1
+    for got, w in zip((cache.k[0], cache.v[0], cache.k_scale[0], cache.v_scale[0]), want):
+        assert torch.equal(got[1:], w[1:])
+    ks, ks0 = cache.k_scale[0].float(), before[2].float()
+    p0, p1 = int(table[0, col // 16]), int(table[1, col // 16])
+    assert bool((ks[p0] > 2 * ks0[p0]).all()) and bool((ks[p1] < 0.5 * ks0[p1]).all())
+    with pytest.raises(TypeError):  # f32 rows
+        tkq.window_requantize_fwd(cache.k[0], cache.v[0], cache.k_scale[0], cache.v_scale[0],
+                                  pages, w0, k.float(), v.float())
+    assert tkq.window_requantize_fwd.launches == n + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fp8", [False, True])
 @pytest.mark.parametrize("per_tensor", [False, True])
 def test_dequantize_kernel_equals_plain(cuda, fp8, per_tensor):
@@ -1087,9 +1189,10 @@ def test_dequantize_kernel_equals_plain(cuda, fp8, per_tensor):
 @pytest.mark.parametrize("kv", [None, "int8"])
 def test_quantized_engine_decodes_through_one_captured_graph(cuda, monkeypatch, kv):
     """A small bf16 Llama (head_dim 128) behind a quantized engine: int8
-    weights on the row engine, int8 weights and an int8 pool (K5q) on the
-    paged one. One capture, replays = executed steps, one replay launches
-    the decode kernel once a layer and DQ once a linear; the streams equal
+    weights on the row engine, int8 weights and an int8 pool (K5q, QW) on
+    the paged one. One capture, replays = executed steps, one replay
+    launches the decode kernel once a layer (and QW once a layer on the
+    int8 pool) and DQ once a linear; the streams equal
     the same engine's with the eager step patched in, and every request
     finishes (an eager preemption on the way)."""
     from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
@@ -1122,8 +1225,10 @@ def test_quantized_engine_decodes_through_one_captured_graph(cuda, monkeypatch, 
         prog = engine.decode_program
         if not eager:
             assert engine.decode_compilations == 1 and prog.replays == snap["executed_steps"]
-            assert prog.launches_per_replay == {name: cfg.num_layers,
-                                                "dequantize": 7 * cfg.num_layers + 1}
+            want = {name: cfg.num_layers, "dequantize": 7 * cfg.num_layers + 1}
+            if kv:
+                want["window_requantize"] = cfg.num_layers
+            assert prog.launches_per_replay == want
         if kv:
             engine.cache.check()
         streams.append([r.tokens for r in reqs])

@@ -17,6 +17,7 @@ import neuronx_distributed_tpu_torch as port
 from neuronx_distributed_tpu_torch.kernels import dequantize as tdq
 from neuronx_distributed_tpu_torch.kernels import flash_attention as tfa
 from neuronx_distributed_tpu_torch.kernels import flash_decode as tfd
+from neuronx_distributed_tpu_torch.kernels import kv_quant as tkq
 from neuronx_distributed_tpu_torch.models import llama as tllama
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
@@ -130,7 +131,7 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     k = torch.randn(1, 4, 1, 8)
     counters = (tfa.flash_attention_fwd, tfa.flash_attention_dkdv, tfa.flash_attention_dq,
                 tfd.flash_decode_fwd, tfd.paged_flash_decode_fwd, tfd.qpaged_flash_decode_fwd,
-                tdq.dequantize_fwd)
+                tdq.dequantize_fwd, tkq.window_requantize_fwd)
     before = [f.launches for f in counters]
     out, lse = tfa.flash_attention_fwd(q, k, k)
     delta = (out * q).sum(-1).transpose(1, 2)
@@ -144,21 +145,25 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     tfd.paged_flash_decode_fwd(q[:, :1], kq, kq, torch.tensor([[1, 0]], dtype=torch.int32),
                                torch.tensor([1]), page_size=2, k_scale=ks, v_scale=ks)
     tdq.dequantize_fwd(torch.ones(4, 16, dtype=torch.int8), torch.ones(4), torch.float32)
+    kq, ks = kq.clone(), ks.clone()
+    tkq.window_requantize_fwd(kq, kq.clone(), ks, ks.clone(), torch.tensor([[1]]),
+                              torch.tensor([0]), k[:, :1].reshape(1, 1, 1, 8),
+                              k[:, 1:2].reshape(1, 1, 1, 8))
     assert [f.launches for f in counters] == before
     # the plain versions are called from their own wrappers and nowhere else
     # in the package (chip_smoke.py calls them only to check the kernels)
     for path in _sources():
         if os.path.basename(path) in ("chip_smoke.py", "flash_attention.py", "flash_decode.py",
-                                      "dequantize.py"):
+                                      "dequantize.py", "kv_quant.py"):
             continue
         with open(path) as f:
             src = f.read()
         for plain in ("flash_attention_plain", "flash_attention_dkdv_plain",
                       "flash_attention_dq_plain", "flash_decode_plain",
                       "paged_flash_decode_plain", "paged_flash_decode_plain_q",
-                      "dequantize_plain"):
+                      "dequantize_plain", "window_requantize_plain"):
             assert plain not in src, (path, plain)
     # and no fallback: the kernel wrappers hold no try/except
-    for mod in (tfa, tfd, tdq):
+    for mod in (tfa, tfd, tdq, tkq):
         tree = ast.parse(open(mod.__file__).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod.__file__

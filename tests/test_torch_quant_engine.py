@@ -198,14 +198,17 @@ def test_teacher_forced_stream_within_the_budget(jax_bench_model, kv):
     assert kl > 0  # the quantized path is not the float one
 
 
-@pytest.mark.parametrize("s,col", [(1, 37), (1, 48), (5, 29), (20, 5)])
+@pytest.mark.parametrize("s,col", [(1, 37), (1, 48), (5, 29), (20, 5), (9, 21), (5, 59)])
 def test_int8_pool_write_equals_jax_window_requantize(s, col):
     """A write of s columns at ``col`` into an int8 pool equals JAX's rule
     for a chunk's write window, bit for bit: the dequantized logical view
     (``paged_gather_leaf_dequant``) takes the new rows, the window's pages
     (``paged_window_vals``, the port's window: one page for one column, else
     (s - 1) // page_size + 2) are quantized (``quantize_page_block``) and
-    scattered (``paged_scatter_vals``). Every other page keeps its bits."""
+    scattered (``paged_scatter_vals``). Every other page keeps its bits. A
+    window past the table's end (``(5, 59)``) writes its last page into the
+    null page 0, which JAX's window (clamped to the table) does not reach:
+    there the pools are compared on every page but 0."""
     rng = np.random.default_rng(s + col)
     b, hkv, d, ps, n_log, n_pages = 2, 2, 8, 8, 8, 20
     cache = PagedKVCache.allocate(1, b, n_log * ps, hkv, d, torch.float32, "cpu", n_pages, ps,
@@ -225,6 +228,7 @@ def test_int8_pool_write_equals_jax_window_requantize(s, col):
     n_win = 1 if s == 1 else (s - 1) // ps + 2
     page0 = col // ps
     touched = set(table[:, page0:page0 + n_win].reshape(-1).tolist())
+    keep = slice(1, None) if page0 + n_win > n_log else slice(None)
     for name in ("k", "v"):
         pq, psc = getattr(cache, name)[0], getattr(cache, name + "_scale")[0]
         logical = jfd.paged_gather_leaf_dequant(jnp.asarray(before[name][0].numpy()),
@@ -235,11 +239,11 @@ def test_int8_pool_write_equals_jax_window_requantize(s, col):
                                           ps, 0)
         wq, ws = jfd.quantize_page_block(vals)
         np.testing.assert_array_equal(
-            pq.numpy(), np.asarray(jfd.paged_scatter_vals(
-                jnp.asarray(before[name][0].numpy()), wq, idx)))
+            pq[keep].numpy(), np.asarray(jfd.paged_scatter_vals(
+                jnp.asarray(before[name][0].numpy()), wq, idx))[keep])
         np.testing.assert_array_equal(
-            psc.numpy(), np.asarray(jfd.paged_scatter_vals(
-                jnp.asarray(before[name + "_scale"][0].numpy()), ws, idx)))
+            psc[keep].numpy(), np.asarray(jfd.paged_scatter_vals(
+                jnp.asarray(before[name + "_scale"][0].numpy()), ws, idx))[keep])
         untouched = [p for p in range(n_pages) if p not in touched]
         assert torch.equal(pq[untouched], before[name][0][untouched])
 
