@@ -6,9 +6,9 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
 
 1. the card's name and power limit, and the build of every CUDA kernel of
    the serving and training paths from ``neuronx_distributed_tpu_torch/csrc``
-   (one ``nvcc`` per source, started together); K1's, K2's, K3's, K4's and
-   K5's resources as built (neither K1 nor a decode kernel may spill, nor
-   may ptxas serialize K1's ``wgmma`` products);
+   (one ``nvcc`` per source, started together); K1's, K2's, K3's, K4's,
+   K5's, QW's and PF's resources as built (neither K1 nor a decode kernel,
+   QW or PF may spill, nor may ptxas serialize K1's ``wgmma`` products);
 2. each kernel against its plain PyTorch version at its path's shapes,
    bf16, with its time, the plain version's, the least time the card could
    take (``bound_ms``) and one PyTorch library call's (SDPA) time: K1 at the
@@ -42,7 +42,11 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    a 300-token prefill window from mid-page, one page's absmax rising and
    one's falling, timed against its bytes bound; DQ (the one-pass weight
    dequantize) at lm_head's shape, int8 and fp8, bitwise equal to its
-   plain version, timed against its 3-bytes-a-weight bound;
+   plain version, timed against its 3-bytes-a-weight bound; PF (the
+   per-page pool fingerprints of a paged prefix hit) over 100 pages in
+   scrambled order of phase 5b's bf16 pool and of phase 5f(c)'s int8 pool
+   with scales, bitwise equal to its plain version, one flipped bit moving
+   its page's value alone, timed against its bytes bound;
 3. outputs: the full-width model's logits through the kernels, with a row
    cache and with a paged cache behind a scrambled block table, against the
    same model with the plain versions swapped in, on a short prompt;
@@ -116,6 +120,23 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    paged prefix leg on that pool: 11 hits and 1 miss, ``copy_bytes`` 0,
    pinned pages' codes and scales bitwise unchanged, each hit's suffix
    prefilled on K4 (multi-row) over a dequantized float row;
+5g. the serving engine's fault contract at full width, every fault counter
+   equal to the injected schedule, the decode program one capture on its
+   buffers through every recovery and quarantine: on phase 4's row engine
+   (a) a dispatch failure before the chunk (recovery, DEGRADED then OK),
+   (b) the chunk raising after its replays ran (reset in place), (c) a
+   poisoned readback (the slot quarantined, the neighbours' streams equal
+   to phase 4's), (d) persistent failures (HALTED, the work requeued, the
+   post-mortem written and parsed back), (e) a skewed clock shedding two
+   queued requests before any prefill, (f) one prefill fault; on phase
+   5c's paged prefix traffic (g) a poisoned page shared by every request
+   (all requeued, ``check()`` clean every step) and a flipped pool bit
+   caught by the page fingerprints at a hit (a full prefill instead), one
+   host read more a paged hit; on phase 5d's speculative engine (h) a
+   failed draft dispatch (one plain chunk, every slot preempted). Tokens
+   emitted before a fault equal the fault-free run's; the rest are counted
+   bit for bit and every greedy token lies within phase 3's limit
+   teacher-forced; the recovery walls of (a) and (g);
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -135,6 +156,7 @@ import bisect
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -901,6 +923,71 @@ def check_dq(gen) -> dict:
     nbytes = 3 * w.numel() + 4 * w.shape[0]
     res.update(bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes", bytes=nbytes,
                shape=tuple(w.shape))
+    return res
+
+
+PF_PAGES = 100  # pages a phase 5c hit maps: its 1600-token system prompt at page 16
+
+
+def pf_leaves(gen, int8: bool) -> list:
+    """A pool at phase 5b's geometry (32 layers, 2049 pages of 16 columns,
+    Hkv 8, D 128, bf16 K and V) or phase 5f(c)'s int8 pool of the same
+    bytes (4094 pages, a bf16 scale a page and kv-head), filled from
+    ``gen``; the leaves in PF's order (K, K scale, V, V scale)."""
+    layers, hkv, d = 32, 8, 128
+    bf16_page = 2 * layers * PAGE * hkv * d * 2
+    pages = ROW_SLOTS * 8192 // PAGE + 1
+    if not int8:
+        return [torch.randn(layers, pages, PAGE, hkv, d, generator=gen, device="cuda",
+                            dtype=torch.bfloat16) for _ in range(2)]
+    pages = pages * bf16_page // (2 * layers * (PAGE * hkv * d + hkv * 2))
+    codes = [torch.randint(-127, 128, (layers, pages, PAGE, hkv, d), generator=gen,
+                           device="cuda", dtype=torch.int8) for _ in range(2)]
+    scales = [(torch.rand(layers, pages, 1, hkv, 1, generator=gen, device="cuda") * 0.02)
+              .to(torch.bfloat16) for _ in range(2)]
+    return [codes[0], scales[0], codes[1], scales[1]]
+
+
+def check_pf(gen) -> dict:
+    """PF at phase 5b's bf16 pool and phase 5f(c)'s int8 pool: the
+    fingerprints of 100 pages given in scrambled order equal the plain
+    version's bit for bit; flipping one bit of one page moves that page's
+    value and no other; timed as a CUDA-graph replay against its bytes
+    bound (each page of each leaf read once, the ids read, the values
+    written)."""
+    from neuronx_distributed_tpu_torch.kernels.page_fingerprint import (
+        pool_pages_fingerprint_fwd,
+        pool_pages_fingerprint_plain,
+    )
+    from neuronx_distributed_tpu_torch.utils.fingerprint import jax_layer_order
+
+    res = {}
+    for kind in ("bf16", "int8"):
+        leaves = pf_leaves(gen, kind == "int8")
+        pages = leaves[0].shape[1]
+        ids = (torch.randperm(pages - 1, generator=gen, device="cuda")[:PF_PAGES] + 1)
+        order = jax_layer_order(leaves[0].shape[0])
+        got = pool_pages_fingerprint_fwd(leaves, ids, order)
+        want = pool_pages_fingerprint_plain(leaves, ids, order)
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"PF ({kind} pool) differs from its plain version at {bad} of "
+                                 f"{PF_PAGES} pages (must be bitwise equal)")
+        victim = int(ids[37])
+        v = leaves[len(leaves) // 2]  # V (codes on the int8 pool)
+        v.view(torch.uint8)[17, victim].reshape(-1)[4321] ^= 8
+        moved = (pool_pages_fingerprint_fwd(leaves, ids, order) != got).tolist()
+        if moved != [i == 37 for i in range(PF_PAGES)]:
+            raise AssertionError(f"PF ({kind} pool): one flipped bit moved pages "
+                                 f"{[i for i, m in enumerate(moved) if m]}, want [37]")
+        nbytes = sum(t[:, 0].numel() * t.element_size() for t in leaves) * PF_PAGES + 16 * PF_PAGES
+        res[kind] = dict(ms=graph_ms(lambda: pool_pages_fingerprint_fwd(leaves, ids, order), 10),
+                         plain_ms=cuda_ms(lambda: pool_pages_fingerprint_plain(leaves, ids, order),
+                                          2, warmup=1),
+                         bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes", bytes=nbytes,
+                         pages=pages)
+        del leaves, got, want
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2171,7 +2258,7 @@ def spec_phase(model, workload, smi: str) -> dict:
         f"{prof['snap']['executed_steps']} executed rounds x {prof['per_round']}")
     log(f"phase 5d wall: {time.perf_counter() - t_phase:.1f} s")
     return dict(launches={k: on["launches"][k] + runs[(0.3, "paged")]["launches"][k]
-                          for k in on["launches"]},
+                          for k in on["launches"]}, tokens=on["tokens"],
                 verify={"flash_decode": on["verify"],
                         "paged_flash_decode": runs[(0.3, "paged")]["verify"]})
 
@@ -2653,6 +2740,447 @@ def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
     return out
 
 
+# --- phase 5g: the fault contract -------------------------------------------------
+
+FAULT_KEYS = ("sheds", "timed_out", "failed", "quarantines", "page_quarantines",
+              "dispatch_retries", "recoveries", "prefill_failures", "spec_fallbacks")
+
+
+def timed_injector():
+    """A ``FaultInjector`` that notes, each time a fault fires, the time,
+    the engine's chunk count and every request's token count (set
+    ``engine`` and ``reqs`` on it): the recovery wall and the tokens each
+    stream held before the fault."""
+    from neuronx_distributed_tpu_torch.serving.faults import FaultInjector
+
+    class Timed(FaultInjector):
+        def __init__(self):
+            super().__init__()
+            self.engine, self.reqs, self.fired = None, (), []
+
+        def _note(self, kind):
+            self.fired.append(dict(kind=kind, t=time.perf_counter(),
+                                   chunks=self.engine.metrics.chunks,
+                                   tokens=[len(r.tokens) for r in self.reqs]))
+
+        def _raising(self, hook, kind, *a):
+            try:
+                hook(*a)
+            except Exception:
+                self._note(kind)
+                raise
+
+        def on_dispatch(self, attempt):
+            self._raising(super().on_dispatch, "dispatch", attempt)
+
+        def on_spec_dispatch(self, attempt):
+            self._raising(super().on_spec_dispatch, "draft_dispatch", attempt)
+
+        def on_prefill(self, call):
+            self._raising(super().on_prefill, "prefill", call)
+
+        def on_readback(self, readback, toks, counts, active=None):
+            n = self.counters["poisoned_readbacks"]
+            out = super().on_readback(readback, toks, counts, active)
+            if self.counters["poisoned_readbacks"] > n:
+                self._note("readback")
+            return out
+
+        def on_page_readback(self, readback, slot_pages, active=None):
+            pages = super().on_page_readback(readback, slot_pages, active)
+            if pages:
+                self._note("page")
+            return pages
+
+        def on_prefix_reuse(self, reuse, entry, cache=None):
+            n = self.counters["bit_flips"]
+            super().on_prefix_reuse(reuse, entry, cache)
+            if self.counters["bit_flips"] > n:
+                self._note("bit_flip")
+
+    return Timed()
+
+
+def graph_buffers(engine) -> list:
+    """The data pointers of every buffer the captured decode step reads."""
+    c = engine.cache.cache
+    return [t.data_ptr() for t in (c.k, c.v, c.valid, c.cursor, *engine._state.values())]
+
+
+def drive(engine, inj, paged: bool = False) -> float:
+    """Step ``engine`` until it is idle or halted (``check()`` after every
+    step on a paged engine). Returns the recovery wall of the first fault
+    ``inj`` noted: from the fault to the end of the next executed chunk (a
+    poisoned readback's own chunk counts as executed), or 0."""
+    recovered = None
+    while engine.has_work:
+        engine.step()
+        if paged:
+            engine.cache.check()
+        if inj.fired and recovered is None:
+            f = inj.fired[0]
+            done = f["chunks"] + (2 if f["kind"] in ("readback", "page") else 1)
+            if engine.metrics.chunks >= done:
+                torch.cuda.synchronize()
+                recovered = time.perf_counter() - f["t"]
+    return recovered or 0.0
+
+
+def expect_counters(what: str, engine, **want) -> dict:
+    """The engine's fault counters must equal the schedule exactly."""
+    snap = engine.metrics.snapshot()
+    got = {k: snap[k] for k in FAULT_KEYS}
+    full = dict.fromkeys(FAULT_KEYS, 0)
+    full.update(want)
+    if got != full:
+        raise AssertionError(f"fault phase {what}: counters {got} != the schedule's {full}")
+    return snap
+
+
+def stream_rule(what: str, model, workload, reqs, ref, pre) -> tuple:
+    """Tokens a request emitted before the fault (``pre``) equal the
+    fault-free run's (``ref``); the whole streams are counted bit for bit,
+    and every greedy token of a finished request lies within phase 3's
+    limit of its row's maximum logit in a teacher-forced pass. Returns
+    (streams identical, the teacher-forced gap over its limit)."""
+    for i, r in enumerate(reqs):
+        if r.tokens[:pre[i]] != ref[i][:pre[i]]:
+            raise AssertionError(f"fault phase {what}: request {i}'s tokens before the fault "
+                                 "differ from the fault-free run's")
+    done = [i for i, r in enumerate(reqs) if r.state.value == "done"]
+    prompts, cfgs = workload
+    worst = teacher_ratio(model, ([prompts[i] for i in done], [cfgs[i] for i in done]),
+                          [reqs[i].tokens for i in done])
+    if worst > 1.0:
+        raise AssertionError(f"fault phase {what}: a greedy token lies {worst:.3g}x phase 3's "
+                             "limit below its row's maximum logit teacher-forced")
+    return sum(r.tokens == ref[i] for i, r in enumerate(reqs)), worst
+
+
+def health_events(engine) -> list:
+    return [e["value"] for e in engine.flight.events() if e["kind"] == "health"]
+
+
+def fault_phase(model, srv: dict, spec_tokens, smi: str) -> dict:
+    """Phase 5g: the serving engine's fault contract at full width, on
+    phase 4's row engine (8 slots, chunk 8, the six requests, decode
+    captured), phase 5c's paged prefix traffic and phase 5d's speculative
+    engine (eps 0.3). Every fault counter must equal the injected schedule;
+    the decode program stays one capture on its buffers through every
+    recovery and quarantine. Returns the phase's launches by wrapper
+    (replays included)."""
+    import json
+    import tempfile
+
+    from neuronx_distributed_tpu_torch.models.llama import early_exit_draft
+    from neuronx_distributed_tpu_torch.serving.cache_manager import PrefixCache
+    from neuronx_distributed_tpu_torch.serving.engine import EngineHealth, ServingEngine
+    from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    workload, ref = srv["workload"], srv["tokens"]
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    replayed = dict.fromkeys(counters, 0)
+
+    def row_engine(inj, target=model, **kw):
+        inj.engine = ServingEngine(target, num_slots=8, decode_chunk_size=8, prefix_cache=None,
+                                   fault_injector=inj, **kw)
+        inj.reqs = [inj.engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(*workload))]
+        return inj.engine, inj.reqs
+
+    def retire(inj):
+        """Count the replays of the injector's engine and let it go (a paged
+        engine and its prefix store hold each other: collect the cycle)."""
+        import gc
+
+        engine = inj.engine
+        progs = [engine.decode_program]
+        if engine._plain_chunk is not None:
+            progs.append(engine._plain_chunk.program)
+        for prog in progs:
+            for name, n in prog.launches_per_replay.items():
+                replayed[name] += prog.replays * n
+        inj.engine = None
+        del engine, progs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def one_capture(what, engine, ptrs):
+        if engine.decode_compilations != 1 or graph_buffers(engine) != ptrs:
+            raise AssertionError(f"fault phase {what}: decode_compilations "
+                                 f"{engine.decode_compilations}, buffers moved: "
+                                 f"{graph_buffers(engine) != ptrs}")
+
+    # (a) a dispatch failure before the chunk's first replay
+    inj = timed_injector().fail_dispatch(at=2)
+    engine, reqs = row_engine(inj, degraded_cooldown_chunks=2)
+    ptrs = graph_buffers(engine)
+    wall_a = drive(engine, inj)
+    expect_counters("(a)", engine, dispatch_retries=1, recoveries=1)
+    if health_events(engine) != ["degraded", "ok"] or engine.health() is not EngineHealth.OK:
+        raise AssertionError(f"fault phase (a): health {health_events(engine)}, now "
+                             f"{engine.health()}; want degraded, then ok after the cooldown")
+    one_capture("(a)", engine, ptrs)
+    same_a, gap_a = stream_rule("(a)", model, workload, reqs, ref, inj.fired[0]["tokens"])
+    log(f"fault (a) fail_dispatch(at=2) ({smi}): dispatch_retries 1, recoveries 1, health "
+        f"degraded then ok after 2 chunks, decode_compilations 1 on its buffers; recovery wall "
+        f"(failure to the next executed chunk: the retry wait, six re-prefills, one chunk) "
+        f"{wall_a:.4f} s; streams: {inj.fired[0]['tokens'][0]} tokens each before the fault "
+        f"equal phase 4's, {same_a} of 6 whole streams bit-identical, teacher-forced gap "
+        f"{gap_a:.3g}x its limit")
+    del engine
+    retire(inj)
+
+    # (b) the chunk raising after its replays ran: reset in place
+    inj = timed_injector()
+    engine, reqs = row_engine(inj, degraded_cooldown_chunks=2)
+    ptrs = graph_buffers(engine)
+    engine.step()
+    engine.step()
+    real = engine._chunk
+
+    class StepsThenFail:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def __call__(self):
+            real()
+            raise RuntimeError("fault after the chunk's replays ran")
+
+    pre_b = [len(r.tokens) for r in reqs]
+    engine._chunk = StepsThenFail()
+    t_b = time.perf_counter()
+    engine.step()
+    engine._chunk = real
+    if engine.cache.cursor != 0 or bool(engine._state["active"].any()):
+        raise AssertionError("fault phase (b): the caches or slot state were not reset")
+    chunks_b = engine.metrics.chunks
+    wall_b = 0.0
+    while engine.has_work:
+        engine.step()
+        if not wall_b and engine.metrics.chunks > chunks_b:
+            torch.cuda.synchronize()
+            wall_b = time.perf_counter() - t_b
+    expect_counters("(b)", engine, dispatch_retries=1, recoveries=1)
+    one_capture("(b)", engine, ptrs)
+    same_b, gap_b = stream_rule("(b)", model, workload, reqs, ref, pre_b)
+    log(f"fault (b) the chunk raising after its {real.chunk_size} replays ran: cursor 0 and slot "
+        f"state reset in place, dispatch_retries 1, recoveries 1, decode_compilations 1 on its "
+        f"buffers; wall to the next executed chunk {wall_b:.4f} s; {pre_b[0]} tokens each "
+        f"before the fault equal phase 4's, {same_b} of 6 whole streams bit-identical, "
+        f"teacher-forced gap {gap_b:.3g}x its limit")
+    del engine, real
+    retire(inj)
+
+    # (c) a poisoned readback: the slot quarantined, the victim requeued
+    inj = timed_injector().poison_readback(at=3, slot=1, token=-5)
+    engine, reqs = row_engine(inj)
+    ptrs = graph_buffers(engine)
+    engine.step()
+    victim = next(i for i, r in enumerate(reqs) if r.slot == 1)
+    drive(engine, inj)
+    expect_counters("(c)", engine, quarantines=1)
+    if (engine.cache.usable_slots, engine.cache.quarantined_slots) != (7, [1]) \
+            or engine.health() is not EngineHealth.DEGRADED:
+        raise AssertionError(f"fault phase (c): usable {engine.cache.usable_slots}, quarantined "
+                             f"{engine.cache.quarantined_slots}, health {engine.health()}")
+    one_capture("(c)", engine, ptrs)
+    wrong = [i for i, r in enumerate(reqs) if i != victim and r.tokens != ref[i]]
+    if wrong or any(r.state is not RequestState.DONE for r in reqs):
+        raise AssertionError(f"fault phase (c): neighbours' streams differ from phase 4's: {wrong}")
+    pre_c = inj.fired[0]["tokens"]
+    same_c, gap_c = stream_rule("(c) victim", model, workload, reqs, ref, pre_c)
+    log(f"fault (c) poison_readback(at=3, slot=1): slot 1 quarantined (7 usable, DEGRADED), "
+        f"request {victim} requeued and finished; the 5 neighbours' streams bit-identical to "
+        f"phase 4's; the victim's {pre_c[victim]} tokens before the fault equal, its whole "
+        f"stream {'bit-identical' if reqs[victim].tokens == ref[victim] else 'not bit-identical'} "
+        f"({same_c} of 6 in all), teacher-forced gap {gap_c:.3g}x its limit; "
+        f"decode_compilations 1 on its buffers")
+    del engine
+    retire(inj)
+
+    # (d) persistent dispatch failures: HALTED, work requeued, post-mortem
+    with tempfile.TemporaryDirectory() as flight_dir:
+        inj = timed_injector().fail_dispatch(at=1, times=None)
+        engine, reqs = row_engine(inj, flight_dir=flight_dir)
+        drive(engine, inj)
+        expect_counters("(d)", engine, dispatch_retries=3, recoveries=2)
+        pm = json.loads(open(engine.flight.last_dump_path).read())
+        if (engine.health() is not EngineHealth.HALTED
+                or "3 consecutive dispatch failures" not in engine.halt_reason
+                or any(r.state is not RequestState.QUEUED or r.tokens != ref[i][:len(r.tokens)]
+                       or not r.tokens for i, r in enumerate(reqs))
+                or [e["kind"] for e in pm["events"]].count("dispatch_failure") != 3
+                or pm["reason"] != engine.halt_reason):
+            raise AssertionError(f"fault phase (d): health {engine.health()}, reason "
+                                 f"{engine.halt_reason}, states {[r.state for r in reqs]}")
+        log(f"fault (d) fail_dispatch(at=1, times=None): HALTED after 3 attempts "
+            f"({engine.halt_reason!r}), all 6 requests QUEUED with their "
+            f"{[len(r.tokens) for r in reqs]} tokens (equal to phase 4's), post-mortem "
+            f"{os.path.basename(engine.flight.last_dump_path)} written and parsed back "
+            f"({pm['events_kept']} events, {len(json.dumps(pm))} bytes)")
+        del engine
+        retire(inj)
+
+    # (e) a skewed clock sheds two queued requests before any prefill
+    inj = timed_injector()
+    engine, reqs = row_engine(inj)
+    extra = [engine.submit(p, c, seed=10 + i, queue_timeout_s=5.0)
+             for i, (p, c) in enumerate(zip(*workload)) if i < 2]
+    inj.skew_clock(by=100.0)
+    k1 = counters["flash_attention"].launches
+    drive(engine, inj)
+    k1 = counters["flash_attention"].launches - k1
+    expect_counters("(e)", engine, sheds=2, timed_out=2)
+    if (k1 != 6 * cfg.num_layers or any(r.state is not RequestState.TIMED_OUT or r.tokens
+                                        for r in extra)
+            or [r.tokens for r in reqs] != ref):
+        raise AssertionError(f"fault phase (e): K1 launches {k1}, shed states "
+                             f"{[r.state for r in extra]}")
+    log(f"fault (e) skew_clock(by=100 s) with queue_timeout_s=5: 2 queued requests shed "
+        f"(TIMED_OUT, no token) before any prefill, K1 {k1} = 6 prefills x {cfg.num_layers} "
+        f"layers; the six streams bit-identical to phase 4's")
+    del engine
+    retire(inj)
+
+    # (f) one prefill fault fails exactly one request
+    inj = timed_injector().fail_prefill(at=1)
+    engine, reqs = row_engine(inj)
+    drive(engine, inj)
+    expect_counters("(f)", engine, failed=1, prefill_failures=1)
+    failed = [i for i, r in enumerate(reqs) if r.state is RequestState.FAILED]
+    if len(failed) != 1 or engine.cache.free_slots != 8 or any(
+            r.state is not RequestState.DONE for i, r in enumerate(reqs) if i != failed[0]):
+        raise AssertionError(f"fault phase (f): failed {failed}, free slots "
+                             f"{engine.cache.free_slots}")
+    same_f, gap_f = stream_rule("(f)", model, workload, reqs, ref, [0] * 6)
+    log(f"fault (f) fail_prefill(at=1): request {failed[0]} FAILED ({reqs[failed[0]].error!r}), "
+        f"the other 5 DONE, every slot back in the rotation; {same_f} of 5 streams "
+        f"bit-identical to phase 4's, teacher-forced gap {gap_f:.3g}x its limit")
+    del engine
+    retire(inj)
+
+    # (g) phase 5c's paged prefix traffic: a poisoned shared page, a
+    # flipped pool bit at a hit, one host read more a paged hit
+    pworkload = prefix_workload(cfg.vocab_size)
+    pkw = dict(num_slots=PAGED_SLOTS, decode_chunk_size=8, kv_page_size=PAGE,
+               kv_num_pages=ROW_SLOTS * cfg.max_seq_len // PAGE + 1)
+
+    def paged_engine(inj, reqs_of=range(12)):
+        inj.engine = ServingEngine(model, prefix_cache=PrefixCache(), fault_injector=inj, **pkw)
+        inj.reqs = [inj.engine.submit(pworkload[0][i], pworkload[1][i], seed=i) for i in reqs_of]
+        return inj.engine, inj.reqs
+
+    def reads_rule(what, engine, fresh):
+        sn = engine.metrics.snapshot()
+        want = sn["chunks"] + fresh + sn["prefix_hits"] + sn["prefix_validation_failures"]
+        if engine.host_reads != want:
+            raise AssertionError(f"fault phase {what}: host_reads {engine.host_reads} != chunks "
+                                 f"{sn['chunks']} + {fresh} first tokens + one a paged hit "
+                                 f"({sn['prefix_hits']} + {sn['prefix_validation_failures']})")
+        return sn
+
+    inj = timed_injector()
+    engine, reqs = paged_engine(inj)
+    drive(engine, inj, paged=True)
+    sn = reads_rule("(g) fault-free", engine, 12)
+    pref = [list(r.tokens) for r in reqs]
+    if (sn["prefix_hits"], sn["prefix_misses"]) != (11, 1):
+        raise AssertionError(f"fault phase (g): fault-free hits {sn['prefix_hits']}, misses "
+                             f"{sn['prefix_misses']}; want 11, 1")
+    free_reads = engine.host_reads
+    del engine
+    retire(inj)
+
+    inj = timed_injector().poison_page(at=1, slot=0)
+    engine, reqs = paged_engine(inj)
+    ptrs = graph_buffers(engine)
+    wall_g = drive(engine, inj, paged=True)
+    sn = expect_counters("(g) poison_page", engine, page_quarantines=1)
+    holders = next(e["slots"] for e in engine.flight.events() if e["kind"] == "page_quarantine")
+    if (engine.cache.pages_quarantined != 1 or holders != {"len": 12}
+            or any(r.state is not RequestState.DONE for r in reqs)):
+        raise AssertionError(f"fault phase (g): pages quarantined "
+                             f"{engine.cache.pages_quarantined}, holders {holders}")
+    one_capture("(g)", engine, ptrs)
+    reads_rule("(g) poison_page", engine, 12)
+    same_g, gap_g = stream_rule("(g) poison_page", model, pworkload, reqs, pref,
+                                inj.fired[0]["tokens"])
+    log(f"fault (g) poison_page(at=1, slot=0) on phase 5c's traffic ({smi}; {PAGED_SLOTS} slots, pool "
+        f"{pkw['kv_num_pages']} pages): the system prompt's first page, shared copy-on-write by "
+        f"all 12 requests, quarantined (pages_quarantined 1); every holder requeued, the entry "
+        f"pinning it evicted, check() clean after every step; prefix hits "
+        f"{sn['prefix_hits']} (11 before the fault), misses {sn['prefix_misses']}; recovery wall "
+        f"(the poison to the next executed chunk: 12 re-admissions, 1 full prefill and 11 "
+        f"suffix prefills, one chunk) {wall_g:.4f} s; {inj.fired[0]['tokens'][0]} tokens each "
+        f"before the fault equal the fault-free run's, {same_g} of 12 whole streams "
+        f"bit-identical, teacher-forced gap {gap_g:.3g}x its limit; decode_compilations 1 on "
+        f"its buffers")
+    del engine
+    retire(inj)
+
+    inj = timed_injector().flip_bits("kv_pool", at=0)
+    engine, reqs = paged_engine(inj, reqs_of=[0])
+    drive(engine, inj, paged=True)
+    pf0, k1 = counters["page_fingerprint"].launches, counters["flash_attention"].launches
+    reqs += [engine.submit(pworkload[0][i], pworkload[1][i], seed=i) for i in range(1, 12)]
+    inj.reqs = reqs
+    drive(engine, inj, paged=True)
+    k1 = counters["flash_attention"].launches - k1
+    sn = expect_counters("(g) flip_bits", engine)
+    if (inj.counters["bit_flips"] != 1 or sn["prefix_validation_failures"] != 1
+            or sn["prefix_hits"] != 10 or k1 != cfg.num_layers
+            or any(r.state is not RequestState.DONE for r in reqs)):
+        raise AssertionError(f"fault phase (g) flip_bits: flips {inj.counters['bit_flips']}, "
+                             f"validation failures {sn['prefix_validation_failures']}, hits "
+                             f"{sn['prefix_hits']}, K1 launches {k1}")
+    reads_rule("(g) flip_bits", engine, 12)
+    same_f2, gap_f2 = stream_rule("(g) flip_bits", model, pworkload, reqs, pref, [0] * 12)
+    log(f"fault (g) flip_bits(\"kv_pool\", at=0): request 0 alone first (a miss: its pages "
+        f"pinned, their fingerprints recorded), then the other 11: the first hit's page "
+        f"fingerprints differ after one flipped bit, the entry is evicted and that request "
+        f"full-prefills (K1 {k1} = 1 x {cfg.num_layers}) and inserts anew; 10 hits on the new "
+        f"entry; PF launches in the wave {counters['page_fingerprint'].launches - pf0} (the "
+        f"hits' checks and the insert); {same_f2} of 12 streams bit-identical to the one-wave "
+        f"fault-free run's, teacher-forced gap {gap_f2:.3g}x its limit; host_reads = chunks + "
+        f"first tokens + one a paged hit in all three (g) runs (fault-free {free_reads})")
+    del engine
+    retire(inj)
+
+    # (h) phase 5d's speculative engine: a failed draft dispatch falls back
+    target, draft = early_exit_draft(model, SPEC_DRAFT_LAYERS, 0.3)
+    inj = timed_injector().fail_draft_dispatch(at=1)
+    engine, reqs = row_engine(inj, target=target, draft_model=draft, gamma=SPEC_GAMMA)
+    drive(engine, inj)
+    sn = expect_counters("(h)", engine, spec_fallbacks=1)
+    active = sum(1 for n in inj.fired[0]["tokens"] if n)
+    if sn["preemptions"] != active or any(r.state is not RequestState.DONE for r in reqs):
+        raise AssertionError(f"fault phase (h): preemptions {sn['preemptions']}, active at the "
+                             f"fallback {active}")
+    same_h, gap_h = stream_rule("(h)", target, workload, reqs, spec_tokens,
+                                inj.fired[0]["tokens"])
+    log(f"fault (h) fail_draft_dispatch(at=1), eps 0.3, gamma {SPEC_GAMMA}: spec_fallbacks 1 "
+        f"(one chunk of plain steps on the same buffers), all {active} active slots preempted "
+        f"and resumed speculating (spec rounds {sn['spec_rounds']}); decode programs captured "
+        f"{engine.decode_compilations} (the round and the plain step; the JAX engine's "
+        f"decode_compilations counts 2 in the same test, tests/test_torch_faults.py); "
+        f"{inj.fired[0]['tokens'][0]} tokens each before the fault equal phase 5d's, {same_h} of "
+        f"6 whole streams bit-identical, teacher-forced gap {gap_h:.3g}x its limit")
+    del engine
+    retire(inj)
+    del target, draft
+    torch.cuda.empty_cache()
+
+    launches = {name: c.launches + replayed[name] for name, c in counters.items()}
+    log(f"fault phase launches (replays included): {launches}")
+    log(f"phase 5g wall: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, recovery_a_s=wall_a, recovery_g_s=wall_g)
+
+
 # --- phases 6-7: training ------------------------------------------------------
 
 EOS_ID = 128001  # Llama-3's <|end_of_text|>
@@ -2757,10 +3285,10 @@ def train_phase(steps: int = 6) -> dict:
         walls.append(time.perf_counter() - t1)
     launches = {name: c.launches for name, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
-    want = {"flash_attention": 2 * cfg.num_layers * steps, "flash_attention_dkdv":
-            cfg.num_layers * steps, "flash_attention_dq": cfg.num_layers * steps, "flash_decode": 0,
-            "paged_flash_decode": 0, "qpaged_flash_decode": 0, "dequantize": 0,
-            "window_requantize": 0}
+    want = dict.fromkeys(counters, 0)  # no serving kernel
+    want.update(flash_attention=2 * cfg.num_layers * steps,
+                flash_attention_dkdv=cfg.num_layers * steps,
+                flash_attention_dq=cfg.num_layers * steps)
     if launches != want:
         raise AssertionError(f"training launches {launches} != {want}")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -2882,8 +3410,8 @@ def main() -> int:
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     t0 = time.perf_counter()
     _build.build(["flash_attention", "flash_attention_bwd", "flash_decode", "dequantize",
-                  "kv_quant"])
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the five sources in parallel)")
+                  "kv_quant", "page_fingerprint"])
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the six sources in parallel)")
     for r in [fwd_resources(), *bwd_resources()]:
         log(f"{r['kernel']}: {r['smem']} B dynamic shared memory a block, {r['regs']} registers a "
             f"thread at entry, {r['local']} B local a thread, {r['blocks_per_sm']} block(s) per SM; "
@@ -2899,6 +3427,14 @@ def main() -> int:
                             for line in qw_spills):
         raise AssertionError("QW spills or was not reported:\n" + "\n".join(qw_spills))
     log(f"ptxas -v, csrc/kv_quant.cu: {len(qw_spills)} kernel, no spill")
+    pf_lines = [line.strip() for line in _build.resource_report("page_fingerprint").splitlines()
+                if "registers" in line or "spill" in line]
+    if not any("spill" in line for line in pf_lines) or any(
+            "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
+            for line in pf_lines):
+        raise AssertionError("PF spills or was not reported:\n" + "\n".join(pf_lines))
+    log("ptxas -v, csrc/page_fingerprint.cu (PF: the page kernel, the combine kernel): "
+        + "; ".join(pf_lines))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = [check_k1(gen, b, s, segments) for _, b, s, segments in K1_SHAPES]
@@ -3014,6 +3550,15 @@ def main() -> int:
             f"of it); " + (f"library_ms {dq[kind]['library_ms']:.4f} (torch.mul(q, scale, "
                            f"out=bf16), bitwise equal; graph replay)" if kind == "int8" else
                            "library_ms null (torch.mul refuses to promote fp8 e4m3 with f32)"))
+    pf = check_pf(qgen)
+    for kind, r in pf.items():
+        log(f"PF page_fingerprint ({smi}; {kind} pool, 32 layers x {r['pages']} pages of 16, Hkv 8, D "
+            f"128{', bf16 scales' if kind == 'int8' else ''}; {PF_PAGES} pages in scrambled "
+            f"order): bitwise equal to its plain version, one flipped bit moves that page's "
+            f"value alone; kernel_ms {r['ms']:.4f} (graph replay) plain_ms {r['plain_ms']:.4f} "
+            f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}, {r['bytes']} B; "
+            f"{r['ms'] / r['bound_ms']:.2f}x) library_ms null (no single PyTorch call "
+            f"computes it)")
     torch.cuda.empty_cache()
     rows = {chunk: check_decode_rows(gen, chunk) for chunk in (16, 256, 512)}
     for chunk, r in rows.items():
@@ -3147,6 +3692,7 @@ def main() -> int:
     spec = spec_phase(model, srv["workload"], smi)
     med = medusa_phase(model, smi)
     quant = quant_phase(model, srv, fused, gen)
+    fault = fault_phase(model, srv, spec["tokens"], smi)
 
     del model
     torch.cuda.empty_cache()
@@ -3175,9 +3721,10 @@ def main() -> int:
     k1_main = k1[1]  # the serving prefill at S=4096
     launches = {name: srv["launches"][name] + fused["launches"][name] + pre["launches"][name]
                 + spec["launches"][name] + med["launches"][name] + quant["launches"][name]
-                + tr["launches"][name] for name in tr["launches"]}
+                + fault["launches"][name] + tr["launches"][name] for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
-        f"speculative serving row and paged, Medusa, quantized serving, training): {launches}; "
+        f"speculative serving row and paged, Medusa, quantized serving, the fault contract, "
+        f"training): {launches}; "
         f"on the multi-row path (prefix-cache serving): {pre['multi_row']}; the speculative "
         f"rounds' verify windows (s = {SPEC_GAMMA}): {spec['verify']}")
     rows_main = rows[256]  # R = 1024: phase 5c's chat turns
@@ -3262,6 +3809,14 @@ def main() -> int:
              launches=launches["window_requantize"], max_abs_err=0.0, ms=qw["decode"]["ms"],
              plain_ms=qw["decode"]["plain_ms"], bound_ms=qw["decode"]["bound_ms"],
              bound_by=qw["decode"]["bound_by"], library_ms=None),
+        # PF computes the per-page fingerprints XLA fuses into one program
+        dict(name="page_fingerprint", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/page_fingerprint.cu",
+             replaces="neuronx_distributed_tpu/utils/fingerprint.py:158",
+             launches=launches["page_fingerprint"], max_abs_err=0.0, ms=pf["bf16"]["ms"],
+             plain_ms=pf["bf16"]["plain_ms"], bound_ms=pf["bf16"]["bound_ms"],
+             bound_by=pf["bf16"]["bound_by"], library_ms=None, int8_ms=pf["int8"]["ms"],
+             int8_bound_ms=pf["int8"]["bound_ms"]),
         # DQ computes what XLA fuses into the quantized matmul's load
         dict(name="dequantize", route="cuda",
              source="neuronx_distributed_tpu_torch/csrc/dequantize.cu",

@@ -178,7 +178,10 @@ class ChunkedDecode:
     After its one read (:meth:`readout`) the caller rewinds every cursor to
     ``start + used * cols``, ``used`` the iterations in which any slot
     emitted (a prefix: freezing is monotone), which lands them exactly
-    where the JAX chunk leaves them. The iterations run under ``no_grad``."""
+    where the JAX chunk leaves them. The iterations run under ``no_grad``.
+    ``iterations`` counts the iterations started over the chunk's life (a
+    host int): a failed call that started none left the caches and the
+    slot state as they were."""
 
     def __init__(self, body, blocks, max_seq_len: int, caches, state, cols: int = 1):
         self.toks, self.counts, self.accepts = blocks
@@ -194,6 +197,7 @@ class ChunkedDecode:
         run = body(self.step)
         self.program = DecodeProgram(run, masked_step(run, self.caches, state, self.step, cols),
                                      dev)
+        self.iterations = 0
 
     def __call__(self) -> int:
         room = min(self.max_seq_len - cache.index for cache in self.caches)
@@ -201,6 +205,7 @@ class ChunkedDecode:
         self.counts.zero_()
         self.step.zero_()
         for _ in range(allowed):
+            self.iterations += 1
             self.program()
         for cache in self.caches:
             cache.advance_mirror(allowed * self.cols)

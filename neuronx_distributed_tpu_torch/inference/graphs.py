@@ -54,12 +54,14 @@ def kernel_wrappers() -> Dict[str, Callable]:
         qpaged_flash_decode_fwd,
     )
     from neuronx_distributed_tpu_torch.kernels.kv_quant import window_requantize_fwd
+    from neuronx_distributed_tpu_torch.kernels.page_fingerprint import pool_pages_fingerprint_fwd
 
     return {"flash_attention": flash_attention_fwd, "flash_attention_dkdv": flash_attention_dkdv,
             "flash_attention_dq": flash_attention_dq, "flash_decode": flash_decode_fwd,
             "paged_flash_decode": paged_flash_decode_fwd,
             "qpaged_flash_decode": qpaged_flash_decode_fwd, "dequantize": dequantize_fwd,
-            "window_requantize": window_requantize_fwd}
+            "window_requantize": window_requantize_fwd,
+            "page_fingerprint": pool_pages_fingerprint_fwd}
 
 
 class DecodeProgram:

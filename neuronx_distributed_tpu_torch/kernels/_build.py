@@ -12,7 +12,8 @@ read with :func:`resource_report`. Every pointer and the stream cross as
 ``c_void_p`` (a strides array as a pointer to ``c_longlong``); each C entry
 point returns ``cudaGetLastError()`` (or one of ``hopper.cuh``'s codes of
 900 and up when a TMA tensor map cannot be made) and :func:`check` raises
-when it is not 0.
+when it is not 0. A failed build or launch raises :class:`KernelError`,
+which the serving engine never treats as a recoverable fault.
 """
 
 from __future__ import annotations
@@ -37,6 +38,11 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """A kernel library that could not be built, or a launch its entry
+    point refused: a fault of the program or the card, never retried."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -44,7 +50,7 @@ def _nvcc() -> str:
     cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on the GPU machine")
+    raise KernelError("nvcc not found: the CUDA kernels are built on the GPU machine")
 
 
 def _lib_path(name: str) -> str:
@@ -85,7 +91,7 @@ def build(names: Iterable[str]) -> None:
                 f.write(log)
             os.replace(tmp, out)  # atomic: a reader never sees half a library
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -108,9 +114,9 @@ def resource_report(name: str) -> str:
 
 def check(err: int, what: str) -> None:
     if err >= 900:  # hopper.cuh's codes: no tensor-map encoder, or a map refused
-        raise RuntimeError(f"{what}: could not make a TMA tensor map (code {err})")
+        raise KernelError(f"{what}: could not make a TMA tensor map (code {err})")
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        raise KernelError(f"{what}: CUDA error {err} at launch")
 
 
 def stream_ptr(device) -> ctypes.c_void_p:

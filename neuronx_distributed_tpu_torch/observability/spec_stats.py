@@ -70,8 +70,13 @@ class SpecStats:
         self.accept_len = LogHistogram()
         self.rounds = self.drafted = self.accepted = self.wasted = 0
         # chunks decoded non-speculatively after a failed speculative
-        # dispatch: the port has no such fallback (a failure raises), so 0
+        # dispatch (the engine's fallback to the plain step)
         self.fallbacks = 0
+
+    def record_fallback(self) -> None:
+        """A speculative dispatch failed and its chunk was decoded with the
+        plain step instead (streams unaffected)."""
+        self.fallbacks += 1
 
     def record_round(self, accepted: int, gamma: int, consumed: Optional[int] = None) -> None:
         """One row's acceptance in one round: ``accepted`` of ``gamma``

@@ -1,9 +1,8 @@
 """Slot-level KV-cache management and the prefix store (counterpart of
 ``neuronx_distributed_tpu/serving/cache_manager.py``: ``SlotCacheManager``,
 and ``PrefixEntry``/``PrefixCache``, host code copied from
-``cache_manager.py:284-571`` without the host tier's fields, the page
-content fingerprints and the tier attribution, which belong to later
-slices).
+``cache_manager.py:284-571`` without the host tier's fields and the tier
+attribution, which belong to a later slice).
 
 The engine owns ONE :class:`KVCache` shaped ``(num_slots, max_seq_len)`` per
 layer, allocated once and updated in place. Batch rows are request slots;
@@ -21,7 +20,9 @@ the column layout is the shared-cursor scheme:
   row is cleared, which leaves the same layout;
 * columns a slot does not cover are ``kv_valid=False``; attention masking
   and RoPE positions run off validity counts, so gaps are invisible;
-* freeing a slot clears its validity row; draining rewinds the cursor.
+* freeing a slot clears its validity row; draining rewinds the cursor;
+* a quarantined slot (a poisoned readback) leaves the rotation for good:
+  freed, it never rejoins the free list (JAX ``cache_manager.py:145-151``).
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ class SlotCacheManager:
         self.num_slots = num_slots
         self.cache = cache
         self._free = list(range(num_slots))
+        self._quarantined: set = set()
 
     @property
     def cursor(self) -> int:
@@ -64,8 +66,24 @@ class SlotCacheManager:
     def free_slots(self) -> int:
         return len(self._free)
 
+    @property
+    def usable_slots(self) -> int:
+        """Slots still in the rotation (not quarantined)."""
+        return self.num_slots - len(self._quarantined)
+
+    @property
+    def quarantined_slots(self) -> list:
+        return sorted(self._quarantined)
+
     def acquire(self) -> int:
         return self._free.pop(0)
+
+    def quarantine(self, slot: int) -> None:
+        """Take ``slot`` out of the rotation for good (a poisoned readback:
+        its row is suspect). The caller clears the engine's slot state."""
+        self._quarantined.add(slot)
+        if slot in self._free:
+            self._free.remove(slot)
 
     def admit(self, slot: int, padded_len: int, cursor: Optional[int] = None) -> KVCache:
         """Place a prefill of ``padded_len`` columns into ``slot``; ``cursor``
@@ -80,15 +98,26 @@ class SlotCacheManager:
         return _admit_row(self.cache, slot, padded_len, target)
 
     def free(self, slot: int) -> None:
-        """Clear the slot's validity and return it to the free list."""
+        """Clear the slot's validity and return it to the free list; a
+        quarantined slot is cleared but never rejoins the rotation."""
         reset_cache_slot(self.cache, slot)
-        self._free.append(slot)
-        self._free.sort()
+        if slot not in self._quarantined and slot not in self._free:
+            self._free.append(slot)
+            self._free.sort()
 
     def release_all_slots(self) -> None:
-        """Return every slot to the free list (host bookkeeping only, for
-        callers about to :meth:`reset`)."""
-        self._free = list(range(self.num_slots))
+        """Return every slot but the quarantined ones to the free list (host
+        bookkeeping only, for callers about to :meth:`reset`)."""
+        self._free = [s for s in range(self.num_slots) if s not in self._quarantined]
+
+    def recover(self) -> None:
+        """After a failed decode dispatch whose requests are requeued (JAX
+        ``recover``, ``cache_manager.py:236``): every slot back in the
+        rotation and the storage reset IN PLACE, cursor 0. Nothing in the
+        port consumes the cache, so the storage always survives, and the
+        captured decode step keeps reading these very buffers."""
+        self.release_all_slots()
+        self.reset()
 
     def update_after_decode(self, start: int, steps: int) -> None:
         """Set the cursor (mirror and device) after a decode chunk that
@@ -119,7 +148,11 @@ class PrefixEntry:
     count that protects an entry backing an in-flight suffix prefill from
     eviction. A PAGED entry holds no copy (``tree`` is None): ``page_ids``
     are the ref-counted pool pages its tokens live in, mapped
-    copy-on-write into a hitting slot's block table."""
+    copy-on-write into a hitting slot's block table, and ``page_fp`` their
+    per-page content fingerprints at insert (a device int64 vector,
+    ``utils/fingerprint.pool_pages_fingerprint``), which every reuse
+    recomputes and compares bit for bit: a bit flip leaves the page
+    accounting healthy, and only the content check sees it."""
 
     tokens: Tuple[int, ...]
     tree: Any
@@ -128,6 +161,7 @@ class PrefixEntry:
     shapes: Tuple[Tuple[int, ...], ...]
     refs: int = 0
     page_ids: Optional[Tuple[int, ...]] = None
+    page_fp: Any = None
 
     @property
     def m(self) -> int:

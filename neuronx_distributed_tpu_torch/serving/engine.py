@@ -91,17 +91,78 @@ the quantized engines' streams equal solo ``generate`` on the quantized
 model. ``draft_model=`` with ``quantize=`` raises: the early-exit draft
 shares the target's tensors, which quantization replaces.
 
+Fault tolerance (JAX ``engine.py:109-137``, the contract that makes the
+captured hot path safe to run unattended; chaos-tested against the JAX
+engine in ``tests/test_torch_faults.py`` and
+``tests/test_torch_paged_faults.py``):
+
+* **Deadlines and shedding**: ``submit(deadline_s=, queue_timeout_s=)``
+  sets absolute deadlines on the engine clock (``time_fn``, skewed by the
+  fault injector's ``now``); a queue-expired request is shed (TIMED_OUT)
+  before any prefill runs, an in-flight deadline at a chunk boundary, and a
+  shed request keeps the tokens it streamed.
+* **Dispatch recovery**: a failed decode chunk no longer escapes ``step()``.
+  Every in-flight request is requeued with its host-current tokens (streams
+  resume bit-identically), the caches and the slot state are reset IN PLACE
+  (the captured program keeps its buffers: nothing is reallocated, so
+  ``decode_compilations`` stays 1), the engine waits ``dispatch_retry``'s
+  jittered time (``sleep_fn``) and retries at the next step.
+  ``max_attempts`` CONSECUTIVE failures halt it (HALTED) with the work
+  requeued, never lost. The JAX engine tells donated buffers that survived
+  from consumed ones; the port donates nothing, so it tells a failure before
+  the chunk's first step (storage untouched) from one after steps ran
+  (caches and cursors advanced in place: reset, and a paged prefix store
+  cleared, as JAX clears it when its pool is consumed). A CUDA runtime error
+  (``torch.AcceleratorError``) or a kernel's build or launch error
+  (``KernelError``) is NOT recovered: it is sticky, leaves the context
+  unusable, and retrying would hide a kernel fault; it raises out of
+  ``step()``.
+* **Readback validation and quarantine**: the token block the chunk's one
+  host read brings back is checked on the host (counts in range, tokens in
+  the vocabulary) before a token reaches a stream. A poisoned slot leaves
+  the rotation for good (its device ``active`` flag cleared in place, no
+  recapture), its request requeued from the last chunk boundary
+  (``quarantine_policy="requeue"``) or failed (``"fail"``); neighbours are
+  untouched. Paged engines quarantine by PAGE: a poisoned pool page
+  retires, every request mapping it is requeued and the prefix entries
+  pinning it are evicted. Losing every slot or page halts.
+* **Prefill faults**: a failed prefill fails that one request (FAILED),
+  releases its slot and its prefix pin; ``max_attempts`` consecutive
+  failures halt.
+* **Speculative fallback**: a failed speculative dispatch that ran no step
+  decodes the chunk with the plain step on the same buffers (its own
+  program, captured lazily at the first fallback), then preempts every slot
+  so that both caches re-prefill in lockstep.
+* **Page fingerprints**: a paged prefix entry records its pages' content
+  fingerprints at insert (``utils/fingerprint.pool_pages_fingerprint``, PF
+  on the card) and every hit recomputes and compares them, stacked with
+  the stored vector into its one host read: a flipped bit in a shared page
+  evicts the entry and the admission falls back to a full prefill.
+* **Health, drain, flight recorder**: ``health()`` is OK, DEGRADED (slots
+  or pages quarantined, or a dispatch failure within the last
+  ``degraded_cooldown_chunks`` chunks), DRAINING (``drain()``: finish the
+  admitted work, admit nothing new, reject submissions) or HALTED
+  (``halt_reason``); ``flight_recorder="auto"`` keeps a ring of the fault
+  events and dumps it as a post-mortem at a halt (to ``flight_dir`` if
+  given). Every fault is counted in ``metrics.snapshot()``; none costs a
+  host read: an idle injector and the recorder leave ``host_reads`` as in
+  a bare engine.
+* **Fault injection**: every path above is driven deterministically through
+  :class:`~neuronx_distributed_tpu_torch.serving.faults.FaultInjector`.
+
 Left out of this slice (not accepted, not silently ignored): the host page
-tier (spill and prefetch of prefix entries), page content fingerprints,
-a weight swap, tp/mesh, fault injection (and with it the speculative
-dispatch's fallback to a plain chunk: a failed capture or replay raises),
-SLO scheduling, ledgers, tracing and profiling.
+tier (spill and prefetch of prefix entries), a weight swap (and with it
+``flip_bits(target="params")``), a poisoned draft (``poison_draft``: the
+early-exit draft shares the target's tensors), ``fence()``, tp/mesh, SLO
+scheduling, tenants and priorities, the metrics registry, timelines,
+tracing and profiling.
 """
 
 from __future__ import annotations
 
+import enum
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -117,11 +178,13 @@ from neuronx_distributed_tpu_torch.inference.generate import (
 from neuronx_distributed_tpu_torch.inference.spec_decode import speculative_chunk
 from neuronx_distributed_tpu_torch.inference.speculative import validate_spec_room
 from neuronx_distributed_tpu_torch.inference.utils import unwrap_logits
+from neuronx_distributed_tpu_torch.kernels._build import KernelError
 from neuronx_distributed_tpu_torch.models.llama import quantize_model
 from neuronx_distributed_tpu_torch.modules.attention import (
     extract_cache_prefix,
     seed_cache_prefix,
 )
+from neuronx_distributed_tpu_torch.observability.flight_recorder import FlightRecorder
 from neuronx_distributed_tpu_torch.serving.cache_manager import (
     PrefixCache,
     PrefixEntry,
@@ -135,13 +198,33 @@ from neuronx_distributed_tpu_torch.serving.scheduler import (
     RequestState,
     Scheduler,
 )
-from neuronx_distributed_tpu_torch.utils.fingerprint import cache_fingerprint
+from neuronx_distributed_tpu_torch.utils.fingerprint import (
+    cache_fingerprint,
+    pool_pages_fingerprint,
+)
+from neuronx_distributed_tpu_torch.utils.retry import RetryPolicy
 from neuronx_distributed_tpu_torch.utils.sampling import sample_row
 
 
+class EngineHealth(enum.Enum):
+    """The engine's health (``ServingEngine.health()``, JAX ``engine.py:268``).
+
+    ``OK``: serving normally. ``DEGRADED``: serving, but a recent dispatch
+    failure was recovered from or quarantines shrank the capacity.
+    ``DRAINING``: finishing in-flight work, admitting nothing new.
+    ``HALTED``: consecutive failures (or the loss of every slot or page)
+    exhausted the retry budget; the in-flight work is requeued and the loop
+    makes no progress until an operator steps in."""
+
+    OK = "ok"
+    DEGRADED = "degraded"
+    DRAINING = "draining"
+    HALTED = "halted"
+
+
 class RejectedError(RuntimeError):
-    """A submission refused by the bounded queue; ``queue_depth`` is the
-    occupancy at rejection time."""
+    """A submission the engine refused (a full bounded queue, draining or
+    halted); ``queue_depth`` is the queue's occupancy at rejection time."""
 
     def __init__(self, message: str, queue_depth: int = 0):
         super().__init__(message)
@@ -165,6 +248,50 @@ _SLOT_DEFAULTS = {
     "temp": (torch.float32, 1.0), "topk": (torch.int64, 0),
     "topp": (torch.float32, 1.0), "eos": (torch.int64, -1),
 }
+
+
+# errors the engine never recovers from: a CUDA runtime error is sticky
+# (the context is unusable after it) and a kernel's build or launch error is
+# a fault of the program or the card; retrying either would hide it
+_FATAL = (torch.AcceleratorError, KernelError)
+
+
+def _validate_readback(toks, counts, chunk_size: int, vocab: int, slots) -> Dict[int, str]:
+    """Host check of a plain chunk's readback (JAX ``_validate_readback``,
+    ``engine.py:350``): ``{slot: reason}`` for every active slot whose count
+    leaves [0, chunk] or whose emitted tokens leave [0, vocab)."""
+    bad: Dict[int, str] = {}
+    for slot in slots:
+        slot = int(slot)
+        c = int(counts[slot])
+        if c < 0 or c > chunk_size:
+            bad[slot] = f"token count {c} outside [0, {chunk_size}]"
+            continue
+        col = np.asarray(toks[:c, slot])
+        out = (col < 0) | (col >= vocab)
+        if out.any():
+            bad[slot] = f"token {int(col[out][0])} outside vocab [0, {vocab})"
+    return bad
+
+
+def _validate_spec_readback(toks, counts, gamma: int, vocab: int, slots) -> Dict[int, str]:
+    """:func:`_validate_readback` for a speculative chunk (JAX
+    ``_validate_spec_readback``, ``engine.py:377``): the block is (rounds,
+    slots, gamma), ragged by each round's count."""
+    bad: Dict[int, str] = {}
+    for slot in slots:
+        slot = int(slot)
+        for r in range(counts.shape[0]):
+            c = int(counts[r, slot])
+            if c < 0 or c > gamma:
+                bad[slot] = f"round {r} token count {c} outside [0, {gamma}]"
+                break
+            col = np.asarray(toks[r, slot, :c])
+            out = (col < 0) | (col >= vocab)
+            if out.any():
+                bad[slot] = f"round {r} token {int(col[out][0])} outside vocab [0, {vocab})"
+                break
+    return bad
 
 
 def _bucket(p: int, max_seq_len: int, remaining: int, floor: int = 8) -> int:
@@ -224,9 +351,19 @@ class ServingEngine:
         draft_model=None,
         gamma: int = 4,
         quantize=None,
+        dispatch_retry: Optional[RetryPolicy] = None,
+        degraded_cooldown_chunks: int = 8,
+        quarantine_policy: str = "requeue",
+        fault_injector=None,
+        flight_recorder="auto",
+        flight_dir: Optional[str] = None,
+        time_fn: Callable[[], float] = time.monotonic,
+        sleep_fn: Callable[[float], None] = time.sleep,
     ):
         if admission not in ("conservative", "eager"):
             raise ValueError(f"unknown admission policy {admission!r}")
+        if quarantine_policy not in ("requeue", "fail"):
+            raise ValueError(f"unknown quarantine policy {quarantine_policy!r}")
         if kv_page_size is None and kv_num_pages is not None:
             raise ValueError("kv_num_pages needs kv_page_size")
         # kept to match the JAX signature; this port has one policy
@@ -262,6 +399,31 @@ class ServingEngine:
         self.admission = admission
         self.decode_chunk_size = decode_chunk_size
         self.max_queue = max_queue
+        self._clock, self._sleep = time_fn, sleep_fn
+        self._vocab = model.config.vocab_size
+        # dispatch recovery: bounded consecutive failures, waits from the
+        # shared decrementing-jitter schedule (JAX's defaults, engine.py:674)
+        self._dispatch_retry = dispatch_retry or RetryPolicy(max_attempts=3, first_wait=0.05,
+                                                             min_wait=0.01)
+        self._degraded_cooldown = degraded_cooldown_chunks
+        self._quarantine_policy = quarantine_policy
+        self._faults = fault_injector
+        if flight_recorder == "auto":
+            flight_recorder = FlightRecorder(dump_dir=flight_dir, subsystem="serving")
+        self.flight = flight_recorder  # None disables
+        # the fault-tolerance state machine (JAX engine.py:826-837)
+        self._halted = False
+        self._halt_reason: Optional[str] = None
+        self._draining = False
+        self._consecutive_dispatch_failures = 0
+        self._had_dispatch_failure = False
+        self._chunks_since_failure = 0
+        self._dispatch_attempts = 0  # failed attempts included (the hook index)
+        self._readbacks = 0  # successful readbacks (the poison hooks' index)
+        self._prefill_calls = 0  # prefill attempts (the prefill hook's index)
+        self._consecutive_prefill_failures = 0
+        self._prefix_reuses = 0  # prefix reuse attempts (the prefix hook's index)
+        self._last_health = EngineHealth.OK
         self._prefill_model, self._decode_model = serving_clones(model)
         self.scheduler = Scheduler(max_tokens_in_flight)
         self._page_size = kv_page_size
@@ -311,6 +473,8 @@ class ServingEngine:
             self._chunk = speculative_chunk(
                 self._decode_model, draft_decode, decode_chunk_size, self.gamma,
                 self.max_seq_len, self.cache.cache, self.draft_cache.cache, self._state)
+        # a speculative engine's plain step, built at its first fallback
+        self._plain_chunk = None
         self.host_reads = 0
 
     @staticmethod
@@ -337,11 +501,11 @@ class ServingEngine:
         return quantize_model(model, qcfg)
 
     def _reset_caches(self) -> None:
-        """Rewind the cache and the draft twin in lockstep: every slot free,
-        every validity row clear, cursors at column 0."""
+        """Rewind the cache and the draft twin in lockstep, in place: every
+        slot but the quarantined ones free, every validity row clear,
+        cursors at column 0."""
         for mgr in self._managers:
-            mgr.release_all_slots()
-            mgr.reset()
+            mgr.recover()
 
     @property
     def _managers(self):
@@ -364,11 +528,24 @@ class ServingEngine:
     @property
     def decode_compilations(self) -> int:
         """Decode programs captured: 1 on the card from the first decode
-        chunk on, whatever the churn, preemption or cancellation (the JAX
-        engine's ``decode_compilations``, one jitted chunk per engine, the
-        ``spec_decode_chunk`` with a draft model); 0 on the CPU, where the
-        step runs eagerly and nothing is captured."""
-        return self.decode_program.captures
+        chunk on, whatever the churn, preemption, cancellation, dispatch
+        recovery or quarantine (the JAX engine's ``decode_compilations``,
+        one jitted chunk per engine, the ``spec_decode_chunk`` with a draft
+        model); a speculative engine that fell back to the plain step
+        counts that program too, as JAX does; 0 on the CPU, where the step
+        runs eagerly and nothing is captured."""
+        plain = self._plain_chunk.program.captures if self._plain_chunk is not None else 0
+        return self.decode_program.captures + plain
+
+    def _plain_step_chunk(self):
+        """A speculative engine's plain decode chunk over the target cache
+        and the same slot state (JAX ``_nonspec_chunk``, ``engine.py:3188``):
+        the program a spec-off engine runs, built (and on the card captured)
+        at the first fallback."""
+        if self._plain_chunk is None:
+            self._plain_chunk = decode_chunk(self._decode_model, self.decode_chunk_size,
+                                             self.max_seq_len, self.cache.cache, self._state)
+        return self._plain_chunk
 
     def prewarm(self) -> float:
         """Capture the decode program now, on an idle engine, so that no
@@ -392,20 +569,107 @@ class ServingEngine:
         self.host_reads += 1
         return t.cpu().numpy()
 
+    def _now(self) -> float:
+        """The engine's scheduling clock: ``time_fn``, skewed by the fault
+        injector when one is set (JAX ``_now``, ``engine.py:1396``)."""
+        now = self._clock()
+        if self._faults is not None:
+            now = self._faults.now(now)
+        return now
+
+    # --- health -------------------------------------------------------------
+
+    def health(self) -> EngineHealth:
+        """The current health (JAX ``health``, ``engine.py:1873``)."""
+        if self._halted:
+            return EngineHealth.HALTED
+        if self._draining:
+            return EngineHealth.DRAINING
+        if (self.cache.usable_slots < self.num_slots or getattr(self.cache, "degraded", False)
+                or (self._had_dispatch_failure
+                    and self._chunks_since_failure < self._degraded_cooldown)):
+            return EngineHealth.DEGRADED
+        return EngineHealth.OK
+
+    @property
+    def halt_reason(self) -> Optional[str]:
+        return self._halt_reason
+
+    def drain(self) -> None:
+        """Stop admitting NEW work: submissions are rejected, never-admitted
+        queued requests stay queued (and stop counting as work), requests
+        already admitted (in a slot, or preempted back to the queue) run to
+        completion; ``run()`` returns once they finish."""
+        self._draining = True
+        self._sync_health()
+
+    def resume(self) -> None:
+        """Leave DRAINING and accept work again (no effect while HALTED)."""
+        self._draining = False
+        self._sync_health()
+
+    def _halt(self, reason: str) -> None:
+        """The HALTED contract (JAX ``_halt``, ``engine.py:1921``): in-flight
+        work is REQUEUED with its host-current tokens, never stranded; the
+        caches and slot state are reset in place; no prefix pin survives;
+        the flight recorder dumps its post-mortem."""
+        requeued = self._vacate_active()
+        if requeued:
+            self.scheduler.requeue_front(requeued)
+            self._reset_caches()
+            self._reset_slot_state()
+        if self.prefix is not None:
+            self.prefix.release_all()
+        self._halted = True
+        self._halt_reason = reason
+        self._sync_health()
+        if self.flight is not None:
+            self.flight.record("halt", reason=reason)
+            self.flight.dump(reason, extra={"requeued": len(requeued),
+                                            "metrics": self.metrics.snapshot()})
+
+    def _sync_health(self) -> None:
+        h = self.health()
+        self.metrics.health = h.value
+        if h is not self._last_health:
+            if self.flight is not None:
+                self.flight.record("health", value=h.value, was=self._last_health.value)
+            self._last_health = h
+
     # --- public API ---------------------------------------------------------
 
     def submit(self, prompt_ids, config: GenerationConfig = GenerationConfig(),
-               seed: Optional[int] = None) -> Request:
+               seed: Optional[int] = None, deadline_s: Optional[float] = None,
+               queue_timeout_s: Optional[float] = None) -> Request:
         """Enqueue one request; returns its live ``Request``. ``seed``
         (default: the request id) selects its sampling stream — pass the
-        seed you would give ``generate`` to reproduce its stream. Raises
-        :class:`RejectedError` when the bounded queue is full and
-        ``ValueError`` for a request that could never be placed."""
+        seed you would give ``generate`` to reproduce its stream.
+
+        ``deadline_s`` bounds the request end to end (it is shed, TIMED_OUT,
+        at the next chunk boundary past it, keeping the tokens it streamed);
+        ``queue_timeout_s`` sheds it if it is not admitted in time; both
+        count from submission on the engine clock. The queue timeout governs
+        FIRST admission only: a request requeued by preemption or recovery
+        answers to ``deadline_s`` alone.
+
+        Raises :class:`RejectedError` when the engine is draining or halted
+        or the bounded queue is full, and ``ValueError`` for a request that
+        could never be placed (it fails at the door instead of livelocking
+        ``run()`` at the queue's head)."""
+        health = self.health()
+        if health in (EngineHealth.DRAINING, EngineHealth.HALTED):
+            self.metrics.record_reject()
+            raise RejectedError(f"engine is {health.value}; not accepting new requests",
+                                queue_depth=self.scheduler.queued)
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
         if config.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(f"deadline_s must be > 0, got {deadline_s}")
+        if queue_timeout_s is not None and queue_timeout_s <= 0:
+            raise ValueError(f"queue_timeout_s must be > 0, got {queue_timeout_s}")
         validate_generate_args(self.model, prompt[None], config.max_new_tokens, None)
         if self.draft_model is not None:
             # the last round's gamma-token verify window must fit the row even
@@ -439,7 +703,11 @@ class ServingEngine:
         self._next_rid += 1
         req = Request(rid=rid, prompt=prompt, config=config,
                       seed=rid if seed is None else int(seed))
-        req.submit_time = time.monotonic()
+        req.submit_time = self._now()
+        if deadline_s is not None:
+            req.deadline = req.submit_time + deadline_s
+        if queue_timeout_s is not None:
+            req.queue_deadline = req.submit_time + queue_timeout_s
         self.scheduler.submit(req)
         self.metrics.record_submit(req, req.submit_time)
         return req
@@ -453,22 +721,33 @@ class ServingEngine:
         was_queued = req.slot is None
         ok = self.scheduler.cancel(rid)
         if ok and was_queued:
-            self.metrics.record_cancel(req, time.monotonic())
+            self.metrics.record_cancel(req, self._now())
         return ok
 
     @property
     def has_work(self) -> bool:
+        if self._halted:
+            # requeued work stays queued for inspection or handoff, but a
+            # halted engine makes no progress: run() must return
+            return False
+        if self._draining:
+            return bool(self._active.any()) or any(
+                r.admit_time is not None for r in self.scheduler.queued_requests)
         return self.scheduler.queued > 0 or bool(self._active.any())
 
     @torch.no_grad()
     def step(self) -> bool:
-        """One iteration: reap cancellations → preempt/rewind if the cursor
-        is out of room → admit+prefill → one decode chunk → retire finished
-        slots. Returns whether work remains. Runs under ``no_grad``: serving
-        never differentiates (as the JAX engine), so a trainable model
-        records no autograd graph here."""
-        now = time.monotonic()
+        """One iteration: reap cancellations → shed expired deadlines →
+        preempt/rewind if the cursor is out of room → admit+prefill → one
+        decode chunk (with recovery) → retire finished slots. Returns
+        whether work remains. Runs under ``no_grad``: serving never
+        differentiates (as the JAX engine), so a trainable model records no
+        autograd graph here."""
+        if self._halted:
+            return self.has_work
+        now = self._now()
         self._reap_cancelled(now)
+        self._shed_expired(now)
         # one more decode iteration needs gamma columns; speculation
         # spends columns faster than tokens (rejected drafts leave gaps), so
         # its wall can come before the token-based admission projected it
@@ -477,17 +756,43 @@ class ServingEngine:
         if not self._active.any() and self.cache.cursor > 0:
             self._reset_caches()  # drained: the next wave starts at column 0
         self._admit(now)
-        if self._active.any():
+        if not self._halted and self._active.any():
             self._decode()
+        self._sync_health()
         return self.has_work
 
     def run(self, max_steps: int = 1_000_000) -> Dict[int, Request]:
-        """Step until idle; returns every request this engine has seen."""
+        """Step until idle (or HALTED); returns every request this engine
+        has seen."""
         steps = 0
         while self.has_work and steps < max_steps:
             self.step()
             steps += 1
         return dict(self.scheduler.requests)
+
+    # --- deadlines ----------------------------------------------------------
+
+    def _shed_expired(self, now: float) -> None:
+        """Queue timeouts shed BEFORE any prefill; in-flight deadlines at
+        the chunk boundary, the request keeping what it streamed (JAX
+        ``_shed_expired``, ``engine.py:2315``)."""
+        for req, reason in self.scheduler.expire(now):
+            req.state = RequestState.TIMED_OUT
+            req.error = reason
+            req.finish_time = now
+            self.metrics.record_shed(req, now, where="queue")
+            if self.flight is not None:
+                self.flight.record("shed", rid=req.rid, where="queue", reason=reason)
+        for req in list(self._slot_req):
+            if req is None or req.deadline is None or now < req.deadline:
+                continue
+            req.state = RequestState.TIMED_OUT
+            req.error = "deadline exceeded mid-generation"
+            req.finish_time = now
+            self.metrics.record_shed(req, now, where="inflight")
+            if self.flight is not None:
+                self.flight.record("shed", rid=req.rid, where="inflight", tokens=len(req.tokens))
+            self._release_slot(req)
 
     # --- admission ----------------------------------------------------------
 
@@ -505,6 +810,8 @@ class ServingEngine:
 
         def fits(req: Request) -> bool:
             nonlocal proj, maxrem
+            if self._draining and req.admit_time is None:
+                return False  # draining admits only work admitted once already
             p = len(req.context_ids)
             target = max(proj, _bucket(p, self.max_seq_len, req.remaining_new_tokens + extra))
             if self.admission == "conservative":
@@ -529,8 +836,9 @@ class ServingEngine:
             def cost(req: Request) -> int:
                 return len(req.context_ids) - self.prefix.match_len(req.context_ids)
 
-        for req in self.scheduler.select(self.cache.free_slots, self._in_flight_tokens(),
-                                         fits, prefill_cost=cost):
+        selected = self.scheduler.select(self.cache.free_slots, self._in_flight_tokens(),
+                                         fits, prefill_cost=cost)
+        for i, req in enumerate(selected):
             slot = self.cache.acquire()
             if self.draft_cache is not None and self.draft_cache.acquire() != slot:
                 # the twin's free list mirrors the target's: a divergence would
@@ -538,6 +846,12 @@ class ServingEngine:
                 raise RuntimeError(f"the draft cache's free slots diverged from the target's "
                                    f"(slot {slot})")
             self._prefill_into_slot(req, slot, now)
+            if self._halted:
+                # a prefill-failure halt mid-round: the rest of the round left
+                # the queue already; put it back intact
+                if selected[i + 1:]:
+                    self.scheduler.requeue_front(selected[i + 1:])
+                break
 
     def _paged_fits(self, maxrem: int):
         """The paged admission predicate for one round (JAX ``fits``,
@@ -574,6 +888,8 @@ class ServingEngine:
 
         def fits(req: Request) -> bool:
             nonlocal maxrem
+            if self._draining and req.admit_time is None:
+                return False  # draining admits only work admitted once already
             p, rem = len(req.context_ids), req.remaining_new_tokens
             ctx, target = layout(selected + [(p, rem)])
             most = max(maxrem, rem)
@@ -620,7 +936,7 @@ class ServingEngine:
         hit whose tail is long enough) and sample the first token."""
         ctx = req.context_ids
         p = len(ctx)
-        t0 = time.monotonic()
+        t0 = self._clock()
         rem = req.remaining_new_tokens + self.gamma - 1
         if self._page_size is None:
             padded = _bucket(p, self.max_seq_len, rem)
@@ -628,61 +944,25 @@ class ServingEngine:
         else:
             padded, target = self._paged_layout(p, rem, self.cache.cursor)
         plan = self._plan_prefix_reuse(ctx, p, target)
+        call = self._prefill_calls
+        self._prefill_calls += 1
+        cursors = [mgr.cursor for mgr in self._managers]
         try:
-            if self._page_size is None:
-                row = self.cache.admit(slot, padded, cursor=target)
-                if self.draft_cache is not None:
-                    d_row = self.draft_cache.admit(slot, padded, cursor=target)
-                m_shared = 0
-            else:
-                m_shared = plan[1] if plan is not None else 0
-                shared = plan[0].page_ids[:m_shared // self._page_size] if plan else ()
-                try:
-                    row = self.cache.admit(slot, padded, cursor=target, p=p,
-                                           shared_ids=shared, m_shared=m_shared)
-                    if self.draft_cache is not None:
-                        # the draft maps its own pages under the same columns
-                        d_row = self.draft_cache.admit(slot, padded, cursor=target, p=p)
-                except PageExhausted:
-                    # page pressure between fits() and the admission: nothing
-                    # stays mapped — return the slot, requeue the untouched request
-                    self.cache.free(slot)
-                    if self.draft_cache is not None:
-                        self.draft_cache.free(slot)
-                    self.scheduler.requeue_front([req])
-                    return
-            if plan is None:
-                ids, mask = pack_padded_prompt(ctx, padded)
-                logits = unwrap_logits(self._prefill_model(
-                    torch.from_numpy(ids).to(self.device, torch.int64), cache=row,
-                    padding_mask=torch.from_numpy(mask).to(self.device), last_only=True,
-                ))[0, -1]
-            else:
-                entry, m_use, chunk = plan
-                start = padded - p  # the context's first column in the view
-                seed_cache_prefix(row, entry.tree, m_use, start)
-                if self._page_size is not None:
-                    # the suffix chunk writes past the shared pages, never on one
-                    c0 = target - p + m_use
-                    self.cache.assert_writable([slot], c0, c0 + chunk)
-                ids, _ = pack_padded_prompt(ctx[m_use:], chunk, pad_side="right")
-                ids = torch.from_numpy(ids).to(self.device, torch.int64)
-                if self._page_size is not None and self.cache.cache.quantized:
-                    logits = self._suffix_prefill_dequantized(row, entry, m_use, chunk, ids,
-                                                              p, start)
-                else:
-                    logits = suffix_prefill_step(self._decode_model, row, ids, p - m_use)
-            if self.draft_cache is not None:
-                # the draft context always full-prefills, on a prefix hit too:
-                # prefix entries hold target KV only
-                ids, mask = pack_padded_prompt(ctx, padded)
-                self._draft_prefill_model(
-                    torch.from_numpy(ids).to(self.device, torch.int64), cache=d_row,
-                    padding_mask=torch.from_numpy(mask).to(self.device), last_only=True)
-        finally:
-            if plan is not None:
-                self.prefix.release(plan[0])
-        self.metrics.record_prefill_wall(time.monotonic() - t0,
+            try:
+                logits, m_shared, row = self._admit_and_prefill(req, slot, call, ctx, p, padded,
+                                                                target, plan)
+            finally:
+                if plan is not None:
+                    self.prefix.release(plan[0])
+        except _FATAL:
+            raise
+        except Exception as e:
+            self._fail_prefill(req, slot, cursors, e, now)
+            return
+        if logits is None:
+            return  # page pressure between fits() and the admission: requeued
+        self._consecutive_prefill_failures = 0
+        self.metrics.record_prefill_wall(self._clock() - t0,
                                          kind="full" if plan is None else "suffix")
         matched = plan[1] if plan is not None else 0
         if self._page_size is None:
@@ -692,6 +972,91 @@ class ServingEngine:
                 self.metrics.record_prefix_pages_shared(m_shared // self._page_size)
             self._remember_prefix_paged(ctx, p, slot, m_shared)
         self._bind_slot(req, slot, logits, now)
+
+    def _fail_prefill(self, req: Request, slot: int, cursors, exc: Exception,
+                      now: float) -> None:
+        """A prefill fault fails ONE request for cause instead of the loop
+        (JAX ``engine.py:2640-2669``): the slot returns to the rotation (its
+        validity and pages released), the cursors go back to where the
+        admission found them, and ``dispatch_retry.max_attempts``
+        consecutive failures halt: a prefill that fails every admission must
+        not fail all traffic while ``health()`` reads OK."""
+        for mgr, cursor in zip(self._managers, cursors):
+            mgr.free(slot)
+            mgr.cache.index = cursor
+        req.state = RequestState.FAILED
+        req.error = f"prefill failed: {exc}"
+        req.finish_time = now
+        self.metrics.record_failed(req, now, kind="prefill")
+        if self.flight is not None:
+            self.flight.record("prefill_failure", rid=req.rid, error=str(exc))
+        self._consecutive_prefill_failures += 1
+        if self._consecutive_prefill_failures >= self._dispatch_retry.max_attempts:
+            self._halt(f"{self._consecutive_prefill_failures} consecutive prefill failures "
+                       f"(last: {type(exc).__name__}: {exc})")
+
+    def _admit_and_prefill(self, req: Request, slot: int, call: int, ctx, p: int, padded: int,
+                           target: int, plan):
+        """Map ``slot`` for the context and prefill it (full, or the suffix
+        of a prefix hit), the draft twin too. Returns ``(logits, m_shared,
+        row)``; logits None when page pressure sent the request back to the
+        queue untouched. The prefill hook fires after the slot is mapped,
+        so an injected fault takes the cleanup path a real one takes."""
+        if self._page_size is None:
+            row = self.cache.admit(slot, padded, cursor=target)
+            if self.draft_cache is not None:
+                d_row = self.draft_cache.admit(slot, padded, cursor=target)
+            m_shared = 0
+        else:
+            m_shared = plan[1] if plan is not None else 0
+            shared = plan[0].page_ids[:m_shared // self._page_size] if plan else ()
+            try:
+                row = self.cache.admit(slot, padded, cursor=target, p=p,
+                                       shared_ids=shared, m_shared=m_shared)
+                if self.draft_cache is not None:
+                    # the draft maps its own pages under the same columns
+                    d_row = self.draft_cache.admit(slot, padded, cursor=target, p=p)
+            except PageExhausted:
+                # page pressure between fits() and the admission: nothing
+                # stays mapped — return the slot, requeue the untouched request
+                self.cache.free(slot)
+                if self.draft_cache is not None:
+                    self.draft_cache.free(slot)
+                self.scheduler.requeue_front([req])
+                if self.flight is not None:
+                    self.flight.record("page_exhausted", rid=req.rid)
+                return None, 0, None
+        if self._faults is not None:
+            self._faults.on_prefill(call)
+        if plan is None:
+            ids, mask = pack_padded_prompt(ctx, padded)
+            logits = unwrap_logits(self._prefill_model(
+                torch.from_numpy(ids).to(self.device, torch.int64), cache=row,
+                padding_mask=torch.from_numpy(mask).to(self.device), last_only=True,
+            ))[0, -1]
+        else:
+            entry, m_use, chunk = plan
+            start = padded - p  # the context's first column in the view
+            seed_cache_prefix(row, entry.tree, m_use, start)
+            if self._page_size is not None:
+                # the suffix chunk writes past the shared pages, never on one
+                c0 = target - p + m_use
+                self.cache.assert_writable([slot], c0, c0 + chunk)
+            ids, _ = pack_padded_prompt(ctx[m_use:], chunk, pad_side="right")
+            ids = torch.from_numpy(ids).to(self.device, torch.int64)
+            if self._page_size is not None and self.cache.cache.quantized:
+                logits = self._suffix_prefill_dequantized(row, entry, m_use, chunk, ids,
+                                                          p, start)
+            else:
+                logits = suffix_prefill_step(self._decode_model, row, ids, p - m_use)
+        if self.draft_cache is not None:
+            # the draft context always full-prefills, on a prefix hit too:
+            # prefix entries hold target KV only
+            ids, mask = pack_padded_prompt(ctx, padded)
+            self._draft_prefill_model(
+                torch.from_numpy(ids).to(self.device, torch.int64), cache=d_row,
+                padding_mask=torch.from_numpy(mask).to(self.device), last_only=True)
+        return logits, m_shared, row
 
     def _suffix_prefill_dequantized(self, row, entry, m_use: int, chunk: int, ids, p: int,
                                     start: int) -> torch.Tensor:
@@ -740,8 +1105,19 @@ class ServingEngine:
             self.metrics.record_prefix_miss()
             return None
         entry, m_use = hit
+        reuse = self._prefix_reuses
+        self._prefix_reuses += 1
+        if self._faults is not None:
+            self._faults.on_prefix_reuse(reuse, entry,
+                                         cache=self.cache if self._page_size is not None else None)
         if self._page_size is not None:
-            valid = self.cache.pages_live(entry.page_ids[:m_use // self._page_size])
+            # the accounting first (pages still allocated, pinned, not
+            # quarantined), then the CONTENT: a bit flip leaves the
+            # accounting healthy, only the fingerprints see it
+            used = entry.page_ids[:m_use // self._page_size]
+            valid = self.cache.pages_live(used)
+            if valid and entry.page_fp is not None:
+                valid = self._validate_pages(entry, len(used))
         else:
             valid = self._validate_prefix(entry)
         if not valid:
@@ -764,6 +1140,15 @@ class ServingEngine:
         now, stored = self._host_read(torch.stack([cache_fingerprint(entry.tree),
                                                    entry.fingerprint]))
         return bool(now == stored)
+
+    def _validate_pages(self, entry: PrefixEntry, n_pages: int) -> bool:
+        """Reuse-time CONTENT check of a paged entry's first ``n_pages``
+        pages (JAX ``_validate_pages``, ``engine.py:3038``): their
+        fingerprints recomputed (PF on the card) and compared bit for bit
+        with the insert-time record; the two vectors ride one host read."""
+        now = pool_pages_fingerprint(self.cache.cache, entry.page_ids[:n_pages])
+        cur, stored = self._host_read(torch.stack([now, entry.page_fp[:n_pages]]))
+        return bool(np.array_equal(cur, stored))
 
     def _remember_prefix(self, ctx, p: int, padded: int, row, matched: int) -> None:
         """Insert-on-miss (JAX ``_remember_prefix``, ``engine.py:3057``):
@@ -788,9 +1173,10 @@ class ServingEngine:
     def _remember_prefix_paged(self, ctx, p: int, slot: int, matched: int) -> None:
         """Paged insert-on-miss (JAX ``_remember_prefix_paged``,
         ``engine.py:3096-3135``): PIN the slot's whole context pages instead
-        of copying, zero device work. Decode writes land past the aligned
-        context, so a still-decoding donor never touches them. Same skip
-        rules as the copy path, on the page-floored length."""
+        of copying, and record their fingerprints (one PF launch, no read).
+        Decode writes land past the aligned context, so a still-decoding
+        donor never touches them. Same skip rules as the copy path, on the
+        page-floored length."""
         if self.prefix is None:
             return
         ps = self._page_size
@@ -807,6 +1193,8 @@ class ServingEngine:
             self.cache.unpin_pages(ids)
         else:
             entry.page_ids = tuple(ids)
+            # the pages' content at insert, on the device, read at a hit
+            entry.page_fp = pool_pages_fingerprint(self.cache.cache, ids)
         if evicted:
             self.metrics.record_prefix_eviction(evicted)
 
@@ -840,7 +1228,7 @@ class ServingEngine:
         temp, topk, topp = _config_sentinels(req.config)
         if not req.tokens:
             tok0 = int(self._host_read(sample_row(logits, req.seed, 0, temp, topk, topp)))
-            self._emit_token(req, tok0, time.monotonic(), first=True)
+            self._emit_token(req, tok0, self._now(), first=True)
         req.state = RequestState.DECODE
         req.slot = slot
         self._slot_req[slot] = req
@@ -862,7 +1250,8 @@ class ServingEngine:
         generation among active slots ever executes (steps, or rounds of
         gamma columns). Clamping the page demand to it keeps the window
         consistent with the admission and door accounting, which size
-        requests by their remaining tokens."""
+        requests by their remaining tokens. A quarantined slot is inactive,
+        so it claims nothing."""
         max_rem = max((self._slot_req[s].remaining_new_tokens for s in active
                        if self._slot_req[s] is not None), default=self.decode_chunk_size)
         return min(self.decode_chunk_size, max(max_rem, 1)) * self.gamma
@@ -885,54 +1274,237 @@ class ServingEngine:
             return
         if self._page_size is not None:
             self.metrics.record_pages_mapped(self.cache.pages_mapped)
-        # one fused chunk (JAX ``_decode_plain``, or with a draft model
-        # ``_decode_spec``, ``engine.py:3204``): ``decode_chunk_size``
-        # iterations of the decode program (captured at the first chunk on
-        # the card), plain steps or draft-verify rounds, then ONE host read of
-        # the token block with each iteration's emitted counts (and a round's
-        # accepted lengths); a capture's wall is recorded apart
-        chunk, g = self._chunk, self.gamma
+        self._decode_chunk(self._chunk)
+
+    def _decode_chunk(self, chunk) -> None:
+        """One fused chunk (JAX ``_decode_plain``, or with a draft model
+        ``_decode_spec``, ``engine.py:3204-3511``): ``decode_chunk_size``
+        iterations of ``chunk``'s program (captured at its first call on the
+        card), plain steps or draft-verify rounds, then ONE host read of the
+        token block with each iteration's emitted counts (and a round's
+        accepted lengths); a capture's wall is recorded apart. A failed
+        dispatch routes through recovery (a speculative one through the
+        fallback to the plain step) instead of escaping ``step()``; the
+        block is validated on the host before any token reaches a stream."""
+        g = chunk.cols
+        spec = chunk.accepts is not None
+        # the plain fallback of a speculative engine moves the target alone
+        managers = self._managers if chunk is self._chunk else (self.cache,)
         active_at_dispatch = int(self._active.sum())
         start = self.cache.cursor
         prog = chunk.program
-        captured, replays = prog.captures, prog.replays
-        t0 = time.monotonic()
-        executed = chunk()
-        t1 = time.monotonic()
+        captured, replays, started = prog.captures, prog.replays, chunk.iterations
+        attempt = self._dispatch_attempts
+        self._dispatch_attempts += 1
+        t0 = self._clock()
+        try:
+            if self._faults is not None:
+                self._faults.on_dispatch(attempt)
+                if spec:
+                    self._faults.on_spec_dispatch(attempt)
+            executed = chunk()
+            t1 = self._clock()
+            block = self._host_read(chunk.readout())
+        except _FATAL:
+            raise
+        except Exception as e:
+            # untouched: no step started, so the caches, cursors and slot
+            # state are as the last chunk left them (JAX's surviving buffers)
+            untouched = chunk.iterations == started
+            if spec:
+                self._spec_fallback(e, untouched)
+            else:
+                self._recover_dispatch(e, untouched)
+            return
+        t2 = self._clock()
+        self._consecutive_dispatch_failures = 0
+        self._chunks_since_failure += 1
         capture_s = prog.capture_s if prog.captures > captured else 0.0
         if capture_s:
             self.metrics.record_capture(capture_s)
-        block = self._host_read(chunk.readout())
-        t2 = time.monotonic()
+        readback = self._readbacks
+        self._readbacks += 1
         toks, counts = block[..., :g], block[..., g]
-        accepts = block[..., g + 1] if chunk.accepts is not None else None
         # iterations that ran with at least one live slot; the rest were
-        # no-ops, so the cursors land where the JAX chunk's lax.cond leaves them
+        # no-ops, so the cursors land where the JAX chunk's lax.cond leaves
+        # them (from the block as read: a poisoned copy never moves them)
         used = int((counts.sum(1) > 0).sum())
-        for mgr in self._managers:
+        for mgr in managers:
             mgr.update_after_decode(start, used * g)
-        now = time.monotonic()
-        delivered, spec_accepts = 0, None if accepts is None else []
+        live = np.flatnonzero(self._active)
+        if spec:
+            accepts = block[..., g + 1]
+            if self._faults is not None:
+                toks, counts = self._faults.on_spec_readback(readback, toks, counts, self._active)
+            bad = _validate_spec_readback(toks, counts, g, self._vocab, live)
+        else:
+            # a plain step's block as JAX's: (chunk, slots) tokens and each
+            # slot's emitted count (its emissions are a prefix of the chunk)
+            toks, counts = toks[..., 0], counts.sum(0)
+            if self._faults is not None:
+                toks, counts = self._faults.on_readback(readback, toks, counts, self._active)
+            bad = _validate_readback(toks, counts, self.decode_chunk_size, self._vocab, live)
+        # paged: a poisoned PAGE's holders leave self._active here, so the
+        # loop below never touches their (discarded) columns
+        self._apply_page_poison(readback)
+        now = self._now()
+        delivered, spec_accepts = 0, [] if spec else None
         for slot in np.flatnonzero(self._active):
             req = self._slot_req[slot]
-            # the slot's live iterations: those in which it emitted (a live
-            # slot emits at least one token each)
-            live = np.flatnonzero(counts[:, slot])
-            if accepts is not None:
-                spec_accepts.extend(int(a) for a in accepts[live, slot])
-            for r in live:
-                for tok in toks[r, slot, :counts[r, slot]]:
-                    self._emit_token(req, int(tok), now)
-                    delivered += 1
-                    self._maybe_finish(req, now)
-                    if req.finished:
-                        break  # EOS or budget: the rest of its block is discarded
+            if int(slot) in bad:
+                self._quarantine_slot(int(slot), req, bad[int(slot)], now)
+                continue
+            if spec:
+                rounds = np.flatnonzero(counts[:, slot] > 0)
+                spec_accepts.extend(int(a) for a in accepts[rounds, slot])
+                emitted = [tok for r in rounds for tok in toks[r, slot, :counts[r, slot]]]
+            else:
+                emitted = toks[:counts[slot], slot]
+            for tok in emitted:
+                self._emit_token(req, int(tok), now)
+                delivered += 1
+                self._maybe_finish(req, now)
                 if req.finished:
-                    break
+                    break  # EOS or budget: the rest of its block is discarded
         self.metrics.record_decode_chunk(delivered, used, executed, self.cache.cursor,
                                          active_at_dispatch, dispatch_s=t1 - t0 - capture_s,
                                          readback_s=t2 - t1, replays=prog.replays - replays,
                                          spec_accepts=spec_accepts, gamma=g)
+
+    # --- faults -------------------------------------------------------------
+
+    def _recover_dispatch(self, exc: Exception, untouched: bool) -> None:
+        """A decode dispatch FAILED (JAX ``_recover_dispatch``,
+        ``engine.py:3513``). Recovery is the preemption machinery: every
+        in-flight request goes back to the queue's front with its
+        host-current tokens (exact as of the last chunk boundary), the
+        caches and slot state are reset IN PLACE (cursors at 0, every slot
+        free; the captured program keeps its buffers), and the next step
+        re-prefills and retries after the retry policy's wait. When steps
+        of the failed chunk ran, a paged prefix store is cleared as JAX
+        clears it when its pool is consumed (its pinned pages are dropped).
+        ``dispatch_retry.max_attempts`` CONSECUTIVE failures halt."""
+        n = self._consecutive_dispatch_failures + 1
+        self._consecutive_dispatch_failures = n
+        self._had_dispatch_failure = True
+        self._chunks_since_failure = 0
+        self.metrics.record_dispatch_retry()
+        if self.flight is not None:
+            self.flight.record("dispatch_failure", error=str(exc), consecutive=n)
+        requeued = self._vacate_active()
+        self.scheduler.requeue_front(requeued)
+        self._reset_caches()
+        if self._page_size is not None and not untouched and self.prefix is not None:
+            dropped = self.prefix.clear()
+            if dropped:
+                self.metrics.record_prefix_eviction(dropped)
+        self._reset_slot_state()
+        if self.prefix is not None:
+            self.prefix.release_all()  # no suffix prefill survives, so no pin may
+        if n >= self._dispatch_retry.max_attempts:
+            self._halt(f"{n} consecutive dispatch failures (last: {type(exc).__name__}: {exc})")
+            return
+        self.metrics.record_recovery()
+        if self.flight is not None:
+            self.flight.record("recovery", requeued=len(requeued), consecutive=n)
+        self._sleep(self._dispatch_retry.wait(n - 1))
+        self._sync_health()
+
+    def _spec_fallback(self, exc: Exception, untouched: bool) -> None:
+        """A SPECULATIVE dispatch failed (JAX ``_spec_fallback``,
+        ``engine.py:3344``). When no step ran, decode THIS chunk with the
+        plain step on the same buffers (the program a spec-off engine runs,
+        so the streams continue and no token is lost), then preempt every
+        slot: the plain chunk advanced the target cache without the draft's,
+        and re-prefilling both restores lockstep. When steps ran, there is
+        nothing to fall back onto: full dispatch recovery."""
+        if not untouched:
+            self._recover_dispatch(exc, untouched)
+            return
+        # DEGRADED until the cooldown; not a consecutive failure: the plain
+        # chunk makes progress, and ITS failure is what escalates
+        self._had_dispatch_failure = True
+        self._chunks_since_failure = 0
+        self._decode_chunk(self._plain_step_chunk())
+        if self._consecutive_dispatch_failures == 0:
+            # the plain chunk really decoded: THIS is a fallback
+            self.metrics.record_spec_fallback()
+            if self.flight is not None:
+                self.flight.record("spec_fallback", error=str(exc))
+        if self._active.any():
+            self._preempt_all()
+        self._sync_health()
+
+    def _quarantine_slot(self, slot: int, req: Request, reason: str, now: float) -> None:
+        """Pull a poisoned slot out of the rotation before its chunk reaches
+        a stream (JAX ``_quarantine_slot``, ``engine.py:3586``): its device
+        ``active`` flag cleared in place (the captured program reads it), the
+        slot out of the managers' rotation (a paged manager retires the
+        slot's exclusive pages instead). The victim resumes from the last
+        chunk boundary in another slot (``"requeue"``) or fails for cause
+        (``"fail"``); neighbours are untouched; losing the last usable slot
+        or page halts."""
+        self.metrics.record_quarantine()
+        if self.flight is not None:
+            self.flight.record("quarantine", slot=slot, rid=req.rid, reason=reason)
+        for mgr in self._managers:
+            mgr.quarantine(slot)
+        self._release_slot(req)  # clears the row; a row slot never rejoins the rotation
+        self._requeue_or_fail(req, f"slot {slot} quarantined: {reason}", now)
+        if self.cache.usable_slots == 0:
+            self._halt("all slots quarantined")
+        elif self._page_size is not None and self.cache.alloc.capacity == 0:
+            self._halt("all KV pages quarantined")
+
+    def _requeue_or_fail(self, req: Request, error: str, now: float) -> None:
+        """A quarantine's victim under ``quarantine_policy``."""
+        if self._quarantine_policy == "requeue" and not req.finished:
+            self.scheduler.requeue_front([req])
+            return
+        req.state = RequestState.FAILED
+        req.error = error
+        req.finish_time = now
+        self.metrics.record_failed(req, now, kind="quarantine")
+
+    def _apply_page_poison(self, readback: int) -> None:
+        """The injector's page poisons at this readback (paged engines; JAX
+        ``_apply_page_poison``, ``engine.py:1269``): each page retires from
+        the pool, every ACTIVE request whose table maps it is requeued from
+        the last chunk boundary (its columns of this chunk discarded) and
+        its slot freed back to the rotation; the prefix entries pinning the
+        page are evicted (their shared content is suspect)."""
+        if self._faults is None or self._page_size is None:
+            return
+        pages = self._faults.on_page_readback(readback, lambda s: self.cache.slot_pages(int(s)),
+                                              self._active)
+        if not pages:
+            return
+        now = self._now()
+        victims: set = set()
+        for page in pages:
+            slots = self.cache.quarantine_page(int(page))
+            self.metrics.record_page_quarantine()
+            if self.flight is not None:
+                self.flight.record("page_quarantine", page=int(page),
+                                   slots=[int(s) for s in slots])
+            if self.prefix is not None:
+                for e in list(self.prefix.entries):
+                    if e.page_ids and int(page) in e.page_ids:
+                        self.prefix.evict_entry(e)
+                        self.metrics.record_prefix_eviction()
+            victims.update(int(s) for s in slots if self._active[int(s)])
+        requeue = []
+        for slot in sorted(victims):
+            req = self._slot_req[slot]
+            self._release_slot(req)
+            if self._quarantine_policy == "requeue" and not req.finished:
+                requeue.append(req)
+            else:
+                self._requeue_or_fail(req, f"slot {slot} mapped a poisoned KV page", now)
+        if requeue:
+            self.scheduler.requeue_front(requeue)
+        if self.cache.alloc.capacity == 0:
+            self._halt("all KV pages quarantined")
 
     # --- lifecycle ----------------------------------------------------------
 
@@ -969,16 +1541,25 @@ class ServingEngine:
                 req.finish_time = now
                 self._release_slot(req)
 
+    def _vacate_active(self) -> List[Request]:
+        """Unbind every active request from its slot (host bookkeeping
+        only) and return them in slot order: the shared first half of
+        preemption, dispatch recovery and halting. Their tokens are
+        host-current as of the last chunk boundary."""
+        vacated = [r for r in self._slot_req if r is not None]
+        for req in vacated:
+            self._slot_req[req.slot] = None
+            req.slot = None
+        self._active[:] = False
+        return vacated
+
     def _preempt_all(self) -> None:
         """Out of cache columns: requeue every active request (keeping its
         tokens), rewind the cache, and let admission re-prefill them."""
-        preempted = [r for r in self._slot_req if r is not None]
+        preempted = self._vacate_active()
         for req in preempted:
-            self._slot_req[req.slot] = None
-            req.slot = None
             req.preemptions += 1
             self.metrics.record_preemption()
-        self._active[:] = False
         self.scheduler.requeue_front(preempted)
         self._reset_caches()
         self._reset_slot_state()

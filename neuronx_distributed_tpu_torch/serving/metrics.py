@@ -6,7 +6,10 @@ decode program's captures, capture wall and graph replays, the prefix
 cache's counters (JAX ``metrics.py:85-93``, ``:494-524``), the prefill
 wall by kind (``"full"`` or ``"suffix"``) and the speculative acceptance
 statistics (``observability/spec_stats.py``, JAX ``metrics.py:590-622``,
-all zero without a draft model), as plain host numbers in ``snapshot()``
+all zero without a draft model), the fault counters (sheds, time-outs,
+failures, slot and page quarantines, dispatch retries, recoveries, prefill
+failures, speculative fallbacks; JAX ``metrics.py:429-513``) and the
+engine's health, as plain host numbers in ``snapshot()``
 (the JAX snapshot's key names, plus ``peak_occupancy``,
 ``peak_pages_mapped``, ``decode_captures``, ``capture_s`` and
 ``graph_replays``). Recording costs no device read: every sample is a host
@@ -37,6 +40,9 @@ class ServingMetrics:
         self.occupied_slot_steps = self.peak_occupancy = self.peak_pages_mapped = 0
         self.prefills = self.completed = self.cancelled = 0
         self.preemptions = self.rejects = 0
+        self.sheds = self.timed_out = self.failed = self.prefill_failures = 0
+        self.quarantines = self.page_quarantines = self.dispatch_retries = self.recoveries = 0
+        self.health = "ok"  # the engine's mirror of ServingEngine.health()
         self.cursor_high_water = 0
         self.decode_dispatch_s = self.decode_readback_s = 0.0
         self.graph_replays = self.decode_captures = 0
@@ -118,6 +124,54 @@ class ServingMetrics:
     def record_reject(self) -> None:
         self.rejects += 1
 
+    # --- faults -------------------------------------------------------------
+
+    def record_shed(self, req, now: float, where: str) -> None:
+        """A request timed out: ``where`` is ``"queue"`` (shed before any
+        prefill) or ``"inflight"`` (its deadline hit at a chunk boundary)."""
+        r = self._requests.get(req.rid)
+        if r is not None:
+            r["finish_time"] = now
+            r["timed_out"] = True
+            r["shed_where"] = where
+            r["tokens"] = len(req.tokens)
+        self.sheds += 1
+        self.timed_out += 1
+
+    def record_failed(self, req, now: float, kind: str = "engine") -> None:
+        """A request the engine failed for cause (``req.error`` says why):
+        ``kind`` is ``"prefill"`` or ``"quarantine"``."""
+        r = self._requests.get(req.rid)
+        if r is not None:
+            r["finish_time"] = now
+            r["failed"] = True
+            r["failed_kind"] = kind
+        self.failed += 1
+        if kind == "prefill":
+            self.prefill_failures += 1
+
+    def record_quarantine(self) -> None:
+        self.quarantines += 1
+
+    def record_page_quarantine(self) -> None:
+        """A poisoned pool page was retired (its holders requeued)."""
+        self.page_quarantines += 1
+
+    def record_dispatch_retry(self) -> None:
+        self.dispatch_retries += 1
+
+    def record_recovery(self) -> None:
+        self.recoveries += 1
+
+    def record_spec_fallback(self) -> None:
+        """A speculative dispatch failed and its chunk was decoded with the
+        plain step instead."""
+        self.spec.record_fallback()
+
+    def request_snapshot(self, rid: int) -> dict:
+        """One request's recorded fields."""
+        return dict(self._requests.get(rid, {}))
+
     def record_decode_chunk(self, tokens: int, steps: int, executed: int, cursor: int,
                             active_slots: int, dispatch_s: float = 0.0,
                             readback_s: float = 0.0, replays: int = 0,
@@ -182,6 +236,15 @@ class ServingMetrics:
             "cancelled": self.cancelled,
             "preemptions": self.preemptions,
             "rejects": self.rejects,
+            "sheds": self.sheds,
+            "timed_out": self.timed_out,
+            "failed": self.failed,
+            "quarantines": self.quarantines,
+            "page_quarantines": self.page_quarantines,
+            "dispatch_retries": self.dispatch_retries,
+            "recoveries": self.recoveries,
+            "prefill_failures": self.prefill_failures,
+            "health": self.health,
             "prefill_count": len(self.prefill_walls),
             "prefill_wall_s": float(sum(self.prefill_walls)),
             "prefill_mean_s": _mean(self.prefill_walls),

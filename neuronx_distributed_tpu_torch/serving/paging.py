@@ -1,10 +1,10 @@
 """Paged KV cache for the serving engine: block-table slots over a
 ref-counted page pool (counterpart of
 ``neuronx_distributed_tpu/serving/paging.py``, what the engine calls:
-``PageAllocator`` with page sharing and without quarantine,
-``PagedCacheManager`` with prefix pins, copy-on-write admission and
-``kv_quant``, and without staged contexts, export/import, spill/prefetch
-or slot quarantine, which belong to later slices together with their
+``PageAllocator`` with page sharing and quarantine, ``PagedCacheManager``
+with prefix pins, copy-on-write admission, ``kv_quant``, page and slot
+quarantine and recovery, and without staged contexts, export/import or
+spill/prefetch, which belong to a later slice together with their
 callers).
 
 The row-per-slot manager (``serving/cache_manager.py``) charges every slot a
@@ -43,6 +43,12 @@ full ``max_seq_len`` row of device memory whatever its request uses. Here:
   kv-head) (``PagedKVCache``); every page the manager hands out is zeroed
   first (codes and scales), so a recycled page's old rows never enter its
   scale. Host accounting (tables, refs, pins) is the float pool's.
+* Page-granular fault domains: a poisoned page is QUARANTINED out of the
+  pool (:meth:`PageAllocator.quarantine`): never free again, never mapped
+  again; the requests whose tables map it are requeued by the engine, and
+  a referenced page leaves circulation when its last reference drops. A
+  poisoned slot readback retires the slot's exclusively owned pages; the
+  slot index itself stays in the rotation.
 """
 
 from __future__ import annotations
@@ -68,8 +74,10 @@ class PageAllocator:
     """Host-side owner of the physical page pool: free list + ref counts.
 
     A page is exactly one of: RESERVED (page 0, the null page), FREE (on the
-    free list, refcount absent) or REFERENCED (mapped by >= 1 block table
-    and/or pinned by >= 1 prefix entry; the refcount is the sum).
+    free list, refcount absent), REFERENCED (mapped by >= 1 block table
+    and/or pinned by >= 1 prefix entry; the refcount is the sum) or
+    QUARANTINED (poisoned, out of circulation for good; a referenced page
+    that is quarantined leaves circulation when its last ref drops).
     ``copy_bytes`` counts KV bytes physically duplicated on prefix reuse:
     the zero-copy contract is that it STAYS 0."""
 
@@ -79,6 +87,7 @@ class PageAllocator:
         self.num_pages = num_pages
         self._free: List[int] = list(range(1, num_pages))
         self._refs: Dict[int, int] = {}
+        self._quarantined: set = set()
         self.copy_bytes = 0  # never incremented by sharing
 
     @property
@@ -86,10 +95,14 @@ class PageAllocator:
         return len(self._free)
 
     @property
+    def pages_quarantined(self) -> int:
+        return len(self._quarantined)
+
+    @property
     def capacity(self) -> int:
-        """Usable pages: everything but the null page (referenced or free
-        alike)."""
-        return self.num_pages - 1
+        """Usable pages: everything but the null page and the quarantined
+        ones (referenced or free alike)."""
+        return self.num_pages - 1 - len(self._quarantined)
 
     def refcount(self, pid: int) -> int:
         return self._refs.get(pid, 0)
@@ -113,7 +126,8 @@ class PageAllocator:
         self._refs[pid] += 1
 
     def deref(self, pid: int) -> None:
-        """Drop one holder; the last drop returns the page to the free list."""
+        """Drop one holder; the last drop returns the page to the free list
+        (or retires it, if it was quarantined while referenced)."""
         c = self._refs.get(pid)
         if c is None:
             raise ValueError(f"page {pid} is not live (cannot deref)")
@@ -121,7 +135,28 @@ class PageAllocator:
             self._refs[pid] = c - 1
             return
         del self._refs[pid]
-        self._free.append(pid)
+        if pid not in self._quarantined:
+            self._free.append(pid)
+            self._free.sort()
+
+    def quarantine(self, pid: int) -> None:
+        """Take a page out of circulation for good (poisoned content). A
+        free page leaves the free list now; a referenced page keeps its
+        holders' bookkeeping (the caller requeues them) and retires when
+        the last ref drops."""
+        if pid <= 0 or pid >= self.num_pages:
+            raise ValueError(f"page {pid} outside pool [1, {self.num_pages})")
+        self._quarantined.add(pid)
+        if pid in self._free:
+            self._free.remove(pid)
+
+    def release_all(self) -> None:
+        """Drop every reference (all mappings and pins are void); the
+        quarantined pages stay out of circulation."""
+        for pid in list(self._refs):
+            del self._refs[pid]
+            if pid not in self._quarantined:
+                self._free.append(pid)
         self._free.sort()
 
 
@@ -204,8 +239,44 @@ class PagedCacheManager:
     def pages_mapped(self) -> int:
         return int((self._tables != 0).sum())
 
+    @property
+    def usable_slots(self) -> int:
+        """Every slot: a paged engine quarantines pages, never a slot index."""
+        return self.num_slots
+
+    @property
+    def quarantined_slots(self) -> list:
+        return []
+
+    @property
+    def pages_quarantined(self) -> int:
+        return self.alloc.pages_quarantined
+
+    @property
+    def degraded(self) -> bool:
+        """Capacity shrunk for good (poisoned pages retired)."""
+        return self.alloc.pages_quarantined > 0
+
     def acquire(self) -> int:
         return self._free.pop(0)
+
+    def quarantine(self, slot: int) -> None:
+        """A poisoned slot readback, page-granular (JAX ``quarantine``,
+        ``paging.py:575``): the slot's EXCLUSIVELY owned pages retire from
+        the pool (their content is suspect); shared or pinned pages predate
+        the slot and survive; the slot index stays in the rotation (the
+        caller's :meth:`free` returns it)."""
+        row = self._tables[slot]
+        for pid in {int(p) for p in row[row != 0]}:
+            if self.alloc.refcount(pid) == 1 and self._pins.get(pid, 0) == 0:
+                self.alloc.quarantine(pid)
+
+    def quarantine_page(self, pid: int) -> List[int]:
+        """Retire one poisoned page from the pool; returns the slots whose
+        tables map it now, copy-on-write sharers included (the caller
+        requeues exactly those)."""
+        self.alloc.quarantine(pid)
+        return [s for s in range(self.num_slots) if (self._tables[s] == pid).any()]
 
     # --- page math ----------------------------------------------------------
 
@@ -246,7 +317,8 @@ class PagedCacheManager:
         """Pages an eviction could free now: pinned by prefix entries and
         mapped by no slot."""
         return sum(1 for pid, pins in self._pins.items()
-                   if pins > 0 and self.alloc.refcount(pid) == pins)
+                   if pins > 0 and self.alloc.refcount(pid) == pins
+                   and pid not in self.alloc._quarantined)
 
     def available_pages(self) -> int:
         """Pages an admission can claim now: the free list plus what evicting
@@ -288,11 +360,11 @@ class PagedCacheManager:
             self.alloc.deref(pid)
 
     def pages_live(self, ids: Sequence[int]) -> bool:
-        """Reuse-time validation of a paged prefix entry: every page still
-        allocated and pinned (host accounting; the content never left the
-        pool)."""
+        """Reuse-time validation of a paged prefix entry's accounting: every
+        page still allocated, pinned and not quarantined (the engine checks
+        the content by fingerprint after this)."""
         return all(self.alloc.refcount(int(pid)) > 0 and self._pins.get(int(pid), 0) > 0
-                   for pid in ids)
+                   and int(pid) not in self.alloc._quarantined for pid in ids)
 
     def slot_context_pages(self, slot: int, n: int) -> List[int]:
         """The first ``n`` context pages of a slot (insert-on-miss pins
@@ -410,6 +482,16 @@ class PagedCacheManager:
         callers about to :meth:`reset`)."""
         self._free = list(range(self.num_slots))
 
+    def recover(self) -> None:
+        """After a failed decode dispatch whose requests are requeued (JAX
+        ``recover``, ``paging.py:1180``): every slot back in the rotation,
+        every block-table mapping dropped, the storage reset IN PLACE,
+        cursor 0. Prefix pins are the engine's to resolve: when the failed
+        chunk's steps ran, it clears the store, whose eviction hook
+        releases the pins."""
+        self.release_all_slots()
+        self.reset()
+
     def update_after_decode(self, start: int, steps: int) -> None:
         """Set the cursor (mirror and device) after a decode chunk that
         began at ``start`` and consumed ``steps`` columns."""
@@ -433,10 +515,11 @@ class PagedCacheManager:
 
     def check(self) -> None:
         """The page-leak/ref-count invariant: every page is exactly one of
-        free / table-mapped / prefix-pinned / reserved, ref counts reconcile
-        with the mappers plus the pins, no slot double-maps a page, and the
-        free list is duplicate-free. AssertionError naming the offending
-        page."""
+        free / referenced (table-mapped or prefix-pinned) / quarantined /
+        reserved, ref counts reconcile with the mappers plus the pins, no
+        slot double-maps a page, and the free list is duplicate-free; so a
+        quarantined page is neither free nor mappable once its holders let
+        go. AssertionError naming the offending page."""
         a = self.alloc
         free = set(a._free)
         assert len(free) == len(a._free), "free list has duplicates"
@@ -453,7 +536,8 @@ class PagedCacheManager:
             have = a.refcount(pid)
             assert have == expect, (f"page {pid}: refcount {have} != mapped({mapped.get(pid, 0)})"
                                     f" + pinned({self._pins.get(pid, 0)})")
-            assert (pid in free) != (expect > 0), (
-                f"page {pid} is not exactly one of free/referenced: "
-                f"free={pid in free} refs={have}"
+            states = [pid in free, expect > 0, pid in a._quarantined and expect == 0]
+            assert sum(states) == 1, (
+                f"page {pid} is not exactly one of free/referenced/quarantined: "
+                f"free={pid in free} refs={have} quarantined={pid in a._quarantined}"
             )

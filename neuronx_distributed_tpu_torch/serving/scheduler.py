@@ -7,7 +7,9 @@ order and stops at the first request that does not fit (no overtaking). The
 requests selected in one round are handed back LONGEST-PREFILL-FIRST: the
 longest prompt sets the shared cache cursor, so the shorter prompts roll in
 under the same cursor. ``max_tokens_in_flight`` bounds Σ over in-flight
-requests of (context + remaining new tokens).
+requests of (context + remaining new tokens). Requests may carry absolute
+engine-clock deadlines; :meth:`Scheduler.expire` sheds the queued ones that
+passed theirs (JAX ``scheduler.py:178``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,11 @@ class RequestState(enum.Enum):
     DECODE = "decode"
     DONE = "done"
     CANCELLED = "cancelled"
+    # terminal fault states: TIMED_OUT, shed for missing its queue timeout
+    # or its deadline; FAILED, given up for cause (``Request.error`` says why:
+    # a prefill fault, or a quarantined slot under the "fail" policy)
+    TIMED_OUT = "timed_out"
+    FAILED = "failed"
 
 
 @dataclasses.dataclass(eq=False)  # identity: requests are compared as objects
@@ -47,6 +54,12 @@ class Request:
     tokens: List[int] = dataclasses.field(default_factory=list)
     slot: Optional[int] = None
     preemptions: int = 0
+    error: Optional[str] = None
+    # absolute engine-clock deadlines (None: unbounded): ``deadline`` ends
+    # the request wherever it is (at chunk boundaries once decoding);
+    # ``queue_deadline`` sheds it if it has not been admitted by then
+    deadline: Optional[float] = None
+    queue_deadline: Optional[float] = None
     submit_time: Optional[float] = None
     admit_time: Optional[float] = None
     first_token_time: Optional[float] = None
@@ -71,7 +84,8 @@ class Request:
 
     @property
     def finished(self) -> bool:
-        return self.state in (RequestState.DONE, RequestState.CANCELLED)
+        return self.state in (RequestState.DONE, RequestState.CANCELLED,
+                              RequestState.TIMED_OUT, RequestState.FAILED)
 
 
 class Scheduler:
@@ -81,11 +95,16 @@ class Scheduler:
         self.max_tokens_in_flight = max_tokens_in_flight
         self._queue: Deque[Request] = deque()
         self._requests: Dict[int, Request] = {}
+        # set once a deadline-carrying request arrives: without one,
+        # expire() costs O(1) a step instead of a scan of the queue
+        self._saw_deadlines = False
 
     def submit(self, request: Request) -> None:
         request.state = RequestState.QUEUED
         self._requests[request.rid] = request
         self._queue.append(request)
+        if request.deadline is not None or request.queue_deadline is not None:
+            self._saw_deadlines = True
 
     def requeue_front(self, requests: List[Request]) -> None:
         """Preempted requests rejoin at the FRONT in arrival order."""
@@ -103,6 +122,30 @@ class Scheduler:
         if req in self._queue:
             self._queue.remove(req)
         return True
+
+    def expire(self, now: float) -> List[tuple]:
+        """Pop every queued request whose queue timeout or deadline has
+        passed (``now >= deadline``) and return ``(request, reason)`` pairs;
+        the engine marks them TIMED_OUT. The queue timeout governs FIRST
+        admission only: a request requeued after preemption or recovery was
+        admitted in time (``admit_time`` set), so only its deadline can still
+        shed it. The survivors keep their order."""
+        expired: List[tuple] = []
+        if not self._queue or not self._saw_deadlines:
+            return expired
+        keep: Deque[Request] = deque()
+        for req in self._queue:
+            if req.state is not RequestState.QUEUED:
+                keep.append(req)
+            elif (req.queue_deadline is not None and req.admit_time is None
+                  and now >= req.queue_deadline):
+                expired.append((req, "queue timeout before admission"))
+            elif req.deadline is not None and now >= req.deadline:
+                expired.append((req, "deadline exceeded while queued"))
+            else:
+                keep.append(req)
+        self._queue = keep
+        return expired
 
     def select(self, free_slots: int, in_flight_tokens: int,
                fits: Optional[Callable[[Request], bool]] = None,
@@ -137,6 +180,11 @@ class Scheduler:
     @property
     def requests(self) -> Dict[int, Request]:
         return self._requests
+
+    @property
+    def queued_requests(self) -> List[Request]:
+        """Live (unfinished) queue entries, in queue order."""
+        return [r for r in self._queue if not r.finished]
 
     @property
     def queued(self) -> int:

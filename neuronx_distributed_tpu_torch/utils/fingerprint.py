@@ -1,15 +1,24 @@
-"""The prefix cache's integrity fingerprint (counterpart of
-``neuronx_distributed_tpu/utils/fingerprint.py``, its ``cache_fingerprint``,
-``:127-155``; the host CRCs, the tree bit-mix and the per-page pool
-fingerprints belong to later slices).
+"""The prefix cache's integrity fingerprints (counterpart of
+``neuronx_distributed_tpu/utils/fingerprint.py``: ``cache_fingerprint``,
+``:127-155``, and ``pool_pages_fingerprint``, ``:158``, with its bit mix and
+constants; the host CRCs and the tree fingerprint belong to later slices).
 
-A stored prefix block is fingerprinted at insert and again at every reuse,
-and the two must be equal bit for bit: corruption detection (bit flips), not
-cryptographic integrity."""
+A stored prefix block (a row entry's copy, or a paged entry's pool pages) is
+fingerprinted at insert and again at every reuse, and the two must be equal
+bit for bit: corruption detection (bit flips), not cryptographic
+integrity."""
 
 from __future__ import annotations
 
+from typing import Sequence, Tuple
+
 import torch
+
+from neuronx_distributed_tpu_torch.kernels.page_fingerprint import (  # noqa: F401
+    FINGERPRINT_PRIME,
+    FINGERPRINT_SEED,
+    pool_pages_fingerprint_fwd,
+)
 
 
 def cache_fingerprint(cache) -> torch.Tensor:
@@ -33,3 +42,35 @@ def cache_fingerprint(cache) -> torch.Tensor:
     total = ((per_col * w).sum()
              + layers * ((cache.valid.to(torch.float64) * w).sum() + cache.index))
     return total.to(torch.float32)
+
+
+def jax_layer_order(num_layers: int) -> Tuple[int, ...]:
+    """The layers in the order the JAX package's pool tree flattens them:
+    its unscanned layers are dict keys ``layers_<i>``, flattened in sorted
+    key order, so ``layers_10`` comes before ``layers_2``."""
+    return tuple(sorted(range(num_layers), key=lambda i: f"layers_{i}"))
+
+
+def pool_leaves(cache) -> tuple:
+    """The page-carrying leaves of a :class:`~neuronx_distributed_tpu_torch.
+    modules.attention.PagedKVCache` in the JAX package's order within a
+    layer (sorted keys: ``k``, ``k_scale``, ``v``, ``v_scale``; the scales
+    only on an int8 pool), each (num_layers, num_pages, *page)."""
+    if cache.k_scale is None:
+        return cache.k, cache.v
+    return cache.k, cache.k_scale, cache.v, cache.v_scale
+
+
+def pool_pages_fingerprint(cache, page_ids: Sequence[int]) -> torch.Tensor:
+    """Per-page content fingerprints of pool pages ``page_ids`` (JAX
+    ``pool_pages_fingerprint``): an (N,) int64 device tensor of uint32
+    values, never read here. Each page-carrying leaf's page is bit-mixed on
+    its own (``kernels/page_fingerprint.py``; PF on the card) and the leaves
+    combine in the JAX package's order: layers by sorted ``layers_<i>`` key,
+    then ``k``, ``k_scale``, ``v``, ``v_scale``. So the values equal JAX's
+    for its unscanned layout (``scan_layers=False``); a scanned JAX pool
+    holds one leaf over all layers and gives other values. The ids go to
+    the device as a host-to-device copy, no read."""
+    ids = torch.as_tensor(list(page_ids), dtype=torch.int64, device=cache.k.device)
+    return pool_pages_fingerprint_fwd(pool_leaves(cache), ids,
+                                      jax_layer_order(cache.k.shape[0]))

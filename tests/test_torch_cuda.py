@@ -1233,3 +1233,131 @@ def test_quantized_engine_decodes_through_one_captured_graph(cuda, monkeypatch, 
             engine.cache.check()
         streams.append([r.tokens for r in reqs])
     assert streams[0] == streams[1]
+
+
+def _pf_pools(gen, dtype, layers=4, pages=40, ps=16, hkv=8, d=128, scales=False):
+    """A pool (layers, pages, ps, hkv, d) of ``dtype`` (K and V) and, for an
+    int8 pool, bf16 scales (layers, pages, 1, hkv, 1)."""
+    shape = (layers, pages, ps, hkv, d)
+    if dtype == torch.int8:
+        leaves = [torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                                dtype=torch.int8) for _ in range(2)]
+    else:
+        leaves = [torch.randn(*shape, generator=gen, device="cuda").to(dtype) for _ in range(2)]
+    if scales:
+        s = [torch.rand(layers, pages, 1, hkv, 1, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2)]
+        leaves = [leaves[0], s[0], leaves[1], s[1]]
+    return leaves
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,scales,hkv", [(torch.bfloat16, False, 8), (torch.float32, False, 8),
+                                             (torch.int8, True, 8), (torch.int8, True, 3)],
+                         ids=["bf16", "f32", "int8", "int8_hkv3"])
+def test_page_fingerprint_kernel_equals_plain(cuda, dtype, scales, hkv):
+    """PF over 12 layers (the sorted-key order: layers_10 before layers_2)
+    at scrambled page ids with repeats equals its plain version bit for bit
+    (scale pages of 3 heads take the kernel's scalar path); one launch
+    counted; flipping one bit of one page moves that page's value alone."""
+    from neuronx_distributed_tpu_torch.kernels import page_fingerprint as tpf
+    from neuronx_distributed_tpu_torch.utils.fingerprint import jax_layer_order
+
+    leaves = _pf_pools(cuda, dtype, layers=12, hkv=hkv, scales=scales)
+    ids = torch.tensor([31, 2, 17, 17, 39, 0, 5, 2, 22], device="cuda")
+    order = jax_layer_order(12)
+    n = tpf.pool_pages_fingerprint_fwd.launches
+    got = tpf.pool_pages_fingerprint_fwd(leaves, ids, order)
+    assert tpf.pool_pages_fingerprint_fwd.launches == n + 1
+    want = tpf.pool_pages_fingerprint_plain(leaves, ids, order)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert torch.equal(got, tpf.pool_pages_fingerprint_fwd(leaves, ids, order))
+    leaves[-1].view(torch.uint8)[10, 17].reshape(-1)[1] ^= 4
+    moved = tpf.pool_pages_fingerprint_fwd(leaves, ids, order) != got
+    assert moved.tolist() == [i in (2, 3) for i in range(len(ids))]
+
+
+@pytest.mark.cuda
+def test_page_fingerprint_wrapper_refuses_what_pf_does_not_take(cuda):
+    """The wrapper raises (no plain fallback, no launch counted) on a
+    non-contiguous leaf, int32 ids, CPU ids beside CUDA leaves, 8-byte
+    elements and an order that is not a permutation."""
+    from neuronx_distributed_tpu_torch.kernels import page_fingerprint as tpf
+
+    leaves = _pf_pools(cuda, torch.bfloat16, layers=2, pages=4)
+    ids = torch.tensor([1, 2], device="cuda")
+    n = tpf.pool_pages_fingerprint_fwd.launches
+    for bad in ([leaves[0].transpose(3, 4), leaves[1]], [leaves[0].double(), leaves[1]]):
+        with pytest.raises(ValueError):
+            tpf.pool_pages_fingerprint_fwd(bad, ids, (0, 1))
+    with pytest.raises(ValueError):
+        tpf.pool_pages_fingerprint_fwd(leaves, ids.int(), (0, 1))
+    with pytest.raises(ValueError):
+        tpf.pool_pages_fingerprint_fwd(leaves, ids, (0, 0))
+    with pytest.raises(ValueError):
+        tpf._kernel_call(leaves, ids.cpu(), (0, 1))
+    assert tpf.pool_pages_fingerprint_fwd.launches == n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_engine_faults_on_card_keep_one_captured_graph(cuda, paged):
+    """A small bf16 Llama (head_dim 128) on the card under a fault schedule:
+    a dispatch failure before the chunk, one after its steps ran, a
+    poisoned readback and (paged) a flipped pool bit at a prefix hit. One
+    capture throughout, every buffer the graph reads at its address, the
+    counters equal to the schedule, every request done; paged: PF once an
+    insert and once a hit, ``check()`` clean."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.kernels import page_fingerprint as tpf
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.serving.cache_manager import PrefixCache
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.serving.faults import FaultInjector
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512)
+    model = init_params(LlamaForCausalLM(cfg), seed=0)
+    rng = np.random.default_rng(2)
+    shared = rng.integers(1, 1000, size=64)
+    prompts = [np.concatenate([shared, rng.integers(1, 1000, size=n)]) for n in (5, 30, 12)]
+    inj = (FaultInjector().fail_dispatch(at=1).poison_readback(at=3, slot=0, token=-5)
+           .flip_bits("kv_pool", at=0))
+    kw = dict(kv_page_size=16) if paged else {}
+    engine = ServingEngine(model, num_slots=2, decode_chunk_size=4, fault_injector=inj,
+                           sleep_fn=lambda s: None, prefix_cache=PrefixCache(min_match=16), **kw)
+    c = engine.cache.cache
+    ptrs = [t.data_ptr() for t in (c.k, c.v, c.valid, c.cursor, *engine._state.values())]
+    pf = tpf.pool_pages_fingerprint_fwd.launches
+    reqs = [engine.submit(p, GenerationConfig(24, temperature=0.0), seed=i)
+            for i, p in enumerate(prompts)]
+    engine.step()
+    engine.step()  # the injected failure before the chunk
+    real = engine._chunk
+
+    class StepsThenFail:
+        def __getattr__(self, name):
+            return getattr(real, name)
+
+        def __call__(self):
+            real()
+            raise RuntimeError("fault after the steps ran")
+
+    engine._chunk = StepsThenFail()
+    engine.step()
+    engine._chunk = real
+    while engine.has_work:
+        engine.step()
+        if paged:
+            engine.cache.check()
+    snap = engine.metrics.snapshot()
+    assert all(r.state.value == "done" and len(r.tokens) == 24 for r in reqs)
+    assert engine.decode_compilations == 1
+    assert ptrs == [t.data_ptr() for t in (c.k, c.v, c.valid, c.cursor, *engine._state.values())]
+    assert (snap["dispatch_retries"], snap["recoveries"], snap["quarantines"]) == (2, 2, 1)
+    assert inj.counters["poisoned_readbacks"] == 1
+    if paged:
+        assert inj.counters["bit_flips"] == (1 if snap["prefix_validation_failures"] else 0)
+        hits = snap["prefix_hits"] + snap["prefix_validation_failures"]
+        inserts = tpf.pool_pages_fingerprint_fwd.launches - pf - hits
+        assert hits >= 1 and inserts >= 1

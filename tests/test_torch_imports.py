@@ -18,6 +18,7 @@ from neuronx_distributed_tpu_torch.kernels import dequantize as tdq
 from neuronx_distributed_tpu_torch.kernels import flash_attention as tfa
 from neuronx_distributed_tpu_torch.kernels import flash_decode as tfd
 from neuronx_distributed_tpu_torch.kernels import kv_quant as tkq
+from neuronx_distributed_tpu_torch.kernels import page_fingerprint as tpf
 from neuronx_distributed_tpu_torch.models import llama as tllama
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
@@ -97,6 +98,15 @@ def test_every_module_imports_and_runs_with_jax_blocked():
         paged.run()
         paged.cache.check()
         assert req.tokens == solo, (req.tokens, solo)
+        from neuronx_distributed_tpu_torch.serving.faults import FaultInjector
+        inj = FaultInjector().fail_dispatch(at=1).poison_readback(at=1, slot=0)
+        chaos = ServingEngine(model, num_slots=2, decode_chunk_size=2, kv_page_size=8,
+                              fault_injector=inj, sleep_fn=lambda s: None)
+        req = chaos.submit([3, 4, 5], cfg)
+        chaos.run()
+        chaos.cache.check()
+        assert req.tokens == solo and chaos.metrics.recoveries == 1, req.tokens
+        assert chaos.metrics.quarantines == 1 and chaos.flight.events()
         from neuronx_distributed_tpu_torch.inference.medusa import medusa_generate
         from neuronx_distributed_tpu_torch.models.medusa import (
             MedusaForCausalLM, init_medusa_heads)
@@ -112,7 +122,24 @@ def test_every_module_imports_and_runs_with_jax_blocked():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-3000:]
     assert {"neuronx_distributed_tpu_torch.models.medusa", "neuronx_distributed_tpu_torch.utils.medusa",
-            "neuronx_distributed_tpu_torch.inference.medusa"} <= set(_port_modules())
+            "neuronx_distributed_tpu_torch.inference.medusa", "neuronx_distributed_tpu_torch.utils.retry",
+            "neuronx_distributed_tpu_torch.observability.flight_recorder",
+            "neuronx_distributed_tpu_torch.serving.faults",
+            "neuronx_distributed_tpu_torch.kernels.page_fingerprint"} <= set(_port_modules())
+
+
+def test_fault_contract_pieces_are_the_ports_own():
+    """The port keeps its own RetryPolicy, FlightRecorder, FaultInjector
+    and fingerprint constants (the JAX package's values), defined in its
+    modules and importing nothing of the JAX package."""
+    from neuronx_distributed_tpu_torch.observability.flight_recorder import FlightRecorder
+    from neuronx_distributed_tpu_torch.serving.faults import FaultInjector, InjectedFault
+    from neuronx_distributed_tpu_torch.utils import fingerprint
+    from neuronx_distributed_tpu_torch.utils.retry import RetryPolicy
+
+    for obj in (FlightRecorder, FaultInjector, InjectedFault, RetryPolicy):
+        assert obj.__module__.startswith("neuronx_distributed_tpu_torch."), obj
+    assert (fingerprint.FINGERPRINT_SEED, fingerprint.FINGERPRINT_PRIME) == (0x9E3779B9, 0x01000193)
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):
@@ -131,7 +158,7 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     k = torch.randn(1, 4, 1, 8)
     counters = (tfa.flash_attention_fwd, tfa.flash_attention_dkdv, tfa.flash_attention_dq,
                 tfd.flash_decode_fwd, tfd.paged_flash_decode_fwd, tfd.qpaged_flash_decode_fwd,
-                tdq.dequantize_fwd, tkq.window_requantize_fwd)
+                tdq.dequantize_fwd, tkq.window_requantize_fwd, tpf.pool_pages_fingerprint_fwd)
     before = [f.launches for f in counters]
     out, lse = tfa.flash_attention_fwd(q, k, k)
     delta = (out * q).sum(-1).transpose(1, 2)
@@ -149,21 +176,23 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     tkq.window_requantize_fwd(kq, kq.clone(), ks, ks.clone(), torch.tensor([[1]]),
                               torch.tensor([0]), k[:, :1].reshape(1, 1, 1, 8),
                               k[:, 1:2].reshape(1, 1, 1, 8))
+    tpf.pool_pages_fingerprint_fwd([k[None]], torch.tensor([0]), (0,))
     assert [f.launches for f in counters] == before
     # the plain versions are called from their own wrappers and nowhere else
     # in the package (chip_smoke.py calls them only to check the kernels)
     for path in _sources():
         if os.path.basename(path) in ("chip_smoke.py", "flash_attention.py", "flash_decode.py",
-                                      "dequantize.py", "kv_quant.py"):
+                                      "dequantize.py", "kv_quant.py", "page_fingerprint.py"):
             continue
         with open(path) as f:
             src = f.read()
         for plain in ("flash_attention_plain", "flash_attention_dkdv_plain",
                       "flash_attention_dq_plain", "flash_decode_plain",
                       "paged_flash_decode_plain", "paged_flash_decode_plain_q",
-                      "dequantize_plain", "window_requantize_plain"):
+                      "dequantize_plain", "window_requantize_plain",
+                      "pool_pages_fingerprint_plain"):
             assert plain not in src, (path, plain)
     # and no fallback: the kernel wrappers hold no try/except
-    for mod in (tfa, tfd, tdq, tkq):
+    for mod in (tfa, tfd, tdq, tkq, tpf):
         tree = ast.parse(open(mod.__file__).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod.__file__

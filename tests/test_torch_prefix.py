@@ -500,10 +500,9 @@ def test_pinned_pages_are_never_written(pair):
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
 def test_host_reads_per_hit_admission_as_jax(pair, layout, monkeypatch):
     """The admission step of a hit (its first token plus one chunk) costs the
-    JAX engine's device_get count: the validation read, the first token and
-    the chunk. The paged port validates pages by host accounting only (the
-    JAX engine's page content fingerprints are a later slice), one read
-    fewer."""
+    JAX engine's device_get count: the validation read (a row entry's
+    fingerprint pair, or a paged entry's page fingerprints stacked with the
+    stored ones), the first token and the chunk."""
     jmodel, params, tmodel = pair
     prompt = np.arange(3, 19, dtype=np.int32)
     gcfg = GenerationConfig(max_new_tokens=8, temperature=0.0)
@@ -529,7 +528,7 @@ def test_host_reads_per_hit_admission_as_jax(pair, layout, monkeypatch):
     jeng.step()
     monkeypatch.setattr(jax, "device_get", real)
     assert jeng.metrics.prefix_hits == 1
-    assert len(calls) == 3 and port_reads == len(calls) - (layout == "paged")
+    assert len(calls) == 3 and port_reads == len(calls)
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
