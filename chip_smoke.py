@@ -137,6 +137,26 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    emitted before a fault equal the fault-free run's; the rest are counted
    bit for bit and every greedy token lies within phase 3's limit
    teacher-forced; the recovery walls of (a) and (g);
+5h. SLO-aware multi-tenant serving, at full width and depth: a seeded
+   two-tenant tape (chat: Poisson at 16 rps, prompts of 100-400 tokens, 32-64 new,
+   interactive, TTFT 0.5 s and TPOT 0.05 s bounds; docs: bursty, prompts of
+   2000-3000 tokens, 64-128 new, batch, TTFT 4 s) through phase 5b's paged
+   engine (a) on a virtual clock (``serving/traffic.replay``, 0.1 s a
+   step) under FIFO and under the SLO policy, a shared registry labelled
+   by engine, the SLO engine traced: every arrival DONE with its token
+   count or attributed, at least one SLO preemption, one capture an engine
+   on the same buffers, K5 = executed steps x 32 + the warm-up's 32, K1 =
+   admissions x 32 (victims' resumes included), host reads = chunks +
+   first tokens, ``check()`` after every step, one connected Perfetto flow
+   a request with each victim's ``slo_preempt`` step, every greedy token
+   of the SLO run within phase 3's limit teacher-forced; the two reports,
+   the policy's snapshot, chat's attainment under each policy and the
+   streams equal across the runs printed; (b) the tape's first 6 s (the
+   duration cut to keep 5h within 120 s) on the wall clock under both
+   policies, per-tenant TTFT/TPOT/queue-wait
+   percentiles, attainment and goodput printed (no gate on speed); (c) a
+   row leg: the tape's first 3 s through phase 4's row engine under the
+   SLO policy (K4), with (a)'s count gates;
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -3181,6 +3201,335 @@ def fault_phase(model, srv: dict, spec_tokens, smi: str) -> dict:
     return dict(launches=launches, recovery_a_s=wall_a, recovery_g_s=wall_g)
 
 
+# --- phase 5h: SLO-aware multi-tenant serving -----------------------------------
+
+SLO_STEP_DT = 0.1  # virtual seconds a step: about one chunk of phase 5b's steps
+SLO_TAPE_S = 10.0  # the tape's virtual duration
+# the wall-clock runs' share of the tape (its first SLO_WALL_S seconds): cut
+# from the whole 10 s, which served in 23-25 s a run on an H100 and took
+# phase 5h to 123 s, over its 120 s budget
+SLO_WALL_S = 6.0
+SLO_ROW_S = 3.0    # the row leg's share of the tape
+# chat's Poisson rate: up to 14 rps chat attains every request on the
+# virtual clock, so no victim is ever nominated; from 15 rps chat is
+# pressured while docs still attains and the policy preempts (16 rps: four
+# victims); at 18-22 rps docs misses its own bound too, and no attaining
+# victim is left
+SLO_CHAT_RPS = 16.0
+
+
+def slo_tape(vocab: int, duration_s: float = SLO_TAPE_S, seed: int = 0) -> list:
+    """Phase 5h's arrival tape at Llama-3-8B scale (``generate_tape``'s own
+    shapes, 4-48 tokens, are too small for the card): ``chat``, interactive,
+    Poisson at ``SLO_CHAT_RPS``, prompts of 100-400 tokens, 32-64 new;
+    ``docs``, batch, bursty at 2 rps off-peak, 4x at peak (period 8 s, duty 0.25, by thinning
+    against the peak rate, as ``generate_tape`` draws), prompts of
+    2000-3000 tokens, 64-128 new. Every request greedy; two seeded
+    ``random.Random`` a tenant, one for times, lengths and seeds, one for
+    the token ids (so the schedule does not depend on the vocabulary);
+    merged by (time, tenant, seed)."""
+    import random
+
+    from neuronx_distributed_tpu_torch.serving.traffic import Arrival
+
+    shapes = (("chat", "interactive", SLO_CHAT_RPS, 1.0, (100, 400), (32, 64)),
+              ("docs", "batch", 2.0, 4.0, (2000, 3000), (64, 128)))
+    tape = []
+    for k, (name, priority, rate, factor, plen, new) in enumerate(shapes):
+        rng = random.Random(seed * 1_000_003 + k)
+        ids = random.Random(seed * 1_000_003 + k + 100)
+        peak, t = rate * factor, 0.0
+        while True:
+            t += rng.expovariate(peak)
+            if t >= duration_s:
+                break
+            if factor > 1.0:
+                phase = (t % 8.0) / 8.0
+                if rng.random() > (peak if phase < 0.25 else rate) / peak:
+                    continue
+            n = rng.randint(*plen)
+            tape.append(Arrival(t=t, tenant=name, priority=priority,
+                                prompt=tuple(ids.randint(1, vocab - 1) for _ in range(n)),
+                                max_new_tokens=rng.randint(*new), temperature=0.0,
+                                key_seed=rng.getrandbits(31)))
+    tape.sort(key=lambda a: (a.t, a.tenant, a.key_seed))
+    return tape
+
+
+def slo_specs():
+    from neuronx_distributed_tpu_torch.observability.slo import SLOSpec
+
+    return {"chat": SLOSpec(ttft_p99_s=0.5, tpot_p99_s=0.05), "docs": SLOSpec(ttft_p99_s=4.0)}
+
+
+def slo_engine(model, scheduling, registry, label, paged=True, **kw):
+    """Phase 5b's paged engine (16 slots, 2049 pages of 16, chunk 8, no
+    prefix cache) or phase 4's row engine (8 slots), with the SLO specs."""
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    cache = (dict(num_slots=PAGED_SLOTS, kv_page_size=PAGE,
+                  kv_num_pages=ROW_SLOTS * model.config.max_seq_len // PAGE + 1) if paged
+             else dict(num_slots=8))
+    return ServingEngine(model, decode_chunk_size=8, prefix_cache=None, scheduling=scheduling,
+                         registry=registry, engine_label=label, slo=slo_specs(), **cache, **kw)
+
+
+def collect_engines() -> None:
+    """Free dropped engines' device memory now: the SLO policy (and 5h's
+    checked ``step``) hold an engine in reference cycles, which only the
+    cycle collector frees (a 4.3 GB pool an engine, and the model)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def slo_flows(path: str, reqs) -> int:
+    """The Perfetto file parsed back: one connected flow a request (one start,
+    one end, one name, times in order, submit first and retire last), each
+    victim's holding its ``slo_preempt`` step. Returns the flows checked."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    flows = {}
+    for e in events:
+        if e.get("cat") == "request" and e["ph"] in ("s", "t", "f"):
+            flows.setdefault(e["id"], []).append(e)
+    for r in reqs:
+        fl = flows.get(r.rid, [])
+        stages = [e["args"]["stage"] for e in fl]
+        if ([e["ph"] for e in fl].count("s"), [e["ph"] for e in fl].count("f")) != (1, 1) \
+                or stages[0] != "submit" or stages[-1] != "retire" \
+                or len({e["name"] for e in fl}) != 1 \
+                or [e["ts"] for e in fl] != sorted(e["ts"] for e in fl):
+            raise AssertionError(f"slo phase: request {r.rid}'s flow is not one connected "
+                                 f"flow: {stages}")
+        if r.preemptions and "slo_preempt" not in stages:
+            raise AssertionError(f"slo phase: victim {r.rid}'s flow lacks its slo_preempt step")
+    return len(reqs)
+
+
+def slo_virtual(model, tape, scheduling, registry, layers, trace_dir=None, paged=True):
+    """One virtual-clock replay (``serving/traffic.replay``, step_dt 0.1 s)
+    with its gates: every arrival DONE with its token count or attributed,
+    one capture on the same buffers, decode launches = executed steps x
+    layers plus the warm-up's, K1 = admissions x layers, host reads =
+    chunks + first tokens, ``check()`` clean after every step, the trace's
+    flows (``trace_dir``)."""
+    from neuronx_distributed_tpu_torch.serving.traffic import VirtualClock, replay
+    from neuronx_distributed_tpu_torch.utils.timeline import Timeline
+
+    clock = VirtualClock()
+    timeline = Timeline(os.path.join(trace_dir, f"{scheduling}.json")) if trace_dir else None
+    label = scheduling if paged else f"row_{scheduling}"
+    engine = slo_engine(model, scheduling, registry, label, paged=paged, time_fn=clock,
+                        timeline=timeline)
+    buffers = graph_buffers(engine)
+    step = engine.step
+
+    def checked_step():
+        out = step()
+        if paged:
+            engine.cache.check()
+        return out
+
+    engine.step = checked_step
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    report = replay(engine, tape, clock, step_dt=SLO_STEP_DT)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, warm = engine_launches(engine, {name: c.launches for name, c in counters.items()})
+    snap = engine.metrics.snapshot()
+    rep = report["replay"]
+    reqs = sorted(engine.scheduler.requests.values(), key=lambda r: r.rid)
+    what = f"slo phase ({'paged' if paged else 'row'}, {scheduling}, virtual clock)"
+    for r in reqs:
+        if r.state.value != "done" or len(r.tokens) != r.config.max_new_tokens:
+            raise AssertionError(f"{what}: request {r.rid} {r.state.value} with "
+                                 f"{len(r.tokens)} of {r.config.max_new_tokens} tokens")
+    attributed = sum(t["rejects"] + t["sheds"] + t["failed"] for t in report["tenants"].values())
+    if (rep["submitted"] != len(reqs) or rep["submitted"] + rep["rejected"] + rep["unplaceable"]
+            != len(tape) or attributed != rep["rejected"] + rep["unplaceable"]
+            or rep["truncated"]):
+        raise AssertionError(f"{what}: arrivals not all served or attributed: {rep}")
+    if engine.decode_compilations != 1 or graph_buffers(engine) != buffers:
+        raise AssertionError(f"{what}: decode_compilations {engine.decode_compilations}, "
+                             "buffers moved")
+    decode = "paged_flash_decode" if paged else "flash_decode"
+    want = {decode: snap["executed_steps"] * layers}
+    got = {decode: launches[decode] - warm[decode]}
+    if got != want or warm[decode] != layers:
+        raise AssertionError(f"{what}: decode launches {got} (warm-up {warm[decode]}) != {want} "
+                             f"+ {layers}")
+    if launches["flash_attention"] != snap["prefills"] * layers:
+        raise AssertionError(f"{what}: K1 launches {launches['flash_attention']} != "
+                             f"{snap['prefills']} admissions x {layers}")
+    first = sum(r.first_token_time is not None for r in reqs)
+    if engine.host_reads != snap["chunks"] + first:
+        raise AssertionError(f"{what}: host reads {engine.host_reads} != chunks "
+                             f"{snap['chunks']} + first tokens {first}")
+    out = dict(report=report, snap=snap, launches=launches, wall_s=wall,
+               tokens=[list(r.tokens) for r in reqs],
+               victims=[r.rid for r in reqs if r.preemptions],
+               policy=engine.policy.snapshot(), host_reads=engine.host_reads)
+    if timeline is not None:
+        timeline.save()
+        out["flows"] = slo_flows(timeline.trace_file_path, reqs)
+    del engine, step, checked_step
+    collect_engines()
+    return out
+
+
+def slo_wall(model, tape, scheduling, registry, layers) -> dict:
+    """The same tape on the wall clock: this loop (not the package: a replay
+    refuses a wall clock) submits each arrival at its time on
+    ``time.monotonic`` and steps the engine; the decode program is captured
+    before the clock starts. Per tenant TTFT, TPOT, queue wait, attainment
+    and goodput come from the engine's registry."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+
+    import numpy as np
+
+    engine = slo_engine(model, scheduling, registry, f"wall_{scheduling}")
+    prewarm(engine)
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0, i = time.monotonic(), 0
+    while i < len(tape) or engine.has_work:
+        now = time.monotonic() - t0
+        while i < len(tape) and tape[i].t <= now:
+            a = tape[i]
+            engine.submit(np.asarray(a.prompt, np.int32),
+                          GenerationConfig(max_new_tokens=a.max_new_tokens,
+                                           temperature=a.temperature),
+                          seed=a.key_seed, tenant=a.tenant, priority=a.priority)
+            i += 1
+        if engine.has_work:
+            engine.step()
+        elif i < len(tape):
+            time.sleep(min(0.002, max(tape[i].t - now, 0.0)))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches, _ = engine_launches(engine, {name: c.launches for name, c in counters.items()})
+    snap = engine.metrics.snapshot()
+    reqs = list(engine.scheduler.requests.values())
+    if len(reqs) != len(tape) or any(r.state.value != "done"
+                                     or len(r.tokens) != r.config.max_new_tokens for r in reqs):
+        raise AssertionError(f"slo phase (wall clock, {scheduling}): not every arrival DONE")
+    if engine.decode_compilations != 1:
+        raise AssertionError(f"slo phase (wall clock, {scheduling}): "
+                             f"{engine.decode_compilations} captures")
+    out = dict(snap=snap, launches=launches, wall_s=wall)
+    del engine
+    collect_engines()
+    return out
+
+
+def slo_phase(model, smi: str) -> dict:
+    """Phase 5h: SLO-aware multi-tenant serving at full width. (a) The tape
+    through phase 5b's paged engine on a virtual clock under FIFO and under
+    the SLO policy (shared registry, the SLO engine traced), every gate of
+    ``slo_virtual``, at least one SLO preemption, every greedy token of the
+    SLO run within phase 3's limit teacher-forced; (b) the tape's first
+    ``SLO_WALL_S`` seconds on the wall clock, FIFO and SLO, per-tenant
+    latencies printed (no gate on speed); (c) the row leg: the first
+    ``SLO_ROW_S`` seconds through phase 4's row engine under the SLO
+    policy (K4). Returns the phase's launches (replays included)."""
+    import tempfile
+
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.observability.registry import MetricsRegistry
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    layers = cfg.num_layers
+    tape = slo_tape(cfg.vocab_size)
+    n_chat = sum(a.tenant == "chat" for a in tape)
+    log(f"slo phase tape: {len(tape)} arrivals over {SLO_TAPE_S:.0f} virtual s ({n_chat} chat: "
+        f"Poisson {SLO_CHAT_RPS:.0f} rps, prompts 100-400, 32-64 new, interactive, ttft_p99 "
+        f"0.5 s tpot_p99 0.05 s; {len(tape) - n_chat} docs: bursty 2 rps x4 at peak (period 8 s, duty 0.25), "
+        f"prompts 2000-3000, 64-128 new, batch, ttft_p99 4 s); all greedy; paged engine "
+        f"{PAGED_SLOTS} slots, {ROW_SLOTS * cfg.max_seq_len // PAGE + 1} pages of {PAGE}, chunk "
+        f"8, step_dt {SLO_STEP_DT} s")
+    registry = MetricsRegistry()
+    runs = {}
+    with tempfile.TemporaryDirectory() as trace_dir:
+        for scheduling in ("fifo", "slo"):
+            runs[scheduling] = slo_virtual(model, tape, scheduling, registry, layers,
+                                           trace_dir=trace_dir if scheduling == "slo" else None)
+    fifo, slo = runs["fifo"], runs["slo"]
+    if slo["snap"]["preemptions"] < 1 or slo["policy"]["preemptions_requested"] < 1:
+        raise AssertionError("slo phase: the SLO policy preempted nothing")
+    prompts = [np.asarray(a.prompt) for a in tape]
+    cfgs = [GenerationConfig(max_new_tokens=a.max_new_tokens, temperature=0.0) for a in tape]
+    gap = teacher_ratio(model, (prompts, cfgs), slo["tokens"])
+    if gap > 1.0:
+        raise AssertionError(f"slo phase: a greedy token of the SLO run lies {gap:.3g}x phase "
+                             "3's limit below its row's maximum logit teacher-forced")
+    victims = set(slo["victims"]) | set(fifo["victims"])
+    same = [i for i in range(len(tape)) if i not in victims
+            and slo["tokens"][i] == fifo["tokens"][i]]
+    victim_same = sum(slo["tokens"][i] == fifo["tokens"][i] for i in slo["victims"])
+    for name, r in runs.items():
+        sn = r["snap"]
+        log(f"slo phase (a) virtual clock, {name} ({smi}): report {json.dumps(r['report'])}")
+        log(f"slo phase (a) {name}: wall {r['wall_s']:.2f} s, steps "
+            f"{r['report']['replay']['steps']}, chunks {sn['chunks']}, executed steps {sn['executed_steps']}, prefills "
+            f"{sn['prefills']}, preemptions {sn['preemptions']}, peak occupancy "
+            f"{sn['peak_occupancy']}, peak pages mapped {sn['peak_pages_mapped']}, host reads "
+            f"{r['host_reads']} = chunks + first tokens, decode_compilations 1, launches "
+            f"{r['launches']}")
+    log(f"slo phase (a) SLO policy: {json.dumps(slo['policy'])}; trace flows checked "
+        f"{slo['flows']} (one connected flow a request, {len(slo['victims'])} victims holding "
+        f"slo_preempt)")
+    chat = {n: r["report"]["tenants"]["chat"].get("attainment") for n, r in runs.items()}
+    log(f"slo phase (a): chat attainment fifo {chat['fifo']} slo {chat['slo']}; "
+        f"{len(same)} of {len(tape) - len(victims)} never-preempted streams bit-identical "
+        f"across the two runs; victims' streams bit-identical to FIFO's: {victim_same} of "
+        f"{len(slo['victims'])} (counted, not gated: a resume re-prefills with GEMMs of another "
+        f"M); every greedy token of the SLO run within {gap:.3g}x phase 3's limit "
+        "teacher-forced")
+
+    wall_tape = [a for a in tape if a.t < SLO_WALL_S]
+    wall_registry = MetricsRegistry()
+    walls = {s: slo_wall(model, wall_tape, s, wall_registry, layers) for s in ("fifo", "slo")}
+    for name, r in walls.items():
+        sn = r["snap"]
+        for tenant, row in sn["tenants"].items():
+            t_slo = sn["slo"]["per_tenant"].get(tenant, {})
+            log(f"slo phase (b) wall clock, {name}, {tenant} ({smi}; {len(wall_tape)} arrivals "
+                f"over the tape's first {SLO_WALL_S:.0f} s, the duration cut from "
+                f"{SLO_TAPE_S:.0f} s to keep phase 5h within 120 s; the shapes uncut): TTFT p50 "
+                f"{row['ttft_p50_s']:.4f} "
+                f"p99 {row['ttft_p99_s']:.4f} s, TPOT p50 {row['tpot_p50_s']:.5f} p99 "
+                f"{row['tpot_p99_s']:.5f} s, queue wait p95 {row['queue_wait_p95_s']:.4f} s, "
+                f"attainment {t_slo.get('attainment')}, goodput "
+                f"{t_slo.get('goodput_tok_s', 0.0):.1f} tok/s")
+        log(f"slo phase (b) wall clock, {name}: run {r['wall_s']:.2f} s, preemptions "
+            f"{sn['preemptions']}, completed {sn['completed']}, decode "
+            f"{sn['chunk_tokens_per_sec']:.1f} tok/s (chunk wall)")
+
+    row_tape = [a for a in tape if a.t < SLO_ROW_S]
+    row = slo_virtual(model, row_tape, "slo", MetricsRegistry(), layers, paged=False)
+    log(f"slo phase (c) row leg ({len(row_tape)} arrivals, the tape's first {SLO_ROW_S:.0f} s; "
+        f"8 slots, SLO policy, virtual clock): K4 {row['launches']['flash_decode']} launches = "
+        f"{row['snap']['executed_steps']} executed steps x {layers} + the warm-up's, K1 "
+        f"{row['launches']['flash_attention']} = {row['snap']['prefills']} admissions x {layers}, "
+        f"preemptions {row['snap']['preemptions']}, host reads = chunks + first tokens")
+    launches = {name: sum(r["launches"][name] for r in (fifo, slo, row, *walls.values()))
+                for name in fifo["launches"]}
+    log(f"slo phase launches (replays included): {launches}")
+    log(f"phase 5h wall: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 # --- phases 6-7: training ------------------------------------------------------
 
 EOS_ID = 128001  # Llama-3's <|end_of_text|>
@@ -3693,6 +4042,7 @@ def main() -> int:
     med = medusa_phase(model, smi)
     quant = quant_phase(model, srv, fused, gen)
     fault = fault_phase(model, srv, spec["tokens"], smi)
+    slo = slo_phase(model, smi)
 
     del model
     torch.cuda.empty_cache()
@@ -3721,10 +4071,11 @@ def main() -> int:
     k1_main = k1[1]  # the serving prefill at S=4096
     launches = {name: srv["launches"][name] + fused["launches"][name] + pre["launches"][name]
                 + spec["launches"][name] + med["launches"][name] + quant["launches"][name]
-                + fault["launches"][name] + tr["launches"][name] for name in tr["launches"]}
+                + fault["launches"][name] + slo["launches"][name] + tr["launches"][name]
+                for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
         f"speculative serving row and paged, Medusa, quantized serving, the fault contract, "
-        f"training): {launches}; "
+        f"SLO-aware multi-tenant serving, training): {launches}; "
         f"on the multi-row path (prefix-cache serving): {pre['multi_row']}; the speculative "
         f"rounds' verify windows (s = {SPEC_GAMMA}): {spec['verify']}")
     rows_main = rows[256]  # R = 1024: phase 5c's chat turns

@@ -1,3 +1,5 @@
 """Serving observability (counterpart of
-``neuronx_distributed_tpu/observability``: the speculative acceptance
-recorder; the metrics registry waits for a later slice)."""
+``neuronx_distributed_tpu/observability``): the metrics registry
+(``registry.py``), SLO attainment and goodput (``slo.py``), request-scoped
+tracing (``tracing.py``), the speculative acceptance recorder
+(``spec_stats.py``) and the flight recorder (``flight_recorder.py``)."""

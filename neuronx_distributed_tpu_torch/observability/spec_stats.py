@@ -11,72 +11,47 @@ a speculative engine accepts nothing by construction, so its rounds count
 as wasted draft work: acceptance measures the draft's utility, not
 correctness.
 
-The JAX recorder keeps its metrics in the ``MetricsRegistry``; the port has
-no registry yet, so the counters here are plain numbers and the histogram
-is a copy of the registry's log-bucketed one (``registry.py``, growth 1.05,
-a zero bucket, nearest-rank quantiles reported as the bucket's upper edge
-capped at the exact maximum), so the two snapshots compare key for key.
+The metrics live in a :class:`~neuronx_distributed_tpu_torch.observability.
+registry.MetricsRegistry` (a private one when none is given); a
+label-scoped ``view=`` resolves each as that view's family child, so two
+engine-labelled engines on one registry never merge their acceptance.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Dict, Optional
+from typing import Optional
 
-GROWTH = 1.05  # the JAX registry's DEFAULT_GROWTH
-
-
-class LogHistogram:
-    """Sparse log-bucketed histogram with exact-to-bucket quantiles (the JAX
-    registry's ``Histogram``)."""
-
-    def __init__(self, growth: float = GROWTH):
-        self.growth = growth
-        self._log_growth = math.log(growth)
-        self._buckets: Dict[int, int] = {}
-        self._zero = 0  # observations <= 0
-        self.count = 0
-        self.max = -math.inf
-
-    def observe(self, value: float) -> None:
-        self.count += 1
-        self.max = max(self.max, value)
-        if value <= 0.0:
-            self._zero += 1
-            return
-        i = math.floor(math.log(value) / self._log_growth)
-        self._buckets[i] = self._buckets.get(i, 0) + 1
-
-    def percentile(self, q: float) -> float:
-        """Upper edge of the bucket holding the rank ``ceil(q * count)``
-        sample, never above the maximum; 0.0 when empty."""
-        if self.count == 0:
-            return 0.0
-        rank = max(1, math.ceil(q * self.count))
-        seen = self._zero
-        if rank <= seen:
-            return 0.0
-        for i in sorted(self._buckets):
-            seen += self._buckets[i]
-            if rank <= seen:
-                return min(self.growth ** (i + 1), self.max)
-        return self.max
+from neuronx_distributed_tpu_torch.observability.registry import MetricsRegistry, MetricsView
 
 
 class SpecStats:
     """The acceptance recorder (see the module docstring)."""
 
-    def __init__(self):
-        self.accept_len = LogHistogram()
-        self.rounds = self.drafted = self.accepted = self.wasted = 0
+    def __init__(self, registry: Optional[MetricsRegistry] = None, prefix: str = "spec",
+                 view: Optional[MetricsView] = None):
+        if view is None:
+            view = MetricsView(registry if registry is not None else MetricsRegistry())
+        self.registry = view.registry
+        histogram, counter = view.histogram, view.counter
+        self.accept_len = histogram(
+            f"{prefix}_accept_len",
+            help="per-slot accepted draft length per speculative round (0..gamma)")
+        self.drafted = counter(f"{prefix}_draft_tokens", help="draft tokens proposed")
+        self.accepted = counter(f"{prefix}_accepted_tokens",
+                                help="draft tokens the target accepted")
+        self.wasted = counter(f"{prefix}_draft_tokens_wasted",
+                              help="draft tokens rejected (drafted - accepted)")
+        self.rounds = counter(f"{prefix}_rounds", help="per-slot speculative rounds executed")
         # chunks decoded non-speculatively after a failed speculative
         # dispatch (the engine's fallback to the plain step)
-        self.fallbacks = 0
+        self.fallbacks = counter(f"{prefix}_fallbacks",
+                                 help="chunks decoded non-speculatively after a failed "
+                                      "speculative dispatch")
 
     def record_fallback(self) -> None:
         """A speculative dispatch failed and its chunk was decoded with the
         plain step instead (streams unaffected)."""
-        self.fallbacks += 1
+        self.fallbacks.inc()
 
     def record_round(self, accepted: int, gamma: int, consumed: Optional[int] = None) -> None:
         """One row's acceptance in one round: ``accepted`` of ``gamma``
@@ -87,24 +62,25 @@ class SpecStats:
         accepted = int(accepted)
         consumed = accepted if consumed is None else int(consumed)
         self.accept_len.observe(accepted)
-        self.drafted += gamma
-        self.accepted += accepted
-        self.wasted += gamma - consumed
-        self.rounds += 1
+        self.drafted.inc(gamma)
+        self.accepted.inc(accepted)
+        self.wasted.inc(gamma - consumed)
+        self.rounds.inc()
 
     @property
     def accept_rate(self) -> float:
-        return self.accepted / self.drafted if self.drafted else 0.0
+        d = self.drafted.value
+        return float(self.accepted.value) / d if d else 0.0
 
     def snapshot(self) -> dict:
         """The spec keys the engine's and the solo path's snapshots share."""
         return {
-            "spec_rounds": self.rounds,
-            "spec_draft_tokens": self.drafted,
-            "spec_accepted_tokens": self.accepted,
-            "draft_tokens_wasted": self.wasted,
+            "spec_rounds": int(self.rounds.value),
+            "spec_draft_tokens": int(self.drafted.value),
+            "spec_accepted_tokens": int(self.accepted.value),
+            "draft_tokens_wasted": int(self.wasted.value),
             "spec_accept_rate": self.accept_rate,
             "spec_accept_len_p50": self.accept_len.percentile(0.50),
             "spec_accept_len_p95": self.accept_len.percentile(0.95),
-            "spec_fallbacks": self.fallbacks,
+            "spec_fallbacks": int(self.fallbacks.value),
         }

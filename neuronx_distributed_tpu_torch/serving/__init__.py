@@ -1,6 +1,7 @@
 """Continuous-batching serving (counterpart of
-``neuronx_distributed_tpu/serving``: its FIFO core over row or paged
-caches, and the prefix cache)."""
+``neuronx_distributed_tpu/serving``: the engine over row or paged caches,
+the prefix cache, the fault contract, the scheduling policies
+(``sched/``) and the seeded traffic replay (``traffic.py``))."""
 
 from neuronx_distributed_tpu_torch.serving.cache_manager import PrefixCache, PrefixEntry
 

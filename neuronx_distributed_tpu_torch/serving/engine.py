@@ -150,12 +150,41 @@ engine in ``tests/test_torch_faults.py`` and
 * **Fault injection**: every path above is driven deterministically through
   :class:`~neuronx_distributed_tpu_torch.serving.faults.FaultInjector`.
 
-Left out of this slice (not accepted, not silently ignored): the host page
-tier (spill and prefetch of prefix entries), a weight swap (and with it
-``flip_bits(target="params")``), a poisoned draft (``poison_draft``: the
-early-exit draft shares the target's tensors), ``fence()``, tp/mesh, SLO
-scheduling, tenants and priorities, the metrics registry, timelines,
-tracing and profiling.
+SLO-aware multi-tenant serving (JAX ``engine.py:701-708``, ``:769-785``):
+
+* ``submit(tenant=, priority=)`` attributes each request (defaults
+  ``"default"`` and ``"standard"``); a reject at the door is attributed to
+  its tenant.
+* ``scheduling=`` is ``"fifo"`` (the default, the pre-policy scheduler
+  decision for decision), ``"slo"`` (priority tiers with aging, DWRR token
+  fairness, and admission and preemption fed back from the live SLO
+  measurements; ``serving/sched/``) or a ``SchedulingPolicy``. Before each
+  admission the policy may nominate victims: only their slots are vacated
+  (``_preempt_victims``; the device ``active`` flag cleared in place, a
+  paged victim's exclusive pages returned at once, the shared cursor NOT
+  rewound), and they rejoin the queue's front with their tokens and seed,
+  so a resume re-prefills and continues bit-identically; the freed slots
+  admit in the same ``step()``, on the same captured program. Every
+  delivered token is charged to its tenant (``policy.on_tokens``).
+* ``registry=``/``engine_label=`` put the metrics in a shared
+  ``MetricsRegistry``; ``slo=`` (an ``SLOSpec`` or ``{tenant: SLOSpec}``)
+  classifies each request once, at its terminal state.
+* ``timeline=`` (``utils/timeline.Timeline``) records the scheduling view
+  (prefill and decode spans, occupancy and queue-depth counters, fault
+  instants) and, through ``self.tracer``, one connected Perfetto flow per
+  request; it is saved at a halt.
+
+Every policy, SLO and tracer decision runs on host state: ``host_reads``
+equals a bare engine's for the same traffic.
+
+Left out of this slice, each refused with ``NotImplementedError`` rather
+than silently ignored: the host page tier (spill and prefetch of prefix
+entries); the params setter, and with it ``fence()``, ``draft_params=`` and
+``flip_bits(target="params")``; a poisoned draft (``poison_draft``: the
+early-exit draft shares the target's tensors); ``profile_dir=``;
+``program_ledger=`` (``observability/programs.py``, ``hbm.py``); the
+router's ``load_score``, ``export_requests`` and ``import_requests``;
+tp/mesh.
 """
 
 from __future__ import annotations
@@ -185,6 +214,7 @@ from neuronx_distributed_tpu_torch.modules.attention import (
     seed_cache_prefix,
 )
 from neuronx_distributed_tpu_torch.observability.flight_recorder import FlightRecorder
+from neuronx_distributed_tpu_torch.observability.tracing import RequestTracer
 from neuronx_distributed_tpu_torch.serving.cache_manager import (
     PrefixCache,
     PrefixEntry,
@@ -342,7 +372,7 @@ class ServingEngine:
         num_slots: int,
         max_tokens_in_flight: Optional[int] = None,
         admission: str = "conservative",
-        scheduling: str = "fifo",
+        scheduling="fifo",
         decode_chunk_size: int = 8,
         max_queue: Optional[int] = None,
         kv_page_size: Optional[int] = None,
@@ -359,6 +389,13 @@ class ServingEngine:
         flight_dir: Optional[str] = None,
         time_fn: Callable[[], float] = time.monotonic,
         sleep_fn: Callable[[float], None] = time.sleep,
+        timeline=None,
+        registry=None,
+        engine_label: Optional[str] = None,
+        slo=None,
+        draft_params=None,
+        program_ledger=None,
+        profile_dir: Optional[str] = None,
     ):
         if admission not in ("conservative", "eager"):
             raise ValueError(f"unknown admission policy {admission!r}")
@@ -366,9 +403,13 @@ class ServingEngine:
             raise ValueError(f"unknown quarantine policy {quarantine_policy!r}")
         if kv_page_size is None and kv_num_pages is not None:
             raise ValueError("kv_num_pages needs kv_page_size")
-        # kept to match the JAX signature; this port has one policy
-        if scheduling != "fifo":
-            raise ValueError(f"unknown scheduling policy {scheduling!r} (this port has 'fifo')")
+        for name, value, why in (
+                ("draft_params", draft_params, "the port's draft model carries its own weights; "
+                 "a weight swap comes with the params setter"),
+                ("program_ledger", program_ledger, "observability/programs.py is not ported"),
+                ("profile_dir", profile_dir, "observability/profiler.py is not ported")):
+            if value is not None:
+                raise NotImplementedError(f"{name}= is not served yet: {why}")
         if decode_chunk_size < 1:
             raise ValueError(f"decode_chunk_size must be >= 1, got {decode_chunk_size}")
         if draft_model is not None:
@@ -400,6 +441,7 @@ class ServingEngine:
         self.decode_chunk_size = decode_chunk_size
         self.max_queue = max_queue
         self._clock, self._sleep = time_fn, sleep_fn
+        self.timeline = timeline
         self._vocab = model.config.vocab_size
         # dispatch recovery: bounded consecutive failures, waits from the
         # shared decrementing-jitter schedule (JAX's defaults, engine.py:674)
@@ -425,7 +467,10 @@ class ServingEngine:
         self._prefix_reuses = 0  # prefix reuse attempts (the prefix hook's index)
         self._last_health = EngineHealth.OK
         self._prefill_model, self._decode_model = serving_clones(model)
-        self.scheduler = Scheduler(max_tokens_in_flight)
+        # the policy owns queue order and victim choice; every mechanism it
+        # rides (requeue and resume, slot release) is the engine's own
+        self.scheduler = Scheduler(max_tokens_in_flight, policy=scheduling)
+        self.policy = self.scheduler.policy
         self._page_size = kv_page_size
         if kv_page_size is None:
             self.cache = SlotCacheManager(num_slots, model.new_cache(num_slots))
@@ -433,7 +478,13 @@ class ServingEngine:
             self.cache = PagedCacheManager.for_model(
                 model, num_slots, kv_page_size, kv_num_pages,
                 kv_quant=quantize.kv if quantize is not None else None)
-        self.metrics = ServingMetrics(num_slots)
+        self.metrics = ServingMetrics(num_slots, registry=registry, engine_label=engine_label,
+                                      slo=slo)
+        # the SLO policy reads the metrics, the prefix store and the cache's
+        # host tables (FIFO ignores the engine)
+        self.policy.bind(self)
+        # one connected flow per request on the timeline (a no-op without one)
+        self.tracer = RequestTracer(timeline)
         # prefix cache: "auto" builds the standard store, an int sizes it (0
         # disables), None or a disabled store keeps the full-prefill path
         if isinstance(prefix_cache, str):
@@ -601,6 +652,8 @@ class ServingEngine:
         already admitted (in a slot, or preempted back to the queue) run to
         completion; ``run()`` returns once they finish."""
         self._draining = True
+        if self.timeline is not None:
+            self.timeline.instant("drain", "serving")
         self._sync_health()
 
     def resume(self) -> None:
@@ -622,16 +675,29 @@ class ServingEngine:
             self.prefix.release_all()
         self._halted = True
         self._halt_reason = reason
+        if self.timeline is not None:
+            self.timeline.instant("halted", "serving", args={"reason": reason})
         self._sync_health()
         if self.flight is not None:
             self.flight.record("halt", reason=reason)
-            self.flight.dump(reason, extra={"requeued": len(requeued),
-                                            "metrics": self.metrics.snapshot()})
+            # who was waiting when the engine halted (after the requeue, so
+            # the in-flight work counts) and the SLO state, flat enough for
+            # the recorder's depth-capped redaction (JAX engine.py:1957-1988)
+            extra = {"requeued": len(requeued), "metrics": self.metrics.snapshot(),
+                     "tenant_queue_depths": self.scheduler.queued_by_tenant()}
+            if self.metrics.slo is not None:
+                extra["slo"] = self.metrics.slo.per_tenant()
+                extra["slo_totals"] = self.metrics.slo.totals()
+            self.flight.dump(reason, extra=extra)
+        if self.timeline is not None:
+            self.timeline.save()
 
     def _sync_health(self) -> None:
         h = self.health()
         self.metrics.health = h.value
         if h is not self._last_health:
+            if self.timeline is not None:
+                self.timeline.instant(f"health {h.value}", "serving")
             if self.flight is not None:
                 self.flight.record("health", value=h.value, was=self._last_health.value)
             self._last_health = h
@@ -640,10 +706,17 @@ class ServingEngine:
 
     def submit(self, prompt_ids, config: GenerationConfig = GenerationConfig(),
                seed: Optional[int] = None, deadline_s: Optional[float] = None,
-               queue_timeout_s: Optional[float] = None) -> Request:
+               queue_timeout_s: Optional[float] = None, tenant: Optional[str] = None,
+               priority: Optional[str] = None) -> Request:
         """Enqueue one request; returns its live ``Request``. ``seed``
         (default: the request id) selects its sampling stream — pass the
         seed you would give ``generate`` to reproduce its stream.
+
+        ``tenant`` (default ``"default"``) and ``priority`` (a tier of
+        ``serving/sched/priority.py``, default ``"standard"``) attribute the
+        request: per-tenant latencies and counters, SLO classification,
+        trace flows and flight events; the SLO policy orders by them. Host
+        strings only.
 
         ``deadline_s`` bounds the request end to end (it is shed, TIMED_OUT,
         at the next chunk boundary past it, keeping the tokens it streamed);
@@ -656,11 +729,14 @@ class ServingEngine:
         or the bounded queue is full, and ``ValueError`` for a request that
         could never be placed (it fails at the door instead of livelocking
         ``run()`` at the queue's head)."""
+        tenant = str(tenant) if tenant is not None else "default"
+        priority = str(priority) if priority is not None else "standard"
         health = self.health()
         if health in (EngineHealth.DRAINING, EngineHealth.HALTED):
-            self.metrics.record_reject()
+            depth = self.scheduler.queued
+            self.metrics.record_reject(depth, health.value, tenant=tenant, now=self._now())
             raise RejectedError(f"engine is {health.value}; not accepting new requests",
-                                queue_depth=self.scheduler.queued)
+                                queue_depth=depth)
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("empty prompt")
@@ -696,13 +772,16 @@ class ServingEngine:
                 )
         depth = self.scheduler.queued
         if self.max_queue is not None and depth >= self.max_queue:
-            self.metrics.record_reject()
+            self.metrics.record_reject(depth, "queue full", tenant=tenant, now=self._now())
+            if self.timeline is not None:
+                self.timeline.instant("reject", "serving",
+                                      args={"queue_depth": depth, "tenant": tenant})
             raise RejectedError(f"queue full ({depth} >= max_queue {self.max_queue})",
                                 queue_depth=depth)
         rid = self._next_rid
         self._next_rid += 1
         req = Request(rid=rid, prompt=prompt, config=config,
-                      seed=rid if seed is None else int(seed))
+                      seed=rid if seed is None else int(seed), tenant=tenant, priority=priority)
         req.submit_time = self._now()
         if deadline_s is not None:
             req.deadline = req.submit_time + deadline_s
@@ -710,6 +789,11 @@ class ServingEngine:
             req.queue_deadline = req.submit_time + queue_timeout_s
         self.scheduler.submit(req)
         self.metrics.record_submit(req, req.submit_time)
+        if self.timeline is not None:
+            self.timeline.instant(f"submit r{rid}", "serving")
+        # the request's flow opens here, tagged with its tenant and priority
+        self.tracer.begin(rid, args={"prompt_len": int(prompt.size), "tenant": tenant,
+                                     "priority": priority})
         return req
 
     def cancel(self, rid: int) -> bool:
@@ -722,7 +806,37 @@ class ServingEngine:
         ok = self.scheduler.cancel(rid)
         if ok and was_queued:
             self.metrics.record_cancel(req, self._now())
+            self.tracer.end(rid, "cancelled", args={"where": "queued"})
         return ok
+
+    # --- left for later slices ----------------------------------------------
+
+    def fence(self, reason: str = "fenced") -> None:
+        """The router watchdog's kill switch (JAX ``fence``): not served
+        yet; it comes with the router."""
+        raise NotImplementedError("fence() is not served yet: it comes with the replica router")
+
+    def _swap_params(self, value):
+        raise NotImplementedError("a weight swap (engine.params = ..., which clears the prefix "
+                                  "store) is not served yet; the model carries its own weights "
+                                  "(engine.model)")
+
+    # write-only: the weights are engine.model's; assigning them is refused
+    params = property(None, _swap_params)
+
+    def load_score(self, tenant: Optional[str] = None) -> float:
+        """The replica router's load signal (JAX ``load_score``): not served
+        yet; it comes with the router."""
+        raise NotImplementedError("load_score() is not served yet: it comes with the replica "
+                                  "router")
+
+    def export_requests(self, *args, **kwargs):
+        raise NotImplementedError("export_requests() is not served yet: it comes with the "
+                                  "replica router")
+
+    def import_requests(self, *args, **kwargs):
+        raise NotImplementedError("import_requests() is not served yet: it comes with the "
+                                  "replica router")
 
     @property
     def has_work(self) -> bool:
@@ -738,11 +852,11 @@ class ServingEngine:
     @torch.no_grad()
     def step(self) -> bool:
         """One iteration: reap cancellations → shed expired deadlines →
-        preempt/rewind if the cursor is out of room → admit+prefill → one
-        decode chunk (with recovery) → retire finished slots. Returns
-        whether work remains. Runs under ``no_grad``: serving never
-        differentiates (as the JAX engine), so a trainable model records no
-        autograd graph here."""
+        preempt/rewind if the cursor is out of room → the policy's victims
+        → admit+prefill → one decode chunk (with recovery) → retire finished
+        slots. Returns whether work remains. Runs under ``no_grad``: serving
+        never differentiates (as the JAX engine), so a trainable model
+        records no autograd graph here."""
         if self._halted:
             return self.has_work
         now = self._now()
@@ -755,9 +869,18 @@ class ServingEngine:
             self._preempt_all()
         if not self._active.any() and self.cache.cursor > 0:
             self._reset_caches()  # drained: the next wave starts at column 0
+        # selective preemption (JAX engine.py:2283-2290): with every slot
+        # held and a pressured tenant waiting, the policy may nominate
+        # victims (FIFO never does); their slots admit below, this step
+        victims = self.policy.victims(now)
+        if victims:
+            self._preempt_victims(victims, now)
         self._admit(now)
         if not self._halted and self._active.any():
             self._decode()
+        if self.timeline is not None:
+            self.timeline.counter("slots_active", int(self._active.sum()), "serving")
+            self.timeline.counter("queue_depth", self.scheduler.queued, "serving")
         self._sync_health()
         return self.has_work
 
@@ -781,8 +904,13 @@ class ServingEngine:
             req.error = reason
             req.finish_time = now
             self.metrics.record_shed(req, now, where="queue")
+            if self.timeline is not None:
+                self.timeline.instant(f"shed r{req.rid}", "serving",
+                                      args={"where": "queue", "reason": reason})
+            self.tracer.end(req.rid, "shed", args={"where": "queue", "tenant": req.tenant})
             if self.flight is not None:
-                self.flight.record("shed", rid=req.rid, where="queue", reason=reason)
+                self.flight.record("shed", rid=req.rid, where="queue", reason=reason,
+                                   tenant=req.tenant)
         for req in list(self._slot_req):
             if req is None or req.deadline is None or now < req.deadline:
                 continue
@@ -790,8 +918,15 @@ class ServingEngine:
             req.error = "deadline exceeded mid-generation"
             req.finish_time = now
             self.metrics.record_shed(req, now, where="inflight")
+            if self.timeline is not None:
+                self.timeline.instant(f"shed r{req.rid}", "serving",
+                                      args={"where": "inflight", "tokens": len(req.tokens)})
+            self.tracer.end(req.rid, "shed", args={"where": "inflight",
+                                                   "tokens": len(req.tokens),
+                                                   "tenant": req.tenant})
             if self.flight is not None:
-                self.flight.record("shed", rid=req.rid, where="inflight", tokens=len(req.tokens))
+                self.flight.record("shed", rid=req.rid, where="inflight", tokens=len(req.tokens),
+                                   tenant=req.tenant)
             self._release_slot(req)
 
     # --- admission ----------------------------------------------------------
@@ -837,7 +972,7 @@ class ServingEngine:
                 return len(req.context_ids) - self.prefix.match_len(req.context_ids)
 
         selected = self.scheduler.select(self.cache.free_slots, self._in_flight_tokens(),
-                                         fits, prefill_cost=cost)
+                                         fits, prefill_cost=cost, now=now)
         for i, req in enumerate(selected):
             slot = self.cache.acquire()
             if self.draft_cache is not None and self.draft_cache.acquire() != slot:
@@ -943,7 +1078,12 @@ class ServingEngine:
             target = max(self.cache.cursor, padded)
         else:
             padded, target = self._paged_layout(p, rem, self.cache.cursor)
+        self.tracer.step(req.rid, "admission", args={"slot": slot})
         plan = self._plan_prefix_reuse(ctx, p, target)
+        matched = plan[1] if plan is not None else 0
+        self.tracer.step(req.rid, "prefix_lookup", args={"matched": matched})
+        if self.timeline is not None:
+            self.timeline.mark_event_start("prefill", "serving")
         call = self._prefill_calls
         self._prefill_calls += 1
         cursors = [mgr.cursor for mgr in self._managers]
@@ -960,11 +1100,21 @@ class ServingEngine:
             self._fail_prefill(req, slot, cursors, e, now)
             return
         if logits is None:
-            return  # page pressure between fits() and the admission: requeued
+            # page pressure between fits() and the admission: requeued
+            # untouched, no prefill ran
+            if self.timeline is not None:
+                self.timeline.mark_event_end("prefill", "serving",
+                                             args={"rid": req.rid, "requeued": True})
+            return
         self._consecutive_prefill_failures = 0
         self.metrics.record_prefill_wall(self._clock() - t0,
                                          kind="full" if plan is None else "suffix")
-        matched = plan[1] if plan is not None else 0
+        if self.timeline is not None:
+            self.timeline.mark_event_end("prefill", "serving",
+                                         args={"rid": req.rid, "padded": padded,
+                                               "reused": matched})
+        self.tracer.step(req.rid, "suffix_prefill" if plan is not None else "full_prefill",
+                         args={"padded": padded, "reused": matched})
         if self._page_size is None:
             self._remember_prefix(ctx, p, padded, row, matched)
         else:
@@ -984,12 +1134,18 @@ class ServingEngine:
         for mgr, cursor in zip(self._managers, cursors):
             mgr.free(slot)
             mgr.cache.index = cursor
+        if self.timeline is not None:
+            self.timeline.mark_event_end("prefill", "serving",
+                                         args={"rid": req.rid, "error": str(exc)})
+            self.timeline.instant(f"prefill_failure r{req.rid}", "serving",
+                                  args={"error": str(exc)[:200]})
         req.state = RequestState.FAILED
         req.error = f"prefill failed: {exc}"
         req.finish_time = now
         self.metrics.record_failed(req, now, kind="prefill")
+        self.tracer.end(req.rid, "failed", args={"kind": "prefill"})
         if self.flight is not None:
-            self.flight.record("prefill_failure", rid=req.rid, error=str(exc))
+            self.flight.record("prefill_failure", rid=req.rid, error=str(exc), tenant=req.tenant)
         self._consecutive_prefill_failures += 1
         if self._consecutive_prefill_failures >= self._dispatch_retry.max_attempts:
             self._halt(f"{self._consecutive_prefill_failures} consecutive prefill failures "
@@ -1103,6 +1259,8 @@ class ServingEngine:
             hit = (entry, m_use) if m_use >= self.prefix.min_match else None
         if hit is None:
             self.metrics.record_prefix_miss()
+            if self.timeline is not None:
+                self.timeline.instant("prefix_miss", "serving", args={"prompt": p})
             return None
         entry, m_use = hit
         reuse = self._prefix_reuses
@@ -1125,9 +1283,14 @@ class ServingEngine:
             self.metrics.record_prefix_validation_failure()
             self.metrics.record_prefix_eviction()
             self.metrics.record_prefix_miss()
+            if self.timeline is not None:
+                self.timeline.instant("prefix_poisoned", "serving",
+                                      args={"matched": m_use, "prompt": p})
             return None
         self.prefix.pin(entry)
         self.metrics.record_prefix_hit(m_use)
+        if self.timeline is not None:
+            self.timeline.instant("prefix_hit", "serving", args={"matched": m_use, "prompt": p})
         return entry, m_use, _suffix_bucket(p - m_use, end, self.max_seq_len)
 
     def _validate_prefix(self, entry: PrefixEntry) -> bool:
@@ -1169,6 +1332,8 @@ class ServingEngine:
         _, evicted = self.prefix.insert(key, tree, cache_fingerprint(tree), bucket)
         if evicted:
             self.metrics.record_prefix_eviction(evicted)
+            if self.timeline is not None:
+                self.timeline.instant("prefix_evict", "serving", args={"evicted": evicted})
 
     def _remember_prefix_paged(self, ctx, p: int, slot: int, matched: int) -> None:
         """Paged insert-on-miss (JAX ``_remember_prefix_paged``,
@@ -1197,6 +1362,8 @@ class ServingEngine:
             entry.page_fp = pool_pages_fingerprint(self.cache.cache, ids)
         if evicted:
             self.metrics.record_prefix_eviction(evicted)
+            if self.timeline is not None:
+                self.timeline.instant("prefix_evict", "serving", args={"evicted": evicted})
 
     def _on_prefix_evict(self, entry: PrefixEntry) -> None:
         """The store's eviction hook (JAX ``_on_prefix_evict``,
@@ -1228,6 +1395,7 @@ class ServingEngine:
         temp, topk, topp = _config_sentinels(req.config)
         if not req.tokens:
             tok0 = int(self._host_read(sample_row(logits, req.seed, 0, temp, topk, topp)))
+            self.tracer.step(req.rid, "first_token")
             self._emit_token(req, tok0, self._now(), first=True)
         req.state = RequestState.DECODE
         req.slot = slot
@@ -1296,6 +1464,9 @@ class ServingEngine:
         captured, replays, started = prog.captures, prog.replays, chunk.iterations
         attempt = self._dispatch_attempts
         self._dispatch_attempts += 1
+        tl = self.timeline
+        if tl is not None:
+            tl.mark_event_start("decode_dispatch", "serving")
         t0 = self._clock()
         try:
             if self._faults is not None:
@@ -1304,10 +1475,15 @@ class ServingEngine:
                     self._faults.on_spec_dispatch(attempt)
             executed = chunk()
             t1 = self._clock()
+            if tl is not None:
+                tl.mark_event_end("decode_dispatch", "serving")
+                tl.mark_event_start("decode_readback", "serving")
             block = self._host_read(chunk.readout())
         except _FATAL:
             raise
         except Exception as e:
+            if tl is not None:
+                tl.mark_event_end("decode_dispatch", "serving")
             # untouched: no step started, so the caches, cursors and slot
             # state are as the last chunk left them (JAX's surviving buffers)
             untouched = chunk.iterations == started
@@ -1347,6 +1523,12 @@ class ServingEngine:
         # paged: a poisoned PAGE's holders leave self._active here, so the
         # loop below never touches their (discarded) columns
         self._apply_page_poison(readback)
+        if tl is not None:
+            live_ok = [s for s in np.flatnonzero(self._active) if int(s) not in bad]
+            emitted_n = int(sum(int(counts[:, s].sum()) if spec else int(counts[s])
+                                for s in live_ok))
+            tl.mark_event_end("decode_readback", "serving",
+                              args={"tokens": emitted_n, ("rounds" if spec else "steps"): used})
         now = self._now()
         delivered, spec_accepts = 0, [] if spec else None
         for slot in np.flatnonzero(self._active):
@@ -1358,14 +1540,26 @@ class ServingEngine:
                 rounds = np.flatnonzero(counts[:, slot] > 0)
                 spec_accepts.extend(int(a) for a in accepts[rounds, slot])
                 emitted = [tok for r in rounds for tok in toks[r, slot, :counts[r, slot]]]
+                self.tracer.step(req.rid, "decode_chunk",
+                                 args={"tokens": int(counts[:, slot].sum()), "rounds": used,
+                                       "accepted": int(accepts[:, slot].sum())})
             else:
                 emitted = toks[:counts[slot], slot]
+                self.tracer.step(req.rid, "decode_chunk",
+                                 args={"tokens": int(counts[slot]), "steps": used})
             for tok in emitted:
                 self._emit_token(req, int(tok), now)
                 delivered += 1
                 self._maybe_finish(req, now)
                 if req.finished:
                     break  # EOS or budget: the rest of its block is discarded
+        if tl is not None:
+            tl.counter("chunk_tokens", delivered, "serving")
+            if spec:
+                tl.instant("spec_accept", "serving",
+                           args={"accepted": int(sum(spec_accepts)),
+                                 "drafted": g * len(spec_accepts), "rounds": used,
+                                 "tokens": delivered})
         self.metrics.record_decode_chunk(delivered, used, executed, self.cache.cursor,
                                          active_at_dispatch, dispatch_s=t1 - t0 - capture_s,
                                          readback_s=t2 - t1, replays=prog.replays - replays,
@@ -1389,9 +1583,14 @@ class ServingEngine:
         self._had_dispatch_failure = True
         self._chunks_since_failure = 0
         self.metrics.record_dispatch_retry()
+        if self.timeline is not None:
+            self.timeline.instant("dispatch_failure", "serving",
+                                  args={"error": str(exc)[:200], "consecutive": n})
         if self.flight is not None:
             self.flight.record("dispatch_failure", error=str(exc), consecutive=n)
         requeued = self._vacate_active()
+        for r in requeued:
+            self.tracer.step(r.rid, "recovery_requeue", args={"tokens": len(r.tokens)})
         self.scheduler.requeue_front(requeued)
         self._reset_caches()
         if self._page_size is not None and not untouched and self.prefix is not None:
@@ -1405,6 +1604,8 @@ class ServingEngine:
             self._halt(f"{n} consecutive dispatch failures (last: {type(exc).__name__}: {exc})")
             return
         self.metrics.record_recovery()
+        if self.timeline is not None:
+            self.timeline.instant("recovery", "serving", args={"requeued": len(requeued)})
         if self.flight is not None:
             self.flight.record("recovery", requeued=len(requeued), consecutive=n)
         self._sleep(self._dispatch_retry.wait(n - 1))
@@ -1429,6 +1630,8 @@ class ServingEngine:
         if self._consecutive_dispatch_failures == 0:
             # the plain chunk really decoded: THIS is a fallback
             self.metrics.record_spec_fallback()
+            if self.timeline is not None:
+                self.timeline.instant("spec_fallback", "serving", args={"error": str(exc)[:200]})
             if self.flight is not None:
                 self.flight.record("spec_fallback", error=str(exc))
         if self._active.any():
@@ -1445,26 +1648,35 @@ class ServingEngine:
         (``"fail"``); neighbours are untouched; losing the last usable slot
         or page halts."""
         self.metrics.record_quarantine()
+        if self.timeline is not None:
+            self.timeline.instant(f"quarantine slot {slot}", "serving",
+                                  args={"reason": reason, "rid": req.rid})
         if self.flight is not None:
-            self.flight.record("quarantine", slot=slot, rid=req.rid, reason=reason)
+            self.flight.record("quarantine", slot=slot, rid=req.rid, reason=reason,
+                               tenant=req.tenant)
         for mgr in self._managers:
             mgr.quarantine(slot)
         self._release_slot(req)  # clears the row; a row slot never rejoins the rotation
-        self._requeue_or_fail(req, f"slot {slot} quarantined: {reason}", now)
+        self._requeue_or_fail(req, slot, "quarantine", f"slot {slot} quarantined: {reason}",
+                              now)
         if self.cache.usable_slots == 0:
             self._halt("all slots quarantined")
         elif self._page_size is not None and self.cache.alloc.capacity == 0:
             self._halt("all KV pages quarantined")
 
-    def _requeue_or_fail(self, req: Request, error: str, now: float) -> None:
-        """A quarantine's victim under ``quarantine_policy``."""
+    def _requeue_or_fail(self, req: Request, slot: int, kind: str, error: str,
+                         now: float) -> None:
+        """A quarantine's victim under ``quarantine_policy``; ``kind`` is
+        ``"quarantine"`` (a slot's) or ``"page_quarantine"``."""
         if self._quarantine_policy == "requeue" and not req.finished:
+            self.tracer.step(req.rid, f"{kind}_requeue", args={"slot": slot})
             self.scheduler.requeue_front([req])
             return
         req.state = RequestState.FAILED
         req.error = error
         req.finish_time = now
         self.metrics.record_failed(req, now, kind="quarantine")
+        self.tracer.end(req.rid, "failed", args={"kind": kind, "slot": slot})
 
     def _apply_page_poison(self, readback: int) -> None:
         """The injector's page poisons at this readback (paged engines; JAX
@@ -1484,6 +1696,9 @@ class ServingEngine:
         for page in pages:
             slots = self.cache.quarantine_page(int(page))
             self.metrics.record_page_quarantine()
+            if self.timeline is not None:
+                self.timeline.instant(f"quarantine page {int(page)}", "serving",
+                                      args={"slots": [int(s) for s in slots]})
             if self.flight is not None:
                 self.flight.record("page_quarantine", page=int(page),
                                    slots=[int(s) for s in slots])
@@ -1498,9 +1713,11 @@ class ServingEngine:
             req = self._slot_req[slot]
             self._release_slot(req)
             if self._quarantine_policy == "requeue" and not req.finished:
+                self.tracer.step(req.rid, "page_quarantine_requeue", args={"slot": slot})
                 requeue.append(req)
             else:
-                self._requeue_or_fail(req, f"slot {slot} mapped a poisoned KV page", now)
+                self._requeue_or_fail(req, slot, "page_quarantine",
+                                      f"slot {slot} mapped a poisoned KV page", now)
         if requeue:
             self.scheduler.requeue_front(requeue)
         if self.cache.alloc.capacity == 0:
@@ -1510,6 +1727,8 @@ class ServingEngine:
 
     def _emit_token(self, req: Request, tok: int, now: float, first: bool = False) -> None:
         req.tokens.append(tok)
+        # the tenant's fairness charge (host ints; FIFO's hook does nothing)
+        self.policy.on_tokens(req.tenant, 1)
         if first:
             req.first_token_time = now
             self.metrics.record_first_token(req, now)
@@ -1522,6 +1741,10 @@ class ServingEngine:
             req.finish_time = now
             self.metrics.record_finish(req, now)
             self._release_slot(req)
+            if self.timeline is not None:
+                self.timeline.instant(f"done r{req.rid}", "serving")
+            self.tracer.end(req.rid, "retire", args={"tokens": len(req.tokens),
+                                                     "tenant": req.tenant})
 
     def _release_slot(self, req: Request) -> None:
         slot = req.slot
@@ -1535,10 +1758,11 @@ class ServingEngine:
             mgr.free(slot)
 
     def _reap_cancelled(self, now: float) -> None:
-        for req in self._slot_req:
+        for slot, req in enumerate(self._slot_req):
             if req is not None and req.state is RequestState.CANCELLED:
                 self.metrics.record_cancel(req, now)
                 req.finish_time = now
+                self.tracer.end(req.rid, "cancelled", args={"where": "slot", "slot": slot})
                 self._release_slot(req)
 
     def _vacate_active(self) -> List[Request]:
@@ -1553,6 +1777,33 @@ class ServingEngine:
         self._active[:] = False
         return vacated
 
+    def _preempt_victims(self, victims: List[Request], now: float) -> None:
+        """The policy's SELECTIVE preemption (JAX ``_preempt_victims``,
+        ``engine.py:3705``): vacate just the nominated slots, as retirement
+        does (the device ``active`` flag cleared in place, so the captured
+        step skips the slot; a paged victim's exclusive pages back to the
+        pool at once), and requeue the victims at the front with their
+        host-current tokens and seed: a resume re-prefills ``context_ids``
+        and continues bit-identically. The shared cursor is NOT rewound
+        (the other slots keep decoding)."""
+        for req in victims:
+            slot = req.slot
+            if slot is None or req.finished:
+                continue  # retired or shed since it was nominated
+            self._release_slot(req)
+            req.preemptions += 1
+            self.metrics.record_preemption()
+            self.tracer.step(req.rid, "slo_preempt",
+                             args={"slot": slot, "tokens": len(req.tokens),
+                                   "tenant": req.tenant})
+            if self.timeline is not None:
+                self.timeline.instant(f"slo_preempt r{req.rid}", "serving",
+                                      args={"slot": slot, "tenant": req.tenant})
+            if self.flight is not None:
+                self.flight.record("slo_preempt", rid=req.rid, slot=slot, tenant=req.tenant,
+                                   tokens=len(req.tokens))
+            self.scheduler.requeue_front([req])
+
     def _preempt_all(self) -> None:
         """Out of cache columns: requeue every active request (keeping its
         tokens), rewind the cache, and let admission re-prefill them."""
@@ -1560,6 +1811,7 @@ class ServingEngine:
         for req in preempted:
             req.preemptions += 1
             self.metrics.record_preemption()
+            self.tracer.step(req.rid, "preempt", args={"tokens": len(req.tokens)})
         self.scheduler.requeue_front(preempted)
         self._reset_caches()
         self._reset_slot_state()
@@ -1568,3 +1820,5 @@ class ServingEngine:
             # the entries stay valid (row copies, or pinned pages whose
             # content the reset keeps)
             self.prefix.release_all()
+        if self.timeline is not None:
+            self.timeline.instant(f"preempt x{len(preempted)}", "serving")

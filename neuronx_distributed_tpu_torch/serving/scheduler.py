@@ -1,15 +1,17 @@
-"""Request lifecycle + admission policy (counterpart of
-``neuronx_distributed_tpu/serving/scheduler.py`` with its FIFO policy,
-``serving/sched/policy.py``).
+"""Request lifecycle and the policy seam (counterpart of
+``neuronx_distributed_tpu/serving/scheduler.py``).
 
-Admission is FIFO with a token-budget guard: the queue is scanned in arrival
-order and stops at the first request that does not fit (no overtaking). The
-requests selected in one round are handed back LONGEST-PREFILL-FIRST: the
+Queue ORDER and admission selection belong to the scheduler's bound
+:class:`~neuronx_distributed_tpu_torch.serving.sched.SchedulingPolicy`
+(``serving/sched/``): by default FIFO with a token-budget guard, the queue
+scanned in arrival order up to the first request that does not fit (no
+overtaking), the selected round handed back LONGEST-PREFILL-FIRST (the
 longest prompt sets the shared cache cursor, so the shorter prompts roll in
-under the same cursor. ``max_tokens_in_flight`` bounds Σ over in-flight
-requests of (context + remaining new tokens). Requests may carry absolute
-engine-clock deadlines; :meth:`Scheduler.expire` sheds the queued ones that
-passed theirs (JAX ``scheduler.py:178``).
+under it). ``max_tokens_in_flight`` bounds the sum over in-flight requests
+of (context + remaining new tokens). Intake, cancellation, deadline expiry
+(:meth:`Scheduler.expire`, JAX ``scheduler.py:178``) and the request index
+stay here. Each request carries its ``tenant`` and ``priority``, which the
+metrics attribute and the SLO policy orders by.
 """
 
 from __future__ import annotations
@@ -50,6 +52,10 @@ class Request:
     prompt: np.ndarray  # (S,) int32
     config: GenerationConfig
     seed: int
+    # attribution: the tenant that submitted it and its priority class
+    # (``serving/sched/priority.py``), host strings
+    tenant: str = "default"
+    priority: str = "standard"
     state: RequestState = RequestState.QUEUED
     tokens: List[int] = dataclasses.field(default_factory=list)
     slot: Optional[int] = None
@@ -89,10 +95,15 @@ class Request:
 
 
 class Scheduler:
-    """Request bookkeeping and the FIFO admission scan."""
+    """Request bookkeeping and the policy seam: ``select`` delegates to
+    the bound policy (``policy=``: ``"fifo"``, ``"slo"`` or a
+    ``SchedulingPolicy``)."""
 
-    def __init__(self, max_tokens_in_flight: Optional[int] = None):
+    def __init__(self, max_tokens_in_flight: Optional[int] = None, policy=None):
+        from neuronx_distributed_tpu_torch.serving.sched import make_policy
+
         self.max_tokens_in_flight = max_tokens_in_flight
+        self.policy = make_policy(policy)
         self._queue: Deque[Request] = deque()
         self._requests: Dict[int, Request] = {}
         # set once a deadline-carrying request arrives: without one,
@@ -149,33 +160,20 @@ class Scheduler:
 
     def select(self, free_slots: int, in_flight_tokens: int,
                fits: Optional[Callable[[Request], bool]] = None,
-               prefill_cost: Optional[Callable[[Request], int]] = None) -> List[Request]:
-        """Pick the queue-order prefix that fits ``free_slots``, the token
+               prefill_cost: Optional[Callable[[Request], int]] = None,
+               now: Optional[float] = None) -> List[Request]:
+        """One admission round through the bound policy
+        (``serving/sched/policy.py``: ``scan_queue`` then ``order_round``):
+        the policy-ordered queue prefix that fits ``free_slots``, the token
         budget and the engine's capacity predicate ``fits`` (checked in
-        queue order, so it may accumulate a projected cursor). Selected
-        requests leave the queue in state PREFILL, longest prefill first;
-        ``prefill_cost`` replaces the context length as the ordering key
-        with the EFFECTIVE prefill work (the prefix-cache engine passes the
-        context less its reusable prefix; JAX ``order_round``). Ordering
-        only: selection and ``fits`` follow queue order."""
-        selected: List[Request] = []
-        budget = in_flight_tokens
-        while self._queue and len(selected) < free_slots:
-            req = self._queue[0]
-            if req.finished:
-                self._queue.popleft()
-                continue
-            if (self.max_tokens_in_flight is not None
-                    and budget + req.token_footprint > self.max_tokens_in_flight):
-                break  # nothing overtakes the blocked head
-            if fits is not None and not fits(req):
-                break
-            self._queue.popleft()
-            req.state = RequestState.PREFILL
-            budget += req.token_footprint
-            selected.append(req)
-        selected.sort(key=prefill_cost or (lambda r: len(r.context_ids)), reverse=True)
-        return selected
+        queue order, so it may accumulate a projected cursor), leaving the
+        queue in state PREFILL, longest prefill first; ``prefill_cost``
+        replaces the context length as the ordering key with the EFFECTIVE
+        prefill (the prefix-cache engine passes the context less its
+        reusable prefix). ``now`` feeds time-aware policies (aging,
+        preemption cooldowns); FIFO ignores it."""
+        return self.policy.select(self._queue, free_slots, in_flight_tokens,
+                                  self.max_tokens_in_flight, fits, prefill_cost, now=now)
 
     @property
     def requests(self) -> Dict[int, Request]:
@@ -189,6 +187,14 @@ class Scheduler:
     @property
     def queued(self) -> int:
         return sum(1 for r in self._queue if not r.finished)
+
+    def queued_by_tenant(self) -> Dict[str, int]:
+        """Live queue depth per tenant, tenant-sorted (a halt's post-mortem
+        records it: who was waiting)."""
+        depths: Dict[str, int] = {}
+        for r in self.queued_requests:
+            depths[r.tenant] = depths.get(r.tenant, 0) + 1
+        return dict(sorted(depths.items()))
 
     def get(self, rid: int) -> Optional[Request]:
         return self._requests.get(rid)

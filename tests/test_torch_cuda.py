@@ -1361,3 +1361,82 @@ def test_engine_faults_on_card_keep_one_captured_graph(cuda, paged):
         hits = snap["prefix_hits"] + snap["prefix_validation_failures"]
         inserts = tpf.pool_pages_fingerprint_fwd.launches - pf - hits
         assert hits >= 1 and inserts >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_slo_engine_on_card_preempts_on_one_captured_graph(cuda, monkeypatch, paged):
+    """The SLO policy on the card (a small bf16 Llama, head_dim 128): a
+    pressured chat arrival behind two docs requests makes the policy vacate
+    one docs slot mid-generation; the decode step stays one capture on its
+    buffers, the victim resumes (K1 re-prefills it) and every greedy token
+    lies within phase 3's limit (5e-2 of the logit scale) of its row's
+    maximum logit in a teacher-forced pass; the eager step's streams equal
+    the graph's bit for bit; host reads = chunks + first tokens."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.inference.graphs import DecodeProgram
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.observability.slo import SLOSpec
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.serving.sched import FeedbackConfig, SloPolicy
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512)
+    model = init_params(LlamaForCausalLM(cfg), seed=0)
+    rng = np.random.default_rng(3)
+    prompts = {n: rng.integers(1, 1000, size=k) for n, k in
+               (("chat_a", 20), ("docs_a", 90), ("docs_b", 70), ("chat_b", 30))}
+    news = {"chat_a": 8, "docs_a": 48, "docs_b": 48, "chat_b": 8}
+    kw = dict(kv_page_size=16) if paged else {}
+    wrapper = tfd.paged_flash_decode_fwd if paged else tfd.flash_decode_fwd
+    streams = []
+    for eager in (False, True):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(DecodeProgram, "__call__", lambda self: self.step())
+            engine = ServingEngine(
+                model, num_slots=2, decode_chunk_size=4, prefix_cache=None, **kw,
+                scheduling=SloPolicy(feedback=FeedbackConfig(min_decided=1, cooldown_s=0.0,
+                                                             min_victim_remaining=1)),
+                slo={"chat": SLOSpec(ttft_p99_s=1e-9), "docs": SLOSpec(ttft_p99_s=1e6)})
+            reqs = {}
+
+            def sub(name, tenant, prio):
+                reqs[name] = engine.submit(prompts[name], GenerationConfig(news[name],
+                                                                           temperature=0.0),
+                                           seed=len(reqs), tenant=tenant, priority=prio)
+
+            sub("chat_a", "chat", "interactive")
+            while not reqs["chat_a"].finished:
+                engine.step()
+            sub("docs_a", "docs", "batch")
+            sub("docs_b", "docs", "batch")
+            engine.step()
+            sub("chat_b", "chat", "interactive")
+            k1, k5 = tfa.flash_attention_fwd.launches, wrapper.launches
+            while engine.has_work:
+                engine.step()
+                if paged:
+                    engine.cache.check()
+        snap = engine.metrics.snapshot()
+        assert snap["preemptions"] >= 1 and engine.policy.preemptions_requested >= 1
+        victims = [n for n, r in reqs.items() if r.preemptions]
+        assert victims and all(n.startswith("docs") for n in victims)
+        assert all(len(r.tokens) == news[n] for n, r in reqs.items())
+        assert tfa.flash_attention_fwd.launches - k1 >= 2 * cfg.num_layers  # chat_b + a resume
+        if not eager:
+            assert engine.decode_compilations == 1 == snap["decode_captures"]
+            assert engine.decode_program.launches_per_replay == {
+                "paged_flash_decode" if paged else "flash_decode": cfg.num_layers}
+            assert wrapper.launches == k5  # every decode step a graph replay
+        assert engine.host_reads == snap["chunks"] + len(reqs)
+        streams.append({n: list(r.tokens) for n, r in reqs.items()})
+    assert streams[0] == streams[1]
+    with torch.no_grad():
+        for name, toks in streams[0].items():
+            ids = torch.tensor(np.concatenate([prompts[name], toks[:-1]])[None], device="cuda")
+            logits = model.lm_head(model.model(ids, mode="train")[:, len(prompts[name]) - 1:])
+            logits = logits.float()[0]
+            emitted = torch.tensor(toks, device="cuda")[:, None]
+            gap = logits.max(-1).values - logits.gather(-1, emitted)[:, 0]
+            assert float((gap / (5e-2 * logits.abs().max())).max()) <= 1.0, name

@@ -107,6 +107,20 @@ def test_every_module_imports_and_runs_with_jax_blocked():
         chaos.cache.check()
         assert req.tokens == solo and chaos.metrics.recoveries == 1, req.tokens
         assert chaos.metrics.quarantines == 1 and chaos.flight.events()
+        from neuronx_distributed_tpu_torch.observability.registry import MetricsRegistry
+        from neuronx_distributed_tpu_torch.observability.slo import SLOSpec
+        from neuronx_distributed_tpu_torch.serving.traffic import (
+            TenantProfile, VirtualClock, generate_tape, replay)
+        from neuronx_distributed_tpu_torch.utils.timeline import Timeline
+        clock = VirtualClock()
+        slo = ServingEngine(model, num_slots=2, decode_chunk_size=2, scheduling="slo",
+                            registry=MetricsRegistry(), engine_label="slo", time_fn=clock,
+                            slo=SLOSpec(ttft_p99_s=1.0), timeline=Timeline(None))
+        tape = generate_tape([TenantProfile("chat", rate_rps=4.0)], 1.0, seed=0,
+                             vocab_size=256)
+        report = replay(slo, tape, clock, step_dt=0.05)
+        assert report["completed"] == len(tape) > 0, report
+        assert "serving_steps" in slo.metrics.registry.prometheus_text()
         from neuronx_distributed_tpu_torch.inference.medusa import medusa_generate
         from neuronx_distributed_tpu_torch.models.medusa import (
             MedusaForCausalLM, init_medusa_heads)
@@ -125,7 +139,31 @@ def test_every_module_imports_and_runs_with_jax_blocked():
             "neuronx_distributed_tpu_torch.inference.medusa", "neuronx_distributed_tpu_torch.utils.retry",
             "neuronx_distributed_tpu_torch.observability.flight_recorder",
             "neuronx_distributed_tpu_torch.serving.faults",
-            "neuronx_distributed_tpu_torch.kernels.page_fingerprint"} <= set(_port_modules())
+            "neuronx_distributed_tpu_torch.kernels.page_fingerprint",
+            "neuronx_distributed_tpu_torch.observability.registry",
+            "neuronx_distributed_tpu_torch.observability.slo",
+            "neuronx_distributed_tpu_torch.observability.tracing",
+            "neuronx_distributed_tpu_torch.utils.timeline",
+            "neuronx_distributed_tpu_torch.serving.sched",
+            "neuronx_distributed_tpu_torch.serving.sched.policy",
+            "neuronx_distributed_tpu_torch.serving.sched.priority",
+            "neuronx_distributed_tpu_torch.serving.sched.fairness",
+            "neuronx_distributed_tpu_torch.serving.sched.feedback",
+            "neuronx_distributed_tpu_torch.serving.traffic"} <= set(_port_modules())
+
+
+def test_slo_serving_pieces_are_the_ports_own():
+    """The registry, the SLO tracker, the tracer, the timeline, the
+    scheduling policies and the traffic replay are the port's own classes
+    (the JAX package's jax-free modules are not imported)."""
+    from neuronx_distributed_tpu_torch.observability import registry, slo, tracing
+    from neuronx_distributed_tpu_torch.serving import sched, traffic
+    from neuronx_distributed_tpu_torch.utils import timeline
+
+    for obj in (registry.MetricsRegistry, registry.Histogram, slo.SLOTracker, slo.SLOSpec,
+                tracing.RequestTracer, timeline.Timeline, sched.SloPolicy, sched.FifoPolicy,
+                sched.DeficitRoundRobin, traffic.TenantProfile, traffic.VirtualClock):
+        assert obj.__module__.startswith("neuronx_distributed_tpu_torch."), obj
 
 
 def test_fault_contract_pieces_are_the_ports_own():

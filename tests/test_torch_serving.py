@@ -166,7 +166,7 @@ def test_cancel_and_queue_bounds(pair):
     assert b.tokens == [] and engine.cache.free_slots == 1
     with pytest.raises(ValueError):
         engine.submit(np.arange(1, 125), gcfg)  # past max_seq_len: never placeable
-    for bad in (dict(admission="greedy"), dict(scheduling="slo"), dict(decode_chunk_size=0)):
+    for bad in (dict(admission="greedy"), dict(scheduling="lifo"), dict(decode_chunk_size=0)):
         with pytest.raises(ValueError):
             ServingEngine(tmodel, num_slots=1, **bad)
 
