@@ -157,6 +157,30 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    percentiles, attainment and goodput printed (no gate on speed); (c) a
    row leg: the tape's first 3 s through phase 4's row engine under the
    SLO policy (K4), with (a)'s count gates;
+5i. the host page tier (``kv_host_pages=``), at full width and depth:
+   phase 5c's paged engine (2 slots, page 16, chunk 8, eager) with four
+   1600-token system prompts and tails of 100-400 tokens in serial waves
+   0,1,2,3,0,1,2,3 through a pool of 380 pages (two prefixes beside the
+   active slot): (a) tiering off (every revisit misses), on with 512 host
+   pages (1 GiB pinned; every revisit a host-tier hit, at least 4) and a
+   control of 1200 pages (every revisit a device-tier hit); streams on =
+   control bit for bit; after every prefetch PF over the new pages = the
+   entry's insert-time ``page_fp``; one capture an engine, replays =
+   executed steps, K1 = full prefills x 32, K5's own launches = suffix
+   prefills x 32, PF = inserts + device-tier hits (none at a host-tier
+   hit), host reads = chunks + first tokens + one a spill + one a
+   device-tier hit, ``copy_bytes`` 0, ``check()`` of both tiers after
+   every step, every page free after the store is cleared; the spill walls
+   (copy and CRC), the verify walls, TTFT of a miss, a host-tier and a
+   device-tier hit at the same context lengths, ``hbm.snapshot()`` and
+   ``plan()``; (b) the eight at once under the profiler: the prefetches'
+   host-to-device copies beside kernels of other streams, every greedy
+   token within phase 3's limit teacher-forced; (c) phase 5f(c)'s int8
+   weights and int8 pool, (a)'s tiering-on leg against an int8 control,
+   K5q 32, QW 32 and DQ 225 a replay, K5 0; (d) a failed spill, a poisoned host page and a
+   failed prefetch on (a)'s tiered engine: counters = the schedule,
+   requests submitted before the first fault = the fault-free run's, every
+   greedy token within phase 3's limit teacher-forced;
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -3530,6 +3554,426 @@ def slo_phase(model, smi: str) -> dict:
     return dict(launches=launches)
 
 
+# --- phase 5i: the host page tier ---------------------------------------------------
+
+TIER_PREFIX, TIER_NEW = 1600, 16   # system prompt tokens; new tokens a request
+TIER_PAGES = 380                   # pool pages: two of the four prefixes beside the active slot
+TIER_HOST_PAGES = 512              # host tier pages (1 GiB pinned at page 16)
+TIER_CONTROL_PAGES = 1200          # the control's pool: the whole working set
+TIER_SCHEDULE = (("fail_spill", 0), ("poison_host_page", 0), ("fail_prefetch", 1))
+
+
+def tier_workload(vocab: int, seed: int = 9):
+    """Four distinct 1600-token system prompts (numpy seed ``seed``), each
+    with a tail of 100-400 tokens, in waves 0,1,2,3,0,1,2,3: request j + 4
+    revisits request j's system prompt with a tail of its own of the same
+    length, so a miss, a host-tier hit and a device-tier hit meet at one
+    context length; 16 new tokens each, greedy."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+
+    rng = np.random.default_rng(seed)
+    systems = [rng.integers(1, vocab, size=TIER_PREFIX) for _ in range(4)]
+    lens = [int(rng.integers(100, 401)) for _ in range(4)]
+    tails = [rng.integers(1, vocab, size=lens[i % 4]) for i in range(8)]
+    prompts = [np.concatenate([systems[i % 4], tails[i]]).astype(np.int32) for i in range(8)]
+    return prompts, [GenerationConfig(max_new_tokens=TIER_NEW, temperature=0.0)] * 8
+
+
+def tier_serve(model, workload, pages: int, host, serial: bool = True, quantize=None,
+               schedule=(), profiled: bool = False) -> dict:
+    """``workload`` through a paged engine of 2 slots, page 16, ``pages``
+    pool pages, chunk 8, eager admission, the prefix cache on and ``host``
+    host pages (None: no tier): a warm-up request on a prompt of its own
+    (the decode program's capture), the store cleared, every kernel's count
+    zeroed, then the requests, one ``run()`` each (``serial``) or all at
+    once, ``check()`` of both tiers after every step. After every prefetch
+    one PF over the prefetched pages must equal the entry's insert-time
+    ``page_fp`` (the smoke's launches, not the engine's). Gates: every
+    request DONE with its tokens in the vocabulary, one capture, replays =
+    executed steps, K1 = full prefills x 32, the decode kernel's own
+    launches = suffix prefills x 32, PF = inserts + device-tier hits, host
+    reads = chunks + first tokens + spills + device-tier hits, ``copy_bytes``
+    0, and after the store is cleared every device and host page free.
+    ``schedule``: (FaultInjector method, at) pairs; ``profiled``: the
+    requests run under the profiler, opened after the capture."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.serving.cache_manager import PrefixCache
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.serving.faults import FaultInjector
+    from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
+    from neuronx_distributed_tpu_torch.utils.fingerprint import pool_pages_fingerprint
+
+    cfg = model.config
+    layers = cfg.num_layers
+    inj = None
+    if schedule:
+        inj = FaultInjector()
+        for method, at in schedule:
+            getattr(inj, method)(at=at)
+    collect_engines()  # the previous run's engine (held in cycles) frees before this one
+    t0 = time.perf_counter()
+    engine = ServingEngine(model, num_slots=2, decode_chunk_size=8, kv_page_size=PAGE,
+                           kv_num_pages=pages, kv_host_pages=host, admission="eager",
+                           prefix_cache=PrefixCache(), quantize=quantize, fault_injector=inj,
+                           sleep_fn=lambda s: None)
+    build_s = time.perf_counter() - t0
+    warm = np.arange(1, 200, dtype=np.int32) % (cfg.vocab_size - 1) + 1
+    engine.submit(warm, GenerationConfig(max_new_tokens=4, temperature=0.0), seed=999)
+    engine.run()
+    engine.prefix.clear()
+    tier = engine.tier
+    qkv = quantize is not None and quantize.kv is not None
+    decode = "qpaged_flash_decode" if qkv else "paged_flash_decode"
+    suffix = "flash_decode" if qkv else "paged_flash_decode"
+    counters = kernel_counters()
+    pf = counters["page_fingerprint"]
+    spills, verifies, fp_checked, smoke_pf, inserts = [], [], [], [0], [0]
+    if tier is not None:
+        put, verify = tier.put, tier.verify
+
+        def timed_put(pids, items):
+            c0, r0 = tier.copy_s, tier.crc_s
+            out = put(pids, items)
+            spills.append(dict(pages=len(pids), copy_s=tier.copy_s - c0, crc_s=tier.crc_s - r0))
+            return out
+
+        def timed_verify(hids):
+            v0 = tier.verify_s
+            ok = verify(hids)
+            verifies.append(dict(pages=len(hids), s=tier.verify_s - v0, ok=ok))
+            return ok
+
+        tier.put, tier.verify = timed_put, timed_verify
+        prefetch = engine._prefetch_entry
+
+        def checked(entry, late=False):
+            ok = prefetch(entry, late)
+            if ok and entry.page_fp is not None:
+                engine.cache.sync_tier(entry.page_ids)
+                n0 = pf.launches
+                now = pool_pages_fingerprint(engine.cache.cache, entry.page_ids)
+                smoke_pf[0] += pf.launches - n0
+                if not torch.equal(now, entry.page_fp):
+                    raise AssertionError("tier phase: PF over the prefetched pages differs "
+                                         "from the entry's insert-time fingerprints")
+                fp_checked.append(len(entry.page_ids))
+            return ok
+
+        engine._prefetch_entry = checked
+    insert = engine.prefix.insert
+
+    def counting(*a, **kw):
+        entry, evicted = insert(*a, **kw)
+        inserts[0] += entry is not None
+        return entry, evicted
+
+    engine.prefix.insert = counting
+    base = engine.metrics.snapshot()
+    reads0, prog = engine.host_reads, decode_program(engine)
+    replays0 = prog.replays
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    prompts, cfgs = workload
+    fired = []  # faults fired before each request's submission
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if profiled else None
+    t0 = time.perf_counter()
+    if prof is not None:
+        prof.start()
+    reqs = []
+    for i, (p, c) in enumerate(zip(prompts, cfgs)):
+        fired.append(sum(inj.counters.values()) if inj is not None else 0)
+        reqs.append(engine.submit(p, c, seed=i))
+        if serial or i == len(prompts) - 1:
+            while engine.has_work:
+                engine.step()
+                engine.cache.check()
+                if tier is not None:
+                    tier.check()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.stop()
+    for r in reqs:
+        if r.state is not RequestState.DONE or len(r.tokens) != TIER_NEW:
+            raise AssertionError(f"tier request {r.rid}: {r.state} with {len(r.tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"tier request {r.rid}: token outside the vocabulary")
+    snap = engine.metrics.snapshot()
+    keys = ("prefix_hits", "prefix_misses", "prefix_evictions", "prefix_validation_failures",
+            "prefill_full_count", "prefill_suffix_count", "executed_steps", "chunks",
+            "kv_pages_spilled", "kv_spill_bytes", "kv_pages_prefetched", "kv_prefetch_bytes",
+            "kv_prefetch_late", "kv_prefetch_wasted", "kv_spill_failures",
+            "kv_prefetch_failures", "kv_host_poisoned", "prefill_full_wall_s",
+            "prefill_suffix_wall_s")
+    delta = {k: snap[k] - base[k] for k in keys}
+    tiers = {t: snap["prefix_hit_tier"].get(t, 0) - base["prefix_hit_tier"].get(t, 0)
+             for t in ("device", "host")}
+    launches = {name: c.launches for name, c in counters.items()}
+    replays = prog.replays - replays0
+    if engine.decode_compilations != 1 or replays != delta["executed_steps"]:
+        raise AssertionError(f"tier phase: decode_compilations {engine.decode_compilations}, "
+                             f"replays {replays} for {delta['executed_steps']} executed steps")
+    per_replay = dict(prog.launches_per_replay)
+    want_replay = ({"qpaged_flash_decode": layers, "window_requantize": layers} if qkv
+                   else {"paged_flash_decode": layers})
+    if quantize is not None and quantize.weights is not None:
+        want_replay["dequantize"] = 7 * layers + 1  # phase 5f's rule: every linear and lm_head
+    if per_replay != want_replay:
+        raise AssertionError(f"tier phase: launches per replay {per_replay} != {want_replay}")
+    if launches["flash_attention"] != delta["prefill_full_count"] * layers:
+        raise AssertionError(f"tier phase: K1 {launches['flash_attention']} != "
+                             f"{delta['prefill_full_count']} full prefills x {layers}")
+    if launches[suffix] != delta["prefill_suffix_count"] * layers or (
+            qkv and launches["paged_flash_decode"] != 0):
+        raise AssertionError(f"tier phase: {suffix} {launches[suffix]} != "
+                             f"{delta['prefill_suffix_count']} suffix prefills x {layers}")
+    engine_pf = launches["page_fingerprint"] - smoke_pf[0]
+    if engine_pf != inserts[0] + tiers["device"]:
+        raise AssertionError(f"tier phase: PF {engine_pf} != {inserts[0]} inserts + "
+                             f"{tiers['device']} device-tier hits")
+    n_spills = len(spills)
+    reads = engine.host_reads - reads0
+    want_reads = delta["chunks"] + len(reqs) + n_spills + tiers["device"]
+    if reads != want_reads:
+        raise AssertionError(f"tier phase: host reads {reads} != {delta['chunks']} chunks + "
+                             f"{len(reqs)} first tokens + {n_spills} spills + {tiers['device']} "
+                             "device-tier hits")
+    if engine.cache.alloc.copy_bytes != 0:
+        raise AssertionError(f"tier phase: copy_bytes {engine.cache.alloc.copy_bytes}")
+    hbm = engine.hbm.snapshot()
+    allocated = torch.cuda.memory_allocated()
+    plan = engine.hbm.plan(host_budget_bytes=tier.arena_nbytes if tier is not None else None)
+    res = dict(tokens=[list(r.tokens) for r in reqs], delta=delta, tiers=tiers, wall_s=wall,
+               launches={k: v + (replays * per_replay.get(k, 0)) for k, v in launches.items()},
+               replays=replays, per_replay=per_replay, inserts=inserts[0], engine_pf=engine_pf,
+               spills=spills, verifies=verifies, fp_checked=fp_checked, reads=reads,
+               ttft=[r.first_token_time - r.submit_time for r in reqs], hbm=hbm,
+               allocated=allocated, plan=plan, build_s=build_s, fired=fired,
+               counters=dict(inj.counters) if inj is not None else None, prof=prof,
+               summary=tier.summary() if tier is not None else None,
+               arena_pinned=tier.arena.is_pinned() if tier is not None else None,
+               arena_bytes=tier.arena_nbytes if tier is not None else 0)
+    res["launches"]["page_fingerprint"] -= smoke_pf[0]  # the smoke's checks are not the path's
+    engine.prefix.clear()
+    engine.cache.check()
+    if engine.cache.alloc.free_pages != engine.cache.alloc.capacity or (
+            tier is not None and tier.used_pages != 0):
+        raise AssertionError("tier phase: pages still held after the store was cleared")
+    if tier is not None:
+        tier.check()
+    return res
+
+
+def tier_overlap(prof) -> dict:
+    """From a profile's trace: the device ms of the host-to-device copies of
+    at least 1 MiB (the prefetches' page copies on the tier stream) and of
+    that, the ms during which a kernel ran on another stream (the decode
+    replay's, a prefill's)."""
+    import json
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    copies, kernels = [], {}
+    for e in events:
+        args = e.get("args") or {}
+        if e.get("ph") != "X" or "dur" not in e:
+            continue
+        span = (float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+        if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "") and \
+                int(args.get("bytes", 0)) >= 2 ** 20:
+            copies.append((args.get("stream"), span))
+        elif e.get("cat") == "kernel":
+            kernels.setdefault(args.get("stream"), []).append(span)
+    if not copies:
+        return dict(copy_ms=None, overlap_ms=None, copies=0)
+    copy_us = overlap_us = 0.0
+    for stream, (a, b) in copies:
+        copy_us += b - a
+        other = sorted(s for st, spans in kernels.items() if st != stream for s in spans)
+        covered, cur = 0.0, a
+        for s0, s1 in other:
+            lo, hi = max(s0, cur), min(s1, b)
+            if hi > lo:
+                covered += hi - lo
+                cur = hi
+        overlap_us += covered
+    return dict(copy_ms=copy_us / 1e3, overlap_ms=overlap_us / 1e3, copies=len(copies))
+
+
+def tier_phase(model, smi: str) -> dict:
+    """Phase 5i: the host page tier at full width. (a) Four 1600-token
+    system prompts in serial waves 0,1,2,3,0,1,2,3 through a pool that holds
+    two of them: tiering off (revisits miss), on (every revisit a host-tier
+    hit) and a control whose pool holds them all (every revisit a device-tier
+    hit); on = control bit for bit. (b) The eight at once to the two slots,
+    tiering on, under the profiler: the prefetches' copies overlapping the
+    decode replays. (c) The int8 pool of phase 5f(c), (a)'s tiering-on leg
+    and its control. (d) (a)'s tiered engine with a failed spill, a poisoned
+    host page and a failed prefetch. Returns the phase's launches."""
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    workload = tier_workload(cfg.vocab_size)
+    lens = [len(p) for p in workload[0]]
+    off = tier_serve(model, workload, TIER_PAGES, None)
+    on = tier_serve(model, workload, TIER_PAGES, TIER_HOST_PAGES)
+    ctl = tier_serve(model, workload, TIER_CONTROL_PAGES, None)
+    d = on["delta"]
+    if off["delta"]["prefix_hits"] != 0:
+        raise AssertionError(f"tier phase (a): tiering off scored {off['delta']['prefix_hits']} "
+                             "hits on the revisits")
+    if on["tiers"]["host"] != d["prefix_hits"] or d["prefix_hits"] < 4:
+        raise AssertionError(f"tier phase (a): host-tier hits {on['tiers']} of "
+                             f"{d['prefix_hits']} hits; want all, and at least 4")
+    if ctl["tiers"]["device"] != ctl["delta"]["prefix_hits"] or ctl["delta"]["prefix_hits"] < 4:
+        raise AssertionError(f"tier phase (a): control hits {ctl['tiers']}")
+    if on["tokens"] != ctl["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(on["tokens"], ctl["tokens"])) if a != b]
+        raise AssertionError(f"tier phase (a): tiering-on streams differ from the control's: "
+                             f"requests {diff}")
+    if len(on["fp_checked"]) != len(on["verifies"]) or not on["arena_pinned"]:
+        raise AssertionError("tier phase (a): a prefetch went unchecked, or the arena is "
+                             "not pinned")
+    mib = 2.0 ** 20
+    log(f"tier phase (a) ({smi}; llama3_8b, all {cfg.num_layers} layers, random bf16 weights "
+        f"seed 0; 2 slots, page {PAGE}, chunk 8, eager; four {TIER_PREFIX}-token system "
+        f"prompts + tails, contexts {lens[:4]}, waves 0,1,2,3,0,1,2,3, one run() each, "
+        f"{TIER_NEW} new tokens greedy): pool {TIER_PAGES} pages, host tier "
+        f"{TIER_HOST_PAGES} pages ({on['arena_bytes'] / 2**30:.3f} GiB pinned, "
+        f"allocated with the engine in {on['build_s']:.3f} s of its construction)")
+    for name, r in (("tiering off", off), ("tiering on", on), ("control (pool "
+                                                                 f"{TIER_CONTROL_PAGES} pages)", ctl)):
+        x = r["delta"]
+        log(f"tier phase (a) {name}: hits {x['prefix_hits']} (device {r['tiers']['device']}, "
+            f"host {r['tiers']['host']}), misses {x['prefix_misses']}, evictions "
+            f"{x['prefix_evictions']}, spilled {x['kv_pages_spilled']} pages "
+            f"({x['kv_spill_bytes'] / mib:.1f} MiB) in {len(r['spills'])} spills, prefetched "
+            f"{x['kv_pages_prefetched']} pages ({x['kv_prefetch_bytes'] / mib:.1f} MiB), late "
+            f"{x['kv_prefetch_late']}, wasted {x['kv_prefetch_wasted']}; full prefills "
+            f"{x['prefill_full_count']} ({x['prefill_full_wall_s']:.4f} s), suffix prefills "
+            f"{x['prefill_suffix_count']} ({x['prefill_suffix_wall_s']:.4f} s); host reads "
+            f"{r['reads']} = chunks + first tokens + spills + device-tier hits; PF "
+            f"{r['engine_pf']} = {r['inserts']} inserts + {r['tiers']['device']} device-tier "
+            f"hits; wall {r['wall_s']:.3f} s")
+    unit = on["hbm"]["residents"]["kv_pages"]["unit_bytes"]  # bytes of a page
+    for sp in on["spills"]:
+        log(f"tier phase (a) spill: {sp['pages']} pages ({sp['pages'] * unit / mib:.1f} MiB), copy "
+            f"{1e3 * sp['copy_s']:.2f} ms (gather + pack + one device-to-host copy + the sync), "
+            f"CRC {1e3 * sp['crc_s']:.2f} ms")
+    for v in on["verifies"]:
+        log(f"tier phase (a) verify: {v['pages']} pages, {1e3 * v['s']:.2f} ms (CRC-32 on the host)")
+    crc_bytes = sum(sp["pages"] for sp in on["spills"]) * unit
+    crc_s = sum(sp["crc_s"] for sp in on["spills"])
+    log(f"tier phase (a) host CRC rate at put: {crc_bytes / max(crc_s, 1e-9) / 1e9:.3f} GB/s "
+        f"({crc_bytes / mib:.1f} MiB in {crc_s:.4f} s)")
+    ttft = {name: [r["ttft"][i] for i in range(4, 8)] for name, r in
+            (("host-tier hit", on), ("device-tier hit", ctl))}
+    ttft["miss"] = on["ttft"][:4]
+    log("tier phase (a) TTFT at the same context lengths " + str(lens[:4]) + ": " + "; ".join(
+        f"{k} " + ", ".join(f"{t:.4f}" for t in v) + f" s (mean {statistics.mean(v):.4f})"
+        for k, v in ttft.items()))
+    h = on["hbm"]
+    dev = {k: v["bytes"] for k, v in h["residents"].items() if "tier" not in v}
+    hst = {k: v["bytes"] for k, v in h["residents"].items() if "tier" in v}
+    fits = on["plan"]["fits"]
+    log(f"tier phase (a) hbm.snapshot() at the end of the tiered waves: device residents "
+        f"{dev} (total {h['resident_bytes_total']}), host residents {hst}; bytes_in_use "
+        f"{h['bytes_in_use']} (torch.cuda.memory_allocated {on['allocated']}), unaccounted "
+        f"{h['unaccounted_bytes']}, limit {h['bytes_limit']}, utilization "
+        f"{h['utilization'] if isinstance(h['utilization'], str) else round(h['utilization'], 4)}; "
+        f"plan(): kv_pages additional {fits['kv_pages'].get('additional')}, kv_host_pages "
+        f"additional {fits.get('kv_host_pages', {}).get('additional')} (host budget = the arena)")
+    log(f"tier phase (a): streams on = control bit for bit (8 of 8); after every prefetch PF "
+        f"over the new pages = the insert-time page_fp ({len(on['fp_checked'])} prefetches, "
+        f"{sum(on['fp_checked'])} pages); copy_bytes 0; check() of both tiers clean after every "
+        f"step; one capture an engine; after the store is cleared every device and host page "
+        f"free")
+
+    # (b) the eight at once: queued hits prefetch while a chunk runs
+    ovl = tier_serve(model, workload, TIER_PAGES, TIER_HOST_PAGES, serial=False, profiled=True)
+    worst = teacher_ratio(model, workload, ovl["tokens"])
+    if worst > 1.0:
+        raise AssertionError(f"tier phase (b): a greedy token lies {worst:.3g}x phase 3's limit "
+                             "below its row's maximum teacher-forced")
+    o = tier_overlap(ovl.pop("prof"))
+    x = ovl["delta"]
+    log(f"tier phase (b) ({smi}; the 8 requests at once, 2 slots, tiering on, profiler opened "
+        f"after the capture): all DONE; hits {x['prefix_hits']} (host {ovl['tiers']['host']}), "
+        f"prefetched {x['kv_pages_prefetched']} pages, kv_prefetch_late {x['kv_prefetch_late']}, "
+        f"wasted {x['kv_prefetch_wasted']}; host-to-device copies >= 1 MiB: {o['copies']}, "
+        + ("device time not measured (no copy in the trace)" if o["copy_ms"] is None else
+           f"{o['copy_ms']:.3f} ms of device time, {o['overlap_ms']:.3f} ms of it beside a "
+           f"kernel on another stream")
+        + f"; every greedy token within {worst:.3g}x of phase 3's limit teacher-forced; "
+        f"check() clean; wall {ovl['wall_s']:.3f} s (profiled)")
+
+    # (c) the int8 pool of phase 5f(c)
+    q = QuantConfig(kv="int8")
+    qon = tier_serve(model, workload, TIER_PAGES, TIER_HOST_PAGES, quantize=q)
+    qctl = tier_serve(model, workload, TIER_CONTROL_PAGES, None, quantize=q)
+    if qon["tokens"] != qctl["tokens"]:
+        raise AssertionError("tier phase (c): int8-pool tiering-on streams differ from the "
+                             "int8 control's")
+    if qon["tiers"]["host"] != qon["delta"]["prefix_hits"] or qon["delta"]["prefix_hits"] < 4:
+        raise AssertionError(f"tier phase (c): hits {qon['tiers']}")
+    x = qon["delta"]
+    log(f"tier phase (c) ({smi}; phase 5f(c)'s int8 weights and int8 pool): hits "
+        f"{x['prefix_hits']} all host-tier, spilled "
+        f"{x['kv_pages_spilled']} pages ({x['kv_spill_bytes'] / mib:.1f} MiB: codes and scales), "
+        f"prefetched {x['kv_pages_prefetched']}; PF with scales over every prefetch = page_fp "
+        f"({len(qon['fp_checked'])}); launches per replay {qon['per_replay']} (phase 5f's rule; "
+        f"K5 0), replays "
+        f"{qon['replays']} = executed steps; streams = the int8 control's (pool "
+        f"{TIER_CONTROL_PAGES} pages) bit for bit; spill walls copy "
+        + ", ".join(f"{1e3 * s['copy_s']:.2f}" for s in qon["spills"]) + " ms, CRC "
+        + ", ".join(f"{1e3 * s['crc_s']:.2f}" for s in qon["spills"]) + " ms")
+
+    # (d) faults on (a)'s tiered engine
+    flt = tier_serve(model, workload, TIER_PAGES, TIER_HOST_PAGES, schedule=TIER_SCHEDULE)
+    want = {"spill_failures": 1, "poisoned_host_pages": 1, "prefetch_failures": 1}
+    got = {k: flt["counters"][k] for k in want}
+    x = flt["delta"]
+    mets = {"kv_spill_failures": x["kv_spill_failures"], "kv_host_poisoned": x["kv_host_poisoned"],
+            "kv_prefetch_failures": x["kv_prefetch_failures"]}
+    if got != want or list(mets.values()) != [1, 1, 1] or sum(
+            v for k, v in flt["counters"].items() if k not in want):
+        raise AssertionError(f"tier phase (d): injector {flt['counters']}, metrics {mets}; "
+                             f"the schedule: {want}")
+    before = [i for i, n in enumerate(flt["fired"]) if n == 0]
+    for i in before:
+        if flt["tokens"][i] != on["tokens"][i]:
+            raise AssertionError(f"tier phase (d): request {i}, submitted before any fault, "
+                                 "differs from the fault-free run")
+    worst = teacher_ratio(model, workload, flt["tokens"])
+    if worst > 1.0:
+        raise AssertionError(f"tier phase (d): a greedy token lies {worst:.3g}x phase 3's limit "
+                             "below its row's maximum teacher-forced")
+    same = sum(a == b for a, b in zip(flt["tokens"], on["tokens"]))
+    log(f"tier phase (d) ({smi}; fail_spill at 0, poison_host_page at 0, fail_prefetch at 1): "
+        f"injector {got}, metrics {mets}; hits {x['prefix_hits']} (host {flt['tiers']['host']}), "
+        f"misses {x['prefix_misses']}, validation failures {x['prefix_validation_failures']}; "
+        f"requests {before} submitted before the first fault equal the fault-free run's; "
+        f"{same} of 8 streams equal it; every greedy token within {worst:.3g}x of phase 3's "
+        f"limit teacher-forced; check() of both tiers clean after every step")
+    runs = (off, on, ctl, ovl, qon, qctl, flt)
+    launches = {name: sum(r["launches"][name] for r in runs) for name in off["launches"]}
+    log(f"tier phase launches (replays included): {launches}")
+    log(f"phase 5i wall: {time.perf_counter() - t_phase:.1f} s")
+    collect_engines()
+    return dict(launches=launches)
+
+
 # --- phases 6-7: training ------------------------------------------------------
 
 EOS_ID = 128001  # Llama-3's <|end_of_text|>
@@ -4043,6 +4487,7 @@ def main() -> int:
     quant = quant_phase(model, srv, fused, gen)
     fault = fault_phase(model, srv, spec["tokens"], smi)
     slo = slo_phase(model, smi)
+    tier = tier_phase(model, smi)
 
     del model
     torch.cuda.empty_cache()
@@ -4071,11 +4516,11 @@ def main() -> int:
     k1_main = k1[1]  # the serving prefill at S=4096
     launches = {name: srv["launches"][name] + fused["launches"][name] + pre["launches"][name]
                 + spec["launches"][name] + med["launches"][name] + quant["launches"][name]
-                + fault["launches"][name] + slo["launches"][name] + tr["launches"][name]
-                for name in tr["launches"]}
+                + fault["launches"][name] + slo["launches"][name] + tier["launches"][name]
+                + tr["launches"][name] for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
         f"speculative serving row and paged, Medusa, quantized serving, the fault contract, "
-        f"SLO-aware multi-tenant serving, training): {launches}; "
+        f"SLO-aware multi-tenant serving, the host page tier, training): {launches}; "
         f"on the multi-row path (prefix-cache serving): {pre['multi_row']}; the speculative "
         f"rounds' verify windows (s = {SPEC_GAMMA}): {spec['verify']}")
     rows_main = rows[256]  # R = 1024: phase 5c's chat turns

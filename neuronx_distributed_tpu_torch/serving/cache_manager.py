@@ -63,6 +63,17 @@ class SlotCacheManager:
         return self.cache.index
 
     @property
+    def nbytes(self) -> int:
+        """Device bytes of the row cache: K, V and validity."""
+        c = self.cache
+        return sum(t.numel() * t.element_size() for t in (c.k, c.v, c.valid))
+
+    @property
+    def slot_nbytes(self) -> int:
+        """Device bytes of one slot's row (the HBM ledger's unit)."""
+        return self.nbytes // self.num_slots
+
+    @property
     def free_slots(self) -> int:
         return len(self._free)
 
@@ -162,6 +173,15 @@ class PrefixEntry:
     refs: int = 0
     page_ids: Optional[Tuple[int, ...]] = None
     page_fp: Any = None
+    # the host page tier (JAX cache_manager.py:316-323): a SPILLED entry's
+    # pages live in the engine's HostPageStore under these ids and
+    # ``page_ids`` is None; the entry stays in the trie, and a prefetch
+    # re-homes it (host_ids -> page_ids) before any slot maps it. A live
+    # paged entry has exactly one of the two
+    host_ids: Optional[Tuple[int, ...]] = None
+    # where the entry's NEXT hit is attributed: "host" from a spill until
+    # the hit that a prefetch made possible is recorded, then "device"
+    hit_tier: str = "device"
 
     @property
     def m(self) -> int:

@@ -177,12 +177,33 @@ SLO-aware multi-tenant serving (JAX ``engine.py:701-708``, ``:769-785``):
 Every policy, SLO and tracer decision runs on host state: ``host_reads``
 equals a bare engine's for the same traffic.
 
+The host page tier (``kv_host_pages=N`` beside ``kv_page_size=``; JAX
+``engine.py:725-738``, ``:1071-1219``): a bounded host store of N pages
+(``serving/tiering.py HostPageStore``, in pinned memory on the card,
+allocated once here) behind the pool. Under page pressure the reclaim valve
+SPILLS the least-recently-used unpinned prefix entry there instead of
+evicting it (its pages gathered out of the pool, copied to the host with one
+sync, CRC-32 a page; the entry stays in the trie, host-resident); a full
+store or a failed spill degrades to plain eviction. Before each admission
+round the pre-pass peeks the queue (``Scheduler.upcoming``) and PREFETCHES
+the spilled entries that queued requests match: the CRCs checked, fresh
+pages allocated, the bytes copied back on the pool's tier stream, which
+overlaps the main stream; the pages are held for the queued request, so the
+valve cannot spill them again and the fit math credits them. A hit whose
+entry is still host-resident prefetches late at its admission. A host-tier
+hit maps the prefetched pages copy-on-write like any hit, without a PF
+check (the CRC has just checked those bytes), and counts in
+``prefix_hit_tier["host"]``. A corrupted host page rejects the whole fetch
+and the admission falls back to a full prefill. Streams equal the untiered
+engine's bit for bit. ``self.hbm`` (``observability/hbm.py HBMLedger``)
+accounts the engine's residents per tier (the host pages with
+``tier="host"``) against the card's memory; ``metrics.snapshot()["hbm"]``.
+
 Left out of this slice, each refused with ``NotImplementedError`` rather
-than silently ignored: the host page tier (spill and prefetch of prefix
-entries); the params setter, and with it ``fence()``, ``draft_params=`` and
-``flip_bits(target="params")``; a poisoned draft (``poison_draft``: the
-early-exit draft shares the target's tensors); ``profile_dir=``;
-``program_ledger=`` (``observability/programs.py``, ``hbm.py``); the
+than silently ignored: the params setter, and with it ``fence()``,
+``draft_params=`` and ``flip_bits(target="params")``; a poisoned draft
+(``poison_draft``: the early-exit draft shares the target's tensors);
+``profile_dir=``; ``program_ledger=`` (``observability/programs.py``); the
 router's ``load_score``, ``export_requests`` and ``import_requests``;
 tp/mesh.
 """
@@ -214,6 +235,7 @@ from neuronx_distributed_tpu_torch.modules.attention import (
     seed_cache_prefix,
 )
 from neuronx_distributed_tpu_torch.observability.flight_recorder import FlightRecorder
+from neuronx_distributed_tpu_torch.observability.hbm import HBMLedger, tree_nbytes, weak_reader
 from neuronx_distributed_tpu_torch.observability.tracing import RequestTracer
 from neuronx_distributed_tpu_torch.serving.cache_manager import (
     PrefixCache,
@@ -228,6 +250,7 @@ from neuronx_distributed_tpu_torch.serving.scheduler import (
     RequestState,
     Scheduler,
 )
+from neuronx_distributed_tpu_torch.serving.tiering import HostPageStore
 from neuronx_distributed_tpu_torch.utils.fingerprint import (
     cache_fingerprint,
     pool_pages_fingerprint,
@@ -324,6 +347,16 @@ def _validate_spec_readback(toks, counts, gamma: int, vocab: int, slots) -> Dict
     return bad
 
 
+def _module_nbytes(module) -> int:
+    """Bytes of a module's weights (its state dict: parameters, and a
+    quantized model's codes and scales), each tensor once (a tied or shared
+    weight is one resident)."""
+    seen = {}
+    for t in module.state_dict().values():
+        seen.setdefault((t.data_ptr(), t.numel()), t)
+    return sum(t.numel() * t.element_size() for t in seen.values())
+
+
 def _bucket(p: int, max_seq_len: int, remaining: int, floor: int = 8) -> int:
     """Padded prefill length for a p-token context: next power of two,
     clamped so the padded prompt still leaves room for the remaining
@@ -377,6 +410,7 @@ class ServingEngine:
         max_queue: Optional[int] = None,
         kv_page_size: Optional[int] = None,
         kv_num_pages: Optional[int] = None,
+        kv_host_pages: Optional[int] = None,
         prefix_cache="auto",
         draft_model=None,
         gamma: int = 4,
@@ -403,6 +437,8 @@ class ServingEngine:
             raise ValueError(f"unknown quarantine policy {quarantine_policy!r}")
         if kv_page_size is None and kv_num_pages is not None:
             raise ValueError("kv_num_pages needs kv_page_size")
+        if kv_page_size is None and kv_host_pages is not None:
+            raise ValueError("kv_host_pages needs kv_page_size")
         for name, value, why in (
                 ("draft_params", draft_params, "the port's draft model carries its own weights; "
                  "a weight swap comes with the params setter"),
@@ -478,6 +514,13 @@ class ServingEngine:
             self.cache = PagedCacheManager.for_model(
                 model, num_slots, kv_page_size, kv_num_pages,
                 kv_quant=quantize.kv if quantize is not None else None)
+        # the host page tier behind the pool (None: the single-tier engine);
+        # its arena is allocated here, once, before any capture
+        self.tier = (HostPageStore(kv_host_pages, layout=self.cache.page_layout(),
+                                   pin_memory=self.device.type == "cuda")
+                     if kv_host_pages is not None else None)
+        self._spill_index = 0     # spill attempts (the chaos hook's index)
+        self._prefetch_index = 0  # prefetch attempts (the chaos hook's index)
         self.metrics = ServingMetrics(num_slots, registry=registry, engine_label=engine_label,
                                       slo=slo)
         # the SLO policy reads the metrics, the prefix store and the cache's
@@ -527,6 +570,48 @@ class ServingEngine:
         # a speculative engine's plain step, built at its first fallback
         self._plain_chunk = None
         self.host_reads = 0
+        self.hbm = self._ledger()
+
+    def _ledger(self) -> HBMLedger:
+        """The engine's HBM ledger (JAX ``engine.py:930-972``): its residents
+        as weak reads over live tensors, sized in KV pages (paged; host
+        pages in the host tier) or slot rows; ``metrics.snapshot()["hbm"]``.
+        With a host tier, its occupancy and bytes are registry gauges too."""
+        hbm = HBMLedger(device=self.device, view=self.metrics.view)
+
+        def res(fn):
+            return weak_reader(self, fn)
+
+        hbm.add_resident("params", res(lambda e: _module_nbytes(e.model)))
+        hbm.add_resident("slot_state", res(lambda e: tree_nbytes(e._state)))
+        if self._page_size is not None:
+            hbm.add_resident("kv_pages", res(lambda e: e.cache.nbytes),
+                             unit_bytes=res(lambda e: e.cache.page_nbytes),
+                             count=res(lambda e: e.cache.alloc.capacity), unit="page")
+            if self.tier is not None:
+                hbm.add_resident("kv_host_pages", res(lambda e: e.tier.nbytes),
+                                 unit_bytes=res(lambda e: e.cache.page_nbytes),
+                                 count=res(lambda e: e.tier.used_pages), unit="page",
+                                 tier="host")
+                view = self.metrics.view
+                view.gauge("serving_kv_host_pages_used",
+                           help="spilled KV pages resident in the host tier").set_fn(
+                    weak_reader(self, lambda e: e.tier.used_pages, -1))
+                view.gauge("serving_kv_host_bytes",
+                           help="host-RAM bytes held by spilled KV pages").set_fn(
+                    weak_reader(self, lambda e: e.tier.nbytes, -1))
+        else:
+            hbm.add_resident("kv_cache", res(lambda e: e.cache.nbytes),
+                             unit_bytes=res(lambda e: e.cache.slot_nbytes),
+                             count=self.num_slots, unit="slot")
+        if self.draft_model is not None:
+            hbm.add_resident("draft_params", res(lambda e: _module_nbytes(e.draft_model)))
+            hbm.add_resident("draft_kv", res(lambda e: e.draft_cache.nbytes))
+        if self.prefix is not None:
+            hbm.add_resident("prefix_cache",
+                             res(lambda e: e.prefix.nbytes if e.prefix is not None else 0))
+        self.metrics.attach_hbm(hbm)
+        return hbm
 
     @staticmethod
     def _quantized(model, quantize, kv_page_size, draft_model):
@@ -551,12 +636,18 @@ class ServingEngine:
                              "model (the engine quantizes) or drop quantize=")
         return quantize_model(model, qcfg)
 
-    def _reset_caches(self) -> None:
+    def _reset_caches(self, recovery: bool = False) -> None:
         """Rewind the cache and the draft twin in lockstep, in place: every
         slot but the quarantined ones free, every validity row clear,
-        cursors at column 0."""
+        cursors at column 0. ``recovery`` (a failed dispatch) also voids the
+        pool's prefetch holds, as JAX's ``recover`` does; a drain, a
+        preemption or a halt keeps them (JAX ``reset``)."""
         for mgr in self._managers:
-            mgr.recover()
+            if recovery:
+                mgr.recover()
+            else:
+                mgr.release_all_slots()
+                mgr.reset()
 
     @property
     def _managers(self):
@@ -683,8 +774,16 @@ class ServingEngine:
             # who was waiting when the engine halted (after the requeue, so
             # the in-flight work counts) and the SLO state, flat enough for
             # the recorder's depth-capped redaction (JAX engine.py:1957-1988)
-            extra = {"requeued": len(requeued), "metrics": self.metrics.snapshot(),
-                     "tenant_queue_depths": self.scheduler.queued_by_tenant()}
+            # the ledger rides as flat scalars (the recorder's depth-capped
+            # redaction keeps them), not nested in the metrics snapshot
+            snap = self.metrics.snapshot()
+            snap.pop("hbm", None)
+            extra = {"requeued": len(requeued), "metrics": snap,
+                     "tenant_queue_depths": self.scheduler.queued_by_tenant(),
+                     "hbm": self.hbm.halt_summary()}
+            if self.tier is not None:
+                # where the spill tier stood (JAX engine.py:1982-1985)
+                extra["kv_host_tier"] = self.tier.summary()
             if self.metrics.slo is not None:
                 extra["slo"] = self.metrics.slo.per_tenant()
                 extra["slo_totals"] = self.metrics.slo.totals()
@@ -937,6 +1036,9 @@ class ServingEngine:
     def _admit(self, now: float) -> None:
         if self.cache.free_slots == 0 or self.scheduler.queued == 0:
             return
+        # the host tier: queued hits start their prefetch before selection;
+        # their holds keep the fit math honest (JAX engine.py:2373-2378)
+        self._prefetch_for_queue()
         proj = self.cache.cursor
         maxrem = max((r.remaining_new_tokens for r in self._slot_req if r is not None),
                      default=0)
@@ -1004,11 +1106,15 @@ class ServingEngine:
         leaves the in-flight slots out, which can re-admit the same
         over-committed wave after every page-pressure preemption and
         livelock; this count backs the next chunk, so every round makes
-        progress."""
+        progress. Pages a prefetch holds for the round's own hits are
+        counted in their context pages but excluded from
+        ``available_pages()``: they are credited back (JAX
+        ``engine.py:2468-2487``), or a tight pool livelocks."""
         cache, L, extra = self.cache, self.max_seq_len, self.gamma - 1
         cursor0, starts = cache.cursor, cache.active_spans()
         in_flight = np.flatnonzero(self._active)
         selected = []  # (context length, remaining tokens), queue order
+        held: set = set()  # prefetch-held pages the round's hits will map
         # the draft twin's pool maps the same columns without sharing prefix
         # pages: eager admission must fit both pools
         pools = self._managers
@@ -1022,10 +1128,11 @@ class ServingEngine:
             return ctx, cur
 
         def fits(req: Request) -> bool:
-            nonlocal maxrem
+            nonlocal maxrem, held
             if self._draining and req.admit_time is None:
                 return False  # draining admits only work admitted once already
             p, rem = len(req.context_ids), req.remaining_new_tokens
+            mine = held | self._held_pages(req)
             ctx, target = layout(selected + [(p, rem)])
             most = max(maxrem, rem)
             if self.admission == "conservative":
@@ -1043,13 +1150,23 @@ class ServingEngine:
                 for pool in pools:
                     need = (sum(pool.unmapped_pages(int(s), target, hi) for s in in_flight)
                             + sum(pool.context_pages(st, n, target, hi) for st, n in ctx))
-                    if need > pool.available_pages():
+                    credit = len(mine) if pool is cache else 0
+                    if need > pool.available_pages() + credit:
                         return False
             selected.append((p, rem))
-            maxrem = most
+            maxrem, held = most, mine
             return True
 
         return fits
+
+    def _held_pages(self, req: Request) -> set:
+        """The prefetch-held pages of the entry ``req`` would hit (a peek)."""
+        if self.tier is None or self.prefix is None:
+            return set()
+        hit = self.prefix.peek(req.context_ids)
+        if hit is None or not hit[0].page_ids or not self.cache.prefetch_held(hit[0].page_ids):
+            return set()
+        return set(hit[0].page_ids)
 
     def _paged_layout(self, p: int, rem: int, proj: int):
         """(padded, cursor target) for a paged admission at projected cursor
@@ -1250,6 +1367,12 @@ class ServingEngine:
         if self.prefix is None:
             return None
         hit = self.prefix.lookup(ctx)
+        if (hit is not None and self._page_size is not None and hit[0].page_ids is None
+                and hit[0].host_ids):
+            # still host-resident (the pre-pass missed it, or the pool was
+            # short then): one LATE prefetch now; a failure leaves page_ids
+            # None, and the floor below makes this a miss (JAX :2895-2915)
+            self._prefetch_entry(hit[0], late=True)
         if hit is not None and self._page_size is not None:
             # copy-on-write reuse is page-granular: the unaligned tail of
             # the match re-prefills as part of the suffix
@@ -1265,16 +1388,21 @@ class ServingEngine:
         entry, m_use = hit
         reuse = self._prefix_reuses
         self._prefix_reuses += 1
+        if self._page_size is not None:
+            # a prefetched entry's pages: the main stream waits for their copy
+            self.cache.sync_tier(entry.page_ids)
         if self._faults is not None:
             self._faults.on_prefix_reuse(reuse, entry,
                                          cache=self.cache if self._page_size is not None else None)
         if self._page_size is not None:
             # the accounting first (pages still allocated, pinned, not
             # quarantined), then the CONTENT: a bit flip leaves the
-            # accounting healthy, only the fingerprints see it
+            # accounting healthy, only the fingerprints see it. A host-tier
+            # hit's bytes were CRC-checked at its prefetch: no PF for it
+            # (JAX :2940-2955)
             used = entry.page_ids[:m_use // self._page_size]
             valid = self.cache.pages_live(used)
-            if valid and entry.page_fp is not None:
+            if valid and entry.page_fp is not None and entry.hit_tier != "host":
                 valid = self._validate_pages(entry, len(used))
         else:
             valid = self._validate_prefix(entry)
@@ -1288,9 +1416,16 @@ class ServingEngine:
                                       args={"matched": m_use, "prompt": p})
             return None
         self.prefix.pin(entry)
-        self.metrics.record_prefix_hit(m_use)
+        tier = entry.hit_tier
+        if self._page_size is not None:
+            # consumed: the pin protects the entry now, so a prefetch hold
+            # has done its job (holds are claims for QUEUED work only)
+            self.cache.release_prefetched(entry.page_ids)
+            entry.hit_tier = "device"  # resident again: later hits are device
+        self.metrics.record_prefix_hit(m_use, tier=tier)
         if self.timeline is not None:
-            self.timeline.instant("prefix_hit", "serving", args={"matched": m_use, "prompt": p})
+            self.timeline.instant("prefix_hit", "serving",
+                                  args={"matched": m_use, "prompt": p, "tier": tier})
         return entry, m_use, _suffix_bucket(p - m_use, end, self.max_seq_len)
 
     def _validate_prefix(self, entry: PrefixEntry) -> bool:
@@ -1367,24 +1502,137 @@ class ServingEngine:
 
     def _on_prefix_evict(self, entry: PrefixEntry) -> None:
         """The store's eviction hook (JAX ``_on_prefix_evict``,
-        ``engine.py:1071``): a paged entry leaving the store releases its
-        page pins; pages a decoding slot still maps survive through its own
-        references."""
+        ``engine.py:1071-1089``): a paged entry leaving the store releases
+        its page pins (pages a decoding slot still maps survive through its
+        own references); a prefetched entry no request used counts its pages
+        as wasted prefetch work first; a host-resident entry drops its host
+        pages."""
         if entry.page_ids:
+            if self.cache.prefetch_held(entry.page_ids):
+                self.metrics.record_prefetch_wasted(len(entry.page_ids))
+                self.cache.release_prefetched(entry.page_ids)
             self.cache.unpin_pages(entry.page_ids)
             entry.page_ids = None
+        if entry.host_ids and self.tier is not None:
+            self.tier.drop(entry.host_ids)
+            entry.host_ids = None
 
     def _reclaim_prefix_entry(self) -> bool:
         """The page-pressure valve (JAX ``_reclaim_prefix_entry``,
-        ``engine.py:1091``): evict the least-recently-used unpinned paged
-        entry so its pages can serve an admission. Never frees a page a slot
-        still maps: eviction only drops the entry's references."""
+        ``engine.py:1091-1112``): free the pages of the least-recently-used
+        unpinned paged entry so they can serve an admission. With a host
+        tier the entry is SPILLED there first and stays in the trie,
+        host-resident; a full store or a failed spill degrades to plain
+        eviction. Entries whose pages a queued request's prefetch holds are
+        skipped. Never frees a page a slot still maps."""
         for e in self.prefix.entries:  # LRU first
             if e.refs == 0 and e.page_ids:
+                if self.cache.prefetch_held(e.page_ids):
+                    continue
+                if self._spill_entry(e):
+                    return True
                 self.prefix.evict_entry(e)
                 self.metrics.record_prefix_eviction()
                 return True
         return False
+
+    def _spill_entry(self, entry: PrefixEntry) -> bool:
+        """Move one cold entry's pages to the host tier (JAX
+        ``_spill_entry``, ``engine.py:1114-1145``): the pages gathered out
+        of the pool and copied into the store with one sync (one host read),
+        then unpinned. True when the entry is host-resident now; False (no
+        tier, no room, a spill fault) leaves its pins intact for the caller's
+        plain eviction: a failed spill never leaks."""
+        if self.tier is None or not entry.page_ids:
+            return False
+        n = len(entry.page_ids)
+        if n > self.tier.free_pages:
+            return False
+        attempt = self._spill_index
+        self._spill_index += 1
+        try:
+            if self._faults is not None:
+                self._faults.on_spill(attempt)
+            items, nbytes = self.cache.spill_pages(entry.page_ids)
+            host_ids = self.tier.put(entry.page_ids, items)
+            self.host_reads += 1  # the store's copy ended in the spill's one sync
+        except _FATAL:
+            raise
+        except Exception:
+            self.metrics.record_spill_failure()
+            return False
+        self.cache.unpin_pages(entry.page_ids)
+        entry.page_ids = None
+        entry.host_ids = host_ids
+        entry.hit_tier = "host"
+        self.metrics.record_spill(n, nbytes)
+        if self.timeline is not None:
+            self.timeline.instant("kv_spill", "serving", args={"pages": n, "bytes": nbytes})
+        return True
+
+    def _prefetch_entry(self, entry: PrefixEntry, late: bool = False) -> bool:
+        """Bring one host-resident entry's pages back to the pool (JAX
+        ``_prefetch_entry``, ``engine.py:1147-1199``): the CRCs checked on
+        the host, fresh pages allocated, the bytes copied back on the pool's
+        tier stream (no host read; it overlaps the main stream's work) and
+        the pages held for the queued request. True when the entry is
+        device-resident after the call. A CRC mismatch or a prefetch fault
+        evicts the entry (the admission falls back to a full prefill); a
+        pool too short leaves it host-resident for a later pass. The arena
+        rows stay fenced until the copy's event has completed."""
+        if self.tier is None or not entry.host_ids:
+            return entry.page_ids is not None
+        host_ids = entry.host_ids
+        n = len(host_ids)
+        attempt = self._prefetch_index
+        self._prefetch_index += 1
+        try:
+            if self._faults is not None:
+                self._faults.on_prefetch(attempt, store=self.tier, host_ids=host_ids)
+            if not self.tier.verify(host_ids):
+                # a corrupted host copy: reject the WHOLE fetch, drop the entry
+                self.metrics.record_host_page_poisoned()
+                self.metrics.record_prefix_validation_failure()
+                if self.timeline is not None:
+                    self.timeline.instant("kv_host_poisoned", "serving", args={"pages": n})
+                self.prefix.evict_entry(entry)
+                self.metrics.record_prefix_eviction()
+                return False
+            rows, nbytes = self.tier.fetch(host_ids)
+            ids, done = self.cache.prefetch_pages(rows, n)
+        except PageExhausted:
+            return False  # stays host-resident; a later pass retries
+        except _FATAL:
+            raise
+        except Exception:
+            self.metrics.record_prefetch_failure()
+            self.prefix.evict_entry(entry)
+            self.metrics.record_prefix_eviction()
+            return False
+        self.cache.hold_prefetched(ids)
+        entry.page_ids = tuple(ids)
+        entry.host_ids = None
+        entry.hit_tier = "host"
+        self.tier.drop(host_ids, after=done)
+        self.metrics.record_prefetch(n, nbytes, late=late)
+        if self.timeline is not None:
+            self.timeline.instant("kv_prefetch", "serving",
+                                  args={"pages": n, "bytes": nbytes, "late": late})
+        return True
+
+    def _prefetch_for_queue(self) -> None:
+        """The admission pre-pass (JAX ``_prefetch_for_queue``,
+        ``engine.py:1201-1219``): for the first queued requests (as many as
+        free slots, at least one) whose prefix match is host-resident, start
+        the prefetch before the round is selected. Policy-blind and
+        LRU-neutral (``peek``); a prefetch for a request admitted later is
+        merely early."""
+        if self.tier is None or self.prefix is None:
+            return
+        for req in self.scheduler.upcoming(max(self.cache.free_slots, 1)):
+            hit = self.prefix.peek(req.context_ids)
+            if hit is not None and hit[0].host_ids and hit[1] > 0:
+                self._prefetch_entry(hit[0])
 
     def _bind_slot(self, req: Request, slot: int, logits: torch.Tensor, now: float) -> None:
         """Record the admission, sample a fresh request's first token (one
@@ -1592,7 +1840,7 @@ class ServingEngine:
         for r in requeued:
             self.tracer.step(r.rid, "recovery_requeue", args={"tokens": len(r.tokens)})
         self.scheduler.requeue_front(requeued)
-        self._reset_caches()
+        self._reset_caches(recovery=True)
         if self._page_size is not None and not untouched and self.prefix is not None:
             dropped = self.prefix.clear()
             if dropped:

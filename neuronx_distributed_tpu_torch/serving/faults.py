@@ -40,11 +40,20 @@ Injection points (every index 0-based and deterministic):
   low-order bit of the first pool page of the entry that the k-th prefix
   reuse attempt maps is flipped, on the device and before validation; only
   the per-page fingerprint check can catch it.
+* ``fail_spill(at=k, times=t)``: engines with a host page tier
+  (``kv_host_pages=``); the k-th..(k+t-1)-th spill attempts raise
+  ``InjectedSpillError`` before anything leaves the pool: the engine
+  degrades to plain eviction.
+* ``fail_prefetch(at=k, times=t)``: the k-th prefetch attempts raise
+  ``InjectedPrefetchError`` before any device write: the engine drops the
+  host entry and serves the request with a full prefill.
+* ``poison_host_page(at=k, times=t)``: the k-th prefetch attempts find
+  their entry's FIRST host page corrupted in place (one byte flipped,
+  ``HostPageStore.corrupt``): the CRC check must reject the whole fetch.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-``ROADMAP.md`` item: the host page tier's hooks (``fail_spill``,
-``fail_prefetch``, ``poison_host_page``; item 10), the fabric's
-(``fail_handoff`` and the transport schedules; item 10), ``flip_bits(
+``ROADMAP.md`` item: the fabric's (``fail_handoff`` and the transport
+schedules; item 10b), ``flip_bits(
 target="params")`` (the params setter; item 6b) and ``poison_draft``: the
 port's early-exit draft shares the target's tensors and the captured round
 bakes in their addresses, so a corrupted copy cannot be swapped in.
@@ -76,6 +85,15 @@ class InjectedPrefillError(InjectedFault):
     """Scheduled prefill failure (an out-of-memory-like admission fault)."""
 
 
+class InjectedSpillError(InjectedFault):
+    """Scheduled KV spill failure: the engine degrades to plain eviction."""
+
+
+class InjectedPrefetchError(InjectedFault):
+    """Scheduled KV prefetch failure: the engine drops the host copy and
+    falls back to a full prefill."""
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1, {item})")
 
@@ -92,6 +110,9 @@ class FaultInjector:
         self._draft_dispatch_windows: List[Tuple[int, Optional[int]]] = []
         self._page_poisons: Dict[int, List[int]] = {}  # readback -> [slot]
         self._pool_flip_windows: List[Tuple[int, Optional[int]]] = []
+        self._spill_windows: List[Tuple[int, Optional[int]]] = []
+        self._prefetch_windows: List[Tuple[int, Optional[int]]] = []
+        self._host_page_windows: List[Tuple[int, Optional[int]]] = []
         self._skew: float = 0.0
         self._skew_after: Optional[float] = None
         # the JAX package's counter names, those of hooks not ported included
@@ -164,32 +185,44 @@ class FaultInjector:
             "cannot be swapped in (ROADMAP.md, queue 1, item 6b)")
 
     def fail_spill(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        _not_ported("fail_spill (the host page tier)", "item 10")
+        """The ``at``-th..(at+times-1)-th KV spill attempts raise
+        :class:`InjectedSpillError` before anything leaves the pool: the
+        entry's pins are intact and the engine evicts it instead."""
+        self._spill_windows.append(self._window(at, times))
+        return self
 
     def fail_prefetch(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        _not_ported("fail_prefetch (the host page tier)", "item 10")
+        """The ``at``-th..(at+times-1)-th KV prefetch attempts raise
+        :class:`InjectedPrefetchError` before any device write: the engine
+        drops the host entry and serves the request with a full prefill."""
+        self._prefetch_windows.append(self._window(at, times))
+        return self
 
     def poison_host_page(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        _not_ported("poison_host_page (the host page tier)", "item 10")
+        """Flip one byte of the FIRST host page the ``at``-th..(at+times-1)-th
+        prefetch attempts are about to fetch (host-RAM bit rot, through the
+        store's own ``corrupt``): the CRC check must reject the whole fetch."""
+        self._host_page_windows.append(self._window(at, times))
+        return self
 
     def fail_handoff(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        _not_ported("fail_handoff (disaggregated serving)", "item 10")
+        _not_ported("fail_handoff (disaggregated serving)", "item 10b")
 
     def drop_send(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        _not_ported("drop_send (the serving transport)", "item 10")
+        _not_ported("drop_send (the serving transport)", "item 10b")
 
     def drop_ack(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        _not_ported("drop_ack (the serving transport)", "item 10")
+        _not_ported("drop_ack (the serving transport)", "item 10b")
 
     def dup_send(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        _not_ported("dup_send (the serving transport)", "item 10")
+        _not_ported("dup_send (the serving transport)", "item 10b")
 
     def delay_send(self, at: int = 0, times: Optional[int] = 1,
                    by: float = 1.0) -> "FaultInjector":
-        _not_ported("delay_send (the serving transport)", "item 10")
+        _not_ported("delay_send (the serving transport)", "item 10b")
 
     def partition(self, target, at: int = 0, times: Optional[int] = None) -> "FaultInjector":
-        _not_ported("partition (the serving transport)", "item 10")
+        _not_ported("partition (the serving transport)", "item 10b")
 
     # --- engine hooks --------------------------------------------------------
 
@@ -275,6 +308,25 @@ class FaultInjector:
             self.counters["prefill_failures"] += 1
             raise InjectedPrefillError(f"injected prefill failure at call {call} "
                                        "(RESOURCE_EXHAUSTED: out of memory)")
+
+    def on_spill(self, attempt: int) -> None:
+        """Called by engines with a host tier with the 0-based spill attempt
+        index, before the pages leave the pool."""
+        if self._hit(self._spill_windows, attempt):
+            self.counters["spill_failures"] += 1
+            raise InjectedSpillError(f"injected spill failure at attempt {attempt}")
+
+    def on_prefetch(self, attempt: int, store=None, host_ids=()) -> None:
+        """Called with the 0-based prefetch attempt index, the host store and
+        the host ids about to be fetched, BEFORE verification: a scheduled
+        ``poison_host_page`` corrupts the first page in place, a scheduled
+        ``fail_prefetch`` raises."""
+        if self._hit(self._host_page_windows, attempt) and store is not None and host_ids:
+            store.corrupt(host_ids[0])
+            self.counters["poisoned_host_pages"] += 1
+        if self._hit(self._prefetch_windows, attempt):
+            self.counters["prefetch_failures"] += 1
+            raise InjectedPrefetchError(f"injected prefetch failure at attempt {attempt}")
 
     def on_prefix_reuse(self, reuse: int, entry, cache=None) -> None:
         """Called with the 0-based prefix REUSE-attempt index, the matched

@@ -30,6 +30,14 @@ scrape payload) and exported as plain host numbers by ``snapshot()``.
   without merging a counter; a second UNLABELLED engine on a registry is
   refused.
 
+* The host page tier (``kv_host_pages=``; JAX ``metrics.py:94-106``,
+  ``:528-565``): spill and prefetch pages and bytes, late and wasted
+  prefetches, spill and prefetch failures, poisoned host pages, the batch
+  sizes of each transfer, and prefix hits by the tier their entry lived in
+  (``serving_prefix_hit_tier{tier=}``, the snapshot's ``prefix_hit_tier``).
+* ``snapshot()["hbm"]`` is the engine's HBM ledger
+  (``observability/hbm.py``), attached weakly.
+
 The speculative acceptance statistics ride the same registry
 (``observability/spec_stats.py``). Recording costs no device read: every
 sample is a host scalar the engine already holds.
@@ -37,6 +45,7 @@ sample is a host scalar the engine already holds.
 
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Optional
 
 from neuronx_distributed_tpu_torch.observability.registry import (
@@ -78,6 +87,18 @@ _COUNTERS = (
     ("prefix_validation_failures", "serving_prefix_validation_failures", True),
     ("page_quarantines", "serving_page_quarantines", True),
     ("prefix_pages_shared", "serving_prefix_pages_shared", True),
+    # the host page tier: its traffic and failure modes (JAX's names). late =
+    # a prefetch at rebind time instead of the queue pre-pass; wasted =
+    # prefetched pages whose entry was evicted before any request used them
+    ("kv_pages_spilled", "serving_kv_spill_pages", True),
+    ("kv_spill_bytes", "serving_kv_spill_bytes", True),
+    ("kv_spill_failures", "serving_kv_spill_failures", True),
+    ("kv_pages_prefetched", "serving_kv_spill_prefetch_pages", True),
+    ("kv_prefetch_bytes", "serving_kv_spill_prefetch_bytes", True),
+    ("kv_prefetch_late", "serving_kv_spill_prefetch_late", True),
+    ("kv_prefetch_wasted", "serving_kv_spill_prefetch_wasted", True),
+    ("kv_prefetch_failures", "serving_kv_spill_prefetch_failures", True),
+    ("kv_host_poisoned", "serving_kv_spill_host_poisoned", True),
     ("occupied_slot_steps", "serving_occupied_slot_steps", True),
     ("prefill_full_wall_s", "serving_prefill_full_wall_s", False),
     ("prefill_suffix_wall_s", "serving_prefill_suffix_wall_s", False),
@@ -136,6 +157,14 @@ class ServingMetrics:
             "serving_tpot_s", help="per-request mean time per output token after the first (s)")
         self._h_queue_wait = view.histogram("serving_queue_wait_s",
                                             help="submit -> first admission (s)")
+        self._h_spill_batch = view.histogram("serving_kv_spill_batch_pages",
+                                             help="pages moved device->host per spill event")
+        self._h_prefetch_batch = view.histogram(
+            "serving_kv_spill_prefetch_batch_pages",
+            help="pages moved host->device per prefetch event")
+        self._f_hit_tier = view.family("counter", "serving_prefix_hit_tier", labels=("tier",),
+                                       help="prefix hits by residency tier of the matched entry")
+        self._hbm_ref = None
         self._g_cursor = view.gauge("serving_cursor_high_water",
                                     help="highest shared cache cursor seen")
         self._g_peak_occupancy = view.gauge("serving_peak_occupancy",
@@ -318,11 +347,14 @@ class ServingMetrics:
 
     # --- prefix cache -------------------------------------------------------
 
-    def record_prefix_hit(self, matched: int) -> None:
+    def record_prefix_hit(self, matched: int, tier: str = "device") -> None:
         """An admission reused ``matched`` stored prefix tokens (only the
-        tail was prefilled)."""
+        tail was prefilled); ``tier`` is where the entry's pages lived when
+        the hit was planned: ``"device"`` or ``"host"`` (spilled and
+        prefetched back)."""
         self._inc("prefix_hits")
         self._inc("prefix_tokens_reused", matched)
+        self.view.child(self._f_hit_tier, tier).inc()
 
     def record_prefix_miss(self) -> None:
         self._inc("prefix_misses")
@@ -339,6 +371,47 @@ class ServingMetrics:
         """A paged hit mapped ``n`` pool pages copy-on-write into the
         admitted slot's block table (zero KV bytes copied)."""
         self._inc("prefix_pages_shared", n)
+
+    # --- the host page tier -------------------------------------------------
+
+    def record_spill(self, pages: int, nbytes: int) -> None:
+        """The reclaim valve moved a cold entry's ``pages`` pages
+        (``nbytes``) to the host tier in one batched copy."""
+        self._inc("kv_pages_spilled", pages)
+        self._inc("kv_spill_bytes", nbytes)
+        self._h_spill_batch.observe(float(pages))
+
+    def record_spill_failure(self) -> None:
+        """A spill failed: the entry degraded to plain eviction."""
+        self._inc("kv_spill_failures")
+
+    def record_prefetch(self, pages: int, nbytes: int, late: bool = False) -> None:
+        """``pages`` host pages were written back to the pool; ``late``: at
+        the admission itself, the queue pre-pass having missed it."""
+        self._inc("kv_pages_prefetched", pages)
+        self._inc("kv_prefetch_bytes", nbytes)
+        if late:
+            self._inc("kv_prefetch_late")
+        self._h_prefetch_batch.observe(float(pages))
+
+    def record_prefetch_failure(self) -> None:
+        """A prefetch failed: the entry was dropped, the admission fell back
+        to a full prefill."""
+        self._inc("kv_prefetch_failures")
+
+    def record_prefetch_wasted(self, pages: int) -> None:
+        """``pages`` prefetched pages were evicted before any request used
+        them."""
+        self._inc("kv_prefetch_wasted", pages)
+
+    def record_host_page_poisoned(self, n: int = 1) -> None:
+        """A host-tier fetch was rejected: a page failed its CRC."""
+        self._inc("kv_host_poisoned", n)
+
+    def attach_hbm(self, hbm) -> None:
+        """Wire the engine's HBM ledger into ``snapshot()["hbm"]`` (a weak
+        reference: kept metrics never pin a retired engine)."""
+        self._hbm_ref = weakref.ref(hbm) if hbm is not None else None
 
     def record_prefill_wall(self, seconds: float, kind: str = "full") -> None:
         """Wall time of one prefill, ``kind`` ``"full"`` or ``"suffix"`` (a
@@ -451,6 +524,7 @@ class ServingMetrics:
         waits = [r["queue_wait"] for r in reqs if "queue_wait" in r]
         wall = self.decode_dispatch_s + self.decode_readback_s
         hits, misses = self.prefix_hits, self.prefix_misses
+        hbm = self._hbm_ref() if self._hbm_ref is not None else None
         return {
             "num_slots": self.num_slots,
             "steps": self.steps,
@@ -492,6 +566,18 @@ class ServingMetrics:
             "prefix_evictions": self.prefix_evictions,
             "prefix_validation_failures": self.prefix_validation_failures,
             "prefix_pages_shared": self.prefix_pages_shared,
+            "kv_pages_spilled": self.kv_pages_spilled,
+            "kv_spill_bytes": self.kv_spill_bytes,
+            "kv_spill_failures": self.kv_spill_failures,
+            "kv_pages_prefetched": self.kv_pages_prefetched,
+            "kv_prefetch_bytes": self.kv_prefetch_bytes,
+            "kv_prefetch_late": self.kv_prefetch_late,
+            "kv_prefetch_wasted": self.kv_prefetch_wasted,
+            "kv_prefetch_failures": self.kv_prefetch_failures,
+            "kv_host_poisoned": self.kv_host_poisoned,
+            "prefix_hit_tier": {tier: int(self.view.child(self._f_hit_tier, tier).value)
+                                for tier in ("device", "host")
+                                if self.view.has_child(self._f_hit_tier, tier)},
             "cursor_high_water": self.cursor_high_water,
             "mean_occupancy": self.mean_occupancy,
             "peak_occupancy": self.peak_occupancy,
@@ -509,6 +595,7 @@ class ServingMetrics:
             "tpot_p99_s": self._h_tpot.percentile(0.99),
             "queue_wait_p95_s": self._h_queue_wait.percentile(0.95),
             "tenants": self.tenant_snapshot(),
+            "hbm": hbm.snapshot() if hbm is not None else {},
             **({"slo": self.slo.snapshot()} if self.slo is not None else {}),
             **self.spec.snapshot(),
         }

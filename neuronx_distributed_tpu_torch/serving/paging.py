@@ -3,9 +3,9 @@ ref-counted page pool (counterpart of
 ``neuronx_distributed_tpu/serving/paging.py``, what the engine calls:
 ``PageAllocator`` with page sharing and quarantine, ``PagedCacheManager``
 with prefix pins, copy-on-write admission, ``kv_quant``, page and slot
-quarantine and recovery, and without staged contexts, export/import or
-spill/prefetch, which belong to a later slice together with their
-callers).
+quarantine and recovery, and the host page tier's spill and prefetch;
+without staged contexts and export/import, which belong to a later slice
+together with their callers).
 
 The row-per-slot manager (``serving/cache_manager.py``) charges every slot a
 full ``max_seq_len`` row of device memory whatever its request uses. Here:
@@ -49,19 +49,36 @@ full ``max_seq_len`` row of device memory whatever its request uses. Here:
   a referenced page leaves circulation when its last reference drops. A
   poisoned slot readback retires the slot's exclusively owned pages; the
   slot index itself stays in the rotation.
+* The host page tier (``serving/tiering.py``): :meth:`PagedCacheManager.
+  spill_pages` gathers a cold entry's pages out of the pool (one
+  ``index_select`` a leaf; the store copies them to host memory with one
+  sync), :meth:`PagedCacheManager.prefetch_pages` writes host pages back
+  into fresh pages on a TIER STREAM of the manager's own (one host-to-device
+  copy, one ``index_copy_`` a leaf), so the copy overlaps the main stream's
+  work. The tier stream waits for the main stream first (fresh pages may
+  still be zeroed there); the main stream waits for the prefetch's event
+  before anything touches those pages again (:meth:`PagedCacheManager.
+  sync_tier`: at a mapping, a spill, an unpin). A prefetched page is born
+  pinned and held (:meth:`PagedCacheManager.hold_prefetched`) until its
+  queued request consumes it: a held page is neither free nor reclaimable.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
+
+import torch
 
 from neuronx_distributed_tpu_torch.modules.attention import (
     PagedKVCache,
     reset_cache,
     reset_cache_slot,
 )
+from neuronx_distributed_tpu_torch.serving.tiering import PageLayout
+from neuronx_distributed_tpu_torch.utils.fingerprint import pool_leaves
 
 
 class PageExhausted(RuntimeError):
@@ -190,6 +207,11 @@ class PagedCacheManager:
         self._tables = np.zeros((num_slots, self.pages_per_row), np.int32)
         self._slot_start: List[Optional[int]] = [None] * num_slots
         self._pins: Dict[int, int] = {}  # page -> prefix entries pinning it
+        # pages a queued request's prefetch claimed (each also pinned)
+        self._prefetch_hold: set = set()
+        # page -> the event of the prefetch still writing it on the tier stream
+        self._tier_events: Dict[int, object] = {}
+        self._tier_stream = None
         # page-pressure valve: evicts one unpinned prefix entry, True when it
         # freed something (the engine installs it)
         self.reclaim: Optional[Callable[[], bool]] = None
@@ -314,15 +336,18 @@ class PagedCacheManager:
         return own_end - start // ps + max(0, hi - lo)
 
     def reclaimable_pages(self) -> int:
-        """Pages an eviction could free now: pinned by prefix entries and
-        mapped by no slot."""
+        """Pages an eviction (or a spill to the host tier) could free now:
+        pinned by prefix entries, mapped by no slot, not quarantined and not
+        held by a prefetch (JAX ``reclaimable_pages``, ``paging.py:618``: a
+        queued request is about to map those)."""
         return sum(1 for pid, pins in self._pins.items()
                    if pins > 0 and self.alloc.refcount(pid) == pins
-                   and pid not in self.alloc._quarantined)
+                   and pid not in self.alloc._quarantined and pid not in self._prefetch_hold)
 
     def available_pages(self) -> int:
         """Pages an admission can claim now: the free list plus what evicting
-        every unpinned-by-flight prefix entry could reclaim."""
+        every unpinned-by-flight prefix entry could reclaim. Prefetch-held
+        pages are neither (the fit math counts them as claimed)."""
         return self.alloc.free_pages + self.reclaimable_pages()
 
     def _alloc_pages(self, n: int) -> List[int]:
@@ -350,6 +375,7 @@ class PagedCacheManager:
             self._pins[int(pid)] = self._pins.get(int(pid), 0) + 1
 
     def unpin_pages(self, ids: Sequence[int]) -> None:
+        self.sync_tier(ids)  # a freed page may be written next on the main stream
         for pid in ids:
             pid = int(pid)
             pins = self._pins.get(pid, 0)
@@ -358,6 +384,20 @@ class PagedCacheManager:
             else:
                 self._pins[pid] = pins - 1
             self.alloc.deref(pid)
+
+    def hold_prefetched(self, ids: Sequence[int]) -> None:
+        """Mark freshly prefetched (pinned) pages as claimed by a queued
+        request: not reclaimable until released (JAX ``hold_prefetched``)."""
+        self._prefetch_hold.update(int(pid) for pid in ids)
+
+    def release_prefetched(self, ids: Sequence[int]) -> None:
+        """Drop prefetch holds (a no-op for pages without one)."""
+        self._prefetch_hold.difference_update(int(pid) for pid in ids)
+
+    def prefetch_held(self, ids: Sequence[int]) -> bool:
+        """Whether ANY of ``ids`` is held by a prefetch (the reclaim valve
+        skips such entries)."""
+        return any(int(pid) in self._prefetch_hold for pid in ids)
 
     def pages_live(self, ids: Sequence[int]) -> bool:
         """Reuse-time validation of a paged prefix entry's accounting: every
@@ -425,6 +465,7 @@ class PagedCacheManager:
         n_sh = m_shared // ps
         if len(shared_ids) < n_sh:
             raise ValueError(f"{n_sh} shared pages needed, got {len(shared_ids)}")
+        self.sync_tier(shared_ids[:n_sh])
         if (self._tables[slot] != 0).any():
             raise ValueError(f"slot {slot} still maps pages (not freed?)")
         own = self._alloc_pages(-(-(p - m_shared) // ps))
@@ -486,11 +527,12 @@ class PagedCacheManager:
         """After a failed decode dispatch whose requests are requeued (JAX
         ``recover``, ``paging.py:1180``): every slot back in the rotation,
         every block-table mapping dropped, the storage reset IN PLACE,
-        cursor 0. Prefix pins are the engine's to resolve: when the failed
-        chunk's steps ran, it clears the store, whose eviction hook
-        releases the pins."""
+        cursor 0, every prefetch hold void (JAX :1200). Prefix pins are the
+        engine's to resolve: when the failed chunk's steps ran, it clears
+        the store, whose eviction hook releases the pins."""
         self.release_all_slots()
         self.reset()
+        self._prefetch_hold.clear()
 
     def update_after_decode(self, start: int, steps: int) -> None:
         """Set the cursor (mirror and device) after a decode chunk that
@@ -541,3 +583,88 @@ class PagedCacheManager:
                 f"page {pid} is not exactly one of free/referenced/quarantined: "
                 f"free={pid in free} refs={have} quarantined={pid in a._quarantined}"
             )
+        # a prefetch hold is an overlay on a PINNED page, never a reference
+        # of its own (JAX paging.py:1274-1279)
+        for pid in self._prefetch_hold:
+            assert self._pins.get(pid, 0) > 0, (
+                f"page {pid} carries a prefetch hold but no prefix pin")
+
+    # --- the host page tier -------------------------------------------------
+
+    def page_layout(self) -> PageLayout:
+        """One pool page's leaves as the host tier stores them: ``k``, ``v``
+        (and ``k_scale``/``v_scale`` on an int8 pool) in the JAX package's
+        sorted-key order, each block (num_layers, 1, *page)."""
+        c = self.cache
+        leaves = pool_leaves(c)
+        names = ("k", "v") if len(leaves) == 2 else ("k", "k_scale", "v", "v_scale")
+        return PageLayout([(name, (t.shape[0], 1) + tuple(t.shape[2:]), t.dtype)
+                           for name, t in zip(names, leaves)])
+
+    def sync_tier(self, ids: Sequence[int]) -> None:
+        """Make the main stream wait for the prefetches still writing pages
+        ``ids`` on the tier stream (a device-side wait, no host sync)."""
+        events = {id(ev): ev for ev in (self._tier_events.pop(int(p), None) for p in ids)
+                  if ev is not None}
+        for ev in events.values():
+            torch.cuda.current_stream(self.cache.k.device).wait_event(ev)
+
+    def spill_pages(self, ids: Sequence[int]):
+        """The device half of a spill (JAX ``spill_pages``,
+        ``paging.py:1055-1089``): the pinned prefix pages ``ids`` gathered
+        out of every pool leaf in storage form (K and V pages, an int8
+        pool's scales too), one ``index_select`` on the page axis a leaf,
+        enqueued on the main stream and read by nothing here. Returns
+        ``([(leaf name, block (num_layers, n, *page))], nbytes)``;
+        ``HostPageStore.put`` copies the batch into its host arena with one
+        sync, the spill's one host read."""
+        if self.cache is None:
+            raise RuntimeError("spill needs an allocated pool")
+        self.sync_tier(ids)
+        c = self.cache
+        idx = torch.as_tensor([int(p) for p in ids], dtype=torch.long, device=c.k.device)
+        items = [(name, leaf.index_select(1, idx))
+                 for (name, _, _), leaf in zip(self.page_layout().leaves, pool_leaves(c))]
+        return items, sum(b.numel() * b.element_size() for _, b in items)
+
+    def prefetch_pages(self, rows, n_pages: int):
+        """The device half of a prefetch (JAX ``prefetch_pages``,
+        ``paging.py:1091-1118``): ``n_pages`` fresh pages (the reclaim valve
+        may run), then ``rows`` (the host tier's packed page rows in page
+        order, as runs) copied to the card and scattered into every pool
+        leaf with one ``index_copy_`` on the page axis. On the card all of it
+        runs on the tier stream after it waits for the main stream, and
+        nothing waits for it here: it overlaps whatever the main stream runs
+        next. Each page's born reference is adopted as a prefix pin. Not
+        charged to ``copy_bytes`` (that meter is the pool's copy-on-write
+        sharing). Returns ``(page ids, the copy's event or None)``; the
+        event also fences the pages until :meth:`sync_tier`."""
+        if self.cache is None:
+            raise RuntimeError("prefetch needs an allocated pool")
+        ids = self._alloc_pages(n_pages)
+        c, layout = self.cache, self.page_layout()
+        dev, done = c.k.device, None
+        scope = contextlib.nullcontext()
+        if dev.type == "cuda":
+            if self._tier_stream is None:
+                self._tier_stream = torch.cuda.Stream(dev)
+            self._tier_stream.wait_stream(torch.cuda.current_stream(dev))
+            scope = torch.cuda.stream(self._tier_stream)
+        with scope:  # staging allocated on the stream that reads it
+            staged = torch.empty((n_pages, layout.row_nbytes), dtype=torch.uint8, device=dev)
+            i = 0
+            for run in rows:
+                staged[i:i + len(run)].copy_(run, non_blocking=dev.type == "cuda")
+                i += len(run)
+            idx = torch.as_tensor(ids, dtype=torch.long).to(dev, non_blocking=True)
+            for j, leaf in enumerate(pool_leaves(c)):
+                leaf.index_copy_(1, idx, layout.leaf_rows(staged, j).movedim(0, 1))
+            if dev.type == "cuda":
+                done = torch.cuda.Event()
+                done.record(self._tier_stream)
+        for pid in ids:
+            # alloc bore the page at refcount 1; that reference IS the pin
+            self._pins[int(pid)] = self._pins.get(int(pid), 0) + 1
+            if done is not None:
+                self._tier_events[int(pid)] = done
+        return [int(pid) for pid in ids], done

@@ -188,6 +188,23 @@ class Scheduler:
     def queued(self) -> int:
         return sum(1 for r in self._queue if not r.finished)
 
+    def upcoming(self, n: int) -> List[Request]:
+        """The first ``n`` live queued requests in plain queue order (JAX
+        ``upcoming``, ``scheduler.py:257``): the host page tier's prefetch
+        pre-pass peeks here. Read-only and policy-blind: it never consults
+        the policy, so it cannot perturb admission; a prefetch for a request
+        the policy admits later merely moves its pages early."""
+        if n <= 0:
+            return []
+        out: List[Request] = []
+        for r in self._queue:
+            if r.finished:
+                continue
+            out.append(r)
+            if len(out) >= n:
+                break
+        return out
+
     def queued_by_tenant(self) -> Dict[str, int]:
         """Live queue depth per tenant, tenant-sorted (a halt's post-mortem
         records it: who was waiting)."""

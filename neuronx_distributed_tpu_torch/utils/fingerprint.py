@@ -1,17 +1,22 @@
-"""The prefix cache's integrity fingerprints (counterpart of
-``neuronx_distributed_tpu/utils/fingerprint.py``: ``cache_fingerprint``,
-``:127-155``, and ``pool_pages_fingerprint``, ``:158``, with its bit mix and
-constants; the host CRCs and the tree fingerprint belong to later slices).
+"""Integrity fingerprints (counterpart of
+``neuronx_distributed_tpu/utils/fingerprint.py``: the host CRCs
+``page_fingerprint``, ``:66``, and ``bytes_fingerprint``, ``:77``;
+``cache_fingerprint``, ``:127-155``; ``pool_pages_fingerprint``, ``:158``,
+with its bit mix and constants; the tree fingerprint belongs to a later
+slice).
 
 A stored prefix block (a row entry's copy, or a paged entry's pool pages) is
 fingerprinted at insert and again at every reuse, and the two must be equal
-bit for bit: corruption detection (bit flips), not cryptographic
-integrity."""
+bit for bit; a page spilled to the host tier carries the CRC-32 of its bytes,
+checked before it goes back to the pool. Corruption detection (bit flips,
+rot), not cryptographic integrity."""
 
 from __future__ import annotations
 
+import zlib
 from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 from neuronx_distributed_tpu_torch.kernels.page_fingerprint import (  # noqa: F401
@@ -19,6 +24,31 @@ from neuronx_distributed_tpu_torch.kernels.page_fingerprint import (  # noqa: F4
     FINGERPRINT_SEED,
     pool_pages_fingerprint_fwd,
 )
+
+
+def raw_bytes(block) -> np.ndarray:
+    """The bytes of a host block in C order, as a uint8 array: a CPU tensor
+    of any dtype (``Tensor.numpy()`` refuses bf16, so through a byte view) or
+    a numpy array."""
+    if isinstance(block, torch.Tensor):
+        t = block.contiguous()
+        return t.reshape(-1).view(torch.uint8).numpy() if t.numel() else np.empty(0, np.uint8)
+    return np.ascontiguousarray(block).reshape(-1).view(np.uint8)
+
+
+def page_fingerprint(blocks) -> int:
+    """CRC-32 chained over a page's per-leaf blocks in storage order (JAX
+    ``page_fingerprint``): ``blocks`` is the host tier's ``[(leaf name,
+    block)]`` page representation."""
+    fp = 0
+    for _, block in blocks:
+        fp = zlib.crc32(raw_bytes(block), fp)
+    return fp
+
+
+def bytes_fingerprint(data, fp: int = 0) -> int:
+    """CRC-32 of raw bytes, chainable (pass the previous value as ``fp``)."""
+    return zlib.crc32(data, fp)
 
 
 def cache_fingerprint(cache) -> torch.Tensor:

@@ -1440,3 +1440,195 @@ def test_slo_engine_on_card_preempts_on_one_captured_graph(cuda, monkeypatch, pa
             emitted = torch.tensor(toks, device="cuda")[:, None]
             gap = logits.max(-1).values - logits.gather(-1, emitted)[:, 0]
             assert float((gap / (5e-2 * logits.abs().max())).max()) <= 1.0, name
+
+
+def _tier_pool(gen, n_pages, int8, layers=2, hkv=8, ps=16, max_seq_len=8192):
+    """A page manager over a pool on the card filled with random K/V (int8
+    codes with bf16 scales, or bf16), every page but the null page live
+    content; the manager owns no slot yet."""
+    from neuronx_distributed_tpu_torch.modules.attention import PagedKVCache
+    from neuronx_distributed_tpu_torch.serving.paging import PagedCacheManager
+
+    mgr = PagedCacheManager(1, max_seq_len, ps, num_pages=n_pages)
+    mgr.cache = PagedKVCache.allocate(layers, 1, max_seq_len, hkv, 128, torch.bfloat16, "cuda",
+                                      n_pages, ps, "int8" if int8 else None)
+    c = mgr.cache
+    if int8:
+        for t in (c.k, c.v):
+            t.copy_(torch.randint(-127, 128, t.shape, generator=gen, device="cuda"))
+        for t in (c.k_scale, c.v_scale):
+            t.copy_(torch.rand(t.shape, generator=gen, device="cuda") + 0.01)
+    else:
+        c.k.copy_(_rnd(gen, *c.k.shape))
+        c.v.copy_(_rnd(gen, *c.v.shape))
+    return mgr
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+def test_tier_spill_then_prefetch_round_trips_pages_bitwise(cuda, int8):
+    """A scrambled set of pinned pool pages spilled to a pinned host store
+    (CRC-checked) and prefetched into other pages: every leaf, codes and
+    scales on an int8 pool, bit for bit, and PF over the new pages equals
+    PF over the old."""
+    from neuronx_distributed_tpu_torch.serving.tiering import HostPageStore
+    from neuronx_distributed_tpu_torch.utils.fingerprint import pool_leaves, pool_pages_fingerprint
+
+    mgr = _tier_pool(cuda, 64, int8)
+    ids = [int(p) for p in np.random.default_rng(8).permutation(np.arange(1, 64))[:20]]
+    mgr.alloc._free = [p for p in mgr.alloc._free if p not in ids]
+    for pid in ids:
+        mgr.alloc._refs[pid] = 1
+        mgr._pins[pid] = 1
+    want = [t[:, ids].clone() for t in pool_leaves(mgr.cache)]
+    fp = pool_pages_fingerprint(mgr.cache, ids)
+    store = HostPageStore(32, layout=mgr.page_layout(), pin_memory=True)
+    assert store.arena.is_pinned()
+    items, nbytes = mgr.spill_pages(ids)
+    hids = store.put(ids, items)
+    assert nbytes == store.nbytes == len(ids) * mgr.page_nbytes and store.verify(hids)
+    mgr.unpin_pages(ids)
+    for t in pool_leaves(mgr.cache):  # what a freed page may hold next
+        t[:, ids] = 0
+    rows, _ = store.fetch(hids)
+    new, done = mgr.prefetch_pages(rows, len(ids))
+    store.drop(hids, after=done)
+    mgr.sync_tier(new)
+    assert done is not None and not set(new) & {0}
+    for t, w in zip(pool_leaves(mgr.cache), want):
+        assert torch.equal(t[:, new], w)
+    assert torch.equal(pool_pages_fingerprint(mgr.cache, new), fp)
+    mgr.check()
+    store.check()
+
+
+@pytest.mark.cuda
+def test_tier_prefetch_then_k5_without_host_sync(cuda):
+    """K5 through freshly prefetched pages right after the prefetch, with no
+    host sync between (the main stream waits for the copy's event on the
+    device, as the engine's mapping does), equals the same call after
+    ``torch.cuda.synchronize()``, bit for bit; a long prefetch (512 pages)
+    over pages holding other bytes makes a missing wait show."""
+    from neuronx_distributed_tpu_torch.serving.tiering import HostPageStore
+
+    n = 512
+    mgr = _tier_pool(cuda, n + 1, False)
+    ids = list(range(1, n + 1))
+    mgr.alloc._free = []
+    for pid in ids:
+        mgr.alloc._refs[pid] = 1
+        mgr._pins[pid] = 1
+    store = HostPageStore(n, layout=mgr.page_layout(), pin_memory=True)
+    hids = store.put(ids, mgr.spill_pages(ids)[0])
+    mgr.unpin_pages(ids)
+    c = mgr.cache
+    c.k.mul_(-3.0)  # the pages' next content differs from the stored one
+    c.v.mul_(7.0)
+    q = _rnd(cuda, 1, 1, 32, 128)
+    pos = torch.tensor([n * 16 - 1], dtype=torch.int32, device="cuda")
+    valid = torch.ones(1, n * 16, dtype=torch.bool, device="cuda")
+    rows, _ = store.fetch(hids)
+    new, done = mgr.prefetch_pages(rows, n)
+    table = torch.tensor([new], dtype=torch.int32, device="cuda")
+    mgr.sync_tier(new)  # a device-side wait, no host sync
+    early = tfd.paged_flash_decode_fwd(q, c.k[1], c.v[1], table, pos, valid, 16)
+    torch.cuda.synchronize()
+    late = tfd.paged_flash_decode_fwd(q, c.k[1], c.v[1], table, pos, valid, 16)
+    assert torch.equal(early[0], late[0]) and torch.equal(early[1], late[1])
+    store.drop(hids, after=done)
+
+
+@pytest.mark.cuda
+def test_tier_arena_rows_not_reused_while_a_prefetch_copies_them(cuda):
+    """A prefetch's arena rows are fenced by its copy's event: a ``put``
+    issued while the copy is still in flight (held back on the tier stream
+    here) waits for it instead of overwriting the rows, so the prefetched
+    pages hold the first pages' bytes, never the second's."""
+    from neuronx_distributed_tpu_torch.serving.tiering import HostPageStore
+    from neuronx_distributed_tpu_torch.utils.fingerprint import pool_leaves
+
+    mgr = _tier_pool(cuda, 64, False)
+    first, second = list(range(1, 9)), list(range(9, 17))
+    mgr.alloc._free = [p for p in mgr.alloc._free if p > 16]
+    for pid in first + second:
+        mgr.alloc._refs[pid] = 1
+        mgr._pins[pid] = 1
+    want = [t[:, first].clone() for t in pool_leaves(mgr.cache)]
+    store = HostPageStore(8, layout=mgr.page_layout(), pin_memory=True)
+    hids = store.put(first, mgr.spill_pages(first)[0])
+    mgr.unpin_pages(first)
+    mgr._tier_stream = torch.cuda.Stream()
+    with torch.cuda.stream(mgr._tier_stream):
+        torch.cuda._sleep(200_000_000)  # hold the copy back ~0.1 s
+    rows, _ = store.fetch(hids)
+    new, done = mgr.prefetch_pages(rows, len(first))
+    store.drop(hids, after=done)
+    assert not done.query() and len(store._fenced) == 1
+    store.put(second, mgr.spill_pages(second)[0])  # needs the fenced rows
+    assert done.query() and not store._fenced
+    mgr.sync_tier(new)
+    for t, w in zip(pool_leaves(mgr.cache), want):
+        assert torch.equal(t[:, new], w)
+    store.check()
+
+
+@pytest.mark.cuda
+def test_tiered_engine_pins_its_arena_once_and_never_in_a_capture(cuda, monkeypatch):
+    """A small bf16 Llama's paged engine with a host tier on the card: the
+    pinned arena is allocated at construction and never again (no pinned
+    allocation while the engine serves, none during the capture), one
+    capture, spills and host-tier prefetches on JAX's tiered workload
+    (four prefixes of two pages, waves 0,1,2,3,0,1, a pool of 8 usable
+    pages), and streams equal a control whose pool holds the whole working
+    set, bit for bit; both tiers ``check()`` clean after every step."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.serving.cache_manager import PrefixCache
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512)
+    model = init_params(LlamaForCausalLM(cfg), seed=0)
+    rng = np.random.default_rng(4)
+    prefixes = [rng.integers(1, 1000, size=33) for _ in range(4)]
+    prompts = [np.concatenate([prefixes[w], rng.integers(1, 1000, size=4)])
+               for w in (0, 1, 2, 3, 0, 1)]
+    pinned = []
+    real_empty = torch.empty
+
+    def empty(*a, **kw):
+        if kw.get("pin_memory"):
+            pinned.append(torch.cuda.is_current_stream_capturing())
+        return real_empty(*a, **kw)
+
+    def serve(**kw):
+        engine = ServingEngine(model, num_slots=2, decode_chunk_size=4, kv_page_size=16,
+                               admission="eager", prefix_cache=PrefixCache(min_match=16), **kw)
+        arena = engine.tier.arena.data_ptr() if engine.tier is not None else None
+        monkeypatch.setattr(torch, "empty", empty)
+        monkeypatch.setattr(torch.Tensor, "pin_memory",
+                            lambda self, *a: pytest.fail("pin_memory on the serving path"))
+        toks = []
+        for i, p in enumerate(prompts):
+            r = engine.submit(p, GenerationConfig(8, temperature=0.0), seed=i)
+            while engine.has_work:
+                engine.step()
+                engine.cache.check()
+                if engine.tier is not None:
+                    engine.tier.check()
+            toks.append(list(r.tokens))
+        monkeypatch.undo()
+        if arena is not None:
+            assert engine.tier.arena.data_ptr() == arena
+        assert engine.decode_compilations == 1
+        return engine, toks
+
+    tiered, toks = serve(kv_num_pages=9, kv_host_pages=16)
+    control, want = serve(kv_num_pages=65)
+    assert pinned == []
+    snap = tiered.metrics.snapshot()
+    assert snap["kv_pages_spilled"] >= 4 and snap["kv_pages_prefetched"] >= 4
+    assert snap["prefix_hit_tier"].get("host", 0) == snap["prefix_hits"] >= 2
+    assert control.metrics.snapshot()["prefix_hit_tier"] == {"device": snap["prefix_hits"]}
+    assert toks == want
+    assert tiered.cache.alloc.copy_bytes == 0

@@ -107,6 +107,16 @@ def test_every_module_imports_and_runs_with_jax_blocked():
         chaos.cache.check()
         assert req.tokens == solo and chaos.metrics.recoveries == 1, req.tokens
         assert chaos.metrics.quarantines == 1 and chaos.flight.events()
+        tiered = ServingEngine(model, num_slots=1, decode_chunk_size=2, kv_page_size=8,
+                               kv_num_pages=3, kv_host_pages=4)
+        for start in (3, 20, 3):  # two prefixes through a pool of two pages
+            req = tiered.submit(list(range(start, start + 8)) + [1], cfg)
+            tiered.run()
+        tiered.cache.check()
+        tiered.tier.check()
+        snap = tiered.metrics.snapshot()
+        assert snap["kv_pages_spilled"] >= 1 and snap["prefix_hit_tier"] == dict(host=1), snap
+        assert tiered.hbm.snapshot()["residents"]["kv_host_pages"]["tier"] == "host"
         from neuronx_distributed_tpu_torch.observability.registry import MetricsRegistry
         from neuronx_distributed_tpu_torch.observability.slo import SLOSpec
         from neuronx_distributed_tpu_torch.serving.traffic import (
@@ -149,7 +159,9 @@ def test_every_module_imports_and_runs_with_jax_blocked():
             "neuronx_distributed_tpu_torch.serving.sched.priority",
             "neuronx_distributed_tpu_torch.serving.sched.fairness",
             "neuronx_distributed_tpu_torch.serving.sched.feedback",
-            "neuronx_distributed_tpu_torch.serving.traffic"} <= set(_port_modules())
+            "neuronx_distributed_tpu_torch.serving.traffic",
+            "neuronx_distributed_tpu_torch.serving.tiering",
+            "neuronx_distributed_tpu_torch.observability.hbm"} <= set(_port_modules())
 
 
 def test_slo_serving_pieces_are_the_ports_own():
@@ -175,7 +187,11 @@ def test_fault_contract_pieces_are_the_ports_own():
     from neuronx_distributed_tpu_torch.utils import fingerprint
     from neuronx_distributed_tpu_torch.utils.retry import RetryPolicy
 
-    for obj in (FlightRecorder, FaultInjector, InjectedFault, RetryPolicy):
+    from neuronx_distributed_tpu_torch.observability.hbm import HBMLedger, weak_reader
+    from neuronx_distributed_tpu_torch.serving.tiering import HostPageStore
+
+    for obj in (FlightRecorder, FaultInjector, InjectedFault, RetryPolicy, HBMLedger,
+                weak_reader, HostPageStore, fingerprint.page_fingerprint):
         assert obj.__module__.startswith("neuronx_distributed_tpu_torch."), obj
     assert (fingerprint.FINGERPRINT_SEED, fingerprint.FINGERPRINT_PRIME) == (0x9E3779B9, 0x01000193)
 

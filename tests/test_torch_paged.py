@@ -510,6 +510,8 @@ def test_paged_engine_options_are_validated(pair):
     for bad in (dict(kv_num_pages=9), dict(kv_page_size=12), dict(kv_page_size=PS, kv_num_pages=1)):
         with pytest.raises(ValueError):
             ServingEngine(tmodel, num_slots=1, **bad)
-    with pytest.raises(TypeError):  # the host page tier is not ported
-        ServingEngine(tmodel, num_slots=1, kv_page_size=PS, kv_host_pages=4)
+    with pytest.raises(ValueError, match="kv_page_size"):  # the host tier is page-granular
+        ServingEngine(tmodel, num_slots=1, kv_host_pages=4)
+    tiered = ServingEngine(tmodel, num_slots=1, kv_page_size=PS, kv_host_pages=4)
+    assert tiered.tier.max_pages == 4 and tiered.tier.arena.shape[0] == 4
     assert isinstance(ServingEngine(tmodel, num_slots=1, kv_page_size=PS).cache, PagedCacheManager)

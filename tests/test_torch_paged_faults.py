@@ -336,9 +336,8 @@ def test_kv_pool_bit_flip_rejected_falls_back_bit_identical(setup, kv):
 
 def test_not_ported_hooks_raise():
     inj = FaultInjector()
-    for call in (lambda: inj.flip_bits("params"), lambda: inj.fail_spill(),
-                 lambda: inj.fail_prefetch(), lambda: inj.poison_host_page(),
-                 lambda: inj.fail_handoff(), lambda: inj.drop_send(), lambda: inj.partition(0)):
+    for call in (lambda: inj.flip_bits("params"), lambda: inj.fail_handoff(),
+                 lambda: inj.drop_send(), lambda: inj.partition(0)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
     with pytest.raises(ValueError):
