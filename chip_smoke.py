@@ -181,6 +181,34 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    failed prefetch on (a)'s tiered engine: counters = the schedule,
    requests submitted before the first fault = the fault-free run's, every
    greedy token within phase 3's limit teacher-forced;
+5j. weights that change, at full width and depth (random bf16 weights,
+   W0 = seed 0, the model's; W1 = seed 1): (a) phase 5c's paged prefix
+   engine and traffic, a wave under W0, ``engine.params = W1`` (the
+   device-to-device copy timed), the same wave again: every parameter at
+   its address, one capture, the store empty, every page free of pins,
+   ``check()`` clean; the second wave hits and misses as the first (no W0
+   entry reused), K1 = full prefills x 32, PF = inserts + hits, its streams
+   differ from W0's and equal a fresh engine's over the model now holding
+   W1 bit for bit; (b) phase 5f(a)'s int8 engine: a float W1 re-quantized
+   into the engine's own tensors = ``quantize_state_dict(W1)`` bit for bit
+   (timed), a pre-quantized W1 bound as is, DQ 225 a replay, streams = a
+   fresh int8 engine's on W1, the float source model = ``init_params(seed
+   0)`` bit for bit; (c) phase 5d's speculative engine with ``draft_params=``
+   (the layer-0 draft's tensors copied, no storage shared with the
+   target): beside an int8 target, poisoned at every dispatch (greedy
+   acceptance under 0.5, the clean control's over 0.9, the draft's bits
+   restored) and swapped mid-flight to a corrupted draft and back (its
+   acceptance collapses, no new capture); every greedy token within phase
+   3's limit teacher-forced; (d) phase 4's row engine and phase 5b's paged
+   engine on a virtual clock: two steps, ``fence``, the snapshot through
+   JSON, a restore into a fresh engine 1000 s later: the live requests
+   restored, the downtime and every deadline budget exact, every stream
+   DONE and beginning with its pre-kill tokens, every greedy token within
+   phase 3's limit teacher-forced, K1 = (admissions + re-admissions) x 32,
+   one capture an engine; streams equal to the uninterrupted run's and the
+   wall from the fence to the first token after the restore printed; (e)
+   the fenced row engine's requeued requests adopted one by one by a fresh
+   engine, (d)'s stream gates;
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -2124,7 +2152,8 @@ def teacher_ratio(model, workload, tokens) -> float:
 
 
 def serve_spec(target, draft, workload, paged: bool = False, eager: bool = False,
-               profiled: bool = False) -> dict:
+               profiled: bool = False, own_draft: bool = False, quantize=None, injector=None,
+               between=None) -> dict:
     """Phase 4's six requests through an engine with the speculative round
     (``draft`` None: the same engine without it): 8 slots, chunk 8
     (rounds), conservative, ``prefix_cache=None``; ``paged`` over a pool of
@@ -2135,13 +2164,17 @@ def serve_spec(target, draft, workload, paged: bool = False, eager: bool = False
     round launches the draft's draft_layers x gamma decode kernels and the
     target's one a layer, K5 on the paged engine and K4 on the row one, and
     never the multi-row path; each admission K1 once a layer of both
-    models."""
+    models. Phase 5j's: ``own_draft`` gives the engine a copy of the draft's
+    tensors (``draft_params=``), ``quantize`` its target (DQ once a linear
+    of every target forward), ``injector`` a fault schedule, and
+    ``between(engine, i)`` runs after the i-th decode-only step."""
     from torch.profiler import ProfilerActivity, profile
 
     from neuronx_distributed_tpu_torch.kernels.flash_decode import (
         flash_decode_fwd,
         paged_flash_decode_fwd,
     )
+    from neuronx_distributed_tpu_torch.models.llama import shares_storage
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
     from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
 
@@ -2150,8 +2183,10 @@ def serve_spec(target, draft, workload, paged: bool = False, eager: bool = False
     layers = cfg.num_layers
     kw = dict(kv_page_size=PAGE, kv_num_pages=ROW_SLOTS * cfg.max_seq_len // PAGE + 1) if paged else {}
     spec = dict(draft_model=draft, gamma=SPEC_GAMMA) if draft is not None else {}
+    if own_draft:
+        spec["draft_params"] = draft.state_dict()
     engine = ServingEngine(target, num_slots=8, decode_chunk_size=8, prefix_cache=None, **kw,
-                           **spec)
+                           **spec, quantize=quantize, fault_injector=injector)
     counters = kernel_counters()
     torch.cuda.synchronize()
     for c in counters.values():
@@ -2167,7 +2202,12 @@ def serve_spec(target, draft, workload, paged: bool = False, eager: bool = False
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         executed0 = engine.metrics.executed_steps
-        engine.run()
+        i = 0
+        while engine.has_work:
+            engine.step()
+            if between is not None:
+                between(engine, i)
+            i += 1
         torch.cuda.synchronize()
         t2 = time.perf_counter()
     launches, warm = engine_launches(engine, {name: c.launches for name, c in counters.items()})
@@ -2192,9 +2232,16 @@ def serve_spec(target, draft, workload, paged: bool = False, eager: bool = False
                              f"{per_round}, {snap['prefills']} admissions x {layers + d_layers})")
     check_program(engine, what, eager)
     prog = decode_program(engine)
-    if not eager and prog.launches_per_replay != {dec: per_round}:
+    linears = 7 * layers + 1 if quantize is not None and quantize.weights else 0
+    want_replay = {dec: per_round, **({"dequantize": linears} if linears else {})}
+    if not eager and prog.launches_per_replay != want_replay:
         raise AssertionError(f"{what}: launches per replay {prog.launches_per_replay}, want "
-                             f"{{{dec!r}: {per_round}}}")
+                             f"{want_replay}")
+    if (launches["dequantize"] - warm["dequantize"]
+            != (snap["executed_steps"] + snap["prefills"]) * linears):
+        raise AssertionError(f"{what}: DQ launches {launches['dequantize']} (warm-up "
+                             f"{warm['dequantize']}) != (executed rounds + admissions) x "
+                             f"{linears} linears")
     if paged:
         engine.cache.check()
         if engine.draft_cache is not None:
@@ -2208,7 +2255,11 @@ def serve_spec(target, draft, workload, paged: bool = False, eager: bool = False
                # of the decode launches, the target's verify windows: a layer
                # each round that went through the wrapper (the capture's
                # warm-up, the eager rounds) or was replayed
-               verify=(launches[dec] // per_round) * layers)
+               verify=(launches[dec] // per_round) * layers,
+               # the served target (a quantized copy under ``quantize``) and
+               # the draft's tensors, for phase 5j's checks
+               model=engine.model, draft_state=engine.draft_params,
+               draft_alone=draft is None or not shares_storage(engine.draft_model, engine.model))
     if profiled:
         res["records"] = decode_records(prof, paged=paged)
         if res["records"] != 2 * snap["executed_steps"] * per_round:
@@ -3974,6 +4025,498 @@ def tier_phase(model, smi: str) -> dict:
     return dict(launches=launches)
 
 
+# --- phase 5j: weights that change ----------------------------------------------
+
+SWAP_SEED = 1              # W1, the weights the swaps write (the model holds W0, seed 0)
+RESTART_DEADLINE_S = 3600.0  # each restarted request's deadline budget (virtual seconds)
+RESTART_GAP_S = 1000.0     # the virtual clock's jump between the kill and the restore
+
+
+def param_ptrs(module) -> dict:
+    return {k: t.data_ptr() for k, t in module.state_dict().items()}
+
+
+def seed_mismatches(model, seed: int) -> list:
+    """The parameters of ``model`` that differ from ``init_params(model,
+    seed)``'s values, regenerated one tensor at a time in its order and
+    compared bit for bit (no second copy of the model)."""
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    bad = []
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            want = torch.empty_like(p)
+            if name.endswith("norm.weight"):
+                want.fill_(1.0)
+            elif name == "model.embed.weight":
+                want.normal_(0.0, 1.0, generator=gen)
+            elif p.ndim == 2:
+                want.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=gen)
+            else:
+                want.zero_()
+            if not torch.equal(want, p):
+                bad.append(name)
+            del want
+    return bad
+
+
+def engine_wave(engine, workload, paged: bool = False) -> dict:
+    """``workload`` through a live engine: every kernel's count zeroed, the
+    requests submitted at once (seed = index) and stepped to idle,
+    ``check()`` of a paged pool after every step, each new prefix entry
+    counted. Gates: every request DONE with its token count in the
+    vocabulary. Returns the streams, the snapshot's deltas, the launches
+    (the program's replays in the wave x its launches per replay added),
+    the replays and the inserts."""
+    from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
+
+    prompts, cfgs = workload
+    counters = kernel_counters()
+    prog = decode_program(engine)
+    replays0, base = prog.replays, engine.metrics.snapshot()
+    inserts = [0]
+    if engine.prefix is not None:
+        insert = engine.prefix.insert
+
+        def counting(*a, **kw):
+            entry, evicted = insert(*a, **kw)
+            inserts[0] += entry is not None
+            return entry, evicted
+
+        engine.prefix.insert = counting
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
+    while engine.has_work:
+        engine.step()
+        if paged:
+            engine.cache.check()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if engine.prefix is not None:
+        engine.prefix.insert = insert
+    vocab = engine.model.config.vocab_size
+    for r in reqs:
+        if r.state is not RequestState.DONE or len(r.tokens) != r.config.max_new_tokens:
+            raise AssertionError(f"request {r.rid}: {r.state} with {len(r.tokens)} tokens")
+        if not all(0 <= t < vocab for t in r.tokens):
+            raise AssertionError(f"request {r.rid}: token outside the vocabulary")
+    snap = engine.metrics.snapshot()
+    replays = prog.replays - replays0
+    launches = {name: c.launches for name, c in counters.items()}
+    for name, n in prog.launches_per_replay.items():
+        launches[name] += replays * n
+    delta = {k: snap[k] - base[k] for k in (
+        "prefix_hits", "prefix_misses", "prefix_evictions", "prefills", "executed_steps",
+        "prefill_full_count", "prefill_suffix_count")}
+    return dict(tokens=[list(r.tokens) for r in reqs], delta=delta, launches=launches,
+                replays=replays, inserts=inserts[0], wall_s=wall,
+                per_replay=dict(prog.launches_per_replay))
+
+
+def swap_leg(model, m1, smi: str) -> dict:
+    """5j(a): phase 5c's paged prefix engine and traffic. A wave under W0
+    (``serve_prefix``: warm-up, the store cleared, the measured wave), then
+    ``engine.params = W1`` (the float engine writes the model it serves),
+    then the same wave again; a fresh engine over the model, which now
+    holds W1, serves it too. Returns the launches of the second wave."""
+    from neuronx_distributed_tpu_torch.serving.cache_manager import PrefixCache
+
+    cfg = model.config
+    layers = cfg.num_layers
+    workload = prefix_workload(cfg.vocab_size)
+    w0 = serve_prefix(model, workload, True, PrefixCache())
+    engine = w0.pop("engine")
+    entries = len(engine.prefix.entries)
+    ptrs, prog = param_ptrs(engine.model), decode_program(engine)
+    w1 = m1.state_dict()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.params = w1
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    alloc = engine.cache.alloc
+    if param_ptrs(engine.model) != ptrs or engine.decode_compilations != 1:
+        raise AssertionError("weight swap: a parameter moved, or the decode program was "
+                             f"captured again ({engine.decode_compilations} captures)")
+    if (engine.prefix.entries or alloc.referenced_pages or alloc.free_pages != alloc.capacity
+            or engine.metrics.snapshot()["prefix_evictions"] - w0["snap"]["prefix_evictions"]
+            != entries):
+        raise AssertionError(f"weight swap: {len(engine.prefix.entries)} entries left of "
+                             f"{entries}, {alloc.referenced_pages} pages referenced, "
+                             f"{alloc.free_pages} of {alloc.capacity} free")
+    engine.cache.check()
+    w2 = engine_wave(engine, workload, paged=True)
+    d = w2["delta"]
+    if (d["prefix_hits"], d["prefix_misses"]) != (w0["delta"]["prefix_hits"],
+                                                  w0["delta"]["prefix_misses"]):
+        raise AssertionError(f"weight swap: the wave after it hit {d['prefix_hits']} and missed "
+                             f"{d['prefix_misses']}; W0's wave {w0['delta']['prefix_hits']}, "
+                             f"{w0['delta']['prefix_misses']} (a W0 entry was reused)")
+    got = {"flash_attention": w2["launches"]["flash_attention"],
+           "page_fingerprint": w2["launches"]["page_fingerprint"],
+           "paged_flash_decode": w2["launches"]["paged_flash_decode"]}
+    want = {"flash_attention": d["prefill_full_count"] * layers,
+            "page_fingerprint": w2["inserts"] + d["prefix_hits"],
+            "paged_flash_decode": (d["executed_steps"] + d["prefill_suffix_count"]) * layers}
+    if got != want or engine.decode_compilations != 1:
+        raise AssertionError(f"weight swap, second wave: launches {got} != {want} (K1 a full "
+                             f"prefill x {layers}, PF an insert or a hit, K5 a replay or a "
+                             f"suffix prefill x {layers}), captures {engine.decode_compilations}")
+    same_w0 = [i for i, (a, b) in enumerate(zip(w2["tokens"], w0["tokens"])) if a == b]
+    if same_w0:
+        raise AssertionError(f"weight swap: requests {same_w0} streamed W0's tokens after the "
+                             "swap")
+    engine.prefix.clear()
+    engine.cache.check()
+    del engine
+    collect_engines()
+    fresh = serve_prefix(model, workload, True, PrefixCache())
+    drain_prefix_store(fresh)
+    if fresh["tokens"] != w2["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(w2["tokens"], fresh["tokens"])) if a != b]
+        raise AssertionError(f"weight swap: requests {diff} differ from a fresh engine's over the "
+                             "model holding W1")
+    n = len(w2["tokens"])
+    log(f"weights 5j(a) ({smi}; phase 5c's paged prefix engine and traffic, {PAGED_SLOTS} slots, "
+        f"page {PAGE}): engine.params = W1 (seed {SWAP_SEED}, {sum(t.numel() * t.element_size() for t in w1.values()) / 1e9:.3f} GB "
+        f"on the card) in {1e3 * swap_s:.2f} ms (device-to-device copy_ of every tensor, "
+        f"the checks and the store's clear); every parameter at its address, one capture, "
+        f"{entries} entries dropped, every page free of pins, check() clean; the wave after the "
+        f"swap: hits {d['prefix_hits']}, misses {d['prefix_misses']} (W0's entry not reused), "
+        f"K1 {got['flash_attention']} = {d['prefill_full_count']} full prefills x {layers}, PF "
+        f"{got['page_fingerprint']} = {w2['inserts']} inserts + {d['prefix_hits']} hits, K5 "
+        f"{got['paged_flash_decode']}; streams differ from W0's ({n} of {n}) and equal a fresh "
+        f"engine's on W1 bit for bit ({n} of {n}); wall {w2['wall_s']:.3f} s (W0 wave "
+        f"{w0['wall_s']:.3f})")
+    return dict(launches=w2["launches"], swap_s=swap_s)
+
+
+def quant_swap_leg(model, m1, srv: dict, smi: str) -> dict:
+    """5j(b): phase 5f(a)'s int8 engine on phase 4's requests. A wave under
+    W0, ``engine.params = W1`` (float: re-quantized into the engine's own
+    codes and scales), a pre-quantized W1 bound as is, a wave under W1; a
+    fresh int8 engine over ``m1`` (W1) serves the same wave. Returns the
+    launches of the wave after the swap."""
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    from neuronx_distributed_tpu_torch.quantization.utils import quantize_state_dict
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    layers, linears = model.config.num_layers, 7 * model.config.num_layers + 1
+    q = QuantConfig(weights="int8")
+    engine = ServingEngine(model, num_slots=8, decode_chunk_size=8, prefix_cache=None,
+                           quantize=q)
+    engine_wave(engine, srv["workload"])
+    ptrs, w1 = param_ptrs(engine.model), m1.state_dict()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.params = w1
+    torch.cuda.synchronize()
+    requant_s = time.perf_counter() - t0
+    want = quantize_state_dict(w1, engine._weight_qcfg)
+    got = engine.params
+    bad = [k for k in want if got[k].dtype != want[k].dtype or not torch.equal(got[k], want[k])]
+    if sorted(got) != sorted(want) or bad or param_ptrs(engine.model) != ptrs:
+        raise AssertionError(f"quantized swap: codes or scales differ from quantize_state_dict(W1) "
+                             f"({bad[:4]}), or a tensor moved")
+    t0 = time.perf_counter()
+    engine.params = want  # pre-quantized: bound as is
+    torch.cuda.synchronize()
+    bind_s = time.perf_counter() - t0
+    if param_ptrs(engine.model) != ptrs:
+        raise AssertionError("quantized swap: a pre-quantized bind moved a tensor")
+    del want, got
+    w = engine_wave(engine, srv["workload"])
+    if (w["per_replay"] != {"flash_decode": layers, "dequantize": linears}
+            or engine.decode_compilations != 1):
+        raise AssertionError(f"quantized swap: launches per replay {w['per_replay']}, captures "
+                             f"{engine.decode_compilations}")
+    d = w["delta"]
+    if w["launches"]["dequantize"] != (d["executed_steps"] + d["prefills"]) * linears:
+        raise AssertionError(f"quantized swap: DQ launches {w['launches']['dequantize']} != "
+                             f"(executed steps + prefills) x {linears}")
+    del engine
+    collect_engines()
+    fresh = ServingEngine(m1, num_slots=8, decode_chunk_size=8, prefix_cache=None, quantize=q)
+    engine_wave(fresh, srv["workload"])  # the same history: a wave, then the measured one
+    ref = engine_wave(fresh, srv["workload"])
+    del fresh
+    collect_engines()
+    if ref["tokens"] != w["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(w["tokens"], ref["tokens"])) if a != b]
+        raise AssertionError(f"quantized swap: requests {diff} differ from a fresh int8 engine's "
+                             "on W1")
+    bad = seed_mismatches(model, 0)
+    if bad:
+        raise AssertionError(f"quantized swap: the float source model changed: {bad[:4]}")
+    log(f"weights 5j(b) ({smi}; phase 5f(a)'s int8 row engine, phase 4's 6 requests): "
+        f"engine.params = W1 (float) re-quantized in {1e3 * requant_s:.2f} ms, codes and scales = "
+        f"quantize_state_dict(W1) bit for bit in the same tensors; a pre-quantized W1 bound as "
+        f"is in {1e3 * bind_s:.2f} ms; launches per replay {w['per_replay']}, DQ "
+        f"{w['launches']['dequantize']} = (executed {d['executed_steps']} + prefills "
+        f"{d['prefills']}) x {linears}; streams = a fresh int8 engine's on W1 ({len(w['tokens'])} "
+        f"of {len(w['tokens'])}); the float source model = init_params(seed 0) bit for bit")
+    return dict(launches=w["launches"], requant_s=requant_s)
+
+
+def draft_leg(model, srv: dict, smi: str) -> dict:
+    """5j(c): phase 5d's speculative engine (gamma 4) with ``draft_params=``
+    holding the early-exit draft's tensors (eps 0) copied: the int8 target
+    beside the float draft; a poisoned draft against its clean control; a
+    draft swap mid-flight. Returns the launches of its runs."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.models.llama import early_exit_draft
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    from neuronx_distributed_tpu_torch.serving.faults import FaultInjector
+
+    workload = srv["workload"]
+    target, draft = early_exit_draft(model, SPEC_DRAFT_LAYERS, 0.0)
+    runs = {}
+    # the int8 target is the early-exit target quantized: the pair's function
+    # up to the quantization, so the acceptance still reads the draft
+    runs["int8 target"] = serve_spec(target, draft, workload, own_draft=True,
+                                     quantize=QuantConfig(weights="int8"))
+    inj = FaultInjector().poison_draft(at=0, times=None)
+    runs["poisoned"] = serve_spec(target, draft, workload, own_draft=True, injector=inj)
+    runs["clean"] = serve_spec(target, draft, workload, own_draft=True)
+    # the draft swap mid-flight: greedy, 160 new tokens (a clean chunk emits
+    # up to 32), a corrupted draft between the first and the third
+    # decode-only step, the clean one after
+    prompts = workload[0]
+    greedy = (prompts, [GenerationConfig(max_new_tokens=160, temperature=0.0)] * len(prompts))
+    good = draft.state_dict()
+    bad = {k: -v + 3.7 for k, v in good.items()}
+    seg = {}
+
+    def between(engine, i):
+        sn = engine.metrics.snapshot()
+        seg[i] = (sn["spec_accepted_tokens"], sn["spec_draft_tokens"])
+        if i == 0:
+            engine.draft_params = bad
+        elif i == 2:
+            engine.draft_params = good
+
+    runs["swapped"] = serve_spec(target, draft, greedy, own_draft=True, between=between)
+    del bad
+    for name, r in runs.items():
+        r["teacher"] = teacher_ratio(r["model"], workload if name != "swapped" else greedy,
+                                     r["tokens"])
+        if r["teacher"] > 1.0:
+            raise AssertionError(f"draft 5j(c) {name}: a greedy token lies {r['teacher']:.3g}x "
+                                 "phase 3's limit below its row's maximum teacher-forced")
+        if not r["draft_alone"]:
+            raise AssertionError(f"draft 5j(c) {name}: the draft shares storage with the target")
+    poisoned, clean = greedy_accept_rate(runs["poisoned"]), greedy_accept_rate(runs["clean"])
+    if inj.counters["poisoned_drafts"] < 1 or poisoned >= 0.5 or clean <= 0.9:
+        raise AssertionError(f"draft 5j(c): poisoned_drafts {inj.counters['poisoned_drafts']}, "
+                             f"greedy acceptance poisoned {poisoned:.4f} (< 0.5), clean "
+                             f"{clean:.4f} (> 0.9)")
+    changed = [k for k, v in runs["poisoned"]["draft_state"].items() if not torch.equal(v, good[k])]
+    if changed:
+        raise AssertionError(f"draft 5j(c): the poisoned draft's bits were not restored: "
+                             f"{changed[:4]}")
+    s0, s2 = seg[0], seg[2]
+    last = runs["swapped"]["snap"]
+    before = s0[0] / max(s0[1], 1)
+    during = (s2[0] - s0[0]) / max(s2[1] - s0[1], 1)
+    after = (last["spec_accepted_tokens"] - s2[0]) / max(last["spec_draft_tokens"] - s2[1], 1)
+    if (during >= 0.5 or before <= 0.9 or s2[1] == s0[1]
+            or runs["swapped"]["compilations"] != 1):
+        raise AssertionError(f"draft 5j(c) mid-flight swap: acceptance before {before:.4f}, with "
+                             f"the corrupted draft {during:.4f}, captures "
+                             f"{runs['swapped']['compilations']}")
+    for name, r in runs.items():
+        sn = r["snap"]
+        log(f"draft 5j(c) {name} ({smi}; phase 5d's engine, gamma {SPEC_GAMMA}, the layer-0 "
+            f"draft at eps 0 as tensors of its own, no storage shared with the target): greedy "
+            f"acceptance {greedy_accept_rate(r):.4f} (rate {sn['spec_accept_rate']:.4f}), rounds "
+            f"{sn['spec_rounds']}, launches per replay {r['per_round']} decode kernels"
+            + (f" + {7 * model.config.num_layers + 1} DQ" if name == "int8 target" else "")
+            + f", one capture, teacher-forced "
+            f"gap {r['teacher']:.3g}x its limit, wall {r['wall_s']:.3f} s")
+    log(f"draft 5j(c): poisoned_drafts {inj.counters['poisoned_drafts']}, the draft's bits after "
+        f"the run = its clean copy; mid-flight swap (greedy, 160 new tokens): acceptance "
+        f"{before:.4f} before, {during:.4f} with the corrupted draft (2 chunks), {after:.4f} "
+        f"after the clean one is back (old-draft K/V stays in the draft cache), no new capture")
+    launches = {k: sum(r["launches"][k] for r in runs.values()) for k in runs["clean"]["launches"]}
+    del runs, target, draft, good
+    collect_engines()
+    return dict(launches=launches, poisoned=poisoned, clean=clean)
+
+
+def restart_engine(model, paged: bool, clock):
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    kw = (dict(num_slots=PAGED_SLOTS, kv_page_size=PAGE,
+               kv_num_pages=ROW_SLOTS * model.config.max_seq_len // PAGE + 1) if paged
+          else dict(num_slots=8))
+    return ServingEngine(model, decode_chunk_size=8, prefix_cache=None, time_fn=clock, **kw)
+
+
+def resumed_gates(what: str, model, engine, reqs, mid, workload, ref_tokens, counts) -> dict:
+    """The gates every continued stream passes (5j(d) and (e)): DONE with
+    its token count, its pre-kill tokens first, every greedy token within
+    phase 3's limit teacher-forced, K1 = the engine's admissions x 32, one
+    capture. Returns the engine's launches and how many streams equal the
+    uninterrupted run's."""
+    from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
+
+    prompts, cfgs = workload
+    layers = model.config.num_layers
+    for r in reqs:
+        i = r.rid
+        if r.state is not RequestState.DONE or len(r.tokens) != cfgs[i].max_new_tokens:
+            raise AssertionError(f"{what}: request {i}: {r.state} with {len(r.tokens)} tokens")
+        if r.tokens[:len(mid[i])] != mid[i]:
+            raise AssertionError(f"{what}: request {i} does not continue its pre-kill tokens")
+    tokens = [list(r.tokens) for r in sorted(reqs, key=lambda r: r.rid)]
+    order = sorted(r.rid for r in reqs)
+    worst = teacher_ratio(model, ([prompts[i] for i in order], [cfgs[i] for i in order]), tokens)
+    if worst > 1.0:
+        raise AssertionError(f"{what}: a greedy token lies {worst:.3g}x phase 3's limit below its "
+                             "row's maximum teacher-forced")
+    launches, _ = engine_launches(engine, counts)
+    if launches["flash_attention"] != engine.metrics.prefills * layers:
+        raise AssertionError(f"{what}: K1 {launches['flash_attention']} != "
+                             f"{engine.metrics.prefills} admissions x {layers}")
+    if engine.decode_compilations != 1:
+        raise AssertionError(f"{what}: {engine.decode_compilations} captures")
+    same = sum(t == ref_tokens[i] for t, i in zip(tokens, order))
+    return dict(launches=launches, same=same, teacher=worst)
+
+
+def restart_leg(model, workload, paged: bool, ref_tokens, smi: str) -> dict:
+    """5j(d): two steps of ``workload`` on a virtual clock, ``fence``, the
+    snapshot through JSON, a restore into a fresh engine over the same
+    module 1000 s later; (e) on the row engine, the fenced engine's
+    requeued requests adopted one by one by another fresh engine. Returns
+    the launches of every engine."""
+    from neuronx_distributed_tpu_torch.serving.traffic import VirtualClock
+
+    what = "paged" if paged else "row"
+    prompts, cfgs = workload
+    layers = model.config.num_layers
+    clock = VirtualClock(start=0.0)
+    a = restart_engine(model, paged, clock)
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    reqs = [a.submit(p, c, seed=i, deadline_s=RESTART_DEADLINE_S)
+            for i, (p, c) in enumerate(zip(prompts, cfgs))]
+    for _ in range(2):
+        a.step()
+        clock.advance(0.5)
+    mid = [list(r.tokens) for r in reqs]
+    live = [r for r in reqs if not r.finished]
+    budgets = {r.rid: r.deadline - clock() for r in live}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.fence("chip smoke kill")
+    snap = json.loads(json.dumps(a.snapshot_serving_state()))
+    a.step()
+    if [list(r.tokens) for r in reqs] != mid:
+        raise AssertionError(f"restart ({what}): stepping the fenced engine changed a token")
+    out = {name: c.launches for name, c in counters.items()}
+    a_launch, _ = engine_launches(a, out)
+    if a_launch["flash_attention"] != a.metrics.prefills * model.config.num_layers:
+        raise AssertionError(f"restart ({what}): the killed engine's K1 {a_launch['flash_attention']}")
+    for c in counters.values():
+        c.launches = 0
+    clock_b = VirtualClock(start=clock() + RESTART_GAP_S)
+    b = restart_engine(model, paged, clock_b)
+    rep = b.restore_serving_state(snap)
+    b.step()  # the re-prefills and the first chunk: the first tokens after the restore
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    b.run()
+    if paged:
+        b.cache.check()
+    if rep["restored"] != len(live) or rep["downtime_s"] != RESTART_GAP_S:
+        raise AssertionError(f"restart ({what}): {rep} for {len(live)} live requests and a "
+                             f"{RESTART_GAP_S} s gap")
+    got = [b.scheduler.requests[r.rid] for r in live]
+    left = {r.rid: r.deadline - clock_b() for r in got}  # the virtual clock stood still
+    if b.metrics.prefills != len(live) or left != budgets:
+        raise AssertionError(f"restart ({what}): {b.metrics.prefills} re-admissions, deadline "
+                             f"budgets {left} against {budgets}")
+    res = resumed_gates(f"restart ({what})", model, b, got, mid, workload, ref_tokens,
+                        {name: c.launches for name, c in counters.items()})
+    launches = {k: a_launch[k] + res["launches"][k] for k in a_launch}
+    log(f"weights 5j(d) restart, {what} engine ({smi}; "
+        + (f"phase 5b's {PAGED_SLOTS}-slot paged engine and 15 requests" if paged else
+           "phase 4's 8-slot row engine and 6 requests")
+        + f", a virtual clock): two steps, fence, the snapshot through JSON "
+        f"({len(json.dumps(snap))} bytes, {len(snap['requests'])} requests); the fenced engine's "
+        f"step changed no token; restored {rep['restored']} (the live requests), downtime_s "
+        f"{rep['downtime_s']} exact, every deadline budget exact, all DONE, every stream begins "
+        f"with its pre-kill tokens, teacher-forced gap {res['teacher']:.3g}x phase 3's limit; K1 "
+        f"{a_launch['flash_attention']} + {res['launches']['flash_attention']} = (admissions "
+        f"{a.metrics.prefills} + re-admissions {b.metrics.prefills}) x {layers}; one capture an "
+        f"engine; "
+        f"streams equal to the uninterrupted run's: {res['same']} of {len(live)}; fence to the "
+        f"first token after the restore {first_s:.3f} s (the snapshot, the new engine, "
+        f"{b.metrics.prefills} re-prefills, the capture and one chunk)")
+    out = dict(launches=launches, first_s=first_s)
+    if not paged:
+        # (e) adopt: the fenced engine's requeued requests, one by one
+        for c in counters.values():
+            c.launches = 0
+        e = restart_engine(model, False, VirtualClock(start=clock() + 5.0))
+        adopted = [e.adopt(r) for r in a.scheduler.queued_requests]
+        e.run()
+        res_e = resumed_gates("adopt", model, e, adopted, mid, workload, ref_tokens,
+                              {name: c.launches for name, c in counters.items()})
+        log(f"weights 5j(e) adopt ({smi}): the fenced row engine's {len(adopted)} requeued "
+            f"requests adopted one by one by a fresh engine: all DONE, every stream begins with "
+            f"its pre-kill tokens, teacher-forced gap {res_e['teacher']:.3g}x phase 3's limit, K1 "
+            f"{res_e['launches']['flash_attention']} = {e.metrics.prefills} admissions x {layers}, one "
+            f"capture; equal to the uninterrupted run's: {res_e['same']} of {len(adopted)}")
+        out["launches"] = {k: launches[k] + res_e["launches"][k] for k in launches}
+        del e
+    del a, b
+    collect_engines()
+    return out
+
+
+def weights_phase(model, srv: dict, paged: dict, smi: str) -> dict:
+    """Phase 5j: weights that change, at full width and depth. (a) a weight
+    swap on phase 5c's paged prefix engine; (b) a quantized swap on phase
+    5f(a)'s int8 engine; (c) a draft with its own weights on phase 5d's
+    engine (beside an int8 target, poisoned, swapped mid-flight); (d)
+    fence, snapshot and restore on phase 4's row and phase 5b's paged
+    engines; (e) adopt on the row engine. ``srv``/``paged``: phases 4's and
+    5b's runs (the workloads and the uninterrupted streams). Returns the
+    phase's launches (replays included)."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    m1 = init_params(LlamaForCausalLM(model.config, device=model.device), seed=SWAP_SEED)
+    torch.cuda.synchronize()
+    log(f"weights 5j: W1 = init_params(seed {SWAP_SEED}) on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    a = swap_leg(model, m1, smi)
+    init_params(model, seed=0)  # the model back to W0 (the float engine wrote W1 into it)
+    b = quant_swap_leg(model, m1, srv, smi)
+    del m1
+    collect_engines()
+    c = draft_leg(model, srv, smi)
+    d_row = restart_leg(model, srv["workload"], False, srv["tokens"], smi)
+    d_paged = restart_leg(model, paged_workload(model.config.vocab_size), True, paged["tokens"],
+                          smi)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if peak > 72:
+        raise AssertionError(f"weights 5j: peak memory {peak:.1f} GiB over 72")
+    legs = (a, b, c, d_row, d_paged)
+    launches = {k: sum(x["launches"][k] for x in legs) for k in a["launches"]}
+    log(f"weights phase launches (replays included): {launches}; peak mem {peak:.1f} GiB")
+    log(f"phase 5j wall: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 # --- phases 6-7: training ------------------------------------------------------
 
 EOS_ID = 128001  # Llama-3's <|end_of_text|>
@@ -4488,6 +5031,7 @@ def main() -> int:
     fault = fault_phase(model, srv, spec["tokens"], smi)
     slo = slo_phase(model, smi)
     tier = tier_phase(model, smi)
+    weights = weights_phase(model, srv, fused, smi)
 
     del model
     torch.cuda.empty_cache()
@@ -4517,10 +5061,11 @@ def main() -> int:
     launches = {name: srv["launches"][name] + fused["launches"][name] + pre["launches"][name]
                 + spec["launches"][name] + med["launches"][name] + quant["launches"][name]
                 + fault["launches"][name] + slo["launches"][name] + tier["launches"][name]
-                + tr["launches"][name] for name in tr["launches"]}
+                + weights["launches"][name] + tr["launches"][name] for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
         f"speculative serving row and paged, Medusa, quantized serving, the fault contract, "
-        f"SLO-aware multi-tenant serving, the host page tier, training): {launches}; "
+        f"SLO-aware multi-tenant serving, the host page tier, weights that change, training): "
+        f"{launches}; "
         f"on the multi-row path (prefix-cache serving): {pre['multi_row']}; the speculative "
         f"rounds' verify windows (s = {SPEC_GAMMA}): {spec['verify']}")
     rows_main = rows[256]  # R = 1024: phase 5c's chat turns

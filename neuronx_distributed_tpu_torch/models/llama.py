@@ -24,6 +24,7 @@ under activation checkpointing (JAX ``nn.remat``, policy ``None``).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Optional
 
@@ -346,6 +347,48 @@ def _bind(model: nn.Module, tensors: dict) -> nn.Module:
     return model
 
 
+def storage_ptrs(module: nn.Module) -> set:
+    """The addresses of the storages behind a module's parameters and
+    buffers: a view, a tied weight or a tensor bound by reference has its
+    source's storage, and distinct storages never overlap."""
+    return {t.untyped_storage().data_ptr()
+            for t in itertools.chain(module.parameters(), module.buffers())
+            if t.untyped_storage().nbytes()}
+
+
+def shares_storage(a: nn.Module, b: nn.Module) -> bool:
+    """Whether any tensor of module ``a`` shares device memory with one of
+    module ``b``."""
+    return not storage_ptrs(a).isdisjoint(storage_ptrs(b))
+
+
+@torch.no_grad()
+def copy_state_dict_(module: nn.Module, state_dict: dict, what: str = "params") -> None:
+    """Write ``state_dict`` into ``module``'s own tensors IN PLACE
+    (``copy_`` on the current stream; host or device sources): every
+    ``data_ptr`` stays, so a captured program reads the new values. Every
+    key, shape and dtype is checked before the first tensor is written: a
+    refused dict leaves the module bit for bit as it was
+    (``nn.Module.load_state_dict`` copies the matching tensors before it
+    raises on a missing key)."""
+    own = module.state_dict()
+    missing = sorted(set(own) - set(state_dict))
+    unexpected = sorted(set(state_dict) - set(own))
+    if missing or unexpected:
+        raise ValueError(f"{what}: the state dict does not match the model's: missing "
+                         f"{missing[:4]}{'...' if len(missing) > 4 else ''}, unexpected "
+                         f"{unexpected[:4]}{'...' if len(unexpected) > 4 else ''}")
+    for name, dst in own.items():
+        src = state_dict[name]
+        if not isinstance(src, torch.Tensor):
+            raise TypeError(f"{what}[{name!r}] is a {type(src).__name__}, not a tensor")
+        if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
+            raise ValueError(f"{what}[{name!r}] is {src.dtype} {tuple(src.shape)}; the model "
+                             f"holds {dst.dtype} {tuple(dst.shape)}")
+    for name, dst in own.items():
+        dst.copy_(state_dict[name])
+
+
 def early_exit_draft(model: LlamaForCausalLM, draft_layers: int, eps: float):
     """The early-exit pair as models: ``(target, draft)``, two new
     :class:`LlamaForCausalLM` whose tensors ARE ``model``'s (no copy), but
@@ -369,15 +412,19 @@ def early_exit_draft(model: LlamaForCausalLM, draft_layers: int, eps: float):
 def quantize_model(model: LlamaForCausalLM, qcfg: QuantizationConfig) -> LlamaForCausalLM:
     """A serving :class:`LlamaForCausalLM` with ``qcfg`` quantized weights
     made from the float ``model`` (the JAX engine's quantized clone and
-    ``quantize_param_tree``, ``serving/engine.py:536-557``): every linear's
-    codes and scales are new tensors (``quantize_state_dict``); the
-    embedding, the norms and the RoPE table are ``model``'s own, by
-    reference. ``model`` is left as it was."""
+    ``quantize_param_tree``, ``serving/engine.py:536-557``, which returns a
+    fresh tree): every linear's codes and scales are new tensors
+    (``quantize_state_dict``), the embedding and the norms are copies (a
+    weight swap writes the quantized model in place and must not write
+    ``model``'s); the RoPE table, never written, is ``model``'s own.
+    ``model`` is left as it was."""
     from neuronx_distributed_tpu_torch.quantization.utils import quantize_state_dict
 
     if model.config.quantization is not None:
         raise ValueError("model already carries a quantization config")
-    sd = quantize_state_dict(model.state_dict(keep_vars=True), qcfg)
+    src = model.state_dict(keep_vars=True)
+    sd = {name: t.detach().clone() if t is src.get(name) else t
+          for name, t in quantize_state_dict(src, qcfg).items()}
     cfg = dataclasses.replace(model.config, quantization=qcfg)
     return _bind(LlamaForCausalLM(cfg, device="meta"), {**sd, "model.freqs": model.model.freqs})
 

@@ -88,8 +88,9 @@ slot's pages (JAX ``_seed_from_pages``): shared pages, codes and scales,
 are never written. The correctness contract is the JAX package's logit
 budget against the float model, not bit identity with it; within the port
 the quantized engines' streams equal solo ``generate`` on the quantized
-model. ``draft_model=`` with ``quantize=`` raises: the early-exit draft
-shares the target's tensors, which quantization replaces.
+model. ``draft_model=`` with ``quantize=`` needs a draft that shares no
+tensor with the target (``draft_params=``): the early-exit draft shares
+the target's tensors, which quantization replaces.
 
 Fault tolerance (JAX ``engine.py:109-137``, the contract that makes the
 captured hot path safe to run unattended; chaos-tested against the JAX
@@ -199,20 +200,61 @@ engine's bit for bit. ``self.hbm`` (``observability/hbm.py HBMLedger``)
 accounts the engine's residents per tier (the host pages with
 ``tier="host"``) against the card's memory; ``metrics.snapshot()["hbm"]``.
 
+Weights that change (JAX ``engine.py:1336-1394``). The captured decode
+program and the speculative round bake in the weights' addresses, so every
+weight change writes IN PLACE (``copy_`` on the main stream, between steps):
+no tensor is rebound, every ``data_ptr`` stays, ``decode_compilations``
+does not move.
+
+* ``engine.params`` is the served model's state dict; assigning a state
+  dict in the port's names (``models/convert.py flax_to_torch``) checks
+  every key, shape and dtype before it writes one tensor (a refused swap
+  leaves the model bit for bit as it was), copies the values in and clears
+  the prefix store (every entry counted as an eviction, its pins and host
+  pages released): its K/V was computed under the old weights. Under
+  ``quantize=`` a float dict is quantized once (``quantize_state_dict``)
+  into the engine's own codes and scales and a pre-quantized dict binds as
+  is; the engine's quantized model owns its embedding and norms, so the
+  caller's float model never changes. A float engine serves the caller's
+  module itself (``engine.model is model``): a swap writes into it.
+* ``draft_params=`` beside ``draft_model=`` binds the draft's weights into
+  a draft module of the engine's own (never ``draft_model`` itself, which
+  may be the target); no draft tensor shares storage with the target's.
+  Such a draft serves beside a quantized target (``quantize=``), takes
+  ``engine.draft_params = ...`` in place and can be poisoned
+  (``FaultInjector.poison_draft``: the corrupted values written in before
+  the hit dispatch, the clean ones copied back after it). Without it the
+  engine serves ``draft_model`` as given: a separate draft module takes the
+  same three, and a draft swap writes into the caller's module, as a float
+  engine's ``params`` swap does; an early-exit draft
+  (``models/llama.py early_exit_draft``) shares the target's tensors and
+  refuses all three (a ``poison_draft`` scheduled after construction is
+  refused at the dispatch, before any write).
+
+Fence, adopt and warm restart (JAX ``engine.py:1630-1843``, ``:1909``):
+``fence(reason)`` halts the engine through the halt contract (the work
+requeued with its host-current tokens); ``adopt(req)`` takes over a live
+request of another engine, and ``snapshot_serving_state()`` /
+``restore_serving_state(snap)`` carry the host-current serving state
+(queue, tokens, seeds, deadlines, attribution, the prefix index, the SLO
+counters; JSON-safe, no device tensor) to a fresh engine, every absolute
+time shifted by the clock delta. Each continuation is the preemption
+resume: the context re-prefilled, sampling continued at (seed, token
+index). On the CPU the stream continues bit for bit; on the card the
+re-prefill (K1) rounds otherwise than the decode steps it replaces (K4),
+so a near-tie of a random bf16 model may go the other way.
+
 Left out of this slice, each refused with ``NotImplementedError`` rather
-than silently ignored: the params setter, and with it ``fence()``,
-``draft_params=`` and ``flip_bits(target="params")``; a poisoned draft
-(``poison_draft``: the early-exit draft shares the target's tensors);
-``profile_dir=``; ``program_ledger=`` (``observability/programs.py``); the
-router's ``load_score``, ``export_requests`` and ``import_requests``;
-tp/mesh.
+than silently ignored: ``flip_bits(target="params")``; ``profile_dir=``;
+``program_ledger=`` (``observability/programs.py``); the router's
+``load_score``, ``export_requests`` and ``import_requests``; tp/mesh.
 """
 
 from __future__ import annotations
 
 import enum
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -229,7 +271,8 @@ from neuronx_distributed_tpu_torch.inference.spec_decode import speculative_chun
 from neuronx_distributed_tpu_torch.inference.speculative import validate_spec_room
 from neuronx_distributed_tpu_torch.inference.utils import unwrap_logits
 from neuronx_distributed_tpu_torch.kernels._build import KernelError
-from neuronx_distributed_tpu_torch.models.llama import quantize_model
+from neuronx_distributed_tpu_torch.models.llama import (
+    copy_state_dict_, quantize_model, shares_storage, storage_ptrs)
 from neuronx_distributed_tpu_torch.modules.attention import (
     extract_cache_prefix,
     seed_cache_prefix,
@@ -237,6 +280,10 @@ from neuronx_distributed_tpu_torch.modules.attention import (
 from neuronx_distributed_tpu_torch.observability.flight_recorder import FlightRecorder
 from neuronx_distributed_tpu_torch.observability.hbm import HBMLedger, tree_nbytes, weak_reader
 from neuronx_distributed_tpu_torch.observability.tracing import RequestTracer
+from neuronx_distributed_tpu_torch.quantization.utils import (
+    is_quantized_state_dict,
+    quantize_state_dict,
+)
 from neuronx_distributed_tpu_torch.serving.cache_manager import (
     PrefixCache,
     PrefixEntry,
@@ -347,13 +394,16 @@ def _validate_spec_readback(toks, counts, gamma: int, vocab: int, slots) -> Dict
     return bad
 
 
-def _module_nbytes(module) -> int:
+def _module_nbytes(module, exclude=None) -> int:
     """Bytes of a module's weights (its state dict: parameters, and a
     quantized model's codes and scales), each tensor once (a tied or shared
-    weight is one resident)."""
+    weight is one resident); ``exclude`` (a module) leaves out the tensors
+    whose storage is one of its own (a draft counts the bytes it owns)."""
+    skip = storage_ptrs(exclude) if exclude is not None else set()
     seen = {}
     for t in module.state_dict().values():
-        seen.setdefault((t.data_ptr(), t.numel()), t)
+        if t.untyped_storage().data_ptr() not in skip:
+            seen.setdefault((t.data_ptr(), t.numel()), t)
     return sum(t.numel() * t.element_size() for t in seen.values())
 
 
@@ -394,10 +444,13 @@ class ServingEngine:
     its device (``model.device``); every tensor the engine makes lives there
     too. ``draft_model`` (a causal LM on the same device, with the target's
     vocabulary and ``max_seq_len``) turns decode into speculative rounds of
-    ``gamma`` draft tokens; the port's modules carry their own weights, so
-    there is no ``draft_params`` (the draft of
+    ``gamma`` draft tokens. The port's modules carry their own weights:
+    without ``draft_params`` the engine serves ``draft_model`` as given (the
+    draft of
     :func:`~neuronx_distributed_tpu_torch.models.llama.early_exit_draft`
-    shares the target's tensors)."""
+    shares the target's tensors); ``draft_params`` (a state dict of
+    ``draft_model``'s names) gives the engine a draft module of its own
+    that holds those values."""
 
     def __init__(
         self,
@@ -440,12 +493,11 @@ class ServingEngine:
         if kv_page_size is None and kv_host_pages is not None:
             raise ValueError("kv_host_pages needs kv_page_size")
         for name, value, why in (
-                ("draft_params", draft_params, "the port's draft model carries its own weights; "
-                 "a weight swap comes with the params setter"),
                 ("program_ledger", program_ledger, "observability/programs.py is not ported"),
                 ("profile_dir", profile_dir, "observability/profiler.py is not ported")):
             if value is not None:
-                raise NotImplementedError(f"{name}= is not served yet: {why}")
+                raise NotImplementedError(f"{name}= is not served yet: {why} (ROADMAP.md, "
+                                          "queue 1, item 10c)")
         if decode_chunk_size < 1:
             raise ValueError(f"decode_chunk_size must be >= 1, got {decode_chunk_size}")
         if draft_model is not None:
@@ -462,8 +514,21 @@ class ServingEngine:
             if draft_model.device != model.device:
                 raise ValueError(f"draft_model lives on {draft_model.device}, the target on "
                                  f"{model.device}")
+            if draft_params is not None:
+                draft_model = self._own_draft(draft_model, draft_params)
+        elif draft_params is not None:
+            raise ValueError("draft_params needs draft_model")
         if quantize is not None:
             model = self._quantized(model, quantize, kv_page_size, draft_model)
+        # a float state dict assigned to ``params`` is quantized with this
+        self._weight_qcfg = quantize.weight_qconfig() if quantize is not None else None
+        # a draft that shares tensors with the target can take no weights of
+        # its own (the draft_params setter, a poisoned draft)
+        self._draft_aliases = draft_model is not None and shares_storage(draft_model, model)
+        if (fault_injector is not None and self._draft_aliases
+                and fault_injector.poisons_draft):
+            raise ValueError(self._alias_refusal("poison_draft"))
+        self._draft_clean = None  # a poisoned dispatch's clean copy of the draft
         self.model = model
         self.device = model.device
         self.num_slots = num_slots
@@ -550,6 +615,8 @@ class ServingEngine:
         self._active = np.zeros((num_slots,), bool)
         self._slot_req: List[Optional[Request]] = [None] * num_slots
         self._next_rid = 0
+        # streaming callbacks of adopted and restored requests: cb(req, tok)
+        self._on_token: Dict[int, Callable[[Request, int], None]] = {}
         self._state = {name: torch.full((num_slots,), v, dtype=dt, device=self.device)
                        for name, (dt, v) in _SLOT_DEFAULTS.items()}
         # the draft twin: its own cache, slot for slot the target's
@@ -605,7 +672,9 @@ class ServingEngine:
                              unit_bytes=res(lambda e: e.cache.slot_nbytes),
                              count=self.num_slots, unit="slot")
         if self.draft_model is not None:
-            hbm.add_resident("draft_params", res(lambda e: _module_nbytes(e.draft_model)))
+            # the bytes the draft owns: an early-exit draft's are the target's
+            hbm.add_resident("draft_params",
+                             res(lambda e: _module_nbytes(e.draft_model, exclude=e.model)))
             hbm.add_resident("draft_kv", res(lambda e: e.draft_cache.nbytes))
         if self.prefix is not None:
             hbm.add_resident("prefix_cache",
@@ -617,13 +686,20 @@ class ServingEngine:
     def _quantized(model, quantize, kv_page_size, draft_model):
         """The model the engine serves under ``quantize`` (JAX
         ``engine.py:528-557``, with its validation): ``model`` itself for
-        KV-only quantization, else its quantized copy."""
+        KV-only quantization, else its quantized copy, which owns every
+        tensor a weight swap writes (the caller's float model never
+        changes). A draft stays float and must share no tensor with
+        ``model``."""
         if quantize.kv is not None and kv_page_size is None:
             raise ValueError("quantize.kv needs kv_page_size= (quantized KV is page-granular "
                              "— the row layout stays float)")
-        if draft_model is not None:
-            raise ValueError("quantize= with draft_model= is not served yet: the early-exit "
-                             "draft shares the target's tensors, which quantization replaces")
+        if draft_model is not None and shares_storage(draft_model, model):
+            raise ValueError("quantize= with draft_model= is not served for a draft that shares "
+                             "the target's tensors (the early-exit draft), which quantization "
+                             "replaces; pass draft_params= to give the draft tensors of its own")
+        if draft_model is not None and quantize.kv is not None:
+            raise ValueError("quantize.kv with draft_model= is not served yet: the speculative "
+                             "round runs on float pools")
         qcfg = quantize.weight_qconfig()
         if qcfg is None:
             return model
@@ -635,6 +711,23 @@ class ServingEngine:
             raise ValueError("model already carries a quantization config — pass the float "
                              "model (the engine quantizes) or drop quantize=")
         return quantize_model(model, qcfg)
+
+    @staticmethod
+    def _own_draft(draft_model, draft_params):
+        """A draft module of the engine's own, of ``draft_model``'s class
+        and configuration, holding ``draft_params`` (JAX binds
+        ``draft_params`` into ``draft_model``'s program, ``engine.py:749``):
+        never ``draft_model`` itself, which may be the target."""
+        own = type(draft_model)(draft_model.config, device=draft_model.device,
+                                trainable=getattr(draft_model, "trainable", False))
+        copy_state_dict_(own, draft_params, "draft_params")
+        return own
+
+    @staticmethod
+    def _alias_refusal(what: str) -> str:
+        return (f"{what} needs a draft with tensors of its own: this draft shares the target's "
+                "tensors (the early-exit draft), so writing it would write the target; pass "
+                "draft_params= to give the draft tensors of its own")
 
     def _reset_caches(self, recovery: bool = False) -> None:
         """Rewind the cache and the draft twin in lockstep, in place: every
@@ -905,37 +998,250 @@ class ServingEngine:
         ok = self.scheduler.cancel(rid)
         if ok and was_queued:
             self.metrics.record_cancel(req, self._now())
+            self._on_token.pop(rid, None)
             self.tracer.end(rid, "cancelled", args={"where": "queued"})
         return ok
 
-    # --- left for later slices ----------------------------------------------
+    # --- weights that change ------------------------------------------------
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        """The served model's state dict (its tensors, by reference)."""
+        return self.model.state_dict()
+
+    @params.setter
+    def params(self, value: Dict[str, torch.Tensor]) -> None:
+        """A weight swap (JAX ``engine.py:1344-1375``), between steps: the
+        new values written IN PLACE into the served model's tensors (every
+        key, shape and dtype checked first; a refused dict writes nothing),
+        so the captured programs read them at their next replay with no
+        recapture. Under ``quantize=`` a float dict is quantized once
+        (``quantize_state_dict``) and a pre-quantized one binds as is. A
+        float engine serves the caller's module, which the swap writes. The
+        prefix store is cleared: its K/V was computed under the old
+        weights. Slots still decoding keep the K/V they have."""
+        if self._weight_qcfg is not None and not is_quantized_state_dict(value):
+            value = quantize_state_dict(value, self._weight_qcfg)
+        copy_state_dict_(self.model, value, "params")
+        if self.flight is not None:
+            self.flight.record("params_swap")
+        if self.prefix is not None:
+            dropped = self.prefix.clear()  # releases the pins and the host pages
+            if dropped:
+                self.metrics.record_prefix_eviction(dropped)
+                if self.timeline is not None:
+                    self.timeline.instant("prefix_evict", "serving", args={"evicted": dropped})
+
+    @property
+    def draft_params(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The draft model's state dict (speculative engines; None
+        without a draft)."""
+        return self.draft_model.state_dict() if self.draft_model is not None else None
+
+    @draft_params.setter
+    def draft_params(self, value: Dict[str, torch.Tensor]) -> None:
+        """A draft swap (JAX ``engine.py:1387-1394``), in place like
+        ``params``; safe mid-flight (the emitted streams never depend on the
+        draft), slots admitted under the old draft keep its K/V. A
+        ``draft_model`` served as given (no ``draft_params=``) is the
+        caller's module, which the swap writes."""
+        if value is None:
+            raise ValueError("draft_params cannot be unset on a live engine")
+        if self.draft_model is None:
+            raise ValueError("draft_params needs an engine with a draft_model")
+        if self._draft_aliases:
+            raise ValueError(self._alias_refusal("assigning draft_params"))
+        copy_state_dict_(self.draft_model, value, "draft_params")
+
+    def _draft_floats(self) -> List[torch.Tensor]:
+        """The draft's floating-point tensors, each storage once."""
+        seen = {}
+        for t in self.draft_model.state_dict().values():
+            if t.is_floating_point():
+                seen.setdefault((t.data_ptr(), t.numel()), t)
+        return list(seen.values())
+
+    def _poison_draft(self) -> None:
+        """A poisoned dispatch's draft (JAX ``on_spec_params``,
+        ``faults.py:461-480``, which corrupts a copy): the clean values
+        kept, every float tensor made ``-w + 3.7`` in place, the addresses
+        the captured round reads."""
+        floats = self._draft_floats()
+        if self._draft_clean is None:
+            self._draft_clean = [torch.empty_like(t) for t in floats]
+        for t, clean in zip(floats, self._draft_clean):
+            clean.copy_(t)
+            t.neg_().add_(3.7)
+
+    def _heal_draft(self) -> None:
+        """The clean values back after the poisoned dispatch, on the main
+        stream (after the round's replays)."""
+        for t, clean in zip(self._draft_floats(), self._draft_clean):
+            t.copy_(clean)
+
+    # --- fence, adopt, warm restart -----------------------------------------
 
     def fence(self, reason: str = "fenced") -> None:
-        """The router watchdog's kill switch (JAX ``fence``): not served
-        yet; it comes with the router."""
-        raise NotImplementedError("fence() is not served yet: it comes with the replica router")
+        """The operator's or watchdog's kill switch (JAX ``fence``,
+        ``engine.py:1909``): HALTED now, through the halt contract (the
+        in-flight work requeued with its host-current tokens, the
+        post-mortem written); a halted engine ignores it."""
+        if self._halted:
+            return
+        self._halt(f"fenced: {reason}")
 
-    def _swap_params(self, value):
-        raise NotImplementedError("a weight swap (engine.params = ..., which clears the prefix "
-                                  "store) is not served yet; the model carries its own weights "
-                                  "(engine.model)")
+    def adopt(self, req: Request, on_token=None) -> Request:
+        """Take over a live request of ANOTHER engine (JAX ``adopt``,
+        ``engine.py:1630``): it keeps its rid, its streamed tokens and its
+        seed, and the admission re-prefills its context and continues at
+        (seed, token index), the preemption resume, so the stream continues
+        bit for bit. ``on_token(req, tok)`` streams its next tokens. Raises
+        :class:`RejectedError` while DRAINING or HALTED and ``ValueError``
+        for a rid this engine knows. Later submissions mint rids above it
+        (the port has no ``rid_base``)."""
+        health = self.health()
+        if health in (EngineHealth.DRAINING, EngineHealth.HALTED):
+            raise RejectedError(f"engine is {health.value}; cannot adopt re-homed work",
+                                queue_depth=self.scheduler.queued)
+        if req.rid in self.scheduler.requests:
+            raise ValueError(f"rid {req.rid} already known to this engine")
+        req.slot = None
+        self.scheduler.submit(req)
+        self._next_rid = max(self._next_rid, req.rid + 1)
+        self.metrics.record_adopt(req, self._now())
+        if on_token is not None:
+            self._on_token[req.rid] = on_token
+        self.tracer.begin(req.rid, args={"prompt_len": int(len(req.prompt)),
+                                         "tenant": req.tenant, "priority": req.priority,
+                                         "rehomed": True, "tokens_streamed": len(req.tokens)})
+        return req
 
-    # write-only: the weights are engine.model's; assigning them is refused
-    params = property(None, _swap_params)
+    def snapshot_serving_state(self) -> Dict[str, Any]:
+        """The host-current serving state (JAX ``snapshot_serving_state``,
+        ``engine.py:1690``): the queue (the active requests first, by rid,
+        as a halt requeues them), each unfinished request's prompt, tokens,
+        seed, sampling config, attribution, preemptions and absolute
+        times, the prefix store's token index (which prefixes were hot, not
+        their K/V) and the SLO tracker's counters. JSON-safe; no device
+        tensor. The seed stands where JAX keeps the request's PRNG key: the
+        port's sampling noise is counter-based on (seed, token index), so
+        the seed and the tokens are the whole sampling state."""
+        active = sorted((r for r in self._slot_req if r is not None and not r.finished),
+                        key=lambda r: r.rid)
+        seen = {r.rid for r in active}
+        ordered = active + [r for r in self.scheduler.queued_requests if r.rid not in seen]
+        reqs = []
+        for req in ordered:
+            cfg = req.config
+            reqs.append({
+                "rid": int(req.rid),
+                "prompt": [int(x) for x in req.prompt],
+                "tokens": [int(t) for t in req.tokens],
+                "seed": int(req.seed),
+                "config": {
+                    "max_new_tokens": int(cfg.max_new_tokens),
+                    "temperature": float(cfg.temperature),
+                    "top_k": None if cfg.top_k is None else int(cfg.top_k),
+                    "top_p": None if cfg.top_p is None else float(cfg.top_p),
+                    "eos_token_id": None if cfg.eos_token_id is None else int(cfg.eos_token_id),
+                },
+                "tenant": req.tenant,
+                "priority": req.priority,
+                "preemptions": int(req.preemptions),
+                "deadline": req.deadline,
+                "queue_deadline": req.queue_deadline,
+                "submit_time": req.submit_time,
+                "admit_time": req.admit_time,
+                "first_token_time": req.first_token_time,
+            })
+        snap: Dict[str, Any] = {
+            "version": 1,
+            "now": self._now(),
+            "next_rid": int(self._next_rid),
+            "halted": self._halted,
+            "halt_reason": self._halt_reason,
+            "requests": reqs,
+            "prefix_index": ([[int(t) for t in e.tokens] for e in self.prefix.entries]
+                             if self.prefix is not None and self.prefix.enabled else None),
+            "tenant_queue_depths": self.scheduler.queued_by_tenant(),
+            "slo": self.metrics.slo.state() if self.metrics.slo is not None else None,
+        }
+        if self.flight is not None:
+            self.flight.record("snapshot", requests=len(reqs))
+        return snap
+
+    def restore_serving_state(self, snap: Dict[str, Any], on_token=None) -> Dict[str, Any]:
+        """Bring a fresh engine back WARM from
+        :meth:`snapshot_serving_state` (JAX ``restore_serving_state``,
+        ``engine.py:1760``): every unfinished request rejoins the queue in
+        snapshot order with its tokens and seed (the resume continues each
+        stream bit for bit), every absolute time shifted by the clock delta
+        (a request with 4 s of deadline left at the snapshot has 4 s here),
+        the SLO counters merged. ``on_token`` streams every restored
+        request. Raises ``ValueError`` for an unknown version or a rid this
+        engine knows (a snapshot restores exactly once) and
+        :class:`RejectedError` on a halted engine. Returns ``{"restored",
+        "downtime_s", "rid_floor"}``."""
+        if snap.get("version") != 1:
+            raise ValueError(f"unknown serving-state snapshot version {snap.get('version')!r}")
+        if self._halted:
+            raise RejectedError("engine is halted; cannot restore work")
+        now = self._now()
+        delta = now - float(snap["now"])
+        for r in snap["requests"]:
+            if int(r["rid"]) in self.scheduler.requests:
+                raise ValueError(f"rid {r['rid']} already known to this engine — a serving-state "
+                                 "snapshot restores exactly once")
+
+        def shift(t):
+            return None if t is None else t + delta
+
+        for r in snap["requests"]:
+            req = Request(rid=int(r["rid"]), prompt=np.asarray(r["prompt"], np.int32),
+                          config=GenerationConfig(**r["config"]), seed=int(r["seed"]),
+                          tenant=r.get("tenant", "default"),
+                          priority=r.get("priority", "standard"))
+            req.tokens = [int(t) for t in r["tokens"]]
+            req.preemptions = int(r.get("preemptions", 0))
+            for name in ("deadline", "queue_deadline", "submit_time", "admit_time",
+                         "first_token_time"):
+                setattr(req, name, shift(r.get(name)))
+            self.scheduler.submit(req)
+            self.metrics.record_adopt(req, now)
+            if on_token is not None:
+                self._on_token[req.rid] = on_token
+            self.tracer.begin(req.rid, args={"prompt_len": int(len(req.prompt)),
+                                             "tenant": req.tenant, "priority": req.priority,
+                                             "restored": True,
+                                             "tokens_streamed": len(req.tokens)})
+        restored = len(snap["requests"])
+        self._next_rid = max(self._next_rid, int(snap["next_rid"]))
+        if snap.get("slo") and self.metrics.slo is not None:
+            self.metrics.slo.restore_state(snap["slo"], shift_s=delta)
+        downtime = max(delta, 0.0)
+        self.metrics.record_restore(restored, downtime)
+        if self.flight is not None:
+            self.flight.record("restore", requests=restored, downtime_s=downtime)
+        if self.timeline is not None:
+            self.timeline.instant("restore", "serving", args={"requests": restored})
+        self._sync_health()
+        return {"restored": restored, "downtime_s": downtime, "rid_floor": int(self._next_rid)}
+
+    # --- left for later slices ----------------------------------------------
 
     def load_score(self, tenant: Optional[str] = None) -> float:
         """The replica router's load signal (JAX ``load_score``): not served
         yet; it comes with the router."""
         raise NotImplementedError("load_score() is not served yet: it comes with the replica "
-                                  "router")
+                                  "router (ROADMAP.md, queue 1, item 10b)")
 
     def export_requests(self, *args, **kwargs):
         raise NotImplementedError("export_requests() is not served yet: it comes with the "
-                                  "replica router")
+                                  "replica router (ROADMAP.md, queue 1, item 10b)")
 
     def import_requests(self, *args, **kwargs):
         raise NotImplementedError("import_requests() is not served yet: it comes with the "
-                                  "replica router")
+                                  "replica router (ROADMAP.md, queue 1, item 10b)")
 
     @property
     def has_work(self) -> bool:
@@ -1003,6 +1309,7 @@ class ServingEngine:
             req.error = reason
             req.finish_time = now
             self.metrics.record_shed(req, now, where="queue")
+            self._on_token.pop(req.rid, None)
             if self.timeline is not None:
                 self.timeline.instant(f"shed r{req.rid}", "serving",
                                       args={"where": "queue", "reason": reason})
@@ -1259,6 +1566,7 @@ class ServingEngine:
         req.state = RequestState.FAILED
         req.error = f"prefill failed: {exc}"
         req.finish_time = now
+        self._on_token.pop(req.rid, None)
         self.metrics.record_failed(req, now, kind="prefill")
         self.tracer.end(req.rid, "failed", args={"kind": "prefill"})
         if self.flight is not None:
@@ -1645,6 +1953,14 @@ class ServingEngine:
             tok0 = int(self._host_read(sample_row(logits, req.seed, 0, temp, topk, topp)))
             self.tracer.step(req.rid, "first_token")
             self._emit_token(req, tok0, self._now(), first=True)
+            if req.state is RequestState.CANCELLED:
+                # its on_token callback cancelled it at the first token (cancel()
+                # recorded it): the slot was mapped but is never bound
+                req.finish_time = now
+                for mgr in self._managers:
+                    mgr.free(slot)
+                self._on_token.pop(req.rid, None)
+                return
         req.state = RequestState.DECODE
         req.slot = slot
         self._slot_req[slot] = req
@@ -1704,6 +2020,9 @@ class ServingEngine:
         block is validated on the host before any token reaches a stream."""
         g = chunk.cols
         spec = chunk.accepts is not None
+        if spec and self._draft_aliases and self._faults is not None and self._faults.poisons_draft:
+            # scheduled after construction: poisoning this draft would write the target
+            raise ValueError(self._alias_refusal("poison_draft"))
         # the plain fallback of a speculative engine moves the target alone
         managers = self._managers if chunk is self._chunk else (self.cache,)
         active_at_dispatch = int(self._active.sum())
@@ -1716,17 +2035,25 @@ class ServingEngine:
         if tl is not None:
             tl.mark_event_start("decode_dispatch", "serving")
         t0 = self._clock()
+        poisoned = False
         try:
-            if self._faults is not None:
-                self._faults.on_dispatch(attempt)
-                if spec:
-                    self._faults.on_spec_dispatch(attempt)
-            executed = chunk()
-            t1 = self._clock()
-            if tl is not None:
-                tl.mark_event_end("decode_dispatch", "serving")
-                tl.mark_event_start("decode_readback", "serving")
-            block = self._host_read(chunk.readout())
+            try:
+                if self._faults is not None:
+                    self._faults.on_dispatch(attempt)
+                    if spec:
+                        self._faults.on_spec_dispatch(attempt)
+                        poisoned = self._faults.on_spec_params(attempt)
+                if poisoned:
+                    self._poison_draft()
+                executed = chunk()
+                t1 = self._clock()
+                if tl is not None:
+                    tl.mark_event_end("decode_dispatch", "serving")
+                    tl.mark_event_start("decode_readback", "serving")
+                block = self._host_read(chunk.readout())
+            finally:
+                if poisoned:
+                    self._heal_draft()
         except _FATAL:
             raise
         except Exception as e:
@@ -1923,6 +2250,7 @@ class ServingEngine:
         req.state = RequestState.FAILED
         req.error = error
         req.finish_time = now
+        self._on_token.pop(req.rid, None)
         self.metrics.record_failed(req, now, kind="quarantine")
         self.tracer.end(req.rid, "failed", args={"kind": kind, "slot": slot})
 
@@ -1980,8 +2308,15 @@ class ServingEngine:
         if first:
             req.first_token_time = now
             self.metrics.record_first_token(req, now)
+        cb = self._on_token.get(req.rid)
+        if cb is not None:
+            cb(req, tok)
 
     def _maybe_finish(self, req: Request, now: float) -> None:
+        if req.state is RequestState.CANCELLED:
+            # an on_token callback cancelled it this very step: the
+            # cancellation wins; _reap_cancelled retires the slot next step
+            return
         eos = req.config.eos_token_id
         hit_eos = eos is not None and req.tokens and req.tokens[-1] == eos
         if hit_eos or len(req.tokens) >= req.config.max_new_tokens:
@@ -2004,6 +2339,8 @@ class ServingEngine:
         self._state["active"][slot] = False
         for mgr in self._managers:
             mgr.free(slot)
+        if req.finished:
+            self._on_token.pop(req.rid, None)
 
     def _reap_cancelled(self, now: float) -> None:
         for slot, req in enumerate(self._slot_req):

@@ -51,12 +51,20 @@ Injection points (every index 0-based and deterministic):
   their entry's FIRST host page corrupted in place (one byte flipped,
   ``HostPageStore.corrupt``): the CRC check must reject the whole fetch.
 
+* ``poison_draft(at=k, times=t)``: speculative engines whose draft owns its
+  tensors (``ServingEngine(draft_params=)``); the k-th..(k+t-1)-th dispatch
+  attempts run on a corrupted draft (every float tensor ``-w + 3.7``):
+  every proposal is garbage, every round all-rejects, and the streams must
+  not change. JAX corrupts a copy; the captured round reads fixed
+  addresses, so the engine writes the corrupted values in before the
+  dispatch and the clean ones back after it. An engine whose draft shares
+  the target's tensors (the early-exit draft) refuses the schedule.
+
 Not ported yet, each raising ``NotImplementedError`` that names its
 ``ROADMAP.md`` item: the fabric's (``fail_handoff`` and the transport
-schedules; item 10b), ``flip_bits(
-target="params")`` (the params setter; item 6b) and ``poison_draft``: the
-port's early-exit draft shares the target's tensors and the captured round
-bakes in their addresses, so a corrupted copy cannot be swapped in.
+schedules; item 10b) and ``flip_bits(target="params")`` (its oracles, the
+router's fingerprint vote and the trainer sentinel, need
+``tree_fingerprint``; item 10c).
 
 ``counters`` records every fault actually fired, under the JAX package's
 names, so chaos tests can assert that the schedule ran."""
@@ -113,6 +121,7 @@ class FaultInjector:
         self._spill_windows: List[Tuple[int, Optional[int]]] = []
         self._prefetch_windows: List[Tuple[int, Optional[int]]] = []
         self._host_page_windows: List[Tuple[int, Optional[int]]] = []
+        self._draft_poison_windows: List[Tuple[int, Optional[int]]] = []
         self._skew: float = 0.0
         self._skew_after: Optional[float] = None
         # the JAX package's counter names, those of hooks not ported included
@@ -167,7 +176,8 @@ class FaultInjector:
         before validation (the per-page fingerprint check's model);
         ``"params"`` (the weights) is not ported yet."""
         if target == "params":
-            _not_ported('flip_bits(target="params")', "item 6b (a params setter)")
+            _not_ported('flip_bits(target="params")',
+                        "item 10c (its oracles need tree_fingerprint)")
         if target != "kv_pool":
             raise ValueError(f"flip_bits target must be params|kv_pool, got {target!r}")
         self._pool_flip_windows.append(self._window(at, times))
@@ -179,10 +189,17 @@ class FaultInjector:
         return self
 
     def poison_draft(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        raise NotImplementedError(
-            "poison_draft is not ported: the early-exit draft shares the target's tensors and "
-            "the captured round bakes in their addresses, so a corrupted copy of the draft "
-            "cannot be swapped in (ROADMAP.md, queue 1, item 6b)")
+        """The ``at``-th..(at+times-1)-th speculative dispatch attempts run
+        on a corrupted draft (every float tensor ``-w + 3.7``): proposals
+        become garbage, rounds all-reject, the streams stay as they were.
+        Needs a draft with tensors of its own (``draft_params=``)."""
+        self._draft_poison_windows.append(self._window(at, times))
+        return self
+
+    @property
+    def poisons_draft(self) -> bool:
+        """Whether the schedule holds a ``poison_draft``."""
+        return bool(self._draft_poison_windows)
 
     def fail_spill(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
         """The ``at``-th..(at+times-1)-th KV spill attempts raise
@@ -244,6 +261,16 @@ class FaultInjector:
         if self._hit(self._draft_dispatch_windows, attempt):
             self.counters["draft_dispatch_failures"] += 1
             raise InjectedDraftError(f"injected draft dispatch failure at attempt {attempt}")
+
+    def on_spec_params(self, attempt: int) -> bool:
+        """Called with the dispatch attempt index before a speculative
+        chunk: whether this dispatch runs on a poisoned draft (JAX
+        ``on_spec_params``, which returns the corrupted copy; the engine
+        corrupts its draft in place and restores it after the dispatch)."""
+        if not self._hit(self._draft_poison_windows, attempt):
+            return False
+        self.counters["poisoned_drafts"] += 1
+        return True
 
     def _poison_slots(self, readback: int, active) -> List[Tuple[int, int]]:
         """The (slot, token) poisons that land at ``readback``; those whose

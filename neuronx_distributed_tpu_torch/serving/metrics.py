@@ -35,6 +35,10 @@ scrape payload) and exported as plain host numbers by ``snapshot()``.
   prefetches, spill and prefetch failures, poisoned host pages, the batch
   sizes of each transfer, and prefix hits by the tier their entry lived in
   (``serving_prefix_hit_tier{tier=}``, the snapshot's ``prefix_hit_tier``).
+* Warm restart (JAX ``metrics.py:328-360``): adopted and restored requests
+  keyed to their original submit time (``record_adopt``), the ``restored``
+  counter and the restore-downtime histogram (``record_restore``; the
+  snapshot's ``restored`` and ``restore_downtime_p95_s``).
 * ``snapshot()["hbm"]`` is the engine's HBM ledger
   (``observability/hbm.py``), attached weakly.
 
@@ -99,6 +103,8 @@ _COUNTERS = (
     ("kv_prefetch_wasted", "serving_kv_spill_prefetch_wasted", True),
     ("kv_prefetch_failures", "serving_kv_spill_prefetch_failures", True),
     ("kv_host_poisoned", "serving_kv_spill_host_poisoned", True),
+    # requests brought back by a warm restart
+    ("restored", "serving_restored_requests", True),
     ("occupied_slot_steps", "serving_occupied_slot_steps", True),
     ("prefill_full_wall_s", "serving_prefill_full_wall_s", False),
     ("prefill_suffix_wall_s", "serving_prefill_suffix_wall_s", False),
@@ -157,6 +163,10 @@ class ServingMetrics:
             "serving_tpot_s", help="per-request mean time per output token after the first (s)")
         self._h_queue_wait = view.histogram("serving_queue_wait_s",
                                             help="submit -> first admission (s)")
+        self._h_restore_downtime = view.histogram(
+            "serving_restore_downtime_s",
+            help="snapshot -> restore_serving_state clock gap (s): how long a warm-restarted "
+                 "replica's work was dark")
         self._h_spill_batch = view.histogram("serving_kv_spill_batch_pages",
                                              help="pages moved device->host per spill event")
         self._h_prefetch_batch = view.histogram(
@@ -225,6 +235,30 @@ class ServingMetrics:
         if self.slo is not None:
             # goodput's span starts at the first submit
             self.slo.touch(now)
+
+    def record_adopt(self, req, now: float) -> None:
+        """A request taken over from another engine (``adopt``, or
+        ``restore_serving_state`` for each request; JAX ``record_adopt``,
+        ``metrics.py:328``): bookkeeping only, keyed to its ORIGINAL submit
+        time so its latencies span its whole life (the submit was counted
+        where it happened); a first token streamed there keeps its TTFT out
+        of this engine's histograms but times the decode span here."""
+        self._requests[req.rid] = {
+            "rid": req.rid, "prompt_len": int(len(req.prompt)),
+            "submit_time": req.submit_time if req.submit_time is not None else now,
+            "tenant": req.tenant, "priority": req.priority,
+        }
+        if req.first_token_time is not None:
+            self._requests[req.rid]["first_token_time"] = req.first_token_time
+        if self.slo is not None:
+            self.slo.touch(now)
+
+    def record_restore(self, n_requests: int, downtime_s: float) -> None:
+        """A warm restart (JAX ``record_restore``): how many requests
+        ``restore_serving_state`` brought back and how long they were dark."""
+        if n_requests:
+            self._inc("restored", n_requests)
+        self._h_restore_downtime.observe(float(downtime_s))
 
     def record_admit(self, req, now: float) -> None:
         r = self._requests[req.rid]
@@ -545,6 +579,8 @@ class ServingMetrics:
             "sheds": self.sheds,
             "timed_out": self.timed_out,
             "failed": self.failed,
+            "restored": self.restored,
+            "restore_downtime_p95_s": self._h_restore_downtime.percentile(0.95),
             "quarantines": self.quarantines,
             "page_quarantines": self.page_quarantines,
             "dispatch_retries": self.dispatch_retries,

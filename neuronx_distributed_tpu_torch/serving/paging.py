@@ -112,6 +112,12 @@ class PageAllocator:
         return len(self._free)
 
     @property
+    def referenced_pages(self) -> int:
+        """Pages with at least one holder (a mapping or a pin; JAX
+        ``referenced_pages``)."""
+        return len(self._refs)
+
+    @property
     def pages_quarantined(self) -> int:
         return len(self._quarantined)
 

@@ -1632,3 +1632,139 @@ def test_tiered_engine_pins_its_arena_once_and_never_in_a_capture(cuda, monkeypa
     assert control.metrics.snapshot()["prefix_hit_tier"] == {"device": snap["prefix_hits"]}
     assert toks == want
     assert tiered.cache.alloc.copy_bytes == 0
+
+
+def _small_llama(seed=0):
+    """A small bf16 Llama (head_dim 128) on the card."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512)
+    return init_params(LlamaForCausalLM(cfg), seed=seed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_weight_swap_on_card_keeps_addresses_and_the_capture(cuda, paged):
+    """``engine.params = W1`` between two waves on the card: every
+    parameter at its address, one capture, the store empty and (paged) no
+    page referenced; the replayed step reads the new weights: the second
+    wave's streams differ from the first's and equal a fresh engine's on a
+    model holding W1."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    model, w1 = _small_llama(0), _small_llama(1).state_dict()
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(1, 1000, size=n) for n in (70, 20, 45)]
+    kw = dict(kv_page_size=16) if paged else {}
+
+    def wave(engine):
+        reqs = [engine.submit(p, GenerationConfig(16, temperature=0.0), seed=i)
+                for i, p in enumerate(prompts)]
+        engine.run()
+        return [r.tokens for r in reqs]
+
+    engine = ServingEngine(model, num_slots=2, decode_chunk_size=4, **kw)
+    first = wave(engine)
+    ptrs = {k: t.data_ptr() for k, t in engine.params.items()}
+    engine.params = w1
+    assert {k: t.data_ptr() for k, t in engine.params.items()} == ptrs
+    assert len(engine.prefix.entries) == 0 and engine.decode_compilations == 1
+    if paged:
+        assert engine.cache.alloc.referenced_pages == 0
+        engine.cache.check()
+    second = wave(engine)
+    assert engine.decode_compilations == 1 and second != first
+    assert second == wave(ServingEngine(model, num_slots=2, decode_chunk_size=4, **kw))
+
+
+@pytest.mark.cuda
+def test_quantized_swap_on_card_equals_quantize_state_dict(cuda):
+    """A float swap on an int8 engine on the card: the codes and scales in
+    the engine's own tensors equal ``quantize_state_dict`` of the same
+    weights bit for bit; the float source model keeps every bit."""
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    from neuronx_distributed_tpu_torch.quantization.utils import quantize_state_dict
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    model, w1 = _small_llama(0), _small_llama(1).state_dict()
+    source = {k: v.clone() for k, v in model.state_dict().items()}
+    engine = ServingEngine(model, num_slots=2, quantize=QuantConfig(weights="int8"))
+    ptrs = {k: t.data_ptr() for k, t in engine.params.items()}
+    engine.params = w1
+    want = quantize_state_dict(w1, engine._weight_qcfg)
+    got = engine.params
+    assert {k: t.data_ptr() for k, t in got.items()} == ptrs
+    assert sorted(got) == sorted(want)
+    assert all(got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]) for k in want)
+    assert all(torch.equal(v, source[k]) for k, v in model.state_dict().items())
+
+
+@pytest.mark.cuda
+def test_poisoned_draft_on_card_restores_its_bits(cuda):
+    """``poison_draft`` on a captured speculative round (the target as its
+    own draft through ``draft_params=``): acceptance collapses against the
+    clean engine's, every request finishes, and the draft's bits equal its
+    clean copy afterwards, one capture (the streams of two speculative
+    engines are no bitwise gate on the card: their verify windows differ)."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.serving.faults import FaultInjector
+
+    model = _small_llama(0)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, 1000, size=n) for n in (40, 90)]
+    runs = []
+    for poison in (True, False):
+        inj = FaultInjector().poison_draft(at=0, times=None) if poison else None
+        engine = ServingEngine(model, num_slots=2, decode_chunk_size=4, prefix_cache=None,
+                               draft_model=model, draft_params=model.state_dict(), gamma=3,
+                               fault_injector=inj)
+        clean = {k: v.clone() for k, v in engine.draft_params.items()}
+        reqs = [engine.submit(p, GenerationConfig(24, temperature=0.0), seed=i)
+                for i, p in enumerate(prompts)]
+        engine.run()
+        assert engine.decode_compilations == 1
+        assert all(len(r.tokens) == 24 for r in reqs)
+        assert all(torch.equal(v, clean[k]) for k, v in engine.draft_params.items())
+        runs.append(([r.tokens for r in reqs], engine.metrics.snapshot()["spec_accept_rate"]))
+        if poison:
+            assert inj.counters["poisoned_drafts"] > 0
+    assert runs[0][1] < 0.5 < runs[1][1]
+
+
+@pytest.mark.cuda
+def test_restored_engine_on_card_continues_the_snapshot(cuda):
+    """Two steps, ``fence``, the snapshot through JSON, a restore on a fresh
+    engine over the same module: every stream starts with its pre-kill
+    tokens and finishes with its token count in the vocabulary; one capture
+    an engine (the re-prefill runs K1 over tokens the first engine decoded
+    through K4, so the rest is no bitwise gate)."""
+    import json
+
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.serving.traffic import VirtualClock
+
+    model = _small_llama(0)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, 1000, size=n) for n in (30, 60, 15)]
+    cfg = GenerationConfig(20, temperature=0.0)
+    a = ServingEngine(model, num_slots=2, decode_chunk_size=4, prefix_cache=None,
+                      time_fn=VirtualClock())
+    reqs = [a.submit(p, cfg, seed=i) for i, p in enumerate(prompts)]
+    a.step()
+    a.step()
+    mid = [list(r.tokens) for r in reqs]
+    a.fence("kill")
+    snap = json.loads(json.dumps(a.snapshot_serving_state()))
+    b = ServingEngine(model, num_slots=2, decode_chunk_size=4, prefix_cache=None,
+                      time_fn=VirtualClock(start=1000.0))
+    assert b.restore_serving_state(snap)["restored"] == 3
+    b.run()
+    assert a.decode_compilations == 1 and b.decode_compilations == 1
+    for i, r in enumerate(reqs):
+        got = b.scheduler.requests[r.rid]
+        assert got.tokens[:len(mid[i])] == mid[i] and len(got.tokens) == 20
+        assert all(0 <= t < 1000 for t in got.tokens)

@@ -3,8 +3,8 @@ tiny_llama): deadlines and shedding, dispatch recovery over the decode
 program, readback validation and slot quarantine, prefill faults, drain and
 health, the speculative fallback, and the flight recorder. The counterpart
 of ``tests/serving/test_faults.py`` (its single-engine tests; the SLO,
-tenant and timeline tests wait for their modules, and the poisoned-draft
-test for a draft that does not share the target's tensors).
+tenant and timeline tests wait for their modules; the poisoned-draft test
+is ``tests/test_torch_draft_params.py``'s).
 
 Both engines are built from one seed (``flax_to_torch``) and given the same
 prompts and the same ``FaultInjector`` schedule. Across frameworks: equal
@@ -422,9 +422,20 @@ def test_draft_dispatch_failure_falls_back_bit_identical(setup):
     pair.check_alike(gcfgs)
 
 
-def test_poison_draft_is_not_ported():
-    with pytest.raises(NotImplementedError, match="shares the target's tensors"):
-        FaultInjector().poison_draft(at=0)
+def test_poison_draft_is_not_ported(setup):
+    """``poison_draft`` is not served for a draft that shares the target's
+    tensors (the early-exit draft): such an engine refuses the schedule at
+    construction, naming ``draft_params=``; with the draft's own copy
+    (``draft_params=``) the same schedule is served."""
+    from neuronx_distributed_tpu_torch.models.llama import early_exit_draft
+
+    tt = setup[2]
+    target, draft = early_exit_draft(tt, 1, 0.0)
+    with pytest.raises(ValueError, match="shares the target's tensors.*draft_params="):
+        ServingEngine(target, num_slots=1, draft_model=draft, gamma=2,
+                      fault_injector=FaultInjector().poison_draft(at=0))
+    ServingEngine(target, num_slots=1, draft_model=draft, draft_params=draft.state_dict(),
+                  gamma=2, fault_injector=FaultInjector().poison_draft(at=0))
 
 
 def test_spec_readback_poison_quarantines_slot(setup):

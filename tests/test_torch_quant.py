@@ -303,16 +303,21 @@ def test_quantized_llama_logits_match_jax(kind):
 
 def test_quantize_model_shares_the_float_tensors_it_keeps():
     """``quantize_model``: the state dict of ``quantize_state_dict`` bound to
-    a model of the quantized config; the embedding, norms and RoPE table
-    are the float model's own tensors, the float model is unchanged."""
+    a model of the quantized config; the RoPE table it keeps is the float
+    model's own tensor, the embedding and norms are equal copies of their
+    own (a weight swap writes them in place), the float model is
+    unchanged."""
     model = tllama.init_params(tllama.LlamaForCausalLM(tllama.tiny_llama(), device="cpu"))
     before = {k: v.clone() for k, v in model.state_dict().items()}
     cfg = tqc.QuantConfig(weights="fp8").weight_qconfig()
     qm = tllama.quantize_model(model, cfg)
     assert qm.config.quantization == cfg and model.config.quantization is None
-    assert qm.model.embed.weight is model.model.embed.weight
-    assert qm.model.layers[1].input_norm.weight is model.model.layers[1].input_norm.weight
     assert qm.model.freqs is model.model.freqs
+    for name in ("model.embed.weight", "model.layers.1.input_norm.weight"):
+        q, f = qm.state_dict()[name], model.state_dict()[name]
+        assert torch.equal(q, f) and q.untyped_storage().data_ptr() != f.untyped_storage().data_ptr()
+    assert tllama.storage_ptrs(qm) & tllama.storage_ptrs(model) == {
+        model.model.freqs.untyped_storage().data_ptr()}
     want = tqu.quantize_state_dict(model.state_dict(), cfg)
     for name, t in qm.state_dict().items():
         assert torch.equal(_codes_t(t), _codes_t(want[name])), name

@@ -307,16 +307,12 @@ def test_halt_post_mortem_carries_tenant_depths_and_slo(setup):
 
 def test_later_slices_refuse_loudly(setup):
     tm = setup[2]
-    for kw in (dict(profile_dir="x"), dict(program_ledger=object()),
-               dict(draft_params={})):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(profile_dir="x"), dict(program_ledger=object())):
+        with pytest.raises(NotImplementedError, match="item 10c"):
             ServingEngine(tm, num_slots=1, **kw)
     engine = ServingEngine(tm, num_slots=1)
-    for call in (engine.fence, engine.load_score, engine.export_requests,
-                 engine.import_requests):
-        with pytest.raises(NotImplementedError):
+    for call in (engine.load_score, engine.export_requests, engine.import_requests):
+        with pytest.raises(NotImplementedError, match="item 10b"):
             call()
-    with pytest.raises(NotImplementedError):
-        engine.params = {}
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 10c"):
         FaultInjector().flip_bits("params")
