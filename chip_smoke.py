@@ -209,6 +209,34 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    wall from the fence to the first token after the restore printed; (e)
    the fenced row engine's requeued requests adopted one by one by a fresh
    engine, (d)'s stream gates;
+5k. the serving fabric at full width (``serving/router.py``,
+   ``transport.py``, ``disagg.py``; the replicas are engines over the one
+   module, each with its own cache and capture): (a) 3 replicas of phase
+   5b's paged engine, prefix cache on, phase 5c's 12 sessions one at a
+   time then phase 5b's 15 requests: routed = submitted, affinity hits
+   and each replica's hits, misses and inserts = a CPU dry run of the same
+   leg at tiny width, K1 = full prefills x 32, PF = inserts + paged hits,
+   one capture a replica, ``check()`` on every replica after every step;
+   (b) 3 replicas of phase 4's row engine, replica 1 halted mid-decode by
+   failing dispatches: its unfinished requests re-homed with
+   ``tokens_lost == 0`` (their pre-halt tokens kept exactly), the
+   survivors' captures unchanged, K1 = (admissions + re-admissions) x 32,
+   the re-home wall; (c) (a)'s router over a ``ChaosTransport`` (JAX's
+   ``_chaos_faults``) with a watchdog on a virtual clock, replica 2
+   partitioned: OK -> SUSPECT -> DEGRADED -> DEAD, fenced, re-homed, no
+   rid admitted twice, the probe states and the transport's snapshot = the
+   dry run's; (d) ``add_replica`` (rebalanced = the dry run's),
+   ``remove_replica``, ``restart_replica`` of a fenced replica (its live
+   requests restored, ``router_restart_latency_s``); (e) a
+   ``DisaggregatedServer`` on phase 5b's engine: a shared pool
+   (``copy_bytes`` 0) and distinct pools (``copy_bytes`` = the exported
+   bytes) with equal streams, the staged pages = a coupled prefill's bit
+   for bit on the bf16 pool and 5f(c)'s int8 pool, K1 = worker prefills x
+   32, K5 = executed steps x 32, the coupled fallbacks under
+   ``fail_handoff`` and a worker death, the handoff and import walls, TPOT
+   p50/p99 of chat decoders under a document burst through the coupled
+   engine and the disaggregated server (reported). Every greedy token of
+   every leg within phase 3's limit teacher-forced; peak memory under 72 GiB;
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -4517,6 +4545,703 @@ def weights_phase(model, srv: dict, paged: dict, smi: str) -> dict:
     return dict(launches=launches)
 
 
+# --- phase 5k: the serving fabric ------------------------------------------------
+
+FABRIC_REPLICAS = 3    # the router's replicas: engines that share the one card and its weights
+FABRIC_STEP_DT = 0.3   # virtual seconds a router step in 5k(c)/(d): one watchdog probe a step
+FABRIC_PARTITIONED = 2  # the replica 5k(c) partitions
+BURST_CHATS, BURST_DOCS = 8, 4  # 5k(e)'s TPOT burst: chat decoders, then 5h-sized documents
+
+
+def fabric_sync(model) -> None:
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def fabric_paged_kw(model) -> dict:
+    """Phase 5b's paged engine: 16 slots, 2049 pages of 16, chunk 8."""
+    return dict(num_slots=PAGED_SLOTS, kv_page_size=PAGE, decode_chunk_size=8,
+                kv_num_pages=ROW_SLOTS * model.config.max_seq_len // PAGE + 1)
+
+
+def fabric_dry_model(model):
+    """The CPU dry run's model: the phase's vocabulary and ``max_seq_len``
+    at a tiny width (fp32, one layer). The router's decisions depend on
+    lengths, prompt tokens, the virtual clock and host state only, never
+    on the model's arithmetic, so a dry run of a leg on the CPU makes the
+    decisions the card's run must make."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
+
+    c = model.config
+    cfg = LlamaConfig(vocab_size=c.vocab_size, hidden_size=64, intermediate_size=128, num_layers=1,
+                      num_heads=2, num_kv_heads=1, max_seq_len=c.max_seq_len, dtype=torch.float32)
+    return init_params(LlamaForCausalLM(cfg, device="cpu"), seed=0)
+
+
+@contextlib.contextmanager
+def fabric_dry_sampler():
+    """The dry run's decode steps pick each slot's argmax: its decisions do
+    not depend on the tokens (no request stops at an EOS), and the
+    per-row sampler sorts the whole 128256-wide vocabulary a slot and a
+    step, which on the CPU costs most of a dry run. The card's legs run
+    the engine's own sampler."""
+    from neuronx_distributed_tpu_torch.inference import generate as gen_mod
+    from neuronx_distributed_tpu_torch.utils.sampling import greedy
+
+    saved = gen_mod.sample_per_row
+    gen_mod.sample_per_row = lambda logits, *a: greedy(logits)
+    try:
+        yield
+    finally:
+        gen_mod.sample_per_row = saved
+
+
+def fabric_chaos():
+    """JAX's ``_chaos_faults`` (``tests/serving/test_fabric_soak.py``):
+    duplicated, dropped and delayed sends across the run."""
+    from neuronx_distributed_tpu_torch.serving.faults import FaultInjector
+
+    return (FaultInjector().dup_send(at=3, times=2).drop_send(at=9, times=2)
+            .delay_send(at=15, times=2, by=0.01).dup_send(at=24, times=1)
+            .drop_send(at=33, times=1))
+
+
+def fabric_step(router, paged: bool = True) -> None:
+    """One router step, then ``check()`` of every paged replica's pool."""
+    router.step()
+    if paged:
+        for e in router.replicas:
+            getattr(e, "engine", e).cache.check()
+
+
+def fabric_launches(engines, counters) -> dict:
+    """The wrappers' counts plus every engine's replays x its launches a
+    replay (a replay calls no wrapper)."""
+    out = {name: c.launches for name, c in counters.items()}
+    for e in engines:
+        prog = decode_program(e)
+        if prog is not None:
+            for name, n in prog.launches_per_replay.items():
+                out[name] += prog.replays * n
+    return out
+
+
+def fabric_zero(model) -> dict:
+    counters = kernel_counters()
+    fabric_sync(model)
+    for c in counters.values():
+        c.launches = 0
+    return counters
+
+
+def fabric_done(what: str, model, reqs) -> None:
+    """Every request DONE with its token count, in the vocabulary."""
+    from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
+
+    vocab = model.config.vocab_size
+    for r in reqs:
+        if r.state is not RequestState.DONE or len(r.tokens) != r.config.max_new_tokens:
+            raise AssertionError(f"fabric {what}: request {r.rid}: {r.state} with "
+                                 f"{len(r.tokens)} tokens")
+        if not all(0 <= t < vocab for t in r.tokens):
+            raise AssertionError(f"fabric {what}: request {r.rid}: a token outside the vocabulary")
+
+
+def fabric_teacher(what: str, model, prompts, cfgs, reqs) -> float:
+    worst = teacher_ratio(model, (prompts, cfgs), [list(r.tokens) for r in reqs])
+    if worst > 1.0:
+        raise AssertionError(f"fabric {what}: a greedy token lies {worst:.3g}x phase 3's limit "
+                             "below its row's maximum teacher-forced")
+    return worst
+
+
+def fabric_captures(what: str, router) -> list:
+    """One capture a replica that decoded, none elsewhere."""
+    got = [getattr(e, "engine", e).decode_compilations for e in router.replicas]
+    want = [int(getattr(e, "engine", e).metrics.executed_steps > 0) for e in router.replicas]
+    if got != want:
+        raise AssertionError(f"fabric {what}: captures {got}, want {want}")
+    return got
+
+
+def fabric_affinity(model, dry: bool = False) -> dict:
+    """5k(a): a router of 3 paged replicas (phase 5b's engine, prefix cache
+    on) serves phase 5c's prefix workload in the order of JAX's
+    ``test_affinity_steers_shared_prefix_sessions`` (one session warms a
+    replica, each later one is submitted and served alone), then phase 5b's
+    15 requests at once. ``dry``: the decisions alone (the CPU dry run)."""
+    from neuronx_distributed_tpu_torch.serving.router import ReplicaRouter
+
+    cfg = model.config
+    layers = cfg.num_layers
+    pre_p, pre_c = prefix_workload(cfg.vocab_size)
+    pag_p, pag_c = paged_workload(cfg.vocab_size)
+    router = ReplicaRouter.build(model, FABRIC_REPLICAS, **fabric_paged_kw(model))
+    inserts = [0] * FABRIC_REPLICAS
+    for i, e in enumerate(router.replicas):
+        def counting(*a, _insert=e.prefix.insert, _i=i, **kw):
+            entry, evicted = _insert(*a, **kw)
+            inserts[_i] += entry is not None
+            return entry, evicted
+
+        e.prefix.insert = counting
+    counters = fabric_zero(model)
+    t0 = time.perf_counter()
+    reqs = []
+    for i, (p, c) in enumerate(zip(pre_p, pre_c)):
+        reqs.append(router.submit(p, c, seed=i))
+        while router.has_work:
+            fabric_step(router)
+    for j, (p, c) in enumerate(zip(pag_p, pag_c)):
+        reqs.append(router.submit(p, c, seed=j))
+    while router.has_work:
+        fabric_step(router)
+    fabric_sync(model)
+    wall = time.perf_counter() - t0
+    launches = fabric_launches(router.replicas, counters)
+    fabric_done("5k(a)", model, reqs)
+    snaps = [e.metrics.snapshot() for e in router.replicas]
+    decisions = dict(routed=router.stats["routed"], affinity_hits=router.stats["affinity_hits"],
+                     routed_by_replica=list(router.routed_by_replica),
+                     hits=[s["prefix_hits"] for s in snaps], misses=[s["prefix_misses"] for s in snaps],
+                     inserts=list(inserts))
+    if dry:
+        return dict(decisions=decisions)
+    if router.stats["routed"] != len(reqs):
+        raise AssertionError(f"fabric 5k(a): routed {router.stats['routed']} of {len(reqs)}")
+    full = sum(s["prefill_full_count"] for s in snaps)
+    if launches["flash_attention"] != full * layers:
+        raise AssertionError(f"fabric 5k(a): K1 {launches['flash_attention']} != full prefills "
+                             f"{full} x {layers}")
+    hits = sum(decisions["hits"])
+    if launches["page_fingerprint"] != sum(inserts) + hits:
+        raise AssertionError(f"fabric 5k(a): PF {launches['page_fingerprint']} != inserts "
+                             f"{sum(inserts)} + paged hits {hits}")
+    captures = fabric_captures("5k(a)", router)
+    worst = fabric_teacher("5k(a)", model, pre_p + pag_p, pre_c + pag_c, reqs)
+    del router
+    collect_engines()
+    return dict(decisions=decisions, launches=launches, wall_s=wall, full=full, hits=hits,
+                teacher=worst, captures=captures)
+
+
+def fabric_rehome(model, srv: dict) -> dict:
+    """5k(b): a router of 3 row replicas (phase 4's engine: 8 slots, chunk
+    8) on phase 4's requests; replica 1's dispatches fail from its third on
+    (JAX's ``test_halted_replica_rehomes_with_zero_tokens_lost``), so it
+    halts mid-decode with its work requeued, and the router re-homes it."""
+    from neuronx_distributed_tpu_torch.observability.registry import MetricsRegistry
+    from neuronx_distributed_tpu_torch.serving.engine import EngineHealth
+    from neuronx_distributed_tpu_torch.serving.faults import FaultInjector
+    from neuronx_distributed_tpu_torch.serving.router import ReplicaRouter
+
+    prompts, cfgs = srv["workload"]
+    layers = model.config.num_layers
+    router = ReplicaRouter.build(model, FABRIC_REPLICAS, num_slots=8, decode_chunk_size=8,
+                                 prefix_cache=None, sleep_fn=lambda s: None,
+                                 registry=MetricsRegistry())
+    inj = FaultInjector().fail_dispatch(at=2, times=None)
+    router.replicas[1]._faults = inj
+    counters = fabric_zero(model)
+    reqs = [router.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
+    bufs, pre = {}, None
+    while router.has_work:
+        router.step()
+        for i in (0, 2):
+            e = router.replicas[i]
+            if i not in bufs and e.decode_compilations:
+                bufs[i] = graph_buffers(e)
+        if pre is None and router.replicas[1].health() is EngineHealth.HALTED:
+            pre = {r.rid: list(r.tokens) for r in router.replicas[1].scheduler.queued_requests}
+    fabric_sync(model)
+    launches = fabric_launches(router.replicas, counters)
+    fabric_done("5k(b)", model, reqs)
+    if pre is None or not all(pre.values()):
+        raise AssertionError(f"fabric 5k(b): replica 1 did not halt mid-decode ({pre})")
+    final = {r.rid: router.requests[r.rid].tokens for r in reqs}
+    lost = [rid for rid, toks in pre.items() if final[rid][:len(toks)] != toks]
+    if lost or router.stats["rehomed_requests"] != len(pre):
+        raise AssertionError(f"fabric 5k(b): re-homed {router.stats['rehomed_requests']} of "
+                             f"{len(pre)} unfinished; streams that lost their pre-halt tokens {lost}")
+    for i in (0, 2):
+        e = router.replicas[i]
+        if e.decode_compilations != 1 or graph_buffers(e) != bufs[i]:
+            raise AssertionError(f"fabric 5k(b): survivor {i}'s capture changed")
+    admissions = sum(e.metrics.prefills for e in router.replicas)
+    if launches["flash_attention"] != admissions * layers:
+        raise AssertionError(f"fabric 5k(b): K1 {launches['flash_attention']} != (admissions + "
+                             f"re-admissions) {admissions} x {layers}")
+    if min(launches["flash_decode"], launches["flash_attention"]) < 1 or launches["paged_flash_decode"]:
+        raise AssertionError(f"fabric 5k(b): row serving launched {launches}")
+    worst = fabric_teacher("5k(b)", model, prompts, cfgs, reqs)
+    same = sum(router.requests[r.rid].tokens == srv["tokens"][i] for i, r in enumerate(reqs))
+    out = dict(launches=launches, rehomed=router.stats["rehomed_requests"],
+               rehome_s=router._h_rehome.sum, admissions=admissions, teacher=worst, same=same,
+               failures=inj.counters["dispatch_failures"], pre=sum(map(len, pre.values())))
+    del router
+    collect_engines()
+    return out
+
+
+def fabric_watchdog(model, dry: bool = False) -> dict:
+    """5k(c): the router of (a) over a ``ChaosTransport`` (JAX's
+    ``_chaos_faults``) with a ``WatchdogConfig`` on a virtual clock,
+    phase 5b's traffic; right after the submissions replica 2 is
+    partitioned for good, so its probes fail until it is declared DEAD,
+    fenced, and its work re-homed."""
+    from neuronx_distributed_tpu_torch.serving.engine import EngineHealth
+    from neuronx_distributed_tpu_torch.serving.router import ReplicaRouter, WatchdogConfig
+    from neuronx_distributed_tpu_torch.serving.traffic import VirtualClock
+    from neuronx_distributed_tpu_torch.serving.transport import ChaosTransport
+
+    cfg = model.config
+    prompts, cfgs = paged_workload(cfg.vocab_size)
+    clock = VirtualClock()
+    inj = fabric_chaos()
+    transport = ChaosTransport(inj, time_fn=clock)
+    router = ReplicaRouter.build(model, FABRIC_REPLICAS, transport=transport,
+                                 watchdog=WatchdogConfig(), time_fn=clock,
+                                 **fabric_paged_kw(model))
+    counters = fabric_zero(model)
+    reqs = [router.submit(p, c, seed=j) for j, (p, c) in enumerate(zip(prompts, cfgs))]
+    inj.partition(FABRIC_PARTITIONED, at=transport._send_idx)
+    dead = router.replicas[FABRIC_PARTITIONED]
+    seq, pre = [tuple(router.probe_states().values())], None
+    while router.has_work:
+        before = {r.rid: list(r.tokens) for r in dead.scheduler.requests.values()
+                  if not r.finished}
+        clock.advance(FABRIC_STEP_DT)
+        fabric_step(router)
+        seq.append(tuple(router.probe_states().values()))
+        if pre is None and dead.health() is EngineHealth.HALTED:
+            pre = before
+    fabric_sync(model)
+    launches = fabric_launches(router.replicas, counters)
+    fabric_done("5k(c)", model, reqs)
+    walk = [s[FABRIC_PARTITIONED] for i, s in enumerate(seq)
+            if i == 0 or s[FABRIC_PARTITIONED] != seq[i - 1][FABRIC_PARTITIONED]]
+    decisions = dict(seq=seq, transport=transport.snapshot(), stats=dict(router.stats),
+                     counters=dict(inj.counters), routed_by_replica=list(router.routed_by_replica))
+    if dry:
+        return dict(decisions=decisions)
+    if walk != ["ok", "suspect", "degraded", "dead"] or pre is None:
+        raise AssertionError(f"fabric 5k(c): replica {FABRIC_PARTITIONED} walked {walk}")
+    objects = {}
+    for e in router.replicas:
+        for rid, r in e.scheduler.requests.items():
+            objects.setdefault(rid, set()).add(id(r))
+    twice = [rid for rid, ids in objects.items() if len(ids) != 1]
+    lost = [rid for rid, toks in pre.items() if router.requests[rid].tokens[:len(toks)] != toks]
+    if (twice or lost or router.stats["rehomed_requests"] != len(pre)
+            or router.stats["watchdog_deaths"] != 1):
+        raise AssertionError(f"fabric 5k(c): rids twice {twice}, streams that lost tokens {lost}, "
+                             f"re-homed {router.stats['rehomed_requests']} of {len(pre)}, "
+                             f"deaths {router.stats['watchdog_deaths']}")
+    captures = fabric_captures("5k(c)", router)
+    worst = fabric_teacher("5k(c)", model, prompts, cfgs, reqs)
+    out = dict(decisions=decisions, launches=launches, walk=walk, rehomed=len(pre),
+               teacher=worst, captures=captures, steps=len(seq) - 1)
+    del router
+    collect_engines()
+    return out
+
+
+def fabric_join(model, dry: bool = False) -> dict:
+    """5k(d): (c)'s router configuration without the partition, phase
+    5b's 15 requests queued: ``add_replica()`` rebalances the queue onto a
+    fourth replica, ``remove_replica(0)`` drains replica 0 out, and after
+    two steps replica 1 is fenced and ``restart_replica(1)`` restores its
+    live requests on a fresh replica."""
+    from neuronx_distributed_tpu_torch.observability.registry import MetricsRegistry
+    from neuronx_distributed_tpu_torch.serving.router import ReplicaRouter, WatchdogConfig
+    from neuronx_distributed_tpu_torch.serving.traffic import VirtualClock
+    from neuronx_distributed_tpu_torch.serving.transport import ChaosTransport
+
+    cfg = model.config
+    prompts, cfgs = paged_workload(cfg.vocab_size)
+    clock = VirtualClock()
+    inj = fabric_chaos()
+    transport = ChaosTransport(inj, time_fn=clock)
+    router = ReplicaRouter.build(model, FABRIC_REPLICAS, transport=transport,
+                                 watchdog=WatchdogConfig(), time_fn=clock,
+                                 registry=MetricsRegistry(), **fabric_paged_kw(model))
+    counters = fabric_zero(model)
+    reqs = [router.submit(p, c, seed=j) for j, (p, c) in enumerate(zip(prompts, cfgs))]
+    joined = router.add_replica()
+    router.remove_replica(0)
+    for _ in range(2):
+        clock.advance(FABRIC_STEP_DT)
+        fabric_step(router)
+    victim = router.replicas[1]
+    victim.fence("chip smoke kill")
+    mid = {r.rid: list(r.tokens) for r in victim.scheduler.queued_requests}
+    t0 = time.perf_counter()
+    new = router.restart_replica(1)
+    while router.has_work:
+        clock.advance(FABRIC_STEP_DT)
+        fabric_step(router)
+    fabric_sync(model)
+    launches = fabric_launches(router.replicas, counters)
+    final = [router.requests[r.rid] for r in reqs]
+    fabric_done("5k(d)", model, final)
+    decisions = dict(joined=joined, new=new, stats=dict(router.stats),
+                     routed_by_replica=list(router.routed_by_replica),
+                     probe_states=router.probe_states(), transport=transport.snapshot(),
+                     restored=sorted(mid))
+    if dry:
+        return dict(decisions=decisions)
+    lost = [rid for rid, toks in mid.items() if router.requests[rid].tokens[:len(toks)] != toks]
+    if (lost or router.stats["replicas_removed"] != 1 or router.stats["replicas_restarted"] != 1
+            or not mid):
+        raise AssertionError(f"fabric 5k(d): streams that lost tokens {lost}, stats "
+                             f"{router.stats}, restored {len(mid)}")
+    restored = router.replicas[new].metrics.snapshot()["restored"]
+    if restored != len(mid):
+        raise AssertionError(f"fabric 5k(d): restored {restored} of {len(mid)} live requests")
+    captures = fabric_captures("5k(d)", router)
+    worst = fabric_teacher("5k(d)", model, prompts, cfgs, final)
+    out = dict(decisions=decisions, launches=launches, restart_s=router._h_restart.sum,
+               restore_to_idle_s=time.perf_counter() - t0, restored=restored, teacher=worst,
+               captures=captures)
+    del router
+    collect_engines()
+    return out
+
+
+def fabric_staged_vs_coupled(model, quantize, num_pages, prompts) -> dict:
+    """For each prompt, on one engine: a coupled admission (its slot's
+    pages), then the same prompt through a worker of a
+    ``DisaggregatedServer`` over the same engine (its staged pages): the two
+    page sets hold the same bytes, K and V in every context row (whole
+    pages, codes and scales, on an int8 pool); then both requests decode to
+    the end (K5, or K5q on an int8 pool, right after the handoff)."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.serving.disagg import DisaggregatedServer
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    kw = dict(fabric_paged_kw(model), kv_num_pages=num_pages or fabric_paged_kw(model)["kv_num_pages"])
+    engine = ServingEngine(model, prefix_cache=None, quantize=quantize, **kw)
+    names = ("k", "v", "k_scale", "v_scale") if engine.cache.cache.quantized else ("k", "v")
+    counters = fabric_zero(model)
+    pages, reqs = 0, []
+    for i, p in enumerate(prompts):
+        g = GenerationConfig(max_new_tokens=8, temperature=0.0)
+        reqs.append(engine.submit(p, g, seed=i))
+        engine._admit(engine._now())
+        cids = engine.cache.slot_pages(reqs[-1].slot)
+        server = DisaggregatedServer(engine, n_workers=1)
+        reqs.append(engine.submit(p, g, seed=i))
+        server._run_prefills(engine._now())
+        _, staged, _ = server._pending[0]
+        sids = list(staged.page_ids)
+        c = engine.cache.cache
+        for name in names:
+            a, b = getattr(c, name)[:, cids], getattr(c, name)[:, sids]
+            if not engine.cache.cache.quantized:
+                # a float pool's recycled page keeps its last owner's rows past
+                # the context (never attended); an int8 page is zeroed when
+                # mapped, so its whole page, scales included, is compared
+                a, b = (t.flatten(1, 2)[:, :len(p)] for t in (a, b))
+            if len(sids) != len(cids) or not torch.equal(a.view(torch.uint8), b.view(torch.uint8)):
+                raise AssertionError(f"fabric 5k(e): prompt of {len(p)}: the staged pages' {name} "
+                                     "differ from the coupled prefill's")
+        pages += len(sids)
+        server.run()
+        engine.cache.check()
+        engine.external_prefill = False
+    fabric_done("5k(e) staged", model, reqs)
+    if engine.cache.alloc.referenced_pages or engine.decode_compilations != 1:
+        raise AssertionError(f"fabric 5k(e): staged leg left {engine.cache.alloc.referenced_pages} "
+                             f"pages referenced, {engine.decode_compilations} captures")
+    fabric_sync(model)
+    launches = fabric_launches([engine], counters)
+    per_replay = dict(engine.decode_program.launches_per_replay)
+    del engine, server
+    collect_engines()
+    return dict(pages=pages, per_replay=per_replay, launches=launches)
+
+
+def fabric_disagg_run(model, prompts, cfgs, shared: bool, injector=None) -> dict:
+    """Phase 5b's engine behind a ``DisaggregatedServer`` (1 worker,
+    ``prefills_per_step=1``, ``shared_pool``), the requests submitted at
+    once and served to the end, ``check()`` after every step; the walls of
+    each handoff's ``map_staged`` and each ``import_pages``."""
+    from neuronx_distributed_tpu_torch.serving.disagg import DisaggregatedServer
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(model, prefix_cache=None, **fabric_paged_kw(model))
+    server = DisaggregatedServer(engine, n_workers=1, prefills_per_step=1, shared_pool=shared,
+                                 fault_injector=injector)
+    workers = list(server.workers)  # a dead worker leaves server.workers
+    walls = {"map_staged": [], "import_pages": []}
+    nbytes = []
+    for name in walls:
+        fn = getattr(engine.cache, name)
+
+        def timed(*a, _fn=fn, _name=name, **kw):
+            fabric_sync(model)
+            t = time.perf_counter()
+            out = _fn(*a, **kw)
+            fabric_sync(model)
+            walls[_name].append(time.perf_counter() - t)
+            if _name == "import_pages":
+                nbytes.append(a[0].nbytes)
+            return out
+
+        setattr(engine.cache, name, timed)
+    counters = fabric_zero(model)
+    reqs = [server.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
+    while server.has_work:
+        server.step()
+        engine.cache.check()
+    fabric_sync(model)
+    launches, warm = engine_launches(engine, {name: c.launches for name, c in counters.items()})
+    fabric_done("5k(e)", model, reqs)
+    a = engine.cache.alloc
+    if a.referenced_pages or a.free_pages != a.capacity:
+        raise AssertionError(f"fabric 5k(e): {a.referenced_pages} pages still referenced")
+    out = dict(tokens=[list(r.tokens) for r in reqs], stats=dict(server.stats),
+               copy_bytes=a.copy_bytes, exported=sum(nbytes), walls=walls, launches=launches,
+               warm=warm, snap=engine.metrics.snapshot(), page_nbytes=engine.cache.page_nbytes,
+               captures=engine.decode_compilations, workers=len(server.workers),
+               coupled=engine.metrics.snapshot()["prefill_full_count"], reqs=reqs,
+               worker_calls=sum(w.calls for w in workers))
+    del engine, server
+    collect_engines()
+    return out
+
+
+def fabric_burst(model, disagg: bool) -> dict:
+    """TPOT under a document burst (wall clock): 8 chat requests of
+    100-400 tokens (64 new, greedy) decode; once every one has its first
+    token, 4 documents of 2000-3000 tokens (phase 5h's docs sizes, 16 new)
+    arrive. Through the coupled engine their prefills run inside the
+    decoders' steps, all in one; through the disaggregated server (1
+    worker, one prefill a step) at most one runs between two chunks.
+    Returns the chat requests' TPOT (first token to last, a request's
+    mean) p50 and p99, and the p99 over chats of each one's longest wait
+    between two token deliveries after the burst (a chunk's tokens arrive
+    together, so the waits are the steps)."""
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.serving.disagg import DisaggregatedServer
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    rng = np.random.default_rng(11)
+    vocab = model.config.vocab_size
+    chats = [rng.integers(1, vocab, size=int(rng.integers(100, 401))) for _ in range(BURST_CHATS)]
+    docs = [rng.integers(1, vocab, size=int(rng.integers(2000, 3001))) for _ in range(BURST_DOCS)]
+    engine = ServingEngine(model, prefix_cache=None, **fabric_paged_kw(model))
+    engine.prewarm()
+    front = DisaggregatedServer(engine, n_workers=1, prefills_per_step=1) if disagg else engine
+    stamps = {}
+
+    def stamp(req, tok):
+        stamps.setdefault(req.rid, []).append(time.perf_counter())
+
+    chat_reqs = [front.submit(p, GenerationConfig(max_new_tokens=64, temperature=0.0), seed=i,
+                              on_token=stamp) for i, p in enumerate(chats)]
+    while not all(r.tokens for r in chat_reqs):
+        front.step()
+    t_burst = time.perf_counter()
+    doc_reqs = [front.submit(p, GenerationConfig(max_new_tokens=16, temperature=0.0), seed=100 + i)
+                for i, p in enumerate(docs)]
+    while front.has_work:
+        front.step()
+    fabric_done("5k(e) burst", model, chat_reqs + doc_reqs)
+    tpot = [(r.finish_time - r.first_token_time) / (len(r.tokens) - 1) for r in chat_reqs]
+    gaps = [max((b - a for a, b in zip(ts, ts[1:]) if a >= t_burst), default=0.0)
+            for ts in (stamps[r.rid] for r in chat_reqs)]
+    out = dict(p50=float(np.percentile(tpot, 50)), p99=float(np.percentile(tpot, 99)),
+               gap99=float(np.percentile(gaps, 99)), captures=engine.decode_compilations)
+    del engine, front
+    collect_engines()
+    return out
+
+
+def fabric_disagg(model, paged: dict, smi: str) -> dict:
+    """5k(e): disaggregated prefill on phase 5b's engine and 15 requests:
+    a shared pool, then distinct pools; the staged pages against a coupled
+    prefill's on the bf16 pool and on 5f(c)'s int8 pool; the coupled
+    fallbacks under ``fail_handoff`` and a worker death; the TPOT burst."""
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    from neuronx_distributed_tpu_torch.serving.faults import FaultInjector
+
+    cfg = model.config
+    layers = cfg.num_layers
+    prompts, cfgs = paged_workload(cfg.vocab_size)
+    shared = fabric_disagg_run(model, prompts, cfgs, True)
+    distinct = fabric_disagg_run(model, prompts, cfgs, False)
+    want_bytes = sum(-(-len(p) // PAGE) for p in prompts) * shared["page_nbytes"]
+    for name, r in (("shared", shared), ("distinct", distinct)):
+        st = r["stats"]
+        if (st["prefills"], st["handoffs"], st["handoff_failures"], st["worker_failures"],
+                st["coupled_fallbacks"]) != (len(prompts), len(prompts), 0, 0, 0) \
+                or r["coupled"] != 0 or r["captures"] != 1:
+            raise AssertionError(f"fabric 5k(e) {name}: stats {st}, coupled prefills "
+                                 f"{r['coupled']}, captures {r['captures']}")
+        if r["launches"]["flash_attention"] != st["prefills"] * layers:
+            raise AssertionError(f"fabric 5k(e) {name}: K1 {r['launches']['flash_attention']} != "
+                                 f"the worker's prefills {st['prefills']} x {layers}")
+        k5 = r["launches"]["paged_flash_decode"] - r["warm"]["paged_flash_decode"]
+        if k5 != r["snap"]["executed_steps"] * layers:
+            raise AssertionError(f"fabric 5k(e) {name}: K5 {k5} != executed steps "
+                                 f"{r['snap']['executed_steps']} x {layers}")
+    if shared["copy_bytes"] != 0:
+        raise AssertionError(f"fabric 5k(e): the shared pool copied {shared['copy_bytes']} bytes")
+    if distinct["copy_bytes"] != distinct["exported"] or distinct["exported"] != want_bytes:
+        raise AssertionError(f"fabric 5k(e): distinct pools copied {distinct['copy_bytes']} B, "
+                             f"exported {distinct['exported']} B, the contexts' pages hold "
+                             f"{want_bytes} B")
+    if shared["tokens"] != distinct["tokens"]:
+        raise AssertionError("fabric 5k(e): the shared and distinct pools' streams differ")
+    worst = fabric_teacher("5k(e)", model, prompts, cfgs, shared["reqs"])
+    same = sum(t == u for t, u in zip(shared["tokens"], paged["tokens"]))
+    # the staged pages against a coupled prefill's: a chat turn, a document, and one more
+    pick = [prompts[0], prompts[4], prompts[9]]
+    bf16 = fabric_staged_vs_coupled(model, None, None, pick)
+    qc = QuantConfig(weights="int8", kv="int8")
+    d, hkv = cfg.head_dim_, cfg.num_kv_heads
+    n_pages = paged["pool_pages"] * (2 * layers * PAGE * hkv * d * 2) \
+        // (2 * layers * (PAGE * hkv * d + hkv * 2))
+    int8 = fabric_staged_vs_coupled(model, qc, n_pages, pick)
+    if int8["per_replay"].get("qpaged_flash_decode") != layers:
+        raise AssertionError(f"fabric 5k(e): the int8 pool decoded with {int8['per_replay']}")
+    # the coupled fallbacks: two failed handoffs, then a worker death
+    few_p, few_c = prompts[:4], cfgs[:4]
+    hinj = FaultInjector().fail_handoff(at=0, times=2)
+    ho = fabric_disagg_run(model, few_p, few_c, True, injector=hinj)
+    winj = FaultInjector().fail_prefill(at=0, times=None)
+    wd = fabric_disagg_run(model, few_p, few_c, True, injector=winj)
+    if (hinj.counters["handoff_failures"], ho["stats"]["handoff_failures"],
+            ho["stats"]["coupled_fallbacks"], ho["coupled"]) != (2, 2, 2, 2):
+        raise AssertionError(f"fabric 5k(e): fail_handoff x2 gave {ho['stats']}, injector "
+                             f"{hinj.counters['handoff_failures']}, coupled {ho['coupled']}")
+    if (winj.counters["prefill_failures"], wd["stats"]["worker_failures"], wd["workers"],
+            wd["coupled"]) != (1, 1, 0, len(few_p)):
+        raise AssertionError(f"fabric 5k(e): a worker death gave {wd['stats']}, workers "
+                             f"{wd['workers']}, coupled {wd['coupled']}")
+    for name, r, failed in (("fail_handoff", ho, 0), ("worker death", wd, 1)):
+        ran = r["worker_calls"] - failed + r["coupled"]  # a failed worker call ran no kernel
+        if r["launches"]["flash_attention"] != ran * layers:
+            raise AssertionError(f"fabric 5k(e) {name}: K1 {r['launches']['flash_attention']} != "
+                                 f"{ran} prefills x {layers}")
+    burst_c = fabric_burst(model, False)
+    burst_d = fabric_burst(model, True)
+    launches = {k: sum(r["launches"][k] for r in (shared, distinct, bf16, int8, ho, wd))
+                for k in shared["launches"]}
+    ms = shared["walls"]["map_staged"]
+    imp = distinct["walls"]["import_pages"]
+    bound_s = 2 * distinct["exported"] / PEAK_BYTES  # each byte read once and written once
+    log(f"fabric 5k(e) disaggregated prefill ({smi}; phase 5b's {PAGED_SLOTS}-slot paged engine "
+        f"and 15 requests, 1 worker, prefills_per_step 1): shared pool: {len(prompts)} worker "
+        f"prefills, {shared['stats']['handoffs']} page-table handoffs, copy_bytes 0; distinct "
+        f"pools: copy_bytes {distinct['copy_bytes']} = the exported pages' bytes "
+        f"({want_bytes // shared['page_nbytes']} pages x {shared['page_nbytes']} B); the two runs' "
+        f"streams equal bit for bit; K1 {shared['launches']['flash_attention']} = worker prefills "
+        f"x {layers}, K5 = executed steps x {layers} + the warm-up's; one capture, every page free "
+        f"and check() clean after every step; teacher-forced gap {worst:.3g}x phase 3's limit; "
+        f"streams equal to phase 5b's: {same} of {len(prompts)}")
+    log(f"fabric 5k(e) staged pages = a coupled prefill's bit for bit: {bf16['pages']} pages of "
+        f"three prompts ({', '.join(str(len(p)) for p in pick)} tokens) on the bf16 pool, "
+        f"{int8['pages']} on 5f(c)'s int8 pool of {n_pages} pages (codes and scales; K5q "
+        f"{int8['per_replay']['qpaged_flash_decode']} a replay after the handoff)")
+    log(f"fabric 5k(e) fallbacks: fail_handoff x2 -> 2 coupled prefills, counters "
+        f"{ {k: ho['stats'][k] for k in ('handoffs', 'handoff_failures', 'coupled_fallbacks')} }; "
+        f"a worker death -> worker_failures 1, no worker left, {wd['coupled']} coupled prefills; "
+        f"streams DONE, every page free")
+    log(f"fabric 5k(e) walls ({smi}): map_staged (the handoff) median "
+        f"{1e3 * statistics.median(ms):.4f} ms over {len(ms)}; import_pages median "
+        f"{1e3 * statistics.median(imp):.4f} ms over {len(imp)}, total {1e3 * sum(imp):.3f} ms for "
+        f"{distinct['exported']} B against the bytes' bound {1e3 * bound_s:.3f} ms (read + write at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s)")
+    log(f"fabric 5k(e) TPOT under a document burst ({smi}; {BURST_CHATS} chat decoders, then, "
+        f"once all have their first token, {BURST_DOCS} documents of 2000-3000 tokens; wall "
+        f"clock, reported, not gated): coupled p50 {1e3 * burst_c['p50']:.3f} ms p99 "
+        f"{1e3 * burst_c['p99']:.3f} ms, longest wait between deliveries p99 "
+        f"{1e3 * burst_c['gap99']:.3f} ms; disaggregated p50 {1e3 * burst_d['p50']:.3f} ms p99 "
+        f"{1e3 * burst_d['p99']:.3f} ms, longest wait p99 {1e3 * burst_d['gap99']:.3f} ms")
+    return dict(launches=launches, map_ms=1e3 * statistics.median(ms),
+                import_ms=1e3 * sum(imp), import_bound_ms=1e3 * bound_s,
+                tpot=(burst_c, burst_d))
+
+
+def fabric_phase(model, srv: dict, paged: dict, smi: str) -> dict:
+    """Phase 5k: the serving fabric at full width. (a) balancing and
+    affinity, (b) halt and re-home on row replicas, (c) the watchdog over a
+    chaos transport, (d) live join, drain and restart, (e) disaggregated
+    prefill. (a), (c) and (d) are held to a CPU dry run of the same legs at
+    tiny width (``fabric_dry_model``). Returns the phase's launches."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dry_model = fabric_dry_model(model)
+    with fabric_dry_sampler():
+        dry = {"a": fabric_affinity(dry_model, dry=True),
+               "c": fabric_watchdog(dry_model, dry=True), "d": fabric_join(dry_model, dry=True)}
+    del dry_model
+    log(f"fabric 5k: the CPU dry runs of (a), (c), (d) (tiny width, the same vocabulary and "
+        f"max_seq_len) in {time.perf_counter() - t0:.2f} s")
+    torch.cuda.reset_peak_memory_stats()
+    layers = model.config.num_layers
+    a = fabric_affinity(model)
+    if a["decisions"] != dry["a"]["decisions"]:
+        raise AssertionError(f"fabric 5k(a): decisions {a['decisions']} != the dry run's "
+                             f"{dry['a']['decisions']}")
+    ad = a["decisions"]
+    log(f"fabric 5k(a) balancing and affinity ({smi}; {FABRIC_REPLICAS} replicas of phase 5b's "
+        f"paged engine over one module, prefix cache on; phase 5c's 12 sessions one at a time, "
+        f"then phase 5b's 15 at once): routed {ad['routed']} = submitted, affinity hits "
+        f"{ad['affinity_hits']}, routed by replica {ad['routed_by_replica']}, prefix hits "
+        f"{ad['hits']} misses {ad['misses']} inserts {ad['inserts']} = the dry run's; K1 "
+        f"{a['launches']['flash_attention']} = full prefills {a['full']} x {layers}; PF "
+        f"{a['launches']['page_fingerprint']} = inserts {sum(ad['inserts'])} + paged hits "
+        f"{a['hits']}; captures {a['captures']}; check() clean on every replica after every "
+        f"step; teacher-forced gap {a['teacher']:.3g}x phase 3's limit; wall {a['wall_s']:.2f} s")
+    b = fabric_rehome(model, srv)
+    log(f"fabric 5k(b) halt and re-home ({smi}; {FABRIC_REPLICAS} replicas of phase 4's 8-slot "
+        f"row engine, phase 4's 6 requests; replica 1's dispatches fail from its third, "
+        f"{b['failures']} failures, HALTED): re-homed {b['rehomed']} = its unfinished requests, "
+        f"tokens_lost 0 (every stream DONE, {b['pre']} pre-halt tokens kept exactly); survivors' "
+        f"captures unchanged (one each, same buffers); K1 {b['launches']['flash_attention']} = "
+        f"(admissions + re-admissions) {b['admissions']} x {layers}; K4 "
+        f"{b['launches']['flash_decode']}; teacher-forced gap {b['teacher']:.3g}x phase 3's "
+        f"limit; re-home wall {1e3 * b['rehome_s']:.3f} ms; streams equal to phase 4's "
+        f"uninterrupted run: {b['same']} of 6")
+    c = fabric_watchdog(model)
+    if c["decisions"] != dry["c"]["decisions"]:
+        raise AssertionError(f"fabric 5k(c): the probe states, transport or stats differ from the "
+                             f"dry run's: {c['decisions']} against {dry['c']['decisions']}")
+    log(f"fabric 5k(c) watchdog over a ChaosTransport ({smi}; (a)'s router, JAX's _chaos_faults "
+        f"and replica {FABRIC_PARTITIONED} partitioned after the submissions, a virtual clock of "
+        f"{FABRIC_STEP_DT} s a step, phase 5b's 15 requests): replica {FABRIC_PARTITIONED} walked "
+        f"{' -> '.join(c['walk'])}, fenced, {c['rehomed']} requests re-homed; tokens_lost 0, no "
+        f"rid admitted twice; probe states ({c['steps']} steps), transport "
+        f"{c['decisions']['transport']} and injector counters = the dry run's; captures "
+        f"{c['captures']}; teacher-forced gap {c['teacher']:.3g}x phase 3's limit")
+    d = fabric_join(model)
+    if d["decisions"] != dry["d"]["decisions"]:
+        raise AssertionError(f"fabric 5k(d): {d['decisions']} != the dry run's {dry['d']['decisions']}")
+    ds = d["decisions"]["stats"]
+    log(f"fabric 5k(d) live join, drain and restart ({smi}; (c)'s configuration without the "
+        f"partition, phase 5b's 15 requests queued): add_replica() -> replica "
+        f"{d['decisions']['joined']}, rebalanced {ds['rebalanced_requests']} = the dry run's; "
+        f"remove_replica(0) drained out (replicas_removed {ds['replicas_removed']}); replica 1 "
+        f"fenced after two steps, restart_replica(1) -> replica {d['decisions']['new']} restored "
+        f"{d['restored']} live requests, every stream DONE with its pre-kill tokens; "
+        f"router_restart_latency_s {d['restart_s']:.4f} s; captures {d['captures']}; "
+        f"teacher-forced gap {d['teacher']:.3g}x phase 3's limit")
+    e = fabric_disagg(model, paged, smi)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if peak > 72:
+        raise AssertionError(f"fabric 5k: peak memory {peak:.1f} GiB over 72")
+    legs = (a, b, c, d, e)
+    launches = {k: sum(x["launches"][k] for x in legs) for k in a["launches"]}
+    log(f"fabric phase launches (replays included): {launches}; peak mem {peak:.1f} GiB")
+    log(f"phase 5k wall: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 # --- phases 6-7: training ------------------------------------------------------
 
 EOS_ID = 128001  # Llama-3's <|end_of_text|>
@@ -5032,6 +5757,7 @@ def main() -> int:
     slo = slo_phase(model, smi)
     tier = tier_phase(model, smi)
     weights = weights_phase(model, srv, fused, smi)
+    fabric = fabric_phase(model, srv, fused, smi)
 
     del model
     torch.cuda.empty_cache()
@@ -5061,10 +5787,12 @@ def main() -> int:
     launches = {name: srv["launches"][name] + fused["launches"][name] + pre["launches"][name]
                 + spec["launches"][name] + med["launches"][name] + quant["launches"][name]
                 + fault["launches"][name] + slo["launches"][name] + tier["launches"][name]
-                + weights["launches"][name] + tr["launches"][name] for name in tr["launches"]}
+                + weights["launches"][name] + fabric["launches"][name] + tr["launches"][name]
+                for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
         f"speculative serving row and paged, Medusa, quantized serving, the fault contract, "
-        f"SLO-aware multi-tenant serving, the host page tier, weights that change, training): "
+        f"SLO-aware multi-tenant serving, the host page tier, weights that change, the serving "
+        f"fabric, training): "
         f"{launches}; "
         f"on the multi-row path (prefix-cache serving): {pre['multi_row']}; the speculative "
         f"rounds' verify windows (s = {SPEC_GAMMA}): {spec['verify']}")

@@ -244,10 +244,21 @@ index). On the CPU the stream continues bit for bit; on the card the
 re-prefill (K1) rounds otherwise than the decode steps it replaces (K4),
 so a near-tie of a random bf16 model may go the other way.
 
+Replicas and disaggregation (JAX ``engine.py:1577-1690``, ``:2800``):
+``rid_base=`` starts the engine's request ids there, so that the replicas
+of one router mint from disjoint ranges (``RID_STRIDE`` apart) and a
+re-homed request keeps its rid; ``page_pressure()`` and
+``load_score(tenant=)`` are the router's balancing and overcommit signals;
+``release_queued(rid)`` hands a never-admitted request to another replica;
+``submit(on_token=)`` streams a request's tokens. With
+``external_prefill = True`` the engine never admits from its queue: a
+``serving/disagg.py DisaggregatedServer`` prefills on its workers and hands
+each context in with ``admit_staged``, a page-table mapping written in
+place into the tensors the captured step reads.
+
 Left out of this slice, each refused with ``NotImplementedError`` rather
 than silently ignored: ``flip_bits(target="params")``; ``profile_dir=``;
-``program_ledger=`` (``observability/programs.py``); the router's
-``load_score``, ``export_requests`` and ``import_requests``; tp/mesh.
+``program_ledger=`` (``observability/programs.py``); tp/mesh.
 """
 
 from __future__ import annotations
@@ -349,6 +360,10 @@ _SLOT_DEFAULTS = {
     "topp": (torch.float32, 1.0), "eos": (torch.int64, -1),
 }
 
+
+# the width of each replica's request-id range (``rid_base`` multiples):
+# re-homed requests keep their rid on the replica that adopts them
+RID_STRIDE = 1_000_000_000
 
 # errors the engine never recovers from: a CUDA runtime error is sticky
 # (the context is unusable after it) and a kernel's build or launch error is
@@ -483,7 +498,10 @@ class ServingEngine:
         draft_params=None,
         program_ledger=None,
         profile_dir: Optional[str] = None,
+        rid_base: int = 0,
     ):
+        if rid_base < 0:
+            raise ValueError(f"rid_base must be >= 0, got {rid_base}")
         if admission not in ("conservative", "eager"):
             raise ValueError(f"unknown admission policy {admission!r}")
         if quarantine_policy not in ("requeue", "fail"):
@@ -614,7 +632,15 @@ class ServingEngine:
                 self.cache.reclaim = self._reclaim_prefix_entry
         self._active = np.zeros((num_slots,), bool)
         self._slot_req: List[Optional[Request]] = [None] * num_slots
-        self._next_rid = 0
+        # rid_base namespaces request ids across engines: the replica router
+        # moves live requests between replicas, which mint from disjoint
+        # ranges of RID_STRIDE ids (JAX engine.py:815-818)
+        self._rid_base = int(rid_base)
+        self._next_rid = int(rid_base)
+        # disaggregated serving: True leaves ALL prefill work to external
+        # workers; step() keeps decoding but never admits from the queue,
+        # and the DisaggregatedServer hands contexts in through admit_staged
+        self.external_prefill = False
         # streaming callbacks of adopted and restored requests: cb(req, tok)
         self._on_token: Dict[int, Callable[[Request, int], None]] = {}
         self._state = {name: torch.full((num_slots,), v, dtype=dt, device=self.device)
@@ -899,10 +925,12 @@ class ServingEngine:
     def submit(self, prompt_ids, config: GenerationConfig = GenerationConfig(),
                seed: Optional[int] = None, deadline_s: Optional[float] = None,
                queue_timeout_s: Optional[float] = None, tenant: Optional[str] = None,
-               priority: Optional[str] = None) -> Request:
+               priority: Optional[str] = None,
+               on_token: Optional[Callable[[Request, int], None]] = None) -> Request:
         """Enqueue one request; returns its live ``Request``. ``seed``
         (default: the request id) selects its sampling stream — pass the
         seed you would give ``generate`` to reproduce its stream.
+        ``on_token(req, tok)`` streams each of its tokens as it is emitted.
 
         ``tenant`` (default ``"default"``) and ``priority`` (a tier of
         ``serving/sched/priority.py``, default ``"standard"``) attribute the
@@ -980,6 +1008,8 @@ class ServingEngine:
         if queue_timeout_s is not None:
             req.queue_deadline = req.submit_time + queue_timeout_s
         self.scheduler.submit(req)
+        if on_token is not None:
+            self._on_token[rid] = on_token
         self.metrics.record_submit(req, req.submit_time)
         if self.timeline is not None:
             self.timeline.instant(f"submit r{rid}", "serving")
@@ -1097,8 +1127,11 @@ class ServingEngine:
         (seed, token index), the preemption resume, so the stream continues
         bit for bit. ``on_token(req, tok)`` streams its next tokens. Raises
         :class:`RejectedError` while DRAINING or HALTED and ``ValueError``
-        for a rid this engine knows. Later submissions mint rids above it
-        (the port has no ``rid_base``)."""
+        for a rid this engine knows. A rid of this engine's own range
+        (``rid_base`` up to ``rid_base + RID_STRIDE``) moves its later
+        submissions above it, so that they never reuse it; a rid of another
+        range (a re-homed request of another replica) leaves the minting as
+        it was, so the ranges stay disjoint."""
         health = self.health()
         if health in (EngineHealth.DRAINING, EngineHealth.HALTED):
             raise RejectedError(f"engine is {health.value}; cannot adopt re-homed work",
@@ -1107,7 +1140,8 @@ class ServingEngine:
             raise ValueError(f"rid {req.rid} already known to this engine")
         req.slot = None
         self.scheduler.submit(req)
-        self._next_rid = max(self._next_rid, req.rid + 1)
+        if self._rid_base <= req.rid < self._rid_base + RID_STRIDE:
+            self._next_rid = max(self._next_rid, req.rid + 1)
         self.metrics.record_adopt(req, self._now())
         if on_token is not None:
             self._on_token[req.rid] = on_token
@@ -1227,21 +1261,117 @@ class ServingEngine:
         self._sync_health()
         return {"restored": restored, "downtime_s": downtime, "rid_floor": int(self._next_rid)}
 
-    # --- left for later slices ----------------------------------------------
+    # --- the replica router's and disaggregation's surface -----------------
+
+    def page_pressure(self) -> float:
+        """Projected page demand of every admitted and queued request over
+        the pool's capacity (JAX ``page_pressure``, ``engine.py:1577``; 0.0
+        on a row engine): the router's overcommit signal. Worst case: each
+        request's page span over its whole generation plus one page of
+        alignment gap, sharing ignored; >= 1.0 means the backlog cannot
+        coexist. A host tier adds the pages its free room could take off
+        the pool by spilling cold prefix entries."""
+        if self._page_size is None:
+            return 0.0
+        cap = self.cache.alloc.capacity
+        if self.tier is not None:
+            cap += min(self.tier.free_pages, self.cache.reclaimable_pages())
+        cap = max(cap, 1)
+        span = 0
+        live = [r for r in self._slot_req if r is not None] + self.scheduler.queued_requests
+        for r in live:
+            cols = len(r.prompt) + len(r.tokens) + r.remaining_new_tokens + self.gamma - 1
+            span += self.cache.page_span(0, min(cols, self.max_seq_len)) + 1
+        return span / cap
 
     def load_score(self, tenant: Optional[str] = None) -> float:
-        """The replica router's load signal (JAX ``load_score``): not served
-        yet; it comes with the router."""
-        raise NotImplementedError("load_score() is not served yet: it comes with the replica "
-                                  "router (ROADMAP.md, queue 1, item 10b)")
+        """The router's balancing signal (JAX ``load_score``,
+        ``engine.py:1610``): active slots plus queued requests plus the page
+        pressure in slot units; with ``tenant=`` the policy's attainment
+        bias for that tenant, also in slot units (FIFO's is 0.0)."""
+        score = float(int(self._active.sum()) + self.scheduler.queued) \
+            + self.page_pressure() * self.num_slots
+        if tenant is not None:
+            score += self.policy.route_bias(tenant) * self.num_slots
+        return score
 
-    def export_requests(self, *args, **kwargs):
-        raise NotImplementedError("export_requests() is not served yet: it comes with the "
-                                  "replica router (ROADMAP.md, queue 1, item 10b)")
+    def release_queued(self, rid: int):
+        """Withdraw a never-admitted QUEUED request so that another replica
+        can :meth:`adopt` it (JAX ``release_queued``, ``engine.py:1667``:
+        the router's live-join rebalancing and drain-out). Returns
+        ``(request, on_token)``, both now the caller's, or ``(None, None)``
+        for a rid that is unknown, finished or was ever admitted (in-flight
+        work stays here until it halts or finishes)."""
+        req = self.scheduler.get(rid)
+        if req is None or req.admit_time is not None:
+            return None, None
+        released = self.scheduler.release(rid)
+        if released is None:
+            return None, None
+        cb = self._on_token.pop(rid, None)
+        self.tracer.end(rid, "released", args={"rehomed_away": True})
+        if self.flight is not None:
+            self.flight.record("release", rid=rid, tenant=released.tenant)
+        return released, cb
 
-    def import_requests(self, *args, **kwargs):
-        raise NotImplementedError("import_requests() is not served yet: it comes with the "
-                                  "replica router (ROADMAP.md, queue 1, item 10b)")
+    def admit_staged(self, req: Request, staged, logits: torch.Tensor,
+                     now: Optional[float] = None) -> bool:
+        """The disaggregated handoff (JAX ``admit_staged``,
+        ``engine.py:2800-2874``): bind an EXTERNALLY prefilled context to a
+        slot as a page-table operation. ``staged`` is a
+        :class:`~neuronx_distributed_tpu_torch.serving.paging.StagedContext`
+        whose pages live in THIS engine's pool (a shared-pool worker staged
+        them there: no KV byte moves; a distinct-pool worker's context came
+        in through ``import_pages``); ``logits`` the prefill's last-token
+        logits, from which a fresh request's first token is sampled exactly
+        as a coupled admission samples it (:meth:`_bind_slot`). The slot's
+        block table, validity and cursor are written in place, into the
+        tensors the captured decode step reads.
+
+        False (the staged context intact, the request untouched) when the
+        slot, cursor or page accounting cannot place it now; the caller
+        retries at a later step. ``ValueError`` when the staged pages were
+        voided (pool recovery, page quarantine): the caller re-prefills."""
+        if self._page_size is None:
+            raise ValueError("admit_staged needs a paged engine (kv_page_size=) — the handoff "
+                             "is a block-table operation")
+        if self._halted:
+            return False
+        if not self.cache.staged_live(staged):
+            raise ValueError("staged context is no longer live (pool recovery or page "
+                             "quarantine voided it) — re-prefill")
+        if self.cache.free_slots == 0:
+            return False
+        now = self._now() if now is None else now
+        p = staged.p
+        maxrem = max((r.remaining_new_tokens for r in self._slot_req if r is not None),
+                     default=0)
+        target = self.cache.aligned_target(max(self.cache.cursor, p), p)
+        end = target + max(maxrem, req.remaining_new_tokens) + self.gamma - 1
+        if end > self.max_seq_len:
+            return False
+        # the coupled conservative projection: every in-flight context's
+        # span and the staged one's through the final cursor fit the pool
+        t_end = min(self.max_seq_len, end)
+        spans = self.cache.page_span(target - p, t_end) + sum(
+            self.cache.page_span(st, t_end) for st in self.cache.active_spans())
+        if spans > self.cache.alloc.capacity:
+            return False
+        slot = self.cache.acquire()
+        try:
+            self.cache.map_staged(slot, staged, cursor=target)
+        except Exception:
+            # nothing mapped: the slot rejoins the rotation
+            self.cache.free(slot)
+            raise
+        self.tracer.step(req.rid, "admission",
+                         args={"slot": slot, "handoff": "page_table",
+                               "pages": len(self.cache.slot_pages(slot))})
+        if self.timeline is not None:
+            self.timeline.instant(f"handoff r{req.rid}", "serving",
+                                  args={"slot": slot, "pages": len(self.cache.slot_pages(slot))})
+        self._bind_slot(req, slot, logits, now)
+        return True
 
     @property
     def has_work(self) -> bool:
@@ -1341,6 +1471,8 @@ class ServingEngine:
         return sum(r.token_footprint for r in self._slot_req if r is not None)
 
     def _admit(self, now: float) -> None:
+        if self.external_prefill:
+            return  # the disaggregated server owns admission
         if self.cache.free_slots == 0 or self.scheduler.queued == 0:
             return
         # the host tier: queued hits start their prefetch before selection;

@@ -60,9 +60,20 @@ Injection points (every index 0-based and deterministic):
   dispatch and the clean ones back after it. An engine whose draft shares
   the target's tensors (the early-exit draft) refuses the schedule.
 
-Not ported yet, each raising ``NotImplementedError`` that names its
-``ROADMAP.md`` item: the fabric's (``fail_handoff`` and the transport
-schedules; item 10b) and ``flip_bits(target="params")`` (its oracles, the
+* ``fail_handoff(at=k, times=t)``: the k-th..(k+t-1)-th disaggregated
+  HANDOFF attempts raise ``InjectedHandoffError`` before the page-table
+  transfer binds a slot: the server releases the staged pages and falls
+  back to a coupled prefill on the decode engine.
+* The transport schedules, consulted by ``serving/transport.py
+  ChaosTransport`` at every delivery attempt (its transport-wide send
+  index): ``drop_send`` (dropped in flight, the retry delivers),
+  ``drop_ack`` (delivered, the reply lost: the retry must hit the dedup
+  cache), ``dup_send`` (delivered twice), ``delay_send(by=)`` (a delay past
+  the message's deadline times out) and ``partition(target)`` (every send
+  to ``target`` in the window fails; ``times=None``: for good).
+
+Not ported yet, raising ``NotImplementedError`` that names its
+``ROADMAP.md`` item: ``flip_bits(target="params")`` (its oracles, the
 router's fingerprint vote and the trainer sentinel, need
 ``tree_fingerprint``; item 10c).
 
@@ -102,6 +113,11 @@ class InjectedPrefetchError(InjectedFault):
     falls back to a full prefill."""
 
 
+class InjectedHandoffError(InjectedFault):
+    """Scheduled disaggregated HANDOFF failure: the server falls back to a
+    coupled prefill of the request on the decode engine."""
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1, {item})")
 
@@ -122,9 +138,15 @@ class FaultInjector:
         self._prefetch_windows: List[Tuple[int, Optional[int]]] = []
         self._host_page_windows: List[Tuple[int, Optional[int]]] = []
         self._draft_poison_windows: List[Tuple[int, Optional[int]]] = []
+        self._handoff_windows: List[Tuple[int, Optional[int]]] = []
+        self._send_drops: List[Tuple[int, Optional[int]]] = []
+        self._ack_drops: List[Tuple[int, Optional[int]]] = []
+        self._send_dups: List[Tuple[int, Optional[int]]] = []
+        self._send_delays: List[Tuple[int, Optional[int], float]] = []
+        self._partitions: Dict[object, List[Tuple[int, Optional[int]]]] = {}
         self._skew: float = 0.0
         self._skew_after: Optional[float] = None
-        # the JAX package's counter names, those of hooks not ported included
+        # the JAX package's counter names, that of a hook not ported included
         self.counters: Dict[str, int] = dict.fromkeys((
             "dispatch_failures", "poisoned_readbacks", "prefill_failures", "poisoned_prefixes",
             "draft_dispatch_failures", "poisoned_drafts", "poisoned_pages", "handoff_failures",
@@ -223,23 +245,45 @@ class FaultInjector:
         return self
 
     def fail_handoff(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        _not_ported("fail_handoff (disaggregated serving)", "item 10b")
+        """The ``at``-th..(at+times-1)-th disaggregated handoff attempts
+        raise :class:`InjectedHandoffError` before the page-table transfer
+        binds a slot (nothing half-mapped: the staged context survives for
+        the server to release)."""
+        self._handoff_windows.append(self._window(at, times))
+        return self
 
     def drop_send(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        _not_ported("drop_send (the serving transport)", "item 10b")
+        """The ``at``-th.. transport delivery attempts are dropped in flight
+        (``TransportError`` before the target runs)."""
+        self._send_drops.append(self._window(at, times))
+        return self
 
     def drop_ack(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        _not_ported("drop_ack (the serving transport)", "item 10b")
+        """The ``at``-th.. transport deliveries RUN at the target but their
+        replies are lost: the sender retries a message that already ran,
+        which must land in the transport's idempotency cache."""
+        self._ack_drops.append(self._window(at, times))
+        return self
 
     def dup_send(self, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        _not_ported("dup_send (the serving transport)", "item 10b")
+        """The ``at``-th.. transport deliveries arrive TWICE; the second
+        copy must be absorbed by the idempotency cache."""
+        self._send_dups.append(self._window(at, times))
+        return self
 
     def delay_send(self, at: int = 0, times: Optional[int] = 1,
                    by: float = 1.0) -> "FaultInjector":
-        _not_ported("delay_send (the serving transport)", "item 10b")
+        """The ``at``-th.. transport deliveries are delayed ``by`` seconds;
+        a delay past the message's deadline is a ``TransportTimeout``."""
+        self._send_delays.append(self._window(at, times) + (by,))
+        return self
 
     def partition(self, target, at: int = 0, times: Optional[int] = None) -> "FaultInjector":
-        _not_ported("partition (the serving transport)", "item 10b")
+        """``target`` (a replica index or a disaggregated address) is
+        unreachable for the ``at``-th.. delivery attempts
+        (``PartitionedError``); ``times=None`` partitions it for good."""
+        self._partitions.setdefault(target, []).append(self._window(at, times))
+        return self
 
     # --- engine hooks --------------------------------------------------------
 
@@ -354,6 +398,38 @@ class FaultInjector:
         if self._hit(self._prefetch_windows, attempt):
             self.counters["prefetch_failures"] += 1
             raise InjectedPrefetchError(f"injected prefetch failure at attempt {attempt}")
+
+    def on_handoff(self, attempt: int) -> None:
+        """Called by the disaggregated server with the 0-based handoff
+        attempt index before ``admit_staged`` runs."""
+        if self._hit(self._handoff_windows, attempt):
+            self.counters["handoff_failures"] += 1
+            raise InjectedHandoffError(f"injected handoff failure at attempt {attempt}")
+
+    def on_transport_send(self, send: int, target, op: str):
+        """Called by ``ChaosTransport`` with the transport-wide 0-based
+        delivery-attempt index, the target address and the op name. Returns
+        an action, ``("partition",)``, ``("drop",)``, ``("drop_ack",)``,
+        ``("dup",)`` or ``("delay", by)``, or None for a clean delivery. A
+        partition wins over the per-send faults."""
+        windows = self._partitions.get(target)
+        if windows is not None and self._hit(windows, send):
+            self.counters["partitioned_sends"] += 1
+            return ("partition",)
+        if self._hit(self._send_drops, send):
+            self.counters["dropped_sends"] += 1
+            return ("drop",)
+        if self._hit(self._ack_drops, send):
+            self.counters["dropped_acks"] += 1
+            return ("drop_ack",)
+        if self._hit(self._send_dups, send):
+            self.counters["dup_sends"] += 1
+            return ("dup",)
+        for at, end, by in self._send_delays:
+            if send >= at and (end is None or send < end):
+                self.counters["delayed_sends"] += 1
+                return ("delay", by)
+        return None
 
     def on_prefix_reuse(self, reuse: int, entry, cache=None) -> None:
         """Called with the 0-based prefix REUSE-attempt index, the matched

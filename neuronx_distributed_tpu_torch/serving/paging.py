@@ -3,9 +3,8 @@ ref-counted page pool (counterpart of
 ``neuronx_distributed_tpu/serving/paging.py``, what the engine calls:
 ``PageAllocator`` with page sharing and quarantine, ``PagedCacheManager``
 with prefix pins, copy-on-write admission, ``kv_quant``, page and slot
-quarantine and recovery, and the host page tier's spill and prefetch;
-without staged contexts and export/import, which belong to a later slice
-together with their callers).
+quarantine and recovery, the host page tier's spill and prefetch, and the
+disaggregated handoff's staged contexts with export and import).
 
 The row-per-slot manager (``serving/cache_manager.py``) charges every slot a
 full ``max_seq_len`` row of device memory whatever its request uses. Here:
@@ -61,12 +60,24 @@ full ``max_seq_len`` row of device memory whatever its request uses. Here:
   sync_tier`: at a mapping, a spill, an unpin). A prefetched page is born
   pinned and held (:meth:`PagedCacheManager.hold_prefetched`) until its
   queued request consumes it: a held page is neither free nor reclaimable.
+* The disaggregated handoff (``serving/disagg.py``): a prefill worker
+  STAGES a context in the pool with no slot bound
+  (:meth:`PagedCacheManager.stage_context`: fresh pages held by the
+  staging, written by the worker's prefill through a scratch block-table
+  row of its own, so the pages hold the bytes a coupled prefill of the same
+  prompt writes, codes and scales of an int8 pool included);
+  :meth:`PagedCacheManager.map_staged` binds them to a slot as a page-table
+  operation (the holds become the table's references; zero KV bytes move).
+  Between distinct pools :meth:`PagedCacheManager.export_pages` and
+  :meth:`PagedCacheManager.import_pages` copy the pages, and the import is
+  charged to ``copy_bytes``. Recovery voids every staging.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, List, Optional, Sequence
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -79,6 +90,39 @@ from neuronx_distributed_tpu_torch.modules.attention import (
 )
 from neuronx_distributed_tpu_torch.serving.tiering import PageLayout
 from neuronx_distributed_tpu_torch.utils.fingerprint import pool_leaves
+
+
+@dataclasses.dataclass
+class StagedContext:
+    """A prefilled context parked in the pool with NO slot bound: the
+    disaggregated handoff's unit (JAX ``StagedContext``, ``paging.py:83``).
+    ``page_ids`` hold the context's K/V page-aligned from the first page's
+    row 0 (so :meth:`PagedCacheManager.map_staged` can bind them at any
+    page-aligned cursor: K/V content is position-relative); the staging
+    holds one reference a page until a handoff transfers it to a slot's
+    block table or :meth:`PagedCacheManager.release_staged` drops it."""
+
+    page_ids: Tuple[int, ...]
+    p: int        # real context tokens staged
+    padded: int   # the prefill bucket the context was computed at
+
+
+@dataclasses.dataclass
+class ExportedContext:
+    """A staged context in transfer form between DISTINCT pools (JAX
+    ``ExportedContext``, ``paging.py:100``): its pages' blocks per pool leaf
+    (``k``, ``v`` and an int8 pool's scales, in the host tier's leaf order),
+    each ``(num_layers, n_pages, *page)``. The import is a real copy,
+    charged to ``PageAllocator.copy_bytes``."""
+
+    items: list   # [(leaf name, block)]
+    n_pages: int
+    p: int
+    padded: int
+
+    @property
+    def nbytes(self) -> int:
+        return sum(b.numel() * b.element_size() for _, b in self.items)
 
 
 class PageExhausted(RuntimeError):
@@ -218,6 +262,8 @@ class PagedCacheManager:
         # page -> the event of the prefetch still writing it on the tier stream
         self._tier_events: Dict[int, object] = {}
         self._tier_stream = None
+        # page -> staging holds of contexts awaiting a handoff
+        self._staged: Dict[int, int] = {}
         # page-pressure valve: evicts one unpinned prefix entry, True when it
         # freed something (the engine installs it)
         self.reclaim: Optional[Callable[[], bool]] = None
@@ -533,11 +579,17 @@ class PagedCacheManager:
         """After a failed decode dispatch whose requests are requeued (JAX
         ``recover``, ``paging.py:1180``): every slot back in the rotation,
         every block-table mapping dropped, the storage reset IN PLACE,
-        cursor 0, every prefetch hold void (JAX :1200). Prefix pins are the
+        cursor 0, every staged context and prefetch hold void (JAX :1194-1200). Prefix pins are the
         engine's to resolve: when the failed chunk's steps ran, it clears
         the store, whose eviction hook releases the pins."""
         self.release_all_slots()
         self.reset()
+        # staged contexts are VOID (JAX :1194-1199): their holder sees
+        # staged_live() False and re-prefills; no hold may block the pool
+        for pid, holds in list(self._staged.items()):
+            for _ in range(holds):
+                self.alloc.deref(pid)
+        self._staged.clear()
         self._prefetch_hold.clear()
 
     def update_after_decode(self, start: int, steps: int) -> None:
@@ -563,8 +615,9 @@ class PagedCacheManager:
 
     def check(self) -> None:
         """The page-leak/ref-count invariant: every page is exactly one of
-        free / referenced (table-mapped or prefix-pinned) / quarantined /
-        reserved, ref counts reconcile with the mappers plus the pins, no
+        free / referenced (table-mapped, prefix-pinned or staged) /
+        quarantined / reserved, ref counts reconcile with the mappers plus
+        the pins plus the staging holds, no
         slot double-maps a page, and the free list is duplicate-free; so a
         quarantined page is neither free nor mappable once its holders let
         go. AssertionError naming the offending page."""
@@ -580,10 +633,11 @@ class PagedCacheManager:
             for pid in row:
                 mapped[pid] = mapped.get(pid, 0) + 1
         for pid in range(1, a.num_pages):
-            expect = mapped.get(pid, 0) + self._pins.get(pid, 0)
+            expect = mapped.get(pid, 0) + self._pins.get(pid, 0) + self._staged.get(pid, 0)
             have = a.refcount(pid)
             assert have == expect, (f"page {pid}: refcount {have} != mapped({mapped.get(pid, 0)})"
-                                    f" + pinned({self._pins.get(pid, 0)})")
+                                    f" + pinned({self._pins.get(pid, 0)})"
+                                    f" + staged({self._staged.get(pid, 0)})")
             states = [pid in free, expect > 0, pid in a._quarantined and expect == 0]
             assert sum(states) == 1, (
                 f"page {pid} is not exactly one of free/referenced/quarantined: "
@@ -674,3 +728,144 @@ class PagedCacheManager:
             if done is not None:
                 self._tier_events[int(pid)] = done
         return [int(pid) for pid in ids], done
+
+    # --- the disaggregated handoff ------------------------------------------
+
+    def staging_row(self) -> PagedKVCache:
+        """A scratch block-table row over this pool for a prefill worker
+        (one a worker, made once): its own table of ``pages_per_row + 1``
+        pages and its own validity, the pool's storage. A staged prefill
+        writes through it, never through a slot, so the captured decode
+        step keeps reading the same ``num_slots`` rows at the same
+        addresses."""
+        if self.cache is None:
+            raise RuntimeError("staging needs an allocated pool")
+        c, ps = self.cache, self.page_size
+        n_log = self.pages_per_row + 1  # room for the left padding's gap
+        dev = c.k.device
+        return PagedKVCache(c.k, c.v, torch.zeros((1, n_log * ps), dtype=torch.bool, device=dev),
+                            torch.zeros((1, n_log), dtype=torch.int32, device=dev), ps,
+                            k_scale=c.k_scale, v_scale=c.v_scale)
+
+    def stage_context(self, row: PagedKVCache, p: int, padded: int):
+        """Park a context of ``p`` tokens, prefilled at bucket ``padded``,
+        in the pool with no slot bound (JAX ``stage_context``,
+        ``paging.py:901``): ``ceil(p / page_size)`` fresh pages, each held
+        once by the staging, mapped in the worker's scratch ``row``
+        (:meth:`staging_row`) so that the context starts at a page boundary
+        and its left padding lands in unmapped pages (the null page).
+        Returns ``(staged, view)``: the prefill writes through ``view``
+        exactly as a coupled prefill writes through a slot's view, so the
+        pages receive the same bytes (the page-relative layout, and an int8
+        pool's write windows, are the same). A prefill that fails must
+        :meth:`release_staged`."""
+        if p < 1 or p > padded:
+            raise ValueError(f"bad staged context length p={p} (padded {padded})")
+        ps = self.page_size
+        n = -(-p // ps)
+        ids = self._alloc_pages(n)
+        for pid in ids:
+            self._staged[pid] = self._staged.get(pid, 0) + 1
+        c0 = -(-(padded - p) // ps) * ps  # the context's first column, page-aligned
+        table = np.zeros((1, row.block_table.shape[1]), np.int32)
+        table[0, c0 // ps:c0 // ps + n] = ids
+        row.upload_table(table)
+        row.valid.zero_()
+        return (StagedContext(tuple(int(i) for i in ids), p, padded),
+                row.view(slice(0, 1), c0 + p - padded))
+
+    def staged_live(self, staged: StagedContext) -> bool:
+        """Whether a staged context's pages are all still held and not
+        quarantined (JAX ``staged_live``): a recovery or a page quarantine
+        between staging and handoff voids it, and the caller re-prefills."""
+        return bool(staged.page_ids) and all(
+            self._staged.get(int(pid), 0) > 0 and int(pid) not in self.alloc._quarantined
+            for pid in staged.page_ids)
+
+    def map_staged(self, slot: int, staged: StagedContext, cursor: int) -> None:
+        """Bind a staged context to ``slot`` at ``cursor`` as a PAGE-TABLE
+        operation (JAX ``map_staged``, ``paging.py:941``): the staging holds
+        become the slot's table references (no refcount motion, no KV byte
+        moves, ``copy_bytes`` untouched); the table is uploaded, the slot's
+        validity set to the context's columns and the shared cursor moved,
+        each written in place into the tensors the captured decode step
+        reads. The context start ``cursor - p`` must be page-aligned."""
+        if not self.staged_live(staged):
+            raise ValueError("staged context is no longer live (pool recovery or page "
+                             "quarantine voided it) — re-prefill")
+        p, ps = staged.p, self.page_size
+        start = cursor - p
+        if start < 0 or start % ps != 0:
+            raise ValueError(f"handoff cursor {cursor} puts the context start at {start} — "
+                             f"not page-aligned (page_size {ps})")
+        if (self._tables[slot] != 0).any():
+            raise ValueError(f"slot {slot} still maps pages (not freed?)")
+        s0 = start // ps
+        for j, pid in enumerate(staged.page_ids):
+            pid = int(pid)
+            holds = self._staged.get(pid, 0)  # the staging hold becomes the mapping
+            if holds <= 1:
+                self._staged.pop(pid, None)
+            else:
+                self._staged[pid] = holds - 1
+            self._tables[slot, s0 + j] = pid
+        self._slot_start[slot] = start
+        self._upload_tables()
+        valid = self.cache.valid[slot]
+        valid.zero_()
+        valid[start:cursor] = True
+        self.cache.index = cursor
+        staged.page_ids = ()
+
+    def release_staged(self, staged: StagedContext) -> None:
+        """Drop an unconsumed staged context (JAX ``release_staged``): the
+        holds go and unshared pages return to the free list. Pages whose
+        hold a recovery already voided are skipped (a deref there would take
+        a reference from a page since given to another request)."""
+        for pid in staged.page_ids:
+            pid = int(pid)
+            holds = self._staged.get(pid, 0)
+            if holds <= 0:
+                continue
+            if holds == 1:
+                self._staged.pop(pid, None)
+            else:
+                self._staged[pid] = holds - 1
+            self.alloc.deref(pid)
+        staged.page_ids = ()
+
+    def export_pages(self, staged: StagedContext) -> ExportedContext:
+        """A staged context's pages read out of every pool leaf in storage
+        form (JAX ``export_pages``, ``paging.py:1009``; one
+        ``index_select`` on the page axis a leaf, as :meth:`spill_pages`),
+        for a DISTINCT pool to import."""
+        if not self.staged_live(staged):
+            raise ValueError("staged context is no longer live")
+        c = self.cache
+        idx = torch.as_tensor([int(p) for p in staged.page_ids], dtype=torch.long,
+                              device=c.k.device)
+        items = [(name, leaf.index_select(1, idx))
+                 for (name, _, _), leaf in zip(self.page_layout().leaves, pool_leaves(c))]
+        return ExportedContext(items=items, n_pages=len(staged.page_ids), p=staged.p,
+                               padded=staged.padded)
+
+    def import_pages(self, exported: ExportedContext) -> StagedContext:
+        """Write exported pages into THIS pool as a fresh staged context
+        (JAX ``import_pages``, ``paging.py:1030``): fresh pages, one
+        ``index_copy_`` on the page axis a leaf (a device-to-device copy
+        between two pools on the card), charged to ``alloc.copy_bytes``,
+        the meter that proves the shared-pool handoff moved nothing."""
+        if self.cache is None:
+            raise RuntimeError("import_pages needs an allocated pool")
+        names = [name for name, _, _ in self.page_layout().leaves]
+        if [name for name, _ in exported.items] != names:
+            raise ValueError(f"exported leaves {[n for n, _ in exported.items]} do not match "
+                             f"this pool's {names}")
+        ids = self._alloc_pages(exported.n_pages)
+        for pid in ids:
+            self._staged[pid] = self._staged.get(pid, 0) + 1
+        idx = torch.as_tensor(ids, dtype=torch.long, device=self.cache.k.device)
+        for (_, block), leaf in zip(exported.items, pool_leaves(self.cache)):
+            leaf.index_copy_(1, idx, block.to(leaf.device))
+        self.alloc.copy_bytes += exported.nbytes
+        return StagedContext(tuple(int(i) for i in ids), exported.p, exported.padded)

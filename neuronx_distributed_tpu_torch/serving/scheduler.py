@@ -134,6 +134,24 @@ class Scheduler:
             self._queue.remove(req)
         return True
 
+    def release(self, rid: int) -> Optional[Request]:
+        """Withdraw a QUEUED request from this scheduler entirely, queue and
+        index, and return it live (state untouched) so that another engine
+        can adopt it (JAX ``release``, ``scheduler.py:160``: the router's
+        rebalancing, a warm restart's surrendered queue). Unlike
+        :meth:`cancel` the request does not finish, and this scheduler
+        forgets the rid, so a later restore can never admit it here twice.
+        None for an unknown, finished or not-queued rid."""
+        req = self._requests.get(rid)
+        if req is None or req.finished or req.state is not RequestState.QUEUED:
+            return None
+        try:
+            self._queue.remove(req)
+        except ValueError:
+            return None  # admitted into a slot: not releasable
+        del self._requests[rid]
+        return req
+
     def expire(self, now: float) -> List[tuple]:
         """Pop every queued request whose queue timeout or deadline has
         passed (``now >= deadline``) and return ``(request, reason)`` pairs;

@@ -1768,3 +1768,102 @@ def test_restored_engine_on_card_continues_the_snapshot(cuda):
         got = b.scheduler.requests[r.rid]
         assert got.tokens[:len(mid[i])] == mid[i] and len(got.tokens) == 20
         assert all(0 <= t < 1000 for t in got.tokens)
+
+
+@pytest.mark.cuda
+def test_handoff_on_card_keeps_one_capture_and_the_table_address(cuda):
+    """A disaggregated server on the card: the worker's prefills (K1) stage
+    pages in the decode engine's pool, every handoff writes the slot's
+    block table, validity and cursor in place, so the decode engine keeps
+    ONE capture over the same block-table and validity addresses; no KV
+    byte moves (``copy_bytes`` 0) and every page is free at the end."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.serving.disagg import DisaggregatedServer
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    model = _small_llama(0)
+    rng = np.random.default_rng(8)
+    prompts = [rng.integers(1, 1000, size=n) for n in (70, 20, 45, 110)]
+    engine = ServingEngine(model, num_slots=2, decode_chunk_size=4, prefix_cache=None,
+                           kv_page_size=16)
+    engine.prewarm()
+    c = engine.cache.cache
+    ptrs = (c.block_table.data_ptr(), c.valid.data_ptr(), c.cursor.data_ptr(), c.k.data_ptr())
+    server = DisaggregatedServer(engine, n_workers=1)
+    reqs = [server.submit(p, GenerationConfig(12, temperature=0.0), seed=i)
+            for i, p in enumerate(prompts)]
+    server.run()
+    assert all(r.state.value == "done" and len(r.tokens) == 12 for r in reqs)
+    assert server.stats["handoffs"] == 4 and engine.decode_compilations == 1
+    assert (c.block_table.data_ptr(), c.valid.data_ptr(), c.cursor.data_ptr(),
+            c.k.data_ptr()) == ptrs
+    assert engine.cache.alloc.copy_bytes == 0 and engine.cache.alloc.referenced_pages == 0
+    engine.cache.check()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [None, "int8"])
+def test_staged_pages_on_card_equal_a_coupled_prefill(cuda, kv):
+    """On the card (K1 prefills; QW writes an int8 pool), the pages a worker
+    stages hold the bytes a coupled prefill of the same prompt writes into
+    its slot, bit for bit, codes and scales included, and the handoff
+    samples the coupled admission's first token."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    from neuronx_distributed_tpu_torch.serving.disagg import DisaggregatedServer
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    model = _small_llama(0)
+    kw = dict(quantize=QuantConfig(kv="int8")) if kv else {}
+    gcfg = GenerationConfig(4, temperature=0.0)
+    rng = np.random.default_rng(9)
+    for n in (37, 130, 300):
+        prompt = rng.integers(1, 1000, size=n)
+        coupled = ServingEngine(model, num_slots=1, prefix_cache=None, kv_page_size=16, **kw)
+        creq = coupled.submit(prompt, gcfg, seed=1)
+        coupled._admit(0.0)
+        cids = coupled.cache.slot_pages(0)
+        engine = ServingEngine(model, num_slots=1, prefix_cache=None, kv_page_size=16, **kw)
+        server = DisaggregatedServer(engine, n_workers=1)
+        req = server.submit(prompt, gcfg, seed=1)
+        staged, logits = server.workers[0].prefill(req, engine.max_seq_len)
+        sids = list(staged.page_ids)
+        assert len(sids) == len(cids)
+        for name in ("k", "v", "k_scale", "v_scale") if kv else ("k", "v"):
+            a = getattr(coupled.cache.cache, name)[:, cids]
+            b = getattr(engine.cache.cache, name)[:, sids]
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), (n, name)
+        assert engine.admit_staged(req, staged, logits, now=0.0)
+        assert req.tokens == creq.tokens
+
+
+@pytest.mark.cuda
+def test_rehomed_request_continues_its_stream_on_the_survivor(cuda):
+    """A router of two row replicas on the card; replica 0 halts
+    mid-decode: its requests re-home with their tokens, the survivor's
+    first token of each continues the stream (its pre-halt tokens exactly,
+    then the count), ``tokens_lost == 0``, one capture a replica."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.serving.faults import FaultInjector
+    from neuronx_distributed_tpu_torch.serving.router import ReplicaRouter
+
+    model = _small_llama(0)
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(1, 1000, size=n) for n in (30, 60, 15, 44)]
+    router = ReplicaRouter.build(model, 2, num_slots=2, decode_chunk_size=4, prefix_cache=None,
+                                 sleep_fn=lambda s: None)
+    reqs = [router.submit(p, GenerationConfig(20, temperature=0.0), seed=i)
+            for i, p in enumerate(prompts)]
+    router.step()
+    router.step()
+    mid = {r.rid: list(r.tokens) for r in reqs}
+    assert any(mid[r.rid] for r in reqs if r.rid < 4)
+    router.replicas[0]._faults = FaultInjector().fail_dispatch(at=0, times=None)
+    router.run()
+    assert router.replicas[0].health().value == "halted"
+    assert router.stats["rehomed_requests"] > 0
+    for r in reqs:
+        got = router.requests[r.rid]
+        assert got.state.value == "done" and len(got.tokens) == 20
+        assert got.tokens[:len(mid[r.rid])] == mid[r.rid]
+    assert router.replicas[1].decode_compilations == 1

@@ -161,6 +161,9 @@ def test_every_module_imports_and_runs_with_jax_blocked():
             "neuronx_distributed_tpu_torch.serving.sched.feedback",
             "neuronx_distributed_tpu_torch.serving.traffic",
             "neuronx_distributed_tpu_torch.serving.tiering",
+            "neuronx_distributed_tpu_torch.serving.transport",
+            "neuronx_distributed_tpu_torch.serving.router",
+            "neuronx_distributed_tpu_torch.serving.disagg",
             "neuronx_distributed_tpu_torch.observability.hbm"} <= set(_port_modules())
 
 

@@ -335,13 +335,33 @@ def test_kv_pool_bit_flip_rejected_falls_back_bit_identical(setup, kv):
 
 
 def test_not_ported_hooks_raise():
+    """``flip_bits("params")`` still raises, naming its item; the fabric's
+    schedules (the handoff and the five transport ones) now schedule, and
+    fire with JAX's counters."""
     inj = FaultInjector()
-    for call in (lambda: inj.flip_bits("params"), lambda: inj.fail_handoff(),
-                 lambda: inj.drop_send(), lambda: inj.partition(0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 10c"):
+        inj.flip_bits("params")
     with pytest.raises(ValueError):
         inj.flip_bits("weights")
+    for schedule in (lambda i: i.fail_handoff(), lambda i: i.drop_send(), lambda i: i.drop_ack(),
+                     lambda i: i.dup_send(), lambda i: i.delay_send(by=0.5),
+                     lambda i: i.partition(0)):
+        assert schedule(inj) is inj
+    jinj = (JFaultInjector().fail_handoff().drop_send().drop_ack().dup_send().delay_send(by=0.5)
+            .partition(0))
+    for i, target in enumerate((0, 1, 1, 1, 1)):
+        assert inj.on_transport_send(i, target, "submit") == \
+            jinj.on_transport_send(i, target, "submit")
+    for attempt in range(2):
+        outcomes = []
+        for hook in (inj, jinj):
+            try:
+                hook.on_handoff(attempt)
+                outcomes.append(None)
+            except Exception as e:  # noqa: BLE001 - the class name is compared
+                outcomes.append(type(e).__name__)
+        assert outcomes[0] == outcomes[1] == (None if attempt else "InjectedHandoffError")
+    assert inj.counters == jinj.counters
 
 
 def test_allocator_quarantine_contract():

@@ -310,9 +310,14 @@ def test_later_slices_refuse_loudly(setup):
     for kw in (dict(profile_dir="x"), dict(program_ledger=object())):
         with pytest.raises(NotImplementedError, match="item 10c"):
             ServingEngine(tm, num_slots=1, **kw)
+    # item 10b is served: the router's load signal answers (an idle FIFO
+    # engine: 0; a queued request: 1) and the two stubs without a JAX
+    # counterpart are gone
     engine = ServingEngine(tm, num_slots=1)
-    for call in (engine.load_score, engine.export_requests, engine.import_requests):
-        with pytest.raises(NotImplementedError, match="item 10b"):
-            call()
+    assert engine.load_score() == 0.0 and engine.load_score(tenant="a") == 0.0
+    engine.submit(np.arange(1, 6), GenerationConfig(max_new_tokens=2))
+    assert engine.load_score() == 1.0 and engine.page_pressure() == 0.0
+    for name in ("export_requests", "import_requests"):
+        assert not hasattr(engine, name)
     with pytest.raises(NotImplementedError, match="item 10c"):
         FaultInjector().flip_bits("params")
