@@ -237,6 +237,26 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    p50/p99 of chat decoders under a document burst through the coupled
    engine and the disaggregated server (reported). Every greedy token of
    every leg within phase 3's limit teacher-forced; peak memory under 72 GiB;
+5l. integrity and program observability at full width
+   (``integrity/``, ``serving/router.py``'s vote, ``observability/
+   programs.py``, ``observability/profiler.py``, ``inference/aot.py``):
+   (a) three int8 replicas (phase 5f(a)'s engine, 4 row slots; a quantized
+   replica owns its weights) under ``WatchdogConfig(
+   integrity_interval_s=0.5)`` on a virtual clock with phase 4's requests,
+   ``flip_bits("params", at=1)`` on replica 0: convicted at the first vote
+   after the flip, fenced, re-homed, ``tokens_lost == 0``; a clean control
+   (no disagreement, no fence) and two replicas (a disagreement at every
+   vote after the flip, no fence); the stats, walks and flight events of all three = a CPU dry run
+   at tiny width; a probe's wall; (b) phase 5b's engine with
+   ``program_ledger=``: decode dispatches = replays = executed steps, one
+   capture, the step's metered FLOPs = the analytic count, MFU by program,
+   host reads and tokens = phase 5b's; (c) phase 4's engine with
+   ``profile_dir=``: the trace's K4 records = chunks [2, 5)'s,
+   ``record_device_memory`` = ``mem_get_info``; (d) ``restart_replica`` and
+   ``add_replica`` with a donor's manifest and ``cache_dir``: every program
+   replayed, the first request captures and builds nothing, TTFT against a
+   cold replica's. Phase 2's TF check (bf16 Llama-3-8B weights, 5f(a)'s
+   int8 tensors) runs once the model is built;
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -1666,7 +1686,8 @@ PAGED_SLOTS, PAGE, ROW_SLOTS = 16, 16, 4
 
 
 def serve_paged(model, workload, attention: str, profiled: bool = False,
-                eager: bool = False, quantize=None, num_pages=None, strict=True) -> dict:
+                eager: bool = False, quantize=None, num_pages=None, strict=True,
+                program_ledger=None) -> dict:
     """The paged engine (16 slots, page_size 16, chunk 8, conservative,
     FIFO) over a pool of ROW_SLOTS row slots' bytes plus the null page,
     answering ``workload``; every kernel's launch count is zeroed just
@@ -1681,7 +1702,7 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
     through K5q and writes through QW. ``strict=False``
     (``chip_decode_ab.py``, which may drive an older checkout) reports
     QW's launches and the profiler's decode records without holding them
-    to this checkout's counts."""
+    to this checkout's counts. ``program_ledger`` is phase 5l(b)'s."""
     from torch.profiler import ProfilerActivity, profile
 
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
@@ -1690,7 +1711,8 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
     cfg = model.config
     engine = ServingEngine(model, num_slots=PAGED_SLOTS, decode_chunk_size=8, kv_page_size=PAGE,
                            kv_num_pages=num_pages or ROW_SLOTS * cfg.max_seq_len // PAGE + 1,
-                           prefix_cache=None, quantize=quantize)
+                           prefix_cache=None, quantize=quantize,
+                           **({} if program_ledger is None else {"program_ledger": program_ledger}))
     prompts, cfgs = workload
     counters = kernel_counters()
     torch.cuda.synchronize()
@@ -1748,7 +1770,8 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
                per_replay=dict(prog.launches_per_replay) if prog is not None else None,
                compilations=getattr(engine, "decode_compilations", None),
                capture_s=capture_s or snap.get("capture_s", 0.0),
-               replays=prog.replays if prog is not None else None)
+               replays=prog.replays if prog is not None else None,
+               host_reads=getattr(engine, "host_reads", None))
     if profiled:
         # K5 and K5q: a range kernel and its merge a call
         res["records"] = decode_records(prof, paged=attention == "fused")
@@ -5242,6 +5265,522 @@ def fabric_phase(model, srv: dict, paged: dict, smi: str) -> dict:
     return dict(launches=launches)
 
 
+# --- phase 2 (TF): the tree fingerprint --------------------------------------------
+
+
+def check_tf(model) -> dict:
+    """TF (``csrc/tree_fingerprint.cu``) on the full bf16 Llama-3-8B
+    weights (the engine's integrity leaves) and on phase 5f(a)'s int8
+    engine's tensors (codes, scales, embedding, norms): bitwise = its plain
+    version (which runs on the card, a chunk at a time); a flipped bit and a
+    swap of two elements each move it (both undone after); timed as a
+    CUDA-graph replay against its bytes bound, the plain version beside. No
+    single PyTorch call computes it (no library time)."""
+    from neuronx_distributed_tpu_torch.integrity.chaos import flip_leaf_bit
+    from neuronx_distributed_tpu_torch.kernels.tree_fingerprint import (
+        TreeFingerprint,
+        tree_fingerprint_plain,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import quantize_model
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    from neuronx_distributed_tpu_torch.serving.engine import _weight_leaves
+
+    res = {}
+    qmodel = None
+    for kind in ("bf16", "int8"):
+        if kind == "int8":
+            qmodel = quantize_model(model, QuantConfig(weights="int8").weight_qconfig())
+        leaves = _weight_leaves(model if kind == "bf16" else qmodel)
+        prog = TreeFingerprint(leaves)
+        got = int(prog())
+        want = int(tree_fingerprint_plain(leaves))
+        if got != want:
+            raise AssertionError(f"TF ({kind}) {got:#010x} != its plain version {want:#010x}")
+        big = max(leaves, key=lambda t: t.numel())
+        flip_leaf_bit(big, byte_index=big.numel() * big.element_size() // 3)
+        flipped = int(prog())
+        flip_leaf_bit(big, byte_index=big.numel() * big.element_size() // 3)
+        flat = big.view(-1)
+        i, j = flat.numel() // 2, flat.numel() // 2 + 4097
+        a, b = flat[i].clone(), flat[j].clone()
+        if torch.equal(a, b):
+            raise AssertionError(f"TF ({kind}): the swap's elements are equal; pick others")
+        flat[i], flat[j] = b, a
+        swapped = int(prog())
+        flat[i], flat[j] = a, b
+        if int(prog()) != got or flipped == got or swapped == got:
+            raise AssertionError(f"TF ({kind}): restored {int(prog()):#010x} vs {got:#010x}, "
+                                 f"flipped {flipped:#010x}, swapped {swapped:#010x}")
+        nbytes = prog.nbytes + 8
+        res[kind] = dict(ms=graph_ms(prog, 3, replays=3),
+                         plain_ms=cuda_ms(lambda: tree_fingerprint_plain(leaves), 1, warmup=1),
+                         bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes", bytes=nbytes,
+                         leaves=len(leaves), value=got)
+        del prog, leaves
+    del qmodel
+    torch.cuda.empty_cache()
+    return res
+
+
+# --- phase 5l: integrity and program observability -----------------------------------
+
+INTEGRITY_REPLICAS = 3    # 5l(a)'s vote: own-weight int8 replicas (each owns its tensors)
+INTEGRITY_DT = 0.6        # virtual seconds a router step; the vote every 0.5 s, so every step
+INTEGRITY_SLOTS = 4       # a replica's row slots (4 x 1.07 GB of K/V at 8192 columns)
+INTEGRITY_EVENTS = ("integrity_disagreement", "integrity_conviction", "rehome")
+
+
+def integrity_run(model, workload, replicas: int, flip_at, dry: bool = False) -> dict:
+    """5l(a): ``replicas`` int8 replicas (phase 5f(a)'s engine with row
+    slots; quantized replicas own their weights, the vote's condition)
+    under ``WatchdogConfig(integrity_interval_s=0.5)`` on a virtual clock,
+    phase 4's six requests, ``flip_bits("params", at=flip_at)`` on replica 0
+    (None: the clean control). Returns the decisions (stats, probe-state
+    walk, the replicas' integrity flight events, the injector's counters),
+    checked against the CPU dry run's by the caller."""
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    from neuronx_distributed_tpu_torch.serving.engine import EngineHealth
+    from neuronx_distributed_tpu_torch.serving.faults import FaultInjector
+    from neuronx_distributed_tpu_torch.serving.router import ReplicaRouter, WatchdogConfig
+    from neuronx_distributed_tpu_torch.serving.traffic import VirtualClock
+
+    prompts, cfgs = workload
+    clock = VirtualClock()
+    router = ReplicaRouter.build(model, replicas, time_fn=clock, num_slots=INTEGRITY_SLOTS,
+                                 decode_chunk_size=8, prefix_cache=None,
+                                 quantize=QuantConfig(weights="int8"),
+                                 watchdog=WatchdogConfig(integrity_interval_s=0.5))
+    inj = FaultInjector()
+    if flip_at is not None:
+        inj.flip_bits("params", at=flip_at)
+        router.replicas[0]._faults = inj
+    counters = fabric_zero(model)
+    reqs = [router.submit(p, c, seed=j) for j, (p, c) in enumerate(zip(prompts, cfgs))]
+    seq, pre, probe_s = [tuple(router.probe_states().values())], None, []
+    victim = router.replicas[0]
+    while router.has_work:
+        before = {r.rid: list(r.tokens) for r in victim.scheduler.requests.values()
+                  if not r.finished}
+        router.step()
+        fabric_sync(model)
+        seq.append(tuple(router.probe_states().values()))
+        if pre is None and victim.health() is EngineHealth.HALTED:
+            pre = before
+        clock.advance(INTEGRITY_DT)
+    fabric_sync(model)
+    launches = fabric_launches(router.replicas, counters)
+    fabric_done("5l(a)", model, reqs)
+    events = [[(e["kind"], e.get("replica")) for e in r.flight.events()
+               if e["kind"] in INTEGRITY_EVENTS] for r in router.replicas]
+    walk = [s[0] for i, s in enumerate(seq) if i == 0 or s[0] != seq[i - 1][0]]
+    decisions = dict(stats=dict(router.stats), walk=walk, events=events,
+                     counters={k: v for k, v in inj.counters.items() if v},
+                     routed_by_replica=list(router.routed_by_replica))
+    if dry:
+        return dict(decisions=decisions)
+    lost = ([rid for rid, toks in pre.items() if router.requests[rid].tokens[:len(toks)] != toks]
+            if pre is not None else [])
+    survivor = router.replicas[-1]
+    for _ in range(3):  # a probe's wall: TF over the int8 weights and its 8-byte read
+        fabric_sync(model)
+        t0 = time.perf_counter()
+        survivor.integrity_fingerprint()
+        probe_s.append(time.perf_counter() - t0)
+    teacher = fabric_teacher("5l(a)", survivor.model, prompts, cfgs, reqs)
+    out = dict(decisions=decisions, launches=launches, lost=lost,
+               rehomed=router.stats["rehomed_requests"], pre=sum(map(len, (pre or {}).values())),
+               teacher=teacher, probe_ms=1e3 * min(probe_s),
+               weight_gb=sum(t.numel() * t.element_size()
+                             for t in survivor.integrity_leaves()) / 1e9)
+    del router, victim, survivor
+    collect_engines()
+    return out
+
+
+def integrity_schedules():
+    """5l(a)'s three schedules: (replicas, the flip's step or None)."""
+    return {"vote": (INTEGRITY_REPLICAS, 1), "clean": (INTEGRITY_REPLICAS, None),
+            "pair": (2, 0)}
+
+
+def ledger_leg(model, workload, fused: dict) -> dict:
+    """5l(b): phase 5b's paged engine with ``program_ledger=`` (a ledger of
+    the caller's): decode-chunk dispatches = replays = executed steps, one
+    capture; the decode step's metered FLOPs a dispatch = the analytic
+    ``2 x linear weights x 16 slots + 4 x 16 x 32 heads x 8192 columns x
+    128 x 32 layers`` (relative 1e-9: sums of integers in float64); MFU
+    per program; host reads = the fixed budget of one read a chunk plus
+    each request's first token (every request is fresh: no prefix cache);
+    every token = phase 5b's run's (the engine's own default ledger) bit
+    for bit. The eager programs (prefills, first token, slot write and
+    clear) run unmetered inside the requests; a fresh engine's prewarm on
+    the same ledger then meters each of them once, their dispatches and
+    compiles unchanged."""
+    from neuronx_distributed_tpu_torch.inference.aot import ProgramManifest
+    from neuronx_distributed_tpu_torch.observability.programs import UNAVAILABLE, ProgramLedger
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    ledger = ProgramLedger()
+    r = serve_paged(model, workload, "fused", program_ledger=ledger)
+    by = ledger.snapshot()["by_program"]
+    dc = by["decode_chunk"]
+    executed = r["snap"]["executed_steps"]
+    if (dc["dispatches"], dc["compiles"], r["replays"]) != (executed, 1, executed):
+        raise AssertionError(f"ledger 5l(b): decode_chunk dispatches {dc['dispatches']}, compiles "
+                             f"{dc['compiles']}, replays {r['replays']}; executed {executed}")
+    cfg = model.config
+    want = decode_step_flops(cfg, PAGED_SLOTS, cfg.max_seq_len)
+    if abs(dc["flops_per_dispatch"] - want) > 1e-9 * want:
+        raise AssertionError(f"ledger 5l(b): decode step {dc['flops_per_dispatch']} FLOPs != the "
+                             f"analytic {want}")
+    budget = r["snap"]["chunks"] + len(r["tokens"])
+    if r["tokens"] != fused["tokens"] or r["host_reads"] != budget:
+        raise AssertionError(f"ledger 5l(b): tokens equal {r['tokens'] == fused['tokens']}, host "
+                             f"reads {r['host_reads']} != chunks {r['snap']['chunks']} + first "
+                             f"tokens {len(r['tokens'])}")
+    prefills = sum(e["dispatches"] for n, e in by.items() if n.startswith("prefill["))
+    if prefills != r["snap"]["prefills"]:
+        raise AssertionError(f"ledger 5l(b): {prefills} prefill dispatches != "
+                             f"{r['snap']['prefills']} prefills")
+    # the eager programs ran unmetered inside the requests; a fresh engine of
+    # the same geometry on the same ledger replays them once under its
+    # prewarm, which meters each recorded variant off the request path
+    unmetered = sorted(n for n, e in by.items()
+                       if e["dispatches"] and e["flops_per_dispatch"] == UNAVAILABLE)
+    if "decode_chunk" in unmetered or not any(n.startswith("prefill[") for n in unmetered):
+        raise AssertionError(f"ledger 5l(b): unmetered after the run {unmetered}")
+    shadow = ServingEngine(model, num_slots=PAGED_SLOTS, decode_chunk_size=8, kv_page_size=PAGE,
+                           kv_num_pages=ROW_SLOTS * cfg.max_seq_len // PAGE + 1,
+                           prefix_cache=None, program_ledger=ledger)
+    rep = shadow.prewarm(manifest=ProgramManifest.from_ledger(ledger, names=unmetered))
+    del shadow
+    after = ledger.snapshot()["by_program"]
+    if sorted(rep["replayed"]) != unmetered or rep["failed"] or rep["skipped"] or any(
+            after[n]["dispatches"] != by[n]["dispatches"] or after[n]["compiles"] != by[n]["compiles"]
+            or after[n]["cost_source"] != "prewarm dispatch" for n in unmetered):
+        raise AssertionError(f"ledger 5l(b): the metering prewarm {rep}")
+    by = after
+    mfu = {n: e.get("mfu_p50") for n, e in by.items() if e["dispatches"]}
+    return dict(launches=r["launches"], decode=dc, want=want, mfu=mfu, executed=executed,
+                table=ledger.table(), host_reads=r["host_reads"], prefills=prefills,
+                chunks=r["snap"]["chunks"], requests=len(r["tokens"]), metered=unmetered,
+                prewarm_s=rep["wall_s"])
+
+
+def decode_step_flops(cfg, slots: int, cols: int) -> float:
+    """The analytic decode step: 2 x in x out a slot for every linear (q,
+    k, v, o, gate, up, down, lm_head) and 4 x heads x columns x head_dim a
+    slot and layer of attention over every column the kernel is handed."""
+    hd = cfg.head_dim_
+    per_layer = (cfg.hidden_size * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+                 + cfg.num_heads * hd * cfg.hidden_size
+                 + 3 * cfg.hidden_size * cfg.intermediate_size)
+    weights = cfg.num_layers * per_layer + cfg.hidden_size * cfg.vocab_size
+    return 2.0 * weights * slots + 4.0 * slots * cfg.num_heads * cols * hd * cfg.num_layers
+
+
+def profiler_leg(model, srv: dict) -> dict:
+    """5l(c): phase 4's engine with ``profile_dir=`` (a temporary
+    directory): the Chrome trace exists, holds 2 K4 records (range kernel
+    and merge) a layer and executed step of chunks 2, 3 and 4 and none of
+    the others; the streams = phase 4's; ``record_device_memory``'s gauges
+    agree with ``torch.cuda.mem_get_info``. The profiler can lose a kernel
+    record (one of 1024 K4 records in one run on an H100 80GB HBM3), so the
+    count is held to at most the window's and to more than the window's
+    less one chunk's: a window one chunk early or late still fails."""
+    import tempfile
+
+    from neuronx_distributed_tpu_torch.observability.profiler import TRACE_NAME, record_device_memory
+    from neuronx_distributed_tpu_torch.observability.registry import MetricsRegistry
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    prompts, cfgs = srv["workload"]
+    with tempfile.TemporaryDirectory() as d:
+        engine = ServingEngine(model, num_slots=8, decode_chunk_size=8, prefix_cache=None,
+                               profile_dir=d)
+        reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
+        in_window = 0
+        while engine.has_work:
+            chunks, executed = engine.metrics.chunks, engine.metrics.executed_steps
+            engine.step()
+            if 2 <= chunks < 5 and engine.metrics.chunks > chunks:
+                in_window += engine.metrics.executed_steps - executed
+        torch.cuda.synchronize()
+        path = os.path.join(d, TRACE_NAME)
+        with open(path) as f:
+            trace = json.load(f)
+        size = os.path.getsize(path)
+    kernels = [ev["name"] for ev in trace["traceEvents"] if ev.get("cat") == "kernel"]
+    k4 = sum("flash_decode_kernel" in n and "paged" not in n for n in kernels)
+    layers = model.config.num_layers
+    want, chunk = 2 * in_window * layers, 2 * engine.decode_chunk_size * layers
+    if not want - chunk < k4 <= want or in_window == 0:
+        raise AssertionError(f"profiler 5l(c): {k4} K4 records in the trace, not in ({want - chunk}, "
+                             f"{want}]: 2 x {in_window} executed steps of chunks [2, 5) x {layers}, "
+                             "less under one chunk's")
+    tokens = [list(r.tokens) for r in reqs]
+    if tokens != srv["tokens"]:
+        raise AssertionError("profiler 5l(c): streams differ from phase 4's")
+    reg = MetricsRegistry()
+    n = record_device_memory(reg)
+    free, total = torch.cuda.mem_get_info(0)
+    got_free = reg.get("device0_bytes_free").value
+    if n != torch.cuda.device_count() or reg.get("device0_bytes_limit").value != total \
+            or abs(got_free - free) > 64 << 20:
+        raise AssertionError(f"profiler 5l(c): record_device_memory {n} devices, limit "
+                             f"{reg.get('device0_bytes_limit').value} vs {total}, free "
+                             f"{got_free} vs {free}")
+    del engine
+    collect_engines()
+    return dict(k4=k4, want=want, in_window=in_window, kernels=len(kernels), trace_bytes=size,
+                in_use=reg.get("device0_bytes_in_use").value,
+                utilization=reg.get("device0_memory_utilization").value)
+
+
+def warm_spawn_leg(model, srv: dict) -> dict:
+    """5l(d): a router of two phase-4 row replicas over the one module
+    serves phase 4's six requests; replica 0's bundle (``save_aot``: its
+    manifest and the process's kernel libraries) goes to a temporary
+    ``cache_dir``. ``restart_replica(1, cache_dir=)`` and
+    ``add_replica(manifest=, cache_dir=)`` prewarm their replicas: every
+    manifest program replayed (``last_prewarm``), the kernels loaded from
+    ``cache_dir`` (no build). Each warm replica's first request (phase 4's 3000-token prompt)
+    then captures nothing and builds nothing; its TTFT and first step's
+    wall are printed against a cold replica's (``add_replica()``), whose
+    first step captures the decode graph. The warm and cold streams equal."""
+    import tempfile
+
+    from neuronx_distributed_tpu_torch.kernels import _build
+    from neuronx_distributed_tpu_torch.serving.router import ReplicaRouter
+
+    prompts, cfgs = srv["workload"]
+    router = ReplicaRouter.build(model, 2, num_slots=8, decode_chunk_size=8, prefix_cache=None)
+    reqs = [router.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
+    router.run()
+    fabric_done("5l(d) donor", model, reqs)
+    donor = router.replicas[0]
+    out, reports = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        bundle = donor.save_aot(d)
+        manifest = donor.manifest()
+        names = sorted(n for n in manifest.names() if manifest.entries(n))
+        t0 = time.perf_counter()
+        restarted = router.restart_replica(1, cache_dir=d)
+        reports["restart"] = (restarted, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        added = router.add_replica(manifest=manifest, cache_dir=d, adopt_backlog=False)
+        reports["add"] = (added, time.perf_counter() - t0)
+        cold = router.add_replica(adopt_backlog=False)
+        for what, i in (("restart", restarted), ("add", added), ("cold", cold)):
+            e = router.replicas[i]
+            if what != "cold":
+                rep = e.last_prewarm
+                if (sorted(rep["replayed"]) != names or rep["skipped"] or rep["failed"]
+                        or rep["deserialized"]
+                        or sorted(rep["kernels_cached"]) != sorted(manifest.meta["kernels"])):
+                    raise AssertionError(f"warm spawn 5l(d) {what}: replayed {rep['replayed']} of "
+                                         f"{names}, skipped {rep['skipped']}, failed "
+                                         f"{rep['failed']}, kernels cached {rep['kernels_cached']}")
+            compiles = {n: p.compiles for n, p in e.programs.programs().items()}
+            captures, builds = e.decode_compilations, _build.stats["builds"]
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            req = e.submit(prompts[-1], cfgs[-1], seed=99)
+            e.step()
+            torch.cuda.synchronize()
+            first_step = time.perf_counter() - t1
+            e.run()
+            torch.cuda.synchronize()
+            out[what] = dict(ttft_s=req.first_token_time - req.submit_time, first_step_s=first_step,
+                             new_captures=e.decode_compilations - captures,
+                             new_builds=_build.stats["builds"] - builds,
+                             new_compiles={n: p.compiles - compiles.get(n, 0)
+                                           for n, p in e.programs.programs().items()
+                                           if p.compiles != compiles.get(n, 0)},
+                             tokens=list(req.tokens), wall_s=reports.get(what, (0, 0.0))[1])
+        out["process"] = fresh_process_spawn(d, prompts[-1], model.config)
+    cold_r = out["cold"]
+    for what in ("restart", "add"):
+        warm = out[what]
+        if warm["new_captures"] or warm["new_builds"] or warm["new_compiles"]:
+            raise AssertionError(f"warm spawn 5l(d) {what}: the first request captured "
+                                 f"{warm['new_captures']}, built {warm['new_builds']}, compiled "
+                                 f"{warm['new_compiles']}")
+        if warm["tokens"] != cold_r["tokens"]:
+            raise AssertionError(f"warm spawn 5l(d) {what}: its stream differs from the cold "
+                                 "replica's")
+    if cold_r["new_captures"] != 1:
+        raise AssertionError(f"warm spawn 5l(d): the cold replica captured "
+                             f"{cold_r['new_captures']} (want 1)")
+    del router, donor
+    collect_engines()
+    return dict(out, names=names, kernels=bundle["kernels"])
+
+
+FRESH_SPAWN = r"""
+import json, sys, tempfile, time
+sys.path.insert(0, sys.argv[1])
+import dataclasses, numpy as np, torch
+from neuronx_distributed_tpu_torch.kernels import _build
+_build.BUILD_DIR = tempfile.mkdtemp()  # an empty build directory: nothing built here yet
+from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_params
+from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+cfg = LlamaConfig(**{k: getattr(torch, v) if k in ("dtype", "param_dtype") else v
+                     for k, v in json.loads(sys.argv[3]).items()})
+dev = "cuda" if torch.cuda.is_available() else "cpu"
+model = init_params(LlamaForCausalLM(cfg, device=dev), seed=0)
+engine = ServingEngine(model, num_slots=8, decode_chunk_size=8, prefix_cache=None)
+t0 = time.perf_counter()
+rep = engine.prewarm(cache_dir=sys.argv[2])
+prewarm_s = time.perf_counter() - t0
+builds, captures = _build.stats["builds"], engine.decode_compilations
+compiles = {n: p.compiles for n, p in engine.programs.programs().items()}
+prompt = np.array(json.loads(sys.argv[4]))
+t1 = time.perf_counter()
+req = engine.submit(prompt, GenerationConfig(max_new_tokens=32, temperature=0.0), seed=99)
+engine.step()
+if dev == "cuda":
+    torch.cuda.synchronize()
+first_step = time.perf_counter() - t1
+engine.run()
+print(json.dumps(dict(replayed=sorted(rep["replayed"]), skipped=rep["skipped"], failed=rep["failed"],
+                      cached=sorted(rep["kernels_cached"]), prewarm_s=prewarm_s,
+                      builds=_build.stats["builds"], builds_at_prewarm=builds,
+                      new_captures=engine.decode_compilations - captures,
+                      new_compiles=sum(p.compiles for p in engine.programs.programs().values())
+                      - sum(compiles.values()), ttft_s=req.first_token_time - req.submit_time,
+                      first_step_s=first_step, tokens=len(req.tokens))))
+"""
+
+
+def fresh_process_spawn(cache_dir: str, prompt, cfg) -> dict:
+    """5l(d)'s last leg: a FRESH process whose kernel build directory is
+    empty prewarms a row engine (2 layers of the same width: the manifest
+    and the libraries do not depend on depth) from ``cache_dir`` alone:
+    every library loaded from there, no ``nvcc`` run, every manifest
+    program replayed, then a request served with no capture, build or
+    compile. Returns the process's report (its TTFT, first step, prewarm
+    wall)."""
+    import dataclasses
+
+    small = dataclasses.asdict(dataclasses.replace(cfg, num_layers=2))
+    small = {k: (str(v).replace("torch.", "") if isinstance(v, torch.dtype) else v)
+             for k, v in small.items()}
+    out = subprocess.run([sys.executable, "-c", FRESH_SPAWN, os.path.dirname(os.path.abspath(
+        __file__)), cache_dir, json.dumps(small), json.dumps([int(t) for t in prompt])],
+        capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"warm spawn 5l(d): the fresh process failed:\n{out.stderr[-3000:]}")
+    from neuronx_distributed_tpu_torch.inference.aot import ProgramManifest
+
+    rep = json.loads(out.stdout.strip().splitlines()[-1])
+    want = sorted(ProgramManifest.load(cache_dir).meta["kernels"])
+    if rep["builds"] or rep["new_captures"] or rep["new_compiles"] or rep["skipped"] \
+            or rep["failed"] or rep["tokens"] != 32 or rep["cached"] != want:
+        raise AssertionError(f"warm spawn 5l(d): the fresh process {rep}")
+    return rep
+
+
+def integrity_phase(model, srv: dict, fused: dict, smi: str) -> dict:
+    """Phase 5l: integrity and program observability at full width. (a)
+    the cross-replica vote (three schedules, each = its CPU dry run at tiny
+    width), (b) the program ledger, (c) the profiler window and device
+    memory gauges, (d) the warm spawn. Returns the phase's launches."""
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig  # noqa: F401
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    workload = srv["workload"]
+    t0 = time.perf_counter()
+    dry_model = fabric_dry_model(model)
+    with fabric_dry_sampler():
+        dry = {k: integrity_run(dry_model, workload, n, at, dry=True)["decisions"]
+               for k, (n, at) in integrity_schedules().items()}
+    del dry_model
+    log(f"integrity 5l: the CPU dry runs of (a)'s three schedules (tiny width, int8, the same "
+        f"vocabulary and max_seq_len) in {time.perf_counter() - t0:.2f} s")
+    runs = {}
+    for k, (n, at) in integrity_schedules().items():
+        runs[k] = integrity_run(model, workload, n, at)
+        if runs[k]["decisions"] != dry[k]:
+            raise AssertionError(f"integrity 5l(a) {k}: {runs[k]['decisions']} != the dry run's "
+                                 f"{dry[k]}")
+    v, c, p = runs["vote"], runs["clean"], runs["pair"]
+    vs, cs, ps = v["decisions"]["stats"], c["decisions"]["stats"], p["decisions"]["stats"]
+    if (vs["integrity_fences"], vs["integrity_disagreements"], v["decisions"]["walk"]) != \
+            (1, 0, ["ok", "dead"]) or v["lost"] or v["rehomed"] < 1:
+        raise AssertionError(f"integrity 5l(a): fences {vs['integrity_fences']}, disagreements "
+                             f"{vs['integrity_disagreements']}, walk {v['decisions']['walk']}, "
+                             f"streams that lost tokens {v['lost']}, re-homed {v['rehomed']}")
+    if cs["integrity_fences"] or cs["integrity_disagreements"]:
+        raise AssertionError(f"integrity 5l(a) clean control: {cs}")
+    if ps["integrity_fences"] or ps["integrity_disagreements"] < 1:
+        raise AssertionError(f"integrity 5l(a) two replicas: {ps}")
+    log(f"integrity 5l(a) the vote ({smi}; {INTEGRITY_REPLICAS} replicas of phase 5f(a)'s int8 "
+        f"engine with {INTEGRITY_SLOTS} row slots each, each owning its {v['weight_gb']:.3f} GB "
+        f"of weights; WatchdogConfig(integrity_interval_s=0.5), {INTEGRITY_DT} virtual s a step; "
+        f"phase 4's six requests; flip_bits('params', at=1) on replica 0): replica 0 walked "
+        f"{' -> '.join(v['decisions']['walk'])} at the first vote after the flip, fenced, "
+        f"{v['rehomed']} requests re-homed, tokens_lost 0 ({v['pre']} pre-conviction tokens kept "
+        f"exactly), every request DONE with 32 tokens; integrity_probes "
+        f"{vs['integrity_probes']}, fences {vs['integrity_fences']}, flight events "
+        f"{v['decisions']['events']} = the dry run's; clean control: probes "
+        f"{cs['integrity_probes']}, no disagreement, no fence; two replicas, flip at 0: "
+        f"disagreements {ps['integrity_disagreements']} (one a vote after the flip), no fence; "
+        f"a probe's wall (TF over "
+        f"{v['weight_gb']:.3f} GB and its 8-byte read) {v['probe_ms']:.3f} ms; teacher-forced gap "
+        f"(int8 teacher) {v['teacher']:.3g} / {c['teacher']:.3g} / {p['teacher']:.3g}x phase 3's "
+        f"limit")
+    b = ledger_leg(model, paged_workload(model.config.vocab_size), fused)
+    dc = b["decode"]
+    log(f"ledger 5l(b) ({smi}; phase 5b's paged engine, program_ledger=): decode_chunk "
+        f"dispatches {dc['dispatches']} = replays = executed steps {b['executed']}, compiles "
+        f"{dc['compiles']} (the capture), {dc['flops_per_dispatch']:.6g} FLOPs a dispatch = the "
+        f"analytic {b['want']:.6g} (16 slots x 2 x the linear weights + attention over 8192 "
+        f"columns), {dc['bytes_per_dispatch']:.6g} bytes, kernels a step {dc['kernels']}; "
+        f"prefill dispatches {b['prefills']} = prefills; host reads {b['host_reads']} = chunks "
+        f"{b['chunks']} + first tokens {b['requests']}; every token = phase 5b's run; MFU p50 by "
+        f"program (datasheet peak) "
+        + json.dumps({k: (round(x, 6) if isinstance(x, float) else x) for k, x in b["mfu"].items()}))
+    log(f"ledger 5l(b): metered by a second engine's prewarm on the same ledger, "
+        f"{b['prewarm_s']:.3f} s: {b['metered']}")
+    for line in b["table"].splitlines():
+        log(f"ledger 5l(b) table: {line}")
+    cl = profiler_leg(model, srv)
+    log(f"profiler 5l(c) ({smi}; phase 4's engine, profile_dir=): the Chrome trace "
+        f"({cl['trace_bytes']} B, {cl['kernels']} kernel records) holds {cl['k4']} K4 records of "
+        f"the window's {cl['want']} (2 x {cl['in_window']} executed steps of chunks [2, 5) x 32; "
+        f"{cl['want'] - cl['k4']} lost by the profiler), none outside; streams = phase "
+        f"4's; record_device_memory: in use {cl['in_use']} B, utilization "
+        f"{cl['utilization']:.4f}, limit and free = mem_get_info")
+    d = warm_spawn_leg(model, srv)
+    log(f"warm spawn 5l(d) ({smi}; two phase-4 row replicas over one module; the donor's "
+        f"manifest ({len(d['names'])} programs: {d['names']}) and kernel libraries "
+        f"{d['kernels']}): restart_replica(1, cache_dir=) in {d['restart']['wall_s']:.3f} s and "
+        f"add_replica(manifest=, cache_dir=) in {d['add']['wall_s']:.3f} s, every program "
+        f"replayed, every library loaded from cache_dir; their first request (3000 tokens): no "
+        f"capture, no build, no compile, TTFT {d['restart']['ttft_s']:.4f} / "
+        f"{d['add']['ttft_s']:.4f} s, first step {d['restart']['first_step_s']:.4f} / "
+        f"{d['add']['first_step_s']:.4f} s; a cold replica's (add_replica()): TTFT "
+        f"{d['cold']['ttft_s']:.4f} s, first step {d['cold']['first_step_s']:.4f} s (its capture "
+        f"in it); streams equal")
+    fp = d["process"]
+    log(f"warm spawn 5l(d) fresh process ({smi}; an empty build directory, 2 layers of the width): "
+        f"prewarm(cache_dir=) {fp['prewarm_s']:.3f} s, libraries loaded from cache_dir "
+        f"{fp['cached']}, nvcc runs {fp['builds']}, programs replayed {fp['replayed']}; its first "
+        f"request (3000 tokens): no capture, no compile, TTFT {fp['ttft_s']:.4f} s, first step "
+        f"{fp['first_step_s']:.4f} s")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if peak > 72:
+        raise AssertionError(f"integrity 5l: peak memory {peak:.1f} GiB over 72")
+    launches = {k: sum(x["launches"][k] for x in (v, c, p, b)) for k in v["launches"]}
+    log(f"phase 5l launches (replays included; (c) and (d) not counted): {launches}; peak mem "
+        f"{peak:.1f} GiB")
+    log(f"phase 5l wall: {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches)
+
+
 # --- phases 6-7: training ------------------------------------------------------
 
 EOS_ID = 128001  # Llama-3's <|end_of_text|>
@@ -5471,8 +6010,8 @@ def main() -> int:
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     t0 = time.perf_counter()
     _build.build(["flash_attention", "flash_attention_bwd", "flash_decode", "dequantize",
-                  "kv_quant", "page_fingerprint"])
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the six sources in parallel)")
+                  "kv_quant", "page_fingerprint", "tree_fingerprint"])
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the seven sources in parallel)")
     for r in [fwd_resources(), *bwd_resources()]:
         log(f"{r['kernel']}: {r['smem']} B dynamic shared memory a block, {r['regs']} registers a "
             f"thread at entry, {r['local']} B local a thread, {r['blocks_per_sm']} block(s) per SM; "
@@ -5496,6 +6035,14 @@ def main() -> int:
         raise AssertionError("PF spills or was not reported:\n" + "\n".join(pf_lines))
     log("ptxas -v, csrc/page_fingerprint.cu (PF: the page kernel, the combine kernel): "
         + "; ".join(pf_lines))
+    tf_lines = [line.strip() for line in _build.resource_report("tree_fingerprint").splitlines()
+                if "registers" in line or "spill" in line]
+    if not any("spill" in line for line in tf_lines) or any(
+            "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
+            for line in tf_lines):
+        raise AssertionError("TF spills or was not reported:\n" + "\n".join(tf_lines))
+    log("ptxas -v, csrc/tree_fingerprint.cu (TF: the item kernel, the combine kernel): "
+        + "; ".join(tf_lines))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = [check_k1(gen, b, s, segments) for _, b, s, segments in K1_SHAPES]
@@ -5664,6 +6211,13 @@ def main() -> int:
     log(f"model: llama3_8b, {cfg.num_layers} layers (no depth cut), "
         f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B params bf16, "
         f"init {time.perf_counter() - t0:.1f} s")
+    tf = check_tf(model)
+    for kind, r in tf.items():
+        log(f"TF tree_fingerprint ({smi}; {kind}: {r['leaves']} leaves, {r['bytes']} B): = plain "
+            f"bit for bit ({r['value']:#010x}), a flipped bit and a swap each move it; kernel_ms "
+            f"{r['ms']:.4f} (graph replay) plain_ms {r['plain_ms']:.4f} bound_ms "
+            f"{r['bound_ms']:.4f} ({r['bound_by']}; {r['ms'] / r['bound_ms']:.2f}x) library_ms "
+            f"null (no single PyTorch call computes it)")
     for name, out in check_outputs(model, gen).items():
         log(f"outputs vs plain path ({name} cache{', scrambled table, K5' if name == 'paged' else ''}"
             f"; 64-token prompt, 8 decode steps): rel_err {out['rel_err']:.3g} argmax "
@@ -5758,6 +6312,7 @@ def main() -> int:
     tier = tier_phase(model, smi)
     weights = weights_phase(model, srv, fused, smi)
     fabric = fabric_phase(model, srv, fused, smi)
+    integ = integrity_phase(model, srv, fused, smi)
 
     del model
     torch.cuda.empty_cache()
@@ -5787,12 +6342,13 @@ def main() -> int:
     launches = {name: srv["launches"][name] + fused["launches"][name] + pre["launches"][name]
                 + spec["launches"][name] + med["launches"][name] + quant["launches"][name]
                 + fault["launches"][name] + slo["launches"][name] + tier["launches"][name]
-                + weights["launches"][name] + fabric["launches"][name] + tr["launches"][name]
+                + weights["launches"][name] + fabric["launches"][name]
+                + integ["launches"][name] + tr["launches"][name]
                 for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
         f"speculative serving row and paged, Medusa, quantized serving, the fault contract, "
         f"SLO-aware multi-tenant serving, the host page tier, weights that change, the serving "
-        f"fabric, training): "
+        f"fabric, integrity and program observability, training): "
         f"{launches}; "
         f"on the multi-row path (prefix-cache serving): {pre['multi_row']}; the speculative "
         f"rounds' verify windows (s = {SPEC_GAMMA}): {spec['verify']}")
@@ -5886,6 +6442,14 @@ def main() -> int:
              plain_ms=pf["bf16"]["plain_ms"], bound_ms=pf["bf16"]["bound_ms"],
              bound_by=pf["bf16"]["bound_by"], library_ms=None, int8_ms=pf["int8"]["ms"],
              int8_bound_ms=pf["int8"]["bound_ms"]),
+        # TF computes the tree fingerprint XLA fuses into one program
+        dict(name="tree_fingerprint", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/tree_fingerprint.cu",
+             replaces="neuronx_distributed_tpu/utils/fingerprint.py:119",
+             launches=launches["tree_fingerprint"], max_abs_err=0.0, ms=tf["bf16"]["ms"],
+             plain_ms=tf["bf16"]["plain_ms"], bound_ms=tf["bf16"]["bound_ms"],
+             bound_by=tf["bf16"]["bound_by"], library_ms=None, int8_ms=tf["int8"]["ms"],
+             int8_bound_ms=tf["int8"]["bound_ms"]),
         # DQ computes what XLA fuses into the quantized matmul's load
         dict(name="dequantize", route="cuda",
              source="neuronx_distributed_tpu_torch/csrc/dequantize.cu",

@@ -34,6 +34,7 @@ that replays it.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Dict
 
@@ -55,13 +56,15 @@ def kernel_wrappers() -> Dict[str, Callable]:
     )
     from neuronx_distributed_tpu_torch.kernels.kv_quant import window_requantize_fwd
     from neuronx_distributed_tpu_torch.kernels.page_fingerprint import pool_pages_fingerprint_fwd
+    from neuronx_distributed_tpu_torch.kernels.tree_fingerprint import tree_fingerprint_fwd
 
     return {"flash_attention": flash_attention_fwd, "flash_attention_dkdv": flash_attention_dkdv,
             "flash_attention_dq": flash_attention_dq, "flash_decode": flash_decode_fwd,
             "paged_flash_decode": paged_flash_decode_fwd,
             "qpaged_flash_decode": qpaged_flash_decode_fwd, "dequantize": dequantize_fwd,
             "window_requantize": window_requantize_fwd,
-            "page_fingerprint": pool_pages_fingerprint_fwd}
+            "page_fingerprint": pool_pages_fingerprint_fwd,
+            "tree_fingerprint": tree_fingerprint_fwd}
 
 
 class DecodeProgram:
@@ -83,6 +86,9 @@ class DecodeProgram:
         self.captures = self.replays = 0
         self.capture_s = 0.0
         self.launches_per_replay: Dict[str, int] = {}
+        # a program ledger's cost meter for the capture's eager warm-up
+        # (observability/programs.py); None meters nothing
+        self.cost_meter = None
 
     def __call__(self) -> None:
         """Run one decode step: a replay on the card (captured at the first
@@ -104,7 +110,7 @@ class DecodeProgram:
         t0 = time.perf_counter()
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), self.cost_meter or contextlib.nullcontext():
             self._warmup()
         torch.cuda.current_stream(self.device).wait_stream(side)
         wrappers = kernel_wrappers()
@@ -120,4 +126,7 @@ class DecodeProgram:
         self.graph = graph
         self.captures += 1
         self.capture_s = time.perf_counter() - t0
+        from neuronx_distributed_tpu_torch.kernels import _build
+
+        _build.notify("capture", self.capture_s)
         return self.capture_s

@@ -55,7 +55,8 @@ def validate_spec_room(models, prompt_len: int, max_new_tokens: int, gamma: int)
 @torch.no_grad()
 def speculative_generate(target, draft, prompt_ids, max_new_tokens: int, gamma: int = 4,
                          temperature: float = 0.0, seed: Optional[int] = None,
-                         stats: Optional[SpecStats] = None) -> Tuple[torch.Tensor, float]:
+                         stats: Optional[SpecStats] = None,
+                         registry=None) -> Tuple[torch.Tensor, float]:
     """Speculative decoding of ``prompt_ids`` (B, S), any batch size, on the
     target's device. ``temperature=0`` is greedy; ``temperature>0`` runs
     the exact speculative-sampling rule per row and needs ``seed`` (as the
@@ -67,8 +68,15 @@ def speculative_generate(target, draft, prompt_ids, max_new_tokens: int, gamma: 
     ``stats`` (a :class:`SpecStats`) records every row's acceptance in
     every round, the recorder and snapshot keys the serving engine reports
     through; its wasted count includes the batch-min schedule's re-drafted
-    tail. The JAX function takes ``registry=`` instead: the port has no
-    metrics registry yet."""
+    tail. ``registry`` (a ``MetricsRegistry``; JAX ``registry=``,
+    ``speculative.py:67``) records into a :class:`SpecStats` over that
+    registry: the serving engine's metric names (``spec_accept_len``, the
+    drafted, accepted and wasted counters). ``stats`` and ``registry`` are
+    one or the other."""
+    if registry is not None:
+        if stats is not None:
+            raise ValueError("pass stats= or registry=, not both")
+        stats = SpecStats(registry)
     b, s = prompt_ids.shape
     if temperature > 0.0 and seed is None:
         raise ValueError("sampled speculative decoding needs a seed")

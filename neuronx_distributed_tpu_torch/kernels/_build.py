@@ -24,7 +24,8 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, List
+import time
+from typing import Callable, Dict, Iterable, List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -36,6 +37,19 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# compile-event callbacks ``fn(event, seconds, name=)``: "build" (an nvcc
+# run), "load" (a library loaded), "capture" (a CUDA graph captured, from
+# inference/graphs.py); observability/profiler.install_compile_listener
+# adds one
+COMPILE_LISTENERS: List[Callable] = []
+# nvcc runs and library loads in this process
+stats = {"builds": 0, "loads": 0}
+
+
+def notify(event: str, seconds: float, **kw) -> None:
+    """Tell every compile listener of one event."""
+    for fn in list(COMPILE_LISTENERS):
+        fn(event, seconds, **kw)
 
 
 class KernelError(RuntimeError):
@@ -80,6 +94,7 @@ def _start_build(name: str):
 def build(names: Iterable[str]) -> None:
     """Compile every named source that is not built yet, one ``nvcc`` per
     source, all started together."""
+    t0 = time.perf_counter()
     jobs: List = [j for j in (_start_build(n) for n in names) if j is not None]
     errors = []
     for out, tmp, proc in jobs:
@@ -90,18 +105,38 @@ def build(names: Iterable[str]) -> None:
             with open(out + ".ptxas.txt", "wb") as f:
                 f.write(log)
             os.replace(tmp, out)  # atomic: a reader never sees half a library
+            stats["builds"] += 1
+            notify("build", time.perf_counter() - t0, name=os.path.basename(out))
     if errors:
         raise KernelError("\n".join(errors))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+def lib_name(name: str) -> str:
+    """The file name of ``csrc/<name>.cu``'s library: ``lib<name>-<hash>.so``,
+    the hash over its source, the shared headers and the flags."""
+    return os.path.basename(_lib_path(name))
+
+
+def loaded() -> Dict[str, str]:
+    """The libraries this process has loaded: source name -> file name."""
+    return {name: lib_name(name) for name in sorted(_libs)}
+
+
+def load(name: str, path: Optional[str] = None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use, or
+    loaded from ``path`` (a library built from the same sources: the
+    caller checks its name, ``inference/aot.py``)."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(_lib_path(name))
+            t0 = time.perf_counter()
+            if path is None:
+                build([name])
+                path = _lib_path(name)
+            lib = ctypes.CDLL(path)
             _libs[name] = lib
+            stats["loads"] += 1
+            notify("load", time.perf_counter() - t0, name=name)
         return lib
 
 

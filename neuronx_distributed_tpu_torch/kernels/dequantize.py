@@ -19,6 +19,8 @@ from types import SimpleNamespace
 
 import torch
 
+from neuronx_distributed_tpu_torch.observability.programs import metered
+
 
 def dequantize_plain(q: torch.Tensor, scale: torch.Tensor,
                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -60,6 +62,13 @@ def _kernel_call(q, scale, dtype):
     return out
 
 
+def _dq_cost(q, scale, dtype):
+    """DQ's count for the program ledger: one multiply an element; the
+    codes and scales read once, the 2-byte output written once."""
+    return float(q.numel()), q.numel() * (q.element_size() + 2) + scale.numel() * scale.element_size()
+
+
+@metered("dequantize", _dq_cost)
 def dequantize_fwd(q: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The weight ``q`` (out, in) int8 or fp8 e4m3 dequantized with
     ``scale`` (out,) or () f32 to ``dtype``. CUDA tensors launch DQ (bf16

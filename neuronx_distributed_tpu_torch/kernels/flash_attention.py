@@ -27,6 +27,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from neuronx_distributed_tpu_torch.observability.programs import metered
+
 NEG_INF = -1e30
 
 
@@ -190,6 +192,19 @@ def _kernel_call(q, k, v, causal, q_seg, k_seg):
     return out, lse
 
 
+def _fwd_cost(q, k, v, causal: bool = True, segment_ids=None, kv_segment_ids=None):
+    """K1's count for the program ledger (``chip_smoke.py``'s bound, on
+    shapes): 4 D FLOPs a (query, key) pair a head, the causal triangle when
+    S = Sk; q, k, v, out and the f32 LSE once each."""
+    b, s, h, d = q.shape
+    sk = k.shape[1]
+    pairs = s * (s + 1) // 2 if causal and s == sk else s * sk
+    es = q.element_size()
+    return (4.0 * b * h * pairs * d,
+            es * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * s * h)
+
+
+@metered("flash_attention", _fwd_cost)
 def flash_attention_fwd(q, k, v, causal: bool = True,
                         segment_ids: Optional[torch.Tensor] = None,
                         kv_segment_ids: Optional[torch.Tensor] = None

@@ -47,6 +47,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from neuronx_distributed_tpu_torch.observability.programs import metered
+
 from neuronx_distributed_tpu_torch.kernels.dequantize import dequantize_plain
 
 NEG_INF = -1e30
@@ -216,6 +218,25 @@ def _kernel_call(q, k_cache, v_cache, q_pos, kv_valid):
     return out, lse
 
 
+def _decode_cost(b: int, s: int, h: int, d: int, cols: int, hkv: int, kv_esize: int,
+                 q_esize: int, extra: int = 0):
+    """K4/K5/K5q's count for the program ledger (``chip_smoke.py
+    decode_bound``, on shapes: every column the call is handed counts, as a
+    static cost analysis counts a program's shapes, not its data): 4 D
+    FLOPs a (row, column) pair a q-head; q, K and V, the validity, out and
+    the f32 LSE once each, plus ``extra`` (tables, scales)."""
+    return (4.0 * b * s * h * cols * d,
+            2 * q_esize * b * s * h * d + 2 * kv_esize * b * cols * hkv * d + b * cols
+            + 4 * b * s * h + extra)
+
+
+def _k4_cost(q, k_cache, v_cache, q_pos, kv_valid=None):
+    b, s, h, d = q.shape
+    return _decode_cost(b, s, h, d, k_cache.shape[1], k_cache.shape[2], k_cache.element_size(),
+                        q.element_size())
+
+
+@metered("flash_decode", _k4_cost)
 def flash_decode_fwd(q, k_cache, v_cache, q_pos, kv_valid=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of cached decode attention: q (B, s, H, D) rows at
@@ -352,6 +373,16 @@ def _paged_kernel_call(q, k_pool, v_pool, block_table, q_pos, kv_valid, page_siz
     return out, lse
 
 
+def _k5_cost(q, k_pool, v_pool, block_table, q_pos, kv_valid=None, page_size: int = 16,
+             k_scale=None, v_scale=None):
+    b, s, h, d = q.shape
+    scales = 0 if k_scale is None else 2 * b * block_table.shape[1] * k_scale[0].numel() * 2
+    return _decode_cost(b, s, h, d, block_table.shape[1] * page_size, k_pool.shape[2],
+                        k_pool.element_size(), q.element_size(),
+                        extra=block_table.numel() * block_table.element_size() + scales)
+
+
+@metered("paged_flash_decode", _k5_cost)
 def paged_flash_decode_fwd(q, k_pool, v_pool, block_table, q_pos, kv_valid=None,
                            page_size: int = 16, k_scale=None, v_scale=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -505,6 +536,12 @@ def _qpaged_kernel_call(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos,
     return out, lse
 
 
+def _k5q_cost(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos, kv_valid=None,
+              page_size: int = 16):
+    return _k5_cost(q, k_pool, v_pool, block_table, q_pos, kv_valid, page_size, k_scale, v_scale)
+
+
+@metered("qpaged_flash_decode", _k5q_cost)
 def qpaged_flash_decode_fwd(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos,
                             kv_valid=None, page_size: int = 16
                             ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -25,6 +25,8 @@ import functools
 
 import torch
 
+from neuronx_distributed_tpu_torch.observability.programs import metered
+
 from neuronx_distributed_tpu_torch.kernels.flash_decode import (
     paged_read_pages_leaf_dequant,
     quantize_page_block,
@@ -99,6 +101,14 @@ def _kernel_call(k_pool, v_pool, k_scale, v_scale, pages, w0, k, v) -> None:
     _build.check(err, "window_requantize_fwd")
 
 
+def _qw_cost(k_pool, v_pool, k_scale, v_scale, pages, w0, k, v):
+    """QW's count for the program ledger, on shapes: the new rows read, each
+    window page's codes and scale read and written, K and V."""
+    page = k_pool[0].numel() * k_pool.element_size() + k_scale[0].numel() * k_scale.element_size()
+    return 0.0, (k.numel() + v.numel()) * k.element_size() + 2 * 2 * pages.numel() * page
+
+
+@metered("window_requantize", _qw_cost)
 def window_requantize_fwd(k_pool, v_pool, k_scale, v_scale, pages, w0, k, v) -> None:
     """The write of :func:`window_requantize_plain`, in place. CUDA tensors
     launch QW (int8 pools, bf16 scales and rows, head_dim 128, page_size at

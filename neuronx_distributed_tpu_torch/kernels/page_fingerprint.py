@@ -28,6 +28,8 @@ from typing import Sequence
 
 import torch
 
+from neuronx_distributed_tpu_torch.observability.programs import metered
+
 FINGERPRINT_SEED = 0x9E3779B9
 FINGERPRINT_PRIME = 0x01000193
 _MASK = 0xFFFFFFFF
@@ -126,6 +128,15 @@ def _kernel_call(leaves, page_ids, layer_order) -> torch.Tensor:
     return out
 
 
+def _pf_cost(leaves, page_ids, layer_order):
+    """PF's count for the program ledger: each page of each leaf read
+    once (integer work: no FLOPs)."""
+    n = page_ids.numel()
+    return 0.0, sum(n * leaf.shape[0] * leaf[0, 0].numel() * leaf.element_size()
+                    for leaf in leaves) + 8 * n
+
+
+@metered("page_fingerprint", _pf_cost)
 def pool_pages_fingerprint_fwd(leaves: Sequence[torch.Tensor], page_ids: torch.Tensor,
                                layer_order: Sequence[int]) -> torch.Tensor:
     """The fingerprints of :func:`pool_pages_fingerprint_plain`. CUDA

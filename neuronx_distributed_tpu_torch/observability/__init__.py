@@ -2,5 +2,6 @@
 ``neuronx_distributed_tpu/observability``): the metrics registry
 (``registry.py``), SLO attainment and goodput (``slo.py``), request-scoped
 tracing (``tracing.py``), the speculative acceptance recorder
-(``spec_stats.py``), the flight recorder (``flight_recorder.py``) and the
-HBM ledger (``hbm.py``)."""
+(``spec_stats.py``), the flight recorder (``flight_recorder.py``), the
+HBM ledger (``hbm.py``), the program ledger (``programs.py``) and the
+profiler window (``profiler.py``)."""

@@ -1,6 +1,7 @@
 """The HBM ledger: static residents reconciled against the device's memory
-(counterpart of ``neuronx_distributed_tpu/observability/hbm.py``, with
-``UNAVAILABLE`` and ``weak_reader`` of ``observability/programs.py``).
+(counterpart of ``neuronx_distributed_tpu/observability/hbm.py``; its
+``UNAVAILABLE`` and ``weak_reader`` come from ``observability/programs.py``,
+as JAX's do).
 
 The serving engine knows which big allocations it owns (the weights, the
 page pool or the row cache, the slot state, the draft's, the prefix store's
@@ -21,35 +22,15 @@ ledger reports on a backend without memory stats; resident accounting and a
 
 from __future__ import annotations
 
-import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from neuronx_distributed_tpu_torch.observability.programs import UNAVAILABLE, weak_reader
 from neuronx_distributed_tpu_torch.observability.registry import MetricsRegistry, MetricsView
 
 __all__ = ["HBMLedger", "tree_nbytes", "UNAVAILABLE", "weak_reader"]
-
-UNAVAILABLE = "unavailable"
-
-
-def weak_reader(target, fn, default=0):
-    """A lazy read over a WEAK reference to ``target``: ``fn(target)``, or
-    ``default`` when the target is gone or the value is not a number (JAX
-    ``programs.weak_reader``). A ledger or registry kept for a last scrape
-    never pins a retired engine."""
-    ref = weakref.ref(target)
-
-    def read():
-        obj = ref()
-        if obj is None:
-            return default
-        v = fn(obj)
-        return v if isinstance(v, (int, float)) else default
-
-    return read
-
 
 def tree_nbytes(tree) -> int:
     """Bytes of every tensor in a tree of dicts, lists and tuples (metadata

@@ -256,15 +256,35 @@ re-homed request keeps its rid; ``page_pressure()`` and
 each context in with ``admit_staged``, a page-table mapping written in
 place into the tensors the captured step reads.
 
-Left out of this slice, each refused with ``NotImplementedError`` rather
-than silently ignored: ``flip_bits(target="params")``; ``profile_dir=``;
-``program_ledger=`` (``observability/programs.py``); tp/mesh.
+Integrity and program observability (JAX ``engine.py:795-808``, ``:1847``,
+``:2073``, ``:2153``, ``:3140-3162``): ``integrity_fingerprint()`` is TF
+over ``integrity_leaves()`` (every tensor the engine serves), the router's
+vote evidence, one 8-byte read a probe; ``FaultInjector.flip_bits("params")``
+flips one of those bits in place at a ``step()``. Every program the engine
+dispatches is wrapped in a program ledger (``self.programs``;
+``program_ledger=`` shares one): ``decode_chunk`` or ``spec_decode_chunk``
+(a dispatch a step or round; the capture is its compile), ``prefill[N]``
+and ``draft_prefill[N]`` by padded length, ``suffix_prefill``,
+``first_token``, ``slot_write``, ``slot_clear``, ``prefix_extract``,
+``prefix_seed``, ``prefix_fingerprint``, ``pages_fingerprint`` and
+``integrity_fingerprint``; each chunk feeds its wall
+(``observe_wall``), and ``metrics.snapshot()["programs"]`` and a halt's
+post-mortem carry it. ``profile_dir=`` opens a ``torch.profiler`` window
+over decode chunks [2, 5). ``manifest()``, ``save_aot(dir)`` and
+``prewarm(manifest=, cache_dir=)`` carry the programs and the kernel
+libraries to a replica spawned later. None of it reads the device: host
+reads stay a chunk's one and a fresh request's first token.
+
+Not served: tp/mesh (``ROADMAP.md`` item 9).
 """
 
 from __future__ import annotations
 
 import enum
+import gc
+import os
 import time
+import weakref
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -289,7 +309,8 @@ from neuronx_distributed_tpu_torch.modules.attention import (
     seed_cache_prefix,
 )
 from neuronx_distributed_tpu_torch.observability.flight_recorder import FlightRecorder
-from neuronx_distributed_tpu_torch.observability.hbm import HBMLedger, tree_nbytes, weak_reader
+from neuronx_distributed_tpu_torch.observability.hbm import HBMLedger, tree_nbytes
+from neuronx_distributed_tpu_torch.observability.programs import ProgramLedger, weak_reader
 from neuronx_distributed_tpu_torch.observability.tracing import RequestTracer
 from neuronx_distributed_tpu_torch.quantization.utils import (
     is_quantized_state_dict,
@@ -454,6 +475,67 @@ def _prefix_bucket(p: int, max_seq_len: int) -> int:
     return min(max(1, 1 << max(p - 1, 0).bit_length()), max_seq_len)
 
 
+def _weight_leaves(model) -> List[torch.Tensor]:
+    """A model's state-dict tensors, each storage once (a tied weight
+    appears under two names), in state-dict order."""
+    seen, out = set(), []
+    for t in model.state_dict().values():
+        key = (t.untyped_storage().data_ptr(), t.storage_offset(), t.numel())
+        if key not in seen:
+            seen.add(key)
+            out.append(t)
+    return out
+
+
+def weight_storages(model) -> set:
+    """The storage addresses behind a model's served weights (its
+    state-dict tensors; non-persistent buffers such as the RoPE table,
+    which a quantized copy shares with its float source, are no weights)."""
+    return {t.untyped_storage().data_ptr() for t in _weight_leaves(model)
+            if t.untyped_storage().nbytes()}
+
+
+def _weak(method):
+    """A bound method as a function that holds its object weakly: the
+    engine's ledgered programs must not put the engine in a reference cycle,
+    or a dropped engine's pool waits for the cycle collector."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args, **kwargs):
+        return ref()(*args, **kwargs)
+
+    call.__name__ = method.__name__
+    return call
+
+
+# the live engines serving each module (weak on both sides): a params flip
+# is refused where another engine serves the same weights
+_SERVING: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _claim_weights(engine, injector) -> None:
+    """Register ``engine`` as serving its model; refuse (``ValueError``) a
+    ``flip_bits("params")`` schedule on weights another live engine serves,
+    and a second engine over weights a params-flipping engine serves: the
+    flip would corrupt every engine at once, so no vote could see it."""
+    engines = _SERVING.setdefault(engine.model, weakref.WeakSet())
+    flips = injector is not None and injector.flips_params
+
+    def conflict() -> bool:
+        others = [e for e in engines if not e._halted]
+        return bool(others) and (flips or any(e._faults is not None and e._faults.flips_params
+                                              for e in others))
+
+    if conflict():
+        gc.collect()  # the conflict may be an engine gone but waiting in a reference cycle
+        if conflict():
+            raise ValueError("flip_bits('params') needs an engine whose weights no other live "
+                             "engine serves (the flip lands in place and would corrupt them "
+                             "all): give each engine its own module (copy.deepcopy), or "
+                             "quantize=, which owns its tensors")
+    engines.add(engine)
+
+
 class ServingEngine:
     """Slot-based continuous batching over a causal LM whose weights live on
     its device (``model.device``); every tensor the engine makes lives there
@@ -510,12 +592,6 @@ class ServingEngine:
             raise ValueError("kv_num_pages needs kv_page_size")
         if kv_page_size is None and kv_host_pages is not None:
             raise ValueError("kv_host_pages needs kv_page_size")
-        for name, value, why in (
-                ("program_ledger", program_ledger, "observability/programs.py is not ported"),
-                ("profile_dir", profile_dir, "observability/profiler.py is not ported")):
-            if value is not None:
-                raise NotImplementedError(f"{name}= is not served yet: {why} (ROADMAP.md, "
-                                          "queue 1, item 10c)")
         if decode_chunk_size < 1:
             raise ValueError(f"decode_chunk_size must be >= 1, got {decode_chunk_size}")
         if draft_model is not None:
@@ -606,6 +682,28 @@ class ServingEngine:
         self._prefetch_index = 0  # prefetch attempts (the chaos hook's index)
         self.metrics = ServingMetrics(num_slots, registry=registry, engine_label=engine_label,
                                       slo=slo)
+        # every program the engine dispatches registers in a program ledger
+        # (JAX engine.py:795-808): dispatches, compiles (new signatures and
+        # graph captures), cost per variant (metered at a capture or a
+        # prewarm replay, never inside a request), walls; pass
+        # program_ledger= to share one, else one rides the engine's view
+        self.programs = (program_ledger if program_ledger is not None else ProgramLedger(
+            view=self.metrics.view, prefix="serving", subsystem="serving", timeline=timeline,
+            device=self.device))
+        self.metrics.attach_programs(self.programs)
+        self._prefill_fns: Dict[int, Any] = {}
+        self._draft_prefill_fns: Dict[int, Any] = {}
+        self._suffix_fn = self.programs.wrap("suffix_prefill", _weak(self._suffix_call))
+        self._first_token = self.programs.wrap("first_token", sample_row)
+        self._slot_write = self.programs.wrap("slot_write", _weak(self._write_slot_row))
+        self._slot_clear = self.programs.wrap("slot_clear", _weak(self._clear_slot_row))
+        self._extract_fn = self.programs.wrap("prefix_extract", extract_cache_prefix)
+        self._seed_fn = self.programs.wrap("prefix_seed", seed_cache_prefix)
+        self._fingerprint_fn = self.programs.wrap("prefix_fingerprint", cache_fingerprint)
+        self._pages_fp_fn = self.programs.wrap("pages_fingerprint", _weak(self._pages_fp_call))
+        # profile_dir= profiles decode chunks [2, 5) (JAX engine.py:3140-3162)
+        self._profile_dir = profile_dir
+        self._profiler = None
         # the SLO policy reads the metrics, the prefix store and the cache's
         # host tables (FIFO ignores the engine)
         self.policy.bind(self)
@@ -660,9 +758,14 @@ class ServingEngine:
             self._chunk = speculative_chunk(
                 self._decode_model, draft_decode, decode_chunk_size, self.gamma,
                 self.max_seq_len, self.cache.cache, self.draft_cache.cache, self._state)
+        self._chunk.program = self.programs.wrap(self._chunk_name, self._chunk.program)
         # a speculative engine's plain step, built at its first fallback
         self._plain_chunk = None
         self.host_reads = 0
+        self._steps_seen = 0  # step() calls (the params-flip hook's index)
+        self.last_prewarm = None  # the report of the last manifest prewarm
+        self._integrity_fp = None  # TF over integrity_leaves(), built at the first probe
+        _claim_weights(self, fault_injector)
         self.hbm = self._ledger()
 
     def _ledger(self) -> HBMLedger:
@@ -806,22 +909,180 @@ class ServingEngine:
         if self._plain_chunk is None:
             self._plain_chunk = decode_chunk(self._decode_model, self.decode_chunk_size,
                                              self.max_seq_len, self.cache.cache, self._state)
+            self._plain_chunk.program = self.programs.wrap("decode_chunk",
+                                                           self._plain_chunk.program)
         return self._plain_chunk
 
-    def prewarm(self) -> float:
-        """Capture the decode program now, on an idle engine, so that no
-        request waits for it (the counterpart of ``aot.prewarm_programs``):
-        the capture's warm-up runs one masked no-op step at the rewound
-        cursor and leaves no trace. Returns the capture's wall seconds (0 on
-        the CPU or when already captured), also recorded in the metrics."""
+    @property
+    def _chunk_name(self) -> str:
+        """The decode program's ledger name (JAX's)."""
+        return "decode_chunk" if self.draft_model is None else "spec_decode_chunk"
+
+    def _prefill_fn(self, padded: int, draft: bool = False):
+        """The ledgered eager prefill at padded length ``padded`` (JAX
+        ``prefill[N]`` and ``draft_prefill[N]``): ``(ids, row, mask) ->
+        logits`` of the last position."""
+        fns = self._draft_prefill_fns if draft else self._prefill_fns
+        fn = fns.get(padded)
+        if fn is None:
+            model = self._draft_prefill_model if draft else self._prefill_model
+
+            def prefill(ids, row, mask):
+                return model(ids, cache=row, padding_mask=mask, last_only=True)
+
+            fn = fns[padded] = self.programs.wrap(
+                f"{'draft_' if draft else ''}prefill[{padded}]", prefill)
+        return fn
+
+    def _suffix_call(self, row, ids, n):
+        return suffix_prefill_step(self._decode_model, row, ids, n)
+
+    def _write_slot_row(self, slot, tok, seed, ntok, active, remaining, temp, topk, topp, eos):
+        """A slot's device state written at admission (JAX ``slot_write``):
+        in place, the captured step reads these buffers."""
+        for name, value in (("tok", tok), ("seed", seed), ("ntok", ntok), ("active", active),
+                            ("remaining", remaining), ("temp", temp), ("topk", topk),
+                            ("topp", topp), ("eos", eos)):
+            self._state[name][slot] = value
+
+    def _clear_slot_row(self, slot):
+        """A released slot's device ``active`` flag cleared in place (JAX
+        ``slot_clear``)."""
+        self._state["active"][slot] = False
+
+    def _pages_fp_call(self, page_ids):
+        return pool_pages_fingerprint(self.cache.cache, page_ids)
+
+    def prewarm(self, manifest=None, cache_dir: Optional[str] = None):
+        """With no argument: capture the decode program now, on an idle
+        engine, so that no request waits for it; the capture's warm-up runs
+        one masked no-op step at the rewound cursor and leaves no trace.
+        Returns the capture's wall seconds (0 on the CPU or when already
+        captured), also recorded in the metrics.
+
+        With ``manifest`` (a :class:`~neuronx_distributed_tpu_torch.
+        inference.aot.ProgramManifest`, or a path) or ``cache_dir`` (a
+        directory holding ``manifest.json`` and kernel libraries,
+        :meth:`save_aot`), JAX's ``prewarm`` (``engine.py:2153``): the
+        manifest's kernel libraries loaded from ``cache_dir`` (or built;
+        ``SkewError`` when their source hash is not this tree's), then every
+        manifest program replayed once on dummies under the ledger's
+        ``prewarming()``: the decode step captured, each prefill bucket and
+        the other programs dispatched at their recorded signatures. The
+        caches and the slot state are reset after. Returns (and keeps as
+        ``last_prewarm``) the report of
+        ``inference/aot.prewarm_programs`` (``deserialized`` always empty:
+        a CUDA graph cannot be serialized). JAX's ``mode=`` has no
+        counterpart: replaying is the port's one rung."""
         if self._active.any():
-            raise ValueError("prewarm captures on an idle engine; slots are active")
-        if self.cache.cursor > 0:
+            raise ValueError("prewarm runs on an idle engine; slots are active")
+        if manifest is None and cache_dir is None:
+            if self.cache.cursor > 0:
+                self._reset_caches()
+            seconds = self.decode_program.capture()
+            if seconds:
+                self.metrics.record_capture(seconds)
+            return seconds
+        from neuronx_distributed_tpu_torch.inference import aot
+
+        if manifest is None:
+            manifest = aot.ProgramManifest.load(cache_dir)
+        elif isinstance(manifest, (str, os.PathLike)):
+            manifest = aot.ProgramManifest.load(os.fspath(manifest))
+        self._reset_caches()
+        try:
+            report = aot.prewarm_programs(manifest, self._aot_resolve, ledger=self.programs,
+                                          cache_dir=cache_dir, flight=self.flight,
+                                          device=self.device)
+        finally:
             self._reset_caches()
-        seconds = self.decode_program.capture()
-        if seconds:
-            self.metrics.record_capture(seconds)
-        return seconds
+            self._reset_slot_state()
+        self.last_prewarm = report
+        captured = self.decode_program.capture_s if self.decode_compilations else 0.0
+        if captured and "decode_chunk" in report["compiled"] + report["replayed"]:
+            self.metrics.record_capture(captured)
+        return report
+
+    def manifest(self):
+        """The :class:`~neuronx_distributed_tpu_torch.inference.aot.
+        ProgramManifest` of every program this engine has dispatched (JAX
+        ``manifest``, ``engine.py:2073``): the prewarm input of a replica
+        spawned later."""
+        return self.programs.manifest()
+
+    def save_aot(self, cache_dir: str) -> dict:
+        """Write this engine's warm-spawn bundle into ``cache_dir``: its
+        ``manifest.json`` and the kernel libraries the process loaded.
+        Returns ``{"manifest": path, "kernels": [file names]}``."""
+        from neuronx_distributed_tpu_torch.inference import aot
+
+        os.makedirs(cache_dir, exist_ok=True)
+        return {"manifest": self.manifest().save(cache_dir), "kernels": aot.save_kernels(cache_dir)}
+
+    def _aot_resolve(self, name: str):
+        """The replay callable of a manifest program, None when this engine
+        has no such program: the ledger proxy itself where the recorded
+        arguments are tensors and scalars, a replayer that admits a scratch
+        slot for one with a cache view (the prefills), the capture for the
+        decode programs. Prefix extract, seed and fingerprint take a stored
+        entry and are not replayed (``UnportableError``)."""
+        import re
+
+        from neuronx_distributed_tpu_torch.inference.aot import UnportableError
+
+        if name in ("prefix_extract", "prefix_seed", "prefix_fingerprint"):
+            raise UnportableError("runs on a stored prefix entry: first dispatched at the first hit")
+
+        if name == self._chunk_name:
+            prog = self._chunk.program
+        elif name == "decode_chunk" and self.draft_model is not None:
+            prog = self._plain_step_chunk().program
+        else:
+            prog = None
+        if prog is not None:
+            def capture(*args, **kwargs):
+                prog.capture()
+
+            capture._record = prog._record
+            return capture
+        m = re.fullmatch(r"(draft_)?prefill\[(\d+)\]", name)
+        if m is not None:
+            draft, padded = bool(m.group(1)), int(m.group(2))
+            if draft and self.draft_model is None:
+                return None
+            fn = self._prefill_fn(padded, draft=draft)
+            mgr = self.draft_cache if draft else self.cache
+            return self._scratch_replayer(fn, mgr, padded)
+        if name == "suffix_prefill":
+            def suffix(row, ids, n):
+                self._scratch_replayer(self._suffix_fn, self.cache, ids.shape[1])(row, ids, n)
+
+            suffix._record = self._suffix_fn._record
+            return suffix
+        fixed = {"first_token": self._first_token, "slot_write": self._slot_write,
+                 "slot_clear": self._slot_clear, "pages_fingerprint": self._pages_fp_fn}
+        if name in fixed:
+            return fixed[name]
+        if name == "integrity_fingerprint":
+            return self._integrity_program()
+        return None
+
+    def _scratch_replayer(self, fn, mgr, padded: int):
+        """A replayer of ``fn`` whose recorded row argument was a cache view:
+        slot 0 admitted at ``padded`` columns, ``fn`` called with the view
+        in place of the stand-in, the slot freed (the caller resets the
+        caches)."""
+
+        def replay(*args):
+            kw = {} if self._page_size is None else {"p": padded}
+            row = mgr.admit(0, padded, cursor=padded if self._page_size is None else None, **kw)
+            try:
+                fn(*[row if type(a).__name__ == "Opaque" else a for a in args])
+            finally:
+                mgr.free(0)
+
+        replay._record = fn._record
+        return replay
 
     def _host_read(self, t: torch.Tensor) -> np.ndarray:
         """THE device→host read of the engine (the ``jax.device_get`` of the
@@ -883,6 +1144,7 @@ class ServingEngine:
             self._reset_slot_state()
         if self.prefix is not None:
             self.prefix.release_all()
+        self._stop_profile()
         self._halted = True
         self._halt_reason = reason
         if self.timeline is not None:
@@ -897,9 +1159,11 @@ class ServingEngine:
             # redaction keeps them), not nested in the metrics snapshot
             snap = self.metrics.snapshot()
             snap.pop("hbm", None)
+            snap.pop("programs", None)
             extra = {"requeued": len(requeued), "metrics": snap,
                      "tenant_queue_depths": self.scheduler.queued_by_tenant(),
-                     "hbm": self.hbm.halt_summary()}
+                     "hbm": self.hbm.halt_summary(),
+                     "programs": self.programs.halt_summary()}
             if self.tier is not None:
                 # where the spill tier stood (JAX engine.py:1982-1985)
                 extra["kv_host_tier"] = self.tier.summary()
@@ -1108,6 +1372,35 @@ class ServingEngine:
         stream (after the round's replays)."""
         for t, clean in zip(self._draft_floats(), self._draft_clean):
             t.copy_(clean)
+
+    # --- integrity ------------------------------------------------------------
+
+    def integrity_leaves(self) -> List[torch.Tensor]:
+        """Every tensor the engine serves, each storage once, in the served
+        model's state-dict order: a quantized engine's codes, scales,
+        embedding and norms, a float engine's parameters (the caller's
+        module). The fingerprint's and the params flip's fixed order."""
+        return _weight_leaves(self.model)
+
+    def integrity_fingerprint(self) -> int:
+        """The uint32 fingerprint of the served weights (JAX
+        ``integrity_fingerprint``, ``engine.py:1847``), the router's
+        cross-replica evidence: weights only (the K/V and slot state differ
+        with each replica's traffic). TF over :meth:`integrity_leaves`,
+        launched on the engine's stream between chunks (never inside the
+        captured step), its tables built at the first probe; one 8-byte
+        host read a probe, counted in ``host_reads``. Registered in the
+        program ledger as ``integrity_fingerprint``."""
+        return int(self._host_read(self._integrity_program()()))
+
+    def _integrity_program(self):
+        """The ledgered TF over :meth:`integrity_leaves`, built once."""
+        if self._integrity_fp is None:
+            from neuronx_distributed_tpu_torch.kernels.tree_fingerprint import TreeFingerprint
+
+            self._integrity_fp = self.programs.wrap(
+                "integrity_fingerprint", TreeFingerprint(self.integrity_leaves()))
+        return self._integrity_fp
 
     # --- fence, adopt, warm restart -----------------------------------------
 
@@ -1394,6 +1687,13 @@ class ServingEngine:
         records no autograd graph here."""
         if self._halted:
             return self.has_work
+        if self._faults is not None and self._faults.flips_params:
+            # chaos: a scheduled silent bit flip lands in the served weights
+            # here, in place (JAX engine.py:2253-2262): every program after
+            # this step reads the corrupted tensor, as real HBM rot, until the
+            # router's fingerprint vote fences the replica
+            self._faults.on_engine_params(self._steps_seen, self.integrity_leaves)
+        self._steps_seen += 1
         now = self._now()
         self._reap_cancelled(now)
         self._shed_expired(now)
@@ -1417,6 +1717,8 @@ class ServingEngine:
             self.timeline.counter("slots_active", int(self._active.sum()), "serving")
             self.timeline.counter("queue_depth", self.scheduler.queued, "serving")
         self._sync_health()
+        if self._profiler is not None and not self.has_work:
+            self._stop_profile()  # idle before chunk 5: close the window with what it saw
         return self.has_work
 
     def run(self, max_steps: int = 1_000_000) -> Dict[int, Request]:
@@ -1743,14 +2045,13 @@ class ServingEngine:
             self._faults.on_prefill(call)
         if plan is None:
             ids, mask = pack_padded_prompt(ctx, padded)
-            logits = unwrap_logits(self._prefill_model(
-                torch.from_numpy(ids).to(self.device, torch.int64), cache=row,
-                padding_mask=torch.from_numpy(mask).to(self.device), last_only=True,
-            ))[0, -1]
+            logits = unwrap_logits(self._prefill_fn(padded)(
+                torch.from_numpy(ids).to(self.device, torch.int64), row,
+                torch.from_numpy(mask).to(self.device)))[0, -1]
         else:
             entry, m_use, chunk = plan
             start = padded - p  # the context's first column in the view
-            seed_cache_prefix(row, entry.tree, m_use, start)
+            self._seed_fn(row, entry.tree, m_use, start)
             if self._page_size is not None:
                 # the suffix chunk writes past the shared pages, never on one
                 c0 = target - p + m_use
@@ -1761,14 +2062,14 @@ class ServingEngine:
                 logits = self._suffix_prefill_dequantized(row, entry, m_use, chunk, ids,
                                                           p, start)
             else:
-                logits = suffix_prefill_step(self._decode_model, row, ids, p - m_use)
+                logits = self._suffix_fn(row, ids, p - m_use)
         if self.draft_cache is not None:
             # the draft context always full-prefills, on a prefix hit too:
             # prefix entries hold target KV only
             ids, mask = pack_padded_prompt(ctx, padded)
-            self._draft_prefill_model(
-                torch.from_numpy(ids).to(self.device, torch.int64), cache=d_row,
-                padding_mask=torch.from_numpy(mask).to(self.device), last_only=True)
+            self._prefill_fn(padded, draft=True)(
+                torch.from_numpy(ids).to(self.device, torch.int64), d_row,
+                torch.from_numpy(mask).to(self.device))
         return logits, m_shared, row
 
     def _suffix_prefill_dequantized(self, row, entry, m_use: int, chunk: int, ids, p: int,
@@ -1784,7 +2085,7 @@ class ServingEngine:
         ps = self._page_size
         frow = self.cache.cache.dequantized_row(entry.page_ids[:m_use // ps], m_use,
                                                 m_use + chunk)
-        logits = suffix_prefill_step(self._decode_model, frow, ids, p - m_use)
+        logits = self._suffix_fn(frow, ids, p - m_use)
         n = p - m_use
         tail = row.view(slice(None), start + m_use)
         tail._address(tail._cols[:n])
@@ -1875,7 +2176,7 @@ class ServingEngine:
         bit. Both scalars ride one host read."""
         if tuple(tuple(t.shape) for t in prefix_leaves(entry.tree)) != entry.shapes:
             return False
-        now, stored = self._host_read(torch.stack([cache_fingerprint(entry.tree),
+        now, stored = self._host_read(torch.stack([self._fingerprint_fn(entry.tree),
                                                    entry.fingerprint]))
         return bool(now == stored)
 
@@ -1884,7 +2185,7 @@ class ServingEngine:
         pages (JAX ``_validate_pages``, ``engine.py:3038``): their
         fingerprints recomputed (PF on the card) and compared bit for bit
         with the insert-time record; the two vectors ride one host read."""
-        now = pool_pages_fingerprint(self.cache.cache, entry.page_ids[:n_pages])
+        now = self._pages_fp_fn(list(entry.page_ids[:n_pages]))
         cur, stored = self._host_read(torch.stack([now, entry.page_fp[:n_pages]]))
         return bool(np.array_equal(cur, stored))
 
@@ -1903,8 +2204,8 @@ class ServingEngine:
         if self.prefix.covers(key):
             return
         bucket = _prefix_bucket(p, self.max_seq_len)
-        tree = extract_cache_prefix(row, padded - p, p, bucket)
-        _, evicted = self.prefix.insert(key, tree, cache_fingerprint(tree), bucket)
+        tree = self._extract_fn(row, padded - p, p, bucket)
+        _, evicted = self.prefix.insert(key, tree, self._fingerprint_fn(tree), bucket)
         if evicted:
             self.metrics.record_prefix_eviction(evicted)
             if self.timeline is not None:
@@ -1934,7 +2235,7 @@ class ServingEngine:
         else:
             entry.page_ids = tuple(ids)
             # the pages' content at insert, on the device, read at a hit
-            entry.page_fp = pool_pages_fingerprint(self.cache.cache, ids)
+            entry.page_fp = self._pages_fp_fn(list(ids))
         if evicted:
             self.metrics.record_prefix_eviction(evicted)
             if self.timeline is not None:
@@ -2082,7 +2383,7 @@ class ServingEngine:
             req.admit_time = now
         temp, topk, topp = _config_sentinels(req.config)
         if not req.tokens:
-            tok0 = int(self._host_read(sample_row(logits, req.seed, 0, temp, topk, topp)))
+            tok0 = int(self._host_read(self._first_token(logits, req.seed, 0, temp, topk, topp)))
             self.tracer.step(req.rid, "first_token")
             self._emit_token(req, tok0, self._now(), first=True)
             if req.state is RequestState.CANCELLED:
@@ -2097,11 +2398,9 @@ class ServingEngine:
         req.slot = slot
         self._slot_req[slot] = req
         eos = req.config.eos_token_id
-        row = dict(tok=req.tokens[-1], seed=req.seed, ntok=len(req.tokens), active=True,
-                   remaining=req.remaining_new_tokens, temp=temp, topk=topk, topp=topp,
-                   eos=eos if eos is not None else -1)
-        for name, value in row.items():
-            self._state[name][slot] = value
+        self._slot_write(slot, req.tokens[-1], req.seed, len(req.tokens), True,
+                         req.remaining_new_tokens, temp, topk, topp,
+                         eos if eos is not None else -1)
         self._active[slot] = True
         # born finished: max_new_tokens == 1, or EOS as the first token
         self._maybe_finish(req, now)
@@ -2161,12 +2460,15 @@ class ServingEngine:
         start = self.cache.cursor
         prog = chunk.program
         captured, replays, started = prog.captures, prog.replays, chunk.iterations
+        compiles = prog._record.compiles
+        self._maybe_profile()
         attempt = self._dispatch_attempts
         self._dispatch_attempts += 1
         tl = self.timeline
         if tl is not None:
             tl.mark_event_start("decode_dispatch", "serving")
         t0 = self._clock()
+        w0 = time.perf_counter()
         poisoned = False
         try:
             try:
@@ -2183,6 +2485,7 @@ class ServingEngine:
                     tl.mark_event_end("decode_dispatch", "serving")
                     tl.mark_event_start("decode_readback", "serving")
                 block = self._host_read(chunk.readout())
+                wall = time.perf_counter() - w0
             finally:
                 if poisoned:
                     self._heal_draft()
@@ -2200,6 +2503,11 @@ class ServingEngine:
                 self._recover_dispatch(e, untouched)
             return
         t2 = self._clock()
+        if executed and prog._record.compiles == compiles:
+            # the roofline feed (JAX engine.py:3342, :3511): the chunk's
+            # dispatch-and-read wall a step or round; a compiling chunk's
+            # wall would pollute it
+            self.programs.observe_wall(prog._record.name, wall, dispatches=executed)
         self._consecutive_dispatch_failures = 0
         self._chunks_since_failure += 1
         capture_s = prog.capture_s if prog.captures > captured else 0.0
@@ -2273,6 +2581,36 @@ class ServingEngine:
                                          spec_accepts=spec_accepts, gamma=g)
 
     # --- faults -------------------------------------------------------------
+
+    def _maybe_profile(self) -> None:
+        """``profile_dir=``: a ``torch.profiler`` window over decode chunks
+        [2, 5) (JAX ``_maybe_profile``, ``engine.py:3140-3162``): past the
+        capture, bounded so an unattended server never grows a trace. A
+        window that cannot start (another one live, an unwritable
+        directory) records ``profile_start_failed`` and disables profiling;
+        it never fails a request."""
+        if self._profile_dir is None:
+            return
+        chunks = self.metrics.chunks
+        if self._profiler is None and chunks == 2:
+            from neuronx_distributed_tpu_torch.observability.profiler import ProfileWindow
+
+            window = ProfileWindow(self._profile_dir)
+            try:
+                window.start()
+            except (RuntimeError, OSError) as e:
+                self._profile_dir = None
+                if self.flight is not None:
+                    self.flight.record("profile_start_failed", error=str(e))
+                return
+            self._profiler = window
+        elif self._profiler is not None and chunks >= 5:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        window, self._profiler = self._profiler, None
+        if window is not None:
+            window.stop()
 
     def _recover_dispatch(self, exc: Exception, untouched: bool) -> None:
         """A decode dispatch FAILED (JAX ``_recover_dispatch``,
@@ -2468,7 +2806,7 @@ class ServingEngine:
         req.slot = None
         self._slot_req[slot] = None
         self._active[slot] = False
-        self._state["active"][slot] = False
+        self._slot_clear(slot)
         for mgr in self._managers:
             mgr.free(slot)
         if req.finished:

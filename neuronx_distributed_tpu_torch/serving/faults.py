@@ -72,17 +72,21 @@ Injection points (every index 0-based and deterministic):
   the message's deadline times out) and ``partition(target)`` (every send
   to ``target`` in the window fails; ``times=None``: for good).
 
-Not ported yet, raising ``NotImplementedError`` that names its
-``ROADMAP.md`` item: ``flip_bits(target="params")`` (its oracles, the
-router's fingerprint vote and the trainer sentinel, need
-``tree_fingerprint``; item 10c).
+* ``flip_bits(target="params", at=k, times=t)``: silent weight corruption:
+  at the k-th..(k+t-1)-th engine ``step()`` calls ONE low-order bit of the
+  engine's first weight tensor (in its fixed integrity order) is flipped IN
+  PLACE on the device (``integrity/chaos.py``; JAX binds a flipped copy,
+  the port's captured programs read fixed addresses). Liveness probes see
+  nothing; the router's fingerprint vote must. An engine whose weights
+  another engine also serves refuses the schedule (``ValueError``): the
+  flip would corrupt both, and no vote could see it.
 
 ``counters`` records every fault actually fired, under the JAX package's
 names, so chaos tests can assert that the schedule ran."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -118,10 +122,6 @@ class InjectedHandoffError(InjectedFault):
     coupled prefill of the request on the decode engine."""
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md, queue 1, {item})")
-
-
 class FaultInjector:
     """Schedule-driven fault source consulted by ``ServingEngine`` hooks."""
 
@@ -134,6 +134,7 @@ class FaultInjector:
         self._draft_dispatch_windows: List[Tuple[int, Optional[int]]] = []
         self._page_poisons: Dict[int, List[int]] = {}  # readback -> [slot]
         self._pool_flip_windows: List[Tuple[int, Optional[int]]] = []
+        self._params_flip_windows: List[Tuple[int, Optional[int]]] = []
         self._spill_windows: List[Tuple[int, Optional[int]]] = []
         self._prefetch_windows: List[Tuple[int, Optional[int]]] = []
         self._host_page_windows: List[Tuple[int, Optional[int]]] = []
@@ -193,17 +194,24 @@ class FaultInjector:
         return self
 
     def flip_bits(self, target: str, at: int = 0, times: Optional[int] = 1) -> "FaultInjector":
-        """Single-bit SILENT corruption. ``target="kv_pool"`` flips one bit
-        of the first pool page the ``at``-th prefix reuse attempts map,
-        before validation (the per-page fingerprint check's model);
-        ``"params"`` (the weights) is not ported yet."""
+        """Single-bit SILENT corruption (JAX ``flip_bits``). ``"params"``
+        flips one low-order bit of the engine's weights in place at the
+        ``at``-th..(at+times-1)-th ``step()`` calls (the router vote's
+        model); ``"kv_pool"`` flips one bit of the first pool page the
+        ``at``-th prefix reuse attempts map, before validation (the
+        per-page fingerprint check's model)."""
         if target == "params":
-            _not_ported('flip_bits(target="params")',
-                        "item 10c (its oracles need tree_fingerprint)")
-        if target != "kv_pool":
+            self._params_flip_windows.append(self._window(at, times))
+        elif target == "kv_pool":
+            self._pool_flip_windows.append(self._window(at, times))
+        else:
             raise ValueError(f"flip_bits target must be params|kv_pool, got {target!r}")
-        self._pool_flip_windows.append(self._window(at, times))
         return self
+
+    @property
+    def flips_params(self) -> bool:
+        """Whether the schedule holds a ``flip_bits("params")``."""
+        return bool(self._params_flip_windows)
 
     def skew_clock(self, by: float, after: Optional[float] = None) -> "FaultInjector":
         self._skew = by
@@ -430,6 +438,21 @@ class FaultInjector:
                 self.counters["delayed_sends"] += 1
                 return ("delay", by)
         return None
+
+    def on_engine_params(self, step: int, leaves: Callable[[], list]) -> bool:
+        """Called with the 0-based engine ``step()`` index and a callable
+        giving the engine's weight tensors in its fixed integrity order (JAX
+        ``on_engine_params``, ``faults.py:536``), called only when a
+        ``flip_bits("params")`` window hits: then ONE low-order bit of the
+        first tensor is flipped in place (numerically near-invisible
+        corruption only a bit-level fingerprint sees) and True returned."""
+        if not self._hit(self._params_flip_windows, step):
+            return False
+        from neuronx_distributed_tpu_torch.integrity.chaos import flip_tree_bit
+
+        flip_tree_bit(leaves())
+        self.counters["bit_flips"] += 1
+        return True
 
     def on_prefix_reuse(self, reuse: int, entry, cache=None) -> None:
         """Called with the 0-based prefix REUSE-attempt index, the matched

@@ -175,6 +175,7 @@ class ServingMetrics:
         self._f_hit_tier = view.family("counter", "serving_prefix_hit_tier", labels=("tier",),
                                        help="prefix hits by residency tier of the matched entry")
         self._hbm_ref = None
+        self._programs_ref = None
         self._g_cursor = view.gauge("serving_cursor_high_water",
                                     help="highest shared cache cursor seen")
         self._g_peak_occupancy = view.gauge("serving_peak_occupancy",
@@ -442,6 +443,12 @@ class ServingMetrics:
         """A host-tier fetch was rejected: a page failed its CRC."""
         self._inc("kv_host_poisoned", n)
 
+    def attach_programs(self, programs) -> None:
+        """Wire the engine's program ledger into ``snapshot()["programs"]``
+        (JAX ``attach_device_efficiency``, ``metrics.py:281``; a weak
+        reference: kept metrics never pin a retired engine)."""
+        self._programs_ref = weakref.ref(programs) if programs is not None else None
+
     def attach_hbm(self, hbm) -> None:
         """Wire the engine's HBM ledger into ``snapshot()["hbm"]`` (a weak
         reference: kept metrics never pin a retired engine)."""
@@ -559,6 +566,7 @@ class ServingMetrics:
         wall = self.decode_dispatch_s + self.decode_readback_s
         hits, misses = self.prefix_hits, self.prefix_misses
         hbm = self._hbm_ref() if self._hbm_ref is not None else None
+        programs = self._programs_ref() if self._programs_ref is not None else None
         return {
             "num_slots": self.num_slots,
             "steps": self.steps,
@@ -631,6 +639,9 @@ class ServingMetrics:
             "tpot_p99_s": self._h_tpot.percentile(0.99),
             "queue_wait_p95_s": self._h_queue_wait.percentile(0.95),
             "tenants": self.tenant_snapshot(),
+            # the program ledger (dispatches, compiles, metered cost, walls)
+            # and the HBM ledger: {} when no engine attached them
+            "programs": programs.snapshot() if programs is not None else {},
             "hbm": hbm.snapshot() if hbm is not None else {},
             **({"slo": self.slo.snapshot()} if self.slo is not None else {}),
             **self.spec.snapshot(),

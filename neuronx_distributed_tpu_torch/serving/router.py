@@ -1,6 +1,6 @@
 """Replica router: N serving engines behind one ``submit()`` (counterpart of
 ``neuronx_distributed_tpu/serving/router.py``: ``RID_STRIDE``,
-``WatchdogConfig`` and ``ReplicaRouter``, less the integrity vote).
+``WatchdogConfig`` and ``ReplicaRouter``).
 
 The router is a HOST-side policy layer: it owns no device state and touches
 no hot path.
@@ -29,25 +29,36 @@ no hot path.
   OK -> SUSPECT -> DEGRADED -> DEAD, and recovery climbs one level per
   ``recover_after`` consecutive successes, so a flapping replica is held at
   SUSPECT. DEAD fences the replica and re-homes its work.
+* **Integrity vote** (``WatchdogConfig(integrity_interval_s=)``): every
+  interval the watchdog pass fingerprints every routable replica's weights
+  through the transport (``ServingEngine.integrity_fingerprint``, TF on the
+  card, one 8-byte read a replica) and votes (``integrity/voting.py``): a
+  strict-minority value is silent corruption (the replica answers health
+  probes OK while serving wrong weights) and goes straight to DEAD, fenced
+  and re-homed like a probe death (``tokens_lost == 0``). Two replicas that
+  disagree are detected, recorded, and neither is fenced. The vote needs
+  replicas that hold their own weights: a fleet whose replicas share weight
+  storage is refused, and :meth:`ReplicaRouter.build` gives each replica its
+  own copy (a quantized replica owns its tensors already).
 * **Live join, drain and restart**: :meth:`ReplicaRouter.add_replica` makes
   a replica from the ``build()`` recipe and rebalances queued work onto it;
   :meth:`ReplicaRouter.remove_replica` drains one out;
   :meth:`ReplicaRouter.restart_replica` snapshots a fenced replica's serving
   state, surrenders its queue to the snapshot and restores it on a fresh
-  replica.
+  replica. With ``cache_dir=``/``manifest=`` the new replica is prewarmed
+  (``ServingEngine.prewarm``: every program of a donor's manifest replayed
+  once, the kernels loaded from ``cache_dir``) before it takes work.
 * ``registry=``: the probe-state gauge per replica, the transport's
   counters, and the re-home and restart latency histograms.
 
-On one card the replicas that :meth:`ReplicaRouter.build` makes serve ONE
-module: the weights are held once, each replica has its own cache (pool or
-rows) and its own captured decode step, and a ``params`` swap on one replica
-writes every replica's weights. Not served yet, each refused with
-``NotImplementedError`` naming ``ROADMAP.md`` item 10c: the integrity vote
-(``WatchdogConfig(integrity_interval_s=)``) and the AOT warm spawn
-(``cache_dir=``/``manifest=``)."""
+On one card the replicas that :meth:`ReplicaRouter.build` makes without
+the integrity vote serve ONE module: the weights are held once, each
+replica has its own cache (pool or rows) and its own captured decode step,
+and a ``params`` swap on one replica writes every replica's weights."""
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional
@@ -55,11 +66,13 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 
 from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+from neuronx_distributed_tpu_torch.integrity.voting import vote
 from neuronx_distributed_tpu_torch.serving.engine import (
     RID_STRIDE,
     EngineHealth,
     RejectedError,
     ServingEngine,
+    weight_storages,
 )
 from neuronx_distributed_tpu_torch.serving.scheduler import Request
 from neuronx_distributed_tpu_torch.serving.transport import InProcessTransport, TransportError
@@ -72,10 +85,6 @@ _PROBE_ORDER = ("ok", "suspect", "degraded", "dead")
 _PROBE_CODE = {s: i for i, s in enumerate(_PROBE_ORDER)}
 
 
-def _not_served(what: str):
-    raise NotImplementedError(f"{what} is not served yet (ROADMAP.md, queue 1, item 10c)")
-
-
 @dataclasses.dataclass(frozen=True)
 class WatchdogConfig:
     """The watchdog's probe cadence and thresholds (JAX ``WatchdogConfig``,
@@ -83,8 +92,8 @@ class WatchdogConfig:
     router's clock with a ``probe_timeout_s`` deadline, one transport
     attempt each; ``suspect_after``/``degraded_after``/``dead_after`` count
     consecutive failures, ``recover_after`` consecutive successes undo one
-    level. DEAD is final. ``integrity_interval_s`` (the cross-replica
-    weight fingerprint vote) is not served yet."""
+    level. DEAD is final. ``integrity_interval_s``: every that many
+    seconds the cross-replica weight fingerprint vote (None: off)."""
 
     probe_interval_s: float = 0.25
     probe_timeout_s: float = 0.25
@@ -101,9 +110,8 @@ class WatchdogConfig:
                              f"{self.dead_after}")
         if self.recover_after < 1:
             raise ValueError(f"recover_after must be >= 1, got {self.recover_after}")
-        if self.integrity_interval_s is not None:
-            _not_served("integrity_interval_s= (the router's params fingerprint vote needs "
-                        "tree_fingerprint)")
+        if self.integrity_interval_s is not None and self.integrity_interval_s <= 0:
+            raise ValueError(f"integrity_interval_s must be > 0, got {self.integrity_interval_s}")
 
 
 @dataclasses.dataclass
@@ -115,6 +123,16 @@ class _ProbeState:
     oks: int = 0    # consecutive successes while demoted
     next_probe: float = 0.0
     last_err: Optional[str] = None
+
+
+def _replica_model(model, own: bool, kwargs):
+    """The module a replica serves: ``model`` itself, or with ``own`` (the
+    integrity vote) a copy of its own unless ``quantize=`` quantizes its
+    weights (the engine's quantized model owns every weight tensor)."""
+    quantize = kwargs.get("quantize")
+    if not own or (quantize is not None and quantize.weight_qconfig() is not None):
+        return model
+    return copy.deepcopy(model)
 
 
 class ReplicaRouter:
@@ -133,12 +151,13 @@ class ReplicaRouter:
                              "(ServingEngine(rid_base=i * router.RID_STRIDE)) — re-homed requests "
                              "keep their rid on the survivor")
         self.replicas = list(replicas)
+        self.watchdog = watchdog
+        self._check_own_weights(self.replicas)
         self.affinity = affinity
         self.affinity_overcommit = float(affinity_overcommit)
         self._time_fn = time_fn
         self.transport = transport if transport is not None else InProcessTransport(
             time_fn=self._now)
-        self.watchdog = watchdog
         self._probe: List[_ProbeState] = [_ProbeState() for _ in self.replicas]
         self._dead: set = set()          # replicas drained and re-homed
         self._draining_out: set = set()  # remove_replica in progress
@@ -148,8 +167,8 @@ class ReplicaRouter:
             "routed", "affinity_hits", "rehomed_requests", "replicas_drained", "spillovers",
             "probes", "probe_failures", "watchdog_deaths", "transport_failures",
             "replicas_joined", "replicas_removed", "replicas_restarted", "rebalanced_requests",
-            # the integrity vote's (item 10c), 0 until it is served
             "integrity_probes", "integrity_fences", "integrity_disagreements"), 0)
+        self._next_integrity = 0.0
         self.routed_by_replica = [0] * len(replicas)
         self._view = self._g_probe = self._g_transport = None
         self._h_rehome = self._h_restart = None
@@ -172,6 +191,29 @@ class ReplicaRouter:
             for i in range(len(self.replicas)):
                 self._view.child(self._g_probe, f"replica{i}").set(0)
 
+    @property
+    def _votes(self) -> bool:
+        return self.watchdog is not None and self.watchdog.integrity_interval_s is not None
+
+    def _check_own_weights(self, engines) -> None:
+        """The integrity vote needs replicas that hold their own weights: a
+        flip in storage two replicas share corrupts both, and a shared
+        corruption outvotes the clean replica. Refused (``ValueError``) when
+        the vote is on and two replicas' weights share storage."""
+        if not self._votes:
+            return
+        seen: Dict[int, int] = {}
+        for e in engines:
+            model = e.model if hasattr(e, "model") else e.engine.model
+            for ptr in weight_storages(model):
+                if ptr in seen and seen[ptr] is not id(e):
+                    raise ValueError(
+                        "WatchdogConfig(integrity_interval_s=) needs replicas that hold their own "
+                        "weights; these share weight storage (a router over one module): build "
+                        "with ReplicaRouter.build(..., watchdog=WatchdogConfig("
+                        "integrity_interval_s=...)), which copies the weights per replica")
+                seen[ptr] = id(e)
+
     def _now(self) -> float:
         if self._time_fn is not None:
             return self._time_fn()
@@ -183,24 +225,31 @@ class ReplicaRouter:
     def build(cls, model, n_replicas: int, registry=None, engine_label: str = "replica",
               transport=None, watchdog: Optional[WatchdogConfig] = None,
               **engine_kwargs) -> "ReplicaRouter":
-        """N identically configured replicas over ONE served module (JAX
-        ``build``, ``router.py:263``, which takes a params tree; the port's
-        engines carry their weights in the module), each minting from its
-        own ``rid_base``; with ``registry`` one labeled registry
-        (``{engine_label}{i}``). The router keeps the recipe, so
-        :meth:`add_replica` and :meth:`restart_replica` can make more."""
+        """N identically configured replicas (JAX ``build``,
+        ``router.py:263``, which takes a params tree; the port's engines
+        carry their weights in the module), each minting from its own
+        ``rid_base``; with ``registry`` one labeled registry
+        (``{engine_label}{i}``). Without the integrity vote the replicas
+        serve ONE module; with ``watchdog=WatchdogConfig(
+        integrity_interval_s=)`` each float replica serves its own copy of
+        ``model`` (a quantized one owns its tensors already), as JAX places
+        the weights per replica. The router keeps the recipe and the clean
+        source, so :meth:`add_replica` and :meth:`restart_replica` mint
+        replicas from clean weights."""
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+        own = watchdog is not None and watchdog.integrity_interval_s is not None
         replicas = []
         for i in range(n_replicas):
             kwargs = dict(engine_kwargs)
             if registry is not None:
                 kwargs.setdefault("registry", registry)
                 kwargs.setdefault("engine_label", f"{engine_label}{i}")
-            replicas.append(ServingEngine(model, rid_base=i * RID_STRIDE, **kwargs))
+            replicas.append(ServingEngine(_replica_model(model, own, kwargs),
+                                          rid_base=i * RID_STRIDE, **kwargs))
         router = cls(replicas, transport=transport, watchdog=watchdog, registry=registry)
         router._factory = {"model": model, "engine_kwargs": dict(engine_kwargs),
-                           "registry": registry, "engine_label": engine_label}
+                           "registry": registry, "engine_label": engine_label, "own": own}
         return router
 
     def _spawn(self, **overrides) -> ServingEngine:
@@ -215,7 +264,8 @@ class ReplicaRouter:
         if f["registry"] is not None:
             kwargs.setdefault("registry", f["registry"])
             kwargs.setdefault("engine_label", f"{f['engine_label']}{self._next_base}")
-        return ServingEngine(f["model"], rid_base=self._next_base * RID_STRIDE, **kwargs)
+        return ServingEngine(_replica_model(f["model"], f["own"], kwargs),
+                             rid_base=self._next_base * RID_STRIDE, **kwargs)
 
     def add_replica(self, engine: Optional[ServingEngine] = None, cache_dir: Optional[str] = None,
                     manifest=None, adopt_backlog: bool = True, **overrides) -> int:
@@ -223,15 +273,23 @@ class ReplicaRouter:
         one made from the build() recipe (``overrides`` update its kwargs).
         With ``adopt_backlog`` queued never-admitted requests move from the
         most loaded replicas onto it through the transport's adopt. Returns
-        its index. ``cache_dir``/``manifest`` (the AOT warm spawn) are not
-        served yet."""
-        if cache_dir is not None or manifest is not None:
-            _not_served("add_replica(cache_dir=, manifest=) (the AOT warm spawn)")
+        its index. ``cache_dir``/``manifest`` warm-spawn it (JAX
+        ``router.py:319``): ``engine.prewarm(manifest=, cache_dir=)`` replays
+        every program of a donor's manifest (``ServingEngine.manifest()``)
+        before the replica takes work, so its first request captures and
+        builds nothing. A prewarm whose replays failed (a manifest of
+        another engine's programs) is refused with ``ValueError`` and the
+        replica does not join; a CUDA or kernel error in it raises as it
+        is."""
         if engine is None:
             engine = self._spawn(**overrides)
         elif engine._next_rid in {e._next_rid for e in self.replicas}:
             raise ValueError("joining replica must mint from a disjoint rid_base range (rid "
                              "collisions break re-homing)")
+        self._check_own_weights([e for i, e in enumerate(self.replicas) if i not in self._dead]
+                                + [engine])
+        if cache_dir is not None or manifest is not None:
+            self._warm(engine, cache_dir, manifest)
         idx = len(self.replicas)
         self.replicas.append(engine)
         self.routed_by_replica.append(0)
@@ -304,6 +362,15 @@ class ReplicaRouter:
             e.flight.record("drain_out", replica=idx)
         return e
 
+    @staticmethod
+    def _warm(engine: ServingEngine, cache_dir: Optional[str], manifest) -> None:
+        """Prewarm a joining replica; ``ValueError`` when a replay failed."""
+        failed = engine.prewarm(manifest=manifest, cache_dir=cache_dir)["failed"]
+        if failed:
+            raise ValueError(f"warm spawn refused: {len(failed)} manifest program(s) failed to "
+                             f"replay ({', '.join(sorted(failed))}): the replica would compile "
+                             "them inside live requests")
+
     def restart_replica(self, idx: int, cache_dir: Optional[str] = None, manifest=None,
                         **overrides) -> int:
         """Warm-restart a fenced or halted replica (JAX ``restart_replica``,
@@ -313,15 +380,18 @@ class ReplicaRouter:
         build() recipe and restore the state there; every request continues
         with its remaining deadline and its streaming callback. Returns the
         replacement's index. ``ValueError`` when the replica's work was
-        re-homed already (use :meth:`add_replica`)."""
-        if cache_dir is not None or manifest is not None:
-            _not_served("restart_replica(cache_dir=, manifest=) (the AOT warm spawn)")
+        re-homed already (use :meth:`add_replica`). ``cache_dir``/``manifest``
+        prewarm the replacement as :meth:`add_replica` does, before the old
+        replica is touched: a refused prewarm leaves it as it was."""
         if idx in self._dead:
             raise ValueError(f"replica {idx} was already re-homed — its work lives on the "
                              "survivors; use add_replica() for a fresh replacement")
         if not (0 <= idx < len(self.replicas)):
             raise ValueError(f"replica {idx} does not exist")
         t0 = time.perf_counter()
+        fresh = self._spawn(**overrides)
+        if cache_dir is not None or manifest is not None:
+            self._warm(fresh, cache_dir, manifest)
         dead = self.replicas[idx]
         if dead.health() is not EngineHealth.HALTED:
             dead.fence("restart_replica")
@@ -336,7 +406,7 @@ class ReplicaRouter:
         self._draining_out.discard(idx)
         if self._view is not None:
             self._view.child(self._g_probe, f"replica{idx}").set(_PROBE_CODE["dead"])
-        new_idx = self.add_replica(adopt_backlog=False, **overrides)
+        new_idx = self.add_replica(fresh, adopt_backlog=False)
         e = self.replicas[new_idx]
         report = self.transport.call(new_idx, "restore", lambda: e.restore_serving_state(snap))
         for rid, cb in callbacks.items():
@@ -507,6 +577,58 @@ class ReplicaRouter:
             f"watchdog: {self._probe[idx].fails} consecutive probe failures ({err})")
         self._rehome(idx)
 
+    def _run_integrity(self, now: float) -> None:
+        """The periodic cross-replica weight fingerprint vote (JAX
+        ``_run_integrity``, ``router.py:705``): on the watchdog's clock,
+        through the transport, one probe a routable replica. An unreachable
+        replica is the liveness ladder's evidence, not corruption's: the
+        vote runs over the replicas that answered. A strict minority is
+        convicted (:meth:`_declare_corrupt`); no strict majority is
+        recorded as a disagreement and fences nobody (fencing an innocent
+        replica would be worse)."""
+        cfg = self.watchdog
+        if cfg.integrity_interval_s is None or now < self._next_integrity:
+            return
+        self._next_integrity = now + cfg.integrity_interval_s
+        values: Dict[int, int] = {}
+        for i in self._live():
+            if self._probe[i].state == "dead":
+                continue
+            self.stats["integrity_probes"] += 1
+            try:
+                values[i] = int(self.transport.probe(
+                    i, lambda e=self.replicas[i]: e.integrity_fingerprint(),
+                    deadline_s=cfg.probe_timeout_s))
+            except TransportError:
+                continue
+        verdict = vote(values)
+        if verdict.clean:
+            return
+        if not verdict.localized:
+            self.stats["integrity_disagreements"] += 1
+            for i, v in verdict.values.items():
+                flight = self.replicas[i].flight
+                if flight is not None:
+                    flight.record("integrity_disagreement", replica=i, fingerprint=v,
+                                  voters=len(verdict.values))
+            return
+        for i in verdict.convicted:
+            self._declare_corrupt(
+                i, f"params fingerprint {values[i]:#010x} vs quorum {verdict.quorum_value:#010x} "
+                   f"({len(values) - 1} of {len(values)} replicas agree)")
+
+    def _declare_corrupt(self, idx: int, why: str) -> None:
+        """An integrity conviction (JAX ``_declare_corrupt``): straight to
+        DEAD (corrupted weights do not flap, and every chunk served
+        meanwhile is wrong), fenced, and re-homed like a probe death."""
+        self.stats["integrity_fences"] += 1
+        flight = self.replicas[idx].flight
+        if flight is not None:
+            flight.record("integrity_conviction", replica=idx, why=why)
+        self._probe_transition(idx, self._probe[idx], "dead", why)
+        self.replicas[idx].fence(f"integrity: {why}")
+        self._rehome(idx)
+
     # --- stepping and re-homing ---------------------------------------------
 
     def _rehome(self, dead_idx: int) -> int:
@@ -551,7 +673,9 @@ class ReplicaRouter:
         live replica with work, and the retirement of replicas that have
         drained out. Returns whether work remains."""
         if self.watchdog is not None:
-            self._run_watchdog(self._now())
+            now = self._now()
+            self._run_watchdog(now)
+            self._run_integrity(now)
         for i in self._live():
             if self.replicas[i].health() is EngineHealth.HALTED:
                 self._rehome(i)

@@ -2,8 +2,8 @@
 ``neuronx_distributed_tpu/utils/fingerprint.py``: the host CRCs
 ``page_fingerprint``, ``:66``, and ``bytes_fingerprint``, ``:77``;
 ``cache_fingerprint``, ``:127-155``; ``pool_pages_fingerprint``, ``:158``,
-with its bit mix and constants; the tree fingerprint belongs to a later
-slice).
+with its bit mix and constants; ``tree_fingerprint``, ``:119``, with
+``_uint32_bits``, ``:96``, and ``_leaf_fingerprint``, ``:111``).
 
 A stored prefix block (a row entry's copy, or a paged entry's pool pages) is
 fingerprinted at insert and again at every reuse, and the two must be equal
@@ -24,6 +24,7 @@ from neuronx_distributed_tpu_torch.kernels.page_fingerprint import (  # noqa: F4
     FINGERPRINT_SEED,
     pool_pages_fingerprint_fwd,
 )
+from neuronx_distributed_tpu_torch.kernels.tree_fingerprint import tree_fingerprint_fwd
 
 
 def raw_bytes(block) -> np.ndarray:
@@ -49,6 +50,25 @@ def page_fingerprint(blocks) -> int:
 def bytes_fingerprint(data, fp: int = 0) -> int:
     """CRC-32 of raw bytes, chainable (pass the previous value as ``fp``)."""
     return zlib.crc32(data, fp)
+
+
+def tree_fingerprint(tree) -> torch.Tensor:
+    """One uint32 over every tensor of ``tree`` (JAX ``tree_fingerprint``),
+    a 0-d int64 tensor on their device, never read here: each leaf's bits
+    mixed with odd position weights ``2i + 1`` and summed mod 2^32, the
+    leaves combined as ``total * PRIME + leaf`` in the CALLER's order (a
+    sequence of tensors, or a mapping's values in its iteration order).
+    Through ``kernels/tree_fingerprint.py``: TF on the card, the plain
+    version on the CPU.
+
+    On the same leaves in the same order it equals JAX's value bit for bit.
+    The port's fingerprint of its own state dict does NOT equal JAX's of
+    the flax tree: a Flax ``kernel`` is (in, out) where a torch ``weight``
+    is (out, in), the mix depends on position, and the two trees order
+    their leaves otherwise. That equality is no goal: the port's values are
+    only ever compared with other port values (the router's vote)."""
+    leaves = list(tree.values()) if isinstance(tree, dict) else list(tree)
+    return tree_fingerprint_fwd(leaves)
 
 
 def cache_fingerprint(cache) -> torch.Tensor:

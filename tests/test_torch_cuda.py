@@ -1867,3 +1867,77 @@ def test_rehomed_request_continues_its_stream_on_the_survivor(cuda):
         assert got.state.value == "done" and len(got.tokens) == 20
         assert got.tokens[:len(mid[r.rid])] == mid[r.rid]
     assert router.replicas[1].decode_compilations == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [("bfloat16",), ("int8", "float32"), ("float8_e4m3fn", "int64"),
+                                    ("bfloat16", "int8", "float32", "bool")])
+def test_tree_fingerprint_kernel_equals_plain(cuda, dtypes):
+    """TF (``csrc/tree_fingerprint.cu``) = its plain version bit for bit
+    over leaves of 8-, 16-, 32- and 64-bit elements, ragged sizes, a leaf of
+    several 1 MiB items, an empty leaf and a view at an odd offset (the
+    scalar path); a flipped bit and a swap of two elements each move it;
+    one launch a call; a rebound leaf rebuilds the tables."""
+    from neuronx_distributed_tpu_torch.integrity.chaos import flip_leaf_bit
+    from neuronx_distributed_tpu_torch.kernels import tree_fingerprint as ttf
+
+    leaves = []
+    for i, name in enumerate(dtypes):
+        n = (3 << 20) // 2 + 7 if i == 0 else 1000 + 13 * i
+        x = torch.randn(n, generator=cuda, device="cuda") * 40
+        leaves.append(x.to(getattr(torch, name)) if name != "int64"
+                      else torch.randint(-2 ** 62, 2 ** 62, (n,), device="cuda"))
+    leaves.append(torch.empty(0, device="cuda"))
+    base = torch.randn(4097, generator=cuda, device="cuda").to(torch.bfloat16)
+    leaves.append(base[1:])  # 2-byte offset: not 16-byte aligned
+    prog = ttf.TreeFingerprint(leaves)
+    before = ttf.tree_fingerprint_fwd.launches
+    got = int(prog())
+    torch.cuda.synchronize()
+    assert ttf.tree_fingerprint_fwd.launches == before + 1
+    assert got == int(ttf.tree_fingerprint_plain(leaves))
+    assert int(prog()) == got
+    flip_leaf_bit(leaves[0], byte_index=12345)
+    flipped = int(prog())
+    assert flipped != got and flipped == int(ttf.tree_fingerprint_plain(leaves))
+    flip_leaf_bit(leaves[0], byte_index=12345)
+    assert int(prog()) == got
+    x = leaves[-1]
+    x[[3, 4]] = x[[4, 3]].clone()
+    if not torch.equal(x[3], x[4]):
+        assert int(prog()) != got
+    prog.leaves[1] = prog.leaves[1].clone()  # rebound: a new address
+    assert int(prog()) == int(ttf.tree_fingerprint_plain(prog.leaves))
+
+
+@pytest.mark.cuda
+def test_integrity_vote_convicts_a_flipped_replica(cuda):
+    """Three own-weight row replicas on the card under the vote; replica 0
+    flips a weight bit at its step 1: the next vote convicts it (TF's
+    values), fences it and re-homes its work, every request DONE with its
+    count; the survivors' fingerprints stay equal."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.serving.faults import FaultInjector
+    from neuronx_distributed_tpu_torch.serving.router import ReplicaRouter, WatchdogConfig
+    from neuronx_distributed_tpu_torch.serving.traffic import VirtualClock
+
+    clock = VirtualClock()
+    router = ReplicaRouter.build(_small_llama(0), 3, num_slots=2, decode_chunk_size=4,
+                                 prefix_cache=None, time_fn=clock,
+                                 watchdog=WatchdogConfig(integrity_interval_s=0.5))
+    router.replicas[0]._faults = FaultInjector().flip_bits("params", at=1)
+    rng = np.random.default_rng(12)
+    reqs = [router.submit(rng.integers(1, 1000, size=n), GenerationConfig(12, temperature=0.0),
+                          seed=i) for i, n in enumerate((20, 33, 9, 41, 17, 25))]
+    router.step()
+    clock.advance(0.6)
+    router.step()
+    assert router.stats["integrity_fences"] == 0
+    clock.advance(0.6)
+    router.step()
+    assert router.stats["integrity_fences"] == 1 and router.probe_states()["replica0"] == "dead"
+    router.run()
+    assert all(router.requests[r.rid].state.value == "done"
+               and len(router.requests[r.rid].tokens) == 12 for r in reqs)
+    fps = {router.replicas[i].integrity_fingerprint() for i in (1, 2)}
+    assert len(fps) == 1 and router.replicas[0].integrity_fingerprint() not in fps

@@ -164,7 +164,14 @@ def test_every_module_imports_and_runs_with_jax_blocked():
             "neuronx_distributed_tpu_torch.serving.transport",
             "neuronx_distributed_tpu_torch.serving.router",
             "neuronx_distributed_tpu_torch.serving.disagg",
-            "neuronx_distributed_tpu_torch.observability.hbm"} <= set(_port_modules())
+            "neuronx_distributed_tpu_torch.observability.hbm",
+            "neuronx_distributed_tpu_torch.observability.programs",
+            "neuronx_distributed_tpu_torch.observability.profiler",
+            "neuronx_distributed_tpu_torch.inference.aot",
+            "neuronx_distributed_tpu_torch.integrity",
+            "neuronx_distributed_tpu_torch.integrity.voting",
+            "neuronx_distributed_tpu_torch.integrity.chaos",
+            "neuronx_distributed_tpu_torch.kernels.tree_fingerprint"} <= set(_port_modules())
 
 
 def test_slo_serving_pieces_are_the_ports_own():

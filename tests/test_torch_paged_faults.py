@@ -335,12 +335,12 @@ def test_kv_pool_bit_flip_rejected_falls_back_bit_identical(setup, kv):
 
 
 def test_not_ported_hooks_raise():
-    """``flip_bits("params")`` still raises, naming its item; the fabric's
-    schedules (the handoff and the five transport ones) now schedule, and
-    fire with JAX's counters."""
+    """Every hook is ported now: ``flip_bits("params")`` schedules (item
+    10c; it fires in ``tests/test_torch_integrity.py``), as do the fabric's
+    schedules (the handoff and the five transport ones), which fire with
+    JAX's counters; an unknown flip target still raises."""
     inj = FaultInjector()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 10c"):
-        inj.flip_bits("params")
+    assert inj.flip_bits("params", at=2) is inj and inj.flips_params
     with pytest.raises(ValueError):
         inj.flip_bits("weights")
     for schedule in (lambda i: i.fail_handoff(), lambda i: i.drop_send(), lambda i: i.drop_ack(),

@@ -562,18 +562,59 @@ def test_router_restart_replica_end_to_end(setup):
         router.restart_replica(1)
 
 
-def test_item_10c_pieces_refuse_loudly(setup):
-    """The integrity vote and the AOT warm spawn are not served yet: each
-    raises ``NotImplementedError`` naming ``ROADMAP.md`` item 10c."""
+def test_item_10c_pieces_refuse_loudly(setup, tmp_path):
+    """Item 10c is served: the integrity vote configures, and ``add_replica``
+    and ``restart_replica`` take ``cache_dir=``/``manifest=`` (a donor's
+    manifest replayed before the replica takes work); only a bad watchdog
+    threshold still refuses."""
     _, _, tm = setup
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        WatchdogConfig(integrity_interval_s=1.0)
+    assert WatchdogConfig(integrity_interval_s=1.0).integrity_interval_s == 1.0
     router = _build(tm, n=1)
-    for call in (lambda: router.add_replica(cache_dir="x"),
-                 lambda: router.add_replica(manifest=object()),
-                 lambda: router.restart_replica(0, cache_dir="x")):
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            call()
-    assert len(router.replicas) == 1
+    req = router.submit([1, 2, 3, 4], GenerationConfig(max_new_tokens=4, temperature=0.0))
+    router.run()
+    assert req.state is RequestState.DONE
+    donor = router.replicas[0]
+    donor.save_aot(str(tmp_path))
+    a = router.add_replica(manifest=donor.manifest())
+    b = router.add_replica(cache_dir=str(tmp_path))
+    for i in (a, b):
+        progs = router.replicas[i].programs.programs()
+        assert progs["decode_chunk"].prewarm_dispatches == 1
+        assert progs["decode_chunk"].compiles == 1 and progs["decode_chunk"].dispatches == 0
+    router.replicas[0].fence("restart")
+    c = router.restart_replica(0, cache_dir=str(tmp_path))
+    assert router.replicas[c].programs.programs()["prefill[8]"].prewarm_dispatches == 1
+    assert len(router.replicas) == 4
     with pytest.raises(ValueError):
         WatchdogConfig(suspect_after=2, degraded_after=1)
+
+
+def test_warm_spawn_with_failed_replays_is_refused(setup):
+    """A manifest holding a program the new replica cannot replay (a draft
+    prefill, on replicas without a draft) refuses the warm spawn: the
+    replica would compile it inside live requests. ``add_replica`` adds
+    nothing; ``restart_replica`` prewarms before it touches the old
+    replica, which stays as it was (not re-homed, its queue kept)."""
+    from neuronx_distributed_tpu_torch.inference.aot import ProgramManifest
+    from neuronx_distributed_tpu_torch.serving.engine import EngineHealth
+
+    _, _, tm = setup
+    router = _build(tm, n=2)
+    gcfg = GenerationConfig(max_new_tokens=4, temperature=0.0)
+    req = router.submit([1, 2, 3, 4], gcfg, seed=1)
+    router.run()
+    assert req.state is RequestState.DONE
+    base = router.replicas[0].manifest()
+    bad = ProgramManifest(dict(base.programs, **{
+        "draft_prefill[8]": base.entries("first_token")}), base.meta)
+    with pytest.raises(ValueError, match=r"draft_prefill\[8\]"):
+        router.add_replica(manifest=bad)
+    assert len(router.replicas) == 2 and router.stats["replicas_joined"] == 0
+    queued = [router.submit([5, 6, 7], gcfg, seed=2 + i) for i in range(2)]
+    with pytest.raises(ValueError, match="warm spawn refused"):
+        router.restart_replica(1, manifest=bad)
+    assert not router._dead and router.stats["replicas_restarted"] == 0
+    assert all(e.health() is EngineHealth.OK for e in router.replicas)
+    router.run()
+    assert all(router.requests[q.rid].state is RequestState.DONE for q in queued)
+    assert router.add_replica(manifest=base) == 2

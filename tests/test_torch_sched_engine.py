@@ -305,11 +305,16 @@ def test_halt_post_mortem_carries_tenant_depths_and_slo(setup):
     json.dumps(pm)
 
 
-def test_later_slices_refuse_loudly(setup):
+def test_later_slices_refuse_loudly(setup, tmp_path):
+    """Item 10c is served: ``profile_dir=`` and ``program_ledger=`` build an
+    engine (a shared ledger is the engine's), and ``flip_bits("params")``
+    schedules."""
+    from neuronx_distributed_tpu_torch.observability.programs import ProgramLedger
+
     tm = setup[2]
-    for kw in (dict(profile_dir="x"), dict(program_ledger=object())):
-        with pytest.raises(NotImplementedError, match="item 10c"):
-            ServingEngine(tm, num_slots=1, **kw)
+    ledger = ProgramLedger()
+    e = ServingEngine(tm, num_slots=1, profile_dir=str(tmp_path / "prof"), program_ledger=ledger)
+    assert e.programs is ledger and "decode_chunk" in ledger.programs()
     # item 10b is served: the router's load signal answers (an idle FIFO
     # engine: 0; a queued request: 1) and the two stubs without a JAX
     # counterpart are gone
@@ -319,5 +324,4 @@ def test_later_slices_refuse_loudly(setup):
     assert engine.load_score() == 1.0 and engine.page_pressure() == 0.0
     for name in ("export_requests", "import_requests"):
         assert not hasattr(engine, name)
-    with pytest.raises(NotImplementedError, match="item 10c"):
-        FaultInjector().flip_bits("params")
+    assert FaultInjector().flip_bits("params").flips_params

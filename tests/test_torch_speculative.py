@@ -143,6 +143,25 @@ def test_spec_stats_snapshot_equals_jax(setup, draft):
     assert (0.0 < got["spec_accept_rate"] < 1.0) == (draft == "early_exit")
 
 
+def test_registry_equals_jax_registry(setup):
+    """``speculative_generate(registry=)`` (JAX ``speculative.py:67``): the
+    same greedy run through both functions, each into its own registry;
+    the registries' Prometheus text is equal byte for byte, and
+    ``stats=`` with ``registry=`` is refused."""
+    from neuronx_distributed_tpu_torch.observability.registry import MetricsRegistry as TRegistry
+
+    jt, tp, tt, jd, dp, td = setup
+    ids = _ids(3, seed=4)
+    jreg, treg = MetricsRegistry(), TRegistry()
+    jspeculative_generate(jt, tp, jd, dp, jnp.asarray(ids), max_new_tokens=NEW, gamma=3,
+                          registry=jreg)
+    speculative_generate(tt, td, ids, NEW, gamma=3, registry=treg)
+    assert treg.prometheus_text() == jreg.prometheus_text()
+    assert "spec_rounds" in treg.prometheus_text()
+    with pytest.raises(ValueError, match="not both"):
+        speculative_generate(tt, td, ids, 4, stats=SpecStats(), registry=TRegistry())
+
+
 def test_spec_stats_percentiles_follow_the_registry_histogram():
     reg = MetricsRegistry()
     want, got = JSpecStats(reg), SpecStats()
