@@ -263,6 +263,28 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    layers (fp32 masters, AdamW, remat) on one packed 2 x 4096 batch, launch
    counts zeroed just before and read just after, then one step under the
    profiler;
+7b. the training loop (``trainer/loop.py``) at Llama-3-8B width cut to 2
+   layers (1,486,901,248 parameters), phase 7's packed 2 x 4096 batches
+   from a seed, counts zeroed before and read after: (a) ``Trainer.fit``
+   8 steps with async ``CheckpointCallback(every=4)`` (keep-last 2) and a
+   ``MetricsCallback``, one host read a step; a fresh fit resumed from
+   step_4 reaches step 8 with steps 5-8's losses and TF over the final
+   state (= its plain version) bit for bit; the manifests verify; (b) one
+   schedule (NaN at 1, a failed dispatch, a spike at 4 after a warm-up of
+   2, SIGTERM at 6): the counters, health by step and tags = a CPU dry run
+   at tiny width, the skipped steps' TF unchanged, the preemption's step_6
+   resumed to an uninterrupted run's final bits; (c) at B = 1 (the memory
+   reckoning in PERF.md) the canary sentinel every 4 steps: zero false
+   positives and the sentinel-off run's bits; a params flip at the step-8
+   check convicted, rolled back to step 4 and retrained to the clean bits;
+   a flip between checks (step 5) not convicted; at B = 2 a rotten shard
+   of (a)'s step_8 refused, the fallback to step_4 retrained to (a)'s bits;
+   (d) remat policies None, "dots" and "dots_saveable": equal losses bit
+   for bit, each one's wall and peak. K1 = 2 x 2 x train-step dispatches,
+   K2 = K3 = 2 x dispatches, TF = two a check and the gates' own; peak
+   under 72 GiB; the checkpoint directory (build/phase7b_ckpt, its free
+   space printed first) deleted at the end; TF over the train state timed
+   against its bytes bound after the counted window;
 8. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -274,6 +296,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -5916,6 +5939,407 @@ def train_phase(steps: int = 6) -> dict:
                 pairs=pairs, docs=int(seg.max()) + 1)
 
 
+# --- phase 7b: the training loop ------------------------------------------------
+
+LOOP_LAYERS = 2     # depth cut: Llama-3-8B width, 2 layers (1,486,901,248 parameters)
+LOOP_STEPS = 8
+LOOP_EVERY = 4      # the checkpoint and sentinel cadence
+LOOP_SEQ = 4096
+LOOP_DATA_SEED = 1000
+LOOP_LR = 3e-4      # OptimizerConfig's default (JAX's)
+LOOP_CKPT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "phase7b_ckpt")
+LOOP_SCHEDULE = "nan_loss(at=1), fail_dispatch(at=3), spike_grads(at=4), deliver_sigterm(at=6)"
+
+
+class PackedSource:
+    """Phase 7's packed batches from a seed (batch ``i`` from seed
+    ``LOOP_DATA_SEED + i``), with the ``state()``/``restore()`` cursor the
+    loop's exact resume reads."""
+
+    def __init__(self, vocab: int, b: int, s: int = LOOP_SEQ):
+        self.vocab, self.b, self.s, self.i = vocab, b, s, 0
+
+    def state(self) -> dict:
+        return {"batch": self.i}
+
+    def restore(self, st: dict) -> None:
+        self.i = int(st["batch"])
+
+    def __iter__(self):
+        while True:
+            batch = packed_batch(self.vocab, self.b, self.s, seed=LOOP_DATA_SEED + self.i)
+            self.i += 1
+            yield batch
+
+
+class LoopRecorder:
+    """A training-loop callback keeping each step's loss as a device scalar
+    (read after the fit, so the loop's host reads stay its own), the step's
+    end on the host clock, the health, and optionally TF over the params and
+    the optimizer state."""
+
+    def __init__(self, fingerprint: bool = False):
+        self.losses, self.ends, self.health, self.fps = [], [], [], []
+        self.fingerprint = fingerprint
+        self._fp = None
+
+    def on_train_start(self, trainer):
+        self.t0 = time.perf_counter()
+
+    def on_step_end(self, trainer, metrics):
+        self.losses.append(metrics["loss"])
+        self.ends.append(time.perf_counter())
+        self.health.append(trainer.health().value)
+        if self.fingerprint:
+            from neuronx_distributed_tpu_torch.kernels.tree_fingerprint import TreeFingerprint
+
+            if self._fp is None:
+                # params and the optimizer state (a skipped step moves the
+                # guard's counters, by design)
+                leaves = trainer._state_leaves()
+                self._fp = TreeFingerprint(leaves[:-3] if trainer.state.guard is not None
+                                           else leaves)
+            self.fps.append(self._fp())
+
+    def on_train_end(self, trainer):
+        pass
+
+    def host_losses(self) -> list:
+        return [float(x) for x in self.losses]
+
+    def walls(self) -> list:
+        return [b - a for a, b in zip([self.t0] + self.ends[:-1], self.ends)]
+
+
+def loop_fit(model, b: int, steps: int = LOOP_STEPS, seed: int = 0, resume_from=None,
+             callbacks=(), fingerprint: bool = False, **kw):
+    """One ``Trainer.fit`` of phase 7b over ``PackedSource`` batches: AdamW
+    at lr 3e-4, weight decay 0.1, clip 1.0."""
+    from neuronx_distributed_tpu_torch.trainer import OptimizerConfig, Trainer
+
+    rec = LoopRecorder(fingerprint)
+    tr = Trainer(model=model, callbacks=[rec, *callbacks], optimizer_config=OptimizerConfig(
+        learning_rate=LOOP_LR, weight_decay=0.1, max_grad_norm=1.0), **kw)
+    out = tr.fit(PackedSource(model.config.vocab_size, b), seed, max_steps=steps,
+                 resume_from=resume_from)
+    torch.cuda.synchronize()
+    return tr, rec, out
+
+
+def state_fp(tr) -> int:
+    """TF over the trainer's state (one launch) — and the caller counts it."""
+    from neuronx_distributed_tpu_torch.kernels.tree_fingerprint import TreeFingerprint
+
+    return int(TreeFingerprint(tr._state_leaves())())
+
+
+def release() -> None:
+    """Free what the caller's deleted trainers held (their optimizer state,
+    the sentinel's snapshots)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def fault_schedule(with_sigterm: bool):
+    from neuronx_distributed_tpu_torch.trainer.faults import FaultInjector
+
+    inj = FaultInjector().nan_loss(at=1).fail_dispatch(at=3).spike_grads(at=4, factor=1e6)
+    return inj.deliver_sigterm(at=6) if with_sigterm else inj
+
+
+def fault_leg(model, b: int, root: str, seq: int = LOOP_SEQ) -> dict:
+    """7b(b): the schedule with and without the SIGTERM, the resume from the
+    preemption's tag. On the card (``model`` at full width) or as the CPU dry
+    run (a tiny model). Returns the decisions the two must share."""
+    from neuronx_distributed_tpu_torch.trainer import AnomalyGuardConfig, OptimizerConfig, Trainer
+    from neuronx_distributed_tpu_torch.utils.retry import RetryPolicy
+
+    def run(inj, steps, resume_from=None, emergency=None, fingerprint=False):
+        rec = LoopRecorder(fingerprint=fingerprint and model.device.type == "cuda")
+        tr = Trainer(model=model, callbacks=[rec], fault_injector=inj, emergency_dir=emergency,
+                     optimizer_config=OptimizerConfig(learning_rate=LOOP_LR, weight_decay=0.1),
+                     anomaly_guard=AnomalyGuardConfig(warmup_steps=2),
+                     dispatch_retry=RetryPolicy(max_attempts=3, first_wait=0.0, min_wait=0.0))
+        tr.fit(PackedSource(model.config.vocab_size, b, seq), 0, max_steps=steps,
+               resume_from=resume_from)
+        return tr, rec
+
+    ref, ref_rec = run(fault_schedule(False), LOOP_STEPS)
+    ref_fp = state_fp(ref) if model.device.type == "cuda" else None
+    ref_facts = dict(skips=ref.anomaly_skips, retries=ref.dispatch_retries,
+                     counters=dict(ref.fault_injector.counters), health=ref_rec.health)
+    ref_dispatches = ref.programs.dispatches("train_step")
+    del ref
+    pre, pre_rec = run(fault_schedule(True), LOOP_STEPS, emergency=root, fingerprint=True)
+    preempt_s = time.perf_counter() - pre_rec.ends[-1]
+    t0 = time.perf_counter()
+    post, post_rec = run(None, LOOP_STEPS, resume_from=root)
+    resume_s = time.perf_counter() - t0
+    out = dict(ref=ref_facts, preempted=pre.preempted, pre_step=pre.step,
+               counters=dict(pre.fault_injector.counters), skips=pre.anomaly_skips,
+               retries=pre.dispatch_retries, health=pre_rec.health, tags=sorted(os.listdir(root)),
+               resumed_steps=post.steps_run, final_step=post.step,
+               post_skips=post.anomaly_skips, post_retries=post.dispatch_retries)
+    out["dispatches"] = (ref_dispatches + pre.programs.dispatches("train_step")
+                         + post.programs.dispatches("train_step"))
+    if model.device.type == "cuda":
+        fps = [int(x) for x in pre_rec.fps]
+        out.update(ref_fp=ref_fp, fp=state_fp(post), step_fps=fps, resume_s=resume_s,
+                   preempt_s=preempt_s,
+                   tf_calls=2 + len(fps), pre_losses=pre_rec.host_losses(),
+                   post_losses=post_rec.host_losses(), ref_losses=ref_rec.host_losses())
+    del pre, post
+    return out
+
+
+def fault_dry_run(tmp: str) -> dict:
+    """7b(b)'s schedule on the CPU at tiny width (2 layers, packed 2 x 64)."""
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, init_params, tiny_llama
+
+    model = init_params(LlamaForCausalLM(tiny_llama(num_layers=2, vocab_size=EOS_ID + 2),
+                                         device="cpu", trainable=True), seed=0)
+    out = fault_leg(model, 2, tmp, seq=64)
+    out.pop("dispatches")
+    return out
+
+
+def loop_phase(smi: str) -> dict:
+    """Phase 7b: ``Trainer.fit`` at Llama-3-8B width cut to 2 layers, phase
+    7's packed 2 x 4096 batches from a seed, fp32 masters, remat on.
+    (a) 8 steps with async checkpoints every 4 and a MetricsCallback, a
+    fresh fit resumed from step_4 to step 8; (b) the fault schedule, its
+    preemption and resume, against a CPU dry run; (c) the canary sentinel
+    at B = 1 (the memory reckoning in PERF.md), a flip convicted and rolled
+    back, a rotten shard's fallback at B = 2; (d) the three remat policies.
+    Every count is zeroed before and read after; the checkpoint directory
+    lives in build/ and is deleted at the end."""
+    import shutil
+    import tempfile
+
+    from neuronx_distributed_tpu_torch.integrity import SentinelConfig
+    from neuronx_distributed_tpu_torch.integrity.checkpoint import verify_manifest
+    from neuronx_distributed_tpu_torch.kernels.tree_fingerprint import (
+        TreeFingerprint,
+        tree_fingerprint_plain,
+    )
+    from neuronx_distributed_tpu_torch.models.llama import LlamaForCausalLM, llama3_8b
+    from neuronx_distributed_tpu_torch.observability.callback import MetricsCallback
+    from neuronx_distributed_tpu_torch.trainer import CheckpointCallback
+    from neuronx_distributed_tpu_torch.trainer.checkpoint import (
+        NEWEST_FILE,
+        create_checkpoint_storage,
+    )
+    from neuronx_distributed_tpu_torch.trainer.faults import FaultInjector
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(LOOP_CKPT, ignore_errors=True)
+    os.makedirs(LOOP_CKPT)
+    free = shutil.disk_usage(LOOP_CKPT).free
+    log(f"phase 7b: checkpoint directory {LOOP_CKPT}: {free / 1e9:.1f} GB free")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        dry = fault_dry_run(tmp)
+        dry_s = time.perf_counter() - t0
+    cfg = llama3_8b(num_layers=LOOP_LAYERS)
+    model = LlamaForCausalLM(cfg, trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    dispatches, tf_calls, res = 0, 0, {"dry_s": dry_s, "n_params": n_params, "free_gb": free / 1e9}
+    dir_a, dir_b = os.path.join(LOOP_CKPT, "a"), os.path.join(LOOP_CKPT, "b")
+    try:
+        # (c) first: the sentinel's two snapshots want the card to themselves
+        c_ref, rec, _ = loop_fit(model, 1)
+        c_losses, c_fp, c_walls = rec.host_losses(), state_fp(c_ref), rec.walls()
+        dispatches += c_ref.programs.dispatches("train_step")
+        tf_calls += 1
+        del c_ref, rec
+        release()
+        sent = {}
+        for name, inj in (("clean", None), ("flip7", FaultInjector().flip_bits("params", at=7)),
+                          ("flip5", FaultInjector().flip_bits("params", at=5))):
+            tr, rec, _ = loop_fit(model, 1, integrity=SentinelConfig(check_every=LOOP_EVERY),
+                                  fault_injector=inj)
+            s = tr._sentinel
+            sent[name] = dict(counters=dict(s.counters), fp=state_fp(tr), losses=rec.host_losses(),
+                              walls=rec.walls(), reads=tr.host_reads, step=tr.step,
+                              events=[(e["kind"], e.get("step", e.get("to_step")))
+                                      for e in tr._flight.events() if e["kind"].startswith("sdc")],
+                              snap_bytes=tr.hbm.resident_bytes("integrity_snapshots"),
+                              state_bytes=sum(t.numel() * t.element_size()
+                                              for t in tr._state_leaves()),
+                              peak=torch.cuda.max_memory_allocated())
+            dispatches += tr.programs.dispatches("train_step")
+            tf_calls += 1 + 2 * s.counters["integrity_checks"]
+            del tr, rec, s
+            release()
+        if sent["clean"]["counters"] != {"integrity_checks": 2, "sdc_detected": 0,
+                                         "sdc_unlocalized": 0, "sdc_rollbacks": 0}:
+            raise AssertionError(f"7b(c): the clean run's checks {sent['clean']['counters']}")
+        if sent["clean"]["losses"] != c_losses or sent["clean"]["fp"] != c_fp:
+            raise AssertionError("7b(c): the sentinel changed the clean run's losses or bits")
+        f7 = sent["flip7"]
+        if (f7["counters"]["sdc_detected"], f7["counters"]["sdc_rollbacks"]) != (1, 1) or \
+                f7["fp"] != c_fp or ("sdc_detected", 8) not in f7["events"] or \
+                ("sdc_rollback", 4) not in f7["events"]:
+            raise AssertionError(f"7b(c): the flip at step 7: {f7['counters']}, {f7['events']}, "
+                                 f"final bits {'equal' if f7['fp'] == c_fp else 'differ'}")
+        if sent["flip5"]["counters"]["sdc_detected"] != 0:
+            raise AssertionError(f"7b(c): a flip between checks convicted: {sent['flip5']}")
+        if any(v["snap_bytes"] != 2 * v["state_bytes"] for v in sent.values()):
+            raise AssertionError("7b(c): the snapshots are not two state-sized buffers")
+        res["sent"], res["c_walls"], res["c_fp"] = sent, c_walls, c_fp
+
+        # (a) the clean run with async checkpoints and the exact resume
+        class TimedCheckpoint(CheckpointCallback):
+            stalls = []
+
+            def _save(self, trainer, async_save):
+                t0 = time.perf_counter()
+                super()._save(trainer, async_save)
+                self.stalls.append(time.perf_counter() - t0)
+
+        mcb = MetricsCallback()
+        ck = TimedCheckpoint(dir_a, every=LOOP_EVERY, num_kept=2, async_save=True,
+                             save_on_end=False)
+        a1, rec, _ = loop_fit(model, 2, callbacks=[ck, mcb])
+        a_losses, a_walls = rec.host_losses(), rec.walls()
+        leaves = a1._state_leaves()
+        a_fp = int(TreeFingerprint(leaves)())
+        plain_fp = int(tree_fingerprint_plain(leaves))
+        tf_calls += 1
+        storage = create_checkpoint_storage(dir_a)
+        tags = sorted(storage.list_checkpoint_tags())
+        tag_bytes = sum(storage.file_size(os.path.join("step_8", f))
+                        for f in storage.list_files("step_8"))
+        t0 = time.perf_counter()
+        ok8, detail8 = verify_manifest(storage, "step_8")
+        verify_s = time.perf_counter() - t0
+        prog = a1.programs.snapshot()["by_program"]["train_step"]
+        res["a"] = dict(losses=a_losses, walls=a_walls, fp=a_fp, plain_fp=plain_fp,
+                        reads=a1.host_reads, tags=tags, tag_bytes=tag_bytes, verify8=detail8,
+                        verify_s=verify_s, stalls=list(ck.stalls), prog=prog,
+                        registry=mcb.registry.snapshot(), peak=torch.cuda.max_memory_allocated())
+        dispatches += a1.programs.dispatches("train_step")
+        if a_fp != plain_fp or not ok8 or tags != ["step_4", "step_8"] or a1.host_reads != 8:
+            raise AssertionError(f"7b(a): TF {a_fp:#010x} plain {plain_fp:#010x}, step_8 "
+                                 f"{detail8}, tags {tags}, host reads {a1.host_reads}")
+        res["tf"] = dict(leaves=len(leaves), bytes=sum(t.numel() * t.element_size() for t in leaves))
+        del a1, rec, leaves
+        release()
+        storage.save_text("step_4", NEWEST_FILE)  # resume_from=step_4
+        t0 = time.perf_counter()
+        a2, rec, _ = loop_fit(model, 2, seed=99, resume_from=dir_a)
+        res["a"]["resume_wall_s"] = time.perf_counter() - t0
+        a2_losses, a2_fp = rec.host_losses(), state_fp(a2)
+        tf_calls += 1
+        dispatches += a2.programs.dispatches("train_step")
+        if a2.steps_run != 4 or a2_losses != a_losses[4:] or a2_fp != a_fp \
+                or a2.checkpoint_integrity_failures:
+            raise AssertionError(f"7b(a): the resume from step_4 ran {a2.steps_run} steps, losses "
+                                 f"{'equal' if a2_losses == a_losses[4:] else 'differ'}, bits "
+                                 f"{'equal' if a2_fp == a_fp else 'differ'}")
+        res["a"]["resumed_walls"] = rec.walls()
+        del a2, rec
+        release()
+        # (c) a rotten shard in the newest tag: the restore falls back to step_4
+        storage.save_text("step_8", NEWEST_FILE)
+        inj = FaultInjector().flip_bits("checkpoint_shard", at=0)
+        inj.on_checkpoint_saved(dir_a, "step_8")
+        t0 = time.perf_counter()
+        cs, rec, _ = loop_fit(model, 2, seed=98, resume_from=dir_a)
+        res["shard"] = dict(flips=inj.counters["bit_flips"], failures=cs.checkpoint_integrity_failures,
+                            steps_run=cs.steps_run, wall_s=time.perf_counter() - t0,
+                            tags=sorted(storage.list_checkpoint_tags()))
+        cs_fp = state_fp(cs)
+        tf_calls += 1
+        dispatches += cs.programs.dispatches("train_step")
+        if (res["shard"]["flips"], res["shard"]["failures"], res["shard"]["steps_run"]) != (1, 1, 4) \
+                or cs_fp != a_fp or rec.host_losses() != a_losses[4:]:
+            raise AssertionError(f"7b(c): the rotten shard {res['shard']}, bits "
+                                 f"{'equal' if cs_fp == a_fp else 'differ'}")
+        del cs, rec
+        release()
+        shutil.rmtree(dir_a)
+
+        # (b) the fault schedule, its preemption and resume
+        os.makedirs(dir_b)
+        fl = fault_leg(model, 2, dir_b)
+        dispatches += fl.pop("dispatches")
+        tf_calls += fl["tf_calls"]
+        shutil.rmtree(dir_b)
+        skipped = [1, 4]
+        fps = fl["step_fps"]
+        if fl["fp"] != fl["ref_fp"] or any(fps[i] != fps[i - 1] for i in skipped) or \
+                "degraded" not in fl["health"] or not fl["preempted"]:
+            raise AssertionError(f"7b(b): resumed bits {'equal' if fl['fp'] == fl['ref_fp'] else 'differ'}, "
+                                 f"skipped steps' TF {[(fps[i - 1], fps[i]) for i in skipped]}, "
+                                 f"health {fl['health']}, preempted {fl['preempted']}")
+        keys = ("preempted", "pre_step", "counters", "skips", "retries", "health", "tags",
+                "resumed_steps", "final_step", "post_skips", "post_retries", "ref")
+        diff = {k: (fl[k], dry[k]) for k in keys if fl[k] != dry[k]}
+        if diff:
+            raise AssertionError(f"7b(b): the card's decisions differ from the CPU dry run's: {diff}")
+        res["b"] = fl
+
+        # (d) the remat policies: equal losses, each one's wall and peak
+        remat = {}
+        for pol in (None, "dots", "dots_saveable"):
+            model.model.config = dataclasses.replace(cfg, remat_policy=pol)
+            torch.cuda.reset_peak_memory_stats()
+            tr, rec, _ = loop_fit(model, 2, steps=3)
+            remat[pol] = dict(losses=rec.host_losses(), walls=rec.walls(),
+                              peak=torch.cuda.max_memory_allocated())
+            dispatches += tr.programs.dispatches("train_step")
+            del tr, rec
+            release()
+        model.model.config = cfg
+        if len({tuple(v["losses"]) for v in remat.values()}) != 1:
+            raise AssertionError(f"7b(d): the remat policies' losses differ: {remat}")
+        res["remat"] = remat
+    finally:
+        shutil.rmtree(LOOP_CKPT, ignore_errors=True)
+    launches = {name: c.launches for name, c in counters.items()}
+    seg = torch.from_numpy(packed_batch(cfg.vocab_size, 2, LOOP_SEQ, LOOP_DATA_SEED)["segment_ids"])
+    res["formula_flops"] = (6.0 * (n_params - model.model.embed.weight.numel()) * 2 * LOOP_SEQ
+                            + 12.0 * cfg.head_dim_ * cfg.num_heads * cfg.num_layers
+                            * live_pairs(seg.cuda(), 2, LOOP_SEQ, "cuda"))
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_attention=2 * LOOP_LAYERS * dispatches,
+                flash_attention_dkdv=LOOP_LAYERS * dispatches,
+                flash_attention_dq=LOOP_LAYERS * dispatches, tree_fingerprint=tf_calls)
+    if launches != want:
+        raise AssertionError(f"7b launches {launches} != {want} ({dispatches} train-step dispatches)")
+    peak = max([v["peak"] for v in res["sent"].values()] + [res["a"]["peak"]]
+               + [v["peak"] for v in res["remat"].values()])
+    if peak >= 72 * 2**30:
+        raise AssertionError(f"7b peak memory {peak / 2**30:.2f} GiB >= 72 GiB")
+    # TF over a train state of these shapes (the parameters, two moment
+    # buffers, the count and the guard) against its bytes bound, after the
+    # counted window: a comparison, not the main path
+    params = [p.detach() for p in model.parameters()]
+    leaves = params + [torch.zeros_like(p) for p in params] * 2 + [
+        torch.zeros((), dtype=torch.int32, device="cuda"),
+        torch.zeros((), device="cuda"), torch.zeros((), dtype=torch.int32, device="cuda"),
+        torch.zeros((), dtype=torch.int32, device="cuda")]
+    prog = TreeFingerprint(leaves)
+    nbytes = prog.nbytes + 8
+    res["tf"].update(ms=cuda_ms(prog, 10), plain_ms=cuda_ms(
+        lambda: tree_fingerprint_plain(leaves), 1, warmup=1), bound_ms=nbytes / PEAK_BYTES * 1e3,
+        bound_by="bytes")
+    if int(prog()) != int(tree_fingerprint_plain(leaves)):
+        raise AssertionError("7b: TF over the train state differs from its plain version")
+    del leaves, prog, params
+    release()
+    res.update(launches=launches, dispatches=dispatches, tf_calls=tf_calls, peak_gib=peak / 2**30,
+               wall_s=time.perf_counter() - t_phase, dry=dry)
+    return res
+
+
 def ptxas_lines(report: list, sym: str) -> list:
     """The ``ptxas -v`` lines of kernel ``sym`` in a library's report."""
     at = next(i for i, line in enumerate(report) if "entry function" in line and sym in line)
@@ -5992,6 +6416,76 @@ def decode_resources() -> tuple:
     if any("0 bytes spill stores, 0 bytes spill loads" not in line for line in spills):
         raise AssertionError("a decode kernel spills:\n" + "\n".join(spills))
     return out, len(spills)
+
+
+def log_loop_phase(lp: dict, smi: str) -> None:
+    """Phase 7b's report lines."""
+    med = statistics.median
+    a, b, sent, tf = lp["a"], lp["b"], lp["sent"], lp["tf"]
+    log(f"phase 7b ({smi}): Trainer.fit, llama3_8b width cut to {LOOP_LAYERS} layers "
+        f"({lp['n_params']} parameters: fp32 masters, AdamW lr {LOOP_LR} wd 0.1 clip 1.0, remat on), "
+        f"phase 7's packed batches from a seed (B = 2, S = {LOOP_SEQ}; the sentinel leg at B = 1), "
+        f"{lp['free_gb']:.1f} GB free for checkpoints; wall {lp['wall_s']:.1f} s, the CPU dry run "
+        f"{lp['dry_s']:.1f} s of it")
+    log("7b(a) losses: " + ", ".join(f"{x:.5f}" for x in a["losses"])
+        + "; step walls (s): " + ", ".join(f"{x:.4f}" for x in a["walls"]))
+    log(f"7b(a): host reads {a['reads']} = steps; tags {a['tags']} (keep-last 2), {a['tag_bytes']} "
+        f"B a tag; async save stalls (the host copy) "
+        + ", ".join(f"{x:.3f}" for x in a["stalls"]) + f" s; step_8 {a['verify8']} in "
+        f"{a['verify_s']:.2f} s; TF over the final state {a['fp']:#010x} = plain; the fresh fit "
+        f"from step_4 (verify, load, 4 steps) {a['resume_wall_s']:.2f} s: steps 5-8's losses and "
+        f"the final TF equal bit for bit; resumed step walls "
+        + ", ".join(f"{x:.4f}" for x in a["resumed_walls"]))
+    reg = a["registry"]
+    log(f"7b(a) MetricsCallback: train_steps {reg.get('train_steps')}, train_tokens_seen "
+        f"{reg.get('train_tokens_seen')}, train_loss {reg.get('train_loss')}, "
+        f"train_anomaly_skips {reg.get('train_anomaly_skips')}")
+    prog = a["prog"]
+    wall = med(a["walls"][1:])
+    log(f"7b(a) trainer ledger, train_step: {prog['dispatches']} dispatches, {prog['compiles']} "
+        f"compile(s), {prog['flops_per_dispatch']:.5g} FLOPs a dispatch (metered at the first, remat "
+        f"recompute included), wall p50 {prog.get('wall', {}).get('p50_s', 'unavailable')}, MFU "
+        f"p50 {prog.get('mfu_p50', 'unavailable')}; phase 7's formula (6 x non-embedding params x "
+        f"tokens + attention, no recompute) at this depth: {lp['formula_flops']:.5g} FLOPs, "
+        f"mfu {lp['formula_flops'] / wall / PEAK_BF16_FLOPS:.4f} at the median wall {wall:.4f} s")
+    log(f"7b(b) schedule {LOOP_SCHEDULE}, warm-up 2: counters {b['counters']}, anomaly_skips "
+        f"{b['skips']}, dispatch_retries {b['retries']}, health by step {b['health']}, "
+        f"preempted at step {b['pre_step']} ({b['preempt_s']:.2f} s from the last step to the "
+        f"return: the sync save of step_{b['pre_step']}), tags {b['tags']}; the skipped steps' TF "
+        f"unchanged; the resume ({b['resume_s']:.2f} s, {b['resumed_steps']} steps) reaches the "
+        f"uninterrupted schedule's final bits {b['fp']:#010x}; = the CPU dry run at tiny width")
+    c_walls = lp["c_walls"]
+    cl = sent["clean"]["walls"]
+    checks = [cl[i] for i in range(len(cl)) if (i + 1) % LOOP_EVERY == 0]
+    plain = [cl[i] for i in range(1, len(cl)) if (i + 1) % LOOP_EVERY != 0]
+    log(f"7b(c) SentinelConfig(check_every={LOOP_EVERY}), B = 1: clean {sent['clean']['counters']}, "
+        f"losses and final TF = the sentinel-off run's; step wall (median, steps 2-8 but checks) "
+        f"{med(plain):.4f} s with the sentinel, {med(c_walls[1:]):.4f} s without; check steps "
+        + ", ".join(f"{x:.4f}" for x in checks)
+        + f" s (+{med(checks) - med(plain):.4f} s a check: a second step, three state copies, two "
+        f"TF); snapshots {sent['clean']['snap_bytes']} B = 2 x the state; host reads "
+        f"{sent['clean']['reads']} = steps")
+    for name in ("flip7", "flip5"):
+        v = sent[name]
+        log(f"7b(c) flip_bits('params', at={name[-1]}): {v['counters']}, events {v['events']}, final "
+            f"bits {'= the clean run' if v['fp'] == lp['c_fp'] else 'differ from the clean run'}"
+            + ("" if name == "flip7" else " (between checks: outside the canary's reach, as "
+               "JAX's)"))
+    sh = lp["shard"]
+    log(f"7b(c) flip_bits('checkpoint_shard') on step_8: the restore failed verification and fell "
+        f"back to step_4 (checkpoint_integrity_failures {sh['failures']}, tags left {sh['tags']}), "
+        f"{sh['steps_run']} steps retrained to the clean final bits, {sh['wall_s']:.2f} s")
+    for pol, v in lp["remat"].items():
+        log(f"7b(d) remat_policy {pol}: losses " + ", ".join(f"{x:.5f}" for x in v["losses"])
+            + f" (equal across the policies), step wall (median of steps 2-3) "
+            f"{med(v['walls'][1:]):.4f} s, peak {v['peak'] / 2**30:.2f} GiB")
+    log(f"7b launches {lp['launches']}: K1 = 2 x {LOOP_LAYERS} layers x {lp['dispatches']} "
+        f"train-step dispatches (forward and recompute), K2 = K3 = {LOOP_LAYERS} x "
+        f"{lp['dispatches']}, TF {lp['tf_calls']} (two a check and the gates' own); peak "
+        f"{lp['peak_gib']:.2f} GiB")
+    log(f"TF tree_fingerprint over the train state ({smi}; {tf['leaves']} leaves: params, mu, nu, "
+        f"count, guard; {tf['bytes']} B): kernel_ms {tf['ms']:.4f} plain_ms {tf['plain_ms']:.4f} "
+        f"bound_ms {tf['bound_ms']:.4f} ({tf['bound_by']}; {tf['ms'] / tf['bound_ms']:.2f}x)")
 
 
 def main() -> int:
@@ -6338,17 +6832,20 @@ def main() -> int:
         + f"; busy {busy:.2f} of the unprofiled step wall {1e3 * tr['wall']:.2f} "
         f"(idle share {1 - busy / (1e3 * tr['wall']):.3f})")
 
+    lp = loop_phase(smi)
+    log_loop_phase(lp, smi)
+
     k1_main = k1[1]  # the serving prefill at S=4096
     launches = {name: srv["launches"][name] + fused["launches"][name] + pre["launches"][name]
                 + spec["launches"][name] + med["launches"][name] + quant["launches"][name]
                 + fault["launches"][name] + slo["launches"][name] + tier["launches"][name]
                 + weights["launches"][name] + fabric["launches"][name]
-                + integ["launches"][name] + tr["launches"][name]
+                + integ["launches"][name] + tr["launches"][name] + lp["launches"][name]
                 for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
         f"speculative serving row and paged, Medusa, quantized serving, the fault contract, "
         f"SLO-aware multi-tenant serving, the host page tier, weights that change, the serving "
-        f"fabric, integrity and program observability, training): "
+        f"fabric, integrity and program observability, training, the training loop): "
         f"{launches}; "
         f"on the multi-row path (prefix-cache serving): {pre['multi_row']}; the speculative "
         f"rounds' verify windows (s = {SPEC_GAMMA}): {spec['verify']}")
@@ -6449,7 +6946,9 @@ def main() -> int:
              launches=launches["tree_fingerprint"], max_abs_err=0.0, ms=tf["bf16"]["ms"],
              plain_ms=tf["bf16"]["plain_ms"], bound_ms=tf["bf16"]["bound_ms"],
              bound_by=tf["bf16"]["bound_by"], library_ms=None, int8_ms=tf["int8"]["ms"],
-             int8_bound_ms=tf["int8"]["bound_ms"]),
+             int8_bound_ms=tf["int8"]["bound_ms"], train_state_ms=lp["tf"]["ms"],
+             train_state_plain_ms=lp["tf"]["plain_ms"],
+             train_state_bound_ms=lp["tf"]["bound_ms"]),
         # DQ computes what XLA fuses into the quantized matmul's load
         dict(name="dequantize", route="cuda",
              source="neuronx_distributed_tpu_torch/csrc/dequantize.cu",

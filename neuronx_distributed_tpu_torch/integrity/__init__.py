@@ -1,8 +1,13 @@
-"""Silent data corruption: the serving side (counterpart of
-``neuronx_distributed_tpu/integrity``): :mod:`.voting`, the host vote over
-replicas' fingerprints, and :mod:`.chaos`, the bit-flip hands of the
+"""Silent data corruption (counterpart of ``neuronx_distributed_tpu/integrity``):
+:mod:`.sentinel`, the trainer's canary check with rollback; :mod:`.voting`,
+the host vote over replicas' fingerprints; :mod:`.checkpoint`, the CRC
+manifests of verified checkpoints; :mod:`.chaos`, the bit-flip hands of the
 ``flip_bits`` schedules. The fingerprint itself lives in
-``utils/fingerprint.py``. The trainer's sentinel and the verified
-checkpoints wait for the trainer loop (``ROADMAP.md`` item 7)."""
+``utils/fingerprint.py``."""
 
+from neuronx_distributed_tpu_torch.integrity.sentinel import (  # noqa: F401
+    SentinelConfig,
+    SentinelVerdict,
+    TrainerSentinel,
+)
 from neuronx_distributed_tpu_torch.integrity.voting import VoteVerdict, vote, vote_sequence  # noqa: F401

@@ -18,12 +18,20 @@ each product (JAX ``llama.py:61``); the embedding stays in the compute
 dtype. Such a model serves only (``ServingEngine(quantize=)`` builds one
 from a float model). With
 ``remat`` each decoder layer of a differentiated train-mode forward runs
-under activation checkpointing (JAX ``nn.remat``, policy ``None``).
+under activation checkpointing (JAX ``nn.remat``, ``_remat_layer_cls``):
+``remat_policy`` None recomputes everything, ``"dots"`` keeps the outputs of
+the products without batch dimensions (``mm``/``addmm``: the linears) and
+``"dots_saveable"`` those of every product (``bmm`` too), through
+``torch.utils.checkpoint``'s selective-checkpoint contexts. K1 is no torch
+product: its output is recomputed under every policy, as JAX recomputes a
+``pallas_call``. A policy only chooses what is kept, so the gradients are
+policy None's bit for bit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 from typing import Optional
@@ -31,7 +39,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from neuronx_distributed_tpu_torch.modules.attention import (
     KVCache,
@@ -70,12 +82,36 @@ class LlamaConfig:
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
     remat: bool = True  # activation checkpointing per decoder layer (training)
+    # what remat keeps: None (nothing), "dots" or "dots_saveable" (REMAT_POLICIES)
+    remat_policy: Optional[str] = None
     # weight-only serving quantization of every linear (not the embedding)
     quantization: Optional[QuantizationConfig] = None
 
     @property
     def head_dim_(self) -> int:
         return self.head_dim or self.hidden_size // self.num_heads
+
+
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+# the ops whose outputs each policy keeps: JAX's
+# dots_with_no_batch_dims_saveable and dots_saveable
+REMAT_POLICIES = {None: (), "dots": _MM, "dots_saveable": _MM + _BATCHED}
+
+
+def remat_context_fn(policy: Optional[str]):
+    """The ``context_fn`` of ``torch.utils.checkpoint.checkpoint`` for a
+    remat policy, or None for policy None (recompute everything)."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {policy!r}; one of {sorted(map(str, REMAT_POLICIES))}")
+    saved = REMAT_POLICIES[policy]
+    if not saved:
+        return None
+
+    def keep(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in saved else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return functools.partial(create_selective_checkpoint_contexts, keep)
 
 
 def llama2_7b(**over) -> LlamaConfig:
@@ -231,10 +267,15 @@ class LlamaModel(nn.Module):
             cache.decode_valid(padding_mask, s)
             padding_mask = None  # persisted in the cache; attention reads kv_valid
         remat = self.config.remat and mode == "train" and torch.is_grad_enabled()
+        kw = {}
+        if remat:
+            context_fn = remat_context_fn(self.config.remat_policy)
+            if context_fn is not None:
+                kw["context_fn"] = context_fn
         for i, layer in enumerate(self.layers):
             args = (x, self.freqs, positions, mode, cache, i, q_pos, segment_ids, padding_mask,
                     attn_mask)
-            x = checkpoint(layer, *args, use_reentrant=False) if remat else layer(*args)
+            x = checkpoint(layer, *args, use_reentrant=False, **kw) if remat else layer(*args)
         if mode == "decode":
             # on the device, in place: a decode forward changes no host
             # state, so a captured step replays it at every column

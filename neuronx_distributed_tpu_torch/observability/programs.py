@@ -20,9 +20,11 @@ capture.
 Cost, once per variant, never at a replay and never at an ordinary
 dispatch (a request must not pay for it): at the variant's first dispatch
 under :meth:`ProgramLedger.prewarming` (a manifest prewarm,
-``inference/aot.py``), or at a graph program's capture (its eager
-warm-up; on the CPU, where nothing is captured, its first dispatch), the
-call runs under :class:`CostMeter`, a ``TorchDispatchMode``. A variant
+``inference/aot.py``), at a graph program's capture (its eager
+warm-up; on the CPU, where nothing is captured, its first dispatch), or at
+the first dispatch of a program wrapped with ``meter_first=True`` (the
+trainer's steps: no request waits on them), the call runs under
+:class:`CostMeter`, a ``TorchDispatchMode``. A variant
 first dispatched outside both is a compile that runs unmetered, and its
 cost reads UNAVAILABLE until a prewarm dispatches it. The meter counts
 
@@ -380,10 +382,12 @@ class LedgeredProgram:
     ``DecodeProgram``). ``last_call_compiled`` lets a caller skip a
     compile-polluted wall."""
 
-    def __init__(self, ledger: "ProgramLedger", record: _ProgramRecord, fn):
+    def __init__(self, ledger: "ProgramLedger", record: _ProgramRecord, fn,
+                 meter_first: bool = False):
         self._ledger = ledger
         self._record = record
         self._inner = fn
+        self._meter_first = meter_first
         self.last_call_compiled = False
 
     @property
@@ -457,7 +461,8 @@ class LedgeredProgram:
             # dispatch, such as one serving a request, never runs under the
             # dispatch mode
             meter = CostMeter() if (var is None or not var.analyzed) and (
-                ledger._prewarm_depth or hasattr(inner, "captures")) else None
+                ledger._prewarm_depth or hasattr(inner, "captures")
+                or self._meter_first) else None
             if var is None:
                 t0 = ledger._clock()
                 try:
@@ -555,13 +560,15 @@ class ProgramLedger:
                 self, lambda led: led._mfu_last(name), -1.0))
         return rec
 
-    def wrap(self, name: str, fn) -> LedgeredProgram:
+    def wrap(self, name: str, fn, meter_first: bool = False) -> LedgeredProgram:
         """A dispatch-counting proxy for ``fn`` under ``name``. Wrapping a
         name again (a lazy rebuild, a second engine on a shared ledger)
-        shares the record: counts ACCUMULATE."""
+        shares the record: counts ACCUMULATE. ``meter_first``: a new
+        variant's first ordinary dispatch runs under the cost meter (for
+        programs no request waits on, such as a train step)."""
         if isinstance(fn, LedgeredProgram):
             fn = fn.__wrapped__
-        return LedgeredProgram(self, self._get_record(name), fn)
+        return LedgeredProgram(self, self._get_record(name), fn, meter_first)
 
     @contextlib.contextmanager
     def prewarming(self):

@@ -13,7 +13,8 @@ from the host: metrics come back as device tensors.
 
 One device has nothing to shard, so the ZeRO-1 and mesh arguments of the
 JAX API are gone (``create_train_state`` returns the state alone, and
-``build_train_step`` takes no shardings).
+``build_train_step`` takes no shardings). The training loop over this step
+(checkpoints, resume, faults, the SDC sentinel) is ``trainer/loop.py``.
 """
 
 from __future__ import annotations
@@ -30,14 +31,17 @@ from torch import nn
 from neuronx_distributed_tpu_torch.models.llama import init_params
 from neuronx_distributed_tpu_torch.parallel.grads import clip_grad_norm
 from neuronx_distributed_tpu_torch.parallel.losses import parallel_cross_entropy
+from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """AdamW and step settings (JAX ``OptimizerConfig``, ``trainer.py:39``)
-    without ``zero1`` (one device has nothing to shard) and without
-    ``grad_accum_steps``, which the JAX training loop reads: here it is an
-    argument of :func:`build_train_step`."""
+    without ``zero1`` (one device has nothing to shard; ZeRO-1 comes with the
+    multi-GPU slice). ``grad_accum_steps`` > 1 splits each batch into that
+    many microbatches whose gradients the step accumulates; the training
+    loop reads it, as JAX's does (``build_train_step(grad_accum_steps=)``
+    takes it directly)."""
 
     learning_rate: float = 3e-4
     weight_decay: float = 0.1
@@ -45,6 +49,7 @@ class OptimizerConfig:
     beta2: float = 0.95
     eps: float = 1e-8
     max_grad_norm: float = 1.0
+    grad_accum_steps: int = 1
     warmup_steps: int = 0
     lr_schedule: str = "constant"  # constant | cosine
     total_steps: int = 10000
@@ -61,22 +66,37 @@ class AnomalyGuardConfig:
     exceeds ``spike_factor ×`` the EMA of past good steps' norms. Anomalous
     steps leave params and optimizer state bit-identical (a per-leaf
     ``torch.where`` on the device, no host read); the EMA learns only from
-    good steps. The JAX ``budget`` on total skips is enforced by the training
-    loop, which reads the ``anomaly_skips`` metric; it comes with the loop."""
+    good steps.
+
+    ``budget`` bounds the TOTAL skipped steps: the training loop
+    (``trainer/loop.py``) reads the ``anomaly_skips`` metric one step late
+    and halts with an emergency checkpoint once it exceeds the budget
+    (``None``: unbounded). The guard carry rides every checkpoint, so a
+    resumed run detects and budgets exactly as the uninterrupted run would."""
 
     spike_factor: float = 10.0
     warmup_steps: int = 10
     ema_decay: float = 0.95
+    budget: Optional[int] = 25
 
 
-def init_anomaly_guard_state(device=None) -> Dict[str, torch.Tensor]:
-    """The zeroed guard carry for ``TrainState.guard`` (JAX
-    ``init_anomaly_guard_state``; its ``values`` for resuming from a
-    checkpoint come with the checkpointing loop)."""
+def init_anomaly_guard_state(values: Optional[dict] = None,
+                             device=None) -> Dict[str, torch.Tensor]:
+    """The guard carry for ``TrainState.guard`` (JAX
+    ``init_anomaly_guard_state``): zeros for a fresh run, or a checkpoint's
+    carry (``values`` keyed like the tree) on resume. On the card unless
+    ``device`` says otherwise (:func:`~neuronx_distributed_tpu_torch.utils.
+    device.resolve_device`)."""
+    device = resolve_device(device)
+    values = values or {}
+
+    def leaf(name, dtype):
+        return torch.tensor(values.get(name, 0), dtype=dtype, device=device)
+
     return {
-        "gnorm_ema": torch.zeros((), dtype=torch.float32, device=device),
-        "good_steps": torch.zeros((), dtype=torch.int32, device=device),
-        "skips": torch.zeros((), dtype=torch.int32, device=device),
+        "gnorm_ema": leaf("gnorm_ema", torch.float32),
+        "good_steps": leaf("good_steps", torch.int32),
+        "skips": leaf("skips", torch.int32),
     }
 
 
@@ -85,12 +105,18 @@ class TrainState:
     """``step`` counts the steps taken (a host int: JAX's device scalar is
     only ever incremented); ``params`` is the trainable model, whose fp32
     parameters are the masters; ``opt_state`` is :meth:`AdamW.init`'s dict;
-    ``guard`` the anomaly-guard carry, or None without a guard."""
+    ``guard`` the anomaly-guard carry, or None without a guard.
+
+    ``updating`` is True from a step's first in-place write of the state to
+    its last: a step that raised with it set left the state torn (JAX's
+    consumed donated buffers), one that raised before it left the state as
+    it was."""
 
     step: int
     params: nn.Module
     opt_state: Dict
     guard: Optional[Dict[str, torch.Tensor]] = None
+    updating: bool = False
 
 
 # --- learning-rate schedules: optax's formulas on a device count ---------------
@@ -237,9 +263,15 @@ _BATCH_DTYPES = {"input_ids": torch.int64, "labels": torch.int64,
 
 
 def _to_device(batch, device) -> Dict[str, torch.Tensor]:
+    """The batch on ``device`` in the step's dtypes. Host data bound for the
+    card goes through pinned staging and a ``non_blocking`` copy (cast on the
+    card after), so moving a batch never waits for the step in flight."""
+    device = torch.device(device)
     out = {}
     for name, x in batch.items():
         t = torch.from_numpy(np.asarray(x)) if not torch.is_tensor(x) else x
+        if device.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory().to(device, non_blocking=True)
         out[name] = t.to(device=device, dtype=_BATCH_DTYPES.get(name, t.dtype))
     return out
 
@@ -298,6 +330,7 @@ def build_train_step(model, optimizer: AdamW, max_grad_norm: float = 1.0,
             # spike check on the PRE-clip norm (clipping would mask it)
             spike = warmed & (grad_norm > anomaly_guard.spike_factor * g["gnorm_ema"])
             good = finite & ~spike
+        state.updating = True  # the first in-place write of the state
         optimizer.update(params, grads, state.opt_state, good)
         if anomaly_guard is not None:
             d = anomaly_guard.ema_decay
@@ -310,6 +343,7 @@ def build_train_step(model, optimizer: AdamW, max_grad_norm: float = 1.0,
             metrics["good_step"] = good
             metrics["anomaly_skips"] = g["skips"].clone()
         state.step += 1
+        state.updating = False
         return state, metrics
 
     return step_fn

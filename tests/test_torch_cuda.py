@@ -1941,3 +1941,82 @@ def test_integrity_vote_convicts_a_flipped_replica(cuda):
                and len(router.requests[r.rid].tokens) == 12 for r in reqs)
     fps = {router.replicas[i].integrity_fingerprint() for i in (1, 2)}
     assert len(fps) == 1 and router.replicas[0].integrity_fingerprint() not in fps
+
+
+def _packed_source(n_batches=64):
+    """A cursor-carrying source of packed 2 x 256 batches (two documents a
+    row) for the training loop on the card."""
+
+    class Source:
+        def __init__(self):
+            self.i = 0
+
+        def state(self):
+            return {"batch": self.i}
+
+        def restore(self, st):
+            self.i = int(st["batch"])
+
+        def __iter__(self):
+            while True:
+                rng = np.random.default_rng([7, self.i])
+                self.i += 1
+                ids = rng.integers(1, 1000, size=(2, 257))
+                seg = np.zeros((2, 256), np.int32)
+                seg[:, 100:] = 1
+                yield {"input_ids": ids[:, :-1], "labels": ids[:, 1:], "segment_ids": seg,
+                       "loss_mask": np.ones((2, 256), np.float32)}
+
+    return Source()
+
+
+def _canary_trainer(inj=None):
+    from neuronx_distributed_tpu_torch.integrity import SentinelConfig
+    from neuronx_distributed_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from neuronx_distributed_tpu_torch.trainer import Trainer
+
+    cfg = LlamaConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                      num_heads=4, num_kv_heads=2, max_seq_len=512)
+    return Trainer(model=LlamaForCausalLM(cfg, trainable=True), fault_injector=inj,
+                   integrity=SentinelConfig(check_every=2))
+
+
+@pytest.mark.cuda
+def test_canary_check_on_card_judges_a_clean_step_clean(cuda):
+    """The canary runs a check step twice on the card and compares TF over
+    the state: a clean run's steps (K1, K2, K3, cuBLAS, the optimizer) are
+    bitwise reproducible, so every check is clean, and the state equals a
+    sentinel-off run's bit for bit; TF launches twice a check."""
+    from neuronx_distributed_tpu_torch.kernels import tree_fingerprint as ttf
+    from neuronx_distributed_tpu_torch.trainer import Trainer
+
+    tr = _canary_trainer()
+    n = ttf.tree_fingerprint_fwd.launches
+    tr.fit(_packed_source(), 0, max_steps=6)
+    s = tr._sentinel
+    assert s.counters == {"integrity_checks": 3, "sdc_detected": 0, "sdc_unlocalized": 0,
+                          "sdc_rollbacks": 0}
+    assert ttf.tree_fingerprint_fwd.launches - n == 6 and tr.host_reads == 6
+    got = [t.clone() for t in tr._state_leaves()]  # the next fit re-initialises the model
+    ref = Trainer(model=tr.model)
+    ref.fit(_packed_source(), 0, max_steps=6)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref._state_leaves()))
+
+
+@pytest.mark.cuda
+def test_canary_on_card_convicts_a_flip_and_rolls_back(cuda):
+    """A flipped parameter bit at check step 3: the two runs' TF values
+    differ, the run rolls back to step 2 and retrains to the clean final
+    state bit for bit."""
+    from neuronx_distributed_tpu_torch.trainer import Trainer
+    from neuronx_distributed_tpu_torch.trainer.faults import FaultInjector
+
+    tr = _canary_trainer(FaultInjector().flip_bits("params", at=3))
+    tr.fit(_packed_source(), 0, max_steps=6)
+    s = tr._sentinel
+    assert s.counters["sdc_detected"] == 1 and s.counters["sdc_rollbacks"] == 1
+    assert tr.step == 6 and tr.fault_injector.counters["bit_flips"] == 1
+    got = [t.clone() for t in tr._state_leaves()]
+    ref = Trainer(model=tr.model)
+    ref.fit(_packed_source(), 0, max_steps=6)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref._state_leaves()))

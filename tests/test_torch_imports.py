@@ -137,6 +137,18 @@ def test_every_module_imports_and_runs_with_jax_blocked():
         medusa = init_medusa_heads(MedusaForCausalLM(tiny_llama(), 3, base=model), seed=1)
         toks, _ = medusa_generate(medusa, np.array([[3, 4, 5]]), 5)
         assert toks[0].tolist() == solo, (toks, solo)
+        import tempfile
+        from neuronx_distributed_tpu_torch.integrity import SentinelConfig
+        from neuronx_distributed_tpu_torch.trainer import CheckpointCallback, Trainer
+        from neuronx_distributed_tpu_torch.trainer.data import SyntheticTokens
+        with tempfile.TemporaryDirectory() as d:
+            tmodel = LlamaForCausalLM(tiny_llama(num_layers=2), device="cpu", trainable=True)
+            tr = Trainer(model=tmodel, integrity=SentinelConfig(check_every=2),
+                         callbacks=[CheckpointCallback(d, every=2)])
+            tr.fit(SyntheticTokens(256, 2, 8, seed=0), 0, max_steps=4)
+            resumed = Trainer(model=tmodel)
+            resumed.fit(SyntheticTokens(256, 2, 8, seed=0), 1, max_steps=5, resume_from=d)
+            assert resumed.steps_run == 1 and tr._sentinel.counters["integrity_checks"] == 2
         assert not any(k.split(".")[0] in {FORBIDDEN!r} and sys.modules[k] is not None
                        for k in sys.modules)
         print("ok")
@@ -171,7 +183,13 @@ def test_every_module_imports_and_runs_with_jax_blocked():
             "neuronx_distributed_tpu_torch.integrity",
             "neuronx_distributed_tpu_torch.integrity.voting",
             "neuronx_distributed_tpu_torch.integrity.chaos",
-            "neuronx_distributed_tpu_torch.kernels.tree_fingerprint"} <= set(_port_modules())
+            "neuronx_distributed_tpu_torch.kernels.tree_fingerprint",
+            "neuronx_distributed_tpu_torch.trainer.loop",
+            "neuronx_distributed_tpu_torch.trainer.checkpoint",
+            "neuronx_distributed_tpu_torch.trainer.faults",
+            "neuronx_distributed_tpu_torch.integrity.sentinel",
+            "neuronx_distributed_tpu_torch.integrity.checkpoint",
+            "neuronx_distributed_tpu_torch.observability.callback"} <= set(_port_modules())
 
 
 def test_slo_serving_pieces_are_the_ports_own():
@@ -207,9 +225,14 @@ def test_fault_contract_pieces_are_the_ports_own():
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):
+    from neuronx_distributed_tpu_torch.trainer import init_anomaly_guard_state
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device(None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_anomaly_guard_state()  # the guard carry defaults to the card
+    assert init_anomaly_guard_state(device="cpu")["skips"].device.type == "cpu"
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tllama.LlamaForCausalLM(tllama.tiny_llama())
     with pytest.raises(RuntimeError, match="CUDA is not available"):

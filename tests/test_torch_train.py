@@ -223,7 +223,7 @@ def test_anomaly_guard_skips_a_nan_batch_bit_identically(flax_params):
     model = _port_model(flax_params)
     opt = ttrainer.make_optimizer(ttrainer.OptimizerConfig(learning_rate=LR))
     state = ttrainer.TrainState(0, model, opt.init(list(model.parameters())),
-                                guard=ttrainer.init_anomaly_guard_state())
+                                guard=ttrainer.init_anomaly_guard_state(device="cpu"))
     step = ttrainer.build_train_step(model, opt, anomaly_guard=ttrainer.AnomalyGuardConfig())
     batches = _synthetic_batches(3)
     state, m = step(state, batches[0])
