@@ -46,7 +46,14 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    per-page pool fingerprints of a paged prefix hit) over 100 pages in
    scrambled order of phase 5b's bf16 pool and of phase 5f(c)'s int8 pool
    with scales, bitwise equal to its plain version, one flipped bit moving
-   its page's value alone, timed against its bytes bound;
+   its page's value alone, timed against its bytes bound; MX and MXq (the
+   routed SwiGLU expert product of a MoE decode step, bf16 and int8/fp8
+   experts) at Mixtral-8x7B's shapes against their plain version stage by
+   stage (a dropped tile or pair must fail the limits), on random routes
+   at T = 8 and 1, every pair on one expert and one expert untouched, two
+   runs and three graph replays bitwise equal, timed (graph replay) against
+   the bytes of the experts the call touches, the plain version and
+   ``torch._grouped_mm`` over the same expert-sorted pairs;
 3. outputs: the full-width model's logits through the kernels, with a row
    cache and with a paged cache behind a scrambled block table, against the
    same model with the plain versions swapped in, on a short prompt;
@@ -257,6 +264,22 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    replayed, the first request captures and builds nothing, TTFT against a
    cold replica's. Phase 2's TF check (bf16 Llama-3-8B weights, 5f(a)'s
    int8 tensors) runs once the model is built;
+5m. Mixtral serving at Mixtral-8x7B width (hidden 4096, 32/8 heads, 8
+   experts top-2, intermediate 14336, vocab 32000; random weights from seed
+   0; run after the Llama model is freed): (a) bf16 cut to 16 layers (~47
+   GB): the kernel path against the plain path on a short prompt (phase
+   3's limits), phase 4's requests through a row engine at 8 slots (MX 16
+   a replay), its eager witness bit for bit, solo ``generate``, a profiled
+   rerun (idle share), phase 5b's traffic through a paged engine at 16
+   slots (the blockwise route's sort and ``torch._grouped_mm`` under the
+   capture) and its eager witness, phase 5c's prefix wave on the row
+   engine (11 hits, 1 miss; each hit's logits against a full prefill's,
+   and against MX's plain version on the same route); (b) int8 and fp8
+   copies of an 8-layer model teacher-forced against it: JAX's Mixtral
+   criterion (median relative error < 0.02, 95% under 0.1) and the max KL;
+   (c) the full 32-layer model with int8 weights, filled weight by weight
+   on the card, phase 4's requests at 8 slots: MXq 32 and DQ 129 a replay,
+   peak memory under 72 GiB;
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -1137,6 +1160,231 @@ def check_pf(gen) -> dict:
 ROWS_PREFIX, ROWS_PADDED = 1600, 2048  # phase 5c's shared prompt and its prefill bucket
 
 
+MX_E, MX_H, MX_I, MX_TOPK = 8, 4096, 14336, 2  # Mixtral-8x7B's expert shapes
+MX_CASES = (("random", 8), ("random", 1), ("skewed", 8), ("untouched", 8))
+MX_UNTOUCHED = 5  # the expert no pair routes to in the "untouched" case
+
+
+def mx_routes(gen, case: str, t: int):
+    """``(top_e, top_w)`` of ``t`` tokens, top-2 of 8: "random" (two
+    distinct experts a token), "skewed" (every pair on expert 3: a token's
+    two slots on one expert, 2t pairs on it) or "untouched" (random over
+    the experts but MX_UNTOUCHED)."""
+    if case == "skewed":
+        top_e = torch.full((t, MX_TOPK), 3, dtype=torch.int64, device="cuda")
+    else:
+        pool = MX_E - (case == "untouched")
+        top_e = torch.rand(t, pool, generator=gen, device="cuda").argsort(-1)[:, :MX_TOPK]
+        if case == "untouched":
+            top_e = top_e + (top_e >= MX_UNTOUCHED).long()
+    w = torch.rand(t, MX_TOPK, generator=gen, device="cuda") + 0.1
+    return top_e, w / w.sum(-1, keepdim=True)
+
+
+def mx_weights(gen) -> dict:
+    """Mixtral-8x7B's expert stacks of one layer from ``gen`` (torch's (E,
+    out, in), N(0, 1/fan_in)) in bf16, and quantized per expert and output
+    channel to int8 and fp8 (``quantize_weight``, the rule of
+    ``quantize_state_dict``)."""
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    from neuronx_distributed_tpu_torch.quantization.utils import quantize_weight
+
+    out = {"bf16": {}, "int8": {}, "fp8": {}}
+    for name, shape in (("gate", (MX_E, MX_I, MX_H)), ("up", (MX_E, MX_I, MX_H)),
+                        ("down", (MX_E, MX_H, MX_I))):
+        w = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+        w.normal_(0.0, 1.0 / math.sqrt(shape[-1]), generator=gen)
+        out["bf16"][name] = w
+        for kind in ("int8", "fp8"):
+            q, s = quantize_weight(w, QuantConfig(weights=kind).weight_qconfig())
+            out[kind][name], out[kind][name + "_scale"] = q, s
+    return out
+
+
+def mx_args(ws: dict) -> tuple:
+    return (ws["gate"], ws["up"], ws["down"], ws.get("gate_scale"), ws.get("up_scale"),
+            ws.get("down_scale"))
+
+
+def mx_ratio(got, ref, limit) -> float:
+    return float(((got.float() - ref.float()).abs() / limit).max())
+
+
+@contextlib.contextmanager
+def f32_reductions():
+    """bf16 products of the plain versions accumulate in f32 throughout
+    (no reduced-precision split-K reduction), as the kernel does."""
+    old = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = old
+
+
+def mx_stage_check(x, top_e, top_w, ws: dict) -> dict:
+    """MX/MXq against the plain version, stage by stage, with limits that
+    bound what the two sides may differ by (the same bf16 rounding points;
+    f32 sums in other orders: at most 2 n 2^-24 of the sum of |terms| over
+    n terms, 2^-11 for H = 4096, 2^-9 for I = 14336; a bf16 rounding that
+    then lands one ulp apart, 2^-8 relative, up to three such in the
+    SwiGLU):
+    act (the SwiGLU activations) <= 2^-6 |act| + 2^-11 (1.1 |u| G + |s| U)
+    with G, U the sums of |x||gate|, |x||up| and s = silu(g); y (each pair's
+    down output, against the plain product of the kernel's own act) <= 2^-8
+    |y| + 2^-9 D, D the sum of |act||down|; out <= 2^-7 |out| + 2^-9 sum_j
+    |w_j| D_j (D from the plain act). A dropped act tile (16 rows of one
+    expert), a dropped down tile (32 rows) and a dropped pair each must read
+    above 1."""
+    from neuronx_distributed_tpu_torch.kernels import moe_experts as mx
+
+    dt = torch.bfloat16
+    gate, up, down, gs, us, ds = mx_args(ws)
+    t, k = top_e.shape
+    out, act, y = mx._kernel_call(x, top_e, top_w, gate, up, down, gs, us, ds)
+    act, y = act.reshape(t, k, MX_I), y.reshape(t, k, MX_H)
+    with f32_reductions():
+        G = mx.gathered(gate, gs, top_e, dt)
+        g = torch.einsum("th,tkih->tki", x, G)
+        Gm = torch.einsum("th,tkih->tki", x.float().abs(), G.float().abs())
+        del G
+        U = mx.gathered(up, us, top_e, dt)
+        u = torch.einsum("th,tkih->tki", x, U)
+        Um = torch.einsum("th,tkih->tki", x.float().abs(), U.float().abs())
+        del U
+        s = torch.nn.functional.silu(g)
+        act_ref = s * u
+        D = mx.gathered(down, ds, top_e, dt)
+        y_ref = torch.einsum("tki,tkhi->tkh", act_ref, D)
+        y_own = torch.einsum("tki,tkhi->tkh", act, D)
+        Df = D.float().abs()
+        del D
+        Md_own = torch.einsum("tki,tkhi->tkh", act.float().abs(), Df)
+        Md_ref = torch.einsum("tki,tkhi->tkh", act_ref.float().abs(), Df)
+        del Df
+        out_ref = torch.einsum("tkh,tk->th", y_ref, top_w.to(dt))
+        plain = mx.moe_experts_plain(x, top_e, top_w, gate, up, down, gs, us, ds)
+    if not torch.equal(plain, out_ref):
+        raise AssertionError("moe_experts_plain differs from its own stages")
+    lim_act = (2.0 ** -6 * act_ref.float().abs() + 2.0 ** -11 * (
+        1.1 * u.float().abs() * Gm + s.float().abs() * Um) + 1e-6)
+    lim_y = 2.0 ** -8 * y_own.float().abs() + 2.0 ** -9 * Md_own + 1e-6
+    wb = top_w.to(dt).float().abs()
+    lim_out = 2.0 ** -7 * out_ref.float().abs() + 2.0 ** -9 * torch.einsum(
+        "tk,tkh->th", wb, Md_ref) + 1e-5
+    act_fault = act.clone()
+    act_fault[0, 0, 16:32] = 0  # one 16-row tile of the first pair's expert dropped
+    y_fault = y.clone()
+    y_fault[0, 0, 32:64] = 0  # one 32-row down tile dropped
+    out_fault = out_ref.float() - top_w[0, 0].to(dt).float() * y_ref[0, 0].float()
+    return dict(
+        out=out, err=max_err(out, out_ref), ratio=mx_ratio(out, out_ref, lim_out),
+        act_ratio=mx_ratio(act, act_ref, lim_act), y_ratio=mx_ratio(y, y_own, lim_y),
+        act_fault=mx_ratio(act_fault, act_ref, lim_act),
+        y_fault=mx_ratio(y_fault, y_own, lim_y),
+        pair_fault=mx_ratio(out_fault[:1], out_ref[:1], lim_out[:1]))
+
+
+def mx_bound(x, top_e, ws: dict) -> tuple:
+    """MX/MXq's least time on the card for this call: bytes of the experts
+    this call's pairs touch (each of their weights and scales read once),
+    x and the routes read, out written; 6 H I operations a pair at the
+    bf16 tensor-core rate. Returns (ms, by, touched experts, bytes)."""
+    from neuronx_distributed_tpu_torch.kernels.moe_experts import expert_bytes
+
+    gate, up, down, gs, us, ds = mx_args(ws)
+    touched = int(torch.unique(top_e).numel())
+    t, k = top_e.shape
+    nbytes = (expert_bytes(gate, up, down, (gs, us, ds), touched) + 2 * 2 * t * MX_H
+              + 12 * t * k)
+    flops = 6.0 * t * k * MX_H * MX_I
+    by_bytes, by_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_BF16_FLOPS * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations", touched, nbytes
+
+
+def mx_library(x, top_e, top_w, ws: dict, kind: str):
+    """The yardstick: ``torch._grouped_mm`` over the same expert-sorted
+    pairs (three products and the SiLU, the blockwise route's
+    ``expert_mlps.blockwise``); for quantized experts DQ of the touched
+    experts first (their codes gathered, ``dequantize_stack``)."""
+    from neuronx_distributed_tpu_torch.modules.moe.expert_mlps import blockwise
+    from neuronx_distributed_tpu_torch.quantization.layers import dequantize_stack
+
+    gate, up, down, gs, us, ds = mx_args(ws)
+    if kind == "bf16":
+        return lambda: blockwise(x, top_e, top_w, gate, up, down, MX_E)
+    sel = torch.unique(top_e)
+    remap = torch.searchsorted(sel, top_e)
+    n_sel = int(sel.numel())
+
+    def run():
+        w = [dequantize_stack(c[sel], sc[sel], torch.bfloat16)
+             for c, sc in ((gate, gs), (up, us), (down, ds))]
+        return blockwise(x, remap, top_w, *w, n_sel)
+
+    return run
+
+
+def check_mx(gen) -> dict:
+    """MX (bf16 experts) and MXq (int8 and fp8 codes, f32 scales) at
+    Mixtral-8x7B's shapes (E 8, top 2, H 4096, I 14336) on the cases of
+    MX_CASES: the stage limits of :func:`mx_stage_check`, two runs and three
+    graph replays bitwise equal; the time as a graph replay and the bound
+    from the touched experts; at T = 8 random (the decode step's routes)
+    the plain version's and the library's (``mx_library``) times."""
+    from neuronx_distributed_tpu_torch.kernels import moe_experts as mx
+
+    weights = mx_weights(gen)
+    res = {}
+    for case, t in MX_CASES:
+        x = torch.randn(t, MX_H, generator=gen, device="cuda").to(torch.bfloat16)
+        top_e, top_w = mx_routes(gen, case, t)
+        for kind, ws in weights.items():
+            r = mx_stage_check(x, top_e, top_w, ws)
+            for what in ("ratio", "act_ratio", "y_ratio"):
+                if r[what] > 1:
+                    raise AssertionError(f"MX ({kind}, {case}, T={t}): {what} {r[what]:.3g} "
+                                         f"above its limit")
+            for what in ("act_fault", "y_fault", "pair_fault"):
+                if r[what] <= 1:
+                    raise AssertionError(f"MX ({kind}, {case}, T={t}): a {what} reads "
+                                         f"{r[what]:.3g}x, within the limit")
+            args = (x, top_e, top_w, *mx_args(ws))
+            if not torch.equal(mx._kernel_call(*args)[0], r["out"]):
+                raise AssertionError(f"MX ({kind}, {case}): two runs differ")
+            reps = graph_replays(lambda: (mx._kernel_call(*args)[0],), 3)
+            if any(not torch.equal(o[0], r["out"]) for o in reps):
+                raise AssertionError(f"MX ({kind}, {case}): a graph replay differs")
+            bound, by, touched, nbytes = mx_bound(x, top_e, ws)
+            r.update(bound_ms=bound, bound_by=by, touched=touched, bytes=nbytes, t=t,
+                     ms=graph_ms(lambda: mx._kernel_call(*args), 10))
+            r.pop("out")
+            if case == "random" and t == 8:
+                with f32_reductions():
+                    r["plain_ms"] = cuda_ms(lambda: mx.moe_experts_plain(*args), 3, warmup=1)
+                    r["library_ms"] = graph_ms(mx_library(x, top_e, top_w, ws, kind), 5)
+            res[(kind, case, t)] = r
+            torch.cuda.empty_cache()
+    del weights
+    torch.cuda.empty_cache()
+    return res
+
+
+def log_mx(res: dict, smi: str) -> None:
+    for (kind, case, t), r in res.items():
+        name = "MX moe_experts" if kind == "bf16" else f"MXq moe_experts_quantized ({kind})"
+        log(f"{name} ({smi}) T={t} top-2 of 8, H 4096 I 14336, {case} routes ({r['touched']} "
+            f"experts touched): max_err {r['err']:.3g} ({r['ratio']:.3g}x its limit; a dropped "
+            f"pair reads {r['pair_fault']:.3g}x); act {r['act_ratio']:.3g}x (a dropped 16-row "
+            f"tile {r['act_fault']:.3g}x), y {r['y_ratio']:.3g}x (a dropped 32-row tile "
+            f"{r['y_fault']:.3g}x); two runs and three graph replays bitwise equal; kernel_ms "
+            f"{r['ms']:.4f} (graph replay) bound_ms {r['bound_ms']:.4f} ({r['bound_by']}, "
+            f"{r['bytes']} B; {r['ms'] / r['bound_ms']:.2f}x)"
+            + (f" plain_ms {r['plain_ms']:.4f} library_ms {r['library_ms']:.4f} "
+               f"({'' if kind == 'bf16' else 'DQ of the touched experts, then '}"
+               f"torch._grouped_mm x3 + SiLU, graph replay)" if "plain_ms" in r else ""))
+
+
 def rows_inputs(gen, chunk: int):
     """``check_decode_rows``'s inputs at phase 5c's geometry: one slot of a
     row cache (1, 8192, 8, 128) whose context of p tokens ends at column
@@ -1582,12 +1830,17 @@ def serve(model, gen):
     return serve_workload(model, (prompts, cfgs))
 
 
-def serve_workload(model, workload, eager: bool = False, quantize=None) -> dict:
+def serve_workload(model, workload, eager: bool = False, quantize=None, dq=None,
+                   witness=None) -> dict:
     """Six requests into 8 slots, chunk 8: all admitted in the first step
     (six prefills, then one decode chunk), then decode-only steps. Every
     kernel's launch count is zeroed just before and read just after.
     ``eager`` runs the decode step eagerly (the witness); ``quantize`` is
-    the engine's (phase 5f: DQ once a linear, 7 x 32 + 1, a forward)."""
+    the engine's (phase 5f: DQ once a linear, 7 x 32 + 1, a forward);
+    ``dq`` (DQ launches a decode step, a prefill) overrides that count
+    (phase 5m(c)'s pre-quantized Mixtral); ``witness(engine)``, with
+    ``eager``, is the context the eager run goes through in place of
+    :func:`eager_decode_step` (phase 5m's route recorder)."""
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
     from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
 
@@ -1599,7 +1852,9 @@ def serve_workload(model, workload, eager: bool = False, quantize=None) -> dict:
     torch.cuda.synchronize()
     for c in counters.values():
         c.launches = 0
-    with eager_decode_step() if eager else contextlib.nullcontext():
+    run_ctx = (witness(engine) if witness is not None else eager_decode_step()) if eager else \
+        contextlib.nullcontext()
+    with run_ctx:
         t0 = time.perf_counter()
         reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
         engine.step()  # admits all six (8 slots): six prefills, then one decode chunk
@@ -1630,11 +1885,12 @@ def serve_workload(model, workload, eager: bool = False, quantize=None) -> dict:
                              f"{snap['executed_steps']} x {layers} layers")
     # DQ once a linear of every forward: the prefills' and the steps'
     linears = 7 * layers + 1 if quantize is not None and quantize.weights else 0
+    dq_step, dq_prefill = dq if dq is not None else (linears, linears)
     if (launches["dequantize"] - warm["dequantize"]
-            != (snap["executed_steps"] + snap["prefills"]) * linears):
+            != snap["executed_steps"] * dq_step + snap["prefills"] * dq_prefill):
         raise AssertionError(f"DQ launches {launches['dequantize']} (warm-up {warm['dequantize']}) "
-                             f"!= (executed steps {snap['executed_steps']} + prefills "
-                             f"{snap['prefills']}) x {linears} linears")
+                             f"!= executed steps {snap['executed_steps']} x {dq_step} + prefills "
+                             f"{snap['prefills']} x {dq_prefill}")
     check_program(engine, "serving", eager)
     prog = decode_program(engine)
     weight_bytes = sum(t.numel() * t.element_size() for t in engine.model.state_dict().values())
@@ -1642,7 +1898,7 @@ def serve_workload(model, workload, eager: bool = False, quantize=None) -> dict:
                 decode_only_executed=snap["executed_steps"] - executed0,
                 decode_only_used=snap["steps"] - steps0, launches=launches, snap=snap,
                 prefills=snap["prefills"], workload=workload,
-                tokens=[list(r.tokens) for r in reqs],
+                tokens=[list(r.tokens) for r in reqs], rids=[r.rid for r in reqs],
                 compilations=getattr(engine, "decode_compilations", None),
                 replays=prog.replays if prog is not None else None,
                 per_replay=dict(prog.launches_per_replay) if prog is not None else None)
@@ -1678,7 +1934,9 @@ def profile_serving(model, workload) -> dict:
         raise AssertionError(f"profiled serving: {records} K4 kernel records != 2 x {executed} "
                              f"executed steps x {model.config.num_layers} layers")
     fams = device_time_by_family(prof, {"flash_attention": "flash_fwd_kernel",
-                                        "flash_decode": "flash_decode_kernel"})
+                                        "flash_decode": "flash_decode_kernel",
+                                        "moe_experts": ("routed_rows_kernel",
+                                                        "moe_combine_kernel")})
     return dict(fams=fams, records=records, executed=executed, capture_s=capture_s)
 
 
@@ -1848,7 +2106,7 @@ def prefix_warmup(vocab: int):
 
 
 def serve_prefix(model, workload, paged: bool, prefix, profiled: bool = False,
-                 quantize=None, num_pages=None) -> dict:
+                 quantize=None, num_pages=None, on_measured=None) -> dict:
     """Phase 5c's workload through the row engine (8 slots, chunk 8,
     conservative) or the paged engine (16 slots, page 16, 2049 pages), with
     ``prefix`` as its ``prefix_cache``: the warm-up wave, the store cleared,
@@ -1860,7 +2118,9 @@ def serve_prefix(model, workload, paged: bool, prefix, profiled: bool = False,
     a ``SUFFIX_RANGE`` range (the profile is returned as ``prof``).
     ``quantize`` and ``num_pages`` are phase 5f's: on an int8 pool the
     steps attend through K5q, a hit's suffix prefill runs on K4 over a
-    dequantized float row, and a pinned page's scales are part of it."""
+    dequantized float row, and a pinned page's scales are part of it.
+    ``on_measured(engine)`` runs just before the measured wave (phase 5m's
+    route recorder)."""
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
     from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
 
@@ -1877,6 +2137,8 @@ def serve_prefix(model, workload, paged: bool, prefix, profiled: bool = False,
     engine.run()
     if engine.prefix is not None:
         engine.prefix.clear()  # the measured wave starts with a cold store
+    if on_measured is not None:
+        on_measured(engine)
     pinned = {}  # page: its K and V (and scales) as the prefill left them, while pinned
     if paged:
         pin, unpin = engine.cache.pin_pages, engine.cache.unpin_pages
@@ -2058,11 +2320,16 @@ def drain_prefix_store(res: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def check_hit_logits(model, engine, workload) -> list:
+def check_hit_logits(model, engine, workload, rec=None) -> list:
     """For a short tail, a long tail and the duplicate: the suffix-prefill
     logits of a hit on the engine's stored entry (K4, on a fresh batch-1
     cache seeded from it) against the full-prefill logits of the same
-    context (K1), phase 3's limits."""
+    context (K1), phase 3's limits. ``rec`` (phase 5m's Mixtral, a
+    :class:`RouteRecorder` that filed the wave's admissions): the limits
+    hold against a second full prefill forced onto the hit's routes (the
+    stored prefix's, then the suffix prefill's), and the unforced one is
+    reported (``rel_unforced``), with the forced rows whose own route
+    differs (``flips``)."""
     from neuronx_distributed_tpu_torch.inference.generate import (
         pack_padded_prompt,
         serving_clones,
@@ -2090,19 +2357,35 @@ def check_hit_logits(model, engine, workload) -> list:
             chunk = _suffix_bucket(p - m_use, padded, L)
             seed_cache_prefix(cache, entry.tree, m_use, padded - p)
             sfx, _ = pack_padded_prompt(ctx[m_use:], chunk, pad_side="right")
+            if rec is not None:
+                rec.take()  # the full prefill's
             hit = suffix_prefill_step(decode, cache, torch.from_numpy(sfx).long().cuda(),
                                       p - m_use).float()
             del cache
             if not torch.isfinite(hit).all():
                 raise AssertionError(f"non-finite suffix-prefill logits ({name})")
+            extra = {}
+            if rec is not None:
+                (sfx_routes,) = rec.take()
+                routes = torch.cat([rec.routes_for(ctx, m_use), sfx_routes[:p - m_use].cpu()])
+                routes = torch.cat([torch.full((padded - p,) + routes.shape[1:], -1,
+                                               dtype=routes.dtype), routes])
+                extra = dict(rel_unforced=max_err(hit, full) / float(full.abs().max()))
+                with forced_routes(model, routes) as flips:
+                    full = model(torch.from_numpy(ids).long().cuda(), mode="prefill",
+                                 cache=model.new_cache(1), padding_mask=torch.from_numpy(mask).cuda(),
+                                 last_only=True)[0, -1].float()
+                extra["flips"] = flips[0]
             scale = float(full.abs().max())
             rel = max_err(hit, full) / scale
             in_top5 = bool((hit.topk(5).indices == full.argmax()).any())
             if rel > 5e-2 or not in_top5:
-                raise AssertionError(f"hit logits ({name}) disagree with the full prefill: rel "
+                raise AssertionError(f"hit logits ({name}) disagree with the full prefill"
+                                     f"{' on their routes' if rec is not None else ''}: rel "
                                      f"{rel}, full top-1 in the hit's top-5: {in_top5}")
             out.append(dict(name=name, p=p, m=m_use, chunk=chunk, rows=4 * chunk, rel_err=rel,
-                            argmax_equal=bool(hit.argmax() == full.argmax()), logit_scale=scale))
+                            argmax_equal=bool(hit.argmax() == full.argmax()), logit_scale=scale,
+                            hit=hit, **extra))
     torch.cuda.empty_cache()
     return out
 
@@ -2736,7 +3019,8 @@ def top_kernels(prof, n: int = 10) -> list:
 
 def device_time_by_family(prof, kernels: dict, skip=()) -> dict:
     """Device ms of a profile by family: each of ``kernels`` (family: a
-    substring of its CUDA kernel's name; the first that matches wins), GEMMs,
+    substring of its CUDA kernels' names, or a tuple of them; the first
+    family that matches wins), GEMMs,
     and everything else; device events named in ``skip`` (the device-side
     spans of profiler ranges) are no kernels."""
     fams = {**{fam: 0.0 for fam in kernels}, "gemm": 0.0, "other": 0.0}
@@ -2744,7 +3028,8 @@ def device_time_by_family(prof, kernels: dict, skip=()) -> dict:
         if not str(getattr(e, "device_type", "")).endswith("CUDA") or e.name in skip:
             continue
         name = e.name
-        fam = next((f for f, key in kernels.items() if key in name), None)
+        fam = next((f for f, key in kernels.items()
+                    if any(k in name for k in ((key,) if isinstance(key, str) else key))), None)
         if fam is None:
             fam = ("gemm" if any(t in name for t in ("nvjet", "gemm", "cutlass", "xmma"))
                    else "other")
@@ -6488,6 +6773,531 @@ def log_loop_phase(lp: dict, smi: str) -> None:
         f"bound_ms {tf['bound_ms']:.4f} ({tf['bound_by']}; {tf['ms'] / tf['bound_ms']:.2f}x)")
 
 
+# --- phase 5m: Mixtral serving ---------------------------------------------------
+
+MOE_LAYERS_BF16, MOE_LAYERS_QUANT = 16, 8  # depth cuts of (a) and (b): bf16 at 32 layers is 93 GB
+
+
+class LogitsOnly:
+    """A Mixtral seen as the Llama helpers above see a model: its calls
+    return the logits alone (``forward`` returns ``(logits, aux)``)."""
+
+    def __init__(self, model):
+        self.model, self.config, self.device = model, model.config, model.device
+
+    def new_cache(self, batch: int):
+        return self.model.new_cache(batch)
+
+    def new_paged_cache(self, *args, **kwargs):
+        return self.model.new_paged_cache(*args, **kwargs)
+
+    def __call__(self, *args, **kwargs):
+        return self.model(*args, **kwargs)[0]
+
+
+@contextlib.contextmanager
+def plain_experts():
+    """Route the experts' selective route through MX/MXq's plain version
+    (reference runs only; the port itself has no such switch)."""
+    from neuronx_distributed_tpu_torch.kernels.moe_experts import moe_experts_plain
+    from neuronx_distributed_tpu_torch.modules.moe import expert_mlps
+
+    saved = expert_mlps.moe_experts, expert_mlps.moe_experts_quantized
+    expert_mlps.moe_experts = lambda *a, **kw: moe_experts_plain(*a, **kw)
+    expert_mlps.moe_experts_quantized = lambda *a, **kw: moe_experts_plain(*a, **kw)
+    try:
+        with f32_reductions():
+            yield
+    finally:
+        expert_mlps.moe_experts, expert_mlps.moe_experts_quantized = saved
+
+
+def moe_outputs(model, gen) -> dict:
+    """Phase 3's check on a Mixtral: the logits of a 64-token prompt and 8
+    decode steps through the kernels (K1, K4 or K5 behind a scrambled table,
+    MX) against the plain path's (plain attention and MX's plain version;
+    the prefill's blockwise products are the same torch ops on both), within
+    phase 3's limits."""
+    lm = LogitsOnly(model)
+    ids = torch.randint(1, model.config.vocab_size, (1, 64), generator=gen, device="cuda")
+    with plain_attention(), plain_experts():
+        ref, toks = teacher_logits(lm, ids, 8)
+    res = {}
+    for name, cache in (("row", None), ("paged", scrambled_paged_cache(lm))):
+        got, _ = teacher_logits(lm, ids, 8, feed=toks, cache=cache)
+        scale = float(ref.abs().max())
+        rel = max_err(got, ref) / scale
+        in_top5 = bool((got.topk(5, dim=-1).indices == ref.argmax(-1)[:, None]).any(-1).all())
+        if not torch.isfinite(got).all() or rel > 5e-2 or not in_top5:
+            raise AssertionError(f"Mixtral logits ({name} cache) disagree with the plain path: "
+                                 f"rel {rel}, plain top-1 in top-5: {in_top5}")
+        res[name] = dict(rel_err=rel, logit_scale=scale,
+                         argmax_agree=f"{int((got.argmax(-1) == ref.argmax(-1)).sum())}/"
+                                      f"{ref.shape[0]}")
+    return res
+
+
+def mixtral_routers(model) -> list:
+    """The routers of a Mixtral (or of its :class:`LogitsOnly` view), by layer."""
+    model = model.model if isinstance(model, LogitsOnly) else model
+    return [layer.moe.router for layer in model.model.layers]
+
+
+class RouteRecorder:
+    """The experts a Mixtral's eager forwards routed each token to
+    (reference runs only; the port itself records nothing). Every router
+    call's ``top_e`` is kept, none while a CUDA graph captures; the caller
+    takes them a forward at a time (:meth:`take`) and files a forward's
+    rows under their context and first position (:meth:`file`).
+    :meth:`routes_for` gives a context's routes position by position from
+    the first filing that computed the position in that context: a later
+    prefix hit reuses the K/V that computation stored."""
+
+    def __init__(self, model):
+        routers = mixtral_routers(model)
+        self.layers = len(routers)
+        self.pending, self.entries = [], []
+        self.handles = [r.register_forward_hook(self._hook) for r in routers]
+
+    def _hook(self, module, args, out):
+        if not (torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()):
+            self.pending.append(out.top_e.detach().clone())
+
+    def take(self) -> list:
+        """The routes of the forwards since the last take: a (T, L, k)
+        tensor each."""
+        got, self.pending = self.pending, []
+        if len(got) % self.layers:
+            raise AssertionError(f"{len(got)} router calls are no whole forwards of "
+                                 f"{self.layers} layers")
+        return [torch.stack(got[i:i + self.layers], 1) for i in range(0, len(got), self.layers)]
+
+    def file(self, ctx, start: int, routes: torch.Tensor) -> None:
+        """``routes`` (n, L, k) are those of positions ``start .. start + n``
+        of the context ``ctx`` (its tokens up to those positions at least)."""
+        import numpy as np
+
+        self.entries.append((np.asarray(ctx, np.int64), start, routes.cpu()))
+
+    def routes_for(self, ctx, n=None) -> torch.Tensor:
+        """(n, L, k) routes of the positions ``0 .. n`` of ``ctx`` (all by
+        default); raises when a position has none."""
+        import numpy as np
+
+        ctx = np.asarray(ctx, np.int64)
+        n = len(ctx) if n is None else n
+        out, have = None, np.zeros(n, bool)
+        for c, start, r in self.entries:
+            m = min(len(c), n)
+            diff = np.flatnonzero(c[:m] != ctx[:m])
+            hi = min(start + r.shape[0], int(diff[0]) if diff.size else m)
+            if hi <= start:
+                continue
+            if out is None:
+                out = torch.full((n,) + tuple(r.shape[1:]), -1, dtype=r.dtype)
+            new = torch.from_numpy(~have[start:hi])
+            out[start:hi][new] = r[:hi - start][new]
+            have[start:hi] = True
+        if not have.all():
+            raise AssertionError(f"no recorded route for {int((~have).sum())} of {n} positions "
+                                 f"(first {int(np.flatnonzero(~have)[0])})")
+        return out
+
+    def close(self) -> None:
+        for h in self.handles:
+            h.remove()
+
+
+@contextlib.contextmanager
+def forced_routes(model, routes: torch.Tensor):
+    """Every router of ``model`` takes ``routes`` (T, L, k; -1: the
+    router's own choice) for one forward of T tokens, its affinities
+    renormalized over them as ``RouterTopK`` does (reference runs only).
+    Yields a one-element list: after the forward, the count of forced
+    (token, layer) routes whose expert set the router's own top-k would
+    not have chosen."""
+    from neuronx_distributed_tpu_torch.modules.moe.routing import RouterOutput
+
+    flips = [0]
+    handles = []
+
+    def hook_for(layer):
+        def hook(module, args, out):
+            want = routes[:, layer].to(out.top_e.device)
+            if want.shape != out.top_e.shape:
+                raise AssertionError(f"forced routes {tuple(want.shape)} for a router call of "
+                                     f"{tuple(out.top_e.shape)}")
+            forced = (want >= 0).all(-1)
+            te = torch.where(forced[:, None], want, out.top_e)
+            own = out.top_e.sort(-1).values != te.sort(-1).values
+            flips[0] += int((own.any(-1) & forced).sum())
+            tw = out.probs.gather(-1, te)
+            if module.normalize_top_k_affinities and module.act_fn == "softmax":
+                tw = tw / tw.sum(-1, keepdim=True).clamp_min(1e-9)
+            return RouterOutput(out.logits, out.probs, te, tw)
+        return hook
+
+    for i, r in enumerate(mixtral_routers(model)):
+        handles.append(r.register_forward_hook(hook_for(i)))
+    try:
+        yield flips
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def record_admissions(engine, rec: RouteRecorder) -> None:
+    """File each admission's prefill rows in ``rec``: a full prefill's
+    prompt rows (left-padded) from position 0, a hit's suffix rows
+    (right-padded) from its reuse. A row engine without a draft only."""
+    real = engine._admit_and_prefill
+
+    def admit(req, slot, call, ctx, p, padded, target, plan):
+        rec.take()  # a decode step's warm-up, run before a capture
+        got = real(req, slot, call, ctx, p, padded, target, plan)
+        if got[0] is not None:
+            (te,) = rec.take()
+            if plan is None:
+                rec.file(ctx, 0, te[padded - p:])
+            else:
+                rec.file(ctx, plan[1], te[:p - plan[1]])
+        return got
+
+    engine._admit_and_prefill = admit
+
+
+@contextlib.contextmanager
+def recorded_eager_steps(engine, rec: RouteRecorder, steps: dict):
+    """The engine's decode step run eagerly (:func:`eager_decode_step`),
+    its admissions filed in ``rec``, and each step's routes kept by slot:
+    ``steps[(rid, j)] = (input token, routes (L, k))`` for the step that
+    emitted a request's token ``j``, which fed it token ``j - 1`` (file
+    them with :func:`file_decode_routes` once the streams are known)."""
+    from neuronx_distributed_tpu_torch.inference.graphs import DecodeProgram
+
+    record_admissions(engine, rec)
+
+    def step(prog):
+        st = engine._state
+        active, ntok, tok = (st[n].clone() for n in ("active", "ntok", "tok"))
+        slots = list(engine._slot_req)
+        rec.take()
+        prog.step()
+        (te,) = rec.take()
+        for s in torch.nonzero(active).flatten().tolist():
+            steps[(slots[s].rid, int(ntok[s]))] = (int(tok[s]), te[s].cpu())
+
+    saved, DecodeProgram.__call__ = DecodeProgram.__call__, step
+    try:
+        yield
+    finally:
+        DecodeProgram.__call__ = saved
+
+
+def file_decode_routes(rec: RouteRecorder, steps: dict, rid: int, prompt, toks) -> None:
+    """File request ``rid``'s decode routes (:func:`recorded_eager_steps`):
+    positions ``len(prompt) ..`` of ``prompt + toks[:-1]``, after checking
+    that each step fed the token this mapping says."""
+    import numpy as np
+
+    rows = []
+    for j in range(1, len(toks)):
+        fed, routes = steps[(rid, j)]
+        if fed != toks[j - 1]:
+            raise AssertionError(f"request {rid}: the step emitting token {j} fed {fed}, not "
+                                 f"token {j - 1} ({toks[j - 1]})")
+        rows.append(routes)
+    rec.file(np.concatenate([prompt, toks[:-1]]), len(prompt), torch.stack(rows))
+
+
+def moe_teacher_ratio(model, streams) -> dict:
+    """:func:`teacher_ratio` for a Mixtral on the routes its tokens were
+    served on: for each greedy ``(rec, prompt, tokens)`` of ``streams``, one
+    teacher-forced forward (K1, the blockwise route) of prompt + tokens with
+    every router forced onto the served routes (``rec.routes_for``); every
+    token within phase 3's limit of its row's maximum logit. Returns the
+    largest gap over its limit and the forced routes the forward's own
+    routers would not have chosen, of all."""
+    import numpy as np
+
+    worst, flips, forced = 0.0, 0, 0
+    with torch.no_grad():
+        for rec, p, toks in streams:
+            ctx = np.concatenate([p, toks[:-1]])
+            routes = rec.routes_for(ctx)
+            with forced_routes(model, routes) as fl:
+                logits = model(torch.tensor(ctx[None], device=model.device))[0]
+            logits = logits[0, len(p) - 1:].float()  # row j predicts toks[j]
+            emitted = torch.tensor(toks, device=model.device)[:, None]
+            gap = logits.max(-1).values - logits.gather(-1, emitted)[:, 0]
+            worst = max(worst, float((gap / (5e-2 * logits.abs().max())).max()))
+            flips += fl[0]
+            forced += routes.shape[0] * routes.shape[1]
+    return dict(ratio=worst, flips=flips, forced=forced)
+
+
+def first_route_difference(a: torch.Tensor, b: torch.Tensor):
+    """The first (position, layer) at which two (n, L, k) route records
+    choose another expert set, or None."""
+    diff = (a.sort(-1).values != b.sort(-1).values).any(-1)
+    where = torch.nonzero(diff)
+    return tuple(int(v) for v in where[0]) if where.shape[0] else None
+
+
+def moe_quant_check(model, qcfg, gen) -> dict:
+    """A 64-token prompt and 16 greedy steps of the bf16 ``model``,
+    teacher-forced through its ``qcfg`` copy (``quantize_model``: linears,
+    lm_head and the expert stacks; the routers float): JAX's Mixtral
+    criterion on the logits (median of |q - ref| / max |ref| under 0.02,
+    95% of them under 0.1; ``tests/quantization/test_quantized_model.py:
+    199-205``), the max and mean KL of the quantized next-token
+    distribution from the bf16 one, top-1 agreement."""
+    from neuronx_distributed_tpu_torch.models.mixtral import quantize_model
+
+    ids = torch.randint(1, model.config.vocab_size, (1, 64), generator=gen, device=model.device)
+    ref, toks = teacher_logits(LogitsOnly(model), ids, 16)
+    qm = quantize_model(model, qcfg)
+    got, _ = teacher_logits(LogitsOnly(qm), ids, 16, feed=toks)
+    weight_bytes = sum(t.numel() * t.element_size() for t in qm.state_dict().values())
+    del qm
+    torch.cuda.empty_cache()
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite logits through the quantized Mixtral")
+    rel = (got - ref).abs() / ref.abs().max()
+    lp = torch.log_softmax(ref.double(), -1)
+    kl = (lp.exp() * (lp - torch.log_softmax(got.double(), -1))).sum(-1)
+    res = dict(median_rel=float(rel.median()), frac_under=float((rel < 0.1).double().mean()),
+               max_rel=float(rel.max()), max_kl=float(kl.max()), mean_kl=float(kl.mean()),
+               top1=float((got.argmax(-1) == ref.argmax(-1)).double().mean()),
+               weight_bytes=weight_bytes)
+    if res["median_rel"] >= 0.02 or res["frac_under"] <= 0.95:
+        raise AssertionError(f"quantized Mixtral logits fail JAX's criterion: {res}")
+    return res
+
+
+def moe_expert_gates(what: str, res: dict, layers: int, name: str, per_replay: int) -> None:
+    """MX/MXq once a layer a replay (``per_replay`` layers: 0 on the
+    blockwise route) and once a layer in the capture's warm-up; the
+    prefills (>= 30 tokens) take the blockwise route, so no other launch."""
+    got = res["per_replay"].get(name, 0)
+    if got != per_replay:
+        raise AssertionError(f"{what}: {name} {got} a replay, want {per_replay}")
+    want = (res["replays"] + 1) * per_replay
+    if res["launches"][name] != want:
+        raise AssertionError(f"{what}: {name} launches {res['launches'][name]} != (replays "
+                             f"{res['replays']} + the warm-up) x {per_replay}")
+
+
+def moe_phase(smi: str) -> dict:
+    """Phase 5m: Mixtral serving at Mixtral-8x7B width (hidden 4096, 32/8
+    heads, 8 experts top-2, intermediate 14336, vocab 32000, random weights
+    from seed 0). (a) bf16 at MOE_LAYERS_BF16 layers (~47 GB of weights):
+    the kernel path against the plain path; solo ``generate``; phase 4's
+    requests through a row engine at 8 slots (MX once a layer a replay),
+    its eager witness bit for bit, a profiled rerun (idle share); phase 5b's
+    traffic through a paged engine at 16 slots (K5 and the blockwise route
+    under the capture), its eager witness bit for bit; phase 5c's prefix
+    wave on the row engine (11 hits, 1 miss; hit logits against full
+    prefills forced onto the hits' routes). Every greedy token of the row
+    engine and of solo ``generate`` within phase 3's limit in a
+    teacher-forced forward forced onto the routes that served it (recorded
+    in the eager witness and in solo ``generate``): a random router's
+    near-ties make the expert choice the one discontinuity between two
+    routes' arithmetic, so the references take the served routes and the
+    route differences are counted and reported.
+    (b) int8 and fp8 copies of an MOE_LAYERS_QUANT-layer bf16 model,
+    teacher-forced: JAX's Mixtral criterion, max KL. (c) the full 32-layer
+    Mixtral-8x7B with int8 weights, filled weight by weight
+    (``init_params`` of the quantized model: one float weight in memory at
+    a time), phase 4's requests through a row engine at 8 slots: MXq once a
+    layer and DQ 4 x 32 + 1 a replay, peak memory under 72 GiB."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig, generate
+    from neuronx_distributed_tpu_torch.models.mixtral import (
+        MixtralForCausalLM,
+        init_params,
+        mixtral_8x7b,
+    )
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    import numpy as np
+
+    from neuronx_distributed_tpu_torch.serving.cache_manager import PrefixCache
+
+    out = {"launches": dict.fromkeys(kernel_counters(), 0)}
+    # its own generator: the prompts do not depend on the earlier phases
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def add(launches):
+        for k, v in launches.items():
+            out["launches"][k] += v
+
+    # (a) bf16 at 16 layers
+    t0 = time.perf_counter()
+    cfg = mixtral_8x7b(num_layers=MOE_LAYERS_BF16)
+    model = init_params(MixtralForCausalLM(cfg), seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"5m(a) model: mixtral_8x7b cut to {cfg.num_layers} layers (widths kept), "
+        f"{n_params / 1e9:.3f} B params bf16 ({2 * n_params / 1e9:.2f} GB; routers f32), init "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, r in moe_outputs(model, gen).items():
+        log(f"5m(a) outputs vs plain path ({name} cache{', scrambled table, K5' if name == 'paged' else ''}"
+            f", MX against its plain version; 64-token prompt, 8 decode steps): rel_err "
+            f"{r['rel_err']:.3g} argmax {r['argmax_agree']} logit_scale {r['logit_scale']:.3g}")
+    srv = serve(model, gen)
+    moe_expert_gates("5m(a) row serving", srv, cfg.num_layers, "moe_experts", cfg.num_layers)
+    prompts, cfgs = srv["workload"]
+    rec_eng, steps = RouteRecorder(model), {}
+    wit = serve_workload(model, srv["workload"], eager=True,
+                         witness=lambda engine: recorded_eager_steps(engine, rec_eng, steps))
+    rec_eng.close()
+    if wit["tokens"] != srv["tokens"]:
+        raise AssertionError("5m(a): row streams differ between the decode graph and the eager step")
+    add(srv["launches"])
+    greedy = [i for i, c in enumerate(cfgs) if c.temperature == 0.0]
+    for i in greedy:
+        file_decode_routes(rec_eng, steps, wit["rids"][i], prompts[i], wit["tokens"][i])
+    rec_solo = RouteRecorder(model)
+    solo = generate(model, torch.tensor(prompts[0][None]), cfgs[0]).cpu()[0].tolist()
+    calls = rec_solo.take()
+    rec_solo.close()
+    rec_solo.file(prompts[0], 0, calls[0])
+    rec_solo.file(np.concatenate([prompts[0], solo[:-1]]), len(prompts[0]), torch.cat(calls[1:]))
+    teach = moe_teacher_ratio(model, [(rec_eng, prompts[i], srv["tokens"][i]) for i in greedy]
+                              + [(rec_solo, prompts[0], solo)])
+    if teach["ratio"] > 1.0:
+        raise AssertionError(f"5m(a): a served greedy token is {teach['ratio']:.3g}x phase 3's "
+                             f"limit from its row's maximum, teacher-forced on its own routes")
+    # where solo generate and the engine part: the first position and layer
+    # at which their routes differ, within the context they share
+    jd = next((j for j, (a, b) in enumerate(zip(solo, srv["tokens"][0])) if a != b), None)
+    if jd is not None and jd > 0:
+        shared = np.concatenate([prompts[0], solo[:jd]])
+        first = first_route_difference(rec_solo.routes_for(shared), rec_eng.routes_for(shared))
+        parting = (f"they first part at token {jd} (predicted at position "
+                   f"{len(prompts[0]) + jd - 1}); their routes first differ at "
+                   + (f"position {first[0]}, layer {first[1]}" if first else "no position"))
+    else:
+        parting = "identical" if jd is None else "they part at the first token"
+    snap = srv["snap"]
+    step_ms = 1e3 * srv["decode_s"] / max(srv["decode_only_executed"], 1)
+    log(f"5m(a) row serving ({smi}): phase 4's 6 requests, 8 slots, chunk 8: every request DONE "
+        f"with 32 tokens; one capture, {srv['replays']} replays = executed steps, launches a "
+        f"replay {srv['per_replay']}; the eager step's streams identical; TTFT mean "
+        f"{snap['mean_ttft']:.4f} s max {snap['max_ttft']:.4f} s; {step_ms:.2f} ms a decode-only "
+        f"step ({srv['decode_only_executed']} executed); decode {snap['chunk_tokens_per_sec']:.1f} "
+        f"tok/s (chunk wall); wall {srv['wall_s']:.3f} s (capture {snap['capture_s']:.4f} s); "
+        f"solo generate of request 0: {sum(a == b for a, b in zip(solo, srv['tokens'][0]))}/32 "
+        f"tokens equal the engine's, {parting}; the greedy tokens of the engine and of solo "
+        f"generate, teacher-forced on the routes that served them: largest gap to the row "
+        f"maximum {teach['ratio']:.3g}x phase 3's limit (<= 1); of the {teach['forced']} forced "
+        f"(token, layer) routes, {teach['flips']} differ from the forward's own top-2")
+    prof = profile_serving(model, srv["workload"])
+    busy = sum(prof["fams"].values())
+    wall_ms = 1e3 * (srv["wall_s"] - snap["capture_s"])
+    out["a"] = dict(ttft=snap["mean_ttft"], step_ms=step_ms, tps=snap["chunk_tokens_per_sec"],
+                    idle=1 - busy / wall_ms, fams=prof["fams"])
+    log("5m(a) device time of the row workload (profiler, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in prof["fams"].items())
+        + f"; busy {busy:.2f} of the unprofiled wall less its capture {wall_ms:.2f} (idle share "
+        f"{1 - busy / wall_ms:.3f})")
+    workload = paged_workload(cfg.vocab_size)
+    fused = serve_paged(model, workload, "fused")
+    eager = serve_paged(model, workload, "fused", eager=True)
+    if eager["tokens"] != fused["tokens"]:
+        raise AssertionError("5m(a): paged streams differ between the decode graph and the eager "
+                             "step")
+    moe_expert_gates("5m(a) paged serving", fused, cfg.num_layers, "moe_experts", 0)
+    add(fused["launches"])
+    sn = fused["snap"]
+    log(f"5m(a) paged serving ({smi}): phase 5b's 15 requests, 16 slots (the blockwise route: "
+        f"torch._grouped_mm under the capture), page 16, pool {fused['pool_gib']:.3f} GiB: every "
+        f"request DONE, check() clean, one capture, launches a replay {fused['per_replay']}, the "
+        f"eager step's streams identical; TTFT mean {sn['mean_ttft']:.4f} s, "
+        f"{1e3 * fused['decode_s'] / max(fused['decode_executed'], 1):.2f} ms a decode-only step, "
+        f"decode {sn['chunk_tokens_per_sec']:.1f} tok/s, peak occupancy {sn['peak_occupancy']}, "
+        f"peak mem {fused['peak_gib']:.1f} GiB")
+    pwork = prefix_workload(cfg.vocab_size)
+    rec_wave = RouteRecorder(model)
+    pre = serve_prefix(model, pwork, False, PrefixCache(),
+                       on_measured=lambda engine: record_admissions(engine, rec_wave))
+    hits = check_hit_logits(LogitsOnly(model), pre["engine"], pwork, rec=rec_wave)
+    # the same hits with MX's plain version on their selective routes
+    with plain_experts():
+        plain_hits = check_hit_logits(LogitsOnly(model), pre["engine"], pwork, rec=rec_wave)
+    rec_wave.close()
+    for h, ph in zip(hits, plain_hits):
+        h["plain_rel"] = max_err(h["hit"], ph["hit"]) / float(ph["hit"].abs().max())
+        if h["plain_rel"] > 5e-2:
+            raise AssertionError(f"5m(a) hit logits ({h['name']}): MX against its plain version "
+                                 f"on the same route, rel {h['plain_rel']:.3g}")
+    drain_prefix_store(pre)
+    d = pre["delta"]
+    if (d["prefix_hits"], d["prefix_misses"], d["prefix_validation_failures"]) != (11, 1, 0):
+        raise AssertionError(f"5m(a) prefix wave: hits {d['prefix_hits']}, misses "
+                             f"{d['prefix_misses']}; want 11, 1")
+    add(pre["launches"])
+    log(f"5m(a) prefix wave ({smi}): phase 5c's 12 requests on the row engine: hits "
+        f"{d['prefix_hits']}, misses {d['prefix_misses']}, wall {pre['wall_s']:.3f} s; hit "
+        f"logits against full prefills forced onto the hit's routes (phase 3's limits): "
+        + "; ".join(
+            f"{h['name']} rel_err {h['rel_err']:.3g} argmax equal {h['argmax_equal']} "
+            f"({h['flips']} forced routes differ from the full prefill's own; unforced rel "
+            f"{h['rel_unforced']:.3g}; against the plain experts on the same route "
+            f"{h['plain_rel']:.3g})" for h in hits))
+    del model, pre
+    collect_engines()  # the engines' reference cycles hold the 47 GB model
+
+    # (b) int8 and fp8 against bf16 at 8 layers
+    cfg8 = mixtral_8x7b(num_layers=MOE_LAYERS_QUANT)
+    m8 = init_params(MixtralForCausalLM(cfg8), seed=0)
+    out["b"] = {}
+    for kind in ("int8", "fp8"):
+        n0 = {k: c.launches for k, c in kernel_counters().items()}
+        r = moe_quant_check(m8, QuantConfig(weights=kind).weight_qconfig(), gen)
+        add({k: c.launches - n0[k] for k, c in kernel_counters().items()})
+        out["b"][kind] = r
+        log(f"5m(b) {kind} weights against bf16 ({smi}; {cfg8.num_layers} layers, 64-token prompt, "
+            f"16 teacher-forced steps): median rel {r['median_rel']:.4g} (< 0.02), "
+            f"{r['frac_under']:.4f} of logits under 0.1 (> 0.95), max rel {r['max_rel']:.4g}, max "
+            f"KL {r['max_kl']:.4g} mean {r['mean_kl']:.4g}, top-1 {r['top1']:.3f}; weight bytes "
+            f"{r['weight_bytes']}")
+    del m8
+    collect_engines()
+
+    # (c) the full 32-layer Mixtral-8x7B, int8 weights
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    qcfg = QuantConfig(weights="int8").weight_qconfig()
+    full = mixtral_8x7b(quantization=qcfg)
+    qm = init_params(MixtralForCausalLM(full), seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in qm.state_dict().values())
+    L = full.num_layers
+    srv_c = serve_workload(qm, srv["workload"], dq=(4 * L + 1, 7 * L + 1))
+    moe_expert_gates("5m(c)", srv_c, L, "moe_experts_quantized", L)
+    if srv_c["per_replay"].get("dequantize") != 4 * L + 1:
+        raise AssertionError(f"5m(c): DQ {srv_c['per_replay'].get('dequantize')} a replay, "
+                             f"want {4 * L + 1}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if peak >= 72:
+        raise AssertionError(f"5m(c): peak memory {peak:.2f} GiB, not under 72")
+    add(srv_c["launches"])
+    sc = srv_c["snap"]
+    step_c = 1e3 * srv_c["decode_s"] / max(srv_c["decode_only_executed"], 1)
+    out["c"] = dict(weight_bytes=weight_bytes, peak_gib=peak, step_ms=step_c,
+                    tps=sc["chunk_tokens_per_sec"], ttft=sc["mean_ttft"],
+                    per_replay=srv_c["per_replay"])
+    log(f"5m(c) Mixtral-8x7B, all {L} layers, int8 weights ({smi}): {weight_bytes} B of weights "
+        f"(filled weight by weight in {init_s:.1f} s), peak mem {peak:.2f} GiB (< 72); phase 4's 6 "
+        f"requests, 8 slots: every request DONE; one capture, launches a replay "
+        f"{srv_c['per_replay']}; TTFT mean {sc['mean_ttft']:.4f} s; {step_c:.2f} ms a decode-only "
+        f"step; decode {sc['chunk_tokens_per_sec']:.1f} tok/s (chunk wall)")
+    del qm
+    collect_engines()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6504,8 +7314,8 @@ def main() -> int:
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     t0 = time.perf_counter()
     _build.build(["flash_attention", "flash_attention_bwd", "flash_decode", "dequantize",
-                  "kv_quant", "page_fingerprint", "tree_fingerprint"])
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the seven sources in parallel)")
+                  "kv_quant", "page_fingerprint", "tree_fingerprint", "moe_experts"])
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the eight sources in parallel)")
     for r in [fwd_resources(), *bwd_resources()]:
         log(f"{r['kernel']}: {r['smem']} B dynamic shared memory a block, {r['regs']} registers a "
             f"thread at entry, {r['local']} B local a thread, {r['blocks_per_sm']} block(s) per SM; "
@@ -6537,6 +7347,10 @@ def main() -> int:
         raise AssertionError("TF spills or was not reported:\n" + "\n".join(tf_lines))
     log("ptxas -v, csrc/tree_fingerprint.cu (TF: the item kernel, the combine kernel): "
         + "; ".join(tf_lines))
+    mx_lines = [line.strip() for line in _build.resource_report("moe_experts").splitlines()
+                if "registers" in line or "spill" in line]
+    log("ptxas -v, csrc/moe_experts.cu (MX/MXq: the routed-rows kernel by format, matrices and "
+        "pairs a pass, and moe_combine_kernel): " + "; ".join(mx_lines))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = [check_k1(gen, b, s, segments) for _, b, s, segments in K1_SHAPES]
@@ -6662,6 +7476,8 @@ def main() -> int:
             f"{r['ms'] / r['bound_ms']:.2f}x) library_ms null (no single PyTorch call "
             f"computes it)")
     torch.cuda.empty_cache()
+    mx = check_mx(qgen)
+    log_mx(mx, smi)
     rows = {chunk: check_decode_rows(gen, chunk) for chunk in (16, 256, 512)}
     for chunk, r in rows.items():
         log(f"K4/K5 multi-row B=1 s={chunk} (R={r['rows']}) H=32 Hkv=8 D=128 L=8192, a "
@@ -6810,6 +7626,7 @@ def main() -> int:
 
     del model
     torch.cuda.empty_cache()
+    moe = moe_phase(smi)
 
     tvp = train_vs_plain()
     log(f"training, kernel path vs plain path (2 layers, 2 x 1024 packed, one step): loss "
@@ -6840,12 +7657,13 @@ def main() -> int:
                 + spec["launches"][name] + med["launches"][name] + quant["launches"][name]
                 + fault["launches"][name] + slo["launches"][name] + tier["launches"][name]
                 + weights["launches"][name] + fabric["launches"][name]
-                + integ["launches"][name] + tr["launches"][name] + lp["launches"][name]
-                for name in tr["launches"]}
+                + integ["launches"][name] + moe["launches"][name] + tr["launches"][name]
+                + lp["launches"][name] for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
         f"speculative serving row and paged, Medusa, quantized serving, the fault contract, "
         f"SLO-aware multi-tenant serving, the host page tier, weights that change, the serving "
-        f"fabric, integrity and program observability, training, the training loop): "
+        f"fabric, integrity and program observability, Mixtral serving, training, the training "
+        f"loop): "
         f"{launches}; "
         f"on the multi-row path (prefix-cache serving): {pre['multi_row']}; the speculative "
         f"rounds' verify windows (s = {SPEC_GAMMA}): {spec['verify']}")
@@ -6956,6 +7774,28 @@ def main() -> int:
              launches=launches["dequantize"], max_abs_err=0.0, ms=dq["int8"]["ms"],
              plain_ms=dq["int8"]["plain_ms"], bound_ms=dq["bound_ms"], bound_by=dq["bound_by"],
              library_ms=dq["int8"]["library_ms"]),
+        # MX/MXq compute what XLA fuses for JAX's selective expert route
+        # (with the dequantize of quantized experts in the load)
+        dict(name="moe_experts", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/moe_experts.cu",
+             replaces="neuronx_distributed_tpu/modules/moe/expert_mlps.py:327",
+             launches=launches["moe_experts"],
+             max_abs_err=max(r["err"] for (k, _, _), r in mx.items() if k == "bf16"),
+             ms=mx[("bf16", "random", 8)]["ms"], plain_ms=mx[("bf16", "random", 8)]["plain_ms"],
+             bound_ms=mx[("bf16", "random", 8)]["bound_ms"],
+             bound_by=mx[("bf16", "random", 8)]["bound_by"],
+             library_ms=mx[("bf16", "random", 8)]["library_ms"]),
+        dict(name="moe_experts_quantized", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/moe_experts.cu",
+             replaces="neuronx_distributed_tpu/modules/moe/expert_mlps.py:327",
+             launches=launches["moe_experts_quantized"],
+             max_abs_err=max(r["err"] for (k, _, _), r in mx.items() if k != "bf16"),
+             ms=mx[("int8", "random", 8)]["ms"], plain_ms=mx[("int8", "random", 8)]["plain_ms"],
+             bound_ms=mx[("int8", "random", 8)]["bound_ms"],
+             bound_by=mx[("int8", "random", 8)]["bound_by"],
+             library_ms=mx[("int8", "random", 8)]["library_ms"],
+             fp8_ms=mx[("fp8", "random", 8)]["ms"],
+             fp8_library_ms=mx[("fp8", "random", 8)]["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -55,6 +55,10 @@ def kernel_wrappers() -> Dict[str, Callable]:
         qpaged_flash_decode_fwd,
     )
     from neuronx_distributed_tpu_torch.kernels.kv_quant import window_requantize_fwd
+    from neuronx_distributed_tpu_torch.kernels.moe_experts import (
+        moe_experts,
+        moe_experts_quantized,
+    )
     from neuronx_distributed_tpu_torch.kernels.page_fingerprint import pool_pages_fingerprint_fwd
     from neuronx_distributed_tpu_torch.kernels.tree_fingerprint import tree_fingerprint_fwd
 
@@ -64,7 +68,8 @@ def kernel_wrappers() -> Dict[str, Callable]:
             "qpaged_flash_decode": qpaged_flash_decode_fwd, "dequantize": dequantize_fwd,
             "window_requantize": window_requantize_fwd,
             "page_fingerprint": pool_pages_fingerprint_fwd,
-            "tree_fingerprint": tree_fingerprint_fwd}
+            "tree_fingerprint": tree_fingerprint_fwd, "moe_experts": moe_experts,
+            "moe_experts_quantized": moe_experts_quantized}
 
 
 class DecodeProgram:

@@ -1,4 +1,4 @@
-"""Carry JAX Llama and Medusa weights across (no JAX counterpart): the flax
+"""Carry JAX Llama, Medusa and Mixtral weights across (no JAX counterpart): the flax
 param tree, as nested dicts of numpy arrays, becomes the port's state dict.
 
 Flax ``kernel`` leaves are ``(in, out)``; torch ``weight`` is ``(out, in)``.
@@ -8,7 +8,10 @@ Both layer layouts of the JAX model are read: unscanned ``layers_<i>`` and
 an int8/fp8 ``kernel`` with a ``scale`` beside it) keeps its codes, bit for
 bit, as the weight of a model built with the same ``quantization`` config;
 its ``(1, out)`` scale becomes ``(out,)`` (a per-tensor scale stays a
-scalar).
+scalar). A Mixtral's expert stacks ``moe/experts/{gate,up,down}_proj``
+``(E, in, out)`` become ``(E, out, in)``, their ``<name>_scale`` ``(E, 1,
+out)`` becomes ``(E, out)`` (per tensor ``(E,)`` stays), and the router
+``moe/router/weight`` ``(H, E)`` becomes ``(E, H)``.
 """
 
 from __future__ import annotations
@@ -20,18 +23,23 @@ import torch
 
 from neuronx_distributed_tpu_torch.models.llama import LlamaConfig
 
-# per-layer flax path (below the layer node) -> port name (below the layer)
-_LAYER_LEAVES = {
+# per-layer flax path (below the layer node) -> port name (below the layer):
+# the norms and attention every family shares, then Llama's dense MLP
+_ATTN_LEAVES = {
     ("input_norm", "weight"): "input_norm.weight",
     ("attn", "qkv", "q_proj", "kernel"): "attn.qkv.q_proj.weight",
     ("attn", "qkv", "k_proj", "kernel"): "attn.qkv.k_proj.weight",
     ("attn", "qkv", "v_proj", "kernel"): "attn.qkv.v_proj.weight",
     ("attn", "o_proj", "kernel"): "attn.o_proj.weight",
     ("post_attn_norm", "weight"): "post_attn_norm.weight",
+}
+_LAYER_LEAVES = {
+    **_ATTN_LEAVES,
     ("mlp", "gate_proj", "kernel"): "mlp.gate_proj.weight",
     ("mlp", "up_proj", "kernel"): "mlp.up_proj.weight",
     ("mlp", "down_proj", "kernel"): "mlp.down_proj.weight",
 }
+_EXPERT_LEAVES = ("gate_proj", "up_proj", "down_proj")
 
 
 def _leaf(tree, path):
@@ -42,13 +50,13 @@ def _leaf(tree, path):
 
 def _tensor(arr: np.ndarray, kernel: bool) -> torch.Tensor:
     arr = np.asarray(arr, dtype=np.float32)
-    return torch.from_numpy(np.array(arr.T if kernel else arr, order="C"))
+    return torch.from_numpy(np.array(np.swapaxes(arr, -1, -2) if kernel else arr, order="C"))
 
 
 def _codes(arr: np.ndarray) -> torch.Tensor:
-    """An int8 or fp8 e4m3 kernel (in, out) as the port's (out, in) codes,
-    bit for bit (numpy has no fp8: its bytes cross as uint8)."""
-    arr = np.ascontiguousarray(np.asarray(arr).T)
+    """An int8 or fp8 e4m3 kernel (..., in, out) as the port's (..., out,
+    in) codes, bit for bit (numpy has no fp8: its bytes cross as uint8)."""
+    arr = np.ascontiguousarray(np.swapaxes(np.asarray(arr), -1, -2))
     if arr.dtype == np.int8:
         return torch.from_numpy(arr)
     if arr.dtype.name != "float8_e4m3fn":
@@ -79,24 +87,72 @@ def flax_to_torch(params_np, config: LlamaConfig) -> Dict[str, torch.Tensor]:
     the same rounding as the JAX ``astype`` before use."""
     tree = params_np.get("params", params_np)
     mdl = tree["model"]
-    sd = {
+    sd = _base_entries(tree)
+    for i, layer, index in _layers(mdl, config.num_layers):
+        sd.update(_layer_entries(layer, i, index, _LAYER_LEAVES))
+    return sd
+
+
+def _base_entries(tree) -> Dict[str, torch.Tensor]:
+    """The embedding, the final norm and lm_head."""
+    mdl = tree["model"]
+    return {
         "model.embed.weight": _tensor(_leaf(mdl, ("embed", "embedding")), False),
         "model.final_norm.weight": _tensor(_leaf(mdl, ("final_norm", "weight")), False),
         **_linear_entries(tree["lm_head"], "lm_head.weight"),
     }
+
+
+def _layers(mdl, num_layers: int):
+    """``(i, layer node, index)`` of each layer: unscanned ``layers_<i>``
+    (index None) or ``scan_layers=True``'s ``layers/layer`` (index i)."""
     scanned = "layers" in mdl
-    for i in range(config.num_layers):
-        layer = mdl["layers"]["layer"] if scanned else mdl[f"layers_{i}"]
-        index = i if scanned else None
-        for path, name in _LAYER_LEAVES.items():
-            if path[-1] == "kernel":
-                node = layer
-                for key in path[:-1]:
-                    node = node[key]
-                sd.update(_linear_entries(node, f"model.layers.{i}.{name}", index))
-            else:
-                arr = _leaf(layer, path)
-                sd[f"model.layers.{i}.{name}"] = _tensor(arr if index is None else arr[i], False)
+    for i in range(num_layers):
+        yield (i, mdl["layers"]["layer"], i) if scanned else (i, mdl[f"layers_{i}"], None)
+
+
+def _layer_entries(layer, i: int, index, leaves) -> Dict[str, torch.Tensor]:
+    sd = {}
+    for path, name in leaves.items():
+        if path[-1] == "kernel":
+            node = layer
+            for key in path[:-1]:
+                node = node[key]
+            sd.update(_linear_entries(node, f"model.layers.{i}.{name}", index))
+        else:
+            arr = _leaf(layer, path)
+            sd[f"model.layers.{i}.{name}"] = _tensor(arr if index is None else arr[index], False)
+    return sd
+
+
+def _stack_entries(node, key: str, name: str, index=None) -> Dict[str, torch.Tensor]:
+    """The port's entries of one expert stack ``node[key]`` (E, in, out),
+    and of its ``<key>_scale`` when quantized, under ``name``."""
+    def leaf(k):
+        arr = np.asarray(node[k])
+        return arr if index is None else arr[index]
+
+    if key + "_scale" not in node:
+        return {name: _tensor(leaf(key), True)}
+    scale = np.asarray(leaf(key + "_scale"), dtype=np.float32)
+    scale = scale[:, 0, :] if scale.ndim == 3 else scale  # (E, 1, out) -> (E, out)
+    return {name: _codes(leaf(key)), name + "_scale": torch.from_numpy(np.array(scale))}
+
+
+def mixtral_flax_to_torch(params_np, config) -> Dict[str, torch.Tensor]:
+    """State dict for ``MixtralForCausalLM(config)`` from the JAX
+    ``MixtralForCausalLM`` params (either layer layout; a quantized tree's
+    codes bit for bit, as :func:`flax_to_torch`)."""
+    tree = params_np.get("params", params_np)
+    sd = _base_entries(tree)
+    for i, layer, index in _layers(tree["model"], config.num_layers):
+        sd.update(_layer_entries(layer, i, index, _ATTN_LEAVES))
+        router = _leaf(layer, ("moe", "router", "weight"))
+        sd[f"model.layers.{i}.moe.router.weight"] = _tensor(
+            router if index is None else router[index], True)
+        experts = layer["moe"]["experts"]
+        for key in _EXPERT_LEAVES:
+            sd.update(_stack_entries(experts, key, f"model.layers.{i}.moe.experts.{key}", index))
     return sd
 
 

@@ -223,6 +223,33 @@ class LlamaDecoderLayer(nn.Module):
         return x + self.mlp(self.post_attn_norm(x))
 
 
+def mode_inputs(config, input_ids, mode: str, cache: Optional[KVCache], positions,
+                padding_mask):
+    """A backbone forward's mode bookkeeping, before its layers run:
+    ``(positions, q_pos, padding_mask)``. A prefill records the prompt's
+    validity in the cache (RoPE positions from ``padding_mask`` unless
+    given); a decode takes its query and RoPE positions from the cache's
+    device cursor and records the step's validity, which attention then
+    reads from the cache (so ``padding_mask`` becomes None)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown attention mode {mode!r}")
+    if mode != "train" and cache is None:
+        raise ValueError(f"mode {mode!r} needs a KVCache")
+    s = input_ids.shape[1]
+    if s > config.max_seq_len:
+        raise ValueError(f"prompt length {s} exceeds max_seq_len={config.max_seq_len}")
+    q_pos = None
+    if mode == "prefill":
+        if positions is None and padding_mask is not None:
+            positions = prefill_positions(padding_mask)
+        cache.prefill_valid(padding_mask, s)
+    elif mode == "decode":
+        q_pos, positions = cache.decode_positions(s, positions)
+        cache.decode_valid(padding_mask, s)
+        padding_mask = None  # persisted in the cache; attention reads kv_valid
+    return positions, q_pos, padding_mask
+
+
 class LlamaModel(nn.Module):
     """Backbone without the LM head; returns the final-normed hidden states
     (B, S, hidden), which the heads read (the LM head, Medusa's heads).
@@ -249,23 +276,9 @@ class LlamaModel(nn.Module):
 
     def forward(self, input_ids, mode: str = "train", cache: Optional[KVCache] = None,
                 positions=None, segment_ids=None, padding_mask=None, attn_mask=None):
-        if mode not in MODES:
-            raise ValueError(f"unknown attention mode {mode!r}")
-        if mode != "train" and cache is None:
-            raise ValueError(f"mode {mode!r} needs a KVCache")
-        b, s = input_ids.shape
-        if s > self.config.max_seq_len:
-            raise ValueError(f"prompt length {s} exceeds max_seq_len={self.config.max_seq_len}")
+        positions, q_pos, padding_mask = mode_inputs(self.config, input_ids, mode, cache,
+                                                     positions, padding_mask)
         x = self.embed(input_ids)
-        q_pos = None
-        if mode == "prefill":
-            if positions is None and padding_mask is not None:
-                positions = prefill_positions(padding_mask)
-            cache.prefill_valid(padding_mask, s)
-        elif mode == "decode":
-            q_pos, positions = cache.decode_positions(s, positions)
-            cache.decode_valid(padding_mask, s)
-            padding_mask = None  # persisted in the cache; attention reads kv_valid
         remat = self.config.remat and mode == "train" and torch.is_grad_enabled()
         kw = {}
         if remat:
@@ -279,7 +292,7 @@ class LlamaModel(nn.Module):
         if mode == "decode":
             # on the device, in place: a decode forward changes no host
             # state, so a captured step replays it at every column
-            cache.advance(s)
+            cache.advance(input_ids.shape[1])
         return self.final_norm(x)
 
 
@@ -451,8 +464,9 @@ def early_exit_draft(model: LlamaForCausalLM, draft_layers: int, eps: float):
 
 
 def quantize_model(model: LlamaForCausalLM, qcfg: QuantizationConfig) -> LlamaForCausalLM:
-    """A serving :class:`LlamaForCausalLM` with ``qcfg`` quantized weights
-    made from the float ``model`` (the JAX engine's quantized clone and
+    """A serving model of ``model``'s class (a :class:`LlamaForCausalLM`,
+    or a ``MixtralForCausalLM`` with its expert stacks) with ``qcfg``
+    quantized weights made from the float ``model`` (the JAX engine's quantized clone and
     ``quantize_param_tree``, ``serving/engine.py:536-557``, which returns a
     fresh tree): every linear's codes and scales are new tensors
     (``quantize_state_dict``), the embedding and the norms are copies (a
@@ -467,7 +481,7 @@ def quantize_model(model: LlamaForCausalLM, qcfg: QuantizationConfig) -> LlamaFo
     sd = {name: t.detach().clone() if t is src.get(name) else t
           for name, t in quantize_state_dict(src, qcfg).items()}
     cfg = dataclasses.replace(model.config, quantization=qcfg)
-    return _bind(LlamaForCausalLM(cfg, device="meta"), {**sd, "model.freqs": model.model.freqs})
+    return _bind(type(model)(cfg, device="meta"), {**sd, "model.freqs": model.model.freqs})
 
 
 @torch.no_grad()

@@ -121,6 +121,20 @@ def device_peaks(device=None) -> dict:
 # --- cost ---------------------------------------------------------------------
 
 _ACTIVE = threading.local()  # the meter of this thread's metered dispatch
+
+
+def _grouped_mm_flops(mat_a, mat_b, *args, out_val=None, **kwargs) -> int:
+    """``torch._grouped_mm``'s count (``torch.utils.flop_counter`` has none):
+    2 x out x in a row of the output, for the (N, in) x (E, in, out) form
+    of the MoE blockwise route, every row through one group's weight; for
+    other forms (batched or grouped along K) 2 x in x the output's
+    elements."""
+    k = mat_a.shape[-1] if mat_a.dim() == 2 and mat_b.dim() == 3 else mat_b.shape[-2]
+    return 2 * k * out_val.numel()
+
+
+# FLOP formulas for products ``flop_registry`` lacks, by op packet
+_EXTRA_FLOPS = {torch.ops.aten._grouped_mm: _grouped_mm_flops}
 _NO_DATA = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided"}
 
 
@@ -162,7 +176,7 @@ class CostMeter(TorchDispatchMode):
         if self._suppress:
             return out
         packet = func._overloadpacket
-        formula = flop_registry.get(packet)
+        formula = flop_registry.get(packet) or _EXTRA_FLOPS.get(packet)
         if formula is not None:
             self.flops += float(formula(*args, **kwargs, out_val=out))
         returns = func._schema.returns

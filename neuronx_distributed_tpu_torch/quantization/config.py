@@ -7,13 +7,15 @@ Two levels, as in JAX:
   ``quantize_state_dict`` speak (dtype and scale scheme).
 * :class:`QuantConfig` — the serving knob
   (``ServingEngine(quantize=QuantConfig(weights="int8", kv="int8"))``):
-  weight-only int8/fp8 on every Llama linear, and an int8 paged KV pool
-  with a scale per (page, kv-head). It lowers to a
+  weight-only int8/fp8 on every linear (Llama, Mixtral) and every MoE
+  expert stack, and an int8 paged KV pool with a scale per (page,
+  kv-head). It lowers to a
   :class:`QuantizationConfig` for the weights with
   :meth:`QuantConfig.weight_qconfig`.
 
-The JAX config's ``channel_dim``/``batch_dim`` (the standalone quantized
-layers and expert stacks) and ``use_int8_matmul``/``use_static_act_scale``
+The JAX config's ``channel_dim``/``batch_dim`` (its standalone quantized
+layers; a stack's scales follow ``quantize_param_tree``'s fixed rule, one
+per leading slice and output channel) and ``use_int8_matmul``/``use_static_act_scale``
 (the int8 x int8 product, off in ``weight_qconfig``) are not ported.
 """
 

@@ -6,7 +6,10 @@ dtype; XLA fuses the dequantize into the GEMM's operand load. Here DQ
 (``kernels/dequantize.py``) writes the dequantized weight in one pass and
 ``F.linear`` runs the GEMM on it (JAX leaves that GEMM to XLA too, outside
 any Pallas kernel). The quantized linears themselves are
-``parallel/layers.py``'s, built with ``quantization_config=``.
+``parallel/layers.py``'s, built with ``quantization_config=``; the
+quantized expert stacks (JAX ``QuantizedExpertFusedColumnParallel`` :113,
+``RowParallel`` :162) are ``modules/moe/moe_parallel_layers.py``'s, and
+:func:`dequantize_stack` dequantizes one.
 """
 
 from __future__ import annotations
@@ -27,3 +30,16 @@ def quantized_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
     is dequantized by DQ for CUDA tensors, by the plain version for CPU
     tensors."""
     return F.linear(x.to(out_dtype), dequantize_fwd(w_q, scale, out_dtype), bias)
+
+
+def dequantize_stack(w_q: torch.Tensor, scale: torch.Tensor, out_dtype: torch.dtype
+                     ) -> torch.Tensor:
+    """A quantized 3-D expert stack ``(E, out, in)`` with scales ``(E,
+    out)`` or ``(E,)`` dequantized to ``out_dtype`` (JAX dequantizes the
+    stack in ``_declare_kernel``, ``parallel/layers.py:83``, then runs its
+    einsum): one DQ pass over the stack as ``E * out`` rows on the card,
+    the plain version on the CPU."""
+    e, o, i = w_q.shape
+    rows = scale if scale.dim() == 2 else scale[:, None].expand(e, o)
+    return dequantize_fwd(w_q.reshape(e * o, i), rows.reshape(e * o).contiguous(),
+                          out_dtype).reshape(e, o, i)

@@ -49,42 +49,74 @@ def direct_cast_quantize(w: torch.Tensor, cfg: QuantizationConfig,
     return q, scale
 
 
-def _scale_name(weight_name: str) -> str:
-    return weight_name[: -len("weight")] + "scale"
+# the raw 3-D expert stacks of ``modules/moe/expert_mlps.py`` (JAX's
+# ``expert_leaves``, ``utils.py:151``)
+EXPERT_LEAVES = ("gate_proj", "up_proj", "down_proj")
+
+
+def scale_name(name: str) -> str:
+    """The scale entry beside a selected weight: ``<prefix>.scale`` for a
+    ``<prefix>.weight``, ``<name>_scale`` for an expert stack (JAX's
+    ``scale`` / ``<name>_scale`` naming, ``utils.py:173``)."""
+    if name.rpartition(".")[2] == "weight":
+        return name[: -len("weight")] + "scale"
+    return name + "_scale"
 
 
 def is_quantized_state_dict(state_dict: Dict[str, torch.Tensor]) -> bool:
-    """Whether a state dict already carries quantized weights: a ``scale``
-    entry beside some ``weight`` (the structure :func:`quantize_state_dict`
-    emits; JAX ``is_quantized_tree``, ``utils.py:31``)."""
-    return any(name.endswith(".weight") and _scale_name(name) in state_dict
-               for name in state_dict)
+    """Whether a state dict already carries quantized weights: a scale
+    entry beside some weight or expert stack (the structure
+    :func:`quantize_state_dict` emits; JAX ``is_quantized_tree``,
+    ``utils.py:31``)."""
+    return any(_selected(name, t) and scale_name(name) in state_dict
+               for name, t in state_dict.items())
 
 
 def _selected(name: str, t: torch.Tensor) -> bool:
-    """Every 2-D linear weight, lm_head included; never the embedding."""
-    return name.endswith(".weight") and t.dim() == 2 and not name.endswith("embed.weight")
+    """Every linear weight of 2 dims or more, lm_head included, and every
+    3-D expert stack; never the embedding nor a MoE router (JAX keeps the
+    router float, ``tests/quantization/test_quantized_model.py:159``)."""
+    leaf = name.rpartition(".")[2]
+    if leaf == "weight":
+        return (t.dim() >= 2 and not name.endswith("embed.weight")
+                and not name.endswith("router.weight"))
+    return leaf in EXPERT_LEAVES and t.dim() >= 3
+
+
+@torch.no_grad()
+def quantize_weight(w: torch.Tensor, cfg: QuantizationConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(codes, scale)`` of one weight ``(..., out, in)``: every leading
+    slice (an expert of a stack) quantized on its own, as JAX's
+    ``quantize_param_tree`` does (``utils.py:188-204``). Per channel the
+    scale reduces the contraction dim only, ``(..., out)``; per tensor the
+    two matrix dims, ``(...)`` (a scalar for a 2-D weight)."""
+    a = w.to(torch.float32).abs()
+    dims = (-2, -1) if cfg.quantization_type == QuantizationType.PER_TENSOR_SYMMETRIC else (-1,)
+    s = a.amax(dim=dims, keepdim=True).clamp_min(1e-12) / cfg.quantized_dtype.max_value
+    q, _ = direct_cast_quantize(w, cfg, scale=s)
+    return q, s.reshape(w.shape[:-len(dims)])
 
 
 @torch.no_grad()
 def quantize_state_dict(state_dict: Dict[str, torch.Tensor], cfg: QuantizationConfig
                         ) -> Dict[str, torch.Tensor]:
-    """A new state dict where every 2-D linear weight, lm_head included
-    and the embedding never, becomes its codes (``cfg``'s dtype, ``(out, in)``) with a ``scale`` entry beside it
-    (f32, ``(out,)`` per channel or ``()`` per tensor); every other entry is
-    the caller's own tensor. The port's ``quantize_param_tree``
-    (``utils.py:124``). A dict that already holds the scale of a selected
-    weight raises, as JAX does for a quantized tree (``utils.py:176-185``)."""
+    """A new state dict where every linear weight (lm_head included, the
+    embedding and a MoE router never) and every expert stack becomes its
+    codes (``cfg``'s dtype, ``(..., out, in)``) with a scale entry beside it
+    (f32: ``(..., out)`` per channel, ``(...)`` per tensor; see
+    :func:`scale_name`); every other entry is the caller's own tensor. The
+    port's ``quantize_param_tree`` (``utils.py:124``). A dict that already
+    holds the scale of a selected weight raises, as JAX does for a
+    quantized tree (``utils.py:176-185``)."""
     out = {}
     for name, t in state_dict.items():
         if not _selected(name, t):
             out.setdefault(name, t)
             continue
-        scale_name = _scale_name(name)
-        if scale_name in state_dict:
-            raise ValueError(f"state dict already has {scale_name!r} beside {name!r} "
+        sname = scale_name(name)
+        if sname in state_dict:
+            raise ValueError(f"state dict already has {sname!r} beside {name!r} "
                              "(already quantized?); cannot attach the quantization scale")
-        q, s = direct_cast_quantize(t, cfg)
-        out[name] = q
-        out[scale_name] = s.reshape(-1) if s.dim() else s
+        out[name], out[sname] = quantize_weight(t, cfg)
     return out

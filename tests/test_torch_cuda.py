@@ -2020,3 +2020,112 @@ def test_canary_on_card_convicts_a_flip_and_rolls_back(cuda):
     ref = Trainer(model=tr.model)
     ref.fit(_packed_source(), 0, max_steps=6)
     assert all(torch.equal(a, b) for a, b in zip(got, ref._state_leaves()))
+
+
+def _mx_case(gen, case, t, e=8, h=1024, i=2048):
+    """Routes and stacks for MX/MXq at a reduced width (the card check of
+    chip_smoke.py phase 2 runs Mixtral-8x7B's): "random" (two distinct
+    experts a token), "skewed" (every pair on expert 3) or "untouched"
+    (expert 5 never chosen)."""
+    if case == "skewed":
+        top_e = torch.full((t, 2), 3, dtype=torch.int64, device="cuda")
+    else:
+        top_e = torch.rand(t, e - (case == "untouched"), generator=gen,
+                           device="cuda").argsort(-1)[:, :2]
+        if case == "untouched":
+            top_e = top_e + (top_e >= 5).long()
+    w = torch.rand(t, 2, generator=gen, device="cuda") + 0.1
+    x = _rnd(gen, t, h)
+    stacks = [(torch.randn(e, i, h, generator=gen, device="cuda") / h ** 0.5).to(torch.bfloat16),
+              (torch.randn(e, i, h, generator=gen, device="cuda") / h ** 0.5).to(torch.bfloat16),
+              (torch.randn(e, h, i, generator=gen, device="cuda") / i ** 0.5).to(torch.bfloat16)]
+    return x, top_e, w / w.sum(-1, keepdim=True), stacks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("case,t", [("random", 8), ("random", 1), ("skewed", 8),
+                                    ("untouched", 8), ("random", 16)])
+def test_moe_experts_kernel_equals_plain(cuda, kind, case, t):
+    """MX/MXq against their plain version: |out - ref| <= 2^-7 |ref| +
+    2^-9 sum_j |w_j| (|down| . |act|) + 1e-5 (the same bf16 rounding
+    points; f32 sums of up to I terms in another order, 2 I 2^-24 <=
+    2^-9 of the magnitude); a dropped pair must fail it; two runs
+    bitwise equal; one launch counted a call."""
+    from neuronx_distributed_tpu_torch.kernels import moe_experts as tmx
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+    from neuronx_distributed_tpu_torch.quantization.utils import quantize_weight
+
+    x, top_e, top_w, stacks = _mx_case(cuda, case, t)
+    if kind == "bf16":
+        args, fn = stacks, tmx.moe_experts
+    else:
+        qs = [quantize_weight(w, QuantConfig(weights=kind).weight_qconfig()) for w in stacks]
+        args, fn = [q for q, _ in qs] + [s for _, s in qs], tmx.moe_experts_quantized
+    n0 = fn.launches
+    got = fn(x, top_e, top_w, *args)
+    assert fn.launches == n0 + 1
+    assert torch.equal(fn(x, top_e, top_w, *args), got)
+    scales = args[3:] if kind != "bf16" else (None, None, None)
+    old = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        ref = tmx.moe_experts_plain(x, top_e, top_w, *args[:3], *scales)
+        g = tmx.gathered(args[0], scales[0], top_e, torch.bfloat16)
+        u = tmx.gathered(args[1], scales[1], top_e, torch.bfloat16)
+        act = (torch.nn.functional.silu(torch.einsum("th,tkih->tki", x, g))
+               * torch.einsum("th,tkih->tki", x, u))
+        d = tmx.gathered(args[2], scales[2], top_e, torch.bfloat16)
+        y = torch.einsum("tki,tkhi->tkh", act, d)
+        mag = torch.einsum("tki,tkhi->tkh", act.float().abs(), d.float().abs())
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = old
+    wb = top_w.to(torch.bfloat16).float()
+    limit = 2.0 ** -7 * ref.float().abs() + 2.0 ** -9 * torch.einsum("tk,tkh->th", wb, mag) + 1e-5
+    assert float(((got.float() - ref.float()).abs() / limit).max()) <= 1.0
+    dropped = ref.float() - wb[:, :1] * y[:, 0].float()
+    assert float(((dropped - ref.float()).abs() / limit).max()) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots,paged", [(8, False), (16, True)])
+def test_mixtral_engine_on_card_captured_equals_eager(cuda, monkeypatch, slots, paged):
+    """A 2-layer Mixtral on the card: the decode step is one CUDA graph
+    (MX a layer at 8 slots; the blockwise route's sort and grouped products
+    at 16), its streams equal the same engine's with the eager step
+    patched in, every request DONE."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+    from neuronx_distributed_tpu_torch.inference.graphs import DecodeProgram
+    from neuronx_distributed_tpu_torch.kernels import moe_experts as tmx
+    from neuronx_distributed_tpu_torch.models.mixtral import (
+        MixtralConfig, MixtralForCausalLM, init_params)
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    cfg = MixtralConfig(vocab_size=1000, hidden_size=512, intermediate_size=1024, num_layers=2,
+                        num_heads=4, num_kv_heads=2, max_seq_len=512)
+    model = init_params(MixtralForCausalLM(cfg), seed=0)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 1000, size=n) for n in (120, 40, 160, 9)]
+    kw = dict(kv_page_size=16) if paged else {}
+    streams = []
+    for eager in (False, True):
+        with monkeypatch.context() as m:
+            if eager:
+                m.setattr(DecodeProgram, "__call__", lambda self: self.step())
+            engine = ServingEngine(model, num_slots=slots, decode_chunk_size=8, **kw)
+            reqs = [engine.submit(p, GenerationConfig(24, temperature=0.0), seed=i)
+                    for i, p in enumerate(prompts)]
+            n0 = tmx.moe_experts.launches
+            engine.run()
+        assert [len(r.tokens) for r in reqs] == [24] * len(prompts)
+        snap = engine.metrics.snapshot()
+        if not eager:
+            assert engine.decode_compilations == 1
+            assert engine.decode_program.launches_per_replay.get("moe_experts", 0) == (
+                cfg.num_layers if slots <= 8 else 0)
+        elif slots <= 8:
+            assert tmx.moe_experts.launches - n0 == snap["executed_steps"] * cfg.num_layers
+        if paged:
+            engine.cache.check()
+        streams.append([r.tokens for r in reqs])
+    assert streams[0] == streams[1]

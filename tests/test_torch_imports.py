@@ -19,7 +19,9 @@ from neuronx_distributed_tpu_torch.kernels import flash_attention as tfa
 from neuronx_distributed_tpu_torch.kernels import flash_decode as tfd
 from neuronx_distributed_tpu_torch.kernels import kv_quant as tkq
 from neuronx_distributed_tpu_torch.kernels import page_fingerprint as tpf
+from neuronx_distributed_tpu_torch.kernels import moe_experts as tmx
 from neuronx_distributed_tpu_torch.models import llama as tllama
+from neuronx_distributed_tpu_torch.models import mixtral as tmixtral
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
 
 torch.set_num_threads(1)
@@ -131,6 +133,18 @@ def test_every_module_imports_and_runs_with_jax_blocked():
         report = replay(slo, tape, clock, step_dt=0.05)
         assert report["completed"] == len(tape) > 0, report
         assert "serving_steps" in slo.metrics.registry.prometheus_text()
+        from neuronx_distributed_tpu_torch.models.mixtral import (
+            MixtralForCausalLM, init_params as mixtral_init, tiny_mixtral)
+        from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+        moe = mixtral_init(MixtralForCausalLM(tiny_mixtral(num_experts=8), device="cpu"), seed=0)
+        moe_solo = generate(moe, np.array([[3, 4, 5]]), cfg)[0].tolist()
+        for kw in (dict(num_slots=2), dict(num_slots=16, kv_page_size=8),
+                   dict(num_slots=2, kv_page_size=8, quantize=QuantConfig(weights="int8"))):
+            moe_engine = ServingEngine(moe, decode_chunk_size=2, **kw)
+            req = moe_engine.submit([3, 4, 5], cfg)
+            moe_engine.run()
+            if "quantize" not in kw:
+                assert req.tokens == moe_solo, (kw, req.tokens, moe_solo)
         from neuronx_distributed_tpu_torch.inference.medusa import medusa_generate
         from neuronx_distributed_tpu_torch.models.medusa import (
             MedusaForCausalLM, init_medusa_heads)
@@ -189,7 +203,16 @@ def test_every_module_imports_and_runs_with_jax_blocked():
             "neuronx_distributed_tpu_torch.trainer.faults",
             "neuronx_distributed_tpu_torch.integrity.sentinel",
             "neuronx_distributed_tpu_torch.integrity.checkpoint",
-            "neuronx_distributed_tpu_torch.observability.callback"} <= set(_port_modules())
+            "neuronx_distributed_tpu_torch.observability.callback",
+            "neuronx_distributed_tpu_torch.models.mixtral",
+            "neuronx_distributed_tpu_torch.modules.moe",
+            "neuronx_distributed_tpu_torch.modules.moe.routing",
+            "neuronx_distributed_tpu_torch.modules.moe.expert_mlps",
+            "neuronx_distributed_tpu_torch.modules.moe.model",
+            "neuronx_distributed_tpu_torch.modules.moe.loss_function",
+            "neuronx_distributed_tpu_torch.modules.moe.token_shuffling",
+            "neuronx_distributed_tpu_torch.modules.moe.moe_parallel_layers",
+            "neuronx_distributed_tpu_torch.kernels.moe_experts"} <= set(_port_modules())
 
 
 def test_slo_serving_pieces_are_the_ports_own():
@@ -237,6 +260,8 @@ def test_entry_points_raise_without_a_device(monkeypatch):
         tllama.LlamaForCausalLM(tllama.tiny_llama())
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tllama.LlamaForCausalLM(tllama.tiny_llama(), device="cuda")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tmixtral.MixtralForCausalLM(tmixtral.tiny_mixtral())
     assert resolve_device("cpu") == torch.device("cpu")
 
 
@@ -245,7 +270,8 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     k = torch.randn(1, 4, 1, 8)
     counters = (tfa.flash_attention_fwd, tfa.flash_attention_dkdv, tfa.flash_attention_dq,
                 tfd.flash_decode_fwd, tfd.paged_flash_decode_fwd, tfd.qpaged_flash_decode_fwd,
-                tdq.dequantize_fwd, tkq.window_requantize_fwd, tpf.pool_pages_fingerprint_fwd)
+                tdq.dequantize_fwd, tkq.window_requantize_fwd, tpf.pool_pages_fingerprint_fwd,
+                tmx.moe_experts, tmx.moe_experts_quantized)
     before = [f.launches for f in counters]
     out, lse = tfa.flash_attention_fwd(q, k, k)
     delta = (out * q).sum(-1).transpose(1, 2)
@@ -264,12 +290,18 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
                               torch.tensor([0]), k[:, :1].reshape(1, 1, 1, 8),
                               k[:, 1:2].reshape(1, 1, 1, 8))
     tpf.pool_pages_fingerprint_fwd([k[None]], torch.tensor([0]), (0,))
+    x, top_e, top_w = torch.randn(2, 16), torch.tensor([[0, 1], [1, 2]]), torch.rand(2, 2)
+    stacks = [torch.randn(3, 16, 16) for _ in range(3)]
+    tmx.moe_experts(x, top_e, top_w, *stacks)
+    codes = [torch.ones(3, 16, 16, dtype=torch.int8) for _ in range(3)]
+    tmx.moe_experts_quantized(x, top_e, top_w, *codes, *[torch.ones(3, 16) for _ in range(3)])
     assert [f.launches for f in counters] == before
     # the plain versions are called from their own wrappers and nowhere else
     # in the package (chip_smoke.py calls them only to check the kernels)
     for path in _sources():
         if os.path.basename(path) in ("chip_smoke.py", "flash_attention.py", "flash_decode.py",
-                                      "dequantize.py", "kv_quant.py", "page_fingerprint.py"):
+                                      "dequantize.py", "kv_quant.py", "page_fingerprint.py",
+                                      "moe_experts.py"):
             continue
         with open(path) as f:
             src = f.read()
@@ -277,9 +309,9 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
                       "flash_attention_dq_plain", "flash_decode_plain",
                       "paged_flash_decode_plain", "paged_flash_decode_plain_q",
                       "dequantize_plain", "window_requantize_plain",
-                      "pool_pages_fingerprint_plain"):
+                      "pool_pages_fingerprint_plain", "moe_experts_plain"):
             assert plain not in src, (path, plain)
     # and no fallback: the kernel wrappers hold no try/except
-    for mod in (tfa, tfd, tdq, tkq, tpf):
+    for mod in (tfa, tfd, tdq, tkq, tpf, tmx):
         tree = ast.parse(open(mod.__file__).read())
         assert not any(isinstance(n, ast.Try) for n in ast.walk(tree)), mod.__file__

@@ -302,6 +302,64 @@ def test_paged_engine_decode_program_runs_k5(tiny):
     engine.cache.check()
 
 
+def mixtral_decode_step_flops(cfg, slots: int, cols: int) -> float:
+    """The analytic routed decode step of a Mixtral: attention's linears
+    and attention over every column handed to the decode kernel (as
+    :func:`decode_step_flops`), the router's 2 x hidden x experts, k of
+    the E experts' SwiGLU (3 products of hidden x intermediate) and their
+    weighted combine (2 x k x hidden) a token, and lm_head, each a slot."""
+    hd = cfg.head_dim_
+    attn = (cfg.hidden_size * (cfg.num_heads + 2 * cfg.num_kv_heads) * hd
+            + cfg.num_heads * hd * cfg.hidden_size)
+    routed = cfg.hidden_size * cfg.num_experts + cfg.top_k * cfg.hidden_size * (
+        3 * cfg.intermediate_size + 1)
+    weights = cfg.num_layers * (attn + routed) + cfg.hidden_size * cfg.vocab_size
+    return 2.0 * weights * slots + 4.0 * slots * cfg.num_heads * cols * hd * cfg.num_layers
+
+
+@pytest.mark.parametrize("slots,paged,quant", [(2, False, None), (16, True, None),
+                                               (2, True, "int8"), (16, True, "int8")])
+def test_mixtral_decode_flops_equal_the_routed_count(slots, paged, quant):
+    """A Mixtral decode step's metered FLOPs are the routed count: k of E
+    experts a token, whether the step runs MX/MXq (the selective route, at
+    most 8 slots; its own formula) or the blockwise route's grouped
+    products (16 slots; ``torch._grouped_mm``'s formula), plus DQ's one
+    operation a weight on the quantized routes that dequantize."""
+    from neuronx_distributed_tpu_torch.models.mixtral import (
+        MixtralForCausalLM,
+        init_params as mixtral_init,
+        tiny_mixtral,
+    )
+    from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
+
+    cfg = tiny_mixtral(num_experts=8)
+    model = mixtral_init(MixtralForCausalLM(cfg, device="cpu"), seed=0)
+    kw = dict(kv_page_size=8, kv_num_pages=64) if paged else {}
+    if quant:
+        kw["quantize"] = QuantConfig(weights=quant)
+    engine = ServingEngine(model, num_slots=slots, decode_chunk_size=4, **kw)
+    gcfg = GenerationConfig(max_new_tokens=8, temperature=0.0)
+    for i in range(2):
+        engine.submit(np.arange(1 + i, 7 + i, dtype=np.int32), gcfg, seed=i)
+    engine.run()
+    dc = engine.programs.snapshot()["by_program"]["decode_chunk"]
+    want = mixtral_decode_step_flops(cfg, slots, cfg.max_seq_len)
+    layers = cfg.num_layers
+    decode = {"paged_flash_decode" if paged else "flash_decode": layers}
+    if quant is None:
+        assert dc["flops_per_dispatch"] == want
+        assert dc["kernels"] == ({**decode, "moe_experts": layers} if slots <= 8 else decode)
+        return
+    e, h, i = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+    linears = layers * (h * (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim_
+                        + cfg.num_heads * cfg.head_dim_ * h) + h * cfg.vocab_size
+    dq = linears + (layers * 3 * e * h * i if slots > 8 else 0)
+    assert dc["flops_per_dispatch"] == want + dq
+    n_dq = layers * (4 + (3 if slots > 8 else 0)) + 1
+    assert dc["kernels"] == ({**decode, "moe_experts_quantized": layers, "dequantize": n_dq}
+                             if slots <= 8 else {**decode, "dequantize": n_dq})
+
+
 def test_host_reads_same_with_a_shared_ledger_and_instruments(tiny, tmp_path):
     """The host-read budget (JAX ``test_observe_overhead``'s sync parity):
     a fresh request's first token and one read a chunk, the same with the
