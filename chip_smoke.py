@@ -53,7 +53,10 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    at T = 8 and 1, every pair on one expert and one expert untouched, two
    runs and three graph replays bitwise equal, timed (graph replay) against
    the bytes of the experts the call touches, the plain version and
-   ``torch._grouped_mm`` over the same expert-sorted pairs;
+   ``torch._grouped_mm`` over the same expert-sorted pairs; MXq's
+   dequantize code by code (x one-hot: every int8 and finite e4m3 code of
+   up and of down, bit for bit); ``ptxas`` reports no spill and no
+   serialized ``wgmma`` in ``csrc/moe_experts.cu``;
 3. outputs: the full-width model's logits through the kernels, with a row
    cache and with a paged cache behind a scrambled block table, against the
    same model with the plain versions swapped in, on a short prompt;
@@ -274,7 +277,10 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    slots (the blockwise route's sort and ``torch._grouped_mm`` under the
    capture) and its eager witness, phase 5c's prefix wave on the row
    engine (11 hits, 1 miss; each hit's logits against a full prefill's,
-   and against MX's plain version on the same route); (b) int8 and fp8
+   and against MX's plain version on the same route), then
+   ``engine.params = W1`` on a captured row engine at 8 slots: every
+   parameter at its address, one capture, streams = a fresh engine's on
+   W1; (b) int8 and fp8
    copies of an 8-layer model teacher-forced against it: JAX's Mixtral
    criterion (median relative error < 0.02, 95% under 0.1) and the max KL;
    (c) the full 32-layer model with int8 weights, filled weight by weight
@@ -318,6 +324,7 @@ result.
 from __future__ import annotations
 
 import bisect
+import collections.abc
 import contextlib
 import dataclasses
 import json
@@ -1163,6 +1170,9 @@ ROWS_PREFIX, ROWS_PADDED = 1600, 2048  # phase 5c's shared prompt and its prefil
 MX_E, MX_H, MX_I, MX_TOPK = 8, 4096, 14336, 2  # Mixtral-8x7B's expert shapes
 MX_CASES = (("random", 8), ("random", 1), ("skewed", 8), ("untouched", 8))
 MX_UNTOUCHED = 5  # the expert no pair routes to in the "untouched" case
+# MX/MXq's CUDA kernels by name (the two products', the combine's and, for
+# codes, the input permute's), for the profiles' device time by family
+MX_KERNELS = ("routed_mma_kernel", "moe_combine_kernel", "moe_permute_kernel")
 
 
 def mx_routes(gen, case: str, t: int):
@@ -1366,6 +1376,60 @@ def check_mx(gen) -> dict:
             res[(kind, case, t)] = r
             torch.cuda.empty_cache()
     del weights
+    torch.cuda.empty_cache()
+    return res
+
+
+def mx_resources() -> list:
+    """``ptxas -v``'s register and spill lines for ``csrc/moe_experts.cu``;
+    raises if a kernel spills, if ``ptxas`` serialized a ``wgmma`` (its
+    C7512 note), or if nothing was reported."""
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    report = _build.resource_report("moe_experts")
+    lines = [line.strip() for line in report.splitlines()
+             if "registers" in line or "spill" in line]
+    if "C7512" in report or not any("spill" in line for line in lines) or any(
+            "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line
+            for line in lines):
+        raise AssertionError("MX/MXq spills, serializes its wgmma or was not reported:\n"
+                             + "\n".join(lines + [l for l in report.splitlines() if "C7512" in l]))
+    return lines
+
+
+def mx_dequant_check(kind: str) -> dict:
+    """MXq's dequantize code by code at Mixtral-8x7B's H and I (two
+    experts, 8 tokens, both slots routed): ``dequant_probe``'s x is one-hot,
+    so every sum is a single term; act over every code of up (act = 128
+    bf16(f32(q) scale), under a spread of scales), then each pair's down
+    output over every code of down, must equal the plain version's bit for
+    bit."""
+    from neuronx_distributed_tpu_torch.kernels import moe_experts as mx
+
+    pr = mx.dequant_probe(kind, MX_H, MX_I)
+    x, top_e, top_w = pr["x"], pr["top_e"], pr["top_w"]
+    t, k = top_e.shape
+    res = {}
+    for what, up in (("up", pr["up"]), ("down", pr["up1"])):
+        ws = (pr["gate"], up, pr["down"])
+        _, act, y = mx._kernel_call(x, top_e, top_w, *(w for w, _ in ws), *(s for _, s in ws))
+        with f32_reductions():
+            G, U = (mx.gathered(w, s, top_e, torch.bfloat16) for w, s in ws[:2])
+            a = torch.nn.functional.silu(torch.einsum("th,tkih->tki", x, G)) * torch.einsum(
+                "th,tkih->tki", x, U)
+            del G, U
+            D = mx.gathered(*pr["down"], top_e, torch.bfloat16)
+            y_ref = torch.einsum("tki,tkhi->tkh", a, D).reshape(t * k, MX_H)
+            del D
+        a = a.reshape(t * k, MX_I)
+        if not torch.isfinite(a.float()).all() or not torch.equal(act, a):
+            raise AssertionError(f"MXq ({kind}) dequantize: act differs from the plain version's "
+                                 f"at {int((act != a).sum())} of {a.numel()} ({what} codes)")
+        if what == "down" and not torch.equal(y, y_ref):
+            raise AssertionError(f"MXq ({kind}) dequantize: y differs from the plain version's "
+                                 f"at {int((y != y_ref).sum())} of {y.numel()}")
+        res[what] = act.numel() if what == "up" else y.numel()
+    del pr
     torch.cuda.empty_cache()
     return res
 
@@ -1816,9 +1880,10 @@ def decode_records(prof, paged: bool) -> int:
     return n
 
 
-def serve(model, gen):
+def serve(model, gen, dq=None):
     """Phase 4's workload through the engine as it serves (its decode
-    program captured at the first chunk)."""
+    program captured at the first chunk); ``dq`` as :func:`serve_workload`
+    takes it (a pre-quantized model's DQ launches)."""
     lengths = [30, 250, 700, 1500, 2200, 3000]
     new = 32
     prompts = [torch.randint(1, model.config.vocab_size, (n,), generator=gen, device="cuda")
@@ -1827,7 +1892,7 @@ def serve(model, gen):
 
     cfgs = [GenerationConfig(max_new_tokens=new, temperature=0.0) for _ in lengths]
     cfgs[2] = GenerationConfig(max_new_tokens=new, temperature=0.8, top_k=50)
-    return serve_workload(model, (prompts, cfgs))
+    return serve_workload(model, (prompts, cfgs), dq=dq)
 
 
 def serve_workload(model, workload, eager: bool = False, quantize=None, dq=None,
@@ -1935,8 +2000,7 @@ def profile_serving(model, workload) -> dict:
                              f"executed steps x {model.config.num_layers} layers")
     fams = device_time_by_family(prof, {"flash_attention": "flash_fwd_kernel",
                                         "flash_decode": "flash_decode_kernel",
-                                        "moe_experts": ("routed_rows_kernel",
-                                                        "moe_combine_kernel")})
+                                        "moe_experts": MX_KERNELS})
     return dict(fams=fams, records=records, executed=executed, capture_s=capture_s)
 
 
@@ -7088,6 +7152,90 @@ def moe_expert_gates(what: str, res: dict, layers: int, name: str, per_replay: i
                              f"{res['replays']} + the warm-up) x {per_replay}")
 
 
+class SeededWeights(collections.abc.Mapping):
+    """W1 of a weight swap for a model the card cannot hold twice: a state
+    dict whose tensors are drawn when read, each by ``init_params``'s rule
+    (``models/mixtral.py _fill``) from a generator of its own (seed and
+    its index in state-dict order), so every read of a key gives the same
+    values and few tensors exist at a time."""
+
+    def __init__(self, model, seed: int):
+        self._own = model.state_dict()
+        self._index = {name: n for n, name in enumerate(self._own)}
+        self._seed = seed
+
+    def __getitem__(self, name):
+        from neuronx_distributed_tpu_torch.models.mixtral import _fill
+
+        t = self._own[name]
+        gen = torch.Generator(device=t.device).manual_seed(
+            self._seed * 1_000_003 + self._index[name])
+        w = torch.empty_like(t)
+        _fill(w, name, gen)
+        return w
+
+    def __iter__(self):
+        return iter(self._own)
+
+    def __len__(self):
+        return len(self._own)
+
+
+def moe_swap_leg(model, workload, w0_tokens, smi: str) -> dict:
+    """5m(a)'s weight swap. The captured decode step holds MX's tensor maps,
+    which encode the expert stacks' addresses, so a swap must write the
+    stacks in place for a replay to read the new weights. Phase 4's
+    requests through a row engine at 8 slots under W0 (the model's
+    weights), ``engine.params = W1`` (:class:`SeededWeights`, seed
+    SWAP_SEED), the same requests again. Gates: every parameter at its
+    address, one capture, MX once a layer a replay and no other MX launch,
+    every stream unlike W0's and equal to a fresh engine's over the model,
+    which now holds W1. Returns the three waves' launches and the swap's
+    wall."""
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+
+    layers = model.config.num_layers
+    engine = ServingEngine(model, num_slots=8, decode_chunk_size=8, prefix_cache=None)
+    w0 = engine_wave(engine, workload)
+    ptrs = param_ptrs(engine.model)
+    w1_dict = SeededWeights(model, SWAP_SEED)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.params = w1_dict
+    torch.cuda.synchronize()
+    swap_s = time.perf_counter() - t0
+    if param_ptrs(engine.model) != ptrs or engine.decode_compilations != 1:
+        raise AssertionError("5m(a) weight swap: a parameter moved, or the decode program was "
+                             f"captured again ({engine.decode_compilations} captures)")
+    w1 = engine_wave(engine, workload)
+    mx = w1["launches"]["moe_experts"]
+    if (engine.decode_compilations != 1 or w1["per_replay"].get("moe_experts") != layers
+            or mx != w1["replays"] * layers):
+        raise AssertionError(f"5m(a) weight swap, second wave: {engine.decode_compilations} "
+                             f"captures, MX {w1['per_replay'].get('moe_experts')} a replay, "
+                             f"{mx} launches for {w1['replays']} replays x {layers} layers")
+    same_w0 = [i for i, (a, b) in enumerate(zip(w1["tokens"], w0["tokens"])) if a == b]
+    if same_w0:
+        raise AssertionError(f"5m(a) weight swap: requests {same_w0} streamed W0's tokens after "
+                             "the swap")
+    del engine
+    collect_engines()
+    fresh = serve_workload(model, workload)
+    if fresh["tokens"] != w1["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(w1["tokens"], fresh["tokens"])) if a != b]
+        raise AssertionError(f"5m(a) weight swap: requests {diff} differ from a fresh engine's "
+                             "over the model holding W1")
+    n = len(w1["tokens"])
+    nbytes = sum(t.numel() * t.element_size() for t in model.state_dict().values())
+    log(f"5m(a) weight swap ({smi}; phase 4's 6 requests, row engine, 8 slots): the W0 wave's "
+        f"streams {'equal' if w0['tokens'] == w0_tokens else 'differ from'} the row serving's; "
+        f"engine.params = W1 (seed {SWAP_SEED}, {nbytes / 1e9:.3f} GB drawn on the card as "
+        f"read) in {1e3 * swap_s:.2f} ms; every parameter at its address, one capture; the wave "
+        f"after the swap: MX {mx} = {w1['replays']} replays x {layers}, streams differ from "
+        f"W0's ({n} of {n}) and equal a fresh engine's on W1 bit for bit ({n} of {n})")
+    return dict(launches=(w0["launches"], w1["launches"], fresh["launches"]), swap_s=swap_s)
+
+
 def moe_phase(smi: str) -> dict:
     """Phase 5m: Mixtral serving at Mixtral-8x7B width (hidden 4096, 32/8
     heads, 8 experts top-2, intermediate 14336, vocab 32000, random weights
@@ -7098,7 +7246,8 @@ def moe_phase(smi: str) -> dict:
     traffic through a paged engine at 16 slots (K5 and the blockwise route
     under the capture), its eager witness bit for bit; phase 5c's prefix
     wave on the row engine (11 hits, 1 miss; hit logits against full
-    prefills forced onto the hits' routes). Every greedy token of the row
+    prefills forced onto the hits' routes); a weight swap on a row engine
+    at 8 slots (:func:`moe_swap_leg`). Every greedy token of the row
     engine and of solo ``generate`` within phase 3's limit in a
     teacher-forced forward forced onto the routes that served it (recorded
     in the eager witness and in solo ``generate``): a random router's
@@ -7244,7 +7393,13 @@ def moe_phase(smi: str) -> dict:
             f"({h['flips']} forced routes differ from the full prefill's own; unforced rel "
             f"{h['rel_unforced']:.3g}; against the plain experts on the same route "
             f"{h['plain_rel']:.3g})" for h in hits))
-    del model, pre
+    del pre
+    collect_engines()
+    swap = moe_swap_leg(model, srv["workload"], srv["tokens"], smi)
+    for launches in swap["launches"]:
+        add(launches)
+    out["a"]["swap_s"] = swap["swap_s"]
+    del model
     collect_engines()  # the engines' reference cycles hold the 47 GB model
 
     # (b) int8 and fp8 against bf16 at 8 layers
@@ -7347,10 +7502,11 @@ def main() -> int:
         raise AssertionError("TF spills or was not reported:\n" + "\n".join(tf_lines))
     log("ptxas -v, csrc/tree_fingerprint.cu (TF: the item kernel, the combine kernel): "
         + "; ".join(tf_lines))
-    mx_lines = [line.strip() for line in _build.resource_report("moe_experts").splitlines()
-                if "registers" in line or "spill" in line]
-    log("ptxas -v, csrc/moe_experts.cu (MX/MXq: the routed-rows kernel by format, matrices and "
-        "pairs a pass, and moe_combine_kernel): " + "; ".join(mx_lines))
+    mx_lines = mx_resources()
+    log(f"ptxas -v, csrc/moe_experts.cu (MX/MXq: routed_mma_kernel by format, matrices and "
+        f"pairs a pass, moe_permute_kernel and moe_combine_kernel; "
+        f"{sum('spill' in line for line in mx_lines)} kernels, no spill, no serialized wgmma): "
+        + "; ".join(mx_lines))
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     k1 = [check_k1(gen, b, s, segments) for _, b, s, segments in K1_SHAPES]
@@ -7478,6 +7634,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     mx = check_mx(qgen)
     log_mx(mx, smi)
+    for kind in ("int8", "fp8"):
+        r = mx_dequant_check(kind)
+        log(f"MXq moe_experts_quantized ({kind}) dequantize ({smi}): x one-hot at H 4096 I 14336, "
+            f"every {'int8' if kind == 'int8' else 'finite e4m3'} code of up and of down under "
+            f"per-row scales 2^-30..2^19: act ({r['up']} values) and y ({r['down']} values) equal "
+            f"the plain version's bit for bit")
     rows = {chunk: check_decode_rows(gen, chunk) for chunk in (16, 256, 512)}
     for chunk, r in rows.items():
         log(f"K4/K5 multi-row B=1 s={chunk} (R={r['rows']}) H=32 Hkv=8 D=128 L=8192, a "

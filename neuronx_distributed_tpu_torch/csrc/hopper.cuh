@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the attention kernels K1
-// (flash_attention.cu), K2 and K3 (flash_attention_bwd.cu) and the
-// multi-row decode path (flash_decode.cu): mbarriers, TMA tile loads
-// through tensor maps, `wgmma` products and the shared-memory descriptors
-// they read.
+// (flash_attention.cu), K2 and K3 (flash_attention_bwd.cu), the
+// multi-row decode path (flash_decode.cu) and the routed expert product
+// (moe_experts.cu): mbarriers, TMA tile loads through tensor maps, `wgmma`
+// products and the shared-memory descriptors they read.
 //
 // Tile convention. A tile is R rows x 128 bf16 columns (the head dim), kept
 // as two halves of R x 64 columns, half h at byte offset h * R * 128: TMA's
@@ -88,6 +88,17 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes)
                "r"(bytes)
                : "memory");
 }
+// 16 bytes from global to shared memory through L2 only; with `bytes` 0
+// the destination gets zeros and the source is not read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+// Wait for every cp.async this thread issued.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 // Arrive on `bar` (one of its expected arrivals) once every cp.async this
 // thread issued before has landed.
 __device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
@@ -104,6 +115,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of a 2-D tensor map (column c0, row c1) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
 
@@ -320,6 +342,26 @@ inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S, int H, 
                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                          CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+// The map of a row-major (rows, cols) matrix of `elem_bytes`-byte elements
+// (bf16, or 1-byte codes as UINT8): a box of 128 bytes of columns x
+// `box_rows` rows, 128-byte swizzle, zeros past the edges. The row pitch
+// (cols x elem_bytes) must be a multiple of 16 bytes.
+inline int encode_rows(CUtensorMap* map, const void* base, long long rows, long long cols,
+                       int elem_bytes, int box_rows) {
+  const TensorMapEncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return ERR_NO_ENCODER;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(cols * elem_bytes)};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes), (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = enc(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                              : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                         2, const_cast<void*>(base), dims, strides, box, unit,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
 }
 

@@ -16,8 +16,9 @@ Weights are torch's ``(E, out, in)``: ``gate``/``up`` ``(E, I, H)``,
 (bf16 weights, MX) and :func:`moe_experts_quantized` (MXq) launch
 ``csrc/moe_experts.cu`` for CUDA tensors, SwiGLU only and bf16 activations
 only, or raise; each counts its calls in ``launches``. The kernel reads
-each expert that some pair routes to once, and no other (design and
-rounding in the source).
+each expert that some pair routes to once a pass of up to ``np`` of its
+pairs, and no other (design and rounding in the source); :func:`plan`
+picks ``np`` and ``down``'s column split from the shapes alone.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from types import SimpleNamespace
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +68,44 @@ def moe_experts_plain(x: torch.Tensor, top_e: torch.Tensor, top_w: torch.Tensor,
     return torch.einsum("tkh,tk->th", y, top_w.to(y.dtype))
 
 
+# pairs a pass over an expert's rows (the product's N); the kernel's row
+# tile; what the split sizes down's grid for: an H100 SXM's SMs and the
+# kernel's blocks an SM
+PASS_WIDTHS = (8, 16)
+ROWS = 64
+SMS, BLOCKS_AN_SM = 132, 2
+MAX_SPLIT = 8
+
+
+class Plan(NamedTuple):
+    """What one call passes the kernel: ``np`` pairs a pass and ``down``'s
+    input columns cut into ``split`` shares (the grids follow in the
+    kernel from these and the shapes)."""
+    np: int
+    split: int
+
+
+def plan(t: int, k: int, e: int, h: int, i: int) -> Plan:
+    """The kernel's plan for ``t`` tokens, top-``k`` of ``e`` experts, hidden
+    ``h``, intermediate ``i``: shapes alone, so a CUDA graph bakes in
+    nothing that depends on the routes. ``np`` is 8 for at most 8 pairs,
+    else 16: a top-2 decode step's 16 pairs take one pass even when all
+    route to one expert, and an expert with more pairs takes further
+    passes. ``split`` is the least power of two (at most 8, and each share
+    at least 1024 columns of ``i``) that gives ``down`` (``h / 64`` row
+    tiles an expert) four waves of blocks on the card when ``min(e, t k)``
+    experts are touched; gate and up are not split."""
+    pairs = t * k
+    np_ = PASS_WIDTHS[0] if pairs <= PASS_WIDTHS[0] else PASS_WIDTHS[1]
+    tiles = -(-h // ROWS)
+    touched = min(e, pairs)
+    split = 1
+    while (split < MAX_SPLIT and 2 * split <= max(1, i // 1024)
+           and touched * tiles * split < 4 * SMS * BLOCKS_AN_SM):
+        split *= 2
+    return Plan(np_, split)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> SimpleNamespace:
     from neuronx_distributed_tpu_torch.kernels import _build
@@ -75,7 +114,7 @@ def _lib() -> SimpleNamespace:
     fn = lib.nxd_moe_experts_fwd
     vp, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.restype = i
-    fn.argtypes = [vp] * 12 + [ll, i, i, i, i, i, vp]
+    fn.argtypes = [vp] * 15 + [ll, i, i, i, i, i, i, i, vp]
     return SimpleNamespace(fn=fn, max_pairs=lib.nxd_moe_experts_max_pairs())
 
 
@@ -88,9 +127,10 @@ def _row_scales(scale: torch.Tensor, e: int, rows: int) -> torch.Tensor:
 
 
 def _kernel_call(x, top_e, top_w, gate, up, down, gate_scale, up_scale, down_scale):
-    """Launch the three kernels; returns ``(out, act, y)`` (the SwiGLU
-    activations (T*k, I) and each pair's down output (T*k, H), the two
-    scratches, for the card's stage checks)."""
+    """Launch the kernels (three; four for codes) with :func:`plan`'s pass
+    width and split; returns ``(out, act, y)`` (the SwiGLU activations (T*k, I) and
+    each pair's down output (T*k, H), two of the scratches, for the card's
+    stage checks)."""
     from neuronx_distributed_tpu_torch.kernels import _build
 
     lib = _lib()
@@ -129,14 +169,69 @@ def _kernel_call(x, top_e, top_w, gate, up, down, gate_scale, up_scale, down_sca
     x = x.contiguous()
     pair_expert = top_e.reshape(-1).to(torch.int32)
     w_flat = top_w.reshape(-1).to(torch.float32).contiguous()
+    pl = plan(t, k, e, h, i)
     act = torch.empty((t * k, i), dtype=torch.bfloat16, device=x.device)
     y = torch.empty((t * k, h), dtype=torch.bfloat16, device=x.device)
+    part = torch.empty((pl.split, t * k, h), dtype=torch.float32, device=x.device)
     out = torch.empty((t, h), dtype=torch.bfloat16, device=x.device)
+    if fmt:  # the pairs' inputs in the code product's column order, rows padded to 128
+        xp = torch.empty((t, -(-h // 128) * 128), dtype=torch.bfloat16, device=x.device)
+        actp = (torch.empty if i % 128 == 0 else torch.zeros)(
+            (t * k, -(-i // 128) * 128), dtype=torch.bfloat16, device=x.device)
+        qptr = [xp.data_ptr(), actp.data_ptr()]
+    else:
+        qptr = [None, None]
     err = lib.fn(x.data_ptr(), pair_expert.data_ptr(), w_flat.data_ptr(), gate.data_ptr(),
                  up.data_ptr(), down.data_ptr(), *sptr, act.data_ptr(), y.data_ptr(),
-                 out.data_ptr(), t, k, e, h, i, fmt, _build.stream_ptr(x.device))
+                 part.data_ptr(), out.data_ptr(), *qptr, t, k, e, h, i, fmt, pl.np, pl.split,
+                 _build.stream_ptr(x.device))
     _build.check(err, "moe_experts_fwd")
     return out, act, y
+
+
+def all_codes(kind: str) -> torch.Tensor:
+    """Every int8 code (-128..127), or every finite e4m3 code (254: NaN's
+    two left out), as uint8."""
+    b = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    return b if kind == "int8" else b[(b & 0x7F) != 0x7F]
+
+
+def dequant_probe(kind: str, h: int, i: int) -> dict:
+    """Inputs on the card that hold MXq's dequantize code by code (the
+    card's checks): 8 tokens, x one-hot (token t at column t), each
+    token's two slots on experts 0 and 1 (weights 1/2), so every sum is a
+    single term. ``gate``
+    dequantizes to 128 everywhere (silu(128) = 128); ``up`` carries code
+    (r + c) of :func:`all_codes` at row r, column c under per-row scales
+    spread over [2^-30, 2^19], so act = 128 bf16(f32(q) scale); ``up1`` is
+    1/128 at row 37 t + 5, column t, else 0, so act is one-hot and each
+    pair's down output is ``down``'s dequantized column, code (3 r + c)
+    under the same spread. Stacks are (codes, scales) of two identical
+    experts; ``h``, ``i`` >= 300."""
+    t, device = 8, "cuda"
+    dt = torch.int8 if kind == "int8" else torch.float8_e4m3fn
+    codes = all_codes(kind).to(device)
+
+    def stack(rows, cols, fill):
+        r = torch.arange(rows, device=device)
+        q = codes[fill(r[:, None], torch.arange(cols, device=device)[None, :]) % codes.numel()]
+        s = torch.ldexp(1.0 + (r % 5).float() / 8, (r * 7) % 50 - 30)
+        return q.view(dt).expand(2, rows, cols).contiguous(), s.expand(2, rows).contiguous()
+
+    g128 = (64, 2.0) if kind == "int8" else (0x70, 1.0)  # the codes of 64 and of 128.0
+    up1 = torch.zeros(i, h, dtype=torch.uint8, device=device)
+    up1[torch.arange(t) * 37 + 5, torch.arange(t)] = 1 if kind == "int8" else 0x38  # 1.0
+    x = torch.zeros(t, h, dtype=torch.bfloat16, device=device)
+    x[torch.arange(t), torch.arange(t)] = 1.0
+    full = lambda rows, cols, code: torch.full((2, rows, cols), code, dtype=torch.uint8,
+                                                device=device).view(dt)
+    return dict(
+        x=x, top_e=torch.tensor([[0, 1]] * t, device=device),
+        top_w=torch.full((t, 2), 0.5, device=device),
+        gate=(full(i, h, g128[0]), torch.full((2, i), g128[1], device=device)),
+        up=stack(i, h, lambda r, c: r + c), down=stack(h, i, lambda r, c: 3 * r + c),
+        up1=(up1.view(dt).expand(2, i, h).contiguous(),
+             torch.full((2, i), 2.0 ** -7, device=device)))
 
 
 def expert_bytes(gate, up, down, scales, experts: int) -> int:

@@ -2045,7 +2045,8 @@ def _mx_case(gen, case, t, e=8, h=1024, i=2048):
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["bf16", "int8", "fp8"])
 @pytest.mark.parametrize("case,t", [("random", 8), ("random", 1), ("skewed", 8),
-                                    ("untouched", 8), ("random", 16)])
+                                    ("untouched", 8), ("random", 16), ("random", 128),
+                                    ("skewed", 128)])
 def test_moe_experts_kernel_equals_plain(cuda, kind, case, t):
     """MX/MXq against their plain version: |out - ref| <= 2^-7 |ref| +
     2^-9 sum_j |w_j| (|down| . |act|) + 1e-5 (the same bf16 rounding
@@ -2085,6 +2086,62 @@ def test_moe_experts_kernel_equals_plain(cuda, kind, case, t):
     assert float(((got.float() - ref.float()).abs() / limit).max()) <= 1.0
     dropped = ref.float() - wb[:, :1] * y[:, 0].float()
     assert float(((dropped - ref.float()).abs() / limit).max()) > 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "fp8"])
+def test_moe_experts_dequantize_is_exact(cuda, kind):
+    """MXq's dequantize, held code by code on ``dequant_probe``'s inputs
+    (x one-hot, so every sum is a single term): act = 128 bf16(f32(q)
+    scale) over every code of up under a spread of scales, then each
+    pair's down output over every code of down, both equal to the plain
+    version's bit for bit."""
+    from neuronx_distributed_tpu_torch.kernels import moe_experts as tmx
+
+    h = i = 512
+    pr = tmx.dequant_probe(kind, h, i)
+    x, top_e, top_w = pr["x"], pr["top_e"], pr["top_w"]
+    t, k = top_e.shape
+
+    def stages(up):
+        ws = (pr["gate"], up, pr["down"])
+        _, act, y = tmx._kernel_call(x, top_e, top_w, *(w for w, _ in ws), *(s for _, s in ws))
+        G, U, D = (tmx.gathered(w, s, top_e, torch.bfloat16) for w, s in ws)
+        a = torch.nn.functional.silu(torch.einsum("th,tkih->tki", x, G)) * torch.einsum(
+            "th,tkih->tki", x, U)
+        return act, y, a.reshape(t * k, i), torch.einsum("tki,tkhi->tkh", a, D).reshape(t * k, h)
+
+    act, _, act_ref, _ = stages(pr["up"])
+    assert torch.isfinite(act_ref.float()).all() and torch.equal(act, act_ref)
+    act, y, act_ref, y_ref = stages(pr["up1"])
+    assert torch.equal(act, act_ref) and int((act_ref != 0).sum()) == t * k
+    assert torch.equal(y, y_ref)
+
+
+@pytest.mark.cuda
+def test_moe_experts_split_is_deterministic(cuda):
+    """A call whose down product is cut into column shares (the plan's
+    split > 1) gives the same bits over ten runs and three graph replays."""
+    from neuronx_distributed_tpu_torch.kernels import moe_experts as tmx
+
+    x, top_e, top_w, stacks = _mx_case(cuda, "random", 8)
+    assert tmx.plan(8, 2, 8, 1024, 2048).split > 1
+    first = tmx.moe_experts(x, top_e, top_w, *stacks)
+    for _ in range(9):
+        assert torch.equal(tmx.moe_experts(x, top_e, top_w, *stacks), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tmx.moe_experts(x, top_e, top_w, *stacks)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tmx.moe_experts(x, top_e, top_w, *stacks)
+    for _ in range(3):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
 
 
 @pytest.mark.cuda
