@@ -38,7 +38,10 @@ idle share; per prefix engine, the prefill wall by kind, TTFT and the
 wall, prefix on and off; for the int8 pool the same as per serving path. To compare two checkouts on one card, run them
 back to back as old, new, new, old. ``--int8-only`` runs the int8 pool's
 parts alone: K5q at both geometries (also with its pages read from device
-memory, ``chip_smoke.k5q_cold_ms``) and 5f(c).
+memory, ``chip_smoke.k5q_cold_ms``); a decode step's write and attention
+there, QW then K5q in one CUDA graph against K5q with the write folded in
+(``qpaged_write_attend_fwd``, where the checkout has it; its result checked
+bit for bit against QW then K5q first); and 5f(c).
 """
 
 from __future__ import annotations
@@ -99,6 +102,47 @@ def int8_pool_serving(cs, model, workload) -> dict:
         tokens_equal_profiled_rerun=prof["tokens"] == r["tokens"])
 
 
+def write_attend_times(cs, tfd, q, kq, vq, ks, vs, bt, pos, valid) -> dict:
+    """A decode step's write then attention at K5q's inputs: one new K/V row
+    a slot at the last position (its page re-quantized), QW then K5q as one
+    CUDA graph (20 steps a replay), and, where the checkout has it, K5q with
+    the write, first checked against QW then K5q bit for bit (pools but the
+    null page, out, lse)."""
+    import torch
+
+    from neuronx_distributed_tpu_torch.kernels import kv_quant as tkq
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, hkv = q.shape[0], kq.shape[2]
+    k = torch.randn(b, 1, hkv, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(b, 1, hkv, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    c0 = pos[-1:].long()
+    pages = bt[:, c0 // 16].long()  # one window page a slot at s = 1
+    w0 = c0 - c0 // 16 * 16
+    leaves = (kq, vq, ks, vs)
+
+    def two():
+        tkq.window_requantize_fwd(*leaves, pages, w0, k, v)
+        return tfd.paged_flash_decode_fwd(q, kq, vq, bt, pos, valid, 16, ks, vs)
+
+    out = dict(qw_k5q_ms=cs.graph_ms(two, 20))
+    if hasattr(tfd, "qpaged_write_attend_fwd"):
+        def fused():
+            return tfd.qpaged_write_attend_fwd(q, k, v, *leaves, bt, pos, valid, c0, 16)
+
+        base = [t.clone() for t in leaves]
+        want = two()
+        want_pools = [t.clone() for t in leaves]
+        for t, x in zip(leaves, base):
+            t.copy_(x)
+        got = fused()
+        if not (all(torch.equal(t[1:], w[1:]) for t, w in zip(leaves, want_pools))
+                and all(torch.equal(x, y) for x, y in zip(got, want))):
+            raise AssertionError("K5q with the write differs from QW then K5q")
+        out["fused_ms"] = cs.graph_ms(fused, 20)
+    return out
+
+
 def main() -> int:
     int8_only = sys.argv[1] == "--int8-only"
     tree = os.path.abspath(sys.argv[-1])
@@ -133,6 +177,8 @@ def main() -> int:
             k5q = lambda: tfd.paged_flash_decode_fwd(q, kq, vq, bt, pos, valid, 16, ks, vs)  # noqa: E731
             times[f"k5q_{shapes}"] = dict(graph_ms=cs.graph_ms(k5q, 20), eager_ms=cs.cuda_ms(k5q, 50),
                                           cold_ms=cs.k5q_cold_ms(q, kq, vq, ks, vs, bt, pos, valid, 16))
+            times[f"write_attend_{shapes}"] = write_attend_times(cs, tfd, q, kq, vq, ks, vs, bt,
+                                                                 pos, valid)
             del q, kq, vq, ks, vs, bt, pos, valid
         torch.cuda.empty_cache()
         model = init_params(LlamaForCausalLM(llama3_8b()), seed=0)

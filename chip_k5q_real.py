@@ -1,5 +1,7 @@
-"""Times K5q (the int8 pool's decode attention) at the serving step's own
-cache state, for one or more checkouts of this repository, on one NVIDIA GPU.
+"""Times K5q (the int8 pool's decode attention), and a decode step's write
+and attention (QW then K5q, and K5q with the write folded in), at the
+serving step's own cache state, for one or more checkouts of this
+repository, on one NVIDIA GPU.
 
     python3 chip_k5q_real.py capture
     python3 chip_k5q_real.py time <checkout> [<checkout> ...]
@@ -10,9 +12,9 @@ the paged engine with an int8 pool of phase 5b's bytes, on
 ``chip_smoke.paged_workload``'s fifteen requests, the decode step run
 eagerly (``chip_smoke.eager_decode_step``, whose streams the captured step
 must equal) so that every K5q call passes through its wrapper. It records
-the inputs of every layer-0 call, each step's q, block table, positions and
-kv_valid, and after the run layer 0's pools and scales, into git-ignored
-``build/k5q_real.pt``. Phase 2's geometries are synthetic; these are the
+the inputs of every layer-0 call, each step's q, block table, positions,
+kv_valid and (K5q with the write) new K/V rows and first column, and after
+the run layer 0's pools and scales, into git-ignored ``build/k5q_real.pt``. Phase 2's geometries are synthetic; these are the
 cache states the serving step attends, with its dead ranges and slot
 lengths.
 
@@ -24,9 +26,13 @@ gathered view bit for bit (that checkout's K4). Then it times the calls
 as CUDA-graph replays two ways: ``cold_ms``, the recorded calls in order,
 each reading the next of ``chip_smoke.K5Q_COLD_COPIES`` copies of the pools
 (more bytes than L2 holds, as a serving step's 32 layers read theirs from
-device memory); ``warm_ms``, every call on one copy. Each checkout prints
-one JSON line; to compare checkouts on one card, name them in the order
-old, new, new, old.
+device memory); ``warm_ms``, every call on one copy. Then the same two
+ways each recorded step's write and attention: QW then K5q (``qw_k5q_*``;
+the window's page from the table and the first column) and, where the
+checkout has it, K5q with the write (``fused_*``), which must first equal
+QW then K5q bit for bit on every call (pools but the null page, out, lse).
+Each checkout prints one JSON line; to compare checkouts on one card, name
+them in the order old, new, new, old.
 """
 
 from __future__ import annotations
@@ -59,14 +65,18 @@ def capture() -> int:
     calls, pools = [], []
     kernel_call = tfd._qpaged_kernel_call
 
-    def record(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos, kv_valid, page_size):
+    def record(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos, kv_valid, page_size,
+               write=None):
         if not pools:
             pools.append((k_pool, v_pool, k_scale, v_scale))
         if k_pool.data_ptr() == pools[0][0].data_ptr():  # layer 0
             calls.append(dict(q=q.clone(), bt=block_table.clone(), pos=q_pos.clone(),
-                              valid=None if kv_valid is None else kv_valid.clone()))
+                              valid=None if kv_valid is None else kv_valid.clone(),
+                              **({} if write is None else
+                                 dict(k=write[0].clone(), v=write[1].clone(),
+                                      w0=write[2].clone()))))
         return kernel_call(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos, kv_valid,
-                           page_size)
+                           page_size, write=write)
 
     tfd._qpaged_kernel_call = record
     try:
@@ -95,7 +105,7 @@ spec.loader.exec_module(cs)
 from neuronx_distributed_tpu_torch.kernels import _build
 from neuronx_distributed_tpu_torch.kernels import flash_decode as tfd
 
-_build.build(["flash_decode"])
+_build.build(["flash_decode", "kv_quant"])
 st = torch.load(sys.argv[3], map_location="cuda")
 ps, calls = st["page_size"], st["calls"]
 kq, vq, ks, vs = st["kq"], st["vq"], st["ks"], st["vs"]
@@ -114,10 +124,42 @@ def run(cold):
     for i, c in enumerate(calls):
         k, v, a, b = copies[i % len(copies) if cold else 0]
         tfd.paged_flash_decode_fwd(c["q"], k, v, c["bt"], c["pos"], c["valid"], ps, a, b)
+from neuronx_distributed_tpu_torch.kernels import kv_quant as tkq
+fused = getattr(tfd, "qpaged_write_attend_fwd", None)
+def two(c, k, v, a, b):
+    # QW then K5q: the step's one window page a slot (s = 1)
+    first = c["w0"] // ps
+    tkq.window_requantize_fwd(k, v, a, b, c["bt"][:, first].long(), c["w0"] - first * ps,
+                              c["k"], c["v"])
+    return tfd.paged_flash_decode_fwd(c["q"], k, v, c["bt"], c["pos"], c["valid"], ps, a, b)
+def one(c, k, v, a, b):
+    return fused(c["q"], c["k"], c["v"], k, v, a, b, c["bt"], c["pos"], c["valid"], c["w0"], ps)
+if fused is not None:
+    for c in calls:
+        base = [t.clone() for t in copies[0]]
+        want = two(c, *copies[0])
+        want_pools = [t.clone() for t in copies[0]]
+        for t, x in zip(copies[0], base):
+            t.copy_(x)
+        got = one(c, *copies[0])
+        if not (all(torch.equal(t[1:], w[1:]) for t, w in zip(copies[0], want_pools))
+                and all(torch.equal(x, y) for x, y in zip(got, want))):
+            raise AssertionError("K5q with the write differs from QW then K5q")
+        del base, want_pools
+def steps(fn, cold):
+    for i, c in enumerate(calls):
+        fn(c, *copies[i % len(copies) if cold else 0])
 out = dict(tree=sys.argv[1], calls=len(calls))
 for _ in range(2):  # the second reading shows the spread
     out.setdefault("cold_ms", []).append(cs.graph_ms(lambda: run(True), 1) / len(calls))
     out.setdefault("warm_ms", []).append(cs.graph_ms(lambda: run(False), 1) / len(calls))
+    if "w0" in calls[0]:
+        for name, fn in (("qw_k5q", two), ("fused", one)):
+            if fn is one and fused is None:
+                continue
+            for cold in (True, False):
+                out.setdefault(f"{name}_{'cold' if cold else 'warm'}_ms", []).append(
+                    cs.graph_ms(lambda: steps(fn, cold), 1) / len(calls))
 print("RESULT " + json.dumps(out), flush=True)
 """
 

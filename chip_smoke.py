@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
 1. the card's name and power limit, and the build of every CUDA kernel of
    the serving and training paths from ``neuronx_distributed_tpu_torch/csrc``
    (one ``nvcc`` per source, started together); K1's, K2's, K3's, K4's,
-   K5's, QW's and PF's resources as built (neither K1 nor a decode kernel,
-   QW or PF may spill, nor may ptxas serialize K1's ``wgmma`` products);
+   K5's, K5q's (with the write too), QW's and PF's resources as built
+   (neither K1 nor a decode kernel, QW or PF may spill, nor may ptxas
+   serialize K1's ``wgmma`` products);
 2. each kernel against its plain PyTorch version at its path's shapes,
    bf16, with its time, the plain version's, the least time the card could
    take (``bound_ms``) and one PyTorch library call's (SDPA) time: K1 at the
@@ -40,7 +41,15 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    pool's window re-quantize, K and V in one launch) bitwise equal to its
    plain version on every page but the null page at a decode step and at
    a 300-token prefill window from mid-page, one page's absmax rising and
-   one's falling, timed against its bytes bound; DQ (the one-pass weight
+   one's falling, each timed against its bytes bound; K5q with the write
+   (the int8 pool's decode step: QW's window re-quantize folded into K5q's
+   range kernel) at the paged serving geometry, at a decode step and at a
+   verify window (s = 4, R = 16) across a page and a 256-column range,
+   bitwise equal to QW then K5q (pools and scales on every page but the
+   null page, out and lse), one page's absmax rising and one's falling, a
+   variant that skips the write and one that attends the stale codes
+   failing that check, timed (graph replays) beside K5q alone and QW +
+   K5q against K5q's bytes plus QW's; DQ (the one-pass weight
    dequantize) at lm_head's shape, int8 and fp8, bitwise equal to its
    plain version, timed against its 3-bytes-a-weight bound; PF (the
    per-page pool fingerprints of a paged prefix hit) over 100 pages in
@@ -124,12 +133,19 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    forced steps against the bf16 model (max KL at most 5e-3; top-1
    agreement printed); (b) fp8 weights, the same, KL printed; (c) int8
    weights and an int8 page pool of phase 5b's bytes behind the paged
-   engine, phase 5b's traffic: K5q 32, QW 32 and DQ 225 a replay and K5
-   0, the eager-step witness identical, ``check()`` clean, peak occupancy,
-   the ms a step and the profile by family; (d) phase 5c's
+   engine, phase 5b's traffic: K5q with the write 32 (K5q's count holds
+   it), QW 0 and DQ 225 a replay, QW the prefills' writes alone, K5 0, the
+   eager-step witness identical, ``check()`` clean, peak occupancy, the ms
+   a step and the profile by family; (d) phase 5c's
    paged prefix leg on that pool: 11 hits and 1 miss, ``copy_bytes`` 0,
    pinned pages' codes and scales bitwise unchanged, each hit's suffix
-   prefilled on K4 (multi-row) over a dequantized float row;
+   prefilled on K4 (multi-row) over a dequantized float row; (e) that pool
+   beside a float draft (phase 5d's early-exit pair at eps 0.3, the
+   draft's tensors its own, gamma 4, phase 4's requests, 16 slots of 16-
+   column pages): K5q with the write 32 a round at R = 16 (the verify
+   window), QW 0 a round, the captured round's streams = the eager
+   round's, every greedy token within phase 3's limit teacher-forced, both
+   pools ``check()`` clean;
 5g. the serving engine's fault contract at full width, every fault counter
    equal to the injected schedule, the decode program one capture on its
    buffers through every recovery and quarantine: on phase 4's row engine
@@ -186,8 +202,9 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    ``plan()``; (b) the eight at once under the profiler: the prefetches'
    host-to-device copies beside kernels of other streams, every greedy
    token within phase 3's limit teacher-forced; (c) phase 5f(c)'s int8
-   weights and int8 pool, (a)'s tiering-on leg against an int8 control,
-   K5q 32, QW 32 and DQ 225 a replay, K5 0; (d) a failed spill, a poisoned host page and a
+   pool (bf16 weights), (a)'s tiering-on leg against an int8 control, K5q
+   with the write 32 a replay (K5q's count holds it), QW 0 a replay, K5 0;
+   (d) a failed spill, a poisoned host page and a
    failed prefetch on (a)'s tiered engine: counters = the schedule,
    requests submitted before the first fault = the fault-free run's, every
    greedy token within phase 3's limit teacher-forced;
@@ -700,7 +717,7 @@ def check_k4(gen, s: int = 1):
                 plan=dict(decode_plan(valid, bound_cols, hkv, 4 * s), bound_bytes=nbytes))
 
 
-def k5_shapes(name: str):
+def k5_shapes(name: str, bound: int = 3109):
     """(slots, pool pages, live bound, per-slot valid column runs) of K5's
     two checks, page_size 16, L=8192. ``"k4"``: K4's shapes, 8 slots over
     the row-equivalent pool plus the null page, slot i valid from column
@@ -709,8 +726,9 @@ def k5_shapes(name: str):
     3109 (mid tile): 12 chats of 100-400 columns and 3 documents of
     2000-3000 in the workload's order, each context from a page-aligned
     start right-aligned under the bound, then a gap, then the last 8 decode
-    columns; slot 15 idle (no valid column, no page). ``"serving64"``: those
-    16 slots four times over (64 slots, 8193 pages)."""
+    columns; slot 15 idle (no valid column, no page); ``bound`` moves the
+    bound and every context with it. ``"serving64"``: those 16 slots four
+    times over (64 slots, 8193 pages)."""
     import numpy as np
 
     if name == "k4":
@@ -726,7 +744,6 @@ def k5_shapes(name: str):
         lens.append(n)
         if i % 4 == 3:
             lens.append(docs[i // 4])
-    bound = 3109
     runs = []
     for n in lens:
         lo = (bound - 8 - n) // 16 * 16
@@ -734,7 +751,7 @@ def k5_shapes(name: str):
     return 16, 2049, bound, runs + [[]]
 
 
-def k5_inputs(gen, shapes: str, s: int = 1):
+def k5_inputs(gen, shapes: str, s: int = 1, bound: int = 3109):
     """``check_k5``'s inputs at ``k5_shapes(shapes)``: q, the pools (page 0
     scaled by 64), the block table, the positions ``bound - s .. bound - 1``
     and kv_valid. At s > 1 (a speculative verify window, serving shapes) a
@@ -743,7 +760,7 @@ def k5_inputs(gen, shapes: str, s: int = 1):
     import numpy as np
 
     dev, bf = torch.device("cuda"), torch.bfloat16
-    b, n_pages, bound_cols, runs = k5_shapes(shapes)
+    b, n_pages, bound_cols, runs = k5_shapes(shapes, bound)
     h, hkv, d, L, ps = 32, 8, 128, 8192, 16
     n_log = L // ps
     q = torch.randn(b, s, h, d, generator=gen, device=dev).to(bf)
@@ -764,7 +781,7 @@ def k5_inputs(gen, shapes: str, s: int = 1):
             for j in range(slot_runs[0][0] // ps, -(-bound_cols // ps)):
                 table[i, j] = next(perm)
     if s > 1:
-        ends = [r[0][1] if r else bound_cols for r in k5_shapes(shapes)[3]]
+        ends = [r[0][1] if r else bound_cols for r in k5_shapes(shapes, bound)[3]]
         valid &= ~rejected_gaps(gen, torch.tensor(ends, device=dev), L, bound_cols, s)
     elif shapes == "k4":
         valid &= torch.rand(b, L, generator=gen, device=dev) > 0.1  # gap columns
@@ -1017,20 +1034,175 @@ def check_qw(gen) -> dict:
             if not bool((ks[fall] < 0.5 * ks0[fall]).all()):
                 raise AssertionError(f"QW ({name}): page {fall}'s scale did not fall")
         b, n_win = pages.shape
-        hkv, d = k.shape[2], k.shape[3]
-        # each leaf: a window page's codes written and its scale read and
-        # written, its old codes read only in the rows x does not replace
-        # ((w0 % PAGE + s) columns from the window's first page column);
-        # the rows x, the pages and w0 read once
-        kept = n_win * PAGE - s
-        nbytes = (2 * b * hkv * (n_win * (PAGE * d + 2 * 2) + kept * d)
-                  + 2 * k.numel() * 2 + 8 * pages.numel() + 8)
+        nbytes = qw_bytes(k, n_win)
         res[name] = dict(slots=b, s=s, col=col, n_win=n_win, bytes=nbytes,
                          bound_ms=nbytes / PEAK_BYTES * 1e3, bound_by="bytes")
+        res[name]["ms"] = graph_ms(lambda: view.decode_write(0, k, v), 20)
         if name == "decode":
-            res[name]["ms"] = graph_ms(lambda: view.decode_write(0, k, v), 20)
             res[name]["plain_ms"] = cuda_ms(lambda: window_requantize_plain(*want, pages, w0, k, v),
                                             5, warmup=1)
+        del cache, view
+        torch.cuda.empty_cache()
+    return res
+
+
+def qw_bytes(k, n_win: int) -> int:
+    """QW's bytes for new rows ``k`` (B, s, Hkv, D) and ``n_win`` window
+    pages a row, each leaf: a window page's codes written and its scale
+    read and written, its old codes read only in the rows the new ones do
+    not replace; the new rows, the pages and the first column read once."""
+    b, s, hkv, d = k.shape
+    kept = n_win * PAGE - s
+    return (2 * b * hkv * (n_win * (PAGE * d + 2 * 2) + kept * d) + 2 * k.numel() * 2
+            + 8 * b * n_win + 8)
+
+
+WRITE_ATTEND_CASES = (("decode", 1, 3109),  # 5f(c)'s decode step: the serving geometry
+                      # the verify window (s = gamma, R = 16, rejected drafts'
+                      # gaps) across a page and a 256-column range: each of
+                      # its two pages has its own owner
+                      ("verify", 4, 3074))
+
+
+def write_attend_case(gen, s: int, bound: int):
+    """K5q with the write's inputs at the paged serving geometry
+    (``k5_inputs(gen, "serving", s, bound)``: 16 slots, page_size 16, slot
+    15 idle, its window the null page), the pools quantized
+    (``quantize_page_block``) after the rows under slot 1's window columns
+    were scaled 50x (its page's absmax falls); the new rows k, v (16, s, 8,
+    128) at columns ``bound - s .. bound - 1``, slot 0's 50x (its page's
+    absmax rises). Returns (cache, view, q, k, v, pos, valid): an int8
+    ``PagedKVCache`` over the pools and table, and its view at the first
+    new column with ``s`` columns addressed."""
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import quantize_page_block
+    from neuronx_distributed_tpu_torch.modules.attention import PagedKVCache
+
+    q, kp, vp, bt, pos, valid = k5_inputs(gen, "serving", s, bound)
+    b, L = valid.shape
+    col = bound - s
+    for c in range(col, bound):
+        page = int(bt[1, c // PAGE])
+        kp[page, c % PAGE] *= 50.0
+        vp[page, c % PAGE] *= 50.0
+    cache = PagedKVCache.allocate(1, b, L, 8, 128, torch.bfloat16, "cuda", kp.shape[0], PAGE,
+                                  kv_quant="int8")
+    for pool, scale, x in ((cache.k, cache.k_scale, kp), (cache.v, cache.v_scale, vp)):
+        codes, sc = quantize_page_block(x)
+        pool[0].copy_(codes)
+        scale[0].copy_(sc)
+    del kp, vp
+    cache.block_table.copy_(bt)
+    cache.valid.copy_(valid)
+    view = cache.view(slice(None), col)
+    view._address(view._cols[:s])
+    k = torch.randn(b, s, 8, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn(b, s, 8, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    k[0].mul_(50.0)
+    v[0].mul_(50.0)
+    return cache, view, q, k, v, pos, valid
+
+
+def check_write_attend(gen) -> dict:
+    """K5q with the write (``qpaged_write_attend_fwd``) against QW then K5q,
+    both on the card, on ``write_attend_case``'s inputs (the bound) for each of
+    ``WRITE_ATTEND_CASES``: the pools and scales bit for bit on every page
+    but the null page (which this route does not write), out and lse bit
+    for bit; the same check must fail two broken variants on a copy of the
+    inputs: one that skips the write (K5q on the old pools) and one that
+    attends the stale codes (QW's pools, K5q's output on the old ones).
+    Times (graph replays): the fused launch, K5q alone on the written pools,
+    QW + K5q in one graph; the bound: K5q's bytes (int8 K/V columns, the
+    table up to the bound, the live pages' scales) plus QW's (``qw_bytes``),
+    each once."""
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+        paged_flash_decode_plain_q,
+        qpaged_flash_decode_fwd,
+        qpaged_write_attend_fwd,
+        qpaged_write_attend_plain,
+    )
+    from neuronx_distributed_tpu_torch.kernels.kv_quant import window_requantize_fwd
+
+    res = {}
+    for name, s, bound_cols in WRITE_ATTEND_CASES:
+        cache, view, q, k, v, pos, valid = write_attend_case(gen, s, bound_cols)
+        leaves = (cache.k[0], cache.v[0], cache.k_scale[0], cache.v_scale[0])
+        bt, w0 = cache.block_table, view._c0
+        base = [t.clone() for t in leaves]
+
+        def two():  # QW, then K5q: the two-launch route
+            view.decode_write(0, k, v)
+            return qpaged_flash_decode_fwd(q, *leaves, bt, pos, valid, PAGE)
+
+        def fused():
+            return qpaged_write_attend_fwd(q, k, v, *leaves, bt, pos, valid, w0, PAGE)
+
+        def restore():
+            for t, x in zip(leaves, base):
+                t.copy_(x)
+
+        def mismatches(pools, out, lse):
+            bad = [n for n, t, w in zip(("k", "v", "k_scale", "v_scale"), pools, want)
+                   if not torch.equal(t[1:], w[1:])]
+            return bad + [n for n, t, w in (("out", out, want_out), ("lse", lse, want_lse))
+                          if not torch.equal(t, w)]
+
+        want_out, want_lse = two()
+        want = [t.clone() for t in leaves]
+        restore()
+        n, nq = qpaged_write_attend_fwd.launches, qpaged_flash_decode_fwd.launches
+        nw = window_requantize_fwd.launches
+        out, lse = fused()
+        torch.cuda.synchronize()
+        if (qpaged_write_attend_fwd.launches - n, qpaged_flash_decode_fwd.launches - nq,
+                window_requantize_fwd.launches - nw) != (1, 1, 0):
+            raise AssertionError(f"K5q with the write ({name}): launches counted wrong")
+        bad = mismatches(leaves, out, lse)
+        if bad:
+            raise AssertionError(f"K5q with the write ({name}) differs from QW then K5q in {bad} "
+                                 "(must be bitwise equal on every page but the null page)")
+        # the plain version on the same inputs, within K5q's limit
+        plain = [x.clone() for x in base]
+        ref, ref_lse = qpaged_write_attend_plain(q, k, v, *plain, bt, pos, valid, w0, PAGE)
+        if not all(torch.equal(t[1:], w[1:]) for t, w in zip(plain, want)):
+            raise AssertionError(f"K5q with the write ({name}): its plain version's pools differ")
+        pv = paged_flash_decode_plain_q(q, want[0], want[1].abs(), want[2], want[3], bt, pos,
+                                        valid, PAGE)[0]
+        ratio = tol_ratio(out, ref, pv, K4_PV)
+        lerr = max_err(lse, ref_lse)
+        if not (ratio <= 1.0 and lerr <= LSE_TOL):
+            raise AssertionError(f"K5q with the write ({name}): {ratio:.3g}x its limit against "
+                                 f"its plain version, |lse err| {lerr}")
+        # the broken variants, on a copy of the inputs
+        copy = [x.clone() for x in base]
+        skip = mismatches(copy, *qpaged_flash_decode_fwd(q, *copy, bt, pos, valid, PAGE))
+        stale_out = qpaged_flash_decode_fwd(q, *copy, bt, pos, valid, PAGE)
+        window_requantize_fwd(*copy, *view._win, k, v)
+        stale = mismatches(copy, *stale_out)
+        if not skip or not stale:
+            raise AssertionError(f"K5q with the write ({name}): the check passes a variant that "
+                                 f"skips the write ({skip}) or attends the stale codes ({stale})")
+        restore()
+        fused_ms = graph_ms(fused, 20)
+        two_ms = graph_ms(two, 20)
+        k5q_ms = graph_ms(lambda: qpaged_flash_decode_fwd(q, *leaves, bt, pos, valid, PAGE), 20)
+        b, hkv = q.shape[0], k.shape[2]
+        pages_live = int(valid.reshape(b, -1, PAGE).any(-1).sum())
+        n_win = view._win[0].shape[1]
+        qwb = qw_bytes(k, n_win)
+        bound, bound_by, nbytes = decode_bound(
+            q, valid, pos, bound_cols, hkv, kv_bytes=1,
+            extra_bytes=4 * b * -(-bound_cols // PAGE) + 2 * 2 * hkv * pages_live + qwb)
+        ks, ks0 = want[2].float(), base[2].float()
+        rise, fall = (int(cache.block_table[i, (bound_cols - 1) // PAGE]) for i in (0, 1))
+        if not (bool((ks[rise] > 2 * ks0[rise]).all()) and bool((ks[fall] < 0.5 * ks0[fall]).all())):
+            raise AssertionError(f"K5q with the write ({name}): page {rise}'s scale did not rise or "
+                                 f"page {fall}'s did not fall")
+        res[name] = dict(slots=b, s=s, rows=4 * s, col=bound_cols - s, n_win=n_win, ms=fused_ms,
+                         k5q_ms=k5q_ms, qw_k5q_ms=two_ms, bound_ms=bound, bound_by=bound_by,
+                         bytes=nbytes, qw_bytes=qwb, ratio=ratio, err=max(max_err(out, ref), lerr),
+                         broken=dict(skip=skip, stale=stale),
+                         plain_ms=cuda_ms(lambda: qpaged_write_attend_plain(
+                             q, k, v, *plain, bt, pos, valid, w0, PAGE), 5, warmup=1))
         del cache, view
         torch.cuda.empty_cache()
     return res
@@ -1939,7 +2111,7 @@ def serve_workload(model, workload, eager: bool = False, quantize=None, dq=None,
         raise AssertionError(f"a kernel of the serving path never launched: {launches}")
     if (launches["paged_flash_decode"] or launches["flash_attention_dkdv"]
             or launches["flash_attention_dq"] or launches["qpaged_flash_decode"]
-            or launches.get("window_requantize", 0)):
+            or launches.get("window_requantize", 0) or launches.get("qpaged_write_attend", 0)):
         raise AssertionError(f"row serving launched a kernel of another path: {launches}")
     snap = engine.metrics.snapshot()
     # executed steps each ran the whole model (and one K4 per layer); used
@@ -2043,11 +2215,13 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
     ``profiled`` captures the decode program first, then runs under the
     profiler and adds the device time by family and the profiler's count
     of K5 records (its walls are the profiler's, not the engine's).
-    ``quantize`` and ``num_pages`` are phase 5f's: an int8 pool attends
-    through K5q and writes through QW. ``strict=False``
+    ``quantize`` and ``num_pages`` are phase 5f's: an int8 pool's decode
+    step writes and attends through K5q with the write (counted in K5q's
+    launches too), its prefills write through QW. ``strict=False``
     (``chip_decode_ab.py``, which may drive an older checkout) reports
-    QW's launches and the profiler's decode records without holding them
-    to this checkout's counts. ``program_ledger`` is phase 5l(b)'s."""
+    the fused route's and QW's launches and the profiler's decode records
+    without holding them to this checkout's counts. ``program_ledger`` is
+    phase 5l(b)'s."""
     from torch.profiler import ProfilerActivity, profile
 
     from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
@@ -2094,10 +2268,10 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
     qkv = quantize is not None and quantize.kv is not None
     want = {"paged_flash_decode": 0, "flash_decode": 0, "qpaged_flash_decode": 0}
     want[attended] = snap["executed_steps"] * cfg.num_layers
-    if strict:  # an int8 pool's writes: QW once a layer a forward
-        want["window_requantize"] = ((snap["executed_steps"] + snap["prefills"]) * cfg.num_layers
-                                     * qkv)
-    got = {k: launches[k] - warm[k] for k in want}
+    if strict:  # an int8 pool's writes: a step's in K5q with the write, a prefill's in QW
+        want["qpaged_write_attend"] = snap["executed_steps"] * cfg.num_layers * qkv
+        want["window_requantize"] = snap["prefills"] * cfg.num_layers * qkv
+    got = {k: launches.get(k, 0) - warm.get(k, 0) for k in want}
     if got != want:
         raise AssertionError(f"paged ({attention}) decode launches {got} != {want}")
     if launches["flash_attention"] != snap["prefills"] * cfg.num_layers:
@@ -2125,6 +2299,7 @@ def serve_paged(model, workload, attention: str, profiled: bool = False,
                                  f"2 x {snap['executed_steps']} executed steps x "
                                  f"{cfg.num_layers} layers")
         res["fams"] = device_time_by_family(prof, {
+            "qpaged_write_attend": "qpaged_flash_decode_kernel_write",
             "qpaged_flash_decode": "qpaged_flash_decode_kernel", "dequantize": "dequantize_kernel",
             "window_requantize": "window_requantize_kernel",
             "paged_flash_decode": "paged_flash_decode_kernel",
@@ -2574,7 +2749,7 @@ def teacher_ratio(model, workload, tokens) -> float:
 
 def serve_spec(target, draft, workload, paged: bool = False, eager: bool = False,
                profiled: bool = False, own_draft: bool = False, quantize=None, injector=None,
-               between=None) -> dict:
+               between=None, slots: int = 8) -> dict:
     """Phase 4's six requests through an engine with the speculative round
     (``draft`` None: the same engine without it): 8 slots, chunk 8
     (rounds), conservative, ``prefix_cache=None``; ``paged`` over a pool of
@@ -2587,8 +2762,13 @@ def serve_spec(target, draft, workload, paged: bool = False, eager: bool = False
     never the multi-row path; each admission K1 once a layer of both
     models. Phase 5j's: ``own_draft`` gives the engine a copy of the draft's
     tensors (``draft_params=``), ``quantize`` its target (DQ once a linear
-    of every target forward), ``injector`` a fault schedule, and
-    ``between(engine, i)`` runs after the i-th decode-only step."""
+    of every target forward; with ``kv``, paged, the target's pool int8
+    and the draft's float: the target's verify window attends through K5q
+    with the write, counted in K5q's launches too, the draft's steps
+    through K5, and QW writes only the target's prefills), ``injector`` a
+    fault schedule, ``between(engine, i)`` runs after the i-th decode-only
+    step, and ``slots`` is the engine's (phase 5f(e): 16, the paged serving
+    geometry)."""
     from torch.profiler import ProfilerActivity, profile
 
     from neuronx_distributed_tpu_torch.kernels.flash_decode import (
@@ -2606,7 +2786,7 @@ def serve_spec(target, draft, workload, paged: bool = False, eager: bool = False
     spec = dict(draft_model=draft, gamma=SPEC_GAMMA) if draft is not None else {}
     if own_draft:
         spec["draft_params"] = draft.state_dict()
-    engine = ServingEngine(target, num_slots=8, decode_chunk_size=8, prefix_cache=None, **kw,
+    engine = ServingEngine(target, num_slots=slots, decode_chunk_size=8, prefix_cache=None, **kw,
                            **spec, quantize=quantize, fault_injector=injector)
     counters = kernel_counters()
     torch.cuda.synchronize()
@@ -2645,16 +2825,24 @@ def serve_spec(target, draft, workload, paged: bool = False, eager: bool = False
     per_round = d_layers * SPEC_GAMMA + layers
     dec, other = (("paged_flash_decode", "flash_decode") if paged
                   else ("flash_decode", "paged_flash_decode"))
-    got = (launches[dec] - warm[dec], launches[other], multi, launches["flash_attention"])
-    want = (snap["executed_steps"] * per_round, 0, 0, snap["prefills"] * (layers + d_layers))
+    qkv = quantize is not None and quantize.kv is not None
+    # an int8 target pool: the draft's steps on K5, the target's verify on
+    # K5q with the write (counted under both names), its prefills on QW
+    rounds = {dec: d_layers * SPEC_GAMMA, "qpaged_flash_decode": layers,
+              "qpaged_write_attend": layers} if qkv else {dec: per_round}
+    got = ({k: launches[k] - warm[k] for k in rounds}, launches[other], multi,
+           launches["flash_attention"], launches["window_requantize"] - warm["window_requantize"])
+    want = ({k: snap["executed_steps"] * n for k, n in rounds.items()}, 0, 0,
+            snap["prefills"] * (layers + d_layers), snap["prefills"] * layers * qkv)
     if got != want:
-        raise AssertionError(f"{what}: launches ({dec} less the warm-up, {other}, multi-row, K1) "
-                             f"{got} != {want} ({snap['executed_steps']} executed rounds x "
-                             f"{per_round}, {snap['prefills']} admissions x {layers + d_layers})")
+        raise AssertionError(f"{what}: launches (decode kernels less the warm-up, {other}, "
+                             f"multi-row, K1, QW) {got} != {want} ({snap['executed_steps']} "
+                             f"executed rounds x {rounds}, {snap['prefills']} admissions x "
+                             f"{layers + d_layers})")
     check_program(engine, what, eager)
     prog = decode_program(engine)
     linears = 7 * layers + 1 if quantize is not None and quantize.weights else 0
-    want_replay = {dec: per_round, **({"dequantize": linears} if linears else {})}
+    want_replay = {**rounds, **({"dequantize": linears} if linears else {})}
     if not eager and prog.launches_per_replay != want_replay:
         raise AssertionError(f"{what}: launches per replay {prog.launches_per_replay}, want "
                              f"{want_replay}")
@@ -2671,12 +2859,13 @@ def serve_spec(target, draft, workload, paged: bool = False, eager: bool = False
                wall_s=t2 - t0, decode_s=t2 - t1,
                decode_executed=snap["executed_steps"] - executed0, per_round=per_round,
                compilations=engine.decode_compilations, replays=prog.replays,
-               capture_s=capture_s or snap["capture_s"],
+               per_replay=dict(prog.launches_per_replay), capture_s=capture_s or snap["capture_s"],
                sampled_rounds=sum(len(r.tokens) - 1 for r in reqs if r.config.temperature > 0),
                # of the decode launches, the target's verify windows: a layer
                # each round that went through the wrapper (the capture's
                # warm-up, the eager rounds) or was replayed
-               verify=(launches[dec] // per_round) * layers,
+               verify=(launches["qpaged_write_attend"] if qkv
+                       else (launches[dec] // per_round) * layers),
                # the served target (a quantized copy under ``quantize``) and
                # the draft's tensors, for phase 5j's checks
                model=engine.model, draft_state=engine.draft_params,
@@ -3133,8 +3322,12 @@ def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
     requests (``srv``), each with its eager-step witness; (c) int8 weights
     and an int8 pool of phase 5b's bytes (``paged``: its pool) behind the
     paged engine on phase 5b's traffic, with its witness; (d) phase 5c's
-    paged prefix leg on that pool. Returns the launches by wrapper of the
-    runs that are no witness (replays included)."""
+    paged prefix leg on that pool; (e) the int8 pool beside a float draft
+    (``quantize.kv`` with ``draft_model=``): phase 5d's early-exit pair at
+    eps 0.3, the draft's tensors its own, gamma 4, phase 4's six requests
+    through the paged engine at the paged serving geometry (16 slots,
+    page_size 16), with its eager-round witness. Returns the launches by
+    wrapper of the runs that are no witness (replays included)."""
     from neuronx_distributed_tpu_torch.quantization.config import QuantConfig
     from neuronx_distributed_tpu_torch.serving.cache_manager import PrefixCache
 
@@ -3193,7 +3386,7 @@ def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
     if cw["tokens"] != c["tokens"] or cp["tokens"] != c["tokens"]:
         raise AssertionError("int8 pool serving: the decode graph's streams differ from the "
                              "eager step's or the profiled rerun's")
-    if c["per_replay"] != {"qpaged_flash_decode": layers, "window_requantize": layers,
+    if c["per_replay"] != {"qpaged_flash_decode": layers, "qpaged_write_attend": layers,
                            "dequantize": linears}:
         raise AssertionError(f"int8 pool serving: launches per replay {c['per_replay']}")
     sn = c["snap"]
@@ -3201,10 +3394,11 @@ def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
         f"{PAGED_SLOTS} slots, page_size {PAGE}): pool {n_pages} pages, {c['pool_gib']:.3f} GiB "
         f"(phase 5b: {paged['pool_pages']} pages, {paged['pool_gib']:.3f} GiB); all 15 DONE, "
         f"check() clean, eager-step streams identical; wall {c['wall_s']:.3f} s, replays "
-        f"{c['replays']}, launches per replay {c['per_replay']}, K5q launches "
-        f"{c['launches']['qpaged_flash_decode']} = executed steps {sn['executed_steps']} x "
-        f"{layers} + the warm-up's {layers}, QW {c['launches']['window_requantize']} (the steps', "
-        f"the prefills' and the warm-up's), K5 {c['launches']['paged_flash_decode']}; "
+        f"{c['replays']}, launches per replay {c['per_replay']}, K5q with the write "
+        f"{c['launches']['qpaged_write_attend']} = executed steps {sn['executed_steps']} x "
+        f"{layers} + the warm-up's {layers} (K5q's count {c['launches']['qpaged_flash_decode']} "
+        f"holds them), QW {c['launches']['window_requantize']} = prefills {sn['prefills']} x "
+        f"{layers}, K5 {c['launches']['paged_flash_decode']}; "
         f"{c['decode_executed']} decode-only steps {c['decode_s']:.4f} s "
         f"({1e3 * c['decode_s'] / max(c['decode_executed'], 1):.2f} ms per executed step; eager "
         f"witness {1e3 * cw['decode_s'] / max(cw['decode_executed'], 1):.2f}), decode "
@@ -3218,7 +3412,8 @@ def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
         f"before the profiler opened): " + ", ".join(f"{k} {v:.2f}" for k, v in cp["fams"].items())
         + f"; busy {busy:.2f} of the unprofiled wall less its capture {wall_ms:.2f} (idle share "
         f"{1 - busy / wall_ms:.3f}); K5q kernel records {cp['records']} = 2 x "
-        f"{cp['snap']['executed_steps']} executed steps x {layers} layers (range and merge)")
+        f"{cp['snap']['executed_steps']} executed steps x {layers} layers (range with the write, "
+        f"and merge)")
     out["paged"] = dict(c, fams=cp["fams"])
     for k in out["launches"]:
         out["launches"][k] += c["launches"][k]
@@ -3231,11 +3426,13 @@ def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
         raise AssertionError(f"int8 pool prefix serving: hits {dd['prefix_hits']}, misses "
                              f"{dd['prefix_misses']}; want 11, 1")
     qw_pre = (pre["delta"]["prefill_full_count"] + pre["delta"]["prefill_suffix_count"]) * layers
-    if (pre["per_replay"].get("window_requantize") != layers
+    if ("window_requantize" in pre["per_replay"]
+            or pre["per_replay"].get("qpaged_write_attend") != layers
             or pre["launches"]["window_requantize"] != qw_pre):
-        raise AssertionError(f"int8 pool prefix serving: QW {pre['per_replay']} a replay, "
-                             f"{pre['launches']['window_requantize']} outside replays; want "
-                             f"{layers} and {qw_pre} (a full or suffix prefill's write x {layers})")
+        raise AssertionError(f"int8 pool prefix serving: {pre['per_replay']} a replay, QW "
+                             f"{pre['launches']['window_requantize']} outside replays; want K5q "
+                             f"with the write {layers} and no QW a replay, QW {qw_pre} (a full or "
+                             f"suffix prefill's write x {layers})")
     if pre["copy_bytes"] != 0 or pre["multi_row"]["flash_decode"] < 1 or not pre["pinned_pages"]:
         raise AssertionError(f"int8 pool prefix serving: copy_bytes {pre['copy_bytes']}, K4 "
                              f"multi-row launches {pre['multi_row']['flash_decode']}, pinned "
@@ -3252,10 +3449,59 @@ def quant_phase(model, srv: dict, paged: dict, gen) -> dict:
     out["prefix"] = pre
     for k in out["launches"]:
         out["launches"][k] += pre["launches"][k] + (pre["replayed"] if k == pre["decode"] else 0)
-    for k in ("dequantize", "window_requantize"):
+    for k in ("dequantize", "qpaged_write_attend"):
         out["launches"][k] += pre["per_replay"].get(k, 0) * pre["delta"]["executed_steps"]
+    # (e) the int8 pool beside a float draft
+    spec = quant_spec_leg(model, srv["workload"], qc)
+    for k in out["launches"]:
+        out["launches"][k] += spec["launches"][k]
+    out["spec"] = spec
     log(f"phase 5f wall: {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def quant_spec_leg(model, workload, qc) -> dict:
+    """5f(e): phase 5d's early-exit pair at eps 0.3 (the draft: layer 0, its
+    tensors the engine's own), the target quantized by ``qc`` (int8 weights
+    and an int8 pool; the draft's pool float), gamma 4, on ``workload``
+    through the paged engine at the paged serving geometry; the captured
+    round against the eager round. Gates: every request DONE (``serve_spec``),
+    the streams bit for bit, every greedy token within phase 3's limit of
+    the served target's teacher-forced row maximum, K5q with the write once a
+    layer a round (the verify window, R = 16) and QW no time, both pools
+    ``check()`` clean. Returns the captured run's launches."""
+    from neuronx_distributed_tpu_torch.models.llama import early_exit_draft
+
+    layers = model.config.num_layers
+    target, draft = early_exit_draft(model, SPEC_DRAFT_LAYERS, 0.3)
+    kw = dict(paged=True, own_draft=True, quantize=qc, slots=PAGED_SLOTS)
+    on = serve_spec(target, draft, workload, **kw)
+    wit = serve_spec(target, draft, workload, eager=True, **kw)
+    if wit["tokens"] != on["tokens"]:
+        raise AssertionError("int8 pool + draft serving: the captured round's streams differ from "
+                             "the eager round's")
+    teacher = teacher_ratio(on["model"], workload, on["tokens"])
+    if teacher > 1.0:
+        raise AssertionError(f"int8 pool + draft serving: a greedy token lies {teacher:.3g}x phase "
+                             "3's limit below its row's maximum teacher-forced")
+    sn = on["snap"]
+    log(f"quantized serving 5f(e) (int8 weights + int8 KV pool beside a float draft: phase 5d's "
+        f"early-exit pair at eps 0.3, the draft's tensors its own, gamma {SPEC_GAMMA}, phase 4's "
+        f"6 requests, {PAGED_SLOTS} slots, page_size {PAGE}): all DONE, both pools check() clean, "
+        f"captured streams = the eager round's bit for bit, teacher-forced gap {teacher:.3g}x "
+        f"phase 3's limit; one capture, launches per replay {on['per_round']} decode kernels: "
+        f"{dict(sorted(on['per_replay'].items()))} (K5q with the write at R = "
+        f"{4 * SPEC_GAMMA}, QW none); QW {on['launches']['window_requantize']} = admissions "
+        f"{sn['prefills']} x {layers}; greedy acceptance {greedy_accept_rate(on):.4f}, rounds "
+        f"{sn['spec_rounds']}; wall {on['wall_s']:.3f} s, {on['decode_executed']} decode-only "
+        f"rounds in {on['decode_s']:.4f} s ({1e3 * on['decode_s'] / max(on['decode_executed'], 1):.2f}"
+        f" ms each; eager witness "
+        f"{1e3 * wit['decode_s'] / max(wit['decode_executed'], 1):.2f})")
+    del target, draft
+    collect_engines()
+    return dict(launches=on["launches"], teacher=teacher, tokens=on["tokens"],
+                verify=on["verify"], per_replay=on["per_replay"],
+                accept=greedy_accept_rate(on), snap=sn)
 
 
 # --- phase 5g: the fault contract -------------------------------------------------
@@ -4194,7 +4440,7 @@ def tier_serve(model, workload, pages: int, host, serial: bool = True, quantize=
         raise AssertionError(f"tier phase: decode_compilations {engine.decode_compilations}, "
                              f"replays {replays} for {delta['executed_steps']} executed steps")
     per_replay = dict(prog.launches_per_replay)
-    want_replay = ({"qpaged_flash_decode": layers, "window_requantize": layers} if qkv
+    want_replay = ({"qpaged_flash_decode": layers, "qpaged_write_attend": layers} if qkv
                    else {"paged_flash_decode": layers})
     if quantize is not None and quantize.weights is not None:
         want_replay["dequantize"] = 7 * layers + 1  # phase 5f's rule: every linear and lm_head
@@ -5501,7 +5747,9 @@ def fabric_disagg(model, paged: dict, smi: str) -> dict:
     n_pages = paged["pool_pages"] * (2 * layers * PAGE * hkv * d * 2) \
         // (2 * layers * (PAGE * hkv * d + hkv * 2))
     int8 = fabric_staged_vs_coupled(model, qc, n_pages, pick)
-    if int8["per_replay"].get("qpaged_flash_decode") != layers:
+    if (int8["per_replay"].get("qpaged_flash_decode") != layers
+            or int8["per_replay"].get("qpaged_write_attend") != layers
+            or "window_requantize" in int8["per_replay"]):
         raise AssertionError(f"fabric 5k(e): the int8 pool decoded with {int8['per_replay']}")
     # the coupled fallbacks: two failed handoffs, then a worker death
     few_p, few_c = prompts[:4], cfgs[:4]
@@ -5541,7 +5789,8 @@ def fabric_disagg(model, paged: dict, smi: str) -> dict:
     log(f"fabric 5k(e) staged pages = a coupled prefill's bit for bit: {bf16['pages']} pages of "
         f"three prompts ({', '.join(str(len(p)) for p in pick)} tokens) on the bf16 pool, "
         f"{int8['pages']} on 5f(c)'s int8 pool of {n_pages} pages (codes and scales; K5q "
-        f"{int8['per_replay']['qpaged_flash_decode']} a replay after the handoff)")
+        f"with the write {int8['per_replay']['qpaged_write_attend']} a replay after the handoff, "
+        f"QW the prefills' writes alone)")
     log(f"fabric 5k(e) fallbacks: fail_handoff x2 -> 2 coupled prefills, counters "
         f"{ {k: ho['stats'][k] for k in ('handoffs', 'handoff_failures', 'coupled_fallbacks')} }; "
         f"a worker death -> worker_failures 1, no worker left, {wd['coupled']} coupled prefills; "
@@ -6742,8 +6991,9 @@ def bwd_resources() -> list:
 
 
 def decode_resources() -> tuple:
-    """K4's, K5's and K5q's resources as built, at R <= 4 (Llama-3-8B's group of 4
-    at s = 1), R <= 32 and on the multi-row path: dynamic shared memory, registers a thread, local
+    """K4's, K5's, K5q's and K5q with the write's resources as built, at R <= 4
+    (Llama-3-8B's group of 4 at s = 1), R <= 16 (the verify window, K5q's),
+    R <= 32 and on the multi-row path: dynamic shared memory, registers a thread, local
     bytes and blocks per SM from the runtime; and ``ptxas -v``'s spill line
     of every decode kernel and merge, which must show no spill. Returns
     (the resources, the number of kernels ``ptxas`` reported)."""
@@ -6753,11 +7003,13 @@ def decode_resources() -> tuple:
 
     lib = _build.load("flash_decode")
     out = []
-    for kind, prefix in ((0, ""), (1, "paged_"), (2, "qpaged_")):  # K4, K5, K5q
-        for rmax in (4, 32, 0) if kind < 2 else (4, 32):  # 0: the multi-row kernel
+    # K4, K5, K5q, K5q with the write
+    for kind, prefix, suffix in ((0, "", ""), (1, "paged_", ""), (2, "qpaged_", ""),
+                                 (3, "qpaged_", "_write")):
+        for rmax in (4, 32, 0) if kind < 2 else (4, 16, 32):  # 0: the multi-row kernel
             vals = (ctypes.c_int * 4)()
             _build.check(lib.nxd_flash_decode_resources(kind, rmax, vals), "flash_decode")
-            kernel = "flash_decode_kernel" + (f"<{rmax}>" if rmax else "_rows")
+            kernel = "flash_decode_kernel" + (f"{suffix}<{rmax}>" if rmax else "_rows")
             out.append(dict(kernel=prefix + kernel,
                             smem=vals[0], regs=vals[1], local=vals[2], blocks_per_sm=vals[3]))
     report = _build.resource_report("flash_decode").splitlines()
@@ -7606,13 +7858,31 @@ def main() -> int:
             f"and V)")
     qw = check_qw(qgen)
     for name, r in qw.items():
-        log(f"QW window_requantize ({name}: B={r['slots']} s={r['s']} at column {r['col']}, "
+        log(f"QW window_requantize ({smi}; {name}: B={r['slots']} s={r['s']} at column {r['col']}, "
             f"{r['n_win']} window page(s) a row, Hkv=8 D=128 page_size 16, int8 pool, bf16 scales, "
             f"K and V in one launch): bitwise equal to its plain version on every page but the "
-            f"null page, one page's scale risen and one's fallen"
-            + (f"; kernel_ms {r['ms']:.4f} (graph replay) plain_ms {r['plain_ms']:.4f} bound_ms "
-               f"{r['bound_ms']:.5f} ({r['bound_by']}, {r['bytes']} B) library_ms null (no single "
-               f"PyTorch call re-quantizes a page window)" if "ms" in r else ""))
+            f"null page, one page's scale risen and one's fallen; kernel_ms {r['ms']:.4f} (graph "
+            f"replay) bound_ms {r['bound_ms']:.5f} ({r['bound_by']}, {r['bytes']} B; "
+            f"{r['ms'] / r['bound_ms']:.1f}x)"
+            + (f" plain_ms {r['plain_ms']:.4f}" if "plain_ms" in r else "")
+            + " library_ms null (no single PyTorch call re-quantizes a page window)")
+    # K5q with the write: its own generator, so the other checks keep their inputs
+    wa = check_write_attend(torch.Generator(device="cuda").manual_seed(23))
+    for name, r in wa.items():
+        log(f"K5q with the write qpaged_write_attend ({smi}; {name}: B={r['slots']} s={r['s']} "
+            f"(R={r['rows']}) H=32 Hkv=8 D=128 L=8192 page_size 16 at the paged serving "
+            f"geometry, the new rows at column {r['col']}, {r['n_win']} window page(s) a row, the "
+            f"last slot idle): pools and scales bitwise equal to QW then K5q on every page but "
+            f"the null page, out and lse bit for bit, one page's scale risen and one's fallen; "
+            f"{r['ratio']:.3g}x K5q's limit against its plain version; the check fails a "
+            f"variant that skips the write (differs in {r['broken']['skip']}) and one that "
+            f"attends the stale codes (differs in {r['broken']['stale']}); kernel_ms "
+            f"{r['ms']:.4f} (graph replay) against K5q alone {r['k5q_ms']:.4f} and QW + K5q "
+            f"{r['qw_k5q_ms']:.4f} (one graph; fused {r['ms'] - r['k5q_ms']:+.4f} ms on K5q, "
+            f"{r['ms'] - r['qw_k5q_ms']:+.4f} on QW + K5q) plain_ms {r['plain_ms']:.4f} bound_ms "
+            f"{r['bound_ms']:.5f} ({r['bound_by']}, {r['bytes']} B with QW's {r['qw_bytes']}; "
+            f"{r['ms'] / r['bound_ms']:.2f}x) library_ms null (no single PyTorch call writes and "
+            f"attends an int8 pool)")
     dq = check_dq(qgen)
     for kind in ("int8", "fp8"):
         log(f"DQ dequantize {kind} at lm_head's shape {dq['shape'][0]} x {dq['shape'][1]} (bf16 "
@@ -7904,13 +8174,29 @@ def main() -> int:
              serving_cold_ms=k5q["serving"]["cold_ms"],
              serving_bound_ms=k5q["serving"]["bound_ms"],
              design="redesigned: int8 converted where the products read it, no bf16 tile"),
+        # K5q with the write: the decode step's window re-quantize (which XLA
+        # fuses into JAX's decode chunk, modules/attention.py:544) folded
+        # into K5q, which computes the gather-dequantize and K4's pallas_call
+        dict(name="qpaged_write_attend", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/flash_decode.cu",
+             replaces="neuronx_distributed_tpu/kernels/flash_decode.py:301",
+             launches=launches["qpaged_write_attend"],
+             max_abs_err=max(r["err"] for r in wa.values()), ms=wa["decode"]["ms"],
+             plain_ms=wa["decode"]["plain_ms"], bound_ms=wa["decode"]["bound_ms"],
+             bound_by=wa["decode"]["bound_by"], library_ms=None, k5q_ms=wa["decode"]["k5q_ms"],
+             qw_k5q_ms=wa["decode"]["qw_k5q_ms"], verify_ms=wa["verify"]["ms"],
+             verify_bound_ms=wa["verify"]["bound_ms"],
+             verify_launches=quant["spec"]["verify"],
+             design="redesigned: QW folded into K5q's range kernel, one launch a layer"),
         # QW computes the window re-quantize XLA fuses into JAX's decode chunk
+        # (on the port's main path: the prefills' writes)
         dict(name="window_requantize", route="cuda",
              source="neuronx_distributed_tpu_torch/csrc/kv_quant.cu",
              replaces="neuronx_distributed_tpu/modules/attention.py:544",
              launches=launches["window_requantize"], max_abs_err=0.0, ms=qw["decode"]["ms"],
              plain_ms=qw["decode"]["plain_ms"], bound_ms=qw["decode"]["bound_ms"],
-             bound_by=qw["decode"]["bound_by"], library_ms=None),
+             bound_by=qw["decode"]["bound_by"], library_ms=None, prefill_ms=qw["prefill"]["ms"],
+             prefill_bound_ms=qw["prefill"]["bound_ms"]),
         # PF computes the per-page fingerprints XLA fuses into one program
         dict(name="page_fingerprint", route="cuda",
              source="neuronx_distributed_tpu_torch/csrc/page_fingerprint.cu",
@@ -7959,6 +8245,9 @@ def main() -> int:
              fp8_ms=mx[("fp8", "random", 8)]["ms"],
              fp8_library_ms=mx[("fp8", "random", 8)]["library_ms"]),
     ]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        raise AssertionError(f"kernels of the main paths never launched: {idle}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

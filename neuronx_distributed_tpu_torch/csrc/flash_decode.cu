@@ -105,6 +105,44 @@
 // holds striding the items (a block's fixed share makes the tail), a TMA
 // box a page through an mbarrier ring in place of the `cp.async` ring (no
 // faster), and the table read by every block before its bound check.
+//
+// K5q with the write (qpaged_write_attend; `qpaged_flash_decode_kernel_write`,
+// then K5q's merge): a decode step over an int8 pool writes its s new rows
+// (QW, csrc/kv_quant.cu: every page of the write window re-quantized) and
+// then attends the pool, always on the same (slot, kv-head, page). As two
+// launches QW is a graph node of its own, a chain of dependent reads (the
+// window's pages and first column, then the codes, scale and rows, then a
+// maximum, then the writes) that costs 15x its bytes, and K5q then reads
+// the same page again. Fused, block (range, b, hk) first re-quantizes
+// kv-head hk of the window pages of slot b whose logical columns fall in
+// its 256-column range, K with threads 0-127 and V with 128-255, by QW's
+// steps 1-7 unchanged (`write_window`): the window is QW's, `n_win` = 1 at
+// s = 1, else (s - 1) / page_size + 2 logical pages from the first
+// column's, each read from the block table (a logical page past the table
+// is the null page). It writes them before either early exit (the range
+// past the live bound, the range with no live tile): a window page past a
+// row's bound is mapped for later steps and JAX re-quantizes it too. A
+// block barrier follows the writes, and only then does the block read its
+// range (the new codes and scales, through K5's `cp.async` ring), so the
+// tile loop, the sums, their order and the merge are K5q's: the result is
+// QW then K5q bit for bit, and K4 on the dequantized gathered view. The
+// null page is not written (QW writes it; nothing reads it). Hazards, none
+// of which can occur:
+//  * Another block reading a page while its owner writes it. Window pages
+//    are the slot's own (copy-on-write keeps shared prefix pages out of
+//    every write window, serving/paging.py `assert_writable`), a page's
+//    columns lie in one range (page_size divides 256), and a block reads
+//    only its own range's pages and its own kv-head's codes: the owner is
+//    the page's only reader. The scale words that K5q's copies read hold
+//    two kv-heads' bf16 scales; a block writes its own half and uses only
+//    its own half.
+//  * A page with two owners: at s > 1 a window can cross a range boundary;
+//    each of its pages still lies in exactly one range.
+//  * The null page: every row whose window runs past its table (or a free
+//    slot) maps it; no block writes it, and K5q never reads it (its
+//    columns are dead, zero-filled without a read).
+// It takes K5q's rows, R = group x s <= 32: the decode step (s = 1) and the
+// speculative verify window (s = gamma = 4, R = 16). Prefills keep QW.
 
 // More than 32 rows (R = group * s for a suffix prefill of s tokens behind a
 // reused prefix, the Pallas kernel's one block of R rows): the multi-row
@@ -193,19 +231,23 @@ static_assert(SPLIT_TILES <= 32, "live tiles are a bit mask");
 // K5 reads skb/svb as the pool's page stride and skl/svl as the stride of a
 // row inside a page; bt/sbt/ps_shift/n_pages are K5's alone. K5q's k/v are
 // int8 pools (the pointers are reinterpreted), ks/vs their bf16 scales with
-// page and kv-head strides sksp/sksh and svsp/svsh.
+// page and kv-head strides sksp/sksh and svsp/svsh. K5q with the write also
+// takes the new rows xk/xv (B, s, Hkv, D) bf16 with strides (sxkb, sxks,
+// sxkh), (sxvb, sxvs, sxvh), and w0, the logical column of their first token.
 struct Params {
   const bf16* q; const bf16* k; const bf16* v; bf16* o; float* lse;
   const int* q_pos; const uint8_t* kv_valid; const int* bt;
   const bf16* ks; const bf16* vs;
   float* wo; float* wl;  // workspace: O (f32) and LSE of every range
+  const bf16* xk; const bf16* xv; const long long* w0;
   int B, s, H, Hkv, L, ps_shift, n_splits, n_pages;
   long long sqb, sqs, sqh, skb, skl, skh, svb, svl, svh, sob, sos, soh, validb, sbt;
   long long sksp, sksh, svsp, svsh;
+  long long sxkb, sxks, sxkh, sxvb, sxvs, sxvh;
   float scale;
 };
 
-enum Kind { ROW = 0, PAGED = 1, QPAGED = 2 };
+enum Kind { ROW = 0, PAGED = 1, QPAGED = 2, QPAGED_WRITE = 3 };
 
 // K4: column c of slot b's cache row.
 struct RowCols {
@@ -703,8 +745,105 @@ __device__ __forceinline__ void merge_row(const Params& p) {
   if (d == 0) p.lse[slot * R + r] = den > 0.f ? safe + logf(den) : NEG_INF;
 }
 
-// One range `split` of one (slot b, kv-head hk): a block of K4, K5 and K5q.
-template <int RMAX, class Cols>
+constexpr float KV_QMAX = 127.f;     // int8 symmetric clamp bound
+constexpr int WVEC = 16;              // elements a thread of the write moves at a time
+constexpr int WROW_VECS = D / WVEC;   // 16-element pieces of a page row
+constexpr int WTHREADS = NTHREADS / 2;  // threads of the write a leaf: K, then V
+
+// Element chunk i (WVEC values of page row i / WROW_VECS) of a window page's
+// values, QW's steps 2-3: the new row of x where the page row holds x's
+// token t0 + row (0 <= t < s), else the old codes dequantized as
+// bf16_rn(float(q) * sc).
+__device__ __forceinline__ void window_chunk(const int8_t* codes, long long sr, const bf16* x,
+                                             long long sxs, long long t0, int s, float sc, int i,
+                                             uint4 (&o)[2]) {
+  const int r = i / WROW_VECS, c = (i % WROW_VECS) * WVEC;
+  const long long t = t0 + r;
+  if (t >= 0 && t < s) {
+    const uint4* src = reinterpret_cast<const uint4*>(x + t * sxs + c);
+    o[0] = src[0];
+    o[1] = src[1];
+  } else {
+    const uint4 raw = *reinterpret_cast<const uint4*>(codes + r * sr + c);
+    const int8_t* q = reinterpret_cast<const int8_t*>(&raw);
+    __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(o);
+#pragma unroll
+    for (int e = 0; e < WVEC / 2; ++e)
+      o2[e] = __halves2bfloat162(__float2bfloat16_rn(__fmul_rn((float)q[2 * e], sc)),
+                                 __float2bfloat16_rn(__fmul_rn((float)q[2 * e + 1], sc)));
+  }
+}
+
+// K5q with the write: re-quantize kv-head hk of slot b's write-window pages
+// that lie in the range starting at c_begin, K with threads [0, WTHREADS)
+// and V with the rest, by QW's arithmetic (csrc/kv_quant.cu steps 1-7).
+// c0 is the logical column of the new rows' first token. A thread reads,
+// then writes, only its own 16-byte pieces of a page: the second pass reads
+// the old codes it read in the first, so the values need no shared memory.
+// `red` holds the warps' maxima (NWARPS floats). Ends on a block barrier:
+// the new codes and scales are visible to the whole block.
+__device__ __forceinline__ void write_window(const Params& p, long long c0, float* red, int b,
+                                             int hk, int c_begin) {
+  const int tid = threadIdx.x, t = tid % WTHREADS, lane = tid & 31;
+  const bool is_v = tid >= WTHREADS;
+  const int shift = p.ps_shift, ps = 1 << shift;
+  const long long first = c0 >> shift;
+  const long long n_win = p.s == 1 ? 1 : (p.s - 1) / ps + 2;
+  const long long lo = max(first, (long long)(c_begin >> shift));
+  const long long hi = min(min(first + n_win, (long long)((c_begin + SPLIT) >> shift)),
+                           (long long)(p.L >> shift));
+  int8_t* pool = reinterpret_cast<int8_t*>(const_cast<bf16*>(is_v ? p.v : p.k)) +
+                 hk * (is_v ? p.svh : p.skh);
+  bf16* scales = const_cast<bf16*>(is_v ? p.vs : p.ks) + hk * (is_v ? p.svsh : p.sksh);
+  const bf16* x = (is_v ? p.xv : p.xk) + b * (is_v ? p.sxvb : p.sxkb) + hk * (is_v ? p.sxvh : p.sxkh);
+  const long long sp = is_v ? p.svb : p.skb, sr = is_v ? p.svl : p.skl;
+  const long long ssp = is_v ? p.svsp : p.sksp, sxs = is_v ? p.sxvs : p.sxks;
+  for (long long lp = lo; lp < hi; ++lp) {
+    const long long page = __ldg(p.bt + b * p.sbt + lp);
+    if (page == 0) continue;  // the null page: nothing reads it
+    int8_t* codes = pool + page * sp;
+    bf16* scale = scales + page * ssp;
+    const long long t0 = (lp << shift) - c0;  // x's token at the page's row 0
+    const float sc = __bfloat162float(*scale);
+    // steps 1-4: the page's values, x's rows in place of the old ones; amax
+    float amax = 0.f;
+    for (int i = t; i < ps * WROW_VECS; i += WTHREADS) {
+      uint4 o[2];
+      window_chunk(codes, sr, x, sxs, t0, p.s, sc, i, o);
+      const bf16* v = reinterpret_cast<const bf16*>(o);
+#pragma unroll
+      for (int e = 0; e < WVEC; ++e) amax = fmaxf(amax, fabsf(__bfloat162float(v[e])));
+    }
+#pragma unroll
+    for (int m = 16; m; m >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, m));
+    if (lane == 0) red[tid >> 5] = amax;
+    __syncthreads();  // the warps' maxima; every read of the old scale is done
+    constexpr int LEAF_WARPS = WTHREADS / 32;
+#pragma unroll
+    for (int w = 0; w < LEAF_WARPS; ++w) amax = fmaxf(amax, red[(is_v ? LEAF_WARPS : 0) + w]);
+    // steps 5-7
+    const bf16 s_new = __float2bfloat16_rn(__fdiv_rn(fmaxf(amax, 1e-12f), KV_QMAX));
+    const float sf = __bfloat162float(s_new);
+    for (int i = t; i < ps * WROW_VECS; i += WTHREADS) {
+      uint4 o[2];
+      window_chunk(codes, sr, x, sxs, t0, p.s, sc, i, o);
+      const bf16* v = reinterpret_cast<const bf16*>(o);
+      uint4 out;
+      int8_t* q = reinterpret_cast<int8_t*>(&out);
+#pragma unroll
+      for (int e = 0; e < WVEC; ++e)
+        q[e] = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(__bfloat162float(v[e]), sf)), -KV_QMAX), KV_QMAX);
+      const int r = i / WROW_VECS, c = (i % WROW_VECS) * WVEC;
+      *reinterpret_cast<uint4*>(codes + r * sr + c) = out;
+    }
+    if (t == 0) *scale = s_new;
+    __syncthreads();  // the page's codes and scales written; `red` free again
+  }
+}
+
+// One range `split` of one (slot b, kv-head hk): a block of K4, K5 and K5q;
+// with WRITE, K5q's block that first writes its share of the write window.
+template <int RMAX, class Cols, bool WRITE = false>
 __device__ __forceinline__ void decode_range(const Params& p, unsigned char* dsm, int b, int hk,
                                              int split) {
   constexpr int MT = Smem<RMAX>::MT;
@@ -719,6 +858,9 @@ __device__ __forceinline__ void decode_range(const Params& p, unsigned char* dsm
   const int col = c_begin + tid;
   const bool valid = p.kv_valid == nullptr || (col < p.L && p.kv_valid[b * p.validb + col] != 0);
   const int bound = live_bound(p);
+  // the write comes before both early exits: a window page past the bound
+  // is written too (sm.wmax is free until the tile loop)
+  if constexpr (WRITE) write_window(p, __ldg(p.w0), sm.wmax, b, hk, c_begin);
   if (c_begin >= bound) return;  // past every row's position: nothing to read or write
 
   // the rows' positions, and which columns and tiles of the range are live
@@ -1170,8 +1312,15 @@ __global__ void __launch_bounds__(NTHREADS, 2) qpaged_flash_decode_kernel(Params
   decode_range<RMAX, QPagedCols>(p, dsm, blockIdx.y, blockIdx.x, blockIdx.z);
 }
 
+template <int RMAX>
+__global__ void __launch_bounds__(NTHREADS, 2) qpaged_flash_decode_kernel_write(Params p) {
+  extern __shared__ __align__(128) unsigned char dsm[];
+  decode_range<RMAX, QPagedCols, true>(p, dsm, blockIdx.y, blockIdx.x, blockIdx.z);
+}
+
 // The merges of K4, K5 and K5q are one function under three names, so a
-// profile files each under its own kernel's family.
+// profile files each under its own kernel's family (K5q with the write
+// launches K5q's).
 __global__ void __launch_bounds__(D) flash_decode_kernel_merge(Params p) { merge_row(p); }
 __global__ void __launch_bounds__(D) paged_flash_decode_kernel_merge(Params p) { merge_row(p); }
 __global__ void __launch_bounds__(D) qpaged_flash_decode_kernel_merge(Params p) { merge_row(p); }
@@ -1202,19 +1351,21 @@ RowsKernel rows_kernel_of(bool paged) {
 
 template <int RMAX>
 void (*kernel_of(int kind))(Params) {
-  return kind == QPAGED ? &qpaged_flash_decode_kernel<RMAX>
+  return kind == QPAGED_WRITE ? &qpaged_flash_decode_kernel_write<RMAX>
+         : kind == QPAGED ? &qpaged_flash_decode_kernel<RMAX>
          : kind == PAGED ? &paged_flash_decode_kernel<RMAX> : &flash_decode_kernel<RMAX>;
 }
 
 void (*merge_of(int kind))(Params) {
-  return kind == QPAGED ? &qpaged_flash_decode_kernel_merge
+  return kind >= QPAGED ? &qpaged_flash_decode_kernel_merge
          : kind == PAGED ? &paged_flash_decode_kernel_merge : &flash_decode_kernel_merge;
 }
 
-// Dynamic shared memory of a block of K4/K5 (kind 0, 1) or K5q (2).
+// Dynamic shared memory of a block of K4/K5 (kind 0, 1) or K5q (2; with
+// the write, 3).
 template <int RMAX>
 size_t smem_of(int kind) {
-  return kind == QPAGED ? Smem<RMAX>::bytes(QSTAGE_BYTES, true) : Smem<RMAX>::bytes();
+  return kind >= QPAGED ? Smem<RMAX>::bytes(QSTAGE_BYTES, true) : Smem<RMAX>::bytes();
 }
 
 // Let the kernel take its shared memory, and the SM give shared memory all
@@ -1268,7 +1419,7 @@ int dispatch(Params p, int kind, void* stream) {
   if (R <= 8) return launch<8>(p, kind, st);
   if (R <= 16) return launch<16>(p, kind, st);
   if (R <= 32) return launch<32>(p, kind, st);
-  if (p.H / p.Hkv > RMAX_ALL || kind == QPAGED) return (int)cudaErrorInvalidValue;
+  if (p.H / p.Hkv > RMAX_ALL || kind >= QPAGED) return (int)cudaErrorInvalidValue;
   return launch_rows(p, kind == PAGED, st);
 }
 
@@ -1385,13 +1536,52 @@ extern "C" int nxd_qpaged_flash_decode_fwd(
   return dispatch(p, QPAGED, stream);
 }
 
-// Resources of K4 (kind 0), K5 (1) or K5q (2) at R <= rmax (4, 8, 16 or 32;
-// 0: the multi-row kernel, R > 32, K4's and K5's alone), at L = 8192, into
-// out[4].
+// K5q with the write: first the s new rows xk/xv (B, s, Hkv, D) bf16, with
+// strides (sxkb, sxks, sxkh) and (sxvb, sxvs, sxvh), land at logical columns
+// *w0 + t of each slot (w0 one int64 on the device) and every page of the
+// write window is re-quantized (QW's function; the pools and scales are
+// written), then the pools are attended; otherwise as K5q. R = group * s
+// must be at most 32.
+extern "C" int nxd_qpaged_write_attend_fwd(
+    const void* q, void* k, void* v, void* ks, void* vs, void* o,
+    void* lse, const void* q_pos, const void* kv_valid, const void* bt, void* work_o,
+    void* work_lse, const void* xk, const void* xv, const void* w0,
+    int B, int s, int H, int Hkv, int n_log, int ps_shift, int n_pages,
+    long long sqb, long long sqs, long long sqh,
+    long long skp, long long skr, long long skh,
+    long long svp, long long svr, long long svh,
+    long long sksp, long long sksh, long long svsp, long long svsh,
+    long long sob, long long sos, long long soh,
+    long long validb, long long sbt,
+    long long sxkb, long long sxks, long long sxkh,
+    long long sxvb, long long sxvs, long long sxvh, float scale, void* stream) {
+  Params p = common(q, k, v, o, lse, q_pos, kv_valid, work_o, work_lse, B, s, H, Hkv,
+                    n_log << ps_shift, sqb, sqs, sqh, sob, sos, soh, validb, scale);
+  p.bt = static_cast<const int*>(bt);
+  p.sbt = sbt;
+  p.ps_shift = ps_shift;
+  p.n_pages = n_pages;
+  p.skb = skp; p.skl = skr; p.skh = skh;
+  p.svb = svp; p.svl = svr; p.svh = svh;
+  p.ks = static_cast<const bf16*>(ks);
+  p.vs = static_cast<const bf16*>(vs);
+  p.sksp = sksp; p.sksh = sksh; p.svsp = svsp; p.svsh = svsh;
+  p.xk = static_cast<const bf16*>(xk);
+  p.xv = static_cast<const bf16*>(xv);
+  p.w0 = static_cast<const long long*>(w0);
+  p.sxkb = sxkb; p.sxks = sxks; p.sxkh = sxkh;
+  p.sxvb = sxvb; p.sxvs = sxvs; p.sxvh = sxvh;
+  return dispatch(p, QPAGED_WRITE, stream);
+}
+
+// Resources of K4 (kind 0), K5 (1), K5q (2) or K5q with the write (3) at R
+// <= rmax (4, 8, 16 or 32; 0: the multi-row kernel, R > 32, K4's and K5's
+// alone), at L = 8192, into out[4].
 extern "C" int nxd_flash_decode_resources(int paged, int rmax, int* out) {
+  if (paged < ROW || paged > QPAGED_WRITE) return (int)cudaErrorInvalidValue;
   switch (rmax) {
     case 0:
-      if (paged == QPAGED) return (int)cudaErrorInvalidValue;
+      if (paged >= QPAGED) return (int)cudaErrorInvalidValue;
       return resources(rows_kernel_of(paged == PAGED), rows_smem(8192), RTHREADS, out);
     case 4: return resources(kernel_of<4>(paged), smem_of<4>(paged), NTHREADS, out);
     case 8: return resources(kernel_of<8>(paged), smem_of<8>(paged), NTHREADS, out);

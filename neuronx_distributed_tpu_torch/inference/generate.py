@@ -132,15 +132,19 @@ def masked_step(run, caches, state, step: torch.Tensor, cols: int = 1):
     masked iteration changes no slot state; its K/V and validity writes land
     in the ``cols`` columns at each cache's cursor, which hold no valid
     entry (columns at and past a cursor never do), and its emission row is
-    zero; its other rows are rewritten by the iteration that follows. Every
+    zero; its other rows are rewritten by the iteration that follows. An
+    int8 pool's write also re-quantizes the valid rows of its window's
+    pages: those pages are put back (``KVCache.window_keeper``). Every
     device cursor of ``caches`` moves back ``cols`` columns, the step index
     one. Returns a callable of no arguments."""
     def warmup() -> None:
+        keep = [cache.window_keeper(cols) for cache in caches]
         active = state["active"].clone()
         state["active"].zero_()
         run()
         state["active"].copy_(active)
-        for cache in caches:
+        for cache, restore in zip(caches, keep):
+            restore()
             cache.cursor.sub_(cols)
         step.sub_(1)
 

@@ -53,6 +53,7 @@ def kernel_wrappers() -> Dict[str, Callable]:
         flash_decode_fwd,
         paged_flash_decode_fwd,
         qpaged_flash_decode_fwd,
+        qpaged_write_attend_fwd,
     )
     from neuronx_distributed_tpu_torch.kernels.kv_quant import window_requantize_fwd
     from neuronx_distributed_tpu_torch.kernels.moe_experts import (
@@ -65,7 +66,8 @@ def kernel_wrappers() -> Dict[str, Callable]:
     return {"flash_attention": flash_attention_fwd, "flash_attention_dkdv": flash_attention_dkdv,
             "flash_attention_dq": flash_attention_dq, "flash_decode": flash_decode_fwd,
             "paged_flash_decode": paged_flash_decode_fwd,
-            "qpaged_flash_decode": qpaged_flash_decode_fwd, "dequantize": dequantize_fwd,
+            "qpaged_flash_decode": qpaged_flash_decode_fwd,
+            "qpaged_write_attend": qpaged_write_attend_fwd, "dequantize": dequantize_fwd,
             "window_requantize": window_requantize_fwd,
             "page_fingerprint": pool_pages_fingerprint_fwd,
             "tree_fingerprint": tree_fingerprint_fwd, "moe_experts": moe_experts,

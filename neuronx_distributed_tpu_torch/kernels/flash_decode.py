@@ -34,7 +34,11 @@ the products read it. It computes JAX's gather-dequantize
 (:func:`paged_gather_leaf_dequant`)
 and K4, which the JAX engine runs for a quantized pool. Its plain version
 is :func:`paged_flash_decode_plain_q`, and K5q through a table equals K4 on
-the dequantized gathered view bit for bit.
+the dequantized gathered view bit for bit. A decode step over such a pool
+writes, then attends: :func:`qpaged_write_attend_fwd` launches K5q with the
+write folded in (each range's block re-quantizes its share of the write
+window, QW's function, before it attends), one launch a layer where QW and
+K5q took two; its plain version is :func:`qpaged_write_attend_plain`.
 """
 
 from __future__ import annotations
@@ -139,12 +143,14 @@ def _decode_lib() -> SimpleNamespace:
     lib = _build.load("flash_decode")
     i, ll, vp = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     k4, k5 = lib.nxd_flash_decode_fwd, lib.nxd_paged_flash_decode_fwd
-    k5q = lib.nxd_qpaged_flash_decode_fwd
-    k4.restype = k5.restype = k5q.restype = i
+    k5q, k5qw = lib.nxd_qpaged_flash_decode_fwd, lib.nxd_qpaged_write_attend_fwd
+    k4.restype = k5.restype = k5q.restype = k5qw.restype = i
     k4.argtypes = [vp] * 9 + [i] * 5 + [ll] * 13 + [ctypes.c_float, vp]
     k5.argtypes = [vp] * 10 + [i] * 7 + [ll] * 14 + [ctypes.c_float, vp]
     k5q.argtypes = [vp] * 12 + [i] * 7 + [ll] * 18 + [ctypes.c_float, vp]
-    return SimpleNamespace(k4=k4, k5=k5, k5q=k5q, head_dim=lib.nxd_flash_decode_head_dim(),
+    k5qw.argtypes = [vp] * 15 + [i] * 7 + [ll] * 24 + [ctypes.c_float, vp]
+    return SimpleNamespace(k4=k4, k5=k5, k5q=k5q, k5qw=k5qw,
+                           head_dim=lib.nxd_flash_decode_head_dim(),
                            max_rows=lib.nxd_flash_decode_max_rows(),
                            split_cols=lib.nxd_flash_decode_split_cols(),
                            row_tile=lib.nxd_flash_decode_row_tile(),
@@ -499,7 +505,9 @@ def paged_flash_decode_plain_q(q, k_pool, v_pool, k_scale, v_scale, block_table,
 
 
 def _qpaged_kernel_call(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos, kv_valid,
-                        page_size):
+                        page_size, write=None):
+    """K5q's launch; with ``write`` = (k_new, v_new, w0), K5q with the write
+    (``csrc/flash_decode.cu nxd_qpaged_write_attend_fwd``)."""
     from neuronx_distributed_tpu_torch.kernels import _build
 
     b, s, h, d = q.shape
@@ -519,20 +527,34 @@ def _qpaged_kernel_call(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos,
                                        kv_dtype=torch.int8)
     if r > lib.max_rows:
         raise ValueError(f"K5q takes at most {lib.max_rows} rows per kv-head (group x s), got {r}")
+    rows, row_strides = (), ()
+    if write is not None:
+        k_new, v_new, w0 = write
+        for name, t in (("k_new", k_new), ("v_new", v_new)):
+            if t.dtype != torch.bfloat16 or t.device != q.device or tuple(t.shape) != (b, s, hkv, d):
+                raise TypeError(f"K5q with the write takes {name} as bf16 {(b, s, hkv, d)} on q's "
+                                f"device, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            if (t.stride(-1) != 1 or t.data_ptr() % 16
+                    or any(st * t.element_size() % 16 for st in t.stride()[:-1])):
+                raise ValueError(f"{name} must have a unit-stride, 16-byte aligned head dim")
+        if w0.dtype != torch.int64 or w0.device != q.device or w0.numel() != 1:
+            raise ValueError("w0 must be one int64 on q's device")
+        rows = (k_new.data_ptr(), v_new.data_ptr(), w0.data_ptr())
+        row_strides = (*k_new.stride()[:3], *v_new.stride()[:3])
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse, work_o, work_lse = _workspace(lib, b, hkv, r, L, q.device)
-    err = lib.k5q(
+    err = (lib.k5qw if write is not None else lib.k5q)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), k_scale.data_ptr(),
         v_scale.data_ptr(), out.data_ptr(), lse.data_ptr(), q_pos.data_ptr(),
         kv_valid.data_ptr() if kv_valid is not None else None, block_table.data_ptr(),
-        work_o, work_lse,
+        work_o, work_lse, *rows,
         b, s, h, hkv, n_log, page_size.bit_length() - 1, k_pool.shape[0],
         *q.stride()[:3], *k_pool.stride()[:3], *v_pool.stride()[:3],
         k_scale.stride(0), k_scale.stride(2), v_scale.stride(0), v_scale.stride(2),
         *out.stride()[:3], kv_valid.stride(0) if kv_valid is not None else 0,
-        block_table.stride(0), 1.0 / math.sqrt(d), _build.stream_ptr(q.device),
+        block_table.stride(0), *row_strides, 1.0 / math.sqrt(d), _build.stream_ptr(q.device),
     )
-    _build.check(err, "qpaged_flash_decode_fwd")
+    _build.check(err, "qpaged_write_attend_fwd" if write is not None else "qpaged_flash_decode_fwd")
     return out, lse
 
 
@@ -550,8 +572,9 @@ def qpaged_flash_decode_fwd(q, k_pool, v_pool, k_scale, v_scale, block_table, q_
     the compute dtype; otherwise as :func:`paged_flash_decode_fwd`. CUDA
     tensors launch K5q (bf16 q and scales, head_dim 128, at most 32 rows
     per kv-head) or raise; CPU tensors run :func:`paged_flash_decode_plain_q`.
-    ``launches`` counts the calls that launched K5q (its range grid and its
-    merge)."""
+    ``launches`` counts the calls that launched K5q's range grid and its
+    merge: this wrapper's and :func:`qpaged_write_attend_fwd`'s, whose range
+    kernel is K5q's with the write in front."""
     if q.device.type == "cpu":
         return paged_flash_decode_plain_q(q, k_pool, v_pool, k_scale, v_scale, block_table,
                                           q_pos, kv_valid, page_size)
@@ -562,3 +585,63 @@ def qpaged_flash_decode_fwd(q, k_pool, v_pool, k_scale, v_scale, block_table, q_
 
 
 qpaged_flash_decode_fwd.launches = 0
+
+
+# --- the int8 pool's decode step: the write folded into K5q --------------------
+
+
+def qpaged_write_attend_plain(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, block_table,
+                              q_pos, kv_valid, w0, page_size: int = 16
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5q with the write in plain PyTorch: the write window of the new rows
+    (``kernels/kv_quant.py write_window`` from the table and ``w0``, the
+    logical column of their first token) re-quantized in place
+    (``window_requantize_plain``), then :func:`paged_flash_decode_plain_q`
+    over the pools as they now stand."""
+    from neuronx_distributed_tpu_torch.kernels.kv_quant import write_window, window_requantize_plain
+
+    pages, first = write_window(block_table, w0, k_new.shape[1], page_size)
+    window_requantize_plain(k_pool, v_pool, k_scale, v_scale, pages, first, k_new, v_new)
+    return paged_flash_decode_plain_q(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos,
+                                      kv_valid, page_size)
+
+
+def _qwa_cost(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, block_table, q_pos, kv_valid,
+              w0, page_size: int = 16):
+    """K5q's count plus QW's for its window, each once (the formulas of
+    :func:`_k5q_cost` and ``kv_quant._qw_cost``)."""
+    from neuronx_distributed_tpu_torch.kernels.kv_quant import qw_bytes, window_pages
+
+    flops, nbytes = _k5q_cost(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos, kv_valid,
+                              page_size)
+    n_win = window_pages(k_new.shape[1], page_size)
+    return flops, nbytes + qw_bytes(k_pool, k_scale, k_new, v_new, q.shape[0] * n_win)
+
+
+@metered("qpaged_write_attend", _qwa_cost)
+def qpaged_write_attend_fwd(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale, block_table,
+                            q_pos, kv_valid, w0, page_size: int = 16
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A decode step over int8 pools: the new rows ``k_new``/``v_new`` (B,
+    s, Hkv, D) written at logical columns ``w0 + t`` of every slot (``w0``
+    one int64 tensor: the write cursor), every page of the write window
+    re-quantized as :func:`~neuronx_distributed_tpu_torch.kernels.kv_quant.
+    window_requantize_fwd` does (in place), then ``(out, lse)`` of
+    :func:`qpaged_flash_decode_fwd` over the pools as they now stand. CUDA
+    tensors launch K5q with the write (one range grid that writes, then
+    attends, and K5q's merge: QW then K5q bit for bit on every page but the
+    null page, which this route does not write; at most 32 rows per
+    kv-head) or raise; CPU tensors run :func:`qpaged_write_attend_plain`.
+    ``launches`` counts the calls that launched it; each also counts in
+    :func:`qpaged_flash_decode_fwd`'s ``launches``."""
+    if q.device.type == "cpu":
+        return qpaged_write_attend_plain(q, k_new, v_new, k_pool, v_pool, k_scale, v_scale,
+                                         block_table, q_pos, kv_valid, w0, page_size)
+    out = _qpaged_kernel_call(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos, kv_valid,
+                              page_size, write=(k_new, v_new, w0))
+    qpaged_write_attend_fwd.launches += 1
+    qpaged_flash_decode_fwd.launches += 1
+    return out
+
+
+qpaged_write_attend_fwd.launches = 0

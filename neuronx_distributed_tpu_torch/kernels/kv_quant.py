@@ -15,13 +15,16 @@ tensors (one launch for K and V of a layer) and runs
 :func:`window_requantize_plain` for CPU tensors: the arithmetic of JAX's
 window re-quantization, and of QW bit for bit on every page but the null
 page 0, which rows whose window runs past their table share and write in
-any order.
+any order. On the serving path QW writes the prefills; a decode step's
+write is folded into its attention (``kernels/flash_decode.py
+qpaged_write_attend_fwd``), which takes the window of :func:`write_window`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -31,6 +34,28 @@ from neuronx_distributed_tpu_torch.kernels.flash_decode import (
     paged_read_pages_leaf_dequant,
     quantize_page_block,
 )
+
+
+def window_pages(s: int, page_size: int) -> int:
+    """Logical pages of the write window of ``s`` consecutive columns: one
+    for one column; else, wherever they start, ``(s - 1) // page_size + 2``
+    (the device knows the first column, the host does not)."""
+    return 1 if s == 1 else (s - 1) // page_size + 2
+
+
+def write_window(block_table: torch.Tensor, c0: torch.Tensor, s: int, page_size: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The write window of ``s`` consecutive logical columns from ``c0`` (a
+    one-element int64 device tensor) of every row of ``block_table`` (B,
+    n_log): ``(pages (B, n_win) int64, w0 (1,))``, the pool pages of the
+    window's logical pages (past the table's end: the null page 0) and the
+    first column's place in the window. Device ops only, no host read: a
+    captured step replays it at every cursor."""
+    n_log = block_table.shape[1]
+    first = c0.reshape(1) // page_size
+    lp = first + torch.arange(window_pages(s, page_size), device=block_table.device)
+    pages = block_table[:, lp.clamp(max=n_log - 1)].long()
+    return torch.where(lp < n_log, pages, 0), c0.reshape(1) - first * page_size
 
 
 def window_requantize_plain(k_pool, v_pool, k_scale, v_scale, pages, w0, k, v) -> None:
@@ -101,11 +126,16 @@ def _kernel_call(k_pool, v_pool, k_scale, v_scale, pages, w0, k, v) -> None:
     _build.check(err, "window_requantize_fwd")
 
 
-def _qw_cost(k_pool, v_pool, k_scale, v_scale, pages, w0, k, v):
-    """QW's count for the program ledger, on shapes: the new rows read, each
-    window page's codes and scale read and written, K and V."""
+def qw_bytes(k_pool, k_scale, k, v, n_pages: int) -> int:
+    """QW's bytes on shapes: the new rows read, each of ``n_pages`` window
+    pages' codes and scale read and written, K and V."""
     page = k_pool[0].numel() * k_pool.element_size() + k_scale[0].numel() * k_scale.element_size()
-    return 0.0, (k.numel() + v.numel()) * k.element_size() + 2 * 2 * pages.numel() * page
+    return (k.numel() + v.numel()) * k.element_size() + 2 * 2 * n_pages * page
+
+
+def _qw_cost(k_pool, v_pool, k_scale, v_scale, pages, w0, k, v):
+    """QW's count for the program ledger, on shapes (:func:`qw_bytes`)."""
+    return 0.0, qw_bytes(k_pool, k_scale, k, v, pages.numel())
 
 
 @metered("window_requantize", _qw_cost)

@@ -182,8 +182,7 @@ class LlamaAttention(nn.Module):
         q = apply_rope(q, freqs, positions)
         k = apply_rope(k, freqs, positions)
         if mode == "decode":
-            cache.decode_write(layer, k, v)
-            out = cache.attend(layer, q, q_pos, attn_mask)
+            out = cache.write_attend(layer, q, k, v, q_pos, attn_mask)
         else:
             if mode == "prefill":
                 cache.prefill_write(layer, k, v)

@@ -17,7 +17,7 @@ replay. The model's attention layer calls the cache's own
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -27,8 +27,9 @@ from neuronx_distributed_tpu_torch.kernels.flash_decode import (
     paged_flash_decode_attention,
     paged_gather_leaf,
     paged_read_pages_leaf_dequant,
+    qpaged_write_attend_fwd,
 )
-from neuronx_distributed_tpu_torch.kernels.kv_quant import window_requantize_fwd
+from neuronx_distributed_tpu_torch.kernels.kv_quant import window_requantize_fwd, write_window
 
 NEG_INF = -1e30
 
@@ -256,6 +257,13 @@ class KVCache:
         decode forward)."""
         self.cursor.add_(s)
 
+    def window_keeper(self, s: int) -> Callable[[], None]:
+        """A callable that puts back what a write of ``s`` columns at the
+        cursor changes outside those columns, saved now: nothing here (a
+        row cache writes only its columns). A masked warm-up calls it after
+        its write."""
+        return lambda: None
+
     def attend(self, layer: int, q: torch.Tensor, q_pos: torch.Tensor,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Decode attention of q (B, s, H, D) at cache columns ``q_pos``
@@ -263,6 +271,13 @@ class KVCache:
         (s, L) the masked torch-op path (:func:`decode_attention`)."""
         return decode_attention(q, self.k[layer], self.v[layer], q_pos, kv_valid=self.valid,
                                 mask=mask)
+
+    def write_attend(self, layer: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_pos: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """A decode layer's cache work: write its K/V (:meth:`decode_write`),
+        then attend (:meth:`attend`)."""
+        self.decode_write(layer, k, v)
+        return self.attend(layer, q, q_pos, mask)
 
 
 class PagedKVCache(KVCache):
@@ -295,15 +310,17 @@ class PagedKVCache(KVCache):
     compute dtype, one scale a (page, kv-head). A write re-quantizes every
     page it touches, by JAX's ``scatter_cache_window`` rule
     (``modules/attention.py:544-593``): the page dequantized, the new rows
-    put in, the page quantized again (``quantize_page_block``; one QW launch
-    a layer on the card, :func:`window_requantize_fwd`); pages outside the
-    write keep their bits. JAX re-quantizes a decode chunk's
+    put in, the page quantized again (``quantize_page_block``; a prefill's
+    write is one QW launch a layer on the card, :func:`window_requantize_fwd`,
+    a decode step's is folded into its attention); pages outside the write
+    keep their bits. JAX re-quantizes a decode chunk's
     window once, at the chunk's end, and attends the chunk's own tokens in
     float; here each step's write quantizes, since K5q reads the pool, so
     the stream does not depend on the chunk size. The page manager zeroes a
     page when it maps it (:meth:`clear_pages`), so a page's scale sees the
     rows JAX's page would hold and no earlier request's. Decode attends the
-    pool through K5q."""
+    pool through K5q, and a decode layer writes and attends in one call
+    (:meth:`write_attend`: K5q with the write folded in on the card)."""
 
     def __init__(self, k: torch.Tensor, v: torch.Tensor, valid: torch.Tensor,
                  block_table: torch.Tensor, page_size: int, index: int = 0, col0: int = 0,
@@ -314,7 +331,10 @@ class PagedKVCache(KVCache):
         self.row_valid = valid if row_valid is None else row_valid
         self.k_scale, self.v_scale = k_scale, v_scale
         self._dst = None  # (pages, rows) of this step's writes, set once per forward
-        self._win = None  # an int8 pool's write window: (pages, first column), set with _dst
+        # an int8 pool's write: the first column (logical, a (1,) device
+        # tensor) and the column count, set with _dst; the window's pages
+        # are made from them when a write first asks (:attr:`_win`)
+        self._c0, self._n_cols, self._window = None, 0, None
 
     @property
     def quantized(self) -> bool:
@@ -362,23 +382,29 @@ class PagedKVCache(KVCache):
 
     def _address(self, cols: torch.Tensor) -> None:
         """Physical (page, row) of this object's columns ``cols`` (a device
-        tensor) in every row, for the writes of the forward about to run.
-        An int8 pool also gets its write window: the physical pages of the
-        logical pages the columns can touch (one for a single column; else,
-        wherever they start, ``(s - 1) // page_size + 2``; past the table's
-        end: the null page) and the first column's place in it (the columns
-        are consecutive). Device tensors only, from the table and the
-        cursor: a captured step replays it."""
+        tensor) in every row, for the writes of the forward about to run;
+        an int8 pool keeps the first column (logical) and the count for its
+        write window (:attr:`_win`; the columns are consecutive). Device
+        tensors only, from the table and the cursor: a captured step
+        replays it."""
         cols = cols + self.col0
         ps = self.page_size
         self._dst = (self.block_table[:, cols // ps].long(), cols % ps)
         if self.quantized:
-            n_log = self.block_table.shape[1]
-            n_win = 1 if cols.numel() == 1 else (cols.numel() - 1) // ps + 2
-            first = cols[:1] // ps
-            lp = first + torch.arange(n_win, device=cols.device)
-            pages = self.block_table[:, lp.clamp(max=n_log - 1)].long()
-            self._win = (torch.where(lp < n_log, pages, 0), cols[:1] - first * ps)
+            self._c0, self._n_cols, self._window = cols[:1], cols.numel(), None
+
+    @property
+    def _win(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """An int8 pool's write window of the addressed columns, QW's input
+        (``kernels/kv_quant.py write_window``: the physical pages of the
+        logical pages the columns can touch, past the table's end the null
+        page, and the first column's place in them), made once a forward.
+        The fused decode route (:meth:`write_attend`) reads the table in
+        the kernel and never asks."""
+        if self._window is None:
+            self._window = write_window(self.block_table, self._c0, self._n_cols,
+                                        self.page_size)
+        return self._window
 
     def prefill_valid(self, padding_mask: Optional[torch.Tensor], s: int) -> None:
         super().prefill_valid(padding_mask, s)
@@ -407,6 +433,25 @@ class PagedKVCache(KVCache):
 
     prefill_write = decode_write
 
+    def window_keeper(self, s: int) -> Callable[[], None]:
+        """On an int8 pool a write of ``s`` columns at the cursor
+        re-quantizes its window's pages, valid rows included: their codes
+        and scales (every layer; device ops, no host read) are saved now
+        and the callable writes them back. Other pools as
+        :meth:`KVCache.window_keeper`."""
+        if not self.quantized:
+            return super().window_keeper(s)
+        ids = write_window(self.block_table, self.cursor.reshape(1) + self.col0, s,
+                           self.page_size)[0].reshape(-1)
+        leaves = (self.k, self.v, self.k_scale, self.v_scale)
+        saved = [t[:, ids] for t in leaves]
+
+        def restore() -> None:
+            for t, x in zip(leaves, saved):
+                t[:, ids] = x
+
+        return restore
+
     def clear_pages(self, ids) -> None:
         """Zero pages ``ids`` of an int8 pool, codes and scales, in every
         layer (the page manager maps them next)."""
@@ -430,6 +475,20 @@ class PagedKVCache(KVCache):
                   if self.quantized else {})
         return paged_flash_decode_attention(q, self.k[layer], self.v[layer], self.block_table,
                                             q_pos, self.row_valid, self.page_size, **scales)
+
+    def write_attend(self, layer: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_pos: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """:meth:`decode_write` then :meth:`attend`; on an int8 pool in one
+        call, :func:`qpaged_write_attend_fwd` (K5q with the write folded in
+        on the card: one launch a layer, no QW), which reads the window's
+        pages from the table and the first column."""
+        if not self.quantized or mask is not None:
+            return super().write_attend(layer, q, k, v, q_pos, mask)
+        if self.col0:
+            q_pos = q_pos + self.col0
+        return qpaged_write_attend_fwd(q, k, v, self.k[layer], self.v[layer], self.k_scale[layer],
+                                       self.v_scale[layer], self.block_table, q_pos,
+                                       self.row_valid, self._c0, self.page_size)[0]
 
     def dequantized_row(self, page_ids, m: int, length: int) -> KVCache:
         """A batch-1 float row cache of ``length`` columns whose first ``m``

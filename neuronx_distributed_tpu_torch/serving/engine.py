@@ -818,7 +818,8 @@ class ServingEngine:
         KV-only quantization, else its quantized copy, which owns every
         tensor a weight swap writes (the caller's float model never
         changes). A draft stays float and must share no tensor with
-        ``model``."""
+        ``model``; beside an int8 target pool (``quantize.kv``) its pool
+        stays float too (JAX ``engine.py:514-527``)."""
         if quantize.kv is not None and kv_page_size is None:
             raise ValueError("quantize.kv needs kv_page_size= (quantized KV is page-granular "
                              "— the row layout stays float)")
@@ -826,9 +827,6 @@ class ServingEngine:
             raise ValueError("quantize= with draft_model= is not served for a draft that shares "
                              "the target's tensors (the early-exit draft), which quantization "
                              "replaces; pass draft_params= to give the draft tensors of its own")
-        if draft_model is not None and quantize.kv is not None:
-            raise ValueError("quantize.kv with draft_model= is not served yet: the speculative "
-                             "round runs on float pools")
         qcfg = quantize.weight_qconfig()
         if qcfg is None:
             return model

@@ -400,9 +400,10 @@ def test_flash_decode_kernels_do_not_spill(cuda):
 
     report = _build.resource_report("flash_decode")
     entries = [line for line in report.splitlines() if "Compiling entry function" in line]
-    # K4, K5 and K5q at R <= 4, 8, 16, 32, their merges, and the multi-row
-    # kernels of K4 and K5 (flash_decode_kernel_rows, paged_flash_decode_kernel_rows)
-    assert len(entries) == 17, report
+    # K4, K5, K5q and K5q with the write at R <= 4, 8, 16, 32, the merges of
+    # K4, K5 and K5q, and the multi-row kernels of K4 and K5
+    # (flash_decode_kernel_rows, paged_flash_decode_kernel_rows)
+    assert len(entries) == 21, report
     spills = [line for line in report.splitlines() if "spill" in line]
     assert len(spills) >= len(entries), report
     assert all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills), report
@@ -1163,6 +1164,46 @@ def test_window_requantize_kernel_equals_plain(cuda, s, col):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s,col", [(1, 37), (4, 253), (4, 318)])
+def test_qpaged_write_attend_kernel_equals_qw_then_k5q(cuda, s, col):
+    """K5q with the write (a decode step mid-page; a verify window across a
+    page and a 256-column range; row 3's window past its mapped pages, into
+    the null page) equals QW then K5q: pools and scales bit for bit on
+    every page but the null page, out and lse bit for bit; one launch
+    counted, in its own count and K5q's, none in QW's; f32 rows refused."""
+    from neuronx_distributed_tpu_torch.kernels import kv_quant as tkq
+
+    cache, view, table, k, v = _qw_case(cuda, s, col)
+    b, L = cache.valid.shape
+    leaves = (cache.k[0], cache.v[0], cache.k_scale[0], cache.v_scale[0])
+    mapped = torch.from_numpy(np.repeat(table, 16, axis=1) != 0).cuda()
+    valid = (torch.rand(b, L, generator=cuda, device="cuda") > 0.1) & mapped
+    valid[:, col + s:] = False
+    pos = torch.arange(col, col + s, dtype=torch.int32, device="cuda")
+    q = _rnd(cuda, b, s, 32, 128)
+    base = [t.clone() for t in leaves]
+    view.decode_write(0, k, v)
+    want_out, want_lse = tfd.qpaged_flash_decode_fwd(q, *leaves, cache.block_table, pos, valid, 16)
+    want = [t.clone() for t in leaves]
+    for t, x in zip(leaves, base):
+        t.copy_(x)
+    n, nq, nw = (tfd.qpaged_write_attend_fwd.launches, tfd.qpaged_flash_decode_fwd.launches,
+                 tkq.window_requantize_fwd.launches)
+    out, lse = tfd.qpaged_write_attend_fwd(q, k, v, *leaves, cache.block_table, pos, valid,
+                                           view._c0, 16)
+    torch.cuda.synchronize()
+    assert (tfd.qpaged_write_attend_fwd.launches - n, tfd.qpaged_flash_decode_fwd.launches - nq,
+            tkq.window_requantize_fwd.launches - nw) == (1, 1, 0)
+    for got, w in zip(leaves, want):
+        assert torch.equal(got[1:], w[1:])
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    with pytest.raises(TypeError):  # f32 rows
+        tfd.qpaged_write_attend_fwd(q, k.float(), v.float(), *leaves, cache.block_table, pos,
+                                    valid, view._c0, 16)
+    assert tfd.qpaged_write_attend_fwd.launches == n + 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("fp8", [False, True])
 @pytest.mark.parametrize("per_tensor", [False, True])
 def test_dequantize_kernel_equals_plain(cuda, fp8, per_tensor):
@@ -1189,10 +1230,11 @@ def test_dequantize_kernel_equals_plain(cuda, fp8, per_tensor):
 @pytest.mark.parametrize("kv", [None, "int8"])
 def test_quantized_engine_decodes_through_one_captured_graph(cuda, monkeypatch, kv):
     """A small bf16 Llama (head_dim 128) behind a quantized engine: int8
-    weights on the row engine, int8 weights and an int8 pool (K5q, QW) on
-    the paged one. One capture, replays = executed steps, one replay
-    launches the decode kernel once a layer (and QW once a layer on the
-    int8 pool) and DQ once a linear; the streams equal
+    weights on the row engine, int8 weights and an int8 pool (K5q with the
+    write) on the paged one. One capture, replays = executed steps, one
+    replay launches the decode kernel once a layer (on the int8 pool K5q
+    with the write, counted in K5q's launches too, and no QW) and DQ once a
+    linear; the streams equal
     the same engine's with the eager step patched in, and every request
     finishes (an eager preemption on the way)."""
     from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
@@ -1227,7 +1269,7 @@ def test_quantized_engine_decodes_through_one_captured_graph(cuda, monkeypatch, 
             assert engine.decode_compilations == 1 and prog.replays == snap["executed_steps"]
             want = {name: cfg.num_layers, "dequantize": 7 * cfg.num_layers + 1}
             if kv:
-                want["window_requantize"] = cfg.num_layers
+                want["qpaged_write_attend"] = cfg.num_layers
             assert prog.launches_per_replay == want
         if kv:
             engine.cache.check()

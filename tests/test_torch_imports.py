@@ -270,7 +270,7 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     k = torch.randn(1, 4, 1, 8)
     counters = (tfa.flash_attention_fwd, tfa.flash_attention_dkdv, tfa.flash_attention_dq,
                 tfd.flash_decode_fwd, tfd.paged_flash_decode_fwd, tfd.qpaged_flash_decode_fwd,
-                tdq.dequantize_fwd, tkq.window_requantize_fwd, tpf.pool_pages_fingerprint_fwd,
+                tfd.qpaged_write_attend_fwd, tdq.dequantize_fwd, tkq.window_requantize_fwd, tpf.pool_pages_fingerprint_fwd,
                 tmx.moe_experts, tmx.moe_experts_quantized)
     before = [f.launches for f in counters]
     out, lse = tfa.flash_attention_fwd(q, k, k)
@@ -289,6 +289,9 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
     tkq.window_requantize_fwd(kq, kq.clone(), ks, ks.clone(), torch.tensor([[1]]),
                               torch.tensor([0]), k[:, :1].reshape(1, 1, 1, 8),
                               k[:, 1:2].reshape(1, 1, 1, 8))
+    tfd.qpaged_write_attend_fwd(q[:, :1], k[:, :1], k[:, 1:2], kq, kq.clone(), ks, ks.clone(),
+                                torch.tensor([[1, 0]], dtype=torch.int32), torch.tensor([1]),
+                                None, torch.tensor([1]), 2)
     tpf.pool_pages_fingerprint_fwd([k[None]], torch.tensor([0]), (0,))
     x, top_e, top_w = torch.randn(2, 16), torch.tensor([[0, 1], [1, 2]]), torch.rand(2, 2)
     stacks = [torch.randn(3, 16, 16) for _ in range(3)]
@@ -308,6 +311,7 @@ def test_wrappers_take_plain_path_only_for_cpu_tensors():
         for plain in ("flash_attention_plain", "flash_attention_dkdv_plain",
                       "flash_attention_dq_plain", "flash_decode_plain",
                       "paged_flash_decode_plain", "paged_flash_decode_plain_q",
+                      "qpaged_write_attend_plain",
                       "dequantize_plain", "window_requantize_plain",
                       "pool_pages_fingerprint_plain", "moe_experts_plain"):
             assert plain not in src, (path, plain)
