@@ -331,6 +331,28 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    under 72 GiB; the checkpoint directory (build/phase7b_ckpt, its free
    space printed first) deleted at the end; TF over the train state timed
    against its bytes bound after the counted window;
+7c. Mixtral training at Mixtral-8x7B width cut to 2 layers (3,164,688,384
+   parameters; fp32 masters, gradients and AdamW's moments take 50.6 GB),
+   random weights from a seed, after phase 7b freed its model: (a) one
+   step at B = 1, S = 1024 (packed, jitter and shuffle on) through the
+   kernels against the plain path (plain attention and the all-experts
+   einsums) forced onto the routes the kernel run took, the loss and
+   every gradient within phase 6's limits; (b) six ``build_train_step``
+   steps on one packed 2 x 4096 batch (remat on, router jitter 0.01, the
+   token shuffle, the blockwise route's ``torch._grouped_mm`` products and
+   their backward), each step's jitter and permutation from the step's
+   generator: the loss finite and falling, K1 = 2 x 2 layers x steps and
+   K2 = K3 = 2 x steps, every other count 0, the step wall, tokens/s, MFU
+   by active parameters (top-2 of 8 experts) beside the program ledger's
+   metered FLOPs, peak under 72 GiB, one profiled step (device ms of the
+   grouped products, K1-K3, the dense GEMMs, AdamW and the rest, the idle
+   share) and one step's forward and backward re-run from a fresh
+   generator of the same (seed, step), equal in TF bits (the state itself
+   is too large to copy on the card); (c) ``Trainer.fit`` for 6 steps with
+   the canary every 2 steps, jitter and shuffle on, at B = 1 and an expert
+   width cut to 3584 (the canary's two state-sized snapshots beside the
+   state): no check disagrees, and the losses and the final TF equal a
+   sentinel-off run's;
 8. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -6407,9 +6429,9 @@ def integrity_phase(model, srv: dict, fused: dict, smi: str) -> dict:
 EOS_ID = 128001  # Llama-3's <|end_of_text|>
 
 
-def packed_batch(vocab: int, b: int, s: int, seed: int = 0) -> dict:
+def packed_batch(vocab: int, b: int, s: int, seed: int = 0, eos: int = EOS_ID) -> dict:
     """``b`` windows of ``s`` tokens from ``pack_documents`` over random
-    documents of 200..3000 tokens with an EOS separator: ids, labels,
+    documents of 200..3000 tokens with an ``eos`` separator: ids, labels,
     segment ids and the boundary loss mask (as ``PackedCorpus`` emits)."""
     import numpy as np
 
@@ -6420,7 +6442,7 @@ def packed_batch(vocab: int, b: int, s: int, seed: int = 0) -> dict:
     while n < b * (s + 1):
         docs.append(rng.integers(1, vocab - 1, size=int(rng.integers(200, 3001))))
         n += len(docs[-1]) + 1
-    windows, segs = pack_documents(docs, s, EOS_ID, return_segments=True)
+    windows, segs = pack_documents(docs, s, eos, return_segments=True)
     w, g = windows[:b], segs[:b]
     return {"input_ids": w[:, :-1], "labels": w[:, 1:], "segment_ids": g[:, :-1],
             "loss_mask": (g[:, :-1] == g[:, 1:]).astype(np.float32)}
@@ -6554,8 +6576,8 @@ class PackedSource:
     ``LOOP_DATA_SEED + i``), with the ``state()``/``restore()`` cursor the
     loop's exact resume reads."""
 
-    def __init__(self, vocab: int, b: int, s: int = LOOP_SEQ):
-        self.vocab, self.b, self.s, self.i = vocab, b, s, 0
+    def __init__(self, vocab: int, b: int, s: int = LOOP_SEQ, eos: int = EOS_ID):
+        self.vocab, self.b, self.s, self.eos, self.i = vocab, b, s, eos, 0
 
     def state(self) -> dict:
         return {"batch": self.i}
@@ -6565,7 +6587,8 @@ class PackedSource:
 
     def __iter__(self):
         while True:
-            batch = packed_batch(self.vocab, self.b, self.s, seed=LOOP_DATA_SEED + self.i)
+            batch = packed_batch(self.vocab, self.b, self.s, seed=LOOP_DATA_SEED + self.i,
+                                 eos=self.eos)
             self.i += 1
             yield batch
 
@@ -7705,6 +7728,368 @@ def moe_phase(smi: str) -> dict:
     return out
 
 
+
+# --- phase 7c: Mixtral training ---------------------------------------------------
+
+MIXTRAL_TRAIN_LAYERS = 2  # depth cut: 8x7B width, 2 layers (3,164,688,384 parameters, 50.6 GB of state)
+MIXTRAL_EOS = 2           # Mixtral's </s>
+MIXTRAL_TRAIN_STEPS = 6
+MIXTRAL_TRAIN_B, MIXTRAL_TRAIN_S = 2, 4096  # 7c(b)'s packed batch; (c) at B = 1
+MIXTRAL_VS_PLAIN_S = 1024                   # 7c(a)'s one window
+MIXTRAL_TRAIN_LR = 1e-3
+# the stochastic training features of 7c(b) and (c): jitter, the shuffle, the blockwise route
+MIXTRAL_STOCHASTIC = dict(router_jitter_eps=0.01, token_shuffle=True, expert_strategy="blockwise")
+# 7c(c)'s width cut: the canary holds two state-sized snapshots beside the
+# state (48 B a parameter), so the expert width is cut to a quarter
+# (1,050,759,168 parameters, 50.4 GB with the snapshots); every other width is 8x7B's
+MIXTRAL_CANARY_INTERMEDIATE = 3584
+MIXTRAL_CANARY_EVERY = 2
+
+
+def mixtral_train_config(**over):
+    from neuronx_distributed_tpu_torch.models.mixtral import mixtral_8x7b
+
+    return mixtral_8x7b(num_layers=MIXTRAL_TRAIN_LAYERS, **{**MIXTRAL_STOCHASTIC, **over})
+
+
+def mixtral_loss_fn(model, deterministic: bool = False):
+    """The MoE objective a Mixtral trains on (``model.loss``: cross entropy
+    plus the weighted router losses), drawing its jitter and permutation
+    from the step's generator."""
+    def loss_fn(batch, generator):
+        return model.loss(batch["input_ids"], batch["labels"],
+                          segment_ids=batch.get("segment_ids"), loss_mask=batch.get("loss_mask"),
+                          deterministic=deterministic, generator=generator)
+    return loss_fn
+
+
+def active_params(model) -> tuple:
+    """``(matmul parameters a token runs through, all parameters)``: the
+    weights of the products (not the embedding's lookup, not the norms),
+    each expert stack counted at top_k / num_experts of its size (a token
+    visits k of the E experts)."""
+    cfg = model.config
+    total = sum(p.numel() for p in model.parameters())
+    experts = sum(p.numel() for n, p in model.named_parameters() if ".moe.experts." in n)
+    dense = sum(p.numel() for n, p in model.named_parameters()
+                if p.dim() >= 2 and ".moe.experts." not in n) - model.model.embed.weight.numel()
+    return dense + experts * cfg.top_k / cfg.num_experts, total
+
+
+def mixtral_train_vs_plain(model) -> dict:
+    """7c(a): one step's loss and every gradient at B = 1, S = 1024
+    (packed, jitter and shuffle on, remat off) through the kernels (K1-K3,
+    the blockwise grouped products) and through the plain path (plain
+    attention and the all-experts einsums), the plain run forced onto the
+    routes the kernel run's routers took (drawn from one step generator,
+    so the jitter and the permutation are the same)."""
+    import dataclasses
+
+    from neuronx_distributed_tpu_torch.parallel.grads import global_grad_norm
+    from neuronx_distributed_tpu_torch.trainer.trainer import _to_device, step_generator
+
+    cfg = model.config
+    model.model.config = dataclasses.replace(cfg, remat=False)
+    batch = _to_device(packed_batch(cfg.vocab_size, 1, MIXTRAL_VS_PLAIN_S, seed=1,
+                                    eos=MIXTRAL_EOS), model.device)
+    loss_fn = mixtral_loss_fn(model)
+    experts = [layer.moe.experts for layer in model.model.layers]
+    params = [p for p in model.parameters() if p.requires_grad]
+    rec = RouteRecorder(model)
+    runs = []
+    try:
+        for plain in (False, True):
+            gen = step_generator(1, 0, model.device)
+            if plain:
+                for e in experts:
+                    e.strategy = "all_experts"
+                with plain_attention(), forced_routes(model, forced) as flips:
+                    loss = loss_fn(batch, gen)
+                    loss.backward()
+                n_flips = flips[0]
+            else:
+                loss = loss_fn(batch, gen)
+                forced = rec.take()[0]  # (T, L, k): the kernel run's routes
+                rec.close()
+                loss.backward()
+                n_flips = 0
+            runs.append((float(loss.detach()), float(global_grad_norm([p.grad for p in params])),
+                         {n: p.grad for n, p in model.named_parameters()}, n_flips))
+            for p in params:
+                p.grad = None
+    finally:
+        rec.close()
+        for e in experts:
+            e.strategy = cfg.expert_strategy
+        model.model.config = cfg
+    (lk, nk, gk, _), (lp, np_, gp, flips) = runs
+    rel = {n: float((gk[n] - gp[n]).float().norm() / gp[n].float().norm().clamp_min(1e-30))
+           for n in gk}
+    worst = max(rel, key=rel.get)
+    out = dict(loss=lk, loss_rel=abs(lk - lp) / abs(lp), gnorm_rel=abs(nk - np_) / np_,
+               grad_rel=rel[worst], grad_worst=worst, flips=flips, leaves=len(rel),
+               tokens=int(forced.shape[0]))
+    del runs, gk, gp
+    torch.cuda.empty_cache()
+    # phase 6's limits: bf16 products, K1-K3 round P and dS to bf16, the
+    # grouped products and the einsums sum in other orders
+    if not (out["loss_rel"] <= 1e-3 and out["gnorm_rel"] <= 1e-2 and out["grad_rel"] <= 2e-2):
+        raise AssertionError(f"7c(a): kernel path vs plain path: {out}")
+    return out
+
+
+def mixtral_step_profile(step, state, batch, optimizer) -> tuple:
+    """One train step under the profiler, AdamW's update inside an
+    ``adamw`` range: device ms by family (the grouped products, K1, K2, K3,
+    the dense GEMMs, AdamW, the rest) and the heaviest kernels."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    update = optimizer.update
+
+    def ranged(*a, **kw):
+        with record_function("adamw"):
+            return update(*a, **kw)
+
+    optimizer.update = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    finally:
+        optimizer.update = update
+    fams = device_time_by_family(prof, {"grouped_mm": ("grouped", "Grouped", "GroupProblem"),
+                                        "flash_attention": "flash_fwd_kernel",
+                                        "flash_attention_dkdv": "flash_dkdv_kernel",
+                                        "flash_attention_dq": "flash_dq_kernel"},
+                                 skip=("adamw",))
+    adamw = range_device_ms(prof, "adamw") or 0.0
+    fams["adamw"] = adamw
+    fams["other"] -= adamw  # AdamW's kernels are elementwise: "other" held them
+    return fams, [k for k in top_kernels(prof, 9) if k[0] != "adamw"][:8]
+
+
+def mixtral_canary_leg(steps: int) -> dict:
+    """7c(c): ``Trainer.fit`` at the canary's width cut, B = 1, S = 4096,
+    jitter and shuffle on: a sentinel-free fit, then the same fit with the
+    canary every ``MIXTRAL_CANARY_EVERY`` steps; no check may disagree, and
+    the losses and the final state's TF equal the sentinel-free run's."""
+    from neuronx_distributed_tpu_torch.integrity import SentinelConfig
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM
+    from neuronx_distributed_tpu_torch.trainer import OptimizerConfig, Trainer
+
+    cfg = mixtral_train_config(intermediate_size=MIXTRAL_CANARY_INTERMEDIATE)
+    model = MixtralForCausalLM(cfg, trainable=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    res, dispatches, tf_calls = {}, 0, 0
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for name, integrity in (("off", None),
+                            ("canary", SentinelConfig(check_every=MIXTRAL_CANARY_EVERY))):
+        rec = LoopRecorder()
+        tr = Trainer(model=model, loss_fn=mixtral_loss_fn(model), callbacks=[rec],
+                     integrity=integrity, optimizer_config=OptimizerConfig(
+                         learning_rate=LOOP_LR, weight_decay=0.1, max_grad_norm=1.0))
+        tr.fit(PackedSource(cfg.vocab_size, 1, MIXTRAL_TRAIN_S, eos=MIXTRAL_EOS), 0,
+               max_steps=steps)
+        torch.cuda.synchronize()
+        s = tr._sentinel
+        res[name] = dict(losses=rec.host_losses(), walls=rec.walls(), fp=state_fp(tr),
+                         counters=dict(s.counters) if s else None, reads=tr.host_reads)
+        dispatches += tr.programs.dispatches("train_step")
+        tf_calls += 1 + (2 * s.counters["integrity_checks"] if s else 0)
+        del tr, rec, s
+        release()
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    del model
+    release()
+    want = dict.fromkeys(counters, 0)
+    want.update(flash_attention=2 * cfg.num_layers * dispatches,
+                flash_attention_dkdv=cfg.num_layers * dispatches,
+                flash_attention_dq=cfg.num_layers * dispatches, tree_fingerprint=tf_calls)
+    if launches != want:
+        raise AssertionError(f"7c(c): launches {launches} != {want} ({dispatches} train-step "
+                             f"dispatches)")
+    checks = steps // MIXTRAL_CANARY_EVERY
+    c = res["canary"]
+    if c["counters"] != {"integrity_checks": checks, "sdc_detected": 0, "sdc_unlocalized": 0,
+                         "sdc_rollbacks": 0}:
+        raise AssertionError(f"7c(c): the canary's checks {c['counters']} (a false positive?)")
+    if c["losses"] != res["off"]["losses"] or c["fp"] != res["off"]["fp"]:
+        raise AssertionError("7c(c): the canary changed the run's losses or final bits")
+    if peak >= 72 * 2**30:
+        raise AssertionError(f"7c(c): peak memory {peak / 2**30:.2f} GiB >= 72 GiB")
+    return dict(res, n_params=n_params, dispatches=dispatches, tf_calls=tf_calls,
+                peak_gib=peak / 2**30, checks=checks, launches=launches)
+
+
+def mixtral_train_phase(smi: str) -> dict:
+    """Phase 7c: Mixtral training at 8x7B width cut to 2 layers, fp32
+    masters, random weights from a seed. (a) the kernel path against the
+    plain path on the routes the kernels took; (b) six ``build_train_step``
+    steps on one packed 2 x 4096 batch (remat on, jitter 0.01, the shuffle,
+    the blockwise route): the loss falls, the K1-K3 counts, the step wall,
+    tokens/s, MFU by active parameters beside the ledger's metered FLOPs,
+    peak memory, a profiled step and a re-run of one step's forward and
+    backward from a fresh generator of the same (seed, step), equal in TF
+    bits; (c) ``Trainer.fit`` with the canary (at a width cut)."""
+    from neuronx_distributed_tpu_torch.kernels.tree_fingerprint import TreeFingerprint
+    from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM, init_params
+    from neuronx_distributed_tpu_torch.observability.programs import ProgramLedger
+    from neuronx_distributed_tpu_torch.trainer import (
+        OptimizerConfig,
+        build_train_step,
+        create_train_state,
+        make_optimizer,
+    )
+    from neuronx_distributed_tpu_torch.trainer.trainer import _to_device, step_generator
+
+    t_phase = time.perf_counter()
+    # phase 7b's trainers leave reference cycles that hold a 2-layer Llama
+    # train state (22.2 GiB) until the cyclic collector runs
+    release()
+    resident = torch.cuda.memory_allocated()
+    cfg = mixtral_train_config()
+    steps = MIXTRAL_TRAIN_STEPS
+    b, s = MIXTRAL_TRAIN_B, MIXTRAL_TRAIN_S
+    t0 = time.perf_counter()
+    model = init_params(MixtralForCausalLM(cfg, trainable=True), seed=1)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    res = dict(build_s=build_s, resident_gib=resident / 2**30)
+    res["a"] = mixtral_train_vs_plain(model)
+
+    opt_cfg = OptimizerConfig(learning_rate=MIXTRAL_TRAIN_LR, weight_decay=0.1, max_grad_norm=1.0)
+    optimizer = make_optimizer(opt_cfg)
+    t0 = time.perf_counter()
+    state = create_train_state(model, optimizer, seed=0)
+    loss_fn = mixtral_loss_fn(model)
+    ledger = ProgramLedger(prefix="train", subsystem="trainer", device=model.device)
+    step = ledger.wrap("train_step", build_train_step(model, optimizer,
+                                                      max_grad_norm=opt_cfg.max_grad_norm,
+                                                      loss_fn=loss_fn, seed=0), meter_first=True)
+    batch = _to_device(packed_batch(cfg.vocab_size, b, s, eos=MIXTRAL_EOS), model.device)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    active, n_params = active_params(model)
+    counters = kernel_counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(steps):
+        t1 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+    launches = {name: c.launches for name, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    want = dict.fromkeys(counters, 0)  # no serving kernel: MX is decode only
+    want.update(flash_attention=2 * cfg.num_layers * steps,
+                flash_attention_dkdv=cfg.num_layers * steps,
+                flash_attention_dq=cfg.num_layers * steps)
+    if launches != want:
+        raise AssertionError(f"7c(b): launches {launches} != {want}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"7c(b): losses not finite and falling: {losses}")
+    if peak >= 72 * 2**30:
+        raise AssertionError(f"7c(b): peak memory {peak / 2**30:.2f} GiB >= 72 GiB")
+    fams, heavy = mixtral_step_profile(step, state, batch, optimizer)
+
+    # the same step's forward and backward twice, each from a generator made
+    # afresh from (seed, step): equal TF bits over the loss and every gradient
+    # (the state itself, 50.6 GB, cannot be copied on the card)
+    params = [p for p in model.parameters() if p.requires_grad]
+    fps = []
+    for _ in range(2):
+        model.zero_grad(set_to_none=True)
+        loss = loss_fn(batch, step_generator(0, state.step, model.device))
+        loss.backward()
+        fps.append(int(TreeFingerprint([p.grad for p in params] + [loss.detach().reshape(1)])()))
+    model.zero_grad(set_to_none=True)
+    if fps[0] != fps[1]:
+        raise AssertionError(f"7c(b): a re-run of step {state.step} differs: TF {fps}")
+
+    seg = batch["segment_ids"]
+    pairs = live_pairs(seg, b, s, seg.device)
+    d, h = cfg.head_dim_, cfg.num_heads
+    # model FLOPs: 6 per active matmul parameter per token (fwd + bwd; a
+    # token runs through k of the E experts) and attention's products, 12 x
+    # D x H per live pair; the remat recompute is not counted
+    flops = 6.0 * active * b * s + 12.0 * d * h * pairs * cfg.num_layers
+    wall = statistics.median(walls[1:])
+    metered = ledger.flops_per_dispatch("train_step")
+    del state, step, optimizer, params, batch
+    model.zero_grad(set_to_none=True)
+    del model
+    release()
+    res["b"] = dict(losses=losses, walls=walls, wall=wall, tokens_per_s=b * s / wall, flops=flops,
+                    mfu=flops / wall / PEAK_BF16_FLOPS, metered_flops=metered,
+                    metered_mfu=metered / wall / PEAK_BF16_FLOPS, peak_gib=peak / 2**30,
+                    launches=launches, fams=fams, heavy=heavy, n_params=n_params,
+                    active=active, init_s=init_s, pairs=pairs, docs=int(seg.max()) + 1, fps=fps)
+    res["c"] = c = mixtral_canary_leg(MIXTRAL_TRAIN_STEPS)
+    res.update(launches={name: launches[name] + c["launches"][name] for name in launches},
+               wall_s=time.perf_counter() - t_phase)
+    return res
+
+
+def log_mixtral_train_phase(mt: dict, smi: str) -> None:
+    """Phase 7c's report lines."""
+    cfg = mixtral_train_config()
+    a, b, c = mt["a"], mt["b"], mt["c"]
+    log(f"phase 7c ({smi}): Mixtral training, 8x7B width cut to {MIXTRAL_TRAIN_LAYERS} layers "
+        f"(hidden {cfg.hidden_size}, {cfg.num_heads}/{cfg.num_kv_heads} heads, {cfg.num_experts} "
+        f"experts top-{cfg.top_k}, intermediate {cfg.intermediate_size}, vocab {cfg.vocab_size}; "
+        f"{b['n_params']} parameters, {b['active']:.0f} active matmul parameters a token), fp32 "
+        f"masters, AdamW lr {MIXTRAL_TRAIN_LR} wd 0.1 clip 1.0, random weights from a seed (built "
+        f"and filled in {mt['build_s']:.2f} s); {mt['resident_gib']:.2f} GiB allocated on entry; "
+        f"wall {mt['wall_s']:.1f} s")
+    log(f"7c(a) kernel path vs plain path (B = 1, S = {MIXTRAL_VS_PLAIN_S} packed, one step, "
+        f"jitter and shuffle on, remat off; the plain path: plain attention and the all-experts "
+        f"einsums on the "
+        f"kernel run's routes for {a['tokens']} tokens x {MIXTRAL_TRAIN_LAYERS} layers, "
+        f"{a['flips']} forced routes its own routers would not have chosen): loss "
+        f"{a['loss']:.5f} rel_err {a['loss_rel']:.3g}, grad norm rel_err {a['gnorm_rel']:.3g}, "
+        f"every gradient ({a['leaves']} leaves) rel_err <= {a['grad_rel']:.3g} ({a['grad_worst']})")
+    log(f"7c(b) build_train_step, one packed batch {MIXTRAL_TRAIN_B} x {MIXTRAL_TRAIN_S} "
+        f"({b['docs']} documents, {b['pairs']} live attention pairs a head), remat on, jitter "
+        f"0.01, token shuffle, "
+        f"blockwise route; train state from seed 0 in {b['init_s']:.2f} s; losses "
+        + ", ".join(f"{x:.5f}" for x in b["losses"]) + "; step walls (s): "
+        + ", ".join(f"{x:.4f}" for x in b["walls"]) + " (the first metered)")
+    log(f"7c(b): step wall {b['wall']:.4f} s (median of steps 2-{MIXTRAL_TRAIN_STEPS}), "
+        f"{b['tokens_per_s']:.1f} tokens/s, model {b['flops'] / b['wall'] / 1e12:.1f} TFLOP/s by "
+        f"active parameters (6 x active x tokens + attention, no recompute): mfu {b['mfu']:.4f} "
+        f"of {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s; the ledger's metered train_step "
+        f"{b['metered_flops']:.5g} FLOPs (remat recompute, AdamW and the aux losses included): "
+        f"mfu {b['metered_mfu']:.4f}; peak mem {b['peak_gib']:.2f} GiB (< 72)")
+    log(f"7c(b) launches ({MIXTRAL_TRAIN_STEPS} steps): {b['launches']} (K1 = 2 x "
+        f"{MIXTRAL_TRAIN_LAYERS} layers x steps: forward and remat recompute; K2 = K3 = "
+        f"{MIXTRAL_TRAIN_LAYERS} x steps); a re-run of a step's forward and backward from a "
+        f"fresh generator of the same (seed, step): TF {b['fps'][0]:#018x} twice")
+    busy = sum(b["fams"].values())
+    wall_ms = 1e3 * b["wall"]
+    log("7c(b) device time of one step (profiler, ms): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in b["fams"].items())
+        + f"; busy {busy:.2f} of the unprofiled step wall {wall_ms:.2f} (idle share "
+        f"{1 - busy / wall_ms:.3f}); heaviest kernels: "
+        + "; ".join(f"{n[:80]} {ms:.2f} ms x{k}" for n, ms, k in b["heavy"]))
+    cc, off = c["canary"], c["off"]
+    log(f"7c(c) Trainer.fit, {MIXTRAL_TRAIN_STEPS} steps at B = 1, S = {MIXTRAL_TRAIN_S}, "
+        f"jitter and shuffle on, at the canary's width cut (intermediate {MIXTRAL_CANARY_INTERMEDIATE}: two "
+        f"state-sized snapshots beside the state; {c['n_params']} parameters): "
+        f"SentinelConfig(check_every={MIXTRAL_CANARY_EVERY}) {cc['counters']}; losses and final "
+        f"TF {cc['fp']:#018x} = the sentinel-off run's; step walls off "
+        + ", ".join(f"{x:.4f}" for x in off["walls"]) + " s, canary "
+        + ", ".join(f"{x:.4f}" for x in cc["walls"]) + f" s; host reads {cc['reads']}; peak "
+        f"{c['peak_gib']:.2f} GiB")
+    log(f"7c launches (b) and (c): {mt['launches']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8083,6 +8468,8 @@ def main() -> int:
 
     lp = loop_phase(smi)
     log_loop_phase(lp, smi)
+    mt = mixtral_train_phase(smi)
+    log_mixtral_train_phase(mt, smi)
 
     k1_main = k1[1]  # the serving prefill at S=4096
     launches = {name: srv["launches"][name] + fused["launches"][name] + pre["launches"][name]
@@ -8090,12 +8477,12 @@ def main() -> int:
                 + fault["launches"][name] + slo["launches"][name] + tier["launches"][name]
                 + weights["launches"][name] + fabric["launches"][name]
                 + integ["launches"][name] + moe["launches"][name] + tr["launches"][name]
-                + lp["launches"][name] for name in tr["launches"]}
+                + lp["launches"][name] + mt["launches"][name] for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
         f"speculative serving row and paged, Medusa, quantized serving, the fault contract, "
         f"SLO-aware multi-tenant serving, the host page tier, weights that change, the serving "
         f"fabric, integrity and program observability, Mixtral serving, training, the training "
-        f"loop): "
+        f"loop, Mixtral training): "
         f"{launches}; "
         f"on the multi-row path (prefix-cache serving): {pre['multi_row']}; the speculative "
         f"rounds' verify windows (s = {SPEC_GAMMA}): {spec['verify']}")

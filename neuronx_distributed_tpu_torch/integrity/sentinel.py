@@ -32,6 +32,13 @@ does, and the fingerprint table (TF over params, ``mu``, ``nu``, the count
 and the guard carry, :class:`~neuronx_distributed_tpu_torch.kernels.
 tree_fingerprint.TreeFingerprint`) is built once: no address ever moves.
 
+**The re-run's randomness.** A MoE step draws its router jitter and token
+permutation from a generator. The re-run must draw what the first run drew,
+or every check of a healthy card disagrees and the run rolls back forever:
+the train step makes its generator afresh from (seed, ``state.step``)
+(``trainer/trainer.py step_generator``), and :meth:`post_dispatch` puts
+``state.step`` back before the re-run, so both runs start from one state.
+
 The sentinel never reads the device: :meth:`post_dispatch` returns the two
 fingerprints as device scalars, which ride the loop's one deferred host
 read a step, and :meth:`judge` receives host integers."""
@@ -190,7 +197,7 @@ class TrainerSentinel:
         pre, self._pre = self._pre, None
         fp_a = self._fp()
         self._copy(self.leaves, pre)
-        state.step -= 1  # the re-run is the same step
+        state.step -= 1  # the re-run is the same step, with the same step generator
         train_step(state, prepared)
         fp_b = self._fp()
         self._copy(self._scratch, self.leaves)

@@ -142,7 +142,10 @@ def _stack_entries(node, key: str, name: str, index=None) -> Dict[str, torch.Ten
 def mixtral_flax_to_torch(params_np, config) -> Dict[str, torch.Tensor]:
     """State dict for ``MixtralForCausalLM(config)`` from the JAX
     ``MixtralForCausalLM`` params (either layer layout; a quantized tree's
-    codes bit for bit, as :func:`flax_to_torch`)."""
+    codes bit for bit, as :func:`flax_to_torch`). fp32 CPU tensors, which
+    ``load_state_dict`` casts to the stored dtype (a trainable model's fp32
+    masters take them as they are); a JAX gradient tree of the same params
+    maps leaf by leaf onto the port's ``.grad`` names."""
     tree = params_np.get("params", params_np)
     sd = _base_entries(tree)
     for i, layer, index in _layers(tree["model"], config.num_layers):

@@ -17,8 +17,24 @@ decode step the ``blockwise`` route (``modules/moe/expert_mlps.py``). With
 int8/fp8 codes with f32 scales; the routers, the embedding and the norms
 stay float. Such a model serves only: :func:`quantize_model` makes one from a
 float model, and :func:`init_params` fills one directly, a weight at a
-time. Training (the aux losses in the train step, capacity dropping under
-autograd, the grouped products' backward) is not ported yet; ``loss`` is.
+time.
+
+Training: ``MixtralForCausalLM(config, trainable=True)`` keeps fp32 masters
+(expert stacks included) that each product casts to the compute dtype, the
+routers in f32, as ``LlamaForCausalLM(trainable=True)`` does; :meth:`loss`
+is the objective the train step differentiates (cross entropy plus the
+weighted router losses), with the router jitter and the token shuffle on
+under ``deterministic=False``, drawn from an explicit ``generator``. With
+``config.remat`` each decoder layer of a differentiated train-mode forward
+runs under activation checkpointing (JAX ``nn.remat``, ``:164``), by the
+Llama port's ``remat_policy`` contexts; ``torch.utils.checkpoint`` restores
+only the default generators, so a layer that draws runs on a copy of the
+explicit generator's state taken at its start, and its recompute draws the
+same jitter and permutation again (:class:`_Replay`). The expert routes'
+backward: ``torch._grouped_mm``'s (blockwise), the einsums' (all experts,
+capacity factor; a dropped slot gets no gradient); the selective route
+differentiates on CPU tensors only (MX has no backward and raises under
+autograd).
 """
 
 from __future__ import annotations
@@ -29,6 +45,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from neuronx_distributed_tpu_torch.models.llama import (
     LlamaAttention,
@@ -38,6 +55,7 @@ from neuronx_distributed_tpu_torch.models.llama import (
     _weights,
     mode_inputs,
     quantize_model,
+    remat_context_fn,
 )
 from neuronx_distributed_tpu_torch.modules.attention import KVCache, rope_frequencies
 from neuronx_distributed_tpu_torch.modules.moe import MoE
@@ -73,6 +91,9 @@ class MixtralConfig:
     token_shuffle: bool = False
     dtype: torch.dtype = torch.bfloat16
     param_dtype: torch.dtype = torch.float32
+    remat: bool = True  # activation checkpointing per decoder layer (training)
+    # what remat keeps: None (nothing), "dots" or "dots_saveable" (llama.REMAT_POLICIES)
+    remat_policy: Optional[str] = None
     # weight-only serving quantization of the linears, lm_head and the
     # expert stacks (per expert and output channel); the router stays float
     quantization: Optional[QuantizationConfig] = None
@@ -104,24 +125,24 @@ def tiny_mixtral(**over) -> MixtralConfig:
     return MixtralConfig(**{**dict(
         vocab_size=256, hidden_size=64, intermediate_size=96,
         num_layers=2, num_heads=8, num_kv_heads=4, max_seq_len=128,
-        num_experts=4, top_k=2, dtype=torch.float32,
+        num_experts=4, top_k=2, dtype=torch.float32, remat=False,
     ), **over})
 
 
 class MixtralDecoderLayer(nn.Module):
-    def __init__(self, config: MixtralConfig, device):
+    def __init__(self, config: MixtralConfig, device, trainable: bool = False):
         super().__init__()
         cfg = config
         llama = cfg.as_llama()
-        norm = dict(eps=cfg.rms_eps, **_weights(llama, device, False))
+        norm = dict(eps=cfg.rms_eps, **_weights(llama, device, trainable))
         self.input_norm = RMSNorm(cfg.hidden_size, **norm)
-        self.attn = LlamaAttention(llama, device)
+        self.attn = LlamaAttention(llama, device, trainable)
         self.post_attn_norm = RMSNorm(cfg.hidden_size, **norm)
         self.moe = MoE(cfg.num_experts, cfg.hidden_size, cfg.intermediate_size, top_k=cfg.top_k,
                        router_jitter_eps=cfg.router_jitter_eps,
                        capacity_factor=cfg.capacity_factor, expert_strategy=cfg.expert_strategy,
                        token_shuffle=cfg.token_shuffle, dtype=cfg.dtype,
-                       param_dtype=cfg.param_dtype, device=device,
+                       param_dtype=cfg.param_dtype, device=device, trainable=trainable,
                        quantization_config=cfg.quantization)
 
     def forward(self, x, freqs, positions, mode, cache, layer, q_pos=None, segment_ids=None,
@@ -137,17 +158,42 @@ class MixtralDecoderLayer(nn.Module):
         return x + out, torch.stack([aux["load_balancing_loss"], aux["router_z_loss"]])
 
 
+class _Replay:
+    """A decoder layer that draws from a copy of ``generator``'s state taken
+    when the forward reaches it, so the recompute of activation
+    checkpointing draws the forward's jitter and permutation again
+    (``torch.utils.checkpoint`` restores only the default generators, and a
+    recompute that drew afresh would differentiate another forward without
+    an error). :meth:`advance` then moves ``generator`` past the forward's
+    draws: the layers draw what they would draw from ``generator`` itself."""
+
+    def __init__(self, layer: nn.Module, generator: torch.Generator):
+        self.layer, self.generator = layer, generator
+        self.start = generator.get_state()
+        self.end = None
+
+    def __call__(self, *args):
+        g = torch.Generator(device=self.generator.device)
+        g.set_state(self.start)
+        out = self.layer(*args, generator=g)
+        self.end = g.get_state()
+        return out
+
+    def advance(self) -> None:
+        self.generator.set_state(self.end)
+
+
 class MixtralModel(nn.Module):
     """The backbone without the LM head: ``(hidden, aux)`` with ``aux`` =
     ``{"load_balancing_loss", "router_z_loss"}`` summed over layers in train
     mode, zeros in prefill and decode modes (no request reads them)."""
 
-    def __init__(self, config: MixtralConfig, device):
+    def __init__(self, config: MixtralConfig, device, trainable: bool = False):
         super().__init__()
         cfg = self.config = config
-        w = _weights(cfg.as_llama(), device, False)
+        w = _weights(cfg.as_llama(), device, trainable)
         self.embed = ParallelEmbedding(cfg.vocab_size, cfg.hidden_size, **w)
-        self.layers = nn.ModuleList(MixtralDecoderLayer(cfg, device)
+        self.layers = nn.ModuleList(MixtralDecoderLayer(cfg, device, trainable)
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(cfg.hidden_size, eps=cfg.rms_eps, **w)
         self.register_buffer(
@@ -163,9 +209,25 @@ class MixtralModel(nn.Module):
                                                      positions, padding_mask)
         x = self.embed(input_ids)
         aux = torch.zeros(2, dtype=torch.float32, device=x.device)
+        remat = self.config.remat and mode == "train" and torch.is_grad_enabled()
+        kw = {}
+        if remat:
+            context_fn = remat_context_fn(self.config.remat_policy)
+            if context_fn is not None:
+                kw["context_fn"] = context_fn
         for i, layer in enumerate(self.layers):
-            x, a = layer(x, self.freqs, positions, mode, cache, i, q_pos, segment_ids,
-                         padding_mask, attn_mask, deterministic, generator)
+            args = (x, self.freqs, positions, mode, cache, i, q_pos, segment_ids, padding_mask,
+                    attn_mask, deterministic)
+            if not remat:
+                x, a = layer(*args, generator=generator)
+            elif deterministic or generator is None:
+                # nothing drawn, or from the default generators, which
+                # checkpoint restores itself
+                x, a = checkpoint(layer, *args, use_reentrant=False, generator=generator, **kw)
+            else:
+                run = _Replay(layer, generator)
+                x, a = checkpoint(run, *args, use_reentrant=False, **kw)
+                run.advance()
             if a is not None:
                 aux = aux + a
         if mode == "decode":
@@ -179,16 +241,18 @@ class MixtralForCausalLM(nn.Module):
     every weight on ``device`` (CUDA unless ``device="cpu"``);
     :func:`init_params` or ``load_state_dict`` (``models/convert.py
     mixtral_flax_to_torch``) fills them. Weights are stored frozen in the
-    compute dtype, the routers in f32."""
+    compute dtype, the routers in f32; ``trainable=True`` builds fp32
+    masters that train (``trainer/``), the routers f32 as well."""
 
-    def __init__(self, config: MixtralConfig, device=None):
+    def __init__(self, config: MixtralConfig, device=None, trainable: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.config = config
-        self.model = MixtralModel(config, device)
+        self.trainable = trainable
+        self.model = MixtralModel(config, device, trainable)
         self.lm_head = ColumnParallelLinear(config.hidden_size, config.vocab_size,
                                             use_bias=False,
-                                            **_linear(config.as_llama(), device, False))
+                                            **_linear(config.as_llama(), device, trainable))
 
     device = LlamaForCausalLM.device
     new_cache = LlamaForCausalLM.new_cache
@@ -249,7 +313,8 @@ def init_params(model: MixtralForCausalLM, seed: int = 0) -> MixtralForCausalLM:
     """Random weights from ``seed`` on the model's own device: linears,
     routers and expert stacks N(0, 1/fan_in) (JAX's lecun-normal scale,
     untruncated; a stack's fan-in is one expert's), the embedding N(0, 1),
-    norms 1, drawn weight by weight in state-dict order. A quantized model
+    norms 1, drawn weight by weight in state-dict order (a trainable model's
+    fp32 masters as a serving model's stored weights). A quantized model
     draws each selected weight in the compute dtype, as the float model
     holds it, and stores its codes and scales (``quantize_weight``), so
     ``init_params(quantized)`` equals ``quantize_model(init_params(float))``

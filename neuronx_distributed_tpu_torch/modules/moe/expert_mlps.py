@@ -4,11 +4,14 @@
 The strategies and the policy between them are JAX's:
 
 * ``selective`` (JAX ``_selective`` :327), the decode path for at most
-  ``selective_threshold`` tokens: each token through its k experts. CPU
-  tensors run JAX's gathered einsums (``kernels/moe_experts.py``'s plain
-  version); CUDA tensors launch MX, or MXq for quantized experts, which read
+  ``selective_threshold`` tokens: each token through its k experts, on the
+  stacks in the compute dtype. CPU tensors run JAX's gathered einsums
+  (``kernels/moe_experts.py``'s plain version), which differentiate as
+  JAX's do; CUDA tensors launch MX, or MXq for quantized experts, which read
   each routed expert once where the gathered einsums would copy a token's
-  expert slices.
+  expert slices. MX has no backward: on a CUDA input that needs a gradient
+  the route raises (a silent launch would leave the experts' gradients
+  empty).
 * ``all_experts`` (:343): every token through every expert, combined by its
   affinities; torch einsums.
 * ``capacity_factor`` (:361, :367): capacity ``C = min(T, ceil(cf * T * k /
@@ -21,7 +24,12 @@ The strategies and the policy between them are JAX's:
   step cannot do) and the offsets their device ``cumsum``, so the route
   needs no host read. Each token's k results are combined in slot order
   (JAX scatter-adds them; the order of a sum of k terms aside, the same
-  values).
+  values). Under autograd the grouped products differentiate through
+  ``torch._grouped_mm``'s backward (the weight gradient a grouped product
+  along the pairs, 2-D x 2-D with ``offs``). That backward refuses a
+  stride-0 gradient (a ``.sum()`` straight on its output); the route's
+  products only ever receive gathered or elementwise gradients, which are
+  dense.
 
 Quantized experts (``quantization_config=``; JAX ``_declare_kernel``
 :48) hold codes and f32 scales (``moe_parallel_layers.add_stack``):
@@ -175,10 +183,19 @@ class ExpertMLPs(nn.Module):
 
     def _selective(self, x, top_e, top_w):
         names = ("gate_proj", "up_proj", "down_proj")
-        gate = self.gate_proj if self.glu_mlp else None
         kw = dict(act=self.hidden_act, glu=self.glu_mlp)
         if self.quantization_config is None:
-            return moe_experts(x, top_e, top_w, gate, self.up_proj, self.down_proj, **kw)
+            # a trainable model's fp32 masters in the compute dtype, as the
+            # other routes cast them (MX takes bf16 stacks)
+            stacks = self._weights()
+            if (x.device.type == "cuda" and torch.is_grad_enabled()
+                    and any(t is not None and t.requires_grad for t in (x, top_w, *stacks))):
+                raise RuntimeError(
+                    "the selective expert route launches MX, which has no backward: a "
+                    "differentiated MoE forward of at most selective_threshold tokens needs "
+                    "another expert_strategy (blockwise, all_experts, capacity_factor)")
+            return moe_experts(x, top_e, top_w, *stacks, **kw)
+        gate = self.gate_proj if self.glu_mlp else None
         scales = [getattr(self, scale_name(n)) if hasattr(self, n) else None for n in names]
         return moe_experts_quantized(x, top_e, top_w, gate, self.up_proj, self.down_proj,
                                      *scales, **kw)

@@ -9,8 +9,10 @@ scales, ``(E, out)`` per channel or ``(E,)`` per tensor (JAX
 ``QuantizedExpertFusedColumnParallel`` / ``RowParallel``,
 ``quantization/layers.py:113``, :162, whose ``(E, 1, out)`` scales
 ``models/convert.py`` reshapes), and each product dequantizes the stack
-first, as JAX does. Without a mesh the column and row split are names that
-keep the reference's structure; the ep/tp sharding is ROADMAP item 9.
+first, as JAX does. A trainable stack is an fp32 master that each product
+casts to the compute dtype (``stack_weight``), so its gradient is fp32.
+Without a mesh the column and row split are names that keep the
+reference's structure; the ep/tp sharding is ROADMAP item 9.
 """
 
 from __future__ import annotations

@@ -3,9 +3,12 @@
 The logits are f32 (the input cast to f32 against an f32 weight) whatever
 the compute dtype, and the router weight is never quantized, as in JAX.
 Weights are torch's ``(E, H)``; ``models/convert.py`` transposes flax's
-``(H, E)``. Input jitter draws from an explicit ``torch.Generator``, which
-cannot reproduce ``jax.random`` (ROADMAP §3). Expert ids are int64, torch's
-index dtype (JAX's are int32).
+``(H, E)``. Input jitter draws from an explicit ``torch.Generator`` on the
+tokens' device (a train step's, ``trainer/trainer.py step_generator``),
+which cannot reproduce ``jax.random`` (ROADMAP §3). Under autograd the
+affinities differentiate through the activation; the chosen experts (and
+the Sinkhorn balancing that picks them) do not. Expert ids are int64,
+torch's index dtype (JAX's are int32).
 """
 
 from __future__ import annotations

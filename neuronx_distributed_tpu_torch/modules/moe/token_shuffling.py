@@ -1,7 +1,8 @@
 """Token shuffling (counterpart of
 ``neuronx_distributed_tpu/modules/moe/token_shuffling.py``). JAX draws the
 permutation from a ``jax.random`` key, which torch cannot reproduce; here it
-comes from an explicit ``torch.Generator`` (ROADMAP §3)."""
+comes from an explicit ``torch.Generator`` on the tokens' device (ROADMAP
+§3)."""
 
 from __future__ import annotations
 

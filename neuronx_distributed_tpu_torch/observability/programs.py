@@ -124,11 +124,16 @@ _ACTIVE = threading.local()  # the meter of this thread's metered dispatch
 
 
 def _grouped_mm_flops(mat_a, mat_b, *args, out_val=None, **kwargs) -> int:
-    """``torch._grouped_mm``'s count (``torch.utils.flop_counter`` has none):
-    2 x out x in a row of the output, for the (N, in) x (E, in, out) form
-    of the MoE blockwise route, every row through one group's weight; for
-    other forms (batched or grouped along K) 2 x in x the output's
-    elements."""
+    """``torch._grouped_mm``'s count (``torch.utils.flop_counter`` has none).
+    Grouped along the rows, (N, in) x (E, in, out) -> (N, out) (the MoE
+    blockwise route's products and their input gradients): every row
+    through one group's weight, 2 x in x the output's elements. Grouped
+    along the contraction, (M, N) x (N, K) with ``offs`` -> (E, M, K) (the
+    weight gradients): every one of the N columns in one group, 2 x M x N x K,
+    not 2 x N x the E groups' outputs. Batched, (E, M, in) x (E, in, out):
+    2 x in x the output's elements."""
+    if mat_a.dim() == 2 and mat_b.dim() == 2 and out_val.dim() == 3:
+        return 2 * mat_a.shape[0] * mat_a.shape[1] * mat_b.shape[1]
     k = mat_a.shape[-1] if mat_a.dim() == 2 and mat_b.dim() == 3 else mat_b.shape[-2]
     return 2 * k * out_val.numel()
 

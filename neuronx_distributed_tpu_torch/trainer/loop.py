@@ -27,9 +27,10 @@ with JAX's fault-tolerance contract:
   sticky and raises at once.
 * **Exact resume** — checkpoints carry the seed (the port's counterpart of
   JAX's base key: :meth:`Trainer.step_rng` is counter-based on (seed,
-  step)), the data cursor, the guard carry and the step and throughput
-  bookkeeping, so ``fit(resume_from=...)`` after a kill reproduces the
-  uninterrupted run bit for bit.
+  step), and a MoE step's jitter and shuffle draw from it), the data
+  cursor, the guard carry and the step and throughput bookkeeping, so
+  ``fit(resume_from=...)`` after a kill reproduces the uninterrupted run
+  bit for bit.
 * **Graceful preemption** — SIGTERM/SIGINT finish the step in flight,
   write ``step_N`` through the done-marker protocol and return
   (``preempted``); a second signal falls through to the original handler.
@@ -73,12 +74,15 @@ from neuronx_distributed_tpu_torch.trainer.checkpoint import (
 from neuronx_distributed_tpu_torch.trainer.trainer import (
     AnomalyGuardConfig,
     OptimizerConfig,
+    _takes_generator,
     _to_device,
     build_train_step,
     create_train_state,
     default_loss_fn,
     init_anomaly_guard_state,
     make_optimizer,
+    step_generator,
+    step_seed,
 )
 from neuronx_distributed_tpu_torch.utils.retry import RetryPolicy
 from neuronx_distributed_tpu_torch.utils.timeline import Timeline
@@ -90,20 +94,6 @@ __all__ = ["Callback", "CheckpointCallback", "HooksCallback", "MetricsLogger", "
 
 # sticky device errors: never retried (ROADMAP §3, as the serving engine)
 _FATAL = (torch.AcceleratorError, KernelError)
-_M64 = (1 << 64) - 1
-
-
-def step_seed(seed: int, step: int) -> int:
-    """A 63-bit seed for step ``step`` of a run seeded ``seed``: splitmix64
-    of the pair, a pure function of both (counter-based, as the port's
-    sampling noise is), so a resumed run's step seeds equal the
-    uninterrupted run's."""
-    z = (int(seed) * 0x9E3779B97F4A7C15 + int(step) + 1) & _M64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
-    return (z ^ (z >> 31)) >> 1
-
-
 class TrainerHealth(enum.Enum):
     """``Trainer.health()``: ``OK``; ``DEGRADED`` (an anomaly skip, dispatch
     retry, callback error or corruption within ``degraded_cooldown_steps``);
@@ -283,9 +273,11 @@ def _microbatch(batch: dict, n: int) -> dict:
 
 @dataclasses.dataclass
 class Trainer:
-    """The training loop over ``model`` (a ``LlamaForCausalLM`` built with
-    ``trainable=True`` on its device), with the fault-tolerance layer of the
-    module docstring."""
+    """The training loop over ``model`` (a ``LlamaForCausalLM`` or a
+    ``MixtralForCausalLM`` built with ``trainable=True`` on its device),
+    with the fault-tolerance layer of the module docstring. A Mixtral
+    trains on ``loss_fn=lambda b, generator: model.loss(...)``: the step
+    hands it :meth:`step_rng`'s generator (``build_train_step``)."""
 
     model: Any
     optimizer_config: OptimizerConfig = dataclasses.field(default_factory=OptimizerConfig)
@@ -377,10 +369,12 @@ class Trainer:
     # --- the exact-resume payload ------------------------------------------------------
 
     def step_rng(self) -> torch.Generator:
-        """A CPU generator for this step, seeded :func:`step_seed` (seed,
-        step): the checkpoint carries the seed, so a resumed run's step
-        generators equal the uninterrupted run's."""
-        return torch.Generator().manual_seed(step_seed(self._seed, self.step))
+        """This step's generator on the model's device, seeded
+        :func:`step_seed` (seed, step): the one the train step hands a
+        ``loss_fn`` that takes a ``generator`` (``build_train_step``). The
+        checkpoint carries the seed, so a resumed run's step generators
+        equal the uninterrupted run's."""
+        return step_generator(self._seed, self.step, self._device)
 
     def checkpoint_user_content(self, extra: Optional[dict] = None) -> dict:
         """What every checkpoint carries besides the tensors: the step, the
@@ -858,18 +852,6 @@ class Trainer:
         if guard_cfg is not None:
             self.state.guard = init_anomaly_guard_state(device=device)
         accum = cfg.grad_accum_steps
-        step_fn = build_train_step(self.model, optimizer, max_grad_norm=cfg.max_grad_norm,
-                                   loss_fn=self.loss_fn, grad_accum_steps=accum,
-                                   anomaly_guard=guard_cfg)
-
-        def prepare(batch):
-            batch = _to_device(batch, device)
-            return _microbatch(batch, accum) if accum > 1 else batch
-
-        self._prepare = prepare
-        # the first dispatch runs under the cost meter: no request waits here
-        train_step = self._train_step = self.programs.wrap("train_step", step_fn,
-                                                           meter_first=True)
         if self.integrity is not None:
             self._build_sentinel()
         pending = first if sample_batch is None else None
@@ -881,6 +863,19 @@ class Trainer:
                 # the probe batch came from the pre-restore cursor: drop it
                 pending = None
                 self._pending_untrained = False
+        # after the resume: the step generators' seed is the checkpoint's
+        step_fn = build_train_step(self.model, optimizer, max_grad_norm=cfg.max_grad_norm,
+                                   loss_fn=self.loss_fn, grad_accum_steps=accum,
+                                   anomaly_guard=guard_cfg, seed=self._seed)
+
+        def prepare(batch):
+            batch = _to_device(batch, device)
+            return _microbatch(batch, accum) if accum > 1 else batch
+
+        self._prepare = prepare
+        # the first dispatch runs under the cost meter: no request waits here
+        train_step = self._train_step = self.programs.wrap("train_step", step_fn,
+                                                           meter_first=True)
         if self._sentinel is not None:
             self._sentinel.set_baseline(self.step, self._data_state_prepull
                                         if self._data_source is not None else None,
@@ -1006,10 +1001,12 @@ class Trainer:
         if getattr(self, "_eval_step", None) is None:
             model = self.model
             loss_fn = self.loss_fn or (lambda batch: default_loss_fn(model, batch))
+            draws = _takes_generator(loss_fn)
 
             def eval_step(batch):
                 with torch.no_grad():
-                    return loss_fn(batch).detach().to(torch.float64)
+                    loss = loss_fn(batch, generator=self.step_rng()) if draws else loss_fn(batch)
+                    return loss.detach().to(torch.float64)
 
             self._eval_step = self.programs.wrap("eval_step", eval_step, meter_first=True)
         data_iter = iter(data_iter)

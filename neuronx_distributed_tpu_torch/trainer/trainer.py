@@ -20,6 +20,7 @@ JAX API are gone (``create_train_state`` returns the state alone, and
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import math
 from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Union
@@ -29,6 +30,8 @@ import torch
 from torch import nn
 
 from neuronx_distributed_tpu_torch.models.llama import init_params
+from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM
+from neuronx_distributed_tpu_torch.models.mixtral import init_params as init_mixtral_params
 from neuronx_distributed_tpu_torch.parallel.grads import clip_grad_norm
 from neuronx_distributed_tpu_torch.parallel.losses import parallel_cross_entropy
 from neuronx_distributed_tpu_torch.utils.device import resolve_device
@@ -245,17 +248,53 @@ def segment_positions(segment_ids: torch.Tensor) -> torch.Tensor:
 def default_loss_fn(model, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Mean token cross entropy, weighted by ``loss_mask`` when present;
     packed batches (``segment_ids``) attend within their documents and
-    restart RoPE at each (JAX ``default_loss_fn``, ``trainer.py:255``)."""
+    restart RoPE at each (JAX ``default_loss_fn``, ``trainer.py:255``). A
+    model that returns ``(logits, aux)`` (a Mixtral) raises ``TypeError``,
+    as JAX's does: its objective is ``model.loss``."""
     seg = batch.get("segment_ids")
     if seg is not None:
         logits = model(batch["input_ids"], positions=segment_positions(seg), segment_ids=seg)
     else:
         logits = model(batch["input_ids"])
+    if isinstance(logits, tuple):
+        raise TypeError(
+            f"{type(model).__name__} returns (logits, aux) — MoE objectives need the aux "
+            "losses: pass loss_fn=lambda b, generator: model.loss(b['input_ids'], "
+            "b['labels'], segment_ids=b.get('segment_ids'), loss_mask=b.get('loss_mask'), "
+            "deterministic=False, generator=generator) to build_train_step")
     losses = parallel_cross_entropy(logits, batch["labels"])
     mask = batch.get("loss_mask")
     if mask is not None:
         return (losses * mask).sum() / torch.clamp(mask.sum(), min=1)
     return losses.mean()
+
+
+_M64 = (1 << 64) - 1
+
+
+def step_seed(seed: int, step: int) -> int:
+    """A 63-bit seed for step ``step`` of a run seeded ``seed``: splitmix64
+    of the pair, a pure function of both (counter-based, as the port's
+    sampling noise is), so a resumed run's step seeds equal the
+    uninterrupted run's."""
+    z = (int(seed) * 0x9E3779B97F4A7C15 + int(step) + 1) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
+    return (z ^ (z >> 31)) >> 1
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """A fresh generator on ``device`` seeded :func:`step_seed` (seed,
+    step): the port's ``fold_in(base, step)`` (JAX ``examples/train_moe.py``
+    :205), made from host integers only."""
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step))
+
+
+def _takes_generator(loss_fn) -> bool:
+    try:
+        return "generator" in inspect.signature(loss_fn).parameters
+    except (TypeError, ValueError):
+        return False
 
 
 _BATCH_DTYPES = {"input_ids": torch.int64, "labels": torch.int64,
@@ -278,14 +317,21 @@ def _to_device(batch, device) -> Dict[str, torch.Tensor]:
 
 def build_train_step(model, optimizer: AdamW, max_grad_norm: float = 1.0,
                      loss_fn: Optional[Callable] = None, grad_accum_steps: int = 1,
-                     anomaly_guard: Optional[AnomalyGuardConfig] = None):
+                     anomaly_guard: Optional[AnomalyGuardConfig] = None, seed: int = 0):
     """One train step: fwd → bwd → clip → AdamW (JAX ``build_train_step``,
     ``trainer.py:292``). Returns ``step_fn(state, batch) -> (state,
     metrics)``; the state is updated in place and returned.
 
     ``batch`` maps names to numpy arrays or tensors (moved to the model's
     device). ``loss_fn(batch)`` defaults to :func:`default_loss_fn` on
-    ``model``. With ``grad_accum_steps = A > 1`` every leaf is shaped (A,
+    ``model``. A ``loss_fn`` with a ``generator`` parameter is called
+    ``loss_fn(batch, generator=g)``, ``g`` made afresh for each step on the
+    model's device by :func:`step_generator` (``seed``, ``state.step``):
+    the router jitter and the token shuffle of a MoE step draw from it
+    (JAX folds ``batch["step"]`` into its key; the port reads the host
+    step count and nothing from the device), so a re-run of the same step
+    (the canary's) and a resumed run draw what the first run drew. With
+    ``grad_accum_steps = A > 1`` every leaf is shaped (A,
     B/A, ...): the A microbatches' gradients are summed and scaled by 1/A,
     and the loss is the mean of their losses. Metrics are device tensors:
     ``loss`` and the pre-clip ``grad_norm``; with ``anomaly_guard`` also
@@ -296,15 +342,19 @@ def build_train_step(model, optimizer: AdamW, max_grad_norm: float = 1.0,
     if not params:
         raise ValueError("the model has no trainable parameters: build it with trainable=True")
     device = params[0].device
+    draws = _takes_generator(loss_fn)
 
-    def value_and_grad(batch):
+    def loss_of(batch, gen):
+        return loss_fn(batch, generator=gen) if draws else loss_fn(batch)
+
+    def value_and_grad(batch, gen):
         if grad_accum_steps == 1:
-            loss = loss_fn(batch)
+            loss = loss_of(batch, gen)
             loss.backward()
             return loss.detach().to(torch.float32)
         loss_sum = torch.zeros((), dtype=torch.float32, device=device)
         for i in range(grad_accum_steps):
-            loss = loss_fn({name: x[i] for name, x in batch.items()})
+            loss = loss_of({name: x[i] for name, x in batch.items()}, gen)
             loss.backward()  # .grad accumulates the microbatches' sum
             loss_sum += loss.detach().to(torch.float32)
         inv = 1.0 / grad_accum_steps
@@ -318,7 +368,8 @@ def build_train_step(model, optimizer: AdamW, max_grad_norm: float = 1.0,
             raise ValueError("anomaly_guard needs state.guard = init_anomaly_guard_state(...)")
         for p in params:
             p.grad = None
-        loss = value_and_grad(_to_device(batch, device))
+        gen = step_generator(seed, state.step, device) if draws else None
+        loss = value_and_grad(_to_device(batch, device), gen)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         grad_norm = clip_grad_norm(grads, max_grad_norm)
         metrics = {"loss": loss, "grad_norm": grad_norm}
@@ -350,13 +401,15 @@ def build_train_step(model, optimizer: AdamW, max_grad_norm: float = 1.0,
 
 
 def create_train_state(model, optimizer: AdamW, seed: int = 0) -> TrainState:
-    """Initialise a trainable model's parameters from ``seed``
-    (:func:`~neuronx_distributed_tpu_torch.models.llama.init_params`, the
-    port's counterpart of the JAX ``rng_key``) and the optimizer state
-    beside them on the model's device (JAX ``create_train_state``,
-    ``trainer.py:438``, minus the shardings)."""
+    """Initialise a trainable model's parameters from ``seed`` (its
+    family's ``init_params``: :func:`~neuronx_distributed_tpu_torch.models.
+    llama.init_params`, or :func:`~neuronx_distributed_tpu_torch.models.
+    mixtral.init_params` for a Mixtral; the port's counterpart of the JAX
+    ``rng_key``) and the optimizer state beside them on the model's device
+    (JAX ``create_train_state``, ``trainer.py:438``, minus the shardings)."""
     if not getattr(model, "trainable", False):
         raise ValueError("create_train_state needs a model built with trainable=True")
-    init_params(model, seed=seed)
+    init = init_mixtral_params if isinstance(model, MixtralForCausalLM) else init_params
+    init(model, seed=seed)
     params = [p for p in model.parameters() if p.requires_grad]
     return TrainState(step=0, params=model, opt_state=optimizer.init(params))

@@ -2228,3 +2228,130 @@ def test_mixtral_engine_on_card_captured_equals_eager(cuda, monkeypatch, slots, 
             engine.cache.check()
         streams.append([r.tokens for r in reqs])
     assert streams[0] == streams[1]
+
+
+def _mixtral_train_model(**over):
+    """A small trainable Mixtral on the card (head_dim 128 for K1-K3, bf16
+    compute, fp32 masters), jitter and shuffle on, the blockwise route."""
+    from neuronx_distributed_tpu_torch.models.mixtral import (
+        MixtralForCausalLM,
+        init_params,
+        tiny_mixtral,
+    )
+
+    cfg = tiny_mixtral(**{**dict(vocab_size=1024, hidden_size=512, intermediate_size=1024,
+                                 num_heads=4, num_kv_heads=2, num_experts=8, max_seq_len=1024,
+                                 dtype=torch.bfloat16, remat=True, router_jitter_eps=0.01,
+                                 token_shuffle=True, expert_strategy="blockwise"), **over})
+    return init_params(MixtralForCausalLM(cfg, trainable=True), seed=0)
+
+
+@pytest.mark.cuda
+def test_mixtral_train_blockwise_backward_equals_per_expert_matmuls(cuda):
+    """The blockwise route's backward on the card at Mixtral-8x7B's widths
+    (H 4096, I 14336, 8 experts top-2; 512 tokens): ``torch._grouped_mm``'s
+    input and weight gradients against a per-expert ``torch.matmul`` loop on
+    the same bf16 stacks, relative norm error 1e-2 per leaf (bf16 products
+    with f32 sums on both sides, the intermediate rounded to bf16 on both)."""
+    from neuronx_distributed_tpu_torch.modules.moe.expert_mlps import blockwise
+
+    e, h, i, t, k = 8, 4096, 14336, 512, 2
+    ws = [_rnd(cuda, e, i, h) * 0.02, _rnd(cuda, e, i, h) * 0.02, _rnd(cuda, e, h, i) * 0.01]
+    x = _rnd(cuda, t, h)
+    top_e = torch.stack([torch.randperm(e, generator=cuda, device="cuda")[:k] for _ in range(t)])
+    top_w = torch.rand(t, k, generator=cuda, device="cuda")
+    dout = _rnd(cuda, t, h)
+
+    def loop(x, gate, up, down):
+        out = torch.zeros(t, h, device="cuda", dtype=torch.float32)
+        for j in range(k):
+            for ex in range(e):
+                rows = (top_e[:, j] == ex).nonzero()[:, 0]
+                a = x[rows]
+                y = (torch.nn.functional.silu(a @ gate[ex].t()) * (a @ up[ex].t())) @ down[ex].t()
+                out = out.index_add(0, rows, y.float() * top_w[rows, j:j + 1])
+        return out.to(torch.bfloat16)
+
+    grads = []
+    for fn in (lambda *a: blockwise(a[0], top_e, top_w, *a[1:], e), loop):
+        leaves = [x.clone().requires_grad_(True)] + [w.clone().requires_grad_(True) for w in ws]
+        (fn(*leaves).float() * dout.float()).sum().backward()
+        grads.append([p.grad.float() for p in leaves])
+    for name, a, b in zip(("x", "gate", "up", "down"), *grads):
+        rel = float((a - b).norm() / b.norm())
+        assert rel <= 1e-2, f"{name}: relative error {rel:.3g}"
+
+
+@pytest.mark.cuda
+def test_mixtral_train_step_is_deterministic(cuda):
+    """A Mixtral train step on the card (K1 forward and remat recompute,
+    K2/K3, the grouped products' backward, jitter and shuffle from the
+    step's generator) re-run from a copy of the state gives the same bits:
+    the canary's and the exact resume's premise. K1 launches twice a layer,
+    K2 and K3 once."""
+    from neuronx_distributed_tpu_torch.trainer import (
+        OptimizerConfig,
+        build_train_step,
+        create_train_state,
+        make_optimizer,
+    )
+
+    model = _mixtral_train_model()
+    opt = make_optimizer(OptimizerConfig(learning_rate=1e-3))
+    state = create_train_state(model, opt, seed=0)
+
+    def loss_fn(batch, generator):
+        return model.loss(batch["input_ids"], batch["labels"], deterministic=False,
+                          generator=generator)
+
+    step = build_train_step(model, opt, loss_fn=loss_fn, seed=3)
+    ids = torch.randint(1, 1024, (2, 513), generator=cuda, device="cuda")
+    batch = {"input_ids": ids[:, :-1], "labels": ids[:, 1:]}
+    step(state, batch)
+    leaves = lambda: [p.detach() for p in model.parameters()] + state.opt_state["mu"] + \
+        state.opt_state["nu"]  # noqa: E731
+    saved = [t.clone() for t in leaves()]
+    n = {f: f.launches for f in (tfa.flash_attention_fwd, tfa.flash_attention_dkdv,
+                                 tfa.flash_attention_dq)}
+    _, m1 = step(state, batch)
+    first = [t.clone() for t in leaves()]
+    counts = {f.__name__: f.launches - c for f, c in n.items()}
+    with torch.no_grad():
+        for dst, src in zip(leaves(), saved):
+            dst.copy_(src)
+    state.opt_state["count"].sub_(1)
+    state.step -= 1
+    _, m2 = step(state, batch)
+    assert torch.equal(m1["loss"], m2["loss"]) and torch.isfinite(m1["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(first, leaves()))
+    assert counts == {"flash_attention_fwd": 4, "flash_attention_dkdv": 2,
+                      "flash_attention_dq": 2}
+
+
+@pytest.mark.cuda
+def test_mixtral_train_selective_route_raises_under_autograd(cuda):
+    """The selective route launches MX, which has no backward: on a CUDA
+    input that needs a gradient it raises rather than leave the experts'
+    gradients empty; without autograd it serves a trainable model's fp32
+    masters cast to bf16 (MX launches once)."""
+    from neuronx_distributed_tpu_torch.kernels import moe_experts as tmx
+    from neuronx_distributed_tpu_torch.modules.moe.expert_mlps import ExpertMLPs
+
+    m = ExpertMLPs(8, 512, 1024, strategy="selective", dtype=torch.bfloat16, device="cuda",
+                   trainable=True)
+    for p in m.parameters():
+        torch.nn.init.normal_(p, std=0.02)
+    x = _rnd(cuda, 4, 512)
+    top_e = torch.tensor([[0, 1], [2, 3], [4, 5], [6, 7]], device="cuda")
+    top_w = torch.full((4, 2), 0.5, device="cuda")
+    with pytest.raises(RuntimeError, match="no backward"):
+        m(x, top_e, top_w)
+    n = tmx.moe_experts.launches
+    with torch.no_grad():
+        out = m(x, top_e, top_w)
+    assert tmx.moe_experts.launches - n == 1 and out.dtype == torch.bfloat16
+    m.strategy = "blockwise"
+    with torch.no_grad():
+        ref = m(x, top_e, top_w)
+    rel = float((out.float() - ref.float()).norm() / ref.float().norm())
+    assert rel <= 1e-2, rel
