@@ -303,6 +303,25 @@ Phases (any failure exits non-zero; nothing here catches its own failure):
    (c) the full 32-layer model with int8 weights, filled weight by weight
    on the card, phase 4's requests at 8 slots: MXq 32 and DQ 129 a replay,
    peak memory under 72 GiB;
+5n. the other decoder families at full width, random bf16 weights from
+   seed 0 filled on the card, each freed before the next (run after
+   Mixtral): (a) GPT-NeoX-20B whole (44 layers, head_dim 96): phase 4's
+   requests with the prompts cut to its 2048 columns through the row
+   engine, its eager witness (bit for bit), the paged engine and solo
+   ``generate``; K1, K4 and K5 on their head_dim-96 builds alone (prefills
+   x 44, (replays + warm-up) x 44; every 128 count 0); every greedy token
+   within phase 3's limit teacher-forced; peak memory under 72 GiB; (b)
+   CodeGen2.5-7B whole (head_dim 128), the same on the row engine and solo
+   ``generate``; (c) DBRX's widths (16 experts top-4, hidden 6144,
+   intermediate 10752) cut to 8 layers and 4096 columns: phase 4's
+   requests through the row engine (MX 8 a replay) and its route-recording
+   eager witness, the greedy tokens teacher-forced on the routes that
+   served them, and the same through the paged engine and its recording
+   witness (where the two engines part logged). Phase 2 holds the head_dim-96 builds
+   of K1 (GPT-NeoX-20B's 2048-token prefill), K4 and K5 (the decode step,
+   the verify window at R = 16, the multi-row path at R = 1024) to their
+   plain versions, K5 = K4 on the gathered view bit for bit, timed beside
+   D = 96's own bound and SDPA; phase 1 reports their ``ptxas`` spills;
 6. training, kernel path against plain path: one step's loss and gradients
    of a 2-layer Llama-3-8B-width model at S=1024;
 7. training: six ``build_train_step`` steps of Llama-3-8B width cut to 8
@@ -511,14 +530,14 @@ K1_SHAPES = (  # (name, B, S, segments): the serving prefills, then the training
     ("training", 2, 4096, None), ("training", 2, 4096, "packed"))
 
 
-def k1_inputs(gen, b: int, s: int, segments):
-    """``check_k1``'s inputs: q (B, S, 32, 128), k and v (B, S, 8, 128) and
-    the segment ids: ``pad`` (an int) left-padding rows as segment -1, the
-    training batch's packed documents (``"packed"``), or none."""
+def k1_inputs(gen, b: int, s: int, segments, h: int = 32, hkv: int = 8, d: int = 128):
+    """``check_k1``'s inputs: q (B, S, h, d), k and v (B, S, hkv, d) (32,
+    8 and 128 by default: Llama-3-8B's) and the segment ids: ``pad`` (an
+    int) left-padding rows as segment -1, the training batch's packed
+    documents (``"packed"``), or none."""
     import numpy as np
 
     dev, bf = torch.device("cuda"), torch.bfloat16
-    h, hkv, d = 32, 8, 128
     q = torch.randn(b, s, h, d, generator=gen, device=dev).to(bf)
     k = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(bf)
     v = torch.randn(b, s, hkv, d, generator=gen, device=dev).to(bf)
@@ -562,8 +581,9 @@ def k1_plan(q, k, seg) -> dict:
                 work_over_bound=visited * FWD_Q_TILE * FWD_K_TILE / pairs)
 
 
-def check_k1(gen, b: int, s: int, segments):
-    """K1 at one of ``K1_SHAPES``: B, S, H=32, Hkv=8, D=128, causal, bf16;
+def check_k1(gen, b: int, s: int, segments, **heads):
+    """K1 at one of ``K1_SHAPES``: B, S, H=32, Hkv=8, D=128 (or ``heads``'
+    h, hkv and d: :func:`k1_inputs`), causal, bf16;
     against the plain version, twice for the same bits, timed (a CUDA-graph
     replay of the wrapper's call, device time only, and back to back)
     beside its bound and SDPA: a boolean mask where there are segments,
@@ -576,7 +596,7 @@ def check_k1(gen, b: int, s: int, segments):
     )
 
     dev = torch.device("cuda")
-    q, k, v, seg = k1_inputs(gen, b, s, segments)
+    q, k, v, seg = k1_inputs(gen, b, s, segments, **heads)
     out, lse = flash_attention_fwd(q, k, v, True, seg)
     again, again_lse = flash_attention_fwd(q, k, v, True, seg)
     ref, ref_lse = flash_attention_plain(q, k, v, True, seg)
@@ -2995,12 +3015,23 @@ def spec_phase(model, workload, smi: str) -> dict:
 MEDUSA_HEADS, MEDUSA_PROMPT, MEDUSA_TRAIN_STEPS, MEDUSA_LR = 4, 256, 30, 1e-3
 
 
+# host seconds between the profile's edges and the Medusa replays. The
+# profiler mostly loses the first kernel launched after it opens (the
+# marker below: chip_medusa_profile.py), and a run whose first launch
+# was a replay once lost 38 K4 records; the marker takes that place, and
+# the margin keeps the replays clear of the opening
+PROFILE_MARGIN_S = 0.1
+
+
 @contextlib.contextmanager
 def profile_after_capture():
     """A ``torch.profiler`` run that opens right after the Medusa round's
     capture (the warm-up and the capture stay outside it; the first
-    replay and every later one are inside). Yields the profiler, stopped
-    on exit."""
+    replay and every later one are inside). Once the profiler is open, a
+    marker kernel (``torch.cuda._sleep``, named ``spin_kernel``) is the
+    first launch and is waited for, then ``PROFILE_MARGIN_S`` pass before
+    the first replay; the same margin passes after the last one before
+    the profiler stops. Yields the profiler, stopped on exit."""
     from torch.profiler import ProfilerActivity, profile
 
     from neuronx_distributed_tpu_torch.inference.graphs import DecodeProgram
@@ -3011,6 +3042,9 @@ def profile_after_capture():
     def capture(self):
         took = saved(self)
         prof.start()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize(self.device)
+        time.sleep(PROFILE_MARGIN_S)
         return took
 
     DecodeProgram.capture = capture
@@ -3018,6 +3052,8 @@ def profile_after_capture():
         yield prof
     finally:
         DecodeProgram.capture = saved
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
         prof.stop()
 
 
@@ -3077,6 +3113,8 @@ def medusa_run(model, prompts, new: int, eager: bool = False, profiled: bool = F
         res["fams"] = device_time_by_family(prof, {"flash_attention": "flash_fwd_kernel",
                                                    "flash_decode": "flash_decode_kernel"})
         res["records"] = decode_records(prof, paged=False)
+        res["markers"] = sum(str(getattr(e, "device_type", "")).endswith("CUDA")
+                             and "spin_kernel" in e.name for e in prof.events())
         res["top"] = top_kernels(prof)
     return res
 
@@ -3256,13 +3294,15 @@ def medusa_phase(model, smi: str) -> dict:
         + ", ".join(f"{k} {v:.2f}" for k, v in prof["fams"].items())
         + f"; {per_round:.3f} busy a round against {main['round_ms']:.3f} ms a round unprofiled "
         f"(idle share {1 - per_round / main['round_ms']:.3f}); K4 kernel records "
-        f"{prof['records']} = 2 x {prof['rounds']} rounds x {cfg.num_layers}")
+        f"{prof['records']} = 2 x {prof['rounds']} rounds x {cfg.num_layers}; the opening "
+        f"marker recorded {prof['markers']} time(s)")
     log("heaviest kernels of those rounds (ms a round, launches a round): " + "; ".join(
         f"{name[:70]} {ms / prof['rounds']:.3f} ({k / prof['rounds']:.0f})"
         for name, ms, k in prof["top"]))
     if prof["records"] != 2 * prof["rounds"] * cfg.num_layers:
         raise AssertionError(f"medusa profiled: {prof['records']} K4 records != 2 x "
-                             f"{prof['rounds']} rounds x {cfg.num_layers}")
+                             f"{prof['rounds']} rounds x {cfg.num_layers} (the opening marker "
+                             f"recorded {prof['markers']} time(s))")
     for p in (prompts[:1], prompts):
         parts = medusa_round_parts(serve, p)
         log(f"medusa round parts at B={p.shape[0]} (graph replays, ms): window step "
@@ -6994,6 +7034,25 @@ def fwd_resources() -> dict:
                 blocks_per_sm=vals[3], ptxas="; ".join(ptxas))
 
 
+def d96_resources() -> list:
+    """The head_dim-96 builds' ``ptxas -v`` spill lines (every kernel of
+    csrc/flash_attention.cu and csrc/flash_decode.cu at -DNXD_HEAD_DIM=96):
+    none may spill, nor may ptxas serialize K1's ``wgmma`` products."""
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    out = []
+    for name in ("flash_attention_d96", "flash_decode_d96"):
+        text = _build.resource_report(name)
+        spills = [line.strip() for line in text.splitlines() if "spill" in line]
+        if not spills or any("0 bytes spill stores, 0 bytes spill loads" not in line
+                             for line in spills):
+            raise AssertionError(f"{name} spills or was not reported:\n" + "\n".join(spills))
+        if "C7514" in text or "C7515" in text:
+            raise AssertionError(f"ptxas serialized {name}'s wgmma products:\n{text}")
+        out.append(f"{name}: {len(spills)} kernels, no spill")
+    return out
+
+
 def bwd_resources() -> list:
     """K2's and K3's resources as built: dynamic shared memory, registers a
     thread at entry, spill bytes and blocks per SM from the runtime, and the
@@ -7288,7 +7347,8 @@ def forced_routes(model, routes: torch.Tensor):
 def record_admissions(engine, rec: RouteRecorder) -> None:
     """File each admission's prefill rows in ``rec``: a full prefill's
     prompt rows (left-padded) from position 0, a hit's suffix rows
-    (right-padded) from its reuse. A row engine without a draft only."""
+    (right-padded) from its reuse. An engine (row or paged) without a
+    draft only."""
     real = engine._admit_and_prefill
 
     def admit(req, slot, call, ctx, p, padded, target, plan):
@@ -8090,6 +8150,467 @@ def log_mixtral_train_phase(mt: dict, smi: str) -> None:
     log(f"7c launches (b) and (c): {mt['launches']}")
 
 
+# --- phase 2, head_dim 96: the builds of K1, K4 and K5 GPT-NeoX-20B runs on ---
+
+NEOX_H, NEOX_D, NEOX_L = 64, 96, 2048  # GPT-NeoX-20B: 64 heads of 96, a kv-head a head, 2048 columns
+D96_DECODE = (  # (name, s, slots, bound): the decode step, the verify window, a suffix prefill
+    ("step", 1, 8, 1540), ("verify", 16, 8, 1540), ("multi_row", 1024, 1, 2000))
+
+
+def check_d96_k1(gen) -> dict:
+    """K1's head_dim-96 build at GPT-NeoX-20B's longest serving prefill: B=1,
+    S=2048, H=Hkv=64, D=96, causal, 77 columns of left padding;
+    :func:`check_k1`'s checks and times, its bound on D = 96's own FLOPs and
+    bytes (the kernel computes on 128-column tiles: 4/3 of them)."""
+    return check_k1(gen, 1, NEOX_L, 77, h=NEOX_H, hkv=NEOX_H, d=NEOX_D)
+
+
+def d96_decode_inputs(gen, s: int, b: int, bound_cols: int):
+    """K4's inputs at GPT-NeoX-20B's geometry: q (B, s, 64, 96), a row cache
+    (B, 2048, 64, 96), positions ``bound - s .. bound - 1``; slot i valid
+    from column 100 i to the bound, and then: at s = 1 10% gap columns at
+    random; at 1 < s <= 32 (a verify window, R = s) the gaps rejected drafts
+    leave over the last 512 columns (``rejected_gaps``); above (a suffix
+    prefill on the multi-row path) a 3-token pad tail."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    q = torch.randn(b, s, NEOX_H, NEOX_D, generator=gen, device=dev).to(bf)
+    kc = torch.randn(b, NEOX_L, NEOX_H, NEOX_D, generator=gen, device=dev).to(bf)
+    vc = torch.randn(b, NEOX_L, NEOX_H, NEOX_D, generator=gen, device=dev).to(bf)
+    pos = torch.arange(bound_cols - s, bound_cols, dtype=torch.int32, device=dev)
+    valid = torch.zeros(b, NEOX_L, dtype=torch.bool, device=dev)
+    for i in range(b):
+        valid[i, 100 * i:bound_cols] = True
+    if s == 1:
+        valid &= torch.rand(b, NEOX_L, generator=gen, device=dev) > 0.1
+    elif s <= 32:
+        start = torch.full((b,), bound_cols - 512, device=dev)
+        valid &= ~rejected_gaps(gen, start, NEOX_L, bound_cols, s)
+    else:
+        valid[:, bound_cols - 3:] = False
+    return q, kc, vc, pos, valid
+
+
+def scrambled_pool(kc, vc, valid, ps: int = 16, seed: int = 11):
+    """Pools and a numpy-seeded scrambled block table for a (B, L) row
+    cache: every logical page holding a valid column maps to a random pool
+    page holding its columns, the rest to page 0, filled with garbage x 64."""
+    import numpy as np
+
+    b, L, hkv, d = kc.shape
+    n_log = L // ps
+    mapped = valid.reshape(b, n_log, ps).any(-1).cpu().numpy()
+    perm = np.random.default_rng(seed).permutation(np.arange(1, int(mapped.sum()) + 1))
+    kp = torch.randn(len(perm) + 1, ps, hkv, d, device=kc.device).to(kc.dtype).mul_(64.0)
+    vp = torch.randn(len(perm) + 1, ps, hkv, d, device=kc.device).to(kc.dtype).mul_(64.0)
+    table = np.zeros((b, n_log), np.int32)
+    table[mapped] = perm
+    idx = torch.from_numpy(perm).long().to(kc.device)
+    src = torch.from_numpy(np.flatnonzero(mapped.reshape(-1))).long().to(kc.device)
+    kp[idx] = kc.reshape(b * n_log, ps, hkv, d)[src]
+    vp[idx] = vc.reshape(b * n_log, ps, hkv, d)[src]
+    return kp, vp, torch.from_numpy(table).to(kc.device)
+
+
+def check_d96_decode(gen, s: int, b: int, bound_cols: int) -> dict:
+    """K4's and K5's head_dim-96 builds at :func:`d96_decode_inputs`: K4
+    against its plain version within K4's limit (a kernel that dropped the
+    last, partial 64-column tile must fail it), twice for the same bits; K5
+    through a scrambled table (page 16, a garbage null page) bitwise equal
+    to K4 on the gathered view; both launched on the 96 build alone. Times
+    as CUDA-graph replays beside the plain versions', the bound (D = 96's
+    own FLOPs and bytes; K5's table entries too) and SDPA's on the row view
+    (boolean mask)."""
+    from torch.nn import functional as F
+
+    from neuronx_distributed_tpu_torch.kernels.flash_decode import (
+        flash_decode_fwd,
+        flash_decode_plain,
+        paged_flash_decode_fwd,
+        paged_flash_decode_plain,
+        paged_gather_leaf,
+    )
+
+    ps = 16
+    q, kc, vc, pos, valid = d96_decode_inputs(gen, s, b, bound_cols)
+    n128 = (flash_decode_fwd.launches, paged_flash_decode_fwd.launches)
+    n96 = (flash_decode_fwd.d96.launches, paged_flash_decode_fwd.d96.launches)
+    out, lse = flash_decode_fwd(q, kc, vc, pos, valid)
+    again, again_lse = flash_decode_fwd(q, kc, vc, pos, valid)
+    kp, vp, bt = scrambled_pool(kc, vc, valid, ps)
+    paged, paged_lse = paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
+    if ((flash_decode_fwd.launches, paged_flash_decode_fwd.launches) != n128
+            or (flash_decode_fwd.d96.launches, paged_flash_decode_fwd.d96.launches)
+            != (n96[0] + 2, n96[1] + 1)):
+        raise AssertionError("head_dim 96: K4/K5 launched another build than the 96 one")
+    kg, vg = paged_gather_leaf(kp, bt, ps), paged_gather_leaf(vp, bt, ps)
+    row, row_lse = flash_decode_fwd(q, kg, vg, pos, valid)
+    ref, ref_lse = flash_decode_plain(q, kc, vc, pos, valid)
+    pv = flash_decode_plain(q, kc, vc.abs(), pos, valid)[0]
+    cut = valid.clone()
+    cut[:, (bound_cols - 1) // 64 * 64:bound_cols] = False
+    fault = flash_decode_plain(q, kc, vc, pos, cut)[0]
+    torch.cuda.synchronize()
+    err, lerr = max_err(out, ref), max_err(lse, ref_lse)
+    ratio, fault_ratio = tol_ratio(out, ref, pv, K4_PV), tol_ratio(fault, ref, pv, K4_PV)
+    tag = f"K4/K5 head_dim 96 (s={s}, B={b})"
+    if not (ratio <= 1.0 and lerr <= LSE_TOL):
+        raise AssertionError(f"{tag}: max |out err| {err} at {ratio:.3g}x its limit, "
+                             f"|lse err| {lerr} (tol {LSE_TOL})")
+    if fault_ratio <= 1.0:
+        raise AssertionError(f"{tag}: the output limit passes a dropped tile ({fault_ratio:.3g}x)")
+    if not (torch.equal(out, again) and torch.equal(lse, again_lse)):
+        raise AssertionError(f"{tag}: two runs differ in their bits")
+    if not (torch.equal(paged, row) and torch.equal(paged_lse, row_lse)):
+        raise AssertionError(f"{tag}: K5 differs from K4 on the gathered view (must be bitwise equal)")
+    del ref, pv, fault
+    bound, bound_by, nbytes = decode_bound(q, valid, pos, bound_cols, NEOX_H)
+    pbound = decode_bound(q, valid, pos, bound_cols, NEOX_H,
+                          extra_bytes=4 * b * -(-bound_cols // ps))[0]
+    mask = row_masks(valid, pos)
+    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+    return dict(
+        s=s, b=b, bound_cols=bound_cols, rows=s, err=max(err, lerr), ratio=ratio,
+        fault_ratio=fault_ratio, bound_ms=bound, bound_by=bound_by, paged_bound_ms=pbound,
+        bytes=nbytes, live_cols=int(valid[:, :bound_cols].sum()), pages=kp.shape[0],
+        ms=graph_ms(lambda: flash_decode_fwd(q, kc, vc, pos, valid), 10),
+        paged_ms=graph_ms(lambda: paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps), 10),
+        plain_ms=cuda_ms(lambda: flash_decode_plain(q, kc, vc, pos, valid), 3, warmup=1),
+        paged_plain_ms=cuda_ms(lambda: paged_flash_decode_plain(q, kp, vp, bt, pos, valid, ps), 3,
+                               warmup=1),
+        library_ms=graph_ms(sdpa, 10))
+
+
+def log_d96(k1: dict, dec: dict, smi: str) -> None:
+    log(f"K1 flash_attention_d96 ({smi}; the head_dim-96 build) B=1 S={NEOX_L} H=Hkv={NEOX_H} "
+        f"D={NEOX_D} causal pad 77 (GPT-NeoX-20B's prefill): max_err {k1['err']:.3g} "
+        f"({k1['ratio']:.3g}x its limit; a dropped K tile reads {k1['fault_ratio']:.3g}x); two "
+        f"runs bitwise equal; kernel_ms {k1['ms']:.4f} (graph replay; back to back "
+        f"{k1['eager_ms']:.4f}) plain_ms {k1['plain_ms']:.4f} bound_ms {k1['bound_ms']:.4f} "
+        f"({k1['bound_by']}, D = 96's own work; {k1['ms'] / k1['bound_ms']:.2f}x, "
+        f"{k1['tflops']:.1f} TFLOP/s) library_ms {k1['library_ms']:.4f} (SDPA, bool mask; graph "
+        f"replay); tile plan {k1['plan']['blocks']} blocks, {k1['plan']['visited']} visited "
+        f"tile pairs ({k1['plan']['work_over_bound']:.3f}x the live pairs)")
+    for name, r in dec.items():
+        path = "multi-row" if r["rows"] > 32 else "split"
+        log(f"K4/K5 flash_decode_d96 / paged_flash_decode_d96 ({smi}; {name}: B={r['b']} "
+            f"s={r['s']} (R={r['rows']}, the {path} path) H=Hkv={NEOX_H} D={NEOX_D} L={NEOX_L} "
+            f"bound {r['bound_cols']}, {r['live_cols']} live columns; K5 page 16 through a "
+            f"scrambled table of {r['pages']} pages, garbage null page): max_err {r['err']:.3g} "
+            f"({r['ratio']:.3g}x its limit; a dropped tile reads {r['fault_ratio']:.3g}x); two "
+            f"runs bitwise equal, K5 bitwise equal to K4 on the gathered view; K4 kernel_ms "
+            f"{r['ms']:.4f} K5 kernel_ms {r['paged_ms']:.4f} (graph replays) plain_ms "
+            f"{r['plain_ms']:.4f} (K5's {r['paged_plain_ms']:.4f}) bound_ms {r['bound_ms']:.5f} "
+            f"({r['bound_by']}, {r['bytes']} B; K5's {r['paged_bound_ms']:.5f}; "
+            f"{r['ms'] / r['bound_ms']:.2f}x) library_ms {r['library_ms']:.4f} (SDPA, bool mask, "
+            f"on the row view; graph replay)")
+
+
+# --- phase 5n: the other decoder families -----------------------------------------
+
+# phase 4's six requests with the prompts a 2048-column model holds (2000 +
+# 32 new tokens at most)
+FAMILY_LENGTHS = (30, 250, 700, 1100, 1500, 2000)
+DBRX_LAYERS, DBRX_SEQ = 8, 4096  # DBRX's cuts: 8 of its 40 layers, 4096 of its 32768 columns
+ATTENTION_KERNELS = ("flash_attention", "flash_attention_d96", "flash_decode", "flash_decode_d96",
+                     "paged_flash_decode", "paged_flash_decode_d96", "qpaged_flash_decode",
+                     "qpaged_write_attend", "flash_attention_dkdv", "flash_attention_dq",
+                     "window_requantize")
+
+
+def family_workload(vocab: int, lengths, gen):
+    """Phase 4's workload at ``lengths``: 32 new tokens each, greedy but for
+    the third request (temperature 0.8, top_k 50)."""
+    from neuronx_distributed_tpu_torch.inference.generate import GenerationConfig
+
+    prompts = [torch.randint(1, vocab, (n,), generator=gen, device="cuda").cpu().numpy()
+               for n in lengths]
+    cfgs = [GenerationConfig(max_new_tokens=32, temperature=0.0) for _ in lengths]
+    cfgs[2] = GenerationConfig(max_new_tokens=32, temperature=0.8, top_k=50)
+    return prompts, cfgs
+
+
+def family_serve(model, workload, paged: bool, eager: bool = False, witness=None) -> dict:
+    """Phase 4's run on one engine over a family's model: 8 slots, chunk 8,
+    no prefix cache (paged: page 16 and a pool of ROW_SLOTS row slots' bytes
+    plus the null page), the decode step one CUDA graph (``eager``: the
+    eager step, or ``witness(engine)``'s context). Every kernel's launch
+    count is zeroed just before and read just after: every request DONE
+    with its 32 tokens; K1 a prefill and K4 (paged: K5) an executed step
+    once a layer, all on the build of the model's head dim, no other
+    attention kernel."""
+    from neuronx_distributed_tpu_torch.serving.engine import ServingEngine
+    from neuronx_distributed_tpu_torch.serving.scheduler import RequestState
+
+    cfg = model.config
+    layers, sfx = cfg.num_layers, "_d96" if cfg.head_dim_ == 96 else ""
+    kw = dict(kv_page_size=PAGE, kv_num_pages=ROW_SLOTS * cfg.max_seq_len // PAGE + 1) if paged else {}
+    engine = ServingEngine(model, num_slots=8, decode_chunk_size=8, prefix_cache=None, **kw)
+    prompts, cfgs = workload
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    ctx = ((witness(engine) if witness is not None else eager_decode_step()) if eager
+           else contextlib.nullcontext())
+    with ctx:
+        t0 = time.perf_counter()
+        reqs = [engine.submit(p, c, seed=i) for i, (p, c) in enumerate(zip(prompts, cfgs))]
+        engine.step()  # admits all six: six prefills, then one decode chunk
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        executed0 = engine.metrics.executed_steps
+        engine.run()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    launches, warm = engine_launches(engine, {name: c.launches for name, c in counters.items()})
+    what = f"{type(model).__name__} {'paged' if paged else 'row'}{' eager' if eager else ''}"
+    for r in reqs:
+        if r.state is not RequestState.DONE or len(r.tokens) != r.config.max_new_tokens:
+            raise AssertionError(f"{what}: request {r.rid} {r.state} with {len(r.tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.tokens):
+            raise AssertionError(f"{what}: request {r.rid}: a token outside the vocabulary")
+    snap = engine.metrics.snapshot()
+    want = dict.fromkeys(ATTENTION_KERNELS, 0)
+    want["flash_attention" + sfx] = snap["prefills"] * layers
+    want[("paged_flash_decode" if paged else "flash_decode") + sfx] = snap["executed_steps"] * layers
+    got = {k: launches[k] - warm[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: attention launches {got} != {want}")
+    if paged:
+        engine.cache.check()
+    check_program(engine, what, eager)
+    prog = decode_program(engine)
+    res = dict(tokens=[list(r.tokens) for r in reqs], rids=[r.rid for r in reqs],
+               launches=launches, snap=snap, wall_s=t2 - t0, admit_s=t1 - t0, decode_s=t2 - t1,
+               decode_only_executed=snap["executed_steps"] - executed0,
+               replays=prog.replays if prog is not None else None,
+               per_replay=dict(prog.launches_per_replay) if prog is not None else None)
+    del engine
+    collect_engines()
+    return res
+
+
+def family_line(what: str, r: dict) -> str:
+    sn = r["snap"]
+    return (f"{what}: every request DONE with 32 tokens; {sn['prefills']} prefills, "
+            f"{sn['executed_steps']} decode steps executed, one capture, {r['replays']} replays, "
+            f"launches a replay {r['per_replay']}; TTFT mean {sn['mean_ttft']:.4f} s max "
+            f"{sn['max_ttft']:.4f} s; {1e3 * r['decode_s'] / max(r['decode_only_executed'], 1):.2f}"
+            f" ms a decode-only step; decode {sn['chunk_tokens_per_sec']:.1f} tok/s (chunk "
+            f"wall); wall {r['wall_s']:.3f} s")
+
+
+def greedy_solo(model, workload) -> list:
+    """Solo ``generate`` of each greedy request of ``workload`` (None for a
+    sampled one)."""
+    from neuronx_distributed_tpu_torch.inference.generate import generate
+
+    prompts, cfgs = workload
+    return [generate(model, torch.tensor(p[None]), c).cpu()[0].tolist()
+            if c.temperature == 0.0 else None for p, c in zip(prompts, cfgs)]
+
+
+def agreement(a: list, b: list, cfgs) -> str:
+    """Equal tokens over the greedy requests' streams (``cfgs``' greedy
+    ones; None: no stream), as ``n/m``."""
+    pairs = [(x, y) for x, y, c in zip(a, b, cfgs)
+             if x is not None and y is not None and c.temperature == 0.0]
+    return f"{sum(u == v for x, y in pairs for u, v in zip(x, y))}/{sum(len(x) for x, _ in pairs)}"
+
+
+def dense_family(name: str, model, workload, paged: bool) -> dict:
+    """A dense family (GPT-NeoX, CodeGen) served: the row engine and its
+    eager witness (the same streams bit for bit), the paged engine
+    (``paged``), solo ``generate`` of the greedy requests; every greedy
+    token of each within phase 3's limit of its row's maximum logit in a
+    teacher-forced pass; peak memory."""
+    row = family_serve(model, workload, False)
+    wit = family_serve(model, workload, False, eager=True)
+    if wit["tokens"] != row["tokens"]:
+        raise AssertionError(f"{name}: row streams differ between the decode graph and the eager step")
+    runs = {"row": row}
+    if paged:
+        runs["paged"] = family_serve(model, workload, True)
+    solo = greedy_solo(model, workload)
+    prompts, cfgs = workload
+    teach = {k: teacher_ratio(model, workload, r["tokens"]) for k, r in runs.items()}
+    greedy = [i for i, c in enumerate(cfgs) if c.temperature == 0.0]
+    teach["solo"] = teacher_ratio(model, ([prompts[i] for i in greedy], [cfgs[i] for i in greedy]),
+                                  [solo[i] for i in greedy])
+    if max(teach.values()) > 1.0:
+        raise AssertionError(f"{name}: a greedy token is past phase 3's limit from its row's "
+                             f"maximum, teacher-forced: {teach}")
+    return dict(runs=runs, solo=solo, teach=teach,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                solo_agree=agreement(solo, row["tokens"], cfgs),
+                paged_agree=(agreement(runs["paged"]["tokens"], row["tokens"], cfgs) if paged
+                             else None))
+
+
+def family_phase(smi: str) -> dict:
+    """Phase 5n: the other decoder families at full width, weights from seed
+    0 filled on the card weight by weight (``init_params``), bf16, each freed
+    (collected first) before the next. (a) GPT-NeoX-20B whole (44 layers,
+    head_dim 96: the 96 builds of K1, K4 and K5, every 128 count 0): phase 4's
+    requests (prompts cut to 2048 columns) through the row engine, its eager
+    witness, the paged engine and solo ``generate``, peak memory under 72
+    GiB. (b) CodeGen2.5-7B whole (head_dim 128): the same on the row engine
+    and solo ``generate``. (c) DBRX at full width cut to DBRX_LAYERS layers
+    and DBRX_SEQ columns: phase 4's requests through the row engine (its
+    decode step on MX, DBRX_LAYERS a replay; prefills on the blockwise
+    route), its eager witness recording the routes, every greedy token
+    within phase 3's limit teacher-forced on the routes that served it; the
+    same through the paged engine and its recording witness, with where the
+    two engines' streams first part."""
+    from neuronx_distributed_tpu_torch.models import (
+        CodeGenForCausalLM,
+        DbrxForCausalLM,
+        GPTNeoXForCausalLM,
+        codegen25_7b,
+        dbrx_base,
+        gpt_neox_20b,
+    )
+    from neuronx_distributed_tpu_torch.models.gpt_neox import init_params
+    import numpy as np
+
+    out = {"launches": dict.fromkeys(kernel_counters(), 0)}
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    def add(launches):
+        for k, v in launches.items():
+            out["launches"][k] += v
+
+    def build(cls, cfg):
+        collect_engines()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = init_params(cls(cfg), seed=0)
+        torch.cuda.synchronize()
+        n = sum(p.numel() for p in model.parameters())
+        return model, n, time.perf_counter() - t0
+
+    # (a) GPT-NeoX-20B, all 44 layers
+    cfg = gpt_neox_20b()
+    model, n, init_s = build(GPTNeoXForCausalLM, cfg)
+    log(f"5n(a) model: gpt_neox_20b, all {cfg.num_layers} layers, head_dim {cfg.head_dim_} "
+        f"({cfg.hidden_size} / {cfg.num_heads}), {n / 1e9:.3f} B params bf16 "
+        f"({2 * n / 1e9:.2f} GB; norms f32), filled on the card in {init_s:.1f} s")
+    wl = family_workload(cfg.vocab_size, FAMILY_LENGTHS, gen)
+    neox = dense_family("5n(a) GPT-NeoX-20B", model, wl, paged=True)
+    if neox["peak_gib"] >= 72:
+        raise AssertionError(f"5n(a): peak memory {neox['peak_gib']:.2f} GiB, not under 72")
+    for k, r in neox["runs"].items():
+        add(r["launches"])
+        log(family_line(f"5n(a) GPT-NeoX-20B {k} engine ({smi}; phase 4's 6 requests at "
+                        f"{FAMILY_LENGTHS} tokens, 8 slots, chunk 8"
+                        + (", page 16" if k == "paged" else "") + ")", r))
+    log(f"5n(a) GPT-NeoX-20B ({smi}): the eager step's row streams identical; greedy tokens "
+        f"teacher-forced: largest gap {max(neox['teach'].values()):.3g}x phase 3's limit (<= 1; "
+        f"row, paged, solo generate: {neox['teach']}); paged = row on {neox['paged_agree']} "
+        f"greedy tokens, solo generate = row on {neox['solo_agree']}; launches of the 96 "
+        f"builds: K1 {out['launches']['flash_attention_d96']} (= prefills x 44), K4 "
+        f"{out['launches']['flash_decode_d96']}, K5 {out['launches']['paged_flash_decode_d96']} "
+        f"(= (replays + warm-up) x 44), every head_dim-128 attention count 0; peak mem "
+        f"{neox['peak_gib']:.2f} GiB (< 72)")
+    out["a"] = dict(n_params=n, peak_gib=neox["peak_gib"],
+                    ttft=neox["runs"]["row"]["snap"]["mean_ttft"],
+                    tps=neox["runs"]["row"]["snap"]["chunk_tokens_per_sec"],
+                    paged_tps=neox["runs"]["paged"]["snap"]["chunk_tokens_per_sec"])
+    del model, neox
+    collect_engines()
+
+    # (b) CodeGen2.5-7B, all 32 layers
+    cfg = codegen25_7b()
+    model, n, init_s = build(CodeGenForCausalLM, cfg)
+    log(f"5n(b) model: codegen25_7b, all {cfg.num_layers} layers, head_dim {cfg.head_dim_}, "
+        f"{n / 1e9:.3f} B params bf16, filled on the card in {init_s:.1f} s")
+    wl = family_workload(cfg.vocab_size, FAMILY_LENGTHS, gen)
+    cg = dense_family("5n(b) CodeGen2.5-7B", model, wl, paged=False)
+    add(cg["runs"]["row"]["launches"])
+    log(family_line(f"5n(b) CodeGen2.5-7B row engine ({smi}; phase 4's 6 requests at "
+                    f"{FAMILY_LENGTHS} tokens, 8 slots, chunk 8)", cg["runs"]["row"]))
+    log(f"5n(b) CodeGen2.5-7B ({smi}): the eager step's streams identical; greedy tokens "
+        f"teacher-forced: largest gap {max(cg['teach'].values()):.3g}x phase 3's limit; solo "
+        f"generate = row on {cg['solo_agree']} greedy tokens; K1 and K4 on the head_dim-128 "
+        f"builds, every 96 count 0; peak mem {cg['peak_gib']:.2f} GiB")
+    out["b"] = dict(n_params=n, ttft=cg["runs"]["row"]["snap"]["mean_ttft"],
+                    tps=cg["runs"]["row"]["snap"]["chunk_tokens_per_sec"])
+    del model, cg
+    collect_engines()
+
+    # (c) DBRX at full width, cut in depth and context
+    cfg = dbrx_base(num_layers=DBRX_LAYERS, max_seq_len=DBRX_SEQ)
+    model, n, init_s = build(DbrxForCausalLM, cfg)
+    log(f"5n(c) model: dbrx_base cut to {cfg.num_layers} of 40 layers and {cfg.max_seq_len} "
+        f"columns (widths kept: hidden {cfg.hidden_size}, {cfg.num_heads}/{cfg.num_kv_heads} "
+        f"heads, {cfg.num_experts} experts top-{cfg.top_k}, intermediate {cfg.intermediate_size}),"
+        f" {n / 1e9:.3f} B params bf16 ({2 * n / 1e9:.2f} GB; routers f32), filled on the card "
+        f"in {init_s:.1f} s")
+    wl = family_workload(cfg.vocab_size, (30, 250, 700, 1500, 2200, 3000), gen)
+    prompts, cfgs = wl
+    row = family_serve(model, wl, False)
+    moe_expert_gates("5n(c) row serving", row, cfg.num_layers, "moe_experts", cfg.num_layers)
+    rec, steps = RouteRecorder(model), {}
+    wit = family_serve(model, wl, False, eager=True,
+                       witness=lambda engine: recorded_eager_steps(engine, rec, steps))
+    rec.close()
+    if wit["tokens"] != row["tokens"]:
+        raise AssertionError("5n(c): row streams differ between the decode graph and the eager step")
+    greedy = [i for i, c in enumerate(cfgs) if c.temperature == 0.0]
+    for i in greedy:
+        file_decode_routes(rec, steps, wit["rids"][i], prompts[i], wit["tokens"][i])
+    paged = family_serve(model, wl, True)
+    moe_expert_gates("5n(c) paged serving", paged, cfg.num_layers, "moe_experts", cfg.num_layers)
+    prec, psteps = RouteRecorder(model), {}
+    pwit = family_serve(model, wl, True, eager=True,
+                        witness=lambda engine: recorded_eager_steps(engine, prec, psteps))
+    prec.close()
+    if pwit["tokens"] != paged["tokens"]:
+        raise AssertionError("5n(c): paged streams differ between the decode graph and the eager step")
+    for i in greedy:
+        file_decode_routes(prec, psteps, pwit["rids"][i], prompts[i], pwit["tokens"][i])
+    teach = moe_teacher_ratio(model, [(rec, prompts[i], row["tokens"][i]) for i in greedy]
+                              + [(prec, prompts[i], paged["tokens"][i]) for i in greedy])
+    if teach["ratio"] > 1.0:
+        raise AssertionError(f"5n(c): a served greedy token is {teach['ratio']:.3g}x phase 3's "
+                             f"limit from its row's maximum, teacher-forced on its own routes")
+    # where the row and paged engines part: each greedy request's first
+    # differing token and, within the context they share, the first
+    # position and layer at which their routes differ
+    partings = []
+    for i in greedy:
+        a, b = row["tokens"][i], paged["tokens"][i]
+        jd = next((j for j, (u, v) in enumerate(zip(a, b)) if u != v), None)
+        if jd is None:
+            partings.append(f"request {i} identical")
+            continue
+        shared = np.concatenate([prompts[i], a[:jd]])
+        first = first_route_difference(rec.routes_for(shared), prec.routes_for(shared))
+        partings.append(f"request {i} at token {jd}, routes first differ at "
+                        + (f"position {first[0]} (prompt {len(prompts[i])}), layer {first[1]}"
+                           if first else "no position"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for r in (row, paged):
+        add(r["launches"])
+    for k, r in (("row", row), ("paged", paged)):
+        log(family_line(f"5n(c) DBRX ({cfg.num_layers} layers) {k} engine ({smi}; phase 4's 6 "
+                        f"requests, 8 slots, chunk 8" + (", page 16" if k == "paged" else "")
+                        + ")", r))
+    log(f"5n(c) DBRX ({smi}): the eager step's streams identical; MX {cfg.num_layers} a replay "
+        f"(top-{cfg.top_k} of {cfg.num_experts} at 8 slots); the greedy tokens teacher-forced on "
+        f"the routes that served them: largest gap {teach['ratio']:.3g}x phase 3's limit (<= 1); "
+        f"of the {teach['forced']} forced (token, layer) routes, {teach['flips']} differ from the "
+        f"forward's own top-{cfg.top_k} (row and paged engines, each through its eager witness "
+        f"with the same streams); paged = row on {agreement(row['tokens'], paged['tokens'], cfgs)} "
+        f"greedy tokens, where they part: {'; '.join(partings)}; peak mem {peak:.2f} GiB")
+    out["c"] = dict(n_params=n, peak_gib=peak, ttft=row["snap"]["mean_ttft"],
+                    tps=row["snap"]["chunk_tokens_per_sec"])
+    del model
+    collect_engines()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8106,8 +8627,10 @@ def main() -> int:
     log(smi)  # the card's name and power limit, as nvidia-smi prints them
     t0 = time.perf_counter()
     _build.build(["flash_attention", "flash_attention_bwd", "flash_decode", "dequantize",
-                  "kv_quant", "page_fingerprint", "tree_fingerprint", "moe_experts"])
-    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the eight sources in parallel)")
+                  "kv_quant", "page_fingerprint", "tree_fingerprint", "moe_experts",
+                  "flash_attention_d96", "flash_decode_d96"])
+    log(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, the eight sources and the "
+        f"head_dim-96 builds of two of them, ten libraries in parallel)")
     for r in [fwd_resources(), *bwd_resources()]:
         log(f"{r['kernel']}: {r['smem']} B dynamic shared memory a block, {r['regs']} registers a "
             f"thread at entry, {r['local']} B local a thread, {r['blocks_per_sm']} block(s) per SM; "
@@ -8117,6 +8640,8 @@ def main() -> int:
         log(f"{r['kernel']}: {r['smem']} B dynamic shared memory a block, {r['regs']} registers a "
             f"thread, {r['local']} B local a thread, {r['blocks_per_sm']} block(s) per SM")
     log(f"ptxas -v, csrc/flash_decode.cu: {n_spill_lines} kernels, none spills")
+    log("ptxas -v, the head_dim-96 builds (-DNXD_HEAD_DIM=96; no serialized wgmma): "
+        + "; ".join(d96_resources()))
     qw_spills = [line.strip() for line in _build.resource_report("kv_quant").splitlines()
                  if "spill" in line]
     if not qw_spills or any("0 bytes spill stores, 0 bytes spill loads" not in line
@@ -8311,6 +8836,12 @@ def main() -> int:
         log(f"K4/K5 multi-row (R={r['rows']}) tile plan: {pl['blocks']} blocks (64-row tiles x 8 "
             f"kv-heads), {pl['visited']} visited 64-column tiles, {pl['masked']} of them masked; "
             f"the visited tiles hold {pl['work_over_live']:.3f}x the live pairs")
+    # the head_dim-96 builds: their own generator, so the other checks keep their inputs
+    dgen = torch.Generator(device="cuda").manual_seed(96)
+    k1_96 = check_d96_k1(dgen)
+    dec96 = {name: check_d96_decode(dgen, s, b, bound) for name, s, b, bound in D96_DECODE}
+    log_d96(k1_96, dec96, smi)
+    torch.cuda.empty_cache()
     k23 = {(s, packed): check_k2k3(gen, s, packed, timed=s == 4096)
            for s, packed in ((4096, False), (4096, True), (1000, False))}
     for (s, packed), r in k23.items():
@@ -8444,6 +8975,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     moe = moe_phase(smi)
+    fam = family_phase(smi)
 
     tvp = train_vs_plain()
     log(f"training, kernel path vs plain path (2 layers, 2 x 1024 packed, one step): loss "
@@ -8476,13 +9008,14 @@ def main() -> int:
                 + spec["launches"][name] + med["launches"][name] + quant["launches"][name]
                 + fault["launches"][name] + slo["launches"][name] + tier["launches"][name]
                 + weights["launches"][name] + fabric["launches"][name]
-                + integ["launches"][name] + moe["launches"][name] + tr["launches"][name]
-                + lp["launches"][name] + mt["launches"][name] for name in tr["launches"]}
+                + integ["launches"][name] + moe["launches"][name] + fam["launches"][name]
+                + tr["launches"][name] + lp["launches"][name] + mt["launches"][name]
+                for name in tr["launches"]}
     log(f"launches on the main paths (serving, paged serving with K5, prefix-cache serving, "
         f"speculative serving row and paged, Medusa, quantized serving, the fault contract, "
         f"SLO-aware multi-tenant serving, the host page tier, weights that change, the serving "
-        f"fabric, integrity and program observability, Mixtral serving, training, the training "
-        f"loop, Mixtral training): "
+        f"fabric, integrity and program observability, Mixtral serving, the other decoder "
+        f"families, training, the training loop, Mixtral training): "
         f"{launches}; "
         f"on the multi-row path (prefix-cache serving): {pre['multi_row']}; the speculative "
         f"rounds' verify windows (s = {SPEC_GAMMA}): {spec['verify']}")
@@ -8631,6 +9164,35 @@ def main() -> int:
              library_ms=mx[("int8", "random", 8)]["library_ms"],
              fp8_ms=mx[("fp8", "random", 8)]["ms"],
              fp8_library_ms=mx[("fp8", "random", 8)]["library_ms"]),
+    ]
+    # the head_dim-96 builds (GPT-NeoX-20B's), kernels of their own
+    step96, verify96, rows96 = dec96["step"], dec96["verify"], dec96["multi_row"]
+    kernels += [
+        dict(name="flash_attention_d96", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/flash_attention.cu",
+             replaces="neuronx_distributed_tpu/kernels/flash_attention.py:199",
+             launches=launches["flash_attention_d96"], max_abs_err=k1_96["err"], ms=k1_96["ms"],
+             plain_ms=k1_96["plain_ms"], bound_ms=k1_96["bound_ms"], bound_by=k1_96["bound_by"],
+             library_ms=k1_96["library_ms"], build="-DNXD_HEAD_DIM=96"),
+        dict(name="flash_decode_d96", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/flash_decode.cu",
+             replaces="neuronx_distributed_tpu/kernels/flash_decode.py:301",
+             launches=launches["flash_decode_d96"],
+             max_abs_err=max(r["err"] for r in dec96.values()), ms=step96["ms"],
+             plain_ms=step96["plain_ms"], bound_ms=step96["bound_ms"],
+             bound_by=step96["bound_by"], library_ms=step96["library_ms"],
+             verify_ms=verify96["ms"], verify_bound_ms=verify96["bound_ms"],
+             multi_row_ms=rows96["ms"], multi_row_bound_ms=rows96["bound_ms"],
+             build="-DNXD_HEAD_DIM=96"),
+        dict(name="paged_flash_decode_d96", route="cuda",
+             source="neuronx_distributed_tpu_torch/csrc/flash_decode.cu",
+             replaces="neuronx_distributed_tpu/kernels/flash_decode.py:617",
+             launches=launches["paged_flash_decode_d96"],
+             max_abs_err=max(r["err"] for r in dec96.values()), ms=step96["paged_ms"],
+             plain_ms=step96["paged_plain_ms"], bound_ms=step96["paged_bound_ms"],
+             bound_by=step96["bound_by"], library_ms=step96["library_ms"],
+             verify_ms=verify96["paged_ms"], multi_row_ms=rows96["paged_ms"],
+             build="-DNXD_HEAD_DIM=96"),
     ]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

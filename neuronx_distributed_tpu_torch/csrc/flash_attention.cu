@@ -46,6 +46,12 @@
 //    LSE ~ -1e30;
 //  * no atomics: every output element is written once, two runs give the
 //    same bits.
+//  * the head_dim-96 build (-DNXD_HEAD_DIM=96, flash_common.cuh;
+//    GPT-NeoX-20B) keeps the 128-column tiles and `wgmma` shapes: the
+//    tensor maps' head dim is 96, so TMA zero-fills columns 96..127 of
+//    every tile, S = Q K^T stops after six k-steps (96 columns), O += P V
+//    runs 128 columns of which 32 are zeros (4/3 of that product's work),
+//    and the epilogue stores 96 columns.
 // Tried and dropped, each no faster in a same-call A/B (PERF.md): a
 // producer-only warp (ptxas then caps a thread at 168 registers and
 // spills), ping-pong of the two warpgroups on named barriers, the softmax
@@ -227,7 +233,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   auto v_tile = [&](int stage) { return sm + SM_V + stage * tile_bytes(BK); };
   auto issue_s = [&](float (&acc)[64], int stage) {
     wgmma_fence();
-    ss_product_n128<BQ, BK>(acc, q_desc, desc_kmajor(k_tile(stage), 0));
+    ss_product_n128<BQ, BK, DH / 16>(acc, q_desc, desc_kmajor(k_tile(stage), 0));
     wgmma_commit();
   };
   float s[64];
@@ -336,7 +342,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
   bf16* ob = p.o + b * p.sob + h * p.soh;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DH / 8; ++n) {  // O's columns past DH are zeros, never stored
     const int d = 8 * n + 2 * t4;
     if (r0 < p.S)
       *reinterpret_cast<__nv_bfloat162*>(ob + (long long)r0 * p.sos + d) =
@@ -383,9 +389,9 @@ extern "C" int nxd_flash_attention_fwd(
   p.scale = scale;
   CUtensorMap m[3];
   int err;
-  if ((err = encode_bshd(&m[0], q, B, S, H, st[0], st[1], st[2], BQ))) return err;
-  if ((err = encode_bshd(&m[1], k, B, Sk, Hkv, st[3], st[4], st[5], BK))) return err;
-  if ((err = encode_bshd(&m[2], v, B, Sk, Hkv, st[6], st[7], st[8], BK))) return err;
+  if ((err = encode_bshd(&m[0], q, B, S, H, st[0], st[1], st[2], BQ, 1, DH))) return err;
+  if ((err = encode_bshd(&m[1], k, B, Sk, Hkv, st[3], st[4], st[5], BK, 1, DH))) return err;
+  if ((err = encode_bshd(&m[2], v, B, Sk, Hkv, st[6], st[7], st[8], BK, 1, DH))) return err;
   cudaFuncSetAttribute(flash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   const int grid = (S + BQ - 1) / BQ * H * B;
   if (grid == 0) return 0;
@@ -410,7 +416,7 @@ extern "C" int nxd_flash_attention_fwd_resources(int* out) {
   return (int)e;
 }
 
-extern "C" int nxd_flash_attention_head_dim() { return D; }
+extern "C" int nxd_flash_attention_head_dim() { return DH; }
 
 // Rows per tile of the segment ranges K1 reads (qmin/qmax, kmin/kmax).
 extern "C" int nxd_flash_attention_fwd_q_tile() { return BQ; }

@@ -2,8 +2,15 @@
 // at R <= 32, flash_decode.cu), whose products run on `mma.sync.m16n8k16`
 // with bf16 inputs and f32 accumulators; the flash-attention forward and
 // backward (K1, flash_attention.cu; K2 and K3, flash_attention_bwd.cu) and
-// the multi-row decode path take only D, bf16 and NEG_INF from here and
+// the multi-row decode path take only D, DH, bf16 and NEG_INF from here and
 // build their `wgmma` products on hopper.cuh.
+//
+// Head dims. Every tile is D = 128 columns wide. A library built with
+// -DNXD_HEAD_DIM=96 (GPT-NeoX-20B; kernels/_build.py HEAD_DIMS) reads and
+// writes tensors of DH = 96 columns: TMA zero-fills a tile's columns past
+// DH, the split path copies DH columns a row, the Q K^T products stop at
+// DH, and only DH columns of O are stored. At the default DH = D every
+// guard folds away and the code is the 128 build's.
 //
 // Fragment layouts of m16n8k16 (g = lane / 4, t = lane % 4):
 //  * A (16 x 16, row major): a0 = (row g, cols 2t..2t+1), a1 = (row g+8,
@@ -25,8 +32,14 @@ namespace nxd_flash {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int D = 128;     // head dim (every Llama preset)
+#ifndef NXD_HEAD_DIM
+#define NXD_HEAD_DIM 128
+#endif
+
+constexpr int D = 128;     // tile width: every Llama preset's head dim
+constexpr int DH = NXD_HEAD_DIM;  // the tensors' head dim, this build's
 constexpr int LD = D + 8;  // bf16 row pitch of staged tiles: conflict-free fragment loads
+static_assert(DH % 32 == 0 && DH <= D, "a head dim of whole 32-column steps, at most a tile");
 constexpr float NEG_INF = -1e30f;
 
 __device__ __forceinline__ void mma_bf16(float c[4], const unsigned a[4], unsigned b0,

@@ -24,6 +24,14 @@
 // prefetch on Hopper: a thread reads the table entry of each column it
 // copies (L1-resident) before issuing the copy.
 //
+// Head dims. Tiles are 128 columns wide. The head_dim-96 build
+// (-DNXD_HEAD_DIM=96, flash_common.cuh; GPT-NeoX-20B) copies 96 columns a
+// cache row on the split path, stops Q K^T at 96 and skips the P V lanes
+// past 96; on the multi-row path TMA zero-fills columns 96..127, Q K^T stops
+// at 96 and P V runs the tile's 128 columns, 32 of them zeros (4/3 of its
+// work). Only 96 columns of O are stored and merged. K5q reads 128-column
+// int8 pages: its entry points refuse the 96 build.
+//
 // What bounds both on an H100: bytes. Every live cache column (K and V, 2*D
 // bf16 of one kv-head, 512 B) feeds only 4*R*D FLOPs — R = 4 for Llama-3-8B
 // at s = 1, about 4 FLOP per byte against the card's ~295 — so the floor is
@@ -206,6 +214,7 @@ namespace {
 using namespace nxd_hopper;
 using nxd_flash::bf16;
 using nxd_flash::D;
+using nxd_flash::DH;
 using nxd_flash::NEG_INF;
 using nxd_flash::cp_async_commit;
 using nxd_flash::cp_async_wait;
@@ -220,13 +229,14 @@ constexpr int SPLIT_TILES = 4;
 constexpr int SPLIT = SPLIT_TILES * TL;  // columns per block
 constexpr int STAGES = 3;
 constexpr int KP = nxd_flash::LD;        // K and Q row pitch (D + 8): conflict-free fragments
-constexpr int CHUNKS = D / 8;            // 16-byte chunks per cache row
+constexpr int CHUNKS = DH / 8;           // 16-byte chunks per cache row (a tile row holds D)
 constexpr int STAGE_BYTES = TL * (KP + D) * (int)sizeof(bf16);
 constexpr int RMAX_ALL = 32;             // rows of the split path; more take the multi-row path
 constexpr int MERGE_CHUNK = 32;          // ranges whose loads the merge issues together
 static_assert(TL == 8 * NWARPS, "each warp scores one 8-column slice of a tile");
 static_assert(SPLIT == NTHREADS && TL % 32 == 0, "a thread per column; a warp's vote in one tile");
 static_assert(SPLIT_TILES <= 32, "live tiles are a bit mask");
+static_assert(TL * CHUNKS % NTHREADS == 0, "a tile's row copies split evenly over the threads");
 
 // K5 reads skb/svb as the pool's page stride and skl/svl as the stride of a
 // row inside a page; bt/sbt/ps_shift/n_pages are K5's alone. K5q's k/v are
@@ -557,7 +567,7 @@ __device__ __forceinline__ void tile_loop(const Params& p, const Smem<RMAX>& sm,
       for (int mt = 0; mt < MT; ++mt) {
         float sc[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-        for (int k16 = 0; k16 < D / 16; ++k16) {
+        for (int k16 = 0; k16 < DH / 16; ++k16) {  // a tile's columns past DH are never read
           unsigned a[4], b0, b1;
           load_a(a, sm.q, mt * 16, k16 * 16, lane);
           k_frag<Cols>(stage, warp * 8 + g, k16 * 16 + tig * 2, ks, b0, b1);
@@ -616,8 +626,9 @@ __device__ __forceinline__ void tile_loop(const Params& p, const Smem<RMAX>& sm,
     for (int k = 0; k < 4; ++k)
 #pragma unroll
       for (int e = 0; e < 8; ++e) st.acc[k][e] *= alpha[k];
+    // head-dim lanes past DH (no copy wrote them) are skipped
 #pragma unroll 4
-    for (int j = 0; j < CPG; ++j) {
+    for (int j = 0; j < (DH == D || 8 * dg < DH ? CPG : 0); ++j) {
       const int c = cg + NCG * j;
       const float4 pr = *reinterpret_cast<const float4*>(sm.S + c * RMAX + 4 * rg);
       float vs = 0.f;  // K5q: the scale of column c's page
@@ -685,10 +696,10 @@ __device__ __forceinline__ void range_tiles(const Params& p, const Smem<RMAX>& s
   RowState st;
   tile_loop<RMAX>(p, sm, cols, tiles, c_begin, st);
   const float* red = reduce_rows<RMAX>(sm, st);
-  for (int i = threadIdx.x; i < R * D; i += NTHREADS) {
-    const int r = i / D, d = i % D;
+  for (int i = threadIdx.x; i < R * DH; i += NTHREADS) {
+    const int r = i / DH, d = i % DH;
     const float2 al = row_sums<RMAX>(sm, red, r, d);
-    p.wo[(part * R + r) * D + d] = al.y > 0.f ? al.x / al.y : 0.f;
+    p.wo[(part * R + r) * DH + d] = al.y > 0.f ? al.x / al.y : 0.f;
     if (d == 0) p.wl[part * R + r] = al.y > 0.f ? sm.m[r] + logf(al.y) : NEG_INF;
   }
 }
@@ -711,7 +722,7 @@ __device__ __forceinline__ void merge_row(const Params& p) {
   const long long slot = (long long)b * p.Hkv + hk;
   const long long stride = (long long)p.B * p.Hkv * R;  // workspace: range-major
   const float* wl = p.wl + slot * R + r;                // + x * stride
-  const float* wo = p.wo + (slot * R + r) * D + d;      // + x * stride * D
+  const float* wo = p.wo + (slot * R + r) * DH + d;     // + x * stride * DH
   float m = NEG_INF;
   if (n > MERGE_CHUNK) {  // a long cache: the maximum first
     for (int x = 0; x < n; ++x) m = fmaxf(m, wl[x * stride]);
@@ -723,7 +734,7 @@ __device__ __forceinline__ void merge_row(const Params& p) {
     for (int x = 0; x < MERGE_CHUNK; ++x) {
       const bool in = x0 + x < n;
       l[x] = in ? wl[(x0 + x) * stride] : NEG_INF;
-      o[x] = in ? wo[(x0 + x) * stride * D] : 0.f;
+      o[x] = in ? wo[(x0 + x) * stride * DH] : 0.f;
     }
     if (n <= MERGE_CHUNK) {  // one chunk: its maximum is the maximum
 #pragma unroll
@@ -1120,7 +1131,7 @@ __device__ __forceinline__ void decode_rows(unsigned char* dsm, const CUtensorMa
   // bf16, two register-A products into one accumulator.
   auto issue_s = [&](float (&acc)[32], int stage) {
     wgmma_fence();
-    ss_product_n64<RBM, RBN>(acc, q_desc, desc_kmajor(sm + RSM_K + stage * RTILE, 0));
+    ss_product_n64<RBM, RBN, DH / 16>(acc, q_desc, desc_kmajor(sm + RSM_K + stage * RTILE, 0));
     wgmma_commit();
   };
   float s[32];
@@ -1286,7 +1297,7 @@ __device__ __forceinline__ void decode_rows(unsigned char* dsm, const CUtensorMa
     const int t = t0 + jt;
     bf16* orow = p.o + b * p.sob + t * p.sos + (hk * G + gq) * p.soh;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DH / 8; ++n)  // O's columns past DH are zeros, never stored
       *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * t4) =
           __floats2bfloat162_rn(o[4 * n + 2 * h] * inv, o[4 * n + 2 * h + 1] * inv);
     // natural log; a row that saw no live column: -1e30
@@ -1321,9 +1332,9 @@ __global__ void __launch_bounds__(NTHREADS, 2) qpaged_flash_decode_kernel_write(
 // The merges of K4, K5 and K5q are one function under three names, so a
 // profile files each under its own kernel's family (K5q with the write
 // launches K5q's).
-__global__ void __launch_bounds__(D) flash_decode_kernel_merge(Params p) { merge_row(p); }
-__global__ void __launch_bounds__(D) paged_flash_decode_kernel_merge(Params p) { merge_row(p); }
-__global__ void __launch_bounds__(D) qpaged_flash_decode_kernel_merge(Params p) { merge_row(p); }
+__global__ void __launch_bounds__(DH) flash_decode_kernel_merge(Params p) { merge_row(p); }
+__global__ void __launch_bounds__(DH) paged_flash_decode_kernel_merge(Params p) { merge_row(p); }
+__global__ void __launch_bounds__(DH) qpaged_flash_decode_kernel_merge(Params p) { merge_row(p); }
 
 __global__ void __launch_bounds__(RTHREADS, RWGS == 1 ? 2 : 1)
     flash_decode_kernel_rows(const __grid_constant__ CUtensorMap tm_q,
@@ -1388,7 +1399,7 @@ int launch(const Params& p, int kind, cudaStream_t stream) {
   kernel_of<RMAX>(kind)<<<dim3(p.Hkv, p.B, p.n_splits), NTHREADS, smem, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  merge_of(kind)<<<dim3(p.Hkv, p.B, (p.H / p.Hkv) * p.s), D, 0, stream>>>(p);
+  merge_of(kind)<<<dim3(p.Hkv, p.B, (p.H / p.Hkv) * p.s), DH, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1401,9 +1412,9 @@ int launch_rows(const Params& p, bool paged, cudaStream_t stream) {
   const int rows = paged && (1 << p.ps_shift) < RBN ? 1 << p.ps_shift : RBN;
   CUtensorMap m[3];
   int err;
-  if ((err = encode_bshd(&m[0], p.q, p.B, p.s, p.H, p.sqb, p.sqs, p.sqh, T, G))) return err;
-  if ((err = encode_bshd(&m[1], p.k, kb, kl, p.Hkv, p.skb, p.skl, p.skh, rows))) return err;
-  if ((err = encode_bshd(&m[2], p.v, kb, kl, p.Hkv, p.svb, p.svl, p.svh, rows))) return err;
+  if ((err = encode_bshd(&m[0], p.q, p.B, p.s, p.H, p.sqb, p.sqs, p.sqh, T, G, DH))) return err;
+  if ((err = encode_bshd(&m[1], p.k, kb, kl, p.Hkv, p.skb, p.skl, p.skh, rows, 1, DH))) return err;
+  if ((err = encode_bshd(&m[2], p.v, kb, kl, p.Hkv, p.svb, p.svl, p.svh, rows, 1, DH))) return err;
   const size_t smem = rows_smem(p.L);
   if ((err = configure(rows_kernel_of(paged), smem))) return err;
   const int grid = (p.s + T - 1) / T * p.Hkv * p.B;
@@ -1465,7 +1476,7 @@ int resources(Kernel kernel, size_t smem, int threads, int* out) {
 
 }  // namespace
 
-// work_o is (ceil(L / split_cols), B, Hkv, R, D) f32 and work_lse
+// work_o is (ceil(L / split_cols), B, Hkv, R, DH) f32 and work_lse
 // (ceil(L / split_cols), B, Hkv, R) f32, uninitialised: the kernels write
 // every entry the merge reads.
 extern "C" int nxd_flash_decode_fwd(
@@ -1533,6 +1544,7 @@ extern "C" int nxd_qpaged_flash_decode_fwd(
   p.ks = static_cast<const bf16*>(ks);
   p.vs = static_cast<const bf16*>(vs);
   p.sksp = sksp; p.sksh = sksh; p.svsp = svsp; p.svsh = svsh;
+  if (DH != D) return (int)cudaErrorInvalidValue;  // int8 pages are 128 columns wide
   return dispatch(p, QPAGED, stream);
 }
 
@@ -1571,6 +1583,7 @@ extern "C" int nxd_qpaged_write_attend_fwd(
   p.w0 = static_cast<const long long*>(w0);
   p.sxkb = sxkb; p.sxks = sxks; p.sxkh = sxkh;
   p.sxvb = sxvb; p.sxvs = sxvs; p.sxvh = sxvh;
+  if (DH != D) return (int)cudaErrorInvalidValue;  // int8 pages are 128 columns wide
   return dispatch(p, QPAGED_WRITE, stream);
 }
 
@@ -1592,7 +1605,7 @@ extern "C" int nxd_flash_decode_resources(int paged, int rmax, int* out) {
 }
 
 extern "C" int nxd_flash_decode_max_rows() { return RMAX_ALL; }
-extern "C" int nxd_flash_decode_head_dim() { return D; }
+extern "C" int nxd_flash_decode_head_dim() { return DH; }
 extern "C" int nxd_flash_decode_split_cols() { return SPLIT; }
 extern "C" int nxd_flash_decode_tile_cols() { return TL; }
 // The multi-row path's tile: rows a block (whole tokens of every head of a

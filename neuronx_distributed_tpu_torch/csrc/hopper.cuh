@@ -263,17 +263,18 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64], const uint32_t 
 }
 
 // acc (64 x N) = 64 rows of an RA-row tile (base descriptor da) times N rows
-// of an RB-row tile (db), transposed, over the 128 columns: both K-major.
-// These only issue: the caller fences, commits and waits.
-template <int RA, int RB, int KK = 0>
+// of an RB-row tile (db), transposed, over the first 16 NK of the 128
+// columns (all of them by default): both K-major. These only issue: the
+// caller fences, commits and waits.
+template <int RA, int RB, int NK = 8, int KK = 0>
 __device__ __forceinline__ void ss_product_n64(float (&acc)[32], uint64_t da, uint64_t db) {
   wgmma_ss_n64<kmajor_step(RA, KK), kmajor_step(RB, KK), (KK > 0)>(acc, da, db);
-  if constexpr (KK < 7) ss_product_n64<RA, RB, KK + 1>(acc, da, db);
+  if constexpr (KK + 1 < NK) ss_product_n64<RA, RB, NK, KK + 1>(acc, da, db);
 }
-template <int RA, int RB, int KK = 0>
+template <int RA, int RB, int NK = 8, int KK = 0>
 __device__ __forceinline__ void ss_product_n128(float (&acc)[64], uint64_t da, uint64_t db) {
   wgmma_ss_n128<kmajor_step(RA, KK), kmajor_step(RB, KK), (KK > 0)>(acc, da, db);
-  if constexpr (KK < 7) ss_product_n128<RA, RB, KK + 1>(acc, da, db);
+  if constexpr (KK + 1 < NK) ss_product_n128<RA, RB, NK, KK + 1>(acc, da, db);
 }
 // acc (64 x 128) (+)= A (64 x 16 KS, bf16 fragments in registers) times the
 // first 16 KS rows of a tile read MN-major (base descriptor db). With
@@ -326,15 +327,16 @@ inline TensorMapEncodeTiled tensor_map_encoder() {
 constexpr int ERR_NO_ENCODER = 900;
 constexpr int ERR_ENCODE = 1000;
 
-// The map of a (B, S, H, 128) bf16 tensor with element strides (sb, ss, sh)
-// and a unit-stride head dim: dims innermost first (128, S, H, B), a box of
-// 64 columns x `rows` rows x `heads` heads (row j of head i lands as row
-// i * rows + j), 128-byte swizzle, zeros past the edges.
+// The map of a (B, S, H, dim) bf16 tensor with element strides (sb, ss, sh)
+// and a unit-stride head dim of `dim` <= 128 columns: dims innermost first
+// (dim, S, H, B), a box of 64 columns x `rows` rows x `heads` heads (row j
+// of head i lands as row i * rows + j), 128-byte swizzle, zeros past the
+// edges: a 128-column tile's columns past `dim` land as zeros.
 inline int encode_bshd(CUtensorMap* map, const void* base, int B, int S, int H, long long sb,
-                       long long ss, long long sh, int rows, int heads = 1) {
+                       long long ss, long long sh, int rows, int heads = 1, int dim = 128) {
   const TensorMapEncodeTiled enc = tensor_map_encoder();
   if (enc == nullptr) return ERR_NO_ENCODER;
-  const cuuint64_t dims[4] = {128, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)dim, (cuuint64_t)S, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, (cuuint32_t)rows, (cuuint32_t)heads, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};

@@ -42,7 +42,8 @@ import torch
 
 
 def kernel_wrappers() -> Dict[str, Callable]:
-    """The kernel wrappers that count their launches, by name."""
+    """The kernel wrappers that count their launches, by name (a wrapper's
+    head_dim-96 build counts in an entry of its own)."""
     from neuronx_distributed_tpu_torch.kernels.flash_attention import (
         flash_attention_dkdv,
         flash_attention_dq,
@@ -71,7 +72,10 @@ def kernel_wrappers() -> Dict[str, Callable]:
             "window_requantize": window_requantize_fwd,
             "page_fingerprint": pool_pages_fingerprint_fwd,
             "tree_fingerprint": tree_fingerprint_fwd, "moe_experts": moe_experts,
-            "moe_experts_quantized": moe_experts_quantized}
+            "moe_experts_quantized": moe_experts_quantized,
+            # the head_dim-96 builds of K1, K4 and K5: kernels of their own
+            "flash_attention_d96": flash_attention_fwd.d96, "flash_decode_d96": flash_decode_fwd.d96,
+            "paged_flash_decode_d96": paged_flash_decode_fwd.d96}
 
 
 class DecodeProgram:

@@ -8,7 +8,13 @@ at the repository root (git-ignored), named by a hash of the source and the
 shared headers (``csrc/*.cuh``), so an edited kernel is rebuilt and a built
 one is reused. ``nvcc`` runs with ``-Xptxas -v``; its report (registers,
 shared memory and spills of every kernel) is kept beside each library and
-read with :func:`resource_report`. Every pointer and the stream cross as
+read with :func:`resource_report`. The attention kernels are also built
+for the other head dims of ``HEAD_DIMS``: ``<source>_d<d>`` (say
+``flash_attention_d96``) is ``csrc/<source>.cu`` under that head dim's
+flags, named and hashed apart from the default build (head dim 128), so
+the two never mix; :func:`head_dim_lib` names the library of a head dim and
+:func:`head_dim_counter` the launch count of its build.
+Every pointer and the stream cross as
 ``c_void_p`` (a strides array as a pointer to ``c_longlong``); each C entry
 point returns ``cudaGetLastError()`` (or one of ``hopper.cuh``'s codes of
 900 and up when a TMA tensor map cannot be made) and :func:`check` raises
@@ -34,6 +40,12 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+# the head dim of every default build
+DEFAULT_HEAD_DIM = 128
+# the attention kernels' other head dims -> their extra nvcc flags; the
+# build of csrc/<source>.cu for head dim d is the library <source>_d<d>
+HEAD_DIMS = {96: ["-DNXD_HEAD_DIM=96"]}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -67,12 +79,40 @@ def _nvcc() -> str:
     raise KernelError("nvcc not found: the CUDA kernels are built on the GPU machine")
 
 
+def head_dim_lib(name: str, d: int) -> str:
+    """The library of ``csrc/<name>.cu`` built for head dim ``d`` (the
+    default build for 128, ``<name>_d<d>`` for a head dim of
+    ``HEAD_DIMS``); ValueError for any other."""
+    if d == DEFAULT_HEAD_DIM:
+        return name
+    if d not in HEAD_DIMS:
+        dims = " and ".join(map(str, [DEFAULT_HEAD_DIM, *HEAD_DIMS]))
+        raise ValueError(f"{name} is built for head_dim {dims}, got {d}")
+    return f"{name}_d{d}"
+
+
+def head_dim_counter(wrapper, d: int):
+    """The launch counter of ``wrapper``'s build for head dim ``d``: the
+    wrapper itself for 128, its attribute ``d<d>`` for another."""
+    return wrapper if d == DEFAULT_HEAD_DIM else getattr(wrapper, f"d{d}")
+
+
+def _source(name: str):
+    """(source name, extra flags) of a library: ``<source>_d<d>`` is the
+    source's build for head dim d."""
+    for d, flags in HEAD_DIMS.items():
+        if name.endswith(f"_d{d}"):
+            return name[:-len(f"_d{d}")], flags
+    return name, []
+
+
 def _lib_path(name: str) -> str:
     """The library's path, named by a hash of its source, the shared headers
     of ``csrc/`` (which every source may include) and the flags."""
-    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    src, extra = _source(name)
+    h = hashlib.sha1(" ".join(NVCC_FLAGS + extra).encode())
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for fname in [name + ".cu", *headers]:
+    for fname in [src + ".cu", *headers]:
         with open(os.path.join(CSRC, fname), "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
@@ -86,7 +126,8 @@ def _start_build(name: str):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")]
+    src, extra = _source(name)
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", tmp, os.path.join(CSRC, src + ".cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     return out, tmp, proc
 
@@ -112,8 +153,9 @@ def build(names: Iterable[str]) -> None:
 
 
 def lib_name(name: str) -> str:
-    """The file name of ``csrc/<name>.cu``'s library: ``lib<name>-<hash>.so``,
-    the hash over its source, the shared headers and the flags."""
+    """The file name of library ``name`` (``csrc/<name>.cu``, or its
+    build for another head dim): ``lib<name>-<hash>.so``, the hash over its source,
+    the shared headers and the flags."""
     return os.path.basename(_lib_path(name))
 
 

@@ -17,16 +17,25 @@ CPU tensors; nothing else decides:
 through it only when an input requires grad. The public API keeps the JAX
 ``(B, S, H, D)`` layout, GQA by ``h // group`` and the equal-segment mask
 (padding = segment ``-1``).
+
+K1 is built twice from its source: for head_dim 128 (every Llama and
+Mixtral preset) and for head_dim 96 (GPT-NeoX-20B,
+``_build.HEAD_DIMS``); the wrapper loads the build of
+q's head dim and raises for any other. The 96 build is a kernel of its own
+with its own count, ``flash_attention_fwd.d96.launches``. K2 and K3 are
+built for head_dim 128 alone.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import types
 from typing import Optional, Tuple
 
 import torch
 
+from neuronx_distributed_tpu_torch.kernels._build import head_dim_counter
 from neuronx_distributed_tpu_torch.observability.programs import metered
 
 NEG_INF = -1e30
@@ -155,9 +164,10 @@ def _kernel_call(q, k, v, causal, q_seg, k_seg):
     b, s, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     _check_operands(q=q, k=k, v=v)
-    lib = _build.load("flash_attention")
+    lib = _build.load(_build.head_dim_lib("flash_attention", d))
     if d != lib.nxd_flash_attention_head_dim():
-        raise ValueError(f"flash attention kernel is built for head_dim 128, got {d}")
+        raise RuntimeError(f"flash_attention library for head_dim {d} reports "
+                           f"{lib.nxd_flash_attention_head_dim()}")
     tiles = (lib.nxd_flash_attention_fwd_q_tile(), lib.nxd_flash_attention_fwd_k_tile())
     if tiles != (FWD_Q_TILE, FWD_K_TILE):
         raise RuntimeError(f"flash_attention library tiles {tiles} != the plan's "
@@ -210,18 +220,20 @@ def flash_attention_fwd(q, k, v, causal: bool = True,
                         kv_segment_ids: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out, lse)`` of flash attention on (B, S, H, D) q and (B, Sk, Hkv,
-    D) k/v. CUDA tensors launch the kernel (bf16, head_dim 128) or raise;
-    CPU tensors run the plain version. ``launches`` counts kernel launches."""
+    D) k/v. CUDA tensors launch the kernel (bf16, head_dim 128 or 96) or
+    raise; CPU tensors run the plain version. ``launches`` counts the
+    launches of the head_dim-128 build, ``d96.launches`` the 96 build's."""
     kv_segment_ids = kv_segment_ids if kv_segment_ids is not None else segment_ids
     _check_args(q, k, v, segment_ids, kv_segment_ids)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, segment_ids, kv_segment_ids)
     out = _kernel_call(q, k, v, causal, segment_ids, kv_segment_ids)
-    flash_attention_fwd.launches += 1
+    head_dim_counter(flash_attention_fwd, q.shape[-1]).launches += 1
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.d96 = types.SimpleNamespace(launches=0)
 
 
 def flash_attention(q, k, v, causal: bool = True,

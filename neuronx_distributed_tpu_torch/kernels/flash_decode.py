@@ -39,6 +39,12 @@ writes, then attends: :func:`qpaged_write_attend_fwd` launches K5q with the
 write folded in (each range's block re-quantizes its share of the write
 window, QW's function, before it attends), one launch a layer where QW and
 K5q took two; its plain version is :func:`qpaged_write_attend_plain`.
+
+K4 and K5 are built twice from their source: for head_dim 128 and for
+head_dim 96 (GPT-NeoX-20B, ``_build.HEAD_DIMS``); a
+wrapper loads the build of q's head dim and raises for any other. The 96
+build's launches are counted apart, in the wrapper's ``d96``. K5q reads
+128-column int8 pages and takes head_dim 128 alone.
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ import torch
 from neuronx_distributed_tpu_torch.observability.programs import metered
 
 from neuronx_distributed_tpu_torch.kernels.dequantize import dequantize_plain
+from neuronx_distributed_tpu_torch.kernels._build import head_dim_counter
 
 NEG_INF = -1e30
 
@@ -135,12 +142,14 @@ def flash_decode_split_plain(q, k_cache, v_cache, q_pos, kv_valid=None, split_co
 
 
 @functools.lru_cache(maxsize=None)
-def _decode_lib() -> SimpleNamespace:
-    """``csrc/flash_decode.cu`` loaded once: its two entry points with their
-    argument types, and the constants the wrappers check and size with."""
+def _decode_lib(d: int = 128) -> SimpleNamespace:
+    """``csrc/flash_decode.cu``'s build for head dim ``d`` (128, or 96:
+    ``_build.HEAD_DIMS``; ValueError for any other)
+    loaded once: its entry points with their argument types, and the
+    constants the wrappers check and size with."""
     from neuronx_distributed_tpu_torch.kernels import _build
 
-    lib = _build.load("flash_decode")
+    lib = _build.load(_build.head_dim_lib("flash_decode", d))
     i, ll, vp = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
     k4, k5 = lib.nxd_flash_decode_fwd, lib.nxd_paged_flash_decode_fwd
     k5q, k5qw = lib.nxd_qpaged_flash_decode_fwd, lib.nxd_qpaged_write_attend_fwd
@@ -160,7 +169,7 @@ def _decode_lib() -> SimpleNamespace:
 def _checked(what, q, k, v, q_pos, kv_valid, L, kv_dtype=torch.bfloat16):
     """The argument checks K4, K5 and K5q share: bf16 q and ``kv_dtype``
     k/v (int8 for K5q) on q's device with unit-stride, 16-byte aligned
-    head dims, head_dim 128, a group of at most 32 q-heads per kv-head (the
+    head dims, head_dim 128 or 96, a group of at most 32 q-heads per kv-head (the
     split path's 32 rows hold every head of a group at s = 1), one position
     per query token, a row-contiguous (B, L) validity mask. Returns
     (library, rows per kv-head, q_pos int32, kv_valid bool)."""
@@ -171,9 +180,9 @@ def _checked(what, q, k, v, q_pos, kv_valid, L, kv_dtype=torch.bfloat16):
         if (t.stride(-1) != 1 or any(st * t.element_size() % 16 for st in t.stride()[:-1])
                 or t.data_ptr() % 16):
             raise ValueError(f"{name} must have a unit-stride, 16-byte aligned head dim")
-    lib = _decode_lib()
+    lib = _decode_lib(d)
     if d != lib.head_dim:
-        raise ValueError(f"{what} is built for head_dim 128, got {d}")
+        raise RuntimeError(f"flash_decode library for head_dim {d} reports {lib.head_dim}")
     g = h // k.shape[2]
     if g > lib.max_rows:
         raise ValueError(f"{what} takes at most {lib.max_rows} q-heads per kv-head, got {g}")
@@ -248,27 +257,30 @@ def flash_decode_fwd(q, k_cache, v_cache, q_pos, kv_valid=None
     """``(out, lse)`` of cached decode attention: q (B, s, H, D) rows at
     cache positions ``q_pos`` (s,) against the cache (B, L, Hkv, D); each row
     attends slots ``<=`` its position, minus slots where ``kv_valid`` (B, L)
-    is False. CUDA tensors launch the kernel (bf16, head_dim 128) or raise;
+    is False. CUDA tensors launch the kernel (bf16, head_dim 128 or 96) or raise;
     CPU tensors run the plain version. ``launches`` counts the calls that
     launched K4 (its range grid and its merge, or its multi-row kernel: one
     launch each call), ``multi_row_launches`` those of them that took the
-    multi-row path (more than 32 rows per kv-head)."""
+    multi-row path (more than 32 rows per kv-head), both for the head_dim-128
+    build; ``d96`` holds the 96 build's."""
     if q.shape[2] % k_cache.shape[2] != 0:
         raise ValueError(f"q heads {q.shape[2]} not a multiple of kv heads {k_cache.shape[2]}")
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, q_pos, kv_valid)
     out = _kernel_call(q, k_cache, v_cache, q_pos, kv_valid)
-    flash_decode_fwd.launches += 1
-    flash_decode_fwd.multi_row_launches += _multi_row(q, k_cache)
+    counter = head_dim_counter(flash_decode_fwd, q.shape[-1])
+    counter.launches += 1
+    counter.multi_row_launches += _multi_row(q, k_cache)
     return out
 
 
 flash_decode_fwd.launches = flash_decode_fwd.multi_row_launches = 0
+flash_decode_fwd.d96 = SimpleNamespace(launches=0, multi_row_launches=0)
 
 
 def _multi_row(q, cache) -> bool:
     """Whether a call with these shapes takes the kernels' multi-row path."""
-    return q.shape[1] * (q.shape[2] // cache.shape[2]) > _decode_lib().max_rows
+    return q.shape[1] * (q.shape[2] // cache.shape[2]) > _decode_lib(q.shape[-1]).max_rows
 
 
 ROWS_TILE = 64       # rows a block of the multi-row path: T = 64 // group whole tokens
@@ -398,11 +410,12 @@ def paged_flash_decode_fwd(q, k_pool, v_pool, block_table, q_pos, kv_valid=None,
     page_size, Hkv, D) through ``block_table`` (B, n_log) int32, masked by
     ``kv_valid`` (B, n_log * page_size). Table entries must be pool page ids
     (the page manager hands out nothing else); page 0's columns must be
-    masked. CUDA tensors launch K5 (bf16, head_dim 128, page_size dividing
+    masked. CUDA tensors launch K5 (bf16, head_dim 128 or 96, page_size dividing
     128) or raise; CPU tensors run the plain version. ``launches`` counts
     the calls that launched K5 (its range grid and its merge, or its
     multi-row kernel: one launch each call), ``multi_row_launches`` those
-    of them that took the multi-row path. With ``k_scale``/``v_scale`` (P,
+    of them that took the multi-row path, both for the head_dim-128 build
+    (``d96`` holds the 96 build's). With ``k_scale``/``v_scale`` (P,
     1, Hkv, 1) the pools are int8 and the call goes to
     :func:`qpaged_flash_decode_fwd` (K5q), which counts its own launches."""
     if q.shape[2] % k_pool.shape[2] != 0:
@@ -417,12 +430,14 @@ def paged_flash_decode_fwd(q, k_pool, v_pool, block_table, q_pos, kv_valid=None,
         return paged_flash_decode_plain(q, k_pool, v_pool, block_table, q_pos, kv_valid,
                                         page_size)
     out = _paged_kernel_call(q, k_pool, v_pool, block_table, q_pos, kv_valid, page_size)
-    paged_flash_decode_fwd.launches += 1
-    paged_flash_decode_fwd.multi_row_launches += _multi_row(q, k_pool)
+    counter = head_dim_counter(paged_flash_decode_fwd, q.shape[-1])
+    counter.launches += 1
+    counter.multi_row_launches += _multi_row(q, k_pool)
     return out
 
 
 paged_flash_decode_fwd.launches = paged_flash_decode_fwd.multi_row_launches = 0
+paged_flash_decode_fwd.d96 = SimpleNamespace(launches=0, multi_row_launches=0)
 
 
 def paged_flash_decode_attention(q, k_pool, v_pool, block_table, q_pos: torch.Tensor,
@@ -512,6 +527,8 @@ def _qpaged_kernel_call(q, k_pool, v_pool, k_scale, v_scale, block_table, q_pos,
 
     b, s, h, d = q.shape
     hkv, n_log = k_pool.shape[2], block_table.shape[1]
+    if d != 128:
+        raise ValueError(f"K5q is built for head_dim 128, got {d}")
     if page_size < 1 or 128 % page_size:
         raise ValueError(f"K5q takes a page_size dividing 128, got {page_size}")
     if (block_table.dtype != torch.int32 or block_table.device != q.device

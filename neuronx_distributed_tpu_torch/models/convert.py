@@ -1,5 +1,6 @@
-"""Carry JAX Llama, Medusa and Mixtral weights across (no JAX counterpart): the flax
-param tree, as nested dicts of numpy arrays, becomes the port's state dict.
+"""Carry JAX Llama, Medusa, Mixtral, GPT-NeoX, CodeGen and DBRX weights
+across (no JAX counterpart): the flax param tree, as nested dicts of numpy
+arrays, becomes the port's state dict.
 
 Flax ``kernel`` leaves are ``(in, out)``; torch ``weight`` is ``(out, in)``.
 Both layer layouts of the JAX model are read: unscanned ``layers_<i>`` and
@@ -11,7 +12,12 @@ its ``(1, out)`` scale becomes ``(out,)`` (a per-tensor scale stays a
 scalar). A Mixtral's expert stacks ``moe/experts/{gate,up,down}_proj``
 ``(E, in, out)`` become ``(E, out, in)``, their ``<name>_scale`` ``(E, 1,
 out)`` becomes ``(E, out)`` (per tensor ``(E,)`` stays), and the router
-``moe/router/weight`` ``(H, E)`` becomes ``(E, H)``.
+``moe/router/weight`` ``(H, E)`` becomes ``(E, H)``. The GPT-style
+families' LayerNorms (``<norm>/ln/{scale,bias}``) become ``<norm>.weight``
+and ``.bias``, a linear's ``bias`` its ``.bias``; their layers
+(``layers_<i>``, CodeGen's and DBRX's ``blocks_<i>``) become
+``model.layers.<i>``, and the top-level ``embed``/``final_norm`` move
+under ``model.``.
 """
 
 from __future__ import annotations
@@ -72,12 +78,15 @@ def _linear_entries(node, name: str, index=None) -> Dict[str, torch.Tensor]:
         arr = np.asarray(node[key])
         return arr if index is None else arr[index]
 
+    bias = {}
+    if "bias" in node:
+        bias = {name[: -len("weight")] + "bias": _tensor(leaf("bias"), False)}
     if "scale" not in node:
-        return {name: _tensor(leaf("kernel"), True)}
+        return {name: _tensor(leaf("kernel"), True), **bias}
     scale = np.asarray(leaf("scale"), dtype=np.float32)
     return {name: _codes(leaf("kernel")),
             name[: -len("weight")] + "scale": torch.from_numpy(
-                np.array(scale.reshape(-1) if scale.ndim else scale))}
+                np.array(scale.reshape(-1) if scale.ndim else scale)), **bias}
 
 
 def flax_to_torch(params_np, config: LlamaConfig) -> Dict[str, torch.Tensor]:
@@ -175,3 +184,73 @@ def medusa_flax_to_torch(params_np, config: LlamaConfig,
         sd[f"medusa_head_{i}.weight"] = _tensor(_leaf(tree, (f"medusa_head_{i}", "kernel")),
                                                 True)
     return sd
+
+
+def _ln_entries(node, name: str) -> Dict[str, torch.Tensor]:
+    """A flax ``LayerNorm`` node (``{"ln": {"scale"[, "bias"]}}``) as the
+    port's ``<name>.weight`` (and ``.bias``)."""
+    ln = node["ln"]
+    out = {f"{name}.weight": _tensor(_leaf(ln, ("scale",)), False)}
+    if "bias" in ln:
+        out[f"{name}.bias"] = _tensor(_leaf(ln, ("bias",)), False)
+    return out
+
+
+def _gpt_entries(tree, layer_key: str, num_layers: int, per_layer) -> Dict[str, torch.Tensor]:
+    """The flat trees of the GPT-style families (embed, ``<layer_key>_<i>``,
+    final_norm, lm_head at the top): ``per_layer(node, prefix)`` gives each
+    layer's entries."""
+    tree = tree.get("params", tree)
+    sd = {"model.embed.weight": _tensor(_leaf(tree, ("embed", "embedding")), False),
+          **_ln_entries(tree["final_norm"], "model.final_norm"),
+          **_linear_entries(tree["lm_head"], "lm_head.weight")}
+    for i in range(num_layers):
+        sd.update(per_layer(tree[f"{layer_key}_{i}"], f"model.layers.{i}"))
+    return sd
+
+
+def _attn_mlp_entries(node, prefix: str, norms) -> Dict[str, torch.Tensor]:
+    """``ParallelSelfAttention`` (``attn/qkv/{q,k,v}_proj``, ``attn/o_proj``),
+    ``ParallelMLP`` (``mlp/{up,down}``) and the LayerNorms ``norms``."""
+    sd = {}
+    for norm in norms:
+        sd.update(_ln_entries(node[norm], f"{prefix}.{norm}"))
+    for proj in ("q_proj", "k_proj", "v_proj"):
+        sd.update(_linear_entries(node["attn"]["qkv"][proj], f"{prefix}.attn.qkv.{proj}.weight"))
+    sd.update(_linear_entries(node["attn"]["o_proj"], f"{prefix}.attn.o_proj.weight"))
+    for proj in ("up", "down"):
+        sd.update(_linear_entries(node["mlp"][proj], f"{prefix}.mlp.{proj}.weight"))
+    return sd
+
+
+def gpt_neox_flax_to_torch(params_np, config) -> Dict[str, torch.Tensor]:
+    """State dict for ``GPTNeoXForCausalLM(config)`` from the JAX
+    ``GPTNeoXForCausalLM`` params (fp32 CPU tensors, which
+    ``load_state_dict`` casts to the stored dtype)."""
+    return _gpt_entries(params_np, "layers", config.num_layers,
+                        lambda node, p: _attn_mlp_entries(node, p, ("input_norm", "post_attn_norm")))
+
+
+def codegen_flax_to_torch(params_np, config) -> Dict[str, torch.Tensor]:
+    """State dict for ``CodeGenForCausalLM(config)`` from the JAX
+    ``CodeGenForCausalLM`` params (``blocks_<i>``; lm_head's bias too)."""
+    return _gpt_entries(params_np, "blocks", config.num_layers,
+                        lambda node, p: _attn_mlp_entries(node, p, ("input_norm",)))
+
+
+def dbrx_flax_to_torch(params_np, config) -> Dict[str, torch.Tensor]:
+    """State dict for ``DbrxForCausalLM(config)`` from the JAX
+    ``DbrxForCausalLM`` params (``blocks_<i>``; a quantized tree's codes bit
+    for bit, as :func:`mixtral_flax_to_torch`)."""
+    def block(node, p):
+        sd = {**_ln_entries(node["norm_1"], f"{p}.norm_1"),
+              **_ln_entries(node["norm_2"], f"{p}.norm_2")}
+        for proj in ("q_proj", "k_proj", "v_proj"):
+            sd.update(_linear_entries(node["attn"]["qkv"][proj], f"{p}.attn.qkv.{proj}.weight"))
+        sd.update(_linear_entries(node["attn"]["o_proj"], f"{p}.attn.o_proj.weight"))
+        sd[f"{p}.moe.router.weight"] = _tensor(_leaf(node, ("moe", "router", "weight")), True)
+        for key in _EXPERT_LEAVES:
+            sd.update(_stack_entries(node["moe"]["experts"], key, f"{p}.moe.experts.{key}"))
+        return sd
+
+    return _gpt_entries(params_np, "blocks", config.num_layers, block)

@@ -298,22 +298,24 @@ class MixtralForCausalLM(nn.Module):
 
 def _fill(t: torch.Tensor, name: str, gen: torch.Generator) -> None:
     """One weight's seeded values, by :func:`init_params`'s rule."""
-    if name.endswith("norm.weight"):
-        t.fill_(1.0)
-    elif name == "model.embed.weight":
+    if name == "model.embed.weight":
         t.normal_(0.0, 1.0, generator=gen)
     elif t.dim() >= 2:
         t.normal_(0.0, 1.0 / math.sqrt(t.shape[-1]), generator=gen)
-    else:
+    elif name.endswith(".weight"):  # a norm's scale
+        t.fill_(1.0)
+    else:  # a bias
         t.zero_()
 
 
 @torch.no_grad()
-def init_params(model: MixtralForCausalLM, seed: int = 0) -> MixtralForCausalLM:
+def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
     """Random weights from ``seed`` on the model's own device: linears,
     routers and expert stacks N(0, 1/fan_in) (JAX's lecun-normal scale,
     untruncated; a stack's fan-in is one expert's), the embedding N(0, 1),
-    norms 1, drawn weight by weight in state-dict order (a trainable model's
+    norms 1 and biases 0, drawn weight by weight in state-dict order, for a
+    Mixtral and for the other families (GPT-NeoX, CodeGen, DBRX: a 41 GB
+    model is filled on the card with no host copy; a trainable model's
     fp32 masters as a serving model's stored weights). A quantized model
     draws each selected weight in the compute dtype, as the float model
     holds it, and stores its codes and scales (``quantize_weight``), so
@@ -326,18 +328,19 @@ def init_params(model: MixtralForCausalLM, seed: int = 0) -> MixtralForCausalLM:
     )
 
     cfg = model.config
+    qcfg = getattr(cfg, "quantization", None)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     sd = model.state_dict()
     scales = {scale_name(n) for n, t in sd.items() if _selected(n, t)}
     for name, t in sd.items():
         if name in scales:
             continue
-        if cfg.quantization is None or not _selected(name, t) or scale_name(name) not in sd:
+        if qcfg is None or not _selected(name, t) or scale_name(name) not in sd:
             _fill(t, name, gen)
             continue
         w = torch.empty(t.shape, dtype=cfg.dtype, device=t.device)
         _fill(w, name, gen)
-        q, s = quantize_weight(w, cfg.quantization)
+        q, s = quantize_weight(w, qcfg)
         del w
         t.copy_(q)
         sd[scale_name(name)].copy_(s)

@@ -1,7 +1,9 @@
 """RoPE, the attention dispatcher, the KV caches and decode attention
 (counterpart of ``neuronx_distributed_tpu/modules/attention.py``, the subset
 the serving path runs: cp = 1, row and paged caches, and the prefix cache's
-extract and seed).
+extract and seed), and the GPT-style blocks the other decoder families
+stand on: :class:`ParallelSelfAttention` (partial rotary, biased
+projections) and :class:`ParallelMLP`.
 
 The JAX cache is a flax ``cache`` collection that each program returns
 updated (the engine donates it so XLA updates it in place). Here the cache is
@@ -20,6 +22,8 @@ from __future__ import annotations
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 
 from neuronx_distributed_tpu_torch.kernels.flash_attention import flash_attention
 from neuronx_distributed_tpu_torch.kernels.flash_decode import (
@@ -30,6 +34,8 @@ from neuronx_distributed_tpu_torch.kernels.flash_decode import (
     qpaged_write_attend_fwd,
 )
 from neuronx_distributed_tpu_torch.kernels.kv_quant import window_requantize_fwd, write_window
+from neuronx_distributed_tpu_torch.modules.qkv_linear import GQAQKVColumnParallelLinear
+from neuronx_distributed_tpu_torch.parallel.layers import ColumnParallelLinear, RowParallelLinear
 
 NEG_INF = -1e30
 
@@ -652,3 +658,101 @@ def tree_decode_attention(q, k_cache, v_cache, mask: torch.Tensor,
     else:
         num = _f32_bmm(p, vt)
     return num.view(b, hkv, g, s, d).permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+# --- the GPT-style blocks (GPT-NeoX, CodeGen) ------------------------------------
+
+def rotary_dims(head_dim: int, rotary_pct: float) -> int:
+    """The leading channels of each head that take RoPE (JAX ``_rope``,
+    ``attention.py:802-816``): ``int(head_dim * rotary_pct)`` made even; 0
+    (``rotary_pct`` <= 0) disables RoPE."""
+    if rotary_pct <= 0.0:
+        return 0
+    rot = int(head_dim * rotary_pct)
+    return rot - rot % 2
+
+
+class ParallelSelfAttention(nn.Module):
+    """Multi-head self-attention, a kv-head a head (JAX
+    ``ParallelSelfAttention``, ``attention.py:778-886``), tp = 1. RoPE, in
+    JAX's half-split convention, on the first :func:`rotary_dims` channels
+    of each head, from the
+    ``freqs`` table the model builds for that width (GPT-NeoX's
+    ``rotary_pct``; CodeGen's ``rotary_dim / head_dim``; 0 disables it).
+    ``use_bias`` biases q/k/v and ``o_proj``. The modes and arguments are
+    :class:`~neuronx_distributed_tpu_torch.models.llama.LlamaAttention`'s:
+    train (K1, ``causal`` or not), prefill (K1, causal, the prompt's K/V
+    written to the cache) and decode (the cache's ``write_attend``: K4 or
+    K5); the model's ``mode_inputs`` supplies the positions. The cache
+    modes need ``causal``."""
+
+    def __init__(self, hidden_size: int, num_heads: int, causal: bool = False,
+                 use_bias: bool = True, rotary_pct: float = 0.0,
+                 dtype: torch.dtype = torch.float32, param_dtype: torch.dtype = torch.float32,
+                 device=None, trainable: bool = False):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = d = hidden_size // num_heads
+        self.rot = rotary_dims(d, rotary_pct)
+        self.causal = causal
+        w = dict(dtype=dtype, param_dtype=param_dtype, device=device, trainable=trainable)
+        self.qkv = GQAQKVColumnParallelLinear(hidden_size, num_heads, num_heads, d,
+                                              use_bias=use_bias, **w)
+        self.o_proj = RowParallelLinear(num_heads * d, hidden_size, use_bias=use_bias, **w)
+
+    def _rope(self, x: torch.Tensor, freqs, positions) -> torch.Tensor:
+        r = self.rot
+        if not r:
+            return x
+        return torch.cat([apply_rope(x[..., :r], freqs, positions), x[..., r:]], dim=-1)
+
+    def forward(self, x, freqs, positions, mode: str, cache: Optional[KVCache], layer: int,
+                q_pos=None, segment_ids=None, padding_mask=None, attn_mask=None):
+        """``x`` (B, S, hidden); ``freqs`` (max_seq_len, rot / 2); the rest
+        as ``LlamaAttention.forward``."""
+        if mode != "train" and not self.causal:
+            raise ValueError("KV-cache modes require causal attention")
+        h, d = self.num_heads, self.head_dim
+        q, k, v = self.qkv(x)
+        b, s = q.shape[0], q.shape[1]
+        q = self._rope(q.reshape(b, s, h, d), freqs, positions)
+        k = self._rope(k.reshape(b, s, h, d), freqs, positions)
+        v = v.reshape(b, s, h, d)
+        if mode == "decode":
+            out = cache.write_attend(layer, q, k, v, q_pos, attn_mask)
+        else:
+            if mode == "prefill":
+                cache.prefill_write(layer, k, v)
+            out = attention_op(q, k, v, causal=self.causal, mask=padding_mask,
+                               segment_ids=segment_ids)
+        return self.o_proj(out.reshape(b, s, h * d))
+
+
+# JAX ``ParallelMLP``'s activations (``attention.py:907-912``)
+ACTIVATIONS = {
+    "gelu": F.gelu,  # exact erf
+    "gelu_new": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+    "silu": F.silu,
+}
+
+
+class ParallelMLP(nn.Module):
+    """Up, the activation, down, each linear biased when ``use_bias`` (JAX
+    ``ParallelMLP``, ``attention.py:889-922``): every step in the compute
+    dtype, as JAX's."""
+
+    def __init__(self, hidden_size: int, intermediate_size: int, activation: str = "gelu",
+                 use_bias: bool = True, dtype: torch.dtype = torch.float32,
+                 param_dtype: torch.dtype = torch.float32, device=None, trainable: bool = False):
+        super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"unknown activation {activation!r}; one of {sorted(ACTIVATIONS)}")
+        self.act = ACTIVATIONS[activation]
+        w = dict(use_bias=use_bias, dtype=dtype, param_dtype=param_dtype, device=device,
+                 trainable=trainable)
+        self.up = ColumnParallelLinear(hidden_size, intermediate_size, **w)
+        self.down = RowParallelLinear(intermediate_size, hidden_size, **w)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down(self.act(self.up(x)))

@@ -9,13 +9,18 @@ attached: device scalars of the dict (``loss``, ``grad_norm``, the guard's
 flags) are stored RAW in their gauges and read only when the registry is
 exported (``Gauge.set``), so ``on_step_end`` never waits on the device. Host
 values (throughput, counters, the wall this callback measures) go straight
-in."""
+in. The health gauge reads the trainer through a weak reference, as the
+engine's gauges do (``observability/programs.py weak_reader``): a trainer
+that holds this callback is freed as soon as its last reference goes, with
+no wait for the cyclic collector, and a registry kept past it reads -1
+there."""
 
 from __future__ import annotations
 
 import time
 from typing import Optional
 
+from neuronx_distributed_tpu_torch.observability.programs import weak_reader
 from neuronx_distributed_tpu_torch.observability.registry import MetricsRegistry
 
 __all__ = ["MetricsCallback"]
@@ -50,7 +55,8 @@ class MetricsCallback:
     def on_train_start(self, trainer) -> None:
         self._t_last = time.perf_counter()
         self.registry.gauge(f"{self.prefix}_health", help="0=ok 1=degraded 2=halted").set_fn(
-            lambda: {"ok": 0, "degraded": 1, "halted": 2}.get(trainer.health().value, -1))
+            weak_reader(trainer, lambda t: {"ok": 0, "degraded": 1, "halted": 2}.get(
+                t.health().value, -1), default=-1))
 
     def on_step_end(self, trainer, metrics: dict) -> None:
         now = time.perf_counter()

@@ -833,7 +833,8 @@ class ServingEngine:
         cfg = getattr(model, "config", None)
         if not hasattr(cfg, "quantization"):
             raise ValueError("quantize.weights needs a model whose config carries a "
-                             f"'quantization' field (Llama, Mixtral); got {type(cfg).__name__}")
+                             f"'quantization' field (Llama, Mixtral, DBRX); got "
+                             f"{type(cfg).__name__}")
         if cfg.quantization is not None:
             raise ValueError("model already carries a quantization config — pass the float "
                              "model (the engine quantizes) or drop quantize=")

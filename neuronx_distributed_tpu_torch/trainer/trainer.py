@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from neuronx_distributed_tpu_torch.models.dbrx import DbrxForCausalLM
 from neuronx_distributed_tpu_torch.models.llama import init_params
 from neuronx_distributed_tpu_torch.models.mixtral import MixtralForCausalLM
 from neuronx_distributed_tpu_torch.models.mixtral import init_params as init_mixtral_params
@@ -404,12 +405,13 @@ def create_train_state(model, optimizer: AdamW, seed: int = 0) -> TrainState:
     """Initialise a trainable model's parameters from ``seed`` (its
     family's ``init_params``: :func:`~neuronx_distributed_tpu_torch.models.
     llama.init_params`, or :func:`~neuronx_distributed_tpu_torch.models.
-    mixtral.init_params` for a Mixtral; the port's counterpart of the JAX
+    mixtral.init_params` for a Mixtral or a DBRX; the port's counterpart of the JAX
     ``rng_key``) and the optimizer state beside them on the model's device
     (JAX ``create_train_state``, ``trainer.py:438``, minus the shardings)."""
     if not getattr(model, "trainable", False):
         raise ValueError("create_train_state needs a model built with trainable=True")
-    init = init_mixtral_params if isinstance(model, MixtralForCausalLM) else init_params
+    moe = isinstance(model, (MixtralForCausalLM, DbrxForCausalLM))
+    init = init_mixtral_params if moe else init_params
     init(model, seed=seed)
     params = [p for p in model.parameters() if p.requires_grad]
     return TrainState(step=0, params=model, opt_state=optimizer.init(params))

@@ -174,14 +174,14 @@ def test_flash_decode_kernel_matches_plain(cuda, s, bound, h):
     assert float(got[2].abs().max()) == 0.0
 
 
-def _paged_case(gen, s, ps, h=8, hkv=2, b=3, L=384, bound=341):
+def _paged_case(gen, s, ps, h=8, hkv=2, b=3, L=384, bound=341, d=128):
     """q, pools, a numpy-seeded scrambled block table (unmapped pages -> the
     null page, filled with large garbage), positions and kv_valid with left
     padding and gaps that stops at each slot's mapped columns."""
     n_log = L // ps
     n_pages = b * n_log + 1
-    q = _rnd(gen, b, s, h, 128)
-    kp, vp = _rnd(gen, n_pages, ps, hkv, 128), _rnd(gen, n_pages, ps, hkv, 128)
+    q = _rnd(gen, b, s, h, d)
+    kp, vp = _rnd(gen, n_pages, ps, hkv, d), _rnd(gen, n_pages, ps, hkv, d)
     kp[0].mul_(50.0)
     vp[0].mul_(50.0)
     rng = np.random.default_rng(ps + s)
@@ -335,13 +335,13 @@ def test_flash_decode_kernels_with_dead_ranges(cuda, case):
     assert torch.equal(paged, got) and torch.equal(paged_lse, lse)
 
 
-def _suffix_case(gen, s, h, hkv, b=2, L=2048, prefix=1500):
+def _suffix_case(gen, s, h, hkv, b=2, L=2048, prefix=1500, d=128):
     """A suffix prefill's decode call: q of ``s`` tokens at columns
     [prefix, prefix + s) behind a live prefix; slot 1 left-padded over its
     first 300 columns, a gap of dead columns in both prefixes, and the last
     3 suffix tokens a pad tail (invalid columns, rows still computed)."""
-    q = _rnd(gen, b, s, h, 128)
-    kc, vc = _rnd(gen, b, L, hkv, 128), _rnd(gen, b, L, hkv, 128)
+    q = _rnd(gen, b, s, h, d)
+    kc, vc = _rnd(gen, b, L, hkv, d), _rnd(gen, b, L, hkv, d)
     pos = torch.arange(prefix, prefix + s, dtype=torch.int32, device="cuda")
     valid = torch.zeros(b, L, dtype=torch.bool, device="cuda")
     valid[:, :prefix + s - 3] = True
@@ -2355,3 +2355,96 @@ def test_mixtral_train_selective_route_raises_under_autograd(cuda):
         ref = m(x, top_e, top_w)
     rel = float((out.float() - ref.float()).norm() / ref.float().norm())
     assert rel <= 1e-2, rel
+
+
+# --- head_dim 96 (GPT-NeoX-20B): the builds of K1, K4 and K5 with
+# -DNXD_HEAD_DIM=96, against the same plain versions and limits
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segments", [None, "padding"])
+@pytest.mark.parametrize("h,hkv", [(8, 8), (32, 8)])
+@pytest.mark.parametrize("s", [1, 33, 200, 1000])
+def test_flash_attention_head_dim_96_matches_plain(cuda, s, h, hkv, segments):
+    """K1's head_dim-96 build against its plain version (causal; no
+    segments and left padding; multi-head and GQA); its launches count in
+    ``d96`` alone; q read in place from a fused (B, S, 3, H, 96) tensor."""
+    b = 2
+    qkv = _rnd(cuda, b, s, 3, h, 96)
+    q = qkv[:, :, 0]
+    k, v = _rnd(cuda, b, s, hkv, 96), _rnd(cuda, b, s, hkv, 96)
+    n128, n96 = tfa.flash_attention_fwd.launches, tfa.flash_attention_fwd.d96.launches
+    seg = _k1_segments(segments, b, s)
+    got, lse = tfa.flash_attention_fwd(q, k, v, True, seg, seg)
+    assert tfa.flash_attention_fwd.launches == n128
+    assert tfa.flash_attention_fwd.d96.launches == n96 + 1
+    want, wlse = tfa.flash_attention_plain(q, k, v, True, seg, seg)
+    pv = tfa.flash_attention_plain(q, k, v.abs(), True, seg, seg)[0]
+    _assert_out_close(got, want, pv, 2.0 ** -8)
+    torch.testing.assert_close(lse, wlse, atol=5e-4, rtol=1e-4)
+    again, again_lse = tfa.flash_attention_fwd(q, k, v, True, seg, seg)
+    assert torch.equal(got, again) and torch.equal(lse, again_lse)
+
+
+def _decode_96_check(q, kc, vc, pos, valid, ps=16):
+    """K4 and K5 (through a scrambled table) at head_dim 96 against their
+    plain versions; K5 bitwise equal to K4 on the gathered view; the
+    launches counted in ``d96`` alone."""
+    n4, n5 = tfd.flash_decode_fwd.d96.launches, tfd.paged_flash_decode_fwd.d96.launches
+    l4, l5 = tfd.flash_decode_fwd.launches, tfd.paged_flash_decode_fwd.launches
+    got, lse = tfd.flash_decode_fwd(q, kc, vc, pos, valid)
+    want, wlse = tfd.flash_decode_plain(q, kc, vc, pos, valid)
+    pv = tfd.flash_decode_plain(q, kc, vc.abs(), pos, valid)[0]
+    _assert_out_close(got, want, pv, 2.0 ** -12)
+    torch.testing.assert_close(lse, wlse, atol=5e-4, rtol=1e-4)
+    kp, vp, bt = _paged_view(torch.Generator(device="cuda").manual_seed(1), kc, vc, valid, ps)
+    paged, paged_lse = tfd.paged_flash_decode_fwd(q, kp, vp, bt, pos, valid, ps)
+    row, row_lse = tfd.flash_decode_fwd(q, tfd.paged_gather_leaf(kp, bt, ps),
+                                        tfd.paged_gather_leaf(vp, bt, ps), pos, valid)
+    assert torch.equal(paged, row) and torch.equal(paged_lse, row_lse)
+    assert (tfd.flash_decode_fwd.d96.launches, tfd.paged_flash_decode_fwd.d96.launches) == (
+        n4 + 2, n5 + 1)
+    assert (tfd.flash_decode_fwd.launches, tfd.paged_flash_decode_fwd.launches) == (l4, l5)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,hkv", [(1, 8, 8), (1, 32, 8), (16, 8, 8), (4, 32, 8)])
+def test_flash_decode_head_dim_96_split_path(cuda, s, h, hkv):
+    """The split path (R <= 32) of K4 and K5 at head_dim 96: the decode
+    step, GPT-NeoX's verify window (group 1, s = 16) and a GQA window."""
+    q, kc, vc, pos, valid = _suffix_case(cuda, s, h, hkv, L=1024, prefix=700, d=96)
+    got = _decode_96_check(q, kc, vc, pos, valid)
+    assert got.shape == (2, s, h, 96)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,h,hkv,ps", [(64, 4, 4, 16), (256, 4, 4, 16), (40, 8, 2, 8),
+                                         (100, 4, 4, 128)])
+def test_flash_decode_head_dim_96_multi_row(cuda, s, h, hkv, ps):
+    """The multi-row path (R > 32) of K4 and K5 at head_dim 96: group 1 (64
+    tokens a row tile, GPT-NeoX's) up to R = 256, group 4, and page sizes
+    16, 8 and 128."""
+    q, kc, vc, pos, valid = _suffix_case(cuda, s, h, hkv, d=96)
+    _decode_96_check(q, kc, vc, pos, valid, ps)
+
+
+@pytest.mark.cuda
+def test_head_dim_96_builds_do_not_spill_and_refuse_the_rest(cuda):
+    """``ptxas -v`` for the head_dim-96 builds: no kernel spills; K5q takes
+    head_dim 128 alone; a head dim with no build raises before a launch."""
+    from neuronx_distributed_tpu_torch.kernels import _build
+
+    for name in ("flash_attention_d96", "flash_decode_d96"):
+        report = _build.resource_report(name)
+        spills = [line for line in report.splitlines() if "spill" in line]
+        assert spills and all("0 bytes spill stores, 0 bytes spill loads" in line
+                              for line in spills), report
+    q, kp, vp, bt, pos, valid = _paged_case(cuda, 1, 16, d=96)
+    kq = torch.zeros(kp.shape, dtype=torch.int8, device="cuda")
+    sc = torch.ones(kp.shape[0], 1, kp.shape[2], 1, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):
+        tfd.qpaged_flash_decode_fwd(q, kq, kq, sc, sc, bt, pos, valid, 16)
+    with pytest.raises(ValueError):  # head_dim 80: no build
+        x = _rnd(cuda, 1, 16, 4, 80)
+        tfa.flash_attention_fwd(x, x, x)

@@ -145,6 +145,20 @@ def test_every_module_imports_and_runs_with_jax_blocked():
             moe_engine.run()
             if "quantize" not in kw:
                 assert req.tokens == moe_solo, (kw, req.tokens, moe_solo)
+        from neuronx_distributed_tpu_torch.models import (
+            CodeGenForCausalLM, DbrxForCausalLM, GPTNeoXForCausalLM, tiny_codegen, tiny_dbrx,
+            tiny_gpt_neox)
+        from neuronx_distributed_tpu_torch.models.gpt_neox import init_params as family_init
+        for fam in (GPTNeoXForCausalLM(tiny_gpt_neox(hidden_size=192, num_heads=2), device="cpu"),
+                    CodeGenForCausalLM(tiny_codegen(), device="cpu"),
+                    DbrxForCausalLM(tiny_dbrx(), device="cpu")):
+            family_init(fam, seed=0)
+            fam_solo = generate(fam, np.array([[3, 4, 5]]), cfg)[0].tolist()
+            for kw in (dict(), dict(kv_page_size=8, kv_num_pages=9)):
+                fam_engine = ServingEngine(fam, num_slots=2, decode_chunk_size=2, **kw)
+                req = fam_engine.submit([3, 4, 5], cfg)
+                fam_engine.run()
+                assert req.tokens == fam_solo, (type(fam).__name__, kw, req.tokens, fam_solo)
         from neuronx_distributed_tpu_torch.inference.medusa import medusa_generate
         from neuronx_distributed_tpu_torch.models.medusa import (
             MedusaForCausalLM, init_medusa_heads)
@@ -205,6 +219,10 @@ def test_every_module_imports_and_runs_with_jax_blocked():
             "neuronx_distributed_tpu_torch.integrity.checkpoint",
             "neuronx_distributed_tpu_torch.observability.callback",
             "neuronx_distributed_tpu_torch.models.mixtral",
+            "neuronx_distributed_tpu_torch.models.gpt_neox",
+            "neuronx_distributed_tpu_torch.models.codegen",
+            "neuronx_distributed_tpu_torch.models.dbrx",
+            "neuronx_distributed_tpu_torch.modules.layer_norm",
             "neuronx_distributed_tpu_torch.modules.moe",
             "neuronx_distributed_tpu_torch.modules.moe.routing",
             "neuronx_distributed_tpu_torch.modules.moe.expert_mlps",
@@ -262,6 +280,13 @@ def test_entry_points_raise_without_a_device(monkeypatch):
         tllama.LlamaForCausalLM(tllama.tiny_llama(), device="cuda")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tmixtral.MixtralForCausalLM(tmixtral.tiny_mixtral())
+    from neuronx_distributed_tpu_torch import models
+
+    for cls, preset in ((models.GPTNeoXForCausalLM, models.tiny_gpt_neox),
+                        (models.CodeGenForCausalLM, models.tiny_codegen),
+                        (models.DbrxForCausalLM, models.tiny_dbrx)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cls(preset())
     assert resolve_device("cpu") == torch.device("cpu")
 
 

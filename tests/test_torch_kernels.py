@@ -150,6 +150,69 @@ def test_flash_decode_plain_matches_pallas(s, h, hkv, L, q0):
         np.asarray(want), atol=ATOL, rtol=0)
 
 
+# --- head_dim 96 (GPT-NeoX-20B: the head_dim-96 builds' plain versions) -------
+
+
+@pytest.mark.parametrize("s,h,hkv,segments", [(16, 4, 4, False), (13, 4, 2, True)])
+def test_flash_attention_plain_matches_pallas_at_head_dim_96(s, h, hkv, segments):
+    """K1's plain version at head_dim 96 against the Pallas forward (out and
+    LSE), causal, with and without left padding."""
+    rng = np.random.default_rng(96 + s)
+    q, k, v = _qkv(rng, 2, s, h, hkv, 96)
+    seg = _left_pad_segments([s, s - 5], s) if segments else None
+    jseg = None if seg is None else jnp.asarray(seg)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+                               segment_ids=jseg, interpret=True)
+    _, want_lse = jfa._flash_fwd(
+        jnp.swapaxes(jnp.asarray(q), 1, 2), jnp.swapaxes(jnp.asarray(k), 1, 2),
+        jnp.swapaxes(jnp.asarray(v), 1, 2), True, s, s, True, q_seg=jseg, k_seg=jseg,
+    )
+    got, lse = tfa.flash_attention_fwd(_t(q), _t(k), _t(v), causal=True,
+                                       segment_ids=None if seg is None else _t(seg))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse)[..., 0], atol=ATOL, rtol=1e-6)
+
+
+@pytest.mark.parametrize("s,h,hkv,L,q0", [
+    (1, 4, 4, 64, 40),    # GPT-NeoX's decode step: MHA
+    (16, 4, 4, 64, 30),   # its verify window, R = 16
+    (16, 8, 2, 64, 30),   # a suffix prefill: R = 64 (the multi-row path on the card)
+])
+def test_flash_decode_plain_matches_pallas_at_head_dim_96(s, h, hkv, L, q0):
+    """K4's and K5's plain versions at head_dim 96 against the Pallas
+    decode kernel and the Pallas paged kernel (a scrambled block table,
+    page 8, the null page masked)."""
+    rng = np.random.default_rng(960 + L + s + h)
+    b, d, ps = 3, 96, 8
+    q = rng.normal(size=(b, s, h, d)).astype(np.float32)
+    kc = rng.normal(size=(b, L, hkv, d)).astype(np.float32)
+    vc = rng.normal(size=(b, L, hkv, d)).astype(np.float32)
+    pos = np.arange(q0, q0 + s, dtype=np.int32)
+    valid = rng.random((b, L)) > 0.3
+    valid[1, :5] = False
+    want = jfd.flash_decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                                      jnp.asarray(pos), jnp.asarray(valid), interpret=True)
+    got, _ = tfd.flash_decode_fwd(_t(q), _t(kc), _t(vc), _t(pos), _t(valid))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    n_log = L // ps
+    perm = rng.permutation(np.arange(1, b * n_log + 1)).astype(np.int32)
+    table = perm.reshape(b, n_log)
+    kp = np.zeros((b * n_log + 1, ps, hkv, d), np.float32)
+    vp = np.zeros_like(kp)
+    kp[0], vp[0] = 50.0, -50.0  # the null page: never attended
+    kp[table.reshape(-1)] = kc.reshape(b * n_log, ps, hkv, d)
+    vp[table.reshape(-1)] = vc.reshape(b * n_log, ps, hkv, d)
+    table[2, -1] = 0
+    pvalid = valid.copy()
+    pvalid[2, -ps:] = False
+    jwant = jfd.paged_flash_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(table), jnp.asarray(pos),
+        jnp.asarray(pvalid), page_size=ps, interpret=True)
+    pgot, _ = tfd.paged_flash_decode_fwd(_t(q), _t(kp), _t(vp), _t(table), _t(pos), _t(pvalid),
+                                         ps)
+    np.testing.assert_allclose(pgot.numpy(), np.asarray(jwant), atol=ATOL, rtol=0)
+
+
 BWD_ATOL = 5e-5
 
 

@@ -413,6 +413,49 @@ def test_metrics_callback_registry_text_equals_jax(monkeypatch):
     assert "train_loss 1.75" in texts["port"] and "train_health 0" in texts["port"]
 
 
+def test_metrics_callback_does_not_keep_a_deleted_trainer_alive():
+    """A trainer that holds its MetricsCallback (trainer -> callback ->
+    registry -> health gauge -> trainer) is freed by its last ``del`` with
+    the cyclic collector off: the gauge reads the trainer through a weak
+    reference. While the trainer lives the gauge reads as JAX's does; after,
+    -1."""
+    import gc
+    import weakref
+
+    from neuronx_distributed_tpu.observability.callback import MetricsCallback as JMC
+    from neuronx_distributed_tpu_torch.observability.callback import MetricsCallback as TMC
+
+    class Health:
+        def __init__(self, value):
+            self.value = value
+
+    class Trainer:
+        def __init__(self, cb):
+            self.callbacks = [cb]
+            self.h = "degraded"
+
+        def health(self):
+            return Health(self.h)
+
+    texts = {}
+    for side, cls in (("jax", JMC), ("port", TMC)):
+        cb = cls()
+        trainer = Trainer(cb)
+        cb.on_train_start(trainer)
+        texts[side] = cb.registry.prometheus_text()
+    assert texts["port"] == texts["jax"] and "train_health 1" in texts["port"]
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        ref = weakref.ref(trainer)
+        del trainer
+        assert ref() is None
+    finally:
+        if was_enabled:
+            gc.enable()
+    assert "train_health -1" in cb.registry.prometheus_text()
+
+
 @pytest.mark.parametrize("policy", ["dots", "dots_saveable"])
 def test_remat_policies_give_bit_identical_gradients(policy):
     """A remat policy only chooses what is kept: the loss and every gradient
